@@ -1,0 +1,164 @@
+"""CLI: the reference-parity positional triple plus the JAX CLI's flags.
+
+    python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum \\
+        --delivery pool --pool-size 2
+
+runs on the GPU (``--platform cuda``, the default) or, when asked, on the
+CPU (``--platform cpu``). Flags keep the JAX CLI's names; a JAX CLI flag
+this slice does not port yet is rejected with the ROADMAP item that will
+port it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import Optional
+
+from .config import SimConfig, normalize_algorithm, normalize_topology
+
+# JAX CLI flags not ported yet, with the ROADMAP item that ports each.
+UNPORTED_FLAGS = {
+    "--backend": "A11", "--dtype": "A12", "--x64": "A12",
+    "--termination": "A6", "--deadline-ms": "A12",
+    "--overlap-collectives": "A10", "--halo-dma": "A10",
+    "--pool2-wire": "A10", "--devices": "A10", "--distributed": "A10",
+    "--coordinator": "A10", "--num-processes": "A10", "--process-id": "A10",
+    "--replicas": "A9", "--fault-rate": "A6", "--crash-rate": "A6",
+    "--crash-schedule": "A6", "--revive-rate": "A6",
+    "--revive-schedule": "A6", "--rejoin": "A6", "--byzantine-rate": "A6",
+    "--byzantine-schedule": "A6", "--byzantine-mode": "A6",
+    "--robust-agg": "A6", "--mass-tolerance": "A6", "--quorum": "A6",
+    "--telemetry": "A6", "--trace-convergence": "A6",
+    "--dup-rate": "A7", "--delay-rounds": "A7",
+    "--stall-chunks": "A8", "--profile": "A8", "--metrics-dump": "A8",
+    "--step-timing": "A8", "--events": "A8", "--checkpoint": "A8",
+    "--checkpoint-every": "A8", "--checkpoint-keep": "A8",
+    "--strict-checkpoint": "A8", "--resume": "A8",
+    "--strict-engine": "A12", "--compile-cache": "A12", "--plan": "A11",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="gossip-torch",
+        description=(
+            "gossip / push-sum simulator on PyTorch and CUDA "
+            "(usage parity: numNodes topology algorithm)"
+        ),
+    )
+    p.add_argument("numNodes", type=int, help="requested node count")
+    p.add_argument("topology", help="full (other kinds: ROADMAP A7)")
+    p.add_argument("algorithm", help="gossip | push-sum")
+    p.add_argument("--semantics", choices=["batched", "reference"],
+                   default="batched")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--delta", type=float, default=None,
+                   help="push-sum stability threshold (default 1e-6 in float32)")
+    p.add_argument("--rumor-threshold", type=int, default=10)
+    p.add_argument("--term-rounds", type=int, default=3)
+    p.add_argument("--max-rounds", type=int, default=1_000_000)
+    p.add_argument("--chunk-rounds", type=int, default=4096)
+    p.add_argument("--pipeline-chunks", type=int, default=2,
+                   help="chunks kept in flight (models/pipeline.py)")
+    p.add_argument("--target-frac", type=float, default=None)
+    p.add_argument("--suppress", choices=["auto", "on", "off"], default="auto",
+                   help="suppress gossip sends to converged targets "
+                   "(auto: on in reference semantics)")
+    p.add_argument("--delivery",
+                   choices=["auto", "scatter", "stencil", "pool", "matmul"],
+                   default="auto",
+                   help="message delivery; this slice runs 'pool' (auto means "
+                   "scatter on full, ROADMAP A7)")
+    p.add_argument("--pool-size", type=int, default=4,
+                   help="displacement-pool width for --delivery pool")
+    p.add_argument("--engine", choices=["auto", "chunked", "fused"],
+                   default="auto",
+                   help="fused: the pool kernels (their plain versions on the "
+                   "CPU); chunked: one torch round per step; auto: fused on "
+                   "CUDA, chunked on the CPU")
+    p.add_argument("--platform", choices=["cuda", "cpu"], default="cuda",
+                   help="device to run on; cpu must be asked for")
+    p.add_argument("--jsonl", type=str, default=None,
+                   help="append the structured run record to this JSONL file")
+    p.add_argument("--quiet", action="store_true",
+                   help="suppress the JSON record on stdout")
+    for flag in UNPORTED_FLAGS:
+        p.add_argument(flag, nargs="?", const=True, default=None,
+                       help=argparse.SUPPRESS)
+    return p
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    given = [
+        f for f in UNPORTED_FLAGS
+        if getattr(args, f[2:].replace("-", "_")) is not None
+    ]
+    if given:
+        print(
+            "Invalid: " + ", ".join(
+                f"{f} is not ported yet (ROADMAP {UNPORTED_FLAGS[f]})"
+                for f in given
+            ),
+            file=sys.stderr,
+        )
+        return 2
+
+    from .models.runner import run
+    from .ops.topology import build_topology
+    from .utils import metrics
+    from .utils.device import resolve_device
+
+    try:
+        device = resolve_device(args.platform)
+    except RuntimeError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 2
+    try:
+        algorithm = normalize_algorithm(args.algorithm)
+        kind = normalize_topology(args.topology, args.semantics)
+        cfg = SimConfig(
+            n=args.numNodes,
+            topology=kind,
+            algorithm=algorithm,
+            semantics=args.semantics,
+            seed=args.seed,
+            delta=args.delta,
+            rumor_threshold=args.rumor_threshold,
+            term_rounds=args.term_rounds,
+            max_rounds=args.max_rounds,
+            chunk_rounds=args.chunk_rounds,
+            pipeline_chunks=args.pipeline_chunks,
+            target_frac=args.target_frac,
+            suppress_converged=(
+                None if args.suppress == "auto" else args.suppress == "on"
+            ),
+            delivery=args.delivery,
+            pool_size=args.pool_size,
+            engine=args.engine,
+        )
+        print(metrics.banner(cfg))
+        t0 = time.perf_counter()
+        topo = build_topology(kind, args.numNodes, seed=args.seed,
+                              semantics=args.semantics)
+        build_s = time.perf_counter() - t0
+        result = run(topo, cfg, device=device)
+    except (ValueError, NotImplementedError) as e:
+        print(f"Invalid: {e}", file=sys.stderr)
+        return 2
+    result.build_s = build_s
+    print(metrics.convergence_line(result.wall_ms))
+    record = metrics.run_record(cfg, topo, result)
+    if not args.quiet:
+        print(json.dumps(record))
+    if args.jsonl:
+        metrics.append_jsonl(args.jsonl, record)
+    return 0 if result.converged else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

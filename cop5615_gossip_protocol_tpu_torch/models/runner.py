@@ -1,0 +1,371 @@
+"""Single-device round-loop harness.
+
+``run`` drives one simulation to convergence (or ``cfg.max_rounds``) in
+chunks of ``cfg.chunk_rounds`` rounds through the pipelined chunk loop
+(models/pipeline.py), and returns a ``RunResult``. Two engines serve this
+slice, as the JAX runner's do:
+
+- the fused pool engine (ops/fused_pool.py): the CUDA kernels on a CUDA
+  device, their plain torch versions on the CPU;
+- the chunked torch engine: one torch round per loop step on [n] tensors
+  (sampling, pool delivery, absorb), the JAX chunked engine's counterpart.
+
+``engine="auto"`` runs the kernels on CUDA and the chunked engine on the
+CPU; ``"fused"`` forces the fused engine (on the CPU, the plain versions);
+``"chunked"`` forces the chunked engine. There is no degradation ladder: a
+kernel that fails to build or launch raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import SimConfig, unported
+from ..ops import delivery as delivery_mod
+from ..ops import fused, fused_pool, rng, sampling
+from ..ops.topology import Topology
+from ..utils.device import resolve_device
+from ..utils.metrics import RUN_RECORD_SCHEMA_VERSION
+from . import gossip as gossip_mod
+from . import pipeline as pipeline_mod
+from . import pushsum as pushsum_mod
+
+# fold_in tag for the leader draw, above every round index (max_rounds <=
+# 2**30), so it never collides with a round key.
+_LEADER_TAG = 2**31 - 1
+
+
+@dataclasses.dataclass
+class RunResult:
+    """Structured result of one run; the JAX RunResult's fields, plus the
+    device the run went to."""
+
+    algorithm: str
+    topology: str
+    semantics: str
+    n_requested: int
+    population: int
+    target_count: int
+    rounds: int
+    converged_count: int
+    converged: bool
+    compile_s: float
+    run_s: float
+    build_s: float = 0.0
+    outcome: str = "converged"
+    unhealthy_round: Optional[int] = None
+    degradations: Optional[list] = None
+    true_mean: Optional[float] = None
+    estimate_mae: Optional[float] = None
+    schema_version: int = RUN_RECORD_SCHEMA_VERSION
+    dispatch_s: float = 0.0
+    fetch_s: float = 0.0
+    first_dispatch_s: float = 0.0
+    hook_s: float = 0.0
+    aux_s: float = 0.0
+    setup_s: float = 0.0
+    finalize_s: float = 0.0
+    device: str = ""
+    # Data, not measurements: excluded from to_record. ``state`` is the
+    # final canonical PushSumState/GossipState.
+    chunk_log: Optional[list] = None
+    state: Optional[object] = None
+
+    @property
+    def wall_ms(self) -> float:
+        """Steady-state run wall-clock in ms (excludes build and warmup)."""
+        return self.run_s * 1e3
+
+    def to_record(self) -> dict:
+        rec = {
+            f.name: getattr(self, f.name)
+            for f in dataclasses.fields(self)
+            if f.name not in ("chunk_log", "state")
+        }
+        rec["wall_ms"] = self.wall_ms
+        rec["rounds_per_sec"] = self.rounds / self.run_s if self.run_s > 0 else None
+        rec["residual_s"] = (
+            self.run_s - self.dispatch_s - self.fetch_s - self.hook_s
+        )
+        return rec
+
+
+def draw_leader(base_key, topo: Topology, cfg: SimConfig) -> int:
+    """Leader in [0, nodes): the reference's Random().Next(0, nodes), where
+    nodes excludes the Q1 extra actor (program.fs:173)."""
+    upper = int(topo.target_count if cfg.reference else topo.n)
+    return int(rng.randint(rng.fold_in(base_key, _LEADER_TAG), (), 0, upper))
+
+
+def _make_pool_round_fn(topo: Topology, cfg: SimConfig, base_key, device):
+    """The chunked engine's round on [n] tensors: the round draws
+    cfg.pool_size shared displacements, every node picks one with packed
+    choice bits, and delivery is pool_size masked rolls. Returns
+    (round_fn(state, round_idx) -> state, state0). Fault-free: every node
+    sends every round."""
+    n = topo.n
+    send_ok = torch.ones(n, dtype=torch.bool, device=device)
+
+    def pool_parts(round_idx: int):
+        kr = sampling.round_key(base_key, round_idx)
+        offs = sampling.pool_offsets(kr, cfg.pool_size, n).tolist()
+        choice = sampling.pool_choice_packed(kr, n, cfg.pool_size, device=device)
+        return choice, offs
+
+    if cfg.algorithm == "push-sum":
+        state0 = pushsum_mod.init_state(n, cfg.initial_term_round, device)
+        delta, term_rounds = cfg.resolved_delta, cfg.term_rounds
+
+        def round_fn(state, round_idx):
+            choice, offs = pool_parts(round_idx)
+            s_send, w_send, s_keep, w_keep = pushsum_mod.halve_and_send(
+                state.s, state.w, send_ok
+            )
+            inbox = delivery_mod.deliver_pool(
+                torch.stack([s_send, w_send]), choice, offs
+            )
+            return pushsum_mod.absorb(
+                state, s_keep, w_keep, inbox[0], inbox[1], delta, term_rounds
+            )
+
+    else:
+        leader = draw_leader(base_key, topo, cfg)
+        state0 = gossip_mod.init_state(
+            n, leader, cfg.reference and topo.kind == "full", device
+        )
+        rumor_target, suppress = cfg.resolved_rumor_target, cfg.resolved_suppress
+
+        def round_fn(state, round_idx):
+            choice, offs = pool_parts(round_idx)
+            vals = gossip_mod.send_values(state, send_ok)
+            inbox = delivery_mod.deliver_pool(vals[None], choice, offs)[0]
+            return gossip_mod.absorb(state, inbox, rumor_target, suppress)
+
+    return round_fn, state0
+
+
+def _host_done(state, target: int) -> bool:
+    return bool(int(state.conv.sum()) >= target)
+
+
+def _finalize_result(topo: Topology, cfg: SimConfig, state, rounds: int,
+                     target: int, compile_s: float, run_s: float, done: bool,
+                     loop, device) -> RunResult:
+    """The result record from the final canonical state, on the host in
+    float64 (diagnostics, never trajectory state)."""
+    conv_np = state.conv.cpu().numpy()
+    converged_count = int(conv_np.sum())
+    result = RunResult(
+        algorithm=cfg.algorithm,
+        topology=topo.kind,
+        semantics=cfg.semantics,
+        n_requested=topo.n_requested,
+        population=topo.n,
+        target_count=target,
+        rounds=rounds,
+        converged_count=converged_count,
+        converged=done,
+        compile_s=compile_s,
+        run_s=run_s,
+        outcome="converged" if done else "max_rounds",
+        device=describe_device(device),
+    )
+    if cfg.algorithm == "push-sum":
+        true_mean = (topo.n - 1) / 2.0
+        s_np = state.s.cpu().numpy().astype(np.float64)
+        w_np = state.w.cpu().numpy().astype(np.float64)
+        w_safe = np.where(w_np != 0, w_np, 1.0)
+        ratio = np.where(w_np != 0, s_np / w_safe, 0.0)
+        err = np.where(conv_np, np.abs(ratio - true_mean), 0.0)
+        mae = float(err.sum() / max(converged_count, 1))
+        result.true_mean = true_mean
+        result.estimate_mae = mae if math.isfinite(mae) else None
+    result.dispatch_s = loop.dispatch_s
+    result.fetch_s = loop.fetch_s
+    result.first_dispatch_s = loop.first_dispatch_s
+    result.chunk_log = loop.chunk_log
+    result.state = state
+    return result
+
+
+def describe_device(device: torch.device) -> str:
+    """The device a result ran on, by name (the card's, on CUDA)."""
+    if device.type == "cuda":
+        return f"{device}: {torch.cuda.get_device_name(device)}"
+    return str(device)
+
+
+def run(topo: Topology, cfg: SimConfig, key=None, device=None,
+        start_state=None, start_round: int = 0) -> RunResult:
+    """Run one simulation to convergence or cfg.max_rounds.
+
+    ``device`` is "cuda" (the default) or "cpu"; with no GPU and no
+    explicit CPU request this raises instead of running on the CPU.
+    ``key`` is the base key (default ``rng.PRNGKey(cfg.seed)``);
+    ``start_state``/``start_round`` resume from a canonical state at an
+    absolute round, on the same trajectory (round keys are absolute)."""
+    t_enter = time.perf_counter()
+    device = resolve_device(device)
+    key = rng.PRNGKey(cfg.seed) if key is None else key
+    target = cfg.resolved_target_count(topo.n, topo.target_count)
+    if cfg.engine != "chunked":
+        reason = fused_pool.pool_fused_support(topo, cfg)
+        if reason is not None and topo.n > fused_pool.MAX_POOL_NODES and (
+            cfg.engine == "fused" or device.type == "cuda"
+        ):
+            raise unported(f"population {topo.n} on the fused engine", "B4")
+        if cfg.engine == "fused":
+            if reason is not None:
+                raise ValueError(f"engine='fused' unavailable: {reason}")
+            return _run_fused(topo, cfg, key, device, start_state,
+                              start_round, target, t_enter)
+        if reason is None and device.type == "cuda":
+            return _run_fused(topo, cfg, key, device, start_state,
+                              start_round, target, t_enter)
+    return _run_chunked(topo, cfg, key, device, start_state, start_round,
+                        target, t_enter)
+
+
+def _to_device(state, device):
+    return type(state)(*(x.to(device).clone() for x in state))
+
+
+def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
+                 t_enter) -> RunResult:
+    round_fn, state0 = _make_pool_round_fn(topo, cfg, key, device)
+    if start_state is not None:
+        state0 = _to_device(start_state, device)
+    done0 = start_state is not None and _host_done(state0, target)
+
+    def chunk(state, status, round_end):
+        rnd, done = status
+        while not done and rnd < round_end:
+            state = round_fn(state, rnd)
+            rnd += 1
+            done = _host_done(state, target)
+        return state, (rnd, done)
+
+    t0 = time.perf_counter()
+    setup_s = t0 - t_enter
+    # Warmup: one real round, discarded (round keys are absolute, so the
+    # timed loop recomputes it identically).
+    chunk(state0, (start_round, False), min(start_round + 1, cfg.max_rounds))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    compile_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    loop = pipeline_mod.run_chunks(
+        dispatch=chunk, state0=state0, status0=(start_round, done0),
+        start_round=start_round, max_rounds=cfg.max_rounds,
+        stride=cfg.chunk_rounds, depth=cfg.pipeline_chunks,
+    )
+    run_s = time.perf_counter() - t1
+    t_fin = time.perf_counter()
+    result = _finalize_result(topo, cfg, loop.state, loop.rounds, target,
+                              compile_s, run_s, loop.done, loop, device)
+    result.setup_s = setup_s
+    result.finalize_s = time.perf_counter() - t_fin
+    return result
+
+
+def _run_fused(topo, cfg, key, device, start_state, start_round, target,
+               t_enter) -> RunResult:
+    """Chunk loop over the fused pool engine: one chunk call per
+    cfg.chunk_rounds rounds, with keys and displacement pools drawn on the
+    host (the wrappers copy them to the device without a sync)."""
+    layout = fused_pool.build_pool_layout(topo.n)
+    n = topo.n
+    if cfg.algorithm == "push-sum":
+        st = start_state or pushsum_mod.init_state(n, cfg.initial_term_round)
+        planes = (
+            fused._pad2d(st.s.cpu().to(torch.float32), layout, 0.0),
+            fused._pad2d(st.w.cpu().to(torch.float32), layout, 1.0),
+            fused._pad2d(st.term.cpu().to(torch.int32), layout, 0),
+            fused._pad2d(st.conv.cpu().to(torch.int32), layout, 0),
+        )
+
+        def chunk_fn(state, keys, offs, start, cap):
+            return fused_pool.pushsum_pool_chunk(
+                state, keys, offs, start, cap, n=n, target=target,
+                delta=cfg.resolved_delta, term_rounds=cfg.term_rounds,
+            )
+
+        def to_canonical(state):
+            s, w, t, c = (x.reshape(-1)[:n] for x in state)
+            return pushsum_mod.PushSumState(s=s, w=w, term=t, conv=c != 0)
+
+    else:
+        st = start_state or gossip_mod.init_state(
+            n, draw_leader(key, topo, cfg), cfg.reference and topo.kind == "full"
+        )
+        planes = (
+            fused._pad2d(st.count.cpu().to(torch.int32), layout, 0),
+            fused._pad2d(st.active.cpu().to(torch.int32), layout, 0),
+            fused._pad2d(st.conv.cpu().to(torch.int32), layout, 0),
+        )
+
+        def chunk_fn(state, keys, offs, start, cap):
+            return fused_pool.gossip_pool_chunk(
+                state, keys, offs, start, cap, n=n, target=target,
+                rumor_target=cfg.resolved_rumor_target,
+                suppress=cfg.resolved_suppress,
+            )
+
+        def to_canonical(state):
+            cnt, act, c = (x.reshape(-1)[:n] for x in state)
+            return gossip_mod.GossipState(count=cnt, active=act != 0, conv=c != 0)
+
+    state_dev = tuple(p.contiguous().to(device) for p in planes)
+    K = cfg.chunk_rounds
+    queued = {"end": start_round}  # nominal start of the next chunk
+
+    def dispatch(state, status, round_end):
+        # A chunk that runs at all starts where the previous one was told
+        # to end: a chunk stops short only at termination, and every later
+        # chunk is then a no-op that keeps the carry's counter.
+        start, queued["end"] = queued["end"], round_end
+        keys = fused.round_keys(key, start, K)
+        offs = fused_pool.round_offsets(key, start, K, cfg.pool_size, n)
+        new_state, executed = chunk_fn(state, keys, offs, start, round_end)
+        expected = min(K, max(round_end - start, 0))
+        ex = executed.to(torch.int64)
+        new_status = torch.stack(
+            [status[0] + ex, ((status[1] != 0) | (ex < expected)).to(torch.int64)]
+        )
+        return new_state, new_status
+
+    t0 = time.perf_counter()
+    setup_s = t0 - t_enter
+    # Warmup: builds the kernels on first use and runs one real round on
+    # the same input, discarded (the chunk leaves its input unchanged).
+    warm_end = min(start_round + 1, cfg.max_rounds)
+    chunk_fn(state_dev, fused.round_keys(key, start_round, 1),
+             fused_pool.round_offsets(key, start_round, 1, cfg.pool_size, n),
+             start_round, warm_end)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    compile_s = time.perf_counter() - t0
+
+    status0 = torch.tensor([start_round, 0], dtype=torch.int64, device=device)
+    t1 = time.perf_counter()
+    loop = pipeline_mod.run_chunks(
+        dispatch=dispatch, state0=state_dev, status0=status0,
+        start_round=start_round, max_rounds=cfg.max_rounds, stride=K,
+        depth=cfg.pipeline_chunks,
+    )
+    run_s = time.perf_counter() - t1
+    t_fin = time.perf_counter()
+    final = to_canonical(loop.state)
+    result = _finalize_result(topo, cfg, final, loop.rounds, target,
+                              compile_s, run_s, _host_done(final, target),
+                              loop, device)
+    result.setup_s = setup_s
+    result.finalize_s = time.perf_counter() - t_fin
+    return result

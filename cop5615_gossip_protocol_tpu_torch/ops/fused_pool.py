@@ -1,0 +1,335 @@
+"""Fused multi-round pool engine for the implicit full topology.
+
+One call runs a chunk of up to K synchronous push-sum or gossip rounds on
+the padded ``[rows, 128]`` layout of the JAX package's ops/fused_pool.py,
+consuming per-round fold_in keys and displacement pools, and stops early
+once the converged count reaches the target. ``pushsum_pool_chunk`` and
+``gossip_pool_chunk`` launch the CUDA kernels of csrc/fused_pool.cu on
+CUDA tensors and run their plain torch versions (``*_plain``) on CPU
+tensors; the plain versions run on any device and are what the kernels are
+held against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..config import SimConfig
+from ..utils import kernels
+from . import rng
+from .fused import LANES, clamp_cap_and_pad, make_done_flag, threefry_bits_2d
+from .sampling import (
+    POOL_CHOICE_BITS,
+    POOL_PACK,
+    POOL_TILE_ROWS,
+    _POOL_TAG,
+    choice_from_words,
+    pool_rows,
+)
+from .topology import Topology
+
+TILE = POOL_TILE_ROWS
+# The JAX engine's VMEM budget; larger populations run its streaming tier
+# (ops/fused_pool2.py), not ported yet (ROADMAP B4).
+MAX_POOL_NODES = 2**21
+POOL_SIZES = (2, 4, 8, 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolLayout:
+    n: int
+    n_pad: int
+    rows: int
+    tiles: int
+
+
+def build_pool_layout(n: int) -> PoolLayout:
+    rows = pool_rows(n)
+    return PoolLayout(n=n, n_pad=rows * LANES, rows=rows, tiles=rows // TILE)
+
+
+def pool_fused_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
+    """None if the fused pool engine can run this (fault-free) config, else
+    the reason."""
+    if not topo.implicit:
+        return (
+            "the fused pool engine serves the implicit full topology only; "
+            f"pooled delivery on {topo.kind!r} runs the chunked engine"
+        )
+    if cfg.pool_size > 1 << POOL_CHOICE_BITS:
+        return (
+            f"pool_size {cfg.pool_size} exceeds the packed-choice limit "
+            f"{1 << POOL_CHOICE_BITS}"
+        )
+    if topo.n > MAX_POOL_NODES:
+        return (
+            f"population {topo.n} exceeds the pool engine's {MAX_POOL_NODES} "
+            "nodes; the streaming pool tier is ROADMAP B4"
+        )
+    return None
+
+
+def round_offsets(base_key, start: int, count: int, pool_size: int,
+                  n: int) -> torch.Tensor:
+    """int32 ``[count, pool_size]`` displacement pools for absolute rounds
+    start..start+count: sampling.pool_offsets of each round's key."""
+    rounds = (start + torch.arange(count, dtype=torch.int64)) & rng.MASK
+    k1, k2 = rng.threefry2x32(int(base_key[0]), int(base_key[1]), 0, rounds)
+    t1, t2 = rng.threefry2x32(k1, k2, 0, _POOL_TAG)
+    slot = torch.arange(pool_size, dtype=torch.int64)[None, :]
+    a, b = rng.threefry2x32(t1[:, None], t2[:, None], 0, slot)
+    return (1 + (a ^ b) % (n - 1)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the kernels' function in torch, on any device.
+# ---------------------------------------------------------------------------
+
+
+def _choice_plane(key_row: torch.Tensor, rows: int, pool_size: int) -> torch.Tensor:
+    """int32 [rows, 128] pool slots of one round (packed words)."""
+    words = threefry_bits_2d(
+        key_row[0], key_row[1], rows // POOL_PACK, LANES, device=key_row.device
+    )
+    return choice_from_words(words, pool_size)
+
+
+def _sources(jflat: torch.Tensor, d, n: int) -> torch.Tensor:
+    """Flat source index of each receiver for the mod-n roll by d."""
+    return torch.where(jflat >= d, jflat - d, jflat - d + n).reshape(-1)
+
+
+def pushsum_pool_chunk_plain(state4, keys, offs, start: int, cap: int, *,
+                             n: int, target: int, delta: float,
+                             term_rounds: int):
+    """Up to K = keys.shape[0] push-sum pool rounds on the padded planes
+    (s, w, term, conv_i32). Returns (state4', rounds_executed)."""
+    s, w, t, c = (x.clone() for x in state4)
+    dev, rows = s.device, s.shape[0]
+    cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
+    keys, offs = keys.to(dev), offs.to(dev)
+    jflat = torch.arange(rows * LANES, device=dev).reshape(rows, LANES)
+    padm = jflat >= n
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    delta_t = torch.tensor(delta, dtype=torch.float32, device=dev)
+    done = make_done_flag(target)
+    finished = done(c.sum())
+    executed = 0
+    for k in range(keys.shape[0]):
+        if finished or start + k >= cap:
+            break
+        choice = _choice_plane(keys[k], rows, offs.shape[1]).reshape(-1)
+        ss = torch.where(padm, zero, s * 0.5)
+        ws = torch.where(padm, zero, w * 0.5)
+        in_s = torch.zeros_like(s)
+        in_w = torch.zeros_like(w)
+        for slot in range(offs.shape[1]):
+            src = _sources(jflat, offs[k, slot], n)
+            hit = (choice[src] == slot).reshape(rows, LANES)
+            in_s = in_s + torch.where(hit, ss.reshape(-1)[src].reshape(rows, LANES), zero)
+            in_w = in_w + torch.where(hit, ws.reshape(-1)[src].reshape(rows, LANES), zero)
+        in_s = torch.where(padm, zero, in_s)
+        in_w = torch.where(padm, zero, in_w)
+        s_new = (s - ss) + in_s
+        w_new = (w - ws) + in_w
+        received = in_w > 0
+        stable = torch.abs(s_new / w_new - s / w) <= delta_t
+        t = torch.where(received, torch.where(stable, t + 1, 0), t).to(torch.int32)
+        c = torch.where(padm, 0, (c != 0) | (t >= term_rounds)).to(torch.int32)
+        s, w = s_new, w_new
+        executed += 1
+        finished = done(c.sum())
+    return (s, w, t, c), torch.tensor(executed, dtype=torch.int32, device=dev)
+
+
+def gossip_pool_chunk_plain(state3, keys, offs, start: int, cap: int, *,
+                            n: int, target: int, rumor_target: int,
+                            suppress: bool):
+    """Up to K gossip pool rounds on the padded planes (count, active_i32,
+    conv_i32), with receiver-side suppression. Returns (state3',
+    rounds_executed)."""
+    cnt, act, c = (x.clone() for x in state3)
+    dev, rows = cnt.device, cnt.shape[0]
+    cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
+    keys, offs = keys.to(dev), offs.to(dev)
+    jflat = torch.arange(rows * LANES, device=dev).reshape(rows, LANES)
+    padm = jflat >= n
+    done = make_done_flag(target)
+    finished = done(c.sum())
+    executed = 0
+    for k in range(keys.shape[0]):
+        if finished or start + k >= cap:
+            break
+        choice = _choice_plane(keys[k], rows, offs.shape[1])
+        marked = torch.where((act != 0) & ~padm, choice, -1).reshape(-1)
+        inbox = torch.zeros_like(cnt)
+        for slot in range(offs.shape[1]):
+            src = _sources(jflat, offs[k, slot], n)
+            inbox = inbox + (marked[src] == slot).reshape(rows, LANES).to(torch.int32)
+        inbox = torch.where(padm, 0, inbox)
+        if suppress:
+            inbox = torch.where(c != 0, 0, inbox)
+        cnt = (cnt + inbox).to(torch.int32)
+        act = ((act != 0) | (inbox > 0)).to(torch.int32)
+        c = (cnt >= rumor_target).to(torch.int32)
+        executed += 1
+        finished = done(c.sum())
+    return (cnt, act, c), torch.tensor(executed, dtype=torch.int32, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: CUDA tensors launch the kernels, CPU tensors run the plain
+# versions. No fallback between the two.
+# ---------------------------------------------------------------------------
+
+
+def _check(planes, dtypes, keys, offs, n: int) -> torch.device:
+    if len(planes) != len(dtypes):
+        raise ValueError(f"expected {len(dtypes)} state planes, got {len(planes)}")
+    shape = (pool_rows(n), LANES)
+    dev = planes[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"pool chunks run on cpu or cuda tensors, got {dev}")
+    for x, dt in zip(planes, dtypes):
+        if x.device != dev or x.dtype != dt or tuple(x.shape) != shape:
+            raise ValueError(
+                f"state plane must be {dt} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError("state planes must be contiguous")
+    if keys.dtype != torch.int64 or keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError(f"keys must be int64 [K, 2], got {keys.dtype} {tuple(keys.shape)}")
+    if offs.dtype != torch.int32 or offs.dim() != 2 or offs.shape[0] != keys.shape[0]:
+        raise ValueError(
+            f"offs must be int32 [K, P] with K = {keys.shape[0]}, got "
+            f"{offs.dtype} {tuple(offs.shape)}"
+        )
+    if offs.shape[1] not in POOL_SIZES:
+        raise ValueError(
+            f"pool_size {offs.shape[1]} not in {POOL_SIZES} (the packed-choice "
+            "limit of the kernels)"
+        )
+    # The streams are drawn on the host; checking their values there costs
+    # no device sync, and an offset outside [1, n-1] would send the
+    # kernels' gathers out of bounds.
+    if keys.device.type != "cpu" or offs.device.type != "cpu":
+        raise ValueError("keys and offs are host-drawn streams: pass CPU tensors")
+    if keys.numel() and (keys.min() < 0 or keys.max() > rng.MASK):
+        raise ValueError("keys must hold uint32 words")
+    if offs.numel() and (offs.min() < 1 or offs.max() > n - 1):
+        raise ValueError(f"offs must lie in [1, {n - 1}]")
+    return dev
+
+
+def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr())
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "gossip_pushsum_pool_chunk": [_P] * 15 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    "gossip_gossip_pool_chunk": [_P] * 11 + [_I] * 8 + [_P],
+}
+
+
+def _entry(name: str):
+    """The C entry point ``name`` of csrc/fused_pool.cu (built on first use)."""
+    fn = getattr(kernels.load("fused_pool"), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _upload(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A host stream on the device, copied without a host sync."""
+    return x.pin_memory().to(dev, non_blocking=True)
+
+
+def _launch(name: str, dev: torch.device, pointers, ints) -> None:
+    """Queue one chunk on the current stream of ``dev`` and raise on a
+    launch error. Buffers the caller drops after this returns stay safe:
+    torch's caching allocator hands their memory only to work queued later
+    on the same stream."""
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    err = _entry(name)(*[_ptr(x) for x in pointers], *ints, dev.index, stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def pushsum_pool_chunk(state4, keys, offs, start: int, cap: int, *, n: int,
+                       target: int, delta: float, term_rounds: int):
+    """Up to K = keys.shape[0] push-sum pool rounds from absolute round
+    ``start``, stopping at ``cap`` or once ``target`` nodes converged.
+
+    ``state4`` is (s, w, term, conv_i32) in the padded [rows, 128] layout,
+    on one device; ``keys`` int64 [K, 2] fold_in keys (uint32 words) and
+    ``offs`` int32 [K, P] displacement pools are CPU tensors (fused.
+    round_keys, round_offsets). Returns (state4', rounds_executed) with
+    rounds_executed a 0-dim int32 tensor on the state's device; the inputs
+    are left unchanged. CUDA state runs the kernel and CPU state the plain
+    version."""
+    dev = _check(state4, (torch.float32, torch.float32, torch.int32, torch.int32),
+                 keys, offs, n)
+    if dev.type == "cpu":
+        return pushsum_pool_chunk_plain(
+            state4, keys, offs, start, cap, n=n, target=target, delta=delta,
+            term_rounds=term_rounds,
+        )
+    cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
+    keys, offs = _upload(keys, dev), _upload(offs, dev)
+    rounds = max(0, cap - start)
+    n_pad = state4[0].numel()
+    out = [torch.empty_like(x) for x in state4]
+    ds = torch.empty(n_pad, dtype=torch.float32, device=dev)
+    dw = torch.empty(n_pad, dtype=torch.float32, device=dev)
+    choice = torch.empty(n_pad, dtype=torch.int8, device=dev)
+    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(2 * (rounds + 1), dtype=torch.int32, device=dev)
+    _launch(
+        "gossip_pushsum_pool_chunk", dev,
+        (*state4, *out, ds, dw, choice, keys, offs, ctrl, scratch),
+        (n, n_pad, offs.shape[1], rounds, ctypes.c_float(delta), term_rounds,
+         target),
+    )
+    pushsum_pool_chunk.launches += 1 + 2 * rounds
+    return tuple(out), ctrl[1]
+
+
+def gossip_pool_chunk(state3, keys, offs, start: int, cap: int, *, n: int,
+                      target: int, rumor_target: int, suppress: bool):
+    """Gossip analog of ``pushsum_pool_chunk``: ``state3`` is (count,
+    active_i32, conv_i32); converged-target suppression is receiver-side."""
+    dev = _check(state3, (torch.int32,) * 3, keys, offs, n)
+    if dev.type == "cpu":
+        return gossip_pool_chunk_plain(
+            state3, keys, offs, start, cap, n=n, target=target,
+            rumor_target=rumor_target, suppress=suppress,
+        )
+    cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
+    keys, offs = _upload(keys, dev), _upload(offs, dev)
+    rounds = max(0, cap - start)
+    n_pad = state3[0].numel()
+    out = [torch.empty_like(x) for x in state3]
+    mark = torch.empty(n_pad, dtype=torch.int8, device=dev)
+    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(2 * (rounds + 1), dtype=torch.int32, device=dev)
+    _launch(
+        "gossip_gossip_pool_chunk", dev,
+        (*state3, *out, mark, keys, offs, ctrl, scratch),
+        (n, n_pad, offs.shape[1], rounds, rumor_target, int(suppress), target),
+    )
+    gossip_pool_chunk.launches += 1 + 2 * rounds
+    return tuple(out), ctrl[1]
+
+
+# Kernel launches queued by each wrapper (init + 2 per round), counted
+# where the kernel is launched and nowhere else.
+pushsum_pool_chunk.launches = 0
+gossip_pool_chunk.launches = 0
+
+

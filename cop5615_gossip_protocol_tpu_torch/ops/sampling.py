@@ -1,0 +1,84 @@
+"""Random partner selection for offset-pool delivery on ``full``.
+
+Each round draws ``pool_size`` shared displacements (``pool_offsets``) and
+every node picks one of them with 4 bits of a packed threefry word
+(``pool_choice_packed``). The streams are the JAX package's, bit for bit:
+round keys are ``fold_in(base, round)``, the pool folds in ``_POOL_TAG``,
+and the packed choice words come straight off the round key.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import rng
+
+# Version of the random-stream derivation scheme (the JAX package's
+# checkpoints record it; a port checkpoint will too, ROADMAP A8).
+STREAM_VERSION = 5
+
+_POOL_TAG = 0x0FF5
+
+POOL_CHOICE_BITS = 4  # supports pool_size in {2, 4, 8, 16}
+POOL_PACK = 32 // POOL_CHOICE_BITS  # nodes per random word
+POOL_TILE_ROWS = 512  # the TPU kernel's tile height; fixes the padded row count
+_POOL_LANES = 128
+
+
+def round_key(base_key, round_idx: int) -> torch.Tensor:
+    """Key for one synchronous round: fold_in by the absolute round index,
+    so chunking and resume cannot change the stream."""
+    return rng.fold_in(base_key, round_idx)
+
+
+def uniform_bits(key, n: int, device=None) -> torch.Tensor:
+    """[n] uint32 words (as int64)."""
+    return rng.bits(key, (n,), device=device)
+
+
+def pool_offsets(round_k, pool_size: int, n: int) -> torch.Tensor:
+    """int32 ``[pool_size]`` offsets, each uniform on [1, n-1]: the round's
+    shared displacement pool."""
+    b = rng.bits(rng.fold_in(round_k, _POOL_TAG), (pool_size,))
+    return (1 + b % (n - 1)).to(torch.int32)
+
+
+def pool_rows(n: int) -> int:
+    """Padded row count of the pool layout: the [rows, 128] grid covering n
+    nodes, rounded to whole TPU-kernel tiles (the packed-choice geometry
+    depends on it)."""
+    rows_min = (n + _POOL_LANES - 1) // _POOL_LANES
+    return ((rows_min + POOL_TILE_ROWS - 1) // POOL_TILE_ROWS) * POOL_TILE_ROWS
+
+
+def pool_words(round_k, n: int, device=None) -> torch.Tensor:
+    """uint32 ``[pool_rows(n) // POOL_PACK, 128]`` (as int64): the round's
+    packed choice words."""
+    return rng.bits(round_k, (pool_rows(n) // POOL_PACK, _POOL_LANES), device=device)
+
+
+def choice_from_words(words: torch.Tensor, pool_size: int) -> torch.Tensor:
+    """int32 ``[rows, 128]`` slots from packed words: node (row, lane) reads
+    word[row // 8, lane] >> 4 * (row % 8), masked to the pool width."""
+    rows = words.shape[0] * POOL_PACK
+    expanded = words.repeat_interleave(POOL_PACK, dim=0)
+    shift = POOL_CHOICE_BITS * (
+        torch.arange(rows, device=words.device) % POOL_PACK
+    )
+    return ((expanded >> shift[:, None]) & (pool_size - 1)).to(torch.int32)
+
+
+def pool_choice_packed(round_k, n: int, pool_size: int,
+                       out_len: int | None = None, device=None) -> torch.Tensor:
+    """int32 ``[out_len or n]`` pool slots for nodes 0.., 4 bits each out of
+    the packed words; pool_size > 16 draws one full word per node instead
+    (a stream of its own, which the kernels do not take)."""
+    out_len = n if out_len is None else out_len
+    if pool_size > 1 << POOL_CHOICE_BITS:
+        return (uniform_bits(round_k, out_len, device) & (pool_size - 1)).to(
+            torch.int32
+        )
+    flat = choice_from_words(pool_words(round_k, n, device), pool_size).reshape(-1)
+    if out_len <= flat.shape[0]:
+        return flat[:out_len]
+    return torch.cat([flat, flat.new_zeros(out_len - flat.shape[0])])
