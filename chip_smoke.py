@@ -9,16 +9,32 @@ non-zero before the last line:
 1. environment: python, torch and CUDA versions, the card's name and power
    limit (nvidia-smi);
 2. build every CUDA source of the port with nvcc, all started together;
-3. each kernel on one chunk of 32 rounds at n = 1,000,000, from the initial
-   state and from a mid-run state, held against its plain torch version on
-   the card (gossip bitwise; push-sum term/conv equal and s/w within 2 ulp),
-   plus a chunk that starts converged (0 rounds, state unchanged);
-4. the main path through ``run()``: 1M push-sum and 1M gossip on full with
+3. each pool kernel on one chunk of 32 rounds at n = 1,000,000, from the
+   initial state and from a mid-run state, held against its plain torch
+   version on the card (gossip bitwise; push-sum term/conv equal and s/w
+   within 2 ulp), plus a chunk that starts converged (0 rounds, state
+   unchanged);
+4. the pool path through ``run()``: 1M push-sum and 1M gossip on full with
    pool_size 2, launch counters zeroed before each run and read after it;
    each must converge, push-sum to a small estimate error, and each
    kernel's counter must have risen. A 1000-node run on the card must
    match the CPU's chunked engine (rounds, converged count, estimate);
-5. each kernel's time per chunk by CUDA events, beside its plain version's
+5. each stencil kernel against its plain version on the card, the same
+   way: torus3d at 16,777,216 (256**3) from the initial state, from a
+   mid-run state, with a cap inside the chunk and from a converged state;
+   push-sum at the main path's torus3d 215**3 (pad lanes in the layout)
+   from the initial and a mid-run state; on grid2d 4096**2, grid3d 256**3,
+   line and ring at 16,777,216 and ref2d 4096**2 in reference semantics
+   (the extra node), one chunk from the initial state and, for gossip, one
+   from a spread state (a seeded half of the nodes holding the rumor, some
+   converged), so every boundary face sends. The engine ladder must pick
+   the streaming stencil tier for each;
+6. the lattice path through ``run()``: torus3d 16,777,216 gossip to
+   convergence, and torus3d 215**3 push-sum for 2,000 rounds with its mass
+   conserved, counters zeroed before each run and read after it; then
+   torus3d 130**3, both algorithms, 64 rounds on the card against the
+   CPU's chunked engine (rounds, converged count, final state);
+7. each kernel's time per chunk by CUDA events, beside its plain version's
    and the least time the card could take for the same work.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
@@ -48,10 +64,11 @@ MID_ROUNDS = {"pushsum": 300, "gossip": 8}
 # can only lower the bound.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
-# Operations per packed Threefry word, from csrc/threefry.cuh: 20 rounds of
-# (add, rotate, xor), 17 key-schedule adds, 2 key xors, and 8 slot
-# extractions of (shift, and).
-OPS_PER_WORD = 20 * 3 + 17 + 2 + 8 * 2
+# Operations per Threefry word, from csrc/threefry.cuh: 20 rounds of (add,
+# rotate, xor), 17 key-schedule adds and 2 key xors; a packed pool word adds
+# 8 slot extractions of (shift, and).
+OPS_PER_HASH = 20 * 3 + 17 + 2
+OPS_PER_WORD = OPS_PER_HASH + 8 * 2
 
 
 def ops_per_node(algorithm: str, pool: int) -> int:
@@ -66,6 +83,289 @@ def ops_per_node(algorithm: str, pool: int) -> int:
     # send mask: 2 compares; slot: 3 index + 1 compare + 1 add;
     # absorb: suppress compare, add, 2 compares, or, target compare.
     return 2 + 5 * pool + 6
+
+
+# The lattice phases: populations, and the rounds run before the mid-run
+# comparisons and timings (16.8M torus3d gossip converges near round 570).
+LATTICE_N = 2**24
+LATTICE_PS_N = 215**3
+LATTICE_PS_ROUNDS = 2000
+LATTICE_CPU_N = 130**3
+LATTICE_CPU_ROUNDS = 64
+LATTICE_MID = {"pushsum": 300, "gossip": 200}
+LATTICE_KINDS = (("grid2d", LATTICE_N, "batched"), ("grid3d", LATTICE_N, "batched"),
+                 ("line", LATTICE_N, "batched"), ("ring", LATTICE_N, "batched"),
+                 ("ref2d", LATTICE_N, "reference"))
+# Bytes a round must move at this size: the state read and written once
+# (push-sum s, w, term, conv; gossip count, active, conv), since 16.8M
+# nodes of it are several times the 50 MB L2.
+STATE_BYTES = {"pushsum": 32, "gossip": 24}
+
+
+def stencil_ops_per_node(algorithm: str, classes: int) -> int:
+    """Per-node, per-round operations of csrc/fused_stencil.cu: the hash,
+    the direction pairs (three index splits and the face selects, 20), the
+    slot select (a modulo and six compare-select-adds, 19), the class
+    lookup (10); per class a source index (compare, subtract, add), the
+    mark compare and the adds (push-sum also the two halvings); then the
+    own halving and the absorb."""
+    per_class = 8 if algorithm == "push-sum" else 5
+    absorb = 16 if algorithm == "push-sum" else 6
+    return OPS_PER_HASH + 20 + 19 + 10 + per_class * classes + absorb
+
+
+def compare(name, got, want, float_planes):
+    """Hold a kernel chunk's (state, executed) against its plain version's:
+    the rounds and integer planes equal, the first ``float_planes`` planes
+    within 2 ulp and finite. Returns the largest absolute difference."""
+    import torch
+
+    (g_state, g_ex), (w_state, w_ex) = got, want
+    if int(g_ex) != int(w_ex):
+        raise AssertionError(f"{name}: rounds {int(g_ex)} != plain {int(w_ex)}")
+    err = 0.0
+    for i, (g, w) in enumerate(zip(g_state, w_state)):
+        if i < float_planes:
+            ulp = (g.view(torch.int32).to(torch.int64)
+                   - w.view(torch.int32).to(torch.int64)).abs().max().item()
+            if ulp > 2 or not torch.isfinite(g).all():
+                raise AssertionError(f"{name}: plane {i} off by {ulp} ulp")
+            err = max(err, (g - w).abs().max().item())
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{name}: plane {i} differs from plain")
+    print(f"  {name}: rounds {int(g_ex)}, max_abs_err {err}", flush=True)
+    return err
+
+
+def time_ms(fn, reps):
+    """Median milliseconds of ``fn()`` by CUDA events, after one warm call;
+    returns (ms, the last call's result)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), out
+
+
+def spread_state(init, n, rumor_target):
+    """Gossip planes (count, active, conv) as a run holds them midway, made
+    from seed 0 on the card: a random half of the nodes hold the rumor with
+    counts up to the target, those at the target converged; pad lanes 0."""
+    import torch
+
+    dev, shape = init[0].device, init[0].shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    real = torch.arange(init[0].numel(), device=dev).reshape(shape) < n
+    active = (torch.rand(shape, generator=gen, device=dev) < 0.5) & real
+    count = torch.randint(0, rumor_target + 1, shape, generator=gen, device=dev,
+                          dtype=torch.int32) * active
+    return (count.to(torch.int32), active.to(torch.int32),
+            (count >= rumor_target).to(torch.int32))
+
+
+def lattice_checks(dev, key):
+    """Phase 5: each stencil kernel against its plain version on the card.
+    Returns {name: case} for the timing phase (the torus3d chunk function,
+    its mid-run state and layout) and {name: max_abs_err}."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine, fused_tier
+    from cop5615_gossip_protocol_tpu_torch.ops import fused
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_stencil_hbm as hbm
+
+    keys = functools.lru_cache(maxsize=None)(
+        lambda start, count: fused.round_keys(key, start, count))
+
+    def case(topo, kind, n, semantics, name):
+        """(kernel, plain, chunk(fn, state, start, count, cap), init planes
+        on the card, float planes, layout) for one lattice and algorithm."""
+        algorithm = "push-sum" if name == "pushsum" else "gossip"
+        # Reference push-sum is the single walk (not ported); the kernel
+        # still runs push-sum on the reference topology.
+        sem = "batched" if algorithm == "push-sum" else semantics
+        cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, semantics=sem)
+        tier = fused_tier(topo, cfg)
+        if tier != ("stencil_hbm", None):
+            raise AssertionError(f"{kind} n={n} {algorithm}: the ladder picks {tier}")
+        common = {"spec": hbm.stencil_spec(topo),
+                  "target": cfg.resolved_target_count(topo.n, topo.target_count)}
+        if algorithm == "push-sum":
+            fns = (hbm.pushsum_stencil_hbm_chunk, hbm.pushsum_stencil_hbm_chunk_plain)
+            common.update(delta=cfg.resolved_delta, term_rounds=cfg.term_rounds)
+        else:
+            fns = (hbm.gossip_stencil_hbm_chunk, hbm.gossip_stencil_hbm_chunk_plain)
+            common.update(rumor_target=cfg.resolved_rumor_target,
+                          suppress=cfg.resolved_suppress)
+
+        def chunk(fn, state, start, count, cap=None):
+            return fn(state, keys(start, count), start,
+                      start + count if cap is None else cap, **common)
+
+        eng = fused_engine(topo, cfg, key, "stencil_hbm")
+        init = tuple(p.contiguous().to(dev) for p in eng.planes)
+        return (*fns, chunk, init, 2 if name == "pushsum" else 0, eng.layout)
+
+    cases, max_err = {}, {}
+    t0 = time.perf_counter()
+    topo = build_topology("torus3d", LATTICE_N)
+    print(f"stencil kernels vs plain versions at torus3d n = {LATTICE_N:,} "
+          f"(built in {time.perf_counter() - t0:.2f} s):", flush=True)
+    for name in ("pushsum", "gossip"):
+        kern, plain, chunk, init, nf, layout = case(topo, "torus3d", LATTICE_N,
+                                                    "batched", name)
+        mid_round = LATTICE_MID[name]
+        e1 = compare(f"{name} init K={CHUNK}", chunk(kern, init, 0, CHUNK),
+                     chunk(plain, init, 0, CHUNK), nf)
+        mid, ex = chunk(kern, init, 0, mid_round)
+        if int(ex) != mid_round:
+            raise AssertionError(f"{name}: converged before round {mid_round}")
+        e2 = compare(f"{name} mid-run K={CHUNK}", chunk(kern, mid, mid_round, CHUNK),
+                     chunk(plain, mid, mid_round, CHUNK), nf)
+        e3 = compare(f"{name} cap inside chunk",
+                     chunk(kern, mid, mid_round, CHUNK, cap=mid_round + 5),
+                     chunk(plain, mid, mid_round, CHUNK, cap=mid_round + 5), nf)
+        if name == "gossip":
+            done_state, ex = chunk(kern, mid, mid_round, 4096)
+            done_round = mid_round + int(ex)
+            if int(ex) == 4096:
+                raise AssertionError("16.8M torus3d gossip did not converge")
+        else:
+            # Push-sum on the torus takes far longer to converge: latch
+            # every node's conv flag instead.
+            real = torch.arange(layout.n_pad, device=dev).reshape(mid[3].shape) < LATTICE_N
+            done_state = (*mid[:3], real.to(torch.int32))
+            done_round = mid_round
+        out, ex = chunk(kern, done_state, done_round, CHUNK)
+        if int(ex) != 0 or not all(torch.equal(a, b) for a, b in zip(out, done_state)):
+            raise AssertionError(f"{name}: a chunk from a converged state ran")
+        print(f"  {name} from converged state (round {done_round}): 0 rounds, "
+              "state unchanged", flush=True)
+        max_err[name] = max(e1, e2, e3)
+        cases[name] = (kern, plain, chunk, mid, mid_round, layout,
+                       len(topo.offsets))
+    del topo
+    # The main path's push-sum population: 547,385 pad lanes past n.
+    t0 = time.perf_counter()
+    topo = build_topology("torus3d", LATTICE_PS_N)
+    kern, plain, chunk, init, nf, _ = case(topo, "torus3d", LATTICE_PS_N, "batched",
+                                           "pushsum")
+    label = f"torus3d n={topo.n} (built in {time.perf_counter() - t0:.2f} s) pushsum"
+    e1 = compare(f"{label} init K={CHUNK}", chunk(kern, init, 0, CHUNK),
+                 chunk(plain, init, 0, CHUNK), nf)
+    mid_round = LATTICE_MID["pushsum"]
+    mid, ex = chunk(kern, init, 0, mid_round)
+    if int(ex) != mid_round:
+        raise AssertionError(f"215**3 push-sum: converged before round {mid_round}")
+    e2 = compare(f"{label} mid-run K={CHUNK}", chunk(kern, mid, mid_round, CHUNK),
+                 chunk(plain, mid, mid_round, CHUNK), nf)
+    max_err["pushsum"] = max(max_err["pushsum"], e1, e2)
+    del topo, init, mid
+    for kind, n, semantics in LATTICE_KINDS:
+        t0 = time.perf_counter()
+        topo = build_topology(kind, n, semantics=semantics)
+        label = f"{kind} {semantics} n={topo.n} (built in {time.perf_counter() - t0:.2f} s)"
+        for name in ("pushsum", "gossip"):
+            kern, plain, chunk, init, nf, _ = case(topo, kind, n, semantics, name)
+            err = compare(f"{label} {name} init K={CHUNK}", chunk(kern, init, 0, CHUNK),
+                          chunk(plain, init, 0, CHUNK), nf)
+            if name == "gossip":
+                rumor_target = SimConfig(n=n, topology=kind, algorithm="gossip",
+                                         semantics=semantics).resolved_rumor_target
+                spread = spread_state(init, topo.n, rumor_target)
+                mid_round = LATTICE_MID["gossip"]
+                err = max(err, compare(
+                    f"{label} gossip spread state K={CHUNK}",
+                    chunk(kern, spread, mid_round, CHUNK),
+                    chunk(plain, spread, mid_round, CHUNK), nf))
+            max_err[name] = max(max_err[name], err)
+        del topo
+    torch.cuda.synchronize()
+    return cases, max_err
+
+
+def lattice_path(dev):
+    """Phase 6: the lattice path through run(), counters zeroed before each
+    run and read after it; then 130**3 on the card against the CPU's
+    chunked engine. Returns the launches of each run."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_tier
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_stencil_hbm as hbm
+
+    counters = {"pushsum": hbm.pushsum_stencil_hbm_chunk,
+                "gossip": hbm.gossip_stencil_hbm_chunk}
+    launches = {}
+    runs = (("gossip", SimConfig(n=LATTICE_N, topology="torus3d", algorithm="gossip")),
+            ("pushsum", SimConfig(n=LATTICE_PS_N, topology="torus3d",
+                                  algorithm="push-sum", max_rounds=LATTICE_PS_ROUNDS)))
+    for name, cfg in runs:
+        t0 = time.perf_counter()
+        topo = build_topology("torus3d", cfg.n)
+        build_s = time.perf_counter() - t0
+        if fused_tier(topo, cfg) != ("stencil_hbm", None):
+            raise AssertionError(f"{cfg.n} torus3d {name}: not the streaming tier")
+        for fn in counters.values():
+            fn.launches = 0
+        res = run(topo, cfg)
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        print(json.dumps({
+            "metric": f"{name}_rounds_per_sec_torus3d_n{cfg.n}",
+            "rounds": res.rounds, "run_s": res.run_s,
+            "rounds_per_s": res.rounds / res.run_s, "build_s": build_s,
+            "setup_s": res.setup_s, "compile_s": res.compile_s,
+            "dispatch_s": res.dispatch_s, "first_dispatch_s": res.first_dispatch_s,
+            "fetch_s": res.fetch_s, "converged_count": res.converged_count,
+            "estimate_mae": res.estimate_mae, "launches": launches[name],
+            "device": res.device,
+        }), flush=True)
+        if launches[name][name] == 0:
+            raise AssertionError(f"the torus3d {name} run never launched its kernel")
+        if name == "gossip":
+            if not res.converged or res.converged_count != cfg.n:
+                raise AssertionError(f"16.8M torus3d gossip did not converge ({res.outcome})")
+        else:
+            if res.rounds != LATTICE_PS_ROUNDS:
+                raise AssertionError(f"215**3 push-sum ran {res.rounds} rounds")
+            n = topo.n
+            mass_w = res.state.w.double().sum().item()
+            mass_s = res.state.s.double().sum().item()
+            err_w = abs(mass_w - n) / n
+            err_s = abs(mass_s - n * (n - 1) / 2) / (n * (n - 1) / 2)
+            print(f"  215**3 push-sum mass: sum w {mass_w} (rel err {err_w}), "
+                  f"sum s {mass_s} (rel err {err_s})", flush=True)
+            if not (err_w < 1e-5 and err_s < 1e-5):
+                raise AssertionError("215**3 push-sum did not conserve its mass")
+        del topo, res
+    topo = build_topology("torus3d", LATTICE_CPU_N)
+    for name, algorithm in (("gossip", "gossip"), ("pushsum", "push-sum")):
+        cfg = SimConfig(n=LATTICE_CPU_N, topology="torus3d", algorithm=algorithm,
+                        max_rounds=LATTICE_CPU_ROUNDS)
+        t0 = time.perf_counter()
+        a = run(topo, cfg)
+        t1 = time.perf_counter()
+        b = run(topo, cfg, device="cpu")
+        t2 = time.perf_counter()
+        if (a.rounds, a.converged_count) != (b.rounds, b.converged_count):
+            raise AssertionError(
+                f"130**3 {name}: card {a.rounds}/{a.converged_count} != "
+                f"CPU {b.rounds}/{b.converged_count}")
+        compare(f"130**3 {name} card vs CPU chunked engine, {a.rounds} rounds, "
+                f"converged {a.converged_count} ({t1 - t0:.2f} s card, "
+                f"{t2 - t1:.2f} s CPU)",
+                (tuple(x.cpu() for x in a.state), a.rounds),
+                (tuple(b.state), b.rounds), 2 if name == "pushsum" else 0)
+    return launches
 
 
 def fail(msg: str) -> int:
@@ -146,23 +446,6 @@ def main() -> int:
                   n=N, target=target, rumor_target=go_cfg.resolved_rumor_target,
                   suppress=go_cfg.resolved_suppress)
 
-    def compare(name, got, want, float_planes):
-        (g_state, g_ex), (w_state, w_ex) = got, want
-        if int(g_ex) != int(w_ex):
-            raise AssertionError(f"{name}: rounds {int(g_ex)} != plain {int(w_ex)}")
-        err = 0.0
-        for i, (g, w) in enumerate(zip(g_state, w_state)):
-            if i < float_planes:
-                ulp = (g.view(torch.int32).to(torch.int64)
-                       - w.view(torch.int32).to(torch.int64)).abs().max().item()
-                if ulp > 2 or not torch.isfinite(g).all():
-                    raise AssertionError(f"{name}: plane {i} off by {ulp} ulp")
-                err = max(err, (g - w).abs().max().item())
-            elif not torch.equal(g, w):
-                raise AssertionError(f"{name}: plane {i} differs from plain")
-        print(f"  {name}: rounds {int(g_ex)}, max_abs_err {err}")
-        return err
-
     kernel_fns = {
         "pushsum": (fused_pool.pushsum_pool_chunk, fused_pool.pushsum_pool_chunk_plain,
                     ps_chunk, ps_init, 2, MID_ROUNDS["pushsum"]),
@@ -239,21 +522,14 @@ def main() -> int:
         print(f"  1000-node {name}: card == CPU chunked engine "
               f"(rounds {a.rounds}, estimate_mae {a.estimate_mae})")
 
-    # ---------------------------------------------------------------- 5
-    def time_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times), out
+    # ------------------------------------------------------------- 5, 6
+    try:
+        lattice_cases, lattice_err = lattice_checks(dev, key)
+        lattice_launches = lattice_path(dev)
+    except AssertionError as e:
+        return fail(str(e))
 
+    # ---------------------------------------------------------------- 7
     rows = []
     replaces = {"pushsum": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:860",
                 "gossip": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:1157"}
@@ -273,6 +549,29 @@ def main() -> int:
             "source": "cop5615_gossip_protocol_tpu_torch/csrc/fused_pool.cu",
             "replaces": replaces[name],
             "launches": launches[name][name], "max_abs_err": max_err[name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+            "status": "ported",
+        })
+    replaces = {"pushsum": "cop5615_gossip_protocol_tpu/ops/fused_stencil_hbm.py:899",
+                "gossip": "cop5615_gossip_protocol_tpu/ops/fused_stencil_hbm.py:1206"}
+    for name, (kern, plain, chunk, mid, mid_round, layout, classes) in lattice_cases.items():
+        ms, (_, ex) = time_ms(lambda: chunk(kern, mid, mid_round, CHUNK), TIME_REPS)
+        plain_ms, _ = time_ms(lambda: chunk(plain, mid, mid_round, CHUNK), 2)
+        rounds = int(ex)
+        algo = "push-sum" if name == "pushsum" else "gossip"
+        moved = rounds * STATE_BYTES[name] * layout.n_pad + CHUNK * 16 + 8
+        ops = rounds * layout.n_pad * stencil_ops_per_node(algo, classes)
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        rows.append({
+            "name": f"{name}_stencil_hbm_chunk", "route": "cuda",
+            "source": "cop5615_gossip_protocol_tpu_torch/csrc/fused_stencil.cu",
+            "replaces": replaces[name],
+            "launches": lattice_launches[name][name],
+            "max_abs_err": lattice_err[name],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",

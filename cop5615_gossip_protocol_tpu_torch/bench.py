@@ -1,16 +1,27 @@
 """North-star benchmark of the port: 1M-node push-sum on ``full`` with
-offset-pool delivery, pool_size 2 (the JAX package's bench.py defaults).
+offset-pool delivery, pool_size 2 (the JAX package's bench.py defaults),
+or any lattice through the streaming stencil kernels.
 
     python -m cop5615_gossip_protocol_tpu_torch.bench [--n N] [--algorithm A]
+    python -m cop5615_gossip_protocol_tpu_torch.bench --topology torus3d \\
+        --n 16777216 --algorithm gossip
+    python -m cop5615_gossip_protocol_tpu_torch.bench --topology torus3d \\
+        --n 10000000 --max-rounds 2000
 
 Prints one JSON line with bench.py's keys (metric, value in rounds/sec,
 unit, vs_baseline, rounds, wall_s, converged_count, estimate_mae, device),
 the run's budget (setup/compile/dispatch/fetch seconds), and, on the GPU:
 ``engine_us_per_round``, the fused engine's device time per round timed
-with CUDA events over one chunk from the initial state; ``repeat_wall_s``,
+with CUDA events over one chunk from the initial state (the pool kernels
+on ``full``, the stencil kernels on a lattice); ``repeat_wall_s``,
 the run's wall when repeated at once in the same process; and ``profile``,
 a third run under torch.profiler with the device's busy share and device
 time by kernel. Runs on the GPU unless ``--platform cpu`` is given.
+
+A run that ends unconverged at the default bound of DEFAULT_MAX_ROUNDS
+prints a FAILED_TO_CONVERGE metric and exits 1; one bounded by an explicit
+``--max-rounds`` is a bounded sample (BASELINE's 2,000-round torus3d
+push-sum) and is reported with ``outcome`` "max_rounds".
 """
 
 from __future__ import annotations
@@ -26,46 +37,26 @@ import torch
 # extrapolated linearly in N as the JAX bench.py does.
 AKKA_MS_PER_NODE = 418.63 / 1000.0
 ENGINE_ROUNDS = 64
+DEFAULT_MAX_ROUNDS = 100_000
 
 
 def engine_us_per_round(topo, cfg, device) -> float | None:
     """Device microseconds per executed round of one fused chunk of
-    ENGINE_ROUNDS rounds from the initial state, by CUDA events."""
-    from .models import gossip as gossip_mod
-    from .models import pushsum as pushsum_mod
-    from .models.runner import draw_leader
-    from .ops import fused, fused_pool, rng
+    ENGINE_ROUNDS rounds from the initial state, by CUDA events, on the
+    tier the run used (the pool or the streaming stencil kernels)."""
+    from .models.runner import fused_engine, fused_tier
+    from .ops import rng
 
-    key = rng.PRNGKey(cfg.seed)
-    layout = fused_pool.build_pool_layout(topo.n)
-    target = cfg.resolved_target_count(topo.n, topo.target_count)
-    keys = fused.round_keys(key, 0, ENGINE_ROUNDS)
-    offs = fused_pool.round_offsets(key, 0, ENGINE_ROUNDS, cfg.pool_size, topo.n)
-    if cfg.algorithm == "push-sum":
-        st = pushsum_mod.init_state(topo.n, cfg.initial_term_round)
-        planes = (fused._pad2d(st.s, layout, 0.0), fused._pad2d(st.w, layout, 1.0),
-                  fused._pad2d(st.term, layout, 0),
-                  fused._pad2d(st.conv.to(torch.int32), layout, 0))
-
-        def chunk(state):
-            return fused_pool.pushsum_pool_chunk(
-                state, keys, offs, 0, cfg.max_rounds, n=topo.n, target=target,
-                delta=cfg.resolved_delta, term_rounds=cfg.term_rounds)
-    else:
-        st = gossip_mod.init_state(topo.n, draw_leader(key, topo, cfg),
-                                   cfg.reference)
-        planes = tuple(fused._pad2d(x.to(torch.int32), layout, 0) for x in st)
-
-        def chunk(state):
-            return fused_pool.gossip_pool_chunk(
-                state, keys, offs, 0, cfg.max_rounds, n=topo.n, target=target,
-                rumor_target=cfg.resolved_rumor_target,
-                suppress=cfg.resolved_suppress)
-    state = tuple(p.contiguous().to(device) for p in planes)
-    chunk(state)  # warm
+    variant, reason = fused_tier(topo, cfg)
+    if reason is not None:
+        return None
+    eng = fused_engine(topo, cfg, rng.PRNGKey(cfg.seed), variant)
+    extras = eng.streams(0, ENGINE_ROUNDS)
+    state = tuple(p.contiguous().to(device) for p in eng.planes)
+    eng.chunk(state, extras, 0, cfg.max_rounds)  # warm
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    _, executed = chunk(state)
+    _, executed = eng.chunk(state, extras, 0, cfg.max_rounds)
     end.record()
     end.synchronize()
     rounds = int(executed)
@@ -108,9 +99,12 @@ def main(argv=None) -> int:
     ap.add_argument("--algorithm", default="push-sum")
     ap.add_argument("--delta", type=float, default=None)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--max-rounds", type=int, default=100_000)
+    ap.add_argument("--max-rounds", type=int, default=None,
+                    help=f"default {DEFAULT_MAX_ROUNDS:,}; given explicitly, a run "
+                    "that stops there is a bounded sample, not a failure")
     ap.add_argument("--platform", choices=["cuda", "cpu"], default="cuda")
-    ap.add_argument("--delivery", default="pool")
+    ap.add_argument("--delivery", default=None,
+                    help="default: pool on full, auto (stencil) on the lattices")
     ap.add_argument("--pool-size", type=int, default=2)
     args = ap.parse_args(argv)
 
@@ -119,36 +113,45 @@ def main(argv=None) -> int:
     from .utils.device import resolve_device
 
     device = resolve_device(args.platform)
+    delivery = args.delivery or ("pool" if args.topology == "full" else "auto")
     cfg = SimConfig(
         n=args.n, topology=args.topology, algorithm=args.algorithm,
-        delta=args.delta, seed=args.seed, max_rounds=args.max_rounds,
-        delivery=args.delivery, pool_size=args.pool_size,
+        delta=args.delta, seed=args.seed,
+        max_rounds=DEFAULT_MAX_ROUNDS if args.max_rounds is None else args.max_rounds,
+        delivery=delivery, pool_size=args.pool_size,
     )
+    t0 = time.perf_counter()
     topo = build_topology(args.topology, args.n, seed=args.seed)
+    build_s = time.perf_counter() - t0
     result = run(topo, cfg, device=device)
     name = "pushsum" if args.algorithm == "push-sum" else "gossip"
-    if not result.converged:
+    if not result.converged and args.max_rounds is None:
         print(json.dumps({
             "metric": f"{name}_{args.topology}_{args.n}_FAILED_TO_CONVERGE",
             "value": 0.0, "unit": "rounds/sec", "vs_baseline": 0.0,
         }))
         return 1
+    # The baseline is the reference's push-sum on full; no other config has
+    # one.
     akka_s = AKKA_MS_PER_NODE * args.n / 1e3
     out = {
         "metric": f"{name}_rounds_per_sec_{args.topology}_n{args.n}",
         "value": result.to_record()["rounds_per_sec"] or 0.0,
         "unit": "rounds/sec",
-        "vs_baseline": akka_s / result.run_s if result.run_s > 0 else 0.0,
+        "vs_baseline": (akka_s / result.run_s if result.run_s > 0 else 0.0)
+        if args.topology == "full" else None,
         "engine_us_per_round": (
             engine_us_per_round(topo, cfg, device) if device.type == "cuda" else None
         ),
         "rounds": result.rounds,
         "wall_s": result.run_s,
         "compile_s": result.compile_s,
+        "build_s": build_s,
         "setup_s": result.setup_s,
         "dispatch_s": result.dispatch_s,
         "first_dispatch_s": result.first_dispatch_s,
         "fetch_s": result.fetch_s,
+        "outcome": result.outcome,
         "converged_count": result.converged_count,
         "estimate_mae": result.estimate_mae,
         "device": describe_device(device),

@@ -2,6 +2,7 @@
 
     python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum \\
         --delivery pool --pool-size 2
+    python -m cop5615_gossip_protocol_tpu_torch 16777216 torus3d gossip
 
 runs on the GPU (``--platform cuda``, the default) or, when asked, on the
 CPU (``--platform cpu``). Flags keep the JAX CLI's names; a JAX CLI flag
@@ -50,7 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
         ),
     )
     p.add_argument("numNodes", type=int, help="requested node count")
-    p.add_argument("topology", help="full (other kinds: ROADMAP A7)")
+    p.add_argument("topology",
+                   help="full | line | ring | 2D | grid2d | ref2d | 3D | grid3d "
+                   "| torus3d (imp2d/imp3d: ROADMAP A7)")
     p.add_argument("algorithm", help="gossip | push-sum")
     p.add_argument("--semantics", choices=["batched", "reference"],
                    default="batched")
@@ -70,15 +73,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--delivery",
                    choices=["auto", "scatter", "stencil", "pool", "matmul"],
                    default="auto",
-                   help="message delivery; this slice runs 'pool' (auto means "
-                   "scatter on full, ROADMAP A7)")
+                   help="message delivery: 'pool' on full, 'auto' or "
+                   "'stencil' on the lattices (auto means scatter on full, "
+                   "ROADMAP A7)")
     p.add_argument("--pool-size", type=int, default=4,
                    help="displacement-pool width for --delivery pool")
     p.add_argument("--engine", choices=["auto", "chunked", "fused"],
                    default="auto",
-                   help="fused: the pool kernels (their plain versions on the "
-                   "CPU); chunked: one torch round per step; auto: fused on "
-                   "CUDA, chunked on the CPU")
+                   help="fused: the pool or stencil kernels (their plain "
+                   "versions on the CPU); chunked: one torch round per step; "
+                   "auto: fused on CUDA, chunked on the CPU")
     p.add_argument("--platform", choices=["cuda", "cpu"], default="cuda",
                    help="device to run on; cpu must be asked for")
     p.add_argument("--jsonl", type=str, default=None,

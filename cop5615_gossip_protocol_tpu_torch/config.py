@@ -2,10 +2,12 @@
 
 The field names, defaults and ``resolved_*`` rules are those of the JAX
 package's ``SimConfig``, so a run record from either package carries the
-same config keys. This slice ports push-sum and gossip on the implicit
-``full`` topology with ``delivery="pool"``; every other field keeps its
-default here, and setting it to anything else raises NotImplementedError
-naming the ROADMAP item that will port it.
+same config keys. The port runs push-sum and gossip on the implicit
+``full`` topology with ``delivery="pool"`` and on the six arithmetic
+lattices (line, ring, grid2d, ref2d, grid3d, torus3d) with stencil
+delivery; every other field keeps its default here, and setting it to
+anything else raises NotImplementedError naming the ROADMAP item that will
+port it.
 """
 
 from __future__ import annotations
@@ -196,6 +198,13 @@ class SimConfig:
                 "delivery='pool' applies to the implicit full topology and "
                 f"to imp2d/imp3d; got topology={self.topology!r}"
             )
+        if self.delivery == "matmul" and self.topology not in (
+            "full", "imp2d", "imp3d"
+        ):
+            raise ValueError(
+                "delivery='matmul' applies where pooled sampling applies "
+                f"(full, imp2d/imp3d); got topology={self.topology!r}"
+            )
         if not (2 <= self.pool_size <= 1024) or self.pool_size & (
             self.pool_size - 1
         ):
@@ -212,12 +221,25 @@ class SimConfig:
                 raise unported(f"{field}={value!r}", item)
         if self.n_devices not in (None, 1):
             raise unported(f"n_devices={self.n_devices!r}", "A10")
-        if self.topology != "full":
+        if self.topology in ("imp2d", "imp3d"):
             raise unported(f"topology={self.topology!r}", "A7")
-        if self.delivery != "pool":
-            # On full, "auto" resolves to scatter-add delivery.
+        if self.topology == "full":
+            if self.delivery == "stencil":
+                raise ValueError(
+                    "delivery='stencil' requires an offset-structured "
+                    "topology (line/ring/grid2d/ref2d/grid3d/torus3d)"
+                )
+            if self.delivery != "pool":
+                # On full, "auto" resolves to scatter-add delivery.
+                raise unported(
+                    f"delivery={self.delivery!r} on full (only 'pool' runs "
+                    "there)", "A7"
+                )
+        elif self.delivery == "scatter":
+            # On the lattices "auto" resolves to stencil delivery.
             raise unported(
-                f"delivery={self.delivery!r} (only 'pool' runs here)", "A7"
+                f"delivery='scatter' on {self.topology} (only 'stencil' "
+                "runs there)", "A7"
             )
         if self.reference and self.algorithm == "push-sum":
             raise unported(

@@ -1,0 +1,433 @@
+// Streaming lattice push-sum and gossip chunks, for Hopper (sm_90a).
+//
+// Replaces the two Pallas TPU kernels of the JAX package's
+// ops/fused_stencil_hbm.py: make_pushsum_stencil_hbm_chunk (pallas_call at
+// :899) and make_gossip_stencil_hbm_chunk (pallas_call at :1206). Each runs
+// K synchronous rounds of the protocol on one of the six arithmetic
+// lattices (torus3d, ring, grid2d, grid3d, line, ref2d) on the padded
+// [rows, 128] layout:
+//
+//   d(i)     = the slot-th live direction of sender i, slot =
+//              threefry(k1, k2, i) % degree(i)        (csrc/stencil.cuh)
+//   inbox[j] = sum over the sorted displacement classes c, from 0.0, of
+//              send[i] * [d(i) == class c]  with i = j - d_c mod n
+//
+// then the absorb with the term/conv latch (push-sum) or the receipt count
+// with receiver-side suppression (gossip), and a done flag that stops the
+// chunk once the converged count reaches the target. Pad lanes (j >= n)
+// and degree-0 nodes never send; pad lanes never receive.
+//
+// What bounds it on this card: memory traffic. A round must read and write
+// the state (push-sum 16 bytes a node each way, gossip 12), and at 16.8M
+// nodes that is 268 MB of push-sum state, five times the 50 MB L2, so it
+// streams from HBM every round. The arithmetic is one 20-round Threefry,
+// the direction select and one compare per class a node.
+//
+// Design: the TPU kernel keeps the marked-displacement plane out of HBM by
+// regenerating each sender's draw inside every window that reads it, and
+// keeps state in ping/pong planes with mirrored margins. Here a shifted
+// read is a load at a computed index that neighbouring threads make on
+// neighbouring addresses, and the class windows of one block (+-1, +-g,
+// +-g*g nodes) lie within a few hundred KB, so they are L2 hits. Each
+// round is two launches over ping/pong state planes A and B:
+//   mark   - each sender draws its word at its global index j, picks its
+//            direction and writes the class index of that displacement
+//            (int8, -1 for no send; gossip folds in the active flag);
+//   absorb - each receiver gathers, per class, the send of its class
+//            source whose mark is that class, reading the round's
+//            current planes, and writes the absorbed state to the other
+//            planes; the block counts converged nodes and the last block
+//            to finish latches the done flag and the executed-round count
+//            in `ctrl` (its parity says which planes are current).
+// Marking once per sender costs one int8 plane (2 bytes a node a round)
+// against recomputing each neighbour's draw in the receiver (1 + up to 10
+// hashes a node). The two planes make the gather race-free without send
+// planes: the halved send is recomputed from the sender's current s, w.
+// An init launch copies the input planes into A and seeds the done flag
+// from the incoming conv plane; a finish launch copies B into A when the
+// chunk executed an odd number of rounds, so the result is always in A.
+// Every mark/absorb launch first reads the done flag and returns at once
+// when it is set, so a launch after convergence writes nothing, a chunk
+// from a converged state runs 0 rounds, and a chunk of K rounds is
+// 2K + 2 launches queued with no host sync. Each grid is as many blocks as
+// the SMs hold at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// with grid-stride loops: a grid of fixed blocks larger than that would
+// run a second, mostly idle wave, and a no-op launch stays a few µs. The
+// class loops are unrolled to the class cap, so the class list stays in
+// registers and a receiver's mark loads are all in flight at once.
+//
+// Numerics: built without fast math, with -fmad=false and denormals kept;
+// the halve happens before the class sums, and the sums run from 0.0 in
+// ascending class order, as the chunked engine's halve_and_send and
+// deliver_stencil do, so push-sum is bitwise the plain version.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "stencil.cuh"
+
+namespace {
+
+constexpr int kBlock = 256;
+
+struct Classes {
+  int count;
+  int d[gossip::kMaxClasses];
+};
+
+// Blocks for a grid-stride launch of `kernel` over `work` elements: as many
+// as the SMs hold at once (registers permitting), so every block runs in
+// the first wave and a launch that returns at once costs a few µs.
+template <typename Kernel>
+int grid_for(Kernel kernel, long long work, int device) {
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock,
+                                                    0) != cudaSuccess ||
+      sms <= 0 || per_sm <= 0) {
+    sms = 132;
+    per_sm = 1;
+  }
+  const long long want = (work + kBlock - 1) / kBlock;
+  const long long cap = (long long)sms * per_sm;
+  return (int)(want < cap ? (want > 0 ? want : 1) : cap);
+}
+
+// Sum of v over the block, valid in thread 0.
+__device__ int block_sum(int v) {
+  __shared__ int warp_sums[kBlock / 32];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  v = 0;
+  if (warp == 0) {
+    v = lane < kBlock / 32 ? warp_sums[lane] : 0;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
+// Adds the block's converged count to *total; the last block of the grid
+// to arrive sets ctrl[0] (done) from the grand total and, for a protocol
+// round, bumps ctrl[1] (rounds executed, whose parity names the current
+// planes). Every other block read ctrl before it took its ticket, so the
+// write races with no reader.
+__device__ void finish_count(int block_count, int* total, unsigned* ticket,
+                             int* ctrl, int target, bool count_round) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    atomicAdd(total, block_count);
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    const int grand = atomicAdd(total, 0);
+    if (count_round) ctrl[1] += 1;
+    ctrl[0] = grand >= target ? 1 : 0;
+  }
+}
+
+// Class index of node j's sampled displacement this round, -1 for none.
+__device__ __forceinline__ int8_t mark_of(const gossip::Lattice& L,
+                                          const Classes& cls,
+                                          const long long* key, int j) {
+  const uint32_t word =
+      gossip::threefry_word((uint32_t)key[0], (uint32_t)key[1], (uint32_t)j);
+  const int d = gossip::sample_disp(L, j, word);
+  return (int8_t)(d < 0 ? -1 : gossip::class_of(d, cls.d, cls.count));
+}
+
+// Planes of one state set, passed by value.
+struct PushSumPlanes {
+  float* s;
+  float* w;
+  int* term;
+  int* conv;
+};
+
+struct GossipPlanes {
+  int* count;
+  int* active;
+  int* conv;
+};
+
+// ---------------------------------------------------------------- push-sum
+
+__global__ void pushsum_init(const float* __restrict__ s0,
+                             const float* __restrict__ w0,
+                             const int* __restrict__ t0,
+                             const int* __restrict__ c0, PushSumPlanes a,
+                             int n_pad, int* total, unsigned* ticket,
+                             int* ctrl, int target) {
+  int c = 0;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    a.s[j] = s0[j];
+    a.w[j] = w0[j];
+    a.term[j] = t0[j];
+    a.conv[j] = c0[j];
+    c += c0[j];
+  }
+  finish_count(block_sum(c), total, ticket, ctrl, target, false);
+}
+
+__global__ void pushsum_mark(int8_t* mark, const long long* __restrict__ key,
+                             gossip::Lattice L, Classes cls, int n_pad,
+                             const int* __restrict__ ctrl) {
+  if (ctrl[0]) return;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    mark[j] = j < L.n ? mark_of(L, cls, key, j) : (int8_t)-1;
+  }
+}
+
+__global__ void pushsum_absorb(PushSumPlanes a, PushSumPlanes b,
+                               const int8_t* __restrict__ mark, Classes cls,
+                               int n, int n_pad, float delta, int term_rounds,
+                               int target, int* total, unsigned* ticket,
+                               int* ctrl) {
+  if (ctrl[0]) return;
+  const bool odd = ctrl[1] & 1;
+  const PushSumPlanes cur = odd ? b : a;
+  const PushSumPlanes nxt = odd ? a : b;
+  int c = 0;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    const bool pad = j >= n;
+    float in_s = 0.0f, in_w = 0.0f;
+    if (!pad) {
+      // Unrolled to the class cap so the class list stays in registers and
+      // every class's mark load is in flight at once.
+#pragma unroll
+      for (int k = 0; k < gossip::kMaxClasses; ++k) {
+        if (k < cls.count) {
+          const int i = gossip::class_source(j, cls.d[k], n);
+          float vs = 0.0f, vw = 0.0f;
+          if (mark[i] == k) {
+            vs = cur.s[i] * 0.5f;
+            vw = cur.w[i] * 0.5f;
+          }
+          in_s = in_s + vs;
+          in_w = in_w + vw;
+        }
+      }
+    }
+    const float s_t = cur.s[j], w_t = cur.w[j];
+    const bool sends = mark[j] >= 0;  // false on pad lanes and degree 0
+    const float s_send = sends ? s_t * 0.5f : 0.0f;
+    const float w_send = sends ? w_t * 0.5f : 0.0f;
+    const float s_new = (s_t - s_send) + in_s;
+    const float w_new = (w_t - w_send) + in_w;
+    const bool received = in_w > 0.0f;
+    const bool stable = fabsf(s_new / w_new - s_t / w_t) <= delta;
+    const int t_old = cur.term[j];
+    const int t_new = received ? (stable ? t_old + 1 : 0) : t_old;
+    const int cv =
+        pad ? 0 : ((cur.conv[j] != 0 || t_new >= term_rounds) ? 1 : 0);
+    nxt.s[j] = s_new;
+    nxt.w[j] = w_new;
+    nxt.term[j] = t_new;
+    nxt.conv[j] = cv;
+    c += cv;
+  }
+  finish_count(block_sum(c), total, ticket, ctrl, target, true);
+}
+
+__global__ void pushsum_finish(PushSumPlanes a, PushSumPlanes b, int n_pad,
+                               const int* __restrict__ ctrl) {
+  if (!(ctrl[1] & 1)) return;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    a.s[j] = b.s[j];
+    a.w[j] = b.w[j];
+    a.term[j] = b.term[j];
+    a.conv[j] = b.conv[j];
+  }
+}
+
+// ------------------------------------------------------------------ gossip
+
+__global__ void gossip_init(const int* __restrict__ n0,
+                            const int* __restrict__ a0,
+                            const int* __restrict__ c0, GossipPlanes a,
+                            int n_pad, int* total, unsigned* ticket, int* ctrl,
+                            int target) {
+  int c = 0;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    a.count[j] = n0[j];
+    a.active[j] = a0[j];
+    a.conv[j] = c0[j];
+    c += c0[j];
+  }
+  finish_count(block_sum(c), total, ticket, ctrl, target, false);
+}
+
+__global__ void gossip_mark(GossipPlanes a, GossipPlanes b, int8_t* mark,
+                            const long long* __restrict__ key,
+                            gossip::Lattice L, Classes cls, int n_pad,
+                            const int* __restrict__ ctrl) {
+  if (ctrl[0]) return;
+  const int* active = (ctrl[1] & 1) ? b.active : a.active;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    const bool sending = j < L.n && active[j] != 0;
+    mark[j] = sending ? mark_of(L, cls, key, j) : (int8_t)-1;
+  }
+}
+
+__global__ void gossip_absorb(GossipPlanes a, GossipPlanes b,
+                              const int8_t* __restrict__ mark, Classes cls,
+                              int n, int n_pad, int rumor_target, int suppress,
+                              int target, int* total, unsigned* ticket,
+                              int* ctrl) {
+  if (ctrl[0]) return;
+  const bool odd = ctrl[1] & 1;
+  const GossipPlanes cur = odd ? b : a;
+  const GossipPlanes nxt = odd ? a : b;
+  int c = 0;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    const bool pad = j >= n;
+    int inbox = 0;
+    if (!pad) {
+#pragma unroll
+      for (int k = 0; k < gossip::kMaxClasses; ++k)
+        if (k < cls.count)
+          inbox += mark[gossip::class_source(j, cls.d[k], n)] == k ? 1 : 0;
+    }
+    if (suppress && cur.conv[j] != 0) inbox = 0;
+    const int cnt = cur.count[j] + inbox;
+    const int cv = (!pad && cnt >= rumor_target) ? 1 : 0;
+    nxt.count[j] = cnt;
+    nxt.active[j] = (cur.active[j] != 0 || inbox > 0) ? 1 : 0;
+    nxt.conv[j] = cv;
+    c += cv;
+  }
+  finish_count(block_sum(c), total, ticket, ctrl, target, true);
+}
+
+__global__ void gossip_finish(GossipPlanes a, GossipPlanes b, int n_pad,
+                              const int* __restrict__ ctrl) {
+  if (!(ctrl[1] & 1)) return;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    a.count[j] = b.count[j];
+    a.active[j] = b.active[j];
+    a.conv[j] = b.conv[j];
+  }
+}
+
+// Lattice and class list from the C arguments; false if they are out of
+// range for the kernels.
+bool setup(int kind, int n, int extra_node, const int* classes,
+           int n_classes, gossip::Lattice* L, Classes* cls) {
+  if (kind < gossip::kRing || kind > gossip::kTorus3d || n < 2 ||
+      n_classes < 1 || n_classes > gossip::kMaxClasses ||
+      (extra_node != 0 && extra_node != 1))
+    return false;
+  *L = gossip::make_lattice(kind, n, extra_node);
+  cls->count = n_classes;
+  for (int k = 0; k < gossip::kMaxClasses; ++k)
+    cls->d[k] = k < n_classes ? classes[k] : 0;
+  for (int k = 0; k < n_classes; ++k)
+    if (cls->d[k] < 1 || cls->d[k] >= n) return false;
+  return true;
+}
+
+}  // namespace
+
+// ------------------------------------------------------------- C interface
+//
+// Both entry points queue the init launch, two launches per round and the
+// finish launch on `stream` of CUDA device `device`, and return the first
+// launch error (a cudaError_t), 0 if none. Outputs and scratch are
+// allocated by the caller: the A planes receive the result, the B planes
+// are the other half of the ping/pong pair; mark is int8[n_pad]; ctrl is
+// int32[2] (done, rounds executed) and scratch int32[2 * (rounds + 1)]
+// (per-round totals, then tickets), both zeroed. `classes` is a host array
+// of the n_classes sorted displacement classes.
+
+extern "C" int gossip_pushsum_stencil_chunk(
+    const float* s0, const float* w0, const int* t0, const int* c0, float* s,
+    float* w, int* term, int* conv, float* s_b, float* w_b, int* term_b,
+    int* conv_b, int8_t* mark, const long long* keys, int* ctrl, int* scratch,
+    const int* classes, int n_classes, int kind, int n, int extra_node,
+    int n_pad, int rounds, float delta, int term_rounds, int target,
+    int device, void* stream_ptr) {
+  gossip::Lattice L;
+  Classes cls;
+  if (!setup(kind, n, extra_node, classes, n_classes, &L, &cls))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  int* totals = scratch;
+  unsigned* tickets = (unsigned*)(scratch + rounds + 1);
+  const PushSumPlanes a{s, w, term, conv};
+  const PushSumPlanes b{s_b, w_b, term_b, conv_b};
+  const int grid_init = grid_for(pushsum_init, n_pad, device);
+  const int grid_mark = grid_for(pushsum_mark, n_pad, device);
+  const int grid_absorb = grid_for(pushsum_absorb, n_pad, device);
+  const int grid_finish = grid_for(pushsum_finish, n_pad, device);
+  pushsum_init<<<grid_init, kBlock, 0, stream>>>(
+      s0, w0, t0, c0, a, n_pad, totals + rounds, tickets + rounds, ctrl,
+      target);
+  err = cudaGetLastError();
+  for (int r = 0; r < rounds && err == cudaSuccess; ++r) {
+    pushsum_mark<<<grid_mark, kBlock, 0, stream>>>(mark, keys + 2 * r, L,
+                                                   cls, n_pad, ctrl);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) break;
+    pushsum_absorb<<<grid_absorb, kBlock, 0, stream>>>(
+        a, b, mark, cls, n, n_pad, delta, term_rounds, target, totals + r,
+        tickets + r, ctrl);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return (int)err;
+  pushsum_finish<<<grid_finish, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gossip_gossip_stencil_chunk(
+    const int* n0, const int* a0, const int* c0, int* count, int* active,
+    int* conv, int* count_b, int* active_b, int* conv_b, int8_t* mark,
+    const long long* keys, int* ctrl, int* scratch, const int* classes,
+    int n_classes, int kind, int n, int extra_node, int n_pad, int rounds,
+    int rumor_target, int suppress, int target, int device,
+    void* stream_ptr) {
+  gossip::Lattice L;
+  Classes cls;
+  if (!setup(kind, n, extra_node, classes, n_classes, &L, &cls))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  int* totals = scratch;
+  unsigned* tickets = (unsigned*)(scratch + rounds + 1);
+  const GossipPlanes a{count, active, conv};
+  const GossipPlanes b{count_b, active_b, conv_b};
+  const int grid_init = grid_for(gossip_init, n_pad, device);
+  const int grid_mark = grid_for(gossip_mark, n_pad, device);
+  const int grid_absorb = grid_for(gossip_absorb, n_pad, device);
+  const int grid_finish = grid_for(gossip_finish, n_pad, device);
+  gossip_init<<<grid_init, kBlock, 0, stream>>>(
+      n0, a0, c0, a, n_pad, totals + rounds, tickets + rounds, ctrl, target);
+  err = cudaGetLastError();
+  for (int r = 0; r < rounds && err == cudaSuccess; ++r) {
+    gossip_mark<<<grid_mark, kBlock, 0, stream>>>(a, b, mark, keys + 2 * r,
+                                                  L, cls, n_pad, ctrl);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) break;
+    gossip_absorb<<<grid_absorb, kBlock, 0, stream>>>(
+        a, b, mark, cls, n, n_pad, rumor_target, suppress, target, totals + r,
+        tickets + r, ctrl);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return (int)err;
+  gossip_finish<<<grid_finish, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
+  return (int)cudaGetLastError();
+}

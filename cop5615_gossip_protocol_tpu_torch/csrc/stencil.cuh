@@ -1,0 +1,158 @@
+// Per-node logic of the lattice (stencil) kernels in csrc/fused_stencil.cu:
+// the direction pairs of the six arithmetic lattices in neighbour-column
+// order, the sampled displacement, and each receiver's class check. The
+// device-side counterpart of ops/topology.py's lattice_dirs and
+// ops/fused_stencil_hbm.py's _sample_disp_dirs.
+//
+// Plain inline code usable from the host too, so g++ builds it for the CPU
+// tests (tests/test_torch_stencil.py) and they hold it against the JAX
+// package's topologies and sampling without a GPU.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#include "threefry.cuh"
+
+namespace gossip {
+
+// Lattice families; ref2d is wired as a line (quirk Q6) and uses kLine.
+enum LatticeKind : int {
+  kRing = 0,
+  kLine = 1,
+  kGrid2d = 2,
+  kGrid3d = 3,
+  kTorus3d = 4,
+};
+
+constexpr int kMaxDirs = 6;
+constexpr int kMaxClasses = 16;
+
+struct Lattice {
+  int kind;
+  int n;      // population
+  int n_lat;  // lattice nodes: n, or n - 1 past the reference's unwired node
+  int side;   // grid2d side, or the 3-D cube side g; 0 for the chains
+};
+
+GOSSIP_HD long long power(long long v, int p) {
+  return p == 2 ? v * v : v * v * v;
+}
+
+// Largest r with r**p <= x (p = 2 or 3), by integer steps from a float
+// guess: exact for every x < 2**31.
+GOSSIP_HD int integer_root(int x, int p) {
+  long long r = (long long)(p == 2 ? sqrt((double)x) : cbrt((double)x));
+  while (r > 0 && power(r, p) > x) --r;
+  while (power(r + 1, p) <= x) ++r;
+  return (int)r;
+}
+
+// The lattice of a population-n topology of `kind`. `extra_node` is 1 when
+// the last node is the reference's unwired Q1 node (degree 0, past the
+// lattice: the grids in reference semantics), else 0.
+GOSSIP_HD Lattice make_lattice(int kind, int n, int extra_node) {
+  Lattice L;
+  L.kind = kind;
+  L.n = n;
+  L.n_lat = n - extra_node;
+  L.side = kind == kGrid2d ? integer_root(L.n_lat, 2)
+           : (kind == kGrid3d || kind == kTorus3d) ? integer_root(L.n_lat, 3)
+                                                    : 0;
+  return L;
+}
+
+// Direction pairs of node j in the topology's neighbour-column order: the
+// k-th pair is (live[k], disp[k]) with disp the mod-n displacement of that
+// edge. The j-th LIVE pair is column j of the topology's neighbour table.
+// Returns the number of pairs. Wrap lattices have every pair live; the
+// others mask boundary faces and every node at or past n_lat.
+GOSSIP_HD int lattice_dirs(const Lattice& L, int j, bool* live, int* disp) {
+  const int n = L.n;
+  const bool in = j < L.n_lat;
+  switch (L.kind) {
+    case kRing:
+      live[0] = live[1] = true;
+      disp[0] = n - 1;
+      disp[1] = 1;
+      return 2;
+    case kLine:
+      live[0] = in && j > 0;
+      disp[0] = n - 1;
+      live[1] = in && j < L.n_lat - 1;
+      disp[1] = 1;
+      return 2;
+    case kGrid2d: {
+      const int s = L.side, x = j % s, y = j / s;
+      live[0] = in && x > 0;      disp[0] = n - 1;
+      live[1] = in && x < s - 1;  disp[1] = 1;
+      live[2] = in && y > 0;      disp[2] = n - s;
+      live[3] = in && y < s - 1;  disp[3] = s;
+      return 4;
+    }
+    case kGrid3d: {
+      const int g = L.side, g2 = g * g;
+      const int x = j % g, y = (j / g) % g, z = j / g2;
+      live[0] = in && x > 0;      disp[0] = n - 1;
+      live[1] = in && x < g - 1;  disp[1] = 1;
+      live[2] = in && y > 0;      disp[2] = n - g;
+      live[3] = in && y < g - 1;  disp[3] = g;
+      live[4] = in && z > 0;      disp[4] = n - g2;
+      live[5] = in && z < g - 1;  disp[5] = g2;
+      return 6;
+    }
+    default: {  // kTorus3d: the wrap edge of a face is +-(g-1) steps away
+      const int g = L.side, g2 = g * g;
+      const int x = j % g, y = (j / g) % g, z = j / g2;
+      for (int k = 0; k < 6; ++k) live[k] = true;
+      disp[0] = x > 0 ? n - 1 : g - 1;
+      disp[1] = x < g - 1 ? 1 : n - (g - 1);
+      disp[2] = y > 0 ? n - g : g * (g - 1);
+      disp[3] = y < g - 1 ? g : n - g * (g - 1);
+      disp[4] = z > 0 ? n - g2 : g2 * (g - 1);
+      disp[5] = z < g - 1 ? g2 : n - g2 * (g - 1);
+      return 6;
+    }
+  }
+}
+
+// Sampled mod-n displacement of node j from its word `bits`, as
+// sampling.targets_explicit draws it: slot = bits % degree (unsigned), then
+// the slot-th live pair in column order. -1 for a degree-0 node, which
+// never sends.
+GOSSIP_HD int sample_disp(const Lattice& L, int j, uint32_t bits) {
+  bool live[kMaxDirs];
+  int disp[kMaxDirs];
+  const int dirs = lattice_dirs(L, j, live, disp);
+  int deg = 0;
+  for (int k = 0; k < dirs; ++k) deg += live[k] ? 1 : 0;
+  if (deg == 0) return -1;
+  const int slot = (int)(bits % (uint32_t)deg);
+  int d = -1, cum = 0;
+  for (int k = 0; k < dirs; ++k) {
+    if (live[k]) {
+      if (cum == slot) d = disp[k];
+      ++cum;
+    }
+  }
+  return d;
+}
+
+// Index of displacement d in the sorted class list, or -1 (also for d < 0).
+// At torus cube side 2 two directions share one displacement, hence one
+// class: the check is on the displacement, never on the direction.
+GOSSIP_HD int class_of(int d, const int* classes, int count) {
+  int index = -1;
+#pragma unroll
+  for (int c = 0; c < kMaxClasses; ++c)
+    if (c < count && classes[c] == d) index = c;
+  return index;
+}
+
+// The node whose message along class displacement d lands on receiver j
+// (the mod-n roll by d); j receives it iff that node's mark is the class.
+GOSSIP_HD int class_source(int j, int d, int n) {
+  return j >= d ? j - d : j - d + n;
+}
+
+}  // namespace gossip

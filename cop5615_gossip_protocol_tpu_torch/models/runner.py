@@ -2,18 +2,24 @@
 
 ``run`` drives one simulation to convergence (or ``cfg.max_rounds``) in
 chunks of ``cfg.chunk_rounds`` rounds through the pipelined chunk loop
-(models/pipeline.py), and returns a ``RunResult``. Two engines serve this
-slice, as the JAX runner's do:
+(models/pipeline.py), and returns a ``RunResult``. The engines are the JAX
+runner's:
 
-- the fused pool engine (ops/fused_pool.py): the CUDA kernels on a CUDA
-  device, their plain torch versions on the CPU;
+- the fused engines: the pool engine (ops/fused_pool.py) on ``full`` and
+  the streaming stencil engine (ops/fused_stencil_hbm.py) on the lattices,
+  each running its CUDA kernels on a CUDA device and their plain torch
+  versions on the CPU;
 - the chunked torch engine: one torch round per loop step on [n] tensors
-  (sampling, pool delivery, absorb), the JAX chunked engine's counterpart.
+  (sampling, pool or stencil delivery, absorb), the JAX chunked engine's
+  counterpart.
 
-``engine="auto"`` runs the kernels on CUDA and the chunked engine on the
-CPU; ``"fused"`` forces the fused engine (on the CPU, the plain versions);
-``"chunked"`` forces the chunked engine. There is no degradation ladder: a
-kernel that fails to build or launch raises.
+The fused tier is picked by the JAX runner's ladder (``fused_tier``), so a
+config lands on the tier the JAX package would give it; a tier whose
+kernels are not ported yet raises on CUDA and under ``engine="fused"``,
+naming its ROADMAP item. ``engine="auto"`` runs the kernels on CUDA and
+the chunked engine on the CPU; ``"fused"`` forces the fused engine (on the
+CPU, the plain versions); ``"chunked"`` forces the chunked engine. There
+is no degradation ladder: a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 
 from ..config import SimConfig, unported
 from ..ops import delivery as delivery_mod
-from ..ops import fused, fused_pool, rng, sampling
+from ..ops import fused, fused_pool, fused_stencil, fused_stencil_hbm, rng, sampling
 from ..ops.topology import Topology
 from ..utils.device import resolve_device
 from ..utils.metrics import RUN_RECORD_SCHEMA_VERSION
@@ -103,33 +109,53 @@ def draw_leader(base_key, topo: Topology, cfg: SimConfig) -> int:
     return int(rng.randint(rng.fold_in(base_key, _LEADER_TAG), (), 0, upper))
 
 
-def _make_pool_round_fn(topo: Topology, cfg: SimConfig, base_key, device):
-    """The chunked engine's round on [n] tensors: the round draws
-    cfg.pool_size shared displacements, every node picks one with packed
-    choice bits, and delivery is pool_size masked rolls. Returns
-    (round_fn(state, round_idx) -> state, state0). Fault-free: every node
-    sends every round."""
-    n = topo.n
-    send_ok = torch.ones(n, dtype=torch.bool, device=device)
+def _make_round_fn(topo: Topology, cfg: SimConfig, base_key, device):
+    """The chunked engine's round on [n] tensors. Returns (round_fn(state,
+    round_idx) -> state, state0). Fault-free.
 
-    def pool_parts(round_idx: int):
-        kr = sampling.round_key(base_key, round_idx)
-        offs = sampling.pool_offsets(kr, cfg.pool_size, n).tolist()
-        choice = sampling.pool_choice_packed(kr, n, cfg.pool_size, device=device)
-        return choice, offs
+    On ``full`` the round draws cfg.pool_size shared displacements, every
+    node picks one with packed choice bits, every node sends, and delivery
+    is pool_size masked rolls. On a lattice every node draws one word,
+    takes the neighbour column it selects (``targets_explicit``), nodes of
+    degree > 0 send, and delivery is one masked roll per displacement
+    class (``deliver_stencil``)."""
+    n = topo.n
+    if topo.implicit:
+        send_ok = torch.ones(n, dtype=torch.bool, device=device)
+
+        def deliver_parts(round_idx: int):
+            kr = sampling.round_key(base_key, round_idx)
+            offs = sampling.pool_offsets(kr, cfg.pool_size, n).tolist()
+            choice = sampling.pool_choice_packed(kr, n, cfg.pool_size, device=device)
+            return lambda values: delivery_mod.deliver_pool(values, choice, offs)
+
+    else:
+        neighbors = torch.from_numpy(topo.neighbors).to(device)
+        degree = torch.from_numpy(topo.degree).to(device)
+        send_ok = degree > 0
+        offsets = topo.offsets
+        if offsets is None:
+            raise unported(f"scatter delivery ({topo.kind} n={topo.n} has no "
+                           "stencil displacement classes)", "A7")
+        offsets = [int(d) for d in offsets]
+
+        def deliver_parts(round_idx: int):
+            kr = sampling.round_key(base_key, round_idx)
+            bits = sampling.uniform_bits(kr, n, device=device)
+            targets = sampling.targets_explicit(bits, neighbors, degree)
+            return lambda values: delivery_mod.deliver_stencil(
+                values, targets, offsets, n)
 
     if cfg.algorithm == "push-sum":
         state0 = pushsum_mod.init_state(n, cfg.initial_term_round, device)
         delta, term_rounds = cfg.resolved_delta, cfg.term_rounds
 
         def round_fn(state, round_idx):
-            choice, offs = pool_parts(round_idx)
+            deliver = deliver_parts(round_idx)
             s_send, w_send, s_keep, w_keep = pushsum_mod.halve_and_send(
                 state.s, state.w, send_ok
             )
-            inbox = delivery_mod.deliver_pool(
-                torch.stack([s_send, w_send]), choice, offs
-            )
+            inbox = deliver(torch.stack([s_send, w_send]))
             return pushsum_mod.absorb(
                 state, s_keep, w_keep, inbox[0], inbox[1], delta, term_rounds
             )
@@ -142,9 +168,9 @@ def _make_pool_round_fn(topo: Topology, cfg: SimConfig, base_key, device):
         rumor_target, suppress = cfg.resolved_rumor_target, cfg.resolved_suppress
 
         def round_fn(state, round_idx):
-            choice, offs = pool_parts(round_idx)
+            deliver = deliver_parts(round_idx)
             vals = gossip_mod.send_values(state, send_ok)
-            inbox = delivery_mod.deliver_pool(vals[None], choice, offs)[0]
+            inbox = deliver(vals[None])[0]
             return gossip_mod.absorb(state, inbox, rumor_target, suppress)
 
     return round_fn, state0
@@ -201,6 +227,29 @@ def describe_device(device: torch.device) -> str:
     return str(device)
 
 
+# The JAX tiers not ported yet, with the ROADMAP item that ports each.
+_UNPORTED_TIERS = {"pool2": "B4", "stencil": "B5", "stencil2": "B6"}
+
+
+def fused_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
+    """The fused tier the JAX runner's ladder picks for this config, and
+    None or the reason it cannot run there (models/runner.py of the JAX
+    package: the pool engine on ``full`` up to its VMEM cap and the
+    streaming pool tier past it; on the lattices the whole-array stencil
+    tier, else the tiled one, else the streaming one)."""
+    if topo.implicit:
+        if topo.n <= fused_pool.MAX_POOL_NODES:
+            return "pool", fused_pool.pool_fused_support(topo, cfg)
+        return "pool2", None
+    reason = fused.fused_support(topo, cfg)
+    if reason is None:
+        return "stencil", None
+    variant, reason = "stencil2", fused_stencil.stencil2_support(topo, cfg)
+    if reason is not None and fused_stencil_hbm.stencil_hbm_support(topo, cfg) is None:
+        variant, reason = "stencil_hbm", None
+    return variant, reason
+
+
 def run(topo: Topology, cfg: SimConfig, key=None, device=None,
         start_state=None, start_round: int = 0) -> RunResult:
     """Run one simulation to convergence or cfg.max_rounds.
@@ -215,19 +264,23 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
     key = rng.PRNGKey(cfg.seed) if key is None else key
     target = cfg.resolved_target_count(topo.n, topo.target_count)
     if cfg.engine != "chunked":
-        reason = fused_pool.pool_fused_support(topo, cfg)
-        if reason is not None and topo.n > fused_pool.MAX_POOL_NODES and (
+        variant, reason = fused_tier(topo, cfg)
+        if variant in _UNPORTED_TIERS and reason is None and (
             cfg.engine == "fused" or device.type == "cuda"
         ):
-            raise unported(f"population {topo.n} on the fused engine", "B4")
+            raise unported(
+                f"the fused {variant!r} tier ({topo.kind} n={topo.n}; "
+                "--engine chunked runs it on the chunked engine)",
+                _UNPORTED_TIERS[variant],
+            )
         if cfg.engine == "fused":
             if reason is not None:
                 raise ValueError(f"engine='fused' unavailable: {reason}")
             return _run_fused(topo, cfg, key, device, start_state,
-                              start_round, target, t_enter)
+                              start_round, target, t_enter, variant)
         if reason is None and device.type == "cuda":
             return _run_fused(topo, cfg, key, device, start_state,
-                              start_round, target, t_enter)
+                              start_round, target, t_enter, variant)
     return _run_chunked(topo, cfg, key, device, start_state, start_round,
                         target, t_enter)
 
@@ -238,7 +291,7 @@ def _to_device(state, device):
 
 def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
                  t_enter) -> RunResult:
-    round_fn, state0 = _make_pool_round_fn(topo, cfg, key, device)
+    round_fn, state0 = _make_round_fn(topo, cfg, key, device)
     if start_state is not None:
         state0 = _to_device(start_state, device)
     done0 = start_state is not None and _host_done(state0, target)
@@ -275,13 +328,44 @@ def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
     return result
 
 
-def _run_fused(topo, cfg, key, device, start_state, start_round, target,
-               t_enter) -> RunResult:
-    """Chunk loop over the fused pool engine: one chunk call per
-    cfg.chunk_rounds rounds, with keys and displacement pools drawn on the
-    host (the wrappers copy them to the device without a sync)."""
-    layout = fused_pool.build_pool_layout(topo.n)
+@dataclasses.dataclass
+class FusedEngine:
+    """One fused tier set up for one config: ``planes`` is the start state
+    in the tier's padded layout (CPU tensors), ``streams(start, count)``
+    draws the per-round inputs on the host (the fold_in keys, plus the
+    displacement pools on the pool tier), ``chunk(state, streams, start,
+    cap) -> (state, executed)`` runs one chunk, and ``to_canonical`` turns
+    padded planes back into a [n] state."""
+
+    layout: object
+    planes: tuple
+    streams: object
+    chunk: object
+    to_canonical: object
+
+
+def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
+                 start_state=None) -> FusedEngine:
+    """The fused engine of tier ``variant`` ("pool" or "stencil_hbm")."""
     n = topo.n
+    target = cfg.resolved_target_count(topo.n, topo.target_count)
+    if variant == "pool":
+        layout = fused_pool.build_pool_layout(n)
+        pushsum_chunk, gossip_chunk = (fused_pool.pushsum_pool_chunk,
+                                       fused_pool.gossip_pool_chunk)
+        common = {"n": n, "target": target}
+    else:
+        layout = fused_stencil_hbm._streaming_layout(n)
+        pushsum_chunk, gossip_chunk = (fused_stencil_hbm.pushsum_stencil_hbm_chunk,
+                                       fused_stencil_hbm.gossip_stencil_hbm_chunk)
+        common = {"spec": fused_stencil_hbm.stencil_spec(topo), "target": target}
+
+    def streams(start, count):
+        keys = fused.round_keys(key, start, count)
+        if variant != "pool":
+            return (keys,)
+        return keys, fused_pool.round_offsets(key, start, count, cfg.pool_size, n)
+
     if cfg.algorithm == "push-sum":
         st = start_state or pushsum_mod.init_state(n, cfg.initial_term_round)
         planes = (
@@ -291,11 +375,10 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
             fused._pad2d(st.conv.cpu().to(torch.int32), layout, 0),
         )
 
-        def chunk_fn(state, keys, offs, start, cap):
-            return fused_pool.pushsum_pool_chunk(
-                state, keys, offs, start, cap, n=n, target=target,
-                delta=cfg.resolved_delta, term_rounds=cfg.term_rounds,
-            )
+        def chunk(state, extras, start, cap):
+            return pushsum_chunk(state, *extras, start, cap, **common,
+                                 delta=cfg.resolved_delta,
+                                 term_rounds=cfg.term_rounds)
 
         def to_canonical(state):
             s, w, t, c = (x.reshape(-1)[:n] for x in state)
@@ -311,18 +394,26 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
             fused._pad2d(st.conv.cpu().to(torch.int32), layout, 0),
         )
 
-        def chunk_fn(state, keys, offs, start, cap):
-            return fused_pool.gossip_pool_chunk(
-                state, keys, offs, start, cap, n=n, target=target,
-                rumor_target=cfg.resolved_rumor_target,
-                suppress=cfg.resolved_suppress,
-            )
+        def chunk(state, extras, start, cap):
+            return gossip_chunk(state, *extras, start, cap, **common,
+                                rumor_target=cfg.resolved_rumor_target,
+                                suppress=cfg.resolved_suppress)
 
         def to_canonical(state):
             cnt, act, c = (x.reshape(-1)[:n] for x in state)
             return gossip_mod.GossipState(count=cnt, active=act != 0, conv=c != 0)
 
-    state_dev = tuple(p.contiguous().to(device) for p in planes)
+    return FusedEngine(layout, planes, streams, chunk, to_canonical)
+
+
+def _run_fused(topo, cfg, key, device, start_state, start_round, target,
+               t_enter, variant) -> RunResult:
+    """Chunk loop over a fused engine: one chunk call per cfg.chunk_rounds
+    rounds, with the per-round streams drawn on the host (the wrappers
+    copy them to the device without a sync)."""
+    eng = fused_engine(topo, cfg, key, variant, start_state)
+    streams, chunk_fn = eng.streams, eng.chunk
+    state_dev = tuple(p.contiguous().to(device) for p in eng.planes)
     K = cfg.chunk_rounds
     queued = {"end": start_round}  # nominal start of the next chunk
 
@@ -331,9 +422,7 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
         # to end: a chunk stops short only at termination, and every later
         # chunk is then a no-op that keeps the carry's counter.
         start, queued["end"] = queued["end"], round_end
-        keys = fused.round_keys(key, start, K)
-        offs = fused_pool.round_offsets(key, start, K, cfg.pool_size, n)
-        new_state, executed = chunk_fn(state, keys, offs, start, round_end)
+        new_state, executed = chunk_fn(state, streams(start, K), start, round_end)
         expected = min(K, max(round_end - start, 0))
         ex = executed.to(torch.int64)
         new_status = torch.stack(
@@ -346,9 +435,7 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
     # Warmup: builds the kernels on first use and runs one real round on
     # the same input, discarded (the chunk leaves its input unchanged).
     warm_end = min(start_round + 1, cfg.max_rounds)
-    chunk_fn(state_dev, fused.round_keys(key, start_round, 1),
-             fused_pool.round_offsets(key, start_round, 1, cfg.pool_size, n),
-             start_round, warm_end)
+    chunk_fn(state_dev, streams(start_round, 1), start_round, warm_end)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     compile_s = time.perf_counter() - t0
@@ -362,7 +449,7 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
     )
     run_s = time.perf_counter() - t1
     t_fin = time.perf_counter()
-    final = to_canonical(loop.state)
+    final = eng.to_canonical(loop.state)
     result = _finalize_result(topo, cfg, final, loop.rounds, target,
                               compile_s, run_s, _host_done(final, target),
                               loop, device)

@@ -1,4 +1,5 @@
-"""Message delivery for offset-pool sampling on the implicit full topology."""
+"""Message delivery as masked circular shifts: offset pools on the implicit
+full topology, static displacement classes on the lattices."""
 
 from __future__ import annotations
 
@@ -18,4 +19,26 @@ def deliver_pool(channels: torch.Tensor, choice: torch.Tensor, offsets) -> torch
     for k, off in enumerate(offsets):
         masked = torch.where((choice == k)[None, :], channels, zero)
         inbox = inbox + torch.roll(masked, int(off), dims=1)
+    return inbox
+
+
+def deliver_stencil(values: torch.Tensor, targets: torch.Tensor, offsets,
+                    n: int) -> torch.Tensor:
+    """Scatter-free delivery for offset-structured topologies: every edge
+    displacement ``(target - sender) mod n`` lies in the sorted set
+    ``offsets``, so the inbox is one masked circular shift per class,
+    accumulated from zero in ascending class order:
+
+        inbox[..., j] = sum over d of values[..., j - d] * [disp[j - d] == d]
+
+    ``values`` is [n] or [C, n] (push-sum stacks s and w). A line's node
+    n-1 never leaks onto node 0: no +1 edge leaves n-1, so its mask slot
+    never fires."""
+    ids = torch.arange(n, dtype=targets.dtype, device=targets.device)
+    disp = torch.remainder(targets - ids, n)
+    zero = torch.zeros((), dtype=values.dtype, device=values.device)
+    inbox = torch.zeros_like(values)
+    for d in offsets:
+        masked = torch.where(disp == int(d), values, zero)
+        inbox = inbox + torch.roll(masked, int(d), dims=-1)
     return inbox

@@ -1,17 +1,59 @@
-"""Helpers shared by the fused chunk engines, as plain torch functions.
+"""Helpers shared by the fused chunk engines, as plain torch functions, and
+the support predicate of the JAX package's whole-array stencil tier.
 
 The CUDA kernels compute the same things on the device: the Threefry hash
 in csrc/threefry.cuh, the done flag and the round cap inside
-csrc/fused_pool.cu.
+csrc/fused_pool.cu and csrc/fused_stencil.cu. The whole-array stencil
+kernels themselves (the JAX package's ops/fused.py make_pushsum_chunk and
+make_gossip_chunk) are not ported yet (ROADMAP B5); ``fused_support`` is
+kept so the engine ladder picks the tier the JAX package picks.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
+from ..config import SimConfig
 from . import rng
+from .topology import Topology
 
 LANES = 128
+# The JAX whole-array stencil tier's population cap (its VMEM budget).
+MAX_FUSED_NODES = 131_072
+
+
+def _has_wrap_edges(topo: Topology) -> bool:
+    """True if any live edge's raw displacement (j - i) differs from its
+    signed modular displacement, i.e. the edge wraps the index space."""
+    cols = np.arange(topo.max_deg)[None, :]
+    live = cols < topo.degree[:, None]
+    ids = np.arange(topo.n, dtype=np.int64)[:, None]
+    raw = (topo.neighbors.astype(np.int64) - ids)[live]
+    mod = raw % topo.n
+    signed = np.where(mod <= topo.n // 2, mod, mod - topo.n)
+    return bool((raw != signed).any())
+
+
+def fused_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
+    """None if the JAX package's whole-array stencil tier would run this
+    config, else the reason not (its predicate, ops/fused.py; the port's
+    configs are fault-free, float32 and single-device by construction)."""
+    del cfg
+    if topo.implicit:
+        return "implicit (full) topology has no displacement structure"
+    if topo.offsets is None:
+        return f"topology {topo.kind!r} has no small displacement set"
+    if topo.n > MAX_FUSED_NODES:
+        return f"population {topo.n} exceeds VMEM-resident limit {MAX_FUSED_NODES}"
+    if topo.n % LANES != 0 and _has_wrap_edges(topo):
+        return (
+            "wraparound topology needs population divisible by 128 "
+            f"(n={topo.n}); rolls in the padded layout would misdeliver"
+        )
+    return None
 
 
 def threefry2x32_hash(k1, k2, i):

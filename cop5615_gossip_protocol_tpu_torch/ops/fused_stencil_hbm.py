@@ -1,0 +1,346 @@
+"""Streaming stencil engine: fused multi-round chunks on the six arithmetic
+lattices (torus3d, ring, grid2d, grid3d, line, ref2d), up to 2**27 nodes.
+
+One call runs a chunk of up to K synchronous push-sum or gossip rounds on
+the padded ``[rows, 128]`` layout of the JAX package's
+ops/fused_stencil_hbm.py (``_streaming_layout``), consuming per-round
+fold_in keys, and stops early once the converged count reaches the target.
+Every node draws one word at its global index and picks a direction from
+the lattice's arithmetic direction pairs (``topology.lattice_dirs``), bitwise the
+chunked engine's ``targets_explicit``; delivery sums the sorted
+displacement classes in order, as ``deliver_stencil`` does.
+
+``pushsum_stencil_hbm_chunk`` and ``gossip_stencil_hbm_chunk`` launch the
+CUDA kernels of csrc/fused_stencil.cu on CUDA tensors and run their plain
+torch versions (``*_plain``) on CPU tensors; the plain versions run on any
+device and are what the kernels are held against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import SimConfig
+from ..utils import kernels
+from . import rng
+from .fused import LANES, clamp_cap_and_pad, make_done_flag, threefry2x32_hash
+from .fused_pool import PoolLayout, _ptr, _upload, build_pool_layout
+from .topology import Topology, lattice_dirs
+
+MAX_STENCIL_HBM_NODES = 2**27
+_HBM_KINDS = ("torus3d", "ring", "grid2d", "grid3d", "line", "ref2d")
+# The lattice families of csrc/stencil.cuh (ref2d is wired as a line).
+_KIND_IDS = {"ring": 0, "line": 1, "ref2d": 1, "grid2d": 2, "grid3d": 3,
+             "torus3d": 4}
+
+
+def stencil_hbm_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
+    """None if the streaming stencil engine can run this config (the JAX
+    tier's predicate; the port's configs are fault-free, float32 and
+    single-device by construction)."""
+    del cfg
+    if topo.kind not in _HBM_KINDS:
+        return (
+            f"topology {topo.kind!r} has no arithmetic displacement "
+            f"columns (served kinds: {', '.join(_HBM_KINDS)})"
+        )
+    if topo.n > MAX_STENCIL_HBM_NODES:
+        return (
+            f"population {topo.n} exceeds the HBM-plane budget "
+            f"({MAX_STENCIL_HBM_NODES} nodes)"
+        )
+    return None
+
+
+def _n_lat(topo: Topology) -> int:
+    """Nodes of the lattice proper: n, or n - 1 when the last node is the
+    reference's unwired Q1 node (degree 0; the grids in reference
+    semantics), whose live masks are then forced empty."""
+    if topo.degree is not None and topo.degree.size and int(topo.degree[-1]) == 0:
+        return topo.n - 1
+    return topo.n
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilSpec:
+    """What the chunks need of a lattice topology."""
+
+    kind: str
+    n: int  # population
+    n_lat: int  # nodes of the lattice proper (see _n_lat)
+    classes: tuple  # the sorted mod-n displacement classes
+
+
+def stencil_spec(topo: Topology) -> StencilSpec:
+    offs = topo.offsets
+    if topo.kind not in _HBM_KINDS or offs is None:
+        raise ValueError(f"{topo.kind!r} n={topo.n} is not an arithmetic lattice")
+    return StencilSpec(topo.kind, topo.n, _n_lat(topo),
+                       tuple(int(d) for d in offs))
+
+
+def _sample_disp_dirs(bits: torch.Tensor, pairs):
+    """Per-node sampled mod-n displacement and degree from the direction
+    pairs, bitwise sampling.targets_explicit: slot = the unsigned word
+    modulo max(degree, 1), then the slot-th LIVE pair in column order.
+    Returns (d, deg)."""
+    deg = pairs[0][0].to(torch.int64)
+    for live, _ in pairs[1:]:
+        deg = deg + live.to(torch.int64)
+    slot = bits % deg.clamp(min=1)
+    d = torch.zeros_like(bits)
+    cum = torch.zeros_like(bits)
+    for live, disp in pairs:
+        d = torch.where(live & (slot == cum), disp, d)
+        cum = cum + live.to(torch.int64)
+    return d, deg
+
+
+def _streaming_layout(n: int) -> PoolLayout:
+    """The pool layout with rows rounded up to a multiple of 4096 past 4096
+    rows (the JAX streaming tier's layout). The pad lanes never send and
+    never receive, so the padding leaves the trajectory unchanged."""
+    base = build_pool_layout(n)
+    if base.rows <= 4096 or base.rows % 4096 == 0:
+        return base
+    rows = -(-base.rows // 4096) * 4096
+    return PoolLayout(n=n, n_pad=rows * LANES, rows=rows,
+                      tiles=rows * base.tiles // base.rows)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the kernels' function in torch, on any device.
+# ---------------------------------------------------------------------------
+
+
+def _round_setup(spec: StencilSpec, rows: int, dev):
+    """Per-chunk constants of the plain versions: flat indices, the pad
+    mask, the direction pairs, and each class's source index."""
+    n = spec.n
+    jflat = torch.arange(rows * LANES, dtype=torch.int64, device=dev)
+    padm = jflat >= n
+    pairs = lattice_dirs(spec.kind, n, spec.n_lat, jflat)
+    srcs = [torch.where(jflat >= d, jflat - d, jflat - d + n) for d in spec.classes]
+    return jflat, padm, pairs, srcs
+
+
+def _round_marks(key_row, jflat, padm, pairs):
+    """Each node's sampled displacement this round, -1 where it does not
+    send (pad lanes, degree 0)."""
+    bits = threefry2x32_hash(key_row[0], key_row[1], jflat)
+    d, deg = _sample_disp_dirs(bits, pairs)
+    return torch.where((deg > 0) & ~padm, d, -1)
+
+
+def pushsum_stencil_hbm_chunk_plain(state4, keys, start: int, cap: int, *,
+                                    spec: StencilSpec, target: int,
+                                    delta: float, term_rounds: int):
+    """Up to K = keys.shape[0] push-sum lattice rounds on the padded planes
+    (s, w, term, conv_i32). Returns (state4', rounds_executed)."""
+    s, w, t, c = (x.clone() for x in state4)
+    dev, rows = s.device, s.shape[0]
+    cap, keys = clamp_cap_and_pad(start, cap, keys)
+    keys = keys.to(dev)
+    jflat, padm, pairs, srcs = _round_setup(spec, rows, dev)
+    padm2 = padm.reshape(rows, LANES)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    delta_t = torch.tensor(delta, dtype=torch.float32, device=dev)
+    done = make_done_flag(target)
+    finished = done(c.sum())
+    executed = 0
+    for k in range(keys.shape[0]):
+        if finished or start + k >= cap:
+            break
+        mark = _round_marks(keys[k], jflat, padm, pairs)
+        sends = mark >= 0
+        ss = torch.where(sends, s.reshape(-1) * 0.5, zero)
+        ws = torch.where(sends, w.reshape(-1) * 0.5, zero)
+        in_s = torch.zeros_like(ss)
+        in_w = torch.zeros_like(ws)
+        for d, src in zip(spec.classes, srcs):
+            hit = mark[src] == d
+            in_s = in_s + torch.where(hit, ss[src], zero)
+            in_w = in_w + torch.where(hit, ws[src], zero)
+        in_s = torch.where(padm, zero, in_s).reshape(rows, LANES)
+        in_w = torch.where(padm, zero, in_w).reshape(rows, LANES)
+        s_new = (s - ss.reshape(rows, LANES)) + in_s
+        w_new = (w - ws.reshape(rows, LANES)) + in_w
+        received = in_w > 0
+        stable = torch.abs(s_new / w_new - s / w) <= delta_t
+        t = torch.where(received, torch.where(stable, t + 1, 0), t).to(torch.int32)
+        c = torch.where(padm2, 0, (c != 0) | (t >= term_rounds)).to(torch.int32)
+        s, w = s_new, w_new
+        executed += 1
+        finished = done(c.sum())
+    return (s, w, t, c), torch.tensor(executed, dtype=torch.int32, device=dev)
+
+
+def gossip_stencil_hbm_chunk_plain(state3, keys, start: int, cap: int, *,
+                                   spec: StencilSpec, target: int,
+                                   rumor_target: int, suppress: bool):
+    """Up to K gossip lattice rounds on the padded planes (count,
+    active_i32, conv_i32), with receiver-side suppression. Returns
+    (state3', rounds_executed)."""
+    cnt, act, c = (x.clone() for x in state3)
+    dev, rows = cnt.device, cnt.shape[0]
+    cap, keys = clamp_cap_and_pad(start, cap, keys)
+    keys = keys.to(dev)
+    jflat, padm, pairs, srcs = _round_setup(spec, rows, dev)
+    padm2 = padm.reshape(rows, LANES)
+    done = make_done_flag(target)
+    finished = done(c.sum())
+    executed = 0
+    for k in range(keys.shape[0]):
+        if finished or start + k >= cap:
+            break
+        mark = _round_marks(keys[k], jflat, padm, pairs)
+        mark = torch.where(act.reshape(-1) != 0, mark, -1)
+        inbox = torch.zeros_like(jflat, dtype=torch.int32)
+        for d, src in zip(spec.classes, srcs):
+            inbox = inbox + (mark[src] == d).to(torch.int32)
+        inbox = torch.where(padm, 0, inbox).reshape(rows, LANES)
+        if suppress:
+            inbox = torch.where(c != 0, 0, inbox)
+        cnt = (cnt + inbox).to(torch.int32)
+        act = ((act != 0) | (inbox > 0)).to(torch.int32)
+        c = ((cnt >= rumor_target) & ~padm2).to(torch.int32)
+        executed += 1
+        finished = done(c.sum())
+    return (cnt, act, c), torch.tensor(executed, dtype=torch.int32, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: CUDA tensors launch the kernels, CPU tensors run the plain
+# versions. No fallback between the two.
+# ---------------------------------------------------------------------------
+
+
+def _check(planes, dtypes, keys, spec: StencilSpec) -> torch.device:
+    if len(planes) != len(dtypes):
+        raise ValueError(f"expected {len(dtypes)} state planes, got {len(planes)}")
+    shape = (_streaming_layout(spec.n).rows, LANES)
+    dev = planes[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"stencil chunks run on cpu or cuda tensors, got {dev}")
+    for x, dt in zip(planes, dtypes):
+        if x.device != dev or x.dtype != dt or tuple(x.shape) != shape:
+            raise ValueError(
+                f"state plane must be {dt} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError("state planes must be contiguous")
+    if keys.dtype != torch.int64 or keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError(f"keys must be int64 [K, 2], got {keys.dtype} {tuple(keys.shape)}")
+    if keys.device.type != "cpu":
+        raise ValueError("keys are a host-drawn stream: pass a CPU tensor")
+    if keys.numel() and (keys.min() < 0 or keys.max() > rng.MASK):
+        raise ValueError("keys must hold uint32 words")
+    if spec.kind not in _KIND_IDS or not 1 <= len(spec.classes) <= 16:
+        raise ValueError(f"not a stencil lattice the kernels take: {spec}")
+    if spec.n > MAX_STENCIL_HBM_NODES:
+        raise ValueError(f"population {spec.n} exceeds {MAX_STENCIL_HBM_NODES}")
+    return dev
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "gossip_pushsum_stencil_chunk": [_P] * 17 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+    "gossip_gossip_stencil_chunk": [_P] * 14 + [_I] * 10 + [_P],
+}
+
+
+def _launch(name: str, dev: torch.device, pointers, spec: StencilSpec,
+            ints_head, ints_tail) -> None:
+    """Queue one chunk of csrc/fused_stencil.cu on the current stream of
+    ``dev`` and raise on a launch error."""
+    fn = getattr(kernels.load("fused_stencil"), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    classes = np.ascontiguousarray(spec.classes, dtype=np.int32)
+    lattice = (len(spec.classes), _KIND_IDS[spec.kind], spec.n,
+               spec.n - spec.n_lat)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(*[_ptr(x) for x in pointers],
+             classes.ctypes.data_as(ctypes.c_void_p), *lattice, *ints_head,
+             *ints_tail, dev.index, stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def pushsum_stencil_hbm_chunk(state4, keys, start: int, cap: int, *,
+                              spec: StencilSpec, target: int, delta: float,
+                              term_rounds: int):
+    """Up to K = keys.shape[0] push-sum lattice rounds from absolute round
+    ``start``, stopping at ``cap`` or once ``target`` nodes converged.
+
+    ``state4`` is (s, w, term, conv_i32) in the padded [rows, 128] layout
+    (``_streaming_layout``) on one device; ``keys`` int64 [K, 2] fold_in
+    keys (uint32 words, fused.round_keys) are a CPU tensor. Returns
+    (state4', rounds_executed) with rounds_executed a 0-dim int32 tensor on
+    the state's device; the inputs are left unchanged. CUDA state runs the
+    kernel and CPU state the plain version."""
+    dev = _check(state4, (torch.float32, torch.float32, torch.int32, torch.int32),
+                 keys, spec)
+    if dev.type == "cpu":
+        return pushsum_stencil_hbm_chunk_plain(
+            state4, keys, start, cap, spec=spec, target=target, delta=delta,
+            term_rounds=term_rounds,
+        )
+    cap, keys = clamp_cap_and_pad(start, cap, keys)
+    keys = _upload(keys, dev)
+    rounds = max(0, cap - start)
+    n_pad = state4[0].numel()
+    out = [torch.empty_like(x) for x in state4]
+    other = [torch.empty_like(x) for x in state4]
+    mark = torch.empty(n_pad, dtype=torch.int8, device=dev)
+    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(2 * (rounds + 1), dtype=torch.int32, device=dev)
+    _launch(
+        "gossip_pushsum_stencil_chunk", dev,
+        (*state4, *out, *other, mark, keys, ctrl, scratch), spec,
+        (n_pad, rounds), (ctypes.c_float(delta), term_rounds, target),
+    )
+    pushsum_stencil_hbm_chunk.launches += 2 + 2 * rounds
+    return tuple(out), ctrl[1]
+
+
+def gossip_stencil_hbm_chunk(state3, keys, start: int, cap: int, *,
+                             spec: StencilSpec, target: int,
+                             rumor_target: int, suppress: bool):
+    """Gossip analog of ``pushsum_stencil_hbm_chunk``: ``state3`` is
+    (count, active_i32, conv_i32); converged-target suppression is
+    receiver-side."""
+    dev = _check(state3, (torch.int32,) * 3, keys, spec)
+    if dev.type == "cpu":
+        return gossip_stencil_hbm_chunk_plain(
+            state3, keys, start, cap, spec=spec, target=target,
+            rumor_target=rumor_target, suppress=suppress,
+        )
+    cap, keys = clamp_cap_and_pad(start, cap, keys)
+    keys = _upload(keys, dev)
+    rounds = max(0, cap - start)
+    n_pad = state3[0].numel()
+    out = [torch.empty_like(x) for x in state3]
+    other = [torch.empty_like(x) for x in state3]
+    mark = torch.empty(n_pad, dtype=torch.int8, device=dev)
+    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(2 * (rounds + 1), dtype=torch.int32, device=dev)
+    _launch(
+        "gossip_gossip_stencil_chunk", dev,
+        (*state3, *out, *other, mark, keys, ctrl, scratch), spec,
+        (n_pad, rounds), (rumor_target, int(suppress), target),
+    )
+    gossip_stencil_hbm_chunk.launches += 2 + 2 * rounds
+    return tuple(out), ctrl[1]
+
+
+# Kernel launches queued by each wrapper (init, 2 per round, finish),
+# counted where the kernel is launched and nowhere else.
+pushsum_stencil_hbm_chunk.launches = 0
+gossip_stencil_hbm_chunk.launches = 0

@@ -1,10 +1,12 @@
-"""Random partner selection for offset-pool delivery on ``full``.
+"""Random partner selection.
 
-Each round draws ``pool_size`` shared displacements (``pool_offsets``) and
-every node picks one of them with 4 bits of a packed threefry word
-(``pool_choice_packed``). The streams are the JAX package's, bit for bit:
+On ``full``, each round draws ``pool_size`` shared displacements
+(``pool_offsets``) and every node picks one of them with 4 bits of a packed
+threefry word (``pool_choice_packed``). On an explicit topology every node
+draws one word (``uniform_bits``) and takes the neighbour column it selects
+(``targets_explicit``). The streams are the JAX package's, bit for bit:
 round keys are ``fold_in(base, round)``, the pool folds in ``_POOL_TAG``,
-and the packed choice words come straight off the round key.
+and the choice words come straight off the round key.
 """
 
 from __future__ import annotations
@@ -34,6 +36,19 @@ def round_key(base_key, round_idx: int) -> torch.Tensor:
 def uniform_bits(key, n: int, device=None) -> torch.Tensor:
     """[n] uint32 words (as int64)."""
     return rng.bits(key, (n,), device=device)
+
+
+def targets_explicit(bits: torch.Tensor, neighbors: torch.Tensor,
+                     degree: torch.Tensor) -> torch.Tensor:
+    """Partner index per node of an explicit (padded-row) topology: the
+    slot is the unsigned word modulo max(degree, 1), and the partner that
+    slot's neighbour column. Degree-0 rows return their padded column 0;
+    callers mask such nodes out of sending."""
+    slot = bits % degree.to(torch.int64).clamp(min=1)
+    target = neighbors[:, 0]
+    for k in range(1, neighbors.shape[1]):
+        target = torch.where(slot == k, neighbors[:, k], target)
+    return target
 
 
 def pool_offsets(round_k, pool_size: int, n: int) -> torch.Tensor:

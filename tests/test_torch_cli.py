@@ -9,6 +9,7 @@ import torch
 
 from cop5615_gossip_protocol_tpu.cli import main as jax_main
 
+from cop5615_gossip_protocol_tpu_torch import bench
 from cop5615_gossip_protocol_tpu_torch.cli import main
 
 # One torch thread: the suite runs in several worker processes at once, and
@@ -39,6 +40,23 @@ def test_record_matches_jax_cli(capsys, tmp_path, algorithm):
     assert json.loads(path.read_text()) == rec
 
 
+@pytest.mark.parametrize("argv", [
+    ["1000", "line", "gossip"],
+    ["400", "2D", "gossip", "--semantics", "reference"],
+    ["1000", "torus3d", "push-sum", "--max-rounds", "50"],
+])
+def test_lattice_record_matches_jax_cli(capsys, argv):
+    # "2D" is the line-wired ref2d in reference semantics (Q6), population
+    # n+1 with target n (Q1).
+    jrc, jrec = _record(capsys, jax_main, argv)
+    rc, rec = _record(capsys, main, argv + ["--platform", "cpu"])
+    assert rc == jrc
+    for field in ("topology_kind", "rounds", "outcome", "converged_count",
+                  "estimate_mae", "population", "target_count", "max_deg"):
+        assert rec[field] == jrec[field], field
+    assert rec["config"] == jrec["config"]
+
+
 def test_quiet_and_reference_format(capsys):
     rc = main(["500", "full", "gossip", "--delivery", "pool", "--platform", "cpu",
                "--quiet"])
@@ -62,7 +80,8 @@ def test_unported_flag_names_roadmap_item(capsys, flag, item):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["1000", "line", "gossip", "--delivery", "auto"], "A7"),
+    (["1000", "line", "gossip", "--delivery", "scatter"], "A7"),
+    (["1000", "imp2d", "gossip"], "A7"),
     (["1000", "full", "gossip"], "A7"),  # auto delivery is scatter on full
     (["1000", "full", "push-sum", "--delivery", "pool", "--semantics",
       "reference"], "A7"),
@@ -78,3 +97,17 @@ def test_invalid_input_fails_loudly(capsys):
     assert "Invalid:" in capsys.readouterr().err
     assert main(["1000", "full", "gossip", "--delivery", "pool",
                  "--pool-size", "3", "--platform", "cpu"]) == 2
+
+
+def test_bench_reports_a_bounded_lattice_sample(capsys, monkeypatch):
+    # A lattice run defaults to stencil delivery; one that stops at the
+    # default bound fails, one bounded by an explicit --max-rounds is a
+    # bounded sample.
+    argv = ["--platform", "cpu", "--topology", "torus3d", "--n", "1000"]
+    monkeypatch.setattr(bench, "DEFAULT_MAX_ROUNDS", 20)
+    assert bench.main(argv) == 1
+    assert "FAILED_TO_CONVERGE" in capsys.readouterr().out
+    assert bench.main(argv + ["--max-rounds", "20"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (rec["rounds"], rec["outcome"], rec["vs_baseline"]) == (20, "max_rounds", None)
+    assert rec["engine_us_per_round"] is None and rec["device"] == "cpu"

@@ -124,7 +124,8 @@ def test_unported_config_fields_name_roadmap_items():
     for kw, item in (({"fault_rate": 0.1}, "A6"), ({"dup_rate": 0.1}, "A7"),
                      ({"termination": "global"}, "A6"),
                      ({"dtype": "float64"}, "A12"), ({"n_devices": 2}, "A10"),
-                     ({"topology": "ring", "delivery": "auto"}, "A7")):
+                     ({"topology": "ring", "delivery": "scatter"}, "A7"),
+                     ({"topology": "imp3d", "delivery": "auto"}, "A7")):
         fields = {"n": 100, "algorithm": "push-sum", "delivery": "pool", **kw}
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             SimConfig(**fields)
