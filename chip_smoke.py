@@ -34,7 +34,19 @@ non-zero before the last line:
    conserved, counters zeroed before each run and read after it; then
    torus3d 130**3, both algorithms, 64 rounds on the card against the
    CPU's chunked engine (rounds, converged count, final state);
-7. each kernel's time per chunk by CUDA events, beside its plain version's
+7. each imp kernel against its plain version on the card, pool_size 4, one
+   32-round chunk at imp3d 16,777,216 (the streaming imp tier), imp3d
+   1,000,000 (the resident tier, 48,576 pad lanes) and imp2d 100,489 (the
+   BASELINE config, 30,583 pad lanes), from the initial state and from a
+   mid-run state, with a cap inside the chunk and from a converged state,
+   plus push-sum at pool_size 16; every check bitwise, and the ladder must
+   pick the JAX ladder's tier for each;
+8. the imp path through ``run()``: imp3d 16.8M and 1M, both algorithms,
+   and imp2d 100,489 push-sum, each to convergence, counters zeroed before
+   each run and read after it, push-sum mass conserved; then imp3d 50**3,
+   both algorithms, 64 rounds on the card against the CPU's chunked engine
+   (rounds, converged count, final state bitwise);
+9. each kernel's time per chunk by CUDA events, beside its plain version's
    and the least time the card could take for the same work.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
@@ -116,8 +128,9 @@ def stencil_ops_per_node(algorithm: str, classes: int) -> int:
 
 def compare(name, got, want, float_planes):
     """Hold a kernel chunk's (state, executed) against its plain version's:
-    the rounds and integer planes equal, the first ``float_planes`` planes
-    within 2 ulp and finite. Returns the largest absolute difference."""
+    the rounds equal, the first ``float_planes`` planes within 2 ulp and
+    finite, every other plane bit for bit. Returns the largest absolute
+    difference."""
     import torch
 
     (g_state, g_ex), (w_state, w_ex) = got, want
@@ -131,7 +144,9 @@ def compare(name, got, want, float_planes):
             if ulp > 2 or not torch.isfinite(g).all():
                 raise AssertionError(f"{name}: plane {i} off by {ulp} ulp")
             err = max(err, (g - w).abs().max().item())
-        elif not torch.equal(g, w):
+        elif g.dtype != w.dtype or not torch.equal(
+                g.view(torch.int32) if g.dtype == torch.float32 else g,
+                w.view(torch.int32) if w.dtype == torch.float32 else w):
             raise AssertionError(f"{name}: plane {i} differs from plain")
     print(f"  {name}: rounds {int(g_ex)}, max_abs_err {err}", flush=True)
     return err
@@ -368,6 +383,195 @@ def lattice_path(dev):
     return launches
 
 
+# The imp phases: (kind, requested n, the JAX ladder's tier) for the kernel
+# checks, the rounds run before the mid-run checks and timings (imp3d 1M
+# push-sum converges near round 800, gossip near round 60), and the 50**3
+# card-vs-CPU check.
+IMP_CASES = (("imp3d", 2**24, "imp_hbm"), ("imp3d", 1_000_000, "imp"),
+             ("imp2d", 100_000, "imp"))
+IMP_POOL = 4
+IMP_MID = {"pushsum": 300, "gossip": 20}
+IMP_CPU_N = 50**3
+IMP_CPU_ROUNDS = 64
+
+
+def imp_ops_per_node(algorithm: str, classes: int) -> int:
+    """Per-node, per-round operations of csrc/fused_imp.cu: the slot-word
+    hash, an eighth of the choice-word hash and the nibble extraction, the
+    grid's direction pairs (20), the slot select (19) and the class lookup
+    (10); per class (L lattice + P pool) a source index, the mark compare
+    and the adds (push-sum also the two halvings); then the own halving and
+    the absorb."""
+    per_class = 8 if algorithm == "push-sum" else 5
+    absorb = 16 if algorithm == "push-sum" else 6
+    return OPS_PER_HASH + OPS_PER_HASH // 8 + 2 + 20 + 19 + 10 + per_class * classes + absorb
+
+
+def imp_checks(dev, key):
+    """Phase 7: each imp kernel against its plain version on the card.
+    Returns {row: case} for the timing phase and {row: max_abs_err}, rows
+    named by wrapper (pushsum_imp, gossip_imp, pushsum_imp_hbm,
+    gossip_imp_hbm)."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine, fused_tier
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_imp, fused_imp_hbm
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_pool
+
+    wrappers = {"imp": (fused_imp.pushsum_imp_chunk, fused_imp.gossip_imp_chunk),
+                "imp_hbm": (fused_imp_hbm.pushsum_imp_hbm_chunk,
+                            fused_imp_hbm.gossip_imp_hbm_chunk)}
+
+    def case(topo, name, tier, pool):
+        """(kernel, plain, chunk(fn, state, start, count, cap), init planes)."""
+        algorithm = "push-sum" if name == "pushsum" else "gossip"
+        cfg = SimConfig(n=topo.n_requested, topology=topo.kind, algorithm=algorithm,
+                        delivery="pool", pool_size=pool)
+        if fused_tier(topo, cfg) != (tier, None):
+            raise AssertionError(f"{topo.kind} n={topo.n} {algorithm}: the ladder "
+                                 f"picks {fused_tier(topo, cfg)}, not {tier}")
+        common = {"spec": fused_imp.imp_spec(topo),
+                  "target": cfg.resolved_target_count(topo.n, topo.target_count)}
+        if algorithm == "push-sum":
+            plain = fused_imp.pushsum_imp_chunk_plain
+            common.update(delta=cfg.resolved_delta, term_rounds=cfg.term_rounds)
+        else:
+            plain = fused_imp.gossip_imp_chunk_plain
+            common.update(rumor_target=cfg.resolved_rumor_target,
+                          suppress=cfg.resolved_suppress)
+
+        @functools.lru_cache(maxsize=None)
+        def streams(start, count):
+            return (fused.round_keys(key, start, count),
+                    fused_pool.round_offsets(key, start, count, pool, topo.n),
+                    fused_imp.choice_round_keys(key, start, count))
+
+        def chunk(fn, state, start, count, cap=None):
+            return fn(state, *streams(start, count), start,
+                      start + count if cap is None else cap, **common)
+
+        eng = fused_engine(topo, cfg, key, tier)
+        init = tuple(p.contiguous().to(dev) for p in eng.planes)
+        return wrappers[tier][algorithm != "push-sum"], plain, chunk, init
+
+    cases, max_err = {}, {}
+    for kind, n, tier in IMP_CASES:
+        t0 = time.perf_counter()
+        topo = build_topology(kind, n)
+        label = f"{kind} n={topo.n} ({tier}, built in {time.perf_counter() - t0:.2f} s)"
+        print(f"imp kernels vs plain versions, pool_size {IMP_POOL}, at {label}:", flush=True)
+        for name in ("pushsum", "gossip"):
+            kern, plain, chunk, init = case(topo, name, tier, IMP_POOL)
+            mid_round = IMP_MID[name]
+            errs = [compare(f"{name} init K={CHUNK}", chunk(kern, init, 0, CHUNK),
+                            chunk(plain, init, 0, CHUNK), 0)]
+            mid, ex = chunk(kern, init, 0, mid_round)
+            if int(ex) != mid_round:
+                raise AssertionError(f"{kind} {name}: converged before round {mid_round}")
+            errs.append(compare(f"{name} mid-run K={CHUNK}",
+                                chunk(kern, mid, mid_round, CHUNK),
+                                chunk(plain, mid, mid_round, CHUNK), 0))
+            errs.append(compare(f"{name} cap inside chunk",
+                                chunk(kern, mid, mid_round, CHUNK, cap=mid_round + 5),
+                                chunk(plain, mid, mid_round, CHUNK, cap=mid_round + 5), 0))
+            done_state, ex = chunk(kern, mid, mid_round, 4096)
+            done_round = mid_round + int(ex)
+            if int(ex) == 4096:
+                raise AssertionError(f"{kind} {name} did not converge")
+            out, ex = chunk(kern, done_state, done_round, CHUNK)
+            if int(ex) != 0 or not all(torch.equal(a, b) for a, b in zip(out, done_state)):
+                raise AssertionError(f"{kind} {name}: a chunk from a converged state ran")
+            print(f"  {name} from converged state (round {done_round}): 0 rounds, "
+                  "state unchanged", flush=True)
+            row = f"{name}_{tier}"
+            max_err[row] = max([max_err.get(row, 0.0)] + errs)
+            if kind == "imp3d":  # the timed shapes
+                cases[row] = (kern, plain, chunk, mid, mid_round, topo.n,
+                              len(fused_imp.imp_spec(topo).classes), tier)
+            if (kind, tier, name) == ("imp3d", "imp", "pushsum"):
+                # The packed-choice cap: 16 pool classes.
+                kern16, plain16, chunk16, init16 = case(topo, name, tier, 16)
+                max_err[row] = max(max_err[row], compare(
+                    f"{name} pool_size 16 init K={CHUNK}", chunk16(kern16, init16, 0, CHUNK),
+                    chunk16(plain16, init16, 0, CHUNK), 0))
+        del topo
+    torch.cuda.synchronize()
+    return cases, max_err
+
+
+def imp_path(dev):
+    """Phase 8: the imp path through run(), counters zeroed before each run
+    and read after it; then 50**3 on the card against the CPU's chunked
+    engine. Returns each row's launches over its main-path run."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_tier
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_imp, fused_imp_hbm
+
+    counters = {"pushsum_imp": fused_imp.pushsum_imp_chunk,
+                "gossip_imp": fused_imp.gossip_imp_chunk,
+                "pushsum_imp_hbm": fused_imp_hbm.pushsum_imp_hbm_chunk,
+                "gossip_imp_hbm": fused_imp_hbm.gossip_imp_hbm_chunk}
+    launches = {}
+    for kind, n, _ in IMP_CASES:
+        algorithms = ("gossip", "push-sum") if kind == "imp3d" else ("push-sum",)
+        t0 = time.perf_counter()
+        topo = build_topology(kind, n)
+        build_s = time.perf_counter() - t0
+        for algorithm in algorithms:
+            cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, delivery="pool",
+                            pool_size=IMP_POOL)
+            tier = fused_tier(topo, cfg)[0]
+            name = f"{'pushsum' if algorithm == 'push-sum' else 'gossip'}_{tier}"
+            for fn in counters.values():
+                fn.launches = 0
+            res = run(topo, cfg)
+            counts = {k: fn.launches for k, fn in counters.items()}
+            print(json.dumps({
+                "metric": f"{name}_rounds_per_sec_{kind}_n{topo.n}",
+                "rounds": res.rounds, "run_s": res.run_s,
+                "rounds_per_s": res.rounds / res.run_s, "build_s": build_s,
+                "setup_s": res.setup_s, "compile_s": res.compile_s,
+                "dispatch_s": res.dispatch_s, "fetch_s": res.fetch_s,
+                "converged_count": res.converged_count,
+                "estimate_mae": res.estimate_mae, "launches": counts,
+                "device": res.device,
+            }), flush=True)
+            if counts[name] == 0:
+                raise AssertionError(f"the {kind} {algorithm} run never launched {name}")
+            if not res.converged or res.converged_count != topo.n:
+                raise AssertionError(f"{kind} n={topo.n} {algorithm} did not converge")
+            if algorithm == "push-sum":
+                m = topo.n
+                err_w = abs(res.state.w.double().sum().item() - m) / m
+                err_s = abs(res.state.s.double().sum().item() - m * (m - 1) / 2) / (m * (m - 1) / 2)
+                print(f"  mass: sum w rel err {err_w}, sum s rel err {err_s}", flush=True)
+                if not (err_w < 1e-5 and err_s < 1e-5):
+                    raise AssertionError(f"{kind} push-sum did not conserve its mass")
+            if kind == "imp3d":  # the timed shapes
+                launches[name] = counts[name]
+        del topo
+    topo = build_topology("imp3d", IMP_CPU_N)
+    for name, algorithm in (("gossip", "gossip"), ("pushsum", "push-sum")):
+        cfg = SimConfig(n=IMP_CPU_N, topology="imp3d", algorithm=algorithm,
+                        delivery="pool", pool_size=IMP_POOL, max_rounds=IMP_CPU_ROUNDS)
+        t0 = time.perf_counter()
+        a = run(topo, cfg)
+        t1 = time.perf_counter()
+        b = run(topo, cfg, device="cpu")
+        t2 = time.perf_counter()
+        if (a.rounds, a.converged_count) != (b.rounds, b.converged_count):
+            raise AssertionError(
+                f"50**3 imp3d {name}: card {a.rounds}/{a.converged_count} != "
+                f"CPU {b.rounds}/{b.converged_count}")
+        compare(f"50**3 imp3d {name} card vs CPU chunked engine, {a.rounds} rounds, "
+                f"converged {a.converged_count} ({t1 - t0:.2f} s card, "
+                f"{t2 - t1:.2f} s CPU)",
+                (tuple(x.cpu() for x in a.state), a.rounds),
+                (tuple(b.state), b.rounds), 0)
+    return launches
+
+
 def fail(msg: str) -> int:
     print(f"FAILED: {msg}", file=sys.stderr)
     return 1
@@ -522,14 +726,16 @@ def main() -> int:
         print(f"  1000-node {name}: card == CPU chunked engine "
               f"(rounds {a.rounds}, estimate_mae {a.estimate_mae})")
 
-    # ------------------------------------------------------------- 5, 6
+    # ------------------------------------------------------- 5, 6, 7, 8
     try:
         lattice_cases, lattice_err = lattice_checks(dev, key)
         lattice_launches = lattice_path(dev)
+        imp_cases, imp_err = imp_checks(dev, key)
+        imp_launches = imp_path(dev)
     except AssertionError as e:
         return fail(str(e))
 
-    # ---------------------------------------------------------------- 7
+    # ---------------------------------------------------------------- 9
     rows = []
     replaces = {"pushsum": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:860",
                 "gossip": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:1157"}
@@ -578,6 +784,36 @@ def main() -> int:
             "library_ms": None,
             "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
             "status": "ported",
+        })
+    replaces = {"pushsum_imp": "cop5615_gossip_protocol_tpu/ops/fused_imp.py:307",
+                "gossip_imp": "cop5615_gossip_protocol_tpu/ops/fused_imp.py:467",
+                "pushsum_imp_hbm": "cop5615_gossip_protocol_tpu/ops/fused_imp_hbm.py:478",
+                "gossip_imp_hbm": "cop5615_gossip_protocol_tpu/ops/fused_imp_hbm.py:716"}
+    for row, (kern, plain, chunk, mid, mid_round, n, lattice, tier) in imp_cases.items():
+        ms, (_, ex) = time_ms(lambda: chunk(kern, mid, mid_round, CHUNK), TIME_REPS)
+        plain_ms, _ = time_ms(lambda: chunk(plain, mid, mid_round, CHUNK), 2)
+        rounds = int(ex)
+        name = row.split("_")[0]
+        algo = "push-sum" if name == "pushsum" else "gossip"
+        n_pad = mid[0].numel()
+        streams = CHUNK * (32 + 4 * IMP_POOL) + 8
+        # The resident tier's state fits the L2: its bytes are read and
+        # written once per chunk; the streaming tier's once per round.
+        passes = 1 if tier == "imp" else rounds
+        moved = passes * STATE_BYTES[name] * n_pad + streams
+        ops = rounds * n_pad * imp_ops_per_node(algo, lattice + IMP_POOL)
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        rows.append({
+            "name": f"{row}_chunk", "route": "cuda",
+            "source": "cop5615_gossip_protocol_tpu_torch/csrc/fused_imp.cu",
+            "replaces": replaces[row],
+            "launches": imp_launches[row], "max_abs_err": imp_err[row],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+            "population": n, "status": "ported",
         })
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,19 +1,23 @@
 """North-star benchmark of the port: 1M-node push-sum on ``full`` with
 offset-pool delivery, pool_size 2 (the JAX package's bench.py defaults),
-or any lattice through the streaming stencil kernels.
+any lattice through the streaming stencil kernels, or imp2d/imp3d through
+the imp kernels (pooled long-range delivery).
 
     python -m cop5615_gossip_protocol_tpu_torch.bench [--n N] [--algorithm A]
     python -m cop5615_gossip_protocol_tpu_torch.bench --topology torus3d \\
         --n 16777216 --algorithm gossip
     python -m cop5615_gossip_protocol_tpu_torch.bench --topology torus3d \\
         --n 10000000 --max-rounds 2000
+    python -m cop5615_gossip_protocol_tpu_torch.bench --topology imp3d \\
+        --n 16777216 --delivery pool
 
 Prints one JSON line with bench.py's keys (metric, value in rounds/sec,
 unit, vs_baseline, rounds, wall_s, converged_count, estimate_mae, device),
 the run's budget (setup/compile/dispatch/fetch seconds), and, on the GPU:
 ``engine_us_per_round``, the fused engine's device time per round timed
 with CUDA events over one chunk from the initial state (the pool kernels
-on ``full``, the stencil kernels on a lattice); ``repeat_wall_s``,
+on ``full``, the stencil kernels on a lattice, the imp kernels on
+imp2d/imp3d); ``repeat_wall_s``,
 the run's wall when repeated at once in the same process; and ``profile``,
 a third run under torch.profiler with the device's busy share and device
 time by kernel. Runs on the GPU unless ``--platform cpu`` is given.
@@ -43,7 +47,7 @@ DEFAULT_MAX_ROUNDS = 100_000
 def engine_us_per_round(topo, cfg, device) -> float | None:
     """Device microseconds per executed round of one fused chunk of
     ENGINE_ROUNDS rounds from the initial state, by CUDA events, on the
-    tier the run used (the pool or the streaming stencil kernels)."""
+    tier the run used (the pool, streaming stencil or imp kernels)."""
     from .models.runner import fused_engine, fused_tier
     from .ops import rng
 
@@ -104,8 +108,10 @@ def main(argv=None) -> int:
                     "that stops there is a bounded sample, not a failure")
     ap.add_argument("--platform", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--delivery", default=None,
-                    help="default: pool on full, auto (stencil) on the lattices")
-    ap.add_argument("--pool-size", type=int, default=2)
+                    help="default: pool on full, imp2d and imp3d, auto "
+                    "(stencil) on the lattices")
+    ap.add_argument("--pool-size", type=int, default=None,
+                    help="default: 2 on full (the JAX bench's), else 4 (the CLI's)")
     args = ap.parse_args(argv)
 
     from . import SimConfig, build_topology, run
@@ -113,12 +119,14 @@ def main(argv=None) -> int:
     from .utils.device import resolve_device
 
     device = resolve_device(args.platform)
-    delivery = args.delivery or ("pool" if args.topology == "full" else "auto")
+    delivery = args.delivery or (
+        "pool" if args.topology in ("full", "imp2d", "imp3d") else "auto")
     cfg = SimConfig(
         n=args.n, topology=args.topology, algorithm=args.algorithm,
         delta=args.delta, seed=args.seed,
         max_rounds=DEFAULT_MAX_ROUNDS if args.max_rounds is None else args.max_rounds,
-        delivery=delivery, pool_size=args.pool_size,
+        delivery=delivery,
+        pool_size=args.pool_size or (2 if args.topology == "full" else 4),
     )
     t0 = time.perf_counter()
     topo = build_topology(args.topology, args.n, seed=args.seed)

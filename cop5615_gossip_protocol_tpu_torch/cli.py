@@ -3,6 +3,7 @@
     python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum \\
         --delivery pool --pool-size 2
     python -m cop5615_gossip_protocol_tpu_torch 16777216 torus3d gossip
+    python -m cop5615_gossip_protocol_tpu_torch 16777216 imp3d gossip --delivery pool
 
 runs on the GPU (``--platform cuda``, the default) or, when asked, on the
 CPU (``--platform cpu``). Flags keep the JAX CLI's names; a JAX CLI flag
@@ -53,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("numNodes", type=int, help="requested node count")
     p.add_argument("topology",
                    help="full | line | ring | 2D | grid2d | ref2d | 3D | grid3d "
-                   "| torus3d (imp2d/imp3d: ROADMAP A7)")
+                   "| torus3d | imp2D | imp3D (the imp kinds need --delivery "
+                   "pool; their scatter delivery is ROADMAP A7)")
     p.add_argument("algorithm", help="gossip | push-sum")
     p.add_argument("--semantics", choices=["batched", "reference"],
                    default="batched")
@@ -73,14 +75,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--delivery",
                    choices=["auto", "scatter", "stencil", "pool", "matmul"],
                    default="auto",
-                   help="message delivery: 'pool' on full, 'auto' or "
-                   "'stencil' on the lattices (auto means scatter on full, "
-                   "ROADMAP A7)")
+                   help="message delivery: 'pool' on full and on imp2d/imp3d "
+                   "(the long-range edge re-drawn each round from the pool), "
+                   "'auto' or 'stencil' on the lattices (auto means scatter "
+                   "on full and imp, ROADMAP A7)")
     p.add_argument("--pool-size", type=int, default=4,
                    help="displacement-pool width for --delivery pool")
     p.add_argument("--engine", choices=["auto", "chunked", "fused"],
                    default="auto",
-                   help="fused: the pool or stencil kernels (their plain "
+                   help="fused: the pool, stencil or imp kernels (their plain "
                    "versions on the CPU); chunked: one torch round per step; "
                    "auto: fused on CUDA, chunked on the CPU")
     p.add_argument("--platform", choices=["cuda", "cpu"], default="cuda",

@@ -3,11 +3,11 @@
 The field names, defaults and ``resolved_*`` rules are those of the JAX
 package's ``SimConfig``, so a run record from either package carries the
 same config keys. The port runs push-sum and gossip on the implicit
-``full`` topology with ``delivery="pool"`` and on the six arithmetic
-lattices (line, ring, grid2d, ref2d, grid3d, torus3d) with stencil
-delivery; every other field keeps its default here, and setting it to
-anything else raises NotImplementedError naming the ROADMAP item that will
-port it.
+``full`` topology and on imp2d/imp3d with ``delivery="pool"``, and on the
+six arithmetic lattices (line, ring, grid2d, ref2d, grid3d, torus3d) with
+stencil delivery; every other field keeps its default here, and setting it
+to anything else raises NotImplementedError naming the ROADMAP item that
+will port it.
 """
 
 from __future__ import annotations
@@ -222,8 +222,27 @@ class SimConfig:
         if self.n_devices not in (None, 1):
             raise unported(f"n_devices={self.n_devices!r}", "A10")
         if self.topology in ("imp2d", "imp3d"):
-            raise unported(f"topology={self.topology!r}", "A7")
-        if self.topology == "full":
+            if self.delivery == "stencil":
+                raise ValueError(
+                    "delivery='stencil' requires an offset-structured "
+                    "topology; imp2d/imp3d have random long-range edges"
+                )
+            if self.delivery != "pool":
+                # "auto" resolves to scatter-add delivery of the static
+                # extra edge.
+                raise unported(
+                    f"delivery={self.delivery!r} on {self.topology} (only "
+                    "--delivery pool runs there: the pooled re-draw of the "
+                    "long-range edge)", "A7"
+                )
+            if self.reference:
+                raise ValueError(
+                    "delivery='pool' on imp topologies re-draws the random "
+                    "long-range edge per round and cannot reproduce the "
+                    "reference's static extra edge (Q9, program.fs:308-310); "
+                    "use batched semantics"
+                )
+        elif self.topology == "full":
             if self.delivery == "stencil":
                 raise ValueError(
                     "delivery='stencil' requires an offset-structured "

@@ -1,0 +1,196 @@
+// What the chunk kernels of csrc/fused_pool.cu, csrc/fused_stencil.cu and
+// csrc/fused_imp.cu share: the launch geometry, the converged count and
+// done flag, the state planes, the init and finish launches and the
+// per-node absorb of each protocol.
+//
+// A chunk keeps its control words in `ctrl` (int32[2]: done, rounds
+// executed) and `scratch` (int32[2 * (rounds + 1)]: per-launch totals, then
+// tickets), both zeroed by the caller. The init launch copies the input
+// planes into the A planes and seeds the done flag from the incoming conv
+// plane; every later launch first reads the done flag and returns at once
+// when it is set, so a launch after convergence writes nothing and a chunk
+// from a converged state runs 0 rounds. A chunk that keeps its state in
+// ping/pong planes A and B ends with a finish launch that copies B into A
+// when it executed an odd number of rounds, so the result is always in A.
+//
+// Numerics: the kernels are built without fast math, with -fmad=false and
+// denormals kept (utils/kernels.py), so (s - s * 0.5) + inbox and s / w
+// round exactly as the chunked engines do.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace gossip {
+
+constexpr int kBlock = 256;
+
+// Blocks for a grid-stride launch of `kernel` over `work` elements: as many
+// as the SMs hold at once (registers permitting), so every block runs in
+// the first wave and a launch that returns at once costs a few µs.
+template <typename Kernel>
+int grid_for(Kernel kernel, long long work, int device) {
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock,
+                                                    0) != cudaSuccess ||
+      sms <= 0 || per_sm <= 0) {
+    sms = 132;
+    per_sm = 1;
+  }
+  const long long want = (work + kBlock - 1) / kBlock;
+  const long long cap = (long long)sms * per_sm;
+  return (int)(want < cap ? (want > 0 ? want : 1) : cap);
+}
+
+// Sum of v over the block, valid in thread 0.
+__device__ inline int block_sum(int v) {
+  __shared__ int warp_sums[kBlock / 32];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  v = 0;
+  if (warp == 0) {
+    v = lane < kBlock / 32 ? warp_sums[lane] : 0;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
+// Adds the block's converged count to *total; the last block of the grid
+// to arrive sets ctrl[0] (done) from the grand total and, for a protocol
+// round, bumps ctrl[1] (rounds executed, whose parity names the current
+// ping/pong planes). Every other block read ctrl before it took its
+// ticket, so the write races with no reader.
+__device__ inline void finish_count(int block_count, int* total,
+                                    unsigned* ticket, int* ctrl, int target,
+                                    bool count_round) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    atomicAdd(total, block_count);
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    const int grand = atomicAdd(total, 0);
+    if (count_round) ctrl[1] += 1;
+    ctrl[0] = grand >= target ? 1 : 0;
+  }
+}
+
+// Planes of one state set, passed by value.
+struct PushSumPlanes {
+  float* s;
+  float* w;
+  int* term;
+  int* conv;
+};
+
+struct GossipPlanes {
+  int* count;
+  int* active;
+  int* conv;
+};
+
+// Receiver j's push-sum absorb: its own halved send leaves (`sends`), the
+// inbox sums arrive, and the term/conv latch moves on a round it received
+// something. Reads j's round-start values from `cur`, writes `nxt` (which
+// may be `cur`); returns j's new conv flag (0 on pad lanes).
+__device__ __forceinline__ int pushsum_absorb_node(
+    const PushSumPlanes& cur, const PushSumPlanes& nxt, int j, bool pad,
+    bool sends, float in_s, float in_w, float delta, int term_rounds) {
+  const float s_t = cur.s[j], w_t = cur.w[j];
+  const float s_send = sends ? s_t * 0.5f : 0.0f;
+  const float w_send = sends ? w_t * 0.5f : 0.0f;
+  const float s_new = (s_t - s_send) + in_s;
+  const float w_new = (w_t - w_send) + in_w;
+  const bool received = in_w > 0.0f;
+  const bool stable = fabsf(s_new / w_new - s_t / w_t) <= delta;
+  const int t_old = cur.term[j];
+  const int t_new = received ? (stable ? t_old + 1 : 0) : t_old;
+  const int cv = pad ? 0 : ((cur.conv[j] != 0 || t_new >= term_rounds) ? 1 : 0);
+  nxt.s[j] = s_new;
+  nxt.w[j] = w_new;
+  nxt.term[j] = t_new;
+  nxt.conv[j] = cv;
+  return cv;
+}
+
+// Receiver j's gossip absorb with receiver-side suppression; the same
+// contract as pushsum_absorb_node.
+__device__ __forceinline__ int gossip_absorb_node(const GossipPlanes& cur,
+                                                  const GossipPlanes& nxt,
+                                                  int j, bool pad, int inbox,
+                                                  int rumor_target,
+                                                  int suppress) {
+  if (suppress && cur.conv[j] != 0) inbox = 0;
+  const int cnt = cur.count[j] + inbox;
+  const int act = (cur.active[j] != 0 || inbox > 0) ? 1 : 0;
+  const int cv = (!pad && cnt >= rumor_target) ? 1 : 0;
+  nxt.count[j] = cnt;
+  nxt.active[j] = act;
+  nxt.conv[j] = cv;
+  return cv;
+}
+
+__global__ void pushsum_init(const float* __restrict__ s0,
+                             const float* __restrict__ w0,
+                             const int* __restrict__ t0,
+                             const int* __restrict__ c0, PushSumPlanes a,
+                             int n_pad, int* total, unsigned* ticket,
+                             int* ctrl, int target) {
+  int c = 0;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    a.s[j] = s0[j];
+    a.w[j] = w0[j];
+    a.term[j] = t0[j];
+    a.conv[j] = c0[j];
+    c += c0[j];
+  }
+  finish_count(block_sum(c), total, ticket, ctrl, target, false);
+}
+
+__global__ void pushsum_finish(PushSumPlanes a, PushSumPlanes b, int n_pad,
+                               const int* __restrict__ ctrl) {
+  if (!(ctrl[1] & 1)) return;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    a.s[j] = b.s[j];
+    a.w[j] = b.w[j];
+    a.term[j] = b.term[j];
+    a.conv[j] = b.conv[j];
+  }
+}
+
+__global__ void gossip_init(const int* __restrict__ n0,
+                            const int* __restrict__ a0,
+                            const int* __restrict__ c0, GossipPlanes a,
+                            int n_pad, int* total, unsigned* ticket, int* ctrl,
+                            int target) {
+  int c = 0;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    a.count[j] = n0[j];
+    a.active[j] = a0[j];
+    a.conv[j] = c0[j];
+    c += c0[j];
+  }
+  finish_count(block_sum(c), total, ticket, ctrl, target, false);
+}
+
+__global__ void gossip_finish(GossipPlanes a, GossipPlanes b, int n_pad,
+                              const int* __restrict__ ctrl) {
+  if (!(ctrl[1] & 1)) return;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    a.count[j] = b.count[j];
+    a.active[j] = b.active[j];
+    a.conv[j] = b.conv[j];
+  }
+}
+
+}  // namespace gossip

@@ -36,22 +36,25 @@
 //            total; the last block to finish latches the done flag and
 //            the executed-round count in `ctrl`.
 // Every launch first reads the done flag and returns at once when it is
-// set, so a launch after convergence writes nothing and a chunk of K
-// rounds is 2K launches queued with no host sync. A chunk starts with an
-// init launch that copies the input planes into the output planes and
-// seeds the done flag from the incoming conv plane.
-//
-// Numerics: built without fast math, with -fmad=false and denormals kept,
-// so (s - s * 0.5) + inbox and s / w round exactly as the JAX engines do.
+// set, so a chunk of K rounds is 2K launches queued with no host sync,
+// after an init launch that copies the input planes into the output planes
+// and seeds the done flag (csrc/chunk.cuh, which also holds the absorb
+// arithmetic and the numerics).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chunk.cuh"
 #include "threefry.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;
+using gossip::GossipPlanes;
+using gossip::PushSumPlanes;
+using gossip::block_sum;
+using gossip::finish_count;
+using gossip::kBlock;
+
 constexpr int kLanes = 128;
 constexpr int kPack = 8;  // nodes (rows) per packed choice word
 
@@ -59,64 +62,11 @@ inline int blocks_for(long long threads) {
   return (int)((threads + kBlock - 1) / kBlock);
 }
 
-// Sum of v over the block, valid in thread 0.
-__device__ int block_sum(int v) {
-  __shared__ int warp_sums[kBlock / 32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  v = 0;
-  if (warp == 0) {
-    v = lane < kBlock / 32 ? warp_sums[lane] : 0;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  return v;
-}
-
-// Adds the block's converged count to *total; the last block of the grid
-// to arrive sets ctrl[0] (done) from the grand total and, for a protocol
-// round, bumps ctrl[1] (rounds executed). Every other block has read
-// ctrl[0] before it took its ticket, so the write races with no reader.
-__device__ void finish_count(int block_count, int* total, unsigned* ticket,
-                             int* ctrl, int target, bool count_round) {
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-    atomicAdd(total, block_count);
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (last && threadIdx.x == 0) {
-    const int grand = atomicAdd(total, 0);
-    if (count_round) ctrl[1] += 1;
-    ctrl[0] = grand >= target ? 1 : 0;
-  }
-}
-
 __device__ __forceinline__ int mod_n_source(int j, int d, int n) {
   return j >= d ? j - d : j - d + n;
 }
 
 // ---------------------------------------------------------------- push-sum
-
-__global__ void pushsum_init(const float* __restrict__ s0,
-                             const float* __restrict__ w0,
-                             const int* __restrict__ t0,
-                             const int* __restrict__ c0, float* s, float* w,
-                             int* term, int* conv, int n_pad, int* total,
-                             unsigned* ticket, int* ctrl, int target) {
-  const int j = blockIdx.x * kBlock + threadIdx.x;
-  int c = 0;
-  if (j < n_pad) {
-    s[j] = s0[j];
-    w[j] = w0[j];
-    term[j] = t0[j];
-    c = c0[j];
-    conv[j] = c;
-  }
-  finish_count(block_sum(c), total, ticket, ctrl, target, false);
-}
 
 __global__ void pushsum_send(const float* __restrict__ s,
                              const float* __restrict__ w, float* ds,
@@ -161,39 +111,15 @@ __global__ void pushsum_absorb(float* s, float* w, int* term, int* conv,
         in_w = in_w + (hit ? dw[i] : 0.0f);
       }
     }
-    const float s_t = s[j], w_t = w[j];
-    const float s_new = (s_t - ds[j]) + in_s;
-    const float w_new = (w_t - dw[j]) + in_w;
-    const bool received = in_w > 0.0f;
-    const bool stable = fabsf(s_new / w_new - s_t / w_t) <= delta;
-    const int t_old = term[j];
-    const int t_new = received ? (stable ? t_old + 1 : 0) : t_old;
-    c = pad ? 0 : ((conv[j] != 0 || t_new >= term_rounds) ? 1 : 0);
-    s[j] = s_new;
-    w[j] = w_new;
-    term[j] = t_new;
-    conv[j] = c;
+    // In place: the gathers above read the send planes, never s or w.
+    const PushSumPlanes st{s, w, term, conv};
+    c = gossip::pushsum_absorb_node(st, st, j, pad, !pad, in_s, in_w, delta,
+                                    term_rounds);
   }
   finish_count(block_sum(c), total, ticket, ctrl, target, true);
 }
 
 // ------------------------------------------------------------------ gossip
-
-__global__ void gossip_init(const int* __restrict__ n0,
-                            const int* __restrict__ a0,
-                            const int* __restrict__ c0, int* count,
-                            int* active, int* conv, int n_pad, int* total,
-                            unsigned* ticket, int* ctrl, int target) {
-  const int j = blockIdx.x * kBlock + threadIdx.x;
-  int c = 0;
-  if (j < n_pad) {
-    count[j] = n0[j];
-    active[j] = a0[j];
-    c = c0[j];
-    conv[j] = c;
-  }
-  finish_count(block_sum(c), total, ticket, ctrl, target, false);
-}
 
 __global__ void gossip_send(const int* __restrict__ active, int8_t* mark,
                             const long long* __restrict__ key, int n,
@@ -228,12 +154,9 @@ __global__ void gossip_absorb(int* count, int* active, int* conv,
         inbox += mark[mod_n_source(j, offs[slot], n)] == slot ? 1 : 0;
       }
     }
-    if (suppress && conv[j] != 0) inbox = 0;
-    const int cnt = count[j] + inbox;
-    active[j] = (active[j] != 0 || inbox > 0) ? 1 : 0;
-    count[j] = cnt;
-    c = cnt >= rumor_target ? 1 : 0;
-    conv[j] = c;
+    const GossipPlanes st{count, active, conv};
+    c = gossip::gossip_absorb_node(st, st, j, j >= n, inbox, rumor_target,
+                                   suppress);
   }
   finish_count(block_sum(c), total, ticket, ctrl, target, true);
 }
@@ -260,9 +183,9 @@ extern "C" int gossip_pushsum_pool_chunk(
   int* totals = scratch;
   unsigned* tickets = (unsigned*)(scratch + rounds + 1);
   const int n_words = n_pad / kPack;
-  pushsum_init<<<blocks_for(n_pad), kBlock, 0, stream>>>(
-      s0, w0, t0, c0, s, w, term, conv, n_pad, totals + rounds,
-      tickets + rounds, ctrl, target);
+  gossip::pushsum_init<<<blocks_for(n_pad), kBlock, 0, stream>>>(
+      s0, w0, t0, c0, PushSumPlanes{s, w, term, conv}, n_pad,
+      totals + rounds, tickets + rounds, ctrl, target);
   err = cudaGetLastError();
   for (int r = 0; r < rounds && err == cudaSuccess; ++r) {
     pushsum_send<<<blocks_for(n_words), kBlock, 0, stream>>>(
@@ -289,8 +212,8 @@ extern "C" int gossip_gossip_pool_chunk(
   int* totals = scratch;
   unsigned* tickets = (unsigned*)(scratch + rounds + 1);
   const int n_words = n_pad / kPack;
-  gossip_init<<<blocks_for(n_pad), kBlock, 0, stream>>>(
-      n0, a0, c0, count, active, conv, n_pad, totals + rounds,
+  gossip::gossip_init<<<blocks_for(n_pad), kBlock, 0, stream>>>(
+      n0, a0, c0, GossipPlanes{count, active, conv}, n_pad, totals + rounds,
       tickets + rounds, ctrl, target);
   err = cudaGetLastError();
   for (int r = 0; r < rounds && err == cudaSuccess; ++r) {

@@ -47,9 +47,8 @@
 // from the incoming conv plane; a finish launch copies B into A when the
 // chunk executed an odd number of rounds, so the result is always in A.
 // Every mark/absorb launch first reads the done flag and returns at once
-// when it is set, so a launch after convergence writes nothing, a chunk
-// from a converged state runs 0 rounds, and a chunk of K rounds is
-// 2K + 2 launches queued with no host sync. Each grid is as many blocks as
+// when it is set (csrc/chunk.cuh), so a chunk of K rounds is 2K + 2
+// launches queued with no host sync. Each grid is as many blocks as
 // the SMs hold at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // with grid-stride loops: a grid of fixed blocks larger than that would
 // run a second, mostly idle wave, and a no-op launch stays a few µs. The
@@ -64,71 +63,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chunk.cuh"
 #include "stencil.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;
-
-struct Classes {
-  int count;
-  int d[gossip::kMaxClasses];
-};
-
-// Blocks for a grid-stride launch of `kernel` over `work` elements: as many
-// as the SMs hold at once (registers permitting), so every block runs in
-// the first wave and a launch that returns at once costs a few µs.
-template <typename Kernel>
-int grid_for(Kernel kernel, long long work, int device) {
-  int sms = 0, per_sm = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock,
-                                                    0) != cudaSuccess ||
-      sms <= 0 || per_sm <= 0) {
-    sms = 132;
-    per_sm = 1;
-  }
-  const long long want = (work + kBlock - 1) / kBlock;
-  const long long cap = (long long)sms * per_sm;
-  return (int)(want < cap ? (want > 0 ? want : 1) : cap);
-}
-
-// Sum of v over the block, valid in thread 0.
-__device__ int block_sum(int v) {
-  __shared__ int warp_sums[kBlock / 32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  v = 0;
-  if (warp == 0) {
-    v = lane < kBlock / 32 ? warp_sums[lane] : 0;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  return v;
-}
-
-// Adds the block's converged count to *total; the last block of the grid
-// to arrive sets ctrl[0] (done) from the grand total and, for a protocol
-// round, bumps ctrl[1] (rounds executed, whose parity names the current
-// planes). Every other block read ctrl before it took its ticket, so the
-// write races with no reader.
-__device__ void finish_count(int block_count, int* total, unsigned* ticket,
-                             int* ctrl, int target, bool count_round) {
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-    atomicAdd(total, block_count);
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (last && threadIdx.x == 0) {
-    const int grand = atomicAdd(total, 0);
-    if (count_round) ctrl[1] += 1;
-    ctrl[0] = grand >= target ? 1 : 0;
-  }
-}
+using gossip::Classes;
+using gossip::GossipPlanes;
+using gossip::PushSumPlanes;
+using gossip::block_sum;
+using gossip::finish_count;
+using gossip::grid_for;
+using gossip::kBlock;
 
 // Class index of node j's sampled displacement this round, -1 for none.
 __device__ __forceinline__ int8_t mark_of(const gossip::Lattice& L,
@@ -140,39 +86,7 @@ __device__ __forceinline__ int8_t mark_of(const gossip::Lattice& L,
   return (int8_t)(d < 0 ? -1 : gossip::class_of(d, cls.d, cls.count));
 }
 
-// Planes of one state set, passed by value.
-struct PushSumPlanes {
-  float* s;
-  float* w;
-  int* term;
-  int* conv;
-};
-
-struct GossipPlanes {
-  int* count;
-  int* active;
-  int* conv;
-};
-
 // ---------------------------------------------------------------- push-sum
-
-__global__ void pushsum_init(const float* __restrict__ s0,
-                             const float* __restrict__ w0,
-                             const int* __restrict__ t0,
-                             const int* __restrict__ c0, PushSumPlanes a,
-                             int n_pad, int* total, unsigned* ticket,
-                             int* ctrl, int target) {
-  int c = 0;
-  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
-       j += gridDim.x * kBlock) {
-    a.s[j] = s0[j];
-    a.w[j] = w0[j];
-    a.term[j] = t0[j];
-    a.conv[j] = c0[j];
-    c += c0[j];
-  }
-  finish_count(block_sum(c), total, ticket, ctrl, target, false);
-}
 
 __global__ void pushsum_mark(int8_t* mark, const long long* __restrict__ key,
                              gossip::Lattice L, Classes cls, int n_pad,
@@ -215,56 +129,14 @@ __global__ void pushsum_absorb(PushSumPlanes a, PushSumPlanes b,
         }
       }
     }
-    const float s_t = cur.s[j], w_t = cur.w[j];
-    const bool sends = mark[j] >= 0;  // false on pad lanes and degree 0
-    const float s_send = sends ? s_t * 0.5f : 0.0f;
-    const float w_send = sends ? w_t * 0.5f : 0.0f;
-    const float s_new = (s_t - s_send) + in_s;
-    const float w_new = (w_t - w_send) + in_w;
-    const bool received = in_w > 0.0f;
-    const bool stable = fabsf(s_new / w_new - s_t / w_t) <= delta;
-    const int t_old = cur.term[j];
-    const int t_new = received ? (stable ? t_old + 1 : 0) : t_old;
-    const int cv =
-        pad ? 0 : ((cur.conv[j] != 0 || t_new >= term_rounds) ? 1 : 0);
-    nxt.s[j] = s_new;
-    nxt.w[j] = w_new;
-    nxt.term[j] = t_new;
-    nxt.conv[j] = cv;
-    c += cv;
+    // mark[j] < 0 on pad lanes and degree 0: those keep their mass.
+    c += gossip::pushsum_absorb_node(cur, nxt, j, pad, mark[j] >= 0, in_s,
+                                     in_w, delta, term_rounds);
   }
   finish_count(block_sum(c), total, ticket, ctrl, target, true);
 }
 
-__global__ void pushsum_finish(PushSumPlanes a, PushSumPlanes b, int n_pad,
-                               const int* __restrict__ ctrl) {
-  if (!(ctrl[1] & 1)) return;
-  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
-       j += gridDim.x * kBlock) {
-    a.s[j] = b.s[j];
-    a.w[j] = b.w[j];
-    a.term[j] = b.term[j];
-    a.conv[j] = b.conv[j];
-  }
-}
-
 // ------------------------------------------------------------------ gossip
-
-__global__ void gossip_init(const int* __restrict__ n0,
-                            const int* __restrict__ a0,
-                            const int* __restrict__ c0, GossipPlanes a,
-                            int n_pad, int* total, unsigned* ticket, int* ctrl,
-                            int target) {
-  int c = 0;
-  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
-       j += gridDim.x * kBlock) {
-    a.count[j] = n0[j];
-    a.active[j] = a0[j];
-    a.conv[j] = c0[j];
-    c += c0[j];
-  }
-  finish_count(block_sum(c), total, ticket, ctrl, target, false);
-}
 
 __global__ void gossip_mark(GossipPlanes a, GossipPlanes b, int8_t* mark,
                             const long long* __restrict__ key,
@@ -299,26 +171,10 @@ __global__ void gossip_absorb(GossipPlanes a, GossipPlanes b,
         if (k < cls.count)
           inbox += mark[gossip::class_source(j, cls.d[k], n)] == k ? 1 : 0;
     }
-    if (suppress && cur.conv[j] != 0) inbox = 0;
-    const int cnt = cur.count[j] + inbox;
-    const int cv = (!pad && cnt >= rumor_target) ? 1 : 0;
-    nxt.count[j] = cnt;
-    nxt.active[j] = (cur.active[j] != 0 || inbox > 0) ? 1 : 0;
-    nxt.conv[j] = cv;
-    c += cv;
+    c += gossip::gossip_absorb_node(cur, nxt, j, pad, inbox, rumor_target,
+                                    suppress);
   }
   finish_count(block_sum(c), total, ticket, ctrl, target, true);
-}
-
-__global__ void gossip_finish(GossipPlanes a, GossipPlanes b, int n_pad,
-                              const int* __restrict__ ctrl) {
-  if (!(ctrl[1] & 1)) return;
-  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
-       j += gridDim.x * kBlock) {
-    a.count[j] = b.count[j];
-    a.active[j] = b.active[j];
-    a.conv[j] = b.conv[j];
-  }
 }
 
 // Lattice and class list from the C arguments; false if they are out of
@@ -369,11 +225,11 @@ extern "C" int gossip_pushsum_stencil_chunk(
   unsigned* tickets = (unsigned*)(scratch + rounds + 1);
   const PushSumPlanes a{s, w, term, conv};
   const PushSumPlanes b{s_b, w_b, term_b, conv_b};
-  const int grid_init = grid_for(pushsum_init, n_pad, device);
+  const int grid_init = grid_for(gossip::pushsum_init, n_pad, device);
   const int grid_mark = grid_for(pushsum_mark, n_pad, device);
   const int grid_absorb = grid_for(pushsum_absorb, n_pad, device);
-  const int grid_finish = grid_for(pushsum_finish, n_pad, device);
-  pushsum_init<<<grid_init, kBlock, 0, stream>>>(
+  const int grid_finish = grid_for(gossip::pushsum_finish, n_pad, device);
+  gossip::pushsum_init<<<grid_init, kBlock, 0, stream>>>(
       s0, w0, t0, c0, a, n_pad, totals + rounds, tickets + rounds, ctrl,
       target);
   err = cudaGetLastError();
@@ -388,7 +244,7 @@ extern "C" int gossip_pushsum_stencil_chunk(
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return (int)err;
-  pushsum_finish<<<grid_finish, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
+  gossip::pushsum_finish<<<grid_finish, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
   return (int)cudaGetLastError();
 }
 
@@ -410,11 +266,11 @@ extern "C" int gossip_gossip_stencil_chunk(
   unsigned* tickets = (unsigned*)(scratch + rounds + 1);
   const GossipPlanes a{count, active, conv};
   const GossipPlanes b{count_b, active_b, conv_b};
-  const int grid_init = grid_for(gossip_init, n_pad, device);
+  const int grid_init = grid_for(gossip::gossip_init, n_pad, device);
   const int grid_mark = grid_for(gossip_mark, n_pad, device);
   const int grid_absorb = grid_for(gossip_absorb, n_pad, device);
-  const int grid_finish = grid_for(gossip_finish, n_pad, device);
-  gossip_init<<<grid_init, kBlock, 0, stream>>>(
+  const int grid_finish = grid_for(gossip::gossip_finish, n_pad, device);
+  gossip::gossip_init<<<grid_init, kBlock, 0, stream>>>(
       n0, a0, c0, a, n_pad, totals + rounds, tickets + rounds, ctrl, target);
   err = cudaGetLastError();
   for (int r = 0; r < rounds && err == cudaSuccess; ++r) {
@@ -428,6 +284,6 @@ extern "C" int gossip_gossip_stencil_chunk(
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return (int)err;
-  gossip_finish<<<grid_finish, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
+  gossip::gossip_finish<<<grid_finish, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
   return (int)cudaGetLastError();
 }

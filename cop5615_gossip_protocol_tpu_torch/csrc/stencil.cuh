@@ -28,6 +28,12 @@ enum LatticeKind : int {
 constexpr int kMaxDirs = 6;
 constexpr int kMaxClasses = 16;
 
+// The sorted displacement classes a chunk delivers along, passed by value.
+struct Classes {
+  int count;
+  int d[kMaxClasses];
+};
+
 struct Lattice {
   int kind;
   int n;      // population

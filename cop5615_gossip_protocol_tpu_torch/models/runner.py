@@ -5,13 +5,14 @@ chunks of ``cfg.chunk_rounds`` rounds through the pipelined chunk loop
 (models/pipeline.py), and returns a ``RunResult``. The engines are the JAX
 runner's:
 
-- the fused engines: the pool engine (ops/fused_pool.py) on ``full`` and
-  the streaming stencil engine (ops/fused_stencil_hbm.py) on the lattices,
+- the fused engines: the pool engine (ops/fused_pool.py) on ``full``,
+  the streaming stencil engine (ops/fused_stencil_hbm.py) on the lattices
+  and the imp engine (ops/fused_imp.py, both imp tiers) on imp2d/imp3d,
   each running its CUDA kernels on a CUDA device and their plain torch
   versions on the CPU;
 - the chunked torch engine: one torch round per loop step on [n] tensors
-  (sampling, pool or stencil delivery, absorb), the JAX chunked engine's
-  counterpart.
+  (sampling, pool, stencil or imp pool delivery, absorb), the JAX chunked
+  engine's counterpart.
 
 The fused tier is picked by the JAX runner's ladder (``fused_tier``), so a
 config lands on the tier the JAX package would give it; a tier whose
@@ -34,8 +35,17 @@ import torch
 
 from ..config import SimConfig, unported
 from ..ops import delivery as delivery_mod
-from ..ops import fused, fused_pool, fused_stencil, fused_stencil_hbm, rng, sampling
-from ..ops.topology import Topology
+from ..ops import (
+    fused,
+    fused_imp,
+    fused_imp_hbm,
+    fused_pool,
+    fused_stencil,
+    fused_stencil_hbm,
+    rng,
+    sampling,
+)
+from ..ops.topology import IMP_LATTICE, Topology, imp_split
 from ..utils.device import resolve_device
 from ..utils.metrics import RUN_RECORD_SCHEMA_VERSION
 from . import gossip as gossip_mod
@@ -118,9 +128,30 @@ def _make_round_fn(topo: Topology, cfg: SimConfig, base_key, device):
     is pool_size masked rolls. On a lattice every node draws one word,
     takes the neighbour column it selects (``targets_explicit``), nodes of
     degree > 0 send, and delivery is one masked roll per displacement
-    class (``deliver_stencil``)."""
+    class (``deliver_stencil``). On imp2d/imp3d a node that selects its
+    long-range column sends along one of the round's pool displacements
+    instead (``imp_pool_parts``, ``deliver_imp_pool``)."""
     n = topo.n
-    if topo.implicit:
+    if topo.kind in IMP_LATTICE:
+        split = imp_split(topo)
+        if split is None:
+            raise ValueError(
+                f"imp pooled delivery unavailable for this {topo.kind!r} "
+                "instance (lattice slots are not offset-structured)"
+            )
+        disp_cols = torch.from_numpy(split.disp_cols).to(device)
+        degree = torch.from_numpy(split.degree).to(device)
+        send_ok = degree > 0
+        lattice = [int(q) for q in split.lattice_offsets]
+
+        def deliver_parts(round_idx: int):
+            kr = sampling.round_key(base_key, round_idx)
+            d, is_extra, choice, offs, _ = imp_pool_parts(
+                topo, cfg, kr, disp_cols, degree, device)
+            return lambda values: delivery_mod.deliver_imp_pool(
+                values, d, is_extra, choice, lattice, offs.tolist())
+
+    elif topo.implicit:
         send_ok = torch.ones(n, dtype=torch.bool, device=device)
 
         def deliver_parts(round_idx: int):
@@ -174,6 +205,24 @@ def _make_round_fn(topo: Topology, cfg: SimConfig, base_key, device):
             return gossip_mod.absorb(state, inbox, rumor_target, suppress)
 
     return round_fn, state0
+
+
+def imp_pool_parts(topo: Topology, cfg: SimConfig, round_k, disp_cols,
+                   degree, device=None):
+    """The imp pooled round's sampling: (d_sampled, is_extra, choice, offs,
+    send_ok). The slot word is the static path's (``uniform_bits`` off the
+    round key, slot = word % degree over the -1-sentineled displacement
+    columns of ``imp_split``), so a sampled -1 is the long-range slot; its
+    target is one of the round's pool displacements, picked by 4 bits of a
+    packed word off ``imp_choice_key``."""
+    n = topo.n
+    bits = sampling.uniform_bits(round_k, n, device=device)
+    d = sampling.targets_explicit(bits, disp_cols, degree)
+    is_extra = (d == -1) & (degree > 0)
+    offs = sampling.pool_offsets(round_k, cfg.pool_size, n)
+    choice = sampling.pool_choice_packed(
+        sampling.imp_choice_key(round_k), n, cfg.pool_size, device=device)
+    return d, is_extra, choice, offs, degree > 0
 
 
 def _host_done(state, target: int) -> bool:
@@ -236,7 +285,13 @@ def fused_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
     None or the reason it cannot run there (models/runner.py of the JAX
     package: the pool engine on ``full`` up to its VMEM cap and the
     streaming pool tier past it; on the lattices the whole-array stencil
-    tier, else the tiled one, else the streaming one)."""
+    tier, else the tiled one, else the streaming one; on imp2d/imp3d the
+    resident imp tier up to its plane budget, else the streaming one)."""
+    if topo.kind in IMP_LATTICE:
+        reason = fused_imp.imp_fused_support(topo, cfg)
+        if reason is not None and fused_imp_hbm.imp_hbm_support(topo, cfg) is None:
+            return "imp_hbm", None
+        return "imp", reason
     if topo.implicit:
         if topo.n <= fused_pool.MAX_POOL_NODES:
             return "pool", fused_pool.pool_fused_support(topo, cfg)
@@ -333,7 +388,8 @@ class FusedEngine:
     """One fused tier set up for one config: ``planes`` is the start state
     in the tier's padded layout (CPU tensors), ``streams(start, count)``
     draws the per-round inputs on the host (the fold_in keys, plus the
-    displacement pools on the pool tier), ``chunk(state, streams, start,
+    displacement pools on the pool and imp tiers and the choice keys on the
+    imp tiers), ``chunk(state, streams, start,
     cap) -> (state, executed)`` runs one chunk, and ``to_canonical`` turns
     padded planes back into a [n] state."""
 
@@ -346,7 +402,8 @@ class FusedEngine:
 
 def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
                  start_state=None) -> FusedEngine:
-    """The fused engine of tier ``variant`` ("pool" or "stencil_hbm")."""
+    """The fused engine of tier ``variant`` ("pool", "stencil_hbm", "imp"
+    or "imp_hbm")."""
     n = topo.n
     target = cfg.resolved_target_count(topo.n, topo.target_count)
     if variant == "pool":
@@ -354,6 +411,13 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
         pushsum_chunk, gossip_chunk = (fused_pool.pushsum_pool_chunk,
                                        fused_pool.gossip_pool_chunk)
         common = {"n": n, "target": target}
+    elif variant in ("imp", "imp_hbm"):
+        layout = fused_pool.build_pool_layout(n)
+        pushsum_chunk, gossip_chunk = (
+            (fused_imp.pushsum_imp_chunk, fused_imp.gossip_imp_chunk)
+            if variant == "imp" else
+            (fused_imp_hbm.pushsum_imp_hbm_chunk, fused_imp_hbm.gossip_imp_hbm_chunk))
+        common = {"spec": fused_imp.imp_spec(topo), "target": target}
     else:
         layout = fused_stencil_hbm._streaming_layout(n)
         pushsum_chunk, gossip_chunk = (fused_stencil_hbm.pushsum_stencil_hbm_chunk,
@@ -362,9 +426,12 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
 
     def streams(start, count):
         keys = fused.round_keys(key, start, count)
-        if variant != "pool":
+        if variant == "stencil_hbm":
             return (keys,)
-        return keys, fused_pool.round_offsets(key, start, count, cfg.pool_size, n)
+        offs = fused_pool.round_offsets(key, start, count, cfg.pool_size, n)
+        if variant == "pool":
+            return keys, offs
+        return keys, offs, fused_imp.choice_round_keys(key, start, count)
 
     if cfg.algorithm == "push-sum":
         st = start_state or pushsum_mod.init_state(n, cfg.initial_term_round)

@@ -1,5 +1,6 @@
 """Message delivery as masked circular shifts: offset pools on the implicit
-full topology, static displacement classes on the lattices."""
+full topology, static displacement classes on the lattices, and both on
+imp2d/imp3d."""
 
 from __future__ import annotations
 
@@ -41,4 +42,31 @@ def deliver_stencil(values: torch.Tensor, targets: torch.Tensor, offsets,
     for d in offsets:
         masked = torch.where(disp == int(d), values, zero)
         inbox = inbox + torch.roll(masked, int(d), dims=-1)
+    return inbox
+
+
+def deliver_imp_pool(channels: torch.Tensor, d_sampled: torch.Tensor,
+                     is_extra: torch.Tensor, choice: torch.Tensor,
+                     lattice_offsets, pool_offs) -> torch.Tensor:
+    """Rolls-only delivery on imp2d/imp3d under pooled long-range sampling:
+    a node that sampled a lattice slot sends along its displacement, one
+    that sampled its long-range slot along the round's pool displacement
+    ``pool_offs[choice]``. The inbox sums from zero over the sorted lattice
+    classes, then the pool slots in order:
+
+        inbox = sum over q of roll(channels * [d_sampled == q], q)
+              + sum over k of roll(channels * [is_extra & choice == k], pool_offs[k])
+
+    ``channels`` is [C, n]; ``d_sampled`` the sampled modular displacement
+    (-1 on the extra slot, so it never aliases a lattice class). A pool
+    offset equal to a lattice displacement, or to another slot's, still
+    delivers each send once: the masks are disjoint."""
+    inbox = torch.zeros_like(channels)
+    zero = torch.zeros((), dtype=channels.dtype, device=channels.device)
+    for q in lattice_offsets:
+        masked = torch.where((d_sampled == int(q))[None, :], channels, zero)
+        inbox = inbox + torch.roll(masked, int(q), dims=1)
+    for k, off in enumerate(pool_offs):
+        masked = torch.where((is_extra & (choice == k))[None, :], channels, zero)
+        inbox = inbox + torch.roll(masked, int(off), dims=1)
     return inbox

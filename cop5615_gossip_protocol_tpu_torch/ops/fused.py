@@ -2,8 +2,10 @@
 the support predicate of the JAX package's whole-array stencil tier.
 
 The CUDA kernels compute the same things on the device: the Threefry hash
-in csrc/threefry.cuh, the done flag and the round cap inside
-csrc/fused_pool.cu and csrc/fused_stencil.cu. The whole-array stencil
+in csrc/threefry.cuh, the done flag, the round cap and the class-keyed
+delivery and absorb (``pushsum_class_rounds``, ``gossip_class_rounds``)
+inside csrc/fused_pool.cu, csrc/fused_stencil.cu and csrc/fused_imp.cu.
+The whole-array stencil
 kernels themselves (the JAX package's ops/fused.py make_pushsum_chunk and
 make_gossip_chunk) are not ported yet (ROADMAP B5); ``fused_support`` is
 kept so the engine ladder picks the tier the JAX package picks.
@@ -115,3 +117,92 @@ def make_done_flag(target: int):
         return bool(total >= target)
 
     return done_flag
+
+
+def class_sources(n_pad: int, d, n: int, device=None) -> torch.Tensor:
+    """Flat [n_pad] index of the node whose message along the mod-n
+    displacement ``d`` lands on each receiver j: j - d, wrapped by n."""
+    j = torch.arange(n_pad, dtype=torch.int64, device=device)
+    return torch.where(j >= d, j - d, j - d + n)
+
+
+def pushsum_class_rounds(state4, start: int, cap: int, count: int,
+                         round_classes, *, n: int, target: int, delta: float,
+                         term_rounds: int):
+    """The plain version of every push-sum chunk kernel: up to ``count``
+    rounds from absolute round ``start`` on the padded planes (s, w, term,
+    conv_i32), stopping at ``cap`` or once ``target`` nodes converged.
+
+    ``round_classes(k) -> (mark, classes)`` describes round k's sends:
+    ``mark`` is the int64 [n_pad] class id each node sends along (-1 for
+    none: pad lanes, degree 0) and ``classes`` the (class id, source index)
+    pairs in delivery order, where the source index (``class_sources``)
+    names the node whose send along that class lands on each receiver. Each
+    receiver sums the halved sends from 0.0 in that order: the chunked
+    engines' float32 op order. Returns (state4', rounds_executed)."""
+    s, w, t, c = (x.clone() for x in state4)
+    dev, rows = s.device, s.shape[0]
+    padm = (torch.arange(rows * LANES, device=dev) >= n).reshape(rows, LANES)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    delta_t = torch.tensor(delta, dtype=torch.float32, device=dev)
+    done = make_done_flag(target)
+    finished = done(c.sum())
+    executed = 0
+    for k in range(count):
+        if finished or start + k >= cap:
+            break
+        mark, classes = round_classes(k)
+        sends = mark >= 0
+        ss = torch.where(sends, s.reshape(-1) * 0.5, zero)
+        ws = torch.where(sends, w.reshape(-1) * 0.5, zero)
+        in_s = torch.zeros_like(ss)
+        in_w = torch.zeros_like(ws)
+        for cid, src in classes:
+            hit = mark[src] == cid
+            in_s = in_s + torch.where(hit, ss[src], zero)
+            in_w = in_w + torch.where(hit, ws[src], zero)
+        in_s = torch.where(padm, zero, in_s.reshape(rows, LANES))
+        in_w = torch.where(padm, zero, in_w.reshape(rows, LANES))
+        s_new = (s - ss.reshape(rows, LANES)) + in_s
+        w_new = (w - ws.reshape(rows, LANES)) + in_w
+        received = in_w > 0
+        stable = torch.abs(s_new / w_new - s / w) <= delta_t
+        t = torch.where(received, torch.where(stable, t + 1, 0), t).to(torch.int32)
+        c = torch.where(padm, 0, (c != 0) | (t >= term_rounds)).to(torch.int32)
+        s, w = s_new, w_new
+        executed += 1
+        finished = done(c.sum())
+    return (s, w, t, c), torch.tensor(executed, dtype=torch.int32, device=dev)
+
+
+def gossip_class_rounds(state3, start: int, cap: int, count: int,
+                        round_classes, *, n: int, target: int,
+                        rumor_target: int, suppress: bool):
+    """The plain version of every gossip chunk kernel, on the padded planes
+    (count, active_i32, conv_i32): ``pushsum_class_rounds``' contract, where
+    only active nodes send (their mark is kept, every other node's is -1),
+    a receiver counts the class sources that sent along the class, and
+    suppression is receiver-side. Returns (state3', rounds_executed)."""
+    cnt, act, c = (x.clone() for x in state3)
+    dev, rows = cnt.device, cnt.shape[0]
+    padm = (torch.arange(rows * LANES, device=dev) >= n).reshape(rows, LANES)
+    done = make_done_flag(target)
+    finished = done(c.sum())
+    executed = 0
+    for k in range(count):
+        if finished or start + k >= cap:
+            break
+        mark, classes = round_classes(k)
+        mark = torch.where(act.reshape(-1) != 0, mark, -1)
+        inbox = torch.zeros(rows * LANES, dtype=torch.int32, device=dev)
+        for cid, src in classes:
+            inbox = inbox + (mark[src] == cid).to(torch.int32)
+        inbox = torch.where(padm, 0, inbox.reshape(rows, LANES))
+        if suppress:
+            inbox = torch.where(c != 0, 0, inbox)
+        cnt = (cnt + inbox).to(torch.int32)
+        act = ((act != 0) | (inbox > 0)).to(torch.int32)
+        c = ((cnt >= rumor_target) & ~padm).to(torch.int32)
+        executed += 1
+        finished = done(c.sum())
+    return (cnt, act, c), torch.tensor(executed, dtype=torch.int32, device=dev)

@@ -1,0 +1,350 @@
+"""Fused imp engine: multi-round chunks on imp2d/imp3d under pooled
+long-range sampling ("stencil + P pooled classes"), up to 2**27 nodes.
+
+One call runs a chunk of up to K synchronous push-sum or gossip rounds on
+the padded ``[rows, 128]`` pool layout (``build_pool_layout``), consuming
+per-round fold_in keys, displacement pools (``fused_pool.round_offsets``)
+and choice keys (``choice_round_keys``), and stops early once the converged
+count reaches the target. Per round, bitwise the chunked engine's
+``imp_pool_parts`` and ``deliver_imp_pool``:
+
+- every node draws its slot word at its global index off the round key;
+  slot = word % degree over its live lattice directions (the grid2d/grid3d
+  pairs of ``topology.lattice_dirs``) and, last, its long-range slot;
+- a lattice slot marks the class of its displacement (its index q in the
+  sorted lattice offsets), the long-range slot marks class L + its pool
+  choice, 4 bits of a packed word drawn off fold_in(round key,
+  IMP_CHOICE_TAG);
+- each receiver sums the halved sends from 0.0 over the L lattice classes,
+  then the P pool classes: class ids, not displacements, so a pool offset
+  equal to a lattice displacement (or to another slot's) delivers once.
+
+The JAX package computes this function in two tiers, a VMEM-resident one
+(its ops/fused_imp.py) and an HBM-streaming one (its ops/fused_imp_hbm.py);
+the split is the TPU's VMEM budget. On the card one pair of kernels over
+ping/pong device planes (csrc/fused_imp.cu) serves both: the ladder still
+names the JAX tier (``imp_fused_support`` here, ``imp_hbm_support`` in
+ops/fused_imp_hbm.py), and each tier's wrappers count their own launches.
+
+``pushsum_imp_chunk`` and ``gossip_imp_chunk`` launch the kernels on CUDA
+tensors and run the plain torch versions (``*_plain``) on CPU tensors; the
+plain versions run on any device and are what the kernels are held against.
+The kernels take honest (batched-semantics) builds, whose lattice is the
+whole grid: reference semantics cannot run pooled delivery at all (Q9).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import SimConfig
+from ..utils import kernels
+from . import rng
+from .fused import (
+    LANES,
+    clamp_cap_and_pad,
+    class_sources,
+    gossip_class_rounds,
+    pushsum_class_rounds,
+    round_keys,
+    threefry2x32_hash,
+)
+from .fused_pool import (
+    POOL_SIZES,
+    _choice_plane,
+    _ptr,
+    _upload,
+    build_pool_layout,
+)
+from .fused_stencil_hbm import _KIND_IDS, _sample_disp_dirs
+from .sampling import IMP_CHOICE_TAG, POOL_CHOICE_BITS, pool_rows
+from .topology import IMP_LATTICE, Topology, imp_lattice_offsets, lattice_dirs
+
+# The JAX resident tier's plane budget, copied as the ladder's predicate.
+_VMEM_BUDGET = 100 * 1024 * 1024
+
+
+def _plane_bytes(n_pad: int, max_deg: int, algorithm: str) -> int:
+    """The JAX resident tier's VMEM bytes (4-byte words a node): push-sum 4
+    state + 2x2 doubled sends + 2 doubled class plane; gossip 3 state + 2
+    doubled class plane; both max_deg class columns + 1 degree."""
+    per_node = (4 + 4 + 2) if algorithm == "push-sum" else (3 + 2)
+    return n_pad * 4 * (per_node + max_deg + 1)
+
+
+def imp_reason(topo: Topology, cfg: SimConfig) -> Optional[str]:
+    """The checks both imp tiers share: None if the kernels take this
+    config's topology, else the reason not."""
+    if topo.kind not in IMP_LATTICE:
+        return f"topology {topo.kind!r} is not an imp (lattice+extra) kind"
+    if cfg.reference:
+        return (
+            "pooled long-range sampling cannot reproduce the reference's "
+            "static extra edge (Q9); reference semantics use scatter"
+        )
+    if imp_lattice_offsets(topo) is None:
+        return "lattice slots are not offset-structured for this instance"
+    if topo.target_count != topo.n:
+        return "the fused imp kernels take batched-semantics builds"
+    if cfg.pool_size > 1 << POOL_CHOICE_BITS:
+        return (
+            f"pool_size {cfg.pool_size} exceeds the packed-choice limit "
+            f"{1 << POOL_CHOICE_BITS}"
+        )
+    return None
+
+
+def imp_fused_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
+    """None if the JAX package's resident imp tier would run this config,
+    else the reason not (its predicate; the port's configs are fault-free,
+    float32 and single-device by construction)."""
+    reason = imp_reason(topo, cfg)
+    if reason is not None:
+        return reason
+    layout = build_pool_layout(topo.n)
+    if _plane_bytes(layout.n_pad, topo.max_deg, cfg.algorithm) > _VMEM_BUDGET:
+        return (
+            f"population {topo.n} (max_deg {topo.max_deg}) exceeds the "
+            "VMEM-resident plane budget"
+        )
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class ImpSpec:
+    """What the chunks need of an imp topology."""
+
+    kind: str  # imp2d or imp3d
+    n: int  # population: the whole grid
+    classes: tuple  # the sorted mod-n lattice displacement classes
+
+
+def imp_spec(topo: Topology) -> ImpSpec:
+    offs = imp_lattice_offsets(topo)
+    if topo.kind not in IMP_LATTICE or offs is None or topo.target_count != topo.n:
+        raise ValueError(f"{topo.kind!r} n={topo.n} is not a batched imp build")
+    return ImpSpec(topo.kind, topo.n, tuple(int(d) for d in offs))
+
+
+def choice_round_keys(base_key, start: int, count: int) -> torch.Tensor:
+    """int64 ``[count, 2]`` keys of the per-round pool-choice stream:
+    fold_in(round key, IMP_CHOICE_TAG) for absolute rounds start.., the
+    key sampling.imp_choice_key gives each round."""
+    keys = round_keys(base_key, start, count)
+    a, b = rng.threefry2x32(keys[:, 0], keys[:, 1], 0, IMP_CHOICE_TAG)
+    return torch.stack([a, b], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the kernels' function in torch, on any device.
+# ---------------------------------------------------------------------------
+
+
+def _imp_classes(spec: ImpSpec, keys, offs, ckeys, rows: int):
+    """``round_classes`` of the imp chunks (fused.pushsum_class_rounds):
+    the marks as the module docstring draws them, the L lattice classes
+    with their static sources, then the P pool classes with the round's."""
+    n, n_pad, dev = spec.n, rows * LANES, keys.device
+    jflat = torch.arange(n_pad, dtype=torch.int64, device=dev)
+    padm = jflat >= n
+    # The grid's direction pairs in neighbour-column order, then the
+    # long-range slot: live on every real node, with displacement -1 so it
+    # never aliases a lattice class.
+    pairs = lattice_dirs(IMP_LATTICE[spec.kind], n, n, jflat) + [(~padm, jflat * 0 - 1)]
+    lattice = torch.tensor(spec.classes, dtype=torch.int64, device=dev)
+    L, P = len(spec.classes), offs.shape[1]
+    lat_srcs = [(q, class_sources(n_pad, d, n, dev)) for q, d in enumerate(spec.classes)]
+
+    def round_classes(k):
+        bits = threefry2x32_hash(keys[k, 0], keys[k, 1], jflat)
+        d, _ = _sample_disp_dirs(bits, pairs)
+        choice = _choice_plane(ckeys[k], rows, P).reshape(-1).to(torch.int64)
+        cls = torch.where(d >= 0, torch.searchsorted(lattice, d.clamp(min=0)), L + choice)
+        pool = [(L + p, class_sources(n_pad, offs[k, p], n, dev)) for p in range(P)]
+        return torch.where(padm, -1, cls), lat_srcs + pool
+
+    return round_classes
+
+
+def pushsum_imp_chunk_plain(state4, keys, offs, ckeys, start: int, cap: int, *,
+                            spec: ImpSpec, target: int, delta: float,
+                            term_rounds: int):
+    """Up to K = keys.shape[0] push-sum imp rounds on the padded planes
+    (s, w, term, conv_i32). Returns (state4', rounds_executed)."""
+    dev, rows = state4[0].device, state4[0].shape[0]
+    cap, keys, offs, ckeys = clamp_cap_and_pad(start, cap, keys, ((offs, 1), (ckeys, 0)))
+    return pushsum_class_rounds(
+        state4, start, cap, keys.shape[0],
+        _imp_classes(spec, keys.to(dev), offs.to(dev), ckeys.to(dev), rows),
+        n=spec.n, target=target, delta=delta, term_rounds=term_rounds)
+
+
+def gossip_imp_chunk_plain(state3, keys, offs, ckeys, start: int, cap: int, *,
+                           spec: ImpSpec, target: int, rumor_target: int,
+                           suppress: bool):
+    """Up to K gossip imp rounds on the padded planes (count, active_i32,
+    conv_i32), with receiver-side suppression. Returns (state3',
+    rounds_executed)."""
+    dev, rows = state3[0].device, state3[0].shape[0]
+    cap, keys, offs, ckeys = clamp_cap_and_pad(start, cap, keys, ((offs, 1), (ckeys, 0)))
+    return gossip_class_rounds(
+        state3, start, cap, keys.shape[0],
+        _imp_classes(spec, keys.to(dev), offs.to(dev), ckeys.to(dev), rows),
+        n=spec.n, target=target, rumor_target=rumor_target, suppress=suppress)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: CUDA tensors launch the kernels, CPU tensors run the plain
+# versions. No fallback between the two.
+# ---------------------------------------------------------------------------
+
+
+def _check(planes, dtypes, keys, offs, ckeys, spec: ImpSpec) -> torch.device:
+    if len(planes) != len(dtypes):
+        raise ValueError(f"expected {len(dtypes)} state planes, got {len(planes)}")
+    shape = (pool_rows(spec.n), LANES)
+    dev = planes[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"imp chunks run on cpu or cuda tensors, got {dev}")
+    for x, dt in zip(planes, dtypes):
+        if x.device != dev or x.dtype != dt or tuple(x.shape) != shape:
+            raise ValueError(
+                f"state plane must be {dt} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError("state planes must be contiguous")
+    for name, k in (("keys", keys), ("ckeys", ckeys)):
+        if k.dtype != torch.int64 or k.dim() != 2 or k.shape != (keys.shape[0], 2):
+            raise ValueError(f"{name} must be int64 [K, 2], got {k.dtype} {tuple(k.shape)}")
+    if offs.dtype != torch.int32 or offs.dim() != 2 or offs.shape[0] != keys.shape[0]:
+        raise ValueError(
+            f"offs must be int32 [K, P] with K = {keys.shape[0]}, got "
+            f"{offs.dtype} {tuple(offs.shape)}"
+        )
+    if offs.shape[1] not in POOL_SIZES:
+        raise ValueError(
+            f"pool_size {offs.shape[1]} not in {POOL_SIZES} (the packed-choice "
+            "limit of the kernels)"
+        )
+    # The streams are drawn on the host; checking their values there costs
+    # no device sync, and an offset outside [1, n-1] would send the
+    # kernels' gathers out of bounds.
+    if any(x.device.type != "cpu" for x in (keys, offs, ckeys)):
+        raise ValueError("keys, offs and ckeys are host-drawn streams: pass CPU tensors")
+    for k in (keys, ckeys):
+        if k.numel() and (k.min() < 0 or k.max() > rng.MASK):
+            raise ValueError("keys must hold uint32 words")
+    if offs.numel() and (offs.min() < 1 or offs.max() > spec.n - 1):
+        raise ValueError(f"offs must lie in [1, {spec.n - 1}]")
+    if spec.kind not in IMP_LATTICE or not 1 <= len(spec.classes) <= 6:
+        raise ValueError(f"not an imp lattice the kernels take: {spec}")
+    if spec.n > 2**27:
+        raise ValueError(f"population {spec.n} exceeds {2**27}")
+    return dev
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "gossip_pushsum_imp_chunk": [_P] * 19 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+    "gossip_gossip_imp_chunk": [_P] * 16 + [_I] * 10 + [_P],
+}
+
+
+def _kernel_chunk(name: str, state, keys, offs, ckeys, start: int, cap: int,
+                  spec: ImpSpec, tail):
+    """Queue one chunk of csrc/fused_imp.cu on the current stream of the
+    state's device and raise on a launch error. Returns (state',
+    rounds_executed, launches queued)."""
+    dev = state[0].device
+    cap, keys, offs, ckeys = clamp_cap_and_pad(start, cap, keys, ((offs, 1), (ckeys, 0)))
+    keys, ckeys = _upload(keys, dev), _upload(ckeys, dev)
+    offs = offs.contiguous()  # read on the host, one round per launch
+    rounds = max(0, cap - start)
+    n_pad = state[0].numel()
+    out = [torch.empty_like(x) for x in state]
+    other = [torch.empty_like(x) for x in state]
+    mark = torch.empty(n_pad, dtype=torch.int8, device=dev)
+    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(2 * (rounds + 1), dtype=torch.int32, device=dev)
+    classes = np.ascontiguousarray(spec.classes, dtype=np.int32)
+    fn = kernels.entry("fused_imp", name, _SIGNATURES[name])
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(*[_ptr(x) for x in (*state, *out, *other, mark, keys, ckeys, offs,
+                                  ctrl, scratch)],
+             classes.ctypes.data_as(ctypes.c_void_p), len(spec.classes),
+             _KIND_IDS[IMP_LATTICE[spec.kind]], spec.n, n_pad, rounds, offs.shape[1], *tail,
+             dev.index, stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+    return tuple(out), ctrl[1], 2 + 2 * rounds
+
+
+def pushsum_chunk(counter, state4, keys, offs, ckeys, start: int, cap: int, *,
+                  spec: ImpSpec, target: int, delta: float, term_rounds: int):
+    """The push-sum chunk behind both tiers' wrappers; a launch adds the
+    kernels it queued to ``counter.launches``."""
+    dev = _check(state4, (torch.float32, torch.float32, torch.int32, torch.int32),
+                 keys, offs, ckeys, spec)
+    if dev.type == "cpu":
+        return pushsum_imp_chunk_plain(
+            state4, keys, offs, ckeys, start, cap, spec=spec, target=target,
+            delta=delta, term_rounds=term_rounds)
+    out, executed, launches = _kernel_chunk(
+        "gossip_pushsum_imp_chunk", state4, keys, offs, ckeys, start, cap, spec,
+        (ctypes.c_float(delta), term_rounds, target))
+    counter.launches += launches
+    return out, executed
+
+
+def gossip_chunk(counter, state3, keys, offs, ckeys, start: int, cap: int, *,
+                 spec: ImpSpec, target: int, rumor_target: int, suppress: bool):
+    """The gossip chunk behind both tiers' wrappers."""
+    dev = _check(state3, (torch.int32,) * 3, keys, offs, ckeys, spec)
+    if dev.type == "cpu":
+        return gossip_imp_chunk_plain(
+            state3, keys, offs, ckeys, start, cap, spec=spec, target=target,
+            rumor_target=rumor_target, suppress=suppress)
+    out, executed, launches = _kernel_chunk(
+        "gossip_gossip_imp_chunk", state3, keys, offs, ckeys, start, cap, spec,
+        (rumor_target, int(suppress), target))
+    counter.launches += launches
+    return out, executed
+
+
+def pushsum_imp_chunk(state4, keys, offs, ckeys, start: int, cap: int, *,
+                      spec: ImpSpec, target: int, delta: float, term_rounds: int):
+    """Up to K = keys.shape[0] push-sum imp rounds from absolute round
+    ``start``, stopping at ``cap`` or once ``target`` nodes converged.
+
+    ``state4`` is (s, w, term, conv_i32) in the padded [rows, 128] pool
+    layout on one device; ``keys`` and ``ckeys`` int64 [K, 2] (uint32
+    words; fused.round_keys, choice_round_keys) and ``offs`` int32 [K, P]
+    (fused_pool.round_offsets) are CPU tensors. Returns (state4',
+    rounds_executed) with rounds_executed a 0-dim int32 tensor on the
+    state's device; the inputs are left unchanged. CUDA state runs the
+    kernel and CPU state the plain version."""
+    return pushsum_chunk(pushsum_imp_chunk, state4, keys, offs, ckeys, start, cap,
+                         spec=spec, target=target, delta=delta,
+                         term_rounds=term_rounds)
+
+
+def gossip_imp_chunk(state3, keys, offs, ckeys, start: int, cap: int, *,
+                     spec: ImpSpec, target: int, rumor_target: int,
+                     suppress: bool):
+    """Gossip analog of ``pushsum_imp_chunk``: ``state3`` is (count,
+    active_i32, conv_i32); converged-target suppression is receiver-side."""
+    return gossip_chunk(gossip_imp_chunk, state3, keys, offs, ckeys, start, cap,
+                        spec=spec, target=target, rumor_target=rumor_target,
+                        suppress=suppress)
+
+
+# Kernel launches queued by each wrapper (init, 2 per round, finish),
+# counted where the kernel is launched and nowhere else.
+pushsum_imp_chunk.launches = 0
+gossip_imp_chunk.launches = 0

@@ -21,7 +21,14 @@ import torch
 from ..config import SimConfig
 from ..utils import kernels
 from . import rng
-from .fused import LANES, clamp_cap_and_pad, make_done_flag, threefry_bits_2d
+from .fused import (
+    LANES,
+    clamp_cap_and_pad,
+    class_sources,
+    gossip_class_rounds,
+    pushsum_class_rounds,
+    threefry_bits_2d,
+)
 from .sampling import (
     POOL_CHOICE_BITS,
     POOL_PACK,
@@ -98,9 +105,20 @@ def _choice_plane(key_row: torch.Tensor, rows: int, pool_size: int) -> torch.Ten
     return choice_from_words(words, pool_size)
 
 
-def _sources(jflat: torch.Tensor, d, n: int) -> torch.Tensor:
-    """Flat source index of each receiver for the mod-n roll by d."""
-    return torch.where(jflat >= d, jflat - d, jflat - d + n).reshape(-1)
+def _pool_classes(keys, offs, rows: int, n: int):
+    """``round_classes`` of the pool chunks (fused.pushsum_class_rounds):
+    every real node marks its pool slot, and slot k's sources are the
+    mod-n roll by the round's k-th displacement."""
+    n_pad = rows * LANES
+    padm = torch.arange(n_pad, device=keys.device) >= n
+
+    def round_classes(k):
+        choice = _choice_plane(keys[k], rows, offs.shape[1]).reshape(-1)
+        mark = torch.where(padm, -1, choice.to(torch.int64))
+        return mark, [(slot, class_sources(n_pad, offs[k, slot], n, keys.device))
+                      for slot in range(offs.shape[1])]
+
+    return round_classes
 
 
 def pushsum_pool_chunk_plain(state4, keys, offs, start: int, cap: int, *,
@@ -108,42 +126,12 @@ def pushsum_pool_chunk_plain(state4, keys, offs, start: int, cap: int, *,
                              term_rounds: int):
     """Up to K = keys.shape[0] push-sum pool rounds on the padded planes
     (s, w, term, conv_i32). Returns (state4', rounds_executed)."""
-    s, w, t, c = (x.clone() for x in state4)
-    dev, rows = s.device, s.shape[0]
+    dev, rows = state4[0].device, state4[0].shape[0]
     cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
-    keys, offs = keys.to(dev), offs.to(dev)
-    jflat = torch.arange(rows * LANES, device=dev).reshape(rows, LANES)
-    padm = jflat >= n
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    delta_t = torch.tensor(delta, dtype=torch.float32, device=dev)
-    done = make_done_flag(target)
-    finished = done(c.sum())
-    executed = 0
-    for k in range(keys.shape[0]):
-        if finished or start + k >= cap:
-            break
-        choice = _choice_plane(keys[k], rows, offs.shape[1]).reshape(-1)
-        ss = torch.where(padm, zero, s * 0.5)
-        ws = torch.where(padm, zero, w * 0.5)
-        in_s = torch.zeros_like(s)
-        in_w = torch.zeros_like(w)
-        for slot in range(offs.shape[1]):
-            src = _sources(jflat, offs[k, slot], n)
-            hit = (choice[src] == slot).reshape(rows, LANES)
-            in_s = in_s + torch.where(hit, ss.reshape(-1)[src].reshape(rows, LANES), zero)
-            in_w = in_w + torch.where(hit, ws.reshape(-1)[src].reshape(rows, LANES), zero)
-        in_s = torch.where(padm, zero, in_s)
-        in_w = torch.where(padm, zero, in_w)
-        s_new = (s - ss) + in_s
-        w_new = (w - ws) + in_w
-        received = in_w > 0
-        stable = torch.abs(s_new / w_new - s / w) <= delta_t
-        t = torch.where(received, torch.where(stable, t + 1, 0), t).to(torch.int32)
-        c = torch.where(padm, 0, (c != 0) | (t >= term_rounds)).to(torch.int32)
-        s, w = s_new, w_new
-        executed += 1
-        finished = done(c.sum())
-    return (s, w, t, c), torch.tensor(executed, dtype=torch.int32, device=dev)
+    return pushsum_class_rounds(
+        state4, start, cap, keys.shape[0],
+        _pool_classes(keys.to(dev), offs.to(dev), rows, n), n=n,
+        target=target, delta=delta, term_rounds=term_rounds)
 
 
 def gossip_pool_chunk_plain(state3, keys, offs, start: int, cap: int, *,
@@ -152,33 +140,12 @@ def gossip_pool_chunk_plain(state3, keys, offs, start: int, cap: int, *,
     """Up to K gossip pool rounds on the padded planes (count, active_i32,
     conv_i32), with receiver-side suppression. Returns (state3',
     rounds_executed)."""
-    cnt, act, c = (x.clone() for x in state3)
-    dev, rows = cnt.device, cnt.shape[0]
+    dev, rows = state3[0].device, state3[0].shape[0]
     cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
-    keys, offs = keys.to(dev), offs.to(dev)
-    jflat = torch.arange(rows * LANES, device=dev).reshape(rows, LANES)
-    padm = jflat >= n
-    done = make_done_flag(target)
-    finished = done(c.sum())
-    executed = 0
-    for k in range(keys.shape[0]):
-        if finished or start + k >= cap:
-            break
-        choice = _choice_plane(keys[k], rows, offs.shape[1])
-        marked = torch.where((act != 0) & ~padm, choice, -1).reshape(-1)
-        inbox = torch.zeros_like(cnt)
-        for slot in range(offs.shape[1]):
-            src = _sources(jflat, offs[k, slot], n)
-            inbox = inbox + (marked[src] == slot).reshape(rows, LANES).to(torch.int32)
-        inbox = torch.where(padm, 0, inbox)
-        if suppress:
-            inbox = torch.where(c != 0, 0, inbox)
-        cnt = (cnt + inbox).to(torch.int32)
-        act = ((act != 0) | (inbox > 0)).to(torch.int32)
-        c = (cnt >= rumor_target).to(torch.int32)
-        executed += 1
-        finished = done(c.sum())
-    return (cnt, act, c), torch.tensor(executed, dtype=torch.int32, device=dev)
+    return gossip_class_rounds(
+        state3, start, cap, keys.shape[0],
+        _pool_classes(keys.to(dev), offs.to(dev), rows, n), n=n,
+        target=target, rumor_target=rumor_target, suppress=suppress)
 
 
 # ---------------------------------------------------------------------------
@@ -237,14 +204,6 @@ _SIGNATURES = {
 }
 
 
-def _entry(name: str):
-    """The C entry point ``name`` of csrc/fused_pool.cu (built on first use)."""
-    fn = getattr(kernels.load("fused_pool"), name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _upload(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
     """A host stream on the device, copied without a host sync."""
     return x.pin_memory().to(dev, non_blocking=True)
@@ -256,7 +215,8 @@ def _launch(name: str, dev: torch.device, pointers, ints) -> None:
     torch's caching allocator hands their memory only to work queued later
     on the same stream."""
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    err = _entry(name)(*[_ptr(x) for x in pointers], *ints, dev.index, stream)
+    fn = kernels.entry("fused_pool", name, _SIGNATURES[name])
+    err = fn(*[_ptr(x) for x in pointers], *ints, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 

@@ -28,7 +28,14 @@ import torch
 from ..config import SimConfig
 from ..utils import kernels
 from . import rng
-from .fused import LANES, clamp_cap_and_pad, make_done_flag, threefry2x32_hash
+from .fused import (
+    LANES,
+    clamp_cap_and_pad,
+    class_sources,
+    gossip_class_rounds,
+    pushsum_class_rounds,
+    threefry2x32_hash,
+)
 from .fused_pool import PoolLayout, _ptr, _upload, build_pool_layout
 from .topology import Topology, lattice_dirs
 
@@ -118,23 +125,26 @@ def _streaming_layout(n: int) -> PoolLayout:
 # ---------------------------------------------------------------------------
 
 
-def _round_setup(spec: StencilSpec, rows: int, dev):
-    """Per-chunk constants of the plain versions: flat indices, the pad
-    mask, the direction pairs, and each class's source index."""
+def _stencil_classes(spec: StencilSpec, keys, rows: int, dev):
+    """``round_classes`` of the lattice chunks (fused.pushsum_class_rounds):
+    each node draws its word at its global index and marks the class of
+    the displacement its direction pairs select; the classes are the
+    sorted displacement classes, each with its static sources."""
     n = spec.n
     jflat = torch.arange(rows * LANES, dtype=torch.int64, device=dev)
     padm = jflat >= n
     pairs = lattice_dirs(spec.kind, n, spec.n_lat, jflat)
-    srcs = [torch.where(jflat >= d, jflat - d, jflat - d + n) for d in spec.classes]
-    return jflat, padm, pairs, srcs
+    classes = torch.tensor(spec.classes, dtype=torch.int64, device=dev)
+    srcs = [(q, class_sources(rows * LANES, d, n, dev))
+            for q, d in enumerate(spec.classes)]
 
+    def round_classes(k):
+        bits = threefry2x32_hash(keys[k, 0], keys[k, 1], jflat)
+        d, deg = _sample_disp_dirs(bits, pairs)
+        cls = torch.searchsorted(classes, d)
+        return torch.where((deg > 0) & ~padm, cls, -1), srcs
 
-def _round_marks(key_row, jflat, padm, pairs):
-    """Each node's sampled displacement this round, -1 where it does not
-    send (pad lanes, degree 0)."""
-    bits = threefry2x32_hash(key_row[0], key_row[1], jflat)
-    d, deg = _sample_disp_dirs(bits, pairs)
-    return torch.where((deg > 0) & ~padm, d, -1)
+    return round_classes
 
 
 def pushsum_stencil_hbm_chunk_plain(state4, keys, start: int, cap: int, *,
@@ -142,42 +152,12 @@ def pushsum_stencil_hbm_chunk_plain(state4, keys, start: int, cap: int, *,
                                     delta: float, term_rounds: int):
     """Up to K = keys.shape[0] push-sum lattice rounds on the padded planes
     (s, w, term, conv_i32). Returns (state4', rounds_executed)."""
-    s, w, t, c = (x.clone() for x in state4)
-    dev, rows = s.device, s.shape[0]
+    dev, rows = state4[0].device, state4[0].shape[0]
     cap, keys = clamp_cap_and_pad(start, cap, keys)
-    keys = keys.to(dev)
-    jflat, padm, pairs, srcs = _round_setup(spec, rows, dev)
-    padm2 = padm.reshape(rows, LANES)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    delta_t = torch.tensor(delta, dtype=torch.float32, device=dev)
-    done = make_done_flag(target)
-    finished = done(c.sum())
-    executed = 0
-    for k in range(keys.shape[0]):
-        if finished or start + k >= cap:
-            break
-        mark = _round_marks(keys[k], jflat, padm, pairs)
-        sends = mark >= 0
-        ss = torch.where(sends, s.reshape(-1) * 0.5, zero)
-        ws = torch.where(sends, w.reshape(-1) * 0.5, zero)
-        in_s = torch.zeros_like(ss)
-        in_w = torch.zeros_like(ws)
-        for d, src in zip(spec.classes, srcs):
-            hit = mark[src] == d
-            in_s = in_s + torch.where(hit, ss[src], zero)
-            in_w = in_w + torch.where(hit, ws[src], zero)
-        in_s = torch.where(padm, zero, in_s).reshape(rows, LANES)
-        in_w = torch.where(padm, zero, in_w).reshape(rows, LANES)
-        s_new = (s - ss.reshape(rows, LANES)) + in_s
-        w_new = (w - ws.reshape(rows, LANES)) + in_w
-        received = in_w > 0
-        stable = torch.abs(s_new / w_new - s / w) <= delta_t
-        t = torch.where(received, torch.where(stable, t + 1, 0), t).to(torch.int32)
-        c = torch.where(padm2, 0, (c != 0) | (t >= term_rounds)).to(torch.int32)
-        s, w = s_new, w_new
-        executed += 1
-        finished = done(c.sum())
-    return (s, w, t, c), torch.tensor(executed, dtype=torch.int32, device=dev)
+    return pushsum_class_rounds(
+        state4, start, cap, keys.shape[0],
+        _stencil_classes(spec, keys.to(dev), rows, dev), n=spec.n,
+        target=target, delta=delta, term_rounds=term_rounds)
 
 
 def gossip_stencil_hbm_chunk_plain(state3, keys, start: int, cap: int, *,
@@ -186,32 +166,12 @@ def gossip_stencil_hbm_chunk_plain(state3, keys, start: int, cap: int, *,
     """Up to K gossip lattice rounds on the padded planes (count,
     active_i32, conv_i32), with receiver-side suppression. Returns
     (state3', rounds_executed)."""
-    cnt, act, c = (x.clone() for x in state3)
-    dev, rows = cnt.device, cnt.shape[0]
+    dev, rows = state3[0].device, state3[0].shape[0]
     cap, keys = clamp_cap_and_pad(start, cap, keys)
-    keys = keys.to(dev)
-    jflat, padm, pairs, srcs = _round_setup(spec, rows, dev)
-    padm2 = padm.reshape(rows, LANES)
-    done = make_done_flag(target)
-    finished = done(c.sum())
-    executed = 0
-    for k in range(keys.shape[0]):
-        if finished or start + k >= cap:
-            break
-        mark = _round_marks(keys[k], jflat, padm, pairs)
-        mark = torch.where(act.reshape(-1) != 0, mark, -1)
-        inbox = torch.zeros_like(jflat, dtype=torch.int32)
-        for d, src in zip(spec.classes, srcs):
-            inbox = inbox + (mark[src] == d).to(torch.int32)
-        inbox = torch.where(padm, 0, inbox).reshape(rows, LANES)
-        if suppress:
-            inbox = torch.where(c != 0, 0, inbox)
-        cnt = (cnt + inbox).to(torch.int32)
-        act = ((act != 0) | (inbox > 0)).to(torch.int32)
-        c = ((cnt >= rumor_target) & ~padm2).to(torch.int32)
-        executed += 1
-        finished = done(c.sum())
-    return (cnt, act, c), torch.tensor(executed, dtype=torch.int32, device=dev)
+    return gossip_class_rounds(
+        state3, start, cap, keys.shape[0],
+        _stencil_classes(spec, keys.to(dev), rows, dev), n=spec.n,
+        target=target, rumor_target=rumor_target, suppress=suppress)
 
 
 # ---------------------------------------------------------------------------
@@ -259,9 +219,7 @@ def _launch(name: str, dev: torch.device, pointers, spec: StencilSpec,
             ints_head, ints_tail) -> None:
     """Queue one chunk of csrc/fused_stencil.cu on the current stream of
     ``dev`` and raise on a launch error."""
-    fn = getattr(kernels.load("fused_stencil"), name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
+    fn = kernels.entry("fused_stencil", name, _SIGNATURES[name])
     classes = np.ascontiguousarray(spec.classes, dtype=np.int32)
     lattice = (len(spec.classes), _KIND_IDS[spec.kind], spec.n,
                spec.n - spec.n_lat)

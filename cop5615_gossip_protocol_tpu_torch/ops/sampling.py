@@ -6,7 +6,8 @@ threefry word (``pool_choice_packed``). On an explicit topology every node
 draws one word (``uniform_bits``) and takes the neighbour column it selects
 (``targets_explicit``). The streams are the JAX package's, bit for bit:
 round keys are ``fold_in(base, round)``, the pool folds in ``_POOL_TAG``,
-and the choice words come straight off the round key.
+and the choice words come straight off the round key on ``full`` and off
+``imp_choice_key`` on imp2d/imp3d.
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ STREAM_VERSION = 5
 
 _POOL_TAG = 0x0FF5
 
+# fold_in tag of the imp kinds' packed pool-choice words: their slot words
+# come off the untagged round key, so the choice needs a stream of its own.
+IMP_CHOICE_TAG = 0x1A77
+
 POOL_CHOICE_BITS = 4  # supports pool_size in {2, 4, 8, 16}
 POOL_PACK = 32 // POOL_CHOICE_BITS  # nodes per random word
 POOL_TILE_ROWS = 512  # the TPU kernel's tile height; fixes the padded row count
@@ -31,6 +36,11 @@ def round_key(base_key, round_idx: int) -> torch.Tensor:
     """Key for one synchronous round: fold_in by the absolute round index,
     so chunking and resume cannot change the stream."""
     return rng.fold_in(base_key, round_idx)
+
+
+def imp_choice_key(round_k) -> torch.Tensor:
+    """Key of the imp pooled round's packed choice words."""
+    return rng.fold_in(round_k, IMP_CHOICE_TAG)
 
 
 def uniform_bits(key, n: int, device=None) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Network topologies: the implicit complete graph and the six arithmetic
-lattices.
+"""Network topologies: the implicit complete graph, the six arithmetic
+lattices, and the two lattices with one random long-range edge per node
+(imp2d, imp3d).
 
 Every build function returns the same arrays as the JAX package's
 function of the same name, byte for byte: a padded ``[n, max_deg]`` int32
@@ -12,11 +13,17 @@ vector, and the population/target pair with the reference quirks:
 - Q6: "2D" (``ref2d``) rounds n up to a square and wires it as a line
   (program.fs:227-248);
 - torus3d at cube side 2: the +1 and -1 neighbour of an axis are the same
-  node, so rows carry multi-edges.
+  node, so rows carry multi-edges;
+- reference imp3d (C3/Q8/Q9): the population is floor(n**0.33334)**3 + 1
+  but the lattice side floor(n**0.34), the lattice is cut at the rounded
+  population, and the extra edge is drawn from [0, rounded - 1), so it may
+  be a self-edge or a duplicate.
 
 The JAX build functions append row by row in Python; these build the same
-columns with vectorized numpy (a 16.8M-node lattice in seconds). The
-random-edge kinds imp2d/imp3d are not ported yet (ROADMAP A7).
+columns with vectorized numpy (a 16.8M-node lattice in seconds). The imp
+kinds' extra edges are one vectorized draw, ``rng.integers(0, hi,
+size=rows)``, which yields the same values as the JAX builders' loop of
+scalar draws from the same generator.
 """
 
 from __future__ import annotations
@@ -27,8 +34,6 @@ import math
 from typing import Optional
 
 import numpy as np
-
-from ..config import unported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +69,10 @@ def _cube_side(n: int, min_side: int = 1) -> int:
     if g**3 > n:
         g -= 1
     return max(g, min_side)
+
+
+# The kinds whose displacement classes follow from their geometry alone.
+_ARITHMETIC_KINDS = ("line", "ring", "ref2d", "grid2d", "grid3d", "torus3d")
 
 
 def kind_offsets(kind: str, n_requested: int) -> Optional[np.ndarray]:
@@ -104,17 +113,25 @@ def stencil_offsets(topo: Topology, max_offsets: int = 16) -> Optional[np.ndarra
     """Sorted unique ``(neighbor - node) mod n`` over all live adjacency
     slots, or None when the topology is implicit, has more than
     ``max_offsets`` classes, or a self-loop (class 0). A batched-semantics
-    lattice (its target is its population) takes them from
-    ``kind_offsets``; a reference build scans its adjacency, as the JAX
-    package always does. The two are pinned equal in
-    tests/test_torch_topology.py."""
+    arithmetic lattice (its target is its population) takes them from
+    ``kind_offsets``; every other build (reference semantics, the imp
+    kinds' random edges) scans its adjacency, as the JAX package always
+    does. The two are pinned equal in tests/test_torch_topology.py."""
     if topo.implicit or topo.n < 2:
         return None
-    if topo.target_count == topo.n:
+    if topo.kind in _ARITHMETIC_KINDS and topo.target_count == topo.n:
         offs = kind_offsets(topo.kind, topo.n_requested)
         return offs if offs is not None and offs.size <= max_offsets else None
+    return _scan_offsets(topo, topo.degree, max_offsets)
+
+
+def _scan_offsets(topo: Topology, live_slots: np.ndarray,
+                  max_offsets: int) -> Optional[np.ndarray]:
+    """Sorted unique ``(neighbor - node) mod n`` over the first
+    ``live_slots[i]`` slots of each row, or None past ``max_offsets`` of
+    them, with none, or with class 0 (a self-loop)."""
     cols = np.arange(topo.max_deg)[None, :]
-    live = cols < topo.degree[:, None]
+    live = cols < live_slots[:, None]
     ids = np.arange(topo.n, dtype=np.int64)[:, None]
     diffs = _few_unique((topo.neighbors.astype(np.int64) - ids)[live] % topo.n,
                         max_offsets)
@@ -178,26 +195,39 @@ def lattice_dirs(kind: str, n: int, n_lat: int, idx):
             (in_lat, pick(z < g - 1, g2, n - g2 * (g - 1)))]
 
 
-def _build(kind: str, n_requested: int, pop: int, n_lat: int,
-           target: int) -> Topology:
-    """A lattice's Topology from its direction pairs: row i holds its live
-    neighbours left-aligned in direction order, zero-padded to max_deg =
-    max(largest degree, 1) columns."""
+def _pack(kind: str, n_requested: int, pop: int, target: int, pairs,
+          extra: Optional[np.ndarray] = None) -> Topology:
+    """A Topology from direction pairs over the nodes 0..pop-1: row i holds
+    its live neighbours left-aligned in direction order, then ``extra[i]``
+    (the imp kinds' long-range edge) for rows i < len(extra), zero-padded
+    to max_deg = max(largest degree, 1) columns."""
     i = np.arange(pop, dtype=np.int64)
-    pairs = lattice_dirs(kind, pop, n_lat, i)
-    if all(live.all() for live, _ in pairs):  # the wrap kinds: one column each
+    width = len(pairs) + (extra is not None)
+    if extra is None and all(live.all() for live, _ in pairs):
+        # The wrap kinds: one column each.
         nbr = np.stack([(i + d) % pop for _, d in pairs], axis=1).astype(np.int32)
         deg = np.full(pop, len(pairs), dtype=np.int32)
     else:
-        nbr = np.zeros((pop, len(pairs)), dtype=np.int32)
+        nbr = np.zeros((pop, width), dtype=np.int32)
         deg = np.zeros(pop, dtype=np.int32)
         for live, d in pairs:
             rows = np.flatnonzero(live)
             nbr[rows, deg[rows]] = (rows + d[rows]) % pop
             deg[rows] += 1
+        if extra is not None:
+            rows = np.arange(len(extra))
+            nbr[rows, deg[rows]] = extra
+            deg[rows] += 1
     max_deg = max(int(deg.max(initial=0)), 1)
     return Topology(kind, pop, n_requested, target, max_deg,
                     np.ascontiguousarray(nbr[:, :max_deg]), deg)
+
+
+def _build(kind: str, n_requested: int, pop: int, n_lat: int,
+           target: int) -> Topology:
+    """A lattice's Topology from its direction pairs (``lattice_dirs``)."""
+    i = np.arange(pop, dtype=np.int64)
+    return _pack(kind, n_requested, pop, target, lattice_dirs(kind, pop, n_lat, i))
 
 
 def build_line(n: int, reference: bool = False) -> Topology:
@@ -254,6 +284,118 @@ def build_torus3d(n: int, reference: bool = False) -> Topology:
     return _build("torus3d", n, cube, cube, cube)
 
 
+def _uniform_other(rng: np.random.Generator, pop: int) -> np.ndarray:
+    """One long-range partner per node i < pop, uniform over [0, pop) \\ {i}:
+    a draw from [0, pop - 1) stepped past i."""
+    draws = rng.integers(0, pop - 1, size=pop)
+    return draws + (draws >= np.arange(pop))
+
+
+def build_imp2d(n: int, seed: int = 0, reference: bool = False) -> Topology:
+    """The grid2d lattice over side**2 nodes, side = ceil(sqrt(n)), plus
+    one uniformly random long-range edge per node (j != i) as the last
+    column; reference semantics append one unwired node (Q1)."""
+    sq = math.ceil(math.sqrt(n)) ** 2
+    pop = sq + (1 if reference else 0)
+    rng = np.random.default_rng(seed)
+    extra = _uniform_other(rng, sq) if sq >= 2 else None
+    pairs = lattice_dirs("grid2d", pop, sq, np.arange(pop, dtype=np.int64))
+    return _pack("imp2d", n, pop, sq, pairs, extra)
+
+
+def build_imp3d(n: int, seed: int = 0, reference: bool = False) -> Topology:
+    """The grid3d lattice plus one random extra neighbour per node
+    (program.fs:267-313).
+
+    Honest semantics: n rounds down to a cube (n >= 8), the lattice covers
+    it, and the extra edge is uniform over j != i. Reference semantics
+    (C3/Q8/Q9): rounded = floor(n**0.33334)**3 and the population is
+    rounded + 1 (Q1); the lattice side is floor(n**0.34), its rows and
+    forward edges cut at limit = min(g**3, rounded), so nodes the lattice
+    misses are orphans (Q8); each lattice row's extra is drawn from
+    [0, rounded - 1) and may be a self-edge or a duplicate (Q9)."""
+    rng = np.random.default_rng(seed)
+    if not reference:
+        if n < 8:
+            raise ValueError("imp3d needs at least 8 nodes (cube side >= 2)")
+        pop = _cube_side(n, min_side=2) ** 3
+        pairs = lattice_dirs("grid3d", pop, pop, np.arange(pop, dtype=np.int64))
+        return _pack("imp3d", n, pop, pop, pairs, _uniform_other(rng, pop))
+    rounded = max(int(math.floor(n**0.33334)) ** 3, 1)
+    g = max(int(math.floor(n**0.34)), 1)
+    g2 = g * g
+    pop = rounded + 1
+    limit = min(g**3, rounded)
+    idx = np.arange(pop, dtype=np.int64)
+    x, y, z = idx % g, (idx // g) % g, idx // g2
+    inside = idx < limit
+    zero = idx * 0
+    pairs = [(inside & (x > 0), zero + (pop - 1)),
+             (inside & (x < g - 1) & (idx + 1 < limit), zero + 1),
+             (inside & (y > 0), zero + (pop - g)),
+             (inside & (y < g - 1) & (idx + g < limit), zero + g),
+             (inside & (z > 0), zero + (pop - g2)),
+             (inside & (z < g - 1) & (idx + g2 < limit), zero + g2)]
+    extra = rng.integers(0, max(rounded - 1, 1), size=limit)
+    return _pack("imp3d", n, pop, rounded, pairs, extra)
+
+
+# The lattice under each imp kind's extra edge.
+IMP_LATTICE = {"imp2d": "grid2d", "imp3d": "grid3d"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ImpSplit:
+    """Lattice/extra decomposition of an imp2d/imp3d adjacency for pooled
+    delivery (ops/delivery.deliver_imp_pool). The builders append each
+    node's long-range edge as the LAST live slot of its row, after the
+    lattice edges, so:
+
+    - ``lattice_offsets``: the sorted modular displacement classes of the
+      non-extra slots ({+-1, +-side} for imp2d, {+-1, +-g, +-g**2} for
+      imp3d);
+    - ``disp_cols``: [n, max_deg] int32 per-slot modular displacement,
+      -1 on the extra slot and on dead slots (so a sampled extra never
+      aliases a lattice class);
+    - ``degree``: the row degrees (the extra slot is index degree - 1)."""
+
+    lattice_offsets: np.ndarray  # [L] int32, sorted unique, no 0
+    disp_cols: np.ndarray  # [n, max_deg] int32, -1 on extra/dead slots
+    degree: np.ndarray  # [n] int32
+
+
+def imp_lattice_offsets(topo: Topology, max_offsets: int = 16) -> Optional[np.ndarray]:
+    """``imp_split(topo).lattice_offsets`` without building the split's
+    per-slot columns: for a batched-semantics build (its target is its
+    population) the lattice kind's ``kind_offsets`` at the built
+    population, else a scan of every row's slots but the last live one.
+    None when the topology is not an imp kind or its lattice slots are not
+    offset-structured (the two ways are pinned equal in
+    tests/test_torch_topology_imp.py)."""
+    if topo.kind not in IMP_LATTICE or topo.implicit or topo.n < 2:
+        return None
+    if topo.target_count == topo.n:
+        offs = kind_offsets(IMP_LATTICE[topo.kind], topo.n)
+        return offs if offs is not None and offs.size <= max_offsets else None
+    return _scan_offsets(topo, topo.degree - 1, max_offsets)
+
+
+def imp_split(topo: Topology, max_offsets: int = 16) -> Optional[ImpSplit]:
+    """The lattice/extra split, or None when the topology is not an imp
+    kind or its non-extra slots are not offset-structured."""
+    offs = imp_lattice_offsets(topo, max_offsets)
+    if offs is None:
+        return None
+    lattice_live = np.arange(topo.max_deg)[None, :] < topo.degree[:, None] - 1
+    ids = np.arange(topo.n, dtype=np.int64)[:, None]
+    disp = (topo.neighbors.astype(np.int64) - ids) % topo.n
+    return ImpSplit(
+        lattice_offsets=offs,
+        disp_cols=np.where(lattice_live, disp, -1).astype(np.int32),
+        degree=topo.degree.copy(),
+    )
+
+
 _BUILD = {
     "line": build_line,
     "ring": build_ring,
@@ -267,10 +409,13 @@ _BUILD = {
 
 def build_topology(kind: str, n: int, *, seed: int = 0,
                    semantics: str = "batched") -> Topology:
-    """Build a topology by kind; ``seed`` feeds the random-edge kinds."""
-    del seed  # only the imp kinds draw edges (ROADMAP A7)
-    if kind in ("imp2d", "imp3d"):
-        raise unported(f"topology {kind!r}", "A7")
+    """Build a topology by kind; ``seed`` feeds the imp kinds' extra
+    edges."""
+    reference = semantics == "reference"
+    if kind == "imp2d":
+        return build_imp2d(n, seed, reference)
+    if kind == "imp3d":
+        return build_imp3d(n, seed, reference)
     if kind not in _BUILD:
         raise ValueError(f"unknown topology kind {kind!r}")
-    return _BUILD[kind](n, semantics == "reference")
+    return _BUILD[kind](n, reference)

@@ -89,3 +89,12 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``, once per process."""
     lib, _ = build(name)
     return ctypes.CDLL(str(lib))
+
+
+def entry(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu`` (built on first
+    use), typed with ``argtypes`` and returning its cudaError_t as int."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

@@ -13,6 +13,7 @@ import torch
 
 from cop5615_gossip_protocol_tpu.ops import topology as jax_topology
 
+from cop5615_gossip_protocol_tpu_torch import SimConfig
 from cop5615_gossip_protocol_tpu_torch.ops import topology
 from cop5615_gossip_protocol_tpu_torch.utils import carry
 
@@ -100,9 +101,13 @@ def test_reference_builds_scan_their_own_classes():
 
 
 def test_imp_kinds_are_not_ported():
+    # The imp kinds build (tests/test_torch_topology_imp.py); what is not
+    # ported on them is the default scatter delivery of the static extra
+    # edge, so a config without --delivery pool names ROADMAP A7.
     for kind in ("imp2d", "imp3d"):
+        assert topology.build_topology(kind, 1000).kind == kind
         with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            topology.build_topology(kind, 1000)
+            SimConfig(n=1000, topology=kind, algorithm="push-sum")
     with pytest.raises(ValueError, match="torus3d needs at least 8"):
         topology.build_topology("torus3d", 7)
 
