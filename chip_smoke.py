@@ -46,8 +46,26 @@ non-zero before the last line:
    each run and read after it, push-sum mass conserved; then imp3d 50**3,
    both algorithms, 64 rounds on the card against the CPU's chunked engine
    (rounds, converged count, final state bitwise);
-9. each kernel's time per chunk by CUDA events, beside its plain version's
+9. each resident lattice kernel (one persistent cooperative launch a
+   chunk) against its plain version on the card, one 32-round chunk at
+   line 1,000, grid2d 10,000, grid3d 50**3 and ring 131,072 (the
+   whole-array tier) and ring 5,000, torus3d 100**3 and grid2d 1000**2 (the
+   tiled tier), from the initial state, from a mid-run state, with a cap
+   inside the chunk, from a gossip spread state and from a converged
+   state; every check bitwise, and the ladder must pick the JAX ladder's
+   tier for each;
+10. the resident path, counters zeroed before each run and read after it:
+   the CLI's ``1000 line gossip`` (the reference's own command line) and
+   the same run on the card against the CPU's chunked engine; grid2d
+   10,000 push-sum (its first 4,096 rounds against the CPU's chunked
+   engine, its whole run's rounds and estimate against the JAX package's
+   chunked engine), torus3d 100**3 gossip and push-sum, each to
+   convergence on the card, push-sum mass conserved, with the JAX
+   package's round records printed beside;
+11. each kernel's time per chunk by CUDA events, beside its plain version's
    and the least time the card could take for the same work.
+
+Each of phases 5-10 prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -572,6 +590,241 @@ def imp_path(dev):
     return launches
 
 
+# The resident lattice phases: (kind, n, the JAX ladder's tier) for the
+# kernel checks, the rounds run before the mid-run checks (the fastest of
+# these, torus3d 1M gossip, converges near round 239), and the shapes the
+# timing phase takes from the main path (line 1000 gossip, grid2d 10,000
+# push-sum, torus3d 1M both).
+RESIDENT_CASES = (("line", 1000, "stencil"), ("grid2d", 10_000, "stencil"),
+                  ("grid3d", 125_000, "stencil"), ("ring", 131_072, "stencil"),
+                  ("ring", 5000, "stencil2"), ("torus3d", 1_000_000, "stencil2"),
+                  ("grid2d", 1_000_000, "stencil2"))
+RESIDENT_MID = {"pushsum": 300, "gossip": 40}
+RESIDENT_TIMED = {("pushsum", "stencil"): ("grid2d", 10_000),
+                  ("gossip", "stencil"): ("line", 1000),
+                  ("pushsum", "stencil2"): ("torus3d", 1_000_000),
+                  ("gossip", "stencil2"): ("torus3d", 1_000_000)}
+# The JAX package's rounds for the main path's configs (BENCH_TABLES.md),
+# printed beside the card's. The push-sum records come from its TPU
+# kernels, whose float32 op order differs from the chunked engine's.
+JAX_RECORDS = {("line", "gossip"): 1609, ("grid2d", "push-sum"): 83_290,
+               ("torus3d", "gossip"): 239, ("torus3d", "push-sum"): 37_236}
+# (rounds, estimate_mae) of the JAX package's chunked engine on the CPU,
+# seed 0, which the card's whole run must equal:
+#   python -m cop5615_gossip_protocol_tpu 10000 2D push-sum --engine chunked --platform cpu
+JAX_CHUNKED = {("grid2d", 10_000, "push-sum"): (82_363, 0.09073036206020516)}
+# The resident path's runs to convergence, on the card; the first
+# PREFIX_ROUNDS rounds of the first are held bitwise against the CPU's
+# chunked engine (its whole run of 83,290 rounds would take the CPU
+# minutes).
+RESIDENT_RUNS = (("grid2d", 10_000, "push-sum"), ("torus3d", 1_000_000, "gossip"),
+                 ("torus3d", 1_000_000, "push-sum"))
+PREFIX_ROUNDS = 4096
+
+
+def resident_wrappers():
+    """{(name, tier): the chunk wrapper}, rows 5-8 of the kernel table."""
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_stencil
+
+    return {("pushsum", "stencil"): fused.pushsum_chunk,
+            ("gossip", "stencil"): fused.gossip_chunk,
+            ("pushsum", "stencil2"): fused_stencil.pushsum_stencil2_chunk,
+            ("gossip", "stencil2"): fused_stencil.gossip_stencil2_chunk}
+
+
+def resident_checks(dev, key):
+    """Phase 9: each resident kernel against its plain version on the card,
+    one 32-round chunk from the initial state, from a mid-run state, with a
+    cap inside the chunk, from a gossip spread state and from a converged
+    state, every check bitwise; the ladder must pick the JAX ladder's tier
+    for each shape. Returns {(name, tier): case} for the timing phase and
+    {(name, tier): max_abs_err}."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine, fused_tier
+    from cop5615_gossip_protocol_tpu_torch.ops import fused
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_stencil_hbm as hbm
+
+    keys = functools.lru_cache(maxsize=None)(
+        lambda start, count: fused.round_keys(key, start, count))
+    wrappers = resident_wrappers()
+    cases, max_err = {}, {}
+    for kind, n, tier in RESIDENT_CASES:
+        t0 = time.perf_counter()
+        topo = build_topology(kind, n)
+        label = f"{kind} n={topo.n} ({tier}, built in {time.perf_counter() - t0:.2f} s)"
+        print(f"resident kernels vs plain versions at {label}:", flush=True)
+        for name in ("pushsum", "gossip"):
+            algorithm = "push-sum" if name == "pushsum" else "gossip"
+            cfg = SimConfig(n=n, topology=kind, algorithm=algorithm)
+            if fused_tier(topo, cfg) != (tier, None):
+                raise AssertionError(f"{kind} n={n} {algorithm}: the ladder picks "
+                                     f"{fused_tier(topo, cfg)}, not {tier}")
+            common = {"spec": hbm.stencil_spec(topo),
+                      "target": cfg.resolved_target_count(topo.n, topo.target_count)}
+            if name == "pushsum":
+                plain = hbm.pushsum_stencil_hbm_chunk_plain
+                common.update(delta=cfg.resolved_delta, term_rounds=cfg.term_rounds)
+            else:
+                plain = hbm.gossip_stencil_hbm_chunk_plain
+                common.update(rumor_target=cfg.resolved_rumor_target,
+                              suppress=cfg.resolved_suppress)
+            kern = wrappers[name, tier]
+
+            def chunk(fn, state, start, count, cap=None, common=common):
+                return fn(state, keys(start, count), start,
+                          start + count if cap is None else cap, **common)
+
+            init = tuple(p.contiguous().to(dev)
+                         for p in fused_engine(topo, cfg, key, tier).planes)
+            mid_round = RESIDENT_MID[name]
+            errs = [compare(f"{name} init K={CHUNK}", chunk(kern, init, 0, CHUNK),
+                            chunk(plain, init, 0, CHUNK), 0)]
+            mid, ex = chunk(kern, init, 0, mid_round)
+            if int(ex) != mid_round:
+                raise AssertionError(f"{kind} {name}: converged before round {mid_round}")
+            errs.append(compare(f"{name} mid-run K={CHUNK}", chunk(kern, mid, mid_round, CHUNK),
+                                chunk(plain, mid, mid_round, CHUNK), 0))
+            errs.append(compare(f"{name} cap inside chunk",
+                                chunk(kern, mid, mid_round, CHUNK, cap=mid_round + 5),
+                                chunk(plain, mid, mid_round, CHUNK, cap=mid_round + 5), 0))
+            if name == "gossip":
+                spread = spread_state(init, topo.n, cfg.resolved_rumor_target)
+                errs.append(compare(f"{name} spread state K={CHUNK}",
+                                    chunk(kern, spread, mid_round, CHUNK),
+                                    chunk(plain, spread, mid_round, CHUNK), 0))
+            # Every real node's conv flag latched: the chunk runs nothing.
+            real = torch.arange(mid[0].numel(), device=dev).reshape(mid[0].shape) < topo.n
+            done_state = (*mid[:-1], real.to(torch.int32))
+            out, ex = chunk(kern, done_state, mid_round, CHUNK)
+            if int(ex) != 0 or not all(torch.equal(a, b) for a, b in zip(out, done_state)):
+                raise AssertionError(f"{kind} {name}: a chunk from a converged state ran")
+            print(f"  {name} from converged state: 0 rounds, state unchanged", flush=True)
+            max_err[name, tier] = max([max_err.get((name, tier), 0.0)] + errs)
+            if RESIDENT_TIMED[name, tier] == (kind, n):
+                cases[name, tier] = (kern, plain, chunk, mid, mid_round, len(topo.offsets))
+        del topo
+    torch.cuda.synchronize()
+    return cases, max_err
+
+
+def resident_path(dev):
+    """Phase 10: the resident lattice path, counters zeroed before each run
+    and read after it: the CLI's ``1000 line gossip`` (the reference's own
+    command line) and the same config through run() against the CPU's
+    chunked engine; then RESIDENT_RUNS to convergence on the card, push-sum
+    with its mass conserved, the first run's first PREFIX_ROUNDS rounds
+    also against the CPU's chunked engine.
+    Returns each row's launches over its main-path run."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, cli, run
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_tier
+
+    counters = resident_wrappers()
+    launches = {}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def report(label, res, build_s, counts, record):
+        print(json.dumps({
+            "metric": label, "rounds": res.rounds, "jax_record_rounds": record,
+            "run_s": res.run_s, "rounds_per_s": res.rounds / res.run_s,
+            "build_s": build_s, "setup_s": res.setup_s, "compile_s": res.compile_s,
+            "dispatch_s": res.dispatch_s, "fetch_s": res.fetch_s,
+            "chunks_retired": len(res.chunk_log),
+            "converged_count": res.converged_count, "estimate_mae": res.estimate_mae,
+            "launches": {f"{k[0]}_{k[1]}": v for k, v in counts.items()},
+            "device": res.device,
+        }), flush=True)
+
+    def same_state(label, a, b, float_planes):
+        if (a.rounds, a.converged_count) != (b.rounds, b.converged_count):
+            raise AssertionError(f"{label}: card {a.rounds}/{a.converged_count} != "
+                                 f"CPU {b.rounds}/{b.converged_count}")
+        compare(f"{label}, {a.rounds} rounds, converged {a.converged_count}",
+                (tuple(x.cpu() for x in a.state), a.rounds),
+                (tuple(b.state), b.rounds), float_planes)
+
+    def mass(label, res, n):
+        err_w = abs(res.state.w.double().sum().item() - n) / n
+        err_s = abs(res.state.s.double().sum().item() - n * (n - 1) / 2) / (n * (n - 1) / 2)
+        print(f"  {label} mass: sum w rel err {err_w}, sum s rel err {err_s}", flush=True)
+        if not (err_w < 1e-5 and err_s < 1e-5):
+            raise AssertionError(f"{label} did not conserve its mass")
+
+    # The CLI, as a user types it; its record line gives rounds and count.
+    zero()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(["1000", "line", "gossip"])
+    cli_s = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    rounds = json.loads(out.getvalue().strip().splitlines()[-1])["rounds"]
+    print(f"  CLI 1000 line gossip: exit {code}, {rounds} rounds "
+          f"(JAX record {JAX_RECORDS['line', 'gossip']}), {cli_s:.2f} s, "
+          f"launches {counts[('gossip', 'stencil')]}", flush=True)
+    if code != 0 or counts["gossip", "stencil"] == 0:
+        raise AssertionError("the CLI's 1000 line gossip failed or never launched "
+                             "the resident kernel")
+    launches["gossip", "stencil"] = counts["gossip", "stencil"]
+    topo = build_topology("line", 1000)
+    cfg = SimConfig(n=1000, topology="line", algorithm="gossip")
+    a = run(topo, cfg)
+    b = run(topo, SimConfig(n=1000, topology="line", algorithm="gossip",
+                            engine="chunked"), device="cpu")
+    same_state("1000 line gossip card vs CPU chunked engine", a, b, 0)
+    if a.rounds != rounds:
+        raise AssertionError(f"the CLI ran {rounds} rounds, run() {a.rounds}")
+
+    # The first run's prefix bitwise, then each run to convergence.
+    topos = {}
+    for kind, n, algorithm in RESIDENT_RUNS:
+        if (kind, n) not in topos:
+            t0 = time.perf_counter()
+            topos[kind, n] = (build_topology(kind, n), time.perf_counter() - t0)
+    kind, n, algorithm = RESIDENT_RUNS[0]
+    topo = topos[kind, n][0]
+    prefix = {engine: SimConfig(n=n, topology=kind, algorithm=algorithm,
+                                engine=engine, max_rounds=PREFIX_ROUNDS)
+              for engine in ("auto", "chunked")}
+    same_state(f"{kind} n={n} {algorithm} first {PREFIX_ROUNDS} rounds, card vs "
+               "CPU chunked engine", run(topo, prefix["auto"]),
+               run(topo, prefix["chunked"], device="cpu"), 2)
+    for kind, n, algorithm in RESIDENT_RUNS:
+        topo, build_s = topos[kind, n]
+        cfg = SimConfig(n=n, topology=kind, algorithm=algorithm)
+        tier = fused_tier(topo, cfg)[0]
+        name = "pushsum" if algorithm == "push-sum" else "gossip"
+        zero()
+        res = run(topo, cfg)
+        counts = {k: fn.launches for k, fn in counters.items()}
+        report(f"{name}_{tier}_rounds_per_sec_{kind}_n{topo.n}", res, build_s, counts,
+               JAX_RECORDS.get((kind, algorithm)))
+        if counts[name, tier] == 0 or counts[name, tier] % 3:
+            raise AssertionError(f"{kind} {algorithm}: {counts[name, tier]} launches "
+                                 f"of {name}_{tier}, not 3 a chunk")
+        if not res.converged or res.converged_count != topo.n:
+            raise AssertionError(f"{kind} n={topo.n} {algorithm} did not converge")
+        if algorithm == "push-sum":
+            mass(f"{kind} n={topo.n} push-sum", res, topo.n)
+        want = JAX_CHUNKED.get((kind, n, algorithm))
+        if want is not None and (res.rounds, res.estimate_mae) != want:
+            raise AssertionError(f"{kind} n={n} {algorithm}: rounds, estimate_mae "
+                                 f"{res.rounds}, {res.estimate_mae} != the JAX "
+                                 f"chunked engine's {want}")
+        launches[name, tier] = counts[name, tier]
+    torch.cuda.synchronize()
+    return launches
+
+
 def fail(msg: str) -> int:
     print(f"FAILED: {msg}", file=sys.stderr)
     return 1
@@ -726,16 +979,25 @@ def main() -> int:
         print(f"  1000-node {name}: card == CPU chunked engine "
               f"(rounds {a.rounds}, estimate_mae {a.estimate_mae})")
 
-    # ------------------------------------------------------- 5, 6, 7, 8
+    # ----------------------------------------------- 5, 6, 7, 8, 9, 10
+    def phase(number, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {number} ({fn.__name__}): {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return out
+
     try:
-        lattice_cases, lattice_err = lattice_checks(dev, key)
-        lattice_launches = lattice_path(dev)
-        imp_cases, imp_err = imp_checks(dev, key)
-        imp_launches = imp_path(dev)
-    except AssertionError as e:
+        lattice_cases, lattice_err = phase(5, lattice_checks, dev, key)
+        lattice_launches = phase(6, lattice_path, dev)
+        imp_cases, imp_err = phase(7, imp_checks, dev, key)
+        imp_launches = phase(8, imp_path, dev)
+        resident_cases, resident_err = phase(9, resident_checks, dev, key)
+        resident_launches = phase(10, resident_path, dev)
+    except (AssertionError, RuntimeError) as e:
         return fail(str(e))
 
-    # ---------------------------------------------------------------- 9
+    # --------------------------------------------------------------- 11
     rows = []
     replaces = {"pushsum": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:860",
                 "gossip": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:1157"}
@@ -814,6 +1076,35 @@ def main() -> int:
             "library_ms": None,
             "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
             "population": n, "status": "ported",
+        })
+    replaces = {("pushsum", "stencil"): "cop5615_gossip_protocol_tpu/ops/fused.py:741",
+                ("gossip", "stencil"): "cop5615_gossip_protocol_tpu/ops/fused.py:993",
+                ("pushsum", "stencil2"): "cop5615_gossip_protocol_tpu/ops/fused_stencil.py:268",
+                ("gossip", "stencil2"): "cop5615_gossip_protocol_tpu/ops/fused_stencil.py:427"}
+    for (name, tier), (kern, plain, chunk, mid, mid_round, classes) in resident_cases.items():
+        ms, (_, ex) = time_ms(lambda: chunk(kern, mid, mid_round, CHUNK), TIME_REPS)
+        plain_ms, _ = time_ms(lambda: chunk(plain, mid, mid_round, CHUNK), 2)
+        rounds = int(ex)
+        algo = "push-sum" if name == "pushsum" else "gossip"
+        n_pad = mid[0].numel()
+        # The state stays in the L2 through the chunk: its bytes are read
+        # and written once per chunk, with the keys.
+        moved = STATE_BYTES[name] * n_pad + CHUNK * 16 + 8
+        ops = rounds * n_pad * stencil_ops_per_node(algo, classes)
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        kind, n = RESIDENT_TIMED[name, tier]
+        rows.append({
+            "name": f"{name}_{tier}_chunk", "route": "cuda",
+            "source": "cop5615_gossip_protocol_tpu_torch/csrc/fused_resident.cu",
+            "replaces": replaces[name, tier],
+            "launches": resident_launches[name, tier],
+            "max_abs_err": resident_err[name, tier],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+            "population": n, "topology": kind, "status": "ported",
         })
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,11 +1,14 @@
 """North-star benchmark of the port: 1M-node push-sum on ``full`` with
 offset-pool delivery, pool_size 2 (the JAX package's bench.py defaults),
-any lattice through the streaming stencil kernels, or imp2d/imp3d through
-the imp kernels (pooled long-range delivery).
+any lattice through the tier of lattice kernels the engine ladder picks
+(resident up to about 1.5M nodes, streaming past it), or imp2d/imp3d
+through the imp kernels (pooled long-range delivery).
 
     python -m cop5615_gossip_protocol_tpu_torch.bench [--n N] [--algorithm A]
     python -m cop5615_gossip_protocol_tpu_torch.bench --topology torus3d \\
         --n 16777216 --algorithm gossip
+    python -m cop5615_gossip_protocol_tpu_torch.bench --topology grid2d \\
+        --n 10000
     python -m cop5615_gossip_protocol_tpu_torch.bench --topology torus3d \\
         --n 10000000 --max-rounds 2000
     python -m cop5615_gossip_protocol_tpu_torch.bench --topology imp3d \\
@@ -16,8 +19,8 @@ unit, vs_baseline, rounds, wall_s, converged_count, estimate_mae, device),
 the run's budget (setup/compile/dispatch/fetch seconds), and, on the GPU:
 ``engine_us_per_round``, the fused engine's device time per round timed
 with CUDA events over one chunk from the initial state (the pool kernels
-on ``full``, the stencil kernels on a lattice, the imp kernels on
-imp2d/imp3d); ``repeat_wall_s``,
+on ``full``, the resident or streaming stencil kernels on a lattice, the
+imp kernels on imp2d/imp3d); ``repeat_wall_s``,
 the run's wall when repeated at once in the same process; and ``profile``,
 a third run under torch.profiler with the device's busy share and device
 time by kernel. Runs on the GPU unless ``--platform cpu`` is given.
@@ -47,7 +50,7 @@ DEFAULT_MAX_ROUNDS = 100_000
 def engine_us_per_round(topo, cfg, device) -> float | None:
     """Device microseconds per executed round of one fused chunk of
     ENGINE_ROUNDS rounds from the initial state, by CUDA events, on the
-    tier the run used (the pool, streaming stencil or imp kernels)."""
+    tier the run used (the pool, stencil or imp kernels)."""
     from .models.runner import fused_engine, fused_tier
     from .ops import rng
 

@@ -75,16 +75,7 @@ using gossip::block_sum;
 using gossip::finish_count;
 using gossip::grid_for;
 using gossip::kBlock;
-
-// Class index of node j's sampled displacement this round, -1 for none.
-__device__ __forceinline__ int8_t mark_of(const gossip::Lattice& L,
-                                          const Classes& cls,
-                                          const long long* key, int j) {
-  const uint32_t word =
-      gossip::threefry_word((uint32_t)key[0], (uint32_t)key[1], (uint32_t)j);
-  const int d = gossip::sample_disp(L, j, word);
-  return (int8_t)(d < 0 ? -1 : gossip::class_of(d, cls.d, cls.count));
-}
+using gossip::mark_of;
 
 // ---------------------------------------------------------------- push-sum
 
@@ -112,23 +103,7 @@ __global__ void pushsum_absorb(PushSumPlanes a, PushSumPlanes b,
        j += gridDim.x * kBlock) {
     const bool pad = j >= n;
     float in_s = 0.0f, in_w = 0.0f;
-    if (!pad) {
-      // Unrolled to the class cap so the class list stays in registers and
-      // every class's mark load is in flight at once.
-#pragma unroll
-      for (int k = 0; k < gossip::kMaxClasses; ++k) {
-        if (k < cls.count) {
-          const int i = gossip::class_source(j, cls.d[k], n);
-          float vs = 0.0f, vw = 0.0f;
-          if (mark[i] == k) {
-            vs = cur.s[i] * 0.5f;
-            vw = cur.w[i] * 0.5f;
-          }
-          in_s = in_s + vs;
-          in_w = in_w + vw;
-        }
-      }
-    }
+    if (!pad) gossip::pushsum_inbox(cls, mark, cur.s, cur.w, j, n, in_s, in_w);
     // mark[j] < 0 on pad lanes and degree 0: those keep their mass.
     c += gossip::pushsum_absorb_node(cur, nxt, j, pad, mark[j] >= 0, in_s,
                                      in_w, delta, term_rounds);
@@ -164,34 +139,11 @@ __global__ void gossip_absorb(GossipPlanes a, GossipPlanes b,
   for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
        j += gridDim.x * kBlock) {
     const bool pad = j >= n;
-    int inbox = 0;
-    if (!pad) {
-#pragma unroll
-      for (int k = 0; k < gossip::kMaxClasses; ++k)
-        if (k < cls.count)
-          inbox += mark[gossip::class_source(j, cls.d[k], n)] == k ? 1 : 0;
-    }
+    const int inbox = pad ? 0 : gossip::gossip_inbox(cls, mark, j, n);
     c += gossip::gossip_absorb_node(cur, nxt, j, pad, inbox, rumor_target,
                                     suppress);
   }
   finish_count(block_sum(c), total, ticket, ctrl, target, true);
-}
-
-// Lattice and class list from the C arguments; false if they are out of
-// range for the kernels.
-bool setup(int kind, int n, int extra_node, const int* classes,
-           int n_classes, gossip::Lattice* L, Classes* cls) {
-  if (kind < gossip::kRing || kind > gossip::kTorus3d || n < 2 ||
-      n_classes < 1 || n_classes > gossip::kMaxClasses ||
-      (extra_node != 0 && extra_node != 1))
-    return false;
-  *L = gossip::make_lattice(kind, n, extra_node);
-  cls->count = n_classes;
-  for (int k = 0; k < gossip::kMaxClasses; ++k)
-    cls->d[k] = k < n_classes ? classes[k] : 0;
-  for (int k = 0; k < n_classes; ++k)
-    if (cls->d[k] < 1 || cls->d[k] >= n) return false;
-  return true;
 }
 
 }  // namespace
@@ -216,7 +168,7 @@ extern "C" int gossip_pushsum_stencil_chunk(
     int device, void* stream_ptr) {
   gossip::Lattice L;
   Classes cls;
-  if (!setup(kind, n, extra_node, classes, n_classes, &L, &cls))
+  if (!gossip::setup_lattice(kind, n, extra_node, classes, n_classes, &L, &cls))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -257,7 +209,7 @@ extern "C" int gossip_gossip_stencil_chunk(
     void* stream_ptr) {
   gossip::Lattice L;
   Classes cls;
-  if (!setup(kind, n, extra_node, classes, n_classes, &L, &cls))
+  if (!gossip::setup_lattice(kind, n, extra_node, classes, n_classes, &L, &cls))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

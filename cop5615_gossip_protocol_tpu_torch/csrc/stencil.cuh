@@ -1,7 +1,8 @@
-// Per-node logic of the lattice (stencil) kernels in csrc/fused_stencil.cu:
-// the direction pairs of the six arithmetic lattices in neighbour-column
-// order, the sampled displacement, and each receiver's class check. The
-// device-side counterpart of ops/topology.py's lattice_dirs and
+// Per-node logic of the lattice (stencil) kernels in csrc/fused_stencil.cu
+// and csrc/fused_resident.cu: the direction pairs of the six arithmetic
+// lattices in neighbour-column order, the sampled displacement, each
+// sender's class mark and each receiver's class check. The device-side
+// counterpart of ops/topology.py's lattice_dirs and
 // ops/fused_stencil_hbm.py's _sample_disp_dirs.
 //
 // Plain inline code usable from the host too, so g++ builds it for the CPU
@@ -159,6 +160,66 @@ GOSSIP_HD int class_of(int d, const int* classes, int count) {
 // (the mod-n roll by d); j receives it iff that node's mark is the class.
 GOSSIP_HD int class_source(int j, int d, int n) {
   return j >= d ? j - d : j - d + n;
+}
+
+// Class index of node j's sampled displacement this round under the
+// round's key (two uint32 words), -1 for none.
+GOSSIP_HD int8_t mark_of(const Lattice& L, const Classes& cls,
+                         const long long* key, int j) {
+  const uint32_t word = threefry_word((uint32_t)key[0], (uint32_t)key[1],
+                                      (uint32_t)j);
+  const int d = sample_disp(L, j, word);
+  return (int8_t)(d < 0 ? -1 : class_of(d, cls.d, cls.count));
+}
+
+// Receiver j's push-sum inbox: over the classes in ascending order, from
+// 0.0, the halved send of each class source whose mark is that class (the
+// chunked engine's float32 op order). Unrolled to the class cap so the
+// class list stays in registers and every mark load is in flight at once.
+GOSSIP_HD void pushsum_inbox(const Classes& cls, const int8_t* mark,
+                             const float* s, const float* w, int j, int n,
+                             float& in_s, float& in_w) {
+  in_s = 0.0f;
+  in_w = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxClasses; ++k) {
+    if (k < cls.count) {
+      const int i = class_source(j, cls.d[k], n);
+      float vs = 0.0f, vw = 0.0f;
+      if (mark[i] == k) {
+        vs = s[i] * 0.5f;
+        vw = w[i] * 0.5f;
+      }
+      in_s = in_s + vs;
+      in_w = in_w + vw;
+    }
+  }
+}
+
+// Receiver j's gossip inbox: the class sources whose mark is the class.
+GOSSIP_HD int gossip_inbox(const Classes& cls, const int8_t* mark, int j,
+                           int n) {
+  int inbox = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxClasses; ++k)
+    if (k < cls.count) inbox += mark[class_source(j, cls.d[k], n)] == k ? 1 : 0;
+  return inbox;
+}
+
+// Lattice and class list of a chunk from its C arguments (host side);
+// false if they are out of range for the kernels.
+inline bool setup_lattice(int kind, int n, int extra_node, const int* classes,
+                          int n_classes, Lattice* L, Classes* cls) {
+  if (kind < kRing || kind > kTorus3d || n < 2 || n_classes < 1 ||
+      n_classes > kMaxClasses || (extra_node != 0 && extra_node != 1))
+    return false;
+  *L = make_lattice(kind, n, extra_node);
+  cls->count = n_classes;
+  for (int k = 0; k < kMaxClasses; ++k)
+    cls->d[k] = k < n_classes ? classes[k] : 0;
+  for (int k = 0; k < n_classes; ++k)
+    if (cls->d[k] < 1 || cls->d[k] >= n) return false;
+  return true;
 }
 
 }  // namespace gossip

@@ -6,10 +6,11 @@ chunks of ``cfg.chunk_rounds`` rounds through the pipelined chunk loop
 runner's:
 
 - the fused engines: the pool engine (ops/fused_pool.py) on ``full``,
-  the streaming stencil engine (ops/fused_stencil_hbm.py) on the lattices
-  and the imp engine (ops/fused_imp.py, both imp tiers) on imp2d/imp3d,
-  each running its CUDA kernels on a CUDA device and their plain torch
-  versions on the CPU;
+  the three lattice tiers on the lattices (whole-array resident,
+  ops/fused.py; tiled resident, ops/fused_stencil.py; streaming,
+  ops/fused_stencil_hbm.py) and the imp engine (ops/fused_imp.py, both imp
+  tiers) on imp2d/imp3d, each running its CUDA kernels on a CUDA device and
+  their plain torch versions on the CPU;
 - the chunked torch engine: one torch round per loop step on [n] tensors
   (sampling, pool, stencil or imp pool delivery, absorb), the JAX chunked
   engine's counterpart.
@@ -277,7 +278,7 @@ def describe_device(device: torch.device) -> str:
 
 
 # The JAX tiers not ported yet, with the ROADMAP item that ports each.
-_UNPORTED_TIERS = {"pool2": "B4", "stencil": "B5", "stencil2": "B6"}
+_UNPORTED_TIERS = {"pool2": "B4"}
 
 
 def fused_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
@@ -402,8 +403,8 @@ class FusedEngine:
 
 def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
                  start_state=None) -> FusedEngine:
-    """The fused engine of tier ``variant`` ("pool", "stencil_hbm", "imp"
-    or "imp_hbm")."""
+    """The fused engine of tier ``variant`` ("pool", "stencil",
+    "stencil2", "stencil_hbm", "imp" or "imp_hbm")."""
     n = topo.n
     target = cfg.resolved_target_count(topo.n, topo.target_count)
     if variant == "pool":
@@ -419,14 +420,22 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
             (fused_imp_hbm.pushsum_imp_hbm_chunk, fused_imp_hbm.gossip_imp_hbm_chunk))
         common = {"spec": fused_imp.imp_spec(topo), "target": target}
     else:
-        layout = fused_stencil_hbm._streaming_layout(n)
-        pushsum_chunk, gossip_chunk = (fused_stencil_hbm.pushsum_stencil_hbm_chunk,
-                                       fused_stencil_hbm.gossip_stencil_hbm_chunk)
+        build, pushsum_chunk, gossip_chunk = {
+            "stencil": (fused.build_layout, fused.pushsum_chunk,
+                        fused.gossip_chunk),
+            "stencil2": (fused_pool.build_pool_layout,
+                         fused_stencil.pushsum_stencil2_chunk,
+                         fused_stencil.gossip_stencil2_chunk),
+            "stencil_hbm": (fused_stencil_hbm._streaming_layout,
+                            fused_stencil_hbm.pushsum_stencil_hbm_chunk,
+                            fused_stencil_hbm.gossip_stencil_hbm_chunk),
+        }[variant]
+        layout = build(n)
         common = {"spec": fused_stencil_hbm.stencil_spec(topo), "target": target}
 
     def streams(start, count):
         keys = fused.round_keys(key, start, count)
-        if variant == "stencil_hbm":
+        if variant.startswith("stencil"):
             return (keys,)
         offs = fused_pool.round_offsets(key, start, count, cfg.pool_size, n)
         if variant == "pool":

@@ -1,18 +1,21 @@
 """Helpers shared by the fused chunk engines, as plain torch functions, and
-the support predicate of the JAX package's whole-array stencil tier.
+the whole-array stencil tier of the JAX package's ops/fused.py
+(make_pushsum_chunk, make_gossip_chunk): its support predicate, its layout
+and its chunk wrappers.
 
 The CUDA kernels compute the same things on the device: the Threefry hash
 in csrc/threefry.cuh, the done flag, the round cap and the class-keyed
 delivery and absorb (``pushsum_class_rounds``, ``gossip_class_rounds``)
-inside csrc/fused_pool.cu, csrc/fused_stencil.cu and csrc/fused_imp.cu.
-The whole-array stencil
-kernels themselves (the JAX package's ops/fused.py make_pushsum_chunk and
-make_gossip_chunk) are not ported yet (ROADMAP B5); ``fused_support`` is
-kept so the engine ladder picks the tier the JAX package picks.
+inside csrc/fused_pool.cu, csrc/fused_stencil.cu, csrc/fused_resident.cu
+and csrc/fused_imp.cu. The whole-array tier's wrappers (``pushsum_chunk``,
+``gossip_chunk``) run csrc/fused_resident.cu, the kernel pair it shares
+with the tiled tier (ops/fused_stencil.py), on CUDA tensors and the
+lattice tiers' plain version on CPU tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -56,6 +59,54 @@ def fused_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
             f"(n={topo.n}); rolls in the padded layout would misdeliver"
         )
     return None
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedLayout:
+    """The whole-array tier's padded [rows, 128] layout."""
+
+    n: int
+    n_pad: int
+    rows: int
+
+
+def build_layout(n: int) -> FusedLayout:
+    """n rounded up to whole 128-lane rows, as the JAX tier lays it out.
+    Pad lanes never send and never receive."""
+    rows = -(-n // LANES)
+    return FusedLayout(n=n, n_pad=rows * LANES, rows=rows)
+
+
+def pushsum_chunk(state4, keys, start: int, cap: int, *, spec, target: int,
+                  delta: float, term_rounds: int):
+    """Up to K = keys.shape[0] push-sum lattice rounds from absolute round
+    ``start``, stopping at ``cap`` or once ``target`` nodes converged, on
+    (s, w, term, conv_i32) in the ``build_layout`` layout; the contract of
+    fused_stencil.pushsum_stencil2_chunk (``spec`` a
+    fused_stencil_hbm.StencilSpec)."""
+    # Imported here: ops/fused_stencil imports this module.
+    from .fused_stencil import pushsum_resident_chunk
+
+    return pushsum_resident_chunk(
+        pushsum_chunk, build_layout(spec.n).rows, state4, keys, start, cap,
+        spec=spec, target=target, delta=delta, term_rounds=term_rounds)
+
+
+def gossip_chunk(state3, keys, start: int, cap: int, *, spec, target: int,
+                 rumor_target: int, suppress: bool):
+    """Gossip analog of ``pushsum_chunk``: ``state3`` is (count,
+    active_i32, conv_i32); converged-target suppression is receiver-side."""
+    from .fused_stencil import gossip_resident_chunk
+
+    return gossip_resident_chunk(
+        gossip_chunk, build_layout(spec.n).rows, state3, keys, start, cap,
+        spec=spec, target=target, rumor_target=rumor_target, suppress=suppress)
+
+
+# Kernel launches queued by each wrapper (3 a chunk), counted where the
+# kernel is launched and nowhere else.
+pushsum_chunk.launches = 0
+gossip_chunk.launches = 0
 
 
 def threefry2x32_hash(k1, k2, i):

@@ -1,22 +1,46 @@
-"""Support predicate of the JAX package's tiled VMEM-resident stencil tier
-(its ops/fused_stencil.py, make_pushsum_stencil2_chunk and
-make_gossip_stencil2_chunk).
+"""Resident lattice chunks: the tiled tier of the JAX package's
+ops/fused_stencil.py (make_pushsum_stencil2_chunk, make_gossip_stencil2_chunk)
+and what it shares with the whole-array tier of its ops/fused.py.
 
-The tier's kernels are not ported yet (ROADMAP B6). Its predicate is, so
-the engine ladder in models/runner.py picks the tier the JAX package picks:
-a config this tier would serve raises there instead of running elsewhere.
+The JAX package runs small and mid-size lattices in two VMEM-resident
+tiers: the whole-array one (n <= 131,072, wrap kinds aligned to 128 lanes)
+and this tiled one (any alignment, state planes up to a 100 MB budget).
+Both compute the streaming tier's function (ops/fused_stencil_hbm.py); the
+split is the TPU's VMEM. On the card one kernel pair serves both tiers:
+csrc/fused_resident.cu, whose chunk is one persistent cooperative launch
+bracketed by the init and finish launches, 3 launches whatever K is. The
+ladder still names the JAX tier (``fused.fused_support``,
+``stencil2_support`` here), each tier keeps the JAX tier's layout
+(``fused.build_layout``, the pool layout here), and each tier's wrappers
+count their own launches.
+
+``pushsum_stencil2_chunk`` and ``gossip_stencil2_chunk`` launch the kernels
+on CUDA tensors and run the plain version on CPU tensors: the streaming
+tier's ``*_plain`` functions, which take any layout.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
+
+import torch
 
 from ..config import SimConfig
 from .fused_pool import build_pool_layout
+from .fused_stencil_hbm import (
+    StencilSpec,
+    _check,
+    gossip_stencil_hbm_chunk_plain,
+    kernel_chunk,
+    pushsum_stencil_hbm_chunk_plain,
+)
 from .topology import Topology
 
 # The JAX tier's VMEM plane budget, in bytes.
 _VMEM_BUDGET = 100 * 1024 * 1024
+# Launches of one resident chunk: init, the persistent round loop, finish.
+RESIDENT_LAUNCHES = 3
 
 
 def _plane_bytes(n_pad: int, max_deg: int, algorithm: str) -> int:
@@ -40,3 +64,73 @@ def stencil2_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
             "VMEM-resident plane budget"
         )
     return None
+
+
+def pushsum_resident_chunk(counter, rows: int, state4, keys, start: int,
+                           cap: int, *, spec: StencilSpec, target: int,
+                           delta: float, term_rounds: int):
+    """The push-sum chunk behind both resident tiers' wrappers, on state in
+    the tier's [rows, 128] layout; a launch adds its launches to
+    ``counter.launches``."""
+    dev = _check(state4, (torch.float32, torch.float32, torch.int32, torch.int32),
+                 keys, spec, rows)
+    if dev.type == "cpu":
+        return pushsum_stencil_hbm_chunk_plain(
+            state4, keys, start, cap, spec=spec, target=target, delta=delta,
+            term_rounds=term_rounds)
+    out, executed, _ = kernel_chunk(
+        "fused_resident", "gossip_pushsum_resident_chunk", state4, keys, start,
+        cap, spec, (ctypes.c_float(delta), term_rounds, target))
+    counter.launches += RESIDENT_LAUNCHES
+    return out, executed
+
+
+def gossip_resident_chunk(counter, rows: int, state3, keys, start: int,
+                          cap: int, *, spec: StencilSpec, target: int,
+                          rumor_target: int, suppress: bool):
+    """The gossip chunk behind both resident tiers' wrappers."""
+    dev = _check(state3, (torch.int32,) * 3, keys, spec, rows)
+    if dev.type == "cpu":
+        return gossip_stencil_hbm_chunk_plain(
+            state3, keys, start, cap, spec=spec, target=target,
+            rumor_target=rumor_target, suppress=suppress)
+    out, executed, _ = kernel_chunk(
+        "fused_resident", "gossip_gossip_resident_chunk", state3, keys, start,
+        cap, spec, (rumor_target, int(suppress), target))
+    counter.launches += RESIDENT_LAUNCHES
+    return out, executed
+
+
+def pushsum_stencil2_chunk(state4, keys, start: int, cap: int, *,
+                           spec: StencilSpec, target: int, delta: float,
+                           term_rounds: int):
+    """Up to K = keys.shape[0] push-sum lattice rounds from absolute round
+    ``start``, stopping at ``cap`` or once ``target`` nodes converged.
+
+    ``state4`` is (s, w, term, conv_i32) in the padded [rows, 128] pool
+    layout (``build_pool_layout``) on one device; ``keys`` int64 [K, 2]
+    fold_in keys (uint32 words, fused.round_keys) are a CPU tensor. Returns
+    (state4', rounds_executed) with rounds_executed a 0-dim int32 tensor on
+    the state's device; the inputs are left unchanged. CUDA state runs the
+    kernel and CPU state the plain version."""
+    return pushsum_resident_chunk(
+        pushsum_stencil2_chunk, build_pool_layout(spec.n).rows, state4, keys,
+        start, cap, spec=spec, target=target, delta=delta,
+        term_rounds=term_rounds)
+
+
+def gossip_stencil2_chunk(state3, keys, start: int, cap: int, *,
+                          spec: StencilSpec, target: int, rumor_target: int,
+                          suppress: bool):
+    """Gossip analog of ``pushsum_stencil2_chunk``: ``state3`` is (count,
+    active_i32, conv_i32); converged-target suppression is receiver-side."""
+    return gossip_resident_chunk(
+        gossip_stencil2_chunk, build_pool_layout(spec.n).rows, state3, keys,
+        start, cap, spec=spec, target=target, rumor_target=rumor_target,
+        suppress=suppress)
+
+
+# Kernel launches queued by each wrapper (3 a chunk), counted where the
+# kernel is launched and nowhere else.
+pushsum_stencil2_chunk.launches = 0
+gossip_stencil2_chunk.launches = 0

@@ -13,7 +13,9 @@ displacement classes in order, as ``deliver_stencil`` does.
 ``pushsum_stencil_hbm_chunk`` and ``gossip_stencil_hbm_chunk`` launch the
 CUDA kernels of csrc/fused_stencil.cu on CUDA tensors and run their plain
 torch versions (``*_plain``) on CPU tensors; the plain versions run on any
-device and are what the kernels are held against.
+device and are what the kernels are held against. The resident lattice
+tiers (ops/fused.py, ops/fused_stencil.py) compute the same function and
+share the plain versions, the wrapper checks and ``kernel_chunk``.
 """
 
 from __future__ import annotations
@@ -151,7 +153,10 @@ def pushsum_stencil_hbm_chunk_plain(state4, keys, start: int, cap: int, *,
                                     spec: StencilSpec, target: int,
                                     delta: float, term_rounds: int):
     """Up to K = keys.shape[0] push-sum lattice rounds on the padded planes
-    (s, w, term, conv_i32). Returns (state4', rounds_executed)."""
+    (s, w, term, conv_i32) of any [rows, 128] layout that covers n: the
+    plain version of every lattice tier's kernels (this streaming tier's
+    and the resident tiers' of ops/fused.py and ops/fused_stencil.py).
+    Returns (state4', rounds_executed)."""
     dev, rows = state4[0].device, state4[0].shape[0]
     cap, keys = clamp_cap_and_pad(start, cap, keys)
     return pushsum_class_rounds(
@@ -164,8 +169,9 @@ def gossip_stencil_hbm_chunk_plain(state3, keys, start: int, cap: int, *,
                                    spec: StencilSpec, target: int,
                                    rumor_target: int, suppress: bool):
     """Up to K gossip lattice rounds on the padded planes (count,
-    active_i32, conv_i32), with receiver-side suppression. Returns
-    (state3', rounds_executed)."""
+    active_i32, conv_i32), with receiver-side suppression; like
+    ``pushsum_stencil_hbm_chunk_plain``, the plain version of every lattice
+    tier. Returns (state3', rounds_executed)."""
     dev, rows = state3[0].device, state3[0].shape[0]
     cap, keys = clamp_cap_and_pad(start, cap, keys)
     return gossip_class_rounds(
@@ -180,10 +186,13 @@ def gossip_stencil_hbm_chunk_plain(state3, keys, start: int, cap: int, *,
 # ---------------------------------------------------------------------------
 
 
-def _check(planes, dtypes, keys, spec: StencilSpec) -> torch.device:
+def _check(planes, dtypes, keys, spec: StencilSpec, rows: int) -> torch.device:
+    """The checks of every lattice tier's wrappers: state planes of the
+    tier's [rows, 128] layout on one cpu or cuda device, host-drawn keys,
+    and a lattice the kernels take. Returns the planes' device."""
     if len(planes) != len(dtypes):
         raise ValueError(f"expected {len(dtypes)} state planes, got {len(planes)}")
-    shape = (_streaming_layout(spec.n).rows, LANES)
+    shape = (rows, LANES)
     dev = planes[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"stencil chunks run on cpu or cuda tensors, got {dev}")
@@ -209,26 +218,41 @@ def _check(planes, dtypes, keys, spec: StencilSpec) -> torch.device:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    "gossip_pushsum_stencil_chunk": [_P] * 17 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
-    "gossip_gossip_stencil_chunk": [_P] * 14 + [_I] * 10 + [_P],
-}
+# The lattice entry points of csrc/fused_stencil.cu and csrc/fused_resident.cu
+# take the same arguments.
+_PUSHSUM_ARGS = [_P] * 17 + [_I] * 6 + [_F] + [_I] * 3 + [_P]
+_GOSSIP_ARGS = [_P] * 14 + [_I] * 10 + [_P]
 
 
-def _launch(name: str, dev: torch.device, pointers, spec: StencilSpec,
-            ints_head, ints_tail) -> None:
-    """Queue one chunk of csrc/fused_stencil.cu on the current stream of
-    ``dev`` and raise on a launch error."""
-    fn = kernels.entry("fused_stencil", name, _SIGNATURES[name])
+def kernel_chunk(source: str, name: str, state, keys, start: int, cap: int,
+                 spec: StencilSpec, tail):
+    """Queue one chunk through the lattice entry point ``name`` of
+    csrc/<source>.cu on the current stream of the state's device and raise
+    on a launch error. ``tail`` holds the protocol's trailing arguments.
+    Returns (state', rounds_executed, rounds the chunk may run)."""
+    dev = state[0].device
+    cap, keys = clamp_cap_and_pad(start, cap, keys)
+    keys = _upload(keys, dev)
+    rounds = max(0, cap - start)
+    n_pad = state[0].numel()
+    out = [torch.empty_like(x) for x in state]
+    other = [torch.empty_like(x) for x in state]
+    mark = torch.empty(n_pad, dtype=torch.int8, device=dev)
+    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
+    # Per-round totals and tickets, then the resident kernel's barrier word.
+    scratch = torch.zeros(2 * (rounds + 2), dtype=torch.int32, device=dev)
+    fn = kernels.entry(source, name,
+                       _PUSHSUM_ARGS if len(state) == 4 else _GOSSIP_ARGS)
     classes = np.ascontiguousarray(spec.classes, dtype=np.int32)
     lattice = (len(spec.classes), _KIND_IDS[spec.kind], spec.n,
                spec.n - spec.n_lat)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    err = fn(*[_ptr(x) for x in pointers],
-             classes.ctypes.data_as(ctypes.c_void_p), *lattice, *ints_head,
-             *ints_tail, dev.index, stream)
+    err = fn(*[_ptr(x) for x in (*state, *out, *other, mark, keys, ctrl, scratch)],
+             classes.ctypes.data_as(ctypes.c_void_p), *lattice, n_pad, rounds,
+             *tail, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+    return tuple(out), ctrl[1], rounds
 
 
 def pushsum_stencil_hbm_chunk(state4, keys, start: int, cap: int, *,
@@ -244,28 +268,17 @@ def pushsum_stencil_hbm_chunk(state4, keys, start: int, cap: int, *,
     the state's device; the inputs are left unchanged. CUDA state runs the
     kernel and CPU state the plain version."""
     dev = _check(state4, (torch.float32, torch.float32, torch.int32, torch.int32),
-                 keys, spec)
+                 keys, spec, _streaming_layout(spec.n).rows)
     if dev.type == "cpu":
         return pushsum_stencil_hbm_chunk_plain(
             state4, keys, start, cap, spec=spec, target=target, delta=delta,
             term_rounds=term_rounds,
         )
-    cap, keys = clamp_cap_and_pad(start, cap, keys)
-    keys = _upload(keys, dev)
-    rounds = max(0, cap - start)
-    n_pad = state4[0].numel()
-    out = [torch.empty_like(x) for x in state4]
-    other = [torch.empty_like(x) for x in state4]
-    mark = torch.empty(n_pad, dtype=torch.int8, device=dev)
-    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
-    scratch = torch.zeros(2 * (rounds + 1), dtype=torch.int32, device=dev)
-    _launch(
-        "gossip_pushsum_stencil_chunk", dev,
-        (*state4, *out, *other, mark, keys, ctrl, scratch), spec,
-        (n_pad, rounds), (ctypes.c_float(delta), term_rounds, target),
-    )
+    out, executed, rounds = kernel_chunk(
+        "fused_stencil", "gossip_pushsum_stencil_chunk", state4, keys, start, cap,
+        spec, (ctypes.c_float(delta), term_rounds, target))
     pushsum_stencil_hbm_chunk.launches += 2 + 2 * rounds
-    return tuple(out), ctrl[1]
+    return out, executed
 
 
 def gossip_stencil_hbm_chunk(state3, keys, start: int, cap: int, *,
@@ -274,28 +287,18 @@ def gossip_stencil_hbm_chunk(state3, keys, start: int, cap: int, *,
     """Gossip analog of ``pushsum_stencil_hbm_chunk``: ``state3`` is
     (count, active_i32, conv_i32); converged-target suppression is
     receiver-side."""
-    dev = _check(state3, (torch.int32,) * 3, keys, spec)
+    dev = _check(state3, (torch.int32,) * 3, keys, spec,
+                 _streaming_layout(spec.n).rows)
     if dev.type == "cpu":
         return gossip_stencil_hbm_chunk_plain(
             state3, keys, start, cap, spec=spec, target=target,
             rumor_target=rumor_target, suppress=suppress,
         )
-    cap, keys = clamp_cap_and_pad(start, cap, keys)
-    keys = _upload(keys, dev)
-    rounds = max(0, cap - start)
-    n_pad = state3[0].numel()
-    out = [torch.empty_like(x) for x in state3]
-    other = [torch.empty_like(x) for x in state3]
-    mark = torch.empty(n_pad, dtype=torch.int8, device=dev)
-    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
-    scratch = torch.zeros(2 * (rounds + 1), dtype=torch.int32, device=dev)
-    _launch(
-        "gossip_gossip_stencil_chunk", dev,
-        (*state3, *out, *other, mark, keys, ctrl, scratch), spec,
-        (n_pad, rounds), (rumor_target, int(suppress), target),
-    )
+    out, executed, rounds = kernel_chunk(
+        "fused_stencil", "gossip_gossip_stencil_chunk", state3, keys, start, cap,
+        spec, (rumor_target, int(suppress), target))
     gossip_stencil_hbm_chunk.launches += 2 + 2 * rounds
-    return tuple(out), ctrl[1]
+    return out, executed
 
 
 # Kernel launches queued by each wrapper (init, 2 per round, finish),

@@ -6,10 +6,12 @@ chunks' plain versions, with the tier forced the way the JAX package's
 tests force it). Rounds, converged count, estimate_mae and the final state
 must all be equal, push-sum s/w bitwise (same float32 op order).
 
-And the dispatch: on a CUDA device (stubbed here, never touched) and under
-engine="fused", a config the JAX ladder gives to a tier whose kernels are
-not ported yet raises NotImplementedError naming its ROADMAP item, instead
-of running on another engine."""
+And the dispatch: on a CUDA device (stubbed here, never touched) a config
+the JAX ladder gives to a resident lattice tier goes to that fused tier,
+and under engine="fused" on the CPU it runs there and equals the chunked
+engine; a config on a tier whose kernels are not ported yet raises
+NotImplementedError naming its ROADMAP item, on CUDA and under
+engine="fused", instead of running on another engine."""
 
 import numpy as np
 import pytest
@@ -144,11 +146,42 @@ def stub_cuda(monkeypatch):
                         lambda device=None: torch.device("cuda", 0))
 
 
+@pytest.mark.parametrize("kind,n,algorithm,tier", [
+    ("grid3d", 8000, "push-sum", "stencil"),
+    ("line", 1000, "gossip", "stencil"),
+    ("torus3d", 27_000, "gossip", "stencil2"),
+    ("ring", 5000, "push-sum", "stencil2"),
+])
+def test_resident_tiers_dispatch_on_cuda_and_run_under_fused(kind, n, algorithm,
+                                                             tier, stub_cuda,
+                                                             monkeypatch):
+    topo = build_topology(kind, n)
+    dispatched = []
+    monkeypatch.setattr(runner, "_run_fused",
+                        lambda *a: dispatched.append((a[3].type, a[-1])))
+    for engine in ("auto", "fused"):
+        cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, engine=engine)
+        assert runner.fused_tier(topo, cfg) == (tier, None)
+        run(topo, cfg)
+    assert dispatched == [("cuda", tier)] * 2
+    monkeypatch.undo()
+    # On the CPU, engine="fused" runs the tier's plain version: the chunked
+    # engine's trajectory over a bounded run.
+    results = {}
+    for engine in ("chunked", "fused"):
+        cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, engine=engine,
+                        max_rounds=64, chunk_rounds=32)
+        results[engine] = run(topo, cfg, device="cpu")
+    a, b = results["chunked"], results["fused"]
+    assert (a.rounds, a.converged_count, a.estimate_mae) == (
+        b.rounds, b.converged_count, b.estimate_mae)
+    for x, y in zip(a.state, b.state):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("kind,n,algorithm,tier,item", [
-    ("grid3d", 8000, "push-sum", "stencil", "B5"),
-    ("line", 1000, "gossip", "stencil", "B5"),
-    ("torus3d", 27_000, "gossip", "stencil2", "B6"),
-    ("ring", 5000, "push-sum", "stencil2", "B6"),
     ("full", 2**21 + 1, "gossip", "pool2", "B4"),
 ])
 def test_unported_tiers_raise_on_cuda_and_under_fused(kind, n, algorithm, tier,
