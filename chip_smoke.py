@@ -62,10 +62,25 @@ non-zero before the last line:
    chunked engine), torus3d 100**3 gossip and push-sum, each to
    convergence on the card, push-sum mass conserved, with the JAX
    package's round records printed beside;
-11. each kernel's time per chunk by CUDA events, beside its plain version's
+11. each streaming pool kernel against its plain version on the card,
+   pool_size 2, one 32-round chunk at full 2,097,153 (the tier's first
+   population, 65,535 pad lanes), 10,000,000 and 16,777,216, from the
+   initial state, from a mid-run state, with a cap inside the chunk and
+   from a converged state, plus push-sum at pool_size 16 and one chunk
+   from the initial state at 134,217,728 (2**27, the tier's cap); every
+   check bitwise, and the ladder must pick the streaming pool tier;
+12. the streaming pool path, counters zeroed before each run and read
+   after it: full 16,777,216 and 134,217,728, both algorithms, to
+   convergence (push-sum to a small estimate error with its mass
+   conserved; the JAX package's 2**27 round records printed beside), the
+   CLI's ``16777216 full push-sum --delivery pool --pool-size 2``, and
+   2,097,153, both algorithms, 64 rounds on the card against the CPU's
+   chunked engine (rounds, converged count, final state) and to
+   convergence against the JAX chunked engine's rounds and estimate;
+13. each kernel's time per chunk by CUDA events, beside its plain version's
    and the least time the card could take for the same work.
 
-Each of phases 5-10 prints its wall time.
+Each of phases 5-12 prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -825,12 +840,275 @@ def resident_path(dev):
     return launches
 
 
+# The streaming pool phases: the tier's first population (65,535 pad lanes
+# past n), 10,000,000 (27,008) and 2**24 (none) for the kernel checks, the
+# timed 2**24 and the tier's cap 2**27 (one chunk there; the plain version
+# needs ~25 GB of temporaries), the card-vs-CPU population and rounds, and
+# the JAX package's rounds at 2**27 on one TPU chip (tests_tpu/RUNLOG.md:
+# 87-90), printed beside the card's, not asserted: the push-sum record comes
+# from the TPU kernel, whose float32 op order differs.
+POOL2_SIZES = (2**21 + 1, 10_000_000, 2**24)
+# Rounds before the mid-run checks and timings: push-sum converges near
+# round 98 at 2,097,153 (the float32 ratio is coarse past 2**20, so it
+# steadies sooner than at 1M), gossip near round 50.
+POOL2_MID = {"pushsum": 40, "gossip": 8}
+POOL2_TIMED = 2**24
+POOL2_CAP = 2**27
+POOL2_CPU_N = 2**21 + 1
+POOL2_CPU_ROUNDS = 64
+POOL2_RECORDS = {"gossip": 64, "push-sum": 253}
+# (rounds, estimate_mae) of the JAX package's chunked engine on the CPU at
+# POOL2_CPU_N, seed 0, pool_size 2, which the card's whole runs must equal:
+#   python -m cop5615_gossip_protocol_tpu 2097153 full push-sum --delivery pool \
+#       --pool-size 2 --engine chunked --platform cpu
+POOL2_JAX_CHUNKED = {"push-sum": (98, 0.004213935306690194), "gossip": (49, None)}
+
+
+def pool2_ops_per_node(algorithm: str, pool: int) -> float:
+    """Per-node, per-round operations of csrc/fused_pool2.cu: per slot two
+    Threefry words per 8 nodes (csrc/pool2.cuh, column_sources), a source
+    index (compare, subtract, add), the choice extraction (row add, word
+    select, shift, and), the hit test (two compares, and) and the adds
+    (push-sum also the two halvings); then the packed plane's unpack and
+    pack (push-sum, 4) and the absorb."""
+    per_slot = 2 * OPS_PER_HASH / 8 + 3 + 4 + 3 + (4 if algorithm == "push-sum" else 1)
+    absorb = 16 + 4 if algorithm == "push-sum" else 6 + 1
+    return pool * per_slot + absorb
+
+
+def pool2_bytes_per_node(algorithm: str, pool: int) -> int:
+    """Bytes a round must move per node past the L2: the state read and
+    written once (push-sum s, w and the packed term|conv plane; gossip
+    count and active) plus each slot's source window (push-sum s and w,
+    gossip active)."""
+    return 24 + 8 * pool if algorithm == "push-sum" else 16 + 4 * pool
+
+
+def pool2_case(dev, key, n, algorithm, pool=POOL):
+    """(kernel, plain, chunk(fn, state, start, count, cap), init planes on
+    the card) for one streaming pool config; the ladder must pick pool2."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine, fused_tier
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool, fused_pool2
+
+    topo = build_topology("full", n)
+    cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=pool)
+    if fused_tier(topo, cfg) != ("pool2", None):
+        raise AssertionError(f"full n={n} {algorithm}: the ladder picks "
+                             f"{fused_tier(topo, cfg)}, not pool2")
+    common = {"n": n, "target": cfg.resolved_target_count(n, topo.target_count)}
+    if algorithm == "push-sum":
+        fns = (fused_pool2.pushsum_pool2_chunk, fused_pool2.pushsum_pool2_chunk_plain)
+        common.update(delta=cfg.resolved_delta, term_rounds=cfg.term_rounds)
+    else:
+        fns = (fused_pool2.gossip_pool2_chunk, fused_pool2.gossip_pool2_chunk_plain)
+        common.update(rumor_target=cfg.resolved_rumor_target,
+                      suppress=cfg.resolved_suppress)
+
+    @functools.lru_cache(maxsize=None)
+    def streams(start, count):
+        return (fused.round_keys(key, start, count),
+                fused_pool.round_offsets(key, start, count, pool, n))
+
+    def chunk(fn, state, start, count, cap=None):
+        return fn(state, *streams(start, count), start,
+                  start + count if cap is None else cap, **common)
+
+    init = tuple(p.contiguous().to(dev)
+                 for p in fused_engine(topo, cfg, key, "pool2").planes)
+    return (*fns, chunk, init)
+
+
+def pool2_checks(dev, key):
+    """Phase 11: each streaming pool kernel against its plain version on the
+    card, one 32-round chunk at each of POOL2_SIZES from the initial state,
+    from a mid-run state, with a cap inside the chunk and from a converged
+    state; push-sum at pool_size 16 at the tier's first size; one chunk from
+    the initial state at 2**27. Every check bitwise. Returns {name: case}
+    for the timing phase (the 2**24 mid-run state and the 2**27 initial
+    one) and {name: max_abs_err}."""
+    import torch
+
+    cases, max_err = {}, {}
+    for n in POOL2_SIZES:
+        print(f"streaming pool kernels vs plain versions at full n = {n:,}:", flush=True)
+        for name, algorithm in (("pushsum", "push-sum"), ("gossip", "gossip")):
+            kern, plain, chunk, init = pool2_case(dev, key, n, algorithm)
+            mid_round = POOL2_MID[name]
+            errs = [compare(f"{name} init K={CHUNK}", chunk(kern, init, 0, CHUNK),
+                            chunk(plain, init, 0, CHUNK), 0)]
+            mid, ex = chunk(kern, init, 0, mid_round)
+            if int(ex) != mid_round:
+                raise AssertionError(f"full n={n} {name}: converged before round {mid_round}")
+            errs.append(compare(f"{name} mid-run K={CHUNK}", chunk(kern, mid, mid_round, CHUNK),
+                                chunk(plain, mid, mid_round, CHUNK), 0))
+            errs.append(compare(f"{name} cap inside chunk",
+                                chunk(kern, mid, mid_round, CHUNK, cap=mid_round + 5),
+                                chunk(plain, mid, mid_round, CHUNK, cap=mid_round + 5), 0))
+            done_state, ex = chunk(kern, mid, mid_round, 4096)
+            done_round = mid_round + int(ex)
+            if int(ex) == 4096:
+                raise AssertionError(f"full n={n} {name} did not converge")
+            out, ex = chunk(kern, done_state, done_round, CHUNK)
+            if int(ex) != 0 or not all(torch.equal(a, b) for a, b in zip(out, done_state)):
+                raise AssertionError(f"full n={n} {name}: a chunk from a converged state ran")
+            print(f"  {name} from converged state (round {done_round}): 0 rounds, "
+                  "state unchanged", flush=True)
+            if n == POOL2_SIZES[0] and name == "pushsum":
+                # The packed-choice cap: 16 pool slots.
+                kern16, plain16, chunk16, init16 = pool2_case(dev, key, n, algorithm, 16)
+                errs.append(compare(f"{name} pool_size 16 init K={CHUNK}",
+                                    chunk16(kern16, init16, 0, CHUNK),
+                                    chunk16(plain16, init16, 0, CHUNK), 0))
+            max_err[name] = max([max_err.get(name, 0.0)] + errs)
+            if n == POOL2_TIMED:
+                cases[name] = (kern, plain, chunk, mid, mid_round, n)
+            del init, mid, done_state, out
+    # The tier's cap: one chunk from the initial state, where the card has
+    # room for the plain version's temporaries.
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    print(f"streaming pool kernels vs plain versions at full n = {POOL2_CAP:,} "
+          f"({free / 2**30:.1f} GiB free):", flush=True)
+    for name, algorithm in (("pushsum", "push-sum"), ("gossip", "gossip")):
+        kern, plain, chunk, init = pool2_case(dev, key, POOL2_CAP, algorithm)
+        if free < 48 * 2**30:
+            print(f"  {name}: plain version skipped, {free / 2**30:.1f} GiB free "
+                  "is under the 48 GiB it needs", flush=True)
+            cases[f"{name}_cap"] = (kern, None, chunk, init, 0, POOL2_CAP)
+            continue
+        cases[f"{name}_cap"] = (kern, plain, chunk, init, 0, POOL2_CAP)
+        max_err[name] = max(max_err[name], compare(
+            f"{name} init K={CHUNK}", chunk(kern, init, 0, CHUNK),
+            chunk(plain, init, 0, CHUNK), 0))
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return cases, max_err
+
+
+def pool2_path(dev):
+    """Phase 12: the streaming pool path, counters zeroed before each run
+    and read after it: 2**24 and 2**27 full, both algorithms, to
+    convergence on the card (push-sum to a small estimate error with its
+    mass conserved; the JAX records printed beside at 2**27); the CLI's
+    ``16777216 full push-sum --delivery pool --pool-size 2``; then
+    POOL2_CPU_N, both algorithms, POOL2_CPU_ROUNDS rounds on the card
+    against the CPU's chunked engine, and to convergence against the JAX
+    chunked engine's record. Returns each row's launches over its 2**24
+    run."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, cli, run
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_tier
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_pool2
+
+    counters = {"pushsum": fused_pool2.pushsum_pool2_chunk,
+                "gossip": fused_pool2.gossip_pool2_chunk}
+    launches = {}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    for n in (POOL2_TIMED, POOL2_CAP):
+        t0 = time.perf_counter()
+        topo = build_topology("full", n)
+        build_s = time.perf_counter() - t0
+        for name, algorithm in (("gossip", "gossip"), ("pushsum", "push-sum")):
+            cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=POOL)
+            if fused_tier(topo, cfg) != ("pool2", None):
+                raise AssertionError(f"full n={n} {algorithm}: not the streaming pool tier")
+            zero()
+            res = run(topo, cfg)
+            counts = {k: fn.launches for k, fn in counters.items()}
+            print(json.dumps({
+                "metric": f"{name}_pool2_rounds_per_sec_full_n{n}",
+                "rounds": res.rounds,
+                "jax_record_rounds": POOL2_RECORDS[algorithm] if n == POOL2_CAP else None,
+                "run_s": res.run_s, "rounds_per_s": res.rounds / res.run_s,
+                "build_s": build_s, "setup_s": res.setup_s, "compile_s": res.compile_s,
+                "dispatch_s": res.dispatch_s, "first_dispatch_s": res.first_dispatch_s,
+                "fetch_s": res.fetch_s, "finalize_s": res.finalize_s,
+                "chunks_retired": len(res.chunk_log),
+                "converged_count": res.converged_count,
+                "estimate_mae": res.estimate_mae, "launches": counts,
+                "device": res.device,
+            }), flush=True)
+            if counts[name] == 0 or not res.device.startswith("cuda"):
+                raise AssertionError(f"full n={n} {algorithm} never launched its kernel")
+            if not res.converged or res.converged_count != n:
+                raise AssertionError(f"full n={n} {algorithm} did not converge ({res.outcome})")
+            if algorithm == "push-sum":
+                if res.estimate_mae is None or not res.estimate_mae / res.true_mean < 1e-6:
+                    raise AssertionError(f"full n={n} push-sum estimate_mae {res.estimate_mae} "
+                                         f"is not small against the mean {res.true_mean}")
+                err_w = abs(res.state.w.double().sum().item() - n) / n
+                err_s = abs(res.state.s.double().sum().item() - n * (n - 1) / 2) / (n * (n - 1) / 2)
+                print(f"  mass: sum w rel err {err_w}, sum s rel err {err_s}", flush=True)
+                if not (err_w < 1e-5 and err_s < 1e-5):
+                    raise AssertionError(f"full n={n} push-sum did not conserve its mass")
+            if n == POOL2_TIMED:
+                launches[name] = counts[name]
+            del res
+        del topo
+        torch.cuda.empty_cache()
+
+    # The CLI, as a user types it; its record line gives rounds and count.
+    zero()
+    out = io.StringIO()
+    argv = [str(POOL2_TIMED), "full", "push-sum", "--delivery", "pool", "--pool-size", "2"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(argv)
+    record = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"  CLI {' '.join(argv)}: exit {code}, {record['rounds']} rounds, "
+          f"converged {record['converged_count']}, {time.perf_counter() - t0:.2f} s, "
+          f"launches {counters['pushsum'].launches}", flush=True)
+    if code != 0 or counters["pushsum"].launches == 0:
+        raise AssertionError("the CLI's 16.8M full push-sum failed or never launched "
+                             "the streaming pool kernel")
+
+    topo = build_topology("full", POOL2_CPU_N)
+    for name, algorithm in (("gossip", "gossip"), ("pushsum", "push-sum")):
+        cfg = SimConfig(n=POOL2_CPU_N, algorithm=algorithm, delivery="pool",
+                        pool_size=POOL, max_rounds=POOL2_CPU_ROUNDS)
+        t0 = time.perf_counter()
+        a = run(topo, cfg)
+        t1 = time.perf_counter()
+        b = run(topo, cfg, device="cpu")
+        t2 = time.perf_counter()
+        if (a.rounds, a.converged_count) != (b.rounds, b.converged_count):
+            raise AssertionError(
+                f"full n={POOL2_CPU_N} {name}: card {a.rounds}/{a.converged_count} != "
+                f"CPU {b.rounds}/{b.converged_count}")
+        compare(f"full n={POOL2_CPU_N} {name} card vs CPU chunked engine, {a.rounds} "
+                f"rounds, converged {a.converged_count} ({t1 - t0:.2f} s card, "
+                f"{t2 - t1:.2f} s CPU)",
+                (tuple(x.cpu() for x in a.state), a.rounds),
+                (tuple(b.state), b.rounds), 0)
+        # The whole run on the card against the JAX chunked engine's.
+        res = run(topo, SimConfig(n=POOL2_CPU_N, algorithm=algorithm, delivery="pool",
+                                  pool_size=POOL))
+        want = POOL2_JAX_CHUNKED[algorithm]
+        if (res.rounds, res.estimate_mae) != want or res.converged_count != POOL2_CPU_N:
+            raise AssertionError(f"full n={POOL2_CPU_N} {algorithm}: rounds, estimate_mae "
+                                 f"{res.rounds}, {res.estimate_mae} != the JAX chunked "
+                                 f"engine's {want}")
+        print(f"  full n={POOL2_CPU_N} {name} to convergence on the card: {res.rounds} "
+              f"rounds, estimate_mae {res.estimate_mae}, the JAX chunked engine's", flush=True)
+    return launches
+
+
 def fail(msg: str) -> int:
     print(f"FAILED: {msg}", file=sys.stderr)
     return 1
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -979,7 +1257,7 @@ def main() -> int:
         print(f"  1000-node {name}: card == CPU chunked engine "
               f"(rounds {a.rounds}, estimate_mae {a.estimate_mae})")
 
-    # ----------------------------------------------- 5, 6, 7, 8, 9, 10
+    # ---------------------------------------- 5, 6, 7, 8, 9, 10, 11, 12
     def phase(number, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
@@ -994,10 +1272,12 @@ def main() -> int:
         imp_launches = phase(8, imp_path, dev)
         resident_cases, resident_err = phase(9, resident_checks, dev, key)
         resident_launches = phase(10, resident_path, dev)
+        pool2_cases, pool2_err = phase(11, pool2_checks, dev, key)
+        pool2_launches = phase(12, pool2_path, dev)
     except (AssertionError, RuntimeError) as e:
         return fail(str(e))
 
-    # --------------------------------------------------------------- 11
+    # --------------------------------------------------------------- 13
     rows = []
     replaces = {"pushsum": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:860",
                 "gossip": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:1157"}
@@ -1106,6 +1386,40 @@ def main() -> int:
             "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
             "population": n, "topology": kind, "status": "ported",
         })
+    replaces = {"pushsum": "cop5615_gossip_protocol_tpu/ops/fused_pool2.py:952",
+                "gossip": "cop5615_gossip_protocol_tpu/ops/fused_pool2.py:1388"}
+    for name in ("pushsum", "gossip"):
+        algo = "push-sum" if name == "pushsum" else "gossip"
+        timed = {}
+        # Rows 3-4 at 2**24 from a mid-run state; beside them, the first
+        # chunk at the tier's cap.
+        for which in (name, f"{name}_cap"):
+            kern, plain, chunk, state, start, n = pool2_cases[which]
+            ms, (_, ex) = time_ms(lambda: chunk(kern, state, start, CHUNK), TIME_REPS)
+            plain_ms = (time_ms(lambda: chunk(plain, state, start, CHUNK), 2)[0]
+                        if plain is not None else None)
+            rounds = int(ex)
+            n_pad = state[0].numel()
+            moved = (rounds * pool2_bytes_per_node(algo, POOL) * n_pad
+                     + CHUNK * (16 + 4 * POOL) + 8)
+            ops = rounds * n_pad * pool2_ops_per_node(algo, POOL)
+            bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+            timed[which] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+                "population": n,
+            }
+            torch.cuda.empty_cache()
+        rows.append({
+            "name": f"{name}_pool2_chunk", "route": "cuda",
+            "source": "cop5615_gossip_protocol_tpu_torch/csrc/fused_pool2.cu",
+            "replaces": replaces[name],
+            "launches": pool2_launches[name], "max_abs_err": pool2_err[name],
+            **timed[name], "library_ms": None,
+            "at_cap": timed[f"{name}_cap"], "status": "ported",
+        })
+    print(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

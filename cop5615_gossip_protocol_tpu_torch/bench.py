@@ -1,10 +1,12 @@
 """North-star benchmark of the port: 1M-node push-sum on ``full`` with
-offset-pool delivery, pool_size 2 (the JAX package's bench.py defaults),
-any lattice through the tier of lattice kernels the engine ladder picks
-(resident up to about 1.5M nodes, streaming past it), or imp2d/imp3d
-through the imp kernels (pooled long-range delivery).
+offset-pool delivery, pool_size 2 (the JAX package's bench.py defaults;
+past 2**21 nodes ``full`` runs the streaming pool kernels), any lattice
+through the tier of lattice kernels the engine ladder picks (resident up
+to about 1.5M nodes, streaming past it), or imp2d/imp3d through the imp
+kernels (pooled long-range delivery).
 
     python -m cop5615_gossip_protocol_tpu_torch.bench [--n N] [--algorithm A]
+    python -m cop5615_gossip_protocol_tpu_torch.bench --n 16777216
     python -m cop5615_gossip_protocol_tpu_torch.bench --topology torus3d \\
         --n 16777216 --algorithm gossip
     python -m cop5615_gossip_protocol_tpu_torch.bench --topology grid2d \\
@@ -18,8 +20,8 @@ Prints one JSON line with bench.py's keys (metric, value in rounds/sec,
 unit, vs_baseline, rounds, wall_s, converged_count, estimate_mae, device),
 the run's budget (setup/compile/dispatch/fetch seconds), and, on the GPU:
 ``engine_us_per_round``, the fused engine's device time per round timed
-with CUDA events over one chunk from the initial state (the pool kernels
-on ``full``, the resident or streaming stencil kernels on a lattice, the
+with CUDA events over one chunk from the initial state (the pool or
+streaming pool kernels on ``full``, the resident or streaming stencil kernels on a lattice, the
 imp kernels on imp2d/imp3d); ``repeat_wall_s``,
 the run's wall when repeated at once in the same process; and ``profile``,
 a third run under torch.profiler with the device's busy share and device

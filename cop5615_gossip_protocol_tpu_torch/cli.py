@@ -2,6 +2,8 @@
 
     python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum \\
         --delivery pool --pool-size 2
+    python -m cop5615_gossip_protocol_tpu_torch 16777216 full push-sum \\
+        --delivery pool --pool-size 2
     python -m cop5615_gossip_protocol_tpu_torch 16777216 torus3d gossip
     python -m cop5615_gossip_protocol_tpu_torch 16777216 imp3d gossip --delivery pool
 

@@ -1,7 +1,8 @@
-// What the chunk kernels of csrc/fused_pool.cu, csrc/fused_stencil.cu and
-// csrc/fused_imp.cu share: the launch geometry, the converged count and
-// done flag, the state planes, the init and finish launches and the
-// per-node absorb of each protocol.
+// What the chunk kernels of csrc/fused_pool.cu, csrc/fused_pool2.cu,
+// csrc/fused_stencil.cu, csrc/fused_imp.cu and csrc/fused_resident.cu
+// share: the launch geometry, the converged count and done flag, the state
+// planes, the init and finish launches and the per-node absorb of each
+// protocol.
 //
 // A chunk keeps its control words in `ctrl` (int32[2]: done, rounds
 // executed) and `scratch` (int32[2 * (rounds + 1)]: per-launch totals, then
@@ -95,23 +96,56 @@ struct GossipPlanes {
   int* conv;
 };
 
-// Receiver j's push-sum absorb: its own halved send leaves (`sends`), the
+// One node's push-sum absorb: its own halved send leaves (`sends`), the
 // inbox sums arrive, and the term/conv latch moves on a round it received
-// something. Reads j's round-start values from `cur`, writes `nxt` (which
-// may be `cur`); returns j's new conv flag (0 on pad lanes).
+// something. Takes the round-start s_t, w_t and reads the node's term and
+// conv flag through `term_of()` and `conv_of()` where the arithmetic needs
+// them (so each caller keeps its own plane layout and load order); sets
+// s_new, w_new, t_new and returns the new conv flag (0 on pad lanes).
+template <typename TermOf, typename ConvOf>
+__device__ __forceinline__ int pushsum_absorb(float s_t, float w_t, TermOf term_of,
+                                              ConvOf conv_of, bool pad, bool sends,
+                                              float in_s, float in_w, float delta,
+                                              int term_rounds, float& s_new,
+                                              float& w_new, int& t_new) {
+  const float s_send = sends ? s_t * 0.5f : 0.0f;
+  const float w_send = sends ? w_t * 0.5f : 0.0f;
+  s_new = (s_t - s_send) + in_s;
+  w_new = (w_t - w_send) + in_w;
+  const bool received = in_w > 0.0f;
+  const bool stable = fabsf(s_new / w_new - s_t / w_t) <= delta;
+  const int t_old = term_of();
+  t_new = received ? (stable ? t_old + 1 : 0) : t_old;
+  return pad ? 0 : ((conv_of() || t_new >= term_rounds) ? 1 : 0);
+}
+
+// One node's gossip absorb with receiver-side suppression: reads its
+// round-start conv flag, count and active flag through `conv_of()`,
+// `count_of()` and `active_of()` where needed; sets cnt and act and returns
+// the new conv flag (0 on pad lanes).
+template <typename ConvOf, typename CountOf, typename ActiveOf>
+__device__ __forceinline__ int gossip_absorb(ConvOf conv_of, CountOf count_of,
+                                             ActiveOf active_of, bool pad, int inbox,
+                                             int rumor_target, int suppress,
+                                             int& cnt, int& act) {
+  if (suppress && conv_of()) inbox = 0;
+  cnt = count_of() + inbox;
+  act = (active_of() != 0 || inbox > 0) ? 1 : 0;
+  return (!pad && cnt >= rumor_target) ? 1 : 0;
+}
+
+// Receiver j's push-sum absorb (pushsum_absorb) between plane sets: reads
+// j's round-start values from `cur`, writes `nxt` (which may be `cur`);
+// returns j's new conv flag.
 __device__ __forceinline__ int pushsum_absorb_node(
     const PushSumPlanes& cur, const PushSumPlanes& nxt, int j, bool pad,
     bool sends, float in_s, float in_w, float delta, int term_rounds) {
-  const float s_t = cur.s[j], w_t = cur.w[j];
-  const float s_send = sends ? s_t * 0.5f : 0.0f;
-  const float w_send = sends ? w_t * 0.5f : 0.0f;
-  const float s_new = (s_t - s_send) + in_s;
-  const float w_new = (w_t - w_send) + in_w;
-  const bool received = in_w > 0.0f;
-  const bool stable = fabsf(s_new / w_new - s_t / w_t) <= delta;
-  const int t_old = cur.term[j];
-  const int t_new = received ? (stable ? t_old + 1 : 0) : t_old;
-  const int cv = pad ? 0 : ((cur.conv[j] != 0 || t_new >= term_rounds) ? 1 : 0);
+  float s_new, w_new;
+  int t_new;
+  const int cv = pushsum_absorb(
+      cur.s[j], cur.w[j], [&] { return cur.term[j]; },
+      [&] { return cur.conv[j] != 0; }, pad, sends, in_s, in_w, delta,
+      term_rounds, s_new, w_new, t_new);
   nxt.s[j] = s_new;
   nxt.w[j] = w_new;
   nxt.term[j] = t_new;
@@ -119,17 +153,17 @@ __device__ __forceinline__ int pushsum_absorb_node(
   return cv;
 }
 
-// Receiver j's gossip absorb with receiver-side suppression; the same
+// Receiver j's gossip absorb (gossip_absorb) between plane sets; the same
 // contract as pushsum_absorb_node.
 __device__ __forceinline__ int gossip_absorb_node(const GossipPlanes& cur,
                                                   const GossipPlanes& nxt,
                                                   int j, bool pad, int inbox,
                                                   int rumor_target,
                                                   int suppress) {
-  if (suppress && cur.conv[j] != 0) inbox = 0;
-  const int cnt = cur.count[j] + inbox;
-  const int act = (cur.active[j] != 0 || inbox > 0) ? 1 : 0;
-  const int cv = (!pad && cnt >= rumor_target) ? 1 : 0;
+  int cnt, act;
+  const int cv = gossip_absorb(
+      [&] { return cur.conv[j] != 0; }, [&] { return cur.count[j]; },
+      [&] { return cur.active[j]; }, pad, inbox, rumor_target, suppress, cnt, act);
   nxt.count[j] = cnt;
   nxt.active[j] = act;
   nxt.conv[j] = cv;

@@ -1,0 +1,87 @@
+// Per-node helpers of the streaming pool kernels (csrc/fused_pool2.cu):
+// where a source's packed choice lives, its regenerated choice, the sources
+// and choices of one packed-word column (each source the mod-n roll of its
+// destination, stencil.cuh's class_source), and the push-sum term/conv
+// plane.
+//
+// Like threefry.cuh, everything here is plain inline code usable from the
+// host, so the CPU tests build it with g++ and hold it against the plain
+// torch versions without a GPU.
+//
+// Layout: the pool layout's [rows, 128] planes, flat index j = row * 128 +
+// lane. Node j's pool choice is 4 bits of the packed word at flat position
+// (row / 8) * 128 + lane of the round's Threefry stream, sub-slot row % 8.
+#pragma once
+
+#include <stdint.h>
+
+#include "stencil.cuh"
+#include "threefry.cuh"
+
+namespace gossip {
+namespace pool2 {
+
+constexpr int kLanes = 128;
+constexpr int kPack = 8;  // rows (nodes of one lane) per packed choice word
+
+// Push-sum keeps term and conv in one int32 plane: term (a counter bounded
+// by the round count, < 2**30) in the low 30 bits, conv in bit 30.
+constexpr int kConvBit = 1 << 30;
+constexpr int kTermMask = kConvBit - 1;
+
+GOSSIP_HD int tc_pack(int term, bool conv) { return conv ? (term | kConvBit) : term; }
+GOSSIP_HD int tc_term(int tc) { return tc & kTermMask; }
+GOSSIP_HD bool tc_conv(int tc) { return (tc & kConvBit) != 0; }
+
+// Flat position of node i's packed choice word, and i's 4-bit sub-slot in it.
+GOSSIP_HD uint32_t choice_word_index(int i) {
+  return (uint32_t)((i >> 10) * kLanes + (i & (kLanes - 1)));
+}
+GOSSIP_HD int choice_sub(int i) { return (i >> 7) & (kPack - 1); }
+
+// Node i's pool slot under the round key (k1, k2); pad lanes (i >= n)
+// choose no slot (-1).
+GOSSIP_HD int source_choice(uint32_t k1, uint32_t k2, int i, int n, int pool_size) {
+  if (i >= n) return -1;
+  return pool_slot(threefry_word(k1, k2, choice_word_index(i)), choice_sub(i), pool_size);
+}
+
+// Sources and their pool choices for the 8 destinations j0 + 128 * sub
+// (sub 0..7) of one packed-word column (rows 8q..8q+7 of one lane, j0 =
+// q * 1024 + lane) under the mod-n displacement d; returns the Threefry
+// words drawn. When all 8 sources are unwrapped (j0 >= d) or all wrapped
+// (the last destination < d), they are i0 + 128 * sub: one lane, 8
+// consecutive rows, so at most 2 packed words, drawn once each. Only the
+// column the wrap cuts through (j0 < d <= j0 + 896, one per lane) draws a
+// word per source.
+GOSSIP_HD int column_sources(int j0, int d, int n, uint32_t k1, uint32_t k2,
+                             int pool_size, int src[kPack], int ch[kPack]) {
+  const int last = j0 + (kPack - 1) * kLanes;
+  if (j0 >= d || last < d) {
+    const int i0 = class_source(j0, d, n);
+    const int r0 = i0 >> 7, lane = i0 & (kLanes - 1), wr = r0 >> 3;
+    const uint32_t wa = threefry_word(k1, k2, (uint32_t)(wr * kLanes + lane));
+    const uint32_t wb = threefry_word(k1, k2, (uint32_t)((wr + 1) * kLanes + lane));
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int sub = 0; sub < kPack; ++sub) {
+      const int r = r0 + sub;
+      src[sub] = i0 + sub * kLanes;
+      ch[sub] = src[sub] >= n ? -1
+                              : pool_slot((r >> 3) == wr ? wa : wb, r & (kPack - 1), pool_size);
+    }
+    return 2;
+  }
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+  for (int sub = 0; sub < kPack; ++sub) {
+    src[sub] = class_source(j0 + sub * kLanes, d, n);
+    ch[sub] = source_choice(k1, k2, src[sub], n, pool_size);
+  }
+  return kPack;
+}
+
+}  // namespace pool2
+}  // namespace gossip

@@ -5,7 +5,8 @@ chunks of ``cfg.chunk_rounds`` rounds through the pipelined chunk loop
 (models/pipeline.py), and returns a ``RunResult``. The engines are the JAX
 runner's:
 
-- the fused engines: the pool engine (ops/fused_pool.py) on ``full``,
+- the fused engines: the pool engine (ops/fused_pool.py) on ``full`` up to
+  2**21 nodes and the streaming pool engine (ops/fused_pool2.py) past it,
   the three lattice tiers on the lattices (whole-array resident,
   ops/fused.py; tiled resident, ops/fused_stencil.py; streaming,
   ops/fused_stencil_hbm.py) and the imp engine (ops/fused_imp.py, both imp
@@ -16,9 +17,8 @@ runner's:
   engine's counterpart.
 
 The fused tier is picked by the JAX runner's ladder (``fused_tier``), so a
-config lands on the tier the JAX package would give it; a tier whose
-kernels are not ported yet raises on CUDA and under ``engine="fused"``,
-naming its ROADMAP item. ``engine="auto"`` runs the kernels on CUDA and
+config lands on the tier the JAX package would give it, and every tier's
+kernels are ported. ``engine="auto"`` runs the kernels on CUDA and
 the chunked engine on the CPU; ``"fused"`` forces the fused engine (on the
 CPU, the plain versions); ``"chunked"`` forces the chunked engine. There
 is no degradation ladder: a kernel that fails to build or launch raises.
@@ -41,6 +41,7 @@ from ..ops import (
     fused_imp,
     fused_imp_hbm,
     fused_pool,
+    fused_pool2,
     fused_stencil,
     fused_stencil_hbm,
     rng,
@@ -277,10 +278,6 @@ def describe_device(device: torch.device) -> str:
     return str(device)
 
 
-# The JAX tiers not ported yet, with the ROADMAP item that ports each.
-_UNPORTED_TIERS = {"pool2": "B4"}
-
-
 def fused_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
     """The fused tier the JAX runner's ladder picks for this config, and
     None or the reason it cannot run there (models/runner.py of the JAX
@@ -296,7 +293,7 @@ def fused_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
     if topo.implicit:
         if topo.n <= fused_pool.MAX_POOL_NODES:
             return "pool", fused_pool.pool_fused_support(topo, cfg)
-        return "pool2", None
+        return "pool2", fused_pool2.pool2_support(topo, cfg)
     reason = fused.fused_support(topo, cfg)
     if reason is None:
         return "stencil", None
@@ -321,14 +318,6 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
     target = cfg.resolved_target_count(topo.n, topo.target_count)
     if cfg.engine != "chunked":
         variant, reason = fused_tier(topo, cfg)
-        if variant in _UNPORTED_TIERS and reason is None and (
-            cfg.engine == "fused" or device.type == "cuda"
-        ):
-            raise unported(
-                f"the fused {variant!r} tier ({topo.kind} n={topo.n}; "
-                "--engine chunked runs it on the chunked engine)",
-                _UNPORTED_TIERS[variant],
-            )
         if cfg.engine == "fused":
             if reason is not None:
                 raise ValueError(f"engine='fused' unavailable: {reason}")
@@ -403,14 +392,16 @@ class FusedEngine:
 
 def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
                  start_state=None) -> FusedEngine:
-    """The fused engine of tier ``variant`` ("pool", "stencil",
+    """The fused engine of tier ``variant`` ("pool", "pool2", "stencil",
     "stencil2", "stencil_hbm", "imp" or "imp_hbm")."""
     n = topo.n
     target = cfg.resolved_target_count(topo.n, topo.target_count)
-    if variant == "pool":
+    if variant in ("pool", "pool2"):
         layout = fused_pool.build_pool_layout(n)
-        pushsum_chunk, gossip_chunk = (fused_pool.pushsum_pool_chunk,
-                                       fused_pool.gossip_pool_chunk)
+        pushsum_chunk, gossip_chunk = (
+            (fused_pool.pushsum_pool_chunk, fused_pool.gossip_pool_chunk)
+            if variant == "pool" else
+            (fused_pool2.pushsum_pool2_chunk, fused_pool2.gossip_pool2_chunk))
         common = {"n": n, "target": target}
     elif variant in ("imp", "imp_hbm"):
         layout = fused_pool.build_pool_layout(n)
@@ -438,7 +429,7 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
         if variant.startswith("stencil"):
             return (keys,)
         offs = fused_pool.round_offsets(key, start, count, cfg.pool_size, n)
-        if variant == "pool":
+        if variant in ("pool", "pool2"):
             return keys, offs
         return keys, offs, fused_imp.choice_round_keys(key, start, count)
 

@@ -6,11 +6,11 @@ and its chunk wrappers.
 The CUDA kernels compute the same things on the device: the Threefry hash
 in csrc/threefry.cuh, the done flag, the round cap and the class-keyed
 delivery and absorb (``pushsum_class_rounds``, ``gossip_class_rounds``)
-inside csrc/fused_pool.cu, csrc/fused_stencil.cu, csrc/fused_resident.cu
-and csrc/fused_imp.cu. The whole-array tier's wrappers (``pushsum_chunk``,
-``gossip_chunk``) run csrc/fused_resident.cu, the kernel pair it shares
-with the tiled tier (ops/fused_stencil.py), on CUDA tensors and the
-lattice tiers' plain version on CPU tensors.
+inside csrc/fused_pool.cu, csrc/fused_pool2.cu, csrc/fused_stencil.cu,
+csrc/fused_resident.cu and csrc/fused_imp.cu. The whole-array tier's
+wrappers (``pushsum_chunk``, ``gossip_chunk``) run csrc/fused_resident.cu,
+the kernel pair it shares with the tiled tier (ops/fused_stencil.py), on
+CUDA tensors and the lattice tiers' plain version on CPU tensors.
 """
 
 from __future__ import annotations

@@ -40,8 +40,8 @@ from .sampling import (
 from .topology import Topology
 
 TILE = POOL_TILE_ROWS
-# The JAX engine's VMEM budget; larger populations run its streaming tier
-# (ops/fused_pool2.py), not ported yet (ROADMAP B4).
+# The JAX engine's VMEM budget; larger populations run the streaming pool
+# tier (ops/fused_pool2.py).
 MAX_POOL_NODES = 2**21
 POOL_SIZES = (2, 4, 8, 16)
 
@@ -75,7 +75,7 @@ def pool_fused_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
     if topo.n > MAX_POOL_NODES:
         return (
             f"population {topo.n} exceeds the pool engine's {MAX_POOL_NODES} "
-            "nodes; the streaming pool tier is ROADMAP B4"
+            "nodes; the streaming pool tier (ops/fused_pool2.py) runs it"
         )
     return None
 
@@ -209,13 +209,14 @@ def _upload(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return x.pin_memory().to(dev, non_blocking=True)
 
 
-def _launch(name: str, dev: torch.device, pointers, ints) -> None:
-    """Queue one chunk on the current stream of ``dev`` and raise on a
-    launch error. Buffers the caller drops after this returns stay safe:
-    torch's caching allocator hands their memory only to work queued later
-    on the same stream."""
+def _launch(source: str, name: str, argtypes, dev: torch.device, pointers,
+            ints) -> None:
+    """Queue one chunk through entry point ``name`` of csrc/<source>.cu on
+    the current stream of ``dev`` and raise on a launch error. Buffers the
+    caller drops after this returns stay safe: torch's caching allocator
+    hands their memory only to work queued later on the same stream."""
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    fn = kernels.entry("fused_pool", name, _SIGNATURES[name])
+    fn = kernels.entry(source, name, argtypes)
     err = fn(*[_ptr(x) for x in pointers], *ints, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
@@ -251,7 +252,8 @@ def pushsum_pool_chunk(state4, keys, offs, start: int, cap: int, *, n: int,
     ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
     scratch = torch.zeros(2 * (rounds + 1), dtype=torch.int32, device=dev)
     _launch(
-        "gossip_pushsum_pool_chunk", dev,
+        "fused_pool", "gossip_pushsum_pool_chunk", _SIGNATURES["gossip_pushsum_pool_chunk"],
+        dev,
         (*state4, *out, ds, dw, choice, keys, offs, ctrl, scratch),
         (n, n_pad, offs.shape[1], rounds, ctypes.c_float(delta), term_rounds,
          target),
@@ -279,7 +281,8 @@ def gossip_pool_chunk(state3, keys, offs, start: int, cap: int, *, n: int,
     ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
     scratch = torch.zeros(2 * (rounds + 1), dtype=torch.int32, device=dev)
     _launch(
-        "gossip_gossip_pool_chunk", dev,
+        "fused_pool", "gossip_gossip_pool_chunk", _SIGNATURES["gossip_gossip_pool_chunk"],
+        dev,
         (*state3, *out, mark, keys, offs, ctrl, scratch),
         (n, n_pad, offs.shape[1], rounds, rumor_target, int(suppress), target),
     )

@@ -9,9 +9,7 @@ must all be equal, push-sum s/w bitwise (same float32 op order).
 And the dispatch: on a CUDA device (stubbed here, never touched) a config
 the JAX ladder gives to a resident lattice tier goes to that fused tier,
 and under engine="fused" on the CPU it runs there and equals the chunked
-engine; a config on a tier whose kernels are not ported yet raises
-NotImplementedError naming its ROADMAP item, on CUDA and under
-engine="fused", instead of running on another engine."""
+engine."""
 
 import numpy as np
 import pytest
@@ -179,27 +177,6 @@ def test_resident_tiers_dispatch_on_cuda_and_run_under_fused(kind, n, algorithm,
         if x.dtype == torch.float32:
             x, y = x.view(torch.int32), y.view(torch.int32)
         assert torch.equal(x, y)
-
-
-@pytest.mark.parametrize("kind,n,algorithm,tier,item", [
-    ("full", 2**21 + 1, "gossip", "pool2", "B4"),
-])
-def test_unported_tiers_raise_on_cuda_and_under_fused(kind, n, algorithm, tier,
-                                                      item, stub_cuda):
-    topo = build_topology(kind, n)
-    delivery = "pool" if kind == "full" else "auto"
-    for engine in ("auto", "fused"):
-        cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, engine=engine,
-                        delivery=delivery, pool_size=2)
-        assert runner.fused_tier(topo, cfg)[0] == tier
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}") as e:
-            run(topo, cfg)
-        assert "--engine chunked" in str(e.value)
-    if kind != "full":
-        # And engine="fused" on the CPU refuses it too.
-        cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, engine="fused")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            run(topo, cfg, device="cpu")
 
 
 def test_lattice_configs_outside_the_slice_name_roadmap_items():
