@@ -77,10 +77,24 @@ non-zero before the last line:
    2,097,153, both algorithms, 64 rounds on the card against the CPU's
    chunked engine (rounds, converged count, final state) and to
    convergence against the JAX chunked engine's rounds and estimate;
-13. each kernel's time per chunk by CUDA events, beside its plain version's
-   and the least time the card could take for the same work.
+13. each shard kernel of the replicated-pool2 composition (every shard on
+   the card) against its plain version, one round on every shard from the
+   initial state and from a mid-run state, at full 16,777,216 in 2 shards
+   (the all_gather wire) and 4 (the reduce_scatter wire) and 16,777,217 in
+   2 (65,535 pad lanes); every plane and every shard's count bitwise;
+14. the sharded path through ``run(devices=["cuda:0"] * S)``, counters
+   zeroed before each run and read after it: full 16,777,216 in 2 and 4
+   shards and 2**27 in 4, both algorithms, to convergence, each bitwise the
+   single-device streaming pool run of phase 12 (rounds, converged count,
+   every plane), push-sum mass conserved; at 16,777,216 in 4 also gossip
+   with the verdict not deferred, push-sum on the all_gather wire, and a
+   resume from the converged gossip state (0 rounds, state unchanged);
+15. each kernel's time per chunk by CUDA events, beside its plain version's
+   and the least time the card could take for the same work; the shard
+   kernels per super-step (every shard's launch) at 16,777,216 in 4, with
+   the wire's copies timed apart.
 
-Each of phases 5-12 prints its wall time.
+Each of phases 5-14 prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -89,6 +103,7 @@ Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import functools
 import json
 import statistics
@@ -995,7 +1010,8 @@ def pool2_path(dev):
     POOL2_CPU_N, both algorithms, POOL2_CPU_ROUNDS rounds on the card
     against the CPU's chunked engine, and to convergence against the JAX
     chunked engine's record. Returns each row's launches over its 2**24
-    run."""
+    run, and {(n, algorithm): (rounds, converged count, final state on the
+    host)} of the 2**24 and 2**27 runs for the sharded phase."""
     import contextlib
     import io
 
@@ -1007,7 +1023,7 @@ def pool2_path(dev):
 
     counters = {"pushsum": fused_pool2.pushsum_pool2_chunk,
                 "gossip": fused_pool2.gossip_pool2_chunk}
-    launches = {}
+    launches, single = {}, {}
 
     def zero():
         for fn in counters.values():
@@ -1052,6 +1068,8 @@ def pool2_path(dev):
                     raise AssertionError(f"full n={n} push-sum did not conserve its mass")
             if n == POOL2_TIMED:
                 launches[name] = counts[name]
+            single[n, algorithm] = (res.rounds, res.converged_count,
+                                    tuple(x.cpu() for x in res.state))
             del res
         del topo
         torch.cuda.empty_cache()
@@ -1099,6 +1117,228 @@ def pool2_path(dev):
                                  f"engine's {want}")
         print(f"  full n={POOL2_CPU_N} {name} to convergence on the card: {res.rounds} "
               f"rounds, estimate_mae {res.estimate_mae}, the JAX chunked engine's", flush=True)
+    return launches, single
+
+
+# The replicated-pool2 composition (parallel/pool2_sharded.py), its shards
+# all on the one card: the kernel checks at (n, shards, the wire the plan
+# picks) from the initial and the POOL2_MID state (16,777,217 has 65,535 pad
+# lanes, so its tiles straddle the mod-n wrap); the runs through run(), each
+# against the single-device streaming pool run of phase 12; and the timed
+# super-step.
+SHARD_CASES = ((2**24, 2, "all_gather"), (2**24, 4, "reduce_scatter"),
+               (2**24 + 1, 2, "all_gather"))
+SHARD_RUNS = ((2**24, 2), (2**24, 4), (2**27, 4))
+SHARD_TIMED = (2**24, 4)
+
+
+def shard_planes(planes, algorithm, rows_loc, shards):
+    """The streaming pool tier's padded planes, (s, w, term, conv) or
+    (count, active, conv), as each shard's (s, w, term|conv) or (count,
+    active) rows."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded
+
+    if algorithm == "push-sum":
+        s, w, term, conv = planes
+        tc = torch.where(conv != 0, term | pool2_sharded.TC_CONV_BIT, term)
+        planes = (s, w, tc.to(torch.int32))
+    else:
+        planes = planes[:2]
+    return [tuple(p[i * rows_loc:(i + 1) * rows_loc].contiguous() for p in planes)
+            for i in range(shards)]
+
+
+def shard_case(dev, key, n, shards, algorithm):
+    """The shard kernel's wrapper, its plain version and their keywords,
+    the plan, and wire(planes, offs) -> each shard's delivered summary."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded as p2s
+
+    topo = build_topology("full", n)
+    cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=POOL,
+                    n_devices=shards, engine="fused")
+    rows_loc, PT, layout, wire = p2s.plan_pool2_sharded(topo, cfg, shards)
+    devices = [dev] * shards
+    kw = {"n": n, "rows": layout.rows}
+    if algorithm == "push-sum":
+        fns = (p2s.pushsum_pool2_shard_round, p2s.pushsum_pool2_shard_round_plain)
+        kw.update(delta=cfg.resolved_delta, term_rounds=cfg.term_rounds)
+        windowed = (0, 1)
+    else:
+        fns = (p2s.gossip_pool2_shard_round, p2s.gossip_pool2_shard_round_plain)
+        kw.update(rumor_target=cfg.resolved_rumor_target, suppress=cfg.resolved_suppress)
+        windowed = (1,)
+
+    def wire_of(planes, offs):
+        summary = [[planes[i][p] for i in range(shards)] for p in windowed]
+        if wire == "all_gather":
+            return p2s.gather_wire(summary, PT, devices, POOL)
+        return p2s.band_wire(summary, offs, layout, devices)
+
+    return (*fns, kw, rows_loc, wire, wire_of)
+
+
+def shard_round(kern, kw, planes, wires, keys, offs, rows_loc, outs, us, accs, ctrl):
+    """One super-step's shard launches (no wire, no verdict) into outs/us."""
+    for i, planes_i in enumerate(planes):
+        kern(planes_i, outs[i], wires[i], keys, offs, i * rows_loc, **kw, u=us[i],
+             acc=accs[i], ctrl=ctrl)
+    return outs, us
+
+
+def shard_checks(dev, key):
+    """Phase 13: each shard kernel against its plain version on the card,
+    one round on every shard from the initial state and from the POOL2_MID
+    state, at each of SHARD_CASES; every plane and every shard's converged
+    count bitwise. Returns the timed case's operands {name: ...} and
+    {name: max_abs_err}."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool
+
+    cases, max_err = {}, {}
+    for n, shards, want_wire in SHARD_CASES:
+        print(f"shard kernels vs plain versions at full n = {n:,}, {shards} shards:",
+              flush=True)
+        for name, algorithm in (("pushsum", "push-sum"), ("gossip", "gossip")):
+            kern, plain, kw, rows_loc, wire, wire_of = shard_case(dev, key, n, shards,
+                                                                  algorithm)
+            if wire != want_wire:
+                raise AssertionError(f"n={n} x{shards}: the plan picks {wire}")
+            p2_kern, _, chunk, init = pool2_case(dev, key, n, algorithm)
+            mid_round = POOL2_MID[name]
+            mid, ex = chunk(p2_kern, init, 0, mid_round)
+            if int(ex) != mid_round:
+                raise AssertionError(f"n={n} {name}: converged before round {mid_round}")
+            for label, state, rnd in (("init", init, 0), ("mid-run", mid, mid_round)):
+                planes = shard_planes(state, algorithm, rows_loc, shards)
+                keys = fused.round_keys(key, rnd, 1)[0].tolist()
+                offs = fused_pool.round_offsets(key, rnd, 1, POOL, n)[0].tolist()
+                wires = wire_of(planes, offs)
+                outs = [tuple(torch.empty_like(x) for x in p) for p in planes]
+                us = [torch.zeros(1, dtype=torch.int32, device=dev) for _ in planes]
+                accs = [torch.zeros(2, dtype=torch.int32, device=dev) for _ in planes]
+                ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
+                shard_round(kern, kw, planes, wires, keys, offs, rows_loc, outs, us,
+                            accs, ctrl)
+                err, total = 0.0, 0
+                for i, planes_i in enumerate(planes):
+                    want, want_u = plain(planes_i, wires[i], keys, offs, i * rows_loc,
+                                         **kw)
+                    if int(us[i][0]) != int(want_u):
+                        raise AssertionError(f"n={n} {name} {label} shard {i}: u "
+                                             f"{int(us[i][0])} != plain {int(want_u)}")
+                    for got, exp in zip(outs[i], want):
+                        same = (torch.equal(got.view(torch.int32), exp.view(torch.int32))
+                                if got.dtype == torch.float32 else torch.equal(got, exp))
+                        if not same:
+                            raise AssertionError(f"n={n} {name} {label} shard {i}: a "
+                                                 "plane differs from plain")
+                        if got.dtype == torch.float32:
+                            err = max(err, (got - exp).abs().max().item())
+                    total += int(want_u)
+                print(f"  {name} {label} ({wire}): every shard bitwise, converged "
+                      f"{total}, max_abs_err {err}", flush=True)
+                max_err[name] = max(max_err.get(name, 0.0), err)
+                if (n, shards) == SHARD_TIMED and label == "mid-run":
+                    cases[name] = (kern, plain, kw, rows_loc, wire_of, planes, keys, offs,
+                                   outs, us, accs, ctrl, n)
+                del wires
+            del init, mid
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return cases, max_err
+
+
+def shard_path(dev, single):
+    """Phase 14: the sharded path through run(devices=[card] * S), counters
+    zeroed before each run and read after it: SHARD_RUNS, both algorithms,
+    to convergence, each bitwise the single-device streaming pool run of
+    phase 12 (rounds, converged count, every plane), push-sum mass
+    conserved; at SHARD_TIMED also gossip with the verdict not deferred and
+    push-sum on the all_gather wire, and a resume from the converged gossip
+    state (0 rounds, state unchanged). Returns each row's launches over its
+    SHARD_TIMED run."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.models.runner import sharded_tier
+    from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded as p2s
+
+    counters = {"pushsum": p2s.pushsum_pool2_shard_round,
+                "gossip": p2s.gossip_pool2_shard_round}
+    launches = {}
+
+    def drive(topo, cfg, shards, label, **kw):
+        for fn in counters.values():
+            fn.launches = 0
+        res = run(topo, cfg, devices=[dev] * shards, **kw)
+        counts = {k: fn.launches for k, fn in counters.items()}
+        rounds, count, state = single[cfg.n, cfg.algorithm]
+        print(json.dumps({
+            "metric": f"{label}_pool2_sharded_full_n{cfg.n}_x{shards}",
+            "wire": p2s.plan_pool2_sharded(topo, cfg, shards)[3],
+            "overlap_collectives": cfg.overlap_collectives,
+            "rounds": res.rounds, "single_device_rounds": rounds,
+            "run_s": res.run_s, "rounds_per_s": res.rounds / max(res.run_s, 1e-9),
+            "setup_s": res.setup_s, "compile_s": res.compile_s,
+            "dispatch_s": res.dispatch_s, "fetch_s": res.fetch_s,
+            "finalize_s": res.finalize_s, "chunks_retired": len(res.chunk_log),
+            "converged_count": res.converged_count, "estimate_mae": res.estimate_mae,
+            "launches": counts, "device": res.device,
+        }), flush=True)
+        if not res.device.startswith("cuda"):
+            raise AssertionError(f"{label} n={cfg.n} x{shards} did not run on the card")
+        if "start_state" not in kw and counts[label] == 0:
+            raise AssertionError(f"{label} n={cfg.n} x{shards} never launched its kernel")
+        if (res.rounds, res.converged_count) != (rounds, count) or not res.converged:
+            raise AssertionError(
+                f"{label} n={cfg.n} x{shards}: {res.rounds} rounds, {res.converged_count} "
+                f"converged != the single-device run's {rounds}, {count}")
+        for got, want in zip(res.state, state):
+            got = got.cpu()
+            same = (torch.equal(got.view(torch.int32), want.view(torch.int32))
+                    if got.dtype == torch.float32 else torch.equal(got, want))
+            if not same:
+                raise AssertionError(f"{label} n={cfg.n} x{shards}: a final plane "
+                                     "differs from the single-device run's")
+        if cfg.algorithm == "push-sum":
+            n = cfg.n
+            err_w = abs(res.state.w.double().sum().item() - n) / n
+            err_s = abs(res.state.s.double().sum().item() - n * (n - 1) / 2) / (n * (n - 1) / 2)
+            if not (err_w < 1e-5 and err_s < 1e-5):
+                raise AssertionError(f"n={n} x{shards} push-sum did not conserve its mass")
+        print(f"  {label} n={cfg.n:,} x{shards}: {res.rounds} rounds, bitwise the "
+              "single-device run", flush=True)
+        return res, counts
+
+    for n, shards in SHARD_RUNS:
+        topo = build_topology("full", n)
+        for name, algorithm in (("gossip", "gossip"), ("pushsum", "push-sum")):
+            cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=POOL,
+                            n_devices=shards, engine="fused")
+            if sharded_tier(topo, cfg) != ("pool2_sharded", None, "B13"):
+                raise AssertionError(f"n={n} x{shards}: the ladder picks "
+                                     f"{sharded_tier(topo, cfg)}")
+            res, counts = drive(topo, cfg, shards, name)
+            if (n, shards) != SHARD_TIMED:
+                del res
+                continue
+            launches[name] = counts[name]
+            if name == "gossip":
+                again, _ = drive(topo, cfg, shards, name, start_state=res.state,
+                                 start_round=res.rounds)
+                if again.rounds != res.rounds:
+                    raise AssertionError("a run from the converged state ran rounds")
+                drive(topo, dataclasses.replace(cfg, overlap_collectives=False), shards,
+                      name)
+            else:
+                drive(topo, dataclasses.replace(cfg, pool2_wire="all_gather"), shards,
+                      name)
+            del res
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1144,7 +1384,9 @@ def main() -> int:
         print(f"  {name}: nvcc {seconds:.2f} s -> {lib.name}")
         log = lib.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else ()):
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                print(f"    {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
 
     # ---------------------------------------------------------------- 3
@@ -1257,7 +1499,7 @@ def main() -> int:
         print(f"  1000-node {name}: card == CPU chunked engine "
               f"(rounds {a.rounds}, estimate_mae {a.estimate_mae})")
 
-    # ---------------------------------------- 5, 6, 7, 8, 9, 10, 11, 12
+    # -------------------------------- 5, 6, 7, 8, 9, 10, 11, 12, 13, 14
     def phase(number, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
@@ -1273,11 +1515,14 @@ def main() -> int:
         resident_cases, resident_err = phase(9, resident_checks, dev, key)
         resident_launches = phase(10, resident_path, dev)
         pool2_cases, pool2_err = phase(11, pool2_checks, dev, key)
-        pool2_launches = phase(12, pool2_path, dev)
+        pool2_launches, pool2_single = phase(12, pool2_path, dev)
+        shard_cases, shard_err = phase(13, shard_checks, dev, key)
+        shard_launches = phase(14, shard_path, dev, pool2_single)
+        del pool2_single
     except (AssertionError, RuntimeError) as e:
         return fail(str(e))
 
-    # --------------------------------------------------------------- 13
+    # --------------------------------------------------------------- 15
     rows = []
     replaces = {"pushsum": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:860",
                 "gossip": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:1157"}
@@ -1419,6 +1664,36 @@ def main() -> int:
             **timed[name], "library_ms": None,
             "at_cap": timed[f"{name}_cap"], "status": "ported",
         })
+    # Rows 20-21: one whole super-step (every shard's launch) at SHARD_TIMED
+    # from the mid-run state, its wire's copies timed apart.
+    replaces = {"pushsum": "cop5615_gossip_protocol_tpu/parallel/pool2_sharded.py:591",
+                "gossip": "cop5615_gossip_protocol_tpu/parallel/pool2_sharded.py:836"}
+    for name in ("pushsum", "gossip"):
+        algo = "push-sum" if name == "pushsum" else "gossip"
+        (kern, plain, kw, rows_loc, wire_of, planes, keys, offs, outs, us, accs, ctrl,
+         n) = shard_cases[name]
+        wires = wire_of(planes, offs)
+        ms, _ = time_ms(lambda: shard_round(kern, kw, planes, wires, keys, offs,
+                                            rows_loc, outs, us, accs, ctrl), TIME_REPS)
+        wire_ms, _ = time_ms(lambda: wire_of(planes, offs), TIME_REPS)
+        plain_ms, _ = time_ms(lambda: [plain(p, wires[i], keys, offs, i * rows_loc, **kw)
+                                       for i, p in enumerate(planes)], 2)
+        n_pad = sum(p[0].numel() for p in planes)
+        moved = pool2_bytes_per_node(algo, POOL) * n_pad + 16 + 8 * POOL
+        ops = n_pad * pool2_ops_per_node(algo, POOL)
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        rows.append({
+            "name": f"{name}_pool2_shard_round", "route": "cuda",
+            "source": "cop5615_gossip_protocol_tpu_torch/csrc/fused_pool2_shard.cu",
+            "replaces": replaces[name],
+            "launches": shard_launches[name], "max_abs_err": shard_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "rounds_per_call": 1, "us_per_round": ms * 1e3,
+            "shards": len(planes), "wire_ms": wire_ms, "population": n,
+            "status": "ported",
+        })
+        del wires
     print(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

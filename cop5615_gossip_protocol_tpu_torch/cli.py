@@ -27,8 +27,7 @@ from .config import SimConfig, normalize_algorithm, normalize_topology
 UNPORTED_FLAGS = {
     "--backend": "A11", "--dtype": "A12", "--x64": "A12",
     "--termination": "A6", "--deadline-ms": "A12",
-    "--overlap-collectives": "A10", "--halo-dma": "A10",
-    "--pool2-wire": "A10", "--devices": "A10", "--distributed": "A10",
+    "--halo-dma": "A10", "--distributed": "A10",
     "--coordinator": "A10", "--num-processes": "A10", "--process-id": "A10",
     "--replicas": "A9", "--fault-rate": "A6", "--crash-rate": "A6",
     "--crash-schedule": "A6", "--revive-rate": "A6",
@@ -90,6 +89,21 @@ def build_parser() -> argparse.ArgumentParser:
                    "auto: fused on CUDA, chunked on the CPU")
     p.add_argument("--platform", choices=["cuda", "cpu"], default="cuda",
                    help="device to run on; cpu must be asked for")
+    p.add_argument("--devices", type=int, default=None,
+                   help="shard the node dimension over this many devices "
+                   "(shard i on cuda:i, so N visible cards are needed; with "
+                   "--engine fused, full and --delivery pool past 2**21 "
+                   "nodes this runs the replicated-pool2 composition)")
+    p.add_argument("--pool2-wire", choices=["auto", "reduce_scatter", "all_gather"],
+                   default="auto",
+                   help="delivery wire of the replicated-pool2 composition: "
+                   "reduce_scatter delivers each shard only the summary bands "
+                   "its pool-slot windows read, all_gather the whole summary "
+                   "copy; auto picks reduce_scatter when devices > pool size")
+    p.add_argument("--overlap-collectives", choices=["on", "off"], default="on",
+                   help="on: the sharded composition's termination verdict is "
+                   "read one round late, with exact rollback; off: after every "
+                   "round. Rounds and state are identical either way")
     p.add_argument("--jsonl", type=str, default=None,
                    help="append the structured run record to this JSONL file")
     p.add_argument("--quiet", action="store_true",
@@ -149,6 +163,9 @@ def main(argv: Optional[list[str]] = None) -> int:
             delivery=args.delivery,
             pool_size=args.pool_size,
             engine=args.engine,
+            n_devices=args.devices,
+            pool2_wire=args.pool2_wire,
+            overlap_collectives=args.overlap_collectives == "on",
         )
         print(metrics.banner(cfg))
         t0 = time.perf_counter()

@@ -5,7 +5,9 @@ package's ``SimConfig``, so a run record from either package carries the
 same config keys. The port runs push-sum and gossip on the implicit
 ``full`` topology and on imp2d/imp3d with ``delivery="pool"``, and on the
 six arithmetic lattices (line, ring, grid2d, ref2d, grid3d, torus3d) with
-stencil delivery; every other field keeps its default here, and setting it
+stencil delivery. ``n_devices``, ``pool2_wire`` and ``overlap_collectives``
+configure the sharded compositions (models/runner.run says which run);
+every other field keeps its default here, and setting it
 to anything else raises NotImplementedError naming the ROADMAP item that
 will port it.
 """
@@ -66,9 +68,7 @@ _UNPORTED = (
     ("step_timing", False, "A8"),
     ("strict_checkpoint", False, "A8"),
     ("replicas", 1, "A9"),
-    ("overlap_collectives", True, "A10"),
     ("halo_dma", "auto", "A10"),
-    ("pool2_wire", "auto", "A10"),
     ("plan", "hand", "A11"),
     ("strict_engine", False, "A12"),
 )
@@ -219,8 +219,11 @@ class SimConfig:
             value = getattr(self, field)
             if value != default:
                 raise unported(f"{field}={value!r}", item)
-        if self.n_devices not in (None, 1):
-            raise unported(f"n_devices={self.n_devices!r}", "A10")
+        if self.pool2_wire not in ("auto", "reduce_scatter", "all_gather"):
+            raise ValueError(
+                f"unknown pool2_wire {self.pool2_wire!r}; expected "
+                "auto|reduce_scatter|all_gather"
+            )
         if self.topology in ("imp2d", "imp3d"):
             if self.delivery == "stencil":
                 raise ValueError(
@@ -295,6 +298,15 @@ class SimConfig:
         if self.suppress_converged is not None:
             return self.suppress_converged
         return self.reference
+
+    def resolved_pool2_wire(self, n_devices: int) -> str:
+        """Delivery wire of the replicated-pool2 composition on
+        ``n_devices`` shards: "auto" picks the banded reduce_scatter wire
+        exactly when every band is smaller than the gathered copy
+        (n_devices > pool_size); an explicit value forces either wire."""
+        if self.pool2_wire != "auto":
+            return self.pool2_wire
+        return "reduce_scatter" if n_devices > self.pool_size else "all_gather"
 
     def resolved_target_count(self, population: int, builder_target: int) -> int:
         """Number of converged nodes that ends the run."""

@@ -60,6 +60,7 @@ using gossip::kBlock;
 using gossip::pool2::column_sources;
 using gossip::pool2::kLanes;
 using gossip::pool2::kPack;
+using gossip::pool2::local_column_origin;
 
 struct PushSumPool2 {
   float* s;
@@ -71,11 +72,6 @@ struct GossipPool2 {
   int* count;
   int* active;
 };
-
-// First destination of packed-word column `col`: rows 8q..8q+7, one lane.
-__device__ __forceinline__ int column_origin(int col) {
-  return (col >> 7) * (kPack * kLanes) + (col & (kLanes - 1));
-}
 
 // ---------------------------------------------------------------- push-sum
 
@@ -108,7 +104,7 @@ __global__ void pushsum_pool2_round(PushSumPool2 cur, PushSumPool2 nxt,
   int c = 0;
   for (int col = blockIdx.x * kBlock + threadIdx.x; col < n_cols;
        col += gridDim.x * kBlock) {
-    const int j0 = column_origin(col);
+    const int j0 = local_column_origin(col);
     float in_s[kPack], in_w[kPack];
 #pragma unroll
     for (int sub = 0; sub < kPack; ++sub) in_s[sub] = in_w[sub] = 0.0f;
@@ -185,7 +181,7 @@ __global__ void gossip_pool2_round(GossipPool2 cur, GossipPool2 nxt,
   int c = 0;
   for (int col = blockIdx.x * kBlock + threadIdx.x; col < n_cols;
        col += gridDim.x * kBlock) {
-    const int j0 = column_origin(col);
+    const int j0 = local_column_origin(col);
     int inbox[kPack];
 #pragma unroll
     for (int sub = 0; sub < kPack; ++sub) inbox[sub] = 0;

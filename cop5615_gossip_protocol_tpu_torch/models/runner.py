@@ -1,4 +1,4 @@
-"""Single-device round-loop harness.
+"""Round-loop harness.
 
 ``run`` drives one simulation to convergence (or ``cfg.max_rounds``) in
 chunks of ``cfg.chunk_rounds`` rounds through the pipelined chunk loop
@@ -14,7 +14,10 @@ runner's:
   their plain torch versions on the CPU;
 - the chunked torch engine: one torch round per loop step on [n] tensors
   (sampling, pool, stencil or imp pool delivery, absorb), the JAX chunked
-  engine's counterpart.
+  engine's counterpart;
+- with ``n_devices > 1``, the sharded composition the JAX ladder picks
+  (``sharded_tier``): the replicated-pool2 one (parallel/pool2_sharded.py)
+  runs, every other is refused naming its ROADMAP item.
 
 The fused tier is picked by the JAX runner's ladder (``fused_tier``), so a
 config lands on the tier the JAX package would give it, and every tier's
@@ -303,16 +306,79 @@ def fused_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
     return variant, reason
 
 
+def sharded_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str], str]:
+    """The composition the JAX runner's ladder picks for an n_devices > 1
+    config (models/runner.py of the JAX package), the reason it cannot run
+    there (None if the JAX package would run it), and the ROADMAP item that
+    ports it. ``engine="fused"`` on implicit ``full`` with pool delivery
+    tries the VMEM replicated composition (``fused_pool_sharded``, up to
+    the pool engine's 2**21 nodes) and then the replicated-pool2 one
+    (``pool2_sharded``, ported), else both plans' reasons; the imp kinds
+    go to ``imp_hbm_sharded``, the lattices to the resident or streaming
+    lattice compositions; any other engine to the sharded XLA engine
+    (``sharded``)."""
+    from ..parallel.fused_pool_sharded import plan_fused_pool_sharded
+    from ..parallel.pool2_sharded import plan_pool2_sharded
+
+    S = cfg.n_devices
+    if cfg.engine != "fused":
+        return "sharded", None, "A10"
+    if topo.implicit:
+        plan_vmem = plan_fused_pool_sharded(topo, cfg, S)
+        if not isinstance(plan_vmem, str):
+            return "fused_pool_sharded", None, "A10"
+        plan_p2 = plan_pool2_sharded(topo, cfg, S)
+        if not isinstance(plan_p2, str):
+            return "pool2_sharded", None, "B13"
+        return "pool2_sharded", (
+            f"engine='fused' with n_devices={S} unavailable: VMEM pool "
+            f"composition: {plan_vmem}; replicated-pool2 composition: {plan_p2}"
+        ), "B13"
+    if topo.kind in IMP_LATTICE:
+        return "imp_hbm_sharded", None, "B12"
+    return "stencil_sharded", None, "B10, B11"
+
+
+_SHARDED_NAMES = {
+    "sharded": "the sharded XLA engine (run_sharded; --devices with "
+               "--engine fused on full with --delivery pool runs the "
+               "replicated-pool2 composition)",
+    "fused_pool_sharded": "the VMEM replicated pool composition "
+                          "(parallel/fused_pool_sharded.py, full up to "
+                          "2**21 nodes)",
+    "imp_hbm_sharded": "the imp x HBM x sharded composition "
+                       "(parallel/fused_imp_hbm_sharded.py)",
+    "stencil_sharded": "the fused x sharded lattice compositions "
+                       "(parallel/fused_sharded.py, "
+                       "parallel/fused_hbm_sharded.py)",
+}
+
+
 def run(topo: Topology, cfg: SimConfig, key=None, device=None,
-        start_state=None, start_round: int = 0) -> RunResult:
+        start_state=None, start_round: int = 0, devices=None) -> RunResult:
     """Run one simulation to convergence or cfg.max_rounds.
 
     ``device`` is "cuda" (the default) or "cpu"; with no GPU and no
     explicit CPU request this raises instead of running on the CPU.
     ``key`` is the base key (default ``rng.PRNGKey(cfg.seed)``);
     ``start_state``/``start_round`` resume from a canonical state at an
-    absolute round, on the same trajectory (round keys are absolute)."""
+    absolute round, on the same trajectory (round keys are absolute).
+
+    With ``cfg.n_devices > 1`` the run is sharded over that many shards:
+    ``devices`` names each shard's device (``["cuda:0"] * 4`` puts four on
+    one card, ``["cpu"] * 4`` on the CPU); without it shard i goes to
+    device i of ``device``'s kind, which must be visible
+    (parallel/mesh.make_mesh). The composition is the JAX ladder's
+    (``sharded_tier``); the replicated-pool2 one runs, every other
+    refuses naming its ROADMAP item."""
     t_enter = time.perf_counter()
+    sharded = cfg.n_devices is not None and cfg.n_devices > 1
+    if devices is not None and not sharded:
+        raise ValueError("devices places the shards of an n_devices > 1 run; "
+                         f"n_devices is {cfg.n_devices}")
+    if sharded:
+        return _run_sharded(topo, cfg, key, device, devices, start_state,
+                            start_round, t_enter)
     device = resolve_device(device)
     key = rng.PRNGKey(cfg.seed) if key is None else key
     target = cfg.resolved_target_count(topo.n, topo.target_count)
@@ -328,6 +394,25 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
                               start_round, target, t_enter, variant)
     return _run_chunked(topo, cfg, key, device, start_state, start_round,
                         target, t_enter)
+
+
+def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
+                 t_enter) -> RunResult:
+    from ..parallel import mesh as mesh_mod
+    from ..parallel.pool2_sharded import run_pool2_sharded
+
+    tier, reason, item = sharded_tier(topo, cfg)
+    if reason is not None:
+        raise ValueError(reason)
+    if tier != "pool2_sharded":
+        raise unported(f"n_devices={cfg.n_devices} with engine={cfg.engine!r} "
+                       f"on {topo.kind}: {_SHARDED_NAMES[tier]}", item)
+    mesh = mesh_mod.make_mesh(
+        cfg.n_devices, devices,
+        platform=resolve_device(device).type if devices is None else "cuda")
+    key = rng.PRNGKey(cfg.seed) if key is None else key
+    return run_pool2_sharded(topo, cfg, mesh, key, start_state, start_round,
+                             t_enter)
 
 
 def _to_device(state, device):

@@ -49,8 +49,9 @@ def pool2_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
     if topo.n > MAX_POOL2_NODES:
         return (
             f"population {topo.n} exceeds the HBM-plane budget "
-            f"({MAX_POOL2_NODES} nodes); sharding past it across devices is "
-            "ROADMAP A10 (its kernels B13)"
+            f"({MAX_POOL2_NODES} nodes); n_devices > 1 with engine='fused' "
+            "shards the aggregate past it (the replicated-pool2 composition, "
+            "parallel/pool2_sharded.py)"
         )
     return None
 

@@ -1,0 +1,63 @@
+"""The replicated-pool2 composition's two delivery wires, as in-process
+copies: the counterparts of the JAX package's parallel/halo.py
+``scatter_band_rows`` (its banded reduce_scatter plus margin ppermute) and
+of ``parallel/pool2_sharded.py``'s gather ``exchange`` (one all_gather plus
+the mirrored margin rows).
+
+Shard i owns global rows [i * rows_loc, (i + 1) * rows_loc) of a windowed
+summary plane (push-sum's raw s and w, gossip's active plane). Every copy
+lands on the destination shard's device, with no assumption that it is the
+source's; shards that share a device share one gathered copy.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def band_segments(rows_loc: int, n_dev: int) -> int:
+    """Segment count of the JAX package's banded reduce_scatter wire
+    (gcd(rows_loc, n_dev)); its plan budgets one segment's send buffer."""
+    return math.gcd(rows_loc, n_dev)
+
+
+def band_rows(shards, start: int, count: int, device) -> torch.Tensor:
+    """Rows [start, start + count) of the global plane, wrapped mod its row
+    count R, copied from the shards that own them onto ``device``."""
+    rows_loc = shards[0].shape[0]
+    R = rows_loc * len(shards)
+    out = torch.empty((count,) + tuple(shards[0].shape[1:]),
+                      dtype=shards[0].dtype, device=device)
+    g, done = start % R, 0
+    while done < count:
+        owner, r = divmod(g, rows_loc)
+        take = min(rows_loc - r, count - done)
+        out[done:done + take].copy_(shards[owner][r:r + take], non_blocking=True)
+        g, done = (g + take) % R, done + take
+    return out
+
+
+def scatter_band_rows(items, rows_loc: int, margin: int, devices) -> list:
+    """The reduce_scatter wire: for each destination shard s, one
+    [rows_loc + margin, 128] band per (shards, base) item, the global rows
+    [(s * rows_loc + base) mod R, + rows_loc + margin) of that plane (the
+    rows the shard's pool-slot windows read: its core rows, shifted by the
+    slot's band start ``base``, plus the margin). Returns bands[s][item]."""
+    return [[band_rows(shards, s * rows_loc + base, rows_loc + margin, dev)
+             for shards, base in items]
+            for s, dev in enumerate(devices)]
+
+
+def gather_rows(shards, margin: int, devices) -> list:
+    """The all_gather wire: each destination shard's [R + margin, 128] copy
+    of the whole plane, its rows [R, R + margin) mirroring rows [0, margin)
+    (the JAX exchange's margin-extended copy). One copy per distinct
+    destination device; returns copies[s]."""
+    R = shards[0].shape[0] * len(shards)
+    by_device = {}
+    for dev in devices:
+        if dev not in by_device:
+            by_device[dev] = band_rows(shards, 0, R + margin, dev)
+    return [by_device[dev] for dev in devices]

@@ -52,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys; before = set(sys.modules); "
         "import cop5615_gossip_protocol_tpu_torch.cli, "
-        "cop5615_gossip_protocol_tpu_torch.bench; "
+        "cop5615_gossip_protocol_tpu_torch.bench, "
+        "cop5615_gossip_protocol_tpu_torch.parallel.pool2_sharded; "
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cop5615_gossip_protocol_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -123,7 +124,7 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
 def test_unported_config_fields_name_roadmap_items():
     for kw, item in (({"fault_rate": 0.1}, "A6"), ({"dup_rate": 0.1}, "A7"),
                      ({"termination": "global"}, "A6"),
-                     ({"dtype": "float64"}, "A12"), ({"n_devices": 2}, "A10"),
+                     ({"dtype": "float64"}, "A12"), ({"halo_dma": "on"}, "A10"),
                      ({"topology": "ring", "delivery": "scatter"}, "A7"),
                      ({"topology": "imp3d", "delivery": "auto"}, "A7")):
         fields = {"n": 100, "algorithm": "push-sum", "delivery": "pool", **kw}
