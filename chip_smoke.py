@@ -89,12 +89,33 @@ non-zero before the last line:
    every plane), push-sum mass conserved; at 16,777,216 in 4 also gossip
    with the verdict not deferred, push-sum on the all_gather wire, and a
    resume from the converged gossip state (0 rounds, state unchanged);
+14a. each shard kernel of the resident sharded lattice composition
+   (parallel/fused_sharded.py, every shard on the card) against its plain
+   version, one super-step on every shard from the initial state and from
+   a mid-run state, at torus3d 100**3 in 2 and 4 shards, grid2d 1000**2 in
+   2 (non-wrap, pad lanes) and ring 131,072 in 2; every extended plane and
+   every shard's per-round counts bitwise;
+14b. the same for the streaming sharded lattice composition
+   (parallel/fused_hbm_sharded.py) at torus3d 256**3 in 2 and 4 shards,
+   215**3 in 4 (23,097 pad lanes, across the mod-n blend) and grid2d
+   4096**2 in 4;
+14c. the sharded lattice path through ``run(devices=["cuda:0"] * S)``,
+   counters zeroed before each run and read after it: torus3d 100**3
+   gossip and push-sum in 2 and 4 shards to convergence, each at the JAX
+   schedule's first super-step boundary at or after phase 10's
+   single-device round (push-sum mass conserved), gossip at
+   chunk_rounds=1 bitwise phase 10's run, with the verdict not deferred,
+   and resumed from its converged state (0 rounds); torus3d 256**3 gossip
+   in 4 shards against phase 6's round; torus3d 215**3 push-sum in 4
+   shards, 2,000 rounds at chunk_rounds=1, bitwise phase 6's sample;
 15. each kernel's time per chunk by CUDA events, beside its plain version's
    and the least time the card could take for the same work; the shard
    kernels per super-step (every shard's launch) at 16,777,216 in 4, with
-   the wire's copies timed apart.
+   the wire's copies timed apart; the sharded lattice kernels per
+   super-step at torus3d 100**3 in 2 (resident) and 256**3 in 4
+   (streaming), the ring wire's copies timed apart.
 
-Each of phases 5-14 prints its wall time.
+Each of phases 5-14c prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -359,7 +380,9 @@ def lattice_checks(dev, key):
 def lattice_path(dev):
     """Phase 6: the lattice path through run(), counters zeroed before each
     run and read after it; then 130**3 on the card against the CPU's
-    chunked engine. Returns the launches of each run."""
+    chunked engine. Returns the launches of each run and {(n, algorithm):
+    (rounds, converged count, final state on the host)} of the torus3d
+    runs for the sharded lattice phase."""
     import torch
 
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
@@ -368,7 +391,7 @@ def lattice_path(dev):
 
     counters = {"pushsum": hbm.pushsum_stencil_hbm_chunk,
                 "gossip": hbm.gossip_stencil_hbm_chunk}
-    launches = {}
+    launches, single = {}, {}
     runs = (("gossip", SimConfig(n=LATTICE_N, topology="torus3d", algorithm="gossip")),
             ("pushsum", SimConfig(n=LATTICE_PS_N, topology="torus3d",
                                   algorithm="push-sum", max_rounds=LATTICE_PS_ROUNDS)))
@@ -409,6 +432,8 @@ def lattice_path(dev):
                   f"sum s {mass_s} (rel err {err_s})", flush=True)
             if not (err_w < 1e-5 and err_s < 1e-5):
                 raise AssertionError("215**3 push-sum did not conserve its mass")
+        single[cfg.n, cfg.algorithm] = (res.rounds, res.converged_count,
+                                        tuple(x.cpu() for x in res.state))
         del topo, res
     topo = build_topology("torus3d", LATTICE_CPU_N)
     for name, algorithm in (("gossip", "gossip"), ("pushsum", "push-sum")):
@@ -428,7 +453,7 @@ def lattice_path(dev):
                 f"{t2 - t1:.2f} s CPU)",
                 (tuple(x.cpu() for x in a.state), a.rounds),
                 (tuple(b.state), b.rounds), 2 if name == "pushsum" else 0)
-    return launches
+    return launches, single
 
 
 # The imp phases: (kind, requested n, the JAX ladder's tier) for the kernel
@@ -746,7 +771,9 @@ def resident_path(dev):
     chunked engine; then RESIDENT_RUNS to convergence on the card, push-sum
     with its mass conserved, the first run's first PREFIX_ROUNDS rounds
     also against the CPU's chunked engine.
-    Returns each row's launches over its main-path run."""
+    Returns each row's launches over its main-path run and {(n,
+    algorithm): (rounds, converged count, final state on the host)} of the
+    torus3d runs for the sharded lattice phase."""
     import contextlib
     import io
 
@@ -756,7 +783,7 @@ def resident_path(dev):
     from cop5615_gossip_protocol_tpu_torch.models.runner import fused_tier
 
     counters = resident_wrappers()
-    launches = {}
+    launches, single = {}, {}
 
     def zero():
         for fn in counters.values():
@@ -851,8 +878,11 @@ def resident_path(dev):
                                  f"{res.rounds}, {res.estimate_mae} != the JAX "
                                  f"chunked engine's {want}")
         launches[name, tier] = counts[name, tier]
+        if kind == "torus3d":
+            single[n, algorithm] = (res.rounds, res.converged_count,
+                                    tuple(x.cpu() for x in res.state))
     torch.cuda.synchronize()
-    return launches
+    return launches, single
 
 
 # The streaming pool phases: the tier's first population (65,535 pad lanes
@@ -1342,6 +1372,285 @@ def shard_path(dev, single):
     return launches
 
 
+# The sharded lattice compositions, every shard on the one card: the
+# resident one (parallel/fused_sharded.py, row 15) and the streaming one
+# (parallel/fused_hbm_sharded.py, rows 16-17). The kernel checks at (kind,
+# n, shards), each the tier the ladder must pick, run one super-step on
+# every shard from the initial state and from a mid-run state (the
+# single-device run's planes after STENCIL_SHARD_MID rounds), of the plan's
+# CR rounds or STENCIL_SHARD_ROUNDS when fewer; the timed super-steps are
+# those at STENCIL_SHARD_TIMED, from the mid-run state.
+STENCIL_SHARD_CASES = {
+    "fused_sharded": (("torus3d", 1_000_000, 2), ("torus3d", 1_000_000, 4),
+                      ("grid2d", 1_000_000, 2), ("ring", 131_072, 2)),
+    "stencil_hbm_sharded": (("torus3d", 2**24, 2), ("torus3d", 2**24, 4),
+                            ("torus3d", 215**3, 4), ("grid2d", 2**24, 4)),
+}
+STENCIL_SHARD_ROUNDS = 8
+STENCIL_SHARD_MID = {"pushsum": 300, "gossip": 100}
+STENCIL_SHARD_TIMED = {"fused_sharded": ("torus3d", 1_000_000, 2),
+                       "stencil_hbm_sharded": ("torus3d", 2**24, 4)}
+# The resident tier's runs: torus3d at phase 10's population.
+STENCIL_SHARD_RUN_N = 1_000_000
+
+
+def stencil_shard_case(dev, key, topo, kind, n, shards, algorithm, tier):
+    """The tier's wrapper and keywords for one config, its geometry, and
+    the global start and mid-run planes on the card (the single-device
+    engine's, in the pool layout both use)."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig
+    from cop5615_gossip_protocol_tpu_torch.models.runner import (
+        fused_engine, fused_tier, sharded_tier)
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_hbm_sharded as fh
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_sharded as fs
+
+    cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, engine="fused",
+                    n_devices=shards)
+    if sharded_tier(topo, cfg) != (tier, None, {"fused_sharded": "B10",
+                                                "stencil_hbm_sharded": "B11"}[tier]):
+        raise AssertionError(f"{kind} n={n} x{shards} {algorithm}: the ladder picks "
+                             f"{sharded_tier(topo, cfg)}")
+    plan = (fs.vmem_tier if tier == "fused_sharded" else fh.hbm_tier)(topo, cfg, shards)
+    kw = fs.protocol_kw(topo, cfg, plan.geom, plan.rolls)
+    single = SimConfig(n=n, topology=kind, algorithm=algorithm)
+    eng = fused_engine(topo, single, key, fused_tier(topo, single)[0])
+    if eng.layout.rows != plan.geom.R:
+        raise AssertionError(f"{kind} n={n}: layouts differ")
+    init = tuple(p.contiguous().to(dev) for p in eng.planes)
+    mid_round = STENCIL_SHARD_MID["pushsum" if algorithm == "push-sum" else "gossip"]
+    mid, ex = eng.chunk(init, eng.streams(0, mid_round), 0, mid_round)
+    if int(ex) != mid_round:
+        raise AssertionError(f"{kind} n={n} {algorithm}: converged before {mid_round}")
+    torch.cuda.synchronize()
+    fn = plan.pushsum if algorithm == "push-sum" else plan.gossip
+    return fn, kw, plan, init, mid, mid_round
+
+
+def shard_buffers(planes, geom, shards, marks):
+    """Per shard: its extended planes cut from the global ``planes`` (row
+    r of shard s is global row (row0_s + r) mod R), and its out, y, mark,
+    u, ctrl and bar buffers."""
+    import torch
+
+    dev = planes[0].device
+    out = []
+    for s in range(shards):
+        rows = (geom.row0(s) + torch.arange(geom.rows_ext, device=dev)) % geom.R
+        ext = tuple(p.index_select(0, rows).contiguous() for p in planes)
+        out.append({
+            "ext": ext, "out": tuple(torch.empty_like(x) for x in ext),
+            "y": tuple(torch.empty_like(x) for x in ext),
+            "mark": torch.empty(marks * geom.rows_ext * 128, dtype=torch.int8, device=dev),
+            "u": torch.zeros(geom.cr + 1, dtype=torch.int32, device=dev),
+            "ctrl": torch.zeros(2, dtype=torch.int32, device=dev),
+            "bar": torch.zeros(2, dtype=torch.int32, device=dev),
+        })
+    return out
+
+
+def lattice_shard_step(fn, kw, plan, bufs, keys, rounds):
+    """One super-step's shard calls (no wire, no verdict) into each
+    shard's out and u."""
+    for s, b in enumerate(bufs):
+        extra = {"bar": b["bar"]} if plan.marks == 2 else {}
+        fn(b["ext"], b["out"], b["y"], b["mark"], keys, rounds, plan.geom.row0(s),
+           **kw, u=b["u"], ctrl=b["ctrl"], **extra)
+
+
+def stencil_shard_checks(dev, key, tier):
+    """Phases 14a (the resident tier) and 14b (the streaming tier): each
+    shard kernel against its plain version on the card, one super-step on
+    every shard from the initial and the mid-run state at each of
+    STENCIL_SHARD_CASES[tier]; every extended plane and every shard's u
+    bitwise. Returns the timed case's operands {name: ...} and {name:
+    max_abs_err}."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import build_topology
+    from cop5615_gossip_protocol_tpu_torch.ops import fused
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_sharded as fs
+
+    cases, max_err = {}, {}
+    for kind, n, shards in STENCIL_SHARD_CASES[tier]:
+        t0 = time.perf_counter()
+        topo = build_topology(kind, n)
+        print(f"{tier} shard kernels vs plain versions at {kind} n = {topo.n:,}, "
+              f"{shards} shards (built in {time.perf_counter() - t0:.2f} s):", flush=True)
+        for name, algorithm in (("pushsum", "push-sum"), ("gossip", "gossip")):
+            fn, kw, plan, init, mid, mid_round = stencil_shard_case(
+                dev, key, topo, kind, n, shards, algorithm, tier)
+            geom = plan.geom
+            rounds = min(geom.cr, STENCIL_SHARD_ROUNDS)
+            for label, state, rnd in (("init", init, 0), ("mid-run", mid, mid_round)):
+                bufs = shard_buffers(state, geom, shards, plan.marks)
+                keys = fused.round_keys(key, rnd, rounds).to(dev)
+                lattice_shard_step(fn, kw, plan, bufs, keys, rounds)
+                err = 0.0
+                for s, b in enumerate(bufs):
+                    want, want_u = fs.shard_superstep_plain(b["ext"], keys, rounds,
+                                                            geom.row0(s), **kw)
+                    if not torch.equal(b["u"].cpu(), want_u):
+                        raise AssertionError(f"{kind} n={n} x{shards} {name} {label} shard "
+                                             f"{s}: u {b['u'].tolist()} != plain "
+                                             f"{want_u.tolist()}")
+                    for got, exp in zip(b["out"], want):
+                        same = (torch.equal(got.view(torch.int32), exp.view(torch.int32))
+                                if got.dtype == torch.float32 else torch.equal(got, exp))
+                        if not same:
+                            raise AssertionError(f"{kind} n={n} x{shards} {name} {label} "
+                                                 f"shard {s}: a plane differs from plain")
+                        if got.dtype == torch.float32:
+                            err = max(err, (got - exp).abs().max().item())
+                print(f"  {name} {label} (H {geom.H}, CR {geom.cr}, {rounds} rounds): every "
+                      f"shard bitwise, middle converged "
+                      f"{sum(int(b['u'][rounds - 1]) for b in bufs)}, max_abs_err {err}",
+                      flush=True)
+                max_err[name] = max(max_err.get(name, 0.0), err)
+                if STENCIL_SHARD_TIMED[tier] == (kind, n, shards) and label == "mid-run":
+                    cases[name] = (fn, kw, plan, bufs, keys, rounds, len(topo.offsets))
+                else:
+                    del bufs
+            del init, mid
+        del topo
+        fs._shard_slots.cache_clear()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return cases, max_err
+
+
+def stencil_shard_path(dev, single):
+    """Phase 14c: the sharded lattice path through run(devices=[card] * S),
+    counters zeroed before each run and read after it. torus3d 1,000,000
+    gossip and push-sum in 2 and 4 shards (the resident tier) to
+    convergence, each at the JAX schedule's first super-step boundary at or
+    after phase 10's single-device round, push-sum with its mass
+    conserved; gossip at chunk_rounds=1 bitwise phase 10's run (rounds,
+    converged count, every plane); gossip x4 with the verdict not deferred
+    equal to the deferred run, and a resume from the converged gossip state
+    (0 rounds, state unchanged); torus3d 2**24 gossip in 4 shards (the
+    streaming tier) to convergence against phase 6's round; torus3d 215**3
+    push-sum in 4 shards, LATTICE_PS_ROUNDS rounds at chunk_rounds=1,
+    bitwise phase 6's sample and conserving its mass. Returns each
+    kernel's launches over its main-path run."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.models.runner import sharded_tier
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_hbm_sharded as fh
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_sharded as fs
+    from cop5615_gossip_protocol_tpu_torch.parallel import overlap
+
+    counters = {("pushsum", "fused_sharded"): fs.pushsum_stencil_shard_superstep,
+                ("gossip", "fused_sharded"): fs.gossip_stencil_shard_superstep,
+                ("pushsum", "stencil_hbm_sharded"): fh.pushsum_stencil_hbm_shard_superstep,
+                ("gossip", "stencil_hbm_sharded"): fh.gossip_stencil_hbm_shard_superstep}
+    launches = {}
+
+    def boundary(rounds, cr, stride, start=0):
+        b = start
+        while b < rounds:
+            b = overlap.next_boundary(b, start, stride, cr, 10**9)
+        return b
+
+    def drive(topo, cfg, label, want, **kw):
+        for fn in counters.values():
+            fn.launches = 0
+        tier, _, _ = sharded_tier(topo, cfg)
+        plan = (fs.vmem_tier if tier == "fused_sharded" else fh.hbm_tier)(
+            topo, cfg, cfg.n_devices)
+        res = run(topo, cfg, devices=[dev] * cfg.n_devices, **kw)
+        counts = {f"{k[0]}_{k[1]}": fn.launches for k, fn in counters.items()}
+        rounds, count, state = want
+        start = kw.get("start_round", 0)
+        expect = (rounds if cfg.max_rounds <= rounds
+                  else boundary(rounds, plan.geom.cr, plan.stride, start))
+        print(json.dumps({
+            "metric": f"{label}_{tier}_{cfg.topology}_n{cfg.n}_x{cfg.n_devices}",
+            "H": plan.geom.H, "cr": plan.geom.cr, "stride": plan.stride,
+            "overlap_collectives": cfg.overlap_collectives,
+            "rounds": res.rounds, "single_device_rounds": rounds,
+            "expected_rounds": expect, "run_s": res.run_s,
+            "rounds_per_s": res.rounds / max(res.run_s, 1e-9),
+            "setup_s": res.setup_s, "compile_s": res.compile_s,
+            "dispatch_s": res.dispatch_s, "fetch_s": res.fetch_s,
+            "finalize_s": res.finalize_s, "chunks_retired": len(res.chunk_log),
+            "converged_count": res.converged_count, "estimate_mae": res.estimate_mae,
+            "launches": counts, "device": res.device,
+        }), flush=True)
+        if not res.device.startswith("cuda"):
+            raise AssertionError(f"{label} n={cfg.n} x{cfg.n_devices} did not run on the card")
+        if "start_state" not in kw and counts[f"{label}_{tier}"] == 0:
+            raise AssertionError(f"{label} n={cfg.n} never launched its {tier} kernel")
+        if res.rounds != expect or not rounds <= res.rounds <= rounds + plan.geom.cr:
+            raise AssertionError(f"{label} n={cfg.n} x{cfg.n_devices}: {res.rounds} rounds, "
+                                 f"not the boundary {expect} after {rounds}")
+        if res.rounds == rounds:
+            if res.converged_count != count:
+                raise AssertionError(f"{label} n={cfg.n}: converged {res.converged_count} "
+                                     f"!= {count}")
+            for got, exp in zip(res.state, state):
+                got = got.cpu()
+                same = (torch.equal(got.view(torch.int32), exp.view(torch.int32))
+                        if got.dtype == torch.float32 else torch.equal(got, exp))
+                if not same:
+                    raise AssertionError(f"{label} n={cfg.n} x{cfg.n_devices}: a final "
+                                         "plane differs from the single-device run's")
+        if cfg.algorithm == "push-sum":
+            n = cfg.n
+            err_w = abs(res.state.w.double().sum().item() - n) / n
+            err_s = abs(res.state.s.double().sum().item() - n * (n - 1) / 2) / (
+                n * (n - 1) / 2)
+            if not (err_w < 1e-5 and err_s < 1e-5):
+                raise AssertionError(f"{label} n={n} x{cfg.n_devices} lost mass")
+        print(f"  {label} {cfg.topology} n={cfg.n:,} x{cfg.n_devices} ({tier}, CR "
+              f"{plan.geom.cr}): {res.rounds} rounds (single-device {rounds})"
+              + (", bitwise the single-device run" if res.rounds == rounds else ""),
+              flush=True)
+        return res, counts
+
+    topo = build_topology("torus3d", STENCIL_SHARD_RUN_N)
+    for name, algorithm in (("gossip", "gossip"), ("pushsum", "push-sum")):
+        want = single["resident"][STENCIL_SHARD_RUN_N, algorithm]
+        for shards in (2, 4):
+            cfg = SimConfig(n=STENCIL_SHARD_RUN_N, topology="torus3d", algorithm=algorithm,
+                            engine="fused", n_devices=shards)
+            res, counts = drive(topo, cfg, name, want)
+            if (name, shards) == ("gossip", 2):
+                launches["gossip", "fused_sharded"] = counts["gossip_fused_sharded"]
+                again, _ = drive(topo, cfg, name, (res.rounds, res.converged_count,
+                                                   tuple(x.cpu() for x in res.state)),
+                                 start_state=res.state, start_round=res.rounds)
+                if again.rounds != res.rounds:
+                    raise AssertionError("a run from the converged state ran rounds")
+                drive(topo, dataclasses.replace(cfg, chunk_rounds=1), name, want)
+            if (name, shards) == ("pushsum", 2):
+                launches["pushsum", "fused_sharded"] = counts["pushsum_fused_sharded"]
+            if (name, shards) == ("gossip", 4):
+                serial, _ = drive(topo, dataclasses.replace(cfg, overlap_collectives=False),
+                                  name, want)
+                if serial.rounds != res.rounds:
+                    raise AssertionError("the verdict's schedule changed the rounds")
+            del res
+    del topo
+    topo = build_topology("torus3d", LATTICE_N)
+    cfg = SimConfig(n=LATTICE_N, topology="torus3d", algorithm="gossip", engine="fused",
+                    n_devices=4)
+    _, counts = drive(topo, cfg, "gossip", single["lattice"][LATTICE_N, "gossip"])
+    launches["gossip", "stencil_hbm_sharded"] = counts["gossip_stencil_hbm_sharded"]
+    del topo
+    topo = build_topology("torus3d", LATTICE_PS_N)
+    cfg = SimConfig(n=LATTICE_PS_N, topology="torus3d", algorithm="push-sum",
+                    engine="fused", n_devices=4, chunk_rounds=1,
+                    max_rounds=LATTICE_PS_ROUNDS)
+    _, counts = drive(topo, cfg, "pushsum", single["lattice"][LATTICE_PS_N, "push-sum"])
+    launches["pushsum", "stencil_hbm_sharded"] = counts["pushsum_stencil_hbm_sharded"]
+    del topo
+    torch.cuda.empty_cache()
+    return launches
+
+
 def fail(msg: str) -> int:
     print(f"FAILED: {msg}", file=sys.stderr)
     return 1
@@ -1509,16 +1818,24 @@ def main() -> int:
 
     try:
         lattice_cases, lattice_err = phase(5, lattice_checks, dev, key)
-        lattice_launches = phase(6, lattice_path, dev)
+        lattice_launches, lattice_single = phase(6, lattice_path, dev)
         imp_cases, imp_err = phase(7, imp_checks, dev, key)
         imp_launches = phase(8, imp_path, dev)
         resident_cases, resident_err = phase(9, resident_checks, dev, key)
-        resident_launches = phase(10, resident_path, dev)
+        resident_launches, resident_single = phase(10, resident_path, dev)
         pool2_cases, pool2_err = phase(11, pool2_checks, dev, key)
         pool2_launches, pool2_single = phase(12, pool2_path, dev)
         shard_cases, shard_err = phase(13, shard_checks, dev, key)
         shard_launches = phase(14, shard_path, dev, pool2_single)
         del pool2_single
+        stencil_shard_cases, stencil_shard_err = {}, {}
+        for part, tier in (("14a", "fused_sharded"), ("14b", "stencil_hbm_sharded")):
+            stencil_shard_cases[tier], stencil_shard_err[tier] = phase(
+                part, stencil_shard_checks, dev, key, tier)
+        stencil_shard_launches = phase(
+            "14c", stencil_shard_path, dev,
+            {"lattice": lattice_single, "resident": resident_single})
+        del lattice_single, resident_single
     except (AssertionError, RuntimeError) as e:
         return fail(str(e))
 
@@ -1694,6 +2011,56 @@ def main() -> int:
             "status": "ported",
         })
         del wires
+    # Rows 15-17: one super-step (every shard's call) at STENCIL_SHARD_TIMED
+    # from the mid-run state, the ring wire's copies timed apart.
+    from cop5615_gossip_protocol_tpu_torch.parallel import halo
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_sharded as fs
+
+    replaces = {
+        ("pushsum", "fused_sharded"):
+            "cop5615_gossip_protocol_tpu/parallel/fused_sharded.py:448",
+        ("gossip", "fused_sharded"):
+            "cop5615_gossip_protocol_tpu/parallel/fused_sharded.py:448",
+        ("pushsum", "stencil_hbm_sharded"):
+            "cop5615_gossip_protocol_tpu/parallel/fused_hbm_sharded.py:773",
+        ("gossip", "stencil_hbm_sharded"):
+            "cop5615_gossip_protocol_tpu/parallel/fused_hbm_sharded.py:1069"}
+    sources = {"fused_sharded": "csrc/fused_stencil_shard.cu",
+               "stencil_hbm_sharded": "csrc/fused_stencil_hbm_shard.cu"}
+    for tier in ("fused_sharded", "stencil_hbm_sharded"):
+        for name in ("pushsum", "gossip"):
+            algo = "push-sum" if name == "pushsum" else "gossip"
+            fn, kw, plan, bufs, keys, rounds, classes = stencil_shard_cases[tier][name]
+            ms, _ = time_ms(lambda: lattice_shard_step(fn, kw, plan, bufs, keys, rounds),
+                            TIME_REPS)
+            wire = halo.ring_exchange([b["ext"] for b in bufs], plan.geom.H,
+                                      plan.geom.rows_loc)
+            wire_ms, _ = time_ms(lambda: halo.exchange_rows_batched(wire), TIME_REPS)
+            plain_ms, _ = time_ms(lambda: [
+                fs.shard_superstep_plain(b["ext"], keys, rounds, plan.geom.row0(s), **kw)
+                for s, b in enumerate(bufs)], 2)
+            n_ext = sum(b["ext"][0].numel() for b in bufs)
+            # Each shard's extended planes read once and written once, the
+            # keys read; every slot's per-round work each round.
+            moved = STATE_BYTES[name] * n_ext + 16 * rounds + 4 * len(bufs) * (plan.geom.cr + 1)
+            ops = rounds * n_ext * stencil_ops_per_node(algo, classes)
+            bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+            kind, n, shards = STENCIL_SHARD_TIMED[tier]
+            rows.append({
+                "name": f"{name}_{tier}_superstep", "route": "cuda",
+                "source": f"cop5615_gossip_protocol_tpu_torch/{sources[tier]}",
+                "replaces": replaces[name, tier],
+                "launches": stencil_shard_launches[name, tier],
+                "max_abs_err": stencil_shard_err[tier][name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None, "rounds_per_call": rounds,
+                "us_per_round": ms * 1e3 / rounds, "shards": shards, "H": plan.geom.H,
+                "cr": plan.geom.cr, "wire_ms": wire_ms, "population": n,
+                "topology": kind, "status": "ported",
+            })
+            del wire
+            fs._shard_slots.cache_clear()
     print(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

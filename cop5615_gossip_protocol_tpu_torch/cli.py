@@ -92,8 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--devices", type=int, default=None,
                    help="shard the node dimension over this many devices "
                    "(shard i on cuda:i, so N visible cards are needed; with "
-                   "--engine fused, full and --delivery pool past 2**21 "
-                   "nodes this runs the replicated-pool2 composition)")
+                   "--engine fused this runs the replicated-pool2 composition "
+                   "on full with --delivery pool past 2**21 nodes, and the "
+                   "resident or streaming halo composition on the lattices)")
     p.add_argument("--pool2-wire", choices=["auto", "reduce_scatter", "all_gather"],
                    default="auto",
                    help="delivery wire of the replicated-pool2 composition: "
@@ -102,8 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "copy; auto picks reduce_scatter when devices > pool size")
     p.add_argument("--overlap-collectives", choices=["on", "off"], default="on",
                    help="on: the sharded composition's termination verdict is "
-                   "read one round late, with exact rollback; off: after every "
-                   "round. Rounds and state are identical either way")
+                   "read one super-step late, with exact rollback; off: after "
+                   "every super-step. Rounds and state are identical either way")
     p.add_argument("--jsonl", type=str, default=None,
                    help="append the structured run record to this JSONL file")
     p.add_argument("--quiet", action="store_true",

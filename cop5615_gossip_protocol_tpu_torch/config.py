@@ -274,6 +274,15 @@ class SimConfig:
         return self.semantics == "reference"
 
     @property
+    def faulted(self) -> bool:
+        """Any failure-model knob set (the JAX property the fused plans
+        gate on; every such knob is refused above until A6 and A7b)."""
+        return (self.fault_rate > 0.0 or self.crash_rate > 0.0
+                or self.crash_schedule is not None or self.dup_rate > 0.0
+                or self.delay_rounds > 0 or self.byzantine_rate > 0.0
+                or self.byzantine_schedule is not None)
+
+    @property
     def resolved_delta(self) -> float:
         """Push-sum stability threshold: the reference's 1e-10 is below the
         float32 ratio noise floor, so the float32 default is 1e-6; an

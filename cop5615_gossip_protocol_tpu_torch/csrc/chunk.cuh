@@ -2,7 +2,8 @@
 // csrc/fused_stencil.cu, csrc/fused_imp.cu and csrc/fused_resident.cu
 // share: the launch geometry, the converged count and done flag, the state
 // planes, the init and finish launches and the per-node absorb of each
-// protocol.
+// protocol; and the device-side verdict of the sharded compositions
+// (csrc/fused_pool2_shard.cu, csrc/fused_stencil_shard.cu).
 //
 // A chunk keeps its control words in `ctrl` (int32[2]: done, rounds
 // executed) and `scratch` (int32[2 * (rounds + 1)]: per-launch totals, then
@@ -225,6 +226,18 @@ __global__ void gossip_finish(GossipPlanes a, GossipPlanes b, int n_pad,
     a.active[j] = b.active[j];
     a.conv[j] = b.conv[j];
   }
+}
+
+// A sharded super-step's verdict, one thread: unless the run is done
+// (ctrl[0]), count the super-step's `executed` rounds in ctrl[1] and set
+// done once the shards' counts u[s * stride + index] sum to the target.
+__global__ void shard_verdict(const int* u, int stride, int shards, int index,
+                              int executed, int target, int* ctrl) {
+  if (ctrl[0]) return;
+  long long total = 0;
+  for (int s = 0; s < shards; ++s) total += u[s * stride + index];
+  ctrl[1] += executed;
+  ctrl[0] = total >= target ? 1 : 0;
 }
 
 }  // namespace gossip

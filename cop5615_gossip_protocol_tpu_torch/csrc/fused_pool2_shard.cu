@@ -19,8 +19,9 @@
 // at its start on the reduce_scatter wire (csrc/pool2.cuh, wire_index; the
 // wires are parallel/halo.py's copies). The launch writes the shard's new
 // planes and u, its converged count, to a device slot; a verdict launch
-// (pool2_shard_verdict) sums the shards' slots into the run's done flag and
-// round counter, and every launch returns at once once that flag is set.
+// (shard_verdict, csrc/chunk.cuh) sums the shards' slots into the run's
+// done flag and round counter, and every launch returns at once once that
+// flag is set.
 //
 // What bounds it on this card: memory traffic, as in csrc/fused_pool2.cu.
 // A round over a shard reads and writes its state once (push-sum 12 bytes
@@ -186,17 +187,6 @@ __global__ void gossip_pool2_shard_round(const int* n_in, const int* a_in,
   finish_shard_count(block_sum(c), p.acc, p.u);
 }
 
-// The round's verdict, one thread: unless the run is done, count the round
-// (ctrl[1]) and set done (ctrl[0]) once the shards' counts reach target.
-__global__ void pool2_shard_verdict(const int* u, int shards, int target,
-                                    int* ctrl) {
-  if (ctrl[0]) return;
-  long long total = 0;
-  for (int s = 0; s < shards; ++s) total += u[s];
-  ctrl[1] += 1;
-  ctrl[0] = total >= target ? 1 : 0;
-}
-
 // Blocks for a round launch over `work` columns: gossip::grid_for, with the
 // SMs' capacity asked once per kernel and device (a round is one launch,
 // so the query would otherwise cost every launch).
@@ -290,7 +280,8 @@ extern "C" int gossip_pool2_shard_verdict(const int* u, int shards, int target,
                                           void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  pool2_shard_verdict<<<1, 1, 0, (cudaStream_t)stream_ptr>>>(u, shards, target,
-                                                             ctrl);
+  // A super-step is one round; u holds one count per shard.
+  gossip::shard_verdict<<<1, 1, 0, (cudaStream_t)stream_ptr>>>(
+      u, 1, shards, 0, 1, target, ctrl);
   return (int)cudaGetLastError();
 }

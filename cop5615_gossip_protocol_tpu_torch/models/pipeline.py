@@ -15,7 +15,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -56,7 +56,8 @@ def _read(handle) -> tuple[int, bool]:
 
 
 def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
-               max_rounds: int, stride: int, depth: int) -> ChunkLoopResult:
+               max_rounds: int, stride: int, depth: int,
+               next_end: Optional[Callable[[int], int]] = None) -> ChunkLoopResult:
     """Drive ``dispatch(state, status, round_end) -> (state, status)`` to
     termination with up to ``depth`` chunks in flight.
 
@@ -66,7 +67,9 @@ def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
     stops early on its own termination predicate, and must be an overshoot
     no-op. A chunk queued at boundary k targets ``min(start + (k+1) *
     stride, max_rounds)``: the schedule of the serial loop, because a
-    non-terminal chunk always runs to its round_end."""
+    non-terminal chunk always runs to its round_end. ``next_end(end)``, if
+    given, replaces that schedule: the chunk after the one ending at
+    ``end`` ends at ``next_end(end)`` (at most max_rounds)."""
     depth = max(1, int(depth))
     inflight: collections.deque = collections.deque()
     head = (state0, status0)
@@ -83,7 +86,8 @@ def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
         while len(inflight) < depth and (
             last_end < max_rounds or (not inflight and retired == 0)
         ):
-            last_end = min(last_end + stride, max_rounds)
+            last_end = (min(last_end + stride, max_rounds) if next_end is None
+                        else min(next_end(last_end), max_rounds))
             t0 = time.perf_counter()
             head = dispatch(head[0], head[1], last_end)
             disp_s = time.perf_counter() - t0

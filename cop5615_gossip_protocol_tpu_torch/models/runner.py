@@ -17,7 +17,9 @@ runner's:
   engine's counterpart;
 - with ``n_devices > 1``, the sharded composition the JAX ladder picks
   (``sharded_tier``): the replicated-pool2 one (parallel/pool2_sharded.py)
-  runs, every other is refused naming its ROADMAP item.
+  and the resident and streaming lattice ones (parallel/fused_sharded.py,
+  parallel/fused_hbm_sharded.py) run, every other is refused naming its
+  ROADMAP item.
 
 The fused tier is picked by the JAX runner's ladder (``fused_tier``), so a
 config lands on the tier the JAX package would give it, and every tier's
@@ -313,11 +315,14 @@ def sharded_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str], st
     ports it. ``engine="fused"`` on implicit ``full`` with pool delivery
     tries the VMEM replicated composition (``fused_pool_sharded``, up to
     the pool engine's 2**21 nodes) and then the replicated-pool2 one
-    (``pool2_sharded``, ported), else both plans' reasons; the imp kinds
-    go to ``imp_hbm_sharded``, the lattices to the resident or streaming
-    lattice compositions; any other engine to the sharded XLA engine
-    (``sharded``)."""
+    (``pool2_sharded``), else both plans' reasons; the imp kinds go to
+    ``imp_hbm_sharded``; the lattices try the resident lattice composition
+    (``fused_sharded``) and then the streaming one (``stencil_hbm_sharded``),
+    else both plans' reasons; any other engine goes to the sharded XLA
+    engine (``sharded``)."""
+    from ..parallel.fused_hbm_sharded import plan_stencil_hbm_sharded
     from ..parallel.fused_pool_sharded import plan_fused_pool_sharded
+    from ..parallel.fused_sharded import plan_fused_sharded
     from ..parallel.pool2_sharded import plan_pool2_sharded
 
     S = cfg.n_devices
@@ -336,21 +341,28 @@ def sharded_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str], st
         ), "B13"
     if topo.kind in IMP_LATTICE:
         return "imp_hbm_sharded", None, "B12"
-    return "stencil_sharded", None, "B10, B11"
+    plan_vmem = plan_fused_sharded(topo, cfg, S)
+    if not isinstance(plan_vmem, str):
+        return "fused_sharded", None, "B10"
+    plan_hbm = plan_stencil_hbm_sharded(topo, cfg, S)
+    if not isinstance(plan_hbm, str):
+        return "stencil_hbm_sharded", None, "B11"
+    return "stencil_hbm_sharded", (
+        f"engine='fused' with n_devices={S} unavailable: VMEM composition: "
+        f"{plan_vmem}; HBM-streaming composition: {plan_hbm}"
+    ), "B11"
 
 
 _SHARDED_NAMES = {
     "sharded": "the sharded XLA engine (run_sharded; --devices with "
-               "--engine fused on full with --delivery pool runs the "
-               "replicated-pool2 composition)",
+               "--engine fused runs the replicated-pool2 composition on full "
+               "with --delivery pool and the lattice compositions on the "
+               "lattices)",
     "fused_pool_sharded": "the VMEM replicated pool composition "
                           "(parallel/fused_pool_sharded.py, full up to "
                           "2**21 nodes)",
     "imp_hbm_sharded": "the imp x HBM x sharded composition "
                        "(parallel/fused_imp_hbm_sharded.py)",
-    "stencil_sharded": "the fused x sharded lattice compositions "
-                       "(parallel/fused_sharded.py, "
-                       "parallel/fused_hbm_sharded.py)",
 }
 
 
@@ -369,8 +381,8 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
     one card, ``["cpu"] * 4`` on the CPU); without it shard i goes to
     device i of ``device``'s kind, which must be visible
     (parallel/mesh.make_mesh). The composition is the JAX ladder's
-    (``sharded_tier``); the replicated-pool2 one runs, every other
-    refuses naming its ROADMAP item."""
+    (``sharded_tier``); the replicated-pool2 and the lattice ones run,
+    every other refuses naming its ROADMAP item."""
     t_enter = time.perf_counter()
     sharded = cfg.n_devices is not None and cfg.n_devices > 1
     if devices is not None and not sharded:
@@ -399,20 +411,24 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
 def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
                  t_enter) -> RunResult:
     from ..parallel import mesh as mesh_mod
+    from ..parallel.fused_hbm_sharded import run_stencil_hbm_sharded
+    from ..parallel.fused_sharded import run_fused_sharded
     from ..parallel.pool2_sharded import run_pool2_sharded
 
     tier, reason, item = sharded_tier(topo, cfg)
     if reason is not None:
         raise ValueError(reason)
-    if tier != "pool2_sharded":
+    runs = {"pool2_sharded": run_pool2_sharded,
+            "fused_sharded": run_fused_sharded,
+            "stencil_hbm_sharded": run_stencil_hbm_sharded}
+    if tier not in runs:
         raise unported(f"n_devices={cfg.n_devices} with engine={cfg.engine!r} "
                        f"on {topo.kind}: {_SHARDED_NAMES[tier]}", item)
     mesh = mesh_mod.make_mesh(
         cfg.n_devices, devices,
         platform=resolve_device(device).type if devices is None else "cuda")
     key = rng.PRNGKey(cfg.seed) if key is None else key
-    return run_pool2_sharded(topo, cfg, mesh, key, start_state, start_round,
-                             t_enter)
+    return runs[tier](topo, cfg, mesh, key, start_state, start_round, t_enter)
 
 
 def _to_device(state, device):

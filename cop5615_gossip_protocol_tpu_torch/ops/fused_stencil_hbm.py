@@ -93,6 +93,62 @@ def stencil_spec(topo: Topology) -> StencilSpec:
                        tuple(int(d) for d in offs))
 
 
+def _lattice_params(topo: Topology):
+    """(dirs, wrap): ``dirs(idx)`` the lattice's direction pairs at global
+    node indices ``idx`` (``topology.lattice_dirs``), and whether the
+    lattice wraps (ring, torus3d: every direction live everywhere) or masks
+    its boundary faces instead (grid2d, grid3d, line, ref2d)."""
+    n, n_lat = topo.n, _n_lat(topo)
+    return ((lambda idx: lattice_dirs(topo.kind, n, n_lat, idx)),
+            topo.kind in ("ring", "torus3d"))
+
+
+def _centered_sq(e: int, rows: int) -> int:
+    """Centered row shift of a forward roll by ``e`` on a ``rows``-row
+    ring: the signed window displacement the JAX plans cluster on."""
+    q = e // LANES
+    return q - rows if q > rows // 2 else q
+
+
+def _plan_from_needs(needs, class_ds, PT: int, with_liveness: bool):
+    """The JAX streaming tiers' greedy window grouping, for the sharded
+    streaming plan's geometry (parallel/fused_hbm_sharded.py): ``needs``
+    are (class index, d, roll e, centered row shift sq, blend side) rows;
+    needs whose sq lie within one PT-row tile share a window of m_rows =
+    PT + 16 + round8(span) rows. Returns (classes, groups, M):
+    classes[ci] = (class_ds[ci], ((group, e, sq, take1), ...)), groups[gi]
+    = (sq_hi, m_rows, live), M = the largest m_rows. The port's kernels do
+    not stream windows; the plan's budgets are computed from these."""
+    order = sorted(range(len(needs)), key=lambda i: needs[i][3])
+    raw_groups = []
+    cur, lo, hi = [], 0, 0
+    for i in order:
+        sq = needs[i][3]
+        if cur and max(hi, sq) - min(lo, sq) <= PT:
+            cur.append(i)
+            lo, hi = min(lo, sq), max(hi, sq)
+        else:
+            if cur:
+                raw_groups.append((cur, lo, hi))
+            cur, lo, hi = [i], sq, sq
+    raw_groups.append((cur, lo, hi))
+    need_group, groups = {}, []
+    for gi, (members, lo, hi) in enumerate(raw_groups):
+        m_rows = PT + 16 + ((hi - lo + 7) // 8) * 8
+        conds = []
+        for i in members:
+            need_group[i] = gi
+            conds.append((needs[i][1], needs[i][4]))
+        live = None
+        if with_liveness and not any(t is None for _, t in conds):
+            live = conds
+        groups.append((hi, m_rows, live))
+    classes = [(d, tuple((need_group[i], needs[i][2], needs[i][3], needs[i][4])
+                         for i in range(len(needs)) if needs[i][0] == ci))
+               for ci, d in enumerate(class_ds)]
+    return classes, groups, max(m for _, m, _l in groups)
+
+
 def _sample_disp_dirs(bits: torch.Tensor, pairs):
     """Per-node sampled mod-n displacement and degree from the direction
     pairs, bitwise sampling.targets_explicit: slot = the unsigned word

@@ -1,8 +1,9 @@
-"""The replicated-pool2 composition's two delivery wires, as in-process
-copies: the counterparts of the JAX package's parallel/halo.py
-``scatter_band_rows`` (its banded reduce_scatter plus margin ppermute) and
-of ``parallel/pool2_sharded.py``'s gather ``exchange`` (one all_gather plus
-the mirrored margin rows).
+"""The sharded compositions' wires, as in-process copies: the counterparts
+of the JAX package's parallel/halo.py ``exchange_rows_batched`` (the
+lattice compositions' ring halo exchange, one ppermute pair for every
+plane), ``scatter_band_rows`` (the replicated-pool2 composition's banded
+reduce_scatter plus margin ppermute) and of ``parallel/pool2_sharded.py``'s
+gather ``exchange`` (one all_gather plus the mirrored margin rows).
 
 Shard i owns global rows [i * rows_loc, (i + 1) * rows_loc) of a windowed
 summary plane (push-sum's raw s and w, gossip's active plane). Every copy
@@ -61,3 +62,34 @@ def gather_rows(shards, margin: int, devices) -> list:
         if dev not in by_device:
             by_device[dev] = band_rows(shards, 0, R + margin, dev)
     return [by_device[dev] for dev in devices]
+
+
+def ring_exchange(sets, H: int, rows_loc: int) -> list:
+    """The ring halo wire over one extended plane set per shard (``sets[s]``
+    its planes, [rows_loc + 2H, 128] each, middle rows [H, H + rows_loc)):
+    each shard's left halo, rows [0, H), takes its left neighbour's last H
+    middle rows and its right halo its right neighbour's first H, in ring
+    order, which is global row order. Returns the copies as groups of
+    (destinations, sources), int32 views of the preallocated planes, one
+    group per (destination, source) device pair, for
+    ``exchange_rows_batched``; with 2 shards both neighbours are one
+    shard, and H may be a whole shard."""
+    S = len(sets)
+    groups = {}
+    for s, planes in enumerate(sets):
+        left, right = sets[(s - 1) % S], sets[(s + 1) % S]
+        for p, plane in enumerate(planes):
+            for dst, src in ((plane[:H], left[p][rows_loc:rows_loc + H]),
+                             (plane[H + rows_loc:], right[p][H:2 * H])):
+                dsts, srcs = groups.setdefault((dst.device, src.device), ([], []))
+                dsts.append(dst.view(torch.int32))
+                srcs.append(src.view(torch.int32))
+    return list(groups.values())
+
+
+def exchange_rows_batched(groups) -> None:
+    """Queue the ring wire's copies (``ring_exchange``'s groups), one
+    batched copy per group, into the preallocated halo rows: no
+    allocation, the same bytes as the JAX exchange."""
+    for dsts, srcs in groups:
+        torch._foreach_copy_(dsts, srcs, non_blocking=True)

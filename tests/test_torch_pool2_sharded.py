@@ -313,7 +313,8 @@ def test_ladder_matches_the_jax_ladder(n, S, pool_size, tier):
     ("full", 200_000, {"engine": "auto"}, NotImplementedError,
      ("ROADMAP A10", "run_sharded", "--devices")),
     ("full", 200_000, {"engine": "chunked"}, NotImplementedError, ("ROADMAP A10",)),
-    ("torus3d", 4096, {"delivery": "auto"}, NotImplementedError, ("ROADMAP B10, B11",)),
+    ("torus3d", 4096, {"delivery": "auto"}, ValueError,
+     ("unavailable: VMEM composition", "HBM-streaming composition")),
     ("imp3d", 4096, {}, NotImplementedError, ("ROADMAP B12",)),
     ("full", 16_777_217, {}, ValueError,
      ("unavailable: VMEM pool composition", "no processing tile divides")),
