@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards 4   # the sharded imp path across 4 cards
 
 Run from the root of a checkout. Phases, in order; any failed check exits
 non-zero before the last line:
@@ -108,17 +109,39 @@ non-zero before the last line:
    and resumed from its converged state (0 rounds); torus3d 256**3 gossip
    in 4 shards against phase 6's round; torus3d 215**3 push-sum in 4
    shards, 2,000 rounds at chunk_rounds=1, bitwise phase 6's sample;
+14d. each kernel of the sharded imp composition
+   (parallel/fused_imp_hbm_sharded.py, every shard on the card: a mark and
+   an absorb launch a shard a round) against its plain version, one round
+   on every shard from the initial state, from a mid-run state and from a
+   converged state, at imp3d 100**3 in 2 shards (48,576 pad lanes), imp2d
+   4096**2 and imp3d 256**3 in 4, push-sum also at pool_size 16, and imp3d
+   520**3 in 4 (past the single-device cap) from the initial state; every
+   shard's planes and count bitwise, and the ladder must pick the sharded
+   imp composition for each;
+14e. the sharded imp path through ``run(devices=["cuda:0"] * S)``,
+   counters zeroed before each run and read after it: imp3d 256**3 gossip
+   and push-sum in 4 shards to convergence, each bitwise phase 8's
+   single-device run (rounds, converged count, every plane); imp3d 50**3 in
+   2 shards, both algorithms, 64 rounds on the card against the CPU's run of
+   the same shards; imp3d 520**3 in 4 shards, gossip to convergence and a
+   64-round push-sum sample conserving its mass;
 15. each kernel's time per chunk by CUDA events, beside its plain version's
    and the least time the card could take for the same work; the shard
    kernels per super-step (every shard's launch) at 16,777,216 in 4, with
    the wire's copies timed apart; the sharded lattice kernels per
    super-step at torus3d 100**3 in 2 (resident) and 256**3 in 4
-   (streaming), the ring wire's copies timed apart.
+   (streaming), the ring wire's copies timed apart; the sharded imp
+   kernels per round (every shard's mark and absorb) at imp3d 256**3 in 4,
+   whose wire copies nothing on one card (``--cards`` times it).
 
-Each of phases 5-14c prints its wall time.
+Each of phases 5-14e prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+
+``--cards N`` runs none of these phases: it runs the sharded imp path with
+shard i on cuda:i against the same run on one card, times the wire across
+cards, and ends with ``{"ok": true, "mode": "cards N", "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -193,6 +216,11 @@ def stencil_ops_per_node(algorithm: str, classes: int) -> int:
     per_class = 8 if algorithm == "push-sum" else 5
     absorb = 16 if algorithm == "push-sum" else 6
     return OPS_PER_HASH + 20 + 19 + 10 + per_class * classes + absorb
+
+
+# Rounds of the main-path run whose launches each row of the kernels line
+# counts, by row name.
+MAIN_ROUNDS = {}
 
 
 def compare(name, got, want, float_planes):
@@ -405,6 +433,7 @@ def lattice_path(dev):
             fn.launches = 0
         res = run(topo, cfg)
         launches[name] = {k: fn.launches for k, fn in counters.items()}
+        MAIN_ROUNDS[f"{name}_stencil_hbm_chunk"] = res.rounds
         print(json.dumps({
             "metric": f"{name}_rounds_per_sec_torus3d_n{cfg.n}",
             "rounds": res.rounds, "run_s": res.run_s,
@@ -576,7 +605,9 @@ def imp_checks(dev, key):
 def imp_path(dev):
     """Phase 8: the imp path through run(), counters zeroed before each run
     and read after it; then 50**3 on the card against the CPU's chunked
-    engine. Returns each row's launches over its main-path run."""
+    engine. Returns each row's launches over its main-path run, and {(n,
+    algorithm): (rounds, converged_count, state on the host)} of the imp3d
+    16,777,216 runs for the sharded imp phase."""
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
     from cop5615_gossip_protocol_tpu_torch.models.runner import fused_tier
     from cop5615_gossip_protocol_tpu_torch.ops import fused_imp, fused_imp_hbm
@@ -585,7 +616,7 @@ def imp_path(dev):
                 "gossip_imp": fused_imp.gossip_imp_chunk,
                 "pushsum_imp_hbm": fused_imp_hbm.pushsum_imp_hbm_chunk,
                 "gossip_imp_hbm": fused_imp_hbm.gossip_imp_hbm_chunk}
-    launches = {}
+    launches, single = {}, {}
     for kind, n, _ in IMP_CASES:
         algorithms = ("gossip", "push-sum") if kind == "imp3d" else ("push-sum",)
         t0 = time.perf_counter()
@@ -623,6 +654,10 @@ def imp_path(dev):
                     raise AssertionError(f"{kind} push-sum did not conserve its mass")
             if kind == "imp3d":  # the timed shapes
                 launches[name] = counts[name]
+                MAIN_ROUNDS[f"{name}_chunk"] = res.rounds
+            if (kind, n) == ("imp3d", IMP_SHARD_RUN_N):
+                single[n, algorithm] = (res.rounds, res.converged_count,
+                                        tuple(x.cpu() for x in res.state))
         del topo
     topo = build_topology("imp3d", IMP_CPU_N)
     for name, algorithm in (("gossip", "gossip"), ("pushsum", "push-sum")):
@@ -642,7 +677,7 @@ def imp_path(dev):
                 f"{t2 - t1:.2f} s CPU)",
                 (tuple(x.cpu() for x in a.state), a.rounds),
                 (tuple(b.state), b.rounds), 0)
-    return launches
+    return launches, single
 
 
 # The resident lattice phases: (kind, n, the JAX ladder's tier) for the
@@ -832,6 +867,7 @@ def resident_path(dev):
         raise AssertionError("the CLI's 1000 line gossip failed or never launched "
                              "the resident kernel")
     launches["gossip", "stencil"] = counts["gossip", "stencil"]
+    MAIN_ROUNDS["gossip_stencil_chunk"] = rounds
     topo = build_topology("line", 1000)
     cfg = SimConfig(n=1000, topology="line", algorithm="gossip")
     a = run(topo, cfg)
@@ -878,6 +914,7 @@ def resident_path(dev):
                                  f"{res.rounds}, {res.estimate_mae} != the JAX "
                                  f"chunked engine's {want}")
         launches[name, tier] = counts[name, tier]
+        MAIN_ROUNDS[f"{name}_{tier}_chunk"] = res.rounds
         if kind == "torus3d":
             single[n, algorithm] = (res.rounds, res.converged_count,
                                     tuple(x.cpu() for x in res.state))
@@ -1098,6 +1135,7 @@ def pool2_path(dev):
                     raise AssertionError(f"full n={n} push-sum did not conserve its mass")
             if n == POOL2_TIMED:
                 launches[name] = counts[name]
+                MAIN_ROUNDS[f"{name}_pool2_chunk"] = res.rounds
             single[n, algorithm] = (res.rounds, res.converged_count,
                                     tuple(x.cpu() for x in res.state))
             del res
@@ -1357,6 +1395,7 @@ def shard_path(dev, single):
                 del res
                 continue
             launches[name] = counts[name]
+            MAIN_ROUNDS[f"{name}_pool2_shard_round"] = res.rounds
             if name == "gossip":
                 again, _ = drive(topo, cfg, shards, name, start_state=res.state,
                                  start_round=res.rounds)
@@ -1619,6 +1658,7 @@ def stencil_shard_path(dev, single):
             res, counts = drive(topo, cfg, name, want)
             if (name, shards) == ("gossip", 2):
                 launches["gossip", "fused_sharded"] = counts["gossip_fused_sharded"]
+                MAIN_ROUNDS["gossip_fused_sharded_superstep"] = res.rounds
                 again, _ = drive(topo, cfg, name, (res.rounds, res.converged_count,
                                                    tuple(x.cpu() for x in res.state)),
                                  start_state=res.state, start_round=res.rounds)
@@ -1627,6 +1667,7 @@ def stencil_shard_path(dev, single):
                 drive(topo, dataclasses.replace(cfg, chunk_rounds=1), name, want)
             if (name, shards) == ("pushsum", 2):
                 launches["pushsum", "fused_sharded"] = counts["pushsum_fused_sharded"]
+                MAIN_ROUNDS["pushsum_fused_sharded_superstep"] = res.rounds
             if (name, shards) == ("gossip", 4):
                 serial, _ = drive(topo, dataclasses.replace(cfg, overlap_collectives=False),
                                   name, want)
@@ -1637,18 +1678,367 @@ def stencil_shard_path(dev, single):
     topo = build_topology("torus3d", LATTICE_N)
     cfg = SimConfig(n=LATTICE_N, topology="torus3d", algorithm="gossip", engine="fused",
                     n_devices=4)
-    _, counts = drive(topo, cfg, "gossip", single["lattice"][LATTICE_N, "gossip"])
+    res, counts = drive(topo, cfg, "gossip", single["lattice"][LATTICE_N, "gossip"])
     launches["gossip", "stencil_hbm_sharded"] = counts["gossip_stencil_hbm_sharded"]
+    MAIN_ROUNDS["gossip_stencil_hbm_sharded_superstep"] = res.rounds
     del topo
     topo = build_topology("torus3d", LATTICE_PS_N)
     cfg = SimConfig(n=LATTICE_PS_N, topology="torus3d", algorithm="push-sum",
                     engine="fused", n_devices=4, chunk_rounds=1,
                     max_rounds=LATTICE_PS_ROUNDS)
-    _, counts = drive(topo, cfg, "pushsum", single["lattice"][LATTICE_PS_N, "push-sum"])
+    res, counts = drive(topo, cfg, "pushsum", single["lattice"][LATTICE_PS_N, "push-sum"])
     launches["pushsum", "stencil_hbm_sharded"] = counts["pushsum_stencil_hbm_sharded"]
+    MAIN_ROUNDS["pushsum_stencil_hbm_sharded_superstep"] = res.rounds
+    del res
     del topo
     torch.cuda.empty_cache()
     return launches
+
+
+# The imp x HBM x sharded composition (parallel/fused_imp_hbm_sharded.py,
+# rows 18-19), its shards all on the one card: the kernel checks at (kind,
+# n, shards, pool_size), each the composition the ladder must pick, one
+# round on every shard from the initial state, from a mid-run state (the
+# single-device run's planes after IMP_MID rounds) and from a converged
+# state; imp3d 520**3 (past the single-device cap) from the initial state;
+# the card-vs-CPU runs at IMP_CPU_N, IMP_SHARD_ROUNDS rounds; the timed
+# round at IMP_SHARD_TIMED from the mid-run state.
+IMP_SHARD_CASES = (("imp3d", 1_000_000, 2, IMP_POOL), ("imp2d", 2**24, 4, IMP_POOL),
+                   ("imp3d", 2**24, 4, IMP_POOL), ("imp3d", 1_000_000, 2, 16))
+IMP_SHARD_BIG = 520**3
+IMP_SHARD_RUN_N = 2**24
+IMP_SHARD_ROUNDS = 64
+IMP_SHARD_TIMED = ("imp3d", 2**24, 4)
+# The JAX package's imp3d 16,777,216 round records (BENCH_TABLES.md:192-193),
+# printed beside the card's, not asserted: the push-sum record comes from the
+# TPU kernels, whose float32 op order differs from the chunked engine's.
+JAX_IMP_RECORDS = {"gossip": 69, "push-sum": 867}
+
+
+@functools.lru_cache(maxsize=2)
+def imp_topology(kind, n):
+    """One build of each imp topology the sharded imp phases share (imp3d
+    520**3 takes the host tens of seconds and gigabytes)."""
+    from cop5615_gossip_protocol_tpu_torch import build_topology
+
+    t0 = time.perf_counter()
+    topo = build_topology(kind, n)
+    print(f"  built {kind} n = {topo.n:,} in {time.perf_counter() - t0:.2f} s", flush=True)
+    return topo
+
+
+def imp_shard_streams(key, rnd, pool, n):
+    """One round's key, pool offsets and choice key, as the run draws them."""
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_imp, fused_pool
+
+    return (fused.round_keys(key, rnd, 1)[0].tolist(),
+            fused_pool.round_offsets(key, rnd, 1, pool, n)[0].tolist(),
+            fused_imp.choice_round_keys(key, rnd, 1)[0].tolist())
+
+
+def imp_shard_buffers(state, rows_loc, shards, pushsum):
+    """The run's operands of one round of every shard from the global
+    ``state`` on the card (parallel/fused_imp_hbm_sharded.ShardRound each):
+    one mark plane, push-sum's global (s, w) in and out, and per shard its
+    own planes in and out and its u, acc and ctrl."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_imp_hbm_sharded as ih
+
+    dev, R = state[0].device, state[0].shape[0]
+    n_glob = 2 if pushsum else 0
+    mark = torch.empty(R, 128, dtype=torch.int8, device=dev)
+    glob_in = tuple(state[:n_glob])
+    glob_out = tuple(torch.empty_like(x) for x in glob_in)
+    out = []
+    for s in range(shards):
+        own = tuple(p[s * rows_loc:(s + 1) * rows_loc].contiguous() for p in state[n_glob:])
+        out.append(ih.ShardRound(
+            s * rows_loc, mark, glob_in, glob_out, own, tuple(torch.empty_like(x) for x in own),
+            *(torch.zeros(k, dtype=torch.int32, device=dev) for k in (1, 2, 2))))
+    return out
+
+
+def imp_shard_checks(dev, key):
+    """Phase 14d: each kernel of the sharded imp composition against its
+    plain version on the card, one round on every shard (the chunk
+    function of each shard: its mark launch over the ring, its absorb) at
+    IMP_SHARD_CASES from the initial, a mid-run and a converged state, and
+    at imp3d IMP_SHARD_BIG in 4 shards from the initial state; every shard's
+    planes and u bitwise. Returns the timed case's operands {name: ...}
+    and {name: max_abs_err}."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine, sharded_tier
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_imp_hbm_sharded as ih
+
+    cases, max_err = {}, {}
+    for kind, n, shards, pool in IMP_SHARD_CASES + (("imp3d", IMP_SHARD_BIG, 4, IMP_POOL),):
+        print(f"sharded imp kernels vs plain versions at {kind} n = {n:,}, {shards} "
+              f"shards, pool_size {pool}:", flush=True)
+        topo = imp_topology(kind, n)
+        for name, algorithm in (("pushsum", "push-sum"), ("gossip", "gossip")):
+            if pool == 16 and name == "gossip":
+                continue  # the packed-choice cap: push-sum
+            cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, delivery="pool",
+                            pool_size=pool, engine="fused", n_devices=shards)
+            if sharded_tier(topo, cfg) != ("imp_hbm_sharded", None, "B12"):
+                raise AssertionError(f"{kind} n={n} x{shards} {algorithm}: the ladder "
+                                     f"picks {sharded_tier(topo, cfg)}")
+            H, rows_loc, PT, layout = ih.plan_imp_hbm_sharded(topo, cfg, shards)
+            pushsum = algorithm == "push-sum"
+            kw = ih.absorb_kw(topo, cfg)
+            make = (ih.make_pushsum_imp_hbm_shard_chunk if pushsum
+                    else ih.make_gossip_imp_hbm_shard_chunk)
+            fn = make(topo, cfg, H, rows_loc, PT, layout)
+            single = SimConfig(n=n, topology=kind, algorithm=algorithm, delivery="pool",
+                               pool_size=pool)
+            eng = fused_engine(topo, single, key, "imp_hbm")
+            states = [("init", tuple(p.contiguous().to(dev) for p in eng.planes), 0)]
+            if n != IMP_SHARD_BIG:
+                mid_round = IMP_MID[name]
+                mid, ex = eng.chunk(states[0][1], eng.streams(0, mid_round), 0, mid_round)
+                done, ex2 = eng.chunk(mid, eng.streams(mid_round, 4096), mid_round,
+                                      mid_round + 4096)
+                if int(ex) != mid_round or int(ex2) == 4096:
+                    raise AssertionError(f"{kind} n={n} {algorithm}: no mid-run state")
+                states += [("mid-run", mid, mid_round),
+                           ("converged", done, mid_round + int(ex2))]
+            for label, state, rnd in states:
+                streams = imp_shard_streams(key, rnd, pool, topo.n)
+                err, total = 0.0, 0
+                plain = ih.imp_hbm_shards_round_plain(
+                    state, streams, rows_loc, range(0, layout.rows, rows_loc),
+                    pushsum=pushsum, **kw)
+                for s, (want, want_u) in enumerate(plain):
+                    out, u = fn(state, *streams, s * rows_loc)
+                    if int(u) != int(want_u):
+                        raise AssertionError(f"{kind} n={n} x{shards} {name} {label} shard "
+                                             f"{s}: u {int(u)} != plain {int(want_u)}")
+                    for got, exp in zip(out, want):
+                        same = (torch.equal(got.view(torch.int32), exp.view(torch.int32))
+                                if got.dtype == torch.float32 else torch.equal(got, exp))
+                        if not same:
+                            raise AssertionError(f"{kind} n={n} x{shards} {name} {label} "
+                                                 f"shard {s}: a plane differs from plain")
+                        if got.dtype == torch.float32:
+                            if not torch.isfinite(got).all():
+                                raise AssertionError(f"{kind} n={n} {name}: not finite")
+                            err = max(err, (got - exp).abs().max().item())
+                    total += int(u)
+                    del out, want
+                del plain
+                print(f"  {name} {label} (round {rnd}; H {H}, rows_loc {rows_loc}, PT {PT}):"
+                      f" every shard bitwise, converged {total}, max_abs_err {err}",
+                      flush=True)
+                row = f"{name}_imp_hbm_sharded"
+                max_err[row] = max(max_err.get(row, 0.0), err)
+                if (kind, n, shards) == IMP_SHARD_TIMED and label == "mid-run":
+                    cases[row] = (state, streams, rows_loc, shards, kw, pushsum,
+                                  len(kw["spec"].classes), pool, layout)
+            del states, eng
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return cases, max_err
+
+
+def imp_shard_path(dev, single):
+    """Phase 14e: the sharded imp path through run(devices=[card] * S),
+    counters zeroed before each run and read after it: imp3d IMP_SHARD_BIG
+    in 4 shards, gossip to convergence and a push-sum sample of
+    IMP_SHARD_ROUNDS rounds conserving its mass; imp3d IMP_SHARD_RUN_N
+    gossip and push-sum in 4 shards to convergence, each bitwise phase 8's
+    single-device run (rounds, converged count, every plane); imp3d
+    IMP_CPU_N in 2 shards, both algorithms, IMP_SHARD_ROUNDS rounds, the
+    card against the CPU's run of the same shards. Returns each row's
+    launches (marks and absorbs) over its IMP_SHARD_RUN_N run."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, run
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_imp_hbm_sharded as ih
+
+    counters = {"mark": ih.imp_hbm_shard_mark,
+                "pushsum": ih.pushsum_imp_hbm_shard_absorb,
+                "gossip": ih.gossip_imp_hbm_shard_absorb}
+    launches = {}
+
+    def same_state(a, b):
+        return all(torch.equal(x.cpu().view(torch.int32), y.cpu().view(torch.int32))
+                   if x.dtype == torch.float32 else torch.equal(x.cpu(), y.cpu())
+                   for x, y in zip(a, b))
+
+    def drive(n, algorithm, shards, devices, **kw):
+        for fn in counters.values():
+            fn.launches = 0
+        cfg = SimConfig(n=n, topology="imp3d", algorithm=algorithm, delivery="pool",
+                        pool_size=IMP_POOL, engine="fused", n_devices=shards, **kw)
+        res = run(imp_topology("imp3d", n), cfg, devices=devices)
+        counts = {k: fn.launches for k, fn in counters.items()}
+        name = "pushsum" if algorithm == "push-sum" else "gossip"
+        print(json.dumps({
+            "metric": f"{name}_imp_hbm_sharded_imp3d_n{n}_x{shards}",
+            "rounds": res.rounds, "run_s": res.run_s,
+            "rounds_per_s": res.rounds / max(res.run_s, 1e-9),
+            "setup_s": res.setup_s, "compile_s": res.compile_s,
+            "dispatch_s": res.dispatch_s, "fetch_s": res.fetch_s,
+            "finalize_s": res.finalize_s, "chunks_retired": len(res.chunk_log),
+            "converged_count": res.converged_count, "estimate_mae": res.estimate_mae,
+            "launches": counts, "device": res.device,
+        }), flush=True)
+        if devices[0] != "cpu" and counts["mark"] * counts[name] == 0:
+            raise AssertionError(f"imp3d n={n} x{shards} {algorithm} never launched its "
+                                 "kernels")
+        if algorithm == "push-sum":
+            err_w = abs(res.state.w.double().sum().item() - n) / n
+            err_s = abs(res.state.s.double().sum().item() - n * (n - 1) / 2) / (
+                n * (n - 1) / 2)
+            print(f"  mass: sum w rel err {err_w}, sum s rel err {err_s}", flush=True)
+            if not (err_w < 1e-5 and err_s < 1e-5):
+                raise AssertionError(f"imp3d n={n} x{shards} push-sum lost mass")
+        return res, counts
+
+    # imp3d IMP_SHARD_BIG first, while phase 14d's build of it is cached.
+    res, _ = drive(IMP_SHARD_BIG, "gossip", 4, [dev] * 4)
+    if not res.converged or res.converged_count != IMP_SHARD_BIG:
+        raise AssertionError(f"imp3d {IMP_SHARD_BIG} x4 gossip did not converge")
+    print(f"  gossip imp3d n={IMP_SHARD_BIG:,} x4 (past the single-device cap): converged "
+          f"in {res.rounds} rounds", flush=True)
+    del res
+    drive(IMP_SHARD_BIG, "push-sum", 4, [dev] * 4, max_rounds=IMP_SHARD_ROUNDS)
+    imp_topology.cache_clear()
+    for name, algorithm in (("gossip", "gossip"), ("pushsum", "push-sum")):
+        rounds, count, state = single[IMP_SHARD_RUN_N, algorithm]
+        res, counts = drive(IMP_SHARD_RUN_N, algorithm, 4, [dev] * 4)
+        if (res.rounds, res.converged_count) != (rounds, count) or not same_state(
+                res.state, state):
+            raise AssertionError(f"imp3d {IMP_SHARD_RUN_N} x4 {algorithm}: {res.rounds} "
+                                 f"rounds, not bitwise phase 8's run of {rounds}")
+        print(f"  {name} imp3d n={IMP_SHARD_RUN_N:,} x4: {res.rounds} rounds (JAX record "
+              f"{JAX_IMP_RECORDS[algorithm]}), bitwise phase 8's single-device run",
+              flush=True)
+        launches[name] = counts["mark"] + counts[name]
+        MAIN_ROUNDS[f"{name}_imp_hbm_shard_round"] = res.rounds
+        del res
+    imp_topology.cache_clear()
+    for algorithm in ("gossip", "push-sum"):
+        t0 = time.perf_counter()
+        a, _ = drive(IMP_CPU_N, algorithm, 2, [dev] * 2, max_rounds=IMP_SHARD_ROUNDS)
+        t1 = time.perf_counter()
+        b, _ = drive(IMP_CPU_N, algorithm, 2, ["cpu"] * 2, max_rounds=IMP_SHARD_ROUNDS)
+        t2 = time.perf_counter()
+        if (a.rounds, a.converged_count) != (b.rounds, b.converged_count) or not same_state(
+                a.state, b.state):
+            raise AssertionError(f"50**3 x2 {algorithm}: the card's run differs from the "
+                                 "CPU's")
+        print(f"  {algorithm} imp3d n={IMP_CPU_N:,} x2: card == CPU, {a.rounds} rounds, "
+              f"converged {a.converged_count} ({t1 - t0:.2f} s card, {t2 - t1:.2f} s CPU)",
+              flush=True)
+    imp_topology.cache_clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def imp_shard_rows(dev, cases, launches, max_err):
+    """Rows 18-19 of the kernels line: one round of every shard (each
+    shard's mark, then each shard's absorb, as the run queues it) at
+    IMP_SHARD_TIMED from the mid-run state by CUDA events, beside the plain
+    versions' time and the bound. With every shard on one card the wire
+    copies nothing, so the rows time none: ``--cards`` times it across
+    cards."""
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_imp_hbm_sharded as ih
+
+    rows = []
+    replaces = {"pushsum": "cop5615_gossip_protocol_tpu/parallel/fused_imp_hbm_sharded.py:678",
+                "gossip": "cop5615_gossip_protocol_tpu/parallel/fused_imp_hbm_sharded.py:939"}
+    for name in ("pushsum", "gossip"):
+        algo = "push-sum" if name == "pushsum" else "gossip"
+        row = f"{name}_imp_hbm_sharded"
+        state, streams, rows_loc, shards, kw, pushsum, lattice, pool, layout = cases[row]
+        bufs = imp_shard_buffers(state, rows_loc, shards, pushsum)
+        ms, _ = time_ms(lambda: ih.launch_shard_rounds(bufs, streams, rows_loc,
+                                                       pushsum=pushsum, kw=kw), TIME_REPS)
+        plain_ms, _ = time_ms(lambda: ih.imp_hbm_shards_round_plain(
+            state, streams, rows_loc, range(0, layout.rows, rows_loc), pushsum=pushsum,
+            **kw), 2)
+        n_pad = layout.n_pad
+        # Each shard's state read and written once and the round's streams.
+        moved = STATE_BYTES[name] * n_pad + 16 + 4 * pool + 16
+        ops = n_pad * imp_ops_per_node(algo, lattice + pool)
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        rows.append({
+            "name": f"{name}_imp_hbm_shard_round", "route": "cuda",
+            "source": "cop5615_gossip_protocol_tpu_torch/csrc/fused_imp_hbm_shard.cu",
+            "replaces": replaces[name],
+            "launches": launches[name], "max_abs_err": max_err[row],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "rounds_per_call": 1, "us_per_round": ms * 1e3,
+            "shards": shards, "population": IMP_SHARD_TIMED[1],
+            "topology": IMP_SHARD_TIMED[0], "status": "ported",
+        })
+        del bufs
+    return rows
+
+
+def imp_shard_cards(cards):
+    """``--cards N``: the sharded imp path with shard i on cuda:i (the CLI's
+    ``--devices N``), imp3d IMP_SHARD_RUN_N gossip and push-sum to
+    convergence, each bitwise the same run with every shard on cuda:0 and
+    the single-device run on cuda:0; and the wire alone (each shard's rows
+    of the mark plane and push-sum's s and w into every other card's copy),
+    median of TIME_REPS by the host clock around the copies and a
+    synchronize of every card."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, run
+    from cop5615_gossip_protocol_tpu_torch.parallel import halo
+
+    topo = imp_topology("imp3d", IMP_SHARD_RUN_N)
+    devices = [torch.device("cuda", i) for i in range(cards)]
+
+    def sync():
+        for d in devices:
+            torch.cuda.synchronize(d)
+
+    for algorithm in ("gossip", "push-sum"):
+        cfg = SimConfig(n=IMP_SHARD_RUN_N, topology="imp3d", algorithm=algorithm,
+                        delivery="pool", pool_size=IMP_POOL, engine="fused",
+                        n_devices=cards)
+        single = run(topo, dataclasses.replace(cfg, n_devices=None))
+        one = run(topo, cfg, devices=[devices[0]] * cards)
+        spread = run(topo, cfg)
+        same = all(torch.equal(x.cpu().view(torch.int32), y.cpu().view(torch.int32))
+                   if x.dtype == torch.float32 else torch.equal(x.cpu(), y.cpu())
+                   for a in (one, single) for x, y in zip(spread.state, a.state))
+        print(json.dumps({
+            "metric": f"{algorithm}_imp_hbm_sharded_imp3d_n{IMP_SHARD_RUN_N}_x{cards}_cards",
+            "rounds": spread.rounds, "one_card_rounds": one.rounds,
+            "single_device_rounds": single.rounds, "run_s": spread.run_s,
+            "one_card_run_s": one.run_s, "single_device_run_s": single.run_s,
+            "dispatch_s": spread.dispatch_s, "fetch_s": spread.fetch_s,
+            "converged_count": spread.converged_count,
+            "estimate_mae": spread.estimate_mae, "bitwise_one_card_and_single": same,
+            "device": spread.device}), flush=True)
+        if not spread.rounds == one.rounds == single.rounds or not same:
+            raise AssertionError(f"{algorithm} on {cards} cards differs from one card")
+        rows_loc = -(-IMP_SHARD_RUN_N // 128) // cards
+        planes_of = {d: (torch.zeros(rows_loc * cards, 128, dtype=torch.int8, device=d),)
+                     + (tuple(torch.zeros(rows_loc * cards, 128, device=d) for _ in range(2))
+                        if algorithm == "push-sum" else ()) for d in devices}
+        wire = halo.replica_rows(planes_of, rows_loc, devices)
+        times = []
+        for _ in range(TIME_REPS + 1):
+            sync()
+            t0 = time.perf_counter()
+            halo.exchange_rows_batched(wire)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(json.dumps({"metric": f"{algorithm}_imp_wire_ms_x{cards}_cards",
+                          "wire_ms": statistics.median(times[1:]),
+                          "bytes_per_card": (cards - 1) * rows_loc * 128 * (
+                              9 if algorithm == "push-sum" else 1)}), flush=True)
+        del planes_of, wire
 
 
 def fail(msg: str) -> int:
@@ -1683,6 +2073,19 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     print(f"card: {smi}")
+    cards = int(sys.argv[sys.argv.index("--cards") + 1]) if "--cards" in sys.argv else 1
+    if cards > 1:
+        if torch.cuda.device_count() < cards:
+            return fail(f"--cards {cards}: {torch.cuda.device_count()} card(s) visible")
+        try:
+            imp_shard_cards(cards)
+        except (AssertionError, RuntimeError) as e:
+            return fail(str(e))
+        print(smi)
+        print(json.dumps({"ok": True, "mode": f"cards {cards}", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
@@ -1774,6 +2177,7 @@ def main() -> int:
             fn.launches = 0
         res = run(topo, cfg)
         launches[name] = {k: fn.launches for k, fn in counters.items()}
+        MAIN_ROUNDS[f"{name}_pool_chunk"] = res.rounds
         results[name] = res
         print(json.dumps({
             "metric": f"{name}_rounds_per_sec_full_n{N}",
@@ -1820,7 +2224,7 @@ def main() -> int:
         lattice_cases, lattice_err = phase(5, lattice_checks, dev, key)
         lattice_launches, lattice_single = phase(6, lattice_path, dev)
         imp_cases, imp_err = phase(7, imp_checks, dev, key)
-        imp_launches = phase(8, imp_path, dev)
+        imp_launches, imp_single = phase(8, imp_path, dev)
         resident_cases, resident_err = phase(9, resident_checks, dev, key)
         resident_launches, resident_single = phase(10, resident_path, dev)
         pool2_cases, pool2_err = phase(11, pool2_checks, dev, key)
@@ -1836,6 +2240,9 @@ def main() -> int:
             "14c", stencil_shard_path, dev,
             {"lattice": lattice_single, "resident": resident_single})
         del lattice_single, resident_single
+        imp_shard_cases, imp_shard_err = phase("14d", imp_shard_checks, dev, key)
+        imp_shard_launches = phase("14e", imp_shard_path, dev, imp_single)
+        del imp_single
     except (AssertionError, RuntimeError) as e:
         return fail(str(e))
 
@@ -2061,6 +2468,9 @@ def main() -> int:
             })
             del wire
             fs._shard_slots.cache_clear()
+    rows += imp_shard_rows(dev, imp_shard_cases, imp_shard_launches, imp_shard_err)
+    for row in rows:
+        row["main_path_rounds"] = MAIN_ROUNDS.get(row["name"])
     print(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -3,7 +3,8 @@
 // share: the launch geometry, the converged count and done flag, the state
 // planes, the init and finish launches and the per-node absorb of each
 // protocol; and the device-side verdict of the sharded compositions
-// (csrc/fused_pool2_shard.cu, csrc/fused_stencil_shard.cu).
+// (csrc/fused_pool2_shard.cu, csrc/fused_stencil_shard.cu,
+// csrc/fused_imp_hbm_shard.cu) with their shard launches' count and grid.
 //
 // A chunk keeps its control words in `ctrl` (int32[2]: done, rounds
 // executed) and `scratch` (int32[2 * (rounds + 1)]: per-launch totals, then
@@ -226,6 +227,35 @@ __global__ void gossip_finish(GossipPlanes a, GossipPlanes b, int n_pad,
     a.active[j] = b.active[j];
     a.conv[j] = b.conv[j];
   }
+}
+
+// A shard launch's converged count: adds the block's count to acc[0]; the
+// grid's last block writes the shard's total to *u and zeroes acc (the
+// shard's two accumulator words) for the next launch.
+__device__ inline void finish_shard_count(int block_count, int* acc, int* u) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    atomicAdd(&acc[0], block_count);
+    __threadfence();
+    last = atomicAdd((unsigned*)&acc[1], 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    *u = atomicExch(&acc[0], 0);
+    atomicExch(&acc[1], 0);
+  }
+}
+
+// Blocks for a shard launch over `work` elements: grid_for, with the SMs'
+// capacity asked once per kernel and device (`cache`, one int per device),
+// since a shard's round is a launch or two and the query would otherwise
+// cost every launch.
+template <typename Kernel>
+int round_grid(Kernel kernel, long long work, int device, int* cache) {
+  if (device < 0 || device >= 64) return grid_for(kernel, work, device);
+  if (cache[device] == 0) cache[device] = grid_for(kernel, 1LL << 40, device);
+  const long long want = (work + kBlock - 1) / kBlock;
+  return (int)(want < cache[device] ? (want > 0 ? want : 1) : cache[device]);
 }
 
 // A sharded super-step's verdict, one thread: unless the run is done

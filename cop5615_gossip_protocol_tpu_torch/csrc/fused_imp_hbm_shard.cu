@@ -1,0 +1,286 @@
+// One round of the imp x HBM x sharded composition over one shard, the mark
+// and the absorb of push-sum and gossip, for Hopper (sm_90a).
+//
+// Replaces the two Pallas TPU kernels of the JAX package's
+// parallel/fused_imp_hbm_sharded.py: make_pushsum_imp_hbm_shard_chunk
+// (pallas_call at :678) and make_gossip_imp_hbm_shard_chunk (:939). A shard
+// owns global rows [row_lo, row_lo + rows_loc) of the pool layout's
+// [R, 128] planes; a round advances them by one round of the single-device
+// imp trajectory (csrc/fused_imp.cu):
+//
+//   class(i) = imp_class(i, threefry(k1, k2, i), pool slot of i in the
+//              packed word threefry(c1, c2, choice_counter(i)))
+//   inbox[j] = sum from 0.0 over the L lattice classes q in sorted order,
+//              then the P pool slots p, of send[i] * [class(i) == id],
+//              i = j - d mod n, (id, d) = (q, d_q) or (L + p, offs[p])
+//
+// then the absorb with the term/conv latch (push-sum) or the receipt count
+// with receiver-side suppression (gossip).
+//
+// The TPU kernel streams a halo-extended shard through VMEM tiles and
+// regenerates, inside every tile, the marks of each lattice window and each
+// pool window it fetches, because a tile load needs a static window. Here
+// the round is two launches a shard:
+//   mark   - one thread per packed choice word meeting the shard's rows
+//            (8 nodes of one lane, 128 rows apart): one choice hash for its
+//            8 nodes and a slot hash per node; writes the class id (int8,
+//            -1 for no send; gossip skips inactive nodes) of the shard's
+//            own nodes into its device's global mark plane;
+//   absorb - after the wire has copied every shard's marks (and push-sum's
+//            s and w) into the device's global copy (parallel/halo.py),
+//            one thread per receiver of the shard's rows gathers, per
+//            class, the send of its class source from that copy and writes
+//            the shard's next planes (ping/pong sets chosen by the host).
+// So no halo exists and each node's mark is computed once a round. The
+// launch writes u, the shard's converged count, to a device slot; the
+// verdict (csrc/fused_pool2_shard.cu, gossip_pool2_shard_verdict) sums the
+// slots into the run's done flag and round counter, and every launch
+// returns at once once that flag is set.
+//
+// What bounds it on this card: memory traffic. A round over a shard reads
+// and writes its state once (push-sum 16 bytes a node each way, gossip 12),
+// writes its marks (1 byte a node) and reads, per class, a source's mark
+// and, for push-sum, its s and w: the lattice sources lie within +-g*g
+// nodes and hit the L2, but each pool class reads a window a random
+// distance away, P more streams of the mark plane (and of s and w). The
+// arithmetic is two 20-round Threefry hashes per 8 nodes' choice word and
+// per node, the direction select and one compare per class a node.
+//
+// Numerics: see csrc/chunk.cuh; the halve happens before the class sums,
+// which run from 0.0 in class order, as in csrc/fused_imp.cu, so push-sum
+// is bitwise the plain version and the single-device run. Every flat index
+// is an int below n_pad + n < 2**31 (the plan's 2**27-node shards, and up
+// to 520**3 in all, stay far below it).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "chunk.cuh"
+#include "imp.cuh"
+
+namespace {
+
+using gossip::Classes;
+using gossip::ImpPool;
+using gossip::block_sum;
+using gossip::finish_shard_count;
+using gossip::kBlock;
+using gossip::kChoiceLanes;
+using gossip::kChoicePack;
+using gossip::round_grid;
+
+// Class ids of the shard's rows [row_lo, row_hi) this round. `active` is
+// the shard's gossip active plane (local rows); push-sum passes nullptr and
+// every real node sends.
+__global__ void imp_shard_mark(int8_t* mark, const int* __restrict__ active,
+                               uint32_t k1, uint32_t k2, uint32_t c1,
+                               uint32_t c2, gossip::Lattice L, Classes lattice,
+                               int pool_size, int row_lo, int row_hi,
+                               const int* __restrict__ ctrl) {
+  if (ctrl[0]) return;
+  const int w_end = gossip::end_word(row_hi);
+  for (int wi = gossip::first_word(row_lo) + blockIdx.x * kBlock + threadIdx.x;
+       wi < w_end; wi += gridDim.x * kBlock) {
+    const uint32_t cword = gossip::threefry_word(c1, c2, (uint32_t)wi);
+    for (int sub = 0; sub < kChoicePack; ++sub) {
+      const int row = gossip::word_row(wi, sub);
+      if (row < row_lo || row >= row_hi) continue;
+      const int j = gossip::word_node(wi, sub);
+      int8_t m = -1;
+      if (j < L.n && (active == nullptr || active[j - row_lo * kChoiceLanes] != 0)) {
+        const uint32_t bits = gossip::threefry_word(k1, k2, (uint32_t)j);
+        m = (int8_t)gossip::imp_class(L, lattice, j, bits,
+                                      gossip::pool_slot(cword, sub, pool_size));
+      }
+      mark[j] = m;
+    }
+  }
+}
+
+// The shard's operands of one absorb, passed by value.
+struct ShardAbsorb {
+  Classes lattice;
+  ImpPool pool;
+  int n, row_lo, count;  // count = rows_loc * 128 receivers
+  int* u;                // the shard's converged count
+  int* acc;              // [2]: block total, ticket; zero between launches
+  const int* ctrl;       // [2]: done, rounds
+};
+
+// s_in/w_in and s_out/w_out are the device's global planes (flat index j),
+// t_*/c_* the shard's own (local index l = j - row_lo * 128).
+__global__ void pushsum_imp_shard_absorb(
+    const float* __restrict__ s_in, const float* __restrict__ w_in,
+    float* __restrict__ s_out, float* __restrict__ w_out,
+    const int* __restrict__ t_in, const int* __restrict__ c_in,
+    int* __restrict__ t_out, int* __restrict__ c_out,
+    const int8_t* __restrict__ mark, ShardAbsorb p, float delta,
+    int term_rounds) {
+  if (p.ctrl[0]) return;
+  const int base = p.row_lo * kChoiceLanes;
+  int c = 0;
+  for (int l = blockIdx.x * kBlock + threadIdx.x; l < p.count;
+       l += gridDim.x * kBlock) {
+    const int j = base + l;
+    const bool pad = j >= p.n;
+    float in_s = 0.0f, in_w = 0.0f;
+    if (!pad)
+      gossip::imp_pushsum_inbox(p.lattice, p.pool, mark, s_in, w_in, j, p.n,
+                                in_s, in_w);
+    float s_new, w_new;
+    int t_new;
+    // mark[j] < 0 on pad lanes: those keep their mass.
+    const int cv = gossip::pushsum_absorb(
+        s_in[j], w_in[j], [&] { return t_in[l]; }, [&] { return c_in[l] != 0; },
+        pad, mark[j] >= 0, in_s, in_w, delta, term_rounds, s_new, w_new, t_new);
+    s_out[j] = s_new;
+    w_out[j] = w_new;
+    t_out[l] = t_new;
+    c_out[l] = cv;
+    c += cv;
+  }
+  finish_shard_count(block_sum(c), p.acc, p.u);
+}
+
+// The shard's own (count, active, conv) planes, local index.
+__global__ void gossip_imp_shard_absorb(
+    const int* __restrict__ n_in, const int* __restrict__ a_in,
+    const int* __restrict__ c_in, int* __restrict__ n_out,
+    int* __restrict__ a_out, int* __restrict__ c_out,
+    const int8_t* __restrict__ mark, ShardAbsorb p, int rumor_target,
+    int suppress) {
+  if (p.ctrl[0]) return;
+  const int base = p.row_lo * kChoiceLanes;
+  int c = 0;
+  for (int l = blockIdx.x * kBlock + threadIdx.x; l < p.count;
+       l += gridDim.x * kBlock) {
+    const int j = base + l;
+    const bool pad = j >= p.n;
+    const int inbox =
+        pad ? 0 : gossip::imp_gossip_inbox(p.lattice, p.pool, mark, j, p.n);
+    int cnt, act;
+    const int cv = gossip::gossip_absorb(
+        [&] { return c_in[l] != 0; }, [&] { return n_in[l]; },
+        [&] { return a_in[l]; }, pad, inbox, rumor_target, suppress, cnt, act);
+    n_out[l] = cnt;
+    a_out[l] = act;
+    c_out[l] = cv;
+    c += cv;
+  }
+  finish_shard_count(block_sum(c), p.acc, p.u);
+}
+
+// The lattice classes from the C arguments; false if out of range.
+bool lattice_classes(const int* classes, int n_classes, int n, Classes* lattice) {
+  if (n_classes < 1 || n_classes > gossip::kMaxDirs) return false;
+  lattice->count = n_classes;
+  for (int k = 0; k < gossip::kMaxClasses; ++k) {
+    lattice->d[k] = k < n_classes ? classes[k] : 0;
+    if (k < n_classes && (lattice->d[k] < 1 || lattice->d[k] >= n)) return false;
+  }
+  return true;
+}
+
+bool valid_pool_size(int pool_size) {
+  return pool_size >= 2 && pool_size <= gossip::kMaxImpPool &&
+         (pool_size & (pool_size - 1)) == 0;
+}
+
+// The absorb operands from the C arguments; false if out of range.
+bool make_absorb(const int* classes, int n_classes, const int* offs,
+                 int pool_size, int n, int row_lo, int rows_loc, int* u,
+                 int* acc, const int* ctrl, ShardAbsorb* p) {
+  if (n < 2 || row_lo < 0 || rows_loc < 1 || !valid_pool_size(pool_size) ||
+      (long long)(row_lo + rows_loc) * kChoiceLanes >= (1LL << 31) ||
+      !lattice_classes(classes, n_classes, n, &p->lattice))
+    return false;
+  p->pool.count = pool_size;
+  for (int k = 0; k < gossip::kMaxImpPool; ++k) {
+    p->pool.d[k] = k < pool_size ? offs[k] : 0;
+    if (k < pool_size && (p->pool.d[k] < 1 || p->pool.d[k] >= n)) return false;
+  }
+  p->n = n;
+  p->row_lo = row_lo;
+  p->count = rows_loc * kChoiceLanes;
+  p->u = u;
+  p->acc = acc;
+  p->ctrl = ctrl;
+  return true;
+}
+
+}  // namespace
+
+// ------------------------------------------------------------- C interface
+//
+// Each entry point queues one launch on `stream` of CUDA device `device`
+// and returns its launch error (a cudaError_t), 0 if none. `mark` is the
+// device's global int8 [R * 128] mark plane; global planes are [R * 128],
+// a shard's own [rows_loc * 128]. `classes` (the n_classes sorted lattice
+// classes) and `offs` (the round's pool_size displacements) are host
+// arrays, read here. u is int32[1], acc int32[2] zeroed once, ctrl the
+// run's int32[2] (done, rounds) on this device.
+
+extern "C" int gossip_imp_hbm_shard_mark(
+    int8_t* mark, const int* active, unsigned k1, unsigned k2, unsigned c1,
+    unsigned c2, const int* classes, int n_classes, int kind, int n,
+    int pool_size, int row_lo, int rows, const int* ctrl, int device,
+    void* stream_ptr) {
+  static int grid_cache[64];
+  Classes lattice;
+  if ((kind != gossip::kGrid2d && kind != gossip::kGrid3d) || n < 2 ||
+      row_lo < 0 || rows < 1 ||
+      (long long)(row_lo + rows) * kChoiceLanes >= (1LL << 31) ||
+      !valid_pool_size(pool_size) ||
+      !lattice_classes(classes, n_classes, n, &lattice))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const gossip::Lattice L = gossip::make_lattice(kind, n, 0);
+  const int words =
+      gossip::end_word(row_lo + rows) - gossip::first_word(row_lo);
+  const int grid = round_grid(imp_shard_mark, words, device, grid_cache);
+  imp_shard_mark<<<grid, kBlock, 0, (cudaStream_t)stream_ptr>>>(
+      mark, active, k1, k2, c1, c2, L, lattice, pool_size, row_lo,
+      row_lo + rows, ctrl);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gossip_pushsum_imp_hbm_shard_absorb(
+    const float* s_in, const float* w_in, float* s_out, float* w_out,
+    const int* t_in, const int* c_in, int* t_out, int* c_out,
+    const int8_t* mark, const int* classes, int n_classes, const int* offs,
+    int pool_size, int n, int row_lo, int rows_loc, float delta,
+    int term_rounds, int* u, int* acc, const int* ctrl, int device,
+    void* stream_ptr) {
+  static int grid_cache[64];
+  ShardAbsorb p;
+  if (!make_absorb(classes, n_classes, offs, pool_size, n, row_lo, rows_loc, u,
+                   acc, ctrl, &p))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = round_grid(pushsum_imp_shard_absorb, p.count, device, grid_cache);
+  pushsum_imp_shard_absorb<<<grid, kBlock, 0, (cudaStream_t)stream_ptr>>>(
+      s_in, w_in, s_out, w_out, t_in, c_in, t_out, c_out, mark, p, delta,
+      term_rounds);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gossip_gossip_imp_hbm_shard_absorb(
+    const int* n_in, const int* a_in, const int* c_in, int* n_out, int* a_out,
+    int* c_out, const int8_t* mark, const int* classes, int n_classes,
+    const int* offs, int pool_size, int n, int row_lo, int rows_loc,
+    int rumor_target, int suppress, int* u, int* acc, const int* ctrl,
+    int device, void* stream_ptr) {
+  static int grid_cache[64];
+  ShardAbsorb p;
+  if (!make_absorb(classes, n_classes, offs, pool_size, n, row_lo, rows_loc, u,
+                   acc, ctrl, &p))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = round_grid(gossip_imp_shard_absorb, p.count, device, grid_cache);
+  gossip_imp_shard_absorb<<<grid, kBlock, 0, (cudaStream_t)stream_ptr>>>(
+      n_in, a_in, c_in, n_out, a_out, c_out, mark, p, rumor_target, suppress);
+  return (int)cudaGetLastError();
+}

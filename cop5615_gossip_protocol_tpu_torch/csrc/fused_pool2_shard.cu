@@ -52,7 +52,9 @@
 namespace {
 
 using gossip::block_sum;
+using gossip::finish_shard_count;
 using gossip::kBlock;
+using gossip::round_grid;
 using gossip::pool2::column_sources;
 using gossip::pool2::kLanes;
 using gossip::pool2::kPack;
@@ -81,22 +83,6 @@ struct PushSumWire {
 struct GossipWire {
   const int* active[kMaxPool];
 };
-
-// Adds the block's count to acc[0]; the grid's last block writes the
-// shard's total to *u and zeroes acc for the next launch.
-__device__ inline void finish_shard_count(int block_count, int* acc, int* u) {
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-    atomicAdd(&acc[0], block_count);
-    __threadfence();
-    last = atomicAdd((unsigned*)&acc[1], 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (last && threadIdx.x == 0) {
-    *u = atomicExch(&acc[0], 0);
-    atomicExch(&acc[1], 0);
-  }
-}
 
 __global__ void pushsum_pool2_shard_round(const float* s_in, const float* w_in,
                                           const int* tc_in, float* s_out,
@@ -185,17 +171,6 @@ __global__ void gossip_pool2_shard_round(const int* n_in, const int* a_in,
     }
   }
   finish_shard_count(block_sum(c), p.acc, p.u);
-}
-
-// Blocks for a round launch over `work` columns: gossip::grid_for, with the
-// SMs' capacity asked once per kernel and device (a round is one launch,
-// so the query would otherwise cost every launch).
-template <typename Kernel>
-int round_grid(Kernel kernel, long long work, int device, int* cache) {
-  if (device < 0 || device >= 64) return gossip::grid_for(kernel, work, device);
-  if (cache[device] == 0) cache[device] = gossip::grid_for(kernel, 1LL << 40, device);
-  const long long want = (work + kBlock - 1) / kBlock;
-  return (int)(want < cache[device] ? (want > 0 ? want : 1) : cache[device]);
 }
 
 ShardRound make_round(const int* bases, const int* offs, unsigned k1,

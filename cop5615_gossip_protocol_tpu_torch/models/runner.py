@@ -16,10 +16,11 @@ runner's:
   (sampling, pool, stencil or imp pool delivery, absorb), the JAX chunked
   engine's counterpart;
 - with ``n_devices > 1``, the sharded composition the JAX ladder picks
-  (``sharded_tier``): the replicated-pool2 one (parallel/pool2_sharded.py)
-  and the resident and streaming lattice ones (parallel/fused_sharded.py,
-  parallel/fused_hbm_sharded.py) run, every other is refused naming its
-  ROADMAP item.
+  (``sharded_tier``): the replicated-pool2 one (parallel/pool2_sharded.py),
+  the resident and streaming lattice ones (parallel/fused_sharded.py,
+  parallel/fused_hbm_sharded.py) and the imp one
+  (parallel/fused_imp_hbm_sharded.py) run, every other is refused naming
+  its ROADMAP item.
 
 The fused tier is picked by the JAX runner's ladder (``fused_tier``), so a
 config lands on the tier the JAX package would give it, and every tier's
@@ -315,12 +316,14 @@ def sharded_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str], st
     ports it. ``engine="fused"`` on implicit ``full`` with pool delivery
     tries the VMEM replicated composition (``fused_pool_sharded``, up to
     the pool engine's 2**21 nodes) and then the replicated-pool2 one
-    (``pool2_sharded``), else both plans' reasons; the imp kinds go to
-    ``imp_hbm_sharded``; the lattices try the resident lattice composition
-    (``fused_sharded``) and then the streaming one (``stencil_hbm_sharded``),
-    else both plans' reasons; any other engine goes to the sharded XLA
-    engine (``sharded``)."""
+    (``pool2_sharded``), else both plans' reasons; the imp kinds with pool
+    delivery go to ``imp_hbm_sharded``, else its plan's reason; every other
+    kind (the imp kinds under another delivery too) tries the resident
+    lattice composition (``fused_sharded``) and then the streaming one
+    (``stencil_hbm_sharded``), else both plans' reasons; any other engine
+    goes to the sharded XLA engine (``sharded``)."""
     from ..parallel.fused_hbm_sharded import plan_stencil_hbm_sharded
+    from ..parallel.fused_imp_hbm_sharded import plan_imp_hbm_sharded
     from ..parallel.fused_pool_sharded import plan_fused_pool_sharded
     from ..parallel.fused_sharded import plan_fused_sharded
     from ..parallel.pool2_sharded import plan_pool2_sharded
@@ -339,8 +342,12 @@ def sharded_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str], st
             f"engine='fused' with n_devices={S} unavailable: VMEM pool "
             f"composition: {plan_vmem}; replicated-pool2 composition: {plan_p2}"
         ), "B13"
-    if topo.kind in IMP_LATTICE:
-        return "imp_hbm_sharded", None, "B12"
+    if topo.kind in IMP_LATTICE and cfg.delivery == "pool":
+        plan_imp = plan_imp_hbm_sharded(topo, cfg, S)
+        if not isinstance(plan_imp, str):
+            return "imp_hbm_sharded", None, "B12"
+        return "imp_hbm_sharded", (
+            f"engine='fused' with n_devices={S} unavailable: {plan_imp}"), "B12"
     plan_vmem = plan_fused_sharded(topo, cfg, S)
     if not isinstance(plan_vmem, str):
         return "fused_sharded", None, "B10"
@@ -356,13 +363,11 @@ def sharded_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str], st
 _SHARDED_NAMES = {
     "sharded": "the sharded XLA engine (run_sharded; --devices with "
                "--engine fused runs the replicated-pool2 composition on full "
-               "with --delivery pool and the lattice compositions on the "
-               "lattices)",
+               "and the imp composition on imp2d/imp3d with --delivery pool, "
+               "and the lattice compositions on the lattices)",
     "fused_pool_sharded": "the VMEM replicated pool composition "
                           "(parallel/fused_pool_sharded.py, full up to "
                           "2**21 nodes)",
-    "imp_hbm_sharded": "the imp x HBM x sharded composition "
-                       "(parallel/fused_imp_hbm_sharded.py)",
 }
 
 
@@ -381,8 +386,8 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
     one card, ``["cpu"] * 4`` on the CPU); without it shard i goes to
     device i of ``device``'s kind, which must be visible
     (parallel/mesh.make_mesh). The composition is the JAX ladder's
-    (``sharded_tier``); the replicated-pool2 and the lattice ones run,
-    every other refuses naming its ROADMAP item."""
+    (``sharded_tier``); the replicated-pool2, the lattice and the imp ones
+    run, every other refuses naming its ROADMAP item."""
     t_enter = time.perf_counter()
     sharded = cfg.n_devices is not None and cfg.n_devices > 1
     if devices is not None and not sharded:
@@ -412,6 +417,7 @@ def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
                  t_enter) -> RunResult:
     from ..parallel import mesh as mesh_mod
     from ..parallel.fused_hbm_sharded import run_stencil_hbm_sharded
+    from ..parallel.fused_imp_hbm_sharded import run_imp_hbm_sharded
     from ..parallel.fused_sharded import run_fused_sharded
     from ..parallel.pool2_sharded import run_pool2_sharded
 
@@ -420,7 +426,8 @@ def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
         raise ValueError(reason)
     runs = {"pool2_sharded": run_pool2_sharded,
             "fused_sharded": run_fused_sharded,
-            "stencil_hbm_sharded": run_stencil_hbm_sharded}
+            "stencil_hbm_sharded": run_stencil_hbm_sharded,
+            "imp_hbm_sharded": run_imp_hbm_sharded}
     if tier not in runs:
         raise unported(f"n_devices={cfg.n_devices} with engine={cfg.engine!r} "
                        f"on {topo.kind}: {_SHARDED_NAMES[tier]}", item)

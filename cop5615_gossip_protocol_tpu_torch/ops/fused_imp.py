@@ -53,16 +53,17 @@ from .fused import (
     pushsum_class_rounds,
     round_keys,
     threefry2x32_hash,
+    threefry_bits_2d,
 )
-from .fused_pool import (
-    POOL_SIZES,
-    _choice_plane,
-    _ptr,
-    _upload,
-    build_pool_layout,
-)
+from .fused_pool import POOL_SIZES, _ptr, _upload, build_pool_layout
 from .fused_stencil_hbm import _KIND_IDS, _sample_disp_dirs
-from .sampling import IMP_CHOICE_TAG, POOL_CHOICE_BITS, pool_rows
+from .sampling import (
+    IMP_CHOICE_TAG,
+    POOL_CHOICE_BITS,
+    POOL_PACK,
+    choice_from_words,
+    pool_rows,
+)
 from .topology import IMP_LATTICE, Topology, imp_lattice_offsets, lattice_dirs
 
 # The JAX resident tier's plane budget, copied as the ladder's predicate.
@@ -77,9 +78,10 @@ def _plane_bytes(n_pad: int, max_deg: int, algorithm: str) -> int:
     return n_pad * 4 * (per_node + max_deg + 1)
 
 
-def imp_reason(topo: Topology, cfg: SimConfig) -> Optional[str]:
-    """The checks both imp tiers share: None if the kernels take this
-    config's topology, else the reason not."""
+def imp_reason(topo: Topology, cfg: SimConfig, single_device: str) -> Optional[str]:
+    """The checks both imp tiers share, in the JAX predicates' order: None
+    if the kernels take this config, else the reason not; ``single_device``
+    is the tier's reason for an n_devices > 1 config."""
     if topo.kind not in IMP_LATTICE:
         return f"topology {topo.kind!r} is not an imp (lattice+extra) kind"
     if cfg.reference:
@@ -91,6 +93,8 @@ def imp_reason(topo: Topology, cfg: SimConfig) -> Optional[str]:
         return "lattice slots are not offset-structured for this instance"
     if topo.target_count != topo.n:
         return "the fused imp kernels take batched-semantics builds"
+    if cfg.n_devices is not None and cfg.n_devices > 1:
+        return single_device
     if cfg.pool_size > 1 << POOL_CHOICE_BITS:
         return (
             f"pool_size {cfg.pool_size} exceeds the packed-choice limit "
@@ -103,7 +107,7 @@ def imp_fused_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
     """None if the JAX package's resident imp tier would run this config,
     else the reason not (its predicate; the port's configs are fault-free,
     float32 and single-device by construction)."""
-    reason = imp_reason(topo, cfg)
+    reason = imp_reason(topo, cfg, "fused engine is single-device")
     if reason is not None:
         return reason
     layout = build_pool_layout(topo.n)
@@ -145,28 +149,41 @@ def choice_round_keys(base_key, start: int, count: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _imp_classes(spec: ImpSpec, keys, offs, ckeys, rows: int):
-    """``round_classes`` of the imp chunks (fused.pushsum_class_rounds):
-    the marks as the module docstring draws them, the L lattice classes
-    with their static sources, then the P pool classes with the round's."""
-    n, n_pad, dev = spec.n, rows * LANES, keys.device
-    jflat = torch.arange(n_pad, dtype=torch.int64, device=dev)
+def imp_marks(spec: ImpSpec, key, ckey, pool_size: int, lo: int, hi: int,
+              device=None) -> torch.Tensor:
+    """int64 [(hi - lo) * 128] class id each node of global rows [lo, hi)
+    sends along in one round (-1 on pad lanes), as the module docstring
+    draws it: ``key`` and ``ckey`` are the round's key and choice key
+    (pairs of uint32 words, ints or tensors)."""
+    n = spec.n
+    jflat = torch.arange(lo * LANES, hi * LANES, dtype=torch.int64, device=device)
     padm = jflat >= n
     # The grid's direction pairs in neighbour-column order, then the
     # long-range slot: live on every real node, with displacement -1 so it
     # never aliases a lattice class.
     pairs = lattice_dirs(IMP_LATTICE[spec.kind], n, n, jflat) + [(~padm, jflat * 0 - 1)]
-    lattice = torch.tensor(spec.classes, dtype=torch.int64, device=dev)
+    d, _ = _sample_disp_dirs(threefry2x32_hash(key[0], key[1], jflat), pairs)
+    # The packed choice words of the 8-row groups the rows meet.
+    w0, w1 = lo // POOL_PACK, -(-hi // POOL_PACK)
+    words = threefry_bits_2d(ckey[0], ckey[1], w1 - w0, LANES, row0=w0, device=device)
+    choice = choice_from_words(words, pool_size)[lo - w0 * POOL_PACK:hi - w0 * POOL_PACK]
+    lattice = torch.tensor(spec.classes, dtype=torch.int64, device=device)
+    cls = torch.where(d >= 0, torch.searchsorted(lattice, d.clamp(min=0)),
+                      len(spec.classes) + choice.reshape(-1).to(torch.int64))
+    return torch.where(padm, -1, cls)
+
+
+def _imp_classes(spec: ImpSpec, keys, offs, ckeys, rows: int):
+    """``round_classes`` of the imp chunks (fused.pushsum_class_rounds):
+    the marks (``imp_marks``), the L lattice classes with their static
+    sources, then the P pool classes with the round's."""
+    n, n_pad, dev = spec.n, rows * LANES, keys.device
     L, P = len(spec.classes), offs.shape[1]
     lat_srcs = [(q, class_sources(n_pad, d, n, dev)) for q, d in enumerate(spec.classes)]
 
     def round_classes(k):
-        bits = threefry2x32_hash(keys[k, 0], keys[k, 1], jflat)
-        d, _ = _sample_disp_dirs(bits, pairs)
-        choice = _choice_plane(ckeys[k], rows, P).reshape(-1).to(torch.int64)
-        cls = torch.where(d >= 0, torch.searchsorted(lattice, d.clamp(min=0)), L + choice)
         pool = [(L + p, class_sources(n_pad, offs[k, p], n, dev)) for p in range(P)]
-        return torch.where(padm, -1, cls), lat_srcs + pool
+        return imp_marks(spec, keys[k], ckeys[k], P, 0, rows, dev), lat_srcs + pool
 
     return round_classes
 

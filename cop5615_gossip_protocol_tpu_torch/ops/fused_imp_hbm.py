@@ -22,14 +22,20 @@ from .topology import Topology
 
 def imp_hbm_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
     """None if the JAX package's streaming imp tier would run this config,
-    else the reason not (its predicate)."""
-    reason = fused_imp.imp_reason(topo, cfg)
+    else the reason not (its predicate, whose reasons name the sharded
+    composition past one device)."""
+    reason = fused_imp.imp_reason(
+        topo, cfg,
+        "this streaming engine is single-device; n_devices > 1 runs the imp "
+        "x HBM x sharded composition (parallel/fused_imp_hbm_sharded.py — "
+        "lattice halos + one all_gather of the windowed planes per round)")
     if reason is not None:
         return reason
     if topo.n > MAX_STENCIL_HBM_NODES:
         return (
             f"population {topo.n} exceeds the single-device HBM-plane "
-            f"budget ({MAX_STENCIL_HBM_NODES} nodes)"
+            f"budget ({MAX_STENCIL_HBM_NODES} nodes); n_devices > 1 "
+            "shards past it (parallel/fused_imp_hbm_sharded.py)"
         )
     return None
 

@@ -3,7 +3,10 @@ of the JAX package's parallel/halo.py ``exchange_rows_batched`` (the
 lattice compositions' ring halo exchange, one ppermute pair for every
 plane), ``scatter_band_rows`` (the replicated-pool2 composition's banded
 reduce_scatter plus margin ppermute) and of ``parallel/pool2_sharded.py``'s
-gather ``exchange`` (one all_gather plus the mirrored margin rows).
+gather ``exchange`` (one all_gather plus the mirrored margin rows); and
+``replica_rows``, the imp composition's wire, which keeps one global copy
+of its planes per device current by copying each shard's rows into the
+other devices' copies.
 
 Shard i owns global rows [i * rows_loc, (i + 1) * rows_loc) of a windowed
 summary plane (push-sum's raw s and w, gossip's active plane). Every copy
@@ -87,9 +90,31 @@ def ring_exchange(sets, H: int, rows_loc: int) -> list:
     return list(groups.values())
 
 
+def replica_rows(planes_of: dict, rows_loc: int, devices) -> list:
+    """The wire over one global plane set per device (``planes_of[dev]``
+    its planes, [R, 128] each, in one order on every device), shard s (on
+    ``devices[s]``) owning rows [s * rows_loc, (s + 1) * rows_loc): each
+    shard's rows of its device's planes copied into the same rows of every
+    other device's. Returns the copies as groups of (destinations,
+    sources), int32 views of the preallocated planes, one group per
+    (destination, source) device pair, for ``exchange_rows_batched``; none
+    when every shard shares one device."""
+    groups = {}
+    for s, src_dev in enumerate(devices):
+        rows = slice(s * rows_loc, (s + 1) * rows_loc)
+        for dst_dev, planes in planes_of.items():
+            if dst_dev == src_dev:
+                continue
+            dsts, srcs = groups.setdefault((dst_dev, src_dev), ([], []))
+            for dst, src in zip(planes, planes_of[src_dev]):
+                dsts.append(dst[rows].view(torch.int32))
+                srcs.append(src[rows].view(torch.int32))
+    return list(groups.values())
+
+
 def exchange_rows_batched(groups) -> None:
-    """Queue the ring wire's copies (``ring_exchange``'s groups), one
-    batched copy per group, into the preallocated halo rows: no
-    allocation, the same bytes as the JAX exchange."""
+    """Queue a wire's copies (``ring_exchange``'s or ``replica_rows``'
+    groups), one batched copy per group, into preallocated rows: no
+    allocation."""
     for dsts, srcs in groups:
         torch._foreach_copy_(dsts, srcs, non_blocking=True)

@@ -515,6 +515,99 @@ def _start_planes(topo, cfg, key, mesh, rows_loc, layout, start_state):
     return [tuple(p[s] for p in planes) for s in range(mesh.size)]
 
 
+class ShardControl:
+    """The control block of a run of one-round super-steps over shards on
+    ``devices``: on the home device (shard 0's) the done flag and round
+    counter ``ctrl`` (int32 [2]) and the shards' counts of each round
+    parity ``u_all`` (int32 [2, S]); on every other device a copy of ctrl
+    and each of its shards' count slots; per shard its int32 [2] scratch."""
+
+    def __init__(self, devices, done: bool, start_round: int):
+        self.devices, self.home = list(devices), devices[0]
+        home = self.home
+        self.ctrl = torch.tensor([int(done), start_round], dtype=torch.int32, device=home)
+        self.ctrl_on = {dev: (self.ctrl if dev == home else self.ctrl.to(dev))
+                        for dev in self.devices}
+        self.u_all = torch.zeros(2, len(self.devices), dtype=torch.int32, device=home)
+        self.u_of = [[self.u_all[par, s:s + 1] if dev == home else
+                      torch.zeros(1, dtype=torch.int32, device=dev) for par in (0, 1)]
+                     for s, dev in enumerate(self.devices)]
+        self.acc = [torch.zeros(2, dtype=torch.int32, device=dev) for dev in self.devices]
+
+    def args(self, s: int, par: int) -> dict:
+        """Shard s's u, acc and ctrl operands in a round of parity ``par``."""
+        return {"u": self.u_of[s][par], "acc": self.acc[s],
+                "ctrl": self.ctrl_on[self.devices[s]]}
+
+
+def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
+                         start_round: int, target: int, t_enter: float, library: str,
+                         draw, launch_round, final_state):
+    """Run one-round super-steps to convergence or cfg.max_rounds and return
+    the RunResult: chunks of STRIDE rounds queued through
+    models/pipeline.py, one host sync each, each round's verdict ordered by
+    parallel/overlap.py. ``draw(begin, count)`` gives the random streams
+    of rounds begin.. (one tuple a round); ``launch_round(r, stream)``
+    queues round r's wire and shard launches, each shard's count into its
+    ``ctl.args`` slot; ``final_state(par)`` joins the planes of parity
+    ``par`` into the canonical state. ``library`` names the kernels'
+    source, loaded (with the verdict's) before the run's clock starts."""
+    from ..models import pipeline as pipeline_mod
+    from ..models.runner import _finalize_result
+
+    home = ctl.home
+    streams = {}
+
+    def launch(r):
+        launch_round(r, streams[r])
+        for s, dev in enumerate(ctl.devices):
+            if dev != home:
+                ctl.u_all[r % 2, s].copy_(ctl.u_of[s][r % 2][0])
+
+    def verdict(r):
+        shard_verdict(ctl.u_all[r % 2], target, ctl.ctrl)
+        for dev, c in ctl.ctrl_on.items():
+            if dev != home:
+                c.copy_(ctl.ctrl)
+
+    queued = {"end": start_round}
+
+    def dispatch(state, status, round_end):
+        # A chunk that runs at all starts where the previous one was told
+        # to end: only termination stops a chunk short, and every later
+        # chunk's launches then return at once.
+        begin, queued["end"] = queued["end"], round_end
+        count = max(round_end - begin, 0)
+        streams.clear()
+        streams.update(zip(range(begin, begin + count), draw(begin, count)))
+        overlap_mod.superstep_rounds(begin, round_end, launch_round=launch,
+                                     verdict=verdict,
+                                     overlap=cfg.overlap_collectives)
+        return state, ctl.ctrl[[1, 0]].to(torch.int64)
+
+    t0 = time.perf_counter()
+    setup_s = t0 - t_enter
+    if home.type == "cuda":
+        for name in dict.fromkeys((library, "fused_pool2_shard")):
+            kernels.load(name)
+        torch.cuda.synchronize(home)
+    compile_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    loop = pipeline_mod.run_chunks(
+        dispatch=dispatch, state0=None, status0=ctl.ctrl[[1, 0]].to(torch.int64),
+        start_round=start_round, max_rounds=cfg.max_rounds, stride=STRIDE,
+        depth=cfg.pipeline_chunks,
+    )
+    run_s = time.perf_counter() - t1
+    t_fin = time.perf_counter()
+    result = _finalize_result(topo, cfg, final_state(loop.rounds % 2), loop.rounds,
+                              target, compile_s, run_s, loop.done, loop, home)
+    result.setup_s = setup_s
+    result.finalize_s = time.perf_counter() - t_fin
+    return result
+
+
 def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
                       start_state=None, start_round: int = 0,
                       t_enter: Optional[float] = None):
@@ -524,15 +617,12 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
 
     Each shard keeps a ping/pong pair of plane sets: round r reads set
     r % 2 and writes the other, so the planes after r rounds are set r % 2
-    and a verdict's round counter names them. The run's done flag and round
-    counter (``ctrl``), and the shards' counts, live on shard 0's device;
-    a shard on another device gets its copy of the flag after each verdict
-    and returns its count after each round. Chunks of 8 rounds are queued
-    through models/pipeline.py, one host sync each."""
+    and a verdict's round counter names them. The run's control block
+    (``ShardControl``) lives on shard 0's device, and
+    ``run_round_supersteps`` drives the rounds."""
     from ..models import gossip as gossip_mod
-    from ..models import pipeline as pipeline_mod
     from ..models import pushsum as pushsum_mod
-    from ..models.runner import _finalize_result, _host_done
+    from ..models.runner import _host_done
 
     t_enter = time.perf_counter() if t_enter is None else t_enter
     S = mesh.size
@@ -554,13 +644,7 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
         pair[(start_round + 1) % 2] = tuple(torch.empty_like(x) for x in start[s])
         sets.append(pair)
     del start
-    ctrl = torch.tensor([int(done0), start_round], dtype=torch.int32, device=home)
-    ctrl_on = {dev: (ctrl if dev == home else ctrl.to(dev)) for dev in devices}
-    u_all = torch.zeros(2, S, dtype=torch.int32, device=home)
-    u_of = [[u_all[par, s:s + 1] if dev == home else
-             torch.zeros(1, dtype=torch.int32, device=dev) for par in (0, 1)]
-            for s, dev in enumerate(devices)]
-    acc = [torch.zeros(2, dtype=torch.int32, device=dev) for dev in devices]
+    ctl = ShardControl(devices, done0, start_round)
     if pushsum:
         round_fn = pushsum_pool2_shard_round
         kw = {"n": n, "rows": R, "delta": cfg.resolved_delta,
@@ -571,74 +655,35 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
         kw = {"n": n, "rows": R, "rumor_target": cfg.resolved_rumor_target,
               "suppress": cfg.resolved_suppress}
         windowed_of = (1,)  # the active plane
-    streams = {}
 
-    def launch_round(r):
-        keys, offs = streams[r]
+    def draw(begin, count):
+        return list(zip(fused.round_keys(key, begin, count).tolist(),
+                        fused_pool.round_offsets(key, begin, count, P, n).tolist()))
+
+    def launch_round(r, stream):
+        keys, offs = stream
         cur = [sets[s][r % 2] for s in range(S)]
         windowed = [[cur[s][p] for s in range(S)] for p in windowed_of]
         if wire_kind == "all_gather":
             wires = gather_wire(windowed, PT, devices, P)
         else:
             wires = band_wire(windowed, offs, layout, devices)
-        for s, dev in enumerate(devices):
+        for s in range(S):
             round_fn(cur[s], sets[s][(r + 1) % 2], wires[s], keys, offs,
-                     s * rows_loc, **kw, u=u_of[s][r % 2], acc=acc[s],
-                     ctrl=ctrl_on[dev])
-            if dev != home:
-                u_all[r % 2, s].copy_(u_of[s][r % 2][0])
+                     s * rows_loc, **kw, **ctl.args(s, r % 2))
 
-    def verdict(r):
-        shard_verdict(u_all[r % 2], target, ctrl)
-        for dev, c in ctrl_on.items():
-            if dev != home:
-                c.copy_(ctrl)
-
-    queued = {"end": start_round}
-
-    def dispatch(state, status, round_end):
-        # A chunk that runs at all starts where the previous one was told
-        # to end: only termination stops a chunk short, and every later
-        # chunk's launches then return at once.
-        begin, queued["end"] = queued["end"], round_end
-        count = max(round_end - begin, 0)
-        keys = fused.round_keys(key, begin, count).tolist()
-        offs = fused_pool.round_offsets(key, begin, count, P, n).tolist()
-        streams.clear()
-        streams.update({begin + i: (keys[i], offs[i]) for i in range(count)})
-        overlap_mod.superstep_rounds(begin, round_end, launch_round=launch_round,
-                                     verdict=verdict,
-                                     overlap=cfg.overlap_collectives)
-        return state, ctrl[[1, 0]].to(torch.int64)
-
-    t0 = time.perf_counter()
-    setup_s = t0 - t_enter
-    if home.type == "cuda":
-        kernels.load("fused_pool2_shard")
-        torch.cuda.synchronize(home)
-    compile_s = time.perf_counter() - t0
-
-    t1 = time.perf_counter()
-    loop = pipeline_mod.run_chunks(
-        dispatch=dispatch, state0=None, status0=ctrl[[1, 0]].to(torch.int64),
-        start_round=start_round, max_rounds=cfg.max_rounds, stride=STRIDE,
-        depth=cfg.pipeline_chunks,
-    )
-    run_s = time.perf_counter() - t1
-    t_fin = time.perf_counter()
-    final = [sets[s][loop.rounds % 2] for s in range(S)]
-    joined = [torch.cat([final[s][p].to(home) for s in range(S)]).reshape(-1)[:n]
-              for p in range(len(final[0]))]
-    if pushsum:
-        state = pushsum_mod.PushSumState(
-            s=joined[0], w=joined[1], term=joined[2] & TC_TERM_MASK,
-            conv=(joined[2] & TC_CONV_BIT) != 0)
-    else:
-        state = gossip_mod.GossipState(
+    def final_state(par):
+        final = [sets[s][par] for s in range(S)]
+        joined = [torch.cat([final[s][p].to(home) for s in range(S)]).reshape(-1)[:n]
+                  for p in range(len(final[0]))]
+        if pushsum:
+            return pushsum_mod.PushSumState(
+                s=joined[0], w=joined[1], term=joined[2] & TC_TERM_MASK,
+                conv=(joined[2] & TC_CONV_BIT) != 0)
+        return gossip_mod.GossipState(
             count=joined[0], active=joined[1] != 0,
             conv=joined[0] >= cfg.resolved_rumor_target)
-    result = _finalize_result(topo, cfg, state, loop.rounds, target, compile_s,
-                              run_s, loop.done, loop, home)
-    result.setup_s = setup_s
-    result.finalize_s = time.perf_counter() - t_fin
-    return result
+
+    return run_round_supersteps(topo, cfg, ctl, start_round=start_round, target=target,
+                                t_enter=t_enter, library="fused_pool2_shard", draw=draw,
+                                launch_round=launch_round, final_state=final_state)

@@ -55,7 +55,8 @@ def test_importing_the_port_loads_no_jax():
         "cop5615_gossip_protocol_tpu_torch.bench, "
         "cop5615_gossip_protocol_tpu_torch.parallel.pool2_sharded, "
         "cop5615_gossip_protocol_tpu_torch.parallel.fused_sharded, "
-        "cop5615_gossip_protocol_tpu_torch.parallel.fused_hbm_sharded; "
+        "cop5615_gossip_protocol_tpu_torch.parallel.fused_hbm_sharded, "
+        "cop5615_gossip_protocol_tpu_torch.parallel.fused_imp_hbm_sharded; "
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cop5615_gossip_protocol_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"

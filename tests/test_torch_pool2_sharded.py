@@ -315,7 +315,8 @@ def test_ladder_matches_the_jax_ladder(n, S, pool_size, tier):
     ("full", 200_000, {"engine": "chunked"}, NotImplementedError, ("ROADMAP A10",)),
     ("torus3d", 4096, {"delivery": "auto"}, ValueError,
      ("unavailable: VMEM composition", "HBM-streaming composition")),
-    ("imp3d", 4096, {}, NotImplementedError, ("ROADMAP B12",)),
+    ("imp3d", 4096, {"n_devices": 3}, ValueError,
+     ("unavailable", "3 devices do not divide it")),
     ("full", 16_777_217, {}, ValueError,
      ("unavailable: VMEM pool composition", "no processing tile divides")),
 ])
