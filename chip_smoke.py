@@ -94,8 +94,10 @@ non-zero before the last line:
    (parallel/fused_sharded.py, every shard on the card) against its plain
    version, one super-step on every shard from the initial state and from
    a mid-run state, at torus3d 100**3 in 2 and 4 shards, grid2d 1000**2 in
-   2 (non-wrap, pad lanes) and ring 131,072 in 2; every extended plane and
-   every shard's per-round counts bitwise;
+   2 (non-wrap, pad lanes) and ring 131,072 in 2, out and y filled with a
+   sentinel first for both; every row of every out plane (so also a write
+   outside a round's window) and every shard's per-round counts bitwise,
+   each case's window sizes printed beside H and CR;
 14b. the same for the streaming sharded lattice composition
    (parallel/fused_hbm_sharded.py) at torus3d 256**3 in 2 and 4 shards,
    215**3 in 4 (23,097 pad lanes, across the mod-n blend) and grid2d
@@ -108,7 +110,8 @@ non-zero before the last line:
    chunk_rounds=1 bitwise phase 10's run, with the verdict not deferred,
    and resumed from its converged state (0 rounds); torus3d 256**3 gossip
    in 4 shards against phase 6's round; torus3d 215**3 push-sum in 4
-   shards, 2,000 rounds at chunk_rounds=1, bitwise phase 6's sample;
+   shards, 2,000 rounds at chunk_rounds=1 and at the default (CR 32), each
+   bitwise phase 6's sample;
 14d. each kernel of the sharded imp composition
    (parallel/fused_imp_hbm_sharded.py, every shard on the card: a mark and
    an absorb launch a shard a round) against its plain version, one round
@@ -130,7 +133,8 @@ non-zero before the last line:
    kernels per super-step (every shard's launch) at 16,777,216 in 4, with
    the wire's copies timed apart; the sharded lattice kernels per
    super-step at torus3d 100**3 in 2 (resident) and 256**3 in 4
-   (streaming), the ring wire's copies timed apart; the sharded imp
+   (streaming), the ring wire's copies timed apart, their bound counted on
+   the windows' slot-rounds (``stencil_shard_bound``); the sharded imp
    kernels per round (every shard's mark and absorb) at imp3d 256**3 in 4,
    whose wire copies nothing on one card (``--cards`` times it).
 
@@ -206,16 +210,45 @@ LATTICE_KINDS = (("grid2d", LATTICE_N, "batched"), ("grid3d", LATTICE_N, "batche
 STATE_BYTES = {"pushsum": 32, "gossip": 24}
 
 
-def stencil_ops_per_node(algorithm: str, classes: int) -> int:
-    """Per-node, per-round operations of csrc/fused_stencil.cu: the hash,
-    the direction pairs (three index splits and the face selects, 20), the
-    slot select (a modulo and six compare-select-adds, 19), the class
-    lookup (10); per class a source index (compare, subtract, add), the
-    mark compare and the adds (push-sum also the two halvings); then the
-    own halving and the absorb."""
+# Per-node operations of a lattice mark: the hash, the direction pairs
+# (three index splits and the face selects, 20), the slot select (a modulo
+# and six compare-select-adds, 19), the class lookup (10).
+STENCIL_MARK_OPS = OPS_PER_HASH + 20 + 19 + 10
+
+
+def stencil_absorb_ops(algorithm: str, classes: int) -> int:
+    """Per-node operations of a lattice absorb: per class a source index
+    (compare, subtract, add), the mark compare and the adds (push-sum also
+    the two halvings); then the own halving and the absorb."""
     per_class = 8 if algorithm == "push-sum" else 5
     absorb = 16 if algorithm == "push-sum" else 6
-    return OPS_PER_HASH + 20 + 19 + 10 + per_class * classes + absorb
+    return per_class * classes + absorb
+
+
+def stencil_ops_per_node(algorithm: str, classes: int) -> int:
+    """Per-node, per-round operations of csrc/fused_stencil.cu: a mark and
+    an absorb."""
+    return STENCIL_MARK_OPS + stencil_absorb_ops(algorithm, classes)
+
+
+def stencil_shard_bound(kw, plan, shards, rounds, algorithm, classes, resident):
+    """(bytes, operations) a super-step of every shard needs: per shard the
+    window slot-rounds of csrc/shard.cuh's contract, computed from the plan
+    and the rolls, whatever computes them. A mark for each slot of W_{j-1}
+    and an absorb for each slot of W_j in every round j; the state (with
+    the keys and u) moved once a super-step where a shard's planes stay in
+    the L2 (the resident tier: each slot of W_-1 read and its result
+    written once), else once a round over W_j (the streaming tier)."""
+    geom = plan.geom
+    state = STATE_BYTES["pushsum" if algorithm == "push-sum" else "gossip"]
+    moved = 16 * rounds + 4 * shards * (geom.cr + 1)
+    ops = 0
+    for s in range(shards):
+        rows = window_rows(kw, geom, s, rounds)
+        marks, absorbs = 128 * sum(rows[:-1]), 128 * sum(rows[1:])
+        ops += marks * STENCIL_MARK_OPS + absorbs * stencil_absorb_ops(algorithm, classes)
+        moved += state * 128 * (rows[0] if resident else sum(rows[1:]))
+    return moved, ops
 
 
 # Rounds of the main-path run whose launches each row of the kernels line
@@ -1467,10 +1500,25 @@ def stencil_shard_case(dev, key, topo, kind, n, shards, algorithm, tier):
     return fn, kw, plan, init, mid, mid_round
 
 
-def shard_buffers(planes, geom, shards, marks):
+# Every word of a shard's out and y planes before a checked super-step: the
+# kernel and the plain version both start from it, so a write by either
+# outside the windows shows in the bitwise comparison of every row of out.
+SENTINEL = -0x3C3C3C3D
+
+
+def sentinel_like(x):
+    """A plane of x's shape and type whose every 32-bit word is SENTINEL."""
+    import torch
+
+    out = torch.empty_like(x)
+    out.view(torch.int32).fill_(SENTINEL)
+    return out
+
+
+def shard_buffers(planes, geom, shards):
     """Per shard: its extended planes cut from the global ``planes`` (row
-    r of shard s is global row (row0_s + r) mod R), and its out, y, mark,
-    u, ctrl and bar buffers."""
+    r of shard s is global row (row0_s + r) mod R), its out and y planes
+    filled with SENTINEL, and its mark, u, ctrl and bar buffers."""
     import torch
 
     dev = planes[0].device
@@ -1479,9 +1527,9 @@ def shard_buffers(planes, geom, shards, marks):
         rows = (geom.row0(s) + torch.arange(geom.rows_ext, device=dev)) % geom.R
         ext = tuple(p.index_select(0, rows).contiguous() for p in planes)
         out.append({
-            "ext": ext, "out": tuple(torch.empty_like(x) for x in ext),
-            "y": tuple(torch.empty_like(x) for x in ext),
-            "mark": torch.empty(marks * geom.rows_ext * 128, dtype=torch.int8, device=dev),
+            "ext": ext, "out": tuple(sentinel_like(x) for x in ext),
+            "y": tuple(sentinel_like(x) for x in ext),
+            "mark": torch.empty(2 * geom.rows_ext * 128, dtype=torch.int8, device=dev),
             "u": torch.zeros(geom.cr + 1, dtype=torch.int32, device=dev),
             "ctrl": torch.zeros(2, dtype=torch.int32, device=dev),
             "bar": torch.zeros(2, dtype=torch.int32, device=dev),
@@ -1493,18 +1541,27 @@ def lattice_shard_step(fn, kw, plan, bufs, keys, rounds):
     """One super-step's shard calls (no wire, no verdict) into each
     shard's out and u."""
     for s, b in enumerate(bufs):
-        extra = {"bar": b["bar"]} if plan.marks == 2 else {}
+        extra = {"bar": b["bar"]} if plan.barrier else {}
         fn(b["ext"], b["out"], b["y"], b["mark"], keys, rounds, plan.geom.row0(s),
            **kw, u=b["u"], ctrl=b["ctrl"], **extra)
+
+
+def window_rows(kw, geom, shard, rounds):
+    """Rows of shard ``shard``'s windows W_-1, W_0, ..., W_{rounds-1} in a
+    ``rounds``-round super-step (csrc/shard.cuh's contract)."""
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_sharded as fs
+
+    return [hi - lo for lo, hi in fs.shard_windows(
+        kw["spec"], tuple(kw["rolls"]), geom, geom.row0(shard), rounds)]
 
 
 def stencil_shard_checks(dev, key, tier):
     """Phases 14a (the resident tier) and 14b (the streaming tier): each
     shard kernel against its plain version on the card, one super-step on
     every shard from the initial and the mid-run state at each of
-    STENCIL_SHARD_CASES[tier]; every extended plane and every shard's u
-    bitwise. Returns the timed case's operands {name: ...} and {name:
-    max_abs_err}."""
+    STENCIL_SHARD_CASES[tier], out and y filled with SENTINEL first for
+    both; every row of every out plane and every shard's u bitwise. Returns
+    the timed case's operands {name: ...} and {name: max_abs_err}."""
     import torch
 
     from cop5615_gossip_protocol_tpu_torch import build_topology
@@ -1523,27 +1580,33 @@ def stencil_shard_checks(dev, key, tier):
             geom = plan.geom
             rounds = min(geom.cr, STENCIL_SHARD_ROUNDS)
             for label, state, rnd in (("init", init, 0), ("mid-run", mid, mid_round)):
-                bufs = shard_buffers(state, geom, shards, plan.marks)
+                bufs = shard_buffers(state, geom, shards)
                 keys = fused.round_keys(key, rnd, rounds).to(dev)
                 lattice_shard_step(fn, kw, plan, bufs, keys, rounds)
                 err = 0.0
                 for s, b in enumerate(bufs):
-                    want, want_u = fs.shard_superstep_plain(b["ext"], keys, rounds,
-                                                            geom.row0(s), **kw)
+                    # The plain version from the same SENTINEL out and y.
+                    want = tuple(sentinel_like(x) for x in b["ext"])
+                    want_y = tuple(sentinel_like(x) for x in b["ext"])
+                    want_u = fs.shard_superstep_plain(b["ext"], want, want_y, keys, rounds,
+                                                      geom.row0(s), **kw)
                     if not torch.equal(b["u"].cpu(), want_u):
                         raise AssertionError(f"{kind} n={n} x{shards} {name} {label} shard "
                                              f"{s}: u {b['u'].tolist()} != plain "
                                              f"{want_u.tolist()}")
                     for got, exp in zip(b["out"], want):
-                        same = (torch.equal(got.view(torch.int32), exp.view(torch.int32))
-                                if got.dtype == torch.float32 else torch.equal(got, exp))
-                        if not same:
+                        if not torch.equal(got.view(torch.int32), exp.view(torch.int32)):
                             raise AssertionError(f"{kind} n={n} x{shards} {name} {label} "
                                                  f"shard {s}: a plane differs from plain")
                         if got.dtype == torch.float32:
                             err = max(err, (got - exp).abs().max().item())
-                print(f"  {name} {label} (H {geom.H}, CR {geom.cr}, {rounds} rounds): every "
-                      f"shard bitwise, middle converged "
+                    del want, want_y
+                # Each shard's W_-1 and its mean window over the rounds, in rows.
+                wins = [window_rows(kw, geom, s, rounds) for s in range(shards)]
+                print(f"  {name} {label} (H {geom.H}, CR {geom.cr}, {rounds} rounds; "
+                      f"rows_ext {geom.rows_ext}, middle {geom.rows_loc}, windows W_-1 / "
+                      f"mean a round {[(w[0], round(sum(w[1:]) / rounds, 1)) for w in wins]}"
+                      f"): every shard bitwise on every row of out and u, middle converged "
                       f"{sum(int(b['u'][rounds - 1]) for b in bufs)}, max_abs_err {err}",
                       flush=True)
                 max_err[name] = max(max_err.get(name, 0.0), err)
@@ -1570,9 +1633,10 @@ def stencil_shard_path(dev, single):
     equal to the deferred run, and a resume from the converged gossip state
     (0 rounds, state unchanged); torus3d 2**24 gossip in 4 shards (the
     streaming tier) to convergence against phase 6's round; torus3d 215**3
-    push-sum in 4 shards, LATTICE_PS_ROUNDS rounds at chunk_rounds=1,
-    bitwise phase 6's sample and conserving its mass. Returns each
-    kernel's launches over its main-path run."""
+    push-sum in 4 shards, LATTICE_PS_ROUNDS rounds at chunk_rounds=1 and
+    at the default (super-steps of CR 32, the main-path run whose launches
+    row 16 counts), each bitwise phase 6's sample and conserving its mass.
+    Returns each kernel's launches over its main-path run."""
     import torch
 
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
@@ -1684,15 +1748,73 @@ def stencil_shard_path(dev, single):
     del topo
     topo = build_topology("torus3d", LATTICE_PS_N)
     cfg = SimConfig(n=LATTICE_PS_N, topology="torus3d", algorithm="push-sum",
-                    engine="fused", n_devices=4, chunk_rounds=1,
-                    max_rounds=LATTICE_PS_ROUNDS)
-    res, counts = drive(topo, cfg, "pushsum", single["lattice"][LATTICE_PS_N, "push-sum"])
+                    engine="fused", n_devices=4, max_rounds=LATTICE_PS_ROUNDS)
+    want = single["lattice"][LATTICE_PS_N, "push-sum"]
+    drive(topo, dataclasses.replace(cfg, chunk_rounds=1), "pushsum", want)
+    res, counts = drive(topo, cfg, "pushsum", want)
     launches["pushsum", "stencil_hbm_sharded"] = counts["pushsum_stencil_hbm_sharded"]
     MAIN_ROUNDS["pushsum_stencil_hbm_sharded_superstep"] = res.rounds
     del res
     del topo
     torch.cuda.empty_cache()
     return launches
+
+
+def stencil_shard_rows(cases, launches, max_err):
+    """Rows 15-17 of the kernels line: one super-step (every shard's call)
+    at STENCIL_SHARD_TIMED from the mid-run state (``cases``, phases
+    14a-14b), the ring wire's copies timed apart, each beside its plain
+    version and its bound on the windows' slot-rounds."""
+    from cop5615_gossip_protocol_tpu_torch.parallel import halo
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_sharded as fs
+
+    rows = []
+    replaces = {
+        ("pushsum", "fused_sharded"):
+            "cop5615_gossip_protocol_tpu/parallel/fused_sharded.py:448",
+        ("gossip", "fused_sharded"):
+            "cop5615_gossip_protocol_tpu/parallel/fused_sharded.py:448",
+        ("pushsum", "stencil_hbm_sharded"):
+            "cop5615_gossip_protocol_tpu/parallel/fused_hbm_sharded.py:773",
+        ("gossip", "stencil_hbm_sharded"):
+            "cop5615_gossip_protocol_tpu/parallel/fused_hbm_sharded.py:1069"}
+    sources = {"fused_sharded": "csrc/fused_stencil_shard.cu",
+               "stencil_hbm_sharded": "csrc/fused_stencil_hbm_shard.cu"}
+    for tier in ("fused_sharded", "stencil_hbm_sharded"):
+        for name in ("pushsum", "gossip"):
+            algo = "push-sum" if name == "pushsum" else "gossip"
+            fn, kw, plan, bufs, keys, rounds, classes = cases[tier][name]
+            ms, _ = time_ms(lambda: lattice_shard_step(fn, kw, plan, bufs, keys, rounds),
+                            TIME_REPS)
+            wire = halo.ring_exchange([b["ext"] for b in bufs], plan.geom.H,
+                                      plan.geom.rows_loc)
+            wire_ms, _ = time_ms(lambda: halo.exchange_rows_batched(wire), TIME_REPS)
+            plain_ms, _ = time_ms(lambda: [
+                fs.shard_superstep_plain(b["ext"], b["out"], b["y"], keys, rounds,
+                                         plan.geom.row0(s), **kw)
+                for s, b in enumerate(bufs)], 2)
+            kind, n, shards = STENCIL_SHARD_TIMED[tier]
+            moved, ops = stencil_shard_bound(kw, plan, shards, rounds, algo, classes,
+                                             tier == "fused_sharded")
+            bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+            rows.append({
+                "name": f"{name}_{tier}_superstep", "route": "cuda",
+                "source": f"cop5615_gossip_protocol_tpu_torch/{sources[tier]}",
+                "replaces": replaces[name, tier],
+                "launches": launches[name, tier],
+                "max_abs_err": max_err[tier][name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None, "rounds_per_call": rounds,
+                "us_per_round": ms * 1e3 / rounds, "shards": shards, "H": plan.geom.H,
+                "cr": plan.geom.cr, "window_rows": [window_rows(kw, plan.geom, s, rounds)
+                                                    for s in range(shards)],
+                "wire_ms": wire_ms, "population": n,
+                "topology": kind, "status": "ported",
+            })
+            del wire
+            fs._shard_slots.cache_clear()
+    return rows
 
 
 # The imp x HBM x sharded composition (parallel/fused_imp_hbm_sharded.py,
@@ -2418,56 +2540,8 @@ def main() -> int:
             "status": "ported",
         })
         del wires
-    # Rows 15-17: one super-step (every shard's call) at STENCIL_SHARD_TIMED
-    # from the mid-run state, the ring wire's copies timed apart.
-    from cop5615_gossip_protocol_tpu_torch.parallel import halo
-    from cop5615_gossip_protocol_tpu_torch.parallel import fused_sharded as fs
-
-    replaces = {
-        ("pushsum", "fused_sharded"):
-            "cop5615_gossip_protocol_tpu/parallel/fused_sharded.py:448",
-        ("gossip", "fused_sharded"):
-            "cop5615_gossip_protocol_tpu/parallel/fused_sharded.py:448",
-        ("pushsum", "stencil_hbm_sharded"):
-            "cop5615_gossip_protocol_tpu/parallel/fused_hbm_sharded.py:773",
-        ("gossip", "stencil_hbm_sharded"):
-            "cop5615_gossip_protocol_tpu/parallel/fused_hbm_sharded.py:1069"}
-    sources = {"fused_sharded": "csrc/fused_stencil_shard.cu",
-               "stencil_hbm_sharded": "csrc/fused_stencil_hbm_shard.cu"}
-    for tier in ("fused_sharded", "stencil_hbm_sharded"):
-        for name in ("pushsum", "gossip"):
-            algo = "push-sum" if name == "pushsum" else "gossip"
-            fn, kw, plan, bufs, keys, rounds, classes = stencil_shard_cases[tier][name]
-            ms, _ = time_ms(lambda: lattice_shard_step(fn, kw, plan, bufs, keys, rounds),
-                            TIME_REPS)
-            wire = halo.ring_exchange([b["ext"] for b in bufs], plan.geom.H,
-                                      plan.geom.rows_loc)
-            wire_ms, _ = time_ms(lambda: halo.exchange_rows_batched(wire), TIME_REPS)
-            plain_ms, _ = time_ms(lambda: [
-                fs.shard_superstep_plain(b["ext"], keys, rounds, plan.geom.row0(s), **kw)
-                for s, b in enumerate(bufs)], 2)
-            n_ext = sum(b["ext"][0].numel() for b in bufs)
-            # Each shard's extended planes read once and written once, the
-            # keys read; every slot's per-round work each round.
-            moved = STATE_BYTES[name] * n_ext + 16 * rounds + 4 * len(bufs) * (plan.geom.cr + 1)
-            ops = rounds * n_ext * stencil_ops_per_node(algo, classes)
-            bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
-            kind, n, shards = STENCIL_SHARD_TIMED[tier]
-            rows.append({
-                "name": f"{name}_{tier}_superstep", "route": "cuda",
-                "source": f"cop5615_gossip_protocol_tpu_torch/{sources[tier]}",
-                "replaces": replaces[name, tier],
-                "launches": stencil_shard_launches[name, tier],
-                "max_abs_err": stencil_shard_err[tier][name],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None, "rounds_per_call": rounds,
-                "us_per_round": ms * 1e3 / rounds, "shards": shards, "H": plan.geom.H,
-                "cr": plan.geom.cr, "wire_ms": wire_ms, "population": n,
-                "topology": kind, "status": "ported",
-            })
-            del wire
-            fs._shard_slots.cache_clear()
+    rows += stencil_shard_rows(stencil_shard_cases, stencil_shard_launches,
+                               stencil_shard_err)
     rows += imp_shard_rows(dev, imp_shard_cases, imp_shard_launches, imp_shard_err)
     for row in rows:
         row["main_path_rounds"] = MAIN_ROUNDS.get(row["name"])

@@ -9,8 +9,9 @@
 //
 //   mark[x]  = class index of the displacement sender x draws at its GLOBAL
 //              flat index g(x) (threefry at g(x), the slot-th live direction
-//              of the lattice at g(x); csrc/stencil.cuh), -1 for pad lanes,
-//              degree 0 and, in gossip, inactive nodes;
+//              of the lattice at g(x), read from its static directions word;
+//              csrc/shard.cuh), -1 for pad lanes, degree 0 and, in gossip,
+//              inactive nodes;
 //   inbox[x] = sum over the sorted classes k, from 0.0, of send[src] where
 //              src = x - e (mod n_ext), e = e1[k] at g(x) >= d_k, else e2[k],
 //              and mark[src] == k;
@@ -18,27 +19,31 @@
 // then the absorb of csrc/chunk.cuh. Every round runs: convergence is the
 // host schedule's verdict at super-step boundaries (parallel/overlap.py),
 // from u[r], the converged count over the shard's middle rows after round
-// r. The halo recomputed here is garbage past the rows a super-step keeps
-// exact; only the middle rows are the shard's state.
+// r. Round j computes only its window W_j (csrc/shard.cuh's contract), the
+// rows the middle still depends on, which the host passes in.
 //
-// What bounds it on this card: launches and grid barriers, as for the
-// single-device resident tiers (csrc/fused_resident.cu), on buffers of up
-// to the JAX plan's 100 MB.
+// What bounds it on this card: launches, grid barriers and the host's
+// queueing of them (two shard calls a super-step), then the per-slot
+// integer work (the hash), on buffers of up to the JAX plan's 100 MB.
 //
 // Design: one persistent cooperative launch a super-step (all blocks
-// resident, cudaLaunchCooperativeKernel). The input planes are never
-// written: round j writes `out` when (rounds - 1 - j) is even, else `y`,
-// and reads the planes the round before wrote (round 0 reads `in`), so the
-// last round lands in `out` and a super-step whose result is discarded
-// (the deferred verdict's rollback) leaves its input intact. Marks are
-// double-buffered by round parity, so one grid barrier a round (between
-// mark and absorb) orders everything: the mark of round j + 1 overwrites
-// the buffer the absorb of round j - 1 read, and every block has passed
-// that absorb at round j's barrier. Each block adds its middle count into
-// u[j]; block 0 zeroes u[0..rounds) before the first barrier, writes -1 for
-// the rounds not run and u[cr] = rounds run. The barrier's two counter
-// words are reset by the last block to leave, so the next launch finds them
-// zero. A launch whose done flag (ctrl[0]) is set runs no round.
+// resident, cudaLaunchCooperativeKernel), one pass a round. A prologue
+// writes round 0's marks over W_{-1}; round j's pass absorbs the slots of
+// W_j and writes each slot's mark for round j + 1 beside its new state (in
+// gossip from the active flag it has just computed, in a register). Marks
+// are double-buffered by round parity, so one grid barrier a round orders
+// everything: pass j reads mark[j & 1] and writes mark[(j + 1) & 1], which
+// pass j - 1 last read before the barrier between the two passes; pass j
+// writes the plane set that pass j - 1 read, behind the same barrier. The
+// input planes are never written: round j writes `out` when (rounds - 1 -
+// j) is even, else `y`, and reads the planes the round before wrote (round
+// 0 reads `in`), so the last round lands in `out` and a super-step whose
+// result is discarded (the deferred verdict's rollback) leaves its input
+// intact. Each block adds its middle count into u[j]; block 0 zeroes
+// u[0..rounds) before the first barrier, writes -1 for the rounds not run
+// and u[cr] = rounds run. The barrier's two counter words are reset by the
+// last block to leave, so the next launch finds them zero. A launch whose
+// done flag (ctrl[0]) is set runs no round.
 //
 // The verdict (gossip_stencil_shard_verdict, the kernel of csrc/chunk.cuh)
 // is a one-thread launch that sums the shards' u at the super-step's last
@@ -62,9 +67,10 @@ using gossip::GossipPlanes;
 using gossip::PushSumPlanes;
 using gossip::ShardClasses;
 using gossip::ShardGeom;
+using gossip::ShardWindows;
 using gossip::block_sum;
 using gossip::kBlock;
-using gossip::mark_of;
+using gossip::word_mark;
 
 // Waits until `target` arrivals have reached *arrived, counting this
 // block's; every thread's earlier writes are visible grid-wide after it.
@@ -104,31 +110,47 @@ __device__ __forceinline__ void release_barrier(unsigned* bar) {
   }
 }
 
+// Round 0's marks over W_{-1}; `active` is the input's active plane
+// (gossip) or null (push-sum: every node of degree > 0 sends).
+__device__ __forceinline__ void prologue_marks(int8_t* mark, const int* active,
+                                               const int* __restrict__ dirs,
+                                               const long long* keys,
+                                               const ShardGeom& G,
+                                               const ShardWindows& W) {
+  const uint32_t k0 = (uint32_t)keys[0], k1 = (uint32_t)keys[1];
+  for (int x = W.lo[0] * 128 + blockIdx.x * kBlock + threadIdx.x;
+       x < W.hi[0] * 128; x += gridDim.x * kBlock) {
+    const int g = gossip::shard_global_flat(G, x);
+    mark[x] = active == nullptr || active[x] != 0 ? word_mark(dirs[g], k0, k1, g)
+                                                  : (int8_t)-1;
+  }
+}
+
 __global__ void pushsum_shard_rounds(PushSumPlanes in, PushSumPlanes out,
                                      PushSumPlanes y, int8_t* mark,
-                                     const long long* keys, gossip::Lattice L,
-                                     ShardClasses sc, ShardGeom G, int rounds,
-                                     int cr, float delta, int term_rounds,
-                                     int* u, const int* ctrl, unsigned* bar) {
+                                     const long long* keys,
+                                     const int* __restrict__ dirs, int n,
+                                     ShardClasses sc, ShardGeom G,
+                                     ShardWindows W, int rounds, int cr,
+                                     float delta, int term_rounds, int* u,
+                                     const int* ctrl, unsigned* bar) {
   const int ex = start_superstep(rounds, cr, u, ctrl);
   if (ex == 0) return;
-  const int n = L.n, n_ext = G.rows_ext * 128;
+  const int n_ext = G.rows_ext * 128;
+  prologue_marks(mark, nullptr, dirs, keys, G, W);
   unsigned barriers = 0;
+  grid_barrier(bar, ++barriers * gridDim.x);
   for (int j = 0; j < ex; ++j) {
     const bool to_out = ((ex - 1 - j) & 1) == 0;
     const PushSumPlanes dst = to_out ? out : y;
     const PushSumPlanes src = j == 0 ? in : (to_out ? y : out);
-    int8_t* mk = mark + (j & 1) * n_ext;
-    const long long* key = keys + 2 * j;
-    for (int x = blockIdx.x * kBlock + threadIdx.x; x < n_ext;
-         x += gridDim.x * kBlock) {
-      const int g = gossip::shard_global_flat(G, x);
-      mk[x] = g < n ? mark_of(L, sc.cls, key, g) : (int8_t)-1;
-    }
-    grid_barrier(bar, ++barriers * gridDim.x);
+    const int8_t* mk = mark + (j & 1) * n_ext;
+    int8_t* next = j + 1 < ex ? mark + ((j + 1) & 1) * n_ext : nullptr;
+    const uint32_t k0 = next ? (uint32_t)keys[2 * j + 2] : 0u;
+    const uint32_t k1 = next ? (uint32_t)keys[2 * j + 3] : 0u;
     int c = 0;
-    for (int x = blockIdx.x * kBlock + threadIdx.x; x < n_ext;
-         x += gridDim.x * kBlock) {
+    for (int x = W.lo[j + 1] * 128 + blockIdx.x * kBlock + threadIdx.x;
+         x < W.hi[j + 1] * 128; x += gridDim.x * kBlock) {
       const int g = gossip::shard_global_flat(G, x);
       const bool pad = g >= n;
       float in_s = 0.0f, in_w = 0.0f;
@@ -139,50 +161,58 @@ __global__ void pushsum_shard_rounds(PushSumPlanes in, PushSumPlanes out,
       const int cv = gossip::pushsum_absorb_node(src, dst, x, pad, mk[x] >= 0,
                                                  in_s, in_w, delta,
                                                  term_rounds);
+      if (next) next[x] = word_mark(dirs[g], k0, k1, g);
       c += gossip::shard_middle(G, x) ? cv : 0;
     }
     const int block_count = block_sum(c);
     if (threadIdx.x == 0) atomicAdd(u + j, block_count);
+    if (next) grid_barrier(bar, ++barriers * gridDim.x);
   }
   release_barrier(bar);
 }
 
 __global__ void gossip_shard_rounds(GossipPlanes in, GossipPlanes out,
                                     GossipPlanes y, int8_t* mark,
-                                    const long long* keys, gossip::Lattice L,
-                                    ShardClasses sc, ShardGeom G, int rounds,
-                                    int cr, int rumor_target, int suppress,
-                                    int* u, const int* ctrl, unsigned* bar) {
+                                    const long long* keys,
+                                    const int* __restrict__ dirs, int n,
+                                    ShardClasses sc, ShardGeom G,
+                                    ShardWindows W, int rounds, int cr,
+                                    int rumor_target, int suppress, int* u,
+                                    const int* ctrl, unsigned* bar) {
   const int ex = start_superstep(rounds, cr, u, ctrl);
   if (ex == 0) return;
-  const int n = L.n, n_ext = G.rows_ext * 128;
+  const int n_ext = G.rows_ext * 128;
+  prologue_marks(mark, in.active, dirs, keys, G, W);
   unsigned barriers = 0;
+  grid_barrier(bar, ++barriers * gridDim.x);
   for (int j = 0; j < ex; ++j) {
     const bool to_out = ((ex - 1 - j) & 1) == 0;
     const GossipPlanes dst = to_out ? out : y;
     const GossipPlanes src = j == 0 ? in : (to_out ? y : out);
-    int8_t* mk = mark + (j & 1) * n_ext;
-    const long long* key = keys + 2 * j;
-    for (int x = blockIdx.x * kBlock + threadIdx.x; x < n_ext;
-         x += gridDim.x * kBlock) {
-      const int g = gossip::shard_global_flat(G, x);
-      // The same thread wrote src.active[x] in the round before.
-      const bool sending = g < n && src.active[x] != 0;
-      mk[x] = sending ? mark_of(L, sc.cls, key, g) : (int8_t)-1;
-    }
-    grid_barrier(bar, ++barriers * gridDim.x);
+    const int8_t* mk = mark + (j & 1) * n_ext;
+    int8_t* next = j + 1 < ex ? mark + ((j + 1) & 1) * n_ext : nullptr;
+    const uint32_t k0 = next ? (uint32_t)keys[2 * j + 2] : 0u;
+    const uint32_t k1 = next ? (uint32_t)keys[2 * j + 3] : 0u;
     int c = 0;
-    for (int x = blockIdx.x * kBlock + threadIdx.x; x < n_ext;
-         x += gridDim.x * kBlock) {
+    for (int x = W.lo[j + 1] * 128 + blockIdx.x * kBlock + threadIdx.x;
+         x < W.hi[j + 1] * 128; x += gridDim.x * kBlock) {
       const int g = gossip::shard_global_flat(G, x);
       const bool pad = g >= n;
       const int inbox = pad ? 0 : gossip::shard_gossip_inbox(sc, mk, x, g, n_ext);
-      const int cv = gossip::gossip_absorb_node(src, dst, x, pad, inbox,
-                                                rumor_target, suppress);
+      int cnt, act;
+      const int cv = gossip::gossip_absorb(
+          [&] { return src.conv[x] != 0; }, [&] { return src.count[x]; },
+          [&] { return src.active[x]; }, pad, inbox, rumor_target, suppress,
+          cnt, act);
+      dst.count[x] = cnt;
+      dst.active[x] = act;
+      dst.conv[x] = cv;
+      if (next) next[x] = act ? word_mark(dirs[g], k0, k1, g) : (int8_t)-1;
       c += gossip::shard_middle(G, x) ? cv : 0;
     }
     const int block_count = block_sum(c);
     if (threadIdx.x == 0) atomicAdd(u + j, block_count);
+    if (next) grid_barrier(bar, ++barriers * gridDim.x);
   }
   release_barrier(bar);
 }
@@ -211,20 +241,6 @@ cudaError_t cooperative_grid(Kernel kernel, int n_ext, int rounds, int device,
   return cudaSuccess;
 }
 
-// Host checks shared by both entry points: the lattice, the shard and the
-// round counts.
-bool setup(int kind, int n, int extra_node, const int* classes, const int* e1,
-           const int* e2, int n_classes, int R, int row0, int rows_ext, int H,
-           int rows_loc, int rounds, int cr, gossip::Lattice* L,
-           ShardClasses* sc, ShardGeom* G) {
-  gossip::Classes cls;
-  return rounds >= 1 && rounds <= cr &&
-         gossip::setup_lattice(kind, n, extra_node, classes, n_classes, L,
-                               &cls) &&
-         gossip::setup_shard(R, row0, rows_ext, H, rows_loc, e1, e2, cls, G,
-                             sc);
-}
-
 }  // namespace
 
 // ------------------------------------------------------------- C interface
@@ -233,24 +249,28 @@ bool setup(int kind, int n, int extra_node, const int* classes, const int* e1,
 // CUDA device `device` and returns its error (a cudaError_t), 0 if none.
 // The plane sets (in, out, y) are [rows_ext, 128] each, in is read only;
 // mark is int8[2 * rows_ext * 128]; keys int64[2 * rounds] on the device
-// (round j's fold_in key at 2j, 2j + 1); classes, e1 and e2 are host arrays
-// of the n_classes sorted displacement classes and their rolls; u is
-// int32[cr + 1]; ctrl int32[2] (done, rounds), read only here; bar is two
-// zeroed uint32 words that the launch leaves zeroed.
+// (round j's fold_in key at 2j, 2j + 1); dirs int32[R * 128] on the device,
+// the static directions word of every global slot; classes, e1 and e2 are
+// host arrays of the n_classes sorted displacement classes and their
+// rolls; win a host array of the rounds + 1 windows (lo, hi) in extended
+// rows, W_{-1} first; u is int32[cr + 1]; ctrl int32[2] (done, rounds),
+// read only here; bar is two zeroed uint32 words that the launch leaves
+// zeroed.
 
 extern "C" int gossip_pushsum_stencil_shard_superstep(
     const float* s0, const float* w0, const int* t0, const int* c0, float* s,
     float* w, int* term, int* conv, float* s_y, float* w_y, int* term_y,
-    int* conv_y, int8_t* mark, const long long* keys, const int* classes,
-    const int* e1, const int* e2, int n_classes, int kind, int n,
-    int extra_node, int R, int row0, int rows_ext, int H, int rows_loc,
+    int* conv_y, int8_t* mark, const long long* keys, const int* dirs,
+    const int* classes, const int* e1, const int* e2, const int* win,
+    int n_classes, int n, int R, int row0, int rows_ext, int H, int rows_loc,
     int rounds, int cr, float delta, int term_rounds, int* u, const int* ctrl,
     unsigned* bar, int device, void* stream_ptr) {
-  gossip::Lattice L;
   ShardClasses sc;
   ShardGeom G;
-  if (!setup(kind, n, extra_node, classes, e1, e2, n_classes, R, row0,
-             rows_ext, H, rows_loc, rounds, cr, &L, &sc, &G))
+  ShardWindows W;
+  if (rounds > cr ||
+      !gossip::setup_shard(n, classes, n_classes, R, row0, rows_ext, H,
+                           rows_loc, e1, e2, win, rounds, &G, &sc, &W))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -261,9 +281,9 @@ extern "C" int gossip_pushsum_stencil_shard_superstep(
   PushSumPlanes in{(float*)s0, (float*)w0, (int*)t0, (int*)c0};
   PushSumPlanes out{s, w, term, conv};
   PushSumPlanes y{s_y, w_y, term_y, conv_y};
-  void* args[] = {&in,     &out,   &y,     &mark,  &keys,        &L,
-                  &sc,     &G,     &rounds, &cr,   &delta,       &term_rounds,
-                  &u,      &ctrl,  &bar};
+  void* args[] = {&in, &out,    &y,  &mark,  &keys,  &dirs,        &n,
+                  &sc, &G,      &W,  &rounds, &cr,   &delta,       &term_rounds,
+                  &u,  &ctrl,   &bar};
   return (int)cudaLaunchCooperativeKernel((const void*)pushsum_shard_rounds,
                                           grid, kBlock, args, 0,
                                           (cudaStream_t)stream_ptr);
@@ -272,16 +292,17 @@ extern "C" int gossip_pushsum_stencil_shard_superstep(
 extern "C" int gossip_gossip_stencil_shard_superstep(
     const int* n0, const int* a0, const int* c0, int* count, int* active,
     int* conv, int* count_y, int* active_y, int* conv_y, int8_t* mark,
-    const long long* keys, const int* classes, const int* e1, const int* e2,
-    int n_classes, int kind, int n, int extra_node, int R, int row0,
+    const long long* keys, const int* dirs, const int* classes, const int* e1,
+    const int* e2, const int* win, int n_classes, int n, int R, int row0,
     int rows_ext, int H, int rows_loc, int rounds, int cr, int rumor_target,
     int suppress, int* u, const int* ctrl, unsigned* bar, int device,
     void* stream_ptr) {
-  gossip::Lattice L;
   ShardClasses sc;
   ShardGeom G;
-  if (!setup(kind, n, extra_node, classes, e1, e2, n_classes, R, row0,
-             rows_ext, H, rows_loc, rounds, cr, &L, &sc, &G))
+  ShardWindows W;
+  if (rounds > cr ||
+      !gossip::setup_shard(n, classes, n_classes, R, row0, rows_ext, H,
+                           rows_loc, e1, e2, win, rounds, &G, &sc, &W))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -292,9 +313,10 @@ extern "C" int gossip_gossip_stencil_shard_superstep(
   GossipPlanes in{(int*)n0, (int*)a0, (int*)c0};
   GossipPlanes out{count, active, conv};
   GossipPlanes y{count_y, active_y, conv_y};
-  void* args[] = {&in, &out,   &y,            &mark,     &keys, &L,
-                  &sc, &G,     &rounds,       &cr,       &rumor_target,
-                  &suppress,   &u,            &ctrl,     &bar};
+  void* args[] = {&in, &out, &y,      &mark, &keys,         &dirs,
+                  &n,  &sc,  &G,      &W,    &rounds,       &cr,
+                  &rumor_target,      &suppress, &u,        &ctrl,
+                  &bar};
   return (int)cudaLaunchCooperativeKernel((const void*)gossip_shard_rounds,
                                           grid, kBlock, args, 0,
                                           (cudaStream_t)stream_ptr);

@@ -12,9 +12,19 @@
 // x along class d is slot x - e (mod n_ext), with e the first roll e1 when
 // the receiver's global flat index is at least d and the second e2 below it
 // (the mod-n blend: an edge that crosses the global wrap sits the pad Z
-// further away in the buffer). Slots near the buffer's ends read garbage
-// that rolled in from the far end; it advances at most one halo width a
-// round, and H covers a super-step's rounds, so the middle stays exact.
+// further away in the buffer).
+//
+// The window contract. Round j of a super-step of `ex` rounds computes only
+// the extended rows W_j = [lo, hi) the middle still depends on: W_{ex-1} is
+// the middle, W_{j-1} the smallest row range holding W_j and every source
+// slot of a non-pad receiver in W_j, and W_{-1} the rows round 0 reads
+// (parallel/fused_sharded.shard_windows computes them on the host). Round
+// j's absorb writes exactly the rows of W_j of its destination set and, for
+// round j + 1, the marks of the same slots; a prologue writes round 0's
+// marks over W_{-1}. No source wraps across the buffer's ends (the plan's H
+// covers a super-step's shifts; the host refuses windows that would), so
+// every value a round writes is the single-device engine's at that global
+// index, and rows outside the windows are neither read nor written.
 //
 // Plain inline code usable from the host too, so g++ builds it for the CPU
 // tests (tests/test_torch_stencil_shard_host.py).
@@ -30,10 +40,18 @@ namespace gossip {
 // One shard's extended buffer, passed by value.
 struct ShardGeom {
   int R;         // rows of the global layout
-  int row0;      // global row of extended row 0, in [0, R)
+  int row0;      // global row of extended row 0, in [0, R), row0 + rows_ext <= 2R
   int rows_ext;  // rows_loc + 2 * H
   int H;         // halo rows on each side
   int rows_loc;  // the shard's own rows
+};
+
+// A super-step's windows, passed by value: lo[j + 1], hi[j + 1] bound
+// W_j in extended rows, lo[0], hi[0] bound W_{-1}.
+constexpr int kMaxWindows = 65;  // CR <= 64 rounds, plus W_{-1}
+struct ShardWindows {
+  int lo[kMaxWindows];
+  int hi[kMaxWindows];
 };
 
 // The classes of a shard's delivery: the sorted mod-n displacements (the
@@ -44,9 +62,11 @@ struct ShardClasses {
   int e2[kMaxClasses];
 };
 
-// Global row of extended row r (0 <= r < rows_ext).
+// Global row of extended row r (0 <= r < rows_ext): row0 + r < 2R, so one
+// conditional subtract wraps it.
 GOSSIP_HD int shard_global_row(const ShardGeom& G, int r) {
-  return (G.row0 + r) % G.R;
+  const int row = G.row0 + r;
+  return row < G.R ? row : row - G.R;
 }
 
 // Global padded flat index of extended slot x.
@@ -67,6 +87,26 @@ GOSSIP_HD int shard_source(const ShardClasses& sc, int k, int x, int g,
 GOSSIP_HD bool shard_middle(const ShardGeom& G, int x) {
   const int r = x >> 7;
   return r >= G.H && r < G.H + G.rows_loc;
+}
+
+// The class id that a node with static directions word `word` sends along
+// when it draws `bits`: bits % degree picks the slot-th live direction, as
+// sample_disp and class_of do (csrc/stencil.cuh); -1 for degree 0. The word
+// (built once per lattice on the host, parallel/fused_sharded.dir_words)
+// holds in bits 4k..4k+3 the class id of the node's k-th live direction in
+// the topology's column order and its degree in bits 24..26; it is 0 for a
+// degree-0 node and a pad lane.
+GOSSIP_HD int word_class(uint32_t word, uint32_t bits) {
+  const uint32_t deg = word >> 24;
+  return deg == 0 ? -1 : (int)((word >> (4u * (bits % deg))) & 15u);
+}
+
+// Round mark of the node at global flat index g: the class it sends along
+// under the round key (k0, k1), -1 for none. Nodes that never send skip the
+// hash.
+GOSSIP_HD int8_t word_mark(uint32_t word, uint32_t k0, uint32_t k1, int g) {
+  if (word == 0u) return (int8_t)-1;
+  return (int8_t)word_class(word, threefry_word(k0, k1, (uint32_t)g));
 }
 
 // Receiver x's push-sum inbox: over the classes in ascending order, from
@@ -104,24 +144,43 @@ GOSSIP_HD int shard_gossip_inbox(const ShardClasses& sc, const int8_t* mark,
   return inbox;
 }
 
-// Shard geometry and classes from a super-step's C arguments (host side);
-// false if they are out of range for the kernels.
-inline bool setup_shard(int R, int row0, int rows_ext, int H, int rows_loc,
-                        const int* e1, const int* e2, const Classes& cls,
-                        ShardGeom* G, ShardClasses* sc) {
-  if (R < 1 || row0 < 0 || row0 >= R || H < 1 || rows_loc < 1 ||
-      rows_ext != rows_loc + 2 * H || (long long)rows_ext * 128 >= (1LL << 31))
+// Shard geometry, classes and windows from a super-step's C arguments
+// (host side); false if they are out of range for the kernels: the class
+// list, the rolls, a row map past one wrap, or windows that are not nested
+// ranges of the buffer ending at the middle.
+inline bool setup_shard(int n, const int* classes, int n_classes, int R,
+                        int row0, int rows_ext, int H, int rows_loc,
+                        const int* e1, const int* e2, const int* win,
+                        int rounds, ShardGeom* G, ShardClasses* sc,
+                        ShardWindows* W) {
+  if (n < 2 || n_classes < 1 || n_classes > kMaxClasses || R < 1 ||
+      row0 < 0 || row0 >= R || H < 1 || rows_loc < 1 ||
+      rows_ext != rows_loc + 2 * H || row0 + rows_ext > 2 * R ||
+      (long long)R * 128 >= (1LL << 31) ||
+      (long long)rows_ext * 128 >= (1LL << 31) || rounds < 1 ||
+      rounds >= kMaxWindows)
     return false;
   *G = ShardGeom{R, row0, rows_ext, H, rows_loc};
-  sc->cls = cls;
   const int n_ext = rows_ext * 128;
+  sc->cls.count = n_classes;
   for (int k = 0; k < kMaxClasses; ++k) {
-    sc->e1[k] = k < cls.count ? e1[k] : 0;
-    sc->e2[k] = k < cls.count ? e2[k] : 0;
-    if (sc->e1[k] < 0 || sc->e1[k] >= n_ext || sc->e2[k] < 0 ||
+    sc->cls.d[k] = k < n_classes ? classes[k] : 0;
+    sc->e1[k] = k < n_classes ? e1[k] : 0;
+    sc->e2[k] = k < n_classes ? e2[k] : 0;
+    if ((k < n_classes && (sc->cls.d[k] < 1 || sc->cls.d[k] >= n)) ||
+        sc->e1[k] < 0 || sc->e1[k] >= n_ext || sc->e2[k] < 0 ||
         sc->e2[k] >= n_ext)
       return false;
   }
+  for (int j = 0; j < kMaxWindows; ++j) {
+    W->lo[j] = j <= rounds ? win[2 * j] : 0;
+    W->hi[j] = j <= rounds ? win[2 * j + 1] : 0;
+  }
+  if (W->lo[rounds] != H || W->hi[rounds] != H + rows_loc) return false;
+  for (int j = 0; j < rounds; ++j)
+    if (W->lo[j] < 0 || W->lo[j] > W->lo[j + 1] || W->hi[j] < W->hi[j + 1] ||
+        W->hi[j] > rows_ext)
+      return false;
   return true;
 }
 

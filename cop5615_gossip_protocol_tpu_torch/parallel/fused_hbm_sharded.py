@@ -4,10 +4,11 @@ tier's 100 MB budget (torus3d 256**3 in 2 or 4 shards, any lattice up to
 its HBM budget).
 
 It computes the resident tier's function (parallel/fused_sharded.py) on the
-same extended buffers, wire, schedule and verdict, through its own kernels
-(csrc/fused_stencil_hbm_shard.cu: a mark and an absorb launch a round,
-queued by one call a shard a super-step, ``pushsum_stencil_hbm_shard_superstep``
-and ``gossip_stencil_hbm_shard_superstep``), with the classes' rolls of the
+same extended buffers, windows, wire, schedule and verdict, through its own
+kernels (csrc/fused_stencil_hbm_shard.cu: a mark prologue and one launch a
+round, queued by one call a shard a super-step,
+``pushsum_stencil_hbm_shard_superstep`` and
+``gossip_stencil_hbm_shard_superstep``), with the classes' rolls of the
 JAX streaming plan (``_class_sigmas``: one roll per class on the non-wrap
 lattices and on wrap lattices without pad lanes, the blend pair
 otherwise). The plan (``plan_stencil_hbm_sharded``) is the JAX plan: its
@@ -33,6 +34,7 @@ from ..ops.fused_pool import build_pool_layout
 from ..ops.topology import Topology
 from . import mesh as mesh_mod
 from .fused_sharded import (
+    MAX_SUPERSTEP_ROUNDS,
     ShardGeometry,
     Tier,
     _common_gates,
@@ -188,7 +190,7 @@ def plan_stencil_hbm_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
     w = _halo_width_slots(topo, layout)
     key = (tuple(_class_sigmas(topo, layout)), rows_loc, w,
            cfg.algorithm == "push-sum")
-    CR = max(1, min(int(cfg.chunk_rounds), 64))
+    CR = max(1, min(int(cfg.chunk_rounds), MAX_SUPERSTEP_ROUNDS))
     while CR > 1 and _fit(*key, CR) is None:
         CR //= 2
     b = _fit(*key, CR)
@@ -206,7 +208,7 @@ def plan_stencil_hbm_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
 # ---------------------------------------------------------------------------
 # Wrappers: CUDA tensors launch the kernels, CPU tensors run the plain
 # version (parallel/fused_sharded.shard_superstep_plain). The contract of
-# parallel/fused_sharded.py's wrappers; ``mark`` is int8 [rows_ext * 128].
+# parallel/fused_sharded.py's wrappers, without the barrier words.
 # ---------------------------------------------------------------------------
 
 
@@ -215,13 +217,13 @@ def pushsum_stencil_hbm_shard_superstep(planes, out, y, mark, keys, rounds: int,
                                         geom: ShardGeometry, delta: float,
                                         term_rounds: int, u, ctrl) -> None:
     """Up to CR push-sum rounds on one shard's extended (s, w, term, conv)
-    planes into ``out``: 2 * rounds launches of
-    csrc/fused_stencil_hbm_shard.cu on CUDA tensors, the plain version on
-    CPU ones."""
+    planes into ``out``: rounds + 1 launches of
+    csrc/fused_stencil_hbm_shard.cu (the mark prologue, then one a round)
+    on CUDA tensors, the plain version on CPU ones."""
     dev = check_superstep(planes, out, y, mark, keys, rounds, row0, spec, rolls,
-                          geom, u, ctrl, 1)
+                          geom, u, ctrl)
     if dev.type == "cpu":
-        run_plain(planes, out, keys, rounds, row0, u, ctrl,
+        run_plain(planes, out, y, keys, rounds, row0, u, ctrl,
                   {"spec": spec, "rolls": rolls, "geom": geom, "delta": delta,
                    "term_rounds": term_rounds})
         return
@@ -229,7 +231,7 @@ def pushsum_stencil_hbm_shard_superstep(planes, out, y, mark, keys, rounds: int,
                      "gossip_pushsum_stencil_hbm_shard_superstep", dev, planes, out,
                      y, mark, keys, rounds, row0, spec, rolls, geom,
                      (ctypes.c_float(delta), term_rounds), u, ctrl)
-    pushsum_stencil_hbm_shard_superstep.launches += 2 * rounds
+    pushsum_stencil_hbm_shard_superstep.launches += rounds + 1
 
 
 def gossip_stencil_hbm_shard_superstep(planes, out, y, mark, keys, rounds: int,
@@ -239,9 +241,9 @@ def gossip_stencil_hbm_shard_superstep(planes, out, y, mark, keys, rounds: int,
     """Gossip analog of ``pushsum_stencil_hbm_shard_superstep``: (count,
     active, conv), receiver-side suppression."""
     dev = check_superstep(planes, out, y, mark, keys, rounds, row0, spec, rolls,
-                          geom, u, ctrl, 1)
+                          geom, u, ctrl)
     if dev.type == "cpu":
-        run_plain(planes, out, keys, rounds, row0, u, ctrl,
+        run_plain(planes, out, y, keys, rounds, row0, u, ctrl,
                   {"spec": spec, "rolls": rolls, "geom": geom,
                    "rumor_target": rumor_target, "suppress": suppress})
         return
@@ -249,10 +251,10 @@ def gossip_stencil_hbm_shard_superstep(planes, out, y, mark, keys, rounds: int,
                      "gossip_gossip_stencil_hbm_shard_superstep", dev, planes, out,
                      y, mark, keys, rounds, row0, spec, rolls, geom,
                      (rumor_target, int(suppress)), u, ctrl)
-    gossip_stencil_hbm_shard_superstep.launches += 2 * rounds
+    gossip_stencil_hbm_shard_superstep.launches += rounds + 1
 
 
-# Kernel launches queued by each wrapper (a mark and an absorb a round),
+# Kernel launches queued by each wrapper (the prologue and one a round),
 # counted where the kernel is launched and nowhere else.
 pushsum_stencil_hbm_shard_superstep.launches = 0
 gossip_stencil_hbm_shard_superstep.launches = 0
@@ -267,7 +269,7 @@ def _make_chunk(topo: Topology, cfg: SimConfig, H: int, rows_loc: int, layout,
     def chunk_fn(state, keys, row0, dev, start, cap):
         del dev  # row0 places the shard
         out, executed, u = functional_superstep(superstep, kw, state, keys,
-                                                int(row0), int(start), int(cap), 1)
+                                                int(row0), int(start), int(cap), False)
         return tuple(x[H:H + rows_loc] for x in out), executed, u[:-1]
 
     return chunk_fn, geom.rows_ext
@@ -303,7 +305,7 @@ def hbm_tier(topo: Topology, cfg: SimConfig, n_dev: int) -> Tier:
     geom = ShardGeometry(layout.rows, H, rows_loc, CR)
     return Tier(geom=geom, rolls=class_rolls(topo, layout, geom.rows_ext * LANES),
                 stride=CR * 8, pushsum=pushsum_stencil_hbm_shard_superstep,
-                gossip=gossip_stencil_hbm_shard_superstep, marks=1,
+                gossip=gossip_stencil_hbm_shard_superstep, barrier=False,
                 sources=("fused_stencil_hbm_shard", "fused_stencil_shard"))
 
 

@@ -17,8 +17,9 @@ super-step is
    ``gossip_stencil_shard_superstep``): every slot draws its bits at its
    GLOBAL flat index, and delivery of class d is a circular roll over the
    extended buffer by e1 or, for receivers below global flat d, e2 (the
-   mod-n blend); rows outside the middle go stale by at most a halo width a
-   round, and H covers a super-step's rounds, so the middle stays exact;
+   mod-n blend); round j computes only its window W_j, the rows the middle
+   still depends on (``shard_windows``; H covers a super-step's shifts, so
+   no window reaches across the buffer's ends and the middle is exact);
 3. the verdict: the shards' middle converged counts after the super-step's
    last round, summed against the target on the device
    (parallel/overlap.py orders it, ``overlap_collectives``).
@@ -35,9 +36,11 @@ plain torch versions; on CUDA they launch the kernels.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
+import os
 import time
 from typing import Optional
 
@@ -57,6 +60,13 @@ from . import overlap as overlap_mod
 
 # The JAX composition's VMEM plane budget, in bytes.
 _VMEM_BUDGET = 100 * 1024 * 1024
+
+# Rounds a super-step may run: the plans' CR cap, and the windows the
+# kernels take by value (csrc/shard.cuh kMaxWindows - 1).
+MAX_SUPERSTEP_ROUNDS = 64
+
+# Slots per host thread's chunk of the directions words (``dir_words``).
+_WORDS_STEP = 1 << 20
 
 # Super-steps queued per host batch of the run's chunk loop: a batch ends on
 # a JAX super-step boundary and the loop reads the done flag once a batch.
@@ -135,7 +145,7 @@ def plan_fused_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
     w = 0
     for d in (int(x) for x in offsets):
         w = max(w, abs(_signed_pad(-d, n_pad)), abs(_signed_pad(n - d, n_pad)))
-    CR = max(1, min(int(cfg.chunk_rounds), 64))
+    CR = max(1, min(int(cfg.chunk_rounds), MAX_SUPERSTEP_ROUNDS))
     per_node = (4 + 4 + 2) if cfg.algorithm == "push-sum" else (3 + 2)
 
     def h_for(cr):
@@ -211,6 +221,100 @@ def shift_pairs(classes, n: int, n_pad: int, n_ext: int) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# The windows: the rows each round of a super-step computes (the contract of
+# csrc/shard.cuh), and the static directions words the kernels' marks read.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=256)
+def shard_windows(spec, rolls: tuple, geom: ShardGeometry, row0: int,
+                  rounds: int) -> tuple:
+    """The extended row ranges a ``rounds``-round super-step computes on the
+    shard of ``geom`` whose extended row 0 is global row ``row0``: ``rounds + 1``
+    half-open (lo, hi) pairs, entry j + 1 the window W_j that round j
+    absorbs, entry 0 the window W_{-1} that round 0's marks cover.
+    W_{rounds-1} is the middle; W_{j-1} is the smallest range holding W_j
+    and every source slot (``shard_source`` in csrc/shard.cuh) of a non-pad
+    receiver in W_j along every class, from the classes' rolls (d, e1, e2)
+    and which receivers lie at or past global flat d (e1) or below it (e2).
+    Raises ValueError where a source would wrap across the buffer's ends,
+    which the plans' H rules out, or where row0 + rows_ext passes 2R."""
+    n, R, H, rows_loc, rows_ext = spec.n, geom.R, geom.H, geom.rows_loc, geom.rows_ext
+    n_ext = rows_ext * LANES
+    if not 0 <= row0 < R or row0 + rows_ext > 2 * R:
+        raise ValueError(f"row0 {row0} + rows_ext {rows_ext} must stay below 2R = {2 * R}")
+    # Extended rows [0, R - row0) hold global rows row0.., the rest wrap to
+    # global row 0: per piece (first row, end row, global flat minus slot).
+    cut = min(R - row0, rows_ext)
+    pieces = ((0, cut, row0 * LANES), (cut, rows_ext, (row0 - R) * LANES))
+    # Each roll's in-buffer shift: the source of slot x is x + shift.
+    shifts = [(d, -(e1 if e1 <= n_ext // 2 else e1 - n_ext),
+               -(e2 if e2 <= n_ext // 2 else e2 - n_ext)) for d, e1, e2 in rolls]
+    windows = [(H, H + rows_loc)]
+    for _ in range(rounds):
+        lo, hi = windows[-1]
+        s_lo, s_hi = lo * LANES, hi * LANES
+        for p_lo, p_hi, off in pieces:
+            # Non-pad receivers of the window in this piece: g = x + off < n.
+            a = max(lo, p_lo) * LANES
+            b = min(min(hi, p_hi) * LANES, n - off)
+            if a >= b:
+                continue
+            for d, sh1, sh2 in shifts:
+                at = min(max(d - off, a), b)  # receivers from here on: g >= d
+                for ra, rb, sh in ((at, b, sh1), (a, at, sh2)):
+                    if ra >= rb:
+                        continue
+                    if ra + sh < 0 or rb + sh > n_ext:
+                        raise ValueError(
+                            f"class {d}: sources of slots [{ra}, {rb}) wrap across "
+                            f"the {rows_ext}-row buffer's ends in a {rounds}-round "
+                            f"super-step (H {H} too small)")
+                    s_lo, s_hi = min(s_lo, ra + sh), max(s_hi, rb + sh)
+        windows.append((s_lo // LANES, -(-s_hi // LANES)))
+    return tuple(reversed(windows))
+
+
+@functools.lru_cache(maxsize=4)
+def _dir_words_host(spec, R: int) -> np.ndarray:
+    """``dir_words`` on the host, shared by the devices that ask for it."""
+    classes = np.asarray(spec.classes, dtype=np.int32)
+    if len(classes) > 16:
+        raise ValueError("at most 16 displacement classes fit a 4-bit class id")
+    words = np.empty(R * LANES, dtype=np.int32)
+
+    def fill(lo):
+        g = np.arange(lo, min(lo + _WORDS_STEP, R * LANES), dtype=np.int32)
+        word = np.zeros_like(g)
+        deg = np.zeros_like(g)
+        for live, d in lattice_dirs(spec.kind, spec.n, spec.n_lat, g):
+            live = live & (g < spec.n)
+            k = np.minimum(np.searchsorted(classes, d), len(classes) - 1).astype(np.int32)
+            if not np.all(~live | (classes[k] == d)):
+                raise ValueError(f"{spec.kind}: a live displacement is not a class")
+            word |= (k << (4 * deg)) * live
+            deg += live
+        words[lo:lo + g.size] = word | (deg << 24)
+
+    # numpy releases the GIL in its loops, so the chunks run in parallel.
+    with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(fill, range(0, R * LANES, _WORDS_STEP)))
+    return words
+
+
+@functools.lru_cache(maxsize=4)
+def dir_words(spec, R: int, device) -> torch.Tensor:
+    """int32 [R * 128] static directions word of every global slot, built on
+    the host (as the JAX engines build their displacement planes) and
+    copied to ``device``: bits 4k..4k+3 hold the class id of the slot's
+    k-th live direction in the topology's column order, bits 24..26 its
+    degree; 0 for pad lanes and degree-0 nodes (csrc/shard.cuh
+    ``word_class`` reads it). Raises ValueError if a live direction's
+    displacement is not a class or there are more than 16 classes."""
+    return torch.from_numpy(_dir_words_host(spec, R)).to(device)
+
+
+# ---------------------------------------------------------------------------
 # Plain version: one shard's super-step in torch, on any device. It is what
 # the kernels of both tiers are held against, and what their wrappers run
 # on CPU tensors.
@@ -234,81 +338,102 @@ def _shard_slots(spec, rolls, R: int, H: int, rows_loc: int, row0: int, device):
     return g, g >= n, mid, pairs, srcs
 
 
-def shard_superstep_plain(state, keys, rounds: int, row0: int, *, spec, rolls,
+def shard_superstep_plain(state, out, y, keys, rounds: int, row0: int, *, spec, rolls,
                           geom: ShardGeometry, delta: float = 0.0,
                           term_rounds: int = 0, rumor_target: int = 0,
-                          suppress: bool = False):
+                          suppress: bool = False, windows=None):
     """``rounds`` lattice rounds on one shard's extended planes ``state``
     (push-sum s, w, term, conv; gossip count, active, conv; [rows_ext, 128]
-    each), keys[j] the fold_in key of round j, ``rolls`` the classes' (d,
-    e1, e2). Returns (state', u): u int32 [cr + 1], u[j] the converged
-    count over the middle rows after round j (-1 for rounds not run),
-    u[cr] the rounds run."""
+    each, read only), keys[j] the fold_in key of round j, ``rolls`` the
+    classes' (d, e1, e2). Round j computes the rows of its window W_j
+    (``windows``, by default ``shard_windows``; every row of the buffer in
+    each round gives the full-buffer super-step) from round j - 1's planes
+    and writes them into its destination set, ``out`` for the last round
+    and alternately ``y`` before it, leaving the other rows as they were.
+    Returns u, int32 [cr + 1]: u[j] the converged count over the middle
+    rows after round j (-1 for rounds not run), u[cr] the rounds run."""
     dev = state[0].device
     pushsum = len(state) == 4
     g, pad, mid, pairs, srcs = _shard_slots(spec, tuple(rolls), geom.R, geom.H,
                                             geom.rows_loc, row0, dev)
+    if windows is None:
+        windows = shard_windows(spec, tuple(rolls), geom, row0, rounds)
     classes = torch.tensor(spec.classes, dtype=torch.int64, device=dev)
-    planes = [p.reshape(-1) for p in state]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     u = torch.full((geom.cr + 1,), -1, dtype=torch.int32)
     u[geom.cr] = rounds
     keys = keys.cpu()
+    mid_lo, mid_hi = geom.H * LANES, (geom.H + geom.rows_loc) * LANES
+    src = [p.reshape(-1) for p in state]
     for j in range(rounds):
-        bits = fused.threefry2x32_hash(int(keys[j, 0]), int(keys[j, 1]), g)
-        d, deg = hbm._sample_disp_dirs(bits, pairs)
-        mark = torch.where((deg > 0) & ~pad, torch.searchsorted(classes, d), -1)
+        dst = [p.reshape(-1) for p in (out if (rounds - 1 - j) % 2 == 0 else y)]
+        # Round j's marks over W_{j-1}; every other slot holds class 0, so a
+        # read outside the window would show.
+        ma, mb = (r * LANES for r in windows[j])
+        bits = fused.threefry2x32_hash(int(keys[j, 0]), int(keys[j, 1]), g[ma:mb])
+        d, deg = hbm._sample_disp_dirs(bits, [(lv[ma:mb], dp[ma:mb])
+                                              for lv, dp in pairs])
+        mark = torch.zeros_like(g)
+        mark[ma:mb] = torch.where((deg > 0) & ~pad[ma:mb],
+                                  torch.searchsorted(classes, d), -1)
+        if not pushsum:
+            mark[ma:mb] = torch.where(src[1][ma:mb] != 0, mark[ma:mb], -1)
+        a, b = (r * LANES for r in windows[j + 1])
+        rx = slice(a, b)
+        pad_r = pad[rx]
         if pushsum:
-            s, w, t, c = planes
+            s, w, t, c = src
             ss = torch.where(mark >= 0, s * 0.5, zero)
             ws = torch.where(mark >= 0, w * 0.5, zero)
-            in_s = torch.zeros_like(s)
-            in_w = torch.zeros_like(w)
-            for k, src in enumerate(srcs):
-                hit = mark[src] == k
-                in_s = in_s + torch.where(hit, ss[src], zero)
-                in_w = in_w + torch.where(hit, ws[src], zero)
-            in_s = torch.where(pad, zero, in_s)
-            in_w = torch.where(pad, zero, in_w)
-            s_new = (s - ss) + in_s
-            w_new = (w - ws) + in_w
-            stable = torch.abs(s_new / w_new - s / w) <= torch.tensor(
+            in_s = torch.zeros(b - a, dtype=torch.float32, device=dev)
+            in_w = torch.zeros_like(in_s)
+            for k, si in enumerate(srcs):
+                si = si[rx]
+                hit = mark[si] == k
+                in_s = in_s + torch.where(hit, ss[si], zero)
+                in_w = in_w + torch.where(hit, ws[si], zero)
+            in_s = torch.where(pad_r, zero, in_s)
+            in_w = torch.where(pad_r, zero, in_w)
+            s_new = (s[rx] - ss[rx]) + in_s
+            w_new = (w[rx] - ws[rx]) + in_w
+            stable = torch.abs(s_new / w_new - s[rx] / w[rx]) <= torch.tensor(
                 delta, dtype=torch.float32, device=dev)
-            t = torch.where(in_w > 0, torch.where(stable, t + 1, 0), t).to(torch.int32)
-            c = torch.where(pad, 0, (c != 0) | (t >= term_rounds)).to(torch.int32)
-            planes = [s_new, w_new, t, c]
+            t_new = torch.where(in_w > 0, torch.where(stable, t[rx] + 1, 0), t[rx])
+            c_new = torch.where(pad_r, 0, (c[rx] != 0) | (t_new >= term_rounds))
+            new = (s_new, w_new, t_new, c_new)
         else:
-            cnt, act, c = planes
-            mark = torch.where(act != 0, mark, -1)
-            inbox = torch.zeros_like(cnt)
-            for k, src in enumerate(srcs):
-                inbox = inbox + (mark[src] == k).to(torch.int32)
-            inbox = torch.where(pad, 0, inbox)
+            cnt, act, c = src
+            inbox = torch.zeros(b - a, dtype=torch.int32, device=dev)
+            for k, si in enumerate(srcs):
+                inbox = inbox + (mark[si[rx]] == k).to(torch.int32)
+            inbox = torch.where(pad_r, 0, inbox)
             if suppress:
-                inbox = torch.where(c != 0, 0, inbox)
-            cnt = (cnt + inbox).to(torch.int32)
-            act = ((act != 0) | (inbox > 0)).to(torch.int32)
-            c = ((cnt >= rumor_target) & ~pad).to(torch.int32)
-            planes = [cnt, act, c]
-        u[j] = int(((planes[-1] != 0) & mid).sum())
-    shape = state[0].shape
-    return tuple(p.reshape(shape) for p in planes), u
+                inbox = torch.where(c[rx] != 0, 0, inbox)
+            cnt_new = cnt[rx] + inbox
+            new = (cnt_new, (act[rx] != 0) | (inbox > 0),
+                   (cnt_new >= rumor_target) & ~pad_r)
+        for p, v in zip(dst, new):
+            p[rx] = v.to(p.dtype)
+        u[j] = int((dst[-1][mid_lo:mid_hi] != 0).sum())
+        src = dst
+    return u
 
 
 # ---------------------------------------------------------------------------
 # Wrappers: CUDA tensors launch the kernels, CPU tensors run the plain
 # version. No fallback between the two. Each runs ``rounds`` rounds from the
 # plane set ``planes`` (left unchanged) into ``out``, alternating with
-# ``y``, and writes ``u`` (int32 [cr + 1]) unless ``ctrl[0]`` (the run's
-# done flag) is set, when it runs nothing. ``mark`` is the int8 mark
-# scratch, ``bar`` the barrier words of the cooperative launch.
+# ``y``, over the super-step's windows, and writes ``u`` (int32 [cr + 1])
+# unless ``ctrl[0]`` (the run's done flag) is set, when it runs nothing.
+# ``mark`` is the int8 mark scratch, two planes by round parity; ``bar``
+# the barrier words of the cooperative launch.
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# Planes, mark, keys and the host class arrays; the lattice, shard and round
-# counts; the protocol's scalars; u and ctrl.
-_PUSHSUM_ARGS = [_P] * 17 + [_I] * 11 + [_F, _I, _P, _P]
-_GOSSIP_ARGS = [_P] * 14 + [_I] * 13 + [_P, _P]
+# Planes, mark, keys and directions words; the host class, roll and window
+# arrays; the shard and round counts; the protocol's scalars; u and ctrl.
+_PUSHSUM_ARGS = [_P] * 19 + [_I] * 9 + [_F, _I, _P, _P]
+_GOSSIP_ARGS = [_P] * 16 + [_I] * 11 + [_P, _P]
 _SIGNATURES = {
     "gossip_pushsum_stencil_shard_superstep": _PUSHSUM_ARGS + [_P, _I, _P],
     "gossip_gossip_stencil_shard_superstep": _GOSSIP_ARGS + [_P, _I, _P],
@@ -318,9 +443,13 @@ _SIGNATURES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _entry(source: str, name: str):
+    return kernels.entry(source, name, _SIGNATURES[name])
+
+
 def check_superstep(planes, out, y, mark, keys, rounds: int, row0: int, spec,
-                    rolls, geom: ShardGeometry, u, ctrl, marks: int,
-                    bar=None) -> torch.device:
+                    rolls, geom: ShardGeometry, u, ctrl, bar=None) -> torch.device:
     """The checks of every super-step wrapper (``bar`` for the resident
     tier's). Returns the planes' device."""
     dev = planes[0].device
@@ -335,58 +464,66 @@ def check_superstep(planes, out, y, mark, keys, rounds: int, row0: int, spec,
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
         if not x.is_contiguous():
             raise ValueError("shard planes must be contiguous")
-    if not 1 <= rounds <= geom.cr:
-        raise ValueError(f"rounds must lie in [1, {geom.cr}], got {rounds}")
+    if not 1 <= rounds <= min(geom.cr, MAX_SUPERSTEP_ROUNDS):
+        raise ValueError(f"rounds must lie in [1, {min(geom.cr, MAX_SUPERSTEP_ROUNDS)}], "
+                         f"got {rounds}")
     if not 0 <= row0 < geom.R:
         raise ValueError(f"row0 must lie in [0, {geom.R}), got {row0}")
     if len(rolls) != len(spec.classes) or not 1 <= len(rolls) <= 16:
         raise ValueError("one (d, e1, e2) roll per displacement class, at most 16")
     if (mark.dtype != torch.int8 or mark.device != dev
-            or mark.numel() != marks * geom.rows_ext * LANES):
-        raise ValueError(f"mark must be int8 [{marks} * rows_ext * 128] on {dev}")
+            or mark.numel() != 2 * geom.rows_ext * LANES):
+        raise ValueError(f"mark must be int8 [2 * rows_ext * 128] on {dev}")
     if (keys.dtype != torch.int64 or keys.dim() != 2 or keys.shape[1] != 2
             or keys.shape[0] < rounds or not keys.is_contiguous()
             or keys.device != dev):
         raise ValueError(f"keys must be contiguous int64 [>= rounds, 2] on {dev}")
-    for x, size in ((u, geom.cr + 1), (ctrl, 2)) + (((bar, 2),) if marks == 2 else ()):
+    for x, size in ((u, geom.cr + 1), (ctrl, 2)) + (((bar, 2),) if bar is not None else ()):
         if x.device != dev or x.dtype != torch.int32 or x.numel() != size:
             raise ValueError(f"u, ctrl and bar must be int32 [cr + 1], [2] and [2] "
                              f"on {dev}")
     return dev
 
 
-def run_plain(planes, out, keys, rounds, row0, u, ctrl, kw) -> None:
+def run_plain(planes, out, y, keys, rounds, row0, u, ctrl, kw) -> None:
     """The CPU branch of the wrappers: unless done, the plain version into
-    ``out`` and ``u``; when done, ``u`` says no round ran."""
+    ``out``, ``y`` and ``u``; when done, ``u`` says no round ran."""
     if int(ctrl[0]):
         u.fill_(-1)
         u[-1] = 0
         return
-    new, u_new = shard_superstep_plain(planes, keys, rounds, row0, **kw)
-    for o, x in zip(out, new):
-        o.copy_(x)
-    u.copy_(u_new)
+    u.copy_(shard_superstep_plain(planes, out, y, keys, rounds, row0, **kw))
+
+
+@functools.lru_cache(maxsize=256)
+def _host_args(spec, rolls: tuple, geom: ShardGeometry, row0: int, rounds: int):
+    """A super-step's host arrays for its C call (d, e1, e2, the windows)
+    and their pointers, kept alive by the cache."""
+    windows = shard_windows(spec, rolls, geom, row0, rounds)
+    arrays = tuple(np.ascontiguousarray(a, dtype=np.int32) for a in (
+        [r[0] for r in rolls], [r[1] for r in rolls], [r[2] for r in rolls],
+        [v for w in windows for v in w]))
+    return arrays, [a.ctypes.data_as(ctypes.c_void_p) for a in arrays]
 
 
 def launch_superstep(source: str, name: str, dev, planes, out, y, mark, keys,
                      rounds: int, row0: int, spec, rolls, geom, tail, u, ctrl,
                      bar=None) -> None:
     """Queue one super-step through entry point ``name`` of csrc/<source>.cu
-    on the current stream of ``dev``; ``tail`` holds the protocol's scalar
-    arguments. Raises on a launch error."""
-    d = np.ascontiguousarray([r[0] for r in rolls], dtype=np.int32)
-    e1 = np.ascontiguousarray([r[1] for r in rolls], dtype=np.int32)
-    e2 = np.ascontiguousarray([r[2] for r in rolls], dtype=np.int32)
+    on the current stream of ``dev``, over the super-step's windows;
+    ``tail`` holds the protocol's scalar arguments. Raises on a launch
+    error."""
+    _arrays, host = _host_args(spec, tuple(rolls), geom, row0, rounds)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    fn = kernels.entry(source, name, _SIGNATURES[name])
-    ptrs = [ctypes.c_void_p(x.data_ptr()) for x in (*planes, *out, *y, mark, keys)]
-    host = [a.ctypes.data_as(ctypes.c_void_p) for a in (d, e1, e2)]
-    ints = (len(rolls), hbm._KIND_IDS[spec.kind], spec.n, spec.n - spec.n_lat,
-            geom.R, row0, geom.rows_ext, geom.H, geom.rows_loc, rounds, geom.cr)
+    ptrs = [ctypes.c_void_p(x.data_ptr())
+            for x in (*planes, *out, *y, mark, keys, dir_words(spec, geom.R, dev))]
+    ints = (len(rolls), spec.n, geom.R, row0, geom.rows_ext, geom.H, geom.rows_loc,
+            rounds, geom.cr)
     tail_ptrs = [ctypes.c_void_p(u.data_ptr()), ctypes.c_void_p(ctrl.data_ptr())]
     if bar is not None:
         tail_ptrs.append(ctypes.c_void_p(bar.data_ptr()))
-    err = fn(*ptrs, *host, *ints, *tail, *tail_ptrs, dev.index, stream)
+    err = _entry(source, name)(*ptrs, *host, *ints, *tail, *tail_ptrs, dev.index,
+                               stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
@@ -401,9 +538,9 @@ def pushsum_stencil_shard_superstep(planes, out, y, mark, keys, rounds: int,
     plain version on CPU ones. ``mark`` is int8 [2 * rows_ext * 128],
     ``bar`` two zeroed int32 words the launch leaves zeroed."""
     dev = check_superstep(planes, out, y, mark, keys, rounds, row0, spec, rolls,
-                          geom, u, ctrl, 2, bar)
+                          geom, u, ctrl, bar)
     if dev.type == "cpu":
-        run_plain(planes, out, keys, rounds, row0, u, ctrl,
+        run_plain(planes, out, y, keys, rounds, row0, u, ctrl,
                   {"spec": spec, "rolls": rolls, "geom": geom, "delta": delta,
                    "term_rounds": term_rounds})
         return
@@ -420,9 +557,9 @@ def gossip_stencil_shard_superstep(planes, out, y, mark, keys, rounds: int,
     """Gossip analog of ``pushsum_stencil_shard_superstep``: (count,
     active, conv), receiver-side suppression."""
     dev = check_superstep(planes, out, y, mark, keys, rounds, row0, spec, rolls,
-                          geom, u, ctrl, 2, bar)
+                          geom, u, ctrl, bar)
     if dev.type == "cpu":
-        run_plain(planes, out, keys, rounds, row0, u, ctrl,
+        run_plain(planes, out, y, keys, rounds, row0, u, ctrl,
                   {"spec": spec, "rolls": rolls, "geom": geom,
                    "rumor_target": rumor_target, "suppress": suppress})
         return
@@ -449,9 +586,7 @@ def shard_verdict(u, executed: int, target: int, ctrl) -> None:
             ctrl[0] = int(int(u[:, executed - 1].sum()) >= target)
         return
     stream = ctypes.c_void_p(torch.cuda.current_stream(ctrl.device).cuda_stream)
-    fn = kernels.entry("fused_stencil_shard", "gossip_stencil_shard_verdict",
-                       _SIGNATURES["gossip_stencil_shard_verdict"])
-    err = fn(ctypes.c_void_p(u.data_ptr()), u.shape[1], u.shape[0], executed - 1,
+    err = _entry("fused_stencil_shard", "gossip_stencil_shard_verdict")(ctypes.c_void_p(u.data_ptr()), u.shape[1], u.shape[0], executed - 1,
              executed, target, ctypes.c_void_p(ctrl.data_ptr()), ctrl.device.index,
              stream)
     if err:
@@ -466,11 +601,13 @@ def shard_verdict(u, executed: int, target: int, ctrl) -> None:
 
 
 def functional_superstep(superstep, kw, ext_state, keys, row0: int, start: int,
-                         cap: int, marks: int):
-    """One super-step of ``superstep`` (a wrapper) from ``ext_state``:
-    keys int64 [K, 2] (a CPU tensor), rounds = min(K, cap - start). Returns
-    (ext_state', executed, u) with u int32 [K + 1] on the host; a
-    super-step of 0 rounds returns copies of its input."""
+                         cap: int, bar: bool):
+    """One super-step of ``superstep`` (a wrapper, with barrier words when
+    ``bar``) from ``ext_state``: keys int64 [K, 2] (a CPU tensor), rounds =
+    min(K, cap - start). Returns (ext_state', executed, u) with u int32
+    [K + 1] on the host; the rows outside the super-step's windows keep the
+    input's values, and a super-step of 0 rounds returns copies of its
+    input."""
     geom = kw["geom"]
     cap, keys = fused.clamp_cap_and_pad(start, cap, keys)
     geom = dataclasses.replace(geom, cr=keys.shape[0])
@@ -480,13 +617,13 @@ def functional_superstep(superstep, kw, ext_state, keys, row0: int, start: int,
         u = torch.full((geom.cr + 1,), -1, dtype=torch.int32)
         u[-1] = 0
         return tuple(x.clone() for x in ext_state), 0, u
-    out = [torch.empty_like(x) for x in ext_state]
-    y = [torch.empty_like(x) for x in ext_state]
-    mark = torch.empty(marks * geom.rows_ext * LANES, dtype=torch.int8, device=dev)
+    out = [x.clone() for x in ext_state]
+    y = [x.clone() for x in ext_state]
+    mark = torch.empty(2 * geom.rows_ext * LANES, dtype=torch.int8, device=dev)
     u = torch.zeros(geom.cr + 1, dtype=torch.int32, device=dev)
     ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
     keys = keys.to(dev) if dev.type == "cpu" else _upload(keys, dev)
-    extra = {"bar": torch.zeros(2, dtype=torch.int32, device=dev)} if marks == 2 else {}
+    extra = {"bar": torch.zeros(2, dtype=torch.int32, device=dev)} if bar else {}
     superstep(ext_state, out, y, mark, keys, rounds, row0, **{**kw, "geom": geom},
               u=u, ctrl=ctrl, **extra)
     return tuple(out), rounds, u.cpu()
@@ -519,7 +656,7 @@ def make_stencil_shard_chunk(topo: Topology, cfg: SimConfig, H: int,
 
     def chunk_fn(ext_state, keys, row0, start, cap):
         out, executed, u = functional_superstep(superstep, kw, ext_state, keys,
-                                                int(row0), int(start), int(cap), 2)
+                                                int(row0), int(start), int(cap), True)
         conv_mid = int(u[executed - 1]) if executed else 0
         return out, executed, conv_mid, u[:-1]
 
@@ -534,15 +671,15 @@ def make_stencil_shard_chunk(topo: Topology, cfg: SimConfig, H: int,
 @dataclasses.dataclass(frozen=True)
 class Tier:
     """What a lattice tier gives the shared run: its plan's geometry and
-    rolls, its chunk stride, its wrappers, their marks per slot and the
-    kernel sources to build."""
+    rolls, its chunk stride, its wrappers, whether they take the
+    cooperative launch's barrier words and the kernel sources to build."""
 
     geom: ShardGeometry
     rolls: tuple
     stride: int
     pushsum: object
     gossip: object
-    marks: int
+    barrier: bool
     sources: tuple
 
 
@@ -633,7 +770,7 @@ def run_lattice_shards(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
             x[H:H + rows_loc].copy_(p)
         sets.append((x0, tuple(torch.empty_like(x) for x in x0)))
         ys.append(tuple(torch.empty_like(x) for x in x0))
-        marks.append(torch.empty(tier.marks * geom.rows_ext * LANES, dtype=torch.int8,
+        marks.append(torch.empty(2 * geom.rows_ext * LANES, dtype=torch.int8,
                                  device=dev))
         bars.append(torch.zeros(2, dtype=torch.int32, device=dev))
     del start
@@ -646,7 +783,7 @@ def run_lattice_shards(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
              torch.zeros(CR + 1, dtype=torch.int32, device=dev) for par in (0, 1)]
             for s, dev in enumerate(devices)]
     row0 = [geom.row0(s) for s in range(S)]
-    extra = [{"bar": bars[s]} if tier.marks == 2 else {} for s in range(S)]
+    extra = [{"bar": bars[s]} if tier.barrier else {} for s in range(S)]
     # Super-step boundaries: the set a round count's state is in.
     set_of_round = {start_round: 0}
     counter = {"step": 0, "end": start_round}
@@ -747,7 +884,7 @@ def vmem_tier(topo: Topology, cfg: SimConfig, n_dev: int) -> Tier:
                                   geom.rows_ext * LANES),
                 stride=cfg.chunk_rounds * 8,
                 pushsum=pushsum_stencil_shard_superstep,
-                gossip=gossip_stencil_shard_superstep, marks=2,
+                gossip=gossip_stencil_shard_superstep, barrier=True,
                 sources=("fused_stencil_shard",))
 
 
