@@ -317,10 +317,28 @@ def spread_state(init, n, rumor_target):
             (count >= rumor_target).to(torch.int32))
 
 
+def parity_checks(name, kern, plain, chunk, mid, mid_round, float_planes):
+    """The checks that the mark planes' round parity needs, kernel against
+    plain from the mid-run state: a cap inside the chunk after an odd and
+    after an even number of rounds, and a one-round chunk. Returns their
+    max_abs_err."""
+    return [compare(f"{name} cap inside chunk, {extra} rounds",
+                    chunk(kern, mid, mid_round, CHUNK, cap=mid_round + extra),
+                    chunk(plain, mid, mid_round, CHUNK, cap=mid_round + extra),
+                    float_planes)
+            for extra in (5, 6)] + [
+        compare(f"{name} one-round chunk", chunk(kern, mid, mid_round, 1),
+                chunk(plain, mid, mid_round, 1), float_planes)]
+
+
 def lattice_checks(dev, key):
-    """Phase 5: each stencil kernel against its plain version on the card.
-    Returns {name: case} for the timing phase (the torus3d chunk function,
-    its mid-run state and layout) and {name: max_abs_err}."""
+    """Phase 5: each stencil kernel against its plain version on the card:
+    at torus3d 16.8M from the initial and a mid-run state, with a cap inside
+    the chunk after an odd and an even number of rounds, a one-round chunk
+    and from a converged state; at 215**3 and on the other kinds from the
+    initial state (gossip also from a spread state). Returns {name: case}
+    for the timing phase (the torus3d chunk function, its mid-run state and
+    layout) and {name: max_abs_err}."""
     import torch
 
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
@@ -376,9 +394,7 @@ def lattice_checks(dev, key):
             raise AssertionError(f"{name}: converged before round {mid_round}")
         e2 = compare(f"{name} mid-run K={CHUNK}", chunk(kern, mid, mid_round, CHUNK),
                      chunk(plain, mid, mid_round, CHUNK), nf)
-        e3 = compare(f"{name} cap inside chunk",
-                     chunk(kern, mid, mid_round, CHUNK, cap=mid_round + 5),
-                     chunk(plain, mid, mid_round, CHUNK, cap=mid_round + 5), nf)
+        e3 = max(parity_checks(name, kern, plain, chunk, mid, mid_round, nf))
         if name == "gossip":
             done_state, ex = chunk(kern, mid, mid_round, 4096)
             done_round = mid_round + int(ex)
@@ -477,8 +493,14 @@ def lattice_path(dev):
             "estimate_mae": res.estimate_mae, "launches": launches[name],
             "device": res.device,
         }), flush=True)
-        if launches[name][name] == 0:
-            raise AssertionError(f"the torus3d {name} run never launched its kernel")
+        # K + 3 launches a chunk (init, prologue, a round each, finish):
+        # the warmup's one-round chunk, then chunks of chunk_rounds rounds
+        # (the push-sum sample one of LATTICE_PS_ROUNDS).
+        chunk_launches = 3 + min(cfg.chunk_rounds, cfg.max_rounds)
+        extra = launches[name][name] - (3 + 1)
+        if launches[name][name] == 0 or extra <= 0 or extra % chunk_launches:
+            raise AssertionError(f"the torus3d {name} run queued {launches[name][name]} "
+                                 f"launches, not 4 + a multiple of {chunk_launches}")
         if name == "gossip":
             if not res.converged or res.converged_count != cfg.n:
                 raise AssertionError(f"16.8M torus3d gossip did not converge ({res.outcome})")
@@ -743,6 +765,9 @@ JAX_CHUNKED = {("grid2d", 10_000, "push-sum"): (82_363, 0.09073036206020516)}
 RESIDENT_RUNS = (("grid2d", 10_000, "push-sum"), ("torus3d", 1_000_000, "gossip"),
                  ("torus3d", 1_000_000, "push-sum"))
 PREFIX_ROUNDS = 4096
+# The second timing of rows 5-8: one chunk this long from the same state
+# (torus3d 1M gossip converges within it, so its rounds are fewer).
+LONG_CHUNK = 1024
 
 
 def resident_wrappers():
@@ -758,9 +783,10 @@ def resident_wrappers():
 def resident_checks(dev, key):
     """Phase 9: each resident kernel against its plain version on the card,
     one 32-round chunk from the initial state, from a mid-run state, with a
-    cap inside the chunk, from a gossip spread state and from a converged
-    state, every check bitwise; the ladder must pick the JAX ladder's tier
-    for each shape. Returns {(name, tier): case} for the timing phase and
+    cap inside the chunk after an odd and an even number of rounds, a
+    one-round chunk, from a gossip spread state and from a converged state,
+    every check bitwise; the ladder must pick the JAX ladder's tier for
+    each shape. Returns {(name, tier): case} for the timing phase and
     {(name, tier): max_abs_err}."""
     import torch
 
@@ -809,9 +835,7 @@ def resident_checks(dev, key):
                 raise AssertionError(f"{kind} {name}: converged before round {mid_round}")
             errs.append(compare(f"{name} mid-run K={CHUNK}", chunk(kern, mid, mid_round, CHUNK),
                                 chunk(plain, mid, mid_round, CHUNK), 0))
-            errs.append(compare(f"{name} cap inside chunk",
-                                chunk(kern, mid, mid_round, CHUNK, cap=mid_round + 5),
-                                chunk(plain, mid, mid_round, CHUNK, cap=mid_round + 5), 0))
+            errs += parity_checks(name, kern, plain, chunk, mid, mid_round, 0)
             if name == "gossip":
                 spread = spread_state(init, topo.n, cfg.resolved_rumor_target)
                 errs.append(compare(f"{name} spread state K={CHUNK}",
@@ -2454,6 +2478,10 @@ def main() -> int:
                 ("gossip", "stencil2"): "cop5615_gossip_protocol_tpu/ops/fused_stencil.py:427"}
     for (name, tier), (kern, plain, chunk, mid, mid_round, classes) in resident_cases.items():
         ms, (_, ex) = time_ms(lambda: chunk(kern, mid, mid_round, CHUNK), TIME_REPS)
+        # The same state over a long chunk, which spreads the chunk's fixed
+        # cost (the wrapper, three launches) over more rounds.
+        long_ms, (_, long_ex) = time_ms(lambda: chunk(kern, mid, mid_round, LONG_CHUNK),
+                                        TIME_REPS)
         plain_ms, _ = time_ms(lambda: chunk(plain, mid, mid_round, CHUNK), 2)
         rounds = int(ex)
         algo = "push-sum" if name == "pushsum" else "gossip"
@@ -2475,6 +2503,8 @@ def main() -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
             "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+            "rounds_long_chunk": int(long_ex),
+            "us_per_round_long_chunk": long_ms * 1e3 / int(long_ex),
             "population": n, "topology": kind, "status": "ported",
         })
     replaces = {"pushsum": "cop5615_gossip_protocol_tpu/ops/fused_pool2.py:952",

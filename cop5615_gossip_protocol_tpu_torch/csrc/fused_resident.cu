@@ -21,45 +21,58 @@
 // VMEM budget; here one kernel pair serves both, and the ladder still
 // names the JAX tier.
 //
-// What bounds it on this card: launches and grid barriers, not bytes. The
-// TPU tiers exist because a round at these sizes is dispatch-bound, and so
-// is the streaming kernel pair here (two launches a round, a few µs each).
-// The state is small: at the tiled tier's largest populations (2^20 padded
-// nodes) push-sum's ping/pong planes and the int8 mark plane are 34 MB, so
-// they stay in the 50 MB L2 from round to round. The arithmetic is one
-// 20-round Threefry, the direction select and one compare per class a node.
+// What bounds it on this card: latency, not bytes or operations. The state
+// is small: at the tiled tier's largest populations (2^20 padded nodes)
+// push-sum's ping/pong planes, the two int8 mark planes and the directions
+// word are 39 MB, so they stay in the 50 MB L2 from round to round. At 1M
+// nodes a round is the gathers' L2 round trips (~28 of ~31 µs); at the
+// small shapes (grid2d 10,000: 40 blocks; line 1000: 4) about half of it
+// is the grid barrier (PERF.md §6).
 //
-// Design: one persistent cooperative launch runs every round of the chunk.
-// Its grid is as many blocks as the SMs hold at once (never more than the
-// nodes need), so all blocks are resident and may wait for each other; the
-// launch goes through cudaLaunchCooperativeKernel, which refuses a grid
-// that is not. Each round is two phases over ping/pong planes A and B,
-// separated by grid barriers:
-//   mark   - each sender draws its word at its global index j, picks its
-//            direction and writes the class index of that displacement
-//            (int8, -1 for no send; gossip folds in the active flag);
-//   barrier;
-//   absorb - each receiver gathers, per class in ascending order, the send
-//            of its class source whose mark is that class, reading the
-//            round's current planes, and writes the absorbed state to the
-//            other planes; each block adds its converged count into the
-//            round's slot of `scratch`;
-//   barrier - then every block reads the same total and makes the same
-//            choice: stop at the target or at the cap, else go on. No
-//            block leaves the round loop alone, so no barrier waits on a
-//            block that has left.
-// The parity of the executed-round count lives in a register and names the
-// current planes; block 0 writes it to `ctrl` once, at the end. The init
-// and finish launches of csrc/chunk.cuh bracket the persistent launch as
-// they do the streaming kernels, so a chunk is 3 launches whatever K is.
-// A chunk from a converged state: the init launch sets the done flag, and
-// every block of the persistent launch reads it at entry and leaves.
+// Design: one persistent cooperative launch runs every round of the chunk,
+// one pass and one grid barrier a round. Its grid is every block the SMs
+// hold at once, never more than the nodes need (the capacity is asked once
+// a device): at torus3d 1M, 660 blocks of 256 threads (5 an SM at 45
+// registers). Fewer blocks wait less at the barrier but cost the gathers
+// more than they save: capped at 132, 264 and 528 blocks a 1M round took
+// 124, 66 and 38 µs against 32 with all 660 (PERF.md §6, on the H100). All
+// blocks are resident, so they may wait for each other; the launch goes
+// through cudaLaunchCooperativeKernel, which refuses a grid that is not.
+// The state is in ping/pong planes A and B, the marks in two int8 planes,
+// mark[0] and mark[1]:
+//   prologue - each sender writes its round-0 mark into mark[0]: the class
+//              index of its draw, read through its static directions word
+//              (csrc/shard.cuh word_mark; -1 for no send; gossip only from
+//              active nodes); then one barrier;
+//   round j  - each receiver gathers, per class in ascending order, the
+//              send of its class source whose mark in mark[j & 1] is that
+//              class, from the round's current planes, and writes the
+//              absorbed state to the other planes; in the same pass it
+//              writes its own round j + 1 mark into mark[(j + 1) & 1] (in
+//              gossip from the active flag it has just computed, held in a
+//              register); then the round's barrier.
+// Ordering: pass j + 1 writes mark[j & 1] and the plane set that pass j
+// read, and every block has passed barrier j before it starts pass j + 1;
+// the mark[(j + 1) & 1] that pass j writes was last read by pass j - 1,
+// before barrier j - 1. Marks that pass j writes for a round that never
+// runs (the target was reached) are never read.
 //
-// The barrier is written here rather than taken from cooperative_groups,
-// whose grid sync may need relocatable device code and so other build
-// flags than the rest of the port's kernels: an arrival counter in global
-// memory that only grows, with a fence before each arrival and after each
-// wait. The k-th barrier of the launch waits for k * gridDim.x arrivals.
+// The barrier is one 64-bit word a round in the chunk's scratch: each
+// block adds its arrival (high 32 bits) and its converged count (low 32
+// bits) in one atomic after a fence, then polls with acquire loads until
+// the arrivals reach gridDim.x; every block then reads the same total and
+// makes the same choice: stop at the target or at the cap, else go on. No
+// block leaves the round loop alone, so no barrier waits on a block that
+// has left, and the per-round words need no reset. It is written here
+// rather than taken from cooperative_groups, whose grid sync may need
+// relocatable device code and so other build flags than the rest of the
+// port's kernels. The parity of the executed-round count lives in a
+// register and names the current planes; block 0 writes it to `ctrl` once,
+// at the end. The init and finish launches of csrc/chunk.cuh bracket the
+// persistent launch as they do the streaming kernels, so a chunk is 3
+// launches whatever K is. A chunk from a converged state: the init launch
+// sets the done flag, and every block of the persistent launch reads it at
+// entry and leaves.
 //
 // Numerics: built without fast math, with -fmad=false and denormals kept;
 // the halve happens before the class sums, and the sums run from 0.0 in
@@ -70,6 +83,7 @@
 #include <stdint.h>
 
 #include "chunk.cuh"
+#include "shard.cuh"
 #include "stencil.cuh"
 
 namespace {
@@ -78,68 +92,93 @@ using gossip::Classes;
 using gossip::GossipPlanes;
 using gossip::PushSumPlanes;
 using gossip::block_sum;
-using gossip::grid_for;
 using gossip::kBlock;
-using gossip::mark_of;
+using gossip::word_mark;
 
-// Waits until `target` arrivals have reached *arrived, counting this
-// block's. Every thread's earlier writes are visible to every thread of
-// the grid after it returns.
-__device__ __forceinline__ void grid_barrier(unsigned* arrived,
-                                             unsigned target) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    atomicAdd(arrived, 1u);
-    while (*(volatile unsigned*)arrived < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
+// The barrier of one round (or of the prologue) on its own 64-bit word:
+// adds this block's arrival and converged count (valid in thread 0), waits
+// for every block's, and returns the grid's total to every thread. Every
+// thread's earlier writes are visible to every thread of the grid after it
+// returns. The order is cooperative_groups' grid sync on the arrival side
+// (block barrier, then thread 0's fence, then the add) and CUTLASS's
+// GenericBarrier on the waiting side (acquire polls, then the block
+// barrier). A release-qualified add in place of the fence and add is not
+// enough: some reads of the next pass then saw the round's old values.
+// The short sleep between polls keeps the waiting blocks' loads off the
+// word's L2 line while the others arrive.
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* word) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(v) : "l"(word) : "memory");
+  return v;
 }
 
-// The converged total of a round, read by every block after the barrier
-// that follows the last addition to it.
-__device__ __forceinline__ int round_total(const int* total) {
-  return *(const volatile int*)total;
+__device__ __forceinline__ int round_barrier(unsigned long long* word,
+                                             int block_count) {
+  __shared__ int total;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned long long add = gossip::barrier_arrival(block_count);
+    __threadfence();
+    unsigned long long seen = atomicAdd(word, add) + add;
+    while (gossip::barrier_arrivals(seen) < gridDim.x) {
+      __nanosleep(20);
+      seen = load_acquire(word);
+    }
+    total = gossip::barrier_total(seen);
+  }
+  __syncthreads();
+  return total;
+}
+
+// Round 0's marks into mark[0]; `active` is the input's active plane
+// (gossip) or null (push-sum: every node of degree > 0 sends).
+__device__ __forceinline__ void prologue_marks(int8_t* mark, const int* active,
+                                               const int* __restrict__ dirs,
+                                               const long long* keys,
+                                               int n_pad) {
+  const uint32_t k0 = (uint32_t)keys[0], k1 = (uint32_t)keys[1];
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock)
+    mark[j] = active == nullptr || active[j] != 0
+                  ? word_mark(dirs[j], k0, k1, j)
+                  : (int8_t)-1;
 }
 
 // ---------------------------------------------------------------- push-sum
 
 __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
-                               const long long* keys, gossip::Lattice L,
-                               Classes cls, int n_pad, int rounds, float delta,
-                               int term_rounds, int target, int* totals,
-                               unsigned* arrived, int* ctrl) {
+                               const long long* keys,
+                               const int* __restrict__ dirs, Classes cls,
+                               int n, int n_pad, int rounds, float delta,
+                               int term_rounds, int target,
+                               unsigned long long* words, int* ctrl) {
   // The init launch's verdict: every block reads the same value.
-  if (ctrl[0]) return;
-  const int n = L.n;
-  unsigned barriers = 0;
+  if (ctrl[0] || rounds == 0) return;
+  prologue_marks(mark, nullptr, dirs, keys, n_pad);
+  round_barrier(words + rounds, 0);
   int executed = 0;
   bool done = false;
   while (!done && executed < rounds) {
-    const bool odd = executed & 1;
-    const PushSumPlanes cur = odd ? b : a;
-    const PushSumPlanes nxt = odd ? a : b;
-    const long long* key = keys + 2 * executed;
-    for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
-         j += gridDim.x * kBlock)
-      mark[j] = j < n ? mark_of(L, cls, key, j) : (int8_t)-1;
-    grid_barrier(arrived, ++barriers * gridDim.x);
+    const int r = executed;
+    const PushSumPlanes cur = (r & 1) ? b : a;
+    const PushSumPlanes nxt = (r & 1) ? a : b;
+    const int8_t* mk = mark + (r & 1) * n_pad;
+    int8_t* next = r + 1 < rounds ? mark + ((r + 1) & 1) * n_pad : nullptr;
+    const uint32_t k0 = next ? (uint32_t)keys[2 * r + 2] : 0u;
+    const uint32_t k1 = next ? (uint32_t)keys[2 * r + 3] : 0u;
     int c = 0;
     for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
          j += gridDim.x * kBlock) {
       const bool pad = j >= n;
       float in_s = 0.0f, in_w = 0.0f;
-      if (!pad) gossip::pushsum_inbox(cls, mark, cur.s, cur.w, j, n, in_s, in_w);
-      // mark[j] < 0 on pad lanes and degree 0: those keep their mass.
-      c += gossip::pushsum_absorb_node(cur, nxt, j, pad, mark[j] >= 0, in_s,
+      if (!pad) gossip::pushsum_inbox(cls, mk, cur.s, cur.w, j, n, in_s, in_w);
+      // mk[j] < 0 on pad lanes and degree 0: those keep their mass.
+      c += gossip::pushsum_absorb_node(cur, nxt, j, pad, mk[j] >= 0, in_s,
                                        in_w, delta, term_rounds);
+      if (next) next[j] = word_mark(dirs[j], k0, k1, j);
     }
-    const int block_count = block_sum(c);
-    if (threadIdx.x == 0) atomicAdd(totals + executed, block_count);
-    grid_barrier(arrived, ++barriers * gridDim.x);
-    done = round_total(totals + executed) >= target;
+    done = round_barrier(words + r, block_sum(c)) >= target;
     ++executed;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -151,38 +190,41 @@ __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
 // ------------------------------------------------------------------ gossip
 
 __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
-                              const long long* keys, gossip::Lattice L,
-                              Classes cls, int n_pad, int rounds,
-                              int rumor_target, int suppress, int target,
-                              int* totals, unsigned* arrived, int* ctrl) {
-  if (ctrl[0]) return;
-  const int n = L.n;
-  unsigned barriers = 0;
+                              const long long* keys,
+                              const int* __restrict__ dirs, Classes cls, int n,
+                              int n_pad, int rounds, int rumor_target,
+                              int suppress, int target,
+                              unsigned long long* words, int* ctrl) {
+  if (ctrl[0] || rounds == 0) return;
+  prologue_marks(mark, a.active, dirs, keys, n_pad);
+  round_barrier(words + rounds, 0);
   int executed = 0;
   bool done = false;
   while (!done && executed < rounds) {
-    const bool odd = executed & 1;
-    const GossipPlanes cur = odd ? b : a;
-    const GossipPlanes nxt = odd ? a : b;
-    const long long* key = keys + 2 * executed;
-    for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
-         j += gridDim.x * kBlock) {
-      const bool sending = j < n && cur.active[j] != 0;
-      mark[j] = sending ? mark_of(L, cls, key, j) : (int8_t)-1;
-    }
-    grid_barrier(arrived, ++barriers * gridDim.x);
+    const int r = executed;
+    const GossipPlanes cur = (r & 1) ? b : a;
+    const GossipPlanes nxt = (r & 1) ? a : b;
+    const int8_t* mk = mark + (r & 1) * n_pad;
+    int8_t* next = r + 1 < rounds ? mark + ((r + 1) & 1) * n_pad : nullptr;
+    const uint32_t k0 = next ? (uint32_t)keys[2 * r + 2] : 0u;
+    const uint32_t k1 = next ? (uint32_t)keys[2 * r + 3] : 0u;
     int c = 0;
     for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
          j += gridDim.x * kBlock) {
       const bool pad = j >= n;
-      const int inbox = pad ? 0 : gossip::gossip_inbox(cls, mark, j, n);
-      c += gossip::gossip_absorb_node(cur, nxt, j, pad, inbox, rumor_target,
-                                      suppress);
+      const int inbox = pad ? 0 : gossip::gossip_inbox(cls, mk, j, n);
+      int cnt, act;
+      const int cv = gossip::gossip_absorb(
+          [&] { return cur.conv[j] != 0; }, [&] { return cur.count[j]; },
+          [&] { return cur.active[j]; }, pad, inbox, rumor_target, suppress,
+          cnt, act);
+      nxt.count[j] = cnt;
+      nxt.active[j] = act;
+      nxt.conv[j] = cv;
+      if (next) next[j] = act ? word_mark(dirs[j], k0, k1, j) : (int8_t)-1;
+      c += cv;
     }
-    const int block_count = block_sum(c);
-    if (threadIdx.x == 0) atomicAdd(totals + executed, block_count);
-    grid_barrier(arrived, ++barriers * gridDim.x);
-    done = round_total(totals + executed) >= target;
+    done = round_barrier(words + r, block_sum(c)) >= target;
     ++executed;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -191,56 +233,70 @@ __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
   }
 }
 
-// Blocks of the persistent launch of `kernel` over n_pad nodes: as many as
-// the SMs hold at once, at most one per 256 nodes. Unlike grid_for there
-// is no guess when a query fails: the error is returned, and so is the
-// lack of cooperative launch support or a round count whose barriers
-// (2 * rounds * grid arrivals) would overflow the 32-bit counter.
+// Blocks of the persistent launch of `kernel` over n_pad nodes: every block
+// the SMs hold at once, at most one per 256 nodes. The capacity is asked
+// once a device (`cache`, one int a device) and, unlike grid_for, a failed
+// query is returned as an error, and so is a card without cooperative
+// launch.
 template <typename Kernel>
-cudaError_t cooperative_grid(Kernel kernel, int n_pad, int rounds, int device,
+cudaError_t cooperative_grid(Kernel kernel, int n_pad, int device, int* cache,
                              int* grid) {
-  int coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock,
-                                                      0);
-  if (err != cudaSuccess) return err;
-  if (sms <= 0 || per_sm <= 0) return cudaErrorCooperativeLaunchTooLarge;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (cache[device] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+    if (err != cudaSuccess) return err;
+    if (!coop) return cudaErrorNotSupported;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kBlock, 0);
+    if (err != cudaSuccess) return err;
+    if (sms <= 0 || per_sm <= 0) return cudaErrorCooperativeLaunchTooLarge;
+    cache[device] = sms * per_sm;
+  }
   const long long want = ((long long)n_pad + kBlock - 1) / kBlock;
-  const long long cap = (long long)sms * per_sm;
-  *grid = (int)(want < cap ? (want > 0 ? want : 1) : cap);
-  if (2LL * rounds * *grid >= (1LL << 32)) return cudaErrorInvalidValue;
+  *grid = (int)(want < cache[device] ? (want > 0 ? want : 1) : cache[device]);
   return cudaSuccess;
+}
+
+int pushsum_grid_cache[64];
+int gossip_grid_cache[64];
+
+// Zeroes a chunk's control words: ctrl (int32[2]) and the 8 * (rounds + 2)
+// bytes of scratch behind it, in one memset.
+cudaError_t zero_control(int* ctrl, int rounds, cudaStream_t stream) {
+  return cudaMemsetAsync(ctrl, 0, 8 * ((size_t)rounds + 3), stream);
 }
 
 }  // namespace
 
 // ------------------------------------------------------------- C interface
 //
-// Both entry points queue three launches on `stream` of CUDA device
-// `device` (the init launch, the persistent cooperative launch that runs
-// every round, the finish launch) and return the first error (a
-// cudaError_t), 0 if none. The arguments are those of
-// csrc/fused_stencil.cu's entry points: outputs and scratch are allocated
-// by the caller, the A planes receive the result, the B planes are the
-// other half of the ping/pong pair; mark is int8[n_pad]; ctrl is int32[2]
-// (done, rounds executed); `classes` is a host array of the n_classes
-// sorted displacement classes. scratch is int32[2 * (rounds + 2)], zeroed:
-// the per-round totals and the init launch's total (rounds + 1 words), the
-// init launch's ticket at word 2 * rounds + 1, and the barrier's arrival
-// counter at word 2 * (rounds + 1).
+// Both entry points zero the control words and queue three launches on
+// `stream` of CUDA device `device` (the init launch, the persistent
+// cooperative launch that runs every round, the finish launch, all three on
+// the persistent grid, so no occupancy is asked after a device's first
+// chunk) and return the first error (a cudaError_t), 0 if none. The
+// arguments are those of csrc/fused_stencil.cu's entry points: outputs and
+// control words are allocated by the caller, the A planes receive the
+// result, the B planes are the other half of the ping/pong pair; mark is
+// int8[2 * n_pad]; dirs is int32[n_pad], every slot's directions word
+// (ops/fused_stencil_hbm.dir_words); ctrl holds the chunk's control
+// words: int32[2] (done, rounds executed), then 8 * (rounds + 2) bytes of
+// scratch, the per-round barrier words (uint64, rounds of them, then the
+// prologue's) and the init launch's total and ticket (int32 each); ctrl
+// must be 8-byte aligned. `classes` is a host array of the n_classes
+// sorted displacement classes.
 
 extern "C" int gossip_pushsum_resident_chunk(
     const float* s0, const float* w0, const int* t0, const int* c0, float* s,
     float* w, int* term, int* conv, float* s_b, float* w_b, int* term_b,
-    int* conv_b, int8_t* mark, const long long* keys, int* ctrl, int* scratch,
-    const int* classes, int n_classes, int kind, int n, int extra_node,
-    int n_pad, int rounds, float delta, int term_rounds, int target,
-    int device, void* stream_ptr) {
+    int* conv_b, int8_t* mark, const long long* keys, const int* dirs,
+    int* ctrl, const int* classes, int n_classes, int kind, int n,
+    int extra_node, int n_pad, int rounds, float delta, int term_rounds,
+    int target, int device, void* stream_ptr) {
   gossip::Lattice L;
   Classes cls;
   if (rounds < 0 ||
@@ -249,34 +305,36 @@ extern "C" int gossip_pushsum_resident_chunk(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int grid = 0;
-  err = cooperative_grid(pushsum_rounds, n_pad, rounds, device, &grid);
+  err = cooperative_grid(pushsum_rounds, n_pad, device, pushsum_grid_cache,
+                         &grid);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int* totals = scratch;
-  unsigned* tickets = (unsigned*)(scratch + rounds + 1);
-  unsigned* arrived = (unsigned*)(scratch + 2 * (rounds + 1));
+  unsigned long long* words = (unsigned long long*)(ctrl + 2);
+  int* init_words = (int*)(words + rounds + 1);
   PushSumPlanes a{s, w, term, conv};
   PushSumPlanes b{s_b, w_b, term_b, conv_b};
-  gossip::pushsum_init<<<grid_for(gossip::pushsum_init, n_pad, device), kBlock,
-                         0, stream>>>(s0, w0, t0, c0, a, n_pad, totals + rounds,
-                                      tickets + rounds, ctrl, target);
+  // The control words, zeroed on the stream ahead of the chunk.
+  err = zero_control(ctrl, rounds, stream);
+  if (err != cudaSuccess) return (int)err;
+  gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
+      s0, w0, t0, c0, a, n_pad, init_words, (unsigned*)(init_words + 1), ctrl,
+      target);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&a,     &b,      &mark,  &keys,        &L,
-                  &cls,   &n_pad,  &rounds, &delta,      &term_rounds,
-                  &target, &totals, &arrived, &ctrl};
+  void* args[] = {&a,      &b,     &mark,        &keys,   &dirs,
+                  &cls,    &n,     &n_pad,       &rounds, &delta,
+                  &term_rounds,    &target,      &words,  &ctrl};
   err = cudaLaunchCooperativeKernel((const void*)pushsum_rounds, grid, kBlock,
                                     args, 0, stream);
   if (err != cudaSuccess) return (int)err;
-  gossip::pushsum_finish<<<grid_for(gossip::pushsum_finish, n_pad, device),
-                           kBlock, 0, stream>>>(a, b, n_pad, ctrl);
+  gossip::pushsum_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
   return (int)cudaGetLastError();
 }
 
 extern "C" int gossip_gossip_resident_chunk(
     const int* n0, const int* a0, const int* c0, int* count, int* active,
     int* conv, int* count_b, int* active_b, int* conv_b, int8_t* mark,
-    const long long* keys, int* ctrl, int* scratch, const int* classes,
+    const long long* keys, const int* dirs, int* ctrl, const int* classes,
     int n_classes, int kind, int n, int extra_node, int n_pad, int rounds,
     int rumor_target, int suppress, int target, int device,
     void* stream_ptr) {
@@ -288,26 +346,28 @@ extern "C" int gossip_gossip_resident_chunk(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int grid = 0;
-  err = cooperative_grid(gossip_rounds, n_pad, rounds, device, &grid);
+  err = cooperative_grid(gossip_rounds, n_pad, device, gossip_grid_cache,
+                         &grid);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int* totals = scratch;
-  unsigned* tickets = (unsigned*)(scratch + rounds + 1);
-  unsigned* arrived = (unsigned*)(scratch + 2 * (rounds + 1));
+  unsigned long long* words = (unsigned long long*)(ctrl + 2);
+  int* init_words = (int*)(words + rounds + 1);
   GossipPlanes a{count, active, conv};
   GossipPlanes b{count_b, active_b, conv_b};
-  gossip::gossip_init<<<grid_for(gossip::gossip_init, n_pad, device), kBlock,
-                        0, stream>>>(n0, a0, c0, a, n_pad, totals + rounds,
-                                     tickets + rounds, ctrl, target);
+  // The control words, zeroed on the stream ahead of the chunk.
+  err = zero_control(ctrl, rounds, stream);
+  if (err != cudaSuccess) return (int)err;
+  gossip::gossip_init<<<grid, kBlock, 0, stream>>>(
+      n0, a0, c0, a, n_pad, init_words, (unsigned*)(init_words + 1), ctrl,
+      target);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&a,           &b,        &mark,   &keys,   &L,
-                  &cls,         &n_pad,    &rounds, &rumor_target,
-                  &suppress,    &target,   &totals, &arrived, &ctrl};
+  void* args[] = {&a,      &b,       &mark,         &keys,    &dirs,
+                  &cls,    &n,       &n_pad,        &rounds,  &rumor_target,
+                  &suppress,         &target,       &words,   &ctrl};
   err = cudaLaunchCooperativeKernel((const void*)gossip_rounds, grid, kBlock,
                                     args, 0, stream);
   if (err != cudaSuccess) return (int)err;
-  gossip::gossip_finish<<<grid_for(gossip::gossip_finish, n_pad, device),
-                          kBlock, 0, stream>>>(a, b, n_pad, ctrl);
+  gossip::gossip_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
   return (int)cudaGetLastError();
 }

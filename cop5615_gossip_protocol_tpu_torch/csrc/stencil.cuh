@@ -1,13 +1,17 @@
 // Per-node logic of the lattice (stencil) kernels in csrc/fused_stencil.cu
 // and csrc/fused_resident.cu: the direction pairs of the six arithmetic
 // lattices in neighbour-column order, the sampled displacement, each
-// sender's class mark and each receiver's class check. The device-side
-// counterpart of ops/topology.py's lattice_dirs and
-// ops/fused_stencil_hbm.py's _sample_disp_dirs.
+// sender's class mark and each receiver's class check, and the resident
+// kernel's per-round barrier word. The device-side counterpart of
+// ops/topology.py's lattice_dirs and ops/fused_stencil_hbm.py's
+// _sample_disp_dirs. The lattice kernels mark from the host-built
+// directions word (csrc/shard.cuh word_mark), which the tests hold against
+// mark_of here; csrc/imp.cuh marks through mark_of itself.
 //
 // Plain inline code usable from the host too, so g++ builds it for the CPU
-// tests (tests/test_torch_stencil.py) and they hold it against the JAX
-// package's topologies and sampling without a GPU.
+// tests (tests/test_torch_stencil.py, tests/test_torch_lattice_dir_words.py)
+// and they hold it against the JAX package's topologies and sampling and
+// the chunked engine's sums without a GPU.
 #pragma once
 
 #include <math.h>
@@ -175,7 +179,9 @@ GOSSIP_HD int8_t mark_of(const Lattice& L, const Classes& cls,
 // Receiver j's push-sum inbox: over the classes in ascending order, from
 // 0.0, the halved send of each class source whose mark is that class (the
 // chunked engine's float32 op order). Unrolled to the class cap so the
-// class list stays in registers and every mark load is in flight at once.
+// class list stays in registers, and every source's s and w are loaded
+// whatever its mark, so they are in flight with the mark loads instead of
+// waiting on them (the round's latency chain is one L2 trip shorter).
 GOSSIP_HD void pushsum_inbox(const Classes& cls, const int8_t* mark,
                              const float* s, const float* w, int j, int n,
                              float& in_s, float& in_w) {
@@ -185,13 +191,10 @@ GOSSIP_HD void pushsum_inbox(const Classes& cls, const int8_t* mark,
   for (int k = 0; k < kMaxClasses; ++k) {
     if (k < cls.count) {
       const int i = class_source(j, cls.d[k], n);
-      float vs = 0.0f, vw = 0.0f;
-      if (mark[i] == k) {
-        vs = s[i] * 0.5f;
-        vw = w[i] * 0.5f;
-      }
-      in_s = in_s + vs;
-      in_w = in_w + vw;
+      const float si = s[i], wi = w[i];
+      const bool hit = mark[i] == k;
+      in_s = in_s + (hit ? si * 0.5f : 0.0f);
+      in_w = in_w + (hit ? wi * 0.5f : 0.0f);
     }
   }
 }
@@ -204,6 +207,22 @@ GOSSIP_HD int gossip_inbox(const Classes& cls, const int8_t* mark, int j,
   for (int k = 0; k < kMaxClasses; ++k)
     if (k < cls.count) inbox += mark[class_source(j, cls.d[k], n)] == k ? 1 : 0;
   return inbox;
+}
+
+// The per-round barrier word of csrc/fused_resident.cu: each block adds
+// its arrival (the high 32 bits) and its converged count (the low 32 bits)
+// in one 64-bit atomic. A grid's counts sum to at most n_pad < 2**31, so
+// the low half never carries into the arrivals.
+GOSSIP_HD unsigned long long barrier_arrival(int count) {
+  return (1ull << 32) | (uint32_t)count;
+}
+
+GOSSIP_HD uint32_t barrier_arrivals(unsigned long long word) {
+  return (uint32_t)(word >> 32);
+}
+
+GOSSIP_HD int barrier_total(unsigned long long word) {
+  return (int)(uint32_t)word;
 }
 
 // Lattice and class list of a chunk from its C arguments (host side);

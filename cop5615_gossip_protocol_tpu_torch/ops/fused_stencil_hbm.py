@@ -15,13 +15,19 @@ CUDA kernels of csrc/fused_stencil.cu on CUDA tensors and run their plain
 torch versions (``*_plain``) on CPU tensors; the plain versions run on any
 device and are what the kernels are held against. The resident lattice
 tiers (ops/fused.py, ops/fused_stencil.py) compute the same function and
-share the plain versions, the wrapper checks and ``kernel_chunk``.
+share the plain versions, the wrapper checks, ``kernel_chunk`` and the
+per-slot directions word the kernels mark from (``dir_words``, built on
+the host once per layout and device; the sharded lattice kernels read it
+too).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
+import functools
+import os
 from typing import Optional
 
 import numpy as np
@@ -38,7 +44,7 @@ from .fused import (
     pushsum_class_rounds,
     threefry2x32_hash,
 )
-from .fused_pool import PoolLayout, _ptr, _upload, build_pool_layout
+from .fused_pool import PoolLayout, _upload, build_pool_layout
 from .topology import Topology, lattice_dirs
 
 MAX_STENCIL_HBM_NODES = 2**27
@@ -46,6 +52,8 @@ _HBM_KINDS = ("torus3d", "ring", "grid2d", "grid3d", "line", "ref2d")
 # The lattice families of csrc/stencil.cuh (ref2d is wired as a line).
 _KIND_IDS = {"ring": 0, "line": 1, "ref2d": 1, "grid2d": 2, "grid3d": 3,
              "torus3d": 4}
+# Slots per host thread's chunk of the directions words (``dir_words``).
+_WORDS_STEP = 1 << 20
 
 
 def stencil_hbm_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
@@ -178,6 +186,49 @@ def _streaming_layout(n: int) -> PoolLayout:
                       tiles=rows * base.tiles // base.rows)
 
 
+@functools.lru_cache(maxsize=4)
+def _dir_words_host(spec, R: int) -> np.ndarray:
+    """``dir_words`` on the host, shared by the devices that ask for it."""
+    classes = np.asarray(spec.classes, dtype=np.int32)
+    if len(classes) > 16:
+        raise ValueError("at most 16 displacement classes fit a 4-bit class id")
+    words = np.empty(R * LANES, dtype=np.int32)
+
+    def fill(lo):
+        g = np.arange(lo, min(lo + _WORDS_STEP, R * LANES), dtype=np.int32)
+        word = np.zeros_like(g)
+        deg = np.zeros_like(g)
+        for live, d in lattice_dirs(spec.kind, spec.n, spec.n_lat, g):
+            live = live & (g < spec.n)
+            k = np.minimum(np.searchsorted(classes, d), len(classes) - 1).astype(np.int32)
+            if not np.all(~live | (classes[k] == d)):
+                raise ValueError(f"{spec.kind}: a live displacement is not a class")
+            word |= (k << (4 * deg)) * live
+            deg += live
+        words[lo:lo + g.size] = word | (deg << 24)
+
+    # numpy releases the GIL in its loops, so the chunks run in parallel.
+    with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(fill, range(0, R * LANES, _WORDS_STEP)))
+    return words
+
+
+@functools.lru_cache(maxsize=4)
+def dir_words(spec, R: int, device) -> torch.Tensor:
+    """int32 [R * 128] static directions word of every slot of an [R, 128]
+    layout, built on the host (as the JAX engines build their displacement
+    planes) and copied to ``device``: bits 4k..4k+3 hold the class id of
+    the slot's k-th live direction in the topology's column order, bits
+    24..26 its degree; 0 for pad lanes and degree-0 nodes (csrc/shard.cuh
+    ``word_class`` reads it). Every lattice kernel marks from it: the
+    single-device ones (csrc/fused_stencil.cu, csrc/fused_resident.cu) and
+    the sharded ones, at global flat indices. Cached per (spec, R, device),
+    so a run builds it once, in its set-up. Raises ValueError if a live
+    direction's displacement is not a class or there are more than 16
+    classes."""
+    return torch.from_numpy(_dir_words_host(spec, R)).to(device)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions: the kernels' function in torch, on any device.
 # ---------------------------------------------------------------------------
@@ -264,7 +315,8 @@ def _check(planes, dtypes, keys, spec: StencilSpec, rows: int) -> torch.device:
         raise ValueError(f"keys must be int64 [K, 2], got {keys.dtype} {tuple(keys.shape)}")
     if keys.device.type != "cpu":
         raise ValueError("keys are a host-drawn stream: pass a CPU tensor")
-    if keys.numel() and (keys.min() < 0 or keys.max() > rng.MASK):
+    words = keys.numpy()
+    if words.size and (words.min() < 0 or words.max() > rng.MASK):
         raise ValueError("keys must hold uint32 words")
     if spec.kind not in _KIND_IDS or not 1 <= len(spec.classes) <= 16:
         raise ValueError(f"not a stencil lattice the kernels take: {spec}")
@@ -291,24 +343,33 @@ def kernel_chunk(source: str, name: str, state, keys, start: int, cap: int,
     keys = _upload(keys, dev)
     rounds = max(0, cap - start)
     n_pad = state[0].numel()
-    out = [torch.empty_like(x) for x in state]
-    other = [torch.empty_like(x) for x in state]
-    mark = torch.empty(n_pad, dtype=torch.int8, device=dev)
-    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
-    # Per-round totals and tickets, then the resident kernel's barrier word.
-    scratch = torch.zeros(2 * (rounds + 2), dtype=torch.int32, device=dev)
+    planes = len(state) * n_pad
+    dirs = dir_words(spec, state[0].shape[0], dev)
+    # Two allocations a chunk and few tensor ops, each of which costs a
+    # short chunk several µs of host time: the result planes with the
+    # control words behind them (done, rounds executed, then 8 * (rounds +
+    # 2) bytes of scratch; the entry point zeroes them), and the other plane
+    # set with the two mark planes (round j reads half j % 2), passed as
+    # raw pointers. Both stay safe after this returns: the caching allocator
+    # hands their memory only to work queued later on the same stream.
+    head = torch.empty(planes + 2 + 2 * (rounds + 2), dtype=torch.int32, device=dev)
+    work = torch.empty(planes + n_pad // 2, dtype=torch.int32, device=dev)
+    out = [p if p.dtype == x.dtype else p.view(x.dtype) for p, x in
+           zip(head[:planes].view(len(state), *state[0].shape).unbind(0), state)]
+    other = [work.data_ptr() + 4 * i * n_pad for i in range(len(state))]
     fn = kernels.entry(source, name,
                        _PUSHSUM_ARGS if len(state) == 4 else _GOSSIP_ARGS)
     classes = np.ascontiguousarray(spec.classes, dtype=np.int32)
     lattice = (len(spec.classes), _KIND_IDS[spec.kind], spec.n,
                spec.n - spec.n_lat)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    err = fn(*[_ptr(x) for x in (*state, *out, *other, mark, keys, ctrl, scratch)],
-             classes.ctypes.data_as(ctypes.c_void_p), *lattice, n_pad, rounds,
-             *tail, dev.index, stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(*[x.data_ptr() for x in (*state, *out)], *other,
+             work.data_ptr() + 4 * planes, keys.data_ptr(), dirs.data_ptr(),
+             head.data_ptr() + 4 * planes, classes.ctypes.data, *lattice,
+             n_pad, rounds, *tail, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-    return tuple(out), ctrl[1], rounds
+    return tuple(out), head[planes + 1], rounds
 
 
 def pushsum_stencil_hbm_chunk(state4, keys, start: int, cap: int, *,
@@ -333,7 +394,7 @@ def pushsum_stencil_hbm_chunk(state4, keys, start: int, cap: int, *,
     out, executed, rounds = kernel_chunk(
         "fused_stencil", "gossip_pushsum_stencil_chunk", state4, keys, start, cap,
         spec, (ctypes.c_float(delta), term_rounds, target))
-    pushsum_stencil_hbm_chunk.launches += 2 + 2 * rounds
+    pushsum_stencil_hbm_chunk.launches += 3 + rounds
     return out, executed
 
 
@@ -353,11 +414,11 @@ def gossip_stencil_hbm_chunk(state3, keys, start: int, cap: int, *,
     out, executed, rounds = kernel_chunk(
         "fused_stencil", "gossip_gossip_stencil_chunk", state3, keys, start, cap,
         spec, (rumor_target, int(suppress), target))
-    gossip_stencil_hbm_chunk.launches += 2 + 2 * rounds
+    gossip_stencil_hbm_chunk.launches += 3 + rounds
     return out, executed
 
 
-# Kernel launches queued by each wrapper (init, 2 per round, finish),
-# counted where the kernel is launched and nowhere else.
+# Kernel launches queued by each wrapper (init, the prologue, one a round,
+# finish), counted where the kernel is launched and nowhere else.
 pushsum_stencil_hbm_chunk.launches = 0
 gossip_stencil_hbm_chunk.launches = 0

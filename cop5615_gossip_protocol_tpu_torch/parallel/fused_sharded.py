@@ -36,11 +36,9 @@ plain torch versions; on CUDA they launch the kernels.
 
 from __future__ import annotations
 
-import concurrent.futures
 import ctypes
 import dataclasses
 import functools
-import os
 import time
 from typing import Optional
 
@@ -52,6 +50,7 @@ from ..ops import fused
 from ..ops import fused_stencil_hbm as hbm
 from ..ops.fused import LANES
 from ..ops.fused_pool import TILE, PoolLayout, _upload, build_pool_layout
+from ..ops.fused_stencil_hbm import dir_words
 from ..ops.topology import Topology, lattice_dirs
 from ..utils import kernels
 from . import halo
@@ -64,9 +63,6 @@ _VMEM_BUDGET = 100 * 1024 * 1024
 # Rounds a super-step may run: the plans' CR cap, and the windows the
 # kernels take by value (csrc/shard.cuh kMaxWindows - 1).
 MAX_SUPERSTEP_ROUNDS = 64
-
-# Slots per host thread's chunk of the directions words (``dir_words``).
-_WORDS_STEP = 1 << 20
 
 # Super-steps queued per host batch of the run's chunk loop: a batch ends on
 # a JAX super-step boundary and the loop reads the done flag once a batch.
@@ -273,45 +269,6 @@ def shard_windows(spec, rolls: tuple, geom: ShardGeometry, row0: int,
                     s_lo, s_hi = min(s_lo, ra + sh), max(s_hi, rb + sh)
         windows.append((s_lo // LANES, -(-s_hi // LANES)))
     return tuple(reversed(windows))
-
-
-@functools.lru_cache(maxsize=4)
-def _dir_words_host(spec, R: int) -> np.ndarray:
-    """``dir_words`` on the host, shared by the devices that ask for it."""
-    classes = np.asarray(spec.classes, dtype=np.int32)
-    if len(classes) > 16:
-        raise ValueError("at most 16 displacement classes fit a 4-bit class id")
-    words = np.empty(R * LANES, dtype=np.int32)
-
-    def fill(lo):
-        g = np.arange(lo, min(lo + _WORDS_STEP, R * LANES), dtype=np.int32)
-        word = np.zeros_like(g)
-        deg = np.zeros_like(g)
-        for live, d in lattice_dirs(spec.kind, spec.n, spec.n_lat, g):
-            live = live & (g < spec.n)
-            k = np.minimum(np.searchsorted(classes, d), len(classes) - 1).astype(np.int32)
-            if not np.all(~live | (classes[k] == d)):
-                raise ValueError(f"{spec.kind}: a live displacement is not a class")
-            word |= (k << (4 * deg)) * live
-            deg += live
-        words[lo:lo + g.size] = word | (deg << 24)
-
-    # numpy releases the GIL in its loops, so the chunks run in parallel.
-    with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
-        list(pool.map(fill, range(0, R * LANES, _WORDS_STEP)))
-    return words
-
-
-@functools.lru_cache(maxsize=4)
-def dir_words(spec, R: int, device) -> torch.Tensor:
-    """int32 [R * 128] static directions word of every global slot, built on
-    the host (as the JAX engines build their displacement planes) and
-    copied to ``device``: bits 4k..4k+3 hold the class id of the slot's
-    k-th live direction in the topology's column order, bits 24..26 its
-    degree; 0 for pad lanes and degree-0 nodes (csrc/shard.cuh
-    ``word_class`` reads it). Raises ValueError if a live direction's
-    displacement is not a class or there are more than 16 classes."""
-    return torch.from_numpy(_dir_words_host(spec, R)).to(device)
 
 
 # ---------------------------------------------------------------------------
