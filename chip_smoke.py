@@ -35,17 +35,21 @@ non-zero before the last line:
    conserved, counters zeroed before each run and read after it; then
    torus3d 130**3, both algorithms, 64 rounds on the card against the
    CPU's chunked engine (rounds, converged count, final state);
-7. each imp kernel against its plain version on the card, pool_size 4, one
-   32-round chunk at imp3d 16,777,216 (the streaming imp tier), imp3d
-   1,000,000 (the resident tier, 48,576 pad lanes) and imp2d 100,489 (the
-   BASELINE config, 30,583 pad lanes), from the initial state and from a
-   mid-run state, with a cap inside the chunk and from a converged state,
-   plus push-sum at pool_size 16; every check bitwise, and the ladder must
-   pick the JAX ladder's tier for each;
+7. each imp kernel (a mark prologue, then one launch a round that also
+   writes the next round's marks) against its plain version on the card,
+   pool_size 4, one 32-round chunk at imp3d 16,777,216 (the streaming imp
+   tier), imp3d 1,000,000 (the resident tier, 48,576 pad lanes) and imp2d
+   100,489 (the BASELINE config, 30,583 pad lanes), from the initial state
+   and from a mid-run state, with a cap inside the chunk after an odd and
+   an even number of rounds, a one-round chunk, two zero-round chunks (no
+   keys; capped at the start) and from a converged state, plus push-sum at
+   pool_size 16; every check bitwise, and the ladder must pick the JAX
+   ladder's tier for each;
 8. the imp path through ``run()``: imp3d 16.8M and 1M, both algorithms,
    and imp2d 100,489 push-sum, each to convergence, counters zeroed before
-   each run and read after it, push-sum mass conserved; then imp3d 50**3,
-   both algorithms, 64 rounds on the card against the CPU's chunked engine
+   each run and read after it (the warmup's chunk and then K + 3 launches
+   a chunk of K rounds), push-sum mass conserved; then imp3d 50**3, both
+   algorithms, 64 rounds on the card against the CPU's chunked engine
    (rounds, converged count, final state bitwise);
 9. each resident lattice kernel (one persistent cooperative launch a
    chunk) against its plain version on the card, one 32-round chunk at
@@ -113,21 +117,26 @@ non-zero before the last line:
    shards, 2,000 rounds at chunk_rounds=1 and at the default (CR 32), each
    bitwise phase 6's sample;
 14d. each kernel of the sharded imp composition
-   (parallel/fused_imp_hbm_sharded.py, every shard on the card: a mark and
-   an absorb launch a shard a round) against its plain version, one round
-   on every shard from the initial state, from a mid-run state and from a
-   converged state, at imp3d 100**3 in 2 shards (48,576 pad lanes), imp2d
-   4096**2 and imp3d 256**3 in 4, push-sum also at pool_size 16, and imp3d
-   520**3 in 4 (past the single-device cap) from the initial state; every
-   shard's planes and count bitwise, and the ladder must pick the sharded
+   (parallel/fused_imp_hbm_sharded.py, every shard on the card: an absorb
+   launch a shard a round that also writes the shard's next-round marks,
+   after a mark prologue a shard) against its plain version, one round on
+   every shard from the initial state, from a mid-run state and from a
+   converged state, then the next round from the marks it wrote (a chunk
+   boundary: no prologue, the stream drawn one round ahead), at imp3d
+   100**3 in 2 shards (48,576 pad lanes), imp2d 4096**2 and imp3d 256**3 in
+   4, push-sum also at pool_size 16, and imp3d 520**3 in 4 (past the
+   single-device cap) from the initial state; every shard's planes and
+   count and the next marks bitwise, and the ladder must pick the sharded
    imp composition for each;
 14e. the sharded imp path through ``run(devices=["cuda:0"] * S)``,
-   counters zeroed before each run and read after it: imp3d 256**3 gossip
-   and push-sum in 4 shards to convergence, each bitwise phase 8's
-   single-device run (rounds, converged count, every plane); imp3d 50**3 in
-   2 shards, both algorithms, 64 rounds on the card against the CPU's run of
-   the same shards; imp3d 520**3 in 4 shards, gossip to convergence and a
-   64-round push-sum sample conserving its mass;
+   counters zeroed before each run and read after it (S prologue launches
+   a run, S absorbs a round): imp3d 256**3 gossip and push-sum in 4 shards
+   to convergence, each bitwise phase 8's single-device run (rounds,
+   converged count, every plane), gossip also with the verdict not
+   deferred and resumed from its converged state (0 rounds); imp3d 50**3
+   in 2 shards, both algorithms, 64 rounds on the card against the CPU's
+   run of the same shards; imp3d 520**3 in 4 shards, gossip to convergence
+   and a 64-round push-sum sample conserving its mass;
 15. each kernel's time per chunk by CUDA events, beside its plain version's
    and the least time the card could take for the same work; the shard
    kernels per super-step (every shard's launch) at 16,777,216 in 4, with
@@ -135,8 +144,9 @@ non-zero before the last line:
    super-step at torus3d 100**3 in 2 (resident) and 256**3 in 4
    (streaming), the ring wire's copies timed apart, their bound counted on
    the windows' slot-rounds (``stencil_shard_bound``); the sharded imp
-   kernels per round (every shard's mark and absorb) at imp3d 256**3 in 4,
-   whose wire copies nothing on one card (``--cards`` times it).
+   kernels per round (every shard's absorb) at imp3d 256**3 in 4, whose
+   wire copies nothing on one card (``--cards`` times it); then the imp
+   rows' µs a round beside row 9's, and rows 13 and 18 over row 9.
 
 Each of phases 5-14e prints its wall time.
 
@@ -329,6 +339,22 @@ def parity_checks(name, kern, plain, chunk, mid, mid_round, float_planes):
             for extra in (5, 6)] + [
         compare(f"{name} one-round chunk", chunk(kern, mid, mid_round, 1),
                 chunk(plain, mid, mid_round, 1), float_planes)]
+
+
+def zero_round_checks(name, kern, plain, chunk, state, start):
+    """A chunk of no rounds, kernel against plain from ``state``: one with
+    no keys and one capped at its start (keys, but no round to run); each
+    must leave the state unchanged. Returns their max_abs_err."""
+    import torch
+
+    errs = []
+    for label, count, cap in (("no keys", 0, None), ("capped at its start", CHUNK, start)):
+        got = chunk(kern, state, start, count, cap=cap)
+        errs.append(compare(f"{name} zero-round chunk ({label})", got,
+                            chunk(plain, state, start, count, cap=cap), 0))
+        if int(got[1]) != 0 or not all(torch.equal(a, b) for a, b in zip(got[0], state)):
+            raise AssertionError(f"{name}: a zero-round chunk changed the state")
+    return errs
 
 
 def lattice_checks(dev, key):
@@ -629,9 +655,8 @@ def imp_checks(dev, key):
             errs.append(compare(f"{name} mid-run K={CHUNK}",
                                 chunk(kern, mid, mid_round, CHUNK),
                                 chunk(plain, mid, mid_round, CHUNK), 0))
-            errs.append(compare(f"{name} cap inside chunk",
-                                chunk(kern, mid, mid_round, CHUNK, cap=mid_round + 5),
-                                chunk(plain, mid, mid_round, CHUNK, cap=mid_round + 5), 0))
+            errs += parity_checks(name, kern, plain, chunk, mid, mid_round, 0)
+            errs += zero_round_checks(name, kern, plain, chunk, mid, mid_round)
             done_state, ex = chunk(kern, mid, mid_round, 4096)
             done_round = mid_round + int(ex)
             if int(ex) == 4096:
@@ -696,8 +721,13 @@ def imp_path(dev):
                 "estimate_mae": res.estimate_mae, "launches": counts,
                 "device": res.device,
             }), flush=True)
-            if counts[name] == 0:
-                raise AssertionError(f"the {kind} {algorithm} run never launched {name}")
+            # K + 3 launches a chunk (init, prologue, a round each, finish):
+            # the warmup's one-round chunk, then chunks of chunk_rounds.
+            chunk_launches = fused_imp.chunk_launches(min(cfg.chunk_rounds, cfg.max_rounds))
+            extra = counts[name] - fused_imp.chunk_launches(1)
+            if counts[name] == 0 or extra <= 0 or extra % chunk_launches:
+                raise AssertionError(f"the {kind} {algorithm} run queued {counts[name]} "
+                                     f"launches, not 4 + a multiple of {chunk_launches}")
             if not res.converged or res.converged_count != topo.n:
                 raise AssertionError(f"{kind} n={topo.n} {algorithm} did not converge")
             if algorithm == "push-sum":
@@ -1874,50 +1904,79 @@ def imp_topology(kind, n):
 
 
 def imp_shard_streams(key, rnd, pool, n):
-    """One round's key, pool offsets and choice key, as the run draws them."""
+    """Round rnd's key, pool offsets and choice key, as the run draws them,
+    and round rnd + 1's key and choice key, whose marks rnd's absorbs write
+    (the run draws its streams one round past each chunk)."""
     from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_imp, fused_pool
 
-    return (fused.round_keys(key, rnd, 1)[0].tolist(),
-            fused_pool.round_offsets(key, rnd, 1, pool, n)[0].tolist(),
-            fused_imp.choice_round_keys(key, rnd, 1)[0].tolist())
+    keys = fused.round_keys(key, rnd, 2).tolist()
+    ckeys = fused_imp.choice_round_keys(key, rnd, 2).tolist()
+    return ((keys[0], fused_pool.round_offsets(key, rnd, 1, pool, n)[0].tolist(), ckeys[0]),
+            (keys[1], ckeys[1]))
 
 
 def imp_shard_buffers(state, rows_loc, shards, pushsum):
     """The run's operands of one round of every shard from the global
     ``state`` on the card (parallel/fused_imp_hbm_sharded.ShardRound each):
-    one mark plane, push-sum's global (s, w) in and out, and per shard its
-    own planes in and out and its u, acc and ctrl."""
+    the two mark planes, push-sum's global (s, w) in (a copy) and out, and
+    per shard its own planes in and out and its u, acc and ctrl."""
     import torch
 
     from cop5615_gossip_protocol_tpu_torch.parallel import fused_imp_hbm_sharded as ih
 
     dev, R = state[0].device, state[0].shape[0]
     n_glob = 2 if pushsum else 0
-    mark = torch.empty(R, 128, dtype=torch.int8, device=dev)
-    glob_in = tuple(state[:n_glob])
+    mark, nxt = torch.empty(2, R, 128, dtype=torch.int8, device=dev).unbind(0)
+    glob_in = tuple(x.clone() for x in state[:n_glob])
     glob_out = tuple(torch.empty_like(x) for x in glob_in)
     out = []
     for s in range(shards):
         own = tuple(p[s * rows_loc:(s + 1) * rows_loc].contiguous() for p in state[n_glob:])
         out.append(ih.ShardRound(
-            s * rows_loc, mark, glob_in, glob_out, own, tuple(torch.empty_like(x) for x in own),
+            s * rows_loc, mark, nxt, glob_in, glob_out, own,
+            tuple(torch.empty_like(x) for x in own),
             *(torch.zeros(k, dtype=torch.int32, device=dev) for k in (1, 2, 2))))
     return out
 
 
+def imp_shard_next(bufs):
+    """The operands of the round after ``bufs``' round, as the run's
+    ping/pong sets give them: the mark planes and the plane sets swapped
+    (its inputs are the round's outputs, its next marks overwrite the
+    round's input marks), the same u, acc and ctrl."""
+    return [sh._replace(mark=sh.next, next=sh.mark, glob_in=sh.glob_out,
+                        glob_out=sh.glob_in, own_in=sh.own_out, own_out=sh.own_in)
+            for sh in bufs]
+
+
+def imp_shard_state(bufs, pushsum):
+    """The global state [R, 128] planes a round of ``bufs`` wrote."""
+    import torch
+
+    own = [torch.cat([sh.own_out[p] for sh in bufs]) for p in range(len(bufs[0].own_out))]
+    return (tuple(bufs[0].glob_out) if pushsum else ()) + tuple(own)
+
+
 def imp_shard_checks(dev, key):
     """Phase 14d: each kernel of the sharded imp composition against its
-    plain version on the card, one round on every shard (the chunk
-    function of each shard: its mark launch over the ring, its absorb) at
+    plain version on the card, queued as the run queues them (every
+    shard's mark prologue, then every shard's absorb, which writes the next
+    round's marks from the stream drawn one round ahead), at
     IMP_SHARD_CASES from the initial, a mid-run and a converged state, and
-    at imp3d IMP_SHARD_BIG in 4 shards from the initial state; every shard's
-    planes and u bitwise. Returns the timed case's operands {name: ...}
-    and {name: max_abs_err}."""
+    at imp3d IMP_SHARD_BIG in 4 shards from the initial state: every
+    shard's planes and u and the next round's mark plane bitwise; then a
+    second round from the kernels' own state and next marks, as the first
+    round of the next chunk runs, against two plain rounds. Returns the
+    timed case's operands {name: ...} and {name: max_abs_err}."""
     import torch
 
     from cop5615_gossip_protocol_tpu_torch import SimConfig
     from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine, sharded_tier
     from cop5615_gossip_protocol_tpu_torch.parallel import fused_imp_hbm_sharded as ih
+
+    def bitwise(got, want):
+        return (torch.equal(got.view(torch.int32), want.view(torch.int32))
+                if got.dtype == torch.float32 else torch.equal(got, want))
 
     cases, max_err = {}, {}
     for kind, n, shards, pool in IMP_SHARD_CASES + (("imp3d", IMP_SHARD_BIG, 4, IMP_POOL),):
@@ -1935,9 +1994,7 @@ def imp_shard_checks(dev, key):
             H, rows_loc, PT, layout = ih.plan_imp_hbm_sharded(topo, cfg, shards)
             pushsum = algorithm == "push-sum"
             kw = ih.absorb_kw(topo, cfg)
-            make = (ih.make_pushsum_imp_hbm_shard_chunk if pushsum
-                    else ih.make_gossip_imp_hbm_shard_chunk)
-            fn = make(topo, cfg, H, rows_loc, PT, layout)
+            row_los = range(0, layout.rows, rows_loc)
             single = SimConfig(n=n, topology=kind, algorithm=algorithm, delivery="pool",
                                pool_size=pool)
             eng = fused_engine(topo, single, key, "imp_hbm")
@@ -1951,37 +2008,67 @@ def imp_shard_checks(dev, key):
                     raise AssertionError(f"{kind} n={n} {algorithm}: no mid-run state")
                 states += [("mid-run", mid, mid_round),
                            ("converged", done, mid_round + int(ex2))]
+
+            def plain_round(state, stream):
+                """One plain round of every shard: the global planes it
+                writes and every shard's u."""
+                out = ih.imp_hbm_shards_round_plain(state, stream, rows_loc, row_los,
+                                                    pushsum=pushsum, **kw)
+                planes = tuple(torch.cat([o[0][p] for o in out]) for p in range(len(state)))
+                return planes, [int(u) for _, u in out]
+
+            def check(label, bufs, want, want_u, want_next):
+                err = 0.0
+                got = imp_shard_state(bufs, pushsum)
+                for g, w in zip(got, want):
+                    if not bitwise(g, w):
+                        raise AssertionError(f"{kind} n={n} x{shards} {name} {label}: a "
+                                             "plane differs from plain")
+                    if g.dtype == torch.float32:
+                        if not torch.isfinite(g).all():
+                            raise AssertionError(f"{kind} n={n} {name}: not finite")
+                        err = max(err, (g - w).abs().max().item())
+                got_u = [int(sh.u) for sh in bufs]
+                if got_u != want_u:
+                    raise AssertionError(f"{kind} n={n} x{shards} {name} {label}: u {got_u}"
+                                         f" != plain {want_u}")
+                if not torch.equal(bufs[0].next, want_next):
+                    raise AssertionError(f"{kind} n={n} x{shards} {name} {label}: the next "
+                                         "round's marks differ from plain")
+                return err, sum(got_u)
+
             for label, state, rnd in states:
-                streams = imp_shard_streams(key, rnd, pool, topo.n)
-                err, total = 0.0, 0
-                plain = ih.imp_hbm_shards_round_plain(
-                    state, streams, rows_loc, range(0, layout.rows, rows_loc),
-                    pushsum=pushsum, **kw)
-                for s, (want, want_u) in enumerate(plain):
-                    out, u = fn(state, *streams, s * rows_loc)
-                    if int(u) != int(want_u):
-                        raise AssertionError(f"{kind} n={n} x{shards} {name} {label} shard "
-                                             f"{s}: u {int(u)} != plain {int(want_u)}")
-                    for got, exp in zip(out, want):
-                        same = (torch.equal(got.view(torch.int32), exp.view(torch.int32))
-                                if got.dtype == torch.float32 else torch.equal(got, exp))
-                        if not same:
-                            raise AssertionError(f"{kind} n={n} x{shards} {name} {label} "
-                                                 f"shard {s}: a plane differs from plain")
-                        if got.dtype == torch.float32:
-                            if not torch.isfinite(got).all():
-                                raise AssertionError(f"{kind} n={n} {name}: not finite")
-                            err = max(err, (got - exp).abs().max().item())
-                    total += int(u)
-                    del out, want
-                del plain
-                print(f"  {name} {label} (round {rnd}; H {H}, rows_loc {rows_loc}, PT {PT}):"
-                      f" every shard bitwise, converged {total}, max_abs_err {err}",
+                stream, nxt = imp_shard_streams(key, rnd, pool, topo.n)
+                stream2, nxt2 = imp_shard_streams(key, rnd + 1, pool, topo.n)
+                want, want_u = plain_round(state, stream)
+
+                def next_marks(planes, keys):
+                    return torch.cat([ih.shard_marks_plain(
+                        kw["spec"], *keys, pool, lo, rows_loc,
+                        None if pushsum else planes[1][lo:lo + rows_loc], dev)
+                        for lo in row_los])
+
+                bufs = imp_shard_buffers(state, rows_loc, shards, pushsum)
+                ih.mark_shards(bufs, stream[0], stream[2], rows_loc, pushsum=pushsum,
+                               spec=kw["spec"], pool_size=pool)
+                ih.launch_shard_rounds(bufs, stream, nxt, pushsum=pushsum, kw=kw)
+                err, total = check(label, bufs, want, want_u, next_marks(want, nxt))
+                # The next chunk's first round: no prologue, the marks the
+                # last round wrote from the stream drawn one round ahead.
+                want2, want2_u = plain_round(want, stream2)
+                bufs2 = imp_shard_next(bufs)
+                ih.launch_shard_rounds(bufs2, stream2, nxt2, pushsum=pushsum, kw=kw)
+                err2, _ = check(f"{label}, second round", bufs2, want2, want2_u,
+                                next_marks(want2, nxt2))
+                del bufs, bufs2, want, want2
+                print(f"  {name} {label} (round {rnd}, and {rnd + 1} from its next marks; "
+                      f"H {H}, rows_loc {rows_loc}, PT {PT}): every shard and the next "
+                      f"marks bitwise, converged {total}, max_abs_err {max(err, err2)}",
                       flush=True)
                 row = f"{name}_imp_hbm_sharded"
-                max_err[row] = max(max_err.get(row, 0.0), err)
+                max_err[row] = max(max_err.get(row, 0.0), err, err2)
                 if (kind, n, shards) == IMP_SHARD_TIMED and label == "mid-run":
-                    cases[row] = (state, streams, rows_loc, shards, kw, pushsum,
+                    cases[row] = (state, stream, nxt, rows_loc, shards, kw, pushsum,
                                   len(kw["spec"].classes), pool, layout)
             del states, eng
             torch.cuda.empty_cache()
@@ -2032,9 +2119,12 @@ def imp_shard_path(dev, single):
             "converged_count": res.converged_count, "estimate_mae": res.estimate_mae,
             "launches": counts, "device": res.device,
         }), flush=True)
-        if devices[0] != "cpu" and counts["mark"] * counts[name] == 0:
-            raise AssertionError(f"imp3d n={n} x{shards} {algorithm} never launched its "
-                                 "kernels")
+        # One absorb a shard a round queued (the chunks' rounds, a no-op
+        # once the run is done) and the mark prologue once a shard.
+        if devices[0] != "cpu" and (counts["mark"] != shards or counts[name] == 0
+                                    or counts[name] % shards):
+            raise AssertionError(f"imp3d n={n} x{shards} {algorithm} queued {counts}: not "
+                                 f"{shards} prologue launches and {shards} a round")
         if algorithm == "push-sum":
             err_w = abs(res.state.w.double().sum().item() - n) / n
             err_s = abs(res.state.s.double().sum().item() - n * (n - 1) / 2) / (
@@ -2065,6 +2155,30 @@ def imp_shard_path(dev, single):
               flush=True)
         launches[name] = counts["mark"] + counts[name]
         MAIN_ROUNDS[f"{name}_imp_hbm_shard_round"] = res.rounds
+        if name == "gossip":
+            # The verdict not deferred: round r + 1 no longer runs ahead of
+            # round r's verdict, and nothing may change.
+            ser, _ = drive(IMP_SHARD_RUN_N, algorithm, 4, [dev] * 4,
+                           overlap_collectives=False)
+            if (ser.rounds, ser.converged_count) != (rounds, count) or not same_state(
+                    ser.state, state):
+                raise AssertionError(f"imp3d {IMP_SHARD_RUN_N} x4 gossip, verdict not "
+                                     "deferred: not bitwise phase 8's run")
+            # A resume from the converged state: its prologue and rounds do
+            # nothing.
+            cfg = SimConfig(n=IMP_SHARD_RUN_N, topology="imp3d", algorithm=algorithm,
+                            delivery="pool", pool_size=IMP_POOL, engine="fused",
+                            n_devices=4)
+            again = run(imp_topology("imp3d", IMP_SHARD_RUN_N), cfg, devices=[dev] * 4,
+                        start_state=res.state, start_round=res.rounds)
+            if again.rounds != res.rounds or not again.converged or not same_state(
+                    again.state, state):
+                raise AssertionError(f"imp3d {IMP_SHARD_RUN_N} x4 gossip resumed from its "
+                                     f"converged state ran ({again.rounds} rounds)")
+            print(f"  gossip imp3d n={IMP_SHARD_RUN_N:,} x4, verdict not deferred: bitwise "
+                  f"the deferred run; resumed from its converged state: 0 rounds, state "
+                  f"unchanged", flush=True)
+            del ser, again
         del res
     imp_topology.cache_clear()
     for algorithm in ("gossip", "push-sum"):
@@ -2087,11 +2201,11 @@ def imp_shard_path(dev, single):
 
 def imp_shard_rows(dev, cases, launches, max_err):
     """Rows 18-19 of the kernels line: one round of every shard (each
-    shard's mark, then each shard's absorb, as the run queues it) at
-    IMP_SHARD_TIMED from the mid-run state by CUDA events, beside the plain
-    versions' time and the bound. With every shard on one card the wire
-    copies nothing, so the rows time none: ``--cards`` times it across
-    cards."""
+    shard's absorb, which writes the next round's marks, as the run queues
+    a round) at IMP_SHARD_TIMED from the mid-run state by CUDA events,
+    beside the plain versions' time and the bound. With every shard on one
+    card the wire copies nothing, so the rows time none: ``--cards`` times
+    it across cards."""
     from cop5615_gossip_protocol_tpu_torch.parallel import fused_imp_hbm_sharded as ih
 
     rows = []
@@ -2100,12 +2214,15 @@ def imp_shard_rows(dev, cases, launches, max_err):
     for name in ("pushsum", "gossip"):
         algo = "push-sum" if name == "pushsum" else "gossip"
         row = f"{name}_imp_hbm_sharded"
-        state, streams, rows_loc, shards, kw, pushsum, lattice, pool, layout = cases[row]
+        (state, stream, nxt, rows_loc, shards, kw, pushsum, lattice, pool,
+         layout) = cases[row]
         bufs = imp_shard_buffers(state, rows_loc, shards, pushsum)
-        ms, _ = time_ms(lambda: ih.launch_shard_rounds(bufs, streams, rows_loc,
-                                                       pushsum=pushsum, kw=kw), TIME_REPS)
+        ih.mark_shards(bufs, stream[0], stream[2], rows_loc, pushsum=pushsum,
+                       spec=kw["spec"], pool_size=pool)
+        ms, _ = time_ms(lambda: ih.launch_shard_rounds(bufs, stream, nxt, pushsum=pushsum,
+                                                       kw=kw), TIME_REPS)
         plain_ms, _ = time_ms(lambda: ih.imp_hbm_shards_round_plain(
-            state, streams, rows_loc, range(0, layout.rows, rows_loc), pushsum=pushsum,
+            state, stream, rows_loc, range(0, layout.rows, rows_loc), pushsum=pushsum,
             **kw), 2)
         n_pad = layout.n_pad
         # Each shard's state read and written once and the round's streams.
@@ -2575,6 +2692,17 @@ def main() -> int:
     rows += imp_shard_rows(dev, imp_shard_cases, imp_shard_launches, imp_shard_err)
     for row in rows:
         row["main_path_rounds"] = MAIN_ROUNDS.get(row["name"])
+    # The imp rows beside row 9 (the streaming lattice push-sum, the same
+    # bytes bound as row 13), all from this run.
+    us = {row["name"]: row["us_per_round"] for row in rows}
+    print(json.dumps({"metric": "imp_us_per_round", **{
+        name: us[name] for name in (
+            "pushsum_imp_chunk", "gossip_imp_chunk", "pushsum_imp_hbm_chunk",
+            "gossip_imp_hbm_chunk", "pushsum_imp_hbm_shard_round",
+            "gossip_imp_hbm_shard_round", "pushsum_stencil_hbm_chunk")},
+        "row13_over_row9": us["pushsum_imp_hbm_chunk"] / us["pushsum_stencil_hbm_chunk"],
+        "row18_over_row9": (us["pushsum_imp_hbm_shard_round"]
+                            / us["pushsum_stencil_hbm_chunk"])}), flush=True)
     print(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

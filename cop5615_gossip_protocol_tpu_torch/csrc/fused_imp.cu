@@ -6,13 +6,14 @@
 // make_gossip_imp_chunk (:467), and ops/fused_imp_hbm.py's
 // make_pushsum_imp_hbm_chunk (:478) and make_gossip_imp_hbm_chunk (:716).
 // The two pairs compute one function, split by the TPU's VMEM budget into
-// a resident and a streaming tier; here one pair of launches over ping/pong
+// a resident and a streaming tier; here one kernel pair over ping/pong
 // device planes computes it at any size. Each chunk runs K synchronous
 // rounds on the padded [rows, 128] pool layout:
 //
-//   class(i) = imp_class(i, threefry(k1, k2, i), pool slot of i in the
-//              packed word threefry(ck1, ck2, choice_counter(i)))
-//                                                       (csrc/imp.cuh)
+//   class(i) = the lattice class word(i) picks with threefry(k1, k2, i),
+//              or for its long-range slot L + its pool slot in the packed
+//              word threefry(ck1, ck2, choice_counter(i))
+//                                             (csrc/imp.cuh, imp_mark)
 //   inbox[j] = sum from 0.0 over the L lattice classes q in sorted order,
 //              then the P pool slots p, of send[i] * [class(i) == id],
 //              i = j - d mod n, (id, d) = (q, d_q) or (L + p, offs[p])
@@ -28,26 +29,49 @@
 // lie within +-g*g nodes of it and hit the L2, but each of the P pool
 // classes reads the marks and sends of a window a random distance away:
 // P more streams of the mark plane (and of s and w, for push-sum) that the
-// L2 serves only once per window. The arithmetic is two 20-round Threefry
-// hashes per 8 nodes' choice word and per node, the direction select and
-// one compare per class a node.
+// L2 serves only once per window. The arithmetic is a 20-round Threefry
+// hash per node, a second one for a node that draws its long-range slot,
+// the slot select and one compare per class a node.
 //
-// Design: as csrc/fused_stencil.cu, each round is a mark launch and an
-// absorb launch, with the init and finish launches of csrc/chunk.cuh:
-//   mark   - one thread per packed choice word (8 nodes of one lane, 128
-//            rows apart): hashes the choice word once for its 8 nodes and
-//            each node's slot word, and writes each node's class id (int8,
-//            -1 for no send; gossip skips inactive nodes);
-//   absorb - each receiver gathers, per class, the halved send of its
-//            class source whose mark is that class, from the round's
-//            current planes, and writes the absorbed state to the other.
-// The TPU kernels' class-column planes, doubled planes, windows and d/d+Z
-// blends exist because a TPU tile load needs a static shape; here the
-// lattice is arithmetic (csrc/stencil.cuh), a shifted read is a load at a
-// computed index, and the round's pool offsets go in by value, one launch
-// per round, from the host-drawn stream. Class ids, not displacements, key
-// the delivery, so a pool offset equal to a lattice displacement (or to
-// another slot's) delivers each send once.
+// Design: as csrc/fused_stencil.cu, a chunk is one launch a round after a
+// prologue, over ping/pong state planes A and B and two int8 mark planes,
+// mark[0] and mark[1], with the init and finish launches of
+// csrc/chunk.cuh:
+//   prologue - round 0's marks into mark[0] (-1 for no send; gossip only
+//              from active nodes);
+//   round j  - each receiver gathers, per class, the halved send of its
+//              class source whose mark in mark[j & 1] is that class,
+//              reading the round's current planes, and writes the absorbed
+//              state to the other planes and, unless j is the chunk's last
+//              round, its own round j + 1 mark into mark[(j + 1) & 1] (in
+//              gossip from the active flag it has just computed); the
+//              block counts converged nodes and the last block to finish
+//              latches the done flag and the executed-round count.
+// Round j writes the mark plane that round j - 1 read, and the launch
+// boundary between them orders the two. One thread a node, in a
+// grid-stride sweep: the packed choice word (shared by 8 nodes 128 rows
+// apart) is hashed only by a node whose slot comes out as the long-range
+// one. Hashing it once for its 8 nodes, in a thread that takes all 8, costs
+// the gossip round less but keeps 8 times the nodes in flight across the
+// grid, and the push-sum gathers lose more L2 hits than the hashes save
+// (scripts/imp_round_variants.py). A node's class is read through its
+// static directions word (ops/fused_imp.imp_dir_words, 4 bytes a node,
+// built on the card once per layout and device); deriving its live
+// lattice directions in the pass instead (divisions by the grid side, the
+// degree) measured slower (the same script). The class loops are
+// unrolled to the caps (csrc/imp.cuh), so the class lists stay in
+// registers and every class's mark load is in flight at once. Every launch
+// of a chunk runs on the round kernel's grid, as many blocks as the SMs
+// hold at once, asked once a device, with grid-stride loops; every launch
+// first reads the done flag and returns at once when it is set, so a chunk
+// of K rounds is K + 3 launches queued with no host sync. The TPU kernels'
+// class-column planes, doubled planes, windows and d/d+Z blends exist
+// because a TPU tile load needs a static shape; here the lattice is a
+// word, a shifted read is a load at a computed index, and the round's pool
+// offsets go in by value, one launch per round, from the host-drawn
+// stream. Class ids, not displacements, key the delivery, so a pool offset
+// equal to a lattice displacement (or to another slot's) delivers each
+// send once.
 //
 // Numerics: see csrc/chunk.cuh; the halve happens before the class sums,
 // which run from 0.0 in class order, as the chunked engine's
@@ -64,145 +88,122 @@ namespace {
 
 using gossip::Classes;
 using gossip::GossipPlanes;
+using gossip::ImpPool;
 using gossip::PushSumPlanes;
 using gossip::block_sum;
 using gossip::finish_count;
-using gossip::grid_for;
 using gossip::kBlock;
+using gossip::kChoiceLanes;
+using gossip::kChoicePack;
+using gossip::round_grid;
 
-constexpr int kMaxPool = 16;  // the packed-choice limit: 4 bits a node
-
-// The round's pool displacements, passed by value.
-struct Pool {
-  int count;
-  int d[kMaxPool];
+// The uint32 words of a device key pair; zeros when there is no key.
+struct KeyWords {
+  uint32_t a, b;
 };
 
-// Class ids of one round. `active_a`/`active_b` are the gossip active
-// planes (the current one by the round parity); push-sum passes nullptr
-// and every real node sends.
-__global__ void imp_mark(int8_t* mark, const int* __restrict__ active_a,
-                         const int* __restrict__ active_b,
-                         const long long* __restrict__ key,
-                         const long long* __restrict__ ckey, gossip::Lattice L,
-                         Classes lattice, int pool_size, int n_words,
-                         const int* __restrict__ ctrl) {
-  if (ctrl[0]) return;
-  const int* active = (ctrl[1] & 1) ? active_b : active_a;
-  const uint32_t k1 = (uint32_t)key[0], k2 = (uint32_t)key[1];
-  const uint32_t c1 = (uint32_t)ckey[0], c2 = (uint32_t)ckey[1];
-  for (int wi = blockIdx.x * kBlock + threadIdx.x; wi < n_words;
-       wi += gridDim.x * kBlock) {
-    const uint32_t cword = gossip::threefry_word(c1, c2, (uint32_t)wi);
-    const int base = (wi / gossip::kChoiceLanes) * gossip::kChoicePack *
-                         gossip::kChoiceLanes +
-                     wi % gossip::kChoiceLanes;
-    for (int sub = 0; sub < gossip::kChoicePack; ++sub) {
-      const int j = base + sub * gossip::kChoiceLanes;
-      int8_t m = -1;
-      if (j < L.n && (active == nullptr || active[j] != 0)) {
-        const uint32_t bits = gossip::threefry_word(k1, k2, (uint32_t)j);
-        m = (int8_t)gossip::imp_class(L, lattice, j, bits,
-                                      gossip::pool_slot(cword, sub, pool_size));
-      }
-      mark[j] = m;
-    }
-  }
+__device__ __forceinline__ KeyWords key_words(const long long* key) {
+  return key ? KeyWords{(uint32_t)key[0], (uint32_t)key[1]} : KeyWords{0u, 0u};
 }
 
-// Adds the halved send of class source i to (in_s, in_w) if its mark is
-// class `id`, else 0.0: the chunked engine's masked roll, term by term.
-__device__ __forceinline__ void gather_send(const PushSumPlanes& cur,
-                                            const int8_t* __restrict__ mark,
-                                            int i, int id, float& in_s,
-                                            float& in_w) {
-  float vs = 0.0f, vw = 0.0f;
-  if (mark[i] == id) {
-    vs = cur.s[i] * 0.5f;
-    vw = cur.w[i] * 0.5f;
-  }
-  in_s = in_s + vs;
-  in_w = in_w + vw;
+// Round 0's marks into mark[0] under the round's key and choice key;
+// `active` is the A planes' active flags (gossip) or null (push-sum: every
+// real node sends). A chunk of no rounds has no key and writes none.
+__global__ void imp_prologue(int8_t* mark, const int* active,
+                             const uint32_t* __restrict__ words,
+                             const long long* key, const long long* ckey,
+                             int n, int n_pad, int pool_size,
+                             int lattice_count, int rounds,
+                             const int* __restrict__ ctrl) {
+  if (ctrl[0] || rounds == 0) return;
+  const KeyWords k = key_words(key), c = key_words(ckey);
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock)
+    mark[j] = j < n && (active == nullptr || active[j] != 0)
+                  ? gossip::imp_mark(words[j], k.a, k.b, c.a, c.b, j,
+                                     pool_size, lattice_count)
+                  : (int8_t)-1;
 }
 
-__global__ void pushsum_absorb(PushSumPlanes a, PushSumPlanes b,
-                               const int8_t* __restrict__ mark,
-                               Classes lattice, Pool pool, int n, int n_pad,
-                               float delta, int term_rounds, int target,
-                               int* total, unsigned* ticket, int* ctrl) {
+// ---------------------------------------------------------------- push-sum
+
+// Round j: reads `cur` and `mark`, writes `nxt` and, unless it is null,
+// `next` (round j + 1's marks under `key` and `ckey`, that round's keys).
+__global__ void pushsum_round(PushSumPlanes cur, PushSumPlanes nxt,
+                              const int8_t* __restrict__ mark,
+                              int8_t* __restrict__ next, const long long* key,
+                              const long long* ckey,
+                              const uint32_t* __restrict__ words,
+                              Classes lattice, ImpPool pool, int n, int n_pad,
+                              float delta, int term_rounds, int target,
+                              int* total, unsigned* ticket, int* ctrl) {
   if (ctrl[0]) return;
-  const bool odd = ctrl[1] & 1;
-  const PushSumPlanes cur = odd ? b : a;
-  const PushSumPlanes nxt = odd ? a : b;
-  int c = 0;
+  const KeyWords k = key_words(next ? key : nullptr);
+  const KeyWords c = key_words(next ? ckey : nullptr);
+  int count = 0;
   for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
        j += gridDim.x * kBlock) {
     const bool pad = j >= n;
     float in_s = 0.0f, in_w = 0.0f;
-    if (!pad) {
-      // Unrolled to the caps, so the class lists stay in registers and
-      // every class's mark load is in flight at once.
-#pragma unroll
-      for (int q = 0; q < gossip::kMaxDirs; ++q)
-        if (q < lattice.count)
-          gather_send(cur, mark, gossip::class_source(j, lattice.d[q], n), q,
-                      in_s, in_w);
-#pragma unroll
-      for (int p = 0; p < kMaxPool; ++p)
-        if (p < pool.count)
-          gather_send(cur, mark, gossip::class_source(j, pool.d[p], n),
-                      lattice.count + p, in_s, in_w);
-    }
+    if (!pad)
+      gossip::imp_pushsum_inbox(lattice, pool, mark, cur.s, cur.w, j, n, in_s,
+                                in_w);
     // mark[j] < 0 on pad lanes: those keep their mass.
-    c += gossip::pushsum_absorb_node(cur, nxt, j, pad, mark[j] >= 0, in_s,
-                                     in_w, delta, term_rounds);
+    count += gossip::pushsum_absorb_node(cur, nxt, j, pad, mark[j] >= 0, in_s,
+                                         in_w, delta, term_rounds);
+    if (next)
+      next[j] = pad ? (int8_t)-1
+                    : gossip::imp_mark(words[j], k.a, k.b, c.a, c.b, j,
+                                       pool.count, lattice.count);
   }
-  finish_count(block_sum(c), total, ticket, ctrl, target, true);
+  finish_count(block_sum(count), total, ticket, ctrl, target, true);
 }
 
-__global__ void gossip_absorb(GossipPlanes a, GossipPlanes b,
-                              const int8_t* __restrict__ mark,
-                              Classes lattice, Pool pool, int n, int n_pad,
-                              int rumor_target, int suppress, int target,
-                              int* total, unsigned* ticket, int* ctrl) {
+// ------------------------------------------------------------------ gossip
+
+__global__ void gossip_round(GossipPlanes cur, GossipPlanes nxt,
+                             const int8_t* __restrict__ mark,
+                             int8_t* __restrict__ next, const long long* key,
+                             const long long* ckey,
+                             const uint32_t* __restrict__ words,
+                             Classes lattice, ImpPool pool, int n, int n_pad,
+                             int rumor_target, int suppress, int target,
+                             int* total, unsigned* ticket, int* ctrl) {
   if (ctrl[0]) return;
-  const bool odd = ctrl[1] & 1;
-  const GossipPlanes cur = odd ? b : a;
-  const GossipPlanes nxt = odd ? a : b;
-  int c = 0;
+  const KeyWords k = key_words(next ? key : nullptr);
+  const KeyWords c = key_words(next ? ckey : nullptr);
+  int count = 0;
   for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
        j += gridDim.x * kBlock) {
     const bool pad = j >= n;
-    int inbox = 0;
-    if (!pad) {
-#pragma unroll
-      for (int q = 0; q < gossip::kMaxDirs; ++q)
-        if (q < lattice.count)
-          inbox += mark[gossip::class_source(j, lattice.d[q], n)] == q ? 1 : 0;
-#pragma unroll
-      for (int p = 0; p < kMaxPool; ++p)
-        if (p < pool.count)
-          inbox += mark[gossip::class_source(j, pool.d[p], n)] ==
-                           lattice.count + p
-                       ? 1
-                       : 0;
-    }
-    c += gossip::gossip_absorb_node(cur, nxt, j, pad, inbox, rumor_target,
-                                    suppress);
+    const int inbox =
+        pad ? 0 : gossip::imp_gossip_inbox(lattice, pool, mark, j, n);
+    int cnt, act;
+    const int cv = gossip::gossip_absorb(
+        [&] { return cur.conv[j] != 0; }, [&] { return cur.count[j]; },
+        [&] { return cur.active[j]; }, pad, inbox, rumor_target, suppress, cnt,
+        act);
+    nxt.count[j] = cnt;
+    nxt.active[j] = act;
+    nxt.conv[j] = cv;
+    if (next)
+      next[j] = !pad && act ? gossip::imp_mark(words[j], k.a, k.b, c.a, c.b, j,
+                                               pool.count, lattice.count)
+                            : (int8_t)-1;
+    count += cv;
   }
-  finish_count(block_sum(c), total, ticket, ctrl, target, true);
+  finish_count(block_sum(count), total, ticket, ctrl, target, true);
 }
 
-// Lattice and lattice classes from the C arguments; false if they are out
-// of range for the kernels.
-bool setup(int kind, int n, int n_pad, const int* classes, int n_classes,
-           int pool_size, gossip::Lattice* L, Classes* lattice) {
-  if ((kind != gossip::kGrid2d && kind != gossip::kGrid3d) || n < 2 ||
-      n > n_pad || n_pad % (gossip::kChoicePack * gossip::kChoiceLanes) != 0 ||
-      n_classes < 1 || n_classes > gossip::kMaxDirs || pool_size < 2 ||
-      pool_size > kMaxPool || (pool_size & (pool_size - 1)) != 0)
+// Lattice classes from the C arguments; false if they are out of range for
+// the kernels.
+bool setup(int n, int n_pad, const int* classes, int n_classes, int pool_size,
+           int rounds, Classes* lattice) {
+  if (n < 2 || n > n_pad || rounds < 0 ||
+      n_pad % (kChoicePack * kChoiceLanes) != 0 || n_classes < 1 ||
+      n_classes > gossip::kMaxDirs || pool_size < 2 ||
+      pool_size > gossip::kMaxImpPool || (pool_size & (pool_size - 1)) != 0)
     return false;
-  *L = gossip::make_lattice(kind, n, 0);
   lattice->count = n_classes;
   for (int k = 0; k < gossip::kMaxClasses; ++k)
     lattice->d[k] = k < n_classes ? classes[k] : 0;
@@ -213,120 +214,152 @@ bool setup(int kind, int n, int n_pad, const int* classes, int n_classes,
 
 // Round r's pool from the host stream `offs` [rounds, pool_size]; false if
 // an offset is outside [1, n-1].
-bool round_pool(const int* offs, int r, int pool_size, int n, Pool* pool) {
+bool round_pool(const int* offs, int r, int pool_size, int n, ImpPool* pool) {
   pool->count = pool_size;
-  for (int p = 0; p < kMaxPool; ++p) {
+  for (int p = 0; p < gossip::kMaxImpPool; ++p) {
     pool->d[p] = p < pool_size ? offs[r * pool_size + p] : 0;
     if (p < pool_size && (pool->d[p] < 1 || pool->d[p] >= n)) return false;
   }
   return true;
 }
 
+bool valid_pools(const int* offs, int rounds, int pool_size, int n) {
+  ImpPool pool;
+  for (int r = 0; r < rounds; ++r)
+    if (!round_pool(offs, r, pool_size, n, &pool)) return false;
+  return true;
+}
+
+// Round r's planes and marks: it reads plane set r % 2 (A first) and
+// mark[r % 2], writes the other set and round r + 1's marks into
+// mark[(r + 1) % 2], none after the chunk's last round.
+template <typename Planes>
+void round_buffers(const Planes& a, const Planes& b, int8_t* mark, int n_pad,
+                   int r, int rounds, Planes* cur, Planes* nxt, int8_t** mk,
+                   int8_t** next) {
+  *cur = (r & 1) ? b : a;
+  *nxt = (r & 1) ? a : b;
+  *mk = mark + (r & 1) * n_pad;
+  *next = r + 1 < rounds ? mark + ((r + 1) & 1) * n_pad : nullptr;
+}
+
+int pushsum_grid_cache[64];
+int gossip_grid_cache[64];
+
+// Zeroes a chunk's control words: ctrl (int32[2]) and the 8 * (rounds + 2)
+// bytes of scratch behind it, in one memset.
+cudaError_t zero_control(int* ctrl, int rounds, cudaStream_t stream) {
+  return cudaMemsetAsync(ctrl, 0, 8 * ((size_t)rounds + 3), stream);
+}
+
 }  // namespace
 
 // ------------------------------------------------------------- C interface
 //
-// Both entry points queue the init launch, two launches per round and the
-// finish launch on `stream` of CUDA device `device`, and return the first
-// launch error (a cudaError_t), 0 if none. Outputs and scratch are
-// allocated by the caller: the A planes receive the result, the B planes
-// are the other half of the ping/pong pair; mark is int8[n_pad]; ctrl and
-// scratch as csrc/chunk.cuh says. `keys` and `ckeys` are device arrays of
-// the per-round key pairs; `offs` ([rounds, pool_size]) and `classes` (the
-// n_classes sorted lattice classes) are host arrays, read here.
+// Both entry points zero the control words and queue the init launch, the
+// prologue, one launch a round and the finish launch on `stream` of CUDA
+// device `device`, and return the first error (a cudaError_t), 0 if none.
+// Outputs and control words are allocated by the caller: the A planes
+// receive the result, the B planes are the other half of the ping/pong
+// pair; mark is int8[2 * n_pad]; words is uint32[n_pad], every slot's
+// directions word (ops/fused_imp.imp_dir_words); ctrl holds int32[2]
+// (done, rounds executed), then 8 * (rounds + 2) bytes of scratch, of which
+// the per-round totals and then the tickets (int32[rounds + 1] each) are
+// used. `keys` and `ckeys` are device arrays of the per-round key pairs;
+// `offs` ([rounds, pool_size]) and `classes` (the n_classes sorted lattice
+// classes) are host arrays, read here.
 
 extern "C" int gossip_pushsum_imp_chunk(
     const float* s0, const float* w0, const int* t0, const int* c0, float* s,
     float* w, int* term, int* conv, float* s_b, float* w_b, int* term_b,
     int* conv_b, int8_t* mark, const long long* keys, const long long* ckeys,
-    const int* offs, int* ctrl, int* scratch, const int* classes,
-    int n_classes, int kind, int n, int n_pad, int rounds, int pool_size,
-    float delta, int term_rounds, int target, int device, void* stream_ptr) {
-  gossip::Lattice L;
+    const uint32_t* words, const int* offs, int* ctrl, const int* classes,
+    int n_classes, int n, int n_pad, int rounds, int pool_size, float delta,
+    int term_rounds, int target, int device, void* stream_ptr) {
   Classes lattice;
-  Pool pool;
-  if (!setup(kind, n, n_pad, classes, n_classes, pool_size, &L, &lattice))
+  if (!setup(n, n_pad, classes, n_classes, pool_size, rounds, &lattice) ||
+      !valid_pools(offs, rounds, pool_size, n))
     return (int)cudaErrorInvalidValue;
-  for (int r = 0; r < rounds; ++r)
-    if (!round_pool(offs, r, pool_size, n, &pool))
-      return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int* totals = scratch;
-  unsigned* tickets = (unsigned*)(scratch + rounds + 1);
-  const int n_words = n_pad / gossip::kChoicePack;
+  int* totals = ctrl + 2;
+  unsigned* tickets = (unsigned*)(totals + rounds + 1);
   const PushSumPlanes a{s, w, term, conv};
   const PushSumPlanes b{s_b, w_b, term_b, conv_b};
-  const int grid_init = grid_for(gossip::pushsum_init, n_pad, device);
-  const int grid_mark = grid_for(imp_mark, n_words, device);
-  const int grid_absorb = grid_for(pushsum_absorb, n_pad, device);
-  const int grid_finish = grid_for(gossip::pushsum_finish, n_pad, device);
-  gossip::pushsum_init<<<grid_init, kBlock, 0, stream>>>(
+  // Every launch of the chunk on the round kernel's grid, whose capacity
+  // is asked once a device.
+  const int grid = round_grid(pushsum_round, n_pad, device, pushsum_grid_cache);
+  err = zero_control(ctrl, rounds, stream);
+  if (err != cudaSuccess) return (int)err;
+  gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
       s0, w0, t0, c0, a, n_pad, totals + rounds, tickets + rounds, ctrl,
       target);
   err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  imp_prologue<<<grid, kBlock, 0, stream>>>(mark, nullptr, words, keys, ckeys,
+                                            n, n_pad, pool_size, n_classes,
+                                            rounds, ctrl);
+  err = cudaGetLastError();
   for (int r = 0; r < rounds && err == cudaSuccess; ++r) {
+    ImpPool pool;
     round_pool(offs, r, pool_size, n, &pool);
-    imp_mark<<<grid_mark, kBlock, 0, stream>>>(
-        mark, nullptr, nullptr, keys + 2 * r, ckeys + 2 * r, L, lattice,
-        pool_size, n_words, ctrl);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) break;
-    pushsum_absorb<<<grid_absorb, kBlock, 0, stream>>>(
-        a, b, mark, lattice, pool, n, n_pad, delta, term_rounds, target,
-        totals + r, tickets + r, ctrl);
+    PushSumPlanes cur, nxt;
+    int8_t *mk, *next;
+    round_buffers(a, b, mark, n_pad, r, rounds, &cur, &nxt, &mk, &next);
+    pushsum_round<<<grid, kBlock, 0, stream>>>(
+        cur, nxt, mk, next, keys + 2 * (r + 1), ckeys + 2 * (r + 1), words,
+        lattice, pool, n, n_pad, delta, term_rounds, target, totals + r,
+        tickets + r, ctrl);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return (int)err;
-  gossip::pushsum_finish<<<grid_finish, kBlock, 0, stream>>>(a, b, n_pad,
-                                                             ctrl);
+  gossip::pushsum_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
   return (int)cudaGetLastError();
 }
 
 extern "C" int gossip_gossip_imp_chunk(
     const int* n0, const int* a0, const int* c0, int* count, int* active,
     int* conv, int* count_b, int* active_b, int* conv_b, int8_t* mark,
-    const long long* keys, const long long* ckeys, const int* offs, int* ctrl,
-    int* scratch, const int* classes, int n_classes, int kind, int n,
+    const long long* keys, const long long* ckeys, const uint32_t* words,
+    const int* offs, int* ctrl, const int* classes, int n_classes, int n,
     int n_pad, int rounds, int pool_size, int rumor_target, int suppress,
     int target, int device, void* stream_ptr) {
-  gossip::Lattice L;
   Classes lattice;
-  Pool pool;
-  if (!setup(kind, n, n_pad, classes, n_classes, pool_size, &L, &lattice))
+  if (!setup(n, n_pad, classes, n_classes, pool_size, rounds, &lattice) ||
+      !valid_pools(offs, rounds, pool_size, n))
     return (int)cudaErrorInvalidValue;
-  for (int r = 0; r < rounds; ++r)
-    if (!round_pool(offs, r, pool_size, n, &pool))
-      return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int* totals = scratch;
-  unsigned* tickets = (unsigned*)(scratch + rounds + 1);
-  const int n_words = n_pad / gossip::kChoicePack;
+  int* totals = ctrl + 2;
+  unsigned* tickets = (unsigned*)(totals + rounds + 1);
   const GossipPlanes a{count, active, conv};
   const GossipPlanes b{count_b, active_b, conv_b};
-  const int grid_init = grid_for(gossip::gossip_init, n_pad, device);
-  const int grid_mark = grid_for(imp_mark, n_words, device);
-  const int grid_absorb = grid_for(gossip_absorb, n_pad, device);
-  const int grid_finish = grid_for(gossip::gossip_finish, n_pad, device);
-  gossip::gossip_init<<<grid_init, kBlock, 0, stream>>>(
+  const int grid = round_grid(gossip_round, n_pad, device, gossip_grid_cache);
+  err = zero_control(ctrl, rounds, stream);
+  if (err != cudaSuccess) return (int)err;
+  gossip::gossip_init<<<grid, kBlock, 0, stream>>>(
       n0, a0, c0, a, n_pad, totals + rounds, tickets + rounds, ctrl, target);
   err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  imp_prologue<<<grid, kBlock, 0, stream>>>(mark, active, words, keys, ckeys,
+                                            n, n_pad, pool_size, n_classes,
+                                            rounds, ctrl);
+  err = cudaGetLastError();
   for (int r = 0; r < rounds && err == cudaSuccess; ++r) {
+    ImpPool pool;
     round_pool(offs, r, pool_size, n, &pool);
-    imp_mark<<<grid_mark, kBlock, 0, stream>>>(
-        mark, active, active_b, keys + 2 * r, ckeys + 2 * r, L, lattice,
-        pool_size, n_words, ctrl);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) break;
-    gossip_absorb<<<grid_absorb, kBlock, 0, stream>>>(
-        a, b, mark, lattice, pool, n, n_pad, rumor_target, suppress, target,
-        totals + r, tickets + r, ctrl);
+    GossipPlanes cur, nxt;
+    int8_t *mk, *next;
+    round_buffers(a, b, mark, n_pad, r, rounds, &cur, &nxt, &mk, &next);
+    gossip_round<<<grid, kBlock, 0, stream>>>(
+        cur, nxt, mk, next, keys + 2 * (r + 1), ckeys + 2 * (r + 1), words,
+        lattice, pool, n, n_pad, rumor_target, suppress, target, totals + r,
+        tickets + r, ctrl);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return (int)err;
-  gossip::gossip_finish<<<grid_finish, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
+  gossip::gossip_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
   return (int)cudaGetLastError();
 }

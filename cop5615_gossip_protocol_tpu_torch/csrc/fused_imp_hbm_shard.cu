@@ -1,5 +1,6 @@
-// One round of the imp x HBM x sharded composition over one shard, the mark
-// and the absorb of push-sum and gossip, for Hopper (sm_90a).
+// One round of the imp x HBM x sharded composition over one shard, the
+// absorb of push-sum and gossip with the next round's marks, and the mark
+// prologue, for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of the JAX package's
 // parallel/fused_imp_hbm_sharded.py: make_pushsum_imp_hbm_shard_chunk
@@ -8,8 +9,10 @@
 // [R, 128] planes; a round advances them by one round of the single-device
 // imp trajectory (csrc/fused_imp.cu):
 //
-//   class(i) = imp_class(i, threefry(k1, k2, i), pool slot of i in the
-//              packed word threefry(c1, c2, choice_counter(i)))
+//   class(i) = the lattice class word(i) picks with threefry(k1, k2, i),
+//              or for its long-range slot L + its pool slot in the packed
+//              word threefry(c1, c2, choice_counter(i))
+//                                             (csrc/imp.cuh, imp_mark)
 //   inbox[j] = sum from 0.0 over the L lattice classes q in sorted order,
 //              then the P pool slots p, of send[i] * [class(i) == id],
 //              i = j - d mod n, (id, d) = (q, d_q) or (L + p, offs[p])
@@ -20,31 +23,37 @@
 // The TPU kernel streams a halo-extended shard through VMEM tiles and
 // regenerates, inside every tile, the marks of each lattice window and each
 // pool window it fetches, because a tile load needs a static window. Here
-// the round is two launches a shard:
-//   mark   - one thread per packed choice word meeting the shard's rows
-//            (8 nodes of one lane, 128 rows apart): one choice hash for its
-//            8 nodes and a slot hash per node; writes the class id (int8,
-//            -1 for no send; gossip skips inactive nodes) of the shard's
-//            own nodes into its device's global mark plane;
-//   absorb - after the wire has copied every shard's marks (and push-sum's
-//            s and w) into the device's global copy (parallel/halo.py),
-//            one thread per receiver of the shard's rows gathers, per
-//            class, the send of its class source from that copy and writes
-//            the shard's next planes (ping/pong sets chosen by the host).
-// So no halo exists and each node's mark is computed once a round. The
-// launch writes u, the shard's converged count, to a device slot; the
-// verdict (csrc/fused_pool2_shard.cu, gossip_pool2_shard_verdict) sums the
-// slots into the run's done flag and round counter, and every launch
-// returns at once once that flag is set.
+// each device keeps two global int8 mark planes, by round parity, and a
+// round is one launch a shard:
+//   absorb - after the wire has copied every shard's round-r marks (and
+//            push-sum's s and w) into the device's global copies
+//            (parallel/halo.py), one thread per receiver of the shard's
+//            rows gathers, per class, the send of its class source whose
+//            mark in mark[r % 2] is that class, writes the shard's next
+//            planes (ping/pong sets chosen by the host) and its own round
+//            r + 1 mark into mark[(r + 1) % 2] (gossip from the active flag
+//            it has just computed; the choice word hashed only for the
+//            long-range slot, as in csrc/fused_imp.cu);
+//   prologue - a mark launch a shard writes round r's marks into mark[r %
+//            2], only where a run starts or resumes.
+// So no halo exists and each node's mark is computed once a round. Round
+// r + 1 reads mark[(r + 1) % 2] and the plane set round r wrote, and
+// writes only mark[r % 2] and round r's input set, so a deferred verdict
+// that stops the run after round r finds round r's output whole. The launch
+// writes u, the shard's converged count, to a device slot; the verdict
+// (csrc/fused_pool2_shard.cu, gossip_pool2_shard_verdict) sums the slots
+// into the run's done flag and round counter, and every launch returns at
+// once once that flag is set.
 //
 // What bounds it on this card: memory traffic. A round over a shard reads
 // and writes its state once (push-sum 16 bytes a node each way, gossip 12),
-// writes its marks (1 byte a node) and reads, per class, a source's mark
-// and, for push-sum, its s and w: the lattice sources lie within +-g*g
-// nodes and hit the L2, but each pool class reads a window a random
-// distance away, P more streams of the mark plane (and of s and w). The
-// arithmetic is two 20-round Threefry hashes per 8 nodes' choice word and
-// per node, the direction select and one compare per class a node.
+// reads its directions words (4 bytes a node) and writes its next marks (1
+// byte a node), and reads, per class, a source's mark and, for push-sum,
+// its s and w: the lattice sources lie within +-g*g nodes and hit the L2,
+// but each pool class reads a window a random distance away, P more
+// streams of the mark plane (and of s and w). The arithmetic is a 20-round
+// Threefry hash per node, a second one for a node that draws its
+// long-range slot, the slot select and one compare per class a node.
 //
 // Numerics: see csrc/chunk.cuh; the halve happens before the class sums,
 // which run from 0.0 in class order, as in csrc/fused_imp.cu, so push-sum
@@ -66,35 +75,38 @@ using gossip::block_sum;
 using gossip::finish_shard_count;
 using gossip::kBlock;
 using gossip::kChoiceLanes;
-using gossip::kChoicePack;
 using gossip::round_grid;
 
-// Class ids of the shard's rows [row_lo, row_hi) this round. `active` is
-// the shard's gossip active plane (local rows); push-sum passes nullptr and
-// every real node sends.
-__global__ void imp_shard_mark(int8_t* mark, const int* __restrict__ active,
-                               uint32_t k1, uint32_t k2, uint32_t c1,
-                               uint32_t c2, gossip::Lattice L, Classes lattice,
-                               int pool_size, int row_lo, int row_hi,
-                               const int* __restrict__ ctrl) {
+// The marks a launch writes for the shard's rows: a global int8 plane, the
+// global directions words and the round's key and choice key.
+struct MarkOut {
+  int8_t* mark;
+  const uint32_t* words;
+  uint32_t k1, k2, c1, c2;
+  int pool_size;
+};
+
+// Node j's mark into `out`: -1 on a pad lane or when it does not send.
+__device__ __forceinline__ void write_mark(const MarkOut& out, int j, bool sends,
+                                           int lattice_count) {
+  out.mark[j] = sends ? gossip::imp_mark(out.words[j], out.k1, out.k2, out.c1,
+                                         out.c2, j, out.pool_size, lattice_count)
+                      : (int8_t)-1;
+}
+
+// Round marks of the shard's rows [row_lo, row_lo + rows) into `out`.
+// `active` is the shard's gossip active plane (local rows); push-sum passes
+// nullptr and every real node sends.
+__global__ void imp_shard_prologue(MarkOut out, const int* __restrict__ active,
+                                   int lattice_count, int n, int row_lo,
+                                   int count, const int* __restrict__ ctrl) {
   if (ctrl[0]) return;
-  const int w_end = gossip::end_word(row_hi);
-  for (int wi = gossip::first_word(row_lo) + blockIdx.x * kBlock + threadIdx.x;
-       wi < w_end; wi += gridDim.x * kBlock) {
-    const uint32_t cword = gossip::threefry_word(c1, c2, (uint32_t)wi);
-    for (int sub = 0; sub < kChoicePack; ++sub) {
-      const int row = gossip::word_row(wi, sub);
-      if (row < row_lo || row >= row_hi) continue;
-      const int j = gossip::word_node(wi, sub);
-      int8_t m = -1;
-      if (j < L.n && (active == nullptr || active[j - row_lo * kChoiceLanes] != 0)) {
-        const uint32_t bits = gossip::threefry_word(k1, k2, (uint32_t)j);
-        m = (int8_t)gossip::imp_class(L, lattice, j, bits,
-                                      gossip::pool_slot(cword, sub, pool_size));
-      }
-      mark[j] = m;
-    }
-  }
+  const int base = row_lo * kChoiceLanes;
+  for (int l = blockIdx.x * kBlock + threadIdx.x; l < count;
+       l += gridDim.x * kBlock)
+    write_mark(out, base + l,
+               base + l < n && (active == nullptr || active[l] != 0),
+               lattice_count);
 }
 
 // The shard's operands of one absorb, passed by value.
@@ -108,13 +120,14 @@ struct ShardAbsorb {
 };
 
 // s_in/w_in and s_out/w_out are the device's global planes (flat index j),
-// t_*/c_* the shard's own (local index l = j - row_lo * 128).
+// t_*/c_* the shard's own (local index l = j - row_lo * 128); reads `mark`,
+// writes the next round's marks through `next`.
 __global__ void pushsum_imp_shard_absorb(
     const float* __restrict__ s_in, const float* __restrict__ w_in,
     float* __restrict__ s_out, float* __restrict__ w_out,
     const int* __restrict__ t_in, const int* __restrict__ c_in,
     int* __restrict__ t_out, int* __restrict__ c_out,
-    const int8_t* __restrict__ mark, ShardAbsorb p, float delta,
+    const int8_t* __restrict__ mark, MarkOut next, ShardAbsorb p, float delta,
     int term_rounds) {
   if (p.ctrl[0]) return;
   const int base = p.row_lo * kChoiceLanes;
@@ -137,6 +150,7 @@ __global__ void pushsum_imp_shard_absorb(
     w_out[j] = w_new;
     t_out[l] = t_new;
     c_out[l] = cv;
+    write_mark(next, j, !pad, p.lattice.count);
     c += cv;
   }
   finish_shard_count(block_sum(c), p.acc, p.u);
@@ -147,8 +161,8 @@ __global__ void gossip_imp_shard_absorb(
     const int* __restrict__ n_in, const int* __restrict__ a_in,
     const int* __restrict__ c_in, int* __restrict__ n_out,
     int* __restrict__ a_out, int* __restrict__ c_out,
-    const int8_t* __restrict__ mark, ShardAbsorb p, int rumor_target,
-    int suppress) {
+    const int8_t* __restrict__ mark, MarkOut next, ShardAbsorb p,
+    int rumor_target, int suppress) {
   if (p.ctrl[0]) return;
   const int base = p.row_lo * kChoiceLanes;
   int c = 0;
@@ -165,6 +179,7 @@ __global__ void gossip_imp_shard_absorb(
     n_out[l] = cnt;
     a_out[l] = act;
     c_out[l] = cv;
+    write_mark(next, j, !pad && act, p.lattice.count);
     c += cv;
   }
   finish_shard_count(block_sum(c), p.acc, p.u);
@@ -181,17 +196,26 @@ bool lattice_classes(const int* classes, int n_classes, int n, Classes* lattice)
   return true;
 }
 
-bool valid_pool_size(int pool_size) {
-  return pool_size >= 2 && pool_size <= gossip::kMaxImpPool &&
-         (pool_size & (pool_size - 1)) == 0;
+bool valid_rows(int n, int row_lo, int rows) {
+  return n >= 2 && row_lo >= 0 && rows >= 1 &&
+         (long long)(row_lo + rows) * kChoiceLanes < (1LL << 31);
+}
+
+// The marks' operands from the C arguments; false if out of range.
+bool make_marks(int8_t* mark, const uint32_t* words, unsigned k1, unsigned k2,
+                unsigned c1, unsigned c2, int pool_size, MarkOut* out) {
+  if (pool_size < 2 || pool_size > gossip::kMaxImpPool ||
+      (pool_size & (pool_size - 1)) != 0)
+    return false;
+  *out = MarkOut{mark, words, k1, k2, c1, c2, pool_size};
+  return true;
 }
 
 // The absorb operands from the C arguments; false if out of range.
 bool make_absorb(const int* classes, int n_classes, const int* offs,
                  int pool_size, int n, int row_lo, int rows_loc, int* u,
                  int* acc, const int* ctrl, ShardAbsorb* p) {
-  if (n < 2 || row_lo < 0 || rows_loc < 1 || !valid_pool_size(pool_size) ||
-      (long long)(row_lo + rows_loc) * kChoiceLanes >= (1LL << 31) ||
+  if (!valid_rows(n, row_lo, rows_loc) ||
       !lattice_classes(classes, n_classes, n, &p->lattice))
     return false;
   p->pool.count = pool_size;
@@ -213,74 +237,81 @@ bool make_absorb(const int* classes, int n_classes, const int* offs,
 // ------------------------------------------------------------- C interface
 //
 // Each entry point queues one launch on `stream` of CUDA device `device`
-// and returns its launch error (a cudaError_t), 0 if none. `mark` is the
-// device's global int8 [R * 128] mark plane; global planes are [R * 128],
-// a shard's own [rows_loc * 128]. `classes` (the n_classes sorted lattice
+// and returns its launch error (a cudaError_t), 0 if none. `mark` and
+// `next` are the device's global int8 [R * 128] mark planes of this round
+// and of the next; `words` its global uint32 [R * 128] directions words
+// (ops/fused_imp.imp_dir_words); other global planes are [R * 128], a
+// shard's own [rows_loc * 128]. (k1, k2, c1, c2) are the key and choice
+// key of the round whose marks the launch writes: the prologue's own
+// round, an absorb's next round. `classes` (the n_classes sorted lattice
 // classes) and `offs` (the round's pool_size displacements) are host
 // arrays, read here. u is int32[1], acc int32[2] zeroed once, ctrl the
 // run's int32[2] (done, rounds) on this device.
 
 extern "C" int gossip_imp_hbm_shard_mark(
-    int8_t* mark, const int* active, unsigned k1, unsigned k2, unsigned c1,
-    unsigned c2, const int* classes, int n_classes, int kind, int n,
-    int pool_size, int row_lo, int rows, const int* ctrl, int device,
-    void* stream_ptr) {
+    int8_t* mark, const int* active, const uint32_t* words, unsigned k1,
+    unsigned k2, unsigned c1, unsigned c2, int n_classes, int n, int pool_size,
+    int row_lo, int rows, const int* ctrl, int device, void* stream_ptr) {
   static int grid_cache[64];
-  Classes lattice;
-  if ((kind != gossip::kGrid2d && kind != gossip::kGrid3d) || n < 2 ||
-      row_lo < 0 || rows < 1 ||
-      (long long)(row_lo + rows) * kChoiceLanes >= (1LL << 31) ||
-      !valid_pool_size(pool_size) ||
-      !lattice_classes(classes, n_classes, n, &lattice))
+  MarkOut out;
+  if (!valid_rows(n, row_lo, rows) || n_classes < 1 ||
+      n_classes > gossip::kMaxDirs ||
+      !make_marks(mark, words, k1, k2, c1, c2, pool_size, &out))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const gossip::Lattice L = gossip::make_lattice(kind, n, 0);
-  const int words =
-      gossip::end_word(row_lo + rows) - gossip::first_word(row_lo);
-  const int grid = round_grid(imp_shard_mark, words, device, grid_cache);
-  imp_shard_mark<<<grid, kBlock, 0, (cudaStream_t)stream_ptr>>>(
-      mark, active, k1, k2, c1, c2, L, lattice, pool_size, row_lo,
-      row_lo + rows, ctrl);
+  const int grid =
+      round_grid(imp_shard_prologue, rows * kChoiceLanes, device, grid_cache);
+  imp_shard_prologue<<<grid, kBlock, 0, (cudaStream_t)stream_ptr>>>(
+      out, active, n_classes, n, row_lo, rows * kChoiceLanes, ctrl);
   return (int)cudaGetLastError();
 }
 
 extern "C" int gossip_pushsum_imp_hbm_shard_absorb(
     const float* s_in, const float* w_in, float* s_out, float* w_out,
     const int* t_in, const int* c_in, int* t_out, int* c_out,
-    const int8_t* mark, const int* classes, int n_classes, const int* offs,
-    int pool_size, int n, int row_lo, int rows_loc, float delta,
-    int term_rounds, int* u, int* acc, const int* ctrl, int device,
-    void* stream_ptr) {
+    const int8_t* mark, int8_t* next, const uint32_t* words, unsigned k1,
+    unsigned k2, unsigned c1, unsigned c2, const int* classes, int n_classes,
+    const int* offs, int pool_size, int n, int row_lo, int rows_loc,
+    float delta, int term_rounds, int* u, int* acc, const int* ctrl,
+    int device, void* stream_ptr) {
   static int grid_cache[64];
   ShardAbsorb p;
+  MarkOut out;
   if (!make_absorb(classes, n_classes, offs, pool_size, n, row_lo, rows_loc, u,
-                   acc, ctrl, &p))
+                   acc, ctrl, &p) ||
+      !make_marks(next, words, k1, k2, c1, c2, pool_size, &out))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int grid = round_grid(pushsum_imp_shard_absorb, p.count, device, grid_cache);
+  const int grid =
+      round_grid(pushsum_imp_shard_absorb, p.count, device, grid_cache);
   pushsum_imp_shard_absorb<<<grid, kBlock, 0, (cudaStream_t)stream_ptr>>>(
-      s_in, w_in, s_out, w_out, t_in, c_in, t_out, c_out, mark, p, delta,
+      s_in, w_in, s_out, w_out, t_in, c_in, t_out, c_out, mark, out, p, delta,
       term_rounds);
   return (int)cudaGetLastError();
 }
 
 extern "C" int gossip_gossip_imp_hbm_shard_absorb(
     const int* n_in, const int* a_in, const int* c_in, int* n_out, int* a_out,
-    int* c_out, const int8_t* mark, const int* classes, int n_classes,
-    const int* offs, int pool_size, int n, int row_lo, int rows_loc,
-    int rumor_target, int suppress, int* u, int* acc, const int* ctrl,
-    int device, void* stream_ptr) {
+    int* c_out, const int8_t* mark, int8_t* next, const uint32_t* words,
+    unsigned k1, unsigned k2, unsigned c1, unsigned c2, const int* classes,
+    int n_classes, const int* offs, int pool_size, int n, int row_lo,
+    int rows_loc, int rumor_target, int suppress, int* u, int* acc,
+    const int* ctrl, int device, void* stream_ptr) {
   static int grid_cache[64];
   ShardAbsorb p;
+  MarkOut out;
   if (!make_absorb(classes, n_classes, offs, pool_size, n, row_lo, rows_loc, u,
-                   acc, ctrl, &p))
+                   acc, ctrl, &p) ||
+      !make_marks(next, words, k1, k2, c1, c2, pool_size, &out))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int grid = round_grid(gossip_imp_shard_absorb, p.count, device, grid_cache);
+  const int grid =
+      round_grid(gossip_imp_shard_absorb, p.count, device, grid_cache);
   gossip_imp_shard_absorb<<<grid, kBlock, 0, (cudaStream_t)stream_ptr>>>(
-      n_in, a_in, c_in, n_out, a_out, c_out, mark, p, rumor_target, suppress);
+      n_in, a_in, c_in, n_out, a_out, c_out, mark, out, p, rumor_target,
+      suppress);
   return (int)cudaGetLastError();
 }

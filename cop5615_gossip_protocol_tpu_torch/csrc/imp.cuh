@@ -1,9 +1,9 @@
 // Per-node logic of the imp kernels in csrc/fused_imp.cu and
 // csrc/fused_imp_hbm_shard.cu: the class an imp2d/imp3d node sends along
-// this round under pooled long-range sampling, the packed choice word its
-// pool slot comes from, the nodes a sharded mark launch covers, and each
-// receiver's inbox over the lattice and pool classes. The device-side
-// counterpart of ops/fused_imp.py's imp_marks and of the absorbs of
+// this round under pooled long-range sampling, read through its static
+// directions word, the packed choice word its pool slot comes from, and
+// each receiver's inbox over the lattice and pool classes. The device-side counterpart of
+// ops/fused_imp.py's imp_marks and of the absorbs of
 // parallel/fused_imp_hbm_sharded.py.
 //
 // Plain inline code usable from the host too, so g++ builds it for the CPU
@@ -33,41 +33,34 @@ GOSSIP_HD uint32_t choice_counter(int j) {
 // Node j's nibble in that word.
 GOSSIP_HD int choice_sub(int j) { return (j / kChoiceLanes) % kChoicePack; }
 
-// Class id real node j (< L.n) sends along, from its slot word `bits` and
-// its pool slot `choice`: slot = bits % degree over its live lattice
-// directions and, last, its long-range slot (live on every real node); a
-// lattice slot gives the index of its displacement in the sorted lattice
-// classes (so at grid side 2, where two directions share a displacement,
-// they share a class), the long-range slot class lattice.count + choice.
-GOSSIP_HD int imp_class(const Lattice& L, const Classes& lattice, int j,
-                        uint32_t bits, int choice) {
-  bool live[kMaxDirs];
-  int disp[kMaxDirs];
-  const int dirs = lattice_dirs(L, j, live, disp);
-  int deg = 1;  // the long-range slot
-  for (int k = 0; k < dirs; ++k) deg += live[k] ? 1 : 0;
-  const int slot = (int)(bits % (uint32_t)deg);
-  int cum = 0;
-  for (int k = 0; k < dirs; ++k) {
-    if (live[k]) {
-      if (cum == slot) return class_of(disp[k], lattice.d, lattice.count);
-      ++cum;
-    }
-  }
-  return lattice.count + choice;
+// The lattice class id a real node j (< n) sends along, from its
+// directions word (ops/fused_imp.imp_dir_words: bits 4k..4k+3 the class id
+// of its k-th live lattice direction in the grid's column order, its
+// lattice degree in bits 24..26) and its slot word `bits`: slot = bits %
+// (degree + 1) over the live lattice directions and, last, the long-range
+// slot (slot == degree, live on every real node), for which it returns -1.
+// At grid side 2 two directions share a displacement, so the word holds one
+// class id twice. A word of 0 still sends: its one slot is the long-range
+// one, so "real" is j < n, never a nonzero word.
+GOSSIP_HD int imp_lattice_class(uint32_t word, uint32_t bits) {
+  const uint32_t deg = word >> 24;
+  const uint32_t slot = bits % (deg + 1u);
+  return slot == deg ? -1 : (int)((word >> (4u * slot)) & 15u);
 }
 
-// The packed choice words whose 8-row group meets rows [row_lo, row_hi):
-// word indices [first_word(row_lo), end_word(row_hi)).
-GOSSIP_HD int first_word(int row_lo) { return (row_lo / kChoicePack) * kChoiceLanes; }
-GOSSIP_HD int end_word(int row_hi) {
-  return ((row_hi + kChoicePack - 1) / kChoicePack) * kChoiceLanes;
-}
-
-// The node that sub-row `sub` of choice word `wi` holds, and its row.
-GOSSIP_HD int word_row(int wi, int sub) { return (wi / kChoiceLanes) * kChoicePack + sub; }
-GOSSIP_HD int word_node(int wi, int sub) {
-  return word_row(wi, sub) * kChoiceLanes + wi % kChoiceLanes;
+// Round mark of real node j under the round key (k1, k2) and choice key
+// (c1, c2): its lattice class, or for the long-range slot class
+// lattice_count + its pool slot in the packed choice word of its 8-row
+// group, threefry_word(c1, c2, choice_counter(j)), which is hashed only
+// then.
+GOSSIP_HD int8_t imp_mark(uint32_t word, uint32_t k1, uint32_t k2, uint32_t c1,
+                          uint32_t c2, int j, int pool_size,
+                          int lattice_count) {
+  const int q = imp_lattice_class(word, threefry_word(k1, k2, (uint32_t)j));
+  if (q >= 0) return (int8_t)q;
+  return (int8_t)(lattice_count +
+                  pool_slot(threefry_word(c1, c2, choice_counter(j)),
+                            choice_sub(j), pool_size));
 }
 
 // The round's pool displacements, passed by value.
@@ -82,7 +75,11 @@ struct ImpPool {
 // q in sorted order and then the pool slots p, the halved send of the class
 // source (class_source: j - d mod n) whose mark is the class id (q, or
 // lattice.count + p). Unrolled to the caps, so the class lists stay in
-// registers and every class's mark load is in flight at once.
+// registers and every class's mark load is in flight at once. A lattice
+// source's s and w are loaded whatever its mark (it lies within +-g*g
+// nodes, so they hit the L2 and are in flight with the mark loads); a pool
+// source's only when its mark is the class, since each pool class reads a
+// window a random distance away and a load there can cost an HBM sector.
 GOSSIP_HD void imp_pushsum_inbox(const Classes& lattice, const ImpPool& pool,
                                  const int8_t* mark, const float* s,
                                  const float* w, int j, int n, float& in_s,
@@ -96,7 +93,12 @@ GOSSIP_HD void imp_pushsum_inbox(const Classes& lattice, const ImpPool& pool,
     if (lat ? k < lattice.count : k < pool.count) {
       const int i = class_source(j, lat ? lattice.d[k] : pool.d[k], n);
       float vs = 0.0f, vw = 0.0f;
-      if (mark[i] == (lat ? k : lattice.count + k)) {
+      if (lat) {
+        const float si = s[i], wi = w[i];
+        const bool hit = mark[i] == k;
+        vs = hit ? si * 0.5f : 0.0f;
+        vw = hit ? wi * 0.5f : 0.0f;
+      } else if (mark[i] == lattice.count + k) {
         vs = s[i] * 0.5f;
         vw = w[i] * 0.5f;
       }

@@ -594,6 +594,10 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
         # device: built here, so its time counts as set-up.
         fused_stencil_hbm.dir_words(fused_stencil_hbm.stencil_spec(topo),
                                     eng.layout.rows, state_dev[0].device)
+    elif variant.startswith("imp") and device.type == "cuda":
+        # The imp kernels' directions word, the same way.
+        fused_imp.imp_dir_words(fused_imp.imp_spec(topo), eng.layout.rows,
+                                state_dev[0].device)
     K = cfg.chunk_rounds
     queued = {"end": start_round}  # nominal start of the next chunk
 

@@ -21,10 +21,13 @@ count reaches the target. Per round, bitwise the chunked engine's
 
 The JAX package computes this function in two tiers, a VMEM-resident one
 (its ops/fused_imp.py) and an HBM-streaming one (its ops/fused_imp_hbm.py);
-the split is the TPU's VMEM budget. On the card one pair of kernels over
+the split is the TPU's VMEM budget. On the card one kernel pair over
 ping/pong device planes (csrc/fused_imp.cu) serves both: the ladder still
 names the JAX tier (``imp_fused_support`` here, ``imp_hbm_support`` in
 ops/fused_imp_hbm.py), and each tier's wrappers count their own launches.
+The kernels read each node's class through its static directions word
+(``imp_dir_words``, built on the card once per layout and device; the
+sharded imp kernels read it too).
 
 ``pushsum_imp_chunk`` and ``gossip_imp_chunk`` launch the kernels on CUDA
 tensors and run the plain torch versions (``*_plain``) on CPU tensors; the
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -55,8 +59,8 @@ from .fused import (
     threefry2x32_hash,
     threefry_bits_2d,
 )
-from .fused_pool import POOL_SIZES, _ptr, _upload, build_pool_layout
-from .fused_stencil_hbm import _KIND_IDS, _sample_disp_dirs
+from .fused_pool import POOL_SIZES, _upload, build_pool_layout
+from .fused_stencil_hbm import _sample_disp_dirs
 from .sampling import (
     IMP_CHOICE_TAG,
     POOL_CHOICE_BITS,
@@ -68,6 +72,8 @@ from .topology import IMP_LATTICE, Topology, imp_lattice_offsets, lattice_dirs
 
 # The JAX resident tier's plane budget, copied as the ladder's predicate.
 _VMEM_BUDGET = 100 * 1024 * 1024
+# Slots per step of ``imp_dir_words``' build, which bounds its temporaries.
+_WORDS_STEP = 1 << 22
 
 
 def _plane_bytes(n_pad: int, max_deg: int, algorithm: str) -> int:
@@ -142,6 +148,32 @@ def choice_round_keys(base_key, start: int, count: int) -> torch.Tensor:
     keys = round_keys(base_key, start, count)
     a, b = rng.threefry2x32(keys[:, 0], keys[:, 1], 0, IMP_CHOICE_TAG)
     return torch.stack([a, b], dim=1)
+
+
+@functools.lru_cache(maxsize=4)
+def imp_dir_words(spec: ImpSpec, R: int, device) -> torch.Tensor:
+    """int32 [R * 128] static directions word of every slot of an [R, 128]
+    layout, built with torch on ``device`` (no host pass, which would cost
+    more than a run at 16.8M nodes): bits 4k..4k+3 hold the class id (the
+    index in the sorted lattice classes) of the slot's k-th live grid
+    direction in the topology's column order, bits 24..26 its lattice
+    degree; 0 on pad lanes (csrc/imp.cuh ``imp_lattice_class`` reads it, with
+    the long-range slot after the lattice ones). The imp kernels mark from
+    it, single-device and sharded at global flat indices. Cached per
+    (spec, R, device), so a run builds it once, in its set-up."""
+    classes = torch.tensor(spec.classes, dtype=torch.int64, device=device)
+    words = torch.empty(R * LANES, dtype=torch.int32, device=device)
+    for lo in range(0, R * LANES, _WORDS_STEP):
+        g = torch.arange(lo, min(lo + _WORDS_STEP, R * LANES), dtype=torch.int64,
+                         device=device)
+        word, deg = torch.zeros_like(g), torch.zeros_like(g)
+        for live, d in lattice_dirs(IMP_LATTICE[spec.kind], spec.n, spec.n, g):
+            live = (live & (g < spec.n)).to(torch.int64)
+            k = torch.searchsorted(classes, d).clamp(max=len(spec.classes) - 1)
+            word = word | (k << (4 * deg)) * live
+            deg = deg + live
+        words[lo:lo + g.numel()] = (word | (deg << 24)).to(torch.int32)
+    return words
 
 
 # ---------------------------------------------------------------------------
@@ -268,9 +300,15 @@ def _check(planes, dtypes, keys, offs, ckeys, spec: ImpSpec) -> torch.device:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "gossip_pushsum_imp_chunk": [_P] * 19 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
-    "gossip_gossip_imp_chunk": [_P] * 16 + [_I] * 10 + [_P],
+    "gossip_pushsum_imp_chunk": [_P] * 19 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
+    "gossip_gossip_imp_chunk": [_P] * 16 + [_I] * 9 + [_P],
 }
+
+
+def chunk_launches(rounds: int) -> int:
+    """Launches a chunk of csrc/fused_imp.cu queues: init, the mark
+    prologue, one a round, finish."""
+    return rounds + 3
 
 
 def _kernel_chunk(name: str, state, keys, offs, ckeys, start: int, cap: int,
@@ -284,22 +322,29 @@ def _kernel_chunk(name: str, state, keys, offs, ckeys, start: int, cap: int,
     offs = offs.contiguous()  # read on the host, one round per launch
     rounds = max(0, cap - start)
     n_pad = state[0].numel()
-    out = [torch.empty_like(x) for x in state]
-    other = [torch.empty_like(x) for x in state]
-    mark = torch.empty(n_pad, dtype=torch.int8, device=dev)
-    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
-    scratch = torch.zeros(2 * (rounds + 1), dtype=torch.int32, device=dev)
+    planes = len(state) * n_pad
+    words = imp_dir_words(spec, state[0].shape[0], dev)
+    # Two allocations a chunk, as ops/fused_stencil_hbm.kernel_chunk makes
+    # them: the result planes with the control words behind them (done,
+    # rounds executed, then 8 * (rounds + 2) bytes of scratch; the entry
+    # point zeroes them), and the other plane set with the two mark planes
+    # (round j reads half j % 2), passed as raw pointers.
+    head = torch.empty(planes + 2 + 2 * (rounds + 2), dtype=torch.int32, device=dev)
+    work = torch.empty(planes + n_pad // 2, dtype=torch.int32, device=dev)
+    out = [p if p.dtype == x.dtype else p.view(x.dtype) for p, x in
+           zip(head[:planes].view(len(state), *state[0].shape).unbind(0), state)]
+    other = [work.data_ptr() + 4 * i * n_pad for i in range(len(state))]
     classes = np.ascontiguousarray(spec.classes, dtype=np.int32)
     fn = kernels.entry("fused_imp", name, _SIGNATURES[name])
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    err = fn(*[_ptr(x) for x in (*state, *out, *other, mark, keys, ckeys, offs,
-                                  ctrl, scratch)],
-             classes.ctypes.data_as(ctypes.c_void_p), len(spec.classes),
-             _KIND_IDS[IMP_LATTICE[spec.kind]], spec.n, n_pad, rounds, offs.shape[1], *tail,
-             dev.index, stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(*[x.data_ptr() for x in (*state, *out)], *other,
+             work.data_ptr() + 4 * planes, keys.data_ptr(), ckeys.data_ptr(),
+             words.data_ptr(), offs.data_ptr(), head.data_ptr() + 4 * planes,
+             classes.ctypes.data, len(spec.classes), spec.n, n_pad, rounds,
+             offs.shape[1], *tail, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-    return tuple(out), ctrl[1], 2 + 2 * rounds
+    return tuple(out), head[planes + 1], chunk_launches(rounds)
 
 
 def pushsum_chunk(counter, state4, keys, offs, ckeys, start: int, cap: int, *,
@@ -361,7 +406,8 @@ def gossip_imp_chunk(state3, keys, offs, ckeys, start: int, cap: int, *,
                         suppress=suppress)
 
 
-# Kernel launches queued by each wrapper (init, 2 per round, finish),
-# counted where the kernel is launched and nowhere else.
+# Kernel launches queued by each wrapper (init, the mark prologue, one a
+# round, finish: ``chunk_launches``), counted where the kernels are launched
+# and nowhere else.
 pushsum_imp_chunk.launches = 0
 gossip_imp_chunk.launches = 0

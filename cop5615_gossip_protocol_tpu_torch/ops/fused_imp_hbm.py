@@ -59,7 +59,8 @@ def gossip_imp_hbm_chunk(state3, keys, offs, ckeys, start: int, cap: int, *,
         target=target, rumor_target=rumor_target, suppress=suppress)
 
 
-# Kernel launches queued by each wrapper (init, 2 per round, finish),
-# counted where the kernel is launched and nowhere else.
+# Kernel launches queued by each wrapper (init, the mark prologue, one a
+# round, finish: ``fused_imp.chunk_launches``), counted where the kernels are
+# launched and nowhere else.
 pushsum_imp_hbm_chunk.launches = 0
 gossip_imp_hbm_chunk.launches = 0

@@ -5,31 +5,37 @@ parallel/fused_imp_hbm_sharded.py, for imp populations past one device
 Shard i owns global rows [i * rows_loc, (i + 1) * rows_loc) of the padded
 [R, 128] pool layout (``build_pool_layout``). One super-step is ONE round,
 as in the JAX composition: the pooled long-range classes are uniform over
-the whole ring, so nothing coarser is exact. A round is
+the whole ring, so nothing coarser is exact. Each device keeps two global
+int8 mark planes, one per round parity, holding the class id each node
+sends along (-1 for none). Round r is
 
-1. **mark**: one launch a shard writes the class id each of its nodes
-   sends along this round (int8, -1 for none) into its device's global
-   mark plane, at global positions (csrc/fused_imp_hbm_shard.cu, the
-   single-device draw of csrc/fused_imp.cu: the slot word at the node's
-   global index, the pool choice from the packed word of its 8-row group);
-2. **wire**: each shard's rows of the mark plane (and, for push-sum, of
+1. **wire**: each shard's rows of mark plane r % 2 (and, for push-sum, of
    the current s and w planes) copied into every other device's global
    copy, one ``torch._foreach_copy_`` per device pair into preallocated
-   rows (parallel/halo.py); shards on one device share its copy, so on one
-   card the wire moves nothing;
-3. **absorb**: one launch a shard over its own rows, reading every source
-   from its device's global copy: lattice class q from j - d_q (the honest
-   lattice never wraps), pool slot p from (j - offs[p]) mod n, the sends of
-   the class sources whose mark is the class, summed in class order; it
-   writes the shard's next planes and u, its converged count;
-4. **verdict**: the shards' u summed against the target on the device,
+   rows (parallel/halo.py); shards on one device share its copies, so on
+   one card the wire moves nothing;
+2. **absorb**: one launch a shard over its own rows, reading every source
+   from its device's global copies: lattice class q from j - d_q (the
+   honest lattice never wraps), pool slot p from (j - offs[p]) mod n, the
+   sends of the class sources whose mark is the class, summed in class
+   order; it writes the shard's next planes, u (its converged count) and
+   its nodes' round r + 1 marks into mark plane (r + 1) % 2
+   (csrc/fused_imp_hbm_shard.cu, the single-device draw of
+   csrc/fused_imp.cu: the slot word at the node's global index, read
+   through its directions word, the pool choice from the packed word of
+   its 8-row group; gossip from the active flag it has just computed);
+3. **verdict**: the shards' u summed against the target on the device,
    deferred one round under ``overlap_collectives`` (parallel/overlap.py).
+
+A mark prologue, one launch a shard, writes the first round's marks where
+a run starts or resumes. The run draws each chunk's streams one round past
+its end, so the chunk's last round writes the next chunk's first marks.
 
 This departs from the JAX wire, which sends the raw windowed planes (s and
 w, or active: 8 or 4 bytes a node) in one all_gather plus a ring halo of
 every plane, and has each TPU tile REGENERATE the marks of every window it
 reads (a tile load needs a static window in VMEM). On the card a source is
-a load at a computed index, so the absorb reads class ids from one global
+a load at a computed index, so the absorb reads class ids from a global
 mark plane and no halo exists: the wire carries 9 bytes a node (push-sum s,
 w, mark) or 1 (gossip mark), and each shard computes only its own rows.
 The plan (``plan_imp_hbm_sharded``) is still the JAX plan, halo H and
@@ -396,11 +402,11 @@ def gossip_imp_hbm_shard_round_plain(state, keys, offs, ckeys, row_lo: int,
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
-    "gossip_imp_hbm_shard_mark": [_P, _P] + [_U] * 4 + [_P] + [_I] * 6 + [_P, _I, _P],
+    "gossip_imp_hbm_shard_mark": [_P] * 3 + [_U] * 4 + [_I] * 5 + [_P, _I, _P],
     "gossip_pushsum_imp_hbm_shard_absorb":
-        [_P] * 9 + [_P, _I, _P] + [_I] * 4 + [_F, _I, _P, _P, _P, _I, _P],
+        [_P] * 11 + [_U] * 4 + [_P, _I, _P] + [_I] * 4 + [_F, _I] + [_P] * 3 + [_I, _P],
     "gossip_gossip_imp_hbm_shard_absorb":
-        [_P] * 7 + [_P, _I, _P] + [_I] * 4 + [_I, _I, _P, _P, _P, _I, _P],
+        [_P] * 9 + [_U] * 4 + [_P, _I, _P] + [_I] * 6 + [_P] * 3 + [_I, _P],
 }
 
 
@@ -437,12 +443,19 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _mark_args(mark, spec, keys, ckeys):
+    """The C arguments naming the marks a launch writes: ``mark``'s plane,
+    the device's directions words and the round's (key, choice key)."""
+    words = fused_imp.imp_dir_words(spec, mark.shape[0], mark.device)
+    return (mark.data_ptr(), words.data_ptr(), *_words(keys), *_words(ckeys))
+
+
 def imp_hbm_shard_mark(mark, active, keys, ckeys, row_lo: int, rows: int, *,
                        spec, pool_size: int, ctrl) -> None:
-    """Write the marks of global rows [row_lo, row_lo + rows) into ``mark``
-    (``shard_marks_plain``): ``active`` is those rows' gossip active plane,
-    or None for push-sum (every real node sends); ``keys`` and ``ckeys``
-    the round's key and choice key."""
+    """The mark prologue: write the marks of global rows [row_lo, row_lo +
+    rows) into ``mark`` (``shard_marks_plain``): ``active`` is those rows'
+    gossip active plane, or None for push-sum (every real node sends);
+    ``keys`` and ``ckeys`` the round's key and choice key."""
     dev, R = mark.device, mark.shape[0]
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"shard rounds run on cpu or cuda tensors, got {dev}")
@@ -453,29 +466,29 @@ def imp_hbm_shard_mark(mark, active, keys, ckeys, row_lo: int, rows: int, *,
     if active is not None:
         _check_plane(active, torch.int32, (rows, LANES), dev, "active")
     _check_ctrl(ctrl, dev)
-    (k1, k2), (c1, c2) = _words(keys), _words(ckeys)
     if dev.type == "cpu":
         if not int(ctrl[0]):
             mark[row_lo:row_lo + rows] = shard_marks_plain(
-                spec, (k1, k2), (c1, c2), pool_size, row_lo, rows, active, dev)
+                spec, _words(keys), _words(ckeys), pool_size, row_lo, rows, active, dev)
         return
-    classes = (ctypes.c_int * len(spec.classes))(*spec.classes)
     fn = kernels.entry("fused_imp_hbm_shard", "gossip_imp_hbm_shard_mark",
                        _SIGNATURES["gossip_imp_hbm_shard_mark"])
-    err = fn(mark.data_ptr(), None if active is None else active.data_ptr(), k1, k2,
-             c1, c2, classes, len(spec.classes), _KIND_IDS[IMP_LATTICE[spec.kind]],
-             spec.n, pool_size, row_lo, rows, ctrl.data_ptr(), dev.index, _stream(dev))
+    m_ptr, w_ptr, *key_words = _mark_args(mark, spec, keys, ckeys)
+    err = fn(m_ptr, None if active is None else active.data_ptr(), w_ptr, *key_words,
+             len(spec.classes), spec.n, pool_size, row_lo, rows, ctrl.data_ptr(),
+             dev.index, _stream(dev))
     if err:
         raise RuntimeError(f"imp_hbm_shard_mark: CUDA launch failed with cudaError_t {err}")
     imp_hbm_shard_mark.launches += 1
 
 
-def _check_absorb(mark, own_in, own_out, dtypes, offs, row_lo: int, spec, u, acc,
-                  ctrl):
+def _check_absorb(mark, next_mark, own_in, own_out, dtypes, offs, row_lo: int, spec,
+                  u, acc, ctrl):
     dev, R = mark.device, mark.shape[0]
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"shard rounds run on cpu or cuda tensors, got {dev}")
     _check_plane(mark, torch.int8, (R, LANES), dev, "mark")
+    _check_plane(next_mark, torch.int8, (R, LANES), dev, "next mark")
     rows_loc = own_in[0].shape[0]
     for x, dt in zip(tuple(own_in) + tuple(own_out), dtypes * 2):
         _check_plane(x, dt, (rows_loc, LANES), dev, "shard plane")
@@ -497,17 +510,19 @@ def _absorb_args(spec, offs, row_lo: int, rows_loc: int):
     return classes, len(spec.classes), pool, len(offs), spec.n, row_lo, rows_loc
 
 
-def pushsum_imp_hbm_shard_absorb(mark, glob_in, glob_out, own_in, own_out, offs,
-                                 row_lo: int, *, spec, delta: float,
+def pushsum_imp_hbm_shard_absorb(mark, next_mark, nxt, glob_in, glob_out, own_in,
+                                 own_out, offs, row_lo: int, *, spec, delta: float,
                                  term_rounds: int, u, acc, ctrl) -> None:
     """The push-sum absorb over the shard at global rows [row_lo, row_lo +
     rows_loc) (``pushsum_absorb_plain``): reads ``mark`` and the global
-    (s, w) ``glob_in``, writes the shard's rows of ``glob_out`` and its
-    (term, conv) ``own_out`` from ``own_in``, and its converged count to
-    ``u`` (int32 [1]); ``acc`` is the shard's zeroed int32 [2] scratch."""
+    (s, w) ``glob_in``, writes the shard's rows of ``glob_out``, its
+    (term, conv) ``own_out`` from ``own_in``, its converged count to ``u``
+    (int32 [1]; ``acc`` is the shard's zeroed int32 [2] scratch) and its
+    rows' marks of the next round into ``next_mark`` (``nxt`` that round's
+    key and choice key)."""
     f32, i32 = torch.float32, torch.int32
-    dev, rows_loc = _check_absorb(mark, own_in, own_out, (i32, i32), offs, row_lo,
-                                  spec, u, acc, ctrl)
+    dev, rows_loc = _check_absorb(mark, next_mark, own_in, own_out, (i32, i32), offs,
+                                  row_lo, spec, u, acc, ctrl)
     for x in tuple(glob_in) + tuple(glob_out):
         _check_plane(x, f32, tuple(mark.shape), dev, "global s/w plane")
     if dev.type == "cpu":
@@ -520,11 +535,15 @@ def pushsum_imp_hbm_shard_absorb(mark, glob_in, glob_out, own_in, own_out, offs,
             own_out[0].copy_(planes[2])
             own_out[1].copy_(planes[3])
             u[0] = count
+            next_mark[row_lo:row_lo + rows_loc] = shard_marks_plain(
+                spec, _words(nxt[0]), _words(nxt[1]), len(offs), row_lo, rows_loc,
+                device=dev)
         return
     fn = kernels.entry("fused_imp_hbm_shard", "gossip_pushsum_imp_hbm_shard_absorb",
                        _SIGNATURES["gossip_pushsum_imp_hbm_shard_absorb"])
     ptrs = [x.data_ptr() for x in (*glob_in, *glob_out, *own_in, *own_out, mark)]
-    err = fn(*ptrs, *_absorb_args(spec, offs, row_lo, rows_loc), ctypes.c_float(delta),
+    err = fn(*ptrs, *_mark_args(next_mark, spec, *nxt),
+             *_absorb_args(spec, offs, row_lo, rows_loc), ctypes.c_float(delta),
              term_rounds, u.data_ptr(), acc.data_ptr(), ctrl.data_ptr(), dev.index,
              _stream(dev))
     if err:
@@ -533,14 +552,14 @@ def pushsum_imp_hbm_shard_absorb(mark, glob_in, glob_out, own_in, own_out, offs,
     pushsum_imp_hbm_shard_absorb.launches += 1
 
 
-def gossip_imp_hbm_shard_absorb(mark, own_in, own_out, offs, row_lo: int, *, spec,
-                                rumor_target: int, suppress: bool, u, acc,
-                                ctrl) -> None:
+def gossip_imp_hbm_shard_absorb(mark, next_mark, nxt, own_in, own_out, offs,
+                                row_lo: int, *, spec, rumor_target: int, suppress: bool,
+                                u, acc, ctrl) -> None:
     """Gossip analog of ``pushsum_imp_hbm_shard_absorb``: the shard's
     (count, active, conv) from ``own_in`` into ``own_out``
-    (``gossip_absorb_plain``)."""
-    dev, rows_loc = _check_absorb(mark, own_in, own_out, (torch.int32,) * 3, offs,
-                                  row_lo, spec, u, acc, ctrl)
+    (``gossip_absorb_plain``), the next marks from the new active flags."""
+    dev, rows_loc = _check_absorb(mark, next_mark, own_in, own_out, (torch.int32,) * 3,
+                                  offs, row_lo, spec, u, acc, ctrl)
     if dev.type == "cpu":
         if not int(ctrl[0]):
             planes, count = gossip_absorb_plain(mark, own_in, offs, row_lo, spec=spec,
@@ -549,21 +568,25 @@ def gossip_imp_hbm_shard_absorb(mark, own_in, own_out, offs, row_lo: int, *, spe
             for o, x in zip(own_out, planes):
                 o.copy_(x)
             u[0] = count
+            next_mark[row_lo:row_lo + rows_loc] = shard_marks_plain(
+                spec, _words(nxt[0]), _words(nxt[1]), len(offs), row_lo, rows_loc,
+                planes[1], dev)
         return
     fn = kernels.entry("fused_imp_hbm_shard", "gossip_gossip_imp_hbm_shard_absorb",
                        _SIGNATURES["gossip_gossip_imp_hbm_shard_absorb"])
     ptrs = [x.data_ptr() for x in (*own_in, *own_out, mark)]
-    err = fn(*ptrs, *_absorb_args(spec, offs, row_lo, rows_loc), rumor_target,
-             int(suppress), u.data_ptr(), acc.data_ptr(), ctrl.data_ptr(), dev.index,
-             _stream(dev))
+    err = fn(*ptrs, *_mark_args(next_mark, spec, *nxt),
+             *_absorb_args(spec, offs, row_lo, rows_loc), rumor_target, int(suppress),
+             u.data_ptr(), acc.data_ptr(), ctrl.data_ptr(), dev.index, _stream(dev))
     if err:
         raise RuntimeError(f"gossip_imp_hbm_shard_absorb: CUDA launch failed with "
                            f"cudaError_t {err}")
     gossip_imp_hbm_shard_absorb.launches += 1
 
 
-# Kernel launches queued by each wrapper (one a shard a round), counted
-# where the kernel is launched and nowhere else.
+# Kernel launches queued by each wrapper (the prologue: one a shard where a
+# run starts or resumes; an absorb: one a shard a round), counted where the
+# kernel is launched and nowhere else.
 imp_hbm_shard_mark.launches = 0
 pushsum_imp_hbm_shard_absorb.launches = 0
 gossip_imp_hbm_shard_absorb.launches = 0
@@ -571,11 +594,13 @@ gossip_imp_hbm_shard_absorb.launches = 0
 
 class ShardRound(NamedTuple):
     """One shard's operands in one round: its global rows from ``row_lo``,
-    its device's global ``mark`` plane, push-sum's global (s, w) planes in
-    and out (``()`` for gossip), its own planes in and out (``own_out``
-    None: the shard is only marked), and its u, acc and ctrl."""
+    its device's global mark planes of this round (``mark``, read) and of
+    the next (``next``, written), push-sum's global (s, w) planes in and
+    out (``()`` for gossip), its own planes in and out (``own_out`` None:
+    the shard is only marked), and its u, acc and ctrl."""
     row_lo: int
     mark: torch.Tensor
+    next: torch.Tensor
     glob_in: tuple
     glob_out: tuple
     own_in: tuple
@@ -585,29 +610,37 @@ class ShardRound(NamedTuple):
     ctrl: torch.Tensor
 
 
-def launch_shard_rounds(shards, stream, rows_loc: int, *, pushsum: bool, kw: dict,
-                        wire=()) -> None:
-    """Queue one round over ``shards`` (ShardRound each) with the round's
-    ``stream`` (keys, offs, ckeys): the mark launch of every shard, the
-    ``wire`` (parallel/halo.replica_rows' groups), then the absorb launch
-    of every shard with its output planes. ``kw`` is the absorb's keywords,
-    ``spec`` among them."""
-    keys, offs, ckeys = stream
+def mark_shards(shards, keys, ckeys, rows_loc: int, *, pushsum: bool, spec,
+                pool_size: int) -> None:
+    """The mark prologue of a round over ``shards`` (ShardRound each): every
+    shard's rows of its ``mark`` plane under the round's key and choice
+    key, from its own planes' active flags (gossip)."""
     for sh in shards:
         imp_hbm_shard_mark(sh.mark, None if pushsum else sh.own_in[1], keys, ckeys,
-                           sh.row_lo, rows_loc, spec=kw["spec"], pool_size=len(offs),
+                           sh.row_lo, rows_loc, spec=spec, pool_size=pool_size,
                            ctrl=sh.ctrl)
+
+
+def launch_shard_rounds(shards, stream, nxt, *, pushsum: bool, kw: dict,
+                        wire=()) -> None:
+    """Queue one round over ``shards`` (ShardRound each) with the round's
+    ``stream`` (keys, offs, ckeys): the ``wire`` (parallel/halo.replica_rows'
+    groups), then the absorb launch of every shard with its output planes,
+    which writes the shard's marks of the next round, whose (keys, ckeys)
+    are ``nxt``. ``kw`` is the absorb's keywords, ``spec`` among them."""
+    _keys, offs, _ckeys = stream
     halo.exchange_rows_batched(wire)
     for sh in shards:
         if sh.own_out is None:
             continue
         if pushsum:
-            pushsum_imp_hbm_shard_absorb(sh.mark, sh.glob_in, sh.glob_out, sh.own_in,
-                                         sh.own_out, offs, sh.row_lo, **kw, u=sh.u,
-                                         acc=sh.acc, ctrl=sh.ctrl)
+            pushsum_imp_hbm_shard_absorb(sh.mark, sh.next, nxt, sh.glob_in, sh.glob_out,
+                                         sh.own_in, sh.own_out, offs, sh.row_lo, **kw,
+                                         u=sh.u, acc=sh.acc, ctrl=sh.ctrl)
         else:
-            gossip_imp_hbm_shard_absorb(sh.mark, sh.own_in, sh.own_out, offs, sh.row_lo,
-                                        **kw, u=sh.u, acc=sh.acc, ctrl=sh.ctrl)
+            gossip_imp_hbm_shard_absorb(sh.mark, sh.next, nxt, sh.own_in, sh.own_out,
+                                        offs, sh.row_lo, **kw, u=sh.u, acc=sh.acc,
+                                        ctrl=sh.ctrl)
 
 
 def absorb_kw(topo: Topology, cfg: SimConfig) -> dict:
@@ -627,20 +660,25 @@ def absorb_kw(topo: Topology, cfg: SimConfig) -> dict:
 
 def _shard_chunk(state, stream, row0: int, rows_loc: int, *, pushsum: bool, kw: dict):
     """One round of the shard at ``row0`` from the global ``state`` on one
-    device, queued as the run queues it (``launch_shard_rounds``: every
-    shard's mark, then this shard's absorb). Returns (its planes, u)."""
+    device, queued as a run that starts at this round queues it (every
+    shard's mark prologue, then this shard's absorb, whose next-round marks
+    are drawn here from this round's keys and dropped). Returns (its
+    planes, u)."""
     dev, R = state[0].device, state[0].shape[0]
     n_glob = 2 if pushsum else 0
     glob_in = tuple(state[:n_glob])
     glob_out = tuple(torch.empty_like(x) for x in glob_in)
     own_out = tuple(torch.empty_like(p[row0:row0 + rows_loc]) for p in state[n_glob:])
-    mark = torch.empty(R, LANES, dtype=torch.int8, device=dev)
+    mark, nxt_mark = torch.empty(2, R, LANES, dtype=torch.int8, device=dev).unbind(0)
     u, acc, ctrl = (torch.zeros(k, dtype=torch.int32, device=dev) for k in (1, 2, 2))
-    shards = [ShardRound(lo, mark, glob_in, glob_out,
+    shards = [ShardRound(lo, mark, nxt_mark, glob_in, glob_out,
                          tuple(p[lo:lo + rows_loc] for p in state[n_glob:]),
                          own_out if lo == row0 else None, u, acc, ctrl)
               for lo in range(0, R, rows_loc)]
-    launch_shard_rounds(shards, stream, rows_loc, pushsum=pushsum, kw=kw)
+    keys, offs, ckeys = stream
+    mark_shards(shards, keys, ckeys, rows_loc, pushsum=pushsum, spec=kw["spec"],
+                pool_size=len(offs))
+    launch_shard_rounds(shards, stream, (keys, ckeys), pushsum=pushsum, kw=kw)
     return tuple(p[row0:row0 + rows_loc] for p in glob_out) + own_out, u[0]
 
 
@@ -689,13 +727,16 @@ def run_imp_hbm_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key
     RunResult, its state the canonical [n] planes joined from the shards.
 
     Each distinct device holds one global plane set in ping/pong form
-    (push-sum s and w) and one mark plane; a shard's s and w rows are a
-    slice of its device's set, its other planes its own ping/pong pair.
-    Round r reads set r % 2 and writes the other, never its input, so a
-    deferred verdict that fires rolls the next round back by the round
-    counter alone. The run's control block (pool2_sharded.ShardControl)
-    lives on shard 0's device, and pool2_sharded.run_round_supersteps
-    runs the rounds, as it does for the replicated-pool2 composition."""
+    (push-sum s and w), two mark planes by round parity and the directions
+    words; a shard's s and w rows are a slice of its device's set, its
+    other planes its own ping/pong pair. Round r reads set r % 2 and mark
+    plane r % 2 and writes the other two, never its inputs, so a deferred
+    verdict that fires rolls the next round back by the round counter
+    alone. The run's control block (pool2_sharded.ShardControl) lives on
+    shard 0's device, and pool2_sharded.run_round_supersteps runs the
+    rounds, as it does for the replicated-pool2 composition, drawing each
+    chunk's streams one round ahead for the next marks and queueing the
+    mark prologue of ``start_round`` before the first."""
     from ..models import gossip as gossip_mod
     from ..models import pushsum as pushsum_mod
     from ..models.runner import _host_done
@@ -717,10 +758,16 @@ def run_imp_hbm_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key
     start = _start_mid(topo, cfg, key, mesh, rows_loc, layout, start_state)
     done0 = start_state is not None and _host_done(start_state, target)
     par0 = start_round % 2
-    # Per distinct device: its mark plane and, for push-sum, its global
-    # (s, w) ping/pong pair, [par] -> (s, w).
+    # Per distinct device: its mark planes, [par] -> plane, and, for
+    # push-sum, its global (s, w) ping/pong pair, [par] -> (s, w); and the
+    # kernels' directions words, built here so their time counts as set-up.
     distinct = dict.fromkeys(devices)
-    marks = {dev: torch.empty(R, LANES, dtype=torch.int8, device=dev) for dev in distinct}
+    marks = {dev: torch.empty(2, R, LANES, dtype=torch.int8, device=dev).unbind(0)
+             for dev in distinct}
+    kw = absorb_kw(topo, cfg)
+    for dev in distinct:
+        if dev.type == "cuda":
+            fused_imp.imp_dir_words(kw["spec"], R, dev)
     glob = {dev: [tuple(torch.empty(R, LANES, dtype=torch.float32, device=dev)
                         for _ in range(2)) for _ in range(2)]
             for dev in distinct} if pushsum else {dev: [(), ()] for dev in distinct}
@@ -739,21 +786,28 @@ def run_imp_hbm_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key
     ctl = ShardControl(devices, done0, start_round)
     # Per round parity: every shard's operands, and the wire (each shard's
     # rows of its device's planes into every other device's copy).
-    shards_of = [[ShardRound(row_lo[s], marks[dev], glob[dev][par], glob[dev][1 - par],
-                             own[s][par], own[s][1 - par], **ctl.args(s, par))
+    shards_of = [[ShardRound(row_lo[s], marks[dev][par], marks[dev][1 - par],
+                             glob[dev][par], glob[dev][1 - par], own[s][par],
+                             own[s][1 - par], **ctl.args(s, par))
                   for s, dev in enumerate(devices)] for par in (0, 1)]
-    wires = [halo.replica_rows({dev: (marks[dev],) + glob[dev][par] for dev in marks},
+    # The wire of round r carries the marks of its parity, which round
+    # r - 1 (or the prologue) wrote.
+    wires = [halo.replica_rows({dev: (marks[dev][par],) + glob[dev][par] for dev in marks},
                                rows_loc, devices) for par in (0, 1)]
-    kw = absorb_kw(topo, cfg)
 
     def draw(begin, count):
         return list(zip(fused.round_keys(key, begin, count).tolist(),
                         fused_pool.round_offsets(key, begin, count, P, n).tolist(),
                         fused_imp.choice_round_keys(key, begin, count).tolist()))
 
-    def launch_round(r, stream):
-        launch_shard_rounds(shards_of[r % 2], stream, rows_loc, pushsum=pushsum, kw=kw,
-                            wire=wires[r % 2])
+    def prologue():
+        keys, _offs, ckeys = draw(start_round, 1)[0]
+        mark_shards(shards_of[par0], keys, ckeys, rows_loc, pushsum=pushsum,
+                    spec=kw["spec"], pool_size=P)
+
+    def launch_round(r, stream, nxt):
+        launch_shard_rounds(shards_of[r % 2], stream, (nxt[0], nxt[2]), pushsum=pushsum,
+                            kw=kw, wire=wires[r % 2])
 
     def final_state(par):
         def joined(planes_of):
@@ -772,4 +826,5 @@ def run_imp_hbm_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key
 
     return run_round_supersteps(topo, cfg, ctl, start_round=start_round, target=target,
                                 t_enter=t_enter, library="fused_imp_hbm_shard", draw=draw,
-                                launch_round=launch_round, final_state=final_state)
+                                launch_round=launch_round, final_state=final_state,
+                                ahead=1, prologue=prologue)

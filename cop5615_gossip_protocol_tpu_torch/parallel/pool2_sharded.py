@@ -542,16 +542,20 @@ class ShardControl:
 
 def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
                          start_round: int, target: int, t_enter: float, library: str,
-                         draw, launch_round, final_state):
+                         draw, launch_round, final_state, ahead: int = 0,
+                         prologue=None):
     """Run one-round super-steps to convergence or cfg.max_rounds and return
     the RunResult: chunks of STRIDE rounds queued through
     models/pipeline.py, one host sync each, each round's verdict ordered by
     parallel/overlap.py. ``draw(begin, count)`` gives the random streams
-    of rounds begin.. (one tuple a round); ``launch_round(r, stream)``
-    queues round r's wire and shard launches, each shard's count into its
-    ``ctl.args`` slot; ``final_state(par)`` joins the planes of parity
-    ``par`` into the canonical state. ``library`` names the kernels'
-    source, loaded (with the verdict's) before the run's clock starts."""
+    of rounds begin.. (one tuple a round), drawn ``ahead`` rounds past each
+    chunk; ``launch_round(r, stream, *later)`` queues round r's wire and
+    shard launches, each shard's count into its ``ctl.args`` slot, with the
+    streams of rounds r + 1..r + ahead as ``later``; ``final_state(par)``
+    joins the planes of parity ``par`` into the canonical state.
+    ``library`` names the kernels' source, loaded (with the verdict's)
+    before the run's clock starts; ``prologue()``, if given, is queued
+    then too, ahead of the first round."""
     from ..models import pipeline as pipeline_mod
     from ..models.runner import _finalize_result
 
@@ -559,7 +563,7 @@ def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
     streams = {}
 
     def launch(r):
-        launch_round(r, streams[r])
+        launch_round(r, *(streams[r + i] for i in range(ahead + 1)))
         for s, dev in enumerate(ctl.devices):
             if dev != home:
                 ctl.u_all[r % 2, s].copy_(ctl.u_of[s][r % 2][0])
@@ -579,7 +583,8 @@ def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
         begin, queued["end"] = queued["end"], round_end
         count = max(round_end - begin, 0)
         streams.clear()
-        streams.update(zip(range(begin, begin + count), draw(begin, count)))
+        streams.update(zip(range(begin, begin + count + ahead),
+                           draw(begin, count + ahead)))
         overlap_mod.superstep_rounds(begin, round_end, launch_round=launch,
                                      verdict=verdict,
                                      overlap=cfg.overlap_collectives)
@@ -590,6 +595,9 @@ def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
     if home.type == "cuda":
         for name in dict.fromkeys((library, "fused_pool2_shard")):
             kernels.load(name)
+    if prologue is not None:
+        prologue()
+    if home.type == "cuda":
         torch.cuda.synchronize(home)
     compile_s = time.perf_counter() - t0
 

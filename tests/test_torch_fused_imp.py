@@ -13,8 +13,10 @@ the CPU, where its wrappers run the plain versions of csrc/fused_imp.cu:
 - one chunk of the JAX package's own imp kernels, run in Pallas
   interpret mode, against the plain versions;
 - the tier the port's ladder picks against the JAX ladder's;
-- the kernels' per-node class selection (csrc/imp.cuh), built for the
-  host with g++, against the JAX sampling."""
+- the kernels' per-node class selection and mark loop (csrc/imp.cuh, read
+  through ``imp_dir_words``), built for the host with g++, against the JAX
+  sampling, pad lanes and a real node with word 0 included; the words
+  against the topology's direction pairs; the launches a chunk queues."""
 
 import ctypes
 import shutil
@@ -296,17 +298,27 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 SHIM = r"""
 #include "imp.cuh"
 using namespace gossip;
-extern "C" void classes(int kind, int n, const int* lat, int n_lat,
-                        const uint32_t* bits, const int* choice, int* out) {
-  const Lattice L = make_lattice(kind, n, 0);
-  Classes c;
-  c.count = n_lat;
-  for (int k = 0; k < kMaxClasses; ++k) c.d[k] = k < n_lat ? lat[k] : 0;
-  for (int j = 0; j < n; ++j) out[j] = imp_class(L, c, j, bits[j], choice[j]);
+extern "C" void classes(int n, const uint32_t* words, int n_lat, const uint32_t* bits,
+                        const int* choice, int* out) {
+  for (int j = 0; j < n; ++j) {
+    const int q = imp_lattice_class(words[j], bits[j]);
+    out[j] = q >= 0 ? q : n_lat + choice[j];
+  }
 }
 extern "C" void choices(uint32_t k1, uint32_t k2, int n, int pool_size, int* out) {
   for (int j = 0; j < n; ++j)
     out[j] = pool_slot(threefry_word(k1, k2, choice_counter(j)), choice_sub(j), pool_size);
+}
+// The kernels' mark loop (csrc/fused_imp.cu, the prologue and the next
+// marks of a round): one node a step, the choice word hashed only for the
+// long-range slot.
+extern "C" void marks(const uint32_t* words, uint32_t k1, uint32_t k2, uint32_t c1,
+                      uint32_t c2, int n, int n_pad, int pool_size, int n_lat,
+                      const int* active, int8_t* out) {
+  for (int j = 0; j < n_pad; ++j)
+    out[j] = j < n && (active == nullptr || active[j] != 0)
+                 ? imp_mark(words[j], k1, k2, c1, c2, j, pool_size, n_lat)
+                 : (int8_t)-1;
 }
 """
 
@@ -321,33 +333,129 @@ def shim(tmp_path_factory):
     lib = d / "libshim.so"
     subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(CSRC),
                     "-o", str(lib), str(d / "shim.cpp")], check=True, timeout=120)
-    return ctypes.CDLL(str(lib))
+    so = ctypes.CDLL(str(lib))
+    u32, P, I = ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int
+    so.marks.argtypes = [P] + [u32] * 4 + [I] * 4 + [P, P]
+    return so
 
 
 def _ptr(a):
-    return a.ctypes.data_as(ctypes.c_void_p)
+    return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _jax_draw(kind, n, pool_size, rnd=3):
+    """The JAX imp draw of one round: (jtopo, the class id of every real
+    node, its pool choice, the sorted lattice classes, the round key and
+    choice key as uint32 pairs)."""
+    jtopo = jax_build(kind, n, seed=SEED)
+    split = jax_topology.imp_split(jtopo)
+    cfg = JaxConfig(n=jtopo.n, topology=kind, delivery="pool", pool_size=pool_size)
+    kr = jax_sampling.round_key(jax.random.PRNGKey(7), rnd)
+    d, is_extra, choice, _, _ = (np.asarray(x) for x in jax_runner.imp_pool_parts(
+        jtopo, cfg, kr, jnp.asarray(split.disp_cols), jnp.asarray(split.degree)))
+    lattice = np.ascontiguousarray(split.lattice_offsets, dtype=np.int32)
+    want = np.where(is_extra, len(lattice) + choice, np.searchsorted(lattice, d))
+    words = [[int(v) for v in np.asarray(k)] for k in (kr, jax_sampling.imp_choice_key(kr))]
+    return jtopo, want, choice, lattice, words
+
+
+def _dir_words(kind, n):
+    topo = build_topology(kind, n, seed=SEED)
+    rows = fused_pool.build_pool_layout(topo.n).rows
+    words = fused_imp.imp_dir_words(fused_imp.imp_spec(topo), rows, torch.device("cpu"))
+    return np.ascontiguousarray(words.numpy().view(np.uint32)), rows * 128
 
 
 @pytest.mark.parametrize("kind,n,pool_size", [
     ("imp3d", 1000, 4), ("imp3d", 8, 16), ("imp2d", 4, 2), ("imp2d", 70_000, 8)])
 def test_header_class_selection_matches_jax_sampling(shim, kind, n, pool_size):
-    jtopo = jax_build(kind, n, seed=SEED)
+    jtopo, want, choice, lattice, (kr, ck) = _jax_draw(kind, n, pool_size)
     n = jtopo.n
-    split = jax_topology.imp_split(jtopo)
-    cfg = JaxConfig(n=n, topology=kind, delivery="pool", pool_size=pool_size)
-    kr = jax_sampling.round_key(jax.random.PRNGKey(7), 3)
-    d, is_extra, choice, _, _ = (np.asarray(x) for x in jax_runner.imp_pool_parts(
-        jtopo, cfg, kr, jnp.asarray(split.disp_cols), jnp.asarray(split.degree)))
-    lattice = np.ascontiguousarray(split.lattice_offsets, dtype=np.int32)
-    want = np.where(is_extra, len(lattice) + choice, np.searchsorted(lattice, d))
     # The packed choice words, from the choice key (counters past 2**16).
-    ck = [int(v) for v in np.asarray(jax_sampling.imp_choice_key(kr))]
     got_choice = np.zeros(n, dtype=np.int32)
     shim.choices(ctypes.c_uint32(ck[0]), ctypes.c_uint32(ck[1]), n, pool_size,
                  _ptr(got_choice))
     assert (got_choice == choice).all()
-    bits = np.ascontiguousarray(jax_sampling.uniform_bits(kr, n), dtype=np.uint32)
+    kr_jax = jax_sampling.round_key(jax.random.PRNGKey(7), 3)
+    bits = np.ascontiguousarray(jax_sampling.uniform_bits(kr_jax, n), dtype=np.uint32)
+    words, _ = _dir_words(kind, n)
     got = np.zeros(n, dtype=np.int32)
-    shim.classes({"imp2d": 2, "imp3d": 3}[kind], n, _ptr(lattice), len(lattice),
-                 _ptr(bits), _ptr(np.ascontiguousarray(choice, dtype=np.int32)), _ptr(got))
+    shim.classes(n, _ptr(words), len(lattice), _ptr(bits),
+                 _ptr(np.ascontiguousarray(choice, dtype=np.int32)), _ptr(got))
     assert (got == want).all()
+
+
+@pytest.mark.parametrize("kind,n,pool_size", [
+    ("imp3d", 1000, 2), ("imp3d", 8, 4), ("imp2d", 4, 16), ("imp2d", 70_000, 4),
+    ("imp3d", 27_000, 16)])
+def test_header_marks_match_the_jax_draw(shim, kind, n, pool_size):
+    """The kernels' mark loop (the directions word, the slot hash, the
+    choice word hashed for the long-range slot) over the whole padded layout:
+    every real node's mark is the JAX draw's class, with the port's plain
+    imp_marks beside it, every pad lane -1; gossip marks only its active
+    nodes. Covers pad lanes (all but imp2d 4), grid side 2 (imp3d 8, imp2d
+    4: two directions in one class) and pool widths 2 to 16."""
+    jtopo, want, _, lattice, (kr, ck) = _jax_draw(kind, n, pool_size)
+    n = jtopo.n
+    words, n_pad = _dir_words(kind, n)
+    gen = np.random.default_rng(2)
+    active = np.ascontiguousarray(gen.random(n_pad) < 0.5, dtype=np.int32)
+    plain = fused_imp.imp_marks(fused_imp.imp_spec(build_topology(kind, n, seed=SEED)),
+                                kr, ck, pool_size, 0, n_pad // 128).numpy()
+    for act in (None, active):
+        got = np.empty(n_pad, dtype=np.int8)
+        shim.marks(_ptr(words), *kr, *ck, n, n_pad, pool_size, len(lattice), _ptr(act),
+                   _ptr(got))
+        mask = np.ones(n, dtype=bool) if act is None else act[:n] != 0
+        assert (got[:n] == np.where(mask, want, -1)).all()
+        assert (got[n:] == -1).all()
+        assert (got == np.where(np.arange(n_pad) < n, np.where(
+            np.ones(n_pad, bool) if act is None else act != 0, plain, -1), -1)).all()
+    assert (want >= len(lattice)).any() and (want < len(lattice)).any()
+
+
+def test_a_real_node_with_word_zero_still_sends(shim):
+    """Word 0 (degree 0) on a real node leaves it one slot, the long-range
+    one: it sends along class L + its choice, never -1; pad lanes, whose
+    word is 0 too, stay -1 because the loop tests j < n."""
+    n, n_pad, L, pool_size = 1500, 2048, 6, 4
+    bits = np.ascontiguousarray(np.random.default_rng(3).integers(
+        0, 2**32, n_pad, dtype=np.uint64).astype(np.uint32))
+    choice = np.ascontiguousarray(np.arange(n_pad) % pool_size, dtype=np.int32)
+    zeros = np.zeros(n_pad, dtype=np.uint32)
+    got = np.zeros(n_pad, dtype=np.int32)
+    shim.classes(n_pad, _ptr(zeros), L, _ptr(bits), _ptr(choice), _ptr(got))
+    assert (got == L + choice).all()
+    marks = np.empty(n_pad, dtype=np.int8)
+    shim.marks(_ptr(zeros), 1, 2, 3, 4, n, n_pad, pool_size, L, None, _ptr(marks))
+    assert (marks[:n] >= L).all() and (marks[:n] < L + pool_size).all()
+    assert (marks[n:] == -1).all()
+
+
+def test_imp_dir_words_hold_the_live_directions():
+    """imp_dir_words against the topology's own direction pairs in numpy:
+    per real node the class ids of its live grid directions in column
+    order and their count; 0 on pad lanes. imp3d 8 (side 2, shared
+    classes), imp3d 1000 and imp2d 100,489 with pad lanes."""
+    for kind, n in (("imp3d", 8), ("imp3d", 1000), ("imp2d", 100_000)):
+        topo = build_topology(kind, n, seed=SEED)
+        spec = fused_imp.imp_spec(topo)
+        rows = fused_pool.build_pool_layout(topo.n).rows
+        got = fused_imp.imp_dir_words(spec, rows, torch.device("cpu")).numpy()
+        g = np.arange(rows * 128)
+        classes = np.asarray(spec.classes)
+        want, deg = np.zeros_like(g), np.zeros_like(g)
+        for live, d in topology.lattice_dirs(topology.IMP_LATTICE[kind], topo.n, topo.n, g):
+            live = live & (g < topo.n)
+            k = np.searchsorted(classes, d)
+            assert (classes[k[live]] == d[live]).all()
+            want = want | np.where(live, k << (4 * deg), 0)
+            deg = deg + live
+        assert (got == (want | deg << 24)).all() and (got[topo.n:] == 0).all()
+        assert (deg[:topo.n] >= 1).all()
+
+
+def test_a_chunk_queues_its_rounds_and_three():
+    """The launches a chunk of csrc/fused_imp.cu queues, as its wrappers
+    count them: init, the mark prologue, one a round, finish."""
+    assert [fused_imp.chunk_launches(k) for k in (0, 1, 2, 32)] == [3, 4, 5, 35]

@@ -13,6 +13,8 @@ package's tests do) bitwise: rounds, converged count, every plane.
 - a resume from a mid-run state ends at the full run's round on the same
   state; a run from a converged state runs 0 rounds; a max_rounds cap
   is honoured;
+- a round queues one absorb a shard and a run one mark prologue a shard
+  at each start or resume, counted as wrapper calls;
 - the wire alone (parallel/halo.replica_rows), with distinct buffers
   standing in for distinct devices: after the copies every device's
   copy is the global plane."""
@@ -124,24 +126,33 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     topo = _topo("imp3d", 27_000)
     spec = fused_imp.imp_spec(topo)
     R, rows_loc = 512, 256
-    mark = torch.zeros(R, 128, dtype=torch.int8)
+    mark, nxt_mark = torch.zeros(2, R, 128, dtype=torch.int8).unbind(0)
     own = tuple(torch.zeros(rows_loc, 128, dtype=torch.int32) for _ in range(3))
     out = tuple(torch.empty_like(x) for x in own)
     u, acc, ctrl = (torch.zeros(k, dtype=torch.int32) for k in (1, 2, 2))
     kw = {"spec": spec, "rumor_target": 10, "suppress": False, "u": u, "acc": acc,
           "ctrl": ctrl}
+    nxt = ((1, 2), (3, 4))  # the next round's key and choice key
     before = ih.gossip_imp_hbm_shard_absorb.launches
-    ih.gossip_imp_hbm_shard_absorb(mark, own, out, [1, 2, 3, 4], 0, **kw)
+    ih.gossip_imp_hbm_shard_absorb(mark, nxt_mark, nxt, own, out, [1, 2, 3, 4], 0, **kw)
     assert ih.gossip_imp_hbm_shard_absorb.launches == before  # the CPU launches nothing
     with pytest.raises(ValueError, match="offs must lie"):
-        ih.gossip_imp_hbm_shard_absorb(mark, own, out, [0, 2, 3, 4], 0, **kw)
-    with pytest.raises(ValueError, match="pool_size"):
-        ih.gossip_imp_hbm_shard_absorb(mark, own, out, [1, 2, 3], 0, **kw)
-    with pytest.raises(ValueError, match="outside"):
-        ih.gossip_imp_hbm_shard_absorb(mark, own, out, [1, 2, 3, 4], 300, **kw)
-    with pytest.raises(ValueError, match="mark must be"):
-        ih.gossip_imp_hbm_shard_absorb(mark.to(torch.int32), own, out, [1, 2, 3, 4], 0,
+        ih.gossip_imp_hbm_shard_absorb(mark, nxt_mark, nxt, own, out, [0, 2, 3, 4], 0,
                                        **kw)
+    with pytest.raises(ValueError, match="pool_size"):
+        ih.gossip_imp_hbm_shard_absorb(mark, nxt_mark, nxt, own, out, [1, 2, 3], 0, **kw)
+    with pytest.raises(ValueError, match="outside"):
+        ih.gossip_imp_hbm_shard_absorb(mark, nxt_mark, nxt, own, out, [1, 2, 3, 4], 300,
+                                       **kw)
+    with pytest.raises(ValueError, match="mark must be"):
+        ih.gossip_imp_hbm_shard_absorb(mark.to(torch.int32), nxt_mark, nxt, own, out,
+                                       [1, 2, 3, 4], 0, **kw)
+    with pytest.raises(ValueError, match="next mark must be"):
+        ih.gossip_imp_hbm_shard_absorb(mark, nxt_mark[:8], nxt, own, out, [1, 2, 3, 4], 0,
+                                       **kw)
+    with pytest.raises(ValueError, match="two uint32 words"):
+        ih.gossip_imp_hbm_shard_absorb(mark, nxt_mark, ((1, 2), (-3, 4)), own, out,
+                                       [1, 2, 3, 4], 0, **kw)
     with pytest.raises(ValueError, match="two uint32 words"):
         ih.imp_hbm_shard_mark(mark, None, (-1, 0), (0, 0), 0, R, spec=spec,
                               pool_size=4, ctrl=ctrl)
@@ -153,7 +164,39 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     mark.fill_(7)
     ih.imp_hbm_shard_mark(mark, None, (1, 2), (3, 4), 0, R, spec=spec, pool_size=4,
                           ctrl=ctrl)
-    assert (mark == 7).all()
+    nxt_mark.fill_(7)
+    ih.gossip_imp_hbm_shard_absorb(mark, nxt_mark, nxt, own, out, [1, 2, 3, 4], 0, **kw)
+    assert (mark == 7).all() and (nxt_mark == 7).all()
+
+
+@pytest.mark.parametrize("algorithm", ["gossip", "push-sum"])
+def test_a_round_is_one_launch_a_shard(algorithm, monkeypatch, force_hbm):
+    """The launches a run queues, counted as wrapper calls (on the CPU each
+    runs its plain version): S absorbs a round (each also writing the
+    shard's next marks) and S mark prologues where the run starts or
+    resumes, none a round; the resumed run is still the full run."""
+    calls = {}
+    absorb = ("pushsum" if algorithm == "push-sum" else "gossip") + "_imp_hbm_shard_absorb"
+    for name in ("imp_hbm_shard_mark", absorb):
+        real = getattr(ih, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(ih, name, spy)
+    n, shards = 27_000, 4
+    full = _sharded("imp3d", n, algorithm, shards, max_rounds=21)
+    assert full.rounds == 21 and not full.converged
+    assert calls == {"imp_hbm_shard_mark": shards, absorb: shards * 21}
+    calls.clear()
+    mid = _sharded("imp3d", n, algorithm, shards, max_rounds=13)
+    cfg = _cfg("imp3d", n, algorithm, n_devices=shards, max_rounds=21)
+    resumed = run(_topo("imp3d", n), cfg, devices=["cpu"] * shards, start_state=mid.state,
+                  start_round=13)
+    assert calls == {"imp_hbm_shard_mark": 2 * shards, absorb: shards * 21}
+    assert resumed.rounds == 21
+    _same_state(resumed.state, full.state)
 
 
 @pytest.mark.parametrize("shards,devices", [

@@ -1,13 +1,15 @@
 """The per-node helpers of the sharded imp kernels (cop5615_gossip_protocol_
-tpu_torch/csrc/imp.cuh: first_word, end_word, word_row, word_node and the
-receivers' imp_pushsum_inbox and imp_gossip_inbox), built for the host with
-g++ into a tiny shared library and called through ctypes, the loops of
-csrc/fused_imp_hbm_shard.cu's mark and absorb around them. Over row ranges
-that cut the 8-row choice groups anywhere, the marks must be the plain
-version's (parallel/fused_imp_hbm_sharded.shard_marks_plain, push-sum and
-gossip), and over a shard's receivers the inboxes must be the plain
-absorb's (pushsum_inbox_plain bitwise, gossip_inbox_plain), at pool widths
-4 and 16, with and without pad lanes."""
+tpu_torch/csrc/imp.cuh: imp_mark and the receivers' imp_pushsum_inbox and
+imp_gossip_inbox), built for the host with g++ into a tiny shared library
+and called through ctypes, the node loop of csrc/fused_imp_hbm_shard.cu's
+prologue and absorb (which writes the same marks for the next round)
+around them. Over row ranges that cut the 8-row choice groups anywhere,
+the marks read through
+ops/fused_imp.imp_dir_words must be the plain version's
+(parallel/fused_imp_hbm_sharded.shard_marks_plain, push-sum and gossip),
+and over a shard's receivers the inboxes must be the plain absorb's
+(pushsum_inbox_plain bitwise, gossip_inbox_plain), at pool widths 4 and
+16, with and without pad lanes."""
 
 import ctypes
 import shutil
@@ -19,8 +21,6 @@ import torch
 
 from cop5615_gossip_protocol_tpu_torch import build_topology
 from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_imp, fused_pool, rng
-from cop5615_gossip_protocol_tpu_torch.ops.fused_stencil_hbm import _KIND_IDS
-from cop5615_gossip_protocol_tpu_torch.ops.topology import IMP_LATTICE
 from cop5615_gossip_protocol_tpu_torch.parallel import fused_imp_hbm_sharded as ih
 
 torch.set_num_threads(1)
@@ -38,25 +38,16 @@ static Classes lattice_of(const int* classes, int count) {
   return c;
 }
 
-// The mark kernel's loop over the words meeting rows [row_lo, row_lo + rows).
-extern "C" void shard_marks(int kind, int n, const int* classes, int n_classes,
-                            unsigned k1, unsigned k2, unsigned c1, unsigned c2,
-                            int pool_size, int row_lo, int rows, const int* active,
-                            int8_t* out) {
-  const Lattice L = make_lattice(kind, n, 0);
-  const Classes lattice = lattice_of(classes, n_classes);
-  for (int wi = first_word(row_lo); wi < end_word(row_lo + rows); ++wi) {
-    const uint32_t cword = threefry_word(c1, c2, (uint32_t)wi);
-    for (int sub = 0; sub < kChoicePack; ++sub) {
-      const int row = word_row(wi, sub);
-      if (row < row_lo || row >= row_lo + rows) continue;
-      const int j = word_node(wi, sub);
-      int8_t m = -1;
-      if (j < n && (active == nullptr || active[j - row_lo * kChoiceLanes] != 0))
-        m = (int8_t)imp_class(L, lattice, j, threefry_word(k1, k2, (uint32_t)j),
-                              pool_slot(cword, sub, pool_size));
-      out[j - row_lo * kChoiceLanes] = m;
-    }
+// The prologue's (and an absorb's next-mark) loop over rows
+// [row_lo, row_lo + rows).
+extern "C" void shard_marks(const uint32_t* words, int n, int n_classes, unsigned k1,
+                            unsigned k2, unsigned c1, unsigned c2, int pool_size,
+                            int row_lo, int rows, const int* active, int8_t* out) {
+  for (int l = 0; l < rows * kChoiceLanes; ++l) {
+    const int j = row_lo * kChoiceLanes + l;
+    out[l] = j < n && (active == nullptr || active[l] != 0)
+                 ? imp_mark(words[j], k1, k2, c1, c2, j, pool_size, n_classes)
+                 : (int8_t)-1;
   }
 }
 
@@ -95,7 +86,7 @@ def shim(tmp_path_factory):
                     "-I", str(CSRC), "-o", str(lib), str(d / "shim.cpp")],
                    check=True, timeout=120)
     so = ctypes.CDLL(str(lib))
-    so.shard_marks.argtypes = [_I, _I, _P, _I] + [_U] * 4 + [_I, _I, _I, _P, _P]
+    so.shard_marks.argtypes = [_P, _I, _I] + [_U] * 4 + [_I, _I, _I, _P, _P]
     so.inboxes.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]
     return so
 
@@ -119,6 +110,7 @@ def test_marks_and_inboxes_match_the_plain_versions(shim, kind, n, pool_size):
     R = fused_pool.build_pool_layout(n).rows
     keys, offs, ckeys = _round(n, pool_size)
     classes = (ctypes.c_int * len(spec.classes))(*spec.classes)
+    words = fused_imp.imp_dir_words(spec, R, torch.device("cpu"))
     gen = torch.Generator().manual_seed(1)
     active = (torch.rand(R, 128, generator=gen) < 0.5).to(torch.int32)
     # The whole ring's marks a shard range at a time, ranges cut anywhere.
@@ -128,9 +120,8 @@ def test_marks_and_inboxes_match_the_plain_versions(shim, kind, n, pool_size):
         got = torch.empty(R, 128, dtype=torch.int8)
         for lo, hi in zip(cuts, cuts[1:]):
             act = active[lo:hi].contiguous() if gossip else None
-            shim.shard_marks(_KIND_IDS[IMP_LATTICE[kind]], n, classes, len(spec.classes),
-                             *keys, *ckeys, pool_size, lo, hi - lo, _ptr(act),
-                             _ptr(got[lo:hi]))
+            shim.shard_marks(_ptr(words), n, len(spec.classes), *keys, *ckeys, pool_size,
+                             lo, hi - lo, _ptr(act), _ptr(got[lo:hi]))
             want = ih.shard_marks_plain(spec, keys, ckeys, pool_size, lo, hi - lo, act)
             assert torch.equal(got[lo:hi], want), (gossip, lo, hi)
         marks[gossip] = got
