@@ -9,17 +9,26 @@ non-zero before the last line:
 
 1. environment: python, torch and CUDA versions, the card's name and power
    limit (nvidia-smi);
-2. build every CUDA source of the port with nvcc, all started together;
-3. each pool kernel on one chunk of 32 rounds at n = 1,000,000, from the
-   initial state and from a mid-run state, held against its plain torch
-   version on the card (gossip bitwise; push-sum term/conv equal and s/w
-   within 2 ulp), plus a chunk that starts converged (0 rounds, state
-   unchanged);
+2. build every CUDA source of the port with nvcc, all started together,
+   and print each kernel's registers and spills (the persistent round
+   kernels of csrc/fused_pool.cu and csrc/fused_resident.cu must not
+   spill);
+3. each pool kernel (one persistent cooperative launch a chunk, one pass
+   and one barrier a round, the marks in two planes by round parity) on
+   one chunk of 32 rounds at n = 1,000,000, from the initial state and from
+   a mid-run state, with a cap inside the chunk after an odd and an even
+   number of rounds, a one-round chunk and two zero-round chunks (no keys;
+   capped at the start), held against its plain torch version on the card
+   (gossip bitwise; push-sum term/conv equal and s/w within 2 ulp), plus a
+   chunk that starts converged (0 rounds, state unchanged); and one chunk
+   from the initial state at 2,097,152 (2**21, the tier's cap, where the
+   planes outgrow the L2);
 4. the pool path through ``run()``: 1M push-sum and 1M gossip on full with
    pool_size 2, launch counters zeroed before each run and read after it;
    each must converge, push-sum to a small estimate error, and each
-   kernel's counter must have risen. A 1000-node run on the card must
-   match the CPU's chunked engine (rounds, converged count, estimate);
+   kernel's counter must read 9 (the warmup chunk and two 4,096-round
+   chunks, 3 launches each). A 1000-node run on the card must match the
+   CPU's chunked engine (rounds, converged count, estimate);
 5. each stencil kernel against its plain version on the card, the same
    way: torus3d at 16,777,216 (256**3) from the initial state, from a
    mid-run state, with a cap inside the chunk and from a converged state;
@@ -138,7 +147,8 @@ non-zero before the last line:
    run of the same shards; imp3d 520**3 in 4 shards, gossip to convergence
    and a 64-round push-sum sample conserving its mass;
 15. each kernel's time per chunk by CUDA events, beside its plain version's
-   and the least time the card could take for the same work; the shard
+   and the least time the card could take for the same work (rows 1-2
+   also over a 1,024-round chunk and at 2**21, and over rows 7-8); the shard
    kernels per super-step (every shard's launch) at 16,777,216 in 4, with
    the wire's copies timed apart; the sharded lattice kernels per
    super-step at torus3d 100**3 in 2 (resident) and 256**3 in 4
@@ -355,6 +365,63 @@ def zero_round_checks(name, kern, plain, chunk, state, start):
         if int(got[1]) != 0 or not all(torch.equal(a, b) for a, b in zip(got[0], state)):
             raise AssertionError(f"{name}: a zero-round chunk changed the state")
     return errs
+
+
+# The pool tier's cap (ops/fused_pool.MAX_POOL_NODES): one kernel check and
+# one timed chunk there, where push-sum's planes (52 MiB) outgrow the L2.
+POOL_CAP_N = 2**21
+
+
+def pool_fns(dev, key, n):
+    """The pool kernels (rows 1-2) at population n on full, pool_size POOL:
+    ({name: (kernel, plain, chunk, initial state, float planes, mid-run
+    round)}, (push-sum cfg, gossip cfg)), where chunk(fn, state, start,
+    count, cap=None) runs one chunk through fn on the run's streams."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models import gossip as gossip_mod
+    from cop5615_gossip_protocol_tpu_torch.models import pushsum as pushsum_mod
+    from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool
+
+    topo = build_topology("full", n)
+    layout = fused_pool.build_pool_layout(n)
+
+    @functools.lru_cache(maxsize=None)
+    def streams(start, count):
+        # Cached, so the timed calls time the wrappers (the streams' copy to
+        # the card included), not the host drawing the keys.
+        return (fused.round_keys(key, start, count),
+                fused_pool.round_offsets(key, start, count, POOL, n))
+
+    ps_cfg = SimConfig(n=n, algorithm="push-sum", delivery="pool", pool_size=POOL)
+    go_cfg = SimConfig(n=n, algorithm="gossip", delivery="pool", pool_size=POOL)
+    ps0 = pushsum_mod.init_state(n, ps_cfg.initial_term_round)
+    ps_init = tuple(fused._pad2d(x, layout, f).contiguous().to(dev) for x, f in (
+        (ps0.s, 0.0), (ps0.w, 1.0), (ps0.term, 0), (ps0.conv.to(torch.int32), 0)))
+    go0 = gossip_mod.init_state(n, draw_leader(key, topo, go_cfg), False)
+    go_init = tuple(fused._pad2d(x.to(torch.int32), layout, 0).contiguous().to(dev)
+                    for x in go0)
+
+    def ps_chunk(fn, state, start, count, cap=None):
+        keys, offs = streams(start, count)
+        return fn(state, keys, offs, start, start + count if cap is None else cap,
+                  n=n, target=n, delta=ps_cfg.resolved_delta,
+                  term_rounds=ps_cfg.term_rounds)
+
+    def go_chunk(fn, state, start, count, cap=None):
+        keys, offs = streams(start, count)
+        return fn(state, keys, offs, start, start + count if cap is None else cap,
+                  n=n, target=n, rumor_target=go_cfg.resolved_rumor_target,
+                  suppress=go_cfg.resolved_suppress)
+
+    return {
+        "pushsum": (fused_pool.pushsum_pool_chunk, fused_pool.pushsum_pool_chunk_plain,
+                    ps_chunk, ps_init, 2, MID_ROUNDS["pushsum"]),
+        "gossip": (fused_pool.gossip_pool_chunk, fused_pool.gossip_pool_chunk_plain,
+                   go_chunk, go_init, 0, MID_ROUNDS["gossip"]),
+    }, (ps_cfg, go_cfg)
 
 
 def lattice_checks(dev, key):
@@ -2319,10 +2386,7 @@ def main() -> int:
         return fail("no CUDA device: chip_smoke.py needs one GPU")
     try:
         from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
-        from cop5615_gossip_protocol_tpu_torch.models import gossip as gossip_mod
-        from cop5615_gossip_protocol_tpu_torch.models import pushsum as pushsum_mod
-        from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
-        from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool, rng
+        from cop5615_gossip_protocol_tpu_torch.ops import fused_pool, rng
         from cop5615_gossip_protocol_tpu_torch.utils import kernels
     except ImportError as e:
         return fail(f"the port is not importable ({e}); run from a checkout's root")
@@ -2358,74 +2422,52 @@ def main() -> int:
     for name, (lib, seconds) in builds.items():
         print(f"  {name}: nvcc {seconds:.2f} s -> {lib.name}")
         log = lib.with_suffix(".log")
+        entry = None
         for line in (log.read_text().splitlines() if log.exists() else ()):
             if "Compiling entry function" in line:
-                print(f"    {line.split(chr(39))[1]}")
+                entry = line.split(chr(39))[1]
+                print(f"    {entry}")
             elif "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
+                # A spill in a persistent round kernel (rows 1-2, 5-8)
+                # would add local-memory traffic to every round: a failure.
+                if (name in ("fused_pool", "fused_resident") and "rounds" in (entry or "")
+                        and "spill" in line and "0 bytes spill stores, 0 bytes spill loads"
+                        not in line):
+                    return fail(f"{name}: {entry} spills ({line.strip()})")
 
     # ---------------------------------------------------------------- 3
     topo = build_topology("full", N)
     layout = fused_pool.build_pool_layout(N)
     key = rng.PRNGKey(0)
-    target = N
-
-    @functools.lru_cache(maxsize=None)
-    def streams(start, count):
-        # Cached, so the timed calls below time the wrappers (the streams'
-        # copy to the card included), not the host drawing the keys.
-        return (fused.round_keys(key, start, count),
-                fused_pool.round_offsets(key, start, count, POOL, N))
-
-    ps_cfg = SimConfig(n=N, algorithm="push-sum", delivery="pool", pool_size=POOL)
-    go_cfg = SimConfig(n=N, algorithm="gossip", delivery="pool", pool_size=POOL)
-    ps0 = pushsum_mod.init_state(N, ps_cfg.initial_term_round)
-    ps_init = tuple(fused._pad2d(x, layout, f).contiguous().to(dev) for x, f in (
-        (ps0.s, 0.0), (ps0.w, 1.0), (ps0.term, 0), (ps0.conv.to(torch.int32), 0)))
-    go0 = gossip_mod.init_state(N, draw_leader(key, topo, go_cfg), False)
-    go_init = tuple(fused._pad2d(x.to(torch.int32), layout, 0).contiguous().to(dev)
-                    for x in go0)
-
-    def ps_chunk(fn, state, start, count, cap=None):
-        keys, offs = streams(start, count)
-        return fn(state, keys, offs, start, start + count if cap is None else cap,
-                  n=N, target=target, delta=ps_cfg.resolved_delta,
-                  term_rounds=ps_cfg.term_rounds)
-
-    def go_chunk(fn, state, start, count, cap=None):
-        keys, offs = streams(start, count)
-        return fn(state, keys, offs, start, start + count if cap is None else cap,
-                  n=N, target=target, rumor_target=go_cfg.resolved_rumor_target,
-                  suppress=go_cfg.resolved_suppress)
-
-    kernel_fns = {
-        "pushsum": (fused_pool.pushsum_pool_chunk, fused_pool.pushsum_pool_chunk_plain,
-                    ps_chunk, ps_init, 2, MID_ROUNDS["pushsum"]),
-        "gossip": (fused_pool.gossip_pool_chunk, fused_pool.gossip_pool_chunk_plain,
-                   go_chunk, go_init, 0, MID_ROUNDS["gossip"]),
-    }
+    kernel_fns, (ps_cfg, go_cfg) = pool_fns(dev, key, N)
     max_err = {}
     mid_states = {}
     print("kernels vs plain versions at n = 1,000,000:")
     try:
         for name, (kern, plain, chunk, init, nf, mid_round) in kernel_fns.items():
-            e1 = compare(f"{name} init K={CHUNK}", chunk(kern, init, 0, CHUNK),
-                         chunk(plain, init, 0, CHUNK), nf)
+            errs = [compare(f"{name} init K={CHUNK}", chunk(kern, init, 0, CHUNK),
+                            chunk(plain, init, 0, CHUNK), nf)]
             mid, ex = chunk(kern, init, 0, mid_round)
             if int(ex) != mid_round:
                 raise AssertionError(f"{name}: converged before round {mid_round}")
             mid_states[name] = (mid, mid_round)
-            e2 = compare(f"{name} mid-run K={CHUNK}", chunk(kern, mid, mid_round, CHUNK),
-                         chunk(plain, mid, mid_round, CHUNK), nf)
-            e3 = compare(f"{name} cap inside chunk", chunk(kern, mid, mid_round, CHUNK,
-                                                           cap=mid_round + 5),
-                         chunk(plain, mid, mid_round, CHUNK, cap=mid_round + 5), nf)
+            errs.append(compare(f"{name} mid-run K={CHUNK}", chunk(kern, mid, mid_round, CHUNK),
+                                chunk(plain, mid, mid_round, CHUNK), nf))
+            errs += parity_checks(name, kern, plain, chunk, mid, mid_round, nf)
+            errs += zero_round_checks(name, kern, plain, chunk, mid, mid_round)
             done_state, _ = chunk(kern, init, 0, 4096)
             out, ex = chunk(kern, done_state, 4096, CHUNK)
             if int(ex) != 0 or not all(torch.equal(a, b) for a, b in zip(out, done_state)):
                 raise AssertionError(f"{name}: a chunk from a converged state ran")
             print(f"  {name} from converged state: 0 rounds, state unchanged")
-            max_err[name] = max(e1, e2, e3)
+            max_err[name] = max(errs)
+        print(f"kernels vs plain versions at n = {POOL_CAP_N:,} (the tier's cap):")
+        cap_fns, _ = pool_fns(dev, key, POOL_CAP_N)
+        for name, (kern, plain, chunk, init, nf, _) in cap_fns.items():
+            max_err[name] = max(max_err[name], compare(
+                f"{name} init K={CHUNK}", chunk(kern, init, 0, CHUNK),
+                chunk(plain, init, 0, CHUNK), nf))
         torch.cuda.synchronize()
     except AssertionError as e:
         return fail(str(e))
@@ -2454,8 +2496,11 @@ def main() -> int:
         }))
         if not res.converged or res.converged_count != N:
             return fail(f"1M {name} did not converge ({res.outcome})")
-        if launches[name][name] == 0:
-            return fail(f"the 1M {name} run never launched its kernel")
+        # The warmup chunk and two 4,096-round chunks (pipeline depth 2),
+        # 3 launches each whatever their rounds.
+        if launches[name][name] != 3 * fused_pool.chunk_launches(4096):
+            return fail(f"the 1M {name} run queued {launches[name][name]} launches "
+                        "of its kernel, not 9 (3 chunks of 3)")
     # Converged ratios sit at the true mean (n-1)/2 up to float32 rounding:
     # the error relative to the mean must stay near the 1e-7 ulp scale.
     mae = results["pushsum"].estimate_mae
@@ -2514,28 +2559,46 @@ def main() -> int:
     replaces = {"pushsum": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:860",
                 "gossip": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:1157"}
     plane_bytes = {"pushsum": 16, "gossip": 12}
+    def pool_bound(n_pad, rounds, name):
+        # The state stays in the L2 through the chunk at 1M: its bytes are
+        # read and written once per chunk, with the streams.
+        algo = "push-sum" if name == "pushsum" else "gossip"
+        moved = 2 * plane_bytes[name] * n_pad + CHUNK * (16 + 4 * POOL) + 8
+        ops = rounds * (n_pad // 8 * OPS_PER_WORD + n_pad * ops_per_node(algo, POOL))
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
     for name, (kern, plain, chunk, init, nf, _) in kernel_fns.items():
         mid, mid_round = mid_states[name]
         ms, (_, ex) = time_ms(lambda: chunk(kern, mid, mid_round, CHUNK), TIME_REPS)
+        # The same state over a long chunk, which spreads the chunk's fixed
+        # cost (the wrapper, three launches) over more rounds.
+        long_ms, (_, long_ex) = time_ms(lambda: chunk(kern, mid, mid_round, LONG_CHUNK),
+                                        TIME_REPS)
         plain_ms, _ = time_ms(lambda: chunk(plain, mid, mid_round, CHUNK), 2)
         rounds = int(ex)
-        algo = "push-sum" if name == "pushsum" else "gossip"
-        moved = 2 * plane_bytes[name] * layout.n_pad + CHUNK * (16 + 4 * POOL) + 8
-        ops = rounds * (layout.n_pad // 8 * OPS_PER_WORD
-                        + layout.n_pad * ops_per_node(algo, POOL))
-        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        bound_ms, bound_by = pool_bound(layout.n_pad, rounds, name)
+        # The first chunk at the tier's cap, whose planes outgrow the L2.
+        kern_c, _, chunk_c, init_c, _, _ = cap_fns[name]
+        cap_ms, (cap_out, cap_ex) = time_ms(lambda: chunk_c(kern_c, init_c, 0, CHUNK),
+                                            TIME_REPS)
+        cap_bound_ms, cap_bound_by = pool_bound(cap_out[0].numel(), int(cap_ex), name)
         rows.append({
             "name": f"{name}_pool_chunk", "route": "cuda",
             "source": "cop5615_gossip_protocol_tpu_torch/csrc/fused_pool.cu",
             "replaces": replaces[name],
             "launches": launches[name][name], "max_abs_err": max_err[name],
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
             "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+            "rounds_long_chunk": int(long_ex),
+            "us_per_round_long_chunk": long_ms * 1e3 / int(long_ex),
+            "at_cap": {"population": POOL_CAP_N, "ms": cap_ms, "bound_ms": cap_bound_ms,
+                       "bound_by": cap_bound_by, "rounds_per_call": int(cap_ex),
+                       "us_per_round": cap_ms * 1e3 / int(cap_ex)},
             "status": "ported",
         })
+    del cap_fns
     replaces = {"pushsum": "cop5615_gossip_protocol_tpu/ops/fused_stencil_hbm.py:899",
                 "gossip": "cop5615_gossip_protocol_tpu/ops/fused_stencil_hbm.py:1206"}
     for name, (kern, plain, chunk, mid, mid_round, layout, classes) in lattice_cases.items():
@@ -2703,6 +2766,15 @@ def main() -> int:
         "row13_over_row9": us["pushsum_imp_hbm_chunk"] / us["pushsum_stencil_hbm_chunk"],
         "row18_over_row9": (us["pushsum_imp_hbm_shard_round"]
                             / us["pushsum_stencil_hbm_chunk"])}), flush=True)
+    # Rows 1-2 beside rows 7-8 (the same persistent design at torus3d 1M,
+    # 10 classes in place of 2), all from this run.
+    print(json.dumps({"metric": "pool_us_per_round", **{
+        name: us[name] for name in (
+            "pushsum_pool_chunk", "gossip_pool_chunk", "pushsum_stencil2_chunk",
+            "gossip_stencil2_chunk")},
+        "row1_over_row7": us["pushsum_pool_chunk"] / us["pushsum_stencil2_chunk"],
+        "row2_over_row8": us["gossip_pool_chunk"] / us["gossip_stencil2_chunk"]}),
+        flush=True)
     print(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

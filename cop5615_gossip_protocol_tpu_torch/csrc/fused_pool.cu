@@ -16,215 +16,453 @@
 // stops the chunk once the converged count reaches the target. Pad lanes
 // (j >= n) never send and never receive.
 //
-// What bounds it on this card: memory traffic. The arithmetic is small
-// (one 20-round Threefry per 8 nodes, a dozen float ops per node), while a
-// round must at least read and write the state: s, w, term and conv are
-// 16 bytes a node each way, 32 MiB a round at n_pad = 2**20. The state and
-// the send planes (about 26 MiB) fit in the 50 MB L2, so most of that
-// traffic is served from L2 rather than HBM.
+// What bounds it on this card: the memory system's latency, not bytes or
+// operations. A round reads each node's state and its P slot sources and
+// writes the state back (43 bytes a node for push-sum at P = 2), from
+// planes that mostly stay in the 50 MB L2 at n_pad = 2**20 (at 2**21 they
+// do not), and ends at the grid barrier (~2.5 us at 1M); its arithmetic (a
+// dozen float ops a node and a 20-round Threefry per 8 nodes) is well under
+// a microsecond of the card's rate.
 //
-// Design: the TPU kernel's doubled planes, lane rotates and straddle split
-// exist because a TPU tile load needs a static shape; here a shifted read
-// is just a load at a computed index, and neighbouring threads read
-// neighbouring addresses, so the gather is coalesced as it stands. Each
-// round is two launches that keep the state in place:
-//   send   - one thread per packed word (8 nodes of one lane): draws the
-//            word, writes the halved sends and the int8 choice plane
-//            (gossip folds its send mask into the choice as -1);
-//   absorb - one thread per node: gathers the P slot contributions,
-//            absorbs, and adds its block's converged count to the round's
-//            total; the last block to finish latches the done flag and
-//            the executed-round count in `ctrl`.
-// Every launch first reads the done flag and returns at once when it is
-// set, so a chunk of K rounds is 2K launches queued with no host sync,
-// after an init launch that copies the input planes into the output planes
-// and seeds the done flag (csrc/chunk.cuh, which also holds the absorb
-// arithmetic and the numerics).
+// Design: the form of csrc/fused_resident.cu. One persistent cooperative
+// launch runs every round of the chunk, one pass and one grid barrier a
+// round; an init launch (the input into A, the done flag seeded) and a
+// finish launch (the result into A) bracket it, so a chunk is 3 launches
+// whatever K is. The grid is every block the SMs hold at once, never more
+// than the packed words need (512 blocks at 1M; the capacity is asked once
+// a device and pool width); the launch goes through
+// cudaLaunchCooperativeKernel, which refuses a grid whose blocks are not
+// all resident. The planes other nodes read are double-buffered: push-sum's
+// s and w in A and B, and every node's pool slot (its mark, -1 for no
+// send) in two int8 planes, mark[0] and mark[1]. What only the node itself
+// reads is updated in place: push-sum's term and conv in A, gossip's count
+// in A and its active and conv flags in one int8 plane, which the finish
+// unpacks into A.
+//   prologue - round 0's marks into mark[0] (gossip only from active
+//              nodes), in the walk the rounds use; then one barrier;
+//   round r  - a thread takes the 8 nodes of one packed choice word (one
+//              lane, 8 rows 128 apart: csrc/pool.cuh word_node; neighbouring
+//              threads on neighbouring lanes, so each warp reads 32
+//              consecutive nodes a step) and hashes the word once for them.
+//              In steps of nodes (kPushSumStep, kGossipStep) it first loads
+//              each node's own state and gathers, over the slots in
+//              ascending order, the halved s and w (push-sum) or the
+//              receipts (gossip) of the slot source whose mark in
+//              mark[r & 1] is the slot, from the round's current planes;
+//              then absorbs each node and writes its round r + 1 mark into
+//              mark[(r + 1) & 1] (in gossip from the active flag it has just
+//              computed, held in a register); then the round's barrier
+//              (csrc/persistent.cuh), whose 64-bit word carries the arrivals
+//              and the converged count, so every block stops at the target
+//              or the cap together. Block 0 writes the done flag and the
+//              executed count to `ctrl` once, at the end.
+// The pool width P is a template argument (2, 4, 8 or 16), so a receiver's
+// slot loads are straight-line code issued together.
+// scripts/pool_round_variants.py times the other forms: a thread a node
+// hashing its own word, other steps, the width at run time, the own state
+// through the absorb's accessors (PERF.md §6).
+// Ordering: pass r + 1 writes mark[r & 1] and the plane set that pass r
+// read, and every block has passed barrier r before it starts pass r + 1;
+// the mark[(r + 1) & 1] that pass r writes was last read by pass r - 1,
+// before barrier r - 1. Marks written for a round that never runs are
+// never read. A chunk from a converged state: the init launch sets the done
+// flag, and every block of the persistent launch reads it at entry and
+// leaves. No send plane is written: the halve happens on the gather.
+//
+// Numerics: built without fast math, with -fmad=false and denormals kept
+// (utils/kernels.py), and the slot sums run from 0.0 in ascending slot
+// order, so push-sum is bitwise the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chunk.cuh"
-#include "threefry.cuh"
+#include "persistent.cuh"
+#include "pool.cuh"
 
 namespace {
 
 using gossip::GossipPlanes;
 using gossip::PushSumPlanes;
 using gossip::block_sum;
-using gossip::finish_count;
+using gossip::cooperative_grid;
 using gossip::kBlock;
+using gossip::kChoicePack;
+using gossip::pool_mark;
+using gossip::pool_word;
+using gossip::round_barrier;
+using gossip::word_node;
+using gossip::zero_control;
 
-constexpr int kLanes = 128;
-constexpr int kPack = 8;  // nodes (rows) per packed choice word
+// A chunk's arguments, passed to its persistent kernel by value.
+struct PushSumChunk {
+  PushSumPlanes a;  // the result; term and conv are updated in place
+  float* s_b;       // the other half of s and w's ping/pong pair
+  float* w_b;
+  int8_t* mark;  // int8[2 * n_pad]: the marks of each round parity
+  const long long* keys;
+  const int* offs;
+  int n, n_pad, rounds;
+  float delta;
+  int term_rounds, target;
+  unsigned long long* words;  // the barrier words: rounds, then the prologue's
+  int* ctrl;
+};
 
-inline int blocks_for(long long threads) {
-  return (int)((threads + kBlock - 1) / kBlock);
-}
+struct GossipChunk {
+  GossipPlanes a;  // the result; count is updated in place
+  int8_t* flags;   // each node's active and conv flags, updated in place
+  int8_t* mark;
+  const long long* keys;
+  const int* offs;
+  int n, n_pad, rounds, rumor_target, suppress, target;
+  unsigned long long* words;
+  int* ctrl;
+};
 
-__device__ __forceinline__ int mod_n_source(int j, int d, int n) {
-  return j >= d ? j - d : j - d + n;
+// Nodes of a thread's walk whose loads (own state and slot gathers) are
+// issued together before their absorbs and stores: the stores of one node
+// would otherwise hold back the next node's loads, one L2 round trip a node.
+// Gossip's loads are a few registers a node; push-sum's are many, and its
+// larger steps cost more in registers and occupancy than they saved
+// (scripts/pool_round_variants.py, PERF.md).
+constexpr int kPushSumStep = 1;
+constexpr int kGossipStep = 4;
+
+// A gossip node's flags byte: its active flag and its conv flag.
+constexpr int kActive = 1;
+constexpr int kConv = 2;
+
+// Round 0's marks into mark[0], a thread a packed word as in the rounds;
+// `flags` is gossip's flags plane (only active nodes send) or null
+// (push-sum: every real node sends).
+template <int P>
+__device__ __forceinline__ void prologue_marks(int8_t* mark,
+                                               const int8_t* flags,
+                                               const long long* keys, int n,
+                                               int n_pad) {
+  const uint32_t k0 = (uint32_t)keys[0], k1 = (uint32_t)keys[1];
+  for (int wi = blockIdx.x * kBlock + threadIdx.x; wi < n_pad / kChoicePack;
+       wi += gridDim.x * kBlock) {
+    const uint32_t word = pool_word(k0, k1, word_node(wi, 0));
+    for (int sub = 0; sub < kChoicePack; ++sub) {
+      const int j = word_node(wi, sub);
+      mark[j] = flags == nullptr || (flags[j] & kActive)
+                    ? pool_mark(word, j, n, P)
+                    : (int8_t)-1;
+    }
+  }
 }
 
 // ---------------------------------------------------------------- push-sum
 
-__global__ void pushsum_send(const float* __restrict__ s,
-                             const float* __restrict__ w, float* ds,
-                             float* dw, int8_t* choice,
-                             const long long* __restrict__ key, int n,
-                             int n_words, int pool_size,
-                             const int* __restrict__ ctrl) {
-  if (ctrl[0]) return;
-  const int wi = blockIdx.x * kBlock + threadIdx.x;
-  if (wi >= n_words) return;
-  const uint32_t word =
-      gossip::threefry_word((uint32_t)key[0], (uint32_t)key[1], (uint32_t)wi);
-  const int base = (wi / kLanes) * kPack * kLanes + wi % kLanes;
-  for (int sub = 0; sub < kPack; ++sub) {
-    const int j = base + sub * kLanes;
-    const bool pad = j >= n;
-    ds[j] = pad ? 0.0f : s[j] * 0.5f;
-    dw[j] = pad ? 0.0f : w[j] * 0.5f;
-    choice[j] = (int8_t)gossip::pool_slot(word, sub, pool_size);
+template <int P>
+__global__ void pushsum_rounds(PushSumChunk c) {
+  // The init launch's verdict: every block reads the same value.
+  if (c.ctrl[0] || c.rounds == 0) return;
+  prologue_marks<P>(c.mark, nullptr, c.keys, c.n, c.n_pad);
+  round_barrier(c.words + c.rounds, 0);
+  const PushSumPlanes a = c.a;
+  int executed = 0;
+  bool done = false;
+  while (!done && executed < c.rounds) {
+    const int r = executed;
+    const float* cur_s = (r & 1) ? c.s_b : a.s;
+    const float* cur_w = (r & 1) ? c.w_b : a.w;
+    float* nxt_s = (r & 1) ? a.s : c.s_b;
+    float* nxt_w = (r & 1) ? a.w : c.w_b;
+    const int8_t* mk = c.mark + (r & 1) * c.n_pad;
+    const int* od = c.offs + r * P;
+    int8_t* next =
+        r + 1 < c.rounds ? c.mark + ((r + 1) & 1) * c.n_pad : nullptr;
+    const uint32_t k0 = next ? (uint32_t)c.keys[2 * r + 2] : 0u;
+    const uint32_t k1 = next ? (uint32_t)c.keys[2 * r + 3] : 0u;
+    int count = 0;
+    for (int wi = blockIdx.x * kBlock + threadIdx.x; wi < c.n_pad / kChoicePack;
+         wi += gridDim.x * kBlock) {
+      // The packed word of the thread's 8 nodes, hashed once for them.
+      const uint32_t word = next ? pool_word(k0, k1, word_node(wi, 0)) : 0u;
+#pragma unroll 1
+      for (int sub0 = 0; sub0 < kChoicePack; sub0 += kPushSumStep) {
+        // The step's loads first: each node's own state and its slot
+        // gathers, in flight together.
+        float s_t[kPushSumStep], w_t[kPushSumStep];
+        float in_s[kPushSumStep], in_w[kPushSumStep];
+        int t_old[kPushSumStep], c_old[kPushSumStep];
+#pragma unroll
+        for (int h = 0; h < kPushSumStep; ++h) {
+          const int j = word_node(wi, sub0 + h);
+          s_t[h] = cur_s[j];
+          w_t[h] = cur_w[j];
+          t_old[h] = a.term[j];
+          c_old[h] = a.conv[j];
+          in_s[h] = 0.0f;
+          in_w[h] = 0.0f;
+          if (j < c.n)
+            gossip::pool_pushsum_inbox<P>(od, mk, cur_s, cur_w, j, c.n, in_s[h],
+                                          in_w[h]);
+        }
+#pragma unroll
+        for (int h = 0; h < kPushSumStep; ++h) {
+          const int j = word_node(wi, sub0 + h);
+          const bool pad = j >= c.n;
+          // Every real node sends; pad lanes keep their mass.
+          float s_new, w_new;
+          int t_new;
+          const int cv = gossip::pushsum_absorb(
+              s_t[h], w_t[h], [&] { return t_old[h]; },
+              [&] { return c_old[h] != 0; }, pad, !pad, in_s[h], in_w[h],
+              c.delta, c.term_rounds, s_new, w_new, t_new);
+          nxt_s[j] = s_new;
+          nxt_w[j] = w_new;
+          a.term[j] = t_new;
+          a.conv[j] = cv;
+          if (next) next[j] = pool_mark(word, j, c.n, P);
+          count += cv;
+        }
+      }
+    }
+    done = round_barrier(c.words + r, block_sum(count)) >= c.target;
+    ++executed;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    c.ctrl[0] = done ? 1 : 0;
+    c.ctrl[1] = executed;
   }
 }
 
-__global__ void pushsum_absorb(float* s, float* w, int* term, int* conv,
-                               const float* __restrict__ ds,
-                               const float* __restrict__ dw,
-                               const int8_t* __restrict__ choice,
-                               const int* __restrict__ offs, int n, int n_pad,
-                               int pool_size, float delta, int term_rounds,
-                               int target, int* total, unsigned* ticket,
-                               int* ctrl) {
-  if (ctrl[0]) return;
-  const int j = blockIdx.x * kBlock + threadIdx.x;
-  int c = 0;
-  if (j < n_pad) {
-    const bool pad = j >= n;
-    float in_s = 0.0f, in_w = 0.0f;
-    if (!pad) {
-      for (int slot = 0; slot < pool_size; ++slot) {
-        const int i = mod_n_source(j, offs[slot], n);
-        const bool hit = choice[i] == slot;
-        in_s = in_s + (hit ? ds[i] : 0.0f);
-        in_w = in_w + (hit ? dw[i] : 0.0f);
-      }
-    }
-    // In place: the gathers above read the send planes, never s or w.
-    const PushSumPlanes st{s, w, term, conv};
-    c = gossip::pushsum_absorb_node(st, st, j, pad, !pad, in_s, in_w, delta,
-                                    term_rounds);
+// The result into A: B's s and w when the executed count is odd (term and
+// conv stay in A throughout).
+__global__ void pushsum_finish(PushSumChunk c) {
+  if (!(c.ctrl[1] & 1)) return;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < c.n_pad;
+       j += gridDim.x * kBlock) {
+    c.a.s[j] = c.s_b[j];
+    c.a.w[j] = c.w_b[j];
   }
-  finish_count(block_sum(c), total, ticket, ctrl, target, true);
 }
 
 // ------------------------------------------------------------------ gossip
 
-__global__ void gossip_send(const int* __restrict__ active, int8_t* mark,
-                            const long long* __restrict__ key, int n,
-                            int n_words, int pool_size,
-                            const int* __restrict__ ctrl) {
-  if (ctrl[0]) return;
-  const int wi = blockIdx.x * kBlock + threadIdx.x;
-  if (wi >= n_words) return;
-  const uint32_t word =
-      gossip::threefry_word((uint32_t)key[0], (uint32_t)key[1], (uint32_t)wi);
-  const int base = (wi / kLanes) * kPack * kLanes + wi % kLanes;
-  for (int sub = 0; sub < kPack; ++sub) {
-    const int j = base + sub * kLanes;
-    const bool sending = j < n && active[j] != 0;
-    mark[j] = (int8_t)(sending ? gossip::pool_slot(word, sub, pool_size) : -1);
+// The input into A, the flags packed from the input's active and conv
+// planes, and the done flag seeded from the input's converged count.
+__global__ void gossip_init(GossipChunk c, const int* __restrict__ n0,
+                            const int* __restrict__ a0,
+                            const int* __restrict__ c0, int* total,
+                            unsigned* ticket) {
+  int converged = 0;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < c.n_pad;
+       j += gridDim.x * kBlock) {
+    c.a.count[j] = n0[j];
+    c.a.active[j] = a0[j];
+    c.a.conv[j] = c0[j];
+    c.flags[j] =
+        (int8_t)((a0[j] != 0 ? kActive : 0) | (c0[j] != 0 ? kConv : 0));
+    converged += c0[j];
+  }
+  gossip::finish_count(block_sum(converged), total, ticket, c.ctrl, c.target,
+                       false);
+}
+
+// Only a node itself reads its count, active and conv flags (other nodes
+// read its marks), so they are updated in place: count in A, the two flags
+// in one byte, 5 bytes a node each way a round where three int32 ping/pong
+// planes moved 12.
+template <int P>
+__global__ void gossip_rounds(GossipChunk c) {
+  if (c.ctrl[0] || c.rounds == 0) return;
+  prologue_marks<P>(c.mark, c.flags, c.keys, c.n, c.n_pad);
+  round_barrier(c.words + c.rounds, 0);
+  int executed = 0;
+  bool done = false;
+  while (!done && executed < c.rounds) {
+    const int r = executed;
+    const int8_t* mk = c.mark + (r & 1) * c.n_pad;
+    const int* od = c.offs + r * P;
+    int8_t* next =
+        r + 1 < c.rounds ? c.mark + ((r + 1) & 1) * c.n_pad : nullptr;
+    const uint32_t k0 = next ? (uint32_t)c.keys[2 * r + 2] : 0u;
+    const uint32_t k1 = next ? (uint32_t)c.keys[2 * r + 3] : 0u;
+    int count = 0;
+    for (int wi = blockIdx.x * kBlock + threadIdx.x; wi < c.n_pad / kChoicePack;
+         wi += gridDim.x * kBlock) {
+      // The packed word of the thread's 8 nodes, hashed once for them.
+      const uint32_t word = next ? pool_word(k0, k1, word_node(wi, 0)) : 0u;
+#pragma unroll 1
+      for (int sub0 = 0; sub0 < kChoicePack; sub0 += kGossipStep) {
+        int count0[kGossipStep], flags0[kGossipStep], inbox[kGossipStep];
+#pragma unroll
+        for (int h = 0; h < kGossipStep; ++h) {
+          const int j = word_node(wi, sub0 + h);
+          count0[h] = c.a.count[j];
+          flags0[h] = c.flags[j];
+          inbox[h] = j < c.n ? gossip::pool_gossip_inbox<P>(od, mk, j, c.n) : 0;
+        }
+#pragma unroll
+        for (int h = 0; h < kGossipStep; ++h) {
+          const int j = word_node(wi, sub0 + h);
+          int cnt, act;
+          const int cv = gossip::gossip_absorb(
+              [&] { return (flags0[h] & kConv) != 0; },
+              [&] { return count0[h]; }, [&] { return flags0[h] & kActive; },
+              j >= c.n, inbox[h],
+              c.rumor_target, c.suppress, cnt, act);
+          c.a.count[j] = cnt;
+          c.flags[j] = (int8_t)((act ? kActive : 0) | (cv ? kConv : 0));
+          if (next)
+            next[j] = act ? pool_mark(word, j, c.n, P) : (int8_t)-1;
+          count += cv;
+        }
+      }
+    }
+    done = round_barrier(c.words + r, block_sum(count)) >= c.target;
+    ++executed;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    c.ctrl[0] = done ? 1 : 0;
+    c.ctrl[1] = executed;
   }
 }
 
-__global__ void gossip_absorb(int* count, int* active, int* conv,
-                              const int8_t* __restrict__ mark,
-                              const int* __restrict__ offs, int n, int n_pad,
-                              int pool_size, int rumor_target, int suppress,
-                              int target, int* total, unsigned* ticket,
-                              int* ctrl) {
-  if (ctrl[0]) return;
-  const int j = blockIdx.x * kBlock + threadIdx.x;
-  int c = 0;
-  if (j < n_pad) {
-    int inbox = 0;
-    if (j < n) {
-      for (int slot = 0; slot < pool_size; ++slot) {
-        inbox += mark[mod_n_source(j, offs[slot], n)] == slot ? 1 : 0;
-      }
-    }
-    const GossipPlanes st{count, active, conv};
-    c = gossip::gossip_absorb_node(st, st, j, j >= n, inbox, rumor_target,
-                                   suppress);
+// The flags into A's active and conv planes when a round ran.
+__global__ void gossip_finish(GossipChunk c) {
+  if (c.ctrl[1] == 0) return;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < c.n_pad;
+       j += gridDim.x * kBlock) {
+    const int flags = c.flags[j];
+    c.a.active[j] = flags & kActive;
+    c.a.conv[j] = (flags & kConv) ? 1 : 0;
   }
-  finish_count(block_sum(c), total, ticket, ctrl, target, true);
+}
+
+// The persistent grid of each kernel instance, asked once a device: one
+// cache a pool width (2, 4, 8, 16).
+int pushsum_grid_cache[4][64];
+int gossip_grid_cache[4][64];
+
+constexpr int width_index(int pool_size) {
+  return pool_size == 2 ? 0 : pool_size == 4 ? 1 : pool_size == 8 ? 2 : 3;
+}
+
+// Queues a push-sum chunk at pool width P: init, the persistent launch,
+// finish, all three on the persistent grid.
+template <int P>
+cudaError_t queue_pushsum(PushSumChunk c, const float* s0, const float* w0,
+                          const int* t0, const int* c0, int device,
+                          cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = cooperative_grid(pushsum_rounds<P>, c.n_pad / kChoicePack,
+                                     device,
+                                     pushsum_grid_cache[width_index(P)], &grid);
+  if (err != cudaSuccess) return err;
+  int* init_words = (int*)(c.words + c.rounds + 1);
+  gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
+      s0, w0, t0, c0, c.a, c.n_pad, init_words, (unsigned*)(init_words + 1),
+      c.ctrl, c.target);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  void* args[] = {&c};
+  err = cudaLaunchCooperativeKernel((const void*)pushsum_rounds<P>, grid,
+                                    kBlock, args, 0, stream);
+  if (err != cudaSuccess) return err;
+  pushsum_finish<<<grid, kBlock, 0, stream>>>(c);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t queue_gossip(GossipChunk c, const int* n0, const int* a0,
+                         const int* c0, int device, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = cooperative_grid(gossip_rounds<P>, c.n_pad / kChoicePack,
+                                     device,
+                                     gossip_grid_cache[width_index(P)], &grid);
+  if (err != cudaSuccess) return err;
+  int* init_words = (int*)(c.words + c.rounds + 1);
+  gossip_init<<<grid, kBlock, 0, stream>>>(c, n0, a0, c0, init_words,
+                                           (unsigned*)(init_words + 1));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  void* args[] = {&c};
+  err = cudaLaunchCooperativeKernel((const void*)gossip_rounds<P>, grid,
+                                    kBlock, args, 0, stream);
+  if (err != cudaSuccess) return err;
+  gossip_finish<<<grid, kBlock, 0, stream>>>(c);
+  return cudaGetLastError();
+}
+
+bool valid_chunk(int n, int n_pad, int pool_size, int rounds) {
+  return rounds >= 0 && n >= 2 && n <= n_pad &&
+         n_pad % (gossip::kChoicePack * gossip::kChoiceLanes) == 0 &&
+         (pool_size == 2 || pool_size == 4 || pool_size == 8 ||
+          pool_size == 16);
 }
 
 }  // namespace
 
 // ------------------------------------------------------------- C interface
 //
-// Both entry points queue the init launch plus two launches per round on
-// `stream` of CUDA device `device` and return the first launch error (a cudaError_t), 0 if none.
-// Outputs and scratch are allocated by the caller: ctrl is int32[2]
-// (done, rounds executed) and scratch int32[2 * (rounds + 1)] (per-round
-// totals, then tickets), both zeroed; the choice plane is int8[n_pad].
+// Both entry points zero the control words and queue three launches on
+// `stream` of CUDA device `device` (the init launch, the persistent
+// cooperative launch that runs every round, the finish launch, all three on
+// the persistent grid, so no occupancy is asked after a device's first
+// chunk at a pool width) and return the first error (a cudaError_t), 0 if
+// none. Outputs and control words are allocated by the caller: the A planes
+// receive the result, the B planes are the other half of the ping/pong pair
+// (push-sum: s and w only); mark is int8[2 * n_pad]; keys int64[2 * rounds]
+// (uint32 words) and offs int32[rounds * pool_size] are on the device;
+// pool_size is 2, 4, 8 or 16; ctrl holds the chunk's control words:
+// int32[2] (done, rounds executed), then 8 * (rounds + 2) bytes of scratch,
+// the per-round barrier words (uint64, rounds of them, then the
+// prologue's) and the init launch's total and ticket (int32 each); ctrl
+// must be 8-byte aligned.
 
 extern "C" int gossip_pushsum_pool_chunk(
     const float* s0, const float* w0, const int* t0, const int* c0, float* s,
-    float* w, int* term, int* conv, float* ds, float* dw, int8_t* choice,
-    const long long* keys, const int* offs, int* ctrl, int* scratch, int n,
-    int n_pad, int pool_size, int rounds, float delta, int term_rounds,
-    int target, int device, void* stream_ptr) {
+    float* w, int* term, int* conv, float* s_b, float* w_b, int8_t* mark,
+    const long long* keys, const int* offs, int* ctrl, int n, int n_pad,
+    int pool_size, int rounds, float delta, int term_rounds, int target,
+    int device, void* stream_ptr) {
+  if (!valid_chunk(n, n_pad, pool_size, rounds))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int* totals = scratch;
-  unsigned* tickets = (unsigned*)(scratch + rounds + 1);
-  const int n_words = n_pad / kPack;
-  gossip::pushsum_init<<<blocks_for(n_pad), kBlock, 0, stream>>>(
-      s0, w0, t0, c0, PushSumPlanes{s, w, term, conv}, n_pad,
-      totals + rounds, tickets + rounds, ctrl, target);
-  err = cudaGetLastError();
-  for (int r = 0; r < rounds && err == cudaSuccess; ++r) {
-    pushsum_send<<<blocks_for(n_words), kBlock, 0, stream>>>(
-        s, w, ds, dw, choice, keys + 2 * r, n, n_words, pool_size, ctrl);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) break;
-    pushsum_absorb<<<blocks_for(n_pad), kBlock, 0, stream>>>(
-        s, w, term, conv, ds, dw, choice, offs + r * pool_size, n, n_pad,
-        pool_size, delta, term_rounds, target, totals + r, tickets + r, ctrl);
-    err = cudaGetLastError();
+  // The control words, zeroed on the stream ahead of the chunk.
+  err = zero_control(ctrl, rounds, stream);
+  if (err != cudaSuccess) return (int)err;
+  const PushSumChunk c{PushSumPlanes{s, w, term, conv},
+                       s_b, w_b, mark, keys, offs, n, n_pad, rounds, delta,
+                       term_rounds, target,
+                       (unsigned long long*)(ctrl + 2), ctrl};
+  switch (pool_size) {
+    case 2: return (int)queue_pushsum<2>(c, s0, w0, t0, c0, device, stream);
+    case 4: return (int)queue_pushsum<4>(c, s0, w0, t0, c0, device, stream);
+    case 8: return (int)queue_pushsum<8>(c, s0, w0, t0, c0, device, stream);
+    default: return (int)queue_pushsum<16>(c, s0, w0, t0, c0, device, stream);
   }
-  return (int)err;
 }
 
 extern "C" int gossip_gossip_pool_chunk(
     const int* n0, const int* a0, const int* c0, int* count, int* active,
-    int* conv, int8_t* mark, const long long* keys, const int* offs,
-    int* ctrl, int* scratch, int n, int n_pad, int pool_size, int rounds,
-    int rumor_target, int suppress, int target, int device,
-    void* stream_ptr) {
+    int* conv, int8_t* flags, int8_t* mark, const long long* keys,
+    const int* offs, int* ctrl, int n, int n_pad,
+    int pool_size, int rounds, int rumor_target, int suppress, int target,
+    int device, void* stream_ptr) {
+  if (!valid_chunk(n, n_pad, pool_size, rounds))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int* totals = scratch;
-  unsigned* tickets = (unsigned*)(scratch + rounds + 1);
-  const int n_words = n_pad / kPack;
-  gossip::gossip_init<<<blocks_for(n_pad), kBlock, 0, stream>>>(
-      n0, a0, c0, GossipPlanes{count, active, conv}, n_pad, totals + rounds,
-      tickets + rounds, ctrl, target);
-  err = cudaGetLastError();
-  for (int r = 0; r < rounds && err == cudaSuccess; ++r) {
-    gossip_send<<<blocks_for(n_words), kBlock, 0, stream>>>(
-        active, mark, keys + 2 * r, n, n_words, pool_size, ctrl);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) break;
-    gossip_absorb<<<blocks_for(n_pad), kBlock, 0, stream>>>(
-        count, active, conv, mark, offs + r * pool_size, n, n_pad, pool_size,
-        rumor_target, suppress, target, totals + r, tickets + r, ctrl);
-    err = cudaGetLastError();
+  // The control words, zeroed on the stream ahead of the chunk.
+  err = zero_control(ctrl, rounds, stream);
+  if (err != cudaSuccess) return (int)err;
+  const GossipChunk c{GossipPlanes{count, active, conv}, flags, mark, keys,
+                      offs, n, n_pad, rounds, rumor_target, suppress, target,
+                      (unsigned long long*)(ctrl + 2), ctrl};
+  switch (pool_size) {
+    case 2: return (int)queue_gossip<2>(c, n0, a0, c0, device, stream);
+    case 4: return (int)queue_gossip<4>(c, n0, a0, c0, device, stream);
+    case 8: return (int)queue_gossip<8>(c, n0, a0, c0, device, stream);
+    default: return (int)queue_gossip<16>(c, n0, a0, c0, device, stream);
   }
-  return (int)err;
 }

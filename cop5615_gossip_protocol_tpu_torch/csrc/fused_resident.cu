@@ -57,22 +57,15 @@
 // before barrier j - 1. Marks that pass j writes for a round that never
 // runs (the target was reached) are never read.
 //
-// The barrier is one 64-bit word a round in the chunk's scratch: each
-// block adds its arrival (high 32 bits) and its converged count (low 32
-// bits) in one atomic after a fence, then polls with acquire loads until
-// the arrivals reach gridDim.x; every block then reads the same total and
-// makes the same choice: stop at the target or at the cap, else go on. No
-// block leaves the round loop alone, so no barrier waits on a block that
-// has left, and the per-round words need no reset. It is written here
-// rather than taken from cooperative_groups, whose grid sync may need
-// relocatable device code and so other build flags than the rest of the
-// port's kernels. The parity of the executed-round count lives in a
-// register and names the current planes; block 0 writes it to `ctrl` once,
-// at the end. The init and finish launches of csrc/chunk.cuh bracket the
-// persistent launch as they do the streaming kernels, so a chunk is 3
-// launches whatever K is. A chunk from a converged state: the init launch
-// sets the done flag, and every block of the persistent launch reads it at
-// entry and leaves.
+// The barrier is one 64-bit word a round in the chunk's scratch, carrying
+// arrivals and the converged count, after which every block makes the same
+// stop choice (csrc/persistent.cuh, shared with csrc/fused_pool.cu). The
+// parity of the executed-round count lives in a register and names the
+// current planes; block 0 writes it to `ctrl` once, at the end. The init
+// and finish launches of csrc/chunk.cuh bracket the persistent launch as
+// they do the streaming kernels, so a chunk is 3 launches whatever K is. A
+// chunk from a converged state: the init launch sets the done flag, and
+// every block of the persistent launch reads it at entry and leaves.
 //
 // Numerics: built without fast math, with -fmad=false and denormals kept;
 // the halve happens before the class sums, and the sums run from 0.0 in
@@ -83,6 +76,7 @@
 #include <stdint.h>
 
 #include "chunk.cuh"
+#include "persistent.cuh"
 #include "shard.cuh"
 #include "stencil.cuh"
 
@@ -92,44 +86,11 @@ using gossip::Classes;
 using gossip::GossipPlanes;
 using gossip::PushSumPlanes;
 using gossip::block_sum;
+using gossip::cooperative_grid;
 using gossip::kBlock;
+using gossip::round_barrier;
 using gossip::word_mark;
-
-// The barrier of one round (or of the prologue) on its own 64-bit word:
-// adds this block's arrival and converged count (valid in thread 0), waits
-// for every block's, and returns the grid's total to every thread. Every
-// thread's earlier writes are visible to every thread of the grid after it
-// returns. The order is cooperative_groups' grid sync on the arrival side
-// (block barrier, then thread 0's fence, then the add) and CUTLASS's
-// GenericBarrier on the waiting side (acquire polls, then the block
-// barrier). A release-qualified add in place of the fence and add is not
-// enough: some reads of the next pass then saw the round's old values.
-// The short sleep between polls keeps the waiting blocks' loads off the
-// word's L2 line while the others arrive.
-__device__ __forceinline__ unsigned long long load_acquire(
-    const unsigned long long* word) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(v) : "l"(word) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ int round_barrier(unsigned long long* word,
-                                             int block_count) {
-  __shared__ int total;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned long long add = gossip::barrier_arrival(block_count);
-    __threadfence();
-    unsigned long long seen = atomicAdd(word, add) + add;
-    while (gossip::barrier_arrivals(seen) < gridDim.x) {
-      __nanosleep(20);
-      seen = load_acquire(word);
-    }
-    total = gossip::barrier_total(seen);
-  }
-  __syncthreads();
-  return total;
-}
+using gossip::zero_control;
 
 // Round 0's marks into mark[0]; `active` is the input's active plane
 // (gossip) or null (push-sum: every node of degree > 0 sends).
@@ -233,42 +194,8 @@ __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
   }
 }
 
-// Blocks of the persistent launch of `kernel` over n_pad nodes: every block
-// the SMs hold at once, at most one per 256 nodes. The capacity is asked
-// once a device (`cache`, one int a device) and, unlike grid_for, a failed
-// query is returned as an error, and so is a card without cooperative
-// launch.
-template <typename Kernel>
-cudaError_t cooperative_grid(Kernel kernel, int n_pad, int device, int* cache,
-                             int* grid) {
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  if (cache[device] == 0) {
-    int coop = 0, sms = 0, per_sm = 0;
-    cudaError_t err =
-        cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-    if (err != cudaSuccess) return err;
-    if (!coop) return cudaErrorNotSupported;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kBlock, 0);
-    if (err != cudaSuccess) return err;
-    if (sms <= 0 || per_sm <= 0) return cudaErrorCooperativeLaunchTooLarge;
-    cache[device] = sms * per_sm;
-  }
-  const long long want = ((long long)n_pad + kBlock - 1) / kBlock;
-  *grid = (int)(want < cache[device] ? (want > 0 ? want : 1) : cache[device]);
-  return cudaSuccess;
-}
-
 int pushsum_grid_cache[64];
 int gossip_grid_cache[64];
-
-// Zeroes a chunk's control words: ctrl (int32[2]) and the 8 * (rounds + 2)
-// bytes of scratch behind it, in one memset.
-cudaError_t zero_control(int* ctrl, int rounds, cudaStream_t stream) {
-  return cudaMemsetAsync(ctrl, 0, 8 * ((size_t)rounds + 3), stream);
-}
 
 }  // namespace
 

@@ -1,8 +1,9 @@
 // Per-node logic of the imp kernels in csrc/fused_imp.cu and
 // csrc/fused_imp_hbm_shard.cu: the class an imp2d/imp3d node sends along
 // this round under pooled long-range sampling, read through its static
-// directions word, the packed choice word its pool slot comes from, and
-// each receiver's inbox over the lattice and pool classes. The device-side counterpart of
+// directions word, the packed choice word its pool slot comes from
+// (csrc/pool.cuh), and each receiver's inbox over the lattice and pool
+// classes. The device-side counterpart of
 // ops/fused_imp.py's imp_marks and of the absorbs of
 // parallel/fused_imp_hbm_sharded.py.
 //
@@ -14,24 +15,11 @@
 
 #include <stdint.h>
 
+#include "pool.cuh"
 #include "stencil.cuh"
 #include "threefry.cuh"
 
 namespace gossip {
-
-// Nodes (rows of the [rows, 128] layout) per packed choice word.
-constexpr int kChoicePack = 8;
-constexpr int kChoiceLanes = 128;
-
-// Counter of the packed choice word that holds node j's pool slot: the
-// word of j's lane in its group of 8 rows (sampling.pool_choice_packed).
-GOSSIP_HD uint32_t choice_counter(int j) {
-  return (uint32_t)((j / (kChoicePack * kChoiceLanes)) * kChoiceLanes +
-                    j % kChoiceLanes);
-}
-
-// Node j's nibble in that word.
-GOSSIP_HD int choice_sub(int j) { return (j / kChoiceLanes) % kChoicePack; }
 
 // The lattice class id a real node j (< n) sends along, from its
 // directions word (ops/fused_imp.imp_dir_words: bits 4k..4k+3 the class id

@@ -186,9 +186,11 @@ def _check(planes, dtypes, keys, offs, n: int) -> torch.device:
     # kernels' gathers out of bounds.
     if keys.device.type != "cpu" or offs.device.type != "cpu":
         raise ValueError("keys and offs are host-drawn streams: pass CPU tensors")
-    if keys.numel() and (keys.min() < 0 or keys.max() > rng.MASK):
+    # numpy's reductions: a chunk's fixed host cost counts in short chunks.
+    words, pools = keys.numpy(), offs.numpy()
+    if words.size and (words.min() < 0 or words.max() > rng.MASK):
         raise ValueError("keys must hold uint32 words")
-    if offs.numel() and (offs.min() < 1 or offs.max() > n - 1):
+    if pools.size and (pools.min() < 1 or pools.max() > n - 1):
         raise ValueError(f"offs must lie in [1, {n - 1}]")
     return dev
 
@@ -199,9 +201,15 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "gossip_pushsum_pool_chunk": [_P] * 15 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    "gossip_pushsum_pool_chunk": [_P] * 14 + [_I] * 4 + [_F, _I, _I, _I, _P],
     "gossip_gossip_pool_chunk": [_P] * 11 + [_I] * 8 + [_P],
 }
+
+
+def chunk_launches(rounds: int) -> int:
+    """Launches a chunk of csrc/fused_pool.cu queues, whatever its rounds:
+    init, the persistent launch that runs them all, finish."""
+    return 3
 
 
 def _upload(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -220,6 +228,48 @@ def _launch(source: str, name: str, argtypes, dev: torch.device, pointers,
     err = fn(*[_ptr(x) for x in pointers], *ints, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def _kernel_chunk(name: str, state, keys, offs, start: int, cap: int, n: int,
+                  tail):
+    """Queue one chunk through entry point ``name`` of csrc/fused_pool.cu
+    on the current stream of the state's device and raise on a launch
+    error. ``tail`` holds the protocol's trailing arguments. Returns
+    (state', rounds_executed)."""
+    dev = state[0].device
+    cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
+    # One copy to the card for both streams: the keys' uint32 words (int64
+    # [K, 2] as int32 pairs), then the pools.
+    streams = _upload(torch.cat([keys.contiguous().view(torch.int32).reshape(-1),
+                                 offs.reshape(-1)]), dev)
+    rounds = max(0, cap - start)
+    n_pad = state[0].numel()
+    planes = len(state) * n_pad
+    # Two allocations a chunk beside the streams' copy: the result planes
+    # with the control words behind them (done, rounds executed, then 8 *
+    # (rounds + 2) bytes of scratch; the entry point zeroes them), and the
+    # kernel's own planes: push-sum's other s and w (its term and conv stay
+    # in the result planes) or gossip's int8 flags, then the two mark planes
+    # (round r reads half r % 2). All are passed as raw pointers and stay
+    # safe after this returns: torch's caching allocator hands their memory
+    # only to work queued later on the same stream.
+    head = torch.empty(planes + 2 + 2 * (rounds + 2), dtype=torch.int32, device=dev)
+    own_bytes = 8 * n_pad if len(state) == 4 else n_pad
+    work = torch.empty((own_bytes + 2 * n_pad) // 4, dtype=torch.int32, device=dev)
+    base = work.data_ptr()
+    own = [base, base + 4 * n_pad] if len(state) == 4 else [base]
+    out = [p if p.dtype == x.dtype else p.view(x.dtype) for p, x in
+           zip(head[:planes].view(len(state), *state[0].shape).unbind(0), state)]
+    fn = kernels.entry("fused_pool", name, _SIGNATURES[name])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(*[x.data_ptr() for x in (*state, *out)], *own, base + own_bytes,
+             streams.data_ptr(),
+             streams.data_ptr() + 8 * keys.numel(),
+             head.data_ptr() + 4 * planes, n, n_pad, offs.shape[1], rounds, *tail,
+             dev.index, stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+    return tuple(out), head[planes + 1]
 
 
 def pushsum_pool_chunk(state4, keys, offs, start: int, cap: int, *, n: int,
@@ -241,25 +291,10 @@ def pushsum_pool_chunk(state4, keys, offs, start: int, cap: int, *, n: int,
             state4, keys, offs, start, cap, n=n, target=target, delta=delta,
             term_rounds=term_rounds,
         )
-    cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
-    keys, offs = _upload(keys, dev), _upload(offs, dev)
-    rounds = max(0, cap - start)
-    n_pad = state4[0].numel()
-    out = [torch.empty_like(x) for x in state4]
-    ds = torch.empty(n_pad, dtype=torch.float32, device=dev)
-    dw = torch.empty(n_pad, dtype=torch.float32, device=dev)
-    choice = torch.empty(n_pad, dtype=torch.int8, device=dev)
-    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
-    scratch = torch.zeros(2 * (rounds + 1), dtype=torch.int32, device=dev)
-    _launch(
-        "fused_pool", "gossip_pushsum_pool_chunk", _SIGNATURES["gossip_pushsum_pool_chunk"],
-        dev,
-        (*state4, *out, ds, dw, choice, keys, offs, ctrl, scratch),
-        (n, n_pad, offs.shape[1], rounds, ctypes.c_float(delta), term_rounds,
-         target),
-    )
-    pushsum_pool_chunk.launches += 1 + 2 * rounds
-    return tuple(out), ctrl[1]
+    out = _kernel_chunk("gossip_pushsum_pool_chunk", state4, keys, offs, start, cap, n,
+                        (ctypes.c_float(delta), term_rounds, target))
+    pushsum_pool_chunk.launches += chunk_launches(keys.shape[0])
+    return out
 
 
 def gossip_pool_chunk(state3, keys, offs, start: int, cap: int, *, n: int,
@@ -272,25 +307,13 @@ def gossip_pool_chunk(state3, keys, offs, start: int, cap: int, *, n: int,
             state3, keys, offs, start, cap, n=n, target=target,
             rumor_target=rumor_target, suppress=suppress,
         )
-    cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
-    keys, offs = _upload(keys, dev), _upload(offs, dev)
-    rounds = max(0, cap - start)
-    n_pad = state3[0].numel()
-    out = [torch.empty_like(x) for x in state3]
-    mark = torch.empty(n_pad, dtype=torch.int8, device=dev)
-    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
-    scratch = torch.zeros(2 * (rounds + 1), dtype=torch.int32, device=dev)
-    _launch(
-        "fused_pool", "gossip_gossip_pool_chunk", _SIGNATURES["gossip_gossip_pool_chunk"],
-        dev,
-        (*state3, *out, mark, keys, offs, ctrl, scratch),
-        (n, n_pad, offs.shape[1], rounds, rumor_target, int(suppress), target),
-    )
-    gossip_pool_chunk.launches += 1 + 2 * rounds
-    return tuple(out), ctrl[1]
+    out = _kernel_chunk("gossip_gossip_pool_chunk", state3, keys, offs, start, cap, n,
+                        (rumor_target, int(suppress), target))
+    gossip_pool_chunk.launches += chunk_launches(keys.shape[0])
+    return out
 
 
-# Kernel launches queued by each wrapper (init + 2 per round), counted
+# Kernel launches queued by each wrapper (3 a chunk), counted
 # where the kernel is launched and nowhere else.
 pushsum_pool_chunk.launches = 0
 gossip_pool_chunk.launches = 0
