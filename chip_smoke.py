@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cards 4   # the sharded imp path across 4 cards
+    python3 chip_smoke.py --cards 4   # the sharded imp and pool2 paths across 4 cards
 
 Run from the root of a checkout. Phases, in order; any failed check exits
 non-zero before the last line:
@@ -92,17 +92,26 @@ non-zero before the last line:
    chunked engine (rounds, converged count, final state) and to
    convergence against the JAX chunked engine's rounds and estimate;
 13. each shard kernel of the replicated-pool2 composition (every shard on
-   the card) against its plain version, one round on every shard from the
-   initial state and from a mid-run state, at full 16,777,216 in 2 shards
-   (the all_gather wire) and 4 (the reduce_scatter wire) and 16,777,217 in
-   2 (65,535 pad lanes); every plane and every shard's count bitwise;
+   the card, so a round is one launch over every row, reading the sources
+   in place from the card's global copy of the summary planes) against its
+   plain version at full 16,777,216 in 2 shards (the all_gather plan) and
+   4 (the reduce_scatter plan) and 16,777,217 in 2 (65,535 pad lanes): one
+   launch over every row and one over the last shard's rows alone (its
+   count to u, the rows outside untouched) from the initial, a mid-run and
+   a converged state, one with the verdict in the launch (ctrl counts the
+   round and sets done), one from the converged state with the done flag
+   set (nothing written), and 8 launches from 4 rounds before the
+   converged round, whose target is reached inside them (ctrl stops
+   there); every plane and count bitwise;
 14. the sharded path through ``run(devices=["cuda:0"] * S)``, counters
    zeroed before each run and read after it: full 16,777,216 in 2 and 4
    shards and 2**27 in 4, both algorithms, to convergence, each bitwise the
    single-device streaming pool run of phase 12 (rounds, converged count,
-   every plane), push-sum mass conserved; at 16,777,216 in 4 also gossip
-   with the verdict not deferred, push-sum on the all_gather wire, and a
-   resume from the converged gossip state (0 rounds, state unchanged);
+   every plane), push-sum mass conserved, with no wire copy and no verdict
+   launch queued; at 16,777,216 in 4 one launch a round, at most 352
+   (push-sum) and 64 (gossip) on the path, and also gossip with the
+   verdict not deferred, push-sum on the all_gather wire, and a resume
+   from the converged gossip state (0 rounds, state unchanged);
 14a. each shard kernel of the resident sharded lattice composition
    (parallel/fused_sharded.py, every shard on the card) against its plain
    version, one super-step on every shard from the initial state and from
@@ -148,9 +157,10 @@ non-zero before the last line:
    and a 64-round push-sum sample conserving its mass;
 15. each kernel's time per chunk by CUDA events, beside its plain version's
    and the least time the card could take for the same work (rows 1-2
-   also over a 1,024-round chunk and at 2**21, and over rows 7-8); the shard
-   kernels per super-step (every shard's launch) at 16,777,216 in 4, with
-   the wire's copies timed apart; the sharded lattice kernels per
+   also over a 1,024-round chunk and at 2**21, and over rows 7-8); the
+   replicated-pool2 kernels per round (one launch over every shard, 32 in a
+   row and one alone) at 16,777,216 in 4, over rows 3-4, with the sharded
+   runs' run_s over the single-device ones; the sharded lattice kernels per
    super-step at torus3d 100**3 in 2 (resident) and 256**3 in 4
    (streaming), the ring wire's copies timed apart, their bound counted on
    the windows' slot-rounds (``stencil_shard_bound``); the sharded imp
@@ -163,9 +173,10 @@ Each of phases 5-14e prints its wall time.
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
-``--cards N`` runs none of these phases: it runs the sharded imp path with
-shard i on cuda:i against the same run on one card, times the wire across
-cards, and ends with ``{"ok": true, "mode": "cards N", "device": {...}}``.
+``--cards N`` runs none of these phases: it runs the sharded imp path and
+the replicated-pool2 path with shard i on cuda:i against the same runs on
+one card, times each wire across cards, and ends with ``{"ok": true,
+"mode": "cards N", "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1290,6 +1301,7 @@ def pool2_path(dev):
             if n == POOL2_TIMED:
                 launches[name] = counts[name]
                 MAIN_ROUNDS[f"{name}_pool2_chunk"] = res.rounds
+                RUN_S[f"{name}_single"] = res.run_s
             single[n, algorithm] = (res.rounds, res.converged_count,
                                     tuple(x.cpu() for x in res.state))
             del res
@@ -1343,21 +1355,31 @@ def pool2_path(dev):
 
 
 # The replicated-pool2 composition (parallel/pool2_sharded.py), its shards
-# all on the one card: the kernel checks at (n, shards, the wire the plan
-# picks) from the initial and the POOL2_MID state (16,777,217 has 65,535 pad
-# lanes, so its tiles straddle the mod-n wrap); the runs through run(), each
-# against the single-device streaming pool run of phase 12; and the timed
-# super-step.
+# all on the one card, where a round is one launch over every row: the
+# kernel checks at (n, shards, the wire the plan picks), each launch held
+# against its plain version from the initial, the POOL2_MID and a converged
+# state (16,777,217 has 65,535 pad lanes, so its columns straddle the mod-n
+# wrap), over every row and over the last shard's rows alone (a device of a
+# several-card run), and a chunk of SHARD_CAP_CHUNK launches whose target
+# is reached halfway; the runs through run(), each against the
+# single-device streaming pool run of phase 12; and the timed round.
 SHARD_CASES = ((2**24, 2, "all_gather"), (2**24, 4, "reduce_scatter"),
                (2**24 + 1, 2, "all_gather"))
 SHARD_RUNS = ((2**24, 2), (2**24, 4), (2**27, 4))
 SHARD_TIMED = (2**24, 4)
+SHARD_CAP_CHUNK = 8
+# Launches on the SHARD_TIMED paths at most: one a round, to the end of the
+# 8-round chunk after the one that converges (338 and 56 rounds).
+SHARD_MAX_LAUNCHES = {"pushsum": 352, "gossip": 64}
+# run_s of the 16.8M push-sum runs, single-device (phase 12) and sharded
+# (phase 14), for the line that sets them side by side.
+RUN_S = {}
 
 
-def shard_planes(planes, algorithm, rows_loc, shards):
+def shard_planes(planes, algorithm):
     """The streaming pool tier's padded planes, (s, w, term, conv) or
-    (count, active, conv), as each shard's (s, w, term|conv) or (count,
-    active) rows."""
+    (count, active, conv), as the composition's (s, w, term|conv) or
+    (count, active), in one set over every row."""
     import torch
 
     from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded
@@ -1365,110 +1387,197 @@ def shard_planes(planes, algorithm, rows_loc, shards):
     if algorithm == "push-sum":
         s, w, term, conv = planes
         tc = torch.where(conv != 0, term | pool2_sharded.TC_CONV_BIT, term)
-        planes = (s, w, tc.to(torch.int32))
-    else:
-        planes = planes[:2]
-    return [tuple(p[i * rows_loc:(i + 1) * rows_loc].contiguous() for p in planes)
-            for i in range(shards)]
+        return (s, w, tc.to(torch.int32))
+    return tuple(planes[:2])
 
 
 def shard_case(dev, key, n, shards, algorithm):
-    """The shard kernel's wrapper, its plain version and their keywords,
-    the plan, and wire(planes, offs) -> each shard's delivered summary."""
+    """The launch's wrapper, its plain version, their keywords, the plan's
+    rows_loc, layout and wire, and the config's target."""
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
     from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded as p2s
 
     topo = build_topology("full", n)
     cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=POOL,
                     n_devices=shards, engine="fused")
-    rows_loc, PT, layout, wire = p2s.plan_pool2_sharded(topo, cfg, shards)
-    devices = [dev] * shards
-    kw = {"n": n, "rows": layout.rows}
+    rows_loc, _, layout, wire = p2s.plan_pool2_sharded(topo, cfg, shards)
     if algorithm == "push-sum":
         fns = (p2s.pushsum_pool2_shard_round, p2s.pushsum_pool2_shard_round_plain)
-        kw.update(delta=cfg.resolved_delta, term_rounds=cfg.term_rounds)
-        windowed = (0, 1)
     else:
         fns = (p2s.gossip_pool2_shard_round, p2s.gossip_pool2_shard_round_plain)
-        kw.update(rumor_target=cfg.resolved_rumor_target, suppress=cfg.resolved_suppress)
-        windowed = (1,)
-
-    def wire_of(planes, offs):
-        summary = [[planes[i][p] for i in range(shards)] for p in windowed]
-        if wire == "all_gather":
-            return p2s.gather_wire(summary, PT, devices, POOL)
-        return p2s.band_wire(summary, offs, layout, devices)
-
-    return (*fns, kw, rows_loc, wire, wire_of)
+    return (*fns, p2s.round_kw(topo, cfg), rows_loc, layout, wire,
+            cfg.resolved_target_count(n, topo.target_count))
 
 
-def shard_round(kern, kw, planes, wires, keys, offs, rows_loc, outs, us, accs, ctrl):
-    """One super-step's shard launches (no wire, no verdict) into outs/us."""
-    for i, planes_i in enumerate(planes):
-        kern(planes_i, outs[i], wires[i], keys, offs, i * rows_loc, **kw, u=us[i],
-             acc=accs[i], ctrl=ctrl)
-    return outs, us
+def shard_streams(key, rnd, count, n, dev):
+    """Rounds rnd..rnd + count - 1's keys and displacements on the card,
+    and on the host as lists."""
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool
+
+    keys = fused.round_keys(key, rnd, count)
+    offs = fused_pool.round_offsets(key, rnd, count, POOL, n)
+    return keys.to(dev), offs.to(dev), keys.tolist(), offs.tolist()
+
+
+def shard_launch(kern, algorithm, kw, state, out, streams, at, row0, rows, **ctl):
+    """One launch over global rows [row0, row0 + rows) from ``state`` (the
+    composition's planes over every row) into ``out``'s, round ``at`` of
+    ``streams``."""
+    from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded as p2s
+
+    glob, own = p2s.split_state(state, algorithm)
+    glob_out, own_out = p2s.split_state(out, algorithm)
+    kern(glob, glob_out, tuple(p[row0:row0 + rows] for p in own),
+         tuple(p[row0:row0 + rows] for p in own_out), streams[0], streams[1], row0,
+         **kw, at=at, **ctl)
+
+
+def shard_plain(plain, algorithm, kw, state, streams, at, row0, rows):
+    """The plain version of ``shard_launch``: (the rows' planes, count)."""
+    from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded as p2s
+
+    glob, own = p2s.split_state(state, algorithm)
+    return plain(glob, tuple(p[row0:row0 + rows] for p in own), streams[2][at],
+                 streams[3][at], row0, **kw)
+
+
+def shard_bitwise(label, got, want):
+    """Every plane of ``got`` bit for bit ``want``'s; returns the largest
+    absolute difference (0.0)."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            same = torch.equal(g.view(torch.int32), w.view(torch.int32))
+            err = max(err, (g - w).abs().max().item()) if same else err
+        else:
+            same = torch.equal(g, w)
+        if not same:
+            raise AssertionError(f"{label}: a plane differs from plain")
+    return err
 
 
 def shard_checks(dev, key):
-    """Phase 13: each shard kernel against its plain version on the card,
-    one round on every shard from the initial state and from the POOL2_MID
-    state, at each of SHARD_CASES; every plane and every shard's converged
-    count bitwise. Returns the timed case's operands {name: ...} and
-    {name: max_abs_err}."""
+    """Phase 13: each shard kernel against its plain version on the card at
+    each of SHARD_CASES: one launch over every row and one over the last
+    shard's rows alone (counts to u; rows outside untouched) from the
+    initial, the POOL2_MID and a converged state; over every row with the
+    verdict in the launch (ctrl counts the round and sets done as the
+    plain count says), from the converged state with the done flag set
+    (nothing written, ctrl unchanged), and a chunk of SHARD_CAP_CHUNK
+    launches from the POOL2_MID state whose target, the plain count after
+    its fifth round, is reached inside it (ctrl stops there and the final
+    set is the plain state then). Every plane and count bitwise. Returns
+    the timed case's operands {name: ...} and {name: max_abs_err}."""
     import torch
-
-    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool
 
     cases, max_err = {}, {}
     for n, shards, want_wire in SHARD_CASES:
         print(f"shard kernels vs plain versions at full n = {n:,}, {shards} shards:",
               flush=True)
         for name, algorithm in (("pushsum", "push-sum"), ("gossip", "gossip")):
-            kern, plain, kw, rows_loc, wire, wire_of = shard_case(dev, key, n, shards,
-                                                                  algorithm)
+            kern, plain, kw, rows_loc, layout, wire, target = shard_case(dev, key, n, shards,
+                                                                         algorithm)
             if wire != want_wire:
                 raise AssertionError(f"n={n} x{shards}: the plan picks {wire}")
+            R = layout.rows
             p2_kern, _, chunk, init = pool2_case(dev, key, n, algorithm)
             mid_round = POOL2_MID[name]
             mid, ex = chunk(p2_kern, init, 0, mid_round)
             if int(ex) != mid_round:
                 raise AssertionError(f"n={n} {name}: converged before round {mid_round}")
-            for label, state, rnd in (("init", init, 0), ("mid-run", mid, mid_round)):
-                planes = shard_planes(state, algorithm, rows_loc, shards)
-                keys = fused.round_keys(key, rnd, 1)[0].tolist()
-                offs = fused_pool.round_offsets(key, rnd, 1, POOL, n)[0].tolist()
-                wires = wire_of(planes, offs)
-                outs = [tuple(torch.empty_like(x) for x in p) for p in planes]
-                us = [torch.zeros(1, dtype=torch.int32, device=dev) for _ in planes]
-                accs = [torch.zeros(2, dtype=torch.int32, device=dev) for _ in planes]
-                ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
-                shard_round(kern, kw, planes, wires, keys, offs, rows_loc, outs, us,
-                            accs, ctrl)
-                err, total = 0.0, 0
-                for i, planes_i in enumerate(planes):
-                    want, want_u = plain(planes_i, wires[i], keys, offs, i * rows_loc,
-                                         **kw)
-                    if int(us[i][0]) != int(want_u):
-                        raise AssertionError(f"n={n} {name} {label} shard {i}: u "
-                                             f"{int(us[i][0])} != plain {int(want_u)}")
-                    for got, exp in zip(outs[i], want):
-                        same = (torch.equal(got.view(torch.int32), exp.view(torch.int32))
-                                if got.dtype == torch.float32 else torch.equal(got, exp))
-                        if not same:
-                            raise AssertionError(f"n={n} {name} {label} shard {i}: a "
-                                                 "plane differs from plain")
-                        if got.dtype == torch.float32:
-                            err = max(err, (got - exp).abs().max().item())
-                    total += int(want_u)
-                print(f"  {name} {label} ({wire}): every shard bitwise, converged "
-                      f"{total}, max_abs_err {err}", flush=True)
-                max_err[name] = max(max_err.get(name, 0.0), err)
-                if (n, shards) == SHARD_TIMED and label == "mid-run":
-                    cases[name] = (kern, plain, kw, rows_loc, wire_of, planes, keys, offs,
-                                   outs, us, accs, ctrl, n)
-                del wires
-            del init, mid
+            done, ex = chunk(p2_kern, mid, mid_round, 4096)
+            done_round = mid_round + int(ex)
+            err = 0.0
+
+            def zeros(k):
+                return torch.zeros(k, dtype=torch.int32, device=dev)
+
+            for label, planes, rnd in (("init", init, 0), ("mid-run", mid, mid_round),
+                                       ("converged", done, done_round)):
+                state = shard_planes(planes, algorithm)
+                streams = shard_streams(key, rnd, 1, n, dev)
+                # Every row, then the last shard's rows alone, counts to u.
+                full = None
+                for row0, rows in ((0, R), (R - rows_loc, rows_loc)):
+                    out = tuple(sentinel_like(x) for x in state)
+                    u = zeros(1)
+                    shard_launch(kern, algorithm, kw, state, out, streams, 0, row0, rows,
+                                 u=u, acc=zeros(2), ctrl=zeros(2))
+                    want, want_u = shard_plain(plain, algorithm, kw, state, streams, 0,
+                                               row0, rows)
+                    full = (want, want_u) if full is None else full
+                    where = f"n={n} {name} {label} rows [{row0}, {row0 + rows})"
+                    if int(u[0]) != int(want_u):
+                        raise AssertionError(f"{where}: u {int(u[0])} != plain {int(want_u)}")
+                    err = max(err, shard_bitwise(where, [p[row0:row0 + rows] for p in out],
+                                                 want))
+                    if rows < R:
+                        shard_bitwise(f"{where}: rows outside",
+                                      [torch.cat([p[:row0], p[row0 + rows:]]) for p in out],
+                                      [sentinel_like(p[:R - rows]) for p in out])
+                # The verdict in the launch.
+                ctrl = zeros(2)
+                out = tuple(torch.empty_like(x) for x in state)
+                shard_launch(kern, algorithm, kw, state, out, streams, 0, 0, R, u=None,
+                             acc=zeros(2), ctrl=ctrl, target=target)
+                want_ctrl = [int(int(full[1]) >= target), 1]
+                if ctrl.tolist() != want_ctrl:
+                    raise AssertionError(f"n={n} {name} {label}: ctrl {ctrl.tolist()} != "
+                                         f"{want_ctrl}")
+                err = max(err, shard_bitwise(f"n={n} {name} {label} verdict", out, full[0]))
+                print(f"  {name} {label} ({wire}): every row, the last shard's and the "
+                      f"verdict bitwise, converged {int(full[1])}, ctrl {want_ctrl}",
+                      flush=True)
+            # From the converged state with the done flag set: nothing written.
+            state = shard_planes(done, algorithm)
+            out = tuple(sentinel_like(x) for x in state)
+            ctrl = torch.tensor([1, done_round], dtype=torch.int32, device=dev)
+            u = zeros(1)
+            shard_launch(kern, algorithm, kw, state, out, shard_streams(key, done_round, 1,
+                                                                        n, dev),
+                         0, 0, R, u=None, acc=zeros(2), ctrl=ctrl, target=target)
+            shard_bitwise(f"n={n} {name} done flag set", out,
+                          [sentinel_like(x) for x in state])
+            if ctrl.tolist() != [1, done_round]:
+                raise AssertionError(f"n={n} {name}: a launch with the done flag set "
+                                     f"changed ctrl to {ctrl.tolist()}")
+            print(f"  {name} from the converged state (round {done_round}), done flag "
+                  "set: nothing written", flush=True)
+            # A chunk whose target is reached inside it: from 4 rounds before
+            # the streaming pool tier's converged round.
+            late_round = done_round - SHARD_CAP_CHUNK // 2
+            late, ex = chunk(p2_kern, mid, mid_round, late_round - mid_round)
+            state = shard_planes(late, algorithm)
+            streams = shard_streams(key, late_round, SHARD_CAP_CHUNK, n, dev)
+            plain_sets, counts = [state], []
+            for i in range(SHARD_CAP_CHUNK):
+                nxt, c = shard_plain(plain, algorithm, kw, plain_sets[-1], streams, i, 0, R)
+                plain_sets.append(nxt)
+                counts.append(int(c))
+            stop = next(i + 1 for i, c in enumerate(counts) if c >= target)
+            if stop != SHARD_CAP_CHUNK // 2:
+                raise AssertionError(f"n={n} {name}: the plain rounds from round {late_round} "
+                                     f"converge after {stop}, not at round {done_round}")
+            sets = [tuple(x.clone() for x in state), tuple(sentinel_like(x) for x in state)]
+            ctrl, acc = zeros(2), zeros(2)
+            for i in range(SHARD_CAP_CHUNK):
+                shard_launch(kern, algorithm, kw, sets[i % 2], sets[1 - i % 2], streams, i,
+                             0, R, u=None, acc=acc, ctrl=ctrl, target=target)
+            if ctrl.tolist() != [1, stop]:
+                raise AssertionError(f"n={n} {name}: a chunk capped after {stop} rounds "
+                                     f"left ctrl {ctrl.tolist()}")
+            err = max(err, shard_bitwise(f"n={n} {name} capped chunk", sets[stop % 2],
+                                         plain_sets[stop]))
+            print(f"  {name} chunk of {SHARD_CAP_CHUNK} launches from round {late_round}, "
+                  f"counts {counts[:stop]}: done after {stop} (round {done_round}), ctrl "
+                  "and planes bitwise", flush=True)
+            max_err[name] = max(max_err.get(name, 0.0), err)
+            if (n, shards) == SHARD_TIMED:
+                cases[name] = (kern, plain, algorithm, kw, shard_planes(mid, algorithm),
+                               mid_round, n, R)
+            del init, mid, done, late, plain_sets, sets
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return cases, max_err
@@ -1479,25 +1588,37 @@ def shard_path(dev, single):
     zeroed before each run and read after it: SHARD_RUNS, both algorithms,
     to convergence, each bitwise the single-device streaming pool run of
     phase 12 (rounds, converged count, every plane), push-sum mass
-    conserved; at SHARD_TIMED also gossip with the verdict not deferred and
-    push-sum on the all_gather wire, and a resume from the converged gossip
-    state (0 rounds, state unchanged). Returns each row's launches over its
-    SHARD_TIMED run."""
+    conserved; every run queues no wire copy and no verdict launch (the
+    verdict is in the launch); at SHARD_TIMED the launches are one a round
+    and at most SHARD_MAX_LAUNCHES, and also gossip with the verdict not
+    deferred, push-sum on the all_gather wire, and a resume from the
+    converged gossip state (0 rounds, state unchanged). Returns each row's
+    launches over its SHARD_TIMED run."""
     import torch
 
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
     from cop5615_gossip_protocol_tpu_torch.models.runner import sharded_tier
+    from cop5615_gossip_protocol_tpu_torch.parallel import halo
     from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded as p2s
 
     counters = {"pushsum": p2s.pushsum_pool2_shard_round,
                 "gossip": p2s.gossip_pool2_shard_round}
     launches = {}
+    verdicts = []
+    real_verdict = p2s.shard_verdict
+
+    def counted_verdict(*args, **kw):
+        verdicts.append(1)
+        return real_verdict(*args, **kw)
 
     def drive(topo, cfg, shards, label, **kw):
         for fn in counters.values():
             fn.launches = 0
+        halo.exchange_rows_batched.copies = 0
+        verdicts.clear()
         res = run(topo, cfg, devices=[dev] * shards, **kw)
         counts = {k: fn.launches for k, fn in counters.items()}
+        copies = halo.exchange_rows_batched.copies
         rounds, count, state = single[cfg.n, cfg.algorithm]
         print(json.dumps({
             "metric": f"{label}_pool2_sharded_full_n{cfg.n}_x{shards}",
@@ -1509,12 +1630,17 @@ def shard_path(dev, single):
             "dispatch_s": res.dispatch_s, "fetch_s": res.fetch_s,
             "finalize_s": res.finalize_s, "chunks_retired": len(res.chunk_log),
             "converged_count": res.converged_count, "estimate_mae": res.estimate_mae,
-            "launches": counts, "device": res.device,
+            "launches": counts, "wire_copies": copies, "verdict_launches": len(verdicts),
+            "device": res.device,
         }), flush=True)
         if not res.device.startswith("cuda"):
             raise AssertionError(f"{label} n={cfg.n} x{shards} did not run on the card")
-        if "start_state" not in kw and counts[label] == 0:
-            raise AssertionError(f"{label} n={cfg.n} x{shards} never launched its kernel")
+        if "start_state" not in kw and counts[label] < res.rounds:
+            raise AssertionError(f"{label} n={cfg.n} x{shards}: {counts[label]} launches "
+                                 f"for {res.rounds} rounds")
+        if copies or verdicts:
+            raise AssertionError(f"{label} n={cfg.n} x{shards} on one card queued {copies} "
+                                 f"wire copies and {len(verdicts)} verdict launches")
         if (res.rounds, res.converged_count) != (rounds, count) or not res.converged:
             raise AssertionError(
                 f"{label} n={cfg.n} x{shards}: {res.rounds} rounds, {res.converged_count} "
@@ -1533,35 +1659,44 @@ def shard_path(dev, single):
             if not (err_w < 1e-5 and err_s < 1e-5):
                 raise AssertionError(f"n={n} x{shards} push-sum did not conserve its mass")
         print(f"  {label} n={cfg.n:,} x{shards}: {res.rounds} rounds, bitwise the "
-              "single-device run", flush=True)
+              f"single-device run, {counts[label]} launches, no wire copy, no verdict "
+              "launch", flush=True)
         return res, counts
 
-    for n, shards in SHARD_RUNS:
-        topo = build_topology("full", n)
-        for name, algorithm in (("gossip", "gossip"), ("pushsum", "push-sum")):
-            cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=POOL,
-                            n_devices=shards, engine="fused")
-            if sharded_tier(topo, cfg) != ("pool2_sharded", None, "B13"):
-                raise AssertionError(f"n={n} x{shards}: the ladder picks "
-                                     f"{sharded_tier(topo, cfg)}")
-            res, counts = drive(topo, cfg, shards, name)
-            if (n, shards) != SHARD_TIMED:
+    p2s.shard_verdict = counted_verdict
+    try:
+        for n, shards in SHARD_RUNS:
+            topo = build_topology("full", n)
+            for name, algorithm in (("gossip", "gossip"), ("pushsum", "push-sum")):
+                cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=POOL,
+                                n_devices=shards, engine="fused")
+                if sharded_tier(topo, cfg) != ("pool2_sharded", None, "B13"):
+                    raise AssertionError(f"n={n} x{shards}: the ladder picks "
+                                         f"{sharded_tier(topo, cfg)}")
+                res, counts = drive(topo, cfg, shards, name)
+                if (n, shards) != SHARD_TIMED:
+                    del res
+                    continue
+                if counts[name] > SHARD_MAX_LAUNCHES[name]:
+                    raise AssertionError(f"{name} n={n} x{shards}: {counts[name]} launches, "
+                                         f"more than {SHARD_MAX_LAUNCHES[name]}")
+                launches[name] = counts[name]
+                MAIN_ROUNDS[f"{name}_pool2_shard_round"] = res.rounds
+                RUN_S[f"{name}_sharded"] = res.run_s
+                if name == "gossip":
+                    again, _ = drive(topo, cfg, shards, name, start_state=res.state,
+                                     start_round=res.rounds)
+                    if again.rounds != res.rounds:
+                        raise AssertionError("a run from the converged state ran rounds")
+                    drive(topo, dataclasses.replace(cfg, overlap_collectives=False), shards,
+                          name)
+                else:
+                    drive(topo, dataclasses.replace(cfg, pool2_wire="all_gather"), shards,
+                          name)
                 del res
-                continue
-            launches[name] = counts[name]
-            MAIN_ROUNDS[f"{name}_pool2_shard_round"] = res.rounds
-            if name == "gossip":
-                again, _ = drive(topo, cfg, shards, name, start_state=res.state,
-                                 start_round=res.rounds)
-                if again.rounds != res.rounds:
-                    raise AssertionError("a run from the converged state ran rounds")
-                drive(topo, dataclasses.replace(cfg, overlap_collectives=False), shards,
-                      name)
-            else:
-                drive(topo, dataclasses.replace(cfg, pool2_wire="all_gather"), shards,
-                      name)
-            del res
-        torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
+    finally:
+        p2s.shard_verdict = real_verdict
     return launches
 
 
@@ -2371,6 +2506,94 @@ def imp_shard_cards(cards):
         del planes_of, wire
 
 
+def pool2_shard_cards(cards):
+    """``--cards N``: the replicated-pool2 path with shard i on cuda:i (the
+    CLI's ``--devices N``), full SHARD_TIMED[0] gossip and push-sum to
+    convergence, each bitwise the same run with every shard on cuda:0 and
+    the single-device run on cuda:0 (rounds, every plane); and the wire of
+    one round alone (the remote rows of each card's shards' bands on the
+    reduce_scatter plan, every remote row on the all_gather plan), median
+    of TIME_REPS by the host clock around the copies and a synchronize of
+    every card, with the bytes it moves into each card, no more than the
+    JAX wire's (the plan's bands, or its gathered copy)."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_pool, rng
+    from cop5615_gossip_protocol_tpu_torch.parallel import halo
+    from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded as p2s
+
+    n = SHARD_TIMED[0]
+    topo = build_topology("full", n)
+    devices = [torch.device("cuda", i) for i in range(cards)]
+
+    def sync():
+        for d in devices:
+            torch.cuda.synchronize(d)
+
+    def bitwise(a, b):
+        return all(torch.equal(x.cpu().view(torch.int32), y.cpu().view(torch.int32))
+                   if x.dtype == torch.float32 else torch.equal(x.cpu(), y.cpu())
+                   for x, y in zip(a.state, b.state))
+
+    for algorithm in ("gossip", "push-sum"):
+        cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=POOL,
+                        engine="fused", n_devices=cards)
+        single = run(topo, dataclasses.replace(cfg, n_devices=None))
+        one = run(topo, cfg, devices=[devices[0]] * cards)
+        halo.exchange_rows_batched.copies = 0
+        spread = run(topo, cfg)
+        copies = halo.exchange_rows_batched.copies
+        same = bitwise(spread, one) and bitwise(spread, single)
+        rows_loc, PT, layout, wire = p2s.plan_pool2_sharded(topo, cfg, cards)
+        print(json.dumps({
+            "metric": f"{algorithm}_pool2_sharded_full_n{n}_x{cards}_cards", "wire": wire,
+            "rounds": spread.rounds, "one_card_rounds": one.rounds,
+            "single_device_rounds": single.rounds, "run_s": spread.run_s,
+            "one_card_run_s": one.run_s, "single_device_run_s": single.run_s,
+            "dispatch_s": spread.dispatch_s, "fetch_s": spread.fetch_s,
+            "converged_count": spread.converged_count, "wire_copies": copies,
+            "estimate_mae": spread.estimate_mae, "bitwise_one_card_and_single": same,
+            "device": spread.device}), flush=True)
+        if not spread.rounds == one.rounds == single.rounds or not same or not copies:
+            raise AssertionError(f"replicated-pool2 {algorithm} on {cards} cards differs "
+                                 "from one card, or its wire copied nothing")
+        # One round's wire, at the run's first round's displacements.
+        placed = p2s.place_shards(devices, rows_loc)
+        owners = [g.device for g in placed for _ in range(g.rows // rows_loc)]
+        n_planes = len(p2s.SUMMARY_OF[algorithm])
+        planes = {d: tuple(torch.zeros(layout.rows, 128, device=d) for _ in range(n_planes))
+                  for d in devices}
+        if wire == "reduce_scatter":
+            offs = fused_pool.round_offsets(rng.PRNGKey(cfg.seed), 0, 1, POOL, n)[0].tolist()
+            groups = halo.band_replica_rows(planes, rows_loc, owners,
+                                            p2s.band_starts(offs, layout),
+                                            rows_loc + p2s.band_margin(layout))
+        else:
+            groups = halo.replica_rows(planes, rows_loc, owners)
+        into = {}
+        for dsts, _ in groups:
+            for x in dsts:
+                into[x.device.index] = into.get(x.device.index, 0) + x.numel() * 4
+        times = []
+        for _ in range(TIME_REPS + 1):
+            sync()
+            t0 = time.perf_counter()
+            halo.exchange_rows_batched(groups)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        jax_bytes = n_planes * 128 * 4 * (POOL * (rows_loc + p2s.band_margin(layout))
+                                          if wire == "reduce_scatter"
+                                          else layout.rows + PT + 16)
+        print(json.dumps({"metric": f"{algorithm}_pool2_wire_ms_x{cards}_cards",
+                          "wire": wire, "wire_ms": statistics.median(times[1:]),
+                          "bytes_per_card": into, "jax_wire_bytes_per_card": jax_bytes}),
+              flush=True)
+        if max(into.values()) > jax_bytes:
+            raise AssertionError(f"the {wire} wire moves more into a card than the JAX wire")
+        del planes, groups
+
+
 def fail(msg: str) -> int:
     print(f"FAILED: {msg}", file=sys.stderr)
     return 1
@@ -2406,6 +2629,7 @@ def main() -> int:
             return fail(f"--cards {cards}: {torch.cuda.device_count()} card(s) visible")
         try:
             imp_shard_cards(cards)
+            pool2_shard_cards(cards)
         except (AssertionError, RuntimeError) as e:
             return fail(str(e))
         print(smi)
@@ -2720,36 +2944,48 @@ def main() -> int:
             **timed[name], "library_ms": None,
             "at_cap": timed[f"{name}_cap"], "status": "ported",
         })
-    # Rows 20-21: one whole super-step (every shard's launch) at SHARD_TIMED
-    # from the mid-run state, its wire's copies timed apart.
+    # Rows 20-21: one round of every shard, one launch over every row (the
+    # verdict in it, against a target no round reaches) at SHARD_TIMED from
+    # the mid-run state, timed over 32 launches in a row, as the run queues
+    # them, and as a single launch. On one card the wire copies nothing
+    # (phase 14 counts it); ``--cards`` times it across cards.
     replaces = {"pushsum": "cop5615_gossip_protocol_tpu/parallel/pool2_sharded.py:591",
                 "gossip": "cop5615_gossip_protocol_tpu/parallel/pool2_sharded.py:836"}
     for name in ("pushsum", "gossip"):
-        algo = "push-sum" if name == "pushsum" else "gossip"
-        (kern, plain, kw, rows_loc, wire_of, planes, keys, offs, outs, us, accs, ctrl,
-         n) = shard_cases[name]
-        wires = wire_of(planes, offs)
-        ms, _ = time_ms(lambda: shard_round(kern, kw, planes, wires, keys, offs,
-                                            rows_loc, outs, us, accs, ctrl), TIME_REPS)
-        wire_ms, _ = time_ms(lambda: wire_of(planes, offs), TIME_REPS)
-        plain_ms, _ = time_ms(lambda: [plain(p, wires[i], keys, offs, i * rows_loc, **kw)
-                                       for i, p in enumerate(planes)], 2)
-        n_pad = sum(p[0].numel() for p in planes)
-        moved = pool2_bytes_per_node(algo, POOL) * n_pad + 16 + 8 * POOL
-        ops = n_pad * pool2_ops_per_node(algo, POOL)
+        kern, plain, algorithm, kw, state, mid_round, n, R = shard_cases[name]
+        streams = shard_streams(key, mid_round, CHUNK, n, dev)
+        sets = [tuple(x.clone() for x in state), tuple(torch.empty_like(x) for x in state)]
+        ctl = {"u": None, "acc": torch.zeros(2, dtype=torch.int32, device=dev),
+               "ctrl": torch.zeros(2, dtype=torch.int32, device=dev), "target": n + 1}
+
+        def rounds():
+            for i in range(CHUNK):
+                shard_launch(kern, algorithm, kw, sets[i % 2], sets[1 - i % 2], streams, i,
+                             0, R, **ctl)
+
+        chunk_ms, _ = time_ms(rounds, TIME_REPS)
+        one_ms, _ = time_ms(lambda: shard_launch(kern, algorithm, kw, state, sets[1], streams,
+                                                 0, 0, R, **ctl), TIME_REPS)
+        plain_ms, _ = time_ms(lambda: shard_plain(plain, algorithm, kw, state, streams, 0, 0,
+                                                  R), 2)
+        n_pad = R * 128
+        moved = pool2_bytes_per_node(algorithm, POOL) * n_pad + 16 + 4 * POOL + 8
+        ops = n_pad * pool2_ops_per_node(algorithm, POOL)
         bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
         rows.append({
             "name": f"{name}_pool2_shard_round", "route": "cuda",
             "source": "cop5615_gossip_protocol_tpu_torch/csrc/fused_pool2_shard.cu",
             "replaces": replaces[name],
             "launches": shard_launches[name], "max_abs_err": shard_err[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "ms": chunk_ms / CHUNK, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "rounds_per_call": 1, "us_per_round": ms * 1e3,
-            "shards": len(planes), "wire_ms": wire_ms, "population": n,
-            "status": "ported",
+            "library_ms": None, "rounds_per_call": 1, "us_per_round": chunk_ms * 1e3 / CHUNK,
+            "timed_launches": CHUNK, "single_launch_ms": one_ms,
+            "shards": SHARD_TIMED[1], "launches_a_round": 1, "wire_copies_a_round": 0,
+            "population": n, "status": "ported",
         })
-        del wires
+        del sets
+    torch.cuda.empty_cache()
     rows += stencil_shard_rows(stencil_shard_cases, stencil_shard_launches,
                                stencil_shard_err)
     rows += imp_shard_rows(dev, imp_shard_cases, imp_shard_launches, imp_shard_err)
@@ -2766,6 +3002,19 @@ def main() -> int:
         "row13_over_row9": us["pushsum_imp_hbm_chunk"] / us["pushsum_stencil_hbm_chunk"],
         "row18_over_row9": (us["pushsum_imp_hbm_shard_round"]
                             / us["pushsum_stencil_hbm_chunk"])}), flush=True)
+    # Rows 20-21 beside rows 3-4 (the same round over every row, from one
+    # global copy in place of the tier's ping/pong planes), and the sharded
+    # runs' run_s beside the single-device ones, all from this run.
+    print(json.dumps({"metric": "pool2_shard_us_per_round", **{
+        name: us[name] for name in (
+            "pushsum_pool2_shard_round", "gossip_pool2_shard_round", "pushsum_pool2_chunk",
+            "gossip_pool2_chunk")},
+        "row20_over_row3": us["pushsum_pool2_shard_round"] / us["pushsum_pool2_chunk"],
+        "row21_over_row4": us["gossip_pool2_shard_round"] / us["gossip_pool2_chunk"],
+        "run_s": RUN_S,
+        "pushsum_run_s_over_single": RUN_S["pushsum_sharded"] / RUN_S["pushsum_single"],
+        "gossip_run_s_over_single": RUN_S["gossip_sharded"] / RUN_S["gossip_single"]}),
+        flush=True)
     # Rows 1-2 beside rows 7-8 (the same persistent design at torus3d 1M,
     # 10 classes in place of 2), all from this run.
     print(json.dumps({"metric": "pool_us_per_round", **{

@@ -85,36 +85,41 @@ GOSSIP_HD int column_sources(int j0, int d, int n, uint32_t k1, uint32_t k2,
 
 // ------------------------------------------------ the sharded composition
 //
-// csrc/fused_pool2_shard.cu runs one round over one shard: global rows
-// [row0, row0 + rows_loc) of the [R, 128] layout (row0 a multiple of 8, so
-// a packed-word column never straddles two shards), reading each slot's
-// sources from the round's delivered summary instead of the state planes.
+// csrc/fused_pool2_shard.cu runs one round over the rows a device owns in
+// the replicated-pool2 composition: global rows [row0, row0 + rows) of the
+// [R, 128] layout (row0 a multiple of 8, so a packed-word column never
+// straddles two shards), reading every source from the device's global
+// copy of the summary planes at the source's own global index.
 
 // Local flat index of the first destination of packed-word column `col`
-// (rows 8q..8q+7 of one lane) of a shard; csrc/fused_pool2.cu's column
-// origin.
+// (rows 8q..8q+7 of one lane) of a device's rows; csrc/fused_pool2.cu's
+// column origin.
 GOSSIP_HD int local_column_origin(int col) {
   return (col >> 7) * (kPack * kLanes) + (col & (kLanes - 1));
 }
 
-// Global flat index of that destination on the shard starting at row0.
+// Global flat index of that destination on the rows starting at row0.
 GOSSIP_HD int shard_column_origin(int col, int row0) {
   return row0 * kLanes + local_column_origin(col);
 }
 
-// Row of a delivered summary that holds global row `src_row` of the
-// windowed plane, for a slot whose summary starts at global row
-// (row0 + base) mod R: the slot's band on the reduce_scatter wire (base the
-// slot's band start) or the whole gathered copy on the all_gather wire
-// (base = (R - row0) mod R, so row r sits at row r). src_row, row0 and
-// base lie in [0, R).
-GOSSIP_HD int wire_row(int src_row, int row0, int base, int R) {
-  return (src_row - row0 - base + 2 * R) % R;
-}
-
-// Flat index of global source i in that delivered summary.
-GOSSIP_HD int wire_index(int i, int row0, int base, int R) {
-  return wire_row(i >> 7, row0, base, R) * kLanes + (i & (kLanes - 1));
+// The reads of pool slot `slot` (displacement d) for the 8 destinations
+// j0 + 128 * sub of one packed-word column (j0 global): at[sub], the flat
+// index of the destination's mod-n source in a global [R, 128] summary
+// plane, which is the source's own global index (class_source: a
+// conditional add of n, no modulo), and hit[sub], whether that source
+// chose the slot and the destination is real. A summary value is read
+// only where hit is set.
+GOSSIP_HD void slot_reads(int j0, int d, int n, uint32_t k1, uint32_t k2,
+                          int pool_size, int slot, int at[kPack],
+                          bool hit[kPack]) {
+  int ch[kPack];
+  column_sources(j0, d, n, k1, k2, pool_size, at, ch);
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+  for (int sub = 0; sub < kPack; ++sub)
+    hit[sub] = ch[sub] == slot && j0 + sub * kLanes < n;
 }
 
 }  // namespace pool2

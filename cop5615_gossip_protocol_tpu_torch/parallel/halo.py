@@ -1,17 +1,21 @@
-"""The sharded compositions' wires, as in-process copies: the counterparts
-of the JAX package's parallel/halo.py ``exchange_rows_batched`` (the
-lattice compositions' ring halo exchange, one ppermute pair for every
-plane), ``scatter_band_rows`` (the replicated-pool2 composition's banded
-reduce_scatter plus margin ppermute) and of ``parallel/pool2_sharded.py``'s
-gather ``exchange`` (one all_gather plus the mirrored margin rows); and
-``replica_rows``, the imp composition's wire, which keeps one global copy
-of its planes per device current by copying each shard's rows into the
-other devices' copies.
+"""The sharded compositions' wires, as in-process copies into
+preallocated rows: ``ring_exchange``, the lattice compositions' ring halo
+(the counterpart of the JAX package's parallel/halo.py
+``exchange_rows_batched``, one ppermute pair for every plane);
+``replica_rows``, which keeps one global copy of a plane set per device
+current by copying each shard's rows into the other devices' copies (the
+imp composition's wire, and the replicated-pool2 composition's on the
+all_gather plan, where the JAX package all_gathers the windowed summary);
+and ``band_replica_rows``, the replicated-pool2 composition's wire on the
+reduce_scatter plan (the JAX banded reduce_scatter plus margin ppermute),
+which copies into each device's global copy only the rows of its shards'
+pool-slot bands that another device owns. ``exchange_rows_batched``
+queues any of them.
 
-Shard i owns global rows [i * rows_loc, (i + 1) * rows_loc) of a windowed
-summary plane (push-sum's raw s and w, gossip's active plane). Every copy
-lands on the destination shard's device, with no assumption that it is the
-source's; shards that share a device share one gathered copy.
+Devices are named by keys (a ``torch.device``, or any label the caller
+groups its planes by); copies between two keys run whatever devices their
+tensors lie on, and shards that share a key share one copy, so with one
+key there is nothing to copy.
 """
 
 from __future__ import annotations
@@ -27,44 +31,12 @@ def band_segments(rows_loc: int, n_dev: int) -> int:
     return math.gcd(rows_loc, n_dev)
 
 
-def band_rows(shards, start: int, count: int, device) -> torch.Tensor:
-    """Rows [start, start + count) of the global plane, wrapped mod its row
-    count R, copied from the shards that own them onto ``device``."""
-    rows_loc = shards[0].shape[0]
-    R = rows_loc * len(shards)
-    out = torch.empty((count,) + tuple(shards[0].shape[1:]),
-                      dtype=shards[0].dtype, device=device)
-    g, done = start % R, 0
-    while done < count:
-        owner, r = divmod(g, rows_loc)
-        take = min(rows_loc - r, count - done)
-        out[done:done + take].copy_(shards[owner][r:r + take], non_blocking=True)
-        g, done = (g + take) % R, done + take
-    return out
-
-
-def scatter_band_rows(items, rows_loc: int, margin: int, devices) -> list:
-    """The reduce_scatter wire: for each destination shard s, one
-    [rows_loc + margin, 128] band per (shards, base) item, the global rows
-    [(s * rows_loc + base) mod R, + rows_loc + margin) of that plane (the
-    rows the shard's pool-slot windows read: its core rows, shifted by the
-    slot's band start ``base``, plus the margin). Returns bands[s][item]."""
-    return [[band_rows(shards, s * rows_loc + base, rows_loc + margin, dev)
-             for shards, base in items]
-            for s, dev in enumerate(devices)]
-
-
-def gather_rows(shards, margin: int, devices) -> list:
-    """The all_gather wire: each destination shard's [R + margin, 128] copy
-    of the whole plane, its rows [R, R + margin) mirroring rows [0, margin)
-    (the JAX exchange's margin-extended copy). One copy per distinct
-    destination device; returns copies[s]."""
-    R = shards[0].shape[0] * len(shards)
-    by_device = {}
-    for dev in devices:
-        if dev not in by_device:
-            by_device[dev] = band_rows(shards, 0, R + margin, dev)
-    return [by_device[dev] for dev in devices]
+def _add_copies(groups: dict, dst_key, src_key, dst_planes, src_planes,
+                rows: slice) -> None:
+    dsts, srcs = groups.setdefault((dst_key, src_key), ([], []))
+    for dst, src in zip(dst_planes, src_planes):
+        dsts.append(dst[rows].view(torch.int32))
+        srcs.append(src[rows].view(torch.int32))
 
 
 def ring_exchange(sets, H: int, rows_loc: int) -> list:
@@ -91,30 +63,71 @@ def ring_exchange(sets, H: int, rows_loc: int) -> list:
 
 
 def replica_rows(planes_of: dict, rows_loc: int, devices) -> list:
-    """The wire over one global plane set per device (``planes_of[dev]``
-    its planes, [R, 128] each, in one order on every device), shard s (on
-    ``devices[s]``) owning rows [s * rows_loc, (s + 1) * rows_loc): each
-    shard's rows of its device's planes copied into the same rows of every
-    other device's. Returns the copies as groups of (destinations,
-    sources), int32 views of the preallocated planes, one group per
-    (destination, source) device pair, for ``exchange_rows_batched``; none
-    when every shard shares one device."""
+    """The wire over one global plane set per device key (``planes_of[key]``
+    its planes, [R, 128] each, in one order under every key), row block s
+    (rows [s * rows_loc, (s + 1) * rows_loc)) owned by ``devices[s]``: each
+    block copied from its owner's planes into the same rows of every other
+    key's. Returns the copies as groups of (destinations, sources), int32
+    views of the preallocated planes, one group per (destination, source)
+    pair, for ``exchange_rows_batched``; none when one key owns every
+    block."""
     groups = {}
-    for s, src_dev in enumerate(devices):
+    for s, src_key in enumerate(devices):
         rows = slice(s * rows_loc, (s + 1) * rows_loc)
-        for dst_dev, planes in planes_of.items():
-            if dst_dev == src_dev:
+        for dst_key, planes in planes_of.items():
+            if dst_key != src_key:
+                _add_copies(groups, dst_key, src_key, planes, planes_of[src_key], rows)
+    return list(groups.values())
+
+
+def band_replica_rows(planes_of: dict, rows_loc: int, owners, starts, count: int) -> list:
+    """The reduce_scatter wire in place, over one global plane set per
+    device key as in ``replica_rows`` (``owners[s]`` the key owning row
+    block s): for each key, the rows of its blocks' bands, [(s * rows_loc +
+    start) mod R, + count) for each block s it owns and each ``start`` (a
+    pool slot's band start), that another key owns, copied from that key's
+    planes into the same rows of its own. Overlapping bands are copied once,
+    and runs of rows of one owner in one copy. Returns the groups of
+    ``replica_rows``' form; none when one key owns every block."""
+    R = rows_loc * len(owners)
+    groups = {}
+    for dst_key, planes in planes_of.items():
+        pieces = []
+        for s, key in enumerate(owners):
+            if key != dst_key:
                 continue
-            dsts, srcs = groups.setdefault((dst_dev, src_dev), ([], []))
-            for dst, src in zip(planes, planes_of[src_dev]):
-                dsts.append(dst[rows].view(torch.int32))
-                srcs.append(src[rows].view(torch.int32))
+            for start in starts:
+                a = (s * rows_loc + start) % R
+                pieces += [(a, min(a + count, R))] + ([(0, a + count - R)]
+                                                      if a + count > R else [])
+        pieces.sort()
+        merged = []
+        for a, b in pieces:
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        for a, b in merged:
+            while a < b:
+                src_key = owners[a // rows_loc]
+                end = min(b, (a // rows_loc + 1) * rows_loc)
+                while end < b and owners[end // rows_loc] == src_key:
+                    end = min(b, end + rows_loc)
+                if src_key != dst_key:
+                    _add_copies(groups, dst_key, src_key, planes, planes_of[src_key],
+                                slice(a, end))
+                a = end
     return list(groups.values())
 
 
 def exchange_rows_batched(groups) -> None:
-    """Queue a wire's copies (``ring_exchange``'s or ``replica_rows``'
-    groups), one batched copy per group, into preallocated rows: no
-    allocation."""
+    """Queue a wire's copies (``ring_exchange``'s, ``replica_rows``' or
+    ``band_replica_rows``' groups), one batched copy per group, into
+    preallocated rows: no allocation. Counts the copies queued."""
     for dsts, srcs in groups:
         torch._foreach_copy_(dsts, srcs, non_blocking=True)
+        exchange_rows_batched.copies += len(dsts)
+
+
+# Plane copies queued by exchange_rows_batched, counted where they are queued.
+exchange_rows_batched.copies = 0

@@ -3,37 +3,62 @@ counterpart of the JAX package's parallel/pool2_sharded.py.
 
 The state planes of the streaming pool tier (ops/fused_pool2.py: push-sum
 s, w and the packed term|conv plane, gossip count and active) are
-row-sharded: shard i owns global rows [i * rows_loc, (i + 1) * rows_loc)
-of the pool layout's [R, 128] planes, on ``mesh.devices[i]``. One
-super-step is one round:
+row-sharded: each shard owns ``rows_loc`` consecutive rows of the pool
+layout's [R, 128] planes. The shards of one device sit on consecutive
+rows (``place_shards``: the devices in order of first appearance, each
+with as many row blocks as it has shards; with shard i on device i this is
+shard i on rows [i * rows_loc, (i + 1) * rows_loc)). Each distinct device
+keeps one global [R, 128] copy, per round parity, of the summary planes
+that other nodes read (push-sum s and w, gossip active), and its own rows
+of the planes only the node reads (push-sum term|conv, gossip count), also
+one set per parity. One super-step is one round r:
 
-1. the wire delivers each shard the windowed summary its pool slots read
-   (raw s and w for push-sum, the active plane for gossip): the whole
-   margin-extended copy (``all_gather``) or one band per slot at the
-   slot's band start (``reduce_scatter``), parallel/halo.py's copies;
-2. one launch per shard advances its rows one round, reading each slot's
-   sources from that summary (csrc/fused_pool2_shard.cu, the kernels of
-   ``pushsum_pool2_shard_round`` and ``gossip_pool2_shard_round``), and
-   leaves its converged count u in a device slot;
-3. the verdict sums the shards' u against the target on the device
-   (parallel/overlap.py orders it, with the ``overlap_collectives`` knob).
+1. **wire**: with several devices, the rows of set r % 2 that a device
+   reads but another owns are copied into the same rows of its copy, one
+   batched copy per (destination, source) device pair into the
+   preallocated planes (parallel/halo.py): on the ``all_gather`` plan every
+   remote row (``replica_rows``, built once a run), on the
+   ``reduce_scatter`` plan only the remote rows of each slot's band at its
+   start (``band_replica_rows``, built each round from its displacements).
+   With every shard on one device the wire is empty;
+2. **round**: one launch a device over all of its rows
+   (csrc/fused_pool2_shard.cu, the kernels of ``pushsum_pool2_shard_round``
+   and ``gossip_pool2_shard_round``): each destination reads its slots'
+   sources from the device's copy at their global index and writes its
+   rows of set (r + 1) % 2, which are, in place, round r + 1's summary;
+3. **verdict**: with every shard on one device the launch takes it itself
+   (its last block counts the round and sets the done flag); with several,
+   each device's launch leaves its converged count u, the counts are
+   copied to the home device (shard 0's) and summed against the target
+   there (parallel/overlap.py orders it, with the ``overlap_collectives``
+   knob).
+
+This departs from the JAX wire, which delivers each shard a fresh summary:
+the whole margin-extended copy (one all_gather) or one band per slot at
+the slot's band start (a banded reduce_scatter plus a margin ppermute),
+which each TPU tile reads at static windows. On the card a source is a
+load at a computed index, so a device reads its global copy in place: one
+card copies nothing a round, and several move no more bytes than the JAX
+wire does (the remote rows of the plan's gathered copy or bands). The
+plan (``plan_pool2_sharded``, ``band_margin``, ``band_starts``) is still
+the JAX plan, so a config gets the JAX package's geometry and wire, or its
+reason; PT decides nothing else here.
 
 Each output row is computed from the same inputs by the same operations as
 the single-device streaming pool tier's, so a run is bitwise the port's
-single-device pool2 run on either wire, at every shard count. The plan
-(``plan_pool2_sharded``, ``band_margin``, ``band_starts``) is the JAX
-plan's, so a config gets the JAX package's geometry and wire, or its
-reason. On the CPU the wrappers run their plain torch versions; on CUDA
-they launch the kernels. Fault operands (the drop gate, the death planes,
-global termination) and ``delivery="matmul"`` are refused by the config
-(ROADMAP A6, A7).
+single-device pool2 run on either wire, at every shard count and
+placement. Termination is checked every round, so ``rounds`` is exact. On
+the CPU the wrappers run their plain torch versions; on CUDA they launch
+the kernels; nothing falls back from one to the other. Fault operands (the
+drop gate, the death planes, global termination) and ``delivery="matmul"``
+are refused by the config (ROADMAP A6, A7).
 """
 
 from __future__ import annotations
 
 import ctypes
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -62,6 +87,10 @@ TC_TERM_MASK = TC_CONV_BIT - 1
 
 # Rounds per chunk of the run's chunk loop (the JAX run's stride).
 STRIDE = 8
+
+# Rounds of random streams the run draws and uploads at once: drawing them
+# costs the host about the same for 8 rounds as for a few hundred.
+DRAW_ROUNDS = 256
 
 
 def plan_pool2_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
@@ -165,77 +194,76 @@ def band_starts(offs, layout) -> list:
 
 
 # ---------------------------------------------------------------------------
-# The delivered summary of one shard: ``sources[k]`` the planes slot k reads
-# (push-sum (s, w), gossip (active,)), ``bases[k]`` where they start
-# (csrc/pool2.cuh, wire_row). The all_gather wire gives every slot the same
-# [R + PT + 16, 128] copy, whose row r is global row r: base (R - row0) mod R.
+# Placement: a device's shards on consecutive rows.
 # ---------------------------------------------------------------------------
 
 
-def gather_wire(windowed, PT: int, devices, pool_size: int) -> list:
-    """Per destination shard (sources, bases) on the all_gather wire:
-    ``windowed`` holds, per summary plane, its S shards."""
-    rows_loc = windowed[0][0].shape[0]
-    R = rows_loc * len(devices)
-    copies = [halo.gather_rows(shards, PT + 16, devices) for shards in windowed]
-    return [([tuple(c[s] for c in copies)] * pool_size,
-             [(R - s * rows_loc) % R] * pool_size) for s in range(len(devices))]
+class DeviceRows(NamedTuple):
+    """The rows one device owns: global rows [row0, row0 + rows)."""
+    device: torch.device
+    row0: int
+    rows: int
 
 
-def band_wire(windowed, offs, layout, devices) -> list:
-    """Per destination shard (sources, bases) on the reduce_scatter wire:
-    one band per slot and summary plane, at ``band_starts(offs)``."""
-    rows_loc = windowed[0][0].shape[0]
-    bases = band_starts(offs, layout)
-    items = [(shards, base) for base in bases for shards in windowed]
-    bands = halo.scatter_band_rows(items, rows_loc, band_margin(layout), devices)
-    n_wp = len(windowed)
-    return [([tuple(bands[s][k * n_wp:(k + 1) * n_wp]) for k in range(len(bases))],
-             bases) for s in range(len(devices))]
+def place_shards(devices, rows_loc: int) -> list:
+    """The DeviceRows of each distinct device of ``devices`` (shard i's),
+    in order of first appearance, each holding as many consecutive
+    ``rows_loc``-row blocks as it has shards. The home device (shard 0's)
+    comes first; with shard i on device i, shard i owns rows [i * rows_loc,
+    (i + 1) * rows_loc)."""
+    devices = list(devices)
+    placed, row0 = [], 0
+    for dev in dict.fromkeys(devices):
+        rows = devices.count(dev) * rows_loc
+        placed.append(DeviceRows(dev, row0, rows))
+        row0 += rows
+    return placed
 
 
 # ---------------------------------------------------------------------------
-# Plain versions: one shard's round in torch, on any device. They are what
+# Plain versions: one device's round in torch, on any device. They are what
 # the kernels are held against, and what the wrappers run on CPU tensors.
+# ``glob`` is the device's global [R, 128] summary planes, ``own`` its
+# [rows, 128] rows of the other planes, global rows [row0, row0 + rows).
 # ---------------------------------------------------------------------------
 
 
-def _slot_reads(keys, offs, wire, row0: int, rows_loc: int, R: int, n: int,
-                device):
-    """Per slot k, in order: (hit, at) over the shard's destinations, flat
-    global j = row0 * 128 + local: hit where j is real and its mod-n source
-    i chose slot k, ``at`` the flat index of i in slot k's summary."""
-    j = row0 * LANES + torch.arange(rows_loc * LANES, dtype=torch.int64, device=device)
+def _slot_reads(keys, offs, row0: int, rows: int, R: int, n: int, device):
+    """Per slot k, in order: (hit, src) over the destinations, flat global
+    j = row0 * 128 + local: ``src`` the mod-n source of j, the flat index
+    where the summary planes hold it, and ``hit`` where j is real and src
+    chose slot k (csrc/pool2.cuh, slot_reads)."""
+    j = row0 * LANES + torch.arange(rows * LANES, dtype=torch.int64, device=device)
     k1k2 = torch.tensor([int(keys[0]), int(keys[1])], dtype=torch.int64)
     choice = fused_pool._choice_plane(k1k2.to(device), R, len(offs)).reshape(-1)
-    _, bases = wire
     for k, d in enumerate(offs):
         src = torch.where(j >= d, j - d, j - d + n)
         ch = torch.where(src < n, choice[src], -1)
-        hit = (ch == k) & (j < n)
-        at = (((src >> 7) - row0 - bases[k] + 2 * R) % R) * LANES + (src & (LANES - 1))
-        yield hit, at
+        yield (ch == k) & (j < n), src
 
 
-def pushsum_pool2_shard_round_plain(planes, wire, keys, offs, row0: int, *,
-                                    n: int, rows: int, delta: float,
-                                    term_rounds: int):
-    """One push-sum round over one shard: ``planes`` its (s, w, tc)
-    [rows_loc, 128] planes, ``wire`` its (sources, bases) summary,
-    ``keys`` the round key (k1, k2), ``offs`` the P displacements, ``row0``
-    its first global row of ``rows``. Returns ((s', w', tc'), u) with u the
-    shard's converged count (int32, 0-dim)."""
-    s, w, tc = (p.reshape(-1) for p in planes)
-    rows_loc, dev = planes[0].shape[0], s.device
+def _rows_of(glob, row0: int, rows: int):
+    return tuple(p[row0:row0 + rows] for p in glob)
+
+
+def pushsum_pool2_shard_round_plain(glob, own, keys, offs, row0: int, *, n: int,
+                                    delta: float, term_rounds: int):
+    """One push-sum round over a device's rows: ``glob`` the (s, w)
+    summary, ``own`` the rows' (tc,), ``keys`` the round key (k1, k2),
+    ``offs`` the P displacements. Returns ((s', w', tc') of the rows, u)
+    with u their converged count (int32, 0-dim)."""
+    rows, R = own[0].shape[0], glob[0].shape[0]
+    s_g, w_g = (p.reshape(-1) for p in glob)
+    s, w = (p.reshape(-1) for p in _rows_of(glob, row0, rows))
+    tc = own[0].reshape(-1)
+    dev = s.device
     pad = row0 * LANES + torch.arange(s.numel(), device=dev) >= n
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     in_s = torch.zeros_like(s)
     in_w = torch.zeros_like(w)
-    for k, (hit, at) in enumerate(_slot_reads(keys, offs, wire, row0, rows_loc,
-                                              rows, n, dev)):
-        ws, ww = (x.reshape(-1) for x in wire[0][k])
-        in_s = in_s + torch.where(hit, ws[at] * 0.5, zero)
-        in_w = in_w + torch.where(hit, ww[at] * 0.5, zero)
+    for hit, src in _slot_reads(keys, offs, row0, rows, R, n, dev):
+        in_s = in_s + torch.where(hit, s_g[src] * 0.5, zero)
+        in_w = in_w + torch.where(hit, w_g[src] * 0.5, zero)
     s_send = torch.where(pad, zero, s * 0.5)
     w_send = torch.where(pad, zero, w * 0.5)
     s_new = (s - s_send) + in_s
@@ -245,163 +273,184 @@ def pushsum_pool2_shard_round_plain(planes, wire, keys, offs, row0: int, *,
     t_new = torch.where(in_w > 0, torch.where(stable, term + 1, 0), term)
     conv = (((tc & TC_CONV_BIT) != 0) | (t_new >= term_rounds)) & ~pad
     tc_new = torch.where(conv, t_new | TC_CONV_BIT, t_new).to(torch.int32)
-    shape = planes[0].shape
+    shape = own[0].shape
     return ((s_new.reshape(shape), w_new.reshape(shape), tc_new.reshape(shape)),
             conv.sum().to(torch.int32))
 
 
-def gossip_pool2_shard_round_plain(planes, wire, keys, offs, row0: int, *,
-                                   n: int, rows: int, rumor_target: int,
-                                   suppress: bool):
-    """Gossip analog of ``pushsum_pool2_shard_round_plain``: ``planes`` is
-    (count, active), the summary the active plane; conv is count >=
-    rumor_target on real lanes, suppression receiver-side."""
-    cnt, act = (p.reshape(-1) for p in planes)
-    rows_loc, dev = planes[0].shape[0], cnt.device
+def gossip_pool2_shard_round_plain(glob, own, keys, offs, row0: int, *, n: int,
+                                   rumor_target: int, suppress: bool):
+    """Gossip analog of ``pushsum_pool2_shard_round_plain``: ``glob`` is
+    (active,), ``own`` (count,); returns ((count', active') of the rows,
+    u). conv is count >= rumor_target on real lanes, suppression
+    receiver-side."""
+    rows, R = own[0].shape[0], glob[0].shape[0]
+    a_g = glob[0].reshape(-1)
+    act = _rows_of(glob, row0, rows)[0].reshape(-1)
+    cnt = own[0].reshape(-1)
+    dev = cnt.device
     pad = row0 * LANES + torch.arange(cnt.numel(), device=dev) >= n
     inbox = torch.zeros_like(cnt)
-    for k, (hit, at) in enumerate(_slot_reads(keys, offs, wire, row0, rows_loc,
-                                              rows, n, dev)):
-        inbox = inbox + (hit & (wire[0][k][0].reshape(-1)[at] != 0)).to(torch.int32)
+    for hit, src in _slot_reads(keys, offs, row0, rows, R, n, dev):
+        inbox = inbox + (hit & (a_g[src] != 0)).to(torch.int32)
     if suppress:
         inbox = torch.where((cnt >= rumor_target) & ~pad, 0, inbox)
     cnt_new = (cnt + inbox).to(torch.int32)
     act_new = ((act != 0) | (inbox > 0)).to(torch.int32)
     conv = (cnt_new >= rumor_target) & ~pad
-    shape = planes[0].shape
+    shape = own[0].shape
     return ((cnt_new.reshape(shape), act_new.reshape(shape)),
             conv.sum().to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
 # Wrappers: CUDA tensors launch the kernels, CPU tensors run the plain
-# versions. No fallback between the two. Each writes the shard's new planes
-# into ``out`` and its count into ``u`` (int32 [1]) unless ``ctrl[0]`` (the
-# run's done flag) is set; ``acc`` is the shard's zeroed int32 [2] scratch.
+# versions. No fallback between the two. Each reads the device's global
+# ``glob_in`` and its rows' ``own_in``, and writes the rows of ``glob_out``
+# and ``own_out``, unless ``ctrl[0]`` (the run's done flag on this device)
+# is set. ``keys`` (int64 [K, 2]) and ``offs`` (int32 [K, P]) are a chunk's
+# streams on the planes' device, of which the launch reads round ``at``.
+# The rows' converged count goes to ``u`` (int32 [1]); with ``u`` None the
+# launch takes the verdict: it counts the round in ctrl[1] and sets ctrl[0]
+# once the count reaches ``target``. ``acc`` is the device's zeroed int32
+# [2] scratch.
 # ---------------------------------------------------------------------------
 
-_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-_PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "gossip_pushsum_pool2_shard_round":
-        [_P] * 6 + [_PP, _IP, _IP, _U, _U] + [_I] * 5 + [_F, _I, _P, _P, _P, _I, _P],
-    "gossip_gossip_pool2_shard_round":
-        [_P] * 4 + [_PP, _IP, _IP, _U, _U] + [_I] * 7 + [_P, _P, _P, _I, _P],
+        [_P] * 8 + [_I] * 4 + [_F, _I] + [_P] * 3 + [_I, _I, _P],
+    "gossip_gossip_pool2_shard_round": [_P] * 6 + [_I] * 6 + [_P] * 3 + [_I, _I, _P],
     "gossip_pool2_shard_verdict": [_P, _I, _I, _P, _I, _P],
 }
 
 
-def _check(planes, out, dtypes, wire, offs, rows: int, n: int, u, acc,
-           ctrl) -> torch.device:
-    dev = planes[0].device
-    for x, size in ((u, 1), (acc, 2), (ctrl, 2)):
-        if x.device != dev or x.dtype != torch.int32 or x.numel() != size:
-            raise ValueError(f"u, acc and ctrl must be int32 [1], [2], [2] on {dev}")
+def _check(glob_in, glob_out, own_in, own_out, dtypes, keys, offs, at: int, row0: int,
+           n: int, u, acc, ctrl) -> torch.device:
+    dev = glob_in[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"shard rounds run on cpu or cuda tensors, got {dev}")
-    shape = tuple(planes[0].shape)
-    if len(shape) != 2 or shape[1] != LANES or rows % shape[0]:
-        raise ValueError(f"shard planes must be [rows_loc, {LANES}] with rows_loc "
-                         f"dividing {rows}, got {shape}")
-    for x, dt in zip(tuple(planes) + tuple(out), dtypes * 2):
-        if x.device != dev or x.dtype != dt or tuple(x.shape) != shape:
-            raise ValueError(f"shard plane must be {dt} {shape} on {dev}, got "
-                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
-        if not x.is_contiguous():
-            raise ValueError("shard planes must be contiguous")
-    if len(offs) not in fused_pool.POOL_SIZES:
-        raise ValueError(f"pool_size {len(offs)} not in {fused_pool.POOL_SIZES}")
-    if not all(1 <= int(d) <= n - 1 for d in offs):
+    R, rows = glob_in[0].shape[0], own_in[0].shape[0]
+    glob_dt, own_dt = dtypes
+    for planes, dts, shape in ((glob_in, glob_dt, (R, LANES)), (glob_out, glob_dt, (R, LANES)),
+                               (own_in, own_dt, (rows, LANES)),
+                               (own_out, own_dt, (rows, LANES))):
+        if len(planes) != len(dts):
+            raise ValueError(f"expected {len(dts)} planes, got {len(planes)}")
+        for x, dt in zip(planes, dts):
+            if x.device != dev or x.dtype != dt or tuple(x.shape) != shape:
+                raise ValueError(f"shard plane must be {dt} {shape} on {dev}, got "
+                                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
+            if not x.is_contiguous():
+                raise ValueError("shard planes must be contiguous")
+    if rows < 8 or rows % 8 or row0 % 8 or not 0 <= row0 <= R - rows:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) must be whole 8-row groups "
+                         f"inside [0, {R})")
+    if not 2 <= n <= R * LANES < 2**31:
+        raise ValueError(f"{R} rows do not hold n={n} in int32 flat indices")
+    if (keys.device != dev or keys.dtype != torch.int64 or keys.dim() != 2
+            or keys.shape[1] != 2):
+        raise ValueError(f"keys must be int64 [K, 2] on {dev}")
+    if (offs.device != dev or offs.dtype != torch.int32 or offs.dim() != 2
+            or offs.shape[0] != keys.shape[0]):
+        raise ValueError(f"offs must be int32 [K, P] on {dev}, K = {keys.shape[0]}")
+    if offs.shape[1] not in fused_pool.POOL_SIZES:
+        raise ValueError(f"pool_size {offs.shape[1]} not in {fused_pool.POOL_SIZES}")
+    if not 0 <= at < keys.shape[0]:
+        raise ValueError(f"round {at} outside the {keys.shape[0]} rounds of the streams")
+    # The run's draw makes every displacement so; on the card the check
+    # would cost a host sync, so only the CPU checks the values.
+    if dev.type == "cpu" and not all(1 <= d <= n - 1 for d in offs[at].tolist()):
         raise ValueError(f"offs must lie in [1, {n - 1}]")
-    sources, bases = wire
-    if len(sources) != len(offs) or len(bases) != len(offs):
-        raise ValueError("the wire must give one summary and base per slot")
-    for planes_k in sources:
-        for x in planes_k:
-            if x.device != dev or not x.is_contiguous() or x.shape[1] != LANES:
-                raise ValueError(f"summary planes must be contiguous [*, {LANES}] "
-                                 f"on {dev}")
-    if not all(0 <= int(b) < rows for b in bases):
-        raise ValueError(f"bases must lie in [0, {rows})")
+    for x, size in ((acc, 2), (ctrl, 2)) + (() if u is None else ((u, 1),)):
+        if x.device != dev or x.dtype != torch.int32 or x.numel() != size:
+            raise ValueError(f"u, acc and ctrl must be int32 [1], [2], [2] on {dev}")
     return dev
 
 
-def _launch(name: str, dev, planes, wire_ptrs, bases, offs, ints, u, acc,
-            ctrl) -> None:
+def _round_plain(algorithm: str, glob_in, glob_out, own_in, own_out, keys, offs, at: int,
+                 row0: int, kw: dict, u, target: int, ctrl) -> None:
+    if int(ctrl[0]):
+        return
+    plain = (pushsum_pool2_shard_round_plain if algorithm == "push-sum"
+             else gossip_pool2_shard_round_plain)
+    planes, count = plain(glob_in, own_in, keys[at].tolist(), offs[at].tolist(), row0,
+                          **kw)
+    summary, mine = split_state(planes, algorithm)
+    for o, x in zip(_rows_of(glob_out, row0, own_in[0].shape[0]) + tuple(own_out),
+                    summary + mine):
+        o.copy_(x)
+    if u is None:
+        ctrl[1] += 1
+        ctrl[0] = int(int(count) >= target)
+    else:
+        u[0] = count
+
+
+def _launch(name: str, dev, planes, keys, offs, at: int, ints, u, acc, ctrl,
+            target: int) -> None:
     """Queue one launch of entry point ``name`` on the current stream of
-    ``dev``: the shard's planes, its wire (host arrays of pointers, bases
-    and displacements), the scalars, then u, acc and ctrl."""
+    ``dev``: the planes, round ``at`` of the streams, the scalars, then u
+    (null for the verdict in the launch), acc, ctrl and the target."""
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     fn = kernels.entry("fused_pool2_shard", name, _SIGNATURES[name])
-    P = len(offs)
-    err = fn(*[ctypes.c_void_p(x.data_ptr()) for x in planes],
-             (ctypes.c_void_p * len(wire_ptrs))(*wire_ptrs),
-             (ctypes.c_int * P)(*[int(b) for b in bases]),
-             (ctypes.c_int * P)(*[int(d) for d in offs]),
-             *ints, *[ctypes.c_void_p(x.data_ptr()) for x in (u, acc, ctrl)],
-             dev.index, stream)
+    err = fn(*[x.data_ptr() for x in planes], keys.data_ptr() + at * keys.stride(0) * 8,
+             offs.data_ptr() + at * offs.stride(0) * 4, *ints,
+             None if u is None else u.data_ptr(), acc.data_ptr(), ctrl.data_ptr(),
+             target, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
-def _write_plain(result, out, u) -> None:
-    planes, count = result
-    for o, x in zip(out, planes):
-        o.copy_(x)
-    u[0] = count
-
-
-def pushsum_pool2_shard_round(planes, out, wire, keys, offs, row0: int, *,
-                              n: int, rows: int, delta: float, term_rounds: int,
-                              u, acc, ctrl) -> None:
-    """One push-sum round over one shard, (s, w, tc) ``planes`` into
-    ``out``: the kernel on CUDA tensors, the plain version on CPU ones."""
-    dev = _check(planes, out, (torch.float32, torch.float32, torch.int32), wire,
-                 offs, rows, n, u, acc, ctrl)
+def pushsum_pool2_shard_round(glob_in, glob_out, own_in, own_out, keys, offs, row0: int,
+                              *, n: int, delta: float, term_rounds: int, u, acc, ctrl,
+                              target: int = 0, at: int = 0) -> None:
+    """One push-sum round over a device's rows [row0, row0 + rows): the
+    global (s, w) ``glob_in`` [R, 128] and the rows' (tc,) ``own_in`` [rows,
+    128] into ``glob_out``'s rows and ``own_out``: the kernel on CUDA
+    tensors, the plain version on CPU ones."""
+    f32, i32 = torch.float32, torch.int32
+    dev = _check(glob_in, glob_out, own_in, own_out, ((f32, f32), (i32,)), keys, offs,
+                 at, row0, n, u, acc, ctrl)
     if dev.type == "cpu":
-        if not int(ctrl[0]):
-            _write_plain(pushsum_pool2_shard_round_plain(
-                planes, wire, keys, offs, row0, n=n, rows=rows, delta=delta,
-                term_rounds=term_rounds), out, u)
+        _round_plain("push-sum", glob_in, glob_out, own_in, own_out, keys, offs, at, row0,
+                     {"n": n, "delta": delta, "term_rounds": term_rounds}, u, target, ctrl)
         return
-    wire_ptrs = [x.data_ptr() for planes_k in wire[0] for x in planes_k]
-    _launch("gossip_pushsum_pool2_shard_round", dev, (*planes, *out), wire_ptrs,
-            wire[1], offs,
-            (ctypes.c_uint(int(keys[0])), ctypes.c_uint(int(keys[1])), n, rows,
-             row0, planes[0].shape[0], len(offs), ctypes.c_float(delta),
-             term_rounds), u, acc, ctrl)
+    _launch("gossip_pushsum_pool2_shard_round", dev,
+            (*glob_in, *own_in, *glob_out, *own_out), keys, offs, at,
+            (n, row0, own_in[0].shape[0], offs.shape[1], ctypes.c_float(delta),
+             term_rounds), u, acc, ctrl, target)
     pushsum_pool2_shard_round.launches += 1
 
 
-def gossip_pool2_shard_round(planes, out, wire, keys, offs, row0: int, *,
-                             n: int, rows: int, rumor_target: int, suppress: bool,
-                             u, acc, ctrl) -> None:
-    """Gossip analog of ``pushsum_pool2_shard_round``: (count, active)."""
-    dev = _check(planes, out, (torch.int32, torch.int32), wire, offs, rows, n, u,
-                 acc, ctrl)
+def gossip_pool2_shard_round(glob_in, glob_out, own_in, own_out, keys, offs, row0: int,
+                             *, n: int, rumor_target: int, suppress: bool, u, acc, ctrl,
+                             target: int = 0, at: int = 0) -> None:
+    """Gossip analog of ``pushsum_pool2_shard_round``: the global (active,)
+    and the rows' (count,)."""
+    i32 = torch.int32
+    dev = _check(glob_in, glob_out, own_in, own_out, ((i32,), (i32,)), keys, offs, at,
+                 row0, n, u, acc, ctrl)
     if dev.type == "cpu":
-        if not int(ctrl[0]):
-            _write_plain(gossip_pool2_shard_round_plain(
-                planes, wire, keys, offs, row0, n=n, rows=rows,
-                rumor_target=rumor_target, suppress=suppress), out, u)
+        _round_plain("gossip", glob_in, glob_out, own_in, own_out, keys, offs, at, row0,
+                     {"n": n, "rumor_target": rumor_target, "suppress": suppress}, u,
+                     target, ctrl)
         return
-    wire_ptrs = [planes_k[0].data_ptr() for planes_k in wire[0]]
-    _launch("gossip_gossip_pool2_shard_round", dev, (*planes, *out), wire_ptrs,
-            wire[1], offs,
-            (ctypes.c_uint(int(keys[0])), ctypes.c_uint(int(keys[1])), n, rows,
-             row0, planes[0].shape[0], len(offs), rumor_target, int(suppress)),
-            u, acc, ctrl)
+    _launch("gossip_gossip_pool2_shard_round", dev,
+            (*own_in, *glob_in, *own_out, *glob_out), keys, offs, at,
+            (n, row0, own_in[0].shape[0], offs.shape[1], rumor_target, int(suppress)),
+            u, acc, ctrl, target)
     gossip_pool2_shard_round.launches += 1
 
 
-# Kernel launches queued by each wrapper (one a shard a round), counted
+# Kernel launches queued by each wrapper (one a device a round), counted
 # where the kernel is launched and nowhere else.
 pushsum_pool2_shard_round.launches = 0
 gossip_pool2_shard_round.launches = 0
 
 
 def shard_verdict(u, target: int, ctrl) -> None:
-    """The round's verdict on ``u`` (int32 [S], the shards' counts, on
+    """The round's verdict on ``u`` (int32 [S], one count a slot, on
     ctrl's device): unless ctrl[0] (done) is set, count the round in
     ctrl[1] and set done once sum(u) >= target."""
     if ctrl.device.type == "cpu":
@@ -419,19 +468,76 @@ def shard_verdict(u, target: int, ctrl) -> None:
                            f"cudaError_t {err}")
 
 
+def round_kw(topo: Topology, cfg: SimConfig) -> dict:
+    """The round wrappers' keywords of a config."""
+    if cfg.algorithm == "push-sum":
+        return {"n": topo.n, "delta": cfg.resolved_delta, "term_rounds": cfg.term_rounds}
+    return {"n": topo.n, "rumor_target": cfg.resolved_rumor_target,
+            "suppress": cfg.resolved_suppress}
+
+
+# The state's planes that are summary planes (read by other nodes) and the
+# node's own: push-sum (s, w | tc), gossip (active | count).
+SUMMARY_OF = {"push-sum": (0, 1), "gossip": (1,)}
+OWN_OF = {"push-sum": (2,), "gossip": (0,)}
+
+
+def split_state(state, algorithm: str):
+    """(summary planes, own planes) of a state in its canonical order."""
+    return (tuple(state[p] for p in SUMMARY_OF[algorithm]),
+            tuple(state[p] for p in OWN_OF[algorithm]))
+
+
+def join_state(glob, own, algorithm: str) -> tuple:
+    """The state in its canonical order from (summary, own) planes."""
+    out = [None] * (len(glob) + len(own))
+    for p, x in zip(SUMMARY_OF[algorithm] + OWN_OF[algorithm], tuple(glob) + tuple(own)):
+        out[p] = x
+    return tuple(out)
+
+
+def _round_fn(algorithm: str):
+    if algorithm == "push-sum":
+        return pushsum_pool2_shard_round
+    return gossip_pool2_shard_round
+
+
+# ---------------------------------------------------------------------------
+# The JAX factories' functional form: one round of one shard from the global
+# state, for the tests and the card's checks.
+# ---------------------------------------------------------------------------
+
+
+def _shard_chunk(algorithm: str, state, keys, offs, row0: int, rows_loc: int, kw: dict):
+    """One round of the shard at ``row0`` from the global [R, 128] ``state``
+    on one device, as the device's launch over that shard's rows alone.
+    Returns (its planes in the state's order, u)."""
+    dev = state[0].device
+    glob, own = split_state(state, algorithm)
+    glob_out = tuple(torch.empty_like(x) for x in glob)
+    own_in = tuple(x[row0:row0 + rows_loc].contiguous() for x in own)
+    own_out = tuple(torch.empty_like(x) for x in own_in)
+    u, acc, ctrl = (torch.zeros(k, dtype=torch.int32, device=dev) for k in (1, 2, 2))
+    k = torch.tensor([[int(keys[0]), int(keys[1])]], dtype=torch.int64, device=dev)
+    o = torch.tensor([[int(d) for d in offs]], dtype=torch.int32, device=dev)
+    _round_fn(algorithm)(glob, glob_out, own_in, own_out, k, o, row0, **kw, u=u, acc=acc,
+                         ctrl=ctrl)
+    return join_state(_rows_of(glob_out, row0, rows_loc), own_out, algorithm), u[0]
+
+
 def make_pushsum_pool2_shard_chunk(topo: Topology, cfg: SimConfig, rows_loc: int,
                                    layout):
-    """``chunk_fn(state3, wire, keys, offs, row0) -> (state3', u)``: one
-    push-sum round over the shard at ``row0`` (the JAX factory's
-    contract, fault-free, so without its gate, death and ``rnd``
-    operands; the kernel does not tile, so without its PT), through
-    ``pushsum_pool2_shard_round``."""
-    kw = {"n": topo.n, "rows": layout.rows, "delta": cfg.resolved_delta,
-          "term_rounds": cfg.term_rounds}
+    """``chunk_fn(state3, keys, offs, row0) -> (state3', u)``: one push-sum
+    round over the shard at ``row0`` from the global (s, w, tc) [R, 128]
+    planes (the JAX factory's contract, fault-free, so without its gate,
+    death and ``rnd`` operands; its delivered summary is here the global
+    planes, and the kernel does not tile, so without its PT), through
+    ``pushsum_pool2_shard_round``; returns the shard's planes."""
+    del layout
+    kw = round_kw(topo, cfg)
 
-    def chunk_fn(state3, wire, keys, offs, row0):
-        return _functional(pushsum_pool2_shard_round, state3, wire, keys, offs,
-                           row0, rows_loc, kw)
+    def chunk_fn(state3, keys, offs, row0):
+        return _shard_chunk("push-sum", state3, keys, offs, row0, rows_loc, kw)
 
     return chunk_fn
 
@@ -440,27 +546,13 @@ def make_gossip_pool2_shard_chunk(topo: Topology, cfg: SimConfig, rows_loc: int,
                                   layout):
     """Gossip analog of ``make_pushsum_pool2_shard_chunk``: (count,
     active)."""
-    kw = {"n": topo.n, "rows": layout.rows,
-          "rumor_target": cfg.resolved_rumor_target,
-          "suppress": cfg.resolved_suppress}
+    del layout
+    kw = round_kw(topo, cfg)
 
-    def chunk_fn(state2, wire, keys, offs, row0):
-        return _functional(gossip_pool2_shard_round, state2, wire, keys, offs,
-                           row0, rows_loc, kw)
+    def chunk_fn(state2, keys, offs, row0):
+        return _shard_chunk("gossip", state2, keys, offs, row0, rows_loc, kw)
 
     return chunk_fn
-
-
-def _functional(round_fn, state, wire, keys, offs, row0, rows_loc, kw):
-    if state[0].shape[0] != rows_loc:
-        raise ValueError(f"shard planes must have {rows_loc} rows")
-    dev = state[0].device
-    out = [torch.empty_like(x) for x in state]
-    u = torch.zeros(1, dtype=torch.int32, device=dev)
-    acc = torch.zeros(2, dtype=torch.int32, device=dev)
-    ctrl = torch.zeros(2, dtype=torch.int32, device=dev)
-    round_fn(state, out, wire, keys, offs, row0, **kw, u=u, acc=acc, ctrl=ctrl)
-    return tuple(out), u[0]
 
 
 # ---------------------------------------------------------------------------
@@ -468,16 +560,15 @@ def _functional(round_fn, state, wire, keys, offs, row0, rows_loc, kw):
 # ---------------------------------------------------------------------------
 
 
-def _start_planes(topo, cfg, key, mesh, rows_loc, layout, start_state):
-    """Per shard, the start planes on its device: from ``start_state``
-    (canonical [n] tensors), or built per shard from the global row index
-    (no global host array)."""
+def _start_rows(topo, cfg, key, placed, layout, start_state):
+    """Per device (``placed``), its rows of the start planes in the
+    canonical order, on the device: from ``start_state`` (canonical [n]
+    tensors), or built from the global row index (no global host array)."""
     from ..models.runner import draw_leader
 
     n = topo.n
-    pushsum = cfg.algorithm == "push-sum"
     if start_state is not None:
-        if pushsum:
+        if cfg.algorithm == "push-sum":
             tc = torch.where(start_state.conv.cpu(),
                              start_state.term.cpu().to(torch.int32) | TC_CONV_BIT,
                              start_state.term.cpu().to(torch.int32))
@@ -487,40 +578,30 @@ def _start_planes(topo, cfg, key, mesh, rows_loc, layout, start_state):
         else:
             full = (fused._pad2d(start_state.count.cpu().to(torch.int32), layout, 0),
                     fused._pad2d(start_state.active.cpu().to(torch.int32), layout, 0))
-        return [tuple(p[s * rows_loc:(s + 1) * rows_loc].contiguous().to(dev)
-                      for p in full) for s, dev in enumerate(mesh.devices)]
+        return [tuple(p[g.row0:g.row0 + g.rows].contiguous().to(g.device) for p in full)
+                for g in placed]
 
-    def ids(lo, hi, dev):
-        return mesh_mod.flat_ids(lo, hi, LANES, dev)
+    def ids(g):
+        return mesh_mod.flat_ids(g.row0, g.row0 + g.rows, LANES, g.device)
 
-    if pushsum:
+    if cfg.algorithm == "push-sum":
         term0 = cfg.initial_term_round
-        planes = (
-            mesh_mod.put_rows(mesh, rows_loc, lambda lo, hi, dev: torch.where(
-                ids(lo, hi, dev) < n, ids(lo, hi, dev), 0).to(torch.float32)),
-            mesh_mod.put_rows(mesh, rows_loc, lambda lo, hi, dev: torch.ones(
-                hi - lo, LANES, dtype=torch.float32, device=dev)),
-            mesh_mod.put_rows(mesh, rows_loc, lambda lo, hi, dev: torch.where(
-                ids(lo, hi, dev) < n, term0, 0).to(torch.int32)),
-        )
-    else:
-        leader = draw_leader(key, topo, cfg)
-        receipt = int(cfg.reference and topo.kind == "full")
-        planes = (
-            mesh_mod.put_rows(mesh, rows_loc, lambda lo, hi, dev: (
-                (ids(lo, hi, dev) == leader) * receipt).to(torch.int32)),
-            mesh_mod.put_rows(mesh, rows_loc, lambda lo, hi, dev: (
-                ids(lo, hi, dev) == leader).to(torch.int32)),
-        )
-    return [tuple(p[s] for p in planes) for s in range(mesh.size)]
+        return [(torch.where(ids(g) < n, ids(g), 0).to(torch.float32),
+                 torch.ones(g.rows, LANES, dtype=torch.float32, device=g.device),
+                 torch.where(ids(g) < n, term0, 0).to(torch.int32)) for g in placed]
+    leader = draw_leader(key, topo, cfg)
+    receipt = int(cfg.reference and topo.kind == "full")
+    return [(((ids(g) == leader) * receipt).to(torch.int32),
+             (ids(g) == leader).to(torch.int32)) for g in placed]
 
 
 class ShardControl:
-    """The control block of a run of one-round super-steps over shards on
-    ``devices``: on the home device (shard 0's) the done flag and round
-    counter ``ctrl`` (int32 [2]) and the shards' counts of each round
-    parity ``u_all`` (int32 [2, S]); on every other device a copy of ctrl
-    and each of its shards' count slots; per shard its int32 [2] scratch."""
+    """The control block of a run of one-round super-steps over count slots
+    on ``devices`` (a shard each, or a device each): on the home device
+    (slot 0's) the done flag and round counter ``ctrl`` (int32 [2]) and the
+    slots' counts of each round parity ``u_all`` (int32 [2, S]); on every
+    other device a copy of ctrl and each of its slots' counts; per slot its
+    int32 [2] scratch."""
 
     def __init__(self, devices, done: bool, start_round: int):
         self.devices, self.home = list(devices), devices[0]
@@ -535,7 +616,7 @@ class ShardControl:
         self.acc = [torch.zeros(2, dtype=torch.int32, device=dev) for dev in self.devices]
 
     def args(self, s: int, par: int) -> dict:
-        """Shard s's u, acc and ctrl operands in a round of parity ``par``."""
+        """Slot s's u, acc and ctrl operands in a round of parity ``par``."""
         return {"u": self.u_of[s][par], "acc": self.acc[s],
                 "ctrl": self.ctrl_on[self.devices[s]]}
 
@@ -543,19 +624,21 @@ class ShardControl:
 def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
                          start_round: int, target: int, t_enter: float, library: str,
                          draw, launch_round, final_state, ahead: int = 0,
-                         prologue=None):
+                         prologue=None, verdict_in_launch: bool = False):
     """Run one-round super-steps to convergence or cfg.max_rounds and return
     the RunResult: chunks of STRIDE rounds queued through
     models/pipeline.py, one host sync each, each round's verdict ordered by
     parallel/overlap.py. ``draw(begin, count)`` gives the random streams
-    of rounds begin.. (one tuple a round), drawn ``ahead`` rounds past each
+    of rounds begin.. (one item a round), drawn ``ahead`` rounds past each
     chunk; ``launch_round(r, stream, *later)`` queues round r's wire and
-    shard launches, each shard's count into its ``ctl.args`` slot, with the
+    launches, each slot's count into its ``ctl.args`` slot, with the
     streams of rounds r + 1..r + ahead as ``later``; ``final_state(par)``
-    joins the planes of parity ``par`` into the canonical state.
-    ``library`` names the kernels' source, loaded (with the verdict's)
-    before the run's clock starts; ``prologue()``, if given, is queued
-    then too, ahead of the first round."""
+    joins the planes of parity ``par`` into the canonical state. With
+    ``verdict_in_launch`` the launches take the verdict themselves (one
+    slot, on the home device), so none is queued. ``library`` names the
+    kernels' source, loaded (with the verdict's) before the run's clock
+    starts; ``prologue()``, if given, is queued then too, ahead of the
+    first round."""
     from ..models import pipeline as pipeline_mod
     from ..models.runner import _finalize_result
 
@@ -569,6 +652,8 @@ def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
                 ctl.u_all[r % 2, s].copy_(ctl.u_of[s][r % 2][0])
 
     def verdict(r):
+        if verdict_in_launch:
+            return
         shard_verdict(ctl.u_all[r % 2], target, ctl.ctrl)
         for dev, c in ctl.ctrl_on.items():
             if dev != home:
@@ -616,18 +701,26 @@ def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
     return result
 
 
+def _on_device(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    return x if dev.type == "cpu" else fused_pool._upload(x, dev)
+
+
 def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
                       start_state=None, start_round: int = 0,
                       t_enter: Optional[float] = None):
     """Sharded replicated-pool2 run (engine='fused', n_devices > 1, full
     with delivery='pool'), to convergence or cfg.max_rounds; returns the
-    RunResult, its state the canonical [n] planes joined from the shards.
+    RunResult, its state the canonical [n] planes joined from the devices.
 
-    Each shard keeps a ping/pong pair of plane sets: round r reads set
-    r % 2 and writes the other, so the planes after r rounds are set r % 2
-    and a verdict's round counter names them. The run's control block
-    (``ShardControl``) lives on shard 0's device, and
-    ``run_round_supersteps`` drives the rounds."""
+    Each distinct device holds its global summary planes and its rows of
+    the others in ping/pong form: round r reads set r % 2 and writes the
+    other, never its inputs, so the planes after r rounds are set r % 2, a
+    verdict's round counter names them, and a deferred verdict that fires
+    rolls the next round back by the counter alone. The run's control block
+    (``ShardControl``, a count slot a device) lives on the home device, and
+    ``run_round_supersteps`` drives the rounds; the keys and displacements
+    of DRAW_ROUNDS rounds at a time are drawn and uploaded to every device
+    once, and each round's launches read their row of them."""
     from ..models import gossip as gossip_mod
     from ..models import pushsum as pushsum_mod
     from ..models.runner import _host_done
@@ -637,54 +730,82 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
     plan = plan_pool2_sharded(topo, cfg, S)
     if isinstance(plan, str):
         raise ValueError(f"engine='fused' with n_devices={S} unavailable: {plan}")
-    rows_loc, PT, layout, wire_kind = plan
+    rows_loc, _PT, layout, wire_kind = plan
     n, R, P = topo.n, layout.rows, cfg.pool_size
-    pushsum = cfg.algorithm == "push-sum"
+    algorithm = cfg.algorithm
     target = cfg.resolved_target_count(n, topo.target_count)
-    devices, home = mesh.devices, mesh.devices[0]
+    placed = place_shards(mesh.devices, rows_loc)
+    G = len(placed)
+    in_launch = G == 1
 
-    start = _start_planes(topo, cfg, key, mesh, rows_loc, layout, start_state)
+    start = _start_rows(topo, cfg, key, placed, layout, start_state)
     done0 = start_state is not None and _host_done(start_state, target)
-    sets = []
-    for s in range(S):
+    par0 = start_round % 2
+    # Per device g: glob[g][par] its global summary planes of parity par,
+    # own[g][par] its rows of the others.
+    glob, own = [], []
+    for g, rows in zip(placed, start):
+        summary, mine = split_state(rows, algorithm)
+        sets = [tuple(torch.zeros(R, LANES, dtype=x.dtype, device=g.device)
+                      for x in summary) for _ in range(2)]
+        for x, y in zip(sets[par0], summary):
+            x[g.row0:g.row0 + g.rows] = y
+        glob.append(sets)
         pair = [None, None]
-        pair[start_round % 2] = start[s]
-        pair[(start_round + 1) % 2] = tuple(torch.empty_like(x) for x in start[s])
-        sets.append(pair)
+        pair[par0] = mine
+        pair[1 - par0] = tuple(torch.empty_like(x) for x in mine)
+        own.append(pair)
     del start
-    ctl = ShardControl(devices, done0, start_round)
-    if pushsum:
-        round_fn = pushsum_pool2_shard_round
-        kw = {"n": n, "rows": R, "delta": cfg.resolved_delta,
-              "term_rounds": cfg.term_rounds}
-        windowed_of = (0, 1)  # the summary planes: raw s and w
-    else:
-        round_fn = gossip_pool2_shard_round
-        kw = {"n": n, "rows": R, "rumor_target": cfg.resolved_rumor_target,
-              "suppress": cfg.resolved_suppress}
-        windowed_of = (1,)  # the active plane
+    ctl = ShardControl([g.device for g in placed], done0, start_round)
+    round_fn = _round_fn(algorithm)
+    kw = round_kw(topo, cfg)
+    # The owner (device index) of each rows_loc-row block.
+    owners = [g for g, dev_rows in enumerate(placed) for _ in range(dev_rows.rows // rows_loc)]
+    if wire_kind == "all_gather":
+        wires = [halo.replica_rows({g: glob[g][par] for g in range(G)}, rows_loc, owners)
+                 for par in (0, 1)]
+    margin = rows_loc + band_margin(layout)
+
+    def wire(par, offs):
+        if G == 1:
+            return []
+        if wire_kind == "all_gather":
+            return wires[par]
+        return halo.band_replica_rows({g: glob[g][par] for g in range(G)}, rows_loc,
+                                      owners, band_starts(offs, layout), margin)
+
+    # The streams of rounds block["begin"].. on every device and on the host.
+    block = {"begin": 0, "count": 0}
 
     def draw(begin, count):
-        return list(zip(fused.round_keys(key, begin, count).tolist(),
-                        fused_pool.round_offsets(key, begin, count, P, n).tolist()))
+        if count == 0:
+            return []
+        if not block["begin"] <= begin <= begin + count <= block["begin"] + block["count"]:
+            size = max(count, DRAW_ROUNDS)
+            keys = fused.round_keys(key, begin, size)
+            offs = fused_pool.round_offsets(key, begin, size, P, n)
+            block.update(begin=begin, count=size, offs=offs.tolist(), on=[
+                (_on_device(keys, g.device), _on_device(offs, g.device)) for g in placed])
+        at = begin - block["begin"]
+        return [(at + i, block["on"], block["offs"][at + i]) for i in range(count)]
 
     def launch_round(r, stream):
-        keys, offs = stream
-        cur = [sets[s][r % 2] for s in range(S)]
-        windowed = [[cur[s][p] for s in range(S)] for p in windowed_of]
-        if wire_kind == "all_gather":
-            wires = gather_wire(windowed, PT, devices, P)
-        else:
-            wires = band_wire(windowed, offs, layout, devices)
-        for s in range(S):
-            round_fn(cur[s], sets[s][(r + 1) % 2], wires[s], keys, offs,
-                     s * rows_loc, **kw, **ctl.args(s, r % 2))
+        at, on, offs = stream
+        par = r % 2
+        halo.exchange_rows_batched(wire(par, offs))
+        for g, dev_rows in enumerate(placed):
+            args = ctl.args(g, par)
+            round_fn(glob[g][par], glob[g][1 - par], own[g][par], own[g][1 - par], *on[g],
+                     dev_rows.row0, **kw, u=None if in_launch else args["u"],
+                     acc=args["acc"], ctrl=args["ctrl"], target=target, at=at)
 
     def final_state(par):
-        final = [sets[s][par] for s in range(S)]
-        joined = [torch.cat([final[s][p].to(home) for s in range(S)]).reshape(-1)[:n]
-                  for p in range(len(final[0]))]
-        if pushsum:
+        home = placed[0].device
+        planes = [join_state(_rows_of(glob[g][par], d.row0, d.rows), own[g][par], algorithm)
+                  for g, d in enumerate(placed)]
+        joined = [torch.cat([p[i].to(home) for p in planes]).reshape(-1)[:n]
+                  for i in range(len(planes[0]))]
+        if algorithm == "push-sum":
             return pushsum_mod.PushSumState(
                 s=joined[0], w=joined[1], term=joined[2] & TC_TERM_MASK,
                 conv=(joined[2] & TC_CONV_BIT) != 0)
@@ -694,4 +815,5 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
 
     return run_round_supersteps(topo, cfg, ctl, start_round=start_round, target=target,
                                 t_enter=t_enter, library="fused_pool2_shard", draw=draw,
-                                launch_round=launch_round, final_state=final_state)
+                                launch_round=launch_round, final_state=final_state,
+                                verdict_in_launch=in_launch)

@@ -4,19 +4,24 @@ the CPU (``devices=["cpu"] * S``), where its wrappers run their plain
 versions. Checked:
 
 - one round of each JAX shard kernel, in Pallas interpret mode, on every
-  shard, against the port's plain version on the same operands, with the
-  wire built in numpy by its definition (the gathered copy with its mirror
-  margin, or each slot's band at its start): gossip exactly; push-sum
-  bitwise, the data holding no subnormal, where the JAX kernel's halve
-  after the slot sums could round otherwise than the port's halve before
-  them; from the initial and a mid-run state, on both wires;
+  shard, against the port's plain version of one launch over that shard's
+  rows, which reads the global planes in place where the JAX kernel reads
+  the wire built in numpy by its definition (the gathered copy with its
+  mirror margin, or each slot's band at its start): gossip exactly;
+  push-sum bitwise, the data holding no subnormal, where the JAX kernel's
+  halve after the slot sums could round otherwise than the port's halve
+  before them; from the initial and a mid-run state, on both wires;
 - whole runs at 70,000, 120,000 and 131,072 nodes (the pool engine's cap
   shrunk to 1000 in both packages), S = 2 and 4, both algorithms, both
   wires, the verdict deferred and not: bitwise the port's single-device
   pool2 run and the JAX chunked engine's (rounds, converged count, every
-  plane), push-sum capped at 120 rounds past 70,000;
-- resume from a chunk boundary onto the same trajectory, the ladder's tier
-  and refusals against the JAX ladder, and no silent placement."""
+  plane), push-sum capped at 120 rounds past 70,000; the same with every
+  shard placed as if on a device of its own (``place_shards`` split: the
+  wire, the per-device counts and the deferred verdict), and one wrapper
+  call a round a device, counted;
+- resume from a chunk boundary onto the same trajectory and from the
+  converged state, the ladder's tier and refusals against the JAX ladder,
+  and no silent placement."""
 
 import dataclasses
 import functools
@@ -41,7 +46,7 @@ from cop5615_gossip_protocol_tpu.parallel import pool2_sharded as jax_p2
 from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
 from cop5615_gossip_protocol_tpu_torch.models import runner
 from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool, rng
-from cop5615_gossip_protocol_tpu_torch.parallel import mesh, pool2_sharded
+from cop5615_gossip_protocol_tpu_torch.parallel import halo, mesh, pool2_sharded
 from cop5615_gossip_protocol_tpu_torch.utils import carry
 
 # One torch thread: the suite runs in several worker processes at once.
@@ -157,6 +162,7 @@ def test_round_matches_jax_shard_kernel(algorithm, mid_round, n, force_pool2):
     bases = pool2_sharded.band_starts(toffs, layout)
     ME = pool2_sharded.band_margin(layout)
     gathered = [np.concatenate([p, p[:M]]) for p in windowed]
+    glob = tuple(torch.from_numpy(p.copy()) for p in planes)
     total = 0
     for s in range(S):
         row0 = s * rows_loc
@@ -167,16 +173,11 @@ def test_round_matches_jax_shard_kernel(algorithm, mid_round, n, force_pool2):
                               axis=0) for p in windowed] for b in bases]
             jwire = (jnp.asarray(bases, jnp.int32),
                      tuple(jnp.asarray(x) for band in bands for x in band))
-            twire = ([tuple(torch.from_numpy(x) for x in band) for band in bands],
-                     bases)
         else:
             jwire = tuple(jnp.asarray(g) for g in gathered)
-            twire = ([tuple(torch.from_numpy(g) for g in gathered)] * POOL,
-                     [(R - row0) % R] * POOL)
         jout, ju = jfn(tuple(jnp.asarray(p) for p in own), jwire, keys, offs,
                        row0=jnp.int32(row0), rnd=jnp.int32(rnd))
-        tout, tu = tfn(tuple(torch.from_numpy(p.copy()) for p in own), twire, tkeys,
-                       toffs, row0)
+        tout, tu = tfn(glob, tkeys, toffs, row0)
         assert int(ju) == int(tu)
         total += int(tu)
         for a, b in zip(jout, tout):
@@ -243,6 +244,85 @@ def test_sharded_run_is_bitwise_the_single_device_run(
     _same_state(res.state, jstate)
 
 
+@pytest.fixture
+def split_devices(monkeypatch):
+    """Place every shard as if on a device of its own: a global plane set,
+    a count slot and a launch a shard a round, the wire between them and
+    the verdict on the home slot, all on the CPU."""
+    monkeypatch.setattr(pool2_sharded, "place_shards", lambda devices, rows_loc: [
+        pool2_sharded.DeviceRows(dev, s * rows_loc, rows_loc)
+        for s, dev in enumerate(devices)])
+
+
+@pytest.mark.parametrize("algorithm,n,S,wire,overlap,max_rounds", [
+    ("gossip", 120_000, 4, "reduce_scatter", True, 1_000_000),
+    ("gossip", 120_000, 2, "all_gather", False, 1_000_000),
+    ("gossip", 131_072, 4, "reduce_scatter", False, 1_000_000),
+    ("gossip", 70_000, 4, "auto", True, 1_000_000),  # gather: margin > shard
+    ("push-sum", 70_000, 2, "auto", True, 1_000_000),  # gather
+    ("push-sum", 120_000, 4, "reduce_scatter", True, 120),
+    ("push-sum", 131_072, 2, "all_gather", False, 120),
+    ("push-sum", 131_072, 4, "reduce_scatter", False, 120),
+])
+def test_split_placement_is_bitwise_the_single_device_run(
+        algorithm, n, S, wire, overlap, max_rounds, force_pool2, split_devices):
+    _, cfg = _cfgs(n, algorithm, engine="fused", n_devices=S, pool2_wire=wire,
+                   overlap_collectives=overlap, max_rounds=max_rounds)
+    topo = build_topology("full", n)
+    halo.exchange_rows_batched.copies = 0
+    res = run(topo, cfg, devices=["cpu"] * S)
+    assert halo.exchange_rows_batched.copies > 0  # the wire ran between the slots
+    ref = _single_device(algorithm, n, max_rounds)
+    assert (res.rounds, res.converged, res.converged_count, res.estimate_mae) == (
+        ref.rounds, ref.converged, ref.converged_count, ref.estimate_mae)
+    _same_state(res.state, [x.numpy() for x in ref.state])
+
+
+@pytest.mark.parametrize("algorithm,S,split", [
+    ("push-sum", 2, False), ("push-sum", 4, True), ("gossip", 4, False),
+    ("gossip", 2, True),
+])
+def test_a_round_is_one_launch_a_device(algorithm, S, split, force_pool2, monkeypatch,
+                                        request):
+    """The launches a run queues, counted as wrapper calls (on the CPU each
+    runs the plain version): one a device a round, in row order, with the
+    verdict in the launch (none queued) and no wire when every shard is on
+    one device, and one verdict a round otherwise."""
+    if split:
+        request.getfixturevalue("split_devices")
+    n, max_rounds = 120_000, 40
+    _, cfg = _cfgs(n, algorithm, engine="fused", n_devices=S, max_rounds=max_rounds)
+    name = ("pushsum_pool2_shard_round" if algorithm == "push-sum"
+            else "gossip_pool2_shard_round")
+    calls, verdicts = [], []
+    real, real_verdict = getattr(pool2_sharded, name), pool2_sharded.shard_verdict
+
+    def spy(*args, **kw):
+        calls.append((args[6], kw["u"] is None))
+        return real(*args, **kw)
+
+    def spy_verdict(*args, **kw):
+        verdicts.append(1)
+        return real_verdict(*args, **kw)
+
+    monkeypatch.setattr(pool2_sharded, name, spy)
+    monkeypatch.setattr(pool2_sharded, "shard_verdict", spy_verdict)
+    halo.exchange_rows_batched.copies = 0
+    res = run(build_topology("full", n), cfg, devices=["cpu"] * S)
+    rows_loc = pool2_sharded.plan_pool2_sharded(build_topology("full", n), cfg, S)[0]
+    row0s = [s * rows_loc for s in range(S)] if split else [0]
+    # Rounds queued: to max_rounds, or to convergence and at most two
+    # 8-round chunks past it.
+    queued = len(calls) // len(row0s)
+    assert [r for r, _ in calls] == row0s * queued
+    assert res.rounds <= queued <= max_rounds and queued % 8 == 0
+    if res.rounds == max_rounds:
+        assert queued == max_rounds
+    assert all(in_launch == (not split) for _, in_launch in calls)
+    assert len(verdicts) == (queued if split else 0)
+    assert (halo.exchange_rows_batched.copies > 0) == split
+
+
 @pytest.mark.parametrize("algorithm,n,S,mid,end", [
     ("gossip", 120_000, 4, 16, 1_000_000), ("push-sum", 70_000, 2, 16, 40),
 ])
@@ -264,6 +344,34 @@ def test_resume_from_a_chunk_boundary(algorithm, n, S, mid, end, force_pool2):
     _same_state(resumed.state, [x.numpy() for x in whole.state])
     if whole.converged:
         # From the converged state nothing runs and nothing changes.
+        again = sharded(end, start_state=whole.state, start_round=whole.rounds)
+        assert again.rounds == whole.rounds and again.converged
+        _same_state(again.state, [x.numpy() for x in whole.state])
+
+
+@pytest.mark.parametrize("algorithm,n,S,mid,end", [
+    ("gossip", 120_000, 4, 24, 1_000_000), ("push-sum", 131_072, 2, 16, 40),
+])
+def test_resume_with_split_placement(algorithm, n, S, mid, end, force_pool2,
+                                     split_devices):
+    """A resume from a chunk boundary and from the converged state, every
+    shard as if on a device of its own, against the same run on one."""
+    topo = build_topology("full", n)
+    key = rng.PRNGKey(SEED)
+
+    def sharded(max_rounds, **kw):
+        _, cfg = _cfgs(n, algorithm, engine="fused", n_devices=S,
+                       max_rounds=max_rounds)
+        return run(topo, cfg, key=key, devices=["cpu"] * S, **kw)
+
+    whole = _single_device(algorithm, n, end)
+    half = sharded(mid)
+    assert half.rounds == mid and not half.converged
+    resumed = sharded(end, start_state=half.state, start_round=mid)
+    assert (resumed.rounds, resumed.converged_count) == (whole.rounds,
+                                                         whole.converged_count)
+    _same_state(resumed.state, [x.numpy() for x in whole.state])
+    if whole.converged:
         again = sharded(end, start_state=whole.state, start_round=whole.rounds)
         assert again.rounds == whole.rounds and again.converged
         _same_state(again.state, [x.numpy() for x in whole.state])
@@ -390,26 +498,36 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(force_pool2):
     _, cfg = _cfgs(n, "gossip", engine="fused", n_devices=4)
     rows_loc, PT, layout, _ = pool2_sharded.plan_pool2_sharded(
         build_topology("full", n), cfg, 4)
-    planes = tuple(torch.zeros(rows_loc, 128, dtype=torch.int32) for _ in range(2))
-    out = tuple(torch.empty_like(p) for p in planes)
-    summary = torch.zeros(layout.rows + PT + 16, 128, dtype=torch.int32)
-    wire = ([(summary,)] * POOL, [0] * POOL)
-    kw = {"n": n, "rows": layout.rows, "rumor_target": 10, "suppress": False,
+    R = layout.rows
+    glob = (torch.zeros(R, 128, dtype=torch.int32),)
+    glob_out = (torch.empty_like(glob[0]),)
+    own = (torch.zeros(rows_loc, 128, dtype=torch.int32),)
+    own_out = (torch.empty_like(own[0]),)
+    keys = torch.tensor([[1, 2]], dtype=torch.int64)
+    offs = torch.tensor([[5, 7]], dtype=torch.int32)
+    kw = {"n": n, "rumor_target": 10, "suppress": False,
           "u": torch.zeros(1, dtype=torch.int32), "acc": torch.zeros(2, dtype=torch.int32),
           "ctrl": torch.zeros(2, dtype=torch.int32)}
     fn = pool2_sharded.gossip_pool2_shard_round
-    fn(planes, out, wire, (1, 2), [5, 7], 0, **kw)  # accepted
+    fn(glob, glob_out, own, own_out, keys, offs, rows_loc, **kw)  # accepted
+    fn(glob, glob_out, own, own_out, keys, offs, 0, **{**kw, "u": None}, target=5)
     with pytest.raises(ValueError, match="shard plane"):
-        fn((planes[0].float(), planes[1]), out, wire, (1, 2), [5, 7], 0, **kw)
-    with pytest.raises(ValueError, match=r"\[rows_loc, 128\]"):
-        fn(tuple(p[:100] for p in planes), out, wire, (1, 2), [5, 7], 0, **kw)
+        fn((glob[0].float(),), glob_out, own, own_out, keys, offs, 0, **kw)
+    with pytest.raises(ValueError, match="shard plane"):
+        fn(glob, glob_out, own, (own_out[0][:8],), keys, offs, 0, **kw)
+    with pytest.raises(ValueError, match="whole 8-row groups"):
+        fn(glob, glob_out, own, own_out, keys, offs, 4, **kw)
+    with pytest.raises(ValueError, match="whole 8-row groups"):
+        fn(glob, glob_out, own, own_out, keys, offs, R - rows_loc + 8, **kw)
     with pytest.raises(ValueError, match="pool_size 3"):
-        fn(planes, out, ([(summary,)] * 3, [0] * 3), (1, 2), [5, 7, 9], 0, **kw)
+        fn(glob, glob_out, own, own_out, keys, torch.tensor([[5, 7, 9]], dtype=torch.int32),
+           0, **kw)
     with pytest.raises(ValueError, match="offs must lie"):
-        fn(planes, out, wire, (1, 2), [0, n], 0, **kw)
-    with pytest.raises(ValueError, match="bases must lie"):
-        fn(planes, out, ([(summary,)] * POOL, [0, layout.rows]), (1, 2), [5, 7], 0, **kw)
-    with pytest.raises(ValueError, match="one summary and base per slot"):
-        fn(planes, out, ([(summary,)], [0]), (1, 2), [5, 7], 0, **kw)
+        fn(glob, glob_out, own, own_out, keys, torch.tensor([[0, n]], dtype=torch.int32),
+           0, **kw)
+    with pytest.raises(ValueError, match="keys must be int64"):
+        fn(glob, glob_out, own, own_out, keys.int(), offs, 0, **kw)
+    with pytest.raises(ValueError, match="round 1 outside"):
+        fn(glob, glob_out, own, own_out, keys, offs, 0, **kw, at=1)
     with pytest.raises(ValueError, match="u, acc and ctrl"):
-        fn(planes, out, wire, (1, 2), [5, 7], 0, **{**kw, "ctrl": torch.zeros(2)})
+        fn(glob, glob_out, own, own_out, keys, offs, 0, **{**kw, "ctrl": torch.zeros(2)})
