@@ -155,6 +155,33 @@ non-zero before the last line:
    in 2 shards, both algorithms, 64 rounds on the card against the CPU's
    run of the same shards; imp3d 520**3 in 4 shards, gossip to convergence
    and a 64-round push-sum sample conserving its mass;
+14f. kernel A, the scatter round (csrc/scatter.cu, one host call a chunk,
+   five launches a push-sum round and two a gossip round), against its
+   plain version on the card one round at a time at full 1,000,000 and at
+   imp3d 1000 in reference semantics (its Q8 orphan does not send), both
+   algorithms, from the initial state, a mid-run state (also a 32-round
+   and an 8-round chunk) and a converged state (one real round, and one
+   with the done flag set, which changes nothing); every plane and the
+   (rounds, done) status bitwise;
+14g. the scatter path through ``run()``, counters zeroed before each run
+   and read after it, the pipeline's status reads counted (one a chunk):
+   ``1000000 full gossip`` and ``100000 imp2D push-sum`` (BASELINE.json),
+   each bitwise the port's CPU run of the same config (computed by a
+   spawned worker process while the card runs phases 2-14f), and 1M full
+   push-sum; each against the JAX chunked engine's rounds and estimate on
+   the CPU, push-sum with its mass conserved; run_s, rounds/s, launches
+   and status reads a chunk printed; then the chunked engine's torch
+   rounds on the card (``engine="chunked"``: 1000 line gossip, 1000 full
+   push-sum with pool delivery), each bitwise the CPU's run with one
+   status read a chunk;
+14h. kernel B, the reference-semantics walk (csrc/walk.cu, one thread, up
+   to 2**20 hops a launch), through ``run()`` at full 1000 (60,032 hops)
+   and imp3d 1000 (185,604), each bitwise the plain walk on the CPU (every
+   plane, the message, hops, the dead latch) and at the JAX package's
+   hops, hops/s of both printed;
+14i. the CLI triples ``1000 full gossip``, ``1000 imp3D push-sum`` and
+   ``1000 full push-sum --semantics reference``, each at the JAX CLI's
+   rounds and estimate, with their kernels launched;
 15. each kernel's time per chunk by CUDA events, beside its plain version's
    and the least time the card could take for the same work (rows 1-2
    also over a 1,024-round chunk and at 2**21, and over rows 7-8); the
@@ -165,10 +192,15 @@ non-zero before the last line:
    (streaming), the ring wire's copies timed apart, their bound counted on
    the windows' slot-rounds (``stencil_shard_bound``); the sharded imp
    kernels per round (every shard's absorb) at imp3d 256**3 in 4, whose
-   wire copies nothing on one card (``--cards`` times it); then the imp
-   rows' µs a round beside row 9's, and rows 13 and 18 over row 9.
+   wire copies nothing on one card (``--cards`` times it); kernel A per
+   round at 1M full from the mid-run state (a 32-round push-sum and an
+   8-round gossip chunk), beside one ``index_add_`` of a round's sends;
+   kernel B over each whole walk in one launch, beside the plain walk on
+   the host and the hop chain's bound (hops times one dependent load at
+   the walk's working set, timed by csrc/walk.cu's chase kernel); then
+   the imp rows' µs a round beside row 9's, and rows 13 and 18 over row 9.
 
-Each of phases 5-14e prints its wall time.
+Each of phases 5-14i prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -189,6 +221,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 N = 1_000_000
 POOL = 2
@@ -2594,6 +2627,479 @@ def pool2_shard_cards(cards):
         del planes, groups
 
 
+# The scatter path (ops/scatter.py, csrc/scatter.cu: kernel A) and the walk
+# (models/reference.py, csrc/walk.cu: kernel B). Kernel A's checks, one
+# round at a time: 1M full (both algorithms) and imp3d 1000 in reference
+# semantics (its Q8 orphans, nodes of degree 0 that do not send); the
+# rounds run before the mid-run checks (1M push-sum converges near round
+# 674, gossip near 56); and the rounds of the timed chunk from there.
+SCATTER_CASES = (("full", 1_000_000, "batched"), ("imp3d", 1000, "reference"))
+SCATTER_MID = {"pushsum": 300, "gossip": 8}
+SCATTER_TIMED = {"pushsum": CHUNK, "gossip": 8}
+# The whole runs users type (BASELINE.json), each on the card against the
+# port's CPU run of the same config (rounds, converged count, every plane),
+# which a worker process computes while the card runs the earlier phases.
+SCATTER_RUNS = (("full", 1_000_000, "gossip"), ("imp2d", 100_000, "push-sum"))
+# (rounds, estimate_mae) of the JAX package's chunked engine on the CPU,
+# seed 0, default delivery (scatter), which the card's runs must equal:
+#   python -m cop5615_gossip_protocol_tpu 1000000 full push-sum --platform cpu
+SCATTER_JAX = {("full", 1_000_000, "push-sum"): (674, 0.025499165106202766),
+               ("full", 1_000_000, "gossip"): (56, None),
+               ("imp2d", 100_000, "push-sum"): (505, 0.002863447207906636)}
+# The walks, reference-semantics push-sum, with the hops the JAX package's
+# run_walk takes on the CPU, seed 0 (python -m cop5615_gossip_protocol_tpu
+# 1000 full push-sum --semantics reference --platform cpu).
+WALK_RUNS = {("full", 1000): 60_032, ("imp3d", 1000): 185_604}
+# The CLI triples, as the reference's users type them, with the JAX CLI's
+# (rounds, estimate_mae) on the CPU, seed 0.
+CLI_TRIPLES = {("1000", "full", "gossip"): (36, None),
+               ("1000", "imp3D", "push-sum"): (481, 3.62016172591666e-05),
+               ("1000", "full", "push-sum", "--semantics", "reference"):
+                   (60_032, 2.5024414753715973e-06)}
+# Per-node operations of a scatter round: the hash, the target (a modulo
+# and an add, 3), and for push-sum the halves, the sums, the two divisions
+# and the latch (12), for gossip the count and flags (4).
+SCATTER_OPS = {"pushsum": OPS_PER_HASH + 3 + 12, "gossip": OPS_PER_HASH + 3 + 4}
+# Bytes a node a round must move: its state read and written once
+# (push-sum s, w, term, conv: 13; gossip count, active, conv: 6).
+SCATTER_STATE_BYTES = {"pushsum": 13, "gossip": 6}
+# Operations of one hop of the walk: two hashes, the pick (a modulo and an
+# add), the sums, two divisions, the halves and the latch.
+WALK_HOP_OPS = 2 * OPS_PER_HASH + 3 + 12
+
+
+def cpu_scatter_runs():
+    """The port's CPU runs of SCATTER_RUNS: {(kind, n, algorithm): (rounds,
+    converged count, [planes as numpy], run_s)}. Runs in a worker process
+    (spawned, so it holds no CUDA context) while the card runs phases 3-14e."""
+    import os
+
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    out = {}
+    for kind, n, algorithm in SCATTER_RUNS:
+        res = run(build_topology(kind, n), SimConfig(n=n, topology=kind, algorithm=algorithm),
+                  device="cpu")
+        out[kind, n, algorithm] = (res.rounds, res.converged_count,
+                                   [x.numpy() for x in res.state], res.run_s)
+    return out
+
+
+def same_planes(label, got, want):
+    """Every plane of two states bit for bit (float planes by their bits);
+    returns the largest absolute difference (0.0)."""
+    import torch
+
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = torch.as_tensor(g).cpu(), torch.as_tensor(w).cpu()
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label}: plane {i} is {g.dtype} {tuple(g.shape)}, "
+                                 f"want {w.dtype} {tuple(w.shape)}")
+        if g.dtype == torch.float32:
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f"{label}: plane {i} differs "
+                                     f"(max {(g - w).abs().max().item()})")
+            err = max(err, (g - w).abs().max().item())
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{label}: plane {i} differs")
+    return err
+
+
+def scatter_checks(dev, key):
+    """Phase 14f: kernel A (csrc/scatter.cu) one round at a time against
+    its plain version on the card, at SCATTER_CASES, both algorithms: from
+    the initial state, a mid-run state and a converged state (one real
+    round, and one with the done flag set, which must change nothing), and
+    a SCATTER_TIMED-round chunk from the mid-run state; every plane and the
+    status bitwise. Returns {(name, kind): case} for the timing phase and
+    {name: max_abs_err}."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models import gossip as gossip_mod
+    from cop5615_gossip_protocol_tpu_torch.models import pushsum as pushsum_mod
+    from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, scatter
+
+    @functools.lru_cache(maxsize=None)
+    def round_keys(start, count):
+        # Cached, so the timed calls time the wrapper, not the host
+        # drawing the keys.
+        return fused.round_keys(key, start, count)
+
+    cases, max_err = {}, {}
+    for kind, n, semantics in SCATTER_CASES:
+        topo = build_topology(kind, n, semantics=semantics)
+        graph = scatter.scatter_graph(topo, dev)
+        orphans = 0 if topo.implicit else int((topo.degree == 0).sum())
+        print(f"  {kind} n={topo.n} ({semantics}): {orphans} orphans", flush=True)
+        for algorithm in ("push-sum", "gossip"):
+            name = "pushsum" if algorithm == "push-sum" else "gossip"
+            cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, semantics=semantics)
+            target = cfg.resolved_target_count(topo.n, topo.target_count)
+            if name == "pushsum":
+                init = pushsum_mod.init_state(topo.n, cfg.initial_term_round, dev)
+                kw = {"graph": graph, "target": target, "delta": cfg.resolved_delta,
+                      "term_rounds": cfg.term_rounds}
+                kern, plain = scatter.pushsum_scatter_chunk, scatter.pushsum_scatter_chunk_plain
+            else:
+                init = gossip_mod.init_state(topo.n, draw_leader(key, topo, cfg),
+                                             cfg.reference and kind == "full", dev)
+                kw = {"graph": graph, "target": target,
+                      "rumor_target": cfg.resolved_rumor_target,
+                      "suppress": cfg.resolved_suppress}
+                kern, plain = scatter.gossip_scatter_chunk, scatter.gossip_scatter_chunk_plain
+
+            def chunk(fn, state, start, count, done=0, kw=kw):
+                status = torch.tensor([start, done], dtype=torch.int32, device=dev)
+                return fn(state, round_keys(start, count), status, **kw)
+
+            def check(label, state, start, count, done=0, chunk=chunk, kern=kern,
+                      plain=plain):
+                got, want = (chunk(kern, state, start, count, done),
+                             chunk(plain, state, start, count, done))
+                if got[1].tolist() != want[1].tolist():
+                    raise AssertionError(f"{label}: status {got[1].tolist()} != plain "
+                                         f"{want[1].tolist()}")
+                err = same_planes(label, got[0], want[0])
+                print(f"  {label}: status {got[1].tolist()}, bitwise", flush=True)
+                return err, got
+
+            tag = f"{name} {kind} n={topo.n}"
+            errs = [check(f"{tag} initial state, one round", init, 0, 1)[0]]
+            mid_round = SCATTER_MID[name]
+            mid, st = chunk(kern, init, 0, mid_round)
+            if st.tolist() != [mid_round, 0]:
+                raise AssertionError(f"{tag}: status {st.tolist()} after {mid_round} rounds")
+            errs.append(check(f"{tag} mid-run state, one round", mid, mid_round, 1)[0])
+            errs.append(check(f"{tag} mid-run state, {SCATTER_TIMED[name]} rounds", mid,
+                              mid_round, SCATTER_TIMED[name])[0])
+            state, st, rnd = init, None, 0
+            while st is None or not st[1]:
+                if rnd >= 100_000:
+                    raise AssertionError(f"{tag}: no convergence in {rnd} rounds")
+                state, st = chunk(kern, state, rnd, 512)
+                st, rnd = st.tolist(), rnd + 512
+            errs.append(check(f"{tag} converged state (round {st[0]}), one round",
+                              state, st[0], 1)[0])
+            err, (same, after) = check(f"{tag} converged state, done flag set", state,
+                                       st[0], 1, done=1)
+            same_planes(f"{tag} a round after done", same, state)
+            if after.tolist() != [st[0], 1]:
+                raise AssertionError(f"{tag}: a round after done moved the status")
+            max_err[name] = max(max_err.get(name, 0.0), *errs, err)
+            cases[name, kind] = (kern, plain, chunk, mid, mid_round, topo.n, graph)
+    torch.cuda.synchronize()
+    return cases, max_err
+
+
+def scatter_path(dev, cpu_runs):
+    """Phase 14g: the scatter path through run() on the card, counters
+    zeroed before each run and read after it, the pipeline's status reads
+    counted: SCATTER_RUNS against the port's CPU runs (``cpu_runs``, the
+    worker's result: rounds, converged count, every plane bitwise), and
+    1M full push-sum; each against the JAX chunked engine's rounds and
+    estimate, push-sum with its mass conserved; one status read a chunk.
+    Returns {name: launches on its main-path run}."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.models import pipeline
+    from cop5615_gossip_protocol_tpu_torch.ops import scatter
+
+    counters = {"pushsum": scatter.pushsum_scatter_chunk,
+                "gossip": scatter.gossip_scatter_chunk}
+    passes = {"pushsum": scatter.PUSHSUM_PASSES, "gossip": scatter.GOSSIP_PASSES}
+    launches = {}
+    reads = []
+    real_read = pipeline._read
+
+    def counted_read(handle):
+        reads.append(1)
+        return real_read(handle)
+
+    pipeline._read = counted_read
+    try:
+        for kind, n, algorithm in SCATTER_RUNS + (("full", 1_000_000, "push-sum"),):
+            name = "pushsum" if algorithm == "push-sum" else "gossip"
+            topo = build_topology(kind, n)
+            cfg = SimConfig(n=n, topology=kind, algorithm=algorithm)
+            for fn in counters.values():
+                fn.launches = 0
+            reads.clear()
+            res = run(topo, cfg)
+            count = counters[name].launches
+            chunks = len(res.chunk_log)
+            print(json.dumps({
+                "metric": f"{name}_scatter_rounds_per_sec_{kind}_n{topo.n}",
+                "rounds": res.rounds, "run_s": res.run_s,
+                "rounds_per_s": res.rounds / res.run_s, "setup_s": res.setup_s,
+                "compile_s": res.compile_s, "dispatch_s": res.dispatch_s,
+                "fetch_s": res.fetch_s, "chunks_retired": chunks,
+                "status_reads": len(reads), "launches": count,
+                "launches_per_chunk": count / chunks,
+                "converged_count": res.converged_count,
+                "estimate_mae": res.estimate_mae, "device": res.device}), flush=True)
+            if not res.converged or res.converged_count != topo.n:
+                raise AssertionError(f"{kind} n={topo.n} {algorithm} did not converge")
+            if len(reads) != chunks:
+                raise AssertionError(f"{kind} {algorithm}: {len(reads)} status reads for "
+                                     f"{chunks} chunks")
+            if count < passes[name] * res.rounds or count % passes[name]:
+                raise AssertionError(f"{kind} {algorithm}: {count} launches of "
+                                     f"{name}_scatter for {res.rounds} rounds")
+            want = SCATTER_JAX[kind, n, algorithm]
+            if (res.rounds, res.estimate_mae) != want:
+                raise AssertionError(f"{kind} n={n} {algorithm}: rounds, estimate_mae "
+                                     f"{res.rounds}, {res.estimate_mae} != the JAX "
+                                     f"chunked engine's {want}")
+            if algorithm == "push-sum":
+                w_err = abs(res.state.w.double().sum().item() - topo.n) / topo.n
+                mean = topo.n * (topo.n - 1) / 2
+                s_err = abs(res.state.s.double().sum().item() - mean) / mean
+                print(f"  mass: sum w rel err {w_err}, sum s rel err {s_err}", flush=True)
+                if not (w_err < 1e-5 and s_err < 1e-5):
+                    raise AssertionError(f"{kind} {algorithm} did not conserve its mass")
+            if (kind, n, algorithm) in cpu_runs:
+                rounds, conv, planes, cpu_s = cpu_runs[kind, n, algorithm]
+                if (res.rounds, res.converged_count) != (rounds, conv):
+                    raise AssertionError(f"{kind} {algorithm}: card {res.rounds}/"
+                                         f"{res.converged_count} != CPU {rounds}/{conv}")
+                same_planes(f"{kind} n={topo.n} {algorithm}, card vs CPU", res.state, planes)
+                print(f"  {kind} n={topo.n} {algorithm}: card == the port's CPU run "
+                      f"({rounds} rounds, every plane; CPU run_s {cpu_s:.2f})", flush=True)
+                launches[name] = count
+                MAIN_ROUNDS[f"{name}_scatter_round"] = res.rounds
+        # The chunked engine's torch rounds on the card (engine="chunked"):
+        # the same device-side status, one read a chunk, each run bitwise
+        # the CPU's.
+        for kind, algorithm, kw in (("line", "gossip", {}),
+                                    ("full", "push-sum", {"delivery": "pool",
+                                                          "pool_size": POOL})):
+            topo = build_topology(kind, 1000)
+            cfg = SimConfig(n=1000, topology=kind, algorithm=algorithm,
+                            engine="chunked", **kw)
+            reads.clear()
+            res = run(topo, cfg)
+            card_reads = len(reads)
+            cpu = run(topo, cfg, device="cpu")
+            if (res.rounds, res.converged_count) != (cpu.rounds, cpu.converged_count):
+                raise AssertionError(f"chunked {kind} {algorithm}: card {res.rounds} "
+                                     f"!= CPU {cpu.rounds}")
+            same_planes(f"chunked engine {kind} 1000 {algorithm}, card vs CPU",
+                        res.state, cpu.state)
+            if card_reads != len(res.chunk_log):
+                raise AssertionError(f"chunked {kind} {algorithm}: {card_reads} status "
+                                     f"reads for {len(res.chunk_log)} chunks")
+            print(f"  chunked engine {kind} 1000 {algorithm} on the card: {res.rounds} "
+                  f"rounds, run_s {res.run_s:.4f}, {card_reads} status reads for "
+                  f"{len(res.chunk_log)} chunks, bitwise the CPU's run", flush=True)
+    finally:
+        pipeline._read = real_read
+    torch.cuda.synchronize()
+    return launches
+
+
+def walk_path(dev, key):
+    """Phase 14h: the walk (kernel B, csrc/walk.cu) through run() on the
+    card at WALK_RUNS, its launch counter zeroed before each run and read
+    after it, against the plain walk on the CPU (every plane, the message,
+    hops, the dead latch, bitwise) and the JAX package's hops; hops/s of
+    both. Returns ({(kind, n): case} for the timing phase, launches of the
+    first walk, max_abs_err)."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.models import reference
+
+    cases, launches, err = {}, None, 0.0
+    for (kind, n), hops in WALK_RUNS.items():
+        topo = build_topology(kind, n, semantics="reference")
+        cfg = SimConfig(n=n, topology=kind, algorithm="push-sum", semantics="reference")
+        reference.walk_hops.launches = 0
+        card = run(topo, cfg)
+        count = reference.walk_hops.launches
+        plain = run(topo, cfg, device="cpu")
+        label = f"walk {kind} n={topo.n}"
+        err = max(err, same_planes(label, [x.cpu() for x in card.state], plain.state))
+        if (card.rounds, card.converged_count, card.estimate_mae) != (
+                plain.rounds, plain.converged_count, plain.estimate_mae) or card.rounds != hops:
+            raise AssertionError(f"{label}: card {card.rounds} hops, CPU {plain.rounds}, "
+                                 f"JAX {hops}")
+        if count == 0:
+            raise AssertionError(f"{label}: the walk kernel never launched")
+        print(json.dumps({
+            "metric": f"walk_hops_per_sec_{kind}_n{topo.n}", "hops": card.rounds,
+            "run_s": card.run_s, "hops_per_s": card.rounds / card.run_s,
+            "plain_run_s": plain.run_s, "plain_hops_per_s": plain.rounds / plain.run_s,
+            "launches": count, "converged_count": card.converged_count,
+            "estimate_mae": card.estimate_mae, "device": card.device}), flush=True)
+        if launches is None:
+            launches = count
+            MAIN_ROUNDS["walk_hops"] = card.rounds
+        cases[kind, n] = (topo, cfg, card.rounds, plain.run_s)
+    torch.cuda.synchronize()
+    return cases, launches, err
+
+
+def cli_triples():
+    """Phase 14i: the CLI triples as the reference's users type them, on
+    the card, each against the JAX CLI's rounds and estimate; the scatter
+    and walk kernels must have launched."""
+    import contextlib
+    import io
+
+    from cop5615_gossip_protocol_tpu_torch import cli
+    from cop5615_gossip_protocol_tpu_torch.models import reference
+    from cop5615_gossip_protocol_tpu_torch.ops import scatter
+
+    counters = (scatter.pushsum_scatter_chunk, scatter.gossip_scatter_chunk,
+                reference.walk_hops)
+    for argv, want in CLI_TRIPLES.items():
+        for fn in counters:
+            fn.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = cli.main(list(argv))
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        got = (rec["rounds"], rec["estimate_mae"])
+        counts = [fn.launches for fn in counters]
+        print(f"  CLI {' '.join(argv)}: exit {code}, rounds {got[0]}, estimate_mae "
+              f"{got[1]}, {time.perf_counter() - t0:.2f} s, launches {counts}", flush=True)
+        if code != 0 or got != want or not any(counts):
+            raise AssertionError(f"CLI {' '.join(argv)}: exit {code}, {got} != the JAX "
+                                 f"CLI's {want}, launches {counts}")
+
+
+def scatter_rows(dev, key, cases, launches, max_err):
+    """Kernel A's rows of the kernels line: a round at 1M full from the
+    mid-run state (a SCATTER_TIMED-round chunk over its rounds), beside the
+    plain version's round and one index_add_ of a round's sends (the
+    delivery alone, the PyTorch call that scatters them, in atomic order)."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch.ops import sampling, scatter
+
+    rows = []
+    for name in ("pushsum", "gossip"):
+        kern, plain, chunk, mid, mid_round, n, graph = cases[name, "full"]
+        K = SCATTER_TIMED[name]
+        ms, (_, st) = time_ms(lambda: chunk(kern, mid, mid_round, K), TIME_REPS)
+        rounds = int(st[0]) - mid_round
+        plain_ms, _ = time_ms(lambda: chunk(plain, mid, mid_round, K), 2)
+        targets, send_ok = scatter.round_targets(
+            graph, sampling.round_key(key, mid_round))
+        if name == "pushsum":
+            vals = torch.where(send_ok, mid.s * 0.5, 0.0)
+            senders = n
+        else:
+            vals = (mid.active & send_ok).to(torch.int32)
+            senders = int(vals.sum())
+        inbox = torch.zeros_like(vals)
+        lib_ms, _ = time_ms(lambda: inbox.index_add_(0, targets, vals), TIME_REPS)
+        # Device time by kernel over the same chunk (torch.profiler), µs a
+        # round: where a round's time goes among its passes.
+        with warnings.catch_warnings():
+            # The profiler warns that it keeps one cycle's events: one is
+            # all this takes.
+            warnings.simplefilter("ignore", UserWarning)
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                chunk(kern, mid, mid_round, K)
+                torch.cuda.synchronize()
+        passes = {}
+        for ev in prof.key_averages():
+            us_total = getattr(ev, "device_time_total", None)
+            if us_total is None:
+                us_total = getattr(ev, "cuda_time_total", 0.0)
+            if us_total and ev.count:
+                short = ev.key.replace("(anonymous namespace)::", "")
+                short = short.split("(")[0].split("<")[0].split("::")[-1].split(" ")[-1]
+                passes[short or ev.key[:40]] = passes.get(short, 0.0) + us_total / rounds
+        moved = SCATTER_STATE_BYTES[name] * 2 * n
+        ops = senders * SCATTER_OPS[name] + (n - senders) * 4
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        rows.append({
+            "name": f"{name}_scatter_round", "route": "cuda",
+            "source": "cop5615_gossip_protocol_tpu_torch/csrc/scatter.cu",
+            "replaces": "cop5615_gossip_protocol_tpu/ops/delivery.py:22",
+            "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": ms / rounds, "plain_ms": plain_ms / rounds,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms, "library_call": "index_add_ of one round's sends",
+            "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+            "device_us_per_round_by_kernel": passes,
+            "launches_a_round": (scatter.PUSHSUM_PASSES if name == "pushsum"
+                                 else scatter.GOSSIP_PASSES),
+            "population": n, "topology": "full", "status": "ported",
+        })
+    return rows
+
+
+def walk_row(dev, key, cases, launches, max_err):
+    """Kernel B's row: the whole 1000 full walk from its kickoff in one
+    launch, by CUDA events, beside the plain walk's time on the host; its
+    bound by the contract (bytes, operations) and by the hop chain (hops
+    times one dependent load at the walk's working set, timed by the
+    chase kernel)."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch.models import reference
+    from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
+    from cop5615_gossip_protocol_tpu_torch.ops import scatter
+
+    timed = {}
+    for (kind, n), (topo, cfg, hops, plain_s) in cases.items():
+        graph = scatter.scatter_graph(topo, dev)
+        leader = draw_leader(key, topo, cfg)
+        c0 = reference.make_walk(topo, cfg, key, leader, dev)
+        target = cfg.resolved_target_count(topo.n, topo.target_count)
+        ms, (_, st) = time_ms(lambda: reference.walk_hops(
+            c0, key, graph, hops=reference.LAUNCH_HOPS, max_steps=cfg.max_rounds,
+            target=target, delta=cfg.resolved_delta, term_rounds=cfg.term_rounds), 3)
+        walked = int(st[0]) - 1
+        # One dependent load at the walk's working set: a random cycle over
+        # as many ints as the walk's planes hold (s, w, term, conv and, on
+        # an explicit topology, the neighbour rows and degrees).
+        words = topo.n * 13 // 4 + (0 if topo.implicit else topo.n * (topo.max_deg + 1))
+        gen = torch.Generator().manual_seed(0)
+        perm = torch.randperm(words, generator=gen)
+        nxt = torch.empty(words, dtype=torch.int32)
+        nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+        nxt = nxt.to(dev)
+        steps = 1 << 20
+        chase_ms, _ = time_ms(lambda: reference.chase(nxt, steps), 3)
+        load_ns = chase_ms * 1e6 / steps
+        # The hop chain: on full the next node is arithmetic on the word,
+        # and the message waits on one load (the node's s); on an explicit
+        # topology the next node waits on two (its degree, then its
+        # neighbour column).
+        chain = 1 if topo.implicit else 2
+        moved = topo.n * 13 * 2 + (0 if topo.implicit else topo.n * (topo.max_deg + 1) * 4)
+        ops = walked * WALK_HOP_OPS
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        timed[kind] = {
+            "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "latency_bound_ms": walked * chain * load_ns * 1e-6,
+            "dependent_load_ns": load_ns, "hops_per_call": walked,
+            "us_per_hop": ms * 1e3 / walked, "population": topo.n, "topology": kind,
+        }
+    return {
+        "name": "walk_hops", "route": "cuda",
+        "source": "cop5615_gossip_protocol_tpu_torch/csrc/walk.cu",
+        "replaces": "cop5615_gossip_protocol_tpu/models/reference.py:153",
+        "launches": launches, "max_abs_err": max_err, **timed["full"],
+        "library_ms": None, "at_imp3d": timed["imp3d"], "status": "ported",
+    }
+
+
 def fail(msg: str) -> int:
     print(f"FAILED: {msg}", file=sys.stderr)
     return 1
@@ -2608,8 +3114,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("no CUDA device: chip_smoke.py needs one GPU")
     try:
-        from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
-        from cop5615_gossip_protocol_tpu_torch.ops import fused_pool, rng
         from cop5615_gossip_protocol_tpu_torch.utils import kernels
     except ImportError as e:
         return fail(f"the port is not importable ({e}); run from a checkout's root")
@@ -2637,6 +3141,25 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+
+    # The port's CPU runs that phase 14g holds the card's scatter runs
+    # against, in a spawned worker while the card runs phases 2-14e.
+    import multiprocessing
+
+    worker = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        cpu_runs = worker.apply_async(cpu_scatter_runs)
+        return run_phases(torch, dev, smi, kernels, cpu_runs, t_main)
+    finally:
+        worker.terminate()
+        worker.join()
+
+
+def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
+    """Phases 2-15 of the one-card run; ``cpu_runs`` is the worker's
+    pending result for phase 14g."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_pool, rng
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
@@ -2775,6 +3298,17 @@ def main() -> int:
         imp_shard_cases, imp_shard_err = phase("14d", imp_shard_checks, dev, key)
         imp_shard_launches = phase("14e", imp_shard_path, dev, imp_single)
         del imp_single
+        scatter_cases, scatter_err = phase("14f", scatter_checks, dev, key)
+        t0 = time.perf_counter()
+        try:
+            cpu_done = cpu_runs.get(timeout=900)
+        except Exception as e:  # the worker's own error, re-raised here
+            raise RuntimeError(f"the CPU runs of phase 14g failed: {e!r}") from e
+        print(f"  the worker's CPU runs: waited {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        scatter_launches = phase("14g", scatter_path, dev, cpu_done)
+        walk_cases, walk_launches, walk_err = phase("14h", walk_path, dev, key)
+        phase("14i", cli_triples)
     except (AssertionError, RuntimeError) as e:
         return fail(str(e))
 
@@ -2989,11 +3523,13 @@ def main() -> int:
     rows += stencil_shard_rows(stencil_shard_cases, stencil_shard_launches,
                                stencil_shard_err)
     rows += imp_shard_rows(dev, imp_shard_cases, imp_shard_launches, imp_shard_err)
+    rows += scatter_rows(dev, key, scatter_cases, scatter_launches, scatter_err)
+    rows.append(walk_row(dev, key, walk_cases, walk_launches, walk_err))
     for row in rows:
         row["main_path_rounds"] = MAIN_ROUNDS.get(row["name"])
     # The imp rows beside row 9 (the streaming lattice push-sum, the same
     # bytes bound as row 13), all from this run.
-    us = {row["name"]: row["us_per_round"] for row in rows}
+    us = {row["name"]: row["us_per_round"] for row in rows if "us_per_round" in row}
     print(json.dumps({"metric": "imp_us_per_round", **{
         name: us[name] for name in (
             "pushsum_imp_chunk", "gossip_imp_chunk", "pushsum_imp_hbm_chunk",

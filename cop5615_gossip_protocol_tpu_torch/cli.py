@@ -1,5 +1,7 @@
 """CLI: the reference-parity positional triple plus the JAX CLI's flags.
 
+    python -m cop5615_gossip_protocol_tpu_torch 1000000 full gossip
+    python -m cop5615_gossip_protocol_tpu_torch 1000 imp3D push-sum --semantics reference
     python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum \\
         --delivery pool --pool-size 2
     python -m cop5615_gossip_protocol_tpu_torch 16777216 full push-sum \\
@@ -35,7 +37,7 @@ UNPORTED_FLAGS = {
     "--byzantine-schedule": "A6", "--byzantine-mode": "A6",
     "--robust-agg": "A6", "--mass-tolerance": "A6", "--quorum": "A6",
     "--telemetry": "A6", "--trace-convergence": "A6",
-    "--dup-rate": "A7", "--delay-rounds": "A7",
+    "--dup-rate": "A7b", "--delay-rounds": "A7b",
     "--stall-chunks": "A8", "--profile": "A8", "--metrics-dump": "A8",
     "--step-timing": "A8", "--events": "A8", "--checkpoint": "A8",
     "--checkpoint-every": "A8", "--checkpoint-keep": "A8",
@@ -55,8 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("numNodes", type=int, help="requested node count")
     p.add_argument("topology",
                    help="full | line | ring | 2D | grid2d | ref2d | 3D | grid3d "
-                   "| torus3d | imp2D | imp3D (the imp kinds need --delivery "
-                   "pool; their scatter delivery is ROADMAP A7)")
+                   "| torus3d | imp2D | imp3D")
     p.add_argument("algorithm", help="gossip | push-sum")
     p.add_argument("--semantics", choices=["batched", "reference"],
                    default="batched")
@@ -76,17 +77,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--delivery",
                    choices=["auto", "scatter", "stencil", "pool", "matmul"],
                    default="auto",
-                   help="message delivery: 'pool' on full and on imp2d/imp3d "
-                   "(the long-range edge re-drawn each round from the pool), "
-                   "'auto' or 'stencil' on the lattices (auto means scatter "
-                   "on full and imp, ROADMAP A7)")
+                   help="message delivery: 'auto' is scatter on full and on "
+                   "imp2d/imp3d (along the static extra edge) and stencil on "
+                   "the lattices; 'scatter' anywhere; 'pool' on full and on "
+                   "imp2d/imp3d (the long-range edge re-drawn each round from "
+                   "the pool); 'matmul' is not ported yet (ROADMAP A7b)")
     p.add_argument("--pool-size", type=int, default=4,
                    help="displacement-pool width for --delivery pool")
     p.add_argument("--engine", choices=["auto", "chunked", "fused"],
                    default="auto",
                    help="fused: the pool, stencil or imp kernels (their plain "
-                   "versions on the CPU); chunked: one torch round per step; "
-                   "auto: fused on CUDA, chunked on the CPU")
+                   "versions on the CPU); chunked: the scatter kernels on "
+                   "CUDA under scatter delivery, else one torch round per "
+                   "step; auto: fused on CUDA where the delivery allows, "
+                   "chunked otherwise and on the CPU")
     p.add_argument("--platform", choices=["cuda", "cpu"], default="cuda",
                    help="device to run on; cpu must be asked for")
     p.add_argument("--devices", type=int, default=None,

@@ -3,10 +3,12 @@
 The field names, defaults and ``resolved_*`` rules are those of the JAX
 package's ``SimConfig``, so a run record from either package carries the
 same config keys. The port runs push-sum and gossip on the implicit
-``full`` topology and on imp2d/imp3d with ``delivery="pool"``, and on the
-six arithmetic lattices (line, ring, grid2d, ref2d, grid3d, torus3d) with
-stencil delivery. ``n_devices``, ``pool2_wire`` and ``overlap_collectives``
-configure the sharded compositions (models/runner.run says which run);
+``full`` topology and on imp2d/imp3d with scatter delivery (the default)
+or ``delivery="pool"``, on the six arithmetic lattices (line, ring,
+grid2d, ref2d, grid3d, torus3d) with stencil (the default) or scatter
+delivery, and reference-semantics push-sum as the single walk.
+``n_devices``, ``pool2_wire`` and ``overlap_collectives`` configure the
+sharded compositions (models/runner.run says which run);
 every other field keeps its default here, and setting it
 to anything else raises NotImplementedError naming the ROADMAP item that
 will port it.
@@ -62,8 +64,8 @@ _UNPORTED = (
     ("mass_tolerance", None, "A6"),
     ("telemetry", False, "A6"),
     ("termination", "local", "A6"),
-    ("dup_rate", 0.0, "A7"),
-    ("delay_rounds", 0, "A7"),
+    ("dup_rate", 0.0, "A7b"),
+    ("delay_rounds", 0, "A7b"),
     ("stall_chunks", 0, "A8"),
     ("step_timing", False, "A8"),
     ("strict_checkpoint", False, "A8"),
@@ -224,50 +226,42 @@ class SimConfig:
                 f"unknown pool2_wire {self.pool2_wire!r}; expected "
                 "auto|reduce_scatter|all_gather"
             )
+        if self.delivery == "matmul":
+            raise unported(
+                "delivery='matmul' (the one-hot matmul form of pooled "
+                "delivery)", "A7b")
         if self.topology in ("imp2d", "imp3d"):
             if self.delivery == "stencil":
                 raise ValueError(
                     "delivery='stencil' requires an offset-structured "
                     "topology; imp2d/imp3d have random long-range edges"
                 )
-            if self.delivery != "pool":
-                # "auto" resolves to scatter-add delivery of the static
-                # extra edge.
-                raise unported(
-                    f"delivery={self.delivery!r} on {self.topology} (only "
-                    "--delivery pool runs there: the pooled re-draw of the "
-                    "long-range edge)", "A7"
-                )
-            if self.reference:
+            if self.delivery == "pool" and self.reference:
                 raise ValueError(
                     "delivery='pool' on imp topologies re-draws the random "
                     "long-range edge per round and cannot reproduce the "
                     "reference's static extra edge (Q9, program.fs:308-310); "
-                    "use batched semantics"
+                    "use batched semantics or delivery='scatter'"
                 )
-        elif self.topology == "full":
-            if self.delivery == "stencil":
-                raise ValueError(
-                    "delivery='stencil' requires an offset-structured "
-                    "topology (line/ring/grid2d/ref2d/grid3d/torus3d)"
-                )
-            if self.delivery != "pool":
-                # On full, "auto" resolves to scatter-add delivery.
-                raise unported(
-                    f"delivery={self.delivery!r} on full (only 'pool' runs "
-                    "there)", "A7"
-                )
-        elif self.delivery == "scatter":
-            # On the lattices "auto" resolves to stencil delivery.
-            raise unported(
-                f"delivery='scatter' on {self.topology} (only 'stencil' "
-                "runs there)", "A7"
+        elif self.topology == "full" and self.delivery == "stencil":
+            raise ValueError(
+                "delivery='stencil' requires an offset-structured "
+                "topology (line/ring/grid2d/ref2d/grid3d/torus3d)"
             )
         if self.reference and self.algorithm == "push-sum":
-            raise unported(
-                "reference-semantics push-sum (the single-walk simulator)",
-                "A7",
-            )
+            if self.delivery in ("stencil", "pool"):
+                raise ValueError(
+                    f"delivery={self.delivery!r} does not apply to "
+                    "reference-semantics push-sum — the single-walk simulator "
+                    "has no batched delivery step"
+                )
+            if self.engine == "fused":
+                raise ValueError(
+                    "engine='fused' does not apply to reference-semantics "
+                    "push-sum — the single-walk simulator (one message in "
+                    "flight) has no multi-round batched kernel; drop the "
+                    "engine override or use batched semantics"
+                )
 
     @property
     def reference(self) -> bool:

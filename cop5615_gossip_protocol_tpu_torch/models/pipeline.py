@@ -55,6 +55,19 @@ def _read(handle) -> tuple[int, bool]:
     return rounds, bool(done)
 
 
+def advance(state, new, status, target: int):
+    """One round of a chunk that stays on the device, under the overshoot
+    contract: ``new`` (the round's output) replaces ``state`` unless
+    ``status`` (int32 [2]: rounds, done) is already done. The round is
+    counted and done re-tested against ``target`` converged nodes on the
+    device, with no host read; ``status`` is updated in place."""
+    done = status[1] != 0
+    out = type(state)(*(torch.where(done, a, b) for a, b in zip(state, new)))
+    status[0] += (~done).to(status.dtype)
+    status[1] = (done | (out.conv.sum() >= target)).to(status.dtype)
+    return out
+
+
 def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
                max_rounds: int, stride: int, depth: int,
                next_end: Optional[Callable[[int], int]] = None) -> ChunkLoopResult:

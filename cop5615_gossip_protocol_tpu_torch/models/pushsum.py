@@ -44,9 +44,15 @@ def absorb(state: PushSumState, s_keep, w_keep, inbox_s, inbox_w, delta,
     """Absorb one round of deliveries: the ratio change is measured pre- vs
     post-absorb, and only a round that received something moves the
     termination counter (local termination)."""
-    s_new = s_keep + inbox_s
-    w_new = w_keep + inbox_w
-    received = inbox_w > 0
+    return absorb_sums(state, s_keep + inbox_s, w_keep + inbox_w, inbox_w > 0,
+                       delta, term_rounds)
+
+
+def absorb_sums(state: PushSumState, s_new, w_new, received, delta,
+                term_rounds: int) -> PushSumState:
+    """``absorb`` with the round's sums already taken: ``s_new``/``w_new``
+    are the kept halves plus the deliveries, ``received`` whether any
+    delivery carried weight."""
     delta = torch.tensor(delta, dtype=state.s.dtype)
     stable = torch.abs(s_new / w_new - state.s / state.w) <= delta
     term_new = torch.where(

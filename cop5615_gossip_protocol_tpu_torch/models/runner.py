@@ -1,9 +1,9 @@
 """Round-loop harness.
 
 ``run`` drives one simulation to convergence (or ``cfg.max_rounds``) in
-chunks of ``cfg.chunk_rounds`` rounds through the pipelined chunk loop
-(models/pipeline.py), and returns a ``RunResult``. The engines are the JAX
-runner's:
+chunks of up to ``cfg.chunk_rounds`` rounds through the pipelined chunk
+loop (models/pipeline.py), and returns a ``RunResult``. The engines are the
+JAX runner's:
 
 - the fused engines: the pool engine (ops/fused_pool.py) on ``full`` up to
   2**21 nodes and the streaming pool engine (ops/fused_pool2.py) past it,
@@ -12,9 +12,15 @@ runner's:
   ops/fused_stencil_hbm.py) and the imp engine (ops/fused_imp.py, both imp
   tiers) on imp2d/imp3d, each running its CUDA kernels on a CUDA device and
   their plain torch versions on the CPU;
-- the chunked torch engine: one torch round per loop step on [n] tensors
-  (sampling, pool, stencil or imp pool delivery, absorb), the JAX chunked
-  engine's counterpart;
+- the chunked engine on [n] tensors, the JAX chunked engine's
+  counterpart: scatter delivery (the default on ``full`` and imp2d/imp3d,
+  ``delivery="scatter"`` anywhere) runs ops/scatter.py, its CUDA kernel on
+  a CUDA device and its plain torch version on the CPU; pool, stencil and
+  imp pool delivery run one torch round per step. Its chunks keep their
+  (rounds, done) status on the device, so a chunk is queued with no host
+  read and the pipeline reads the status once a chunk;
+- reference-semantics push-sum: the single walk (models/reference.py,
+  csrc/walk.cu on a CUDA device), before any ladder;
 - with ``n_devices > 1``, the sharded composition the JAX ladder picks
   (``sharded_tier``): the replicated-pool2 one (parallel/pool2_sharded.py),
   the resident and streaming lattice ones (parallel/fused_sharded.py,
@@ -25,14 +31,16 @@ runner's:
 The fused tier is picked by the JAX runner's ladder (``fused_tier``), so a
 config lands on the tier the JAX package would give it, and every tier's
 kernels are ported. ``engine="auto"`` runs the kernels on CUDA and
-the chunked engine on the CPU; ``"fused"`` forces the fused engine (on the
-CPU, the plain versions); ``"chunked"`` forces the chunked engine. There
+the chunked engine on the CPU, and never fuses scatter delivery;
+``"fused"`` forces the fused engine (on the CPU, the plain versions) and
+refuses scatter delivery; ``"chunked"`` forces the chunked engine. There
 is no degradation ladder: a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Optional
@@ -52,6 +60,7 @@ from ..ops import (
     fused_stencil_hbm,
     rng,
     sampling,
+    scatter,
 )
 from ..ops.topology import IMP_LATTICE, Topology, imp_split
 from ..utils.device import resolve_device
@@ -59,6 +68,10 @@ from ..utils.metrics import RUN_RECORD_SCHEMA_VERSION
 from . import gossip as gossip_mod
 from . import pipeline as pipeline_mod
 from . import pushsum as pushsum_mod
+from . import reference as reference_mod
+
+# The chunked engine's first chunk, in rounds (at most chunk_rounds).
+_FIRST_CHUNK = 8
 
 # fold_in tag for the leader draw, above every round index (max_rounds <=
 # 2**30), so it never collides with a round key.
@@ -127,19 +140,70 @@ def draw_leader(base_key, topo: Topology, cfg: SimConfig) -> int:
     return int(rng.randint(rng.fold_in(base_key, _LEADER_TAG), (), 0, upper))
 
 
-def _make_round_fn(topo: Topology, cfg: SimConfig, base_key, device):
-    """The chunked engine's round on [n] tensors. Returns (round_fn(state,
-    round_idx) -> state, state0). Fault-free.
+def resolve_delivery(topo: Topology, cfg: SimConfig) -> str:
+    """The chunked round's delivery (the JAX runner's
+    ``resolve_deliver_fn``): "pool" when asked for, stencil (masked
+    circular shifts) where the topology has a small displacement set and
+    the delivery is not "scatter", scatter-add otherwise."""
+    if cfg.delivery == "pool":
+        return "pool"
+    if cfg.delivery == "stencil" and topo.offsets is None:
+        raise ValueError(
+            "delivery='stencil' requires an offset-structured topology "
+            "(line/ring/grid2d/ref2d/grid3d/torus3d); "
+            f"{topo.kind!r} has no small displacement set")
+    if cfg.delivery != "scatter" and topo.offsets is not None:
+        return "stencil"
+    return "scatter"
 
-    On ``full`` the round draws cfg.pool_size shared displacements, every
-    node picks one with packed choice bits, every node sends, and delivery
-    is pool_size masked rolls. On a lattice every node draws one word,
-    takes the neighbour column it selects (``targets_explicit``), nodes of
-    degree > 0 send, and delivery is one masked roll per displacement
-    class (``deliver_stencil``). On imp2d/imp3d a node that selects its
-    long-range column sends along one of the round's pool displacements
-    instead (``imp_pool_parts``, ``deliver_imp_pool``)."""
+
+def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
+                   target: int):
+    """The chunked engine's chunk on [n] tensors. Returns (chunk_fn(state,
+    status, start, end) -> (state, status), state0): rounds start..end
+    under the overshoot contract, ``status`` an int32 [2] (rounds, done)
+    tensor on the device, so a chunk queues its rounds with no host read.
+    Fault-free.
+
+    Under scatter delivery a chunk is one call of the scatter wrapper
+    (ops/scatter.py: csrc/scatter.cu on CUDA, its plain version on the
+    CPU). Otherwise every round is torch ops, guarded by
+    ``pipeline.advance``: on ``full`` the round draws cfg.pool_size shared
+    displacements, every node picks one with packed choice bits, every node
+    sends, and delivery is pool_size masked rolls; on a lattice every node
+    draws one word, takes the neighbour column it selects
+    (``targets_explicit``), nodes of degree > 0 send, and delivery is one
+    masked roll per displacement class (``deliver_stencil``); on imp2d/imp3d
+    with pool delivery a node that selects its long-range column sends
+    along one of the round's pool displacements instead
+    (``imp_pool_parts``, ``deliver_imp_pool``)."""
     n = topo.n
+    pushsum = cfg.algorithm == "push-sum"
+    if pushsum:
+        state0 = pushsum_mod.init_state(n, cfg.initial_term_round, device)
+    else:
+        state0 = gossip_mod.init_state(
+            n, draw_leader(base_key, topo, cfg),
+            cfg.reference and topo.kind == "full", device)
+
+    if resolve_delivery(topo, cfg) == "scatter":
+        graph = scatter.scatter_graph(topo, device)
+        if pushsum:
+            fn = functools.partial(scatter.pushsum_scatter_chunk, graph=graph,
+                                   target=target, delta=cfg.resolved_delta,
+                                   term_rounds=cfg.term_rounds)
+        else:
+            fn = functools.partial(scatter.gossip_scatter_chunk, graph=graph,
+                                   target=target,
+                                   rumor_target=cfg.resolved_rumor_target,
+                                   suppress=cfg.resolved_suppress)
+
+        def scatter_chunk(state, status, start, end):
+            return fn(state, fused.round_keys(base_key, start, max(end - start, 0)),
+                      status)
+
+        return scatter_chunk, state0
+
     if topo.kind in IMP_LATTICE:
         split = imp_split(topo)
         if split is None:
@@ -172,11 +236,7 @@ def _make_round_fn(topo: Topology, cfg: SimConfig, base_key, device):
         neighbors = torch.from_numpy(topo.neighbors).to(device)
         degree = torch.from_numpy(topo.degree).to(device)
         send_ok = degree > 0
-        offsets = topo.offsets
-        if offsets is None:
-            raise unported(f"scatter delivery ({topo.kind} n={topo.n} has no "
-                           "stencil displacement classes)", "A7")
-        offsets = [int(d) for d in offsets]
+        offsets = [int(d) for d in topo.offsets]
 
         def deliver_parts(round_idx: int):
             kr = sampling.round_key(base_key, round_idx)
@@ -185,8 +245,7 @@ def _make_round_fn(topo: Topology, cfg: SimConfig, base_key, device):
             return lambda values: delivery_mod.deliver_stencil(
                 values, targets, offsets, n)
 
-    if cfg.algorithm == "push-sum":
-        state0 = pushsum_mod.init_state(n, cfg.initial_term_round, device)
+    if pushsum:
         delta, term_rounds = cfg.resolved_delta, cfg.term_rounds
 
         def round_fn(state, round_idx):
@@ -200,10 +259,6 @@ def _make_round_fn(topo: Topology, cfg: SimConfig, base_key, device):
             )
 
     else:
-        leader = draw_leader(base_key, topo, cfg)
-        state0 = gossip_mod.init_state(
-            n, leader, cfg.reference and topo.kind == "full", device
-        )
         rumor_target, suppress = cfg.resolved_rumor_target, cfg.resolved_suppress
 
         def round_fn(state, round_idx):
@@ -212,7 +267,13 @@ def _make_round_fn(topo: Topology, cfg: SimConfig, base_key, device):
             inbox = deliver(vals[None])[0]
             return gossip_mod.absorb(state, inbox, rumor_target, suppress)
 
-    return round_fn, state0
+    def round_chunk(state, status, start, end):
+        status = status.clone()
+        for rnd in range(start, end):
+            state = pipeline_mod.advance(state, round_fn(state, rnd), status, target)
+        return state, status
+
+    return round_chunk, state0
 
 
 def imp_pool_parts(topo: Topology, cfg: SimConfig, round_k, disp_cols,
@@ -287,25 +348,32 @@ def describe_device(device: torch.device) -> str:
 def fused_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
     """The fused tier the JAX runner's ladder picks for this config, and
     None or the reason it cannot run there (models/runner.py of the JAX
-    package: the pool engine on ``full`` up to its VMEM cap and the
-    streaming pool tier past it; on the lattices the whole-array stencil
-    tier, else the tiled one, else the streaming one; on imp2d/imp3d the
-    resident imp tier up to its plane budget, else the streaming one)."""
-    if topo.kind in IMP_LATTICE:
+    package: with pool delivery, the pool engine on ``full`` up to its VMEM
+    cap and the streaming pool tier past it, and on imp2d/imp3d the
+    resident imp tier up to its plane budget, else the streaming one; with
+    any other delivery the lattice tiers, the whole-array stencil tier,
+    else the tiled one, else the streaming one, which serve neither
+    ``full`` nor the imp kinds; delivery="scatter" pins the chunked
+    engine, so it never fuses)."""
+    if cfg.delivery == "pool" and topo.kind in IMP_LATTICE:
         reason = fused_imp.imp_fused_support(topo, cfg)
         if reason is not None and fused_imp_hbm.imp_hbm_support(topo, cfg) is None:
             return "imp_hbm", None
         return "imp", reason
-    if topo.implicit:
+    if cfg.delivery == "pool" and topo.implicit:
         if topo.n <= fused_pool.MAX_POOL_NODES:
             return "pool", fused_pool.pool_fused_support(topo, cfg)
         return "pool2", fused_pool2.pool2_support(topo, cfg)
     reason = fused.fused_support(topo, cfg)
     if reason is None:
-        return "stencil", None
-    variant, reason = "stencil2", fused_stencil.stencil2_support(topo, cfg)
-    if reason is not None and fused_stencil_hbm.stencil_hbm_support(topo, cfg) is None:
-        variant, reason = "stencil_hbm", None
+        variant = "stencil"
+    else:
+        variant, reason = "stencil2", fused_stencil.stencil2_support(topo, cfg)
+        if reason is not None and fused_stencil_hbm.stencil_hbm_support(topo, cfg) is None:
+            variant, reason = "stencil_hbm", None
+    if reason is None and cfg.delivery == "scatter":
+        reason = ("delivery='scatter' runs the chunked engine (the fused "
+                  "lattice tiers deliver by the stencil formulation)")
     return variant, reason
 
 
@@ -380,6 +448,8 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
     ``key`` is the base key (default ``rng.PRNGKey(cfg.seed)``);
     ``start_state``/``start_round`` resume from a canonical state at an
     absolute round, on the same trajectory (round keys are absolute).
+    Reference-semantics push-sum is the single walk, whose ``rounds`` are
+    message hops.
 
     With ``cfg.n_devices > 1`` the run is sharded over that many shards:
     ``devices`` names each shard's device (``["cuda:0"] * 4`` puts four on
@@ -399,9 +469,23 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
     device = resolve_device(device)
     key = rng.PRNGKey(cfg.seed) if key is None else key
     target = cfg.resolved_target_count(topo.n, topo.target_count)
+    if cfg.reference and cfg.algorithm == "push-sum":
+        # Reference fidelity: the single walk (one message in flight).
+        # Gossip has no such mode: the batched round already models the
+        # reference's informed nodes all sending at once.
+        if start_state is not None:
+            raise ValueError("the reference-semantics walk does not resume "
+                             "from a batched state")
+        return _run_reference_walk(topo, cfg, key, device, target, t_enter)
     if cfg.engine != "chunked":
         variant, reason = fused_tier(topo, cfg)
         if cfg.engine == "fused":
+            if variant not in ("pool", "pool2") and cfg.delivery == "scatter":
+                raise ValueError(
+                    "engine='fused' delivers via the stencil formulation "
+                    "only; delivery='scatter' would be silently ignored — "
+                    "use delivery='auto'/'stencil' or engine='chunked'"
+                )
             if reason is not None:
                 raise ValueError(f"engine='fused' unavailable: {reason}")
             return _run_fused(topo, cfg, key, device, start_state,
@@ -438,39 +522,88 @@ def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
     return runs[tier](topo, cfg, mesh, key, start_state, start_round, t_enter)
 
 
+def _run_reference_walk(topo, cfg, key, device, target, t_enter) -> RunResult:
+    """The single walk to convergence, death or cfg.max_rounds hops:
+    ``rounds`` counts hops, and the estimate error is the JAX package's,
+    in float32 over the converged nodes."""
+    leader = draw_leader(key, topo, cfg)
+    t0 = time.perf_counter()
+    final, compile_s, run_s = reference_mod.run_walk(topo, cfg, key, leader,
+                                                     target, device)
+    converged_count = int(final.conv.sum())
+    done = converged_count >= target
+    result = RunResult(
+        algorithm=cfg.algorithm,
+        topology=topo.kind,
+        semantics=cfg.semantics,
+        n_requested=topo.n_requested,
+        population=topo.n,
+        target_count=target,
+        rounds=int(final.steps),  # message hops, not synchronous rounds
+        converged_count=converged_count,
+        converged=done,
+        compile_s=compile_s,
+        run_s=run_s,
+        outcome="converged" if done else "max_rounds",
+        device=describe_device(device),
+    )
+    result.true_mean = (topo.n - 1) / 2.0
+    result.estimate_mae = reference_mod.estimate_mae(final, result.true_mean)
+    result.state = final
+    result.setup_s = t0 - t_enter
+    return result
+
+
 def _to_device(state, device):
     return type(state)(*(x.to(device).clone() for x in state))
 
 
 def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
                  t_enter) -> RunResult:
-    round_fn, state0 = _make_round_fn(topo, cfg, key, device)
+    """Chunk loop over the chunked engine: each chunk queues its rounds
+    with the (rounds, done) status on the device, and the pipeline reads
+    that status once a chunk."""
+    chunk_fn, state0 = _make_chunk_fn(topo, cfg, key, device, target)
     if start_state is not None:
         state0 = _to_device(start_state, device)
     done0 = start_state is not None and _host_done(state0, target)
+    queued = {"end": start_round}  # nominal start of the next chunk
 
-    def chunk(state, status, round_end):
-        rnd, done = status
-        while not done and rnd < round_end:
-            state = round_fn(state, rnd)
-            rnd += 1
-            done = _host_done(state, target)
-        return state, (rnd, done)
+    def dispatch(state, status, round_end):
+        # A chunk that runs at all starts where the previous one was told
+        # to end; after termination every round is a no-op.
+        start, queued["end"] = queued["end"], round_end
+        return chunk_fn(state, status, start, round_end)
 
     t0 = time.perf_counter()
     setup_s = t0 - t_enter
-    # Warmup: one real round, discarded (round keys are absolute, so the
-    # timed loop recomputes it identically).
-    chunk(state0, (start_round, False), min(start_round + 1, cfg.max_rounds))
+    # Warmup: builds the kernels on first use and runs one real round,
+    # discarded (round keys are absolute, so the timed loop recomputes it
+    # identically).
+    warm = torch.tensor([start_round, 0], dtype=torch.int32, device=device)
+    chunk_fn(state0, warm, start_round, min(start_round + 1, cfg.max_rounds))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     compile_s = time.perf_counter() - t0
 
+    status0 = torch.tensor([start_round, int(done0)], dtype=torch.int32, device=device)
+    K = cfg.chunk_rounds
+
+    def next_end(end):
+        # Chunks grow by a quarter of the rounds run so far, from
+        # _FIRST_CHUNK up to chunk_rounds: the rounds queued past
+        # termination (no-ops, but each still computed or launched) stay a
+        # fraction of the run, at one status read a chunk.
+        return end + min(K, max(_FIRST_CHUNK, (end - start_round) // 4))
+
     t1 = time.perf_counter()
     loop = pipeline_mod.run_chunks(
-        dispatch=chunk, state0=state0, status0=(start_round, done0),
-        start_round=start_round, max_rounds=cfg.max_rounds,
-        stride=cfg.chunk_rounds, depth=cfg.pipeline_chunks,
+        dispatch=dispatch, state0=state0, status0=status0,
+        start_round=start_round, max_rounds=cfg.max_rounds, stride=K,
+        # The CPU runs a chunk as it is queued: a second chunk in flight
+        # would only add no-op rounds.
+        depth=cfg.pipeline_chunks if device.type == "cuda" else 1,
+        next_end=next_end,
     )
     run_s = time.perf_counter() - t1
     t_fin = time.perf_counter()

@@ -1,10 +1,46 @@
-"""Message delivery as masked circular shifts: offset pools on the implicit
-full topology, static displacement classes on the lattices, and both on
-imp2d/imp3d."""
+"""Message delivery: the scatter-add of values into their targets, and the
+scatter-free masked circular shifts (offset pools on the implicit full
+topology, static displacement classes on the lattices, and both on
+imp2d/imp3d)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def deliver(values: torch.Tensor, targets: torch.Tensor, n: int,
+            base: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum ``values[..., i]`` into slot ``targets[i]`` of a fresh [..., n]
+    inbox (``values`` is [m] or [C, m]; push-sum stacks s and w), in a
+    fixed order on every device: each target's senders add in ascending
+    sender index onto 0, the order of a serial scatter-add loop (and of the
+    JAX package's ``zeros(n).at[targets].add(values)`` on the CPU); with
+    ``base`` they add onto a copy of ``base`` instead (``base.at[targets]
+    .add(values)``, the form XLA gives ``keep + deliver(...)`` inside the
+    JAX package's jitted rounds).
+
+    The senders are stable-sorted by target and each gets its rank inside
+    its target's bucket; rank r = 0, 1, ... then adds in one indexed add,
+    and no two senders of one rank share a target, so no level collides."""
+    targets = targets.to(torch.int64)
+    m = targets.shape[0]
+    inbox = (values.new_zeros((*values.shape[:-1], n)) if base is None
+             else base.clone())
+    if m == 0:
+        return inbox
+    if not values.is_floating_point():
+        # Integer sums are exact in any order.
+        return inbox.index_add_(-1, targets, values)
+    order = torch.sort(targets, stable=True).indices
+    sorted_t = targets[order]
+    counts = torch.bincount(targets, minlength=n)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(m, device=targets.device) - starts[sorted_t]
+    for r in range(int(counts.max())):
+        level = rank == r
+        t, src = sorted_t[level], order[level]
+        inbox[..., t] = inbox[..., t] + values[..., src]
+    return inbox
 
 
 def deliver_pool(channels: torch.Tensor, choice: torch.Tensor, offsets) -> torch.Tensor:

@@ -2,9 +2,10 @@
 
 On ``full``, each round draws ``pool_size`` shared displacements
 (``pool_offsets``) and every node picks one of them with 4 bits of a packed
-threefry word (``pool_choice_packed``). On an explicit topology every node
-draws one word (``uniform_bits``) and takes the neighbour column it selects
-(``targets_explicit``). The streams are the JAX package's, bit for bit:
+threefry word (``pool_choice_packed``); under scatter delivery every node
+draws one word (``uniform_bits``) and shifts by it (``targets_full``). On an
+explicit topology every node draws one word and takes the neighbour column
+it selects (``targets_explicit``). The streams are the JAX package's, bit for bit:
 round keys are ``fold_in(base, round)``, the pool folds in ``_POOL_TAG``,
 and the choice words come straight off the round key on ``full`` and off
 ``imp_choice_key`` on imp2d/imp3d.
@@ -59,6 +60,15 @@ def targets_explicit(bits: torch.Tensor, neighbors: torch.Tensor,
     for k in range(1, neighbors.shape[1]):
         target = torch.where(slot == k, neighbors[:, k], target)
     return target
+
+
+def targets_full(bits: torch.Tensor, node_ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Partner j != i on the implicit complete graph: the uniform shift
+    1 + word % (n - 1) in [1, n), taken mod n. The words are uint32 held in
+    int64, so the modulo is the JAX package's uint32 one; n = 1 has no
+    other node and every target is 0."""
+    shift = 1 + bits % max(n - 1, 1)
+    return (node_ids.to(torch.int64) + shift) % n
 
 
 def pool_offsets(round_k, pool_size: int, n: int) -> torch.Tensor:

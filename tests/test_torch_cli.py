@@ -1,6 +1,6 @@
 """The port's CLI (cop5615_gossip_protocol_tpu_torch/cli.py) against the JAX
-CLI: the same record fields for the same run on the CPU, and loud refusal
-of what is not ported yet."""
+CLI: the same record fields for the same run on the CPU (the reference's
+own triples among them), and loud refusal of what is not ported yet."""
 
 import json
 
@@ -57,6 +57,25 @@ def test_lattice_record_matches_jax_cli(capsys, argv):
     assert rec["config"] == jrec["config"]
 
 
+@pytest.mark.parametrize("argv", [
+    ["1000", "full", "gossip"],
+    ["1000", "imp3D", "push-sum"],
+    ["1000", "imp2D", "gossip", "--semantics", "reference"],
+    ["100", "full", "push-sum", "--semantics", "reference"],
+    ["100", "2D", "push-sum", "--semantics", "reference"],
+])
+def test_reference_triple_matches_jax_cli(capsys, argv):
+    # The reference's own command lines: default delivery is scatter on full
+    # and imp, and reference push-sum is the single walk (rounds are hops).
+    jrc, jrec = _record(capsys, jax_main, argv)
+    rc, rec = _record(capsys, main, argv + ["--platform", "cpu"])
+    assert rc == jrc == 0
+    for field in ("topology_kind", "rounds", "outcome", "converged_count",
+                  "estimate_mae", "population", "target_count", "max_deg"):
+        assert rec[field] == jrec[field], field
+    assert rec["config"] == jrec["config"]
+
+
 def test_quiet_and_reference_format(capsys):
     rc = main(["500", "full", "gossip", "--delivery", "pool", "--platform", "cpu",
                "--quiet"])
@@ -80,11 +99,10 @@ def test_unported_flag_names_roadmap_item(capsys, flag, item):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["1000", "line", "gossip", "--delivery", "scatter"], "A7"),
-    (["1000", "imp2d", "gossip"], "A7"),
-    (["1000", "full", "gossip"], "A7"),  # auto delivery is scatter on full
-    (["1000", "full", "push-sum", "--delivery", "pool", "--semantics",
-      "reference"], "A7"),
+    (["1000", "full", "gossip", "--delivery", "matmul"], "A7b"),
+    (["1000", "full", "push-sum", "--delivery", "matmul"], "A7b"),
+    (["1000", "imp2d", "gossip", "--delivery", "matmul"], "A7b"),
+    (["1000", "imp3d", "push-sum", "--delivery", "matmul"], "A7b"),
 ])
 def test_unported_config_names_roadmap_item(capsys, argv, item):
     rc = main(argv + ["--platform", "cpu"])

@@ -56,7 +56,9 @@ def test_importing_the_port_loads_no_jax():
         "cop5615_gossip_protocol_tpu_torch.parallel.pool2_sharded, "
         "cop5615_gossip_protocol_tpu_torch.parallel.fused_sharded, "
         "cop5615_gossip_protocol_tpu_torch.parallel.fused_hbm_sharded, "
-        "cop5615_gossip_protocol_tpu_torch.parallel.fused_imp_hbm_sharded; "
+        "cop5615_gossip_protocol_tpu_torch.parallel.fused_imp_hbm_sharded, "
+        "cop5615_gossip_protocol_tpu_torch.ops.scatter, "
+        "cop5615_gossip_protocol_tpu_torch.models.reference; "
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cop5615_gossip_protocol_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -125,11 +127,11 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
 
 
 def test_unported_config_fields_name_roadmap_items():
-    for kw, item in (({"fault_rate": 0.1}, "A6"), ({"dup_rate": 0.1}, "A7"),
+    for kw, item in (({"fault_rate": 0.1}, "A6"), ({"dup_rate": 0.1}, "A7b"),
                      ({"termination": "global"}, "A6"),
                      ({"dtype": "float64"}, "A12"), ({"halo_dma": "on"}, "A10"),
-                     ({"topology": "ring", "delivery": "scatter"}, "A7"),
-                     ({"topology": "imp3d", "delivery": "auto"}, "A7")):
+                     ({"topology": "full", "delivery": "matmul"}, "A7b"),
+                     ({"topology": "imp3d", "delivery": "matmul"}, "A7b")):
         fields = {"n": 100, "algorithm": "push-sum", "delivery": "pool", **kw}
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             SimConfig(**fields)

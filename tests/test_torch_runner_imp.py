@@ -132,8 +132,8 @@ def test_cli_imp_record_matches_jax_cli(capsys, argv):
 
 
 @pytest.mark.parametrize("argv,needles", [
-    (["1000", "imp3d", "push-sum"], ("ROADMAP A7", "--delivery pool")),
-    (["1000", "imp2d", "gossip", "--delivery", "scatter"], ("ROADMAP A7", "--delivery pool")),
+    (["1000", "imp3d", "push-sum", "--delivery", "matmul"], ("ROADMAP A7b",)),
+    (["1000", "imp2d", "gossip", "--delivery", "stencil"], ("offset-structured",)),
     (["1000", "imp3d", "gossip", "--delivery", "pool", "--semantics", "reference"],
      ("Q9",)),
 ])

@@ -180,9 +180,10 @@ def test_resident_tiers_dispatch_on_cuda_and_run_under_fused(kind, n, algorithm,
 
 
 def test_lattice_configs_outside_the_slice_name_roadmap_items():
-    for kw, item in (({"topology": "imp2d"}, "A7"), ({"topology": "imp3d"}, "A7"),
-                     ({"topology": "ring", "delivery": "scatter"}, "A7"),
-                     ({"topology": "line", "semantics": "reference"}, "A7"),
+    for kw, item in (({"topology": "imp2d", "delivery": "matmul"}, "A7b"),
+                     ({"topology": "imp3d", "delivery": "matmul"}, "A7b"),
+                     ({"topology": "ring", "dup_rate": 0.1}, "A7b"),
+                     ({"topology": "line", "delay_rounds": 2}, "A7b"),
                      ({"topology": "torus3d", "fault_rate": 0.1}, "A6")):
         fields = {"n": 1000, "algorithm": "push-sum", **kw}
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -191,11 +192,11 @@ def test_lattice_configs_outside_the_slice_name_roadmap_items():
         SimConfig(n=1000, topology="grid2d", delivery="pool")
     with pytest.raises(ValueError, match="offset-structured"):
         SimConfig(n=1000, topology="full", delivery="stencil")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        # A 1-node ring is a self-loop: no displacement class, so the JAX
-        # chunked engine delivers it by scatter.
-        run(build_topology("ring", 1), SimConfig(n=1, topology="ring"),
-            device="cpu")
+    # A 1-node ring is a self-loop: no displacement class, so the JAX
+    # chunked engine delivers it by scatter, and the port does the same.
+    res = run(build_topology("ring", 1), SimConfig(n=1, topology="ring"), device="cpu")
+    jres = jax_runner.run(jax_build("ring", 1), JaxConfig(n=1, topology="ring"))
+    assert (res.rounds, res.converged_count) == (jres.rounds, jres.converged_count)
     with pytest.raises(ValueError, match="not an arithmetic lattice"):
         # A 1-node line has no displacement class: the streaming tier the
         # ladder picks (as the JAX one does) cannot serve it.

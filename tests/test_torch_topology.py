@@ -101,13 +101,14 @@ def test_reference_builds_scan_their_own_classes():
 
 
 def test_imp_kinds_are_not_ported():
-    # The imp kinds build (tests/test_torch_topology_imp.py); what is not
-    # ported on them is the default scatter delivery of the static extra
-    # edge, so a config without --delivery pool names ROADMAP A7.
+    # The imp kinds build (tests/test_torch_topology_imp.py) and run scatter
+    # (their default, along the static extra edge) and pooled delivery;
+    # what is not ported on them is the matmul delivery (ROADMAP A7b).
     for kind in ("imp2d", "imp3d"):
         assert topology.build_topology(kind, 1000).kind == kind
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            SimConfig(n=1000, topology=kind, algorithm="push-sum")
+        assert SimConfig(n=1000, topology=kind, algorithm="push-sum").delivery == "auto"
+        with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
+            SimConfig(n=1000, topology=kind, algorithm="push-sum", delivery="matmul")
     with pytest.raises(ValueError, match="torus3d needs at least 8"):
         topology.build_topology("torus3d", 7)
 
