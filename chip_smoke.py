@@ -155,23 +155,30 @@ non-zero before the last line:
    in 2 shards, both algorithms, 64 rounds on the card against the CPU's
    run of the same shards; imp3d 520**3 in 4 shards, gossip to convergence
    and a 64-round push-sum sample conserving its mass;
-14f. kernel A, the scatter round (csrc/scatter.cu, one host call a chunk,
-   five launches a push-sum round and two a gossip round), against its
-   plain version on the card one round at a time at full 1,000,000 and at
-   imp3d 1000 in reference semantics (its Q8 orphan does not send), both
-   algorithms, from the initial state, a mid-run state (also a 32-round
-   and an 8-round chunk) and a converged state (one real round, and one
-   with the done flag set, which changes nothing); every plane and the
-   (rounds, done) status bitwise;
+14f. kernel A, the scatter round (csrc/scatter.cu, one persistent
+   cooperative launch a chunk), against its plain version on the card at
+   full 1,000,000 and at imp3d 1000 in reference semantics (its Q8 orphan
+   does not send), both algorithms: one round from the initial state; from
+   a mid-run state one round, no round, a 32-round (push-sum) or 8-round
+   (gossip) chunk and chunks capped after 5 and after 6 rounds (both round
+   parities); a chunk that reaches done in its middle, then a second chunk
+   from its result (nothing moves); from a converged state one real round,
+   and one with the done flag set (nothing moves); every plane and the
+   (rounds, done) status bitwise, and the kernel's scratch zero after every
+   chunk; then one 2-round chunk of each algorithm at full 2**27, the
+   largest size, bitwise;
 14g. the scatter path through ``run()``, counters zeroed before each run
    and read after it, the pipeline's status reads counted (one a chunk):
    ``1000000 full gossip`` and ``100000 imp2D push-sum`` (BASELINE.json),
    each bitwise the port's CPU run of the same config (computed by a
    spawned worker process while the card runs phases 2-14f), and 1M full
    push-sum; each against the JAX chunked engine's rounds and estimate on
-   the CPU, push-sum with its mass conserved; run_s, rounds/s, launches
-   and status reads a chunk printed; then the chunked engine's torch
-   rounds on the card (``engine="chunked"``: 1000 line gossip, 1000 full
+   the CPU, push-sum with its mass conserved; one launch a chunk of
+   rounds, by the wrapper's counter and, in the same run again under
+   torch.profiler, by the round kernels in the card's trace; run_s,
+   rounds/s, launches a chunk and status reads printed; then the chunked
+   engine's torch rounds on the card
+   (``engine="chunked"``: 1000 line gossip, 1000 full
    push-sum with pool delivery), each bitwise the CPU's run with one
    status read a chunk;
 14h. kernel B, the reference-semantics walk (csrc/walk.cu, one thread, up
@@ -2636,6 +2643,8 @@ def pool2_shard_cards(cards):
 SCATTER_CASES = (("full", 1_000_000, "batched"), ("imp3d", 1000, "reference"))
 SCATTER_MID = {"pushsum": 300, "gossip": 8}
 SCATTER_TIMED = {"pushsum": CHUNK, "gossip": 8}
+# The largest full population of phase 14f's checks: the fused tiers' cap.
+SCATTER_LARGEST = 2**27
 # The whole runs users type (BASELINE.json), each on the card against the
 # port's CPU run of the same config (rounds, converged count, every plane),
 # which a worker process computes while the card runs the earlier phases.
@@ -2709,20 +2718,30 @@ def same_planes(label, got, want):
     return err
 
 
+def scatter_scratch_zero(label, graph):
+    """Kernel A's zero planes (push-sum's bucket counts, gossip's receipts,
+    both round parities) must be zero between chunks."""
+    import torch
+
+    for name in ("counts", "inbox"):
+        plane = graph.work.get(name)
+        if plane is not None and torch.count_nonzero(plane).item():
+            raise AssertionError(f"{label}: the scratch {name} is not zero after the chunk")
+
+
 def scatter_checks(dev, key):
-    """Phase 14f: kernel A (csrc/scatter.cu) one round at a time against
-    its plain version on the card, at SCATTER_CASES, both algorithms: from
-    the initial state, a mid-run state and a converged state (one real
-    round, and one with the done flag set, which must change nothing), and
-    a SCATTER_TIMED-round chunk from the mid-run state; every plane and the
-    status bitwise. Returns {(name, kind): case} for the timing phase and
+    """Phase 14f: kernel A (csrc/scatter.cu) against its plain version on
+    the card, at SCATTER_CASES, both algorithms: one round from the initial
+    state; from a mid-run state one round, no round, a SCATTER_TIMED-round
+    chunk and chunks capped after 5 and 6 rounds; a chunk that reaches done
+    three rounds in, then a chunk from its result; from a converged state
+    one real round, and one with the done flag set; every plane and the
+    status bitwise, the scratch zero after every kernel chunk. Then
+    scatter_largest. Returns {(name, kind): case} for the timing phase and
     {name: max_abs_err}."""
     import torch
 
-    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
-    from cop5615_gossip_protocol_tpu_torch.models import gossip as gossip_mod
-    from cop5615_gossip_protocol_tpu_torch.models import pushsum as pushsum_mod
-    from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
+    from cop5615_gossip_protocol_tpu_torch import build_topology
     from cop5615_gossip_protocol_tpu_torch.ops import fused, scatter
 
     @functools.lru_cache(maxsize=None)
@@ -2739,29 +2758,14 @@ def scatter_checks(dev, key):
         print(f"  {kind} n={topo.n} ({semantics}): {orphans} orphans", flush=True)
         for algorithm in ("push-sum", "gossip"):
             name = "pushsum" if algorithm == "push-sum" else "gossip"
-            cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, semantics=semantics)
-            target = cfg.resolved_target_count(topo.n, topo.target_count)
-            if name == "pushsum":
-                init = pushsum_mod.init_state(topo.n, cfg.initial_term_round, dev)
-                kw = {"graph": graph, "target": target, "delta": cfg.resolved_delta,
-                      "term_rounds": cfg.term_rounds}
-                kern, plain = scatter.pushsum_scatter_chunk, scatter.pushsum_scatter_chunk_plain
-            else:
-                init = gossip_mod.init_state(topo.n, draw_leader(key, topo, cfg),
-                                             cfg.reference and kind == "full", dev)
-                kw = {"graph": graph, "target": target,
-                      "rumor_target": cfg.resolved_rumor_target,
-                      "suppress": cfg.resolved_suppress}
-                kern, plain = scatter.gossip_scatter_chunk, scatter.gossip_scatter_chunk_plain
-
-            def chunk(fn, state, start, count, done=0, kw=kw):
-                status = torch.tensor([start, done], dtype=torch.int32, device=dev)
-                return fn(state, round_keys(start, count), status, **kw)
+            kern, plain, chunk, init = scatter_fns(dev, key, topo, graph, algorithm,
+                                                   semantics, round_keys)
 
             def check(label, state, start, count, done=0, chunk=chunk, kern=kern,
                       plain=plain):
-                got, want = (chunk(kern, state, start, count, done),
-                             chunk(plain, state, start, count, done))
+                got = chunk(kern, state, start, count, done)
+                scatter_scratch_zero(label, graph)
+                want = chunk(plain, state, start, count, done)
                 if got[1].tolist() != want[1].tolist():
                     raise AssertionError(f"{label}: status {got[1].tolist()} != plain "
                                          f"{want[1].tolist()}")
@@ -2775,26 +2779,154 @@ def scatter_checks(dev, key):
             mid, st = chunk(kern, init, 0, mid_round)
             if st.tolist() != [mid_round, 0]:
                 raise AssertionError(f"{tag}: status {st.tolist()} after {mid_round} rounds")
-            errs.append(check(f"{tag} mid-run state, one round", mid, mid_round, 1)[0])
-            errs.append(check(f"{tag} mid-run state, {SCATTER_TIMED[name]} rounds", mid,
-                              mid_round, SCATTER_TIMED[name])[0])
+            for count in (1, 0, SCATTER_TIMED[name], 5, 6):
+                errs.append(check(f"{tag} mid-run state, a chunk of {count} rounds", mid,
+                                  mid_round, count)[0])
             state, st, rnd = init, None, 0
             while st is None or not st[1]:
                 if rnd >= 100_000:
                     raise AssertionError(f"{tag}: no convergence in {rnd} rounds")
                 state, st = chunk(kern, state, rnd, 512)
                 st, rnd = st.tolist(), rnd + 512
-            errs.append(check(f"{tag} converged state (round {st[0]}), one round",
-                              state, st[0], 1)[0])
+            final = st[0]
+            # Done three rounds into an 8-round chunk; then a chunk from its
+            # result, which must change nothing.
+            late, _ = chunk(kern, init, 0, final - 3)
+            err, (ended, st_end) = check(f"{tag} state of round {final - 3}, 8 rounds "
+                                         f"(done after 3)", late, final - 3, 8)
+            errs.append(err)
+            if st_end.tolist() != [final, 1]:
+                raise AssertionError(f"{tag}: done mid-chunk gave {st_end.tolist()}, "
+                                     f"want [{final}, 1]")
+            again, st_again = chunk(kern, ended, final, 8, done=1)
+            scatter_scratch_zero(f"{tag} a chunk after done", graph)
+            same_planes(f"{tag} a chunk after done", again, ended)
+            if st_again.tolist() != st_end.tolist():
+                raise AssertionError(f"{tag}: a chunk after done moved the status")
+            print(f"  {tag} a chunk after the done chunk: nothing moved, scratch zero",
+                  flush=True)
+            errs.append(check(f"{tag} converged state (round {final}), one round",
+                              state, final, 1)[0])
             err, (same, after) = check(f"{tag} converged state, done flag set", state,
-                                       st[0], 1, done=1)
+                                       final, 1, done=1)
             same_planes(f"{tag} a round after done", same, state)
-            if after.tolist() != [st[0], 1]:
+            if after.tolist() != [final, 1]:
                 raise AssertionError(f"{tag}: a round after done moved the status")
             max_err[name] = max(max_err.get(name, 0.0), *errs, err)
             cases[name, kind] = (kern, plain, chunk, mid, mid_round, topo.n, graph)
+    for name, err in scatter_largest(dev, key, round_keys).items():
+        max_err[name] = max(max_err[name], err)
     torch.cuda.synchronize()
     return cases, max_err
+
+
+def scatter_fns(dev, key, topo, graph, algorithm, semantics, round_keys):
+    """(kernel wrapper, plain version, chunk, initial state) of kernel A
+    on ``topo``: ``chunk(fn, state, start, count, done=0)`` runs ``count``
+    rounds from absolute round ``start`` under a fresh status."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig
+    from cop5615_gossip_protocol_tpu_torch.models import gossip as gossip_mod
+    from cop5615_gossip_protocol_tpu_torch.models import pushsum as pushsum_mod
+    from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
+    from cop5615_gossip_protocol_tpu_torch.ops import scatter
+
+    cfg = SimConfig(n=topo.n, topology=topo.kind, algorithm=algorithm,
+                    semantics=semantics)
+    target = cfg.resolved_target_count(topo.n, topo.target_count)
+    if algorithm == "push-sum":
+        init = pushsum_mod.init_state(topo.n, cfg.initial_term_round, dev)
+        kw = {"graph": graph, "target": target, "delta": cfg.resolved_delta,
+              "term_rounds": cfg.term_rounds}
+        kern, plain = scatter.pushsum_scatter_chunk, scatter.pushsum_scatter_chunk_plain
+    else:
+        init = gossip_mod.init_state(topo.n, draw_leader(key, topo, cfg),
+                                     cfg.reference and topo.kind == "full", dev)
+        kw = {"graph": graph, "target": target,
+              "rumor_target": cfg.resolved_rumor_target,
+              "suppress": cfg.resolved_suppress}
+        kern, plain = scatter.gossip_scatter_chunk, scatter.gossip_scatter_chunk_plain
+
+    def chunk(fn, state, start, count, done=0):
+        # The kernel's wrapper folds the round keys on the card from the
+        # run's key; the plain version takes them drawn on the host.
+        status = torch.tensor([start, done], dtype=torch.int32, device=dev)
+        if fn is plain:
+            return fn(state, round_keys(start, count), status, **kw)
+        return fn(state, key, start, count, status, **kw)
+
+    return kern, plain, chunk, init
+
+
+def scatter_largest(dev, key, round_keys):
+    """Kernel A at the largest size a user runs on ``full`` (2**27, the
+    fused tiers' cap; past it the chunked engine runs scatter too): one
+    2-round chunk of each algorithm from the initial state, bitwise its
+    plain version, with the scratch's size printed. Returns {name:
+    max_abs_err}."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import build_topology
+    from cop5615_gossip_protocol_tpu_torch.ops import scatter
+
+    n = SCATTER_LARGEST
+    topo = build_topology("full", n)
+    graph = scatter.scatter_graph(topo, dev)
+    errs = {}
+    for algorithm in ("push-sum", "gossip"):
+        name = "pushsum" if algorithm == "push-sum" else "gossip"
+        kern, plain, chunk, init = scatter_fns(dev, key, topo, graph, algorithm,
+                                               "batched", round_keys)
+        label = f"{name} full n={n:,} initial state, 2 rounds"
+        got = chunk(kern, init, 0, 2)
+        scatter_scratch_zero(label, graph)
+        scratch = sum(x.numel() * x.element_size() for x in graph.work.values())
+        want = chunk(plain, init, 0, 2)
+        if got[1].tolist() != want[1].tolist():
+            raise AssertionError(f"{label}: status {got[1].tolist()} != plain "
+                                 f"{want[1].tolist()}")
+        errs[name] = same_planes(label, got[0], want[0])
+        print(f"  {label}: status {got[1].tolist()}, bitwise; scratch "
+              f"{scratch / 2**30:.2f} GiB", flush=True)
+        del got, want, init
+        torch.cuda.empty_cache()
+    graph.work.clear()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def cuda_profile():
+    """torch.profiler over the card's activity alone, its warning that it
+    keeps one cycle's events silenced (one cycle is all this takes)."""
+    import contextlib
+
+    import torch
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(warnings.catch_warnings())
+    warnings.simplefilter("ignore", UserWarning)
+    prof = stack.enter_context(torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]))
+    return stack, prof
+
+
+def device_kernels(prof):
+    """{short name: (events, device µs in all)} of a torch.profiler trace's
+    device activity (kernels, copies, memsets), the name cut to its
+    function's (``pushsum_rounds``)."""
+    out = {}
+    for ev in prof.key_averages():
+        us_total = getattr(ev, "device_time_total", None)
+        if us_total is None:
+            us_total = getattr(ev, "cuda_time_total", 0.0)
+        if us_total and ev.count:
+            short = ev.key.replace("(anonymous namespace)::", "")
+            short = short.split("(")[0].split("<")[0].split("::")[-1].split(" ")[-1]
+            short = short or ev.key[:40]
+            count, us = out.get(short, (0, 0.0))
+            out[short] = (count + ev.count, us + us_total)
+    return out
 
 
 def scatter_path(dev, cpu_runs):
@@ -2803,26 +2935,38 @@ def scatter_path(dev, cpu_runs):
     counted: SCATTER_RUNS against the port's CPU runs (``cpu_runs``, the
     worker's result: rounds, converged count, every plane bitwise), and
     1M full push-sum; each against the JAX chunked engine's rounds and
-    estimate, push-sum with its mass conserved; one status read a chunk.
-    Returns {name: launches on its main-path run}."""
+    estimate, push-sum with its mass conserved; one status read a chunk;
+    one launch a chunk of rounds by the wrapper's counter, and the same
+    run again under torch.profiler with one ``*_rounds`` kernel in the
+    card's trace a chunk of rounds. Returns {name: launches on its
+    main-path run}."""
     import torch
 
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
-    from cop5615_gossip_protocol_tpu_torch.models import pipeline
+    from cop5615_gossip_protocol_tpu_torch.models import pipeline, runner
     from cop5615_gossip_protocol_tpu_torch.ops import scatter
 
     counters = {"pushsum": scatter.pushsum_scatter_chunk,
                 "gossip": scatter.gossip_scatter_chunk}
-    passes = {"pushsum": scatter.PUSHSUM_PASSES, "gossip": scatter.GOSSIP_PASSES}
     launches = {}
     reads = []
-    real_read = pipeline._read
+    calls = []  # the rounds of each chunk the runner asks for
+    real_read, real_make = pipeline._read, runner._make_chunk_fn
 
     def counted_read(handle):
         reads.append(1)
         return real_read(handle)
 
+    def counted_make(*args, **kw):
+        chunk_fn, state0 = real_make(*args, **kw)
+
+        def counted_chunk(state, status, start, end):
+            calls.append(max(end - start, 0))
+            return chunk_fn(state, status, start, end)
+        return counted_chunk, state0
+
     pipeline._read = counted_read
+    runner._make_chunk_fn = counted_make
     try:
         for kind, n, algorithm in SCATTER_RUNS + (("full", 1_000_000, "push-sum"),):
             name = "pushsum" if algorithm == "push-sum" else "gossip"
@@ -2831,27 +2975,52 @@ def scatter_path(dev, cpu_runs):
             for fn in counters.values():
                 fn.launches = 0
             reads.clear()
+            calls.clear()
             res = run(topo, cfg)
             count = counters[name].launches
             chunks = len(res.chunk_log)
+            status_reads = len(reads)
+            # The chunks the runner queued that hold rounds: the warmup, the
+            # retired chunks and the one in flight at the end.
+            queued = sum(1 for k in calls if k > 0)
+            # The same run again under torch.profiler: the round kernels in
+            # the card's own trace, one a chunk of rounds.
+            for fn in counters.values():
+                fn.launches = 0
+            calls.clear()
+            stack, prof = cuda_profile()
+            with stack:
+                run(topo, cfg)
+                torch.cuda.synchronize()
+            traced = device_kernels(prof).get(f"{name}_rounds", (0, 0.0))[0]
+            traced_queued = sum(1 for k in calls if k > 0)
             print(json.dumps({
                 "metric": f"{name}_scatter_rounds_per_sec_{kind}_n{topo.n}",
                 "rounds": res.rounds, "run_s": res.run_s,
                 "rounds_per_s": res.rounds / res.run_s, "setup_s": res.setup_s,
                 "compile_s": res.compile_s, "dispatch_s": res.dispatch_s,
                 "fetch_s": res.fetch_s, "chunks_retired": chunks,
-                "status_reads": len(reads), "launches": count,
-                "launches_per_chunk": count / chunks,
+                "status_reads": status_reads, "chunks_of_rounds_queued": queued,
+                "launches": count, "launches_per_chunk": count / queued,
+                "traced_run": {"kernels_in_trace": traced,
+                               "launches": counters[name].launches,
+                               "chunks_of_rounds_queued": traced_queued},
                 "converged_count": res.converged_count,
                 "estimate_mae": res.estimate_mae, "device": res.device}), flush=True)
             if not res.converged or res.converged_count != topo.n:
                 raise AssertionError(f"{kind} n={topo.n} {algorithm} did not converge")
-            if len(reads) != chunks:
-                raise AssertionError(f"{kind} {algorithm}: {len(reads)} status reads for "
-                                     f"{chunks} chunks")
-            if count < passes[name] * res.rounds or count % passes[name]:
+            if status_reads != chunks:
+                raise AssertionError(f"{kind} {algorithm}: {status_reads} status reads "
+                                     f"for {chunks} chunks")
+            if count != queued:
                 raise AssertionError(f"{kind} {algorithm}: {count} launches of "
-                                     f"{name}_scatter for {res.rounds} rounds")
+                                     f"{name}_scatter for {queued} chunks of rounds "
+                                     f"({res.rounds} rounds), not one a chunk")
+            if not traced == counters[name].launches == traced_queued:
+                raise AssertionError(f"{kind} {algorithm}, traced run: {traced} "
+                                     f"{name}_rounds kernels in the trace, the counter "
+                                     f"{counters[name].launches}, {traced_queued} chunks "
+                                     f"of rounds: not one launch a chunk")
             want = SCATTER_JAX[kind, n, algorithm]
             if (res.rounds, res.estimate_mae) != want:
                 raise AssertionError(f"{kind} n={n} {algorithm}: rounds, estimate_mae "
@@ -2899,7 +3068,7 @@ def scatter_path(dev, cpu_runs):
                   f"rounds, run_s {res.run_s:.4f}, {card_reads} status reads for "
                   f"{len(res.chunk_log)} chunks, bitwise the CPU's run", flush=True)
     finally:
-        pipeline._read = real_read
+        pipeline._read, runner._make_chunk_fn = real_read, real_make
     torch.cuda.synchronize()
     return launches
 
@@ -3003,24 +3172,20 @@ def scatter_rows(dev, key, cases, launches, max_err):
         inbox = torch.zeros_like(vals)
         lib_ms, _ = time_ms(lambda: inbox.index_add_(0, targets, vals), TIME_REPS)
         # Device time by kernel over the same chunk (torch.profiler), µs a
-        # round: where a round's time goes among its passes.
-        with warnings.catch_warnings():
-            # The profiler warns that it keeps one cycle's events: one is
-            # all this takes.
-            warnings.simplefilter("ignore", UserWarning)
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                chunk(kern, mid, mid_round, K)
-                torch.cuda.synchronize()
-        passes = {}
-        for ev in prof.key_averages():
-            us_total = getattr(ev, "device_time_total", None)
-            if us_total is None:
-                us_total = getattr(ev, "cuda_time_total", 0.0)
-            if us_total and ev.count:
-                short = ev.key.replace("(anonymous namespace)::", "")
-                short = short.split("(")[0].split("<")[0].split("::")[-1].split(" ")[-1]
-                passes[short or ev.key[:40]] = passes.get(short, 0.0) + us_total / rounds
+        # round: where a round's time goes among its passes; and the chunk's
+        # launches, by the wrapper's counter and by the kernels in the trace.
+        kern.launches = 0
+        stack, prof = cuda_profile()
+        with stack:
+            chunk(kern, mid, mid_round, K)
+            torch.cuda.synchronize()
+        counted = kern.launches
+        traced = device_kernels(prof)
+        passes = {short: us / rounds for short, (_, us) in traced.items()}
+        in_trace = traced.get(f"{name}_rounds", (0, 0.0))[0]
+        if not counted == in_trace == 1:
+            raise AssertionError(f"{name} scatter: a {K}-round chunk launched {counted} "
+                                 f"times by its counter, {in_trace} in the trace, not once")
         moved = SCATTER_STATE_BYTES[name] * 2 * n
         ops = senders * SCATTER_OPS[name] + (n - senders) * 4
         bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
@@ -3035,8 +3200,7 @@ def scatter_rows(dev, key, cases, launches, max_err):
             "library_ms": lib_ms, "library_call": "index_add_ of one round's sends",
             "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
             "device_us_per_round_by_kernel": passes,
-            "launches_a_round": (scatter.PUSHSUM_PASSES if name == "pushsum"
-                                 else scatter.GOSSIP_PASSES),
+            "launches_a_chunk": counted, "kernels_a_chunk_in_trace": in_trace,
             "population": n, "topology": "full", "status": "ported",
         })
     return rows
@@ -3176,9 +3340,11 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
                 print(f"    {entry}")
             elif "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
-                # A spill in a persistent round kernel (rows 1-2, 5-8)
-                # would add local-memory traffic to every round: a failure.
-                if (name in ("fused_pool", "fused_resident") and "rounds" in (entry or "")
+                # A spill in a persistent round kernel (rows 1-2, 5-8,
+                # kernel A) would add local-memory traffic to every round: a
+                # failure.
+                if (name in ("fused_pool", "fused_resident", "scatter")
+                        and "rounds" in (entry or "")
                         and "spill" in line and "0 bytes spill stores, 0 bytes spill loads"
                         not in line):
                     return fail(f"{name}: {entry} spills ({line.strip()})")
@@ -3267,6 +3433,8 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
         print(f"  1000-node {name}: card == CPU chunked engine "
               f"(rounds {a.rounds}, estimate_mae {a.estimate_mae})")
 
+    print(f"phases 1-4: {time.perf_counter() - t_main:.1f} s", flush=True)
+
     # -------------------------------- 5, 6, 7, 8, 9, 10, 11, 12, 13, 14
     def phase(number, fn, *args):
         t0 = time.perf_counter()
@@ -3313,6 +3481,7 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
         return fail(str(e))
 
     # --------------------------------------------------------------- 15
+    t15 = time.perf_counter()
     rows = []
     replaces = {"pushsum": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:860",
                 "gossip": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:1157"}
@@ -3523,7 +3692,10 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
     rows += stencil_shard_rows(stencil_shard_cases, stencil_shard_launches,
                                stencil_shard_err)
     rows += imp_shard_rows(dev, imp_shard_cases, imp_shard_launches, imp_shard_err)
-    rows += scatter_rows(dev, key, scatter_cases, scatter_launches, scatter_err)
+    try:
+        rows += scatter_rows(dev, key, scatter_cases, scatter_launches, scatter_err)
+    except AssertionError as e:
+        return fail(str(e))
     rows.append(walk_row(dev, key, walk_cases, walk_launches, walk_err))
     for row in rows:
         row["main_path_rounds"] = MAIN_ROUNDS.get(row["name"])
@@ -3560,6 +3732,7 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
         "row1_over_row7": us["pushsum_pool_chunk"] / us["pushsum_stencil2_chunk"],
         "row2_over_row8": us["gossip_pool_chunk"] / us["gossip_stencil2_chunk"]}),
         flush=True)
+    print(f"phase 15 (kernel rows): {time.perf_counter() - t15:.1f} s", flush=True)
     print(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -20,53 +20,96 @@
 // package's jitted round on the CPU, whose scatter-add runs in source
 // order and where XLA folds s_keep + deliver(s) into one scatter-add onto
 // s_keep (the w inbox it keeps, for `received`); an atomic float add would
-// take another order on every run.
+// take another order on every run, so no float atomic is used anywhere.
 //
-// What bounds it on this card: memory traffic, with gathers that land
-// anywhere. At 1M nodes a push-sum round reads the state (s, w, term, conv:
-// 13 bytes a node) and writes it back, and moves each send through the
-// bucket planes (target, count, fill, offset, staged index and halves);
-// most of it stays in the 50 MB L2 at 1M.
+// What bounds it on this card: random accesses and the grid barriers, not
+// bytes. A push-sum round reads the state (s, w, term, conv: 13 bytes a
+// node) and writes it back, but each send also costs three accesses at
+// addresses no neighbour shares: its bucket's offset, its record's store
+// and the counting atomic. At 1M each of those passes runs at the rate the
+// card gives one PyTorch call for the same pattern (take, index_copy_,
+// index_add_), and the three barriers a round are ~3 us each (PERF.md).
 //
-// Design, a simple correct form: a chunk is one host call that queues its
-// rounds with no host sync. Gossip's round is two launches: the informed
-// senders add 1 to their target's inbox with an int32 atomic (exact in any
-// order), then every node absorbs its inbox (and zeroes it for the next
-// round) and counts the converged nodes. Push-sum's round is five: the
-// senders draw their targets and count each bucket; a hand-written
-// exclusive scan of the counts (tiles of 1024, then the tile sums in one
-// block); the senders place (index, s / 2, w / 2) into their bucket at an
-// atomic cursor; then every target sorts its bucket by sender index, adds
-// it up in that order and absorbs (scatter.cuh pushsum_node), and counts
-// the converged nodes. The state is updated in place: the sends a node
-// absorbs were staged from the round-start planes by the launch before.
-// Every launch first reads the status word (int32 [2]: rounds executed,
-// done) and returns at once when done is set, so a round after
-// convergence is a no-op; the absorb's last block takes the verdict,
-// counts the round and resets its converged count and ticket. Degree-0
-// nodes do not send (their value is 0 and would add +0.0). Gossip's absorb
-// is csrc/chunk.cuh's; the numerics are its too (no fast math,
-// -fmad=false).
+// Design: the form of csrc/fused_pool.cu. A chunk is one persistent
+// cooperative launch that runs every round, with the grid barrier of
+// csrc/persistent.cuh: every block leaves the round loop at the same
+// round, at done or at the chunk's cap, so the rounds past convergence cost
+// no launch. The grid is every block the SMs hold at once, fewer at small n
+// (kNodesPerThread), and each block owns a contiguous slice of nodes
+// (scatter.cuh Slices): as senders, as targets and for the bucket scan.
+// Each thread folds the round keys from the run's key and the absolute
+// round (scatter.cuh round_key), so a chunk copies nothing to the card and
+// queues only the zeroing of its barrier words and the launch. The entry
+// reads the status word (int32 [2]: rounds executed, done) and returns at
+// once when done is set; block 0 writes it back at the end.
+//
+// Gossip: one pass and one barrier a round. A prologue sends round 0 (an
+// int32 atomic add of 1 a send into inbox[0], exact in any order). Round r
+// absorbs inbox[r & 1] (and zeroes what it read), then sends round r + 1
+// from the node's new active flag into inbox[(r + 1) & 1]; the barrier word
+// carries the converged count. A chunk that stops at done leaves round
+// r + 1's sends staged: it zeroes that inbox before it returns.
+//
+// Push-sum: three barriers a round.
+//   prologue  round 0's targets; each sender takes its rank in its target's
+//             bucket from the counting atomic itself (rank = atomicAdd(&cnt
+//             [t], 1)) and keeps (target, rank) as its ticket; barrier;
+//   scan      each block scans its slice of the counts (each bucket's
+//             offset in the slice) and publishes the slice's total; barrier;
+//   place     each block adds up the totals of every block into shared
+//             memory (the blocks' bases), then each sender writes one
+//             16-byte record (index, s / 2, w / 2) at base + offset + rank
+//             of its target's bucket, with no atomic; barrier;
+//   absorb    each target loads its bucket into registers, sorts it by
+//             sender index, sums it in that order onto its kept half and
+//             absorbs (scatter.cuh pushsum_round, record_sum); it zeroes its
+//             count, and in the same pass draws its round r + 1 target and
+//             takes its rank there (a target depends on the round key and
+//             the sender alone, never on the state); the barrier word
+//             carries the converged count.
+// Ordering: the counts are double-buffered by round parity, because the
+// absorb reads cnt[r & 1][j] while other threads already add to
+// cnt[(r + 1) & 1]. The tickets, offsets, totals and records need one
+// plane each: each is written and read in passes a barrier apart, and
+// rewritten only after the reads. The state is updated in place: a send is
+// staged from the round-start s and w before the barrier that precedes the
+// absorb. A chunk that stops at done leaves round r + 1's counts: it zeroes
+// them before it returns, so the scratch is zero between chunks.
+// scripts/scatter_round_variants.py times the other forms (an atomic cursor
+// in the place pass, three 4-byte planes in place of the record, the scan
+// form, the grid, the loads of several nodes issued together).
+//
+// Numerics: csrc/chunk.cuh's gossip absorb; built without fast math, with
+// -fmad=false and denormals kept (utils/kernels.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chunk.cuh"
+#include "persistent.cuh"
 #include "scatter.cuh"
 #include "threefry.cuh"
 
 namespace {
 
 using gossip::block_sum;
-using gossip::grid_for;
+using gossip::cooperative_grid;
 using gossip::kBlock;
+using gossip::round_barrier;
 using gossip::threefry_word;
-using gossip::scatter::pushsum_node;
-using gossip::scatter::target_explicit;
-using gossip::scatter::target_full;
+using gossip::scatter::Send;
+using gossip::scatter::Slices;
+using gossip::scatter::Ticket;
 
 constexpr int kScanItems = 4;
-constexpr int kScanTile = kBlock * kScanItems;  // counts a scan block covers
+constexpr int kScanTile = kBlock * kScanItems;  // counts a scan step covers
+// The most blocks a persistent launch takes: every block keeps every
+// block's bucket base in shared memory.
+constexpr int kMaxGrid = 2048;
+// Nodes a thread owns at least: the grid is every block the SMs hold at
+// once, and fewer when n / (kBlock * kNodesPerThread) is smaller, since
+// each barrier costs more with more blocks.
+constexpr int kNodesPerThread = 2;
 
 struct Graph {
   const int* nbr;  // [n, max_deg] padded neighbour table; null on full
@@ -78,37 +121,17 @@ struct Graph {
 // Sender i's target under the round key, or -1 when i does not send.
 __device__ __forceinline__ int target_of(const Graph& g, uint32_t k1,
                                          uint32_t k2, int i) {
-  if (g.nbr == nullptr) return target_full(threefry_word(k1, k2, (uint32_t)i), i, g.n);
+  if (g.nbr == nullptr)
+    return gossip::scatter::target_full(threefry_word(k1, k2, (uint32_t)i), i,
+                                        g.n);
   const int d = g.deg[i];
   if (d <= 0) return -1;
-  return target_explicit(threefry_word(k1, k2, (uint32_t)i),
-                         g.nbr + (long long)i * g.max_deg, d);
+  return gossip::scatter::target_explicit(threefry_word(k1, k2, (uint32_t)i),
+                                          g.nbr + (long long)i * g.max_deg, d);
 }
 
 __device__ __forceinline__ bool sends(const Graph& g, int j) {
   return g.nbr == nullptr || g.deg[j] > 0;
-}
-
-// Adds the block's converged count to acc[0]; the last block of the grid
-// to take a ticket (acc[1]) counts the round, sets done from the grand
-// total and resets both words for the next round. Every other block read
-// the status before it took its ticket, so the write races with no reader.
-__device__ void finish_round(int count, int* acc, int* status, int target) {
-  const int total = block_sum(count);
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-    atomicAdd(&acc[0], total);
-    __threadfence();
-    last = atomicAdd((unsigned*)&acc[1], 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (last && threadIdx.x == 0) {
-    const int grand = atomicAdd(&acc[0], 0);
-    acc[0] = 0;
-    acc[1] = 0;
-    status[0] += 1;
-    status[1] = grand >= target ? 1 : 0;
-  }
 }
 
 // Exclusive prefix of v over the block; total gets the block's sum.
@@ -137,219 +160,288 @@ __device__ int block_exclusive_scan(int v, int& total) {
   return before + x - v;
 }
 
-// ------------------------------------------------------------------ gossip
-
-__global__ void gossip_send(Graph g, const uint8_t* __restrict__ active,
-                            int* __restrict__ inbox, uint32_t k1, uint32_t k2,
-                            const int* status) {
-  if (status[1]) return;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < g.n;
-       i += gridDim.x * blockDim.x) {
-    if (!active[i]) continue;
-    const int t = target_of(g, k1, k2, i);
-    if (t >= 0) atomicAdd(&inbox[t], 1);
-  }
-}
-
-__global__ void gossip_absorb_pass(int* __restrict__ count,
-                                   uint8_t* __restrict__ active,
-                                   uint8_t* __restrict__ conv,
-                                   int* __restrict__ inbox, int n,
-                                   int rumor_target, int suppress, int target,
-                                   int* acc, int* status) {
-  if (status[1]) return;
-  int c = 0;
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
-       j += gridDim.x * blockDim.x) {
-    const int in = inbox[j];
-    inbox[j] = 0;
-    int cnt, act;
-    const int cv = gossip::gossip_absorb(
-        [&] { return (int)conv[j]; }, [&] { return count[j]; },
-        [&] { return (int)active[j]; }, false, in, rumor_target, suppress, cnt,
-        act);
-    count[j] = cnt;
-    active[j] = (uint8_t)act;
-    conv[j] = (uint8_t)cv;
-    c += cv;
-  }
-  finish_round(c, acc, status, target);
-}
-
-// ---------------------------------------------------------------- push-sum
-
-__global__ void pushsum_count(Graph g, int* __restrict__ tgt,
-                              int* __restrict__ cnt, uint32_t k1, uint32_t k2,
-                              const int* status) {
-  if (status[1]) return;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < g.n;
-       i += gridDim.x * blockDim.x) {
-    const int t = target_of(g, k1, k2, i);
-    tgt[i] = t;
-    if (t >= 0) atomicAdd(&cnt[t], 1);
-  }
-}
-
-// Tile b's exclusive prefix of the counts into offs, its total into
-// tile_sum[b]; one block a tile of kScanTile counts.
-__global__ void scan_tiles(const int* __restrict__ cnt, int* __restrict__ offs,
-                           int* __restrict__ tile_sum, int n, const int* status) {
-  if (status[1]) return;
-  const int base = blockIdx.x * kScanTile + threadIdx.x * kScanItems;
-  int v[kScanItems];
-  int run = 0;
-  for (int q = 0; q < kScanItems; ++q) {
-    v[q] = base + q < n ? cnt[base + q] : 0;
-    run += v[q];
-  }
-  int total;
-  int at = block_exclusive_scan(run, total);
-  for (int q = 0; q < kScanItems; ++q) {
-    if (base + q < n) offs[base + q] = at;
-    at += v[q];
-  }
-  if (threadIdx.x == 0) tile_sum[blockIdx.x] = total;
-}
-
-// The tile totals' exclusive prefix, in place, by one block.
-__global__ void scan_top(int* tile_sum, int tiles, const int* status) {
-  if (status[1]) return;
+// The exclusive prefix of get(i) over [lo, hi) (block-uniform bounds),
+// handed to put(i, prefix), in steps of kScanTile values, kScanItems
+// consecutive values a thread; returns the range's total to every thread.
+template <typename Get, typename Put>
+__device__ __forceinline__ int scan_range(int lo, int hi, Get get, Put put) {
   int carry = 0;
-  for (int base0 = 0; base0 < tiles; base0 += kScanTile) {
-    const int base = base0 + threadIdx.x * kScanItems;
+  for (int step = lo; step < hi; step += kScanTile) {
+    const int first = step + threadIdx.x * kScanItems;
     int v[kScanItems];
     int run = 0;
+#pragma unroll
     for (int q = 0; q < kScanItems; ++q) {
-      v[q] = base + q < tiles ? tile_sum[base + q] : 0;
+      v[q] = first + q < hi ? get(first + q) : 0;
       run += v[q];
     }
     int total;
     int at = carry + block_exclusive_scan(run, total);
+#pragma unroll
     for (int q = 0; q < kScanItems; ++q) {
-      if (base + q < tiles) tile_sum[base + q] = at;
+      if (first + q < hi) put(first + q, at);
       at += v[q];
     }
     carry += total;
   }
+  return carry;
 }
 
-__device__ __forceinline__ int bucket_start(const int* offs, const int* tile_sum,
-                                            int t) {
-  return offs[t] + tile_sum[t / kScanTile];
+// ------------------------------------------------------------------ gossip
+
+// A gossip chunk's arguments, passed to its persistent kernel by value.
+struct GossipChunk {
+  int* count;  // the state planes, updated in place
+  uint8_t* active;
+  uint8_t* conv;
+  Graph g;
+  int* inbox;  // int32 [2 * n]: the receipts of each round parity
+  uint32_t key1, key2, start;  // the run's key; the chunk's first round
+  int rounds, rumor_target, suppress, target;
+  unsigned long long* words;  // the barrier words: rounds, then the prologue's
+  int* status;
+};
+
+__device__ __forceinline__ void gossip_send(const Graph& g, uint32_t k1,
+                                            uint32_t k2, int i, int* inbox) {
+  const int t = target_of(g, k1, k2, i);
+  if (t >= 0) atomicAdd(&inbox[t], 1);
 }
 
-// Each sender stages (its index, s / 2, w / 2) in its target's bucket.
-__global__ void pushsum_place(int n, const int* __restrict__ tgt,
-                              const int* __restrict__ offs,
-                              const int* __restrict__ tile_sum,
-                              int* __restrict__ fill, const float* __restrict__ s,
-                              const float* __restrict__ w, int* __restrict__ idx,
-                              float* __restrict__ vs, float* __restrict__ vw,
-                              const int* status) {
-  if (status[1]) return;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const int t = tgt[i];
-    if (t < 0) continue;
-    const int pos = bucket_start(offs, tile_sum, t) + atomicAdd(&fill[t], 1);
-    idx[pos] = i;
-    vs[pos] = s[i] * 0.5f;
-    vw[pos] = w[i] * 0.5f;
+__global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
+  // Every block reads the same status before block 0 writes it, at the end.
+  if (c.status[1] || c.rounds == 0) return;
+  const int n = c.g.n;
+  const int first = blockIdx.x * kBlock + threadIdx.x;
+  const int stride = gridDim.x * kBlock;
+  {
+    uint32_t k1, k2;
+    gossip::scatter::round_key(c.key1, c.key2, c.start, k1, k2);
+    for (int i = first; i < n; i += stride)
+      if (c.active[i]) gossip_send(c.g, k1, k2, i, c.inbox);
   }
-}
-
-// Every node sums its bucket in sender order and absorbs, in place; it
-// zeroes its count and fill for the next round.
-__global__ void pushsum_absorb_pass(Graph g, float* __restrict__ s,
-                                    float* __restrict__ w, int* __restrict__ term,
-                                    uint8_t* __restrict__ conv,
-                                    int* __restrict__ cnt, int* __restrict__ fill,
-                                    const int* __restrict__ offs,
-                                    const int* __restrict__ tile_sum,
-                                    int* __restrict__ idx, float* __restrict__ vs,
-                                    float* __restrict__ vw, float delta,
-                                    int term_rounds, int target, int* acc,
-                                    int* status) {
-  if (status[1]) return;
-  int c = 0;
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < g.n;
-       j += gridDim.x * blockDim.x) {
-    const int k = cnt[j];
-    const int b = k > 0 ? bucket_start(offs, tile_sum, j) : 0;
-    if (k > 0) {
-      cnt[j] = 0;
-      fill[j] = 0;
+  round_barrier(c.words + c.rounds, 0);
+  int executed = 0;
+  bool done = false;
+  while (!done && executed < c.rounds) {
+    const int r = executed;
+    int* in = c.inbox + (size_t)(r & 1) * n;
+    int* out = r + 1 < c.rounds ? c.inbox + (size_t)((r + 1) & 1) * n : nullptr;
+    uint32_t k1, k2;
+    gossip::scatter::round_key(c.key1, c.key2, c.start + r + 1, k1, k2);
+    int converged = 0;
+    for (int j = first; j < n; j += stride) {
+      const int got = in[j];
+      if (got) in[j] = 0;
+      int cnt, act;
+      const int cv = gossip::gossip_absorb(
+          [&] { return (int)c.conv[j]; }, [&] { return c.count[j]; },
+          [&] { return (int)c.active[j]; }, false, got, c.rumor_target,
+          c.suppress, cnt, act);
+      c.count[j] = cnt;
+      c.active[j] = (uint8_t)act;
+      c.conv[j] = (uint8_t)cv;
+      if (out && act) gossip_send(c.g, k1, k2, j, out);
+      converged += cv;
     }
-    float s_new, w_new;
-    int t_new;
-    const int cv = pushsum_node(s[j], w[j], term[j], conv[j] != 0, sends(g, j),
-                                idx + b, vs + b, vw + b, k, delta, term_rounds,
-                                s_new, w_new, t_new);
-    s[j] = s_new;
-    w[j] = w_new;
-    term[j] = t_new;
-    conv[j] = (uint8_t)cv;
-    c += cv;
+    done = round_barrier(c.words + r, block_sum(converged)) >= c.target;
+    ++executed;
   }
-  finish_round(c, acc, status, target);
+  // Stopped at done before the cap: round `executed`'s sends are staged.
+  if (executed < c.rounds) {
+    int* staged = c.inbox + (size_t)(executed & 1) * n;
+    for (int j = first; j < n; j += stride) staged[j] = 0;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    c.status[0] += executed;
+    c.status[1] = done ? 1 : 0;
+  }
+}
+
+// ---------------------------------------------------------------- push-sum
+
+struct PushSumChunk {
+  float* s;  // the state planes, updated in place
+  float* w;
+  int* term;
+  uint8_t* conv;
+  Graph g;
+  int* cnt;      // int32 [2 * n]: the bucket counts of each round parity
+  Ticket* tick;  // [n]: each sender's next-round (target, rank)
+  int* loc;      // [n]: each bucket's offset inside its block's slice
+  int* tot;      // [kMaxGrid]: each block's slice total
+  Send* rec;     // [n]: the staged sends, bucket after bucket
+  uint32_t key1, key2, start;  // the run's key; the chunk's first round
+  int rounds;
+  float delta;
+  int term_rounds, target;
+  unsigned long long* words;  // the barrier words: 3 a round, then the prologue's
+  int* status;
+};
+
+// Sender i's target under (k1, k2) and its rank in that bucket of cnt.
+__device__ __forceinline__ Ticket count_send(const Graph& g, uint32_t k1,
+                                             uint32_t k2, int i, int* cnt) {
+  const int t = target_of(g, k1, k2, i);
+  return Ticket{t, t >= 0 ? atomicAdd(&cnt[t], 1) : 0};
+}
+
+// Three blocks an SM (80 registers): with no minimum, ptxas gives this
+// kernel 64 registers and spills (scripts/scatter_round_variants.py, lb0).
+__global__ void __launch_bounds__(kBlock, 3) pushsum_rounds(PushSumChunk c) {
+  if (c.status[1] || c.rounds == 0) return;
+  __shared__ int base[kMaxGrid];  // every block's bucket base
+  const int n = c.g.n;
+  const Slices sl = gossip::scatter::make_slices(n, gridDim.x);
+  const int lo = gossip::scatter::slice_lo(sl, blockIdx.x);
+  const int hi = gossip::scatter::slice_hi(sl, blockIdx.x);
+  {
+    uint32_t k1, k2;
+    gossip::scatter::round_key(c.key1, c.key2, c.start, k1, k2);
+    for (int i = lo + threadIdx.x; i < hi; i += kBlock)
+      c.tick[i] = count_send(c.g, k1, k2, i, c.cnt);
+  }
+  round_barrier(c.words + 3 * c.rounds, 0);
+  int executed = 0;
+  bool done = false;
+  while (!done && executed < c.rounds) {
+    const int r = executed;
+    int* cnt = c.cnt + (size_t)(r & 1) * n;
+    int* cnt_next = c.cnt + (size_t)((r + 1) & 1) * n;
+
+    // Scan: each bucket's offset in the slice, and the slice's total.
+    const int total = scan_range(
+        lo, hi, [&](int j) { return cnt[j]; },
+        [&](int j, int at) { c.loc[j] = at; });
+    if (threadIdx.x == 0) c.tot[blockIdx.x] = total;
+    round_barrier(c.words + 3 * r, 0);
+
+    // Place: the blocks' bases, then each sender's record in its slot.
+    scan_range(
+        0, gridDim.x, [&](int b) { return c.tot[b]; },
+        [&](int b, int at) { base[b] = at; });
+    __syncthreads();
+    for (int i = lo + threadIdx.x; i < hi; i += kBlock) {
+      const Ticket tk = c.tick[i];
+      if (tk.target < 0) continue;
+      const int pos = base[gossip::scatter::slice_of(sl, tk.target)] +
+                      c.loc[tk.target] + tk.rank;
+      gossip::scatter::store_send(c.rec + pos,
+                                  gossip::scatter::make_send(i, c.s[i], c.w[i]));
+    }
+    round_barrier(c.words + 3 * r + 1, 0);
+
+    // Absorb, and the next round's targets and ranks.
+    const bool next = r + 1 < c.rounds;
+    uint32_t k1, k2;
+    gossip::scatter::round_key(c.key1, c.key2, c.start + r + 1, k1, k2);
+    const int mine = base[blockIdx.x];
+    int converged = 0;
+    for (int j = lo + threadIdx.x; j < hi; j += kBlock) {
+      // The loads first (count, offset, own state), then the next round's
+      // atomic, then the bucket and its sums; the stores last.
+      const int k = cnt[j];
+      const int at = mine + c.loc[j];
+      const float s_t = c.s[j], w_t = c.w[j];
+      const int t_old = c.term[j];
+      const bool c_old = c.conv[j] != 0;
+      const Ticket tk = next ? count_send(c.g, k1, k2, j, cnt_next) : Ticket{-1, 0};
+      float s_new, w_new;
+      int t_new;
+      const int cv = gossip::scatter::pushsum_round(
+          s_t, w_t, t_old, c_old, sends(c.g, j),
+          [&](float& a, float& b) {
+            gossip::scatter::record_sum(c.rec + at, k, a, b);
+          },
+          c.delta, c.term_rounds, s_new, w_new, t_new);
+      if (k > 0) cnt[j] = 0;
+      c.s[j] = s_new;
+      c.w[j] = w_new;
+      c.term[j] = t_new;
+      c.conv[j] = (uint8_t)cv;
+      if (next) c.tick[j] = tk;
+      converged += cv;
+    }
+    done = round_barrier(c.words + 3 * r + 2, block_sum(converged)) >= c.target;
+    ++executed;
+  }
+  // Stopped at done before the cap: round `executed`'s counts are staged.
+  if (executed < c.rounds) {
+    int* staged = c.cnt + (size_t)(executed & 1) * n;
+    for (int j = lo + threadIdx.x; j < hi; j += kBlock) staged[j] = 0;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    c.status[0] += executed;
+    c.status[1] = done ? 1 : 0;
+  }
+}
+
+// The persistent grid of each kernel, asked once a device.
+int pushsum_grid_cache[64];
+int gossip_grid_cache[64];
+
+template <typename Kernel, typename Chunk>
+cudaError_t launch(Kernel kernel, Chunk c, int n, int words, int* cache,
+                   int device, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = cooperative_grid(
+      kernel, (int)(((long long)n + kNodesPerThread - 1) / kNodesPerThread),
+      device, cache, &grid);
+  if (err != cudaSuccess) return err;
+  if (grid > kMaxGrid) grid = kMaxGrid;
+  // The chunk's barrier words, zeroed on the stream ahead of it.
+  err = cudaMemsetAsync(c.words, 0, 8 * (size_t)words, stream);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&c};
+  return cudaLaunchCooperativeKernel((const void*)kernel, grid, kBlock, args, 0,
+                                     stream);
 }
 
 }  // namespace
 
-// The rounds of one chunk, queued on `stream` with no host sync: round r
-// under the fold_in key (keys[2r], keys[2r + 1]), read here on the host.
-// The state planes are updated in place; status is int32 [2] (rounds
-// executed, done); the scratch words cnt, fill and acc must be zero and
-// are left zero.
+// ------------------------------------------------------------- C interface
+//
+// Each entry point queues one chunk on `stream` of CUDA device `device`:
+// the zeroing of its barrier words and one persistent cooperative launch
+// that runs up to `rounds` rounds from absolute round `start`, round r
+// under the fold_in key of round start + r under the run's key (key1,
+// key2) (ops/fused.round_keys). The state planes are
+// updated in place; status is int32 [2] (rounds executed, done) on the
+// device; the scratch planes (push-sum cnt, gossip inbox: int32 [2 * n])
+// must be zero and are left zero; words holds 3 * rounds + 1 (push-sum) or
+// rounds + 1 (gossip) uint64 barrier words. Returns the first error (a
+// cudaError_t), 0 if none. A chunk of no round queues nothing.
+
 extern "C" int gossip_pushsum_scatter_chunk(
     float* s, float* w, int* term, uint8_t* conv, const int* nbr, const int* deg,
-    int max_deg, int n, int* tgt, int* cnt, int* fill, int* offs, int* tile_sum,
-    int* idx, float* vs, float* vw, int* acc, int* status, const long long* keys,
-    int rounds, float delta, int term_rounds, int target, int device,
-    void* stream_ptr) {
+    int max_deg, int n, int* cnt, void* tick, int* loc, int* tot, void* rec,
+    unsigned long long* words, int* status, unsigned key1, unsigned key2,
+    unsigned start, int rounds, float delta, int term_rounds, int target,
+    int device, void* stream_ptr) {
+  if (n < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
+  if (rounds == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const Graph g{nbr, deg, max_deg, n};
-  const int tiles = (n + kScanTile - 1) / kScanTile;
-  const int g_count = grid_for(pushsum_count, n, device);
-  const int g_place = grid_for(pushsum_place, n, device);
-  const int g_absorb = grid_for(pushsum_absorb_pass, n, device);
-  for (int r = 0; r < rounds; ++r) {
-    const uint32_t k1 = (uint32_t)keys[2 * r], k2 = (uint32_t)keys[2 * r + 1];
-    pushsum_count<<<g_count, kBlock, 0, stream>>>(g, tgt, cnt, k1, k2, status);
-    scan_tiles<<<tiles, kBlock, 0, stream>>>(cnt, offs, tile_sum, n, status);
-    scan_top<<<1, kBlock, 0, stream>>>(tile_sum, tiles, status);
-    pushsum_place<<<g_place, kBlock, 0, stream>>>(n, tgt, offs, tile_sum, fill,
-                                                  s, w, idx, vs, vw, status);
-    pushsum_absorb_pass<<<g_absorb, kBlock, 0, stream>>>(
-        g, s, w, term, conv, cnt, fill, offs, tile_sum, idx, vs, vw, delta,
-        term_rounds, target, acc, status);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  const PushSumChunk c{s, w, term, conv, Graph{nbr, deg, max_deg, n},
+                       cnt, (Ticket*)tick, loc, tot, (Send*)rec, key1, key2,
+                       start, rounds, delta, term_rounds, target, words,
+                       status};
+  return (int)launch(pushsum_rounds, c, n, 3 * rounds + 1, pushsum_grid_cache,
+                     device, (cudaStream_t)stream_ptr);
 }
 
 extern "C" int gossip_gossip_scatter_chunk(
     int* count, uint8_t* active, uint8_t* conv, const int* nbr, const int* deg,
-    int max_deg, int n, int* inbox, int* acc, int* status, const long long* keys,
-    int rounds, int rumor_target, int suppress, int target, int device,
-    void* stream_ptr) {
+    int max_deg, int n, int* inbox, unsigned long long* words, int* status,
+    unsigned key1, unsigned key2, unsigned start, int rounds, int rumor_target,
+    int suppress, int target, int device, void* stream_ptr) {
+  if (n < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
+  if (rounds == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const Graph g{nbr, deg, max_deg, n};
-  const int g_send = grid_for(gossip_send, n, device);
-  const int g_absorb = grid_for(gossip_absorb_pass, n, device);
-  for (int r = 0; r < rounds; ++r) {
-    const uint32_t k1 = (uint32_t)keys[2 * r], k2 = (uint32_t)keys[2 * r + 1];
-    gossip_send<<<g_send, kBlock, 0, stream>>>(g, active, inbox, k1, k2, status);
-    gossip_absorb_pass<<<g_absorb, kBlock, 0, stream>>>(
-        count, active, conv, inbox, n, rumor_target, suppress, target, acc,
-        status);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  const GossipChunk c{count, active, conv, Graph{nbr, deg, max_deg, n},
+                      inbox, key1, key2, start, rounds, rumor_target, suppress,
+                      target, words, status};
+  return (int)launch(gossip_rounds, c, n, rounds + 1, gossip_grid_cache, device,
+                     (cudaStream_t)stream_ptr);
 }

@@ -1,11 +1,14 @@
-// Per-node logic of the scatter round kernels (csrc/scatter.cu): a sender's
-// target on the implicit full topology and on an explicit neighbour table,
-// the ordered sum of one target's bucket and a push-sum node's round.
+// Per-node logic of the scatter round kernels (csrc/scatter.cu): a round's
+// key, a sender's target on the implicit full topology and on an explicit
+// neighbour table, a send's 16-byte record, the ordered sum of one target's
+// bucket, a push-sum node's round, and the contiguous slices of targets the
+// blocks of the persistent launch own.
 //
 // Like threefry.cuh, everything here is plain inline code usable from the
 // host, so the CPU tests build it with g++ and hold it against the plain
 // torch versions (ops/sampling.targets_full, targets_explicit,
-// ops/delivery.deliver and ops/scatter.pushsum_round_plain) without a GPU.
+// ops/delivery.deliver and ops/scatter.pushsum_round_plain) without a GPU,
+// and emulate the kernel's passes with it.
 #pragma once
 
 #include <math.h>
@@ -32,52 +35,132 @@ GOSSIP_HD int target_explicit(uint32_t word, const int* row, int degree) {
   return row[word % (uint32_t)(degree > 0 ? degree : 1)];
 }
 
-// One target's bucket of k staged sends (sender index, s half, w half),
-// in whatever order the senders were placed: sorts it by sender index in
-// place (insertion sort; buckets are small: Poisson(1) on full, at most
-// the in-degree on an explicit topology) and adds each channel onto its
-// accumulator (acc_s, acc_w) in ascending sender index, the order of a
-// serial scatter-add loop.
-GOSSIP_HD void bucket_sum(int* idx, float* vs, float* vw, int k, float& acc_s,
-                          float& acc_w) {
-  for (int a = 1; a < k; ++a) {
-    const int i = idx[a];
-    const float x = vs[a], y = vw[a];
-    int c = a;
-    while (c > 0 && idx[c - 1] > i) {
-      idx[c] = idx[c - 1];
-      vs[c] = vs[c - 1];
-      vw[c] = vw[c - 1];
-      --c;
-    }
-    idx[c] = i;
-    vs[c] = x;
-    vw[c] = y;
-  }
+// The fold_in key of absolute round `round` (mod 2**32) under the run's
+// key (k1, k2): the Threefry pair at counter (0, round), as
+// ops/fused.round_keys draws it on the host.
+GOSSIP_HD void round_key(uint32_t k1, uint32_t k2, uint32_t round, uint32_t& r1,
+                         uint32_t& r2) {
+  r1 = 0u;
+  r2 = round;
+  threefry2x32(k1, k2, r1, r2);
+}
+
+// One staged push-sum send: the sender's index and its halves, padded to
+// 16 bytes so a send is one vector store and a bucket entry one vector load.
+struct alignas(16) Send {
+  int idx;
+  float s;
+  float w;
+  int pad;
+};
+
+// Sender i's record from its round-start s and w.
+GOSSIP_HD Send make_send(int i, float s_t, float w_t) {
+  return Send{i, s_t * 0.5f, w_t * 0.5f, 0};
+}
+
+GOSSIP_HD void store_send(Send* at, Send v) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<int4*>(at) =
+      make_int4(v.idx, __float_as_int(v.s), __float_as_int(v.w), 0);
+#else
+  *at = v;
+#endif
+}
+
+GOSSIP_HD Send load_send(const Send* at) {
+#ifdef __CUDA_ARCH__
+  const int4 q = *reinterpret_cast<const int4*>(at);
+  return Send{q.x, __int_as_float(q.y), __int_as_float(q.z), 0};
+#else
+  return *at;
+#endif
+}
+
+// Buckets up to this many sends are sorted in registers; a larger one
+// (Poisson(1) on full: about one bucket in a million) is summed by repeated
+// selection from memory.
+constexpr int kSortMax = 8;
+
+// Adds one target's bucket of k sends onto (acc_s, acc_w) in ascending
+// sender index, the order of a serial scatter-add loop, whatever order the
+// sends were placed in; send a is get(a). No float atomic and no write.
+template <typename Get>
+GOSSIP_HD void ordered_sum(Get get, int k, float& acc_s, float& acc_w) {
   float s = acc_s, w = acc_w;
-  for (int a = 0; a < k; ++a) {
-    s += vs[a];
-    w += vw[a];
+  if (k <= kSortMax) {
+    // Fully unrolled with compile-time indices, so the bucket stays in
+    // registers: an insertion sort by adjacent compare-exchange.
+    Send v[kSortMax];
+#pragma unroll
+    for (int a = 0; a < kSortMax; ++a)
+      if (a < k) v[a] = get(a);
+#pragma unroll
+    for (int a = 1; a < kSortMax; ++a) {
+      if (a < k) {
+#pragma unroll
+        for (int c = a; c > 0; --c) {
+          if (v[c - 1].idx > v[c].idx) {
+            const Send x = v[c - 1];
+            v[c - 1] = v[c];
+            v[c] = x;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kSortMax; ++a) {
+      if (a < k) {
+        s += v[a].s;
+        w += v[a].w;
+      }
+    }
+  } else {
+    // Each step adds the send with the least index above the last one.
+    int last = -1;
+    for (int step = 0; step < k; ++step) {
+      Send best{0x7fffffff, 0.0f, 0.0f, 0};
+      for (int a = 0; a < k; ++a) {
+        const Send x = get(a);
+        if (x.idx > last && x.idx < best.idx) best = x;
+      }
+      s += best.s;
+      w += best.w;
+      last = best.idx;
+    }
   }
   acc_s = s;
   acc_w = w;
 }
 
-// One node's push-sum round from its bucket (k staged sends at idx, vs,
-// vw), in the op order of the JAX package's jitted round
-// (ops/scatter.pushsum_round_plain): the node halves if it sends; the s
-// halves add onto its kept half, the w halves into an inbox from 0 that
-// is then added to its kept half; it received if that inbox is > 0, and
-// the term/conv latch moves as in pushsum.absorb. Sets s_new, w_new,
-// t_new and returns the new conv flag.
-GOSSIP_HD int pushsum_node(float s_t, float w_t, int t_old, bool conv_old,
-                           bool sends, int* idx, float* vs, float* vw, int k,
-                           float delta, int term_rounds, float& s_new,
-                           float& w_new, int& t_new) {
+// ordered_sum over a bucket kept as three planes (sender index, s half, w
+// half).
+GOSSIP_HD void bucket_sum(const int* idx, const float* vs, const float* vw,
+                          int k, float& acc_s, float& acc_w) {
+  ordered_sum([&](int a) { return Send{idx[a], vs[a], vw[a], 0}; }, k, acc_s,
+              acc_w);
+}
+
+// ordered_sum over a bucket of 16-byte records.
+GOSSIP_HD void record_sum(const Send* rec, int k, float& acc_s, float& acc_w) {
+  ordered_sum([&](int a) { return load_send(rec + a); }, k, acc_s, acc_w);
+}
+
+// One node's push-sum round, in the op order of the JAX package's jitted
+// round (ops/scatter.pushsum_round_plain): the node halves if it sends;
+// add_bucket(acc_s, in_w) adds its bucket's s halves onto its kept half and
+// its w halves into an inbox from 0 that is then added to its kept half; it
+// received if that inbox is > 0, and the term/conv latch moves as in
+// pushsum.absorb. Sets s_new, w_new, t_new and returns the new conv flag.
+template <typename AddBucket>
+GOSSIP_HD int pushsum_round(float s_t, float w_t, int t_old, bool conv_old,
+                            bool sends, AddBucket add_bucket, float delta,
+                            int term_rounds, float& s_new, float& w_new,
+                            int& t_new) {
   const float s_send = sends ? s_t * 0.5f : 0.0f;
   const float w_send = sends ? w_t * 0.5f : 0.0f;
   float acc_s = s_t - s_send, in_w = 0.0f;
-  bucket_sum(idx, vs, vw, k, acc_s, in_w);
+  add_bucket(acc_s, in_w);
   s_new = acc_s;
   w_new = (w_t - w_send) + in_w;
   const bool received = in_w > 0.0f;
@@ -85,6 +168,53 @@ GOSSIP_HD int pushsum_node(float s_t, float w_t, int t_old, bool conv_old,
   t_new = received ? (stable ? t_old + 1 : 0) : t_old;
   return (conv_old || t_new >= term_rounds) ? 1 : 0;
 }
+
+// pushsum_round from a bucket kept as three planes (k staged sends at idx,
+// vs, vw).
+GOSSIP_HD int pushsum_node(float s_t, float w_t, int t_old, bool conv_old,
+                           bool sends, const int* idx, const float* vs,
+                           const float* vw, int k, float delta,
+                           int term_rounds, float& s_new, float& w_new,
+                           int& t_new) {
+  return pushsum_round(
+      s_t, w_t, t_old, conv_old, sends,
+      [&](float& a, float& b) { bucket_sum(idx, vs, vw, k, a, b); }, delta,
+      term_rounds, s_new, w_new, t_new);
+}
+
+// The contiguous slices of the n targets among the blocks of the persistent
+// launch: block b owns [b * size, min((b + 1) * size, n)), which is empty
+// for trailing blocks when size * blocks > n. Each block scans its slice's
+// bucket counts; a bucket starts at its block's base (the totals of the
+// blocks before it) plus its offset inside the slice.
+struct Slices {
+  int n;
+  int size;
+};
+
+GOSSIP_HD Slices make_slices(int n, int blocks) {
+  return Slices{n, (int)(((long long)n + blocks - 1) / blocks)};
+}
+
+GOSSIP_HD int slice_lo(const Slices& sl, int b) {
+  const long long lo = (long long)b * sl.size;
+  return (int)(lo < sl.n ? lo : sl.n);
+}
+
+GOSSIP_HD int slice_hi(const Slices& sl, int b) {
+  const long long hi = ((long long)b + 1) * sl.size;
+  return (int)(hi < sl.n ? hi : sl.n);
+}
+
+GOSSIP_HD int slice_of(const Slices& sl, int t) { return t / sl.size; }
+
+// A sender's (target, rank) for the next round: its target (-1 when it does
+// not send) and its rank in the target's bucket, which the counting atomic
+// returns, so the place pass needs no atomic of its own.
+struct alignas(8) Ticket {
+  int target;
+  int rank;
+};
 
 }  // namespace scatter
 }  // namespace gossip

@@ -199,8 +199,7 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
                                    suppress=cfg.resolved_suppress)
 
         def scatter_chunk(state, status, start, end):
-            return fn(state, fused.round_keys(base_key, start, max(end - start, 0)),
-                      status)
+            return fn(state, base_key, start, max(end - start, 0), status)
 
         return scatter_chunk, state0
 

@@ -15,8 +15,10 @@ push-sum's mass in an order that changes from run to run.
 
 A chunk runs under the overshoot contract with a device status (int32
 [2]: rounds executed, done): a round after done is a no-op, so a chunk of
-K rounds is queued with no host read. CUDA state launches the kernels;
-CPU state runs the plain versions; there is no fallback between the two.
+K rounds is queued with no host read. On the card a chunk is one
+persistent cooperative launch that runs all its rounds and stops at done
+(``chunk_launches``). CUDA state launches the kernels; CPU state runs the
+plain versions; there is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -31,24 +33,25 @@ from ..models import gossip as gossip_mod
 from ..models import pushsum as pushsum_mod
 from ..models.pipeline import advance
 from ..utils import kernels
-from . import delivery, rng, sampling
+from . import delivery, fused, rng, sampling
 from .topology import Topology
 
-# Counts a block of the scan kernels covers (csrc/scatter.cu kScanTile).
-SCAN_TILE = 1024
-# Launches a round: push-sum counts its buckets, scans them (two
-# launches), places its sends and sums-and-absorbs; gossip sends and
-# absorbs.
-PUSHSUM_PASSES = 5
-GOSSIP_PASSES = 2
+# The most blocks of a persistent launch (csrc/scatter.cu kMaxGrid): one
+# slice total each.
+MAX_GRID = 2048
+
+
+def chunk_launches(rounds: int) -> int:
+    """Launches a chunk of csrc/scatter.cu queues: one persistent launch
+    that runs every round, whatever their number; none for no round."""
+    return 1 if rounds > 0 else 0
 
 
 @dataclasses.dataclass
 class ScatterGraph:
     """What a scatter round needs of a topology, on one device: the padded
     neighbour table and degrees (None on the implicit full topology), and
-    the kernels' scratch, allocated at the first launch and left zeroed by
-    every round."""
+    the kernels' scratch (``_work``), allocated at the first launch."""
 
     n: int
     device: torch.device
@@ -146,16 +149,17 @@ def gossip_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
 # versions.
 # ---------------------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
-    "gossip_pushsum_scatter_chunk": [_P] * 4 + [_P, _P, _I, _I] + [_P] * 10
-                                    + [_P, _I, _F, _I, _I, _I, _P],
-    "gossip_gossip_scatter_chunk": [_P] * 3 + [_P, _P, _I, _I] + [_P] * 3
-                                   + [_P, _I, _I, _I, _I, _I, _P],
+    "gossip_pushsum_scatter_chunk": [_P] * 6 + [_I, _I] + [_P] * 7 + [_U] * 3
+                                    + [_I, _F, _I, _I, _I, _P],
+    "gossip_gossip_scatter_chunk": [_P] * 5 + [_I, _I] + [_P] * 3 + [_U] * 3
+                                   + [_I] * 5 + [_P],
 }
 
 
-def _check(state, dtypes, keys, status, graph: ScatterGraph) -> torch.device:
+def _check(state, dtypes, key, start: int, rounds: int, status,
+           graph: ScatterGraph) -> torch.device:
     dev = state[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"scatter chunks run on cpu or cuda tensors, got {dev}")
@@ -167,34 +171,29 @@ def _check(state, dtypes, keys, status, graph: ScatterGraph) -> torch.device:
         raise ValueError(f"the graph lies on {graph.device}, the state on {dev}")
     if status.device != dev or status.dtype != torch.int32 or tuple(status.shape) != (2,):
         raise ValueError("status must be int32 [2] (rounds, done) on the state's device")
-    if keys.dtype != torch.int64 or keys.dim() != 2 or keys.shape[1] != 2:
-        raise ValueError(f"keys must be int64 [K, 2], got {keys.dtype} {tuple(keys.shape)}")
-    if keys.device.type != "cpu":
-        raise ValueError("keys are host-drawn round keys: pass a CPU tensor")
-    words = keys.numpy()
-    if words.size and (words.min() < 0 or words.max() > rng.MASK):
-        raise ValueError("keys must hold uint32 words")
+    if len(key) != 2 or not all(0 <= int(x) <= rng.MASK for x in key):
+        raise ValueError(f"key must be the run's two uint32 words, got {key}")
+    if start < 0 or rounds < 0:
+        raise ValueError(f"start and rounds must be >= 0, got {start}, {rounds}")
     return dev
 
 
 def _work(graph: ScatterGraph, pushsum: bool) -> dict:
-    """The kernels' scratch on the graph's device: the zeroed words every
-    round leaves zeroed (bucket counts and fills, gossip's inbox, the
-    converged count and its ticket) and the ones each round rewrites."""
+    """The kernels' scratch on the graph's device, allocated once a graph:
+    the planes every chunk leaves zero (push-sum's bucket counts and
+    gossip's receipts, int32 [2, n], one row a round parity) and the ones
+    each round rewrites (push-sum's tickets (target, rank), each bucket's
+    offset in its block's slice, the slices' totals and the 16-byte
+    records)."""
     n, dev, w = graph.n, graph.device, graph.work
-    if "acc" not in w:
-        w["acc"] = torch.zeros(2, dtype=torch.int32, device=dev)
-    if pushsum and "cnt" not in w:
-        tiles = (n + SCAN_TILE - 1) // SCAN_TILE
-        for name in ("cnt", "fill"):
-            w[name] = torch.zeros(n, dtype=torch.int32, device=dev)
-        for name in ("tgt", "offs", "idx"):
-            w[name] = torch.empty(n, dtype=torch.int32, device=dev)
-        w["tile_sum"] = torch.empty(tiles, dtype=torch.int32, device=dev)
-        w["vs"] = torch.empty(n, dtype=torch.float32, device=dev)
-        w["vw"] = torch.empty(n, dtype=torch.float32, device=dev)
+    if pushsum and "counts" not in w:
+        w["counts"] = torch.zeros(2, n, dtype=torch.int32, device=dev)
+        w["tickets"] = torch.empty(n, 2, dtype=torch.int32, device=dev)
+        w["offsets"] = torch.empty(n, dtype=torch.int32, device=dev)
+        w["totals"] = torch.empty(MAX_GRID, dtype=torch.int32, device=dev)
+        w["records"] = torch.empty(n, 4, dtype=torch.int32, device=dev)
     if not pushsum and "inbox" not in w:
-        w["inbox"] = torch.zeros(n, dtype=torch.int32, device=dev)
+        w["inbox"] = torch.zeros(2, n, dtype=torch.int32, device=dev)
     return w
 
 
@@ -206,6 +205,10 @@ def _graph_args(graph: ScatterGraph):
 
 
 def _launch(name: str, args, dev: torch.device) -> None:
+    """Queue one chunk through entry point ``name`` of csrc/scatter.cu on
+    the current stream of ``dev`` and raise on a launch error. The barrier
+    words dropped after this returns stay safe: torch's caching allocator
+    hands their memory only to work queued later on the same stream."""
     fn = kernels.entry("scatter", name, _SIGNATURES[name])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*args, dev.index, stream)
@@ -213,59 +216,73 @@ def _launch(name: str, args, dev: torch.device) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
-def pushsum_scatter_chunk(state, keys, status, *, graph: ScatterGraph,
-                          target: int, delta: float, term_rounds: int):
-    """K = keys.shape[0] push-sum scatter rounds, one per round key.
+def pushsum_scatter_chunk(state, key, start: int, rounds: int, status, *,
+                          graph: ScatterGraph, target: int, delta: float,
+                          term_rounds: int):
+    """Push-sum scatter rounds start .. start + rounds - 1 (absolute round
+    numbers), round r under the fold_in key ``fused.round_keys`` draws for
+    it from the run's ``key`` (int64 [2] on the host).
 
     ``state`` is a PushSumState of [n] planes (float32 s, w, int32 term,
-    bool conv) on the graph's device; ``keys`` int64 [K, 2] the rounds'
-    fold_in keys on the host; ``status`` int32 [2] (rounds executed, done)
-    on the device, done once ``target`` nodes converged. Returns (state',
-    status'), new tensors; the inputs are left unchanged."""
+    bool conv) on the graph's device; ``status`` int32 [2] (rounds
+    executed, done) on the device, done once ``target`` nodes converged.
+    Returns (state', status'), new tensors; the inputs are left unchanged.
+    On the card the kernel folds the round keys itself."""
     dev = _check(state, (torch.float32, torch.float32, torch.int32, torch.bool),
-                 keys, status, graph)
+                 key, start, rounds, status, graph)
     if dev.type == "cpu":
-        return pushsum_scatter_chunk_plain(state, keys, status, graph=graph,
-                                           target=target, delta=delta,
-                                           term_rounds=term_rounds)
-    w = _work(graph, pushsum=True)
-    keys = keys.contiguous()
+        return pushsum_scatter_chunk_plain(state, fused.round_keys(key, start, rounds),
+                                           status, graph=graph, target=target,
+                                           delta=delta, term_rounds=term_rounds)
     out = pushsum_mod.PushSumState(*(x.clone() for x in state))
     status = status.clone()
+    if rounds == 0:
+        return out, status
+    w = _work(graph, pushsum=True)
+    words = torch.empty(3 * rounds + 1, dtype=torch.int64, device=dev)
     _launch("gossip_pushsum_scatter_chunk", [
         *(x.data_ptr() for x in out), *_graph_args(graph),
-        *(w[k].data_ptr() for k in ("tgt", "cnt", "fill", "offs", "tile_sum",
-                                    "idx", "vs", "vw", "acc")),
-        status.data_ptr(), keys.data_ptr(), keys.shape[0],
+        *(w[k].data_ptr() for k in ("counts", "tickets", "offsets", "totals",
+                                    "records")),
+        words.data_ptr(), status.data_ptr(), *_key_args(key, start), rounds,
         ctypes.c_float(delta), term_rounds, target], dev)
-    pushsum_scatter_chunk.launches += PUSHSUM_PASSES * keys.shape[0]
+    pushsum_scatter_chunk.launches += 1
     return out, status
 
 
-def gossip_scatter_chunk(state, keys, status, *, graph: ScatterGraph,
-                         target: int, rumor_target: int, suppress: bool):
+def gossip_scatter_chunk(state, key, start: int, rounds: int, status, *,
+                         graph: ScatterGraph, target: int, rumor_target: int,
+                         suppress: bool):
     """Gossip analog of ``pushsum_scatter_chunk``: ``state`` is a
     GossipState (int32 count, bool active, bool conv); converged-target
     suppression is receiver-side."""
-    dev = _check(state, (torch.int32, torch.bool, torch.bool), keys, status, graph)
+    dev = _check(state, (torch.int32, torch.bool, torch.bool), key, start, rounds,
+                 status, graph)
     if dev.type == "cpu":
-        return gossip_scatter_chunk_plain(state, keys, status, graph=graph,
-                                          target=target, rumor_target=rumor_target,
-                                          suppress=suppress)
-    w = _work(graph, pushsum=False)
-    keys = keys.contiguous()
+        return gossip_scatter_chunk_plain(state, fused.round_keys(key, start, rounds),
+                                          status, graph=graph, target=target,
+                                          rumor_target=rumor_target, suppress=suppress)
     out = gossip_mod.GossipState(*(x.clone() for x in state))
     status = status.clone()
+    if rounds == 0:
+        return out, status
+    w = _work(graph, pushsum=False)
+    words = torch.empty(rounds + 1, dtype=torch.int64, device=dev)
     _launch("gossip_gossip_scatter_chunk", [
         *(x.data_ptr() for x in out), *_graph_args(graph),
-        w["inbox"].data_ptr(), w["acc"].data_ptr(), status.data_ptr(),
-        keys.data_ptr(), keys.shape[0], rumor_target, int(suppress),
-        target], dev)
-    gossip_scatter_chunk.launches += GOSSIP_PASSES * keys.shape[0]
+        w["inbox"].data_ptr(), words.data_ptr(), status.data_ptr(),
+        *_key_args(key, start), rounds, rumor_target, int(suppress), target], dev)
+    gossip_scatter_chunk.launches += 1
     return out, status
 
 
-# Kernel launches queued by each wrapper (its passes a round), counted
-# where the kernels are launched and nowhere else.
+def _key_args(key, start: int):
+    """The run's key words and the first round (mod 2**32, as
+    ``fused.round_keys`` folds it) as the entry points take them."""
+    return int(key[0]), int(key[1]), start & rng.MASK
+
+
+# Kernel launches queued by each wrapper (one a chunk of rounds), counted
+# where the kernel is launched and nowhere else.
 pushsum_scatter_chunk.launches = 0
 gossip_scatter_chunk.launches = 0
