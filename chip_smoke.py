@@ -181,11 +181,17 @@ non-zero before the last line:
    (``engine="chunked"``: 1000 line gossip, 1000 full
    push-sum with pool delivery), each bitwise the CPU's run with one
    status read a chunk;
-14h. kernel B, the reference-semantics walk (csrc/walk.cu, one thread, up
-   to 2**20 hops a launch), through ``run()`` at full 1000 (60,032 hops)
-   and imp3d 1000 (185,604), each bitwise the plain walk on the CPU (every
-   plane, the message, hops, the dead latch) and at the JAX package's
-   hops, hops/s of both printed;
+14h. kernel B, the reference-semantics walk (csrc/walk.cu, one block: one
+   thread walks while the others draw the next hops' words, up to 2**20
+   hops a launch), through ``run()`` at full 1000 (60,032 hops) and imp3d
+   1000 (185,604), each bitwise the plain walk on the CPU (every plane, the
+   message, hops, the dead latch) and at the JAX package's hops, hops/s of
+   both printed; then line 1000 (two-hop revisits, to its 1M-hop cap),
+   full 1000 capped at 4,099 hops, the full 1000 walk in launches of 1,000
+   hops against one launch, a Q8 death on a three-node graph with an
+   orphan, and full 100,000 and imp3d 8000 capped at 500,000 hops, each
+   bitwise the plain walk; the launches by tier (shared memory at the
+   1000-node walks, the global tier past it) are asserted;
 14i. the CLI triples ``1000 full gossip``, ``1000 imp3D push-sum`` and
    ``1000 full push-sum --semantics reference``, each at the JAX CLI's
    rounds and estimate, with their kernels launched;
@@ -203,8 +209,11 @@ non-zero before the last line:
    round at 1M full from the mid-run state (a 32-round push-sum and an
    8-round gossip chunk), beside one ``index_add_`` of a round's sends;
    kernel B over each whole walk in one launch, beside the plain walk on
-   the host and the hop chain's bound (hops times one dependent load at
-   the walk's working set, timed by csrc/walk.cu's chase kernel); then
+   the host and the hop chain's bound (hops times what a hop waits on from
+   the hop before: on full the message's and the pick's arithmetic, timed
+   by csrc/walk.cu's arith kernel; on imp3d two dependent accesses at the
+   walk's working set in the memory its tier walks in, shared or global,
+   timed by its chase kernel), the bytes/operations bound beside it; then
    the imp rows' µs a round beside row 9's, and rows 13 and 18 over row 9.
 
 Each of phases 5-14i prints its wall time.
@@ -2659,6 +2668,15 @@ SCATTER_JAX = {("full", 1_000_000, "push-sum"): (674, 0.025499165106202766),
 # run_walk takes on the CPU, seed 0 (python -m cop5615_gossip_protocol_tpu
 # 1000 full push-sum --semantics reference --platform cpu).
 WALK_RUNS = {("full", 1000): 60_032, ("imp3d", 1000): 185_604}
+# Phase 14h's further walks, each bitwise the plain walk on the CPU, with
+# the kernel tier each must run: (kind, n, max_rounds or None, tier). Line
+# 1000 comes back to a node two hops later all the time (to its 1M-hop
+# cap); 4,099 hops is no multiple of the kernel's ring half (1,024 hops);
+# full 100,000 and imp3d 8000 outgrow the shared memory of a block.
+WALK_CHECKS = (("line", 1000, None, "shared"), ("full", 1000, 4099, "shared"),
+               ("full", 100_000, 500_000, "global"), ("imp3d", 8000, 500_000, "global"))
+# Hops a launch of the walk in phase 14h's split walk.
+WALK_SPLIT_HOPS = 1000
 # The CLI triples, as the reference's users type them, with the JAX CLI's
 # (rounds, estimate_mae) on the CPU, seed 0.
 CLI_TRIPLES = {("1000", "full", "gossip"): (36, None),
@@ -3075,44 +3093,122 @@ def scatter_path(dev, cpu_runs):
 
 def walk_path(dev, key):
     """Phase 14h: the walk (kernel B, csrc/walk.cu) through run() on the
-    card at WALK_RUNS, its launch counter zeroed before each run and read
-    after it, against the plain walk on the CPU (every plane, the message,
-    hops, the dead latch, bitwise) and the JAX package's hops; hops/s of
-    both. Returns ({(kind, n): case} for the timing phase, launches of the
-    first walk, max_abs_err)."""
+    card at WALK_RUNS and WALK_CHECKS, its launch counters (in all and by
+    tier) zeroed before each run and read after it, against the plain walk
+    on the CPU (every plane, the message, hops, the dead latch, bitwise)
+    and at WALK_RUNS the JAX package's hops; hops/s of both. Then the full
+    1000 walk in launches of WALK_SPLIT_HOPS hops against one launch, and a
+    Q8 death. Returns ({(kind, n): case} for the timing phase, launches of
+    the first walk, max_abs_err)."""
     import torch
 
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
     from cop5615_gossip_protocol_tpu_torch.models import reference
 
     cases, launches, err = {}, None, 0.0
-    for (kind, n), hops in WALK_RUNS.items():
+    runs = [(kind, n, None, "shared", hops) for (kind, n), hops in WALK_RUNS.items()]
+    runs += [(kind, n, cap, tier, None) for kind, n, cap, tier in WALK_CHECKS]
+    for kind, n, cap, tier, hops in runs:
         topo = build_topology(kind, n, semantics="reference")
-        cfg = SimConfig(n=n, topology=kind, algorithm="push-sum", semantics="reference")
+        cfg = SimConfig(n=n, topology=kind, algorithm="push-sum", semantics="reference",
+                        **({} if cap is None else {"max_rounds": cap}))
         reference.walk_hops.launches = 0
+        reference.walk_hops.launches_by_tier = dict.fromkeys(reference.TIERS, 0)
         card = run(topo, cfg)
         count = reference.walk_hops.launches
+        by_tier = dict(reference.walk_hops.launches_by_tier)
         plain = run(topo, cfg, device="cpu")
-        label = f"walk {kind} n={topo.n}"
+        label = f"walk {kind} n={topo.n}" + ("" if cap is None else f" capped at {cap}")
         err = max(err, same_planes(label, [x.cpu() for x in card.state], plain.state))
         if (card.rounds, card.converged_count, card.estimate_mae) != (
-                plain.rounds, plain.converged_count, plain.estimate_mae) or card.rounds != hops:
+                plain.rounds, plain.converged_count, plain.estimate_mae) or (
+                hops is not None and card.rounds != hops) or (
+                cap is not None and card.rounds != cap):
             raise AssertionError(f"{label}: card {card.rounds} hops, CPU {plain.rounds}, "
-                                 f"JAX {hops}")
-        if count == 0:
-            raise AssertionError(f"{label}: the walk kernel never launched")
+                                 f"JAX {hops}, cap {cap}")
+        if count == 0 or by_tier[tier] != count:
+            raise AssertionError(f"{label}: {count} launches of the walk kernel, by tier "
+                                 f"{by_tier}, not all in the {tier} tier")
         print(json.dumps({
             "metric": f"walk_hops_per_sec_{kind}_n{topo.n}", "hops": card.rounds,
+            "max_rounds": cfg.max_rounds, "outcome": card.outcome,
             "run_s": card.run_s, "hops_per_s": card.rounds / card.run_s,
             "plain_run_s": plain.run_s, "plain_hops_per_s": plain.rounds / plain.run_s,
-            "launches": count, "converged_count": card.converged_count,
+            "launches": count, "launches_by_tier": by_tier,
+            "converged_count": card.converged_count,
             "estimate_mae": card.estimate_mae, "device": card.device}), flush=True)
         if launches is None:
             launches = count
             MAIN_ROUNDS["walk_hops"] = card.rounds
-        cases[kind, n] = (topo, cfg, card.rounds, plain.run_s)
+        if hops is not None:
+            cases[kind, n] = (topo, cfg, card.rounds, plain.run_s)
+    err = max(err, walk_split(dev, key), walk_q8(dev, key))
     torch.cuda.synchronize()
     return cases, launches, err
+
+
+def walk_split(dev, key):
+    """The full 1000 walk in launches of WALK_SPLIT_HOPS hops (each resumed
+    inside a ring half) against the same walk in one launch, bitwise."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models import reference
+    from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
+    from cop5615_gossip_protocol_tpu_torch.ops import scatter
+
+    topo = build_topology("full", 1000, semantics="reference")
+    cfg = SimConfig(n=1000, topology="full", algorithm="push-sum", semantics="reference")
+    graph = scatter.scatter_graph(topo, dev)
+    target = cfg.resolved_target_count(topo.n, topo.target_count)
+    kw = {"max_steps": cfg.max_rounds, "target": target, "delta": cfg.resolved_delta,
+          "term_rounds": cfg.term_rounds}
+    c0 = reference.make_walk(topo, cfg, key, draw_leader(key, topo, cfg), dev)
+    whole, _ = reference.walk_hops(c0, key, graph, hops=reference.LAUNCH_HOPS, **kw)
+    carry, calls = c0, 0
+    while True:
+        carry, status = reference.walk_hops(carry, key, graph, hops=WALK_SPLIT_HOPS, **kw)
+        calls += 1
+        steps, count, dead = status.tolist()
+        if dead or steps >= cfg.max_rounds or count >= target:
+            break
+    err = same_planes(f"walk full 1000 in {calls} launches of {WALK_SPLIT_HOPS} hops vs one",
+                      list(carry), list(whole))
+    print(f"  walk full n={topo.n} in {calls} launches of {WALK_SPLIT_HOPS} hops: "
+          f"{steps} hops, bitwise one launch", flush=True)
+    return err
+
+
+def walk_q8(dev, key):
+    """A Q8 death on the card: the three-node graph of
+    tests/test_torch_reference_walk.py with node 2 an orphan, the walk
+    forced onto it, against the plain walk; a dead carry takes no hop."""
+    import numpy as np
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig
+    from cop5615_gossip_protocol_tpu_torch.models import reference
+    from cop5615_gossip_protocol_tpu_torch.ops import scatter
+    from cop5615_gossip_protocol_tpu_torch.ops.topology import Topology
+
+    topo = Topology("line", 3, 3, 3, 1, np.array([[1], [0], [0]], np.int32),
+                    np.array([1, 1, 0], np.int32))
+    cfg = SimConfig(n=3, topology="line", algorithm="push-sum", semantics="reference")
+    kw = {"hops": 5, "max_steps": 100, "target": 3, "delta": cfg.resolved_delta,
+          "term_rounds": 3}
+    c0 = reference.make_walk(topo, cfg, key, 0)._replace(
+        cur=torch.tensor(2, dtype=torch.int32))
+    want, want_st = reference.walk_hops(c0, key, scatter.scatter_graph(topo, "cpu"), **kw)
+    graph = scatter.scatter_graph(topo, dev)
+    got, st = reference.walk_hops(reference.WalkCarry(*(x.to(dev) for x in c0)), key,
+                                  graph, **kw)
+    err = same_planes("walk Q8 orphan", list(got), list(want))
+    again, again_st = reference.walk_hops(got, key, graph, **kw)
+    err = max(err, same_planes("walk Q8 orphan, dead carry", list(again), list(want)))
+    if not (st.tolist() == want_st.tolist() == again_st.tolist() == [2, 0, 1]):
+        raise AssertionError(f"walk Q8 orphan: status {st.tolist()}, "
+                             f"{again_st.tolist()}, plain {want_st.tolist()}")
+    print(f"  walk Q8 orphan: dead after 1 hop at node {int(got.cur)}, bitwise the "
+          "plain walk; a dead carry takes no hop", flush=True)
+    return err
 
 
 def cli_triples():
@@ -3139,7 +3235,8 @@ def cli_triples():
         got = (rec["rounds"], rec["estimate_mae"])
         counts = [fn.launches for fn in counters]
         print(f"  CLI {' '.join(argv)}: exit {code}, rounds {got[0]}, estimate_mae "
-              f"{got[1]}, {time.perf_counter() - t0:.2f} s, launches {counts}", flush=True)
+              f"{got[1]}, run_s {rec['run_s']}, rounds/s {got[0] / rec['run_s']:.6g}, "
+              f"{time.perf_counter() - t0:.2f} s, launches {counts}", flush=True)
         if code != 0 or got != want or not any(counts):
             raise AssertionError(f"CLI {' '.join(argv)}: exit {code}, {got} != the JAX "
                                  f"CLI's {want}, launches {counts}")
@@ -3209,9 +3306,13 @@ def scatter_rows(dev, key, cases, launches, max_err):
 def walk_row(dev, key, cases, launches, max_err):
     """Kernel B's row: the whole 1000 full walk from its kickoff in one
     launch, by CUDA events, beside the plain walk's time on the host; its
-    bound by the contract (bytes, operations) and by the hop chain (hops
-    times one dependent load at the walk's working set, timed by the
-    chase kernel)."""
+    bound the hop chain, a latency: hops times what a hop must wait on from
+    the hop before, on full the message's and the pick's arithmetic (timed
+    by the arith_chain kernel), on an explicit topology two dependent
+    accesses at the walk's working set (timed by the chase kernel in shared
+    memory and in global memory; the tier the walk runs prices it). Its
+    ``bound_by`` says "operations", a chain of dependent ones; the
+    bytes/operations bound stands beside it."""
     import torch
 
     from cop5615_gossip_protocol_tpu_torch.models import reference
@@ -3221,6 +3322,7 @@ def walk_row(dev, key, cases, launches, max_err):
     timed = {}
     for (kind, n), (topo, cfg, hops, plain_s) in cases.items():
         graph = scatter.scatter_graph(topo, dev)
+        tier, _ = reference.walk_tier(graph)
         leader = draw_leader(key, topo, cfg)
         c0 = reference.make_walk(topo, cfg, key, leader, dev)
         target = cfg.resolved_target_count(topo.n, topo.target_count)
@@ -3228,31 +3330,52 @@ def walk_row(dev, key, cases, launches, max_err):
             c0, key, graph, hops=reference.LAUNCH_HOPS, max_steps=cfg.max_rounds,
             target=target, delta=cfg.resolved_delta, term_rounds=cfg.term_rounds), 3)
         walked = int(st[0]) - 1
-        # One dependent load at the walk's working set: a random cycle over
-        # as many ints as the walk's planes hold (s, w, term, conv and, on
-        # an explicit topology, the neighbour rows and degrees).
-        words = topo.n * 13 // 4 + (0 if topo.implicit else topo.n * (topo.max_deg + 1))
+        # One dependent access at the walk's working set: a random cycle
+        # over as many ints as the walk keeps (a 16-byte record a node and,
+        # on an explicit topology, its staged row: max_deg + 3 ints).
+        words = topo.n * 4 + (0 if topo.implicit else topo.n * (topo.max_deg + 3))
         gen = torch.Generator().manual_seed(0)
         perm = torch.randperm(words, generator=gen)
         nxt = torch.empty(words, dtype=torch.int32)
         nxt[perm] = torch.roll(perm, -1).to(torch.int32)
         nxt = nxt.to(dev)
         steps = 1 << 20
-        chase_ms, _ = time_ms(lambda: reference.chase(nxt, steps), 3)
-        load_ns = chase_ms * 1e6 / steps
-        # The hop chain: on full the next node is arithmetic on the word,
-        # and the message waits on one load (the node's s); on an explicit
-        # topology the next node waits on two (its degree, then its
-        # neighbour column).
-        chain = 1 if topo.implicit else 2
+        access_ns = {}
+        for memory in reference.TIERS:
+            chase_ms, _ = time_ms(lambda: reference.chase(nxt, steps, memory == "shared"), 3)
+            access_ns[memory] = chase_ms * 1e6 / steps
+        # A hop's loop-carried arithmetic, with no memory: the message's add
+        # and multiply, and on full the pick's add and minimum beside it.
+        arith_ms, _ = time_ms(lambda: reference.arith_chain(steps, topo.n, dev,
+                                                            topo.implicit), 3)
+        arith_ns = arith_ms * 1e6 / steps
+        # The hop chain, what no design takes off it. On full the next
+        # node's record is read a hop ahead and its index is arithmetic on
+        # a prepared shift, so hop to hop only arithmetic depends on the hop
+        # before (a record written two hops before is read after its write,
+        # about one hop in n); on an explicit topology the next node waits
+        # on two dependent accesses (its staged row, then its neighbour
+        # column), beside the message's arithmetic.
+        if topo.implicit:
+            chain_ns = dict.fromkeys(access_ns, arith_ns)
+            chain_kind = ("latency: the message's add and multiply and the pick's add "
+                          "and minimum a hop (arith_chain), no dependent access")
+        else:
+            chain_ns = {m: max(2 * ns, arith_ns) for m, ns in access_ns.items()}
+            chain_kind = (f"latency: 2 dependent {tier}-memory accesses a hop (chase), "
+                          "beside the message's add and multiply")
+        chain_ms = {m: walked * ns * 1e-6 for m, ns in chain_ns.items()}
         moved = topo.n * 13 * 2 + (0 if topo.implicit else topo.n * (topo.max_deg + 1) * 4)
         ops = walked * WALK_HOP_OPS
         bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
         timed[kind] = {
-            "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "latency_bound_ms": walked * chain * load_ns * 1e-6,
-            "dependent_load_ns": load_ns, "hops_per_call": walked,
+            "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": chain_ms[tier],
+            "bound_by": "operations", "bound_kind": chain_kind,
+            "tier": tier, "chain_bound_ms_by_memory": chain_ms,
+            "dependent_access_ns": access_ns, "hop_arith_ns": arith_ns,
+            "bytes_ops_bound_ms": max(bytes_ms, ops_ms),
+            "bytes_ops_bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "over_chain_bound": ms / chain_ms[tier], "hops_per_call": walked,
             "us_per_hop": ms * 1e3 / walked, "population": topo.n, "topology": kind,
         }
     return {
@@ -3341,12 +3464,13 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
             elif "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
                 # A spill in a persistent round kernel (rows 1-2, 5-8,
-                # kernel A) would add local-memory traffic to every round: a
-                # failure.
-                if (name in ("fused_pool", "fused_resident", "scatter")
-                        and "rounds" in (entry or "")
-                        and "spill" in line and "0 bytes spill stores, 0 bytes spill loads"
-                        not in line):
+                # kernel A) or in the walk (kernel B) would add local-memory
+                # traffic to every round or hop: a failure.
+                persistent = (name in ("fused_pool", "fused_resident", "scatter")
+                              and "rounds" in (entry or "")) or (
+                                  name == "walk" and "walk_kernel" in (entry or ""))
+                if (persistent and "spill" in line
+                        and "0 bytes spill stores, 0 bytes spill loads" not in line):
                     return fail(f"{name}: {entry} spills ({line.strip()})")
 
     # ---------------------------------------------------------------- 3

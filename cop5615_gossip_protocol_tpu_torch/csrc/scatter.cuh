@@ -133,14 +133,6 @@ GOSSIP_HD void ordered_sum(Get get, int k, float& acc_s, float& acc_w) {
   acc_w = w;
 }
 
-// ordered_sum over a bucket kept as three planes (sender index, s half, w
-// half).
-GOSSIP_HD void bucket_sum(const int* idx, const float* vs, const float* vw,
-                          int k, float& acc_s, float& acc_w) {
-  ordered_sum([&](int a) { return Send{idx[a], vs[a], vw[a], 0}; }, k, acc_s,
-              acc_w);
-}
-
 // ordered_sum over a bucket of 16-byte records.
 GOSSIP_HD void record_sum(const Send* rec, int k, float& acc_s, float& acc_w) {
   ordered_sum([&](int a) { return load_send(rec + a); }, k, acc_s, acc_w);
@@ -167,19 +159,6 @@ GOSSIP_HD int pushsum_round(float s_t, float w_t, int t_old, bool conv_old,
   const bool stable = fabsf(s_new / w_new - s_t / w_t) <= delta;
   t_new = received ? (stable ? t_old + 1 : 0) : t_old;
   return (conv_old || t_new >= term_rounds) ? 1 : 0;
-}
-
-// pushsum_round from a bucket kept as three planes (k staged sends at idx,
-// vs, vw).
-GOSSIP_HD int pushsum_node(float s_t, float w_t, int t_old, bool conv_old,
-                           bool sends, const int* idx, const float* vs,
-                           const float* vw, int k, float delta,
-                           int term_rounds, float& s_new, float& w_new,
-                           int& t_new) {
-  return pushsum_round(
-      s_t, w_t, t_old, conv_old, sends,
-      [&](float& a, float& b) { bucket_sum(idx, vs, vw, k, a, b); }, delta,
-      term_rounds, s_new, w_new, t_new);
 }
 
 // The contiguous slices of the n targets among the blocks of the persistent

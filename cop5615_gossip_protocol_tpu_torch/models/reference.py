@@ -20,8 +20,11 @@ The semantics are the JAX package's ``models/reference.py``:
 
 Hop h draws its word off ``fold_in(base_key, h)``, never off the state, so
 the plain version draws a block of hops' words at once and walks them with
-float32 scalars in the JAX step's op order; on the card one thread walks up
-to ``hops`` hops a launch (csrc/walk.cu), and the host reads (steps,
+float32 scalars in the JAX step's op order. On the card one launch of one
+block walks up to ``hops`` hops (csrc/walk.cu): one thread walks while the
+block's other warps draw the next hops' words ahead of it, over a 16-byte
+record a node staged in shared memory when the records fit there (the
+shared tier), else in scratch (the global tier); the host reads (steps,
 converged count, dead) once a launch.
 """
 
@@ -155,7 +158,26 @@ def walk_hops_plain(carry: WalkCarry, base_key, graph: ScatterGraph, *,
 # ---------------------------------------------------------------------------
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-_SIGNATURE = [_P] * 4 + [_P, _P, _I, _I, _P, _U, _U, _I, _I, _I, _F, _I, _I, _P]
+_SIGNATURE = [_P] * 4 + [_P, _P, _P, _I, _I, _P, _U, _U, _I, _I, _I, _F, _I, _I, _I, _P]
+# The kernel's tiers: the walk's records in shared memory or in scratch.
+TIERS = ("shared", "global")
+
+
+def walk_tier(graph: ScatterGraph) -> tuple[str, int]:
+    """The tier a launch on ``graph`` (on a CUDA device) runs, by size
+    before the launch (csrc/walk.cu gossip_walk_tier): ``shared`` when the
+    walk's node records, rows and ring fit the device's opt-in shared
+    memory a block, else ``global``; and the bytes of the records and rows,
+    which the global tier keeps in scratch."""
+    max_deg = 0 if graph.neighbors is None else graph.neighbors.shape[1]
+    scratch = ctypes.c_longlong()
+    fn = kernels.entry("walk", "gossip_walk_tier", [_I, _I, _I, _I, _P])
+    got = fn(graph.n, max_deg, int(graph.neighbors is None), graph.device.index,
+             ctypes.byref(scratch))
+    if got < 0:
+        raise RuntimeError("gossip_walk_tier: the device's shared memory limit "
+                           "could not be read")
+    return TIERS[0 if got else 1], scratch.value
 
 
 def walk_hops(carry: WalkCarry, base_key, graph: ScatterGraph, *, hops: int,
@@ -165,8 +187,8 @@ def walk_hops(carry: WalkCarry, base_key, graph: ScatterGraph, *, hops: int,
     graph's device; ``base_key`` is the run's key (int64 [2], uint32
     words). Returns (carry', status) with status int32 [3] (steps,
     converged count, dead) on the device, to read once a call; the input
-    carry is left unchanged. CUDA state launches one kernel; CPU state runs
-    the plain version."""
+    carry is left unchanged. CUDA state launches one kernel in the tier
+    ``walk_tier`` picks; CPU state runs the plain version."""
     n, dev = graph.n, carry.s.device
     for x, dt in zip(carry[:4], (torch.float32, torch.float32, torch.int32, torch.bool)):
         if x.device != dev or x.dtype != dt or tuple(x.shape) != (n,):
@@ -181,6 +203,10 @@ def walk_hops(carry: WalkCarry, base_key, graph: ScatterGraph, *, hops: int,
                                target=target, delta=delta, term_rounds=term_rounds)
     if dev.type != "cuda":
         raise ValueError(f"the walk runs on cpu or cuda tensors, got {dev}")
+    if not 1 <= term_rounds < 2**30:
+        # The kernel keeps termRound (< term_rounds) as term * 2 + conv.
+        raise ValueError(f"the walk kernel takes term_rounds in [1, 2**30), got "
+                         f"{term_rounds}")
     planes = [x.clone() for x in carry[:4]]
     scal = torch.stack([
         carry.cur.to(torch.int32), carry.steps.to(torch.int32),
@@ -190,14 +216,21 @@ def walk_hops(carry: WalkCarry, base_key, graph: ScatterGraph, *, hops: int,
     nbr = None if graph.neighbors is None else graph.neighbors.data_ptr()
     deg = None if graph.degree is None else graph.degree.data_ptr()
     max_deg = 0 if graph.neighbors is None else graph.neighbors.shape[1]
+    tier, scratch_bytes = walk_tier(graph)
+    # The global tier keeps the walk's records and rows in scratch.
+    scratch = None
+    if tier == "global":
+        scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
     fn = kernels.entry("walk", "gossip_walk_hops", _SIGNATURE)
-    err = fn(*(x.data_ptr() for x in planes), nbr, deg, max_deg, n, scal.data_ptr(),
+    err = fn(*(x.data_ptr() for x in planes), nbr, deg,
+             None if scratch is None else scratch.data_ptr(), max_deg, n, scal.data_ptr(),
              int(base_key[0]), int(base_key[1]), hops, max_steps, target,
-             ctypes.c_float(delta), term_rounds, dev.index,
+             ctypes.c_float(delta), term_rounds, int(tier == "shared"), dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"gossip_walk_hops: CUDA launch failed with cudaError_t {err}")
     walk_hops.launches += 1
+    walk_hops.launches_by_tier[tier] += 1
     out = WalkCarry(*planes, cur=scal[0], msg_s=scal[4].view(torch.float32),
                     msg_w=scal[5].view(torch.float32), steps=scal[1],
                     dead=scal[2] != 0)
@@ -205,23 +238,45 @@ def walk_hops(carry: WalkCarry, base_key, graph: ScatterGraph, *, hops: int,
 
 
 # Kernel launches queued by the wrapper, counted where the kernel is
-# launched and nowhere else.
+# launched and nowhere else, in all and by tier.
 walk_hops.launches = 0
+walk_hops.launches_by_tier = dict.fromkeys(TIERS, 0)
 
 
-def chase(nxt: torch.Tensor, steps: int) -> torch.Tensor:
+def chase(nxt: torch.Tensor, steps: int, shared: bool = False) -> torch.Tensor:
     """Follow ``nxt`` (int32 [m] on a CUDA device) for ``steps`` dependent
-    loads from index 0 on one thread (csrc/walk.cu gossip_chase): the time
-    of one load at a working set of m ints, the unit of the walk's hop
-    chain. Returns the index it ends at (int32 [1])."""
+    loads from index 0 on one thread (csrc/walk.cu gossip_chase), over
+    global memory or, ``shared``, over a copy in shared memory: the time of
+    one dependent access at a working set of m ints in the memory a walk
+    tier walks in, the unit of the walk's hop chain. Returns the index it
+    ends at (int32 [1])."""
     if nxt.device.type != "cuda" or nxt.dtype != torch.int32 or not nxt.is_contiguous():
         raise ValueError("chase follows a contiguous int32 CUDA tensor")
     out = torch.empty(1, dtype=torch.int32, device=nxt.device)
-    fn = kernels.entry("walk", "gossip_chase", [_P, _I, _I, _P, _I, _P])
-    err = fn(nxt.data_ptr(), 0, steps, out.data_ptr(), nxt.device.index,
-             torch.cuda.current_stream(nxt.device).cuda_stream)
+    fn = kernels.entry("walk", "gossip_chase", [_P, _I, _I, _I, _P, _I, _I, _P])
+    err = fn(nxt.data_ptr(), nxt.numel(), 0, steps, out.data_ptr(), int(shared),
+             nxt.device.index, torch.cuda.current_stream(nxt.device).cuda_stream)
     if err:
         raise RuntimeError(f"gossip_chase: CUDA launch failed with cudaError_t {err}")
+    return out
+
+
+def arith_chain(steps: int, n: int, device, index: bool = True) -> torch.Tensor:
+    """Run a hop's loop-carried arithmetic ``steps`` times on one thread
+    (csrc/walk.cu gossip_arith_chain): the message's add and multiply for s
+    and w and, ``index``, the full pick's add and minimum at population n,
+    with no memory. Its time a step is the least a hop takes on full, the
+    other unit of the walk's hop chain. Returns the last message's bits
+    and node (int32 [3])."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"arith_chain runs on a cuda device, got {dev}")
+    out = torch.empty(3, dtype=torch.int32, device=dev)
+    fn = kernels.entry("walk", "gossip_arith_chain", [_U, _I, _F, _F, _I, _I, _P, _I, _P])
+    err = fn(max(n // 3, 1), n, ctypes.c_float(0.75), ctypes.c_float(1.25), steps,
+             int(index), out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"gossip_arith_chain: CUDA launch failed with cudaError_t {err}")
     return out
 
 

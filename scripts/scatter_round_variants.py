@@ -95,9 +95,13 @@ PLANES = (("""      gossip::scatter::store_send(c.rec + pos,
       }""", 1),
           ("gossip::scatter::record_sum(c.rec + at, k, a, b);",
            "const int* q = (const int*)c.rec + at;\n"
-           "            gossip::scatter::bucket_sum(q, (const float*)q + n,\n"
-           "                                        (const float*)q + 2 * (size_t)n, k,\n"
-           "                                        a, b);",
+           "            gossip::scatter::ordered_sum(\n"
+           "                [&](int e) {\n"
+           "                  return gossip::scatter::Send{\n"
+           "                      q[e], ((const float*)q)[n + e],\n"
+           "                      ((const float*)q)[2 * (size_t)n + e], 0};\n"
+           "                },\n"
+           "                k, a, b);",
            1))
 
 SPLIT_BARRIER = (("lo, hi, [&](int j) { return cnt[j]; },",

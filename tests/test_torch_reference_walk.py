@@ -7,8 +7,9 @@ JAX package's models/reference.py on the CPU, float32:
   w, term, conv) and the in-flight message equal JAX's run_walk, bitwise;
 - a max_rounds cap mid-walk, and the walk resumed from the capped carry;
 - the Q8 orphan case and the Q5 converged relay;
-- the kernel's hop (csrc/walk.cuh built with g++) against the JAX step
-  function, from mid-walk carries, a converged node and an orphan;
+- one hop of the kernel's walker (csrc/walk.cuh walk_block over the
+  kernel's node records and staged rows, built with g++) against the JAX
+  step function, from mid-walk carries, a converged node and an orphan;
 - the run record: rounds (hops), converged count and estimate_mae equal
   the JAX runner's.
 """
@@ -154,16 +155,38 @@ def test_walk_relays_at_a_converged_node_q5():
 # ---------------------------------------------------------------------------
 
 SHIM = r"""
+#include <stdlib.h>
 #include "walk.cuh"
 using namespace gossip::walk;
-// One hop of the kernel's loop on the host; scal as walk.cu keeps it.
+// One hop of the kernel's walker on the host: the planes packed into its
+// 16-byte node records and, on an explicit topology, the rows staged as
+// csrc/walk.cu stages them; the hop's entry prepared as the kernel's
+// drawing threads prepare it (the shift on full, else the raw word); scal
+// as walk.cu keeps it.
 extern "C" void one_hop(float* s, float* w, int* term, unsigned char* conv,
                         const int* nbr, const int* deg, int max_deg, int n,
                         int* scal, float* msg, uint32_t k1, uint32_t k2,
                         float delta, int term_rounds) {
   Carry c{scal[0], scal[1], scal[2], scal[3], msg[0], msg[1]};
-  hop(c, s, w, term, conv, hop_word(k1, k2, (uint32_t)c.steps), nbr, deg, max_deg,
-      n, delta, term_rounds);
+  const uint32_t word = hop_word(k1, k2, (uint32_t)c.steps);
+  Node* nodes = (Node*)aligned_alloc(16, sizeof(Node) * (size_t)n);
+  for (int i = 0; i < n; ++i) nodes[i] = make_node(s[i], w[i], term[i], conv[i]);
+  if (nbr == nullptr) {
+    const uint32_t shift = full_shift(word, n);
+    walk_block(c, Records{nodes}, &shift, 1, FullPick{n}, 0x7fffffff, 0x7fffffff,
+               delta, term_rounds);
+  } else {
+    int* rows = (int*)malloc(sizeof(int) * (size_t)n * row_stride(max_deg));
+    for (int i = 0; i < n; ++i) stage_row(rows, i, nbr, deg, max_deg);
+    walk_block(c, Records{nodes}, &word, 1, RowPick{rows, row_stride(max_deg), n},
+               0x7fffffff, 0x7fffffff, delta, term_rounds);
+    free(rows);
+  }
+  for (int i = 0; i < n; ++i) {
+    s[i] = nodes[i].s; w[i] = nodes[i].w; term[i] = nodes[i].tc >> 1;
+    conv[i] = (unsigned char)(nodes[i].tc & 1);
+  }
+  free(nodes);
   scal[0] = c.cur; scal[1] = c.steps; scal[2] = c.dead; scal[3] = c.conv_count;
   msg[0] = c.msg_s; msg[1] = c.msg_w;
 }

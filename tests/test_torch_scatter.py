@@ -6,8 +6,8 @@ chunked engine of models/runner.py) against the JAX package on the CPU:
   on values over seven decades of magnitude and both signs, bitwise;
 - ``targets_full`` against the JAX draw;
 - the kernel's per-node code (csrc/scatter.cuh built with g++): the
-  targets, the ordered bucket sum from a shuffled bucket, and a push-sum
-  node's round against the plain round;
+  targets, the ordered sum of a shuffled bucket of 16-byte records, and a
+  push-sum node's round over its records against the plain round;
 - whole runs against the JAX chunked engine (full 1000 and 70,000, imp3d
   1000 in both semantics with its orphans, imp2d 1000, ring and line under
   delivery="scatter", both algorithms): rounds, converged count,
@@ -104,22 +104,22 @@ extern "C" void targets(uint32_t k1, uint32_t k2, int n, const int* nbr,
     else out[i] = deg[i] > 0 ? scatter::target_explicit(word, nbr + (long)i * max_deg, deg[i]) : -1;
   }
 }
-extern "C" void sums(int* idx, float* vs, float* vw, const int* start,
-                     const int* count, int n, float* acc_s, float* acc_w) {
+// Each target's bucket of 16-byte records (the kernel's staged sends).
+extern "C" void sums(const scatter::Send* rec, const int* start, const int* count,
+                     int n, float* acc_s, float* acc_w) {
   for (int j = 0; j < n; ++j)
-    scatter::bucket_sum(idx + start[j], vs + start[j], vw + start[j], count[j],
-                        acc_s[j], acc_w[j]);
+    scatter::record_sum(rec + start[j], count[j], acc_s[j], acc_w[j]);
 }
 extern "C" void nodes(const float* s, const float* w, const int* term,
                       const unsigned char* conv, const unsigned char* sends,
-                      int* idx, float* vs, float* vw, const int* start,
-                      const int* count, int n, float delta, int term_rounds,
-                      float* s_new, float* w_new, int* t_new, int* c_new) {
+                      const scatter::Send* rec, const int* start, const int* count,
+                      int n, float delta, int term_rounds, float* s_new,
+                      float* w_new, int* t_new, int* c_new) {
   for (int j = 0; j < n; ++j)
-    c_new[j] = scatter::pushsum_node(s[j], w[j], term[j], conv[j] != 0, sends[j] != 0,
-                                     idx + start[j], vs + start[j], vw + start[j],
-                                     count[j], delta, term_rounds, s_new[j], w_new[j],
-                                     t_new[j]);
+    c_new[j] = scatter::pushsum_round(
+        s[j], w[j], term[j], conv[j] != 0, sends[j] != 0,
+        [&](float& a, float& b) { scatter::record_sum(rec + start[j], count[j], a, b); },
+        delta, term_rounds, s_new[j], w_new[j], t_new[j]);
 }
 """
 
@@ -139,6 +139,14 @@ def shim(tmp_path_factory):
 
 def _ptr(a):
     return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _records(idx, vs, vw):
+    """The kernel's 16-byte records (index, s half, w half, pad) of staged
+    sends."""
+    rec = np.zeros((idx.shape[0], 4), np.int32)
+    rec[:, 0], rec[:, 1], rec[:, 2] = idx, vs.view(np.int32), vw.view(np.int32)
+    return rec
 
 
 def _staged(targets, send_ok, values, n, r):
@@ -190,7 +198,7 @@ def test_kernel_bucket_sum_is_the_serial_order(shim):
     acc_w = np.zeros(n, np.float32)
     want_s = jnp.asarray(acc_s).at[t].add(v)
     want_w = jnp.zeros(n, jnp.float32).at[t].add(u)
-    shim.sums(_ptr(idx), _ptr(vs), _ptr(vw), _ptr(start), _ptr(count), n, _ptr(acc_s),
+    shim.sums(_ptr(_records(idx, vs, vw)), _ptr(start), _ptr(count), n, _ptr(acc_s),
               _ptr(acc_w))
     assert (_bits(acc_s) == _bits(want_s)).all()
     assert (_bits(acc_w) == _bits(want_w)).all()
@@ -219,7 +227,7 @@ def test_kernel_pushsum_node_matches_the_plain_round(shim, kind, n, semantics):
            np.empty(n, np.int32)]
     shim.nodes(_ptr(s), _ptr(w), _ptr(state.term.numpy()),
                _ptr(state.conv.numpy().astype(np.uint8)), _ptr(ok.astype(np.uint8)),
-               _ptr(idx), _ptr(vs), _ptr(vw), _ptr(start), _ptr(count), n,
+               _ptr(_records(idx, vs, vw)), _ptr(start), _ptr(count), n,
                ctypes.c_float(1e-2), 3, *(_ptr(o) for o in out))
     for got, exp in zip(out, want):
         assert (_bits(got) == _bits(exp.numpy().astype(got.dtype))).all()
