@@ -195,6 +195,25 @@ non-zero before the last line:
 14i. the CLI triples ``1000 full gossip``, ``1000 imp3D push-sum`` and
    ``1000 full push-sum --semantics reference``, each at the JAX CLI's
    rounds and estimate, with their kernels launched;
+14j. (run inside phase 15, after its fault-free rows and before the kernels
+   line) the failure model on the two main paths (ROADMAP A6a-1): rows 1-2
+   and kernel A, each in its faulted instance, at full 1,000,000 against
+   their plain versions on the card, under the drop gate with crash-stop
+   (a schedule and a rate, with quorum) and the drop gate with global
+   termination: a 32-round chunk from the initial state across the
+   schedule's death rounds, from a mid-run state chunks capped after 5 and
+   6 rounds (both mark parities), a chunk that reaches the verdict three
+   rounds in and one that starts at it; every plane and count bitwise. Then
+   the runs through ``run()`` and the CLI, counters zeroed before each and
+   read after it: 1M full push-sum (pool, pool_size 2) under the gate and
+   a crash schedule with quorum 0.95, and under the gate with global
+   termination; 1M full gossip (pool) under a crash rate with quorum 0.9;
+   the CLI's ``1000000 full gossip`` and ``100000 imp2D push-sum`` (scatter,
+   kernel A) with ``--fault-rate 0.2 --crash-schedule 3:10000 --quorum
+   0.9``; each ends "converged" at the rounds and converged count baked
+   from the CPU (FAULT_RUNS), push-sum with its mass over live and dead
+   nodes conserved; and the same five at 70,000 nodes on the card against
+   the worker's CPU runs (rounds, converged count, every plane);
 15. each kernel's time per chunk by CUDA events, beside its plain version's
    and the least time the card could take for the same work (rows 1-2
    also over a 1,024-round chunk and at 2**21, and over rows 7-8); the
@@ -208,7 +227,8 @@ non-zero before the last line:
    wire copies nothing on one card (``--cards`` times it); kernel A per
    round at 1M full from the mid-run state (a 32-round push-sum and an
    8-round gossip chunk), beside one ``index_add_`` of a round's sends;
-   kernel B over each whole walk in one launch, beside the plain walk on
+   rows 1-2 and kernel A in their faulted instances beside their
+   fault-free times of this run; kernel B over each whole walk in one launch, beside the plain walk on
    the host and the hop chain's bound (hops times what a hop waits on from
    the hop before: on full the message's and the pick's arithmetic, timed
    by csrc/walk.cu's arith kernel; on imp3d two dependent accesses at the
@@ -216,7 +236,7 @@ non-zero before the last line:
    timed by its chase kernel), the bytes/operations bound beside it; then
    the imp rows' µs a round beside row 9's, and rows 13 and 18 over row 9.
 
-Each of phases 5-14i prints its wall time.
+Each of phases 5-14j prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -3279,10 +3299,14 @@ def scatter_rows(dev, key, cases, launches, max_err):
         counted = kern.launches
         traced = device_kernels(prof)
         passes = {short: us / rounds for short, (_, us) in traced.items()}
-        in_trace = traced.get(f"{name}_rounds", (0, 0.0))[0]
+        # The round kernel by its name's stem: an instance of a template
+        # (the fault-free one here) may come out of the trace mangled.
+        in_trace = sum(count for short, (count, _) in traced.items()
+                       if f"{name}_rounds" in short)
         if not counted == in_trace == 1:
             raise AssertionError(f"{name} scatter: a {K}-round chunk launched {counted} "
-                                 f"times by its counter, {in_trace} in the trace, not once")
+                                 f"times by its counter, {in_trace} in the trace, not "
+                                 f"once (the trace: {sorted(traced)})")
         moved = SCATTER_STATE_BYTES[name] * 2 * n
         ops = senders * SCATTER_OPS[name] + (n - senders) * 4
         bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
@@ -3387,6 +3411,422 @@ def walk_row(dev, key, cases, launches, max_err):
     }
 
 
+# The failure model on the two main paths: the drop gate, crash-stop with
+# quorum termination and push-sum's global termination, in rows 1-2
+# (csrc/fused_pool.cu) and kernel A (csrc/scatter.cu). Phase 14j's kernel
+# checks run each kernel's faulted instance at 1M full against its plain
+# version under FAULT_CFGS; its runs through run() and the CLI end at the
+# baked FAULT_RUNS constants.
+FAULT_CFGS = {
+    "pushsum crash": ("push-sum", {"fault_rate": 0.1,
+                                   "crash_schedule": "5:10000,20:50000",
+                                   "quorum": 0.95}),
+    "pushsum global": ("push-sum", {"fault_rate": 0.1, "termination": "global"}),
+    "gossip crash": ("gossip", {"fault_rate": 0.1, "crash_rate": 0.001,
+                                "quorum": 0.9}),
+}
+# Rounds run before each config's mid-run checks and timings (at 1M the
+# pool runs end near rounds 166, 58 and 34).
+FAULT_MID = {"pushsum crash": 60, "pushsum global": 30, "gossip crash": 8}
+# The runs, each with (rounds, converged count) baked from the CPU, seed 0:
+# the pool push-sum ones from the port's plain versions,
+#   run(build_topology("full", 1000000), SimConfig(n=1000000,
+#       algorithm="push-sum", delivery="pool", pool_size=2, engine="fused",
+#       <kw>), device="cpu")
+# the others from the JAX package's chunked engine,
+#   run(build_topology(kind, n), SimConfig(n=n, topology=kind,
+#       algorithm=algorithm, engine="chunked", <kw>))
+# (the CLI's as ``python -m cop5615_gossip_protocol_tpu <argv>
+# --platform cpu`` gives them).
+FAULT_RUNS = (
+    # (label, argv of the CLI or None, kind, n, algorithm, kw, baked)
+    ("pool push-sum gate+crash", None, "full", 1_000_000, "push-sum",
+     {"delivery": "pool", "pool_size": 2, "fault_rate": 0.1,
+      "crash_schedule": "5:10000,20:50000", "quorum": 0.95}, (166, 893_003)),
+    ("pool push-sum gate+global", None, "full", 1_000_000, "push-sum",
+     {"delivery": "pool", "pool_size": 2, "fault_rate": 0.1,
+      "termination": "global"}, (58, 1_000_000)),
+    ("pool gossip crash", None, "full", 1_000_000, "gossip",
+     {"delivery": "pool", "pool_size": 2, "crash_rate": 0.001, "quorum": 0.9},
+     (34, 909_960)),
+    ("CLI scatter gossip", ("1000000", "full", "gossip", "--fault-rate", "0.2",
+                            "--crash-schedule", "3:10000", "--quorum", "0.9"),
+     "full", 1_000_000, "gossip",
+     {"fault_rate": 0.2, "crash_schedule": "3:10000", "quorum": 0.9},
+     (42, 908_471)),
+    ("CLI scatter push-sum", ("100000", "imp2D", "push-sum", "--fault-rate",
+                              "0.2", "--crash-schedule", "3:10000", "--quorum",
+                              "0.9"),
+     "imp2d", 100_000, "push-sum",
+     {"fault_rate": 0.2, "crash_schedule": "3:10000", "quorum": 0.9},
+     (320, 81_629)),
+)
+# The runs again at this population, each on the card against the port's
+# CPU run of the same config (rounds, converged count, every plane), which
+# the worker computes while the card runs the earlier phases; a crash
+# schedule there is scaled to the population.
+FAULT_SMALL_N = 70_000
+
+
+def small_fault_runs():
+    """(label, kind, n, algorithm, kw) of FAULT_RUNS at FAULT_SMALL_N."""
+    out = []
+    for label, _, kind, n, algorithm, kw, _ in FAULT_RUNS:
+        kw = dict(kw)
+        if "crash_schedule" in kw:
+            kw["crash_schedule"] = ",".join(
+                f"{r}:{int(c) * FAULT_SMALL_N // n}" for r, c in
+                (e.split(":") for e in kw["crash_schedule"].split(",")))
+        out.append((label, kind, FAULT_SMALL_N, algorithm, kw))
+    return out
+
+
+def cpu_fault_runs():
+    """The port's CPU runs of small_fault_runs(): {label: (rounds,
+    converged count, [planes as numpy])}. Runs in the worker process."""
+    import os
+
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    out = {}
+    for label, kind, n, algorithm, kw in small_fault_runs():
+        res = run(build_topology(kind, n), SimConfig(n=n, topology=kind,
+                                                     algorithm=algorithm, **kw),
+                  device="cpu")
+        out[label] = (res.rounds, res.converged_count, [x.numpy() for x in res.state])
+    return out
+
+
+def fault_pool_fns(dev, key, algorithm, kw):
+    """Rows 1-2 under a failure model at N: (kernel, plain, chunk, initial
+    state), chunk(fn, state, start, count, cap=None) as pool_fns'."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models import gossip as gossip_mod
+    from cop5615_gossip_protocol_tpu_torch.models import pushsum as pushsum_mod
+    from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool
+
+    n = N
+    cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=POOL, **kw)
+    faults = fused.run_faults(cfg, n)
+    layout = fused_pool.build_pool_layout(n)
+
+    @functools.lru_cache(maxsize=None)
+    def streams(start, count):
+        return (fused.round_keys(key, start, count),
+                fused_pool.round_offsets(key, start, count, POOL, n))
+
+    if algorithm == "push-sum":
+        st = pushsum_mod.init_state(n, cfg.initial_term_round)
+        init = tuple(fused._pad2d(x, layout, f).contiguous().to(dev) for x, f in (
+            (st.s, 0.0), (st.w, 1.0), (st.term, 0), (st.conv.to(torch.int32), 0)))
+        kern, plain = fused_pool.pushsum_pool_chunk, fused_pool.pushsum_pool_chunk_plain
+        extra = {"delta": cfg.resolved_delta, "term_rounds": cfg.term_rounds}
+    else:
+        st = gossip_mod.init_state(n, draw_leader(key, build_topology("full", n), cfg),
+                                   False)
+        init = tuple(fused._pad2d(x.to(torch.int32), layout, 0).contiguous().to(dev)
+                     for x in st)
+        kern, plain = fused_pool.gossip_pool_chunk, fused_pool.gossip_pool_chunk_plain
+        extra = {"rumor_target": cfg.resolved_rumor_target,
+                 "suppress": cfg.resolved_suppress}
+
+    def chunk(fn, state, start, count, cap=None):
+        keys, offs = streams(start, count)
+        return fn(state, keys, offs, start, start + count if cap is None else cap,
+                  n=n, target=n, faults=faults, **extra)
+
+    return kern, plain, chunk, init
+
+
+def fault_scatter_fns(dev, key, graph, algorithm, kw):
+    """Kernel A under a failure model at N full: (kernel, plain, chunk,
+    initial state), chunk(fn, state, start, count, done=0) as
+    scatter_fns'."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models import gossip as gossip_mod
+    from cop5615_gossip_protocol_tpu_torch.models import pushsum as pushsum_mod
+    from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, scatter
+
+    n = N
+    cfg = SimConfig(n=n, algorithm=algorithm, **kw)
+    faults = fused.run_faults(cfg, n)
+    if algorithm == "push-sum":
+        init = pushsum_mod.init_state(n, cfg.initial_term_round, dev)
+        extra = {"delta": cfg.resolved_delta, "term_rounds": cfg.term_rounds}
+        kern, plain = scatter.pushsum_scatter_chunk, scatter.pushsum_scatter_chunk_plain
+    else:
+        init = gossip_mod.init_state(n, draw_leader(key, build_topology("full", n), cfg),
+                                     False, dev)
+        extra = {"rumor_target": cfg.resolved_rumor_target,
+                 "suppress": cfg.resolved_suppress}
+        kern, plain = scatter.gossip_scatter_chunk, scatter.gossip_scatter_chunk_plain
+
+    @functools.lru_cache(maxsize=None)
+    def round_keys(start, count):
+        return fused.round_keys(key, start, count)
+
+    def chunk(fn, state, start, count, done=0):
+        status = torch.tensor([start, done], dtype=torch.int32, device=dev)
+        if fn is plain:
+            return fn(state, round_keys(start, count), status, graph=graph,
+                      target=n, start=start, faults=faults, **extra)
+        return fn(state, key, start, count, status, graph=graph, target=n,
+                  faults=faults, **extra)
+
+    return kern, plain, chunk, init
+
+
+def fault_checks(dev, key):
+    """Phase 14j, the kernels: rows 1-2 and kernel A under each of
+    FAULT_CFGS at 1M full against their plain versions on the card, every
+    plane and count bitwise: a 32-round chunk from the initial state
+    (across the crash schedule's death rounds 5 and 20), from a mid-run
+    state a 32-round chunk and chunks capped after 5 and 6 rounds (both
+    mark parities), a chunk that reaches the quorum (or the global verdict)
+    three rounds in, and a chunk that starts at it (0 rounds, state
+    unchanged). Returns ({(row, cfg): case} for the timing, {row:
+    max_abs_err})."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import build_topology
+    from cop5615_gossip_protocol_tpu_torch.ops import scatter
+
+    graph = scatter.scatter_graph(build_topology("full", N), dev)
+    cases, max_err = {}, {}
+    for label, (algorithm, kw) in FAULT_CFGS.items():
+        name = "pushsum" if algorithm == "push-sum" else "gossip"
+        mid_round = FAULT_MID[label]
+        # Rows 1-2.
+        kern, plain, chunk, init = fault_pool_fns(dev, key, algorithm, kw)
+        tag = f"{label} pool"
+        errs = [compare(f"{tag} init K={CHUNK}", chunk(kern, init, 0, CHUNK),
+                        chunk(plain, init, 0, CHUNK), 0)]
+        mid, ex = chunk(kern, init, 0, mid_round)
+        if int(ex) != mid_round:
+            raise AssertionError(f"{tag}: done before round {mid_round}")
+        errs.append(compare(f"{tag} mid-run K={CHUNK}", chunk(kern, mid, mid_round, CHUNK),
+                            chunk(plain, mid, mid_round, CHUNK), 0))
+        for extra in (5, 6):
+            errs.append(compare(f"{tag} cap after {extra} rounds",
+                                chunk(kern, mid, mid_round, CHUNK, cap=mid_round + extra),
+                                chunk(plain, mid, mid_round, CHUNK, cap=mid_round + extra),
+                                0))
+        state, rnd = init, 0
+        while True:
+            out, ex = chunk(kern, state, rnd, 512)
+            if int(ex) < 512:
+                final = rnd + int(ex)
+                break
+            state, rnd = out, rnd + 512
+            if rnd >= 100_000:
+                raise AssertionError(f"{tag}: no verdict in {rnd} rounds")
+        late, _ = chunk(kern, init, 0, final - 3)
+        got = chunk(kern, late, final - 3, 8)
+        errs.append(compare(f"{tag} from round {final - 3}, 8 rounds (done after 3)",
+                            got, chunk(plain, late, final - 3, 8), 0))
+        if int(got[1]) != 3:
+            raise AssertionError(f"{tag}: the verdict came after {int(got[1])} rounds, not 3")
+        at_quorum = got[0]
+        for fn, who in ((kern, "kernel"), (plain, "plain")):
+            same, ex0 = chunk(fn, at_quorum, final, CHUNK)
+            if int(ex0) != 0 or not all(torch.equal(a, b) for a, b in zip(same, at_quorum)):
+                raise AssertionError(f"{tag}: the {who} chunk from the verdict's state ran")
+        print(f"  {tag}: verdict after round {final}; a chunk from it runs 0 rounds, "
+              "state unchanged", flush=True)
+        row = f"{name}_pool_chunk"
+        max_err[row] = max(max_err.get(row, 0.0), *errs)
+        cases[row, label] = (kern, plain, chunk, mid, mid_round)
+        # Kernel A.
+        kern, plain, chunk, init = fault_scatter_fns(dev, key, graph, algorithm, kw)
+        tag = f"{label} scatter"
+
+        def check(text, state, start, count, done=0, chunk=chunk, kern=kern,
+                  plain=plain):
+            got = chunk(kern, state, start, count, done)
+            scatter_scratch_zero(text, graph)
+            want = chunk(plain, state, start, count, done)
+            if got[1].tolist() != want[1].tolist():
+                raise AssertionError(f"{text}: status {got[1].tolist()} != plain "
+                                     f"{want[1].tolist()}")
+            err = same_planes(text, got[0], want[0])
+            print(f"  {text}: status {got[1].tolist()}, bitwise", flush=True)
+            return err, got
+
+        errs = [check(f"{tag} initial state, {CHUNK} rounds", init, 0, CHUNK)[0]]
+        mid, st = chunk(kern, init, 0, mid_round)
+        if st.tolist() != [mid_round, 0]:
+            raise AssertionError(f"{tag}: status {st.tolist()} after {mid_round} rounds")
+        for count in (5, 6, SCATTER_TIMED[name]):
+            errs.append(check(f"{tag} mid-run, {count} rounds", mid, mid_round, count)[0])
+        state, st, rnd = init, None, 0
+        while st is None or not st[1]:
+            if rnd >= 100_000:
+                raise AssertionError(f"{tag}: no verdict in {rnd} rounds")
+            state, st = chunk(kern, state, rnd, 512)
+            st, rnd = st.tolist(), rnd + 512
+        final = st[0]
+        late, _ = chunk(kern, init, 0, final - 3)
+        err, (ended, st_end) = check(f"{tag} from round {final - 3}, 8 rounds "
+                                     f"(done after 3)", late, final - 3, 8)
+        errs.append(err)
+        if st_end.tolist() != [final, 1]:
+            raise AssertionError(f"{tag}: the verdict gave {st_end.tolist()}, "
+                                 f"want [{final}, 1]")
+        err, (same, after) = check(f"{tag} at the verdict, done flag set", ended, final,
+                                   8, done=1)
+        same_planes(f"{tag} a chunk after the verdict", same, ended)
+        row = f"{name}_scatter_chunk"
+        max_err[row] = max(max_err.get(row, 0.0), *errs, err)
+        cases[row, label] = (kern, plain, chunk, mid, mid_round)
+    graph.work.clear()
+    torch.cuda.synchronize()
+    return cases, max_err
+
+
+def fault_phase(dev, key, cpu_small):
+    """Phase 14j: fault_checks, then fault_path. Returns (cases, max_err,
+    launches)."""
+    cases, max_err = fault_checks(dev, key)
+    return cases, max_err, fault_path(dev, cpu_small)
+
+
+def fault_path(dev, cpu_small):
+    """Phase 14j, the runs: FAULT_RUNS through run() (the CLI's as typed),
+    counters zeroed before each and read after it; each must end
+    "converged" at its baked rounds and converged count, push-sum with its
+    mass over live and dead nodes conserved, and its faulted kernel must
+    have launched. Then small_fault_runs() on the card against the
+    worker's CPU runs (``cpu_small``): rounds, converged count, every plane
+    bitwise. Returns {row: launches on its main-path run}."""
+    import contextlib
+    import io
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, cli, run
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_pool, scatter
+
+    counters = {"pushsum_pool_chunk": fused_pool.pushsum_pool_chunk,
+                "gossip_pool_chunk": fused_pool.gossip_pool_chunk,
+                "pushsum_scatter_chunk": scatter.pushsum_scatter_chunk,
+                "gossip_scatter_chunk": scatter.gossip_scatter_chunk}
+    launches = {}
+    for label, argv, kind, n, algorithm, kw, baked in FAULT_RUNS:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        if argv is None:
+            res = run(build_topology(kind, n), SimConfig(n=n, topology=kind,
+                                                         algorithm=algorithm, **kw))
+            got = (res.rounds, res.converged_count, res.outcome)
+            state = res.state
+        else:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                code = cli.main(list(argv))
+            rec = json.loads(out.getvalue().strip().splitlines()[-1])
+            got = (rec["rounds"], rec["converged_count"], rec["outcome"])
+            state = None
+            if code != 0:
+                raise AssertionError(f"{label}: the CLI exited {code}")
+        counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        row = next(iter(counts), None)
+        if f"{row} faulted" not in launches:
+            launches[f"{row} faulted"] = counts.get(row, 0)
+            MAIN_ROUNDS[f"{row} faulted"] = got[0]
+        print(f"  {label}: rounds {got[0]}, converged {got[1]}, {got[2]}, "
+              f"{time.perf_counter() - t0:.2f} s, launches {counts}", flush=True)
+        if got != (*baked, "converged") or not counts:
+            raise AssertionError(f"{label}: {got} != baked {baked} (converged), "
+                                 f"launches {counts}")
+        if state is not None and algorithm == "push-sum":
+            mass_w = state.w.double().sum().item()
+            mass_s = state.s.double().sum().item()
+            err_w = abs(mass_w - n) / n
+            err_s = abs(mass_s - n * (n - 1) / 2) / (n * (n - 1) / 2)
+            print(f"    mass over live and dead nodes: sum w {mass_w} (rel err "
+                  f"{err_w}), sum s {mass_s} (rel err {err_s})", flush=True)
+            if not (err_w < 1e-5 and err_s < 1e-5):
+                raise AssertionError(f"{label}: the mass is not conserved")
+    for label, kind, n, algorithm, kw in small_fault_runs():
+        res = run(build_topology(kind, n), SimConfig(n=n, topology=kind,
+                                                     algorithm=algorithm, **kw))
+        rounds, count, planes = cpu_small[label]
+        if (res.rounds, res.converged_count) != (rounds, count):
+            raise AssertionError(f"{label} n={n}: card {res.rounds}/{res.converged_count}"
+                                 f" != CPU {rounds}/{count}")
+        same_planes(f"{label} n={n}", res.state, planes)
+        print(f"  {label} n={n}: card == CPU (rounds {rounds}, converged {count}, "
+              "every plane)", flush=True)
+    return launches
+
+
+def fault_rows(cases, launches, max_err, fault_free_ms):
+    """The faulted rows of the kernels line: rows 1-2 over a 32-round chunk
+    and kernel A per round over its timed chunk, each from the mid-run state
+    under FAULT_CFGS' gate-and-crash configs, beside the plain version and
+    the fault-free time of the same row measured in this call
+    (``fault_free_ms``)."""
+    rows = []
+    picks = {"pushsum_pool_chunk": "pushsum crash", "gossip_pool_chunk": "gossip crash",
+             "pushsum_scatter_chunk": "pushsum crash",
+             "gossip_scatter_chunk": "gossip crash"}
+    for row, label in picks.items():
+        kern, plain, chunk, mid, mid_round = cases[row, label]
+        name = row.split("_")[0]
+        pool = "pool" in row
+        K = CHUNK if pool else SCATTER_TIMED[name]
+        ms, out = time_ms(lambda: chunk(kern, mid, mid_round, K), TIME_REPS)
+        plain_ms, _ = time_ms(lambda: chunk(plain, mid, mid_round, K), 2)
+        rounds = int(out[1]) if pool else int(out[1][0]) - mid_round
+        n_pad = mid[0].numel()
+        algo = "push-sum" if name == "pushsum" else "gossip"
+        if pool:
+            # The fault-free bound's bytes and operations, plus the death
+            # plane read once and a gate hash a node a round.
+            state_bytes = 16 if name == "pushsum" else 12
+            moved = 2 * state_bytes * n_pad + 4 * n_pad + CHUNK * (16 + 4 * POOL + 4)
+            ops = rounds * (n_pad // 8 * OPS_PER_WORD
+                            + n_pad * (ops_per_node(algo, POOL) + OPS_PER_HASH))
+        else:
+            moved = rounds * N * (2 * SCATTER_STATE_BYTES[name] + 4)
+            ops = rounds * N * (SCATTER_OPS[name] + OPS_PER_HASH)
+            ms, plain_ms = ms / rounds, plain_ms / rounds
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        if not pool:
+            bytes_ms, ops_ms = bytes_ms / rounds, ops_ms / rounds
+        print(f"  {row} faulted ({label}): {ms:.4f} ms against fault-free "
+              f"{fault_free_ms[row]:.4f} ms ({ms / fault_free_ms[row]:.3f}x), "
+              f"plain {plain_ms:.4f} ms", flush=True)
+        rows.append({
+            "name": f"{row} faulted",
+            "route": "cuda",
+            "source": ("cop5615_gossip_protocol_tpu_torch/csrc/fused_pool.cu" if pool
+                       else "cop5615_gossip_protocol_tpu_torch/csrc/scatter.cu"),
+            "replaces": ({"pushsum": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:860",
+                          "gossip": "cop5615_gossip_protocol_tpu/ops/fused_pool.py:1157"}[name]
+                         if pool else "cop5615_gossip_protocol_tpu/ops/delivery.py:22"),
+            "launches": launches.get(f"{row} faulted", 0),
+            "max_abs_err": max_err[row],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "fault_free_ms": fault_free_ms[row],
+            "rounds_per_call": rounds,
+            "us_per_round": ms * 1e3 / rounds if pool else ms * 1e3,
+            "config": FAULT_CFGS[label][1], "status": "ported",
+        })
+    return rows
+
+
 def fail(msg: str) -> int:
     print(f"FAILED: {msg}", file=sys.stderr)
     return 1
@@ -3429,13 +3869,14 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    # The port's CPU runs that phase 14g holds the card's scatter runs
-    # against, in a spawned worker while the card runs phases 2-14e.
+    # The port's CPU runs that phases 14g and 14j hold the card's runs
+    # against, in a spawned worker while the card runs the phases before.
     import multiprocessing
 
     worker = multiprocessing.get_context("spawn").Pool(1)
     try:
-        cpu_runs = worker.apply_async(cpu_scatter_runs)
+        cpu_runs = (worker.apply_async(cpu_scatter_runs),
+                    worker.apply_async(cpu_fault_runs))
         return run_phases(torch, dev, smi, kernels, cpu_runs, t_main)
     finally:
         worker.terminate()
@@ -3443,8 +3884,8 @@ def main() -> int:
 
 
 def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
-    """Phases 2-15 of the one-card run; ``cpu_runs`` is the worker's
-    pending result for phase 14g."""
+    """Phases 2-15 of the one-card run; ``cpu_runs`` are the worker's
+    pending results for phases 14g and 14j."""
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
     from cop5615_gossip_protocol_tpu_torch.ops import fused_pool, rng
 
@@ -3593,7 +4034,7 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
         scatter_cases, scatter_err = phase("14f", scatter_checks, dev, key)
         t0 = time.perf_counter()
         try:
-            cpu_done = cpu_runs.get(timeout=900)
+            cpu_done = cpu_runs[0].get(timeout=900)
         except Exception as e:  # the worker's own error, re-raised here
             raise RuntimeError(f"the CPU runs of phase 14g failed: {e!r}") from e
         print(f"  the worker's CPU runs: waited {time.perf_counter() - t0:.1f} s",
@@ -3821,6 +4262,24 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
     except AssertionError as e:
         return fail(str(e))
     rows.append(walk_row(dev, key, walk_cases, walk_launches, walk_err))
+    t14j = time.perf_counter()
+    # Phase 14j runs after the rows above: with it before them,
+    # torch.profiler handed scatter_rows' profiled gossip chunk an empty
+    # trace (no kernel, copy or memset at all) on the H100.
+    try:
+        cpu_small = cpu_runs[1].get(timeout=900)
+        fault_cases, fault_err, fault_launches = phase("14j", fault_phase, dev, key,
+                                                       cpu_small)
+    except Exception as e:
+        return fail(str(e))
+    t15 += time.perf_counter() - t14j  # phase 15's time leaves 14j's out
+    # The faulted rows 1-2 and A beside the fault-free ones timed above.
+    by_name = {row["name"]: row["ms"] for row in rows}
+    rows += fault_rows(fault_cases, fault_launches, fault_err, {
+        "pushsum_pool_chunk": by_name["pushsum_pool_chunk"],
+        "gossip_pool_chunk": by_name["gossip_pool_chunk"],
+        "pushsum_scatter_chunk": by_name["pushsum_scatter_round"],
+        "gossip_scatter_chunk": by_name["gossip_scatter_round"]})
     for row in rows:
         row["main_path_rounds"] = MAIN_ROUNDS.get(row["name"])
     # The imp rows beside row 9 (the streaming lattice push-sum, the same

@@ -8,6 +8,8 @@
         --delivery pool --pool-size 2
     python -m cop5615_gossip_protocol_tpu_torch 16777216 torus3d gossip
     python -m cop5615_gossip_protocol_tpu_torch 16777216 imp3d gossip --delivery pool
+    python -m cop5615_gossip_protocol_tpu_torch 1000000 full gossip \\
+        --fault-rate 0.2 --crash-schedule 3:10000 --quorum 0.9
 
 runs on the GPU (``--platform cuda``, the default) or, when asked, on the
 CPU (``--platform cpu``). Flags keep the JAX CLI's names; a JAX CLI flag
@@ -28,15 +30,14 @@ from .config import SimConfig, normalize_algorithm, normalize_topology
 # JAX CLI flags not ported yet, with the ROADMAP item that ports each.
 UNPORTED_FLAGS = {
     "--backend": "A11", "--dtype": "A12", "--x64": "A12",
-    "--termination": "A6", "--deadline-ms": "A12",
+    "--deadline-ms": "A12",
     "--halo-dma": "A10", "--distributed": "A10",
     "--coordinator": "A10", "--num-processes": "A10", "--process-id": "A10",
-    "--replicas": "A9", "--fault-rate": "A6", "--crash-rate": "A6",
-    "--crash-schedule": "A6", "--revive-rate": "A6",
-    "--revive-schedule": "A6", "--rejoin": "A6", "--byzantine-rate": "A6",
-    "--byzantine-schedule": "A6", "--byzantine-mode": "A6",
-    "--robust-agg": "A6", "--mass-tolerance": "A6", "--quorum": "A6",
-    "--telemetry": "A6", "--trace-convergence": "A6",
+    "--replicas": "A9", "--revive-rate": "A6b",
+    "--revive-schedule": "A6b", "--rejoin": "A6b", "--byzantine-rate": "A6c",
+    "--byzantine-schedule": "A6c", "--byzantine-mode": "A6c",
+    "--robust-agg": "A6c", "--mass-tolerance": "A6c",
+    "--telemetry": "A6d", "--trace-convergence": "A6d",
     "--dup-rate": "A7b", "--delay-rounds": "A7b",
     "--stall-chunks": "A8", "--profile": "A8", "--metrics-dump": "A8",
     "--step-timing": "A8", "--events": "A8", "--checkpoint": "A8",
@@ -66,6 +67,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="push-sum stability threshold (default 1e-6 in float32)")
     p.add_argument("--rumor-threshold", type=int, default=10)
     p.add_argument("--term-rounds", type=int, default=3)
+    p.add_argument("--termination", choices=["local", "global"], default="local",
+                   help="push-sum stop rule: local = the reference's per-node "
+                   "consecutive-stability latch (program.fs:119-137); global "
+                   "= stop when every node's per-round relative ratio change "
+                   "is <= delta (the honest global-residual criterion)")
     p.add_argument("--max-rounds", type=int, default=1_000_000)
     p.add_argument("--chunk-rounds", type=int, default=4096)
     p.add_argument("--pipeline-chunks", type=int, default=2,
@@ -74,6 +80,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--suppress", choices=["auto", "on", "off"], default="auto",
                    help="suppress gossip sends to converged targets "
                    "(auto: on in reference semantics)")
+    p.add_argument("--fault-rate", type=float, default=0.0,
+                   help="per-round probability a node fails to send (fault injection)")
+    p.add_argument("--crash-rate", type=float, default=0.0,
+                   help="crash-stop churn: per-round probability each node "
+                   "dies permanently (dead nodes neither send nor advance; "
+                   "push-sum mass parks on them, conserved)")
+    p.add_argument("--crash-schedule", type=str, default=None,
+                   metavar="ROUND:COUNT,...",
+                   help="deterministic crash-stop schedule: kill COUNT "
+                   "uniformly random nodes at each listed round "
+                   "(mutually exclusive with --crash-rate)")
+    p.add_argument("--quorum", type=float, default=1.0,
+                   help="crash-model termination: fraction of LIVE nodes "
+                   "that must be converged to end the run (default 1.0)")
     p.add_argument("--delivery",
                    choices=["auto", "scatter", "stencil", "pool", "matmul"],
                    default="auto",
@@ -171,7 +191,14 @@ def main(argv: Optional[list[str]] = None) -> int:
             n_devices=args.devices,
             pool2_wire=args.pool2_wire,
             overlap_collectives=args.overlap_collectives == "on",
+            fault_rate=args.fault_rate,
+            crash_rate=args.crash_rate,
+            crash_schedule=args.crash_schedule,
+            quorum=args.quorum,
+            termination=args.termination,
         )
+        for w in cfg.lint_warnings:
+            print(f"Warning: {w}", file=sys.stderr)
         print(metrics.banner(cfg))
         t0 = time.perf_counter()
         topo = build_topology(kind, args.numNodes, seed=args.seed,

@@ -8,8 +8,11 @@ or ``delivery="pool"``, on the six arithmetic lattices (line, ring,
 grid2d, ref2d, grid3d, torus3d) with stencil (the default) or scatter
 delivery, and reference-semantics push-sum as the single walk.
 ``n_devices``, ``pool2_wire`` and ``overlap_collectives`` configure the
-sharded compositions (models/runner.run says which run);
-every other field keeps its default here, and setting it
+sharded compositions (models/runner.run says which run); ``fault_rate``,
+``crash_rate``/``crash_schedule`` with ``quorum``, and ``termination``
+set the drop gate, crash-stop with quorum termination and push-sum's
+global termination (ops/faults.py). Every other field keeps its default
+here, and setting it
 to anything else raises NotImplementedError naming the ROADMAP item that
 will port it.
 """
@@ -50,20 +53,15 @@ _CLI_ALGORITHM_ALIASES = {
 # (field, default, ROADMAP item) for every field this slice does not port.
 _UNPORTED = (
     ("dtype", "float32", "A12"),
-    ("fault_rate", 0.0, "A6"),
-    ("crash_rate", 0.0, "A6"),
-    ("crash_schedule", None, "A6"),
-    ("revive_rate", 0.0, "A6"),
-    ("revive_schedule", None, "A6"),
-    ("rejoin", "restore", "A6"),
-    ("byzantine_rate", 0.0, "A6"),
-    ("byzantine_schedule", None, "A6"),
-    ("byzantine_mode", "mass_inflate", "A6"),
-    ("robust_agg", "none", "A6"),
-    ("quorum", 1.0, "A6"),
-    ("mass_tolerance", None, "A6"),
-    ("telemetry", False, "A6"),
-    ("termination", "local", "A6"),
+    ("revive_rate", 0.0, "A6b"),
+    ("revive_schedule", None, "A6b"),
+    ("rejoin", "restore", "A6b"),
+    ("byzantine_rate", 0.0, "A6c"),
+    ("byzantine_schedule", None, "A6c"),
+    ("byzantine_mode", "mass_inflate", "A6c"),
+    ("robust_agg", "none", "A6c"),
+    ("mass_tolerance", None, "A6c"),
+    ("telemetry", False, "A6d"),
     ("dup_rate", 0.0, "A7b"),
     ("delay_rounds", 0, "A7b"),
     ("stall_chunks", 0, "A8"),
@@ -179,6 +177,43 @@ class SimConfig:
             raise ValueError("term_rounds must be >= 1")
         if self.rumor_threshold < 1:
             raise ValueError("rumor_threshold must be >= 1")
+        if not (0.0 <= self.fault_rate < 1.0):
+            raise ValueError("fault_rate must be in [0, 1)")
+        if not (0.0 <= self.crash_rate < 1.0):
+            raise ValueError("crash_rate must be in [0, 1)")
+        if self.crash_schedule is not None:
+            if self.crash_rate > 0:
+                raise ValueError(
+                    "crash_rate and crash_schedule are mutually exclusive "
+                    "(the schedule IS the death process)"
+                )
+            from .ops.faults import parse_crash_schedule
+
+            parse_crash_schedule(self.crash_schedule)  # fail at config time
+        if not (0.0 < self.quorum <= 1.0):
+            raise ValueError(f"quorum must be in (0, 1], got {self.quorum}")
+        for lint in self.lint_warnings:
+            import warnings
+
+            warnings.warn(lint, RuntimeWarning, stacklevel=2)
+        if self.semantics == "reference" and self.crash_model:
+            raise ValueError(
+                "crash/dup/delay/byzantine fault models (and robust_agg) "
+                "contradict reference semantics — the reference models zero "
+                "faults (program.fs has no failure path); use batched "
+                "semantics"
+            )
+        if self.crash_model and self.termination == "global":
+            raise ValueError(
+                "termination='global' (every node's residual stable) is "
+                "undefined under a crash model — dead nodes park arriving "
+                "mass and never stabilize; use the local latch with quorum"
+            )
+        if self.crash_model and self.target_frac is not None:
+            raise ValueError(
+                "target_frac and the crash model's quorum rule are two "
+                "different termination targets; use quorum"
+            )
         if not (1 <= self.max_rounds <= 2**30):
             # Keeps round-indexed fold_in tags disjoint from the leader tag.
             raise ValueError("max_rounds must be in [1, 2**30]")
@@ -262,15 +297,51 @@ class SimConfig:
                     "flight) has no multi-round batched kernel; drop the "
                     "engine override or use batched semantics"
                 )
+        if self.termination not in ("local", "global"):
+            raise ValueError(
+                f"unknown termination {self.termination!r}; expected local|global"
+            )
+        if self.termination == "global" and self.algorithm != "push-sum":
+            raise ValueError(
+                "termination='global' is a push-sum residual criterion "
+                "(max |Δ(s/w)| <= delta); gossip terminates on receipt "
+                "counts only"
+            )
+        if self.termination == "global" and self.semantics == "reference":
+            raise ValueError(
+                "termination='global' replaces the reference's local "
+                "stability rule (program.fs:119-137) and contradicts "
+                "reference semantics; use batched semantics"
+            )
 
     @property
     def reference(self) -> bool:
         return self.semantics == "reference"
 
     @property
+    def crash_model(self) -> bool:
+        """True when nodes can die (ops/faults.death_plane is not None)."""
+        return self.crash_rate > 0.0 or self.crash_schedule is not None
+
+    @property
+    def lint_warnings(self) -> tuple[str, ...]:
+        """Valid-but-suspect combinations, as the JAX package words them:
+        the CLI prints each to stderr, and __post_init__ raises each as a
+        RuntimeWarning."""
+        out = []
+        if self.quorum != 1.0 and not self.crash_model:
+            out.append(
+                "quorum < 1.0 without a crash model has no effect (the "
+                "legacy converged_count >= target predicate rules); set "
+                "crash_rate/crash_schedule, or use target_frac to relax a "
+                "fault-free target"
+            )
+        return tuple(out)
+
+    @property
     def faulted(self) -> bool:
         """Any failure-model knob set (the JAX property the fused plans
-        gate on; every such knob is refused above until A6 and A7b)."""
+        gate on; dup, delay and Byzantine knobs are refused above)."""
         return (self.fault_rate > 0.0 or self.crash_rate > 0.0
                 or self.crash_schedule is not None or self.dup_rate > 0.0
                 or self.delay_rounds > 0 or self.byzantine_rate > 0.0

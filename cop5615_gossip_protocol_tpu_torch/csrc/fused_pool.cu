@@ -69,6 +69,25 @@
 // flag, and every block of the persistent launch reads it at entry and
 // leaves. No send plane is written: the halve happens on the gather.
 //
+// Failure model (the JAX kernels' use_gate, crashed and global_term,
+// ops/fused_pool.py:519-536, :897-903): a template flag F picks each round
+// kernel's faulted instance, so the fault-free one keeps its code. Under F
+// a node's mark for round r + 1 is -1 when its drop-gate word (a Threefry
+// word a node off the round's gate key, its round key folded with the gate
+// tag as ops/fused.gate_round_keys folds it, hashed at the node's flat
+// index: the partitionable stream is position-wise) is below
+// the threshold or the node is dead then; it is folded in where round r's
+// pass writes that mark, so the mark planes' parity is unchanged. A
+// push-sum node sends iff its own mark is set, so a blocked node keeps its
+// whole mass. A dead node's term and conv (gossip: its receipts) stay while
+// its s and w absorb, and the barrier word counts conv among the live
+// nodes against the round's quorum need (a table the host draws from the
+// sorted death plane, ops/faults.quorum_needs); the init launch seeds the
+// verdict from the need of round start - 1. Under global termination term
+// and conv stay, the barrier word counts the real nodes whose ratio moved
+// more than delta * max(|s/w|, 1), and the round where none did latches
+// conv on every real node.
+//
 // Numerics: built without fast math, with -fmad=false and denormals kept
 // (utils/kernels.py), and the slot sums run from 0.0 in ascending slot
 // order, so push-sum is bitwise the plain version.
@@ -94,6 +113,19 @@ using gossip::round_barrier;
 using gossip::word_node;
 using gossip::zero_control;
 
+// A chunk's failure model (the kernels' F = true instance): the drop gate's
+// threshold (0: no gate; each round's gate key is its round key folded with
+// the gate tag, csrc/faults.cuh gate_key, once a thread a round), each
+// node's death round over the padded layout (pad lanes 0; null: no crash
+// model) with each round's quorum need, the chunk's first absolute round,
+// and global termination (push-sum).
+struct Faults {
+  uint32_t thresh;
+  const int* death;
+  const int* needs;
+  int start, global;
+};
+
 // A chunk's arguments, passed to its persistent kernel by value.
 struct PushSumChunk {
   PushSumPlanes a;  // the result; term and conv are updated in place
@@ -107,6 +139,7 @@ struct PushSumChunk {
   int term_rounds, target;
   unsigned long long* words;  // the barrier words: rounds, then the prologue's
   int* ctrl;
+  Faults f;
 };
 
 struct GossipChunk {
@@ -118,6 +151,7 @@ struct GossipChunk {
   int n, n_pad, rounds, rumor_target, suppress, target;
   unsigned long long* words;
   int* ctrl;
+  Faults f;
 };
 
 // Nodes of a thread's walk whose loads (own state and slot gathers) are
@@ -133,36 +167,73 @@ constexpr int kGossipStep = 4;
 constexpr int kActive = 1;
 constexpr int kConv = 2;
 
+// Node j's mark for chunk round k (absolute round f.start + k) under F:
+// its pool mark, or -1 when the round's gate (key (g1, g2)) blocks it or it
+// is dead then.
+template <bool F>
+__device__ __forceinline__ int8_t faulted_mark(int8_t mark, const Faults& f,
+                                               int k, uint32_t g1, uint32_t g2,
+                                               int j) {
+  if (!F || mark < 0) return mark;
+  if (f.death != nullptr && !gossip::alive_in(f.death[j], f.start + k))
+    return (int8_t)-1;
+  if (!gossip::gate_open(g1, g2, f.thresh, j)) return (int8_t)-1;
+  return mark;
+}
+
+// The gate key of the round whose fold_in key is (k0, k1), under F with a
+// gate; (0, 0) otherwise (unused then).
+template <bool F>
+__device__ __forceinline__ void round_gate_key(const Faults& f, uint32_t k0,
+                                               uint32_t k1, uint32_t& g1,
+                                               uint32_t& g2) {
+  g1 = g2 = 0u;
+  if (F && f.thresh != 0u) gossip::gate_key(k0, k1, g1, g2);
+}
+
 // Round 0's marks into mark[0], a thread a packed word as in the rounds;
 // `flags` is gossip's flags plane (only active nodes send) or null
-// (push-sum: every real node sends).
-template <int P>
+// (push-sum: every real node sends); under F the gate and the dead mark -1.
+template <int P, bool F>
 __device__ __forceinline__ void prologue_marks(int8_t* mark,
                                                const int8_t* flags,
-                                               const long long* keys, int n,
-                                               int n_pad) {
+                                               const long long* keys, Faults f,
+                                               int n, int n_pad) {
   const uint32_t k0 = (uint32_t)keys[0], k1 = (uint32_t)keys[1];
+  uint32_t g1, g2;
+  round_gate_key<F>(f, k0, k1, g1, g2);
   for (int wi = blockIdx.x * kBlock + threadIdx.x; wi < n_pad / kChoicePack;
        wi += gridDim.x * kBlock) {
     const uint32_t word = pool_word(k0, k1, word_node(wi, 0));
     for (int sub = 0; sub < kChoicePack; ++sub) {
       const int j = word_node(wi, sub);
-      mark[j] = flags == nullptr || (flags[j] & kActive)
-                    ? pool_mark(word, j, n, P)
-                    : (int8_t)-1;
+      mark[j] = faulted_mark<F>(flags == nullptr || (flags[j] & kActive)
+                                    ? pool_mark(word, j, n, P)
+                                    : (int8_t)-1,
+                                f, 0, g1, g2, j);
     }
   }
 }
 
 // ---------------------------------------------------------------- push-sum
 
-template <int P>
+// F: the failure model. A node's mark for round r + 1 is -1 when the gate
+// blocks it or it is dead then, and a node sends in a round iff its own
+// mark is set, so a blocked node keeps its whole mass. A dead node's term
+// and conv stay as they were while its s and w absorb, and the verdict is
+// the round's quorum need among the live nodes. Under global termination
+// term and conv are left alone, the barrier word counts the real nodes
+// whose ratio moved more than the global rule allows, and the round where
+// none did latches conv on every real node. F = false is the fault-free
+// kernel, with none of these loads or tests.
+template <int P, bool F>
 __global__ void pushsum_rounds(PushSumChunk c) {
   // The init launch's verdict: every block reads the same value.
   if (c.ctrl[0] || c.rounds == 0) return;
-  prologue_marks<P>(c.mark, nullptr, c.keys, c.n, c.n_pad);
+  prologue_marks<P, F>(c.mark, nullptr, c.keys, c.f, c.n, c.n_pad);
   round_barrier(c.words + c.rounds, 0);
   const PushSumPlanes a = c.a;
+  const bool global = F && c.f.global;
   int executed = 0;
   bool done = false;
   while (!done && executed < c.rounds) {
@@ -177,6 +248,8 @@ __global__ void pushsum_rounds(PushSumChunk c) {
         r + 1 < c.rounds ? c.mark + ((r + 1) & 1) * c.n_pad : nullptr;
     const uint32_t k0 = next ? (uint32_t)c.keys[2 * r + 2] : 0u;
     const uint32_t k1 = next ? (uint32_t)c.keys[2 * r + 3] : 0u;
+    uint32_t g1, g2;
+    round_gate_key<F>(c.f, k0, k1, g1, g2);
     int count = 0;
     for (int wi = blockIdx.x * kBlock + threadIdx.x; wi < c.n_pad / kChoicePack;
          wi += gridDim.x * kBlock) {
@@ -206,25 +279,64 @@ __global__ void pushsum_rounds(PushSumChunk c) {
         for (int h = 0; h < kPushSumStep; ++h) {
           const int j = word_node(wi, sub0 + h);
           const bool pad = j >= c.n;
-          // Every real node sends; pad lanes keep their mass.
           float s_new, w_new;
           int t_new;
-          const int cv = gossip::pushsum_absorb(
-              s_t[h], w_t[h], [&] { return t_old[h]; },
-              [&] { return c_old[h] != 0; }, pad, !pad, in_s[h], in_w[h],
-              c.delta, c.term_rounds, s_new, w_new, t_new);
-          nxt_s[j] = s_new;
-          nxt_w[j] = w_new;
-          a.term[j] = t_new;
-          a.conv[j] = cv;
-          if (next) next[j] = pool_mark(word, j, c.n, P);
-          count += cv;
+          if constexpr (!F) {
+            // Every real node sends; pad lanes keep their mass.
+            const int cv = gossip::pushsum_absorb(
+                s_t[h], w_t[h], [&] { return t_old[h]; },
+                [&] { return c_old[h] != 0; }, pad, !pad, in_s[h], in_w[h],
+                c.delta, c.term_rounds, s_new, w_new, t_new);
+            nxt_s[j] = s_new;
+            nxt_w[j] = w_new;
+            a.term[j] = t_new;
+            a.conv[j] = cv;
+            if (next) next[j] = pool_mark(word, j, c.n, P);
+            count += cv;
+          } else {
+            // A node sends iff its mark is set; a dead node's term and conv
+            // stay, and only live nodes count.
+            const bool alive = c.f.death == nullptr ||
+                               gossip::alive_in(c.f.death[j], c.f.start + r);
+            int cv = gossip::pushsum_absorb(
+                s_t[h], w_t[h], [&] { return t_old[h]; },
+                [&] { return c_old[h] != 0; }, pad, mk[j] >= 0, in_s[h],
+                in_w[h], c.delta, c.term_rounds, s_new, w_new, t_new);
+            nxt_s[j] = s_new;
+            nxt_w[j] = w_new;
+            if (global) {
+              cv = !pad && gossip::unstable_global(s_t[h], w_t[h], s_new, w_new,
+                                                   c.delta);
+            } else {
+              t_new = gossip::frozen(alive, t_new, t_old[h]);
+              cv = gossip::frozen(alive, cv, c_old[h]);
+              a.term[j] = t_new;
+              a.conv[j] = cv;
+            }
+            if (next)
+              next[j] = faulted_mark<F>(pool_mark(word, j, c.n, P), c.f, r + 1,
+                                        g1, g2, j);
+            count += alive ? cv : 0;
+          }
         }
       }
     }
-    done = round_barrier(c.words + r, block_sum(count)) >= c.target;
+    if constexpr (!F) {
+      done = round_barrier(c.words + r, block_sum(count)) >= c.target;
+    } else {
+      const int total = round_barrier(c.words + r, block_sum(count));
+      // Global: the round's unstable count; crash: the round's quorum need.
+      done = global ? total == 0
+                    : total >= (c.f.death ? c.f.needs[r] : c.target);
+    }
     ++executed;
   }
+  // Global termination: the round whose verdict ended the run latches conv
+  // on every real node.
+  if (global && done)
+    for (int j = blockIdx.x * kBlock + threadIdx.x; j < c.n_pad;
+         j += gridDim.x * kBlock)
+      a.conv[j] = j < c.n ? 1 : 0;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     c.ctrl[0] = done ? 1 : 0;
     c.ctrl[1] = executed;
@@ -245,10 +357,14 @@ __global__ void pushsum_finish(PushSumChunk c) {
 // ------------------------------------------------------------------ gossip
 
 // The input into A, the flags packed from the input's active and conv
-// planes, and the done flag seeded from the input's converged count.
+// planes, and the done flag seeded from the input's converged count; under
+// a crash model (`death` not null), from its converged live count at
+// `seed_round` (the round before the chunk) against `target` (that
+// round's quorum need).
 __global__ void gossip_init(GossipChunk c, const int* __restrict__ n0,
                             const int* __restrict__ a0,
-                            const int* __restrict__ c0, int* total,
+                            const int* __restrict__ c0, const int* death,
+                            int seed_round, int target, int* total,
                             unsigned* ticket) {
   int converged = 0;
   for (int j = blockIdx.x * kBlock + threadIdx.x; j < c.n_pad;
@@ -258,9 +374,32 @@ __global__ void gossip_init(GossipChunk c, const int* __restrict__ n0,
     c.a.conv[j] = c0[j];
     c.flags[j] =
         (int8_t)((a0[j] != 0 ? kActive : 0) | (c0[j] != 0 ? kConv : 0));
-    converged += c0[j];
+    if (death == nullptr || gossip::alive_in(death[j], seed_round))
+      converged += c0[j];
   }
-  gossip::finish_count(block_sum(converged), total, ticket, c.ctrl, c.target,
+  gossip::finish_count(block_sum(converged), total, ticket, c.ctrl, target,
+                       false);
+}
+
+// The push-sum input into A, with the seed verdict of gossip_init (the
+// crash model's form; the fault-free chunk uses chunk.cuh's pushsum_init).
+__global__ void pushsum_init_live(const float* __restrict__ s0,
+                                  const float* __restrict__ w0,
+                                  const int* __restrict__ t0,
+                                  const int* __restrict__ c0, PushSumPlanes a,
+                                  int n_pad, const int* death, int seed_round,
+                                  int* total, unsigned* ticket, int* ctrl,
+                                  int target) {
+  int converged = 0;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    a.s[j] = s0[j];
+    a.w[j] = w0[j];
+    a.term[j] = t0[j];
+    a.conv[j] = c0[j];
+    if (gossip::alive_in(death[j], seed_round)) converged += c0[j];
+  }
+  gossip::finish_count(block_sum(converged), total, ticket, ctrl, target,
                        false);
 }
 
@@ -268,10 +407,13 @@ __global__ void gossip_init(GossipChunk c, const int* __restrict__ n0,
 // read its marks), so they are updated in place: count in A, the two flags
 // in one byte, 5 bytes a node each way a round where three int32 ping/pong
 // planes moved 12.
-template <int P>
+// F: the failure model, as in pushsum_rounds: blocked and dead nodes mark
+// -1, a dead node's inbox counts nothing (its count and active flag stay),
+// and the verdict is the quorum need among the live nodes.
+template <int P, bool F>
 __global__ void gossip_rounds(GossipChunk c) {
   if (c.ctrl[0] || c.rounds == 0) return;
-  prologue_marks<P>(c.mark, c.flags, c.keys, c.n, c.n_pad);
+  prologue_marks<P, F>(c.mark, c.flags, c.keys, c.f, c.n, c.n_pad);
   round_barrier(c.words + c.rounds, 0);
   int executed = 0;
   bool done = false;
@@ -283,6 +425,8 @@ __global__ void gossip_rounds(GossipChunk c) {
         r + 1 < c.rounds ? c.mark + ((r + 1) & 1) * c.n_pad : nullptr;
     const uint32_t k0 = next ? (uint32_t)c.keys[2 * r + 2] : 0u;
     const uint32_t k1 = next ? (uint32_t)c.keys[2 * r + 3] : 0u;
+    uint32_t g1, g2;
+    round_gate_key<F>(c.f, k0, k1, g1, g2);
     int count = 0;
     for (int wi = blockIdx.x * kBlock + threadIdx.x; wi < c.n_pad / kChoicePack;
          wi += gridDim.x * kBlock) {
@@ -302,20 +446,43 @@ __global__ void gossip_rounds(GossipChunk c) {
         for (int h = 0; h < kGossipStep; ++h) {
           const int j = word_node(wi, sub0 + h);
           int cnt, act;
-          const int cv = gossip::gossip_absorb(
-              [&] { return (flags0[h] & kConv) != 0; },
-              [&] { return count0[h]; }, [&] { return flags0[h] & kActive; },
-              j >= c.n, inbox[h],
-              c.rumor_target, c.suppress, cnt, act);
-          c.a.count[j] = cnt;
-          c.flags[j] = (int8_t)((act ? kActive : 0) | (cv ? kConv : 0));
-          if (next)
-            next[j] = act ? pool_mark(word, j, c.n, P) : (int8_t)-1;
-          count += cv;
+          if constexpr (!F) {
+            const int cv = gossip::gossip_absorb(
+                [&] { return (flags0[h] & kConv) != 0; },
+                [&] { return count0[h]; }, [&] { return flags0[h] & kActive; },
+                j >= c.n, inbox[h],
+                c.rumor_target, c.suppress, cnt, act);
+            c.a.count[j] = cnt;
+            c.flags[j] = (int8_t)((act ? kActive : 0) | (cv ? kConv : 0));
+            if (next)
+              next[j] = act ? pool_mark(word, j, c.n, P) : (int8_t)-1;
+            count += cv;
+          } else {
+            // A dead node's receipts are dropped; only live nodes count.
+            const bool alive = c.f.death == nullptr ||
+                               gossip::alive_in(c.f.death[j], c.f.start + r);
+            const int cv = gossip::gossip_absorb(
+                [&] { return (flags0[h] & kConv) != 0; },
+                [&] { return count0[h]; }, [&] { return flags0[h] & kActive; },
+                j >= c.n, alive ? inbox[h] : 0,
+                c.rumor_target, c.suppress, cnt, act);
+            c.a.count[j] = cnt;
+            c.flags[j] = (int8_t)((act ? kActive : 0) | (cv ? kConv : 0));
+            if (next)
+              next[j] = act ? faulted_mark<F>(pool_mark(word, j, c.n, P), c.f,
+                                              r + 1, g1, g2, j)
+                            : (int8_t)-1;
+            count += alive ? cv : 0;
+          }
         }
       }
     }
-    done = round_barrier(c.words + r, block_sum(count)) >= c.target;
+    if constexpr (!F) {
+      done = round_barrier(c.words + r, block_sum(count)) >= c.target;
+    } else {
+      const int total = round_barrier(c.words + r, block_sum(count));
+      done = total >= (c.f.death ? c.f.needs[r] : c.target);
+    }
     ++executed;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -337,8 +504,8 @@ __global__ void gossip_finish(GossipChunk c) {
 
 // The persistent grid of each kernel instance, asked once a device: one
 // cache a pool width (2, 4, 8, 16).
-int pushsum_grid_cache[4][64];
-int gossip_grid_cache[4][64];
+int pushsum_grid_cache[2][4][64];
+int gossip_grid_cache[2][4][64];
 
 constexpr int width_index(int pool_size) {
   return pool_size == 2 ? 0 : pool_size == 4 ? 1 : pool_size == 8 ? 2 : 3;
@@ -346,49 +513,70 @@ constexpr int width_index(int pool_size) {
 
 // Queues a push-sum chunk at pool width P: init, the persistent launch,
 // finish, all three on the persistent grid.
-template <int P>
+template <int P, bool F>
 cudaError_t queue_pushsum(PushSumChunk c, const float* s0, const float* w0,
-                          const int* t0, const int* c0, int device,
-                          cudaStream_t stream) {
+                          const int* t0, const int* c0, int need_init,
+                          int device, cudaStream_t stream) {
   int grid = 0;
-  cudaError_t err = cooperative_grid(pushsum_rounds<P>, c.n_pad / kChoicePack,
-                                     device,
-                                     pushsum_grid_cache[width_index(P)], &grid);
+  cudaError_t err = cooperative_grid(
+      pushsum_rounds<P, F>, c.n_pad / kChoicePack, device,
+      pushsum_grid_cache[F ? 1 : 0][width_index(P)], &grid);
   if (err != cudaSuccess) return err;
   int* init_words = (int*)(c.words + c.rounds + 1);
-  gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
-      s0, w0, t0, c0, c.a, c.n_pad, init_words, (unsigned*)(init_words + 1),
-      c.ctrl, c.target);
+  if (F && c.f.death != nullptr)
+    pushsum_init_live<<<grid, kBlock, 0, stream>>>(
+        s0, w0, t0, c0, c.a, c.n_pad, c.f.death, c.f.start - 1, init_words,
+        (unsigned*)(init_words + 1), c.ctrl, need_init);
+  else
+    gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
+        s0, w0, t0, c0, c.a, c.n_pad, init_words, (unsigned*)(init_words + 1),
+        c.ctrl, c.target);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   void* args[] = {&c};
-  err = cudaLaunchCooperativeKernel((const void*)pushsum_rounds<P>, grid,
+  err = cudaLaunchCooperativeKernel((const void*)pushsum_rounds<P, F>, grid,
                                     kBlock, args, 0, stream);
   if (err != cudaSuccess) return err;
   pushsum_finish<<<grid, kBlock, 0, stream>>>(c);
   return cudaGetLastError();
 }
 
-template <int P>
+template <int P, bool F>
 cudaError_t queue_gossip(GossipChunk c, const int* n0, const int* a0,
-                         const int* c0, int device, cudaStream_t stream) {
+                         const int* c0, int need_init, int device,
+                         cudaStream_t stream) {
   int grid = 0;
-  cudaError_t err = cooperative_grid(gossip_rounds<P>, c.n_pad / kChoicePack,
-                                     device,
-                                     gossip_grid_cache[width_index(P)], &grid);
+  cudaError_t err = cooperative_grid(
+      gossip_rounds<P, F>, c.n_pad / kChoicePack, device,
+      gossip_grid_cache[F ? 1 : 0][width_index(P)], &grid);
   if (err != cudaSuccess) return err;
   int* init_words = (int*)(c.words + c.rounds + 1);
-  gossip_init<<<grid, kBlock, 0, stream>>>(c, n0, a0, c0, init_words,
-                                           (unsigned*)(init_words + 1));
+  const bool crash = F && c.f.death != nullptr;
+  gossip_init<<<grid, kBlock, 0, stream>>>(
+      c, n0, a0, c0, crash ? c.f.death : nullptr, c.f.start - 1,
+      crash ? need_init : c.target, init_words, (unsigned*)(init_words + 1));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   void* args[] = {&c};
-  err = cudaLaunchCooperativeKernel((const void*)gossip_rounds<P>, grid,
+  err = cudaLaunchCooperativeKernel((const void*)gossip_rounds<P, F>, grid,
                                     kBlock, args, 0, stream);
   if (err != cudaSuccess) return err;
   gossip_finish<<<grid, kBlock, 0, stream>>>(c);
   return cudaGetLastError();
 }
+
+// The instance of a queue function for pool width P and the failure model.
+#define GOSSIP_POOL_DISPATCH(fn, faulted, ...)                            \
+  switch (pool_size) {                                                    \
+    case 2: return (int)(faulted ? fn<2, true>(__VA_ARGS__)               \
+                                 : fn<2, false>(__VA_ARGS__));            \
+    case 4: return (int)(faulted ? fn<4, true>(__VA_ARGS__)               \
+                                 : fn<4, false>(__VA_ARGS__));            \
+    case 8: return (int)(faulted ? fn<8, true>(__VA_ARGS__)               \
+                                 : fn<8, false>(__VA_ARGS__));            \
+    default: return (int)(faulted ? fn<16, true>(__VA_ARGS__)             \
+                                  : fn<16, false>(__VA_ARGS__));          \
+  }
 
 bool valid_chunk(int n, int n_pad, int pool_size, int rounds) {
   return rounds >= 0 && n >= 2 && n <= n_pad &&
@@ -421,7 +609,8 @@ extern "C" int gossip_pushsum_pool_chunk(
     float* w, int* term, int* conv, float* s_b, float* w_b, int8_t* mark,
     const long long* keys, const int* offs, int* ctrl, int n, int n_pad,
     int pool_size, int rounds, float delta, int term_rounds, int target,
-    int device, void* stream_ptr) {
+    int faulted, unsigned thresh, const int* death, const int* needs,
+    int need_init, int start, int global, int device, void* stream_ptr) {
   if (!valid_chunk(n, n_pad, pool_size, rounds))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -433,13 +622,10 @@ extern "C" int gossip_pushsum_pool_chunk(
   const PushSumChunk c{PushSumPlanes{s, w, term, conv},
                        s_b, w_b, mark, keys, offs, n, n_pad, rounds, delta,
                        term_rounds, target,
-                       (unsigned long long*)(ctrl + 2), ctrl};
-  switch (pool_size) {
-    case 2: return (int)queue_pushsum<2>(c, s0, w0, t0, c0, device, stream);
-    case 4: return (int)queue_pushsum<4>(c, s0, w0, t0, c0, device, stream);
-    case 8: return (int)queue_pushsum<8>(c, s0, w0, t0, c0, device, stream);
-    default: return (int)queue_pushsum<16>(c, s0, w0, t0, c0, device, stream);
-  }
+                       (unsigned long long*)(ctrl + 2), ctrl,
+                       Faults{thresh, death, needs, start, global}};
+  GOSSIP_POOL_DISPATCH(queue_pushsum, faulted, c, s0, w0, t0, c0, need_init,
+                       device, stream)
 }
 
 extern "C" int gossip_gossip_pool_chunk(
@@ -447,7 +633,8 @@ extern "C" int gossip_gossip_pool_chunk(
     int* conv, int8_t* flags, int8_t* mark, const long long* keys,
     const int* offs, int* ctrl, int n, int n_pad,
     int pool_size, int rounds, int rumor_target, int suppress, int target,
-    int device, void* stream_ptr) {
+    int faulted, unsigned thresh, const int* death, const int* needs,
+    int need_init, int start, int device, void* stream_ptr) {
   if (!valid_chunk(n, n_pad, pool_size, rounds))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -458,11 +645,8 @@ extern "C" int gossip_gossip_pool_chunk(
   if (err != cudaSuccess) return (int)err;
   const GossipChunk c{GossipPlanes{count, active, conv}, flags, mark, keys,
                       offs, n, n_pad, rounds, rumor_target, suppress, target,
-                      (unsigned long long*)(ctrl + 2), ctrl};
-  switch (pool_size) {
-    case 2: return (int)queue_gossip<2>(c, n0, a0, c0, device, stream);
-    case 4: return (int)queue_gossip<4>(c, n0, a0, c0, device, stream);
-    case 8: return (int)queue_gossip<8>(c, n0, a0, c0, device, stream);
-    default: return (int)queue_gossip<16>(c, n0, a0, c0, device, stream);
-  }
+                      (unsigned long long*)(ctrl + 2), ctrl,
+                      Faults{thresh, death, needs, start, 0}};
+  GOSSIP_POOL_DISPATCH(queue_gossip, faulted, c, n0, a0, c0, need_init, device,
+                       stream)
 }

@@ -17,6 +17,7 @@
 #include <stdint.h>
 
 #include "stencil.cuh"
+#include "faults.cuh"
 #include "threefry.cuh"
 
 namespace gossip {

@@ -79,6 +79,20 @@
 // in the place pass, three 4-byte planes in place of the record, the scan
 // form, the grid, the loads of several nodes issued together).
 //
+// Failure model (the JAX chunked engine's targets_and_gate, _freeze_dead
+// and _done_predicate; push-sum's global termination): a template flag F
+// picks each kernel's faulted instance, so the fault-free one keeps its
+// code. A node sends round r + 1 only if its drop-gate word (csrc/faults.cuh)
+// passes and it is alive then: push-sum takes its ticket, and gossip its
+// send, in round r's absorb pass (the prologue: round start's), so a
+// push-sum node sends iff it holds a ticket. A dead node's protocol state
+// stays while push-sum's s and w absorb; the barrier word counts conv among
+// the live nodes against the round's quorum need (ops/faults.quorum_needs).
+// Under global termination no w inbox is kept apart (both halves' sums go
+// onto the kept halves, as XLA folds them there), the barrier word counts
+// the unstable nodes, term is left alone and conv is written after the last
+// verdict. The faulted push-sum instance runs two blocks an SM.
+//
 // Numerics: csrc/chunk.cuh's gossip absorb; built without fast math, with
 // -fmad=false and denormals kept (utils/kernels.py).
 
@@ -132,6 +146,33 @@ __device__ __forceinline__ int target_of(const Graph& g, uint32_t k1,
 
 __device__ __forceinline__ bool sends(const Graph& g, int j) {
   return g.nbr == nullptr || g.deg[j] > 0;
+}
+
+// A chunk's failure model (the kernels' F = true instance): the drop
+// gate's threshold (0: no gate), each node's death round (null: no crash
+// model) with each round's quorum need, and global termination (push-sum).
+struct Faults {
+  uint32_t thresh;
+  const int* death;  // int32 [n]
+  const int* needs;  // int32 [rounds]
+  int global;
+};
+
+// Whether node i may send in absolute round `round` (gate key (g1, g2)):
+// its gate word passes and it is alive.
+__device__ __forceinline__ bool may_send(const Faults& f, uint32_t g1,
+                                         uint32_t g2, int i, int round) {
+  return gossip::gate_open(g1, g2, f.thresh, i) &&
+         (f.death == nullptr || gossip::alive_in(f.death[i], round));
+}
+
+// The gate key of absolute round `round` under the run's key.
+__device__ __forceinline__ void round_gate_key(uint32_t key1, uint32_t key2,
+                                               uint32_t round, uint32_t& g1,
+                                               uint32_t& g2) {
+  uint32_t r1, r2;
+  gossip::scatter::round_key(key1, key2, round, r1, r2);
+  gossip::gate_key(r1, r2, g1, g2);
 }
 
 // Exclusive prefix of v over the block; total gets the block's sum.
@@ -200,6 +241,7 @@ struct GossipChunk {
   int rounds, rumor_target, suppress, target;
   unsigned long long* words;  // the barrier words: rounds, then the prologue's
   int* status;
+  Faults f;
 };
 
 __device__ __forceinline__ void gossip_send(const Graph& g, uint32_t k1,
@@ -208,6 +250,12 @@ __device__ __forceinline__ void gossip_send(const Graph& g, uint32_t k1,
   if (t >= 0) atomicAdd(&inbox[t], 1);
 }
 
+// F: the failure model. A node sends round r + 1 only if its gate word
+// passes and it is alive then; a dead node's count, active and conv stay
+// as they were (its receipts are dropped), and the verdict is the quorum
+// need of the round among the live nodes. F = false is the fault-free
+// kernel, with none of these loads or tests.
+template <bool F>
 __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
   // Every block reads the same status before block 0 writes it, at the end.
   if (c.status[1] || c.rounds == 0) return;
@@ -215,36 +263,49 @@ __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
   const int first = blockIdx.x * kBlock + threadIdx.x;
   const int stride = gridDim.x * kBlock;
   {
-    uint32_t k1, k2;
+    uint32_t k1, k2, g1 = 0u, g2 = 0u;
     gossip::scatter::round_key(c.key1, c.key2, c.start, k1, k2);
+    if (F) gossip::gate_key(k1, k2, g1, g2);
     for (int i = first; i < n; i += stride)
-      if (c.active[i]) gossip_send(c.g, k1, k2, i, c.inbox);
+      if (c.active[i] && (!F || may_send(c.f, g1, g2, i, (int)c.start)))
+        gossip_send(c.g, k1, k2, i, c.inbox);
   }
   round_barrier(c.words + c.rounds, 0);
   int executed = 0;
   bool done = false;
   while (!done && executed < c.rounds) {
     const int r = executed;
+    const int round = (int)c.start + r;  // absolute
     int* in = c.inbox + (size_t)(r & 1) * n;
     int* out = r + 1 < c.rounds ? c.inbox + (size_t)((r + 1) & 1) * n : nullptr;
-    uint32_t k1, k2;
+    uint32_t k1, k2, g1 = 0u, g2 = 0u;
     gossip::scatter::round_key(c.key1, c.key2, c.start + r + 1, k1, k2);
+    if (F) gossip::gate_key(k1, k2, g1, g2);
     int converged = 0;
     for (int j = first; j < n; j += stride) {
       const int got = in[j];
       if (got) in[j] = 0;
-      int cnt, act;
-      const int cv = gossip::gossip_absorb(
-          [&] { return (int)c.conv[j]; }, [&] { return c.count[j]; },
-          [&] { return (int)c.active[j]; }, false, got, c.rumor_target,
-          c.suppress, cnt, act);
-      c.count[j] = cnt;
-      c.active[j] = (uint8_t)act;
-      c.conv[j] = (uint8_t)cv;
-      if (out && act) gossip_send(c.g, k1, k2, j, out);
-      converged += cv;
+      const bool alive = !F || c.f.death == nullptr ||
+                         gossip::alive_in(c.f.death[j], round);
+      int cnt, act, cv;
+      if (alive) {
+        cv = gossip::gossip_absorb(
+            [&] { return (int)c.conv[j]; }, [&] { return c.count[j]; },
+            [&] { return (int)c.active[j]; }, false, got, c.rumor_target,
+            c.suppress, cnt, act);
+        c.count[j] = cnt;
+        c.active[j] = (uint8_t)act;
+        c.conv[j] = (uint8_t)cv;
+      } else {
+        act = c.active[j];
+        cv = c.conv[j];
+      }
+      if (out && act && (!F || may_send(c.f, g1, g2, j, round + 1)))
+        gossip_send(c.g, k1, k2, j, out);
+      converged += alive ? cv : 0;
     }
-    done = round_barrier(c.words + r, block_sum(converged)) >= c.target;
+    const int total = round_barrier(c.words + r, block_sum(converged));
+    done = total >= (F && c.f.death ? c.f.needs[r] : c.target);
     ++executed;
   }
   // Stopped at done before the cap: round `executed`'s sends are staged.
@@ -277,6 +338,7 @@ struct PushSumChunk {
   int term_rounds, target;
   unsigned long long* words;  // the barrier words: 3 a round, then the prologue's
   int* status;
+  Faults f;
 };
 
 // Sender i's target under (k1, k2) and its rank in that bucket of cnt.
@@ -288,24 +350,40 @@ __device__ __forceinline__ Ticket count_send(const Graph& g, uint32_t k1,
 
 // Three blocks an SM (80 registers): with no minimum, ptxas gives this
 // kernel 64 registers and spills (scripts/scatter_round_variants.py, lb0).
-__global__ void __launch_bounds__(kBlock, 3) pushsum_rounds(PushSumChunk c) {
+// The faulted instance spills at 80 (its gate key and the node's death
+// round and ticket stay live through the absorb): two blocks an SM.
+// F: the failure model, as in gossip_rounds. A sender takes a ticket for
+// round r + 1 only if its gate word passes and it is alive then, so it
+// sends in a round iff it holds a ticket (target >= 0), and a node that
+// does not send keeps its whole mass. A dead node's term and conv stay as
+// they were while its s and w absorb. Under global termination the barrier
+// word counts the unstable nodes, term is left alone, and conv is written
+// after the last verdict: 1 everywhere if it ended the run, else 0.
+template <bool F>
+__global__ void __launch_bounds__(kBlock, F ? 2 : 3)
+    pushsum_rounds(PushSumChunk c) {
   if (c.status[1] || c.rounds == 0) return;
   __shared__ int base[kMaxGrid];  // every block's bucket base
   const int n = c.g.n;
   const Slices sl = gossip::scatter::make_slices(n, gridDim.x);
   const int lo = gossip::scatter::slice_lo(sl, blockIdx.x);
   const int hi = gossip::scatter::slice_hi(sl, blockIdx.x);
+  const bool global = F && c.f.global;
   {
-    uint32_t k1, k2;
+    uint32_t k1, k2, g1 = 0u, g2 = 0u;
     gossip::scatter::round_key(c.key1, c.key2, c.start, k1, k2);
+    if (F) gossip::gate_key(k1, k2, g1, g2);
     for (int i = lo + threadIdx.x; i < hi; i += kBlock)
-      c.tick[i] = count_send(c.g, k1, k2, i, c.cnt);
+      c.tick[i] = !F || may_send(c.f, g1, g2, i, (int)c.start)
+                      ? count_send(c.g, k1, k2, i, c.cnt)
+                      : Ticket{-1, 0};
   }
   round_barrier(c.words + 3 * c.rounds, 0);
   int executed = 0;
   bool done = false;
   while (!done && executed < c.rounds) {
     const int r = executed;
+    const int round = (int)c.start + r;  // absolute
     int* cnt = c.cnt + (size_t)(r & 1) * n;
     int* cnt_next = c.cnt + (size_t)((r + 1) & 1) * n;
 
@@ -333,8 +411,9 @@ __global__ void __launch_bounds__(kBlock, 3) pushsum_rounds(PushSumChunk c) {
 
     // Absorb, and the next round's targets and ranks.
     const bool next = r + 1 < c.rounds;
-    uint32_t k1, k2;
+    uint32_t k1, k2, g1 = 0u, g2 = 0u;
     gossip::scatter::round_key(c.key1, c.key2, c.start + r + 1, k1, k2);
+    if (F) gossip::gate_key(k1, k2, g1, g2);
     const int mine = base[blockIdx.x];
     int converged = 0;
     for (int j = lo + threadIdx.x; j < hi; j += kBlock) {
@@ -345,24 +424,48 @@ __global__ void __launch_bounds__(kBlock, 3) pushsum_rounds(PushSumChunk c) {
       const float s_t = c.s[j], w_t = c.w[j];
       const int t_old = c.term[j];
       const bool c_old = c.conv[j] != 0;
-      const Ticket tk = next ? count_send(c.g, k1, k2, j, cnt_next) : Ticket{-1, 0};
+      const bool sent = F ? c.tick[j].target >= 0 : sends(c.g, j);
+      const bool alive = !F || c.f.death == nullptr ||
+                         gossip::alive_in(c.f.death[j], round);
+      const Ticket tk =
+          next && (!F || may_send(c.f, g1, g2, j, round + 1))
+              ? count_send(c.g, k1, k2, j, cnt_next)
+              : Ticket{-1, 0};
       float s_new, w_new;
-      int t_new;
-      const int cv = gossip::scatter::pushsum_round(
-          s_t, w_t, t_old, c_old, sends(c.g, j),
-          [&](float& a, float& b) {
-            gossip::scatter::record_sum(c.rec + at, k, a, b);
-          },
-          c.delta, c.term_rounds, s_new, w_new, t_new);
+      int t_new, cv;
+      if (global) {
+        // Both halves' sums onto the kept halves (nothing reads a w inbox).
+        float acc_s = sent ? s_t - s_t * 0.5f : s_t;
+        float acc_w = sent ? w_t - w_t * 0.5f : w_t;
+        gossip::scatter::record_sum(c.rec + at, k, acc_s, acc_w);
+        s_new = acc_s;
+        w_new = acc_w;
+        cv = gossip::unstable_global(s_t, w_t, s_new, w_new, c.delta) ? 1 : 0;
+      } else {
+        cv = gossip::scatter::pushsum_round(
+            s_t, w_t, t_old, c_old, sent,
+            [&](float& a, float& b) {
+              gossip::scatter::record_sum(c.rec + at, k, a, b);
+            },
+            c.delta, c.term_rounds, s_new, w_new, t_new);
+        if (F) {
+          t_new = gossip::frozen(alive, t_new, t_old);
+          cv = gossip::frozen(alive, cv, c_old ? 1 : 0);
+        }
+        c.term[j] = t_new;
+        c.conv[j] = (uint8_t)cv;
+      }
       if (k > 0) cnt[j] = 0;
       c.s[j] = s_new;
       c.w[j] = w_new;
-      c.term[j] = t_new;
-      c.conv[j] = (uint8_t)cv;
       if (next) c.tick[j] = tk;
-      converged += cv;
+      converged += alive ? cv : 0;
     }
-    done = round_barrier(c.words + 3 * r + 2, block_sum(converged)) >= c.target;
+    const int sum = round_barrier(c.words + 3 * r + 2, block_sum(converged));
+    if (global)
+      done = sum == 0;  // the round's unstable count
+    else
+      done = sum >= (F && c.f.death ? c.f.needs[r] : c.target);
     ++executed;
   }
   // Stopped at done before the cap: round `executed`'s counts are staged.
@@ -370,6 +473,10 @@ __global__ void __launch_bounds__(kBlock, 3) pushsum_rounds(PushSumChunk c) {
     int* staged = c.cnt + (size_t)(executed & 1) * n;
     for (int j = lo + threadIdx.x; j < hi; j += kBlock) staged[j] = 0;
   }
+  // Global termination: every node converged iff the last round's verdict
+  // ended the run.
+  if (global)
+    for (int j = lo + threadIdx.x; j < hi; j += kBlock) c.conv[j] = done ? 1 : 0;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     c.status[0] += executed;
     c.status[1] = done ? 1 : 0;
@@ -377,8 +484,8 @@ __global__ void __launch_bounds__(kBlock, 3) pushsum_rounds(PushSumChunk c) {
 }
 
 // The persistent grid of each kernel, asked once a device.
-int pushsum_grid_cache[64];
-int gossip_grid_cache[64];
+int pushsum_grid_cache[2][64];
+int gossip_grid_cache[2][64];
 
 template <typename Kernel, typename Chunk>
 cudaError_t launch(Kernel kernel, Chunk c, int n, int words, int* cache,
@@ -417,7 +524,8 @@ extern "C" int gossip_pushsum_scatter_chunk(
     int max_deg, int n, int* cnt, void* tick, int* loc, int* tot, void* rec,
     unsigned long long* words, int* status, unsigned key1, unsigned key2,
     unsigned start, int rounds, float delta, int term_rounds, int target,
-    int device, void* stream_ptr) {
+    int faulted, unsigned thresh, const int* death, const int* needs,
+    int global, int device, void* stream_ptr) {
   if (n < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
   if (rounds == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
@@ -425,23 +533,30 @@ extern "C" int gossip_pushsum_scatter_chunk(
   const PushSumChunk c{s, w, term, conv, Graph{nbr, deg, max_deg, n},
                        cnt, (Ticket*)tick, loc, tot, (Send*)rec, key1, key2,
                        start, rounds, delta, term_rounds, target, words,
-                       status};
-  return (int)launch(pushsum_rounds, c, n, 3 * rounds + 1, pushsum_grid_cache,
-                     device, (cudaStream_t)stream_ptr);
+                       status, Faults{thresh, death, needs, global}};
+  if (faulted)
+    return (int)launch(pushsum_rounds<true>, c, n, 3 * rounds + 1,
+                       pushsum_grid_cache[1], device, (cudaStream_t)stream_ptr);
+  return (int)launch(pushsum_rounds<false>, c, n, 3 * rounds + 1,
+                     pushsum_grid_cache[0], device, (cudaStream_t)stream_ptr);
 }
 
 extern "C" int gossip_gossip_scatter_chunk(
     int* count, uint8_t* active, uint8_t* conv, const int* nbr, const int* deg,
     int max_deg, int n, int* inbox, unsigned long long* words, int* status,
     unsigned key1, unsigned key2, unsigned start, int rounds, int rumor_target,
-    int suppress, int target, int device, void* stream_ptr) {
+    int suppress, int target, int faulted, unsigned thresh, const int* death,
+    const int* needs, int device, void* stream_ptr) {
   if (n < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
   if (rounds == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const GossipChunk c{count, active, conv, Graph{nbr, deg, max_deg, n},
                       inbox, key1, key2, start, rounds, rumor_target, suppress,
-                      target, words, status};
-  return (int)launch(gossip_rounds, c, n, rounds + 1, gossip_grid_cache, device,
-                     (cudaStream_t)stream_ptr);
+                      target, words, status, Faults{thresh, death, needs, 0}};
+  if (faulted)
+    return (int)launch(gossip_rounds<true>, c, n, rounds + 1,
+                       gossip_grid_cache[1], device, (cudaStream_t)stream_ptr);
+  return (int)launch(gossip_rounds<false>, c, n, rounds + 1,
+                     gossip_grid_cache[0], device, (cudaStream_t)stream_ptr);
 }

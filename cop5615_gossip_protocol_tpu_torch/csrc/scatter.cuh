@@ -14,6 +14,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "faults.cuh"
 #include "threefry.cuh"
 
 namespace gossip {

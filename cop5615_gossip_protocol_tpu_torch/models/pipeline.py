@@ -55,16 +55,23 @@ def _read(handle) -> tuple[int, bool]:
     return rounds, bool(done)
 
 
-def advance(state, new, status, target: int):
+def advance(state, new, status, target: int, alive=None, need: int = 0):
     """One round of a chunk that stays on the device, under the overshoot
     contract: ``new`` (the round's output) replaces ``state`` unless
     ``status`` (int32 [2]: rounds, done) is already done. The round is
-    counted and done re-tested against ``target`` converged nodes on the
-    device, with no host read; ``status`` is updated in place."""
+    counted and done re-tested on the device, with no host read, and
+    ``status`` is updated in place: done once ``target`` nodes converged,
+    or, under a crash model (``alive`` the round's alive mask, ``need`` its
+    quorum need, faults.quorum_needs), once the converged live nodes reach
+    the need of the round just executed."""
     done = status[1] != 0
     out = type(state)(*(torch.where(done, a, b) for a, b in zip(state, new)))
     status[0] += (~done).to(status.dtype)
-    status[1] = (done | (out.conv.sum() >= target)).to(status.dtype)
+    if alive is None:
+        verdict = out.conv.sum() >= target
+    else:
+        verdict = (out.conv & alive).sum() >= need
+    status[1] = (done | verdict).to(status.dtype)
     return out
 
 

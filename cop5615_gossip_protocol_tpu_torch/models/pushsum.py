@@ -40,12 +40,36 @@ def halve_and_send(s, w, send_ok):
 
 
 def absorb(state: PushSumState, s_keep, w_keep, inbox_s, inbox_w, delta,
-           term_rounds: int) -> PushSumState:
+           term_rounds: int, global_termination: bool = False,
+           valid=None) -> PushSumState:
     """Absorb one round of deliveries: the ratio change is measured pre- vs
     post-absorb, and only a round that received something moves the
-    termination counter (local termination)."""
-    return absorb_sums(state, s_keep + inbox_s, w_keep + inbox_w, inbox_w > 0,
-                       delta, term_rounds)
+    termination counter (local termination).
+
+    ``global_termination`` replaces the latch with the global residual
+    rule: conv becomes all-or-nothing, every node converged iff every
+    node's |Δ(s/w)| <= delta * max(|s/w|, 1) this round, and term is left
+    alone. ``valid`` (bool [n], optional) keeps pad slots out of that
+    broadcast."""
+    s_new, w_new = s_keep + inbox_s, w_keep + inbox_w
+    if global_termination:
+        return absorb_global(state, s_new, w_new, delta, valid)
+    return absorb_sums(state, s_new, w_new, inbox_w > 0, delta, term_rounds)
+
+
+def absorb_global(state: PushSumState, s_new, w_new, delta,
+                  valid=None) -> PushSumState:
+    """``absorb`` under global termination, with the round's sums already
+    taken."""
+    delta_t = torch.tensor(delta, dtype=state.s.dtype)
+    ratio_old = state.s / state.w
+    tol = delta_t * torch.maximum(torch.abs(ratio_old),
+                                  torch.ones((), dtype=state.s.dtype))
+    stable = torch.abs(s_new / w_new - ratio_old) <= tol
+    conv_new = stable.all().expand(state.conv.shape)
+    if valid is not None:
+        conv_new = conv_new & valid
+    return PushSumState(s=s_new, w=w_new, term=state.term, conv=conv_new.clone())
 
 
 def absorb_sums(state: PushSumState, s_new, w_new, received, delta,

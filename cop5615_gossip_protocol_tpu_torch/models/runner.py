@@ -35,6 +35,14 @@ the chunked engine on the CPU, and never fuses scatter delivery;
 ``"fused"`` forces the fused engine (on the CPU, the plain versions) and
 refuses scatter delivery; ``"chunked"`` forces the chunked engine. There
 is no degradation ladder: a kernel that fails to build or launch raises.
+
+The drop gate, crash-stop with quorum termination and push-sum's global
+termination (``fault_rate``, ``crash_rate``/``crash_schedule`` with
+``quorum``, ``termination``) run on the chunked engine under every delivery
+and on the pool tier; where the JAX ladder takes such a config to a fused
+tier whose kernels do not carry them yet, the run refuses naming ROADMAP
+A6a, on the card and under ``engine="fused"``; where it demotes, the port
+runs its chunked engine, on the card too.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ import torch
 
 from ..config import SimConfig, unported
 from ..ops import delivery as delivery_mod
+from ..ops import faults as faults_mod
 from ..ops import (
     fused,
     fused_imp,
@@ -163,7 +172,11 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     status, start, end) -> (state, status), state0): rounds start..end
     under the overshoot contract, ``status`` an int32 [2] (rounds, done)
     tensor on the device, so a chunk queues its rounds with no host read.
-    Fault-free.
+    The drop gate and the dead leave a round's senders, dead nodes keep
+    their protocol state, push-sum may terminate globally, and under a
+    crash model a round is judged by the quorum of its live nodes (the JAX
+    runner's ``targets_and_gate``, ``_freeze_dead`` and
+    ``_done_predicate``).
 
     Under scatter delivery a chunk is one call of the scatter wrapper
     (ops/scatter.py: csrc/scatter.cu on CUDA, its plain version on the
@@ -188,15 +201,17 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
 
     if resolve_delivery(topo, cfg) == "scatter":
         graph = scatter.scatter_graph(topo, device)
+        faults = fused.run_faults(cfg, n)
         if pushsum:
             fn = functools.partial(scatter.pushsum_scatter_chunk, graph=graph,
                                    target=target, delta=cfg.resolved_delta,
-                                   term_rounds=cfg.term_rounds)
+                                   term_rounds=cfg.term_rounds, faults=faults)
         else:
             fn = functools.partial(scatter.gossip_scatter_chunk, graph=graph,
                                    target=target,
                                    rumor_target=cfg.resolved_rumor_target,
-                                   suppress=cfg.resolved_suppress)
+                                   suppress=cfg.resolved_suppress,
+                                   faults=faults)
 
         def scatter_chunk(state, status, start, end):
             return fn(state, base_key, start, max(end - start, 0), status)
@@ -244,32 +259,61 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
             return lambda values: delivery_mod.deliver_stencil(
                 values, targets, offsets, n)
 
+    faults = fused.run_faults(cfg, n)
+    death = faults.death_flat(n, device) if faults and faults.death is not None else None
+
+    def gated(send_ok, round_idx: int):
+        """The round's senders: the drop gate's and the living among
+        ``send_ok`` (the JAX runner's ``targets_and_gate``)."""
+        if faults is None:
+            return send_ok
+        gate = sampling.send_gate(sampling.round_key(base_key, round_idx), n,
+                                  cfg.fault_rate, device=device)
+        if gate is not True:
+            send_ok = send_ok & gate
+        if death is not None:
+            send_ok = send_ok & (death > round_idx)
+        return send_ok
+
+    def freeze_dead(old, new, round_idx: int):
+        if death is None:
+            return new
+        return faults_mod.freeze_dead(old, new, death <= round_idx)
+
     if pushsum:
         delta, term_rounds = cfg.resolved_delta, cfg.term_rounds
+        global_term = cfg.termination == "global"
 
         def round_fn(state, round_idx):
             deliver = deliver_parts(round_idx)
             s_send, w_send, s_keep, w_keep = pushsum_mod.halve_and_send(
-                state.s, state.w, send_ok
+                state.s, state.w, gated(send_ok, round_idx)
             )
             inbox = deliver(torch.stack([s_send, w_send]))
-            return pushsum_mod.absorb(
-                state, s_keep, w_keep, inbox[0], inbox[1], delta, term_rounds
+            new = pushsum_mod.absorb(
+                state, s_keep, w_keep, inbox[0], inbox[1], delta, term_rounds,
+                global_term
             )
+            return freeze_dead(state, new, round_idx)
 
     else:
         rumor_target, suppress = cfg.resolved_rumor_target, cfg.resolved_suppress
 
         def round_fn(state, round_idx):
             deliver = deliver_parts(round_idx)
-            vals = gossip_mod.send_values(state, send_ok)
+            vals = gossip_mod.send_values(state, gated(send_ok, round_idx))
             inbox = deliver(vals[None])[0]
-            return gossip_mod.absorb(state, inbox, rumor_target, suppress)
+            new = gossip_mod.absorb(state, inbox, rumor_target, suppress)
+            return freeze_dead(state, new, round_idx)
 
     def round_chunk(state, status, start, end):
         status = status.clone()
-        for rnd in range(start, end):
-            state = pipeline_mod.advance(state, round_fn(state, rnd), status, target)
+        needs = faults.needs(start, max(end - start, 0))[0] if death is not None else None
+        for k, rnd in enumerate(range(start, end)):
+            verdict = {} if needs is None else {"alive": death > rnd,
+                                                "need": int(needs[k])}
+            state = pipeline_mod.advance(state, round_fn(state, rnd), status,
+                                         target, **verdict)
         return state, status
 
     return round_chunk, state0
@@ -293,8 +337,18 @@ def imp_pool_parts(topo: Topology, cfg: SimConfig, round_k, disp_cols,
     return d, is_extra, choice, offs, degree > 0
 
 
-def _host_done(state, target: int) -> bool:
-    return bool(int(state.conv.sum()) >= target)
+def _host_done(state, target: int, cfg: Optional[SimConfig] = None,
+               rounds: int = 0) -> bool:
+    """The termination predicate on a canonical state after ``rounds``
+    rounds: converged count >= target, or under ``cfg``'s crash model the
+    quorum of the nodes alive in the last round (rounds - 1)."""
+    conv = state.conv.cpu().numpy() != 0
+    death = None if cfg is None else faults_mod.death_plane(cfg, conv.shape[0])
+    if death is None:
+        return bool(conv.sum() >= target)
+    alive = faults_mod.alive_at(death, rounds - 1)
+    need = faults_mod.quorum_need(int(alive.sum()), cfg.quorum)
+    return bool((conv & alive).sum() >= need)
 
 
 def _finalize_result(topo: Topology, cfg: SimConfig, state, rounds: int,
@@ -487,13 +541,35 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
                 )
             if reason is not None:
                 raise ValueError(f"engine='fused' unavailable: {reason}")
+            _refuse_unported_faults(variant, cfg)
             return _run_fused(topo, cfg, key, device, start_state,
                               start_round, target, t_enter, variant)
         if reason is None and device.type == "cuda":
+            _refuse_unported_faults(variant, cfg)
             return _run_fused(topo, cfg, key, device, start_state,
                               start_round, target, t_enter, variant)
     return _run_chunked(topo, cfg, key, device, start_state, start_round,
                         target, t_enter)
+
+
+# The fused tiers whose kernels carry the drop gate, crash-stop and global
+# termination in the port: the pool tier (rows 1-2).
+_FAULT_TIERS = ("pool",)
+
+
+def _refuse_unported_faults(variant: str, cfg: SimConfig) -> None:
+    """Raise where the JAX ladder runs a fused tier whose failure-model or
+    global-termination branches the port's kernels do not carry yet
+    (ROADMAP A6a-2): never a quiet demotion to another engine."""
+    if variant in _FAULT_TIERS:
+        return
+    knobs = [k for k, on in (("fault_rate", cfg.fault_rate > 0),
+                             ("crash_rate/crash_schedule", cfg.crash_model),
+                             ("termination='global'",
+                              cfg.termination == "global")) if on]
+    if knobs:
+        raise unported(f"{' and '.join(knobs)} on the fused {variant!r} tier",
+                       "A6a")
 
 
 def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
@@ -505,6 +581,9 @@ def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
     from ..parallel.pool2_sharded import run_pool2_sharded
 
     tier, reason, item = sharded_tier(topo, cfg)
+    if cfg.faulted or cfg.termination == "global":
+        raise unported(f"the failure model or termination='global' with "
+                       f"n_devices={cfg.n_devices} ({tier})", "A6a")
     if reason is not None:
         raise ValueError(reason)
     runs = {"pool2_sharded": run_pool2_sharded,
@@ -565,7 +644,8 @@ def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
     chunk_fn, state0 = _make_chunk_fn(topo, cfg, key, device, target)
     if start_state is not None:
         state0 = _to_device(start_state, device)
-    done0 = start_state is not None and _host_done(state0, target)
+    done0 = start_state is not None and _host_done(state0, target, cfg,
+                                                   start_round)
     queued = {"end": start_round}  # nominal start of the next chunk
 
     def dispatch(state, status, round_end):
@@ -643,6 +723,8 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
             if variant == "pool" else
             (fused_pool2.pushsum_pool2_chunk, fused_pool2.gossip_pool2_chunk))
         common = {"n": n, "target": target}
+        if variant == "pool":
+            common["faults"] = fused.run_faults(cfg, n)
     elif variant in ("imp", "imp_hbm"):
         layout = fused_pool.build_pool_layout(n)
         pushsum_chunk, gossip_chunk = (
@@ -767,7 +849,8 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
     t_fin = time.perf_counter()
     final = eng.to_canonical(loop.state)
     result = _finalize_result(topo, cfg, final, loop.rounds, target,
-                              compile_s, run_s, _host_done(final, target),
+                              compile_s, run_s,
+                              _host_done(final, target, cfg, loop.rounds),
                               loop, device)
     result.setup_s = setup_s
     result.finalize_s = time.perf_counter() - t_fin

@@ -16,7 +16,7 @@ CUDA tensors and the lattice tiers' plain version on CPU tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,7 +45,8 @@ def _has_wrap_edges(topo: Topology) -> bool:
 def fused_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
     """None if the JAX package's whole-array stencil tier would run this
     config, else the reason not (its predicate, ops/fused.py; the port's
-    configs are fault-free, float32 and single-device by construction)."""
+    configs are float32 and have no dup or delay by construction, and
+    its drop and crash models run in the JAX tier)."""
     del cfg
     if topo.implicit:
         return "implicit (full) topology has no displacement structure"
@@ -160,14 +161,150 @@ def _pad2d(x: torch.Tensor, layout, fill) -> torch.Tensor:
     return x.reshape(layout.rows, LANES)
 
 
-def make_done_flag(target: int):
-    """Fault-free termination verdict: ``done_flag(total)`` is True once the
-    converged count reaches the target."""
+def make_done_flag(target: int, needs=None, need_init=None):
+    """Termination verdict: ``done_flag(total, k)`` is True once the
+    converged count ``total`` reaches the target. The quorum form (a crash
+    model: ``needs`` the int32 [K] quorum needs of the chunk's rounds,
+    ``need_init`` the seed need at the round before them,
+    faults.quorum_needs) takes ``total`` as the converged live count and
+    compares it with round k's need, or with the seed need for k = -1."""
 
-    def done_flag(total) -> bool:
-        return bool(total >= target)
+    def done_flag(total, k: int = -1) -> bool:
+        if needs is None:
+            return bool(total >= target)
+        return bool(total >= (need_init if k < 0 else int(needs[k])))
 
     return done_flag
+
+
+def gate_round_keys(keys: torch.Tensor) -> torch.Tensor:
+    """int64 ``[K, 2]`` drop-gate keys of the chunk's round keys: each
+    round key folded with sampling.GATE_TAG, the stream send_gate draws, so
+    a kernel's gate words are the chunked engine's word for word."""
+    from .sampling import GATE_TAG
+
+    # In numpy: a chunk's few dozen keys cost microseconds there, where
+    # torch's per-op overhead would cost the wrapper a millisecond.
+    words = keys.numpy()
+    a, b = rng.threefry2x32(words[:, 0], words[:, 1], 0, GATE_TAG)
+    return torch.from_numpy(np.stack([a, b], axis=1))
+
+
+def build_death2d(cfg: SimConfig, n: int, n_pad: int) -> Optional[torch.Tensor]:
+    """int32 ``[n_pad // 128, 128]`` death plane of a padded layout, or None
+    without a crash model. Pad lanes die at round 0, so they count as dead
+    from the start and alive counts over the layout are the population's."""
+    from . import faults
+
+    death = faults.death_plane(cfg, n)
+    if death is None:
+        return None
+    return torch.from_numpy(
+        faults.pad_death_plane(death, n_pad).reshape(n_pad // LANES, LANES).copy())
+
+
+class ChunkFaults(NamedTuple):
+    """One chunk's fault inputs (``Faults.for_chunk``): the gate threshold
+    and the gate keys of its rounds (None without a gate), the death plane
+    over the padded layout, flat int32 [n_pad] on the state's device, the
+    quorum needs of its rounds and the seed need (None without a crash
+    model), and whether push-sum terminates globally."""
+
+    thresh: Optional[int]
+    gate_keys: Optional[torch.Tensor]
+    death: Optional[torch.Tensor]
+    needs: Optional[torch.Tensor]
+    need_init: Optional[int]
+    global_term: bool
+
+    def blocked(self, mark, start: int, k: int, rows: int):
+        """Round k's marks with the gate and the dead folded in: -1 where
+        the node's gate word is below the threshold or it is dead."""
+        if self.thresh is not None:
+            g = threefry_bits_2d(self.gate_keys[k, 0], self.gate_keys[k, 1],
+                                 rows, LANES, device=mark.device).reshape(-1)
+            mark = torch.where(g < self.thresh, -1, mark)
+        if self.death is not None:
+            mark = torch.where(self.death <= start + k, -1, mark)
+        return mark
+
+    def alive(self, r: int, rows: int):
+        """[rows, 128] alive mask of absolute round r, or None."""
+        return None if self.death is None else (self.death > r).reshape(rows, LANES)
+
+    def live_total(self, c, r: int, rows: int) -> int:
+        """The done flag's count after round r: conv among live nodes
+        under a crash model, all conv otherwise."""
+        alive = self.alive(r, rows)
+        return int(c.sum()) if alive is None else int(((c != 0) & alive).sum())
+
+
+@dataclasses.dataclass
+class Faults:
+    """The drop gate, crash-stop with quorum and global termination of one
+    run, as the chunk wrappers take them: ``thresh`` the gate threshold
+    (None without a gate), ``death`` the int32 [n] death plane and
+    ``death_sorted`` it sorted (None without a crash model), and whether
+    push-sum terminates globally."""
+
+    thresh: Optional[int]
+    death: Optional[np.ndarray]
+    death_sorted: Optional[np.ndarray]
+    quorum: float
+    global_term: bool
+    planes: dict = dataclasses.field(default_factory=dict)
+
+    def gate_keys(self, keys: torch.Tensor) -> Optional[torch.Tensor]:
+        return None if self.thresh is None else gate_round_keys(keys)
+
+    def needs(self, start: int, count: int):
+        """(int32 [count] needs of rounds start.., the seed need), or
+        (None, None) without a crash model."""
+        if self.death is None:
+            return None, None
+        from . import faults
+
+        needs, need_init = faults.quorum_needs(
+            self.death_sorted, self.death.shape[0], start, count, self.quorum)
+        return torch.from_numpy(needs.astype(np.int32)), need_init
+
+    def death_flat(self, n_pad: int, device) -> Optional[torch.Tensor]:
+        """The death plane padded to n_pad (pad lanes dead at round 0),
+        int32 [n_pad] on ``device``, made once a size and device."""
+        if self.death is None:
+            return None
+        from . import faults
+
+        key = (n_pad, str(device))
+        if key not in self.planes:
+            self.planes[key] = torch.from_numpy(
+                faults.pad_death_plane(self.death, n_pad).copy()).to(device)
+        return self.planes[key]
+
+    def for_chunk(self, keys, start: int, n_pad: int, device) -> ChunkFaults:
+        """The ``ChunkFaults`` of a chunk of keys.shape[0] rounds from
+        ``start`` on an n_pad layout."""
+        needs, need_init = self.needs(start, keys.shape[0])
+        return ChunkFaults(self.thresh, self.gate_keys(keys),
+                           self.death_flat(n_pad, device), needs, need_init,
+                           self.global_term)
+
+
+def run_faults(cfg: SimConfig, n: int) -> Optional[Faults]:
+    """The run's ``Faults``, or None for a fault-free run with local
+    termination (the chunks' fault-free form)."""
+    from . import faults, sampling
+
+    gate = cfg.fault_rate > 0
+    if not (gate or cfg.crash_model or cfg.termination == "global"):
+        return None
+    return Faults(
+        thresh=sampling.gate_threshold(cfg.fault_rate) if gate else None,
+        death=faults.death_plane(cfg, n),
+        death_sorted=faults.sorted_death(cfg, n),
+        quorum=cfg.quorum,
+        global_term=cfg.termination == "global",
+    )
 
 
 def class_sources(n_pad: int, d, n: int, device=None) -> torch.Tensor:
@@ -179,7 +316,7 @@ def class_sources(n_pad: int, d, n: int, device=None) -> torch.Tensor:
 
 def pushsum_class_rounds(state4, start: int, cap: int, count: int,
                          round_classes, *, n: int, target: int, delta: float,
-                         term_rounds: int):
+                         term_rounds: int, faults: Optional[ChunkFaults] = None):
     """The plain version of every push-sum chunk kernel: up to ``count``
     rounds from absolute round ``start`` on the padded planes (s, w, term,
     conv_i32), stopping at ``cap`` or once ``target`` nodes converged.
@@ -190,19 +327,30 @@ def pushsum_class_rounds(state4, start: int, cap: int, count: int,
     pairs in delivery order, where the source index (``class_sources``)
     names the node whose send along that class lands on each receiver. Each
     receiver sums the halved sends from 0.0 in that order: the chunked
-    engines' float32 op order. Returns (state4', rounds_executed)."""
+    engines' float32 op order. Returns (state4', rounds_executed).
+
+    ``faults`` (the pool tier's) folds the drop gate and the dead into the
+    marks, so a blocked node keeps its whole mass; a dead node's term and
+    conv stay frozen while its s and w absorb, and the verdict is the
+    quorum of live nodes. Under global termination term and conv are left
+    alone, a round counts its unstable real nodes (|ratio change| above
+    delta * max(|ratio|, 1)), and the round where none is unstable latches
+    conv on every real node and ends the run."""
     s, w, t, c = (x.clone() for x in state4)
     dev, rows = s.device, s.shape[0]
     padm = (torch.arange(rows * LANES, device=dev) >= n).reshape(rows, LANES)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     delta_t = torch.tensor(delta, dtype=torch.float32, device=dev)
-    done = make_done_flag(target)
-    finished = done(c.sum())
+    fx = faults
+    done = make_done_flag(target, fx and fx.needs, fx and fx.need_init)
+    finished = done(c.sum() if fx is None else fx.live_total(c, start - 1, rows))
     executed = 0
     for k in range(count):
         if finished or start + k >= cap:
             break
         mark, classes = round_classes(k)
+        if fx is not None:
+            mark = fx.blocked(mark, start, k, rows)
         sends = mark >= 0
         ss = torch.where(sends, s.reshape(-1) * 0.5, zero)
         ws = torch.where(sends, w.reshape(-1) * 0.5, zero)
@@ -216,44 +364,67 @@ def pushsum_class_rounds(state4, start: int, cap: int, count: int,
         in_w = torch.where(padm, zero, in_w.reshape(rows, LANES))
         s_new = (s - ss.reshape(rows, LANES)) + in_s
         w_new = (w - ws.reshape(rows, LANES)) + in_w
+        executed += 1
+        if fx is not None and fx.global_term:
+            ratio_old = s / w
+            tol = delta_t * torch.maximum(torch.abs(ratio_old),
+                                          torch.ones((), device=dev))
+            unstable = (torch.abs(s_new / w_new - ratio_old) > tol) & ~padm
+            s, w = s_new, w_new
+            finished = not bool(unstable.any())
+            if finished:
+                c = (~padm).to(torch.int32)
+            continue
         received = in_w > 0
         stable = torch.abs(s_new / w_new - s / w) <= delta_t
-        t = torch.where(received, torch.where(stable, t + 1, 0), t).to(torch.int32)
-        c = torch.where(padm, 0, (c != 0) | (t >= term_rounds)).to(torch.int32)
-        s, w = s_new, w_new
-        executed += 1
-        finished = done(c.sum())
+        t_new = torch.where(received, torch.where(stable, t + 1, 0), t).to(torch.int32)
+        c_new = torch.where(padm, 0, (c != 0) | (t_new >= term_rounds)).to(torch.int32)
+        alive = None if fx is None else fx.alive(start + k, rows)
+        if alive is not None:
+            t_new = torch.where(alive, t_new, t)
+            c_new = torch.where(alive, c_new, c)
+        s, w, t, c = s_new, w_new, t_new, c_new
+        finished = done(c.sum() if fx is None else fx.live_total(c, start + k, rows), k)
     return (s, w, t, c), torch.tensor(executed, dtype=torch.int32, device=dev)
 
 
 def gossip_class_rounds(state3, start: int, cap: int, count: int,
                         round_classes, *, n: int, target: int,
-                        rumor_target: int, suppress: bool):
+                        rumor_target: int, suppress: bool,
+                        faults: Optional[ChunkFaults] = None):
     """The plain version of every gossip chunk kernel, on the padded planes
     (count, active_i32, conv_i32): ``pushsum_class_rounds``' contract, where
     only active nodes send (their mark is kept, every other node's is -1),
     a receiver counts the class sources that sent along the class, and
-    suppression is receiver-side. Returns (state3', rounds_executed)."""
+    suppression is receiver-side. ``faults`` as there: blocked and dead
+    nodes mark -1, and a dead node's inbox counts nothing. Returns
+    (state3', rounds_executed)."""
     cnt, act, c = (x.clone() for x in state3)
     dev, rows = cnt.device, cnt.shape[0]
     padm = (torch.arange(rows * LANES, device=dev) >= n).reshape(rows, LANES)
-    done = make_done_flag(target)
-    finished = done(c.sum())
+    fx = faults
+    done = make_done_flag(target, fx and fx.needs, fx and fx.need_init)
+    finished = done(c.sum() if fx is None else fx.live_total(c, start - 1, rows))
     executed = 0
     for k in range(count):
         if finished or start + k >= cap:
             break
         mark, classes = round_classes(k)
         mark = torch.where(act.reshape(-1) != 0, mark, -1)
+        if fx is not None:
+            mark = fx.blocked(mark, start, k, rows)
         inbox = torch.zeros(rows * LANES, dtype=torch.int32, device=dev)
         for cid, src in classes:
             inbox = inbox + (mark[src] == cid).to(torch.int32)
         inbox = torch.where(padm, 0, inbox.reshape(rows, LANES))
         if suppress:
             inbox = torch.where(c != 0, 0, inbox)
+        alive = None if fx is None else fx.alive(start + k, rows)
+        if alive is not None:
+            inbox = torch.where(alive, inbox, 0)
         cnt = (cnt + inbox).to(torch.int32)
         act = ((act != 0) | (inbox > 0)).to(torch.int32)
         c = ((cnt >= rumor_target) & ~padm).to(torch.int32)
         executed += 1
-        finished = done(c.sum())
+        finished = done(c.sum() if fx is None else fx.live_total(c, start + k, rows), k)
     return (cnt, act, c), torch.tensor(executed, dtype=torch.int32, device=dev)

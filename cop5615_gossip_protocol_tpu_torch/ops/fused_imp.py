@@ -99,6 +99,10 @@ def imp_reason(topo: Topology, cfg: SimConfig, single_device: str) -> Optional[s
         return "lattice slots are not offset-structured for this instance"
     if topo.target_count != topo.n:
         return "the fused imp kernels take batched-semantics builds"
+    if cfg.faulted:
+        # The JAX tier takes no failure model: the config runs on the
+        # chunked engine.
+        return "failure models not supported in this fused kernel"
     if cfg.n_devices is not None and cfg.n_devices > 1:
         return single_device
     if cfg.pool_size > 1 << POOL_CHOICE_BITS:
@@ -111,8 +115,8 @@ def imp_reason(topo: Topology, cfg: SimConfig, single_device: str) -> Optional[s
 
 def imp_fused_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
     """None if the JAX package's resident imp tier would run this config,
-    else the reason not (its predicate; the port's configs are fault-free,
-    float32 and single-device by construction)."""
+    else the reason not (its predicate; the port's configs are float32
+    by construction)."""
     reason = imp_reason(topo, cfg, "fused engine is single-device")
     if reason is not None:
         return reason

@@ -3,7 +3,10 @@
 One call runs a chunk of up to K synchronous push-sum or gossip rounds on
 the padded ``[rows, 128]`` layout of the JAX package's ops/fused_pool.py,
 consuming per-round fold_in keys and displacement pools, and stops early
-once the converged count reaches the target. ``pushsum_pool_chunk`` and
+once the converged count reaches the target, or under the run's failure
+model (``fused.Faults``: the drop gate, crash-stop with the quorum of the
+live nodes, push-sum's global termination) once its verdict fires.
+``pushsum_pool_chunk`` and
 ``gossip_pool_chunk`` launch the CUDA kernels of csrc/fused_pool.cu on
 CUDA tensors and run their plain torch versions (``*_plain``) on CPU
 tensors; the plain versions run on any device and are what the kernels are
@@ -23,6 +26,7 @@ from ..utils import kernels
 from . import rng
 from .fused import (
     LANES,
+    Faults,
     clamp_cap_and_pad,
     class_sources,
     gossip_class_rounds,
@@ -123,29 +127,38 @@ def _pool_classes(keys, offs, rows: int, n: int):
 
 def pushsum_pool_chunk_plain(state4, keys, offs, start: int, cap: int, *,
                              n: int, target: int, delta: float,
-                             term_rounds: int):
+                             term_rounds: int,
+                             faults: Optional[Faults] = None):
     """Up to K = keys.shape[0] push-sum pool rounds on the padded planes
-    (s, w, term, conv_i32). Returns (state4', rounds_executed)."""
+    (s, w, term, conv_i32), with the run's drop gate, crash-stop and
+    global termination (``faults``, fused.pushsum_class_rounds). Returns
+    (state4', rounds_executed)."""
     dev, rows = state4[0].device, state4[0].shape[0]
     cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
     return pushsum_class_rounds(
         state4, start, cap, keys.shape[0],
         _pool_classes(keys.to(dev), offs.to(dev), rows, n), n=n,
-        target=target, delta=delta, term_rounds=term_rounds)
+        target=target, delta=delta, term_rounds=term_rounds,
+        faults=_chunk_faults(faults, keys, start, rows, dev))
 
 
 def gossip_pool_chunk_plain(state3, keys, offs, start: int, cap: int, *,
                             n: int, target: int, rumor_target: int,
-                            suppress: bool):
+                            suppress: bool, faults: Optional[Faults] = None):
     """Up to K gossip pool rounds on the padded planes (count, active_i32,
-    conv_i32), with receiver-side suppression. Returns (state3',
-    rounds_executed)."""
+    conv_i32), with receiver-side suppression and the run's drop gate and
+    crash-stop. Returns (state3', rounds_executed)."""
     dev, rows = state3[0].device, state3[0].shape[0]
     cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
     return gossip_class_rounds(
         state3, start, cap, keys.shape[0],
         _pool_classes(keys.to(dev), offs.to(dev), rows, n), n=n,
-        target=target, rumor_target=rumor_target, suppress=suppress)
+        target=target, rumor_target=rumor_target, suppress=suppress,
+        faults=_chunk_faults(faults, keys, start, rows, dev))
+
+
+def _chunk_faults(faults: Optional[Faults], keys, start: int, rows: int, dev):
+    return None if faults is None else faults.for_chunk(keys, start, rows * LANES, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -199,10 +212,12 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_FAULT_ARGS = [_I, _U, _P, _P, _I, _I]
 _SIGNATURES = {
-    "gossip_pushsum_pool_chunk": [_P] * 14 + [_I] * 4 + [_F, _I, _I, _I, _P],
-    "gossip_gossip_pool_chunk": [_P] * 11 + [_I] * 8 + [_P],
+    "gossip_pushsum_pool_chunk": [_P] * 14 + [_I] * 4 + [_F, _I, _I]
+                                 + _FAULT_ARGS + [_I] + [_I, _P],
+    "gossip_gossip_pool_chunk": [_P] * 11 + [_I] * 7 + _FAULT_ARGS + [_I, _P],
 }
 
 
@@ -231,19 +246,34 @@ def _launch(source: str, name: str, argtypes, dev: torch.device, pointers,
 
 
 def _kernel_chunk(name: str, state, keys, offs, start: int, cap: int, n: int,
-                  tail):
+                  tail, faults: Optional[Faults] = None):
     """Queue one chunk through entry point ``name`` of csrc/fused_pool.cu
     on the current stream of the state's device and raise on a launch
-    error. ``tail`` holds the protocol's trailing arguments. Returns
-    (state', rounds_executed)."""
+    error. ``tail`` holds the protocol's trailing arguments; ``faults`` (the
+    run's, or None) picks the kernels' faulted instance and gives its
+    inputs. Returns (state', rounds_executed)."""
     dev = state[0].device
     cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
-    # One copy to the card for both streams: the keys' uint32 words (int64
-    # [K, 2] as int32 pairs), then the pools.
-    streams = _upload(torch.cat([keys.contiguous().view(torch.int32).reshape(-1),
-                                 offs.reshape(-1)]), dev)
-    rounds = max(0, cap - start)
     n_pad = state[0].numel()
+    # One copy to the card for the host streams: the keys' uint32 words
+    # (int64 [K, 2] as int32 pairs), the pools, then under a crash model the
+    # rounds' quorum needs (the kernels fold the gate keys themselves).
+    parts = [keys.contiguous().view(torch.int32).reshape(-1), offs.reshape(-1)]
+    needs = need_init = None
+    if faults is not None:
+        needs, need_init = faults.needs(start, keys.shape[0])
+        if needs is not None:
+            parts.append(needs)
+    streams = _upload(torch.cat(parts), dev)
+    fault_args = [0, 0, None, None, 0, start]
+    if faults is not None:
+        death = faults.death_flat(n_pad, dev)
+        fault_args = [1, faults.thresh or 0,
+                      None if death is None else death.data_ptr(),
+                      None if needs is None else
+                      streams.data_ptr() + 8 * keys.numel() + 4 * offs.numel(),
+                      need_init or 0, start]
+    rounds = max(0, cap - start)
     planes = len(state) * n_pad
     # Two allocations a chunk beside the streams' copy: the result planes
     # with the control words behind them (done, rounds executed, then 8 *
@@ -262,18 +292,21 @@ def _kernel_chunk(name: str, state, keys, offs, start: int, cap: int, n: int,
            zip(head[:planes].view(len(state), *state[0].shape).unbind(0), state)]
     fn = kernels.entry("fused_pool", name, _SIGNATURES[name])
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if len(state) == 4:
+        fault_args.append(int(faults is not None and faults.global_term))
     err = fn(*[x.data_ptr() for x in (*state, *out)], *own, base + own_bytes,
              streams.data_ptr(),
              streams.data_ptr() + 8 * keys.numel(),
              head.data_ptr() + 4 * planes, n, n_pad, offs.shape[1], rounds, *tail,
-             dev.index, stream)
+             *fault_args, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
     return tuple(out), head[planes + 1]
 
 
 def pushsum_pool_chunk(state4, keys, offs, start: int, cap: int, *, n: int,
-                       target: int, delta: float, term_rounds: int):
+                       target: int, delta: float, term_rounds: int,
+                       faults: Optional[Faults] = None):
     """Up to K = keys.shape[0] push-sum pool rounds from absolute round
     ``start``, stopping at ``cap`` or once ``target`` nodes converged.
 
@@ -283,32 +316,35 @@ def pushsum_pool_chunk(state4, keys, offs, start: int, cap: int, *, n: int,
     round_keys, round_offsets). Returns (state4', rounds_executed) with
     rounds_executed a 0-dim int32 tensor on the state's device; the inputs
     are left unchanged. CUDA state runs the kernel and CPU state the plain
-    version."""
+    version. ``faults`` (the run's fused.Faults, None for a fault-free run
+    with local termination) adds the drop gate, crash-stop with the quorum
+    verdict and global termination."""
     dev = _check(state4, (torch.float32, torch.float32, torch.int32, torch.int32),
                  keys, offs, n)
     if dev.type == "cpu":
         return pushsum_pool_chunk_plain(
             state4, keys, offs, start, cap, n=n, target=target, delta=delta,
-            term_rounds=term_rounds,
+            term_rounds=term_rounds, faults=faults,
         )
     out = _kernel_chunk("gossip_pushsum_pool_chunk", state4, keys, offs, start, cap, n,
-                        (ctypes.c_float(delta), term_rounds, target))
+                        (ctypes.c_float(delta), term_rounds, target), faults)
     pushsum_pool_chunk.launches += chunk_launches(keys.shape[0])
     return out
 
 
 def gossip_pool_chunk(state3, keys, offs, start: int, cap: int, *, n: int,
-                      target: int, rumor_target: int, suppress: bool):
+                      target: int, rumor_target: int, suppress: bool,
+                      faults: Optional[Faults] = None):
     """Gossip analog of ``pushsum_pool_chunk``: ``state3`` is (count,
     active_i32, conv_i32); converged-target suppression is receiver-side."""
     dev = _check(state3, (torch.int32,) * 3, keys, offs, n)
     if dev.type == "cpu":
         return gossip_pool_chunk_plain(
             state3, keys, offs, start, cap, n=n, target=target,
-            rumor_target=rumor_target, suppress=suppress,
+            rumor_target=rumor_target, suppress=suppress, faults=faults,
         )
     out = _kernel_chunk("gossip_gossip_pool_chunk", state3, keys, offs, start, cap, n,
-                        (rumor_target, int(suppress), target))
+                        (rumor_target, int(suppress), target), faults)
     gossip_pool_chunk.launches += chunk_launches(keys.shape[0])
     return out
 

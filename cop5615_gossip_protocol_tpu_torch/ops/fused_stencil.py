@@ -57,6 +57,10 @@ def stencil2_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
         return "implicit (full) topology has no displacement structure"
     if topo.offsets is None:
         return f"topology {topo.kind!r} has no small displacement set"
+    if cfg.faulted:
+        # The JAX tier takes no failure model: the config runs on the
+        # chunked engine.
+        return "failure models not supported in this fused kernel"
     layout = build_pool_layout(topo.n)
     if _plane_bytes(layout.n_pad, topo.max_deg, cfg.algorithm) > _VMEM_BUDGET:
         return (

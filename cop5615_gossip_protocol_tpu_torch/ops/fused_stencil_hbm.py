@@ -58,14 +58,16 @@ _WORDS_STEP = 1 << 20
 
 def stencil_hbm_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
     """None if the streaming stencil engine can run this config (the JAX
-    tier's predicate; the port's configs are fault-free, float32 and
-    single-device by construction)."""
-    del cfg
+    tier's predicate; the port's configs are float32 by construction)."""
     if topo.kind not in _HBM_KINDS:
         return (
             f"topology {topo.kind!r} has no arithmetic displacement "
             f"columns (served kinds: {', '.join(_HBM_KINDS)})"
         )
+    if cfg.faulted:
+        # The JAX tier takes no failure model: the config runs on the
+        # chunked engine.
+        return "failure models not supported in this fused kernel"
     if topo.n > MAX_STENCIL_HBM_NODES:
         return (
             f"population {topo.n} exceeds the HBM-plane budget "

@@ -14,6 +14,8 @@ on its own (the kernels draw their words tile by tile).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 MASK = 0xFFFFFFFF
@@ -98,3 +100,25 @@ def randint(key, shape, minval: int, maxval: int) -> torch.Tensor:
     offset = (((higher % span) * multiplier) & MASK) + lower % span
     offset = (offset & MASK) % span
     return (minval + offset).to(torch.int32)
+
+
+def uniform(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` on [0, 1): each word's
+    top 23 bits as the mantissa of a float in [1, 2), minus 1."""
+    words = bits(key, shape, device=device)
+    one = 0x3F800000
+    return ((words >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
+
+
+def permutation(key, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` stably sorted by
+    fresh 32-bit words, ceil(3 ln n / ln(2**32 - 1)) times, each time under
+    the second key of a split of the first. int64 [n]."""
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64)
+    num_rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(MASK)))
+    for _ in range(num_rounds):
+        key, subkey = split(key, 2)
+        order = torch.sort(bits(subkey, (n,)), stable=True).indices
+        x = x[order]
+    return x

@@ -117,3 +117,23 @@ def pool_choice_packed(round_k, n: int, pool_size: int,
     if out_len <= flat.shape[0]:
         return flat[:out_len]
     return torch.cat([flat, flat.new_zeros(out_len - flat.shape[0])])
+
+
+# fold_in tag of the per-round drop gate, folded into the round key.
+GATE_TAG = 0x5EED
+
+
+def gate_threshold(rate: float) -> int:
+    """uint32 threshold T with P(word < T) = rate (to 2**-32): a node whose
+    gate word is below T drops its send this round."""
+    return min(int(round(float(rate) * 2.0**32)), 2**32 - 1)
+
+
+def send_gate(round_k, n: int, fault_rate: float, device=None):
+    """bool [n], True where the node may send this round (the drop gate),
+    or the constant True when fault_rate is 0: one word a node off
+    fold_in(round key, GATE_TAG), against ``gate_threshold``."""
+    if fault_rate <= 0.0:
+        return True
+    words = rng.bits(rng.fold_in(round_k, GATE_TAG), (n,), device=device)
+    return words >= gate_threshold(fault_rate)

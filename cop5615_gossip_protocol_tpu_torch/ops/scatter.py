@@ -17,8 +17,12 @@ A chunk runs under the overshoot contract with a device status (int32
 [2]: rounds executed, done): a round after done is a no-op, so a chunk of
 K rounds is queued with no host read. On the card a chunk is one
 persistent cooperative launch that runs all its rounds and stops at done
-(``chunk_launches``). CUDA state launches the kernels; CPU state runs the
-plain versions; there is no fallback between the two.
+(``chunk_launches``). Under the run's failure model (``fused.Faults``)
+the drop gate and the dead leave a round's senders, a dead node's protocol
+state is frozen, a round is judged by the quorum of its live nodes, and
+push-sum may terminate globally: the kernels' faulted instances. CUDA state
+launches the kernels; CPU state runs the plain versions; there is no
+fallback between the two.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..models import pushsum as pushsum_mod
 from ..models.pipeline import advance
 from ..utils import kernels
 from . import delivery, fused, rng, sampling
+from . import faults as faults_mod
 from .topology import Topology
 
 # The most blocks of a persistent launch (csrc/scatter.cu kMaxGrid): one
@@ -92,17 +97,24 @@ def round_targets(graph: ScatterGraph, round_key):
 
 
 def pushsum_round_plain(state, targets, send_ok, *, delta: float,
-                        term_rounds: int):
+                        term_rounds: int, global_term: bool = False):
     """One push-sum round from its targets (``round_from_targets``) in the
     op order of the JAX package's jitted round: s and w halve; the s halves
     add onto each target's kept half in ascending sender index (XLA folds
     ``s_keep + deliver(s_send)`` into one scatter-add onto ``s_keep``), the
     w halves into an inbox from 0 that is then added to the kept half (the
-    inbox also says whether the node received, so XLA keeps it)."""
+    inbox also says whether the node received, so XLA keeps it). Under
+    global termination nothing reads that flag, and the w halves too add
+    onto the kept half."""
     s_send, w_send, s_keep, w_keep = pushsum_mod.halve_and_send(
         state.s, state.w, send_ok)
     n = state.s.shape[0]
     s_new = delivery.deliver(s_send, targets, n, base=s_keep)
+    if global_term:
+        # No received flag keeps the w inbox apart: XLA folds both sums.
+        return pushsum_mod.absorb_global(
+            state, s_new, delivery.deliver(w_send, targets, n, base=w_keep),
+            delta)
     inbox_w = delivery.deliver(w_send, targets, n)
     return pushsum_mod.absorb_sums(state, s_new, w_keep + inbox_w, inbox_w > 0,
                                    delta, term_rounds)
@@ -116,32 +128,62 @@ def gossip_round_plain(state, targets, send_ok, *, rumor_target: int,
     return gossip_mod.absorb(state, inbox, rumor_target, suppress)
 
 
-def _chunk_plain(round_fn, state, keys, status, target: int):
+def _chunk_plain(round_fn, state, keys, status, target: int, start: int,
+                 faults: Optional[fused.Faults]):
+    """K = keys.shape[0] rounds under the overshoot contract. ``faults``
+    adds the drop gate and the living to each round's senders, freezes a
+    dead node's protocol state (push-sum's s and w still absorb) and judges
+    a round by the quorum of its live nodes."""
     status = status.clone()
+    fx = None
+    if faults is not None:
+        fx = faults.for_chunk(keys, start, state[0].shape[0], state[0].device)
     for k in range(keys.shape[0]):
-        state = advance(state, round_fn(state, keys[k]), status, target)
+        if fx is None:
+            state = advance(state, round_fn(state, keys[k], True), status, target)
+            continue
+        ok = True
+        if fx.thresh is not None:
+            ok = sampling.uniform_bits(fx.gate_keys[k], state[0].shape[0],
+                                       device=state[0].device) >= fx.thresh
+        alive = None if fx.death is None else fx.death > start + k
+        if alive is not None:
+            ok = alive if ok is True else ok & alive
+        new = round_fn(state, keys[k], ok)
+        verdict = {}
+        if alive is not None:
+            new = faults_mod.freeze_dead(state, new, ~alive)
+            verdict = {"alive": alive, "need": int(fx.needs[k])}
+        state = advance(state, new, status, target, **verdict)
     return state, status
 
 
 def pushsum_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
-                                target: int, delta: float, term_rounds: int):
-    """K = keys.shape[0] push-sum scatter rounds (plain version of
-    ``pushsum_scatter_chunk``)."""
-    def round_fn(st, key):
+                                target: int, delta: float, term_rounds: int,
+                                start: int = 0,
+                                faults: Optional[fused.Faults] = None):
+    """K = keys.shape[0] push-sum scatter rounds from absolute round
+    ``start`` (plain version of ``pushsum_scatter_chunk``)."""
+    global_term = faults is not None and faults.global_term
+
+    def round_fn(st, key, ok):
         targets, send_ok = round_targets(graph, key)
-        return pushsum_round_plain(st, targets, send_ok, delta=delta,
-                                   term_rounds=term_rounds)
-    return _chunk_plain(round_fn, state, keys, status, target)
+        return pushsum_round_plain(st, targets, send_ok & ok, delta=delta,
+                                   term_rounds=term_rounds,
+                                   global_term=global_term)
+    return _chunk_plain(round_fn, state, keys, status, target, start, faults)
 
 
 def gossip_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
-                               target: int, rumor_target: int, suppress: bool):
+                               target: int, rumor_target: int, suppress: bool,
+                               start: int = 0,
+                               faults: Optional[fused.Faults] = None):
     """K gossip scatter rounds (plain version of ``gossip_scatter_chunk``)."""
-    def round_fn(st, key):
+    def round_fn(st, key, ok):
         targets, send_ok = round_targets(graph, key)
-        return gossip_round_plain(st, targets, send_ok, rumor_target=rumor_target,
-                                  suppress=suppress)
-    return _chunk_plain(round_fn, state, keys, status, target)
+        return gossip_round_plain(st, targets, send_ok & ok,
+                                  rumor_target=rumor_target, suppress=suppress)
+    return _chunk_plain(round_fn, state, keys, status, target, start, faults)
 
 
 # ---------------------------------------------------------------------------
@@ -152,9 +194,10 @@ def gossip_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     "gossip_pushsum_scatter_chunk": [_P] * 6 + [_I, _I] + [_P] * 7 + [_U] * 3
-                                    + [_I, _F, _I, _I, _I, _P],
+                                    + [_I, _F, _I, _I] + [_I, _U, _P, _P, _I]
+                                    + [_I, _P],
     "gossip_gossip_scatter_chunk": [_P] * 5 + [_I, _I] + [_P] * 3 + [_U] * 3
-                                   + [_I] * 5 + [_P],
+                                   + [_I] * 4 + [_I, _U, _P, _P] + [_I, _P],
 }
 
 
@@ -218,7 +261,8 @@ def _launch(name: str, args, dev: torch.device) -> None:
 
 def pushsum_scatter_chunk(state, key, start: int, rounds: int, status, *,
                           graph: ScatterGraph, target: int, delta: float,
-                          term_rounds: int):
+                          term_rounds: int,
+                          faults: Optional[fused.Faults] = None):
     """Push-sum scatter rounds start .. start + rounds - 1 (absolute round
     numbers), round r under the fold_in key ``fused.round_keys`` draws for
     it from the run's ``key`` (int64 [2] on the host).
@@ -227,32 +271,38 @@ def pushsum_scatter_chunk(state, key, start: int, rounds: int, status, *,
     bool conv) on the graph's device; ``status`` int32 [2] (rounds
     executed, done) on the device, done once ``target`` nodes converged.
     Returns (state', status'), new tensors; the inputs are left unchanged.
-    On the card the kernel folds the round keys itself."""
+    On the card the kernel folds the round keys itself. ``faults`` (the
+    run's fused.Faults, None for a fault-free run with local termination)
+    adds the drop gate, crash-stop with the quorum verdict and global
+    termination (the kernel's faulted instance)."""
     dev = _check(state, (torch.float32, torch.float32, torch.int32, torch.bool),
                  key, start, rounds, status, graph)
     if dev.type == "cpu":
         return pushsum_scatter_chunk_plain(state, fused.round_keys(key, start, rounds),
                                            status, graph=graph, target=target,
-                                           delta=delta, term_rounds=term_rounds)
+                                           delta=delta, term_rounds=term_rounds,
+                                           start=start, faults=faults)
     out = pushsum_mod.PushSumState(*(x.clone() for x in state))
     status = status.clone()
     if rounds == 0:
         return out, status
     w = _work(graph, pushsum=True)
     words = torch.empty(3 * rounds + 1, dtype=torch.int64, device=dev)
+    fargs, _needs = _fault_args(faults, start, rounds, dev)
     _launch("gossip_pushsum_scatter_chunk", [
         *(x.data_ptr() for x in out), *_graph_args(graph),
         *(w[k].data_ptr() for k in ("counts", "tickets", "offsets", "totals",
                                     "records")),
         words.data_ptr(), status.data_ptr(), *_key_args(key, start), rounds,
-        ctypes.c_float(delta), term_rounds, target], dev)
+        ctypes.c_float(delta), term_rounds, target, *fargs,
+        int(faults is not None and faults.global_term)], dev)
     pushsum_scatter_chunk.launches += 1
     return out, status
 
 
 def gossip_scatter_chunk(state, key, start: int, rounds: int, status, *,
                          graph: ScatterGraph, target: int, rumor_target: int,
-                         suppress: bool):
+                         suppress: bool, faults: Optional[fused.Faults] = None):
     """Gossip analog of ``pushsum_scatter_chunk``: ``state`` is a
     GossipState (int32 count, bool active, bool conv); converged-target
     suppression is receiver-side."""
@@ -261,19 +311,36 @@ def gossip_scatter_chunk(state, key, start: int, rounds: int, status, *,
     if dev.type == "cpu":
         return gossip_scatter_chunk_plain(state, fused.round_keys(key, start, rounds),
                                           status, graph=graph, target=target,
-                                          rumor_target=rumor_target, suppress=suppress)
+                                          rumor_target=rumor_target, suppress=suppress,
+                                          start=start, faults=faults)
     out = gossip_mod.GossipState(*(x.clone() for x in state))
     status = status.clone()
     if rounds == 0:
         return out, status
     w = _work(graph, pushsum=False)
     words = torch.empty(rounds + 1, dtype=torch.int64, device=dev)
+    fargs, _needs = _fault_args(faults, start, rounds, dev)
     _launch("gossip_gossip_scatter_chunk", [
         *(x.data_ptr() for x in out), *_graph_args(graph),
         w["inbox"].data_ptr(), words.data_ptr(), status.data_ptr(),
-        *_key_args(key, start), rounds, rumor_target, int(suppress), target], dev)
+        *_key_args(key, start), rounds, rumor_target, int(suppress), target,
+        *fargs], dev)
     gossip_scatter_chunk.launches += 1
     return out, status
+
+
+def _fault_args(faults: Optional[fused.Faults], start: int, rounds: int,
+                dev: torch.device):
+    """(faulted, threshold, death plane, quorum needs) as the entry points
+    take them, and the needs tensor the caller keeps until the launch is
+    queued (a copy to the card without a host sync)."""
+    if faults is None:
+        return [0, 0, None, None], None
+    if faults.death is None:
+        return [1, faults.thresh or 0, None, None], None
+    needs = faults.needs(start, rounds)[0].pin_memory().to(dev, non_blocking=True)
+    death = faults.death_flat(faults.death.shape[0], dev)
+    return [1, faults.thresh or 0, death.data_ptr(), needs.data_ptr()], needs
 
 
 def _key_args(key, start: int):

@@ -78,10 +78,10 @@ NODE = (("wi < c.n_pad / kChoicePack;", "wi < c.n_pad;", 2),
         ("sub0 < kChoicePack;", "sub0 < 1;", 2),
         ("word_node(wi, sub0 + h)", "wi", 4),
         (GOSSIP_STEP, "constexpr int kGossipStep = 1;", 1),
-        ("cooperative_grid(pushsum_rounds<P>, c.n_pad / kChoicePack,",
-         "cooperative_grid(pushsum_rounds<P>, c.n_pad,", 1),
-        ("cooperative_grid(gossip_rounds<P>, c.n_pad / kChoicePack,",
-         "cooperative_grid(gossip_rounds<P>, c.n_pad,", 1))
+        ("pushsum_rounds<P, F>, c.n_pad / kChoicePack,",
+         "pushsum_rounds<P, F>, c.n_pad,", 1),
+        ("gossip_rounds<P, F>, c.n_pad / kChoicePack,",
+         "gossip_rounds<P, F>, c.n_pad,", 1))
 
 # The slot loops (csrc/pool.cuh) at a width hidden from the compiler.
 SLOT_LOOP = "#pragma unroll\n  for (int k = 0; k < P; ++k)"

@@ -141,7 +141,7 @@ STEPPED_PLACE = """    for (int i0 = lo + threadIdx.x; i0 < hi; i0 += kBlock * @
 """
 ABSORB_LOOP = ("    for (int j = lo + threadIdx.x; j < hi; j += kBlock) {\n"
                "      // The loads first",
-               "    done = round_barrier(c.words + 3 * r + 2")
+               "    const int sum = round_barrier(c.words + 3 * r + 2")
 STEPPED_ABSORB = """    for (int j0 = lo + threadIdx.x; j0 < hi; j0 += kBlock * @STEP@) {
       int k[@STEP@], at[@STEP@], t_old[@STEP@];
       float s_t[@STEP@], w_t[@STEP@];
@@ -207,15 +207,15 @@ STAMPED = (("namespace {\n", STAMP + "namespace {\n", 1),
             "round_barrier(c.words + 3 * r, 0);\n    STAMP(3 * r + 1);", 1),
            ("round_barrier(c.words + 3 * r + 1, 0);",
             "round_barrier(c.words + 3 * r + 1, 0);\n    STAMP(3 * r + 2);", 1),
-           ("block_sum(converged)) >= c.target;\n    ++executed;\n  }\n  // Stopped at done "
+           ("c.f.needs[r] : c.target);\n    ++executed;\n  }\n  // Stopped at done "
             "before the cap: round `executed`'s counts",
-            "block_sum(converged)) >= c.target;\n    STAMP(3 * r + 3);\n    ++executed;\n  }\n"
+            "c.f.needs[r] : c.target);\n    STAMP(3 * r + 3);\n    ++executed;\n  }\n"
             "  // Stopped at done before the cap: round `executed`'s counts", 1))
 
 SCAN_ITEMS = "constexpr int kScanItems = 4;"
 NODES = "constexpr int kNodesPerThread = 2;"
 SORT_MAX = "constexpr int kSortMax = 8;"
-PUSHSUM_KERNEL = "__global__ void __launch_bounds__(kBlock, 3) pushsum_rounds("
+PUSHSUM_KERNEL = "__global__ void __launch_bounds__(kBlock, F ? 2 : 3)\n    pushsum_rounds("
 
 
 def _sub(text, old, new, count):
@@ -255,7 +255,8 @@ def variants(cu: str, cuh: str) -> dict:
         out[f"absorb{step}"] = (_stepped(cu, ABSORB_LOOP, STEPPED_ABSORB, step), cuh)
     for blocks, bounds in ((4, "(kBlock, 4)"), (0, "(kBlock)")):
         out[f"lb{blocks}"] = (_sub(cu, PUSHSUM_KERNEL,
-                                   PUSHSUM_KERNEL.replace("(kBlock, 3)", bounds), 1), cuh)
+                                   PUSHSUM_KERNEL.replace("(kBlock, F ? 2 : 3)", bounds),
+                                   1), cuh)
     for cap in (4, 16):
         out[f"sort{cap}"] = (cu, _sub(cuh, SORT_MAX, f"constexpr int kSortMax = {cap};", 1))
     out["split_barrier"] = (_edits(cu, SPLIT_BARRIER), cuh)

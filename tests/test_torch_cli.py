@@ -41,6 +41,39 @@ def test_record_matches_jax_cli(capsys, tmp_path, algorithm):
 
 
 @pytest.mark.parametrize("argv", [
+    ["1000", "full", "push-sum", "--delivery", "pool", "--pool-size", "2",
+     "--fault-rate", "0.1"],
+    ["1000", "full", "gossip", "--delivery", "pool", "--crash-rate", "0.002",
+     "--quorum", "0.9"],
+    ["1000", "full", "gossip", "--crash-schedule", "3:100,6:50", "--quorum", "0.95"],
+    ["1000", "full", "push-sum", "--termination", "global"],
+    ["900", "imp2D", "push-sum", "--fault-rate", "0.2", "--crash-schedule", "3:50",
+     "--quorum", "0.9"],
+])
+def test_fault_flags_record_matches_jax_cli(capsys, argv):
+    # The drop gate, crash-stop with quorum and global termination: the
+    # same record fields as the JAX CLI, every config key among them.
+    jrc, jrec = _record(capsys, jax_main, argv)
+    rc, rec = _record(capsys, main, argv + ["--platform", "cpu"])
+    assert rc == jrc == 0
+    for field in ("rounds", "outcome", "converged_count", "estimate_mae",
+                  "population", "target_count", "resolved_delta"):
+        assert rec[field] == jrec[field], field
+    assert rec["config"] == jrec["config"]
+
+
+def test_fault_flags_refuse_a_tier_without_them(capsys):
+    # The whole-array lattice tier does not carry the failure model yet:
+    # asked for, it refuses; the CLI never runs another tier quietly.
+    rc = main(["1000", "line", "gossip", "--fault-rate", "0.1", "--engine", "fused",
+               "--platform", "cpu"])
+    assert rc == 2 and "ROADMAP A6a" in capsys.readouterr().err
+    rc = main(["1000", "full", "push-sum", "--quorum", "0.9", "--delivery", "pool",
+               "--platform", "cpu", "--quiet"])
+    assert rc == 0 and "quorum < 1.0 without a crash model" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
     ["1000", "line", "gossip"],
     ["400", "2D", "gossip", "--semantics", "reference"],
     ["1000", "torus3d", "push-sum", "--max-rounds", "50"],
@@ -85,9 +118,9 @@ def test_quiet_and_reference_format(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--fault-rate", "0.1"], "A6"),
+    (["--revive-rate", "0.1"], "A6b"),
     (["--devices", "4"], "A10"),
-    (["--telemetry"], "A6"),
+    (["--telemetry"], "A6d"),
     (["--checkpoint", "x.npz"], "A8"),
 ])
 def test_unported_flag_names_roadmap_item(capsys, flag, item):

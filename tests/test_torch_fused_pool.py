@@ -21,6 +21,7 @@ from cop5615_gossip_protocol_tpu.models import runner as jax_runner
 from cop5615_gossip_protocol_tpu.ops import fused as jax_fused
 from cop5615_gossip_protocol_tpu.ops import fused_pool as jax_fused_pool
 
+from cop5615_gossip_protocol_tpu_torch import SimConfig
 from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool
 from cop5615_gossip_protocol_tpu_torch.utils import carry
 
@@ -32,12 +33,13 @@ K = 8
 SEED = 2
 
 
-def _jax_state(algorithm, n, pool_size, semantics, start_kind, mid_round):
-    """(canonical JAX state, its absolute round, topology, cfg)."""
+def _jax_state(algorithm, n, pool_size, semantics, start_kind, mid_round, kw=None):
+    """(canonical JAX state, its absolute round, topology, cfg); ``kw`` adds
+    failure-model knobs to the config."""
     topo = jax_topology("full", n, semantics=semantics)
     cfg = JaxConfig(n=n, topology="full", algorithm=algorithm,
                     semantics=semantics, delivery="pool", pool_size=pool_size,
-                    seed=SEED, engine="chunked")
+                    seed=SEED, engine="chunked", **(kw or {}))
     key = jax.random.PRNGKey(SEED)
     if start_kind == "init":
         if algorithm == "push-sum":
@@ -61,11 +63,14 @@ def _jax_state(algorithm, n, pool_size, semantics, start_kind, mid_round):
 
 
 def run_case(algorithm, n, pool_size, semantics, start_kind, cap_after=None,
-             mid_round=None):
+             mid_round=None, kw=None):
     """Run one chunk on both sides; returns (jax planes, jax executed, port
-    planes, port executed, start)."""
+    planes, port executed, start). ``kw``: failure-model knobs of both
+    configs (the port's wrapper takes them as fused.run_faults)."""
     st, start, topo, cfg = _jax_state(algorithm, n, pool_size, semantics,
-                                      start_kind, mid_round)
+                                      start_kind, mid_round, kw)
+    faults = fused.run_faults(SimConfig(n=topo.n, algorithm=algorithm, seed=SEED,
+                                        **(kw or {})), topo.n)
     cap = start + K if cap_after is None else start + cap_after
     layout = jax_fused_pool.build_pool_layout(topo.n)
     key = jax.random.PRNGKey(SEED)
@@ -87,7 +92,7 @@ def run_case(algorithm, n, pool_size, semantics, start_kind, cap_after=None,
             dict(zip(("s", "w", "term", "conv"), (np.asarray(p) for p in planes))))
         tout, tex = fused_pool.pushsum_pool_chunk(
             tuple(port_state), tkeys, toffs, start, cap, n=topo.n, target=target,
-            delta=cfg.resolved_delta, term_rounds=cfg.term_rounds)
+            delta=cfg.resolved_delta, term_rounds=cfg.term_rounds, faults=faults)
     else:
         planes = tuple(
             jax_fused._pad2d(jnp.asarray(x).astype(jnp.int32), layout, 0)
@@ -98,7 +103,8 @@ def run_case(algorithm, n, pool_size, semantics, start_kind, cap_after=None,
             dict(zip(("count", "active", "conv"), (np.asarray(p) for p in planes))))
         tout, tex = fused_pool.gossip_pool_chunk(
             tuple(port_state), tkeys, toffs, start, cap, n=topo.n, target=target,
-            rumor_target=cfg.resolved_rumor_target, suppress=cfg.resolved_suppress)
+            rumor_target=cfg.resolved_rumor_target, suppress=cfg.resolved_suppress,
+            faults=faults)
     jout, jex = fn(planes, keys, offs, start, cap)
     return ([np.asarray(x) for x in jout], int(jex),
             [x.numpy() for x in tout], int(tex), start, [np.asarray(p) for p in planes])
@@ -150,6 +156,54 @@ def test_chunk_matches_jax_kernel(case):
 def test_chunk_from_converged_state_is_a_no_op(algorithm):
     jout, jex, tout, tex, start, planes = run_case(
         algorithm, 1000, 2, "batched", "converged")
+    assert start > 0 and jex == tex == 0
+    assert_bitwise(jout, tout)
+    assert_bitwise(planes, tout)
+
+
+# The drop gate, crash-stop with quorum and global termination: (algorithm,
+# n, pool_size, knobs, start, cap_after, mid_round). The crash schedules'
+# death rounds fall inside the chunk from the initial state.
+FAULT_CASES = [
+    ("push-sum", 1000, 2, {"fault_rate": 0.1, "crash_schedule": "3:100,6:50",
+                           "quorum": 0.95}, "init", None, None),
+    ("push-sum", 70000, 4, {"fault_rate": 0.2, "crash_schedule": "2:7000,5:300",
+                            "quorum": 0.9}, "init", None, None),
+    ("push-sum", 65536, 2, {"fault_rate": 0.1, "crash_rate": 0.01, "quorum": 0.8},
+     "mid", 5, 30),
+    ("push-sum", 1000, 2, {"fault_rate": 0.1, "termination": "global"}, "init",
+     None, None),
+    ("push-sum", 70000, 2, {"termination": "global"}, "mid", None, 30),
+    ("gossip", 1000, 2, {"fault_rate": 0.2, "crash_rate": 0.01, "quorum": 0.9},
+     "init", None, None),
+    ("gossip", 65536, 4, {"fault_rate": 0.1, "crash_schedule": "1:500,4:6000",
+                          "quorum": 0.9}, "init", None, None),
+    ("gossip", 70000, 2, {"crash_rate": 0.005, "quorum": 0.95}, "mid", 6, 10),
+]
+
+
+@pytest.mark.parametrize("case", FAULT_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_faulted_chunk_matches_jax_kernel(case):
+    algorithm, n, pool_size, kw, start_kind, cap_after, mid_round = case
+    before = _launches()
+    jout, jex, tout, tex, start, planes = run_case(
+        algorithm, n, pool_size, "batched", start_kind, cap_after, mid_round, kw)
+    assert jex == tex
+    assert_bitwise(jout, tout)
+    assert any((a != b).any() for a, b in zip(jout, planes))
+    assert _launches() == before
+
+
+@pytest.mark.parametrize("algorithm,kw", [
+    ("push-sum", {"fault_rate": 0.1, "crash_schedule": "3:100,6:50", "quorum": 0.95}),
+    ("push-sum", {"termination": "global"}),
+    ("gossip", {"crash_rate": 0.01, "quorum": 0.9}),
+])
+def test_faulted_chunk_from_the_verdict_is_a_no_op(algorithm, kw):
+    # A resumed chunk that starts at the quorum (or the global verdict):
+    # the seed verdict of round start - 1 stops it before any round.
+    jout, jex, tout, tex, start, planes = run_case(
+        algorithm, 1000, 2, "batched", "converged", kw=kw)
     assert start > 0 and jex == tex == 0
     assert_bitwise(jout, tout)
     assert_bitwise(planes, tout)
