@@ -214,6 +214,27 @@ non-zero before the last line:
    from the CPU (FAULT_RUNS), push-sum with its mass over live and dead
    nodes conserved; and the same five at 70,000 nodes on the card against
    the worker's CPU runs (rounds, converged count, every plane);
+14k. (run after 14j) the failure model in rows 3-7 (ROADMAP A6a-2): the
+   resident lattice kernels' faulted instances (csrc/fused_resident.cu)
+   at line 1000, grid2d 10,000 and grid3d 125,000, row 7's global instance
+   at torus3d 1,000,000 and the streaming pool kernels' faulted instances
+   (csrc/fused_pool2.cu) at full 16,777,216, pool_size 2, against their
+   plain versions on the card, the same chunks as 14j, every plane and
+   count bitwise (where a push-sum run cannot reach its verdict, the chunk
+   from a state with every real node converged). Then the runs through
+   ``run()`` and the CLI: ``10000 grid2D push-sum --fault-rate 0.1
+   --crash-schedule 40000:20 --quorum 0.9`` and ``1000 line gossip
+   --fault-rate 0.2``, grid2d 10,000 push-sum with global termination and
+   grid3d 125,000 gossip under the gate and a crash rate, each at the
+   rounds and converged count baked from the JAX chunked engine on the
+   CPU; torus3d 1M push-sum global at the kernel checks' verdict round;
+   16,777,216 full push-sum under the gate and a crash schedule (quorum
+   0.95) and under the gate with global termination, and gossip under a
+   crash rate (quorum 0.9), each against the same whole run of the plain
+   version on the card (rounds, converged count, every plane); push-sum
+   with its mass conserved over live and dead nodes, each with its kernel
+   launched; and those three at 70,000 nodes on the streaming pool tier
+   against the worker's CPU runs;
 15. each kernel's time per chunk by CUDA events, beside its plain version's
    and the least time the card could take for the same work (rows 1-2
    also over a 1,024-round chunk and at 2**21, and over rows 7-8); the
@@ -227,8 +248,8 @@ non-zero before the last line:
    wire copies nothing on one card (``--cards`` times it); kernel A per
    round at 1M full from the mid-run state (a 32-round push-sum and an
    8-round gossip chunk), beside one ``index_add_`` of a round's sends;
-   rows 1-2 and kernel A in their faulted instances beside their
-   fault-free times of this run; kernel B over each whole walk in one launch, beside the plain walk on
+   rows 1-7 and kernel A in their faulted (row 7: global) instances
+   beside their fault-free times of this run; kernel B over each whole walk in one launch, beside the plain walk on
    the host and the hop chain's bound (hops times what a hop waits on from
    the hop before: on full the message's and the pick's arithmetic, timed
    by csrc/walk.cu's arith kernel; on imp3d two dependent accesses at the
@@ -236,7 +257,7 @@ non-zero before the last line:
    timed by its chase kernel), the bytes/operations bound beside it; then
    the imp rows' µs a round beside row 9's, and rows 13 and 18 over row 9.
 
-Each of phases 5-14j prints its wall time.
+Each of phases 5-14k prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -250,6 +271,7 @@ one card, times each wire across cards, and ends with ``{"ok": true,
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -2967,6 +2989,25 @@ def device_kernels(prof):
     return out
 
 
+def profiled(fn):
+    """({short name: (events, device µs)} of the device activity of
+    ``fn()``, by torch.profiler; fn's result). torch.profiler has handed
+    back a trace with no device activity at all (no kernel, copy or
+    memset) now and then on the H100: such a trace is taken again, at most
+    twice; a trace with any activity is returned as it is."""
+    import torch
+
+    for _ in range(3):
+        stack, prof = cuda_profile()
+        with stack:
+            out = fn()
+            torch.cuda.synchronize()
+        traced = device_kernels(prof)
+        if traced:
+            break
+    return traced, out
+
+
 def scatter_path(dev, cpu_runs):
     """Phase 14g: the scatter path through run() on the card, counters
     zeroed before each run and read after it, the pipeline's status reads
@@ -3291,13 +3332,12 @@ def scatter_rows(dev, key, cases, launches, max_err):
         # Device time by kernel over the same chunk (torch.profiler), µs a
         # round: where a round's time goes among its passes; and the chunk's
         # launches, by the wrapper's counter and by the kernels in the trace.
-        kern.launches = 0
-        stack, prof = cuda_profile()
-        with stack:
-            chunk(kern, mid, mid_round, K)
-            torch.cuda.synchronize()
+        def once():
+            kern.launches = 0
+            return chunk(kern, mid, mid_round, K)
+
+        traced, _ = profiled(once)
         counted = kern.launches
-        traced = device_kernels(prof)
         passes = {short: us / rounds for short, (_, us) in traced.items()}
         # The round kernel by its name's stem: an instance of a template
         # (the fault-free one here) may come out of the trace mangled.
@@ -3827,6 +3867,481 @@ def fault_rows(cases, launches, max_err, fault_free_ms):
     return rows
 
 
+# The failure model in the resident lattice kernels (rows 5-6, and row 7's
+# global termination: csrc/fused_resident.cu) and the streaming pool
+# kernels (rows 3-4, csrc/fused_pool2.cu). Phase 14k's kernel checks run
+# each faulted instance against its plain version on the card under the
+# configs of fault2_knobs: rows 5-6 at FAULT2_RESIDENT, row 7 (global
+# only, as its JAX tier) at torus3d 1M and rows 3-4 at 2**24 full, pool
+# size 2; its runs through run() and the CLI end at the baked FAULT2_RUNS
+# constants, at the verdict round of the kernel checks, or at the plain
+# version's whole run on the card.
+FAULT2_LABELS = ("pushsum crash", "pushsum global", "gossip crash")
+# (kind, n, tier, {label: whether the run reaches its verdict}) of the
+# kernel checks; line 1000 gossip and grid2d 10,000 push-sum are the shapes
+# of rows 5-6's fault-free timings. A push-sum run with early deaths on a
+# 2-D or 3-D lattice drains its mass into the dead and its weights into the
+# subnormals and never reaches the quorum (the JAX chunked engine's grid2d
+# 10,000 run with 400 deaths: 3,431 live nodes converged after 1,000,000
+# rounds), and global termination on line 1000 needs every ratio settled
+# to the last bit at once (no verdict in 400,000 rounds): those cases check
+# the chunk from the verdict from a state where every real node converged.
+FAULT2_CASES = (
+    ("line", 1000, "stencil", {"pushsum crash": True, "gossip crash": True}),
+    ("grid2d", 10_000, "stencil", {"pushsum crash": False, "pushsum global": True,
+                                   "gossip crash": True}),
+    ("grid3d", 125_000, "stencil", {"pushsum crash": False, "pushsum global": True,
+                                    "gossip crash": True}),
+    ("torus3d", 1_000_000, "stencil2", {"pushsum global": True}),
+    ("full", 2**24, "pool2", {"pushsum crash": True, "pushsum global": True,
+                              "gossip crash": True}))
+# Rounds run before each config's mid-run checks and timings.
+FAULT2_MID = {"pushsum crash": 30, "pushsum global": 30, "gossip crash": 8}
+# The runs, each with (rounds, converged count) baked from the JAX
+# package's chunked engine on the CPU, seed 0 (the grid2d push-sum crash
+# comes late, at round 40,000: with early deaths the run drains into the
+# dead and never reaches the quorum, see FAULT2_CASES):
+#   run(build_topology(kind, n), SimConfig(n=n, topology=kind,
+#       algorithm=algorithm, engine="chunked", <kw>))
+# (the CLI's as ``python -m cop5615_gossip_protocol_tpu <argv> --platform
+# cpu`` gives them); None where the run is held against the kernel checks'
+# verdict round (torus3d 1M) or the plain version's whole run on the card
+# (2**24 full). The 2**24 runs come first, after the kernel checks' 2**24
+# configs, whose death planes (~20 s of host work at 2**24 for a schedule)
+# they find in ops/faults.py's cache.
+FAULT2_RUNS = (
+    # (label, argv of the CLI or None, kind, n, algorithm, kw, baked)
+    ("pool2 push-sum gate+crash", None, "full", 2**24, "push-sum",
+     {"delivery": "pool", "pool_size": 2, "fault_rate": 0.1,
+      "crash_schedule": "5:167772,20:838860", "quorum": 0.95}, None),
+    ("pool2 push-sum gate+global", None, "full", 2**24, "push-sum",
+     {"delivery": "pool", "pool_size": 2, "fault_rate": 0.1, "termination": "global"},
+     None),
+    ("pool2 gossip crash", None, "full", 2**24, "gossip",
+     {"delivery": "pool", "pool_size": 2, "crash_rate": 0.001, "quorum": 0.9}, None),
+    ("CLI grid2d push-sum gate+crash",
+     ("10000", "grid2D", "push-sum", "--fault-rate", "0.1", "--crash-schedule",
+      "40000:20", "--quorum", "0.9"),
+     "grid2d", 10_000, "push-sum",
+     {"fault_rate": 0.1, "crash_schedule": "40000:20", "quorum": 0.9}, (67_382, 8986)),
+    ("CLI line gossip gate", ("1000", "line", "gossip", "--fault-rate", "0.2"),
+     "line", 1000, "gossip", {"fault_rate": 0.2}, (1973, 1000)),
+    ("grid2d push-sum global", None, "grid2d", 10_000, "push-sum",
+     {"termination": "global"}, (87_872, 10_000)),
+    ("grid3d gossip gate+crash", None, "grid3d", 125_000, "gossip",
+     {"fault_rate": 0.1, "crash_rate": 0.001, "quorum": 0.9}, (174, 100_505)),
+    ("torus3d push-sum global", None, "torus3d", 1_000_000, "push-sum",
+     {"termination": "global"}, None),
+)
+# The 2**24 runs again at FAULT_SMALL_N on the streaming pool tier
+# (ops/fused_pool.MAX_POOL_NODES shrunk to 1000 on both sides), each on the
+# card against the port's CPU run (rounds, converged count, every plane),
+# which the worker computes while the card runs the earlier phases.
+
+
+def fault2_knobs(label, n, tier):
+    """(algorithm, knobs) of a phase 14k config at population n: the crash
+    schedule kills 1% of the nodes at round 5 and 5% at round 20; the tiled
+    lattice tier takes global termination alone."""
+    algorithm = "gossip" if label.startswith("gossip") else "push-sum"
+    kw = {"pushsum crash": {"fault_rate": 0.1, "crash_schedule": f"5:{n // 100},20:{n // 20}",
+                            "quorum": 0.95},
+          "pushsum global": ({"termination": "global"} if tier == "stencil2" else
+                             {"fault_rate": 0.1, "termination": "global"}),
+          "gossip crash": {"fault_rate": 0.1, "crash_rate": 0.001, "quorum": 0.9}}[label]
+    if tier in ("pool", "pool2"):
+        kw = {"delivery": "pool", "pool_size": POOL, **kw}
+    return algorithm, kw
+
+
+def small_fault2_runs():
+    """(label, n, algorithm, kw) of FAULT2_RUNS' 2**24 runs at FAULT_SMALL_N,
+    their crash schedules scaled to it."""
+    out = []
+    for label, _, kind, n, algorithm, kw, _ in FAULT2_RUNS:
+        if kind != "full":
+            continue
+        kw = dict(kw)
+        if "crash_schedule" in kw:
+            kw["crash_schedule"] = ",".join(
+                f"{r}:{int(c) * FAULT_SMALL_N // n}" for r, c in
+                (e.split(":") for e in kw["crash_schedule"].split(",")))
+        out.append((label, FAULT_SMALL_N, algorithm, kw))
+    return out
+
+
+def cpu_fault2_runs():
+    """The port's CPU runs of small_fault2_runs() on the streaming pool tier
+    (the pool tier's cap shrunk to 1000 nodes): {label: (rounds, converged
+    count, [planes as numpy])}. Runs in the worker process."""
+    import os
+
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_pool
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    cap, fused_pool.MAX_POOL_NODES = fused_pool.MAX_POOL_NODES, 1000
+    out = {}
+    try:
+        for label, n, algorithm, kw in small_fault2_runs():
+            res = run(build_topology("full", n),
+                      SimConfig(n=n, algorithm=algorithm, **{**kw, "engine": "fused"}),
+                      device="cpu")
+            out[label] = (res.rounds, res.converged_count, [x.numpy() for x in res.state])
+    finally:
+        fused_pool.MAX_POOL_NODES = cap
+    return out
+
+
+def fault2_fns(dev, key, kind, n, tier, label):
+    """One phase 14k kernel and config: (kernel, plain, chunk, initial state
+    on the card, population, knobs, delivery classes), chunk(fn, state,
+    start, count, cap=None, faulted=True) on the run's streams and failure
+    model; the ladder must pick ``tier``."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine, fused_tier
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool2
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_stencil_hbm as hbm
+
+    topo = build_topology(kind, n)
+    algorithm, kw = fault2_knobs(label, topo.n, tier)
+    cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, **kw)
+    if fused_tier(topo, cfg) != (tier, None):
+        raise AssertionError(f"{kind} n={n} {label}: the ladder picks "
+                             f"{fused_tier(topo, cfg)}, not {tier}")
+    eng = fused_engine(topo, cfg, key, tier)
+    common = {"target": cfg.resolved_target_count(topo.n, topo.target_count),
+              "faults": fused.run_faults(cfg, topo.n)}
+    name = "pushsum" if algorithm == "push-sum" else "gossip"
+    if tier == "pool2":
+        common["n"] = topo.n
+        kern, plain = {"pushsum": (fused_pool2.pushsum_pool2_chunk,
+                                   fused_pool2.pushsum_pool2_chunk_plain),
+                       "gossip": (fused_pool2.gossip_pool2_chunk,
+                                  fused_pool2.gossip_pool2_chunk_plain)}[name]
+    else:
+        common["spec"] = hbm.stencil_spec(topo)
+        kern = resident_wrappers()[name, tier]
+        plain = {"pushsum": hbm.pushsum_stencil_hbm_chunk_plain,
+                 "gossip": hbm.gossip_stencil_hbm_chunk_plain}[name]
+    if name == "pushsum":
+        common.update(delta=cfg.resolved_delta, term_rounds=cfg.term_rounds)
+    else:
+        common.update(rumor_target=cfg.resolved_rumor_target,
+                      suppress=cfg.resolved_suppress)
+    streams = functools.lru_cache(maxsize=None)(eng.streams)
+
+    def chunk(fn, state, start, count, cap=None, faulted=True):
+        # faulted=False: the same chunk without the failure model (the
+        # kernels' fault-free instance).
+        return fn(state, *streams(start, count), start,
+                  start + count if cap is None else cap,
+                  **(common if faulted else {**common, "faults": None}))
+
+    init = tuple(p.contiguous().to(dev) for p in eng.planes)
+    classes = POOL if topo.implicit else len(topo.offsets)
+    return kern, plain, chunk, init, topo.n, kw, classes
+
+
+def verdict_round(tag, kern, chunk, init, step):
+    """The round a run of ``kern`` from ``init`` ends at its verdict, by
+    chunks of ``step`` rounds (at most 400,000 rounds)."""
+    state, rnd = init, 0
+    while True:
+        out, ex = chunk(kern, state, rnd, step)
+        if int(ex) < step:
+            return rnd + int(ex)
+        state, rnd = out, rnd + step
+        if rnd >= 400_000:
+            raise AssertionError(f"{tag}: no verdict in {rnd} rounds")
+
+
+def fault2_checks(dev, key):
+    """Phase 14k, the kernels: each case of FAULT2_CASES under each of its
+    configs, kernel against plain version on the card, every plane and
+    count bitwise: a 32-round chunk from the initial state (across the
+    crash schedule's death rounds 5 and 20), from a mid-run state a
+    32-round chunk and chunks capped after 5 and 6 rounds (both parities of
+    the marks or send bits), where the run reaches its verdict a chunk that
+    reaches it three rounds in, and a chunk that starts at the verdict (0
+    rounds, state unchanged). Returns ({(row, label, kind): case} for the
+    timing, {row: max_abs_err}, {(kind, n, label): verdict round})."""
+    import torch
+
+    cases, max_err, verdicts = {}, {}, {}
+    for kind, n, tier, labels in FAULT2_CASES:
+        for label, reaches in labels.items():
+            t0 = time.perf_counter()
+            kern, plain, chunk, init, pop, kw, classes = fault2_fns(dev, key, kind, n, tier,
+                                                                    label)
+            name = label.split()[0]
+            tag = f"{kind} n={pop} {label} ({tier})"
+            mid_round = FAULT2_MID[label]
+            errs = [compare(f"{tag} init K={CHUNK}", chunk(kern, init, 0, CHUNK),
+                            chunk(plain, init, 0, CHUNK), 0)]
+            mid, ex = chunk(kern, init, 0, mid_round)
+            if int(ex) != mid_round:
+                raise AssertionError(f"{tag}: done before round {mid_round}")
+            errs.append(compare(f"{tag} mid-run K={CHUNK}", chunk(kern, mid, mid_round, CHUNK),
+                                chunk(plain, mid, mid_round, CHUNK), 0))
+            for extra in (5, 6):
+                errs.append(compare(f"{tag} cap after {extra} rounds",
+                                    chunk(kern, mid, mid_round, CHUNK, cap=mid_round + extra),
+                                    chunk(plain, mid, mid_round, CHUNK, cap=mid_round + extra),
+                                    0))
+            if reaches:
+                final = verdict_round(tag, kern, chunk, init,
+                                      64 if tier == "pool2" else 4096)
+                late, _ = chunk(kern, init, 0, final - 3)
+                got = chunk(kern, late, final - 3, 8)
+                errs.append(compare(f"{tag} from round {final - 3}, 8 rounds (done after 3)",
+                                    got, chunk(plain, late, final - 3, 8), 0))
+                if int(got[1]) != 3:
+                    raise AssertionError(f"{tag}: the verdict came after {int(got[1])} "
+                                         "rounds, not 3")
+                at_verdict = got[0]
+                verdicts[kind, n, label] = final
+            else:
+                # Every real node's conv flag latched (push-sum keeps it in
+                # its last plane), from the mid-run state.
+                final = mid_round
+                real = torch.arange(mid[0].numel(), device=dev).reshape(mid[0].shape) < pop
+                at_verdict = (*mid[:-1], real.to(torch.int32))
+            for fn, who in ((kern, "kernel"), (plain, "plain")):
+                same, ex0 = chunk(fn, at_verdict, final, CHUNK)
+                if int(ex0) != 0 or not all(torch.equal(a, b)
+                                            for a, b in zip(same, at_verdict)):
+                    raise AssertionError(f"{tag}: the {who} chunk from the verdict's state ran")
+            print(f"  {tag}: " + (f"verdict after round {final}" if reaches else
+                                  "every real node converged") +
+                  f"; a chunk from it runs 0 rounds, state unchanged "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            row = f"{name}_{tier}_chunk"
+            max_err[row] = max(max_err.get(row, 0.0), *errs)
+            cases[row, label, kind] = (kern, plain, chunk, mid, mid_round, kw, classes)
+            del init, mid, at_verdict
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return cases, max_err, verdicts
+
+
+@contextlib.contextmanager
+def plain_in_place(module, name, plain):
+    """Inside the block ``module.name`` is its plain version (which takes
+    the wrapper's arguments and runs on the card): a whole run() of the
+    plain version, to hold the kernels' run against."""
+    kern = getattr(module, name)
+    setattr(module, name, plain)
+    try:
+        yield
+    finally:
+        setattr(module, name, kern)
+
+
+def fault2_path(dev, verdicts, cpu_small):
+    """Phase 14k, the runs: FAULT2_RUNS through run() (the CLI's as typed),
+    counters zeroed before each and read after it; each must end
+    "converged" at its baked rounds and converged count, or at the kernel
+    checks' verdict round, or at the rounds, count and every plane of the
+    plain version's whole run on the card; push-sum with its mass over live
+    and dead nodes conserved (a CLI run's through the same config in run());
+    and its faulted kernel must have launched.
+    Then small_fault2_runs() on the card against the worker's CPU runs
+    (``cpu_small``). Returns {row: launches on its main-path run}."""
+    import io
+
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, cli, run
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_pool, fused_pool2
+
+    counters = {f"{name}_{tier}_chunk": fn for (name, tier), fn in resident_wrappers().items()}
+    counters.update({"pushsum_pool2_chunk": fused_pool2.pushsum_pool2_chunk,
+                     "gossip_pool2_chunk": fused_pool2.gossip_pool2_chunk})
+    launches = {}
+    for label, argv, kind, n, algorithm, kw, baked in FAULT2_RUNS:
+        for fn in counters.values():
+            fn.launches = 0
+        topo = build_topology(kind, n)
+        cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, **kw)
+        t0 = time.perf_counter()
+        if argv is None:
+            res = run(topo, cfg)
+            got = (res.rounds, res.converged_count, res.outcome)
+            state = res.state
+        else:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                code = cli.main(list(argv))
+            rec = json.loads(out.getvalue().strip().splitlines()[-1])
+            got = (rec["rounds"], rec["converged_count"], rec["outcome"])
+            state = None
+            if code != 0:
+                raise AssertionError(f"{label}: the CLI exited {code}")
+        counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        run_s = time.perf_counter() - t0
+        if state is None and algorithm == "push-sum":
+            # The CLI prints no state: the same config through run(), for
+            # the mass.
+            res = run(topo, cfg)
+            if (res.rounds, res.converged_count) != got[:2]:
+                raise AssertionError(f"{label}: run() {res.rounds}/{res.converged_count} "
+                                     f"!= the CLI's {got[:2]}")
+            state = res.state
+        row = next(iter(counts), None)
+        suffix = "global" if row == "pushsum_stencil2_chunk" else "faulted"
+        if f"{row} {suffix}" not in launches:
+            launches[f"{row} {suffix}"] = counts.get(row, 0)
+            MAIN_ROUNDS[f"{row} {suffix}"] = got[0]
+        print(f"  {label}: rounds {got[0]}, converged {got[1]}, {got[2]}, "
+              f"{run_s:.2f} s, launches {counts}", flush=True)
+        if not counts or got[2] != "converged":
+            raise AssertionError(f"{label}: {got}, launches {counts}")
+        if baked is not None and got[:2] != baked:
+            raise AssertionError(f"{label}: {got[:2]} != baked {baked}")
+        want = verdicts.get((kind, n, "pushsum global"))
+        if kind == "torus3d" and got[0] != want:
+            raise AssertionError(f"{label}: rounds {got[0]} != the kernel checks' verdict "
+                                 f"round {want}")
+        if kind == "full":
+            # The same whole run through the plain version on the card.
+            name = f"{'pushsum' if algorithm == 'push-sum' else 'gossip'}_pool2_chunk"
+            with plain_in_place(fused_pool2, name, getattr(fused_pool2, f"{name}_plain")):
+                ref = run(topo, cfg)
+            if (ref.rounds, ref.converged_count) != got[:2]:
+                raise AssertionError(f"{label}: kernels {got[:2]} != plain "
+                                     f"{ref.rounds}/{ref.converged_count}")
+            same_planes(f"{label} vs the plain version's run", state, ref.state)
+            print(f"    == the plain version's whole run on the card, every plane "
+                  f"({ref.run_s:.2f} s)", flush=True)
+            del ref
+        if state is not None and algorithm == "push-sum":
+            mass_w = state.w.double().sum().item()
+            mass_s = state.s.double().sum().item()
+            err_w = abs(mass_w - n) / n
+            err_s = abs(mass_s - n * (n - 1) / 2) / (n * (n - 1) / 2)
+            print(f"    mass over live and dead nodes: sum w {mass_w} (rel err "
+                  f"{err_w}), sum s {mass_s} (rel err {err_s})", flush=True)
+            if not (err_w < 1e-5 and err_s < 1e-5):
+                raise AssertionError(f"{label}: the mass is not conserved")
+        del state
+        torch.cuda.empty_cache()
+    cap = fused_pool.MAX_POOL_NODES
+    fused_pool.MAX_POOL_NODES = 1000
+    try:
+        for label, n, algorithm, kw in small_fault2_runs():
+            res = run(build_topology("full", n),
+                      SimConfig(n=n, algorithm=algorithm, **{**kw, "engine": "fused"}))
+            rounds, count, planes = cpu_small[label]
+            if (res.rounds, res.converged_count) != (rounds, count):
+                raise AssertionError(f"{label} n={n}: card {res.rounds}/"
+                                     f"{res.converged_count} != CPU {rounds}/{count}")
+            same_planes(f"{label} n={n}", res.state, planes)
+            print(f"  {label} n={n} (pool2): card == CPU (rounds {rounds}, converged "
+                  f"{count}, every plane)", flush=True)
+    finally:
+        fused_pool.MAX_POOL_NODES = cap
+    return launches
+
+
+def fault2_phase(dev, key, cpu_small):
+    """Phase 14k: fault2_checks, then fault2_path. Returns (cases, max_err,
+    launches)."""
+    cases, max_err, verdicts = fault2_checks(dev, key)
+    return cases, max_err, fault2_path(dev, verdicts, cpu_small)
+
+
+# The timed faulted rows: (row, label, kind) of a phase 14k case, at the
+# shape of the row's fault-free timing.
+FAULT2_TIMED = (("pushsum_stencil_chunk", "pushsum crash", "grid2d"),
+                ("gossip_stencil_chunk", "gossip crash", "line"),
+                ("pushsum_stencil2_chunk", "pushsum global", "torus3d"),
+                ("pushsum_pool2_chunk", "pushsum crash", "full"),
+                ("gossip_pool2_chunk", "gossip crash", "full"))
+
+
+def fault2_rows(cases, launches, max_err, fault_free_ms):
+    """The faulted rows 3-6 and row 7's global row of the kernels line: a
+    32-round chunk from the mid-run state under FAULT2_TIMED's configs,
+    beside the plain version and the fault-free time of the same row
+    measured in this call (``fault_free_ms``), and the round kernels'
+    device time a round in both instances on the same state."""
+    rows = []
+    replaces = {"pushsum_stencil_chunk": "cop5615_gossip_protocol_tpu/ops/fused.py:741",
+                "gossip_stencil_chunk": "cop5615_gossip_protocol_tpu/ops/fused.py:993",
+                "pushsum_stencil2_chunk":
+                    "cop5615_gossip_protocol_tpu/ops/fused_stencil.py:268",
+                "pushsum_pool2_chunk": "cop5615_gossip_protocol_tpu/ops/fused_pool2.py:952",
+                "gossip_pool2_chunk": "cop5615_gossip_protocol_tpu/ops/fused_pool2.py:1388"}
+    for row, label, kind in FAULT2_TIMED:
+        kern, plain, chunk, mid, mid_round, kw, classes = cases[row, label, kind]
+        ms, out = time_ms(lambda: chunk(kern, mid, mid_round, CHUNK), TIME_REPS)
+        plain_ms, _ = time_ms(lambda: chunk(plain, mid, mid_round, CHUNK), 2)
+        rounds = int(out[1])
+        # The round kernels' own device time a round (torch.profiler, the
+        # host left out): the faulted instance and the fault-free one on the
+        # same state and streams (the fault-free chunk may run other rounds).
+        stem = {"pushsum_pool2_chunk": "pushsum_pool2_round",
+                "gossip_pool2_chunk": "gossip_pool2_round"}.get(
+                    row, f"{row.split('_')[0]}_rounds")
+        device_us = {}
+        for faulted in (True, False):
+            traced, (_, ex) = profiled(
+                lambda: chunk(kern, mid, mid_round, CHUNK, faulted=faulted))
+            device_us[faulted] = sum(us for short, (_, us) in traced.items()
+                                     if stem in short) / max(int(ex), 1)
+        n_pad = mid[0].numel()
+        name = row.split("_")[0]
+        algo = "push-sum" if name == "pushsum" else "gossip"
+        gate = kw.get("fault_rate", 0) > 0
+        crash = "crash_schedule" in kw or "crash_rate" in kw
+        hashes = OPS_PER_HASH if gate else 0
+        if kind == "full":
+            # A round streams the state, the sources' windows and (crash)
+            # the death plane from HBM; the send bits' 2 bytes per slot per
+            # 8 nodes, the own bits' byte and the next bits' byte replace
+            # gossip's source reads of the active plane.
+            per_node = pool2_bytes_per_node(algo, POOL) + (4 if crash else 0)
+            per_node += (2 * POOL + 2) / 8 - (0 if name == "pushsum" else 4 * POOL)
+            moved = rounds * per_node * n_pad + CHUNK * (16 + 4 * POOL + 4) + 8
+            ops = rounds * n_pad * (pool2_ops_per_node(algo, POOL) + hashes)
+        else:
+            # The state, the death plane and the keys and needs once a
+            # chunk: they stay in the L2.
+            moved = STATE_BYTES[name] * n_pad + (4 * n_pad if crash else 0) + CHUNK * 20 + 8
+            ops = rounds * n_pad * (stencil_ops_per_node(algo, classes) + hashes)
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        suffix = "global" if row == "pushsum_stencil2_chunk" else "faulted"
+        print(f"  {row} {suffix} ({label}, {kind} n={n_pad}): {ms:.4f} ms against "
+              f"fault-free {fault_free_ms[row]:.4f} ms "
+              f"({ms / fault_free_ms[row]:.3f}x), plain {plain_ms:.4f} ms; round "
+              f"kernels {device_us[True]:.2f} µs a round against the fault-free "
+              f"instance's {device_us[False]:.2f} on the same state "
+              f"({device_us[True] / device_us[False]:.3f}x)", flush=True)
+        rows.append({
+            "name": f"{row} {suffix}",
+            "route": "cuda",
+            "source": ("cop5615_gossip_protocol_tpu_torch/csrc/fused_pool2.cu"
+                       if kind == "full" else
+                       "cop5615_gossip_protocol_tpu_torch/csrc/fused_resident.cu"),
+            "replaces": replaces[row],
+            "launches": launches.get(f"{row} {suffix}", 0),
+            "max_abs_err": max_err[row],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "fault_free_ms": fault_free_ms[row],
+            "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+            "device_us_per_round": device_us[True],
+            "fault_free_device_us_per_round": device_us[False],
+            "topology": kind, "config": kw, "status": "ported",
+        })
+    return rows
+
+
 def fail(msg: str) -> int:
     print(f"FAILED: {msg}", file=sys.stderr)
     return 1
@@ -3869,14 +4384,15 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    # The port's CPU runs that phases 14g and 14j hold the card's runs
+    # The port's CPU runs that phases 14g, 14j and 14k hold the card's runs
     # against, in a spawned worker while the card runs the phases before.
     import multiprocessing
 
     worker = multiprocessing.get_context("spawn").Pool(1)
     try:
         cpu_runs = (worker.apply_async(cpu_scatter_runs),
-                    worker.apply_async(cpu_fault_runs))
+                    worker.apply_async(cpu_fault_runs),
+                    worker.apply_async(cpu_fault2_runs))
         return run_phases(torch, dev, smi, kernels, cpu_runs, t_main)
     finally:
         worker.terminate()
@@ -3885,7 +4401,7 @@ def main() -> int:
 
 def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
     """Phases 2-15 of the one-card run; ``cpu_runs`` are the worker's
-    pending results for phases 14g and 14j."""
+    pending results for phases 14g, 14j and 14k."""
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
     from cop5615_gossip_protocol_tpu_torch.ops import fused_pool, rng
 
@@ -4280,6 +4796,18 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
         "gossip_pool_chunk": by_name["gossip_pool_chunk"],
         "pushsum_scatter_chunk": by_name["pushsum_scatter_round"],
         "gossip_scatter_chunk": by_name["gossip_scatter_round"]})
+    t14k = time.perf_counter()
+    try:
+        cpu_small2 = cpu_runs[2].get(timeout=900)
+        fault2_cases, fault2_err, fault2_launches = phase("14k", fault2_phase, dev, key,
+                                                          cpu_small2)
+    except Exception as e:
+        return fail(str(e))
+    t15 += time.perf_counter() - t14k  # and 14k's
+    # The faulted rows 3-6 and row 7's global row beside the fault-free
+    # ones timed above.
+    rows += fault2_rows(fault2_cases, fault2_launches, fault2_err,
+                        {row: by_name[row] for row, _, _ in FAULT2_TIMED})
     for row in rows:
         row["main_path_rounds"] = MAIN_ROUNDS.get(row["name"])
     # The imp rows beside row 9 (the streaming lattice push-sum, the same

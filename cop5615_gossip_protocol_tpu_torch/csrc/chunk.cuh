@@ -1,10 +1,12 @@
 // What the chunk kernels of csrc/fused_pool.cu, csrc/fused_pool2.cu,
 // csrc/fused_stencil.cu, csrc/fused_imp.cu and csrc/fused_resident.cu
-// share: the launch geometry, the converged count and done flag, the state
-// planes, the init and finish launches and the per-node absorb of each
-// protocol; and the device-side verdict of the sharded compositions
-// (csrc/fused_pool2_shard.cu, csrc/fused_stencil_shard.cu,
-// csrc/fused_imp_hbm_shard.cu) with their shard launches' count and grid.
+// share: the launch geometry, the converged count and done flag (and their
+// faulted forms: the live count's seed verdict, the quorum and global
+// verdicts), the state planes, the init and finish launches and the
+// per-node absorb of each protocol; and the device-side verdict of the
+// sharded compositions (csrc/fused_pool2_shard.cu,
+// csrc/fused_stencil_shard.cu, csrc/fused_imp_hbm_shard.cu) with their
+// shard launches' count and grid.
 //
 // A chunk keeps its control words in `ctrl` (int32[2]: done, rounds
 // executed) and `scratch` (int32[2 * (rounds + 1)]: per-launch totals, then
@@ -23,6 +25,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "faults.cuh"
 
 namespace gossip {
 
@@ -226,6 +230,69 @@ __global__ void gossip_finish(GossipPlanes a, GossipPlanes b, int n_pad,
     a.count[j] = b.count[j];
     a.active[j] = b.active[j];
     a.conv[j] = b.conv[j];
+  }
+}
+
+// The chunk kernels' faulted init launches (csrc/fused_pool.cu,
+// csrc/fused_resident.cu): the input into A, and the done flag seeded from
+// the input's converged live count at `seed_round` (the round before the
+// chunk) against `target` (that round's quorum need); `death` is the death
+// plane over the padded layout (pad lanes 0).
+__global__ void pushsum_init_live(const float* __restrict__ s0,
+                                  const float* __restrict__ w0,
+                                  const int* __restrict__ t0,
+                                  const int* __restrict__ c0, PushSumPlanes a,
+                                  int n_pad, const int* death, int seed_round,
+                                  int* total, unsigned* ticket, int* ctrl,
+                                  int target) {
+  int converged = 0;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    a.s[j] = s0[j];
+    a.w[j] = w0[j];
+    a.term[j] = t0[j];
+    a.conv[j] = c0[j];
+    if (alive_in(death[j], seed_round)) converged += c0[j];
+  }
+  finish_count(block_sum(converged), total, ticket, ctrl, target, false);
+}
+
+__global__ void gossip_init_live(const int* __restrict__ n0,
+                                 const int* __restrict__ a0,
+                                 const int* __restrict__ c0, GossipPlanes a,
+                                 int n_pad, const int* death, int seed_round,
+                                 int* total, unsigned* ticket, int* ctrl,
+                                 int target) {
+  int converged = 0;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    a.count[j] = n0[j];
+    a.active[j] = a0[j];
+    a.conv[j] = c0[j];
+    if (alive_in(death[j], seed_round)) converged += c0[j];
+  }
+  finish_count(block_sum(converged), total, ticket, ctrl, target, false);
+}
+
+// finish_count's verdict under the failure model (the streaming pool
+// kernels' faulted rounds, csrc/fused_pool2.cu): the grand total against
+// the round's quorum need (*need, where need is not null) or the target;
+// under global termination (`global`) the total is the round's unstable
+// count, and the round with none is done.
+__device__ inline void finish_verdict(int block_count, int* total,
+                                      unsigned* ticket, int* ctrl, int target,
+                                      const int* need, bool global) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    atomicAdd(total, block_count);
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    const int grand = atomicAdd(total, 0);
+    ctrl[1] += 1;
+    ctrl[0] = (global ? grand == 0 : grand >= (need ? *need : target)) ? 1 : 0;
   }
 }
 

@@ -1,8 +1,10 @@
 // Per-node rules of the failure model that the scatter round (csrc/
-// scatter.cu) and the pool kernels (csrc/fused_pool.cu) share: the drop
+// scatter.cu), the pool kernels (csrc/fused_pool.cu, csrc/fused_pool2.cu)
+// and the resident lattice kernels (csrc/fused_resident.cu) share: the drop
 // gate, the alive test of the crash model, the frozen state of a dead
-// node and the global-termination residual (ops/faults.py,
-// ops/sampling.send_gate, models/pushsum.absorb_global).
+// node, the global-termination residual (ops/faults.py,
+// ops/sampling.send_gate, models/pushsum.absorb_global), and the chunk
+// kernels' fault inputs with the mark that folds the gate and the dead in.
 //
 // Plain inline code usable from the host too, so the CPU tests build it
 // with g++ (tests/test_torch_faults.py) and hold it against the plain
@@ -52,6 +54,51 @@ GOSSIP_HD bool unstable_global(float s_t, float w_t, float s_new, float w_new,
   const float a = fabsf(ratio_old);
   const float tol = delta * (a > 1.0f ? a : 1.0f);
   return fabsf(s_new / w_new - ratio_old) > tol;
+}
+
+// A chunk's failure model, as the chunk kernels' faulted instances (their
+// F = true template argument) take it: the drop gate's threshold (0: no
+// gate; each round's gate key is its round key folded with the gate tag,
+// gate_key, once a thread a round), each node's death round over the
+// padded layout (pad lanes 0; null: no crash model) with each chunk
+// round's quorum need, the chunk's first absolute round, and global
+// termination (push-sum).
+struct Faults {
+  uint32_t thresh;
+  const int* death;
+  const int* needs;
+  int start, global;
+};
+
+// Node j's mark for chunk round k (absolute round f.start + k) under F:
+// its mark, or -1 when the round's gate (key (g1, g2)) blocks it or it is
+// dead then. F = false returns the mark as it is.
+template <bool F>
+GOSSIP_HD int8_t faulted_mark(int8_t mark, const Faults& f, int k, uint32_t g1,
+                              uint32_t g2, int j) {
+  if (!F || mark < 0) return mark;
+  if (f.death != nullptr && !alive_in(f.death[j], f.start + k)) return (int8_t)-1;
+  if (!gate_open(g1, g2, f.thresh, j)) return (int8_t)-1;
+  return mark;
+}
+
+// The gate key of the round whose fold_in key is (k0, k1), under F with a
+// gate; (0, 0) otherwise (unused then).
+template <bool F>
+GOSSIP_HD void round_gate_key(const Faults& f, uint32_t k0, uint32_t k1,
+                              uint32_t& g1, uint32_t& g2) {
+  g1 = g2 = 0u;
+  if (F && f.thresh != 0u) gate_key(k0, k1, g1, g2);
+}
+
+// Whether node j sends in chunk round k (absolute round f.start + k) under
+// F: a real node (j < n) that is active (gossip's flag; push-sum passes
+// true), alive then and whose gate word (key (g1, g2)) passes. Branch-free
+// over its tests, so a thread's nodes issue their gate hashes together.
+GOSSIP_HD bool send_flag(const Faults& f, bool active, int j, int n, int k,
+                         uint32_t g1, uint32_t g2) {
+  const bool alive = f.death == nullptr || alive_in(f.death[j], f.start + k);
+  return active & (j < n) & alive & gate_open(g1, g2, f.thresh, j);
 }
 
 }  // namespace gossip

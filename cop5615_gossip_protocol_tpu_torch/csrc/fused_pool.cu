@@ -101,30 +101,20 @@
 
 namespace {
 
+using gossip::Faults;
 using gossip::GossipPlanes;
 using gossip::PushSumPlanes;
 using gossip::block_sum;
 using gossip::cooperative_grid;
+using gossip::faulted_mark;
 using gossip::kBlock;
 using gossip::kChoicePack;
 using gossip::pool_mark;
 using gossip::pool_word;
 using gossip::round_barrier;
+using gossip::round_gate_key;
 using gossip::word_node;
 using gossip::zero_control;
-
-// A chunk's failure model (the kernels' F = true instance): the drop gate's
-// threshold (0: no gate; each round's gate key is its round key folded with
-// the gate tag, csrc/faults.cuh gate_key, once a thread a round), each
-// node's death round over the padded layout (pad lanes 0; null: no crash
-// model) with each round's quorum need, the chunk's first absolute round,
-// and global termination (push-sum).
-struct Faults {
-  uint32_t thresh;
-  const int* death;
-  const int* needs;
-  int start, global;
-};
 
 // A chunk's arguments, passed to its persistent kernel by value.
 struct PushSumChunk {
@@ -166,30 +156,6 @@ constexpr int kGossipStep = 4;
 // A gossip node's flags byte: its active flag and its conv flag.
 constexpr int kActive = 1;
 constexpr int kConv = 2;
-
-// Node j's mark for chunk round k (absolute round f.start + k) under F:
-// its pool mark, or -1 when the round's gate (key (g1, g2)) blocks it or it
-// is dead then.
-template <bool F>
-__device__ __forceinline__ int8_t faulted_mark(int8_t mark, const Faults& f,
-                                               int k, uint32_t g1, uint32_t g2,
-                                               int j) {
-  if (!F || mark < 0) return mark;
-  if (f.death != nullptr && !gossip::alive_in(f.death[j], f.start + k))
-    return (int8_t)-1;
-  if (!gossip::gate_open(g1, g2, f.thresh, j)) return (int8_t)-1;
-  return mark;
-}
-
-// The gate key of the round whose fold_in key is (k0, k1), under F with a
-// gate; (0, 0) otherwise (unused then).
-template <bool F>
-__device__ __forceinline__ void round_gate_key(const Faults& f, uint32_t k0,
-                                               uint32_t k1, uint32_t& g1,
-                                               uint32_t& g2) {
-  g1 = g2 = 0u;
-  if (F && f.thresh != 0u) gossip::gate_key(k0, k1, g1, g2);
-}
 
 // Round 0's marks into mark[0], a thread a packed word as in the rounds;
 // `flags` is gossip's flags plane (only active nodes send) or null
@@ -381,28 +347,6 @@ __global__ void gossip_init(GossipChunk c, const int* __restrict__ n0,
                        false);
 }
 
-// The push-sum input into A, with the seed verdict of gossip_init (the
-// crash model's form; the fault-free chunk uses chunk.cuh's pushsum_init).
-__global__ void pushsum_init_live(const float* __restrict__ s0,
-                                  const float* __restrict__ w0,
-                                  const int* __restrict__ t0,
-                                  const int* __restrict__ c0, PushSumPlanes a,
-                                  int n_pad, const int* death, int seed_round,
-                                  int* total, unsigned* ticket, int* ctrl,
-                                  int target) {
-  int converged = 0;
-  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
-       j += gridDim.x * kBlock) {
-    a.s[j] = s0[j];
-    a.w[j] = w0[j];
-    a.term[j] = t0[j];
-    a.conv[j] = c0[j];
-    if (gossip::alive_in(death[j], seed_round)) converged += c0[j];
-  }
-  gossip::finish_count(block_sum(converged), total, ticket, ctrl, target,
-                       false);
-}
-
 // Only a node itself reads its count, active and conv flags (other nodes
 // read its marks), so they are updated in place: count in A, the two flags
 // in one byte, 5 bytes a node each way a round where three int32 ping/pong
@@ -524,7 +468,7 @@ cudaError_t queue_pushsum(PushSumChunk c, const float* s0, const float* w0,
   if (err != cudaSuccess) return err;
   int* init_words = (int*)(c.words + c.rounds + 1);
   if (F && c.f.death != nullptr)
-    pushsum_init_live<<<grid, kBlock, 0, stream>>>(
+    gossip::pushsum_init_live<<<grid, kBlock, 0, stream>>>(
         s0, w0, t0, c0, c.a, c.n_pad, c.f.death, c.f.start - 1, init_words,
         (unsigned*)(init_words + 1), c.ctrl, need_init);
   else

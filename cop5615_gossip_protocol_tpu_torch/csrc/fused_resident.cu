@@ -67,6 +67,31 @@
 // chunk from a converged state: the init launch sets the done flag, and
 // every block of the persistent launch reads it at entry and leaves.
 //
+// Failure model (the JAX whole-array kernels' use_gate, crashed and
+// global_term, ops/fused.py:426-436, :518-525, :559-575, :770-775,
+// :835-860; the tiled tier takes global termination only, as the JAX one
+// does): a template flag F picks each round kernel's faulted instance, so
+// the fault-free one keeps its code. Under F a node's mark for round j + 1
+// is -1 when its drop-gate word (a Threefry word at the node's flat index
+// off the round's gate key, the round key folded with the gate tag, derived
+// once a thread a round) is below the threshold or the node is dead then;
+// it is folded in where pass j writes that mark (the prologue's for round
+// 0), so the mark planes' parity and the one barrier a round are
+// unchanged. A push-sum node sends iff its own mark is set, so a blocked
+// node keeps its whole mass; a dead gossip node's inbox counts nothing. A
+// dead node's term and conv (gossip: count, active, conv, through its empty
+// inbox) stay while its s and w absorb, and the barrier word counts conv
+// among the live nodes against the round's quorum need (a table the host
+// draws from the sorted death plane, ops/faults.quorum_needs); the init
+// launch seeds the verdict from the need of round start - 1. Under global
+// termination term and conv stay, the barrier word counts the real nodes
+// whose ratio moved more than delta * max(|s/w|, 1), and the round where
+// none did latches conv on every real node (j < n: the pad lanes of both
+// tiers' layouts stay out of the count and the latch). The fault planes are
+// read-only in the round loop, and a node's term and conv are written only
+// by the thread that owns it, so no pass is split and no block leaves the
+// loop alone.
+//
 // Numerics: built without fast math, with -fmad=false and denormals kept;
 // the halve happens before the class sums, and the sums run from 0.0 in
 // ascending class order, as the chunked engine's halve_and_send and
@@ -83,41 +108,52 @@
 namespace {
 
 using gossip::Classes;
+using gossip::Faults;
 using gossip::GossipPlanes;
 using gossip::PushSumPlanes;
 using gossip::block_sum;
 using gossip::cooperative_grid;
+using gossip::faulted_mark;
 using gossip::kBlock;
 using gossip::round_barrier;
+using gossip::round_gate_key;
 using gossip::word_mark;
 using gossip::zero_control;
 
 // Round 0's marks into mark[0]; `active` is the input's active plane
-// (gossip) or null (push-sum: every node of degree > 0 sends).
+// (gossip) or null (push-sum: every node of degree > 0 sends); under F the
+// gate and the dead mark -1.
+template <bool F>
 __device__ __forceinline__ void prologue_marks(int8_t* mark, const int* active,
                                                const int* __restrict__ dirs,
                                                const long long* keys,
-                                               int n_pad) {
+                                               const Faults& f, int n_pad) {
   const uint32_t k0 = (uint32_t)keys[0], k1 = (uint32_t)keys[1];
+  uint32_t g1, g2;
+  round_gate_key<F>(f, k0, k1, g1, g2);
   for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
        j += gridDim.x * kBlock)
     mark[j] = active == nullptr || active[j] != 0
-                  ? word_mark(dirs[j], k0, k1, j)
+                  ? faulted_mark<F>(word_mark(dirs[j], k0, k1, j), f, 0, g1, g2, j)
                   : (int8_t)-1;
 }
 
 // ---------------------------------------------------------------- push-sum
 
+// F: the failure model (see the header). F = false is the fault-free
+// kernel, with none of its loads or tests.
+template <bool F>
 __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
                                const long long* keys,
                                const int* __restrict__ dirs, Classes cls,
                                int n, int n_pad, int rounds, float delta,
                                int term_rounds, int target,
-                               unsigned long long* words, int* ctrl) {
+                               unsigned long long* words, int* ctrl, Faults f) {
   // The init launch's verdict: every block reads the same value.
   if (ctrl[0] || rounds == 0) return;
-  prologue_marks(mark, nullptr, dirs, keys, n_pad);
+  prologue_marks<F>(mark, nullptr, dirs, keys, f, n_pad);
   round_barrier(words + rounds, 0);
+  const bool global = F && f.global;
   int executed = 0;
   bool done = false;
   while (!done && executed < rounds) {
@@ -128,19 +164,65 @@ __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
     int8_t* next = r + 1 < rounds ? mark + ((r + 1) & 1) * n_pad : nullptr;
     const uint32_t k0 = next ? (uint32_t)keys[2 * r + 2] : 0u;
     const uint32_t k1 = next ? (uint32_t)keys[2 * r + 3] : 0u;
+    uint32_t g1, g2;
+    round_gate_key<F>(f, k0, k1, g1, g2);
     int c = 0;
     for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
          j += gridDim.x * kBlock) {
       const bool pad = j >= n;
       float in_s = 0.0f, in_w = 0.0f;
       if (!pad) gossip::pushsum_inbox(cls, mk, cur.s, cur.w, j, n, in_s, in_w);
-      // mk[j] < 0 on pad lanes and degree 0: those keep their mass.
-      c += gossip::pushsum_absorb_node(cur, nxt, j, pad, mk[j] >= 0, in_s,
-                                       in_w, delta, term_rounds);
-      if (next) next[j] = word_mark(dirs[j], k0, k1, j);
+      if constexpr (!F) {
+        // mk[j] < 0 on pad lanes and degree 0: those keep their mass.
+        c += gossip::pushsum_absorb_node(cur, nxt, j, pad, mk[j] >= 0, in_s,
+                                         in_w, delta, term_rounds);
+        if (next) next[j] = word_mark(dirs[j], k0, k1, j);
+      } else {
+        // A node sends iff its mark is set (blocked and dead nodes keep
+        // their mass); a dead node's term and conv stay, and only live
+        // nodes count.
+        const bool alive =
+            f.death == nullptr || gossip::alive_in(f.death[j], f.start + r);
+        const float s_t = cur.s[j], w_t = cur.w[j];
+        const int t_old = cur.term[j], c_old = cur.conv[j];
+        float s_new, w_new;
+        int t_new;
+        int cv = gossip::pushsum_absorb(
+            s_t, w_t, [&] { return t_old; }, [&] { return c_old != 0; }, pad,
+            mk[j] >= 0, in_s, in_w, delta, term_rounds, s_new, w_new, t_new);
+        nxt.s[j] = s_new;
+        nxt.w[j] = w_new;
+        if (global) {
+          cv = !pad && gossip::unstable_global(s_t, w_t, s_new, w_new, delta);
+          nxt.term[j] = t_old;
+          nxt.conv[j] = c_old;
+        } else {
+          nxt.term[j] = gossip::frozen(alive, t_new, t_old);
+          cv = gossip::frozen(alive, cv, c_old);
+          nxt.conv[j] = cv;
+        }
+        if (next)
+          next[j] = faulted_mark<F>(word_mark(dirs[j], k0, k1, j), f, r + 1, g1,
+                                    g2, j);
+        c += alive ? cv : 0;
+      }
     }
-    done = round_barrier(words + r, block_sum(c)) >= target;
+    if constexpr (!F) {
+      done = round_barrier(words + r, block_sum(c)) >= target;
+    } else {
+      const int total = round_barrier(words + r, block_sum(c));
+      // Global: the round's unstable count; crash: the round's quorum need.
+      done = global ? total == 0 : total >= (f.death ? f.needs[r] : target);
+    }
     ++executed;
+  }
+  // Global termination: the round whose verdict ended the run latches conv
+  // on every real node of the result's plane set.
+  if (global && done) {
+    int* conv = (executed & 1) ? b.conv : a.conv;
+    for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+         j += gridDim.x * kBlock)
+      conv[j] = j < n ? 1 : 0;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     ctrl[0] = done ? 1 : 0;
@@ -150,14 +232,18 @@ __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
 
 // ------------------------------------------------------------------ gossip
 
+// F: the failure model, as in pushsum_rounds: blocked and dead nodes mark
+// -1, a dead node's inbox counts nothing (its count, active and conv
+// stay), and the verdict is the quorum need among the live nodes.
+template <bool F>
 __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
                               const long long* keys,
                               const int* __restrict__ dirs, Classes cls, int n,
                               int n_pad, int rounds, int rumor_target,
                               int suppress, int target,
-                              unsigned long long* words, int* ctrl) {
+                              unsigned long long* words, int* ctrl, Faults f) {
   if (ctrl[0] || rounds == 0) return;
-  prologue_marks(mark, a.active, dirs, keys, n_pad);
+  prologue_marks<F>(mark, a.active, dirs, keys, f, n_pad);
   round_barrier(words + rounds, 0);
   int executed = 0;
   bool done = false;
@@ -169,11 +255,15 @@ __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
     int8_t* next = r + 1 < rounds ? mark + ((r + 1) & 1) * n_pad : nullptr;
     const uint32_t k0 = next ? (uint32_t)keys[2 * r + 2] : 0u;
     const uint32_t k1 = next ? (uint32_t)keys[2 * r + 3] : 0u;
+    uint32_t g1, g2;
+    round_gate_key<F>(f, k0, k1, g1, g2);
     int c = 0;
     for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
          j += gridDim.x * kBlock) {
       const bool pad = j >= n;
-      const int inbox = pad ? 0 : gossip::gossip_inbox(cls, mk, j, n);
+      const bool alive = !F || f.death == nullptr ||
+                         gossip::alive_in(f.death[j], f.start + r);
+      const int inbox = pad || !alive ? 0 : gossip::gossip_inbox(cls, mk, j, n);
       int cnt, act;
       const int cv = gossip::gossip_absorb(
           [&] { return cur.conv[j] != 0; }, [&] { return cur.count[j]; },
@@ -182,10 +272,18 @@ __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
       nxt.count[j] = cnt;
       nxt.active[j] = act;
       nxt.conv[j] = cv;
-      if (next) next[j] = act ? word_mark(dirs[j], k0, k1, j) : (int8_t)-1;
-      c += cv;
+      if (next)
+        next[j] = act ? faulted_mark<F>(word_mark(dirs[j], k0, k1, j), f, r + 1,
+                                        g1, g2, j)
+                      : (int8_t)-1;
+      c += alive ? cv : 0;
     }
-    done = round_barrier(words + r, block_sum(c)) >= target;
+    if constexpr (!F) {
+      done = round_barrier(words + r, block_sum(c)) >= target;
+    } else {
+      const int total = round_barrier(words + r, block_sum(c));
+      done = total >= (f.death ? f.needs[r] : target);
+    }
     ++executed;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -194,8 +292,77 @@ __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
   }
 }
 
-int pushsum_grid_cache[64];
-int gossip_grid_cache[64];
+// The persistent grid of each kernel instance, asked once a device.
+int pushsum_grid_cache[2][64];
+int gossip_grid_cache[2][64];
+
+// Queues a push-sum chunk: init (the crash model's live seed verdict under
+// F with a death plane), the persistent launch, finish, all on its grid.
+template <bool F>
+cudaError_t queue_pushsum(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
+                          const long long* keys, const int* dirs, Classes cls,
+                          int n, int n_pad, int rounds, float delta,
+                          int term_rounds, int target, unsigned long long* words,
+                          int* ctrl, Faults f, const float* s0, const float* w0,
+                          const int* t0, const int* c0, int need_init,
+                          int device, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = cooperative_grid(pushsum_rounds<F>, n_pad, device,
+                                     pushsum_grid_cache[F ? 1 : 0], &grid);
+  if (err != cudaSuccess) return err;
+  int* init_words = (int*)(words + rounds + 1);
+  if (F && f.death != nullptr)
+    gossip::pushsum_init_live<<<grid, kBlock, 0, stream>>>(
+        s0, w0, t0, c0, a, n_pad, f.death, f.start - 1, init_words,
+        (unsigned*)(init_words + 1), ctrl, need_init);
+  else
+    gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
+        s0, w0, t0, c0, a, n_pad, init_words, (unsigned*)(init_words + 1),
+        ctrl, target);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  void* args[] = {&a,      &b,     &mark,        &keys,   &dirs,
+                  &cls,    &n,     &n_pad,       &rounds, &delta,
+                  &term_rounds,    &target,      &words,  &ctrl, &f};
+  err = cudaLaunchCooperativeKernel((const void*)pushsum_rounds<F>, grid,
+                                    kBlock, args, 0, stream);
+  if (err != cudaSuccess) return err;
+  gossip::pushsum_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
+  return cudaGetLastError();
+}
+
+template <bool F>
+cudaError_t queue_gossip(GossipPlanes a, GossipPlanes b, int8_t* mark,
+                         const long long* keys, const int* dirs, Classes cls,
+                         int n, int n_pad, int rounds, int rumor_target,
+                         int suppress, int target, unsigned long long* words,
+                         int* ctrl, Faults f, const int* n0, const int* a0,
+                         const int* c0, int need_init, int device,
+                         cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = cooperative_grid(gossip_rounds<F>, n_pad, device,
+                                     gossip_grid_cache[F ? 1 : 0], &grid);
+  if (err != cudaSuccess) return err;
+  int* init_words = (int*)(words + rounds + 1);
+  if (F && f.death != nullptr)
+    gossip::gossip_init_live<<<grid, kBlock, 0, stream>>>(
+        n0, a0, c0, a, n_pad, f.death, f.start - 1, init_words,
+        (unsigned*)(init_words + 1), ctrl, need_init);
+  else
+    gossip::gossip_init<<<grid, kBlock, 0, stream>>>(
+        n0, a0, c0, a, n_pad, init_words, (unsigned*)(init_words + 1), ctrl,
+        target);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  void* args[] = {&a,      &b,       &mark,         &keys,    &dirs,
+                  &cls,    &n,       &n_pad,        &rounds,  &rumor_target,
+                  &suppress,         &target,       &words,   &ctrl, &f};
+  err = cudaLaunchCooperativeKernel((const void*)gossip_rounds<F>, grid,
+                                    kBlock, args, 0, stream);
+  if (err != cudaSuccess) return err;
+  gossip::gossip_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -206,16 +373,20 @@ int gossip_grid_cache[64];
 // cooperative launch that runs every round, the finish launch, all three on
 // the persistent grid, so no occupancy is asked after a device's first
 // chunk) and return the first error (a cudaError_t), 0 if none. The
-// arguments are those of csrc/fused_stencil.cu's entry points: outputs and
-// control words are allocated by the caller, the A planes receive the
-// result, the B planes are the other half of the ping/pong pair; mark is
-// int8[2 * n_pad]; dirs is int32[n_pad], every slot's directions word
-// (ops/fused_stencil_hbm.dir_words); ctrl holds the chunk's control
-// words: int32[2] (done, rounds executed), then 8 * (rounds + 2) bytes of
-// scratch, the per-round barrier words (uint64, rounds of them, then the
-// prologue's) and the init launch's total and ticket (int32 each); ctrl
-// must be 8-byte aligned. `classes` is a host array of the n_classes
-// sorted displacement classes.
+// arguments are those of csrc/fused_stencil.cu's entry points, then the
+// failure model's: outputs and control words are allocated by the caller,
+// the A planes receive the result, the B planes are the other half of the
+// ping/pong pair; mark is int8[2 * n_pad]; dirs is int32[n_pad], every
+// slot's directions word (ops/fused_stencil_hbm.dir_words); ctrl holds the
+// chunk's control words: int32[2] (done, rounds executed), then 8 *
+// (rounds + 2) bytes of scratch, the per-round barrier words (uint64,
+// rounds of them, then the prologue's) and the init launch's total and
+// ticket (int32 each); ctrl must be 8-byte aligned. `classes` is a host
+// array of the n_classes sorted displacement classes. `faulted` picks the
+// kernels' faulted instance, with the gate threshold (0: none), the death
+// plane int32[n_pad] and the rounds' quorum needs int32[rounds] on the
+// device (null: no crash model), the seed need of round start - 1, the
+// chunk's first absolute round and (push-sum) global termination.
 
 extern "C" int gossip_pushsum_resident_chunk(
     const float* s0, const float* w0, const int* t0, const int* c0, float* s,
@@ -223,47 +394,8 @@ extern "C" int gossip_pushsum_resident_chunk(
     int* conv_b, int8_t* mark, const long long* keys, const int* dirs,
     int* ctrl, const int* classes, int n_classes, int kind, int n,
     int extra_node, int n_pad, int rounds, float delta, int term_rounds,
-    int target, int device, void* stream_ptr) {
-  gossip::Lattice L;
-  Classes cls;
-  if (rounds < 0 ||
-      !gossip::setup_lattice(kind, n, extra_node, classes, n_classes, &L, &cls))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  int grid = 0;
-  err = cooperative_grid(pushsum_rounds, n_pad, device, pushsum_grid_cache,
-                         &grid);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  unsigned long long* words = (unsigned long long*)(ctrl + 2);
-  int* init_words = (int*)(words + rounds + 1);
-  PushSumPlanes a{s, w, term, conv};
-  PushSumPlanes b{s_b, w_b, term_b, conv_b};
-  // The control words, zeroed on the stream ahead of the chunk.
-  err = zero_control(ctrl, rounds, stream);
-  if (err != cudaSuccess) return (int)err;
-  gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
-      s0, w0, t0, c0, a, n_pad, init_words, (unsigned*)(init_words + 1), ctrl,
-      target);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&a,      &b,     &mark,        &keys,   &dirs,
-                  &cls,    &n,     &n_pad,       &rounds, &delta,
-                  &term_rounds,    &target,      &words,  &ctrl};
-  err = cudaLaunchCooperativeKernel((const void*)pushsum_rounds, grid, kBlock,
-                                    args, 0, stream);
-  if (err != cudaSuccess) return (int)err;
-  gossip::pushsum_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int gossip_gossip_resident_chunk(
-    const int* n0, const int* a0, const int* c0, int* count, int* active,
-    int* conv, int* count_b, int* active_b, int* conv_b, int8_t* mark,
-    const long long* keys, const int* dirs, int* ctrl, const int* classes,
-    int n_classes, int kind, int n, int extra_node, int n_pad, int rounds,
-    int rumor_target, int suppress, int target, int device,
+    int target, int faulted, unsigned thresh, const int* death,
+    const int* needs, int need_init, int start, int global, int device,
     void* stream_ptr) {
   gossip::Lattice L;
   Classes cls;
@@ -272,29 +404,55 @@ extern "C" int gossip_gossip_resident_chunk(
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int grid = 0;
-  err = cooperative_grid(gossip_rounds, n_pad, device, gossip_grid_cache,
-                         &grid);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  unsigned long long* words = (unsigned long long*)(ctrl + 2);
-  int* init_words = (int*)(words + rounds + 1);
-  GossipPlanes a{count, active, conv};
-  GossipPlanes b{count_b, active_b, conv_b};
   // The control words, zeroed on the stream ahead of the chunk.
   err = zero_control(ctrl, rounds, stream);
   if (err != cudaSuccess) return (int)err;
-  gossip::gossip_init<<<grid, kBlock, 0, stream>>>(
-      n0, a0, c0, a, n_pad, init_words, (unsigned*)(init_words + 1), ctrl,
-      target);
-  err = cudaGetLastError();
+  const PushSumPlanes a{s, w, term, conv};
+  const PushSumPlanes b{s_b, w_b, term_b, conv_b};
+  unsigned long long* words = (unsigned long long*)(ctrl + 2);
+  const Faults f{thresh, death, needs, start, global};
+  return (int)(faulted
+                   ? queue_pushsum<true>(a, b, mark, keys, dirs, cls, n, n_pad,
+                                         rounds, delta, term_rounds, target,
+                                         words, ctrl, f, s0, w0, t0, c0,
+                                         need_init, device, stream)
+                   : queue_pushsum<false>(a, b, mark, keys, dirs, cls, n, n_pad,
+                                          rounds, delta, term_rounds, target,
+                                          words, ctrl, f, s0, w0, t0, c0,
+                                          need_init, device, stream));
+}
+
+extern "C" int gossip_gossip_resident_chunk(
+    const int* n0, const int* a0, const int* c0, int* count, int* active,
+    int* conv, int* count_b, int* active_b, int* conv_b, int8_t* mark,
+    const long long* keys, const int* dirs, int* ctrl, const int* classes,
+    int n_classes, int kind, int n, int extra_node, int n_pad, int rounds,
+    int rumor_target, int suppress, int target, int faulted, unsigned thresh,
+    const int* death, const int* needs, int need_init, int start, int device,
+    void* stream_ptr) {
+  gossip::Lattice L;
+  Classes cls;
+  if (rounds < 0 ||
+      !gossip::setup_lattice(kind, n, extra_node, classes, n_classes, &L, &cls))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&a,      &b,       &mark,         &keys,    &dirs,
-                  &cls,    &n,       &n_pad,        &rounds,  &rumor_target,
-                  &suppress,         &target,       &words,   &ctrl};
-  err = cudaLaunchCooperativeKernel((const void*)gossip_rounds, grid, kBlock,
-                                    args, 0, stream);
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  // The control words, zeroed on the stream ahead of the chunk.
+  err = zero_control(ctrl, rounds, stream);
   if (err != cudaSuccess) return (int)err;
-  gossip::gossip_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
-  return (int)cudaGetLastError();
+  const GossipPlanes a{count, active, conv};
+  const GossipPlanes b{count_b, active_b, conv_b};
+  unsigned long long* words = (unsigned long long*)(ctrl + 2);
+  const Faults f{thresh, death, needs, start, 0};
+  return (int)(faulted
+                   ? queue_gossip<true>(a, b, mark, keys, dirs, cls, n, n_pad,
+                                        rounds, rumor_target, suppress, target,
+                                        words, ctrl, f, n0, a0, c0, need_init,
+                                        device, stream)
+                   : queue_gossip<false>(a, b, mark, keys, dirs, cls, n, n_pad,
+                                         rounds, rumor_target, suppress, target,
+                                         words, ctrl, f, n0, a0, c0, need_init,
+                                         device, stream));
 }

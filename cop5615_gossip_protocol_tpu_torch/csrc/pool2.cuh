@@ -1,8 +1,8 @@
 // Per-node helpers of the streaming pool kernels (csrc/fused_pool2.cu):
 // where a source's packed choice lives, its regenerated choice, the sources
 // and choices of one packed-word column (each source the mod-n roll of its
-// destination, stencil.cuh's class_source), and the push-sum term/conv
-// plane.
+// destination, stencil.cuh's class_source), the push-sum term/conv plane,
+// and the faulted kernels' send bits.
 //
 // Like threefry.cuh, everything here is plain inline code usable from the
 // host, so the CPU tests build it with g++ and hold it against the plain
@@ -15,6 +15,7 @@
 
 #include <stdint.h>
 
+#include "faults.cuh"
 #include "stencil.cuh"
 #include "threefry.cuh"
 
@@ -32,6 +33,12 @@ constexpr int kTermMask = kConvBit - 1;
 GOSSIP_HD int tc_pack(int term, bool conv) { return conv ? (term | kConvBit) : term; }
 GOSSIP_HD int tc_term(int tc) { return tc & kTermMask; }
 GOSSIP_HD bool tc_conv(int tc) { return (tc & kConvBit) != 0; }
+
+// A node's packed plane after a faulted round: the new term and conv if it
+// was alive, its round-start plane (frozen) if it was dead.
+GOSSIP_HD int tc_frozen(bool alive, int tc, int t_new, bool conv) {
+  return alive ? tc_pack(t_new, conv) : tc;
+}
 
 // Flat position of node i's packed choice word, and i's 4-bit sub-slot in it.
 GOSSIP_HD uint32_t choice_word_index(int i) {
@@ -81,6 +88,47 @@ GOSSIP_HD int column_sources(int j0, int d, int n, uint32_t k1, uint32_t k2,
     ch[sub] = source_choice(k1, k2, src[sub], n, pool_size);
   }
   return kPack;
+}
+
+// The faulted kernels' send bits: one bit a node, set iff the node sends
+// in the round (faults.cuh send_flag), in a byte plane laid out as the
+// packed choice words: node i's bit is bit choice_sub(i) of byte
+// choice_word_index(i), so the 8 destinations of packed-word column `col`
+// (local_column_origin) own byte `col`, bit sub for j0 + 128 * sub.
+GOSSIP_HD bool send_bit(const uint8_t* sends, int i) {
+  return ((sends[choice_word_index(i)] >> choice_sub(i)) & 1u) != 0;
+}
+
+// column_sources with the failure model folded in: a source whose send bit
+// is clear chooses no slot (-1), so it delivers nothing (the JAX kernels'
+// masked_choice). Where the 8 sources share one lane on 8 consecutive rows
+// their bits lie in at most 2 bytes, read once each (the second only when
+// the rows cross a byte); the wrap column reads a byte per source. Returns
+// column_sources' Threefry words drawn.
+GOSSIP_HD int column_sources_sending(int j0, int d, int n, uint32_t k1,
+                                     uint32_t k2, int pool_size,
+                                     const uint8_t* sends, int src[kPack],
+                                     int ch[kPack]) {
+  const int drawn = column_sources(j0, d, n, k1, k2, pool_size, src, ch);
+  if (drawn == 2) {
+    const int r0 = src[0] >> 7, lane = src[0] & (kLanes - 1), wr = r0 >> 3;
+    const uint32_t ba = sends[wr * kLanes + lane];
+    const uint32_t bb = (r0 & (kPack - 1)) ? sends[(wr + 1) * kLanes + lane] : 0u;
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int sub = 0; sub < kPack; ++sub) {
+      const int r = r0 + sub;
+      if (!((((r >> 3) == wr ? ba : bb) >> (r & (kPack - 1))) & 1u)) ch[sub] = -1;
+    }
+  } else {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int sub = 0; sub < kPack; ++sub)
+      if (!send_bit(sends, src[sub])) ch[sub] = -1;
+  }
+  return drawn;
 }
 
 // ------------------------------------------------ the sharded composition

@@ -38,11 +38,13 @@ is no degradation ladder: a kernel that fails to build or launch raises.
 
 The drop gate, crash-stop with quorum termination and push-sum's global
 termination (``fault_rate``, ``crash_rate``/``crash_schedule`` with
-``quorum``, ``termination``) run on the chunked engine under every delivery
-and on the pool tier; where the JAX ladder takes such a config to a fused
-tier whose kernels do not carry them yet, the run refuses naming ROADMAP
-A6a, on the card and under ``engine="fused"``; where it demotes, the port
-runs its chunked engine, on the card too.
+``quorum``, ``termination``) run on the chunked engine under every delivery,
+on the pool and streaming pool tiers and on the whole-array lattice tier;
+the tiled lattice tier takes global termination, the only one its JAX tier
+takes. Where the JAX ladder takes such a config to a fused tier whose
+kernels do not carry the knob yet (``_FAULT_KNOBS``), the run refuses naming
+ROADMAP A6a, on the card and under ``engine="fused"``; where it demotes, the
+port runs its chunked engine, on the card too.
 """
 
 from __future__ import annotations
@@ -552,21 +554,29 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
                         target, t_enter)
 
 
-# The fused tiers whose kernels carry the drop gate, crash-stop and global
-# termination in the port: the pool tier (rows 1-2).
-_FAULT_TIERS = ("pool",)
+# The failure-model knobs each fused tier's kernels carry in the port
+# ("gate": fault_rate, "crash": crash_rate/crash_schedule, "global":
+# termination="global"): the pool tier (rows 1-2), the streaming pool tier
+# (rows 3-4) and the whole-array lattice tier (rows 5-6) all three; the
+# tiled lattice tier (row 7) global termination, the only one its JAX tier
+# takes. The streaming lattice and imp tiers carry none yet (their JAX
+# tiers take global termination only).
+_FAULT_KNOBS = {"pool": ("gate", "crash", "global"),
+                "pool2": ("gate", "crash", "global"),
+                "stencil": ("gate", "crash", "global"),
+                "stencil2": ("global",)}
 
 
 def _refuse_unported_faults(variant: str, cfg: SimConfig) -> None:
     """Raise where the JAX ladder runs a fused tier whose failure-model or
     global-termination branches the port's kernels do not carry yet
-    (ROADMAP A6a-2): never a quiet demotion to another engine."""
-    if variant in _FAULT_TIERS:
-        return
-    knobs = [k for k, on in (("fault_rate", cfg.fault_rate > 0),
-                             ("crash_rate/crash_schedule", cfg.crash_model),
-                             ("termination='global'",
-                              cfg.termination == "global")) if on]
+    (ROADMAP A6a): never a quiet demotion to another engine."""
+    carried = _FAULT_KNOBS.get(variant, ())
+    knobs = [text for knob, text, on in (
+        ("gate", "fault_rate", cfg.fault_rate > 0),
+        ("crash", "crash_rate/crash_schedule", cfg.crash_model),
+        ("global", "termination='global'", cfg.termination == "global"))
+        if on and knob not in carried]
     if knobs:
         raise unported(f"{' and '.join(knobs)} on the fused {variant!r} tier",
                        "A6a")
@@ -722,9 +732,7 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
             (fused_pool.pushsum_pool_chunk, fused_pool.gossip_pool_chunk)
             if variant == "pool" else
             (fused_pool2.pushsum_pool2_chunk, fused_pool2.gossip_pool2_chunk))
-        common = {"n": n, "target": target}
-        if variant == "pool":
-            common["faults"] = fused.run_faults(cfg, n)
+        common = {"n": n, "target": target, "faults": fused.run_faults(cfg, n)}
     elif variant in ("imp", "imp_hbm"):
         layout = fused_pool.build_pool_layout(n)
         pushsum_chunk, gossip_chunk = (
@@ -745,6 +753,8 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
         }[variant]
         layout = build(n)
         common = {"spec": fused_stencil_hbm.stencil_spec(topo), "target": target}
+        if variant in ("stencil", "stencil2"):
+            common["faults"] = fused.run_faults(cfg, n)
 
     def streams(start, count):
         keys = fused.round_keys(key, start, count)

@@ -79,29 +79,36 @@ def build_layout(n: int) -> FusedLayout:
 
 
 def pushsum_chunk(state4, keys, start: int, cap: int, *, spec, target: int,
-                  delta: float, term_rounds: int):
+                  delta: float, term_rounds: int,
+                  faults: Optional[Faults] = None):
     """Up to K = keys.shape[0] push-sum lattice rounds from absolute round
     ``start``, stopping at ``cap`` or once ``target`` nodes converged, on
     (s, w, term, conv_i32) in the ``build_layout`` layout; the contract of
     fused_stencil.pushsum_stencil2_chunk (``spec`` a
-    fused_stencil_hbm.StencilSpec)."""
+    fused_stencil_hbm.StencilSpec). ``faults`` (the run's ``Faults``, None
+    for a fault-free run with local termination) adds the drop gate,
+    crash-stop with the quorum verdict and global termination."""
     # Imported here: ops/fused_stencil imports this module.
     from .fused_stencil import pushsum_resident_chunk
 
     return pushsum_resident_chunk(
         pushsum_chunk, build_layout(spec.n).rows, state4, keys, start, cap,
-        spec=spec, target=target, delta=delta, term_rounds=term_rounds)
+        spec=spec, target=target, delta=delta, term_rounds=term_rounds,
+        faults=faults)
 
 
 def gossip_chunk(state3, keys, start: int, cap: int, *, spec, target: int,
-                 rumor_target: int, suppress: bool):
+                 rumor_target: int, suppress: bool,
+                 faults: Optional[Faults] = None):
     """Gossip analog of ``pushsum_chunk``: ``state3`` is (count,
-    active_i32, conv_i32); converged-target suppression is receiver-side."""
+    active_i32, conv_i32); converged-target suppression is receiver-side;
+    ``faults`` adds the drop gate and crash-stop."""
     from .fused_stencil import gossip_resident_chunk
 
     return gossip_resident_chunk(
         gossip_chunk, build_layout(spec.n).rows, state3, keys, start, cap,
-        spec=spec, target=target, rumor_target=rumor_target, suppress=suppress)
+        spec=spec, target=target, rumor_target=rumor_target, suppress=suppress,
+        faults=faults)
 
 
 # Kernel launches queued by each wrapper (3 a chunk), counted where the

@@ -161,6 +161,26 @@ def _chunk_faults(faults: Optional[Faults], keys, start: int, rows: int, dev):
     return None if faults is None else faults.for_chunk(keys, start, rows * LANES, dev)
 
 
+def fault_args(faults: Optional[Faults], needs_ptr, need_init, start: int,
+               n_pad: int, dev, pushsum: bool) -> list:
+    """The failure-model arguments that the chunk entry points of
+    csrc/fused_pool.cu, csrc/fused_pool2.cu and csrc/fused_resident.cu take
+    after their protocol's: whether to run the faulted instance, the gate
+    threshold, the death plane over n_pad on ``dev``, the rounds' quorum
+    needs on the device (``needs_ptr``, None without a crash model), the
+    seed need, the chunk's first absolute round and, for push-sum, global
+    termination."""
+    if faults is None:
+        args = [0, 0, None, None, 0, start]
+    else:
+        death = faults.death_flat(n_pad, dev)
+        args = [1, faults.thresh or 0, None if death is None else death.data_ptr(),
+                needs_ptr, need_init or 0, start]
+    if pushsum:
+        args.append(int(faults is not None and faults.global_term))
+    return args
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: CUDA tensors launch the kernels, CPU tensors run the plain
 # versions. No fallback between the two.
@@ -265,14 +285,10 @@ def _kernel_chunk(name: str, state, keys, offs, start: int, cap: int, n: int,
         if needs is not None:
             parts.append(needs)
     streams = _upload(torch.cat(parts), dev)
-    fault_args = [0, 0, None, None, 0, start]
-    if faults is not None:
-        death = faults.death_flat(n_pad, dev)
-        fault_args = [1, faults.thresh or 0,
-                      None if death is None else death.data_ptr(),
-                      None if needs is None else
-                      streams.data_ptr() + 8 * keys.numel() + 4 * offs.numel(),
-                      need_init or 0, start]
+    fargs = fault_args(
+        faults, None if needs is None else
+        streams.data_ptr() + 8 * keys.numel() + 4 * offs.numel(), need_init, start,
+        n_pad, dev, len(state) == 4)
     rounds = max(0, cap - start)
     planes = len(state) * n_pad
     # Two allocations a chunk beside the streams' copy: the result planes
@@ -292,13 +308,11 @@ def _kernel_chunk(name: str, state, keys, offs, start: int, cap: int, n: int,
            zip(head[:planes].view(len(state), *state[0].shape).unbind(0), state)]
     fn = kernels.entry("fused_pool", name, _SIGNATURES[name])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if len(state) == 4:
-        fault_args.append(int(faults is not None and faults.global_term))
     err = fn(*[x.data_ptr() for x in (*state, *out)], *own, base + own_bytes,
              streams.data_ptr(),
              streams.data_ptr() + 8 * keys.numel(),
              head.data_ptr() + 4 * planes, n, n_pad, offs.shape[1], rounds, *tail,
-             *fault_args, dev.index, stream)
+             *fargs, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
     return tuple(out), head[planes + 1]

@@ -16,7 +16,10 @@ count their own launches.
 
 ``pushsum_stencil2_chunk`` and ``gossip_stencil2_chunk`` launch the kernels
 on CUDA tensors and run the plain version on CPU tensors: the streaming
-tier's ``*_plain`` functions, which take any layout.
+tier's ``*_plain`` functions, which take any layout. The whole-array tier's
+wrappers take the run's drop gate, crash-stop and global termination
+(``fused.Faults``); this tier's take global termination only, as the JAX
+tier does (its gated and crashed configs run on the chunked engine).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Optional
 import torch
 
 from ..config import SimConfig
+from .fused import Faults
 from .fused_pool import build_pool_layout
 from .fused_stencil_hbm import (
     StencilSpec,
@@ -72,42 +76,55 @@ def stencil2_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
 
 def pushsum_resident_chunk(counter, rows: int, state4, keys, start: int,
                            cap: int, *, spec: StencilSpec, target: int,
-                           delta: float, term_rounds: int):
+                           delta: float, term_rounds: int,
+                           faults: Optional[Faults] = None):
     """The push-sum chunk behind both resident tiers' wrappers, on state in
-    the tier's [rows, 128] layout; a launch adds its launches to
+    the tier's [rows, 128] layout, with the run's failure model
+    (``faults``: None for a fault-free run with local termination, which
+    runs the kernels' fault-free instance); a launch adds its launches to
     ``counter.launches``."""
     dev = _check(state4, (torch.float32, torch.float32, torch.int32, torch.int32),
                  keys, spec, rows)
     if dev.type == "cpu":
         return pushsum_stencil_hbm_chunk_plain(
             state4, keys, start, cap, spec=spec, target=target, delta=delta,
-            term_rounds=term_rounds)
+            term_rounds=term_rounds, faults=faults)
     out, executed, _ = kernel_chunk(
         "fused_resident", "gossip_pushsum_resident_chunk", state4, keys, start,
-        cap, spec, (ctypes.c_float(delta), term_rounds, target))
+        cap, spec, (ctypes.c_float(delta), term_rounds, target), faults)
     counter.launches += RESIDENT_LAUNCHES
     return out, executed
 
 
 def gossip_resident_chunk(counter, rows: int, state3, keys, start: int,
                           cap: int, *, spec: StencilSpec, target: int,
-                          rumor_target: int, suppress: bool):
+                          rumor_target: int, suppress: bool,
+                          faults: Optional[Faults] = None):
     """The gossip chunk behind both resident tiers' wrappers."""
     dev = _check(state3, (torch.int32,) * 3, keys, spec, rows)
     if dev.type == "cpu":
         return gossip_stencil_hbm_chunk_plain(
             state3, keys, start, cap, spec=spec, target=target,
-            rumor_target=rumor_target, suppress=suppress)
+            rumor_target=rumor_target, suppress=suppress, faults=faults)
     out, executed, _ = kernel_chunk(
         "fused_resident", "gossip_gossip_resident_chunk", state3, keys, start,
-        cap, spec, (rumor_target, int(suppress), target))
+        cap, spec, (rumor_target, int(suppress), target), faults)
     counter.launches += RESIDENT_LAUNCHES
     return out, executed
 
 
+def _global_only(faults: Optional[Faults]) -> Optional[Faults]:
+    """The tiled tier's failure model: global termination alone (the JAX
+    tier refuses the drop gate and crash-stop, fused_stencil.py:96)."""
+    if faults is not None and (faults.thresh is not None or faults.death is not None):
+        raise ValueError("the tiled stencil tier (stencil2) takes global termination "
+                         "only; the drop gate and crash-stop run on the chunked engine")
+    return faults
+
+
 def pushsum_stencil2_chunk(state4, keys, start: int, cap: int, *,
                            spec: StencilSpec, target: int, delta: float,
-                           term_rounds: int):
+                           term_rounds: int, faults: Optional[Faults] = None):
     """Up to K = keys.shape[0] push-sum lattice rounds from absolute round
     ``start``, stopping at ``cap`` or once ``target`` nodes converged.
 
@@ -116,22 +133,26 @@ def pushsum_stencil2_chunk(state4, keys, start: int, cap: int, *,
     fold_in keys (uint32 words, fused.round_keys) are a CPU tensor. Returns
     (state4', rounds_executed) with rounds_executed a 0-dim int32 tensor on
     the state's device; the inputs are left unchanged. CUDA state runs the
-    kernel and CPU state the plain version."""
+    kernel and CPU state the plain version. ``faults`` (the run's
+    fused.Faults, or None) may carry global termination only: a gate or a
+    death plane raises ValueError."""
     return pushsum_resident_chunk(
         pushsum_stencil2_chunk, build_pool_layout(spec.n).rows, state4, keys,
         start, cap, spec=spec, target=target, delta=delta,
-        term_rounds=term_rounds)
+        term_rounds=term_rounds, faults=_global_only(faults))
 
 
 def gossip_stencil2_chunk(state3, keys, start: int, cap: int, *,
                           spec: StencilSpec, target: int, rumor_target: int,
-                          suppress: bool):
+                          suppress: bool, faults: Optional[Faults] = None):
     """Gossip analog of ``pushsum_stencil2_chunk``: ``state3`` is (count,
-    active_i32, conv_i32); converged-target suppression is receiver-side."""
+    active_i32, conv_i32); converged-target suppression is receiver-side.
+    Gossip has no global termination, so ``faults`` is None or raises as
+    there."""
     return gossip_resident_chunk(
         gossip_stencil2_chunk, build_pool_layout(spec.n).rows, state3, keys,
         start, cap, spec=spec, target=target, rumor_target=rumor_target,
-        suppress=suppress)
+        suppress=suppress, faults=_global_only(faults))
 
 
 # Kernel launches queued by each wrapper (3 a chunk), counted where the

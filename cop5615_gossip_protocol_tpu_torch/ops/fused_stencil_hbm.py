@@ -38,13 +38,14 @@ from ..utils import kernels
 from . import rng
 from .fused import (
     LANES,
+    Faults,
     clamp_cap_and_pad,
     class_sources,
     gossip_class_rounds,
     pushsum_class_rounds,
     threefry2x32_hash,
 )
-from .fused_pool import PoolLayout, _upload, build_pool_layout
+from .fused_pool import PoolLayout, _chunk_faults, _upload, build_pool_layout, fault_args
 from .topology import Topology, lattice_dirs
 
 MAX_STENCIL_HBM_NODES = 2**27
@@ -260,25 +261,31 @@ def _stencil_classes(spec: StencilSpec, keys, rows: int, dev):
 
 def pushsum_stencil_hbm_chunk_plain(state4, keys, start: int, cap: int, *,
                                     spec: StencilSpec, target: int,
-                                    delta: float, term_rounds: int):
+                                    delta: float, term_rounds: int,
+                                    faults: Optional[Faults] = None):
     """Up to K = keys.shape[0] push-sum lattice rounds on the padded planes
     (s, w, term, conv_i32) of any [rows, 128] layout that covers n: the
     plain version of every lattice tier's kernels (this streaming tier's
-    and the resident tiers' of ops/fused.py and ops/fused_stencil.py).
-    Returns (state4', rounds_executed)."""
+    and the resident tiers' of ops/fused.py and ops/fused_stencil.py), with
+    the run's drop gate, crash-stop and global termination (``faults``, the
+    run's fused.Faults or None; fused.pushsum_class_rounds). Returns
+    (state4', rounds_executed)."""
     dev, rows = state4[0].device, state4[0].shape[0]
     cap, keys = clamp_cap_and_pad(start, cap, keys)
     return pushsum_class_rounds(
         state4, start, cap, keys.shape[0],
         _stencil_classes(spec, keys.to(dev), rows, dev), n=spec.n,
-        target=target, delta=delta, term_rounds=term_rounds)
+        target=target, delta=delta, term_rounds=term_rounds,
+        faults=_chunk_faults(faults, keys, start, rows, dev))
 
 
 def gossip_stencil_hbm_chunk_plain(state3, keys, start: int, cap: int, *,
                                    spec: StencilSpec, target: int,
-                                   rumor_target: int, suppress: bool):
+                                   rumor_target: int, suppress: bool,
+                                   faults: Optional[Faults] = None):
     """Up to K gossip lattice rounds on the padded planes (count,
-    active_i32, conv_i32), with receiver-side suppression; like
+    active_i32, conv_i32), with receiver-side suppression and the run's
+    drop gate and crash-stop (``faults``); like
     ``pushsum_stencil_hbm_chunk_plain``, the plain version of every lattice
     tier. Returns (state3', rounds_executed)."""
     dev, rows = state3[0].device, state3[0].shape[0]
@@ -286,7 +293,8 @@ def gossip_stencil_hbm_chunk_plain(state3, keys, start: int, cap: int, *,
     return gossip_class_rounds(
         state3, start, cap, keys.shape[0],
         _stencil_classes(spec, keys.to(dev), rows, dev), n=spec.n,
-        target=target, rumor_target=rumor_target, suppress=suppress)
+        target=target, rumor_target=rumor_target, suppress=suppress,
+        faults=_chunk_faults(faults, keys, start, rows, dev))
 
 
 # ---------------------------------------------------------------------------
@@ -327,22 +335,45 @@ def _check(planes, dtypes, keys, spec: StencilSpec, rows: int) -> torch.device:
     return dev
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # The lattice entry points of csrc/fused_stencil.cu and csrc/fused_resident.cu
-# take the same arguments.
-_PUSHSUM_ARGS = [_P] * 17 + [_I] * 6 + [_F] + [_I] * 3 + [_P]
-_GOSSIP_ARGS = [_P] * 14 + [_I] * 10 + [_P]
+# take the same arguments; the resident ones then the failure model's
+# (faulted, thresh, death, needs, need_init, start, and push-sum's global).
+_PUSHSUM_ARGS = [_P] * 17 + [_I] * 6 + [_F] + [_I] * 2
+_GOSSIP_ARGS = [_P] * 14 + [_I] * 9
+_FAULT_ARGS = [_I, _U, _P, _P, _I, _I]
+
+
+def _argtypes(source: str, pushsum: bool):
+    """The argtypes of a lattice entry point of csrc/<source>.cu."""
+    args = list(_PUSHSUM_ARGS if pushsum else _GOSSIP_ARGS)
+    if source == "fused_resident":
+        args += _FAULT_ARGS + ([_I] if pushsum else [])
+    return args + [_I, _P]
 
 
 def kernel_chunk(source: str, name: str, state, keys, start: int, cap: int,
-                 spec: StencilSpec, tail):
+                 spec: StencilSpec, tail, faults: Optional[Faults] = None):
     """Queue one chunk through the lattice entry point ``name`` of
     csrc/<source>.cu on the current stream of the state's device and raise
-    on a launch error. ``tail`` holds the protocol's trailing arguments.
-    Returns (state', rounds_executed, rounds the chunk may run)."""
+    on a launch error. ``tail`` holds the protocol's trailing arguments;
+    the resident entry points (csrc/fused_resident.cu) then take the
+    failure model's, where ``faults`` (the run's, or None) picks the
+    kernels' faulted instance and gives its inputs. Returns (state',
+    rounds_executed, rounds the chunk may run)."""
     dev = state[0].device
     cap, keys = clamp_cap_and_pad(start, cap, keys)
-    keys = _upload(keys, dev)
+    resident = source == "fused_resident"
+    # One copy to the card for the host streams: the keys, then under a
+    # crash model the rounds' quorum needs (the kernels fold the gate keys
+    # themselves).
+    needs = need_init = None
+    if faults is not None:
+        needs, need_init = faults.needs(start, keys.shape[0])
+    parts = [keys.contiguous().view(torch.int32).reshape(-1)]
+    if needs is not None:
+        parts.append(needs)
+    streams = _upload(torch.cat(parts) if len(parts) > 1 else keys, dev)
     rounds = max(0, cap - start)
     n_pad = state[0].numel()
     planes = len(state) * n_pad
@@ -359,16 +390,18 @@ def kernel_chunk(source: str, name: str, state, keys, start: int, cap: int,
     out = [p if p.dtype == x.dtype else p.view(x.dtype) for p, x in
            zip(head[:planes].view(len(state), *state[0].shape).unbind(0), state)]
     other = [work.data_ptr() + 4 * i * n_pad for i in range(len(state))]
-    fn = kernels.entry(source, name,
-                       _PUSHSUM_ARGS if len(state) == 4 else _GOSSIP_ARGS)
+    fn = kernels.entry(source, name, _argtypes(source, len(state) == 4))
     classes = np.ascontiguousarray(spec.classes, dtype=np.int32)
     lattice = (len(spec.classes), _KIND_IDS[spec.kind], spec.n,
                spec.n - spec.n_lat)
+    fargs = [] if not resident else fault_args(
+        faults, None if needs is None else streams.data_ptr() + 8 * keys.numel(),
+        need_init, start, n_pad, dev, len(state) == 4)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*[x.data_ptr() for x in (*state, *out)], *other,
-             work.data_ptr() + 4 * planes, keys.data_ptr(), dirs.data_ptr(),
+             work.data_ptr() + 4 * planes, streams.data_ptr(), dirs.data_ptr(),
              head.data_ptr() + 4 * planes, classes.ctypes.data, *lattice,
-             n_pad, rounds, *tail, dev.index, stream)
+             n_pad, rounds, *tail, *fargs, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
     return tuple(out), head[planes + 1], rounds

@@ -5,9 +5,9 @@ package's chunked engine: rounds, converged count, outcome, estimate_mae
 and every final plane bitwise, on full (pool and scatter delivery) and
 grid2d (stencil); imp2d runs in tests/test_torch_runner_faults_imp.py.
 Then the ladder: the port's tier and reason are the JAX runner's for each
-faulted config, a tier that does not carry the failure model yet refuses
-naming ROADMAP A6a, and a config the JAX ladder demotes runs the chunked
-engine on the card."""
+faulted config, a tier whose kernels carry the knob runs it fused, a tier
+that does not carry it yet refuses naming ROADMAP A6a, and a config the
+JAX ladder demotes runs the chunked engine on the card."""
 
 import numpy as np
 import pytest
@@ -28,7 +28,7 @@ from cop5615_gossip_protocol_tpu.ops import fused_stencil_hbm as jax_fused_stenc
 
 from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
 from cop5615_gossip_protocol_tpu_torch.models import runner
-from cop5615_gossip_protocol_tpu_torch.ops import fused_pool
+from cop5615_gossip_protocol_tpu_torch.ops import fused_imp, fused_pool, fused_stencil
 
 # One torch thread: the suite runs in several worker processes at once, and
 # torch's default of a thread per core would oversubscribe the machine.
@@ -179,6 +179,16 @@ def small_pool_cap(monkeypatch):
 
 
 @pytest.fixture
+def small_stencil2_budget(monkeypatch):
+    """The tiled lattice tier's plane budget at 8 MB in both packages, so
+    ring 200,000 (13 MB of push-sum planes) takes the streaming lattice tier
+    (stencil_hbm) while ring 5000 and torus3d 1000 (3.25 and 4.25 MB) stay
+    tiled."""
+    monkeypatch.setattr(fused_stencil, "_VMEM_BUDGET", 8 * 2**20)
+    monkeypatch.setattr(jax_fused_stencil, "_VMEM_BUDGET", 8 * 2**20)
+
+
+@pytest.fixture
 def stub_card(monkeypatch):
     """A run that resolves to cuda:0 with no card: the fused engine raises
     if reached, the chunked engine records its device and returns."""
@@ -198,34 +208,39 @@ def stub_card(monkeypatch):
 
 
 # (kind, n, delivery, knobs, what the port does on the card): "refuse" a
-# fused tier without the failure model yet (A6a-2), "chunked" where the JAX
-# ladder demotes, "fused" where the pool tier runs it.
+# fused tier without the knob yet (A6a-3: global termination on the
+# streaming lattice tier and the imp tiers), "chunked" where the JAX ladder
+# demotes, "fused" where the tier's kernels carry it (the pool tiers, the
+# whole-array lattice tier; the tiled one global termination).
 LADDER = [
-    ("grid2d", 900, "auto", {"fault_rate": 0.1}, "refuse"),
-    ("line", 1000, "stencil", {"crash_rate": 0.01, "quorum": 0.9}, "refuse"),
+    ("grid2d", 900, "auto", {"fault_rate": 0.1}, "fused"),
+    ("line", 1000, "stencil", {"crash_rate": 0.01, "quorum": 0.9}, "fused"),
     ("ring", 5000, "auto", {"fault_rate": 0.1}, "chunked"),
-    ("torus3d", 1000, "auto", {"termination": "global"}, "refuse"),
-    ("ring", 5000, "auto", {"termination": "global"}, "refuse"),
+    ("torus3d", 1000, "auto", {"termination": "global"}, "fused"),
+    ("ring", 5000, "auto", {"termination": "global"}, "fused"),
     ("imp2d", 900, "pool", {"fault_rate": 0.1}, "chunked"),
     ("imp3d", 1000, "pool", {"crash_schedule": "2:10", "quorum": 0.9}, "chunked"),
     ("imp2d", 900, "pool", {"termination": "global"}, "refuse"),
     ("full", 1000, "pool", {"fault_rate": 0.1, "crash_rate": 0.01}, "fused"),
     ("full", 1000, "pool", {"termination": "global"}, "fused"),
-    ("full", 2000, "pool", {"fault_rate": 0.1}, "refuse"),
-    ("full", 2000, "pool", {"termination": "global"}, "refuse"),
+    ("full", 2000, "pool", {"fault_rate": 0.1}, "fused"),
+    ("full", 2000, "pool", {"termination": "global"}, "fused"),
+    ("ring", 200_000, "auto", {"termination": "global"}, "refuse"),
 ]
 
 
 @pytest.mark.parametrize("kind,n,delivery,knobs,action", LADDER,
                          ids=lambda x: str(x).replace(" ", ""))
 def test_ladder_is_the_jax_ladder(kind, n, delivery, knobs, action, small_pool_cap,
-                                  stub_card):
+                                  small_stencil2_budget, stub_card):
     algorithm = "push-sum"
     fields = dict(n=n, topology=kind, algorithm=algorithm, delivery=delivery, **knobs)
     jtopo = jax_topology(kind, n)
     topo = build_topology(kind, n)
-    assert runner.fused_tier(topo, SimConfig(**fields)) == _jax_ladder(
-        jtopo, JaxConfig(**fields))
+    tier = runner.fused_tier(topo, SimConfig(**fields))
+    assert tier == _jax_ladder(jtopo, JaxConfig(**fields))
+    if (kind, n) == ("ring", 200_000):
+        assert tier == ("stencil_hbm", None)
     if action == "refuse":
         with pytest.raises(NotImplementedError, match="ROADMAP A6a"):
             run(topo, SimConfig(**fields))
@@ -245,3 +260,21 @@ def test_ladder_is_the_jax_ladder(kind, n, delivery, knobs, action, small_pool_c
     stub_card.clear()
     scatter = dict(fields, delivery="scatter")
     assert run(topo, SimConfig(**scatter)) == "chunked" and stub_card
+
+
+def test_streaming_imp_tier_refuses_global_termination(monkeypatch, stub_card):
+    # The imp tiers carry no failure model yet (A6a-3): global termination,
+    # which their JAX tiers take, refuses on the streaming one too (reached
+    # at a small n by shrinking the resident imp tier's budget in both
+    # packages, as tests/test_torch_fused_imp.py does).
+    monkeypatch.setattr(fused_imp, "_VMEM_BUDGET", 1000)
+    monkeypatch.setattr(jax_fused_imp, "_VMEM_BUDGET", 1000)
+    fields = dict(n=1000, topology="imp3d", algorithm="push-sum", delivery="pool",
+                  termination="global")
+    topo = build_topology("imp3d", 1000)
+    assert runner.fused_tier(topo, SimConfig(**fields)) == _jax_ladder(
+        jax_topology("imp3d", 1000), JaxConfig(**fields)) == ("imp_hbm", None)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6a"):
+        run(topo, SimConfig(**fields))
+    with pytest.raises(NotImplementedError, match="ROADMAP A6a"):
+        run(topo, SimConfig(**fields, engine="fused"), device="cpu")
