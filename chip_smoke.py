@@ -11,8 +11,10 @@ non-zero before the last line:
    limit (nvidia-smi);
 2. build every CUDA source of the port with nvcc, all started together,
    and print each kernel's registers and spills (the persistent round
-   kernels of csrc/fused_pool.cu and csrc/fused_resident.cu must not
-   spill);
+   kernels of csrc/fused_pool.cu, csrc/fused_resident.cu and csrc/scatter.cu,
+   the walk, and both instances of the round, absorb and sends kernels of
+   csrc/fused_stencil.cu, csrc/fused_imp.cu, csrc/fused_imp_hbm_shard.cu and
+   csrc/fused_pool2_shard.cu must not spill);
 3. each pool kernel (one persistent cooperative launch a chunk, one pass
    and one barrier a round, the marks in two planes by round parity) on
    one chunk of 32 rounds at n = 1,000,000, from the initial state and from
@@ -235,6 +237,26 @@ non-zero before the last line:
    with its mass conserved over live and dead nodes, each with its kernel
    launched; and those three at 70,000 nodes on the streaming pool tier
    against the worker's CPU runs;
+14l. (run after 14k) the failure model in A6a-3's rows: the global
+   instances of rows 9, 11 and 13 (csrc/fused_stencil.cu, csrc/fused_imp.cu)
+   at torus3d 256**3, imp3d 1,000,000 and imp3d 2**24 against their plain
+   versions on the card, from a crafted state (one ratio everywhere but
+   three nodes) at round 1000: a 32-round chunk in which the verdict fires
+   (conv latched on every real node), chunks capped after 5 and 6 rounds
+   and a chunk from the verdict (0 rounds); each through run() from the
+   crafted state to the checks' verdict round, row 11 also from the
+   initial state, bitwise the plain version's whole run on the card; row
+   18's global absorb (csrc/fused_imp_hbm_shard.cu) at imp3d 256**3 in 4
+   shards, one round of every shard from the crafted and the initial state
+   against the plain round, and runs from both (and capped after 5 and 6
+   rounds, and from the verdict) bitwise the single-device imp_hbm run;
+   rows 20-21's faulted instances (csrc/fused_pool2_shard.cu) at full
+   2**24 in 4 shards under the gate with a crash schedule, a crash rate or
+   global termination: the sends launch and one launch a shard at rounds
+   0, 5 and 20 against the plain bits and round, and runs at 2,197,152 in 4
+   shards, from the initial and the crafted state, bitwise the
+   single-device streaming pool run; counters zeroed before each run and
+   read after it;
 15. each kernel's time per chunk by CUDA events, beside its plain version's
    and the least time the card could take for the same work (rows 1-2
    also over a 1,024-round chunk and at 2**21, and over rows 7-8); the
@@ -248,8 +270,10 @@ non-zero before the last line:
    wire copies nothing on one card (``--cards`` times it); kernel A per
    round at 1M full from the mid-run state (a 32-round push-sum and an
    8-round gossip chunk), beside one ``index_add_`` of a round's sends;
-   rows 1-7 and kernel A in their faulted (row 7: global) instances
-   beside their fault-free times of this run; kernel B over each whole walk in one launch, beside the plain walk on
+   rows 1-7 and kernel A in their faulted (row 7: global) instances, rows
+   9, 11, 13 and 18 in their global ones and rows 20-21 in their faulted
+   ones (with the sends launch) beside their fault-free times of this run,
+   each round kernel's device time a round in both instances; kernel B over each whole walk in one launch, beside the plain walk on
    the host and the hop chain's bound (hops times what a hop waits on from
    the hop before: on full the message's and the pick's arithmetic, timed
    by csrc/walk.cu's arith kernel; on imp3d two dependent accesses at the
@@ -257,7 +281,7 @@ non-zero before the last line:
    timed by its chase kernel), the bytes/operations bound beside it; then
    the imp rows' µs a round beside row 9's, and rows 13 and 18 over row 9.
 
-Each of phases 5-14k prints its wall time.
+Each of phases 5-14l prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -2557,18 +2581,20 @@ def imp_shard_cards(cards):
         for d in devices:
             torch.cuda.synchronize(d)
 
-    for algorithm in ("gossip", "push-sum"):
+    for algorithm, termination in (("gossip", "local"), ("push-sum", "local"),
+                                   ("push-sum", "global")):
         cfg = SimConfig(n=IMP_SHARD_RUN_N, topology="imp3d", algorithm=algorithm,
                         delivery="pool", pool_size=IMP_POOL, engine="fused",
-                        n_devices=cards)
+                        n_devices=cards, termination=termination)
         single = run(topo, dataclasses.replace(cfg, n_devices=None))
         one = run(topo, cfg, devices=[devices[0]] * cards)
         spread = run(topo, cfg)
         same = all(torch.equal(x.cpu().view(torch.int32), y.cpu().view(torch.int32))
                    if x.dtype == torch.float32 else torch.equal(x.cpu(), y.cpu())
                    for a in (one, single) for x, y in zip(spread.state, a.state))
+        tag = algorithm if termination == "local" else f"{algorithm}_global"
         print(json.dumps({
-            "metric": f"{algorithm}_imp_hbm_sharded_imp3d_n{IMP_SHARD_RUN_N}_x{cards}_cards",
+            "metric": f"{tag}_imp_hbm_sharded_imp3d_n{IMP_SHARD_RUN_N}_x{cards}_cards",
             "rounds": spread.rounds, "one_card_rounds": one.rounds,
             "single_device_rounds": single.rounds, "run_s": spread.run_s,
             "one_card_run_s": one.run_s, "single_device_run_s": single.run_s,
@@ -2577,7 +2603,9 @@ def imp_shard_cards(cards):
             "estimate_mae": spread.estimate_mae, "bitwise_one_card_and_single": same,
             "device": spread.device}), flush=True)
         if not spread.rounds == one.rounds == single.rounds or not same:
-            raise AssertionError(f"{algorithm} on {cards} cards differs from one card")
+            raise AssertionError(f"{tag} on {cards} cards differs from one card")
+        if termination == "global":
+            continue  # the wire is push-sum's, timed above
         rows_loc = -(-IMP_SHARD_RUN_N // 128) // cards
         planes_of = {d: (torch.zeros(rows_loc * cards, 128, dtype=torch.int8, device=d),)
                      + (tuple(torch.zeros(rows_loc * cards, 128, device=d) for _ in range(2))
@@ -2683,6 +2711,32 @@ def pool2_shard_cards(cards):
         if max(into.values()) > jax_bytes:
             raise AssertionError(f"the {wire} wire moves more into a card than the JAX wire")
         del planes, groups
+    # The failure model across cards: the send bits ride the wire with the
+    # summary rows (phase 14l's configs, at its whole runs' population).
+    n = SHARD_FAULT_N
+    topo = build_topology("full", n)
+    for name, algorithm, label in SHARD_FAULT_CONFIGS:
+        if SHARD_FAULT_TIMED[name] != label:
+            continue
+        cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=POOL,
+                        engine="fused", n_devices=cards, **shard_fault_knobs(label, n))
+        single = run(topo, dataclasses.replace(cfg, n_devices=None))
+        one = run(topo, cfg, devices=[devices[0]] * cards)
+        halo.exchange_rows_batched.copies = 0
+        spread = run(topo, cfg)
+        copies = halo.exchange_rows_batched.copies
+        same = bitwise(spread, one) and bitwise(spread, single)
+        print(json.dumps({
+            "metric": f"{name}_pool2_sharded_{label}_full_n{n}_x{cards}_cards",
+            "wire": p2s.plan_pool2_sharded(topo, cfg, cards)[3], "rounds": spread.rounds,
+            "one_card_rounds": one.rounds, "single_device_rounds": single.rounds,
+            "run_s": spread.run_s, "one_card_run_s": one.run_s,
+            "single_device_run_s": single.run_s, "converged_count": spread.converged_count,
+            "wire_copies": copies, "bitwise_one_card_and_single": same,
+            "device": spread.device}), flush=True)
+        if not spread.rounds == one.rounds == single.rounds or not same or not copies:
+            raise AssertionError(f"replicated-pool2 {name} {label} on {cards} cards "
+                                 "differs from one card, or its wire copied nothing")
 
 
 # The scatter path (ops/scatter.py, csrc/scatter.cu: kernel A) and the walk
@@ -2989,12 +3043,14 @@ def device_kernels(prof):
     return out
 
 
-def profiled(fn):
+def profiled(fn, stem=None):
     """({short name: (events, device µs)} of the device activity of
     ``fn()``, by torch.profiler; fn's result). torch.profiler has handed
     back a trace with no device activity at all (no kernel, copy or
-    memset) now and then on the H100: such a trace is taken again, at most
-    twice; a trace with any activity is returned as it is."""
+    memset) now and then on the H100, and once a trace without the round
+    kernel a chunk had launched: such a trace (with none, or, when ``stem``
+    is given, with no kernel whose name holds it) is taken again, at most
+    twice; any other trace is returned as it is."""
     import torch
 
     for _ in range(3):
@@ -3003,7 +3059,7 @@ def profiled(fn):
             out = fn()
             torch.cuda.synchronize()
         traced = device_kernels(prof)
-        if traced:
+        if traced and (stem is None or any(stem in short for short in traced)):
             break
     return traced, out
 
@@ -4289,9 +4345,12 @@ def fault2_rows(cases, launches, max_err, fault_free_ms):
         device_us = {}
         for faulted in (True, False):
             traced, (_, ex) = profiled(
-                lambda: chunk(kern, mid, mid_round, CHUNK, faulted=faulted))
-            device_us[faulted] = sum(us for short, (_, us) in traced.items()
-                                     if stem in short) / max(int(ex), 1)
+                lambda: chunk(kern, mid, mid_round, CHUNK, faulted=faulted), stem)
+            # A launch a round (rows 3-4), or one persistent launch a chunk
+            # (rows 5-7).
+            us, _ = launch_us(traced, stem)
+            device_us[faulted] = (us if us is None or kind == "full"
+                                  else us / max(int(ex), 1))
         n_pad = mid[0].numel()
         name = row.split("_")[0]
         algo = "push-sum" if name == "pushsum" else "gossip"
@@ -4316,10 +4375,8 @@ def fault2_rows(cases, launches, max_err, fault_free_ms):
         suffix = "global" if row == "pushsum_stencil2_chunk" else "faulted"
         print(f"  {row} {suffix} ({label}, {kind} n={n_pad}): {ms:.4f} ms against "
               f"fault-free {fault_free_ms[row]:.4f} ms "
-              f"({ms / fault_free_ms[row]:.3f}x), plain {plain_ms:.4f} ms; round "
-              f"kernels {device_us[True]:.2f} µs a round against the fault-free "
-              f"instance's {device_us[False]:.2f} on the same state "
-              f"({device_us[True] / device_us[False]:.3f}x)", flush=True)
+              f"({ms / fault_free_ms[row]:.3f}x), plain {plain_ms:.4f} ms; "
+              f"{ratio_text(device_us[True], device_us[False])}", flush=True)
         rows.append({
             "name": f"{row} {suffix}",
             "route": "cuda",
@@ -4339,6 +4396,697 @@ def fault2_rows(cases, launches, max_err, fault_free_ms):
             "fault_free_device_us_per_round": device_us[False],
             "topology": kind, "config": kw, "status": "ported",
         })
+    return rows
+
+
+# Phase 14l: the failure model in the rows A6a-3 brings it to (ROADMAP
+# A6a-3): global termination in row 9 (the streaming lattice tier, torus3d
+# 256**3), rows 11 and 13 (the resident and streaming imp tiers, imp3d
+# 1,000,000 and 2**24) and row 18 (the sharded imp composition, imp3d
+# 256**3 in 4 shards), and the drop gate, crash-stop with quorum and
+# global termination in rows 20-21 (the replicated-pool2 composition, full
+# 2**24 in 4 shards), each at its row's timed shape.
+GLOBAL_CASES = (("pushsum_stencil_hbm_chunk", "torus3d", LATTICE_N, "stencil_hbm"),
+                ("pushsum_imp_chunk", "imp3d", N, "imp"),
+                ("pushsum_imp_hbm_chunk", "imp3d", 2**24, "imp_hbm"))
+# The crafted start of the global checks and runs, at round GLOBAL_START:
+# s = w = 1 on every real node (one ratio everywhere) but GLOBAL_EPS more s
+# at three nodes, so the global verdict fires a dozen rounds in; from the
+# initial state a lattice run takes tens of thousands of rounds to it.
+GLOBAL_EPS = 3e-5
+GLOBAL_START = 1000
+# Rows 20-21: the one-launch checks at SHARD_TIMED from the single-device
+# run's state at each of SHARD_FAULT_ROUNDS (the schedule's deaths at
+# rounds 5 and 20), and the whole runs at SHARD_FAULT_N in SHARD_TIMED's
+# shards, each bitwise the single-device streaming pool run: past the pool
+# tier's 2**21 nodes, with 31,072 pad lanes (2**21 + 1's 4,224-row shards
+# are no multiple of a processing tile, so its plan refuses 4 shards).
+SHARD_FAULT_ROUNDS = (0, 5, 20)
+SHARD_FAULT_N = 2**21 + 100_000
+# Operations a node a round that global termination adds: the old ratio's
+# division, its abs, the max with 1, the tolerance's product, the compare.
+GLOBAL_OPS = 5
+
+
+def shard_fault_knobs(label, n):
+    """The failure model of a rows 20-21 config at population n: the drop
+    gate with a crash schedule (1% of the nodes at round 5, 5% at round 20;
+    the quorum 0.95) or a crash rate (quorum 0.9), or with global
+    termination."""
+    return {"gate+schedule": {"fault_rate": 0.1, "crash_schedule":
+                              f"5:{n // 100},20:{n // 20}", "quorum": 0.95},
+            "gate+rate": {"fault_rate": 0.1, "crash_rate": 0.001, "quorum": 0.9},
+            "global": {"fault_rate": 0.1, "termination": "global"}}[label]
+
+
+# (row, algorithm, label): the configs of rows 20-21's checks and runs.
+SHARD_FAULT_CONFIGS = (("pushsum", "push-sum", "gate+schedule"),
+                       ("pushsum", "push-sum", "global"),
+                       ("gossip", "gossip", "gate+schedule"),
+                       ("gossip", "gossip", "gate+rate"))
+# The timed faulted configs of rows 20-21: the configs rows 3-4's faulted
+# rows are timed under (FAULT2_TIMED).
+SHARD_FAULT_TIMED = {"pushsum": "gate+schedule", "gossip": "gate+rate"}
+
+
+def crafted_state(n, n_pad, dev):
+    """The global checks' start: padded planes (s, w, term, conv) on the
+    card, flat [n_pad] each, and the canonical [n] state run() resumes from."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch.models.pushsum import PushSumState
+
+    s = torch.ones(n_pad, device=dev)
+    s[n:] = 0.0
+    s[torch.tensor([5, n // 3, 2 * n // 3 + 7], device=dev)] = 1.0 + GLOBAL_EPS
+    w = torch.ones(n_pad, device=dev)
+    zero = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    canon = PushSumState(s=s[:n].cpu(), w=w[:n].cpu(), term=zero[:n].cpu(),
+                         conv=zero[:n].cpu() != 0)
+    return (s, w, zero, zero.clone()), canon
+
+
+def global_fns(dev, key, kind, n, tier):
+    """One global row's wrapper, plain version and config: (topology,
+    config, kernel, plain, chunk(fn, state, start, count, cap=None,
+    faulted=True) on the run's streams, the initial planes on the card);
+    the ladder must pick ``tier``."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine, fused_tier
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_imp, fused_imp_hbm
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_stencil_hbm as hbm
+
+    imp = tier.startswith("imp")
+    topo = imp_topology(kind, n) if imp else build_topology(kind, n)
+    extra = {"delivery": "pool", "pool_size": IMP_POOL} if imp else {}
+    cfg = SimConfig(n=n, topology=kind, algorithm="push-sum", termination="global",
+                    **extra)
+    if fused_tier(topo, cfg) != (tier, None):
+        raise AssertionError(f"{kind} n={n} global: the ladder picks "
+                             f"{fused_tier(topo, cfg)}, not {tier}")
+    eng = fused_engine(topo, cfg, key, tier)
+    common = {"target": cfg.resolved_target_count(topo.n, topo.target_count),
+              "faults": fused.run_faults(cfg, topo.n), "delta": cfg.resolved_delta,
+              "term_rounds": cfg.term_rounds}
+    if imp:
+        kern = {"imp": fused_imp.pushsum_imp_chunk,
+                "imp_hbm": fused_imp_hbm.pushsum_imp_hbm_chunk}[tier]
+        plain = fused_imp.pushsum_imp_chunk_plain
+        common["spec"] = fused_imp.imp_spec(topo)
+    else:
+        kern, plain = hbm.pushsum_stencil_hbm_chunk, hbm.pushsum_stencil_hbm_chunk_plain
+        common["spec"] = hbm.stencil_spec(topo)
+    streams = functools.lru_cache(maxsize=None)(eng.streams)
+
+    def chunk(fn, state, start, count, cap=None, faulted=True):
+        return fn(state, *streams(start, count), start,
+                  start + count if cap is None else cap,
+                  **(common if faulted else {**common, "faults": None}))
+
+    return topo, cfg, kern, plain, chunk, tuple(p.contiguous().to(dev) for p in eng.planes)
+
+
+def global_checks(dev, key):
+    """Phase 14l, rows 9, 11 and 13: each global instance against its plain
+    version on the card, every plane and count bitwise, from the crafted
+    state at GLOBAL_START: a 32-round chunk in which the verdict fires (conv
+    latched on every real node), chunks capped after 5 and 6 rounds (both
+    mark parities, before the verdict), and a chunk from the verdict (0
+    rounds, state unchanged). Returns ({row: case} for the timing,
+    {row: max_abs_err}, {row: (verdict round, crafted canonical state)})."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_imp
+
+    cases, max_err, verdicts = {}, {}, {}
+    for row, kind, n, tier in GLOBAL_CASES:
+        t0 = time.perf_counter()
+        topo, cfg, kern, plain, chunk, init = global_fns(dev, key, kind, n, tier)
+        tag = f"{row} global ({kind} n={topo.n}, {tier})"
+        flat, canon = crafted_state(topo.n, init[0].numel(), dev)
+        start = tuple(x.reshape(init[0].shape) for x in flat)
+        s0 = GLOBAL_START
+        got = chunk(kern, start, s0, CHUNK)
+        errs = [compare(f"{tag} crafted K={CHUNK}", got, chunk(plain, start, s0, CHUNK), 0)]
+        fired = int(got[1])
+        real = (torch.arange(init[0].numel(), device=dev) < topo.n).reshape(init[0].shape)
+        if not 6 < fired < CHUNK or not torch.equal(got[0][3], real.to(torch.int32)):
+            raise AssertionError(f"{tag}: the verdict came after {fired} rounds, or conv "
+                                 "is not latched on every real node")
+        for extra in (5, 6):
+            errs.append(compare(f"{tag} cap after {extra} rounds",
+                                chunk(kern, start, s0, CHUNK, cap=s0 + extra),
+                                chunk(plain, start, s0, CHUNK, cap=s0 + extra), 0))
+        for fn, who in ((kern, "kernel"), (plain, "plain")):
+            same, ex0 = chunk(fn, got[0], s0 + fired, CHUNK)
+            if int(ex0) != 0 or not all(torch.equal(a, b) for a, b in zip(same, got[0])):
+                raise AssertionError(f"{tag}: the {who} chunk from the verdict ran")
+        print(f"  {tag}: verdict after {fired} rounds from round {s0}, conv latched; a "
+              f"chunk from it runs 0 rounds ({time.perf_counter() - t0:.1f} s)", flush=True)
+        classes = (len(fused_imp.imp_spec(topo).classes) if tier.startswith("imp")
+                   else len(topo.offsets))
+        cases[row] = (kern, plain, chunk, init, tier, classes)
+        max_err[row] = max(errs)
+        verdicts[row] = (s0 + fired, canon, topo, cfg)
+        del start, got
+        torch.cuda.empty_cache()
+    return cases, max_err, verdicts
+
+
+def global_path(dev, verdicts):
+    """Phase 14l, rows 9, 11 and 13 through run(), counters zeroed before
+    each run and read after it: from the crafted state each run ends
+    "converged" at the kernel checks' verdict round with every node
+    converged, bitwise the plain version's whole run on the card (rounds,
+    every plane); and row 11 from the initial state too (the main path),
+    bitwise the plain version's run. Returns {row: launches on its main-path
+    run}."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import run
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_imp, fused_imp_hbm
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_stencil_hbm as hbm
+
+    wrappers = {"pushsum_stencil_hbm_chunk": (hbm, hbm.pushsum_stencil_hbm_chunk_plain),
+                "pushsum_imp_chunk": (fused_imp, fused_imp.pushsum_imp_chunk_plain),
+                "pushsum_imp_hbm_chunk": (fused_imp_hbm, fused_imp.pushsum_imp_chunk_plain)}
+    launches = {}
+    for row, _, _, tier in GLOBAL_CASES:
+        final, canon, topo, cfg = verdicts[row]
+        module, plain = wrappers[row]
+        runs = [("crafted", {"start_state": canon, "start_round": GLOBAL_START})]
+        if tier == "imp":
+            runs.append(("initial", {}))
+        for label, kw in runs:
+            getattr(module, row).launches = 0
+            t0 = time.perf_counter()
+            res = run(topo, cfg, **kw)
+            count = getattr(module, row).launches
+            with plain_in_place(module, row, plain):
+                ref = run(topo, cfg, **kw)
+            if not res.converged or res.converged_count != topo.n or not count:
+                raise AssertionError(f"{row} global {label}: {res.outcome}, converged "
+                                     f"{res.converged_count}, launches {count}")
+            if label == "crafted" and res.rounds != final:
+                raise AssertionError(f"{row} global: run() ends at round {res.rounds}, the "
+                                     f"kernel checks' verdict at {final}")
+            if ref.rounds != res.rounds:
+                raise AssertionError(f"{row} global {label}: {res.rounds} rounds, the plain "
+                                     f"version's run {ref.rounds}")
+            same_planes(f"{row} global {label} vs the plain version's run", res.state,
+                        ref.state)
+            print(f"  {row} global from the {label} state: rounds {res.rounds}, every "
+                  f"node converged, launches {count}, bitwise the plain version's run "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            launches[f"{row} global"] = count
+            MAIN_ROUNDS[f"{row} global"] = res.rounds
+            del res, ref
+        torch.cuda.empty_cache()
+    return launches
+
+
+def imp_shard_global(dev, key):
+    """Phase 14l, row 18: the sharded imp composition's global instance at
+    IMP_SHARD_TIMED against its plain version on the card, one round of
+    every shard (queued as the run queues it) from the crafted state and
+    from the initial state, every shard's planes, u and the next marks
+    bitwise; then through run() with every shard on the card, counters
+    zeroed before each run and read after it: from the crafted state to its
+    verdict, capped after 5 and 6 rounds, and from the initial state (the
+    main path), each bitwise the single-device streaming imp run (rounds,
+    every plane), and a run from the verdict's state (0 rounds). Returns
+    (case for the timing, max_abs_err, launches on the main-path run)."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, run
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine, sharded_tier
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_imp_hbm_sharded as ih
+
+    kind, n, shards = IMP_SHARD_TIMED
+    topo = imp_topology(kind, n)
+    cfg = SimConfig(n=n, topology=kind, algorithm="push-sum", delivery="pool",
+                    pool_size=IMP_POOL, engine="fused", n_devices=shards,
+                    termination="global")
+    if sharded_tier(topo, cfg) != ("imp_hbm_sharded", None, "B12"):
+        raise AssertionError(f"imp3d x{shards} global: the ladder picks "
+                             f"{sharded_tier(topo, cfg)}")
+    _, rows_loc, _, layout = ih.plan_imp_hbm_sharded(topo, cfg, shards)
+    kw = ih.absorb_kw(topo, cfg)
+    row_los = range(0, layout.rows, rows_loc)
+    flat, canon = crafted_state(topo.n, layout.n_pad, dev)
+    crafted = tuple(x.reshape(layout.rows, 128) for x in flat)
+    single_cfg = dataclasses.replace(cfg, n_devices=None, engine="auto")
+    init = tuple(p.contiguous().to(dev) for p in
+                 fused_engine(topo, single_cfg, key, "imp_hbm").planes)
+    err = 0.0
+    for label, state, rnd in (("crafted", crafted, GLOBAL_START), ("initial", init, 0)):
+        stream, nxt = imp_shard_streams(key, rnd, IMP_POOL, topo.n)
+        out = ih.imp_hbm_shards_round_plain(state, stream, rows_loc, row_los, pushsum=True,
+                                            **kw)
+        want = tuple(torch.cat([o[0][p] for o in out]) for p in range(4))
+        bufs = imp_shard_buffers(state, rows_loc, shards, True)
+        ih.mark_shards(bufs, stream[0], stream[2], rows_loc, pushsum=True, spec=kw["spec"],
+                       pool_size=IMP_POOL)
+        ih.launch_shard_rounds(bufs, stream, nxt, pushsum=True, kw=kw)
+        err = max(err, shard_bitwise(f"row 18 global {label}", imp_shard_state(bufs, True),
+                                     want))
+        got_u, want_u = [int(sh.u) for sh in bufs], [int(u) for _, u in out]
+        marks = torch.cat([ih.shard_marks_plain(kw["spec"], *nxt, IMP_POOL, lo, rows_loc,
+                                                None, dev) for lo in row_los])
+        if got_u != want_u or not torch.equal(bufs[0].next, marks):
+            raise AssertionError(f"row 18 global {label}: u {got_u} != plain {want_u}, or "
+                                 "the next marks differ")
+        print(f"  row 18 global, one round of every shard from the {label} state (round "
+              f"{rnd}): bitwise, unstable nodes {sum(got_u)}", flush=True)
+        del bufs
+    launches = 0
+    for label, kw_run in (("crafted", {"start_state": canon, "start_round": GLOBAL_START}),
+                          ("crafted, 5 rounds", {"start_state": canon,
+                                                 "start_round": GLOBAL_START, "cap": 5}),
+                          ("crafted, 6 rounds", {"start_state": canon,
+                                                 "start_round": GLOBAL_START, "cap": 6}),
+                          ("initial", {})):
+        cap = kw_run.pop("cap", None)
+        run_cfg = cfg if cap is None else dataclasses.replace(
+            cfg, max_rounds=GLOBAL_START + cap)
+        ih.pushsum_imp_hbm_shard_absorb.launches = 0
+        res = run(topo, run_cfg, devices=[dev] * shards, **kw_run)
+        count = ih.pushsum_imp_hbm_shard_absorb.launches
+        ref = run(topo, dataclasses.replace(single_cfg, max_rounds=run_cfg.max_rounds),
+                  **kw_run)
+        if (res.rounds, res.converged_count) != (ref.rounds, ref.converged_count):
+            raise AssertionError(f"row 18 global {label}: {res.rounds}/"
+                                 f"{res.converged_count} != single-device "
+                                 f"{ref.rounds}/{ref.converged_count}")
+        same_planes(f"row 18 global {label} vs the single-device run", res.state,
+                    ref.state)
+        if cap is None and not (res.converged and res.converged_count == topo.n):
+            raise AssertionError(f"row 18 global {label}: {res.outcome}")
+        if label == "crafted":
+            again = run(topo, cfg, devices=[dev] * shards, start_state=res.state,
+                        start_round=res.rounds)
+            if again.rounds != res.rounds:
+                raise AssertionError("row 18 global: a run from the verdict ran rounds")
+            same_planes("row 18 global from the verdict", again.state, res.state)
+        if label == "initial":
+            launches = count
+            MAIN_ROUNDS["pushsum_imp_hbm_shard_round global"] = res.rounds
+        print(f"  row 18 global run from the {label} state: rounds {res.rounds}, converged "
+              f"{res.converged_count}, launches {count}, bitwise the single-device run",
+              flush=True)
+        del res, ref
+    torch.cuda.empty_cache()
+    case = (init, rows_loc, shards, kw, len(kw["spec"].classes), layout)
+    return case, err, launches
+
+
+def shard_fault_checks(dev, key):
+    """Phase 14l, rows 20-21: each faulted shard kernel at SHARD_TIMED
+    against its plain version on the card under each of
+    SHARD_FAULT_CONFIGS, from the single-device run's state at each of
+    SHARD_FAULT_ROUNDS: the first round's send bits of every row (the
+    sends launch, one a shard-sized block) against the plain bits, then one
+    launch a shard over its rows, which also writes the next round's bits:
+    every shard's planes, u and the next bits bitwise. Returns ({row:
+    timing case}, {row: max_abs_err}, max_abs_err of the sends launch)."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine
+    from cop5615_gossip_protocol_tpu_torch.ops import fused
+    from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded as p2s
+
+    n, shards = SHARD_TIMED
+    topo = build_topology("full", n)
+    cases, max_err = {}, {}
+    for name, algorithm, label in SHARD_FAULT_CONFIGS:
+        t0 = time.perf_counter()
+        knobs = shard_fault_knobs(label, n)
+        cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=POOL, **knobs)
+        kern, plain, kw, rows_loc, layout, _, _ = shard_case(dev, key, n, shards, algorithm)
+        R = layout.rows
+        faults = fused.run_faults(cfg, n)
+        thresh = faults.thresh or 0
+        death = faults.death_flat(layout.n_pad, dev)
+        death = None if death is None else death.reshape(R, 128)
+        eng = fused_engine(topo, cfg, key, "pool2")
+        state, rnd = tuple(p.contiguous().to(dev) for p in eng.planes), 0
+        for want_rnd in SHARD_FAULT_ROUNDS:
+            if want_rnd > rnd:
+                state, ex = eng.chunk(state, eng.streams(rnd, want_rnd - rnd), rnd, want_rnd)
+                if int(ex) != want_rnd - rnd:
+                    raise AssertionError(f"{name} {label}: done before round {want_rnd}")
+                rnd = want_rnd
+            planes = shard_planes(state, algorithm)
+            streams = shard_streams(key, rnd, 2, n, dev)
+            glob, own = p2s.split_state(planes, algorithm)
+            active = None if algorithm == "push-sum" else glob[0]
+            gate = fused.gate_round_keys(torch.tensor(streams[2][:2]))
+            sends = torch.zeros(R // 8, 128, dtype=torch.uint8, device=dev)
+            want_sends = torch.zeros_like(sends)
+            for lo in range(0, R, rows_loc):
+                rows_death = None if death is None else death[lo:lo + rows_loc].contiguous()
+                p2s.pool2_shard_sends(sends, active, rows_death, streams[2][0], rnd, lo,
+                                      rows_loc, n=n, thresh=thresh)
+                want_sends[lo // 8:(lo + rows_loc) // 8] = p2s.pack_sends(p2s.send_rows_plain(
+                    None if active is None else active[lo:lo + rows_loc], rows_death, thresh,
+                    gate[0].tolist(), rnd, lo, rows_loc, n, dev))
+            if not torch.equal(sends, want_sends):
+                raise AssertionError(f"{name} {label} round {rnd}: the sends launch's bits "
+                                     "differ from plain")
+            errs = []
+            nxt_kern = torch.zeros_like(sends)
+            for s in range(shards):
+                lo = s * rows_loc
+                rows_death = None if death is None else death[lo:lo + rows_loc].contiguous()
+                sf = p2s.ShardFaults(thresh, rows_death, None, rnd, faults.global_term,
+                                     sends, nxt_kern)
+                out = tuple(torch.empty_like(x) for x in planes)
+                u = torch.zeros(1, dtype=torch.int32, device=dev)
+                ctl = {"u": u, "acc": torch.zeros(2, dtype=torch.int32, device=dev),
+                       "ctrl": torch.zeros(2, dtype=torch.int32, device=dev)}
+                shard_launch(kern, algorithm, kw, planes, out, streams, 0, lo, rows_loc,
+                             **ctl, faults=sf)
+                got = p2s.join_state(p2s._rows_of(p2s.split_state(out, algorithm)[0], lo,
+                                                  rows_loc),
+                                     tuple(p[lo:lo + rows_loc]
+                                           for p in p2s.split_state(out, algorithm)[1]),
+                                     algorithm)
+                want, want_u = plain(glob, tuple(p[lo:lo + rows_loc] for p in own),
+                                     streams[2][0], streams[3][0], lo, **kw,
+                                     faults=sf._replace(next_sends=None))
+                errs.append(shard_bitwise(f"{name} {label} round {rnd} shard {s}", got, want))
+                if int(u) != int(want_u):
+                    raise AssertionError(f"{name} {label} round {rnd} shard {s}: u {int(u)} "
+                                         f"!= plain {int(want_u)}")
+                act = None if algorithm == "push-sum" else p2s.split_state(want, algorithm)[0][0]
+                want_next = p2s.pack_sends(p2s.send_rows_plain(
+                    act, rows_death, thresh, gate[1].tolist(), rnd + 1, lo, rows_loc, n, dev))
+                if not torch.equal(nxt_kern[lo // 8:(lo + rows_loc) // 8], want_next):
+                    raise AssertionError(f"{name} {label} round {rnd} shard {s}: the next "
+                                         "round's bits differ from plain")
+            row = f"{name}_pool2_shard_round"
+            max_err[row] = max([max_err.get(row, 0.0)] + errs)
+            if SHARD_FAULT_TIMED[name] == label and want_rnd == SHARD_FAULT_ROUNDS[-1]:
+                cases[row] = (kern, plain, algorithm, kw, planes, rnd, n, R, faults, death,
+                              label)
+        print(f"  {name} {label} at {n:,} x{shards}: the sends launch and one launch a "
+              f"shard bitwise at rounds {SHARD_FAULT_ROUNDS} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        del eng, state
+        torch.cuda.empty_cache()
+    return cases, max_err
+
+
+def shard_fault_path(dev):
+    """Phase 14l, rows 20-21 through run(), every shard on the card,
+    counters zeroed before each run and read after it: each of
+    SHARD_FAULT_CONFIGS at SHARD_FAULT_N in SHARD_TIMED's shards (the main
+    path: the sends launch where the run starts and one launch a round),
+    bitwise the single-device streaming pool run of the same config
+    (rounds, converged count, every plane); and under global termination
+    from the crafted state, to its verdict and capped after 5 and 6
+    rounds, each bitwise the single-device run, and from the verdict's
+    state (0 rounds). Returns {row: launches on its main-path run},
+    {sends: launches}."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded as p2s
+
+    n, shards = SHARD_FAULT_N, SHARD_TIMED[1]
+    topo = build_topology("full", n)
+    counters = {"pushsum": p2s.pushsum_pool2_shard_round,
+                "gossip": p2s.gossip_pool2_shard_round}
+    launches = {}
+    _, canon = crafted_state(n, n, dev)
+    for name, algorithm, label in SHARD_FAULT_CONFIGS:
+        knobs = shard_fault_knobs(label, n)
+        cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=POOL,
+                        engine="fused", **knobs)
+        scfg = dataclasses.replace(cfg, n_devices=shards)
+        runs = [("initial", {}, None)]
+        if label == "global":
+            runs += [("crafted", {"start_state": canon, "start_round": GLOBAL_START}, None),
+                     ("crafted, 5 rounds", {"start_state": canon,
+                                            "start_round": GLOBAL_START}, 5),
+                     ("crafted, 6 rounds", {"start_state": canon,
+                                            "start_round": GLOBAL_START}, 6)]
+        for what, kw_run, cap in runs:
+            t0 = time.perf_counter()
+            bound = {} if cap is None else {"max_rounds": GLOBAL_START + cap}
+            counters[name].launches = 0
+            p2s.pool2_shard_sends.launches = 0
+            res = run(topo, dataclasses.replace(scfg, **bound), devices=[dev] * shards,
+                      **kw_run)
+            count, sends = counters[name].launches, p2s.pool2_shard_sends.launches
+            ref = run(topo, dataclasses.replace(cfg, **bound), **kw_run)
+            if (res.rounds, res.converged_count) != (ref.rounds, ref.converged_count):
+                raise AssertionError(f"{name} {label} {what}: {res.rounds}/"
+                                     f"{res.converged_count} != single-device "
+                                     f"{ref.rounds}/{ref.converged_count}")
+            same_planes(f"{name} {label} {what} vs the single-device run", res.state,
+                        ref.state)
+            if cap is None and not res.converged:
+                raise AssertionError(f"{name} {label} {what}: {res.outcome}")
+            if count < res.rounds - kw_run.get("start_round", 0) or sends != 1:
+                raise AssertionError(f"{name} {label} {what}: {count} launches for "
+                                     f"{res.rounds} rounds, {sends} sends launches")
+            if what == "crafted":
+                again = run(topo, scfg, devices=[dev] * shards, start_state=res.state,
+                            start_round=res.rounds)
+                if again.rounds != res.rounds:
+                    raise AssertionError(f"{name} {label}: a run from the verdict ran")
+                same_planes(f"{name} {label} from the verdict", again.state, res.state)
+            if what == "initial" and SHARD_FAULT_TIMED[name] == label:
+                launches[f"{name}_pool2_shard_round faulted"] = count
+                launches["pool2_shard_sends"] = sends
+                MAIN_ROUNDS[f"{name}_pool2_shard_round faulted"] = res.rounds
+                MAIN_ROUNDS["pool2_shard_sends"] = res.rounds
+            print(f"  {name} {label} from the {what} state at {n:,} x{shards}: rounds "
+                  f"{res.rounds}, converged {res.converged_count}, {count} launches and "
+                  f"{sends} sends launch, bitwise the single-device run "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            del res, ref
+        torch.cuda.empty_cache()
+    return launches
+
+
+def fault3_phase(dev, key):
+    """Phase 14l: global_checks, global_path, imp_shard_global,
+    shard_fault_checks and shard_fault_path. Returns (cases, max_err,
+    launches)."""
+    cases, max_err, verdicts = global_checks(dev, key)
+    launches = global_path(dev, verdicts)
+    cases["pushsum_imp_hbm_shard_round"], max_err["pushsum_imp_hbm_shard_round"], \
+        launches["pushsum_imp_hbm_shard_round global"] = imp_shard_global(dev, key)
+    shard_cases, shard_err = shard_fault_checks(dev, key)
+    cases.update(shard_cases)
+    max_err.update(shard_err)
+    launches.update(shard_fault_path(dev))
+    return cases, max_err, launches
+
+
+# The timed rows of phase 14l: (JAX site, CUDA source, round kernel's name).
+FAULT3_ROWS = {
+    "pushsum_stencil_hbm_chunk": ("ops/fused_stencil_hbm.py:899", "fused_stencil.cu",
+                                  "pushsum_round"),
+    "pushsum_imp_chunk": ("ops/fused_imp.py:307", "fused_imp.cu", "pushsum_round"),
+    "pushsum_imp_hbm_chunk": ("ops/fused_imp_hbm.py:478", "fused_imp.cu", "pushsum_round"),
+    "pushsum_imp_hbm_shard_round": ("parallel/fused_imp_hbm_sharded.py:678",
+                                    "fused_imp_hbm_shard.cu", "pushsum_imp_shard_absorb"),
+    "pushsum_pool2_shard_round": ("parallel/pool2_sharded.py:591", "fused_pool2_shard.cu",
+                                  "pushsum_pool2_shard_round"),
+    "gossip_pool2_shard_round": ("parallel/pool2_sharded.py:836", "fused_pool2_shard.cu",
+                                 "gossip_pool2_shard_round"),
+}
+
+
+def launch_us(traced, stem):
+    """(device µs a launch, launches) of the kernels named ``stem`` in a
+    torch.profiler trace (``profiled``): the mean over the launches the
+    trace holds, or (None, 0) when it holds none. A trace on the H100 has
+    held only some of a call's launches (half the fault-free resident
+    chunk's time, CUDA events over the same calls disagreeing), and three
+    traces in a row none of a persistent cooperative launch's, so
+    a time a round is this mean over the launches a round, never the
+    trace's sum over the rounds, and a device time is a measurement the
+    kernels line may lack ("not measured"), never a check."""
+    events = sum(count for short, (count, _) in traced.items() if stem in short)
+    us = sum(us for short, (_, us) in traced.items() if stem in short)
+    return (us / events if events else None), events
+
+
+def per_round_us(fn, stem, launches_a_round):
+    """The device µs a round of the kernels named ``stem`` that fn()
+    launches ``launches_a_round`` times a round (torch.profiler, the host
+    left out, ``launch_us``; None when no trace held them); fn's result."""
+    traced, out = profiled(fn, stem)
+    us, _ = launch_us(traced, stem)
+    return (None if us is None else us * launches_a_round), out
+
+
+def ratio_text(us, us_free):
+    """The device times of an instance and its fault-free one, printed."""
+    if us is None or us_free is None:
+        return "round kernel device time not measured (no launch in the traces)"
+    return (f"round kernel {us:.2f} µs a round against the fault-free instance's "
+            f"{us_free:.2f} on the same state ({us / us_free:.3f}x)")
+
+
+def fault3_row(row, suffix, ms, plain_ms, moved, ops, launches, max_err, fault_free_ms,
+               rounds, us, us_free, **extra):
+    """One row of the kernels line for a phase 14l instance."""
+    site, source, _ = FAULT3_ROWS[row]
+    bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    print(f"  {row} {suffix}: {ms:.4f} ms against fault-free {fault_free_ms:.4f} ms "
+          f"({ms / fault_free_ms:.3f}x), plain {plain_ms:.4f} ms; {ratio_text(us, us_free)}",
+          flush=True)
+    return {"name": f"{row} {suffix}", "route": "cuda",
+            "source": f"cop5615_gossip_protocol_tpu_torch/csrc/{source}",
+            "replaces": f"cop5615_gossip_protocol_tpu/{site}",
+            "launches": launches.get(f"{row} {suffix}", 0), "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "fault_free_ms": fault_free_ms,
+            "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+            "device_us_per_round": us, "fault_free_device_us_per_round": us_free,
+            "status": "ported", **extra}
+
+
+def fault3_rows(dev, key, cases, launches, max_err, fault_free_ms):
+    """Phase 14l's rows of the kernels line: rows 9, 11 and 13 in their
+    global instances over a 32-round chunk from the initial state, row 18's
+    global absorb over one round of every shard, and rows 20-21's faulted
+    launches (SHARD_FAULT_TIMED's configs, 32 in a row over every row from
+    the checks' state) and the sends launch; each beside its plain version,
+    the fault-free time of the row measured in this call
+    (``fault_free_ms``), and the round kernel's device time a round in
+    both instances on the same state."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch.ops import fused
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_imp_hbm_sharded as ih
+    from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded as p2s
+
+    rows = []
+    for row, kind, n, _ in GLOBAL_CASES:
+        kern, plain, chunk, init, tier, classes = cases[row]
+        ms, out = time_ms(lambda: chunk(kern, init, 0, CHUNK), TIME_REPS)
+        plain_ms, _ = time_ms(lambda: chunk(plain, init, 0, CHUNK), 2)
+        rounds = int(out[1])
+        stem = FAULT3_ROWS[row][2]
+        us, _ = per_round_us(lambda: chunk(kern, init, 0, CHUNK), stem, 1)
+        us_free, (_, ex) = per_round_us(lambda: chunk(kern, init, 0, CHUNK, faulted=False),
+                                        stem, 1)
+        if int(ex) != CHUNK:
+            raise AssertionError(f"{row}: the fault-free chunk stopped at {int(ex)}")
+        n_pad = init[0].numel()
+        if tier == "stencil_hbm":
+            moved = rounds * STATE_BYTES["pushsum"] * n_pad + CHUNK * 16 + 8
+            ops = rounds * n_pad * (stencil_ops_per_node("push-sum", classes) + GLOBAL_OPS)
+        else:
+            # The resident tier's state fits the L2 (read and written once a
+            # chunk); the streaming tier's streams every round.
+            passes = 1 if tier == "imp" else rounds
+            moved = passes * STATE_BYTES["pushsum"] * n_pad + CHUNK * (32 + 4 * IMP_POOL) + 8
+            ops = rounds * n_pad * (imp_ops_per_node("push-sum", classes + IMP_POOL)
+                                    + GLOBAL_OPS)
+        rows.append(fault3_row(row, "global", ms, plain_ms, moved, ops, launches,
+                               max_err[row], fault_free_ms[row], rounds, us, us_free,
+                               topology=kind, population=n))
+    # Row 18: one round of every shard's absorb from the initial state.
+    row = "pushsum_imp_hbm_shard_round"
+    init, rows_loc, shards, kw, lattice, layout = cases[row]
+    stream, nxt = imp_shard_streams(key, 0, IMP_POOL, IMP_SHARD_TIMED[1])
+    bufs = imp_shard_buffers(init, rows_loc, shards, True)
+    ih.mark_shards(bufs, stream[0], stream[2], rows_loc, pushsum=True, spec=kw["spec"],
+                   pool_size=IMP_POOL)
+    free_kw = {**kw, "global_term": False}
+    ms, _ = time_ms(lambda: ih.launch_shard_rounds(bufs, stream, nxt, pushsum=True, kw=kw),
+                    TIME_REPS)
+    plain_ms, _ = time_ms(lambda: ih.imp_hbm_shards_round_plain(
+        init, stream, rows_loc, range(0, layout.rows, rows_loc), pushsum=True, **kw), 2)
+    stem = FAULT3_ROWS[row][2]
+    us, _ = per_round_us(lambda: ih.launch_shard_rounds(bufs, stream, nxt, pushsum=True,
+                                                        kw=kw), stem, shards)
+    us_free, _ = per_round_us(lambda: ih.launch_shard_rounds(bufs, stream, nxt, pushsum=True,
+                                                             kw=free_kw), stem, shards)
+    moved = STATE_BYTES["pushsum"] * layout.n_pad + 16 + 4 * IMP_POOL + 16
+    ops = layout.n_pad * (imp_ops_per_node("push-sum", lattice + IMP_POOL) + GLOBAL_OPS)
+    rows.append(fault3_row(row, "global", ms, plain_ms, moved, ops, launches, max_err[row],
+                           fault_free_ms[row], 1, us, us_free, shards=shards,
+                           population=IMP_SHARD_TIMED[1], topology=IMP_SHARD_TIMED[0]))
+    del bufs
+    # Rows 20-21: 32 launches in a row over every row (the verdict in the
+    # launch, against a target no round reaches), each reading its round's
+    # send bits and writing the next round's.
+    sends_case = None
+    for name in ("pushsum", "gossip"):
+        row = f"{name}_pool2_shard_round"
+        kern, plain, algorithm, kw, planes, rnd, n, R, faults, death, label = cases[row]
+        streams = shard_streams(key, rnd, CHUNK + 1, n, dev)
+        thresh = faults.thresh or 0
+        glob = p2s.split_state(planes, algorithm)[0]
+        active = None if algorithm == "push-sum" else glob[0]
+        bits = [torch.zeros(R // 8, 128, dtype=torch.uint8, device=dev) for _ in range(2)]
+        p2s.pool2_shard_sends(bits[0], active, death, streams[2][0], rnd, 0, R, n=n,
+                              thresh=thresh)
+        sends_case = (bits[1], active, death, streams[2][0], rnd, R, n, thresh)
+        sets = [tuple(x.clone() for x in planes), tuple(torch.empty_like(x) for x in planes)]
+        ctl = {"u": None, "acc": torch.zeros(2, dtype=torch.int32, device=dev),
+               "ctrl": torch.zeros(2, dtype=torch.int32, device=dev), "target": n + 1}
+
+        def launches_in_a_row(faulted=True):
+            for i in range(CHUNK):
+                sf = None if not faulted else p2s.ShardFaults(
+                    thresh, death, None, rnd + i, faults.global_term, bits[i % 2],
+                    bits[1 - i % 2])
+                shard_launch(kern, algorithm, kw, sets[i % 2], sets[1 - i % 2], streams, i,
+                             0, R, **ctl, faults=sf)
+
+        chunk_ms, _ = time_ms(launches_in_a_row, TIME_REPS)
+        sf0 = p2s.ShardFaults(thresh, death, None, rnd, faults.global_term, bits[0], None)
+        plain_ms, _ = time_ms(lambda: shard_plain(plain, algorithm, {**kw, "faults": sf0},
+                                                  planes, streams, 0, 0, R), 2)
+        stem = FAULT3_ROWS[row][2]
+        us, _ = per_round_us(launches_in_a_row, stem, 1)
+        us_free, _ = per_round_us(lambda: launches_in_a_row(False), stem, 1)
+        n_pad = R * 128
+        crash = faults.death is not None
+        # The state and the sources' windows, the own rows' death round, and
+        # the send bits (2 bytes per slot per 8 nodes, the own and the next
+        # byte) in place of gossip's source reads of the active plane.
+        per_node = pool2_bytes_per_node(algorithm, POOL) + (4 if crash else 0)
+        per_node += (2 * POOL + 2) / 8 - (0 if name == "pushsum" else 4 * POOL)
+        moved = per_node * n_pad + 16 + 4 * POOL + 8
+        ops = n_pad * (pool2_ops_per_node(algorithm, POOL) + OPS_PER_HASH)
+        rows.append(fault3_row(row, "faulted", chunk_ms / CHUNK, plain_ms, moved, ops,
+                               launches, max_err[row], fault_free_ms[row], 1, us, us_free,
+                               config=shard_fault_knobs(label, n), shards=SHARD_TIMED[1],
+                               population=n, timed_launches=CHUNK))
+        del sets
+    # The sends launch: a run's first round's bits over every row.
+    out, active, death, keys, rnd, R, n, thresh = sends_case
+    ms, _ = time_ms(lambda: p2s.pool2_shard_sends(out, active, death, keys, rnd, 0, R, n=n,
+                                                  thresh=thresh), TIME_REPS)
+    gate = fused.gate_round_keys(torch.tensor([keys]))[0].tolist()
+    plain_ms, _ = time_ms(lambda: p2s.pack_sends(p2s.send_rows_plain(
+        active, death, thresh, gate, rnd, 0, R, n, dev)), 2)
+    n_pad = R * 128
+    moved = n_pad * ((4 if death is not None else 0) + (4 if active is not None else 0)
+                     + 1 / 8)
+    ops = n_pad * (OPS_PER_HASH + 4)
+    bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    rows.append({"name": "pool2_shard_sends", "route": "cuda",
+                 "source": "cop5615_gossip_protocol_tpu_torch/csrc/fused_pool2_shard.cu",
+                 "replaces": "cop5615_gossip_protocol_tpu/parallel/pool2_sharded.py:836",
+                 "launches": launches.get("pool2_shard_sends", 0),
+                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "library_ms": None, "population": n, "status": "ported"})
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -4421,11 +5169,17 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
             elif "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
                 # A spill in a persistent round kernel (rows 1-2, 5-8,
-                # kernel A) or in the walk (kernel B) would add local-memory
-                # traffic to every round or hop: a failure.
+                # kernel A), in the walk (kernel B) or in a round, absorb or
+                # sends kernel of rows 9-14 and 18-21 (both instances of
+                # each) would add local-memory traffic to every round or
+                # hop: a failure.
                 persistent = (name in ("fused_pool", "fused_resident", "scatter")
                               and "rounds" in (entry or "")) or (
-                                  name == "walk" and "walk_kernel" in (entry or ""))
+                                  name == "walk" and "walk_kernel" in (entry or "")) or (
+                                  name in ("fused_stencil", "fused_imp",
+                                           "fused_imp_hbm_shard", "fused_pool2_shard")
+                                  and any(k in (entry or "")
+                                          for k in ("round", "absorb", "sends")))
                 if (persistent and "spill" in line
                         and "0 bytes spill stores, 0 bytes spill loads" not in line):
                     return fail(f"{name}: {entry} spills ({line.strip()})")
@@ -4808,6 +5562,19 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
     # ones timed above.
     rows += fault2_rows(fault2_cases, fault2_launches, fault2_err,
                         {row: by_name[row] for row, _, _ in FAULT2_TIMED})
+    t14l = time.perf_counter()
+    try:
+        fault3_cases, fault3_err, fault3_launches = phase("14l", fault3_phase, dev, key)
+    except (AssertionError, RuntimeError) as e:
+        return fail(str(e))
+    t15 += time.perf_counter() - t14l  # and 14l's
+    # Rows 9, 11, 13 and 18 in their global instances and rows 20-21 in
+    # their faulted ones beside the fault-free rows timed above.
+    try:
+        rows += fault3_rows(dev, key, fault3_cases, fault3_launches, fault3_err,
+                            {row: by_name[row] for row in FAULT3_ROWS})
+    except (AssertionError, RuntimeError) as e:
+        return fail(str(e))
     for row in rows:
         row["main_path_rounds"] = MAIN_ROUNDS.get(row["name"])
     # The imp rows beside row 9 (the streaming lattice push-sum, the same

@@ -159,6 +159,22 @@ __device__ __forceinline__ int pushsum_absorb_node(
   return cv;
 }
 
+// Receiver j's push-sum absorb under global termination (absorb_global)
+// between plane sets: term and conv stay. Returns 1 when j is a real node
+// whose ratio moved more than the global rule allows, else 0.
+__device__ __forceinline__ int pushsum_absorb_global_node(
+    const PushSumPlanes& cur, const PushSumPlanes& nxt, int j, bool pad,
+    bool sends, float in_s, float in_w, float delta) {
+  float s_new, w_new;
+  const bool unstable = absorb_global(cur.s[j], cur.w[j], pad, sends, in_s,
+                                      in_w, delta, s_new, w_new);
+  nxt.s[j] = s_new;
+  nxt.w[j] = w_new;
+  nxt.term[j] = cur.term[j];
+  nxt.conv[j] = cur.conv[j];
+  return unstable ? 1 : 0;
+}
+
 // Receiver j's gossip absorb (gossip_absorb) between plane sets; the same
 // contract as pushsum_absorb_node.
 __device__ __forceinline__ int gossip_absorb_node(const GossipPlanes& cur,
@@ -203,6 +219,27 @@ __global__ void pushsum_finish(PushSumPlanes a, PushSumPlanes b, int n_pad,
     a.w[j] = b.w[j];
     a.term[j] = b.term[j];
     a.conv[j] = b.conv[j];
+  }
+}
+
+// The finish launch of a push-sum chunk under global termination
+// (csrc/fused_stencil.cu, csrc/fused_imp.cu): pushsum_finish, and where the
+// chunk's rounds ended in the global verdict (done with a round executed;
+// a chunk done at its init launch runs none) conv latched on every real
+// node (j < n) of the result, pad lanes 0.
+__global__ void pushsum_finish_latch(PushSumPlanes a, PushSumPlanes b, int n,
+                                     int n_pad, const int* __restrict__ ctrl) {
+  const bool odd = (ctrl[1] & 1) != 0;
+  const bool latch = ctrl[0] && ctrl[1] > 0;
+  if (!odd && !latch) return;
+  for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
+       j += gridDim.x * kBlock) {
+    if (odd) {
+      a.s[j] = b.s[j];
+      a.w[j] = b.w[j];
+      a.term[j] = b.term[j];
+    }
+    a.conv[j] = latched_conv(latch, j, n, odd ? b.conv[j] : a.conv[j]);
   }
 }
 
@@ -275,7 +312,8 @@ __global__ void gossip_init_live(const int* __restrict__ n0,
 }
 
 // finish_count's verdict under the failure model (the streaming pool
-// kernels' faulted rounds, csrc/fused_pool2.cu): the grand total against
+// kernels' faulted rounds, csrc/fused_pool2.cu, and the global instances of
+// csrc/fused_stencil.cu and csrc/fused_imp.cu): the grand total against
 // the round's quorum need (*need, where need is not null) or the target;
 // under global termination (`global`) the total is the round's unstable
 // count, and the round with none is done.

@@ -1,10 +1,12 @@
 // Per-node rules of the failure model that the scatter round (csrc/
-// scatter.cu), the pool kernels (csrc/fused_pool.cu, csrc/fused_pool2.cu)
-// and the resident lattice kernels (csrc/fused_resident.cu) share: the drop
-// gate, the alive test of the crash model, the frozen state of a dead
-// node, the global-termination residual (ops/faults.py,
-// ops/sampling.send_gate, models/pushsum.absorb_global), and the chunk
-// kernels' fault inputs with the mark that folds the gate and the dead in.
+// scatter.cu), the pool kernels (csrc/fused_pool.cu, csrc/fused_pool2.cu),
+// the lattice and imp kernels (csrc/fused_resident.cu, csrc/fused_stencil.cu,
+// csrc/fused_imp.cu) and the shard kernels (csrc/fused_imp_hbm_shard.cu,
+// csrc/fused_pool2_shard.cu) share: the drop gate, the alive test of the
+// crash model, the frozen state of a dead node, the global-termination
+// residual, absorb and latch (ops/faults.py, ops/sampling.send_gate,
+// models/pushsum.absorb_global), and the chunk kernels' fault inputs with
+// the mark that folds the gate and the dead in.
 //
 // Plain inline code usable from the host too, so the CPU tests build it
 // with g++ (tests/test_torch_faults.py) and hold it against the plain
@@ -54,6 +56,28 @@ GOSSIP_HD bool unstable_global(float s_t, float w_t, float s_new, float w_new,
   const float a = fabsf(ratio_old);
   const float tol = delta * (a > 1.0f ? a : 1.0f);
   return fabsf(s_new / w_new - ratio_old) > tol;
+}
+
+// A node's push-sum absorb under global termination (the global instances
+// of csrc/fused_stencil.cu, csrc/fused_imp.cu, csrc/fused_imp_hbm_shard.cu):
+// its halved send leaves when it sends, the inbox sums arrive, and its term
+// and conv stay. Sets s_new and w_new; returns whether it is a real node
+// (not a pad lane) whose ratio moved more than the global rule allows.
+GOSSIP_HD bool absorb_global(float s_t, float w_t, bool pad, bool sends,
+                             float in_s, float in_w, float delta, float& s_new,
+                             float& w_new) {
+  const float s_send = sends ? s_t * 0.5f : 0.0f;
+  const float w_send = sends ? w_t * 0.5f : 0.0f;
+  s_new = (s_t - s_send) + in_s;
+  w_new = (w_t - w_send) + in_w;
+  return !pad && unstable_global(s_t, w_t, s_new, w_new, delta);
+}
+
+// Node j's conv flag in a chunk's result under global termination: where
+// the chunk's rounds ended in the global verdict (`latch`) 1 on every real
+// node (j < n) and 0 on the pad lanes, else its own flag.
+GOSSIP_HD int latched_conv(bool latch, int j, int n, int conv) {
+  return latch ? (j < n ? 1 : 0) : conv;
 }
 
 // A chunk's failure model, as the chunk kernels' faulted instances (their

@@ -73,6 +73,16 @@
 // equal to a lattice displacement (or to another slot's) delivers each
 // send once.
 //
+// Global termination (the JAX push-sum kernels' global_term,
+// ops/fused_imp.py:191, :274-287; ops/fused_imp_hbm.py:252, :397-450): a
+// template flag G picks the push-sum round kernel's global instance, so the
+// fault-free one keeps its code. Under G term and conv stay, the round
+// counts the real nodes whose ratio moved more than delta * max(|s/w|, 1)
+// (csrc/faults.cuh unstable_global), the round with none sets the done
+// flag, and the finish launch latches conv on every real node of the
+// result (csrc/chunk.cuh pushsum_finish_latch). Both JAX imp tiers demote
+// the drop gate and crash-stop to the chunked engine, and so does the
+// port's ladder.//
 // Numerics: see csrc/chunk.cuh; the halve happens before the class sums,
 // which run from 0.0 in class order, as the chunked engine's
 // halve_and_send and deliver_imp_pool do, so push-sum is bitwise the plain
@@ -92,6 +102,7 @@ using gossip::ImpPool;
 using gossip::PushSumPlanes;
 using gossip::block_sum;
 using gossip::finish_count;
+using gossip::finish_verdict;
 using gossip::kBlock;
 using gossip::kChoiceLanes;
 using gossip::kChoicePack;
@@ -129,6 +140,9 @@ __global__ void imp_prologue(int8_t* mark, const int* active,
 
 // Round j: reads `cur` and `mark`, writes `nxt` and, unless it is null,
 // `next` (round j + 1's marks under `key` and `ckey`, that round's keys).
+// G: global termination (see the header); G = false is the fault-free
+// kernel.
+template <bool G>
 __global__ void pushsum_round(PushSumPlanes cur, PushSumPlanes nxt,
                               const int8_t* __restrict__ mark,
                               int8_t* __restrict__ next, const long long* key,
@@ -149,14 +163,22 @@ __global__ void pushsum_round(PushSumPlanes cur, PushSumPlanes nxt,
       gossip::imp_pushsum_inbox(lattice, pool, mark, cur.s, cur.w, j, n, in_s,
                                 in_w);
     // mark[j] < 0 on pad lanes: those keep their mass.
-    count += gossip::pushsum_absorb_node(cur, nxt, j, pad, mark[j] >= 0, in_s,
-                                         in_w, delta, term_rounds);
+    if constexpr (!G)
+      count += gossip::pushsum_absorb_node(cur, nxt, j, pad, mark[j] >= 0, in_s,
+                                           in_w, delta, term_rounds);
+    else
+      count += gossip::pushsum_absorb_global_node(cur, nxt, j, pad,
+                                                  mark[j] >= 0, in_s, in_w,
+                                                  delta);
     if (next)
       next[j] = pad ? (int8_t)-1
                     : gossip::imp_mark(words[j], k.a, k.b, c.a, c.b, j,
                                        pool.count, lattice.count);
   }
-  finish_count(block_sum(count), total, ticket, ctrl, target, true);
+  if constexpr (!G)
+    finish_count(block_sum(count), total, ticket, ctrl, target, true);
+  else
+    finish_verdict(block_sum(count), total, ticket, ctrl, target, nullptr, true);
 }
 
 // ------------------------------------------------------------------ gossip
@@ -243,13 +265,61 @@ void round_buffers(const Planes& a, const Planes& b, int8_t* mark, int n_pad,
   *next = r + 1 < rounds ? mark + ((r + 1) & 1) * n_pad : nullptr;
 }
 
-int pushsum_grid_cache[64];
+int pushsum_grid_cache[2][64];
 int gossip_grid_cache[64];
 
 // Zeroes a chunk's control words: ctrl (int32[2]) and the 8 * (rounds + 2)
 // bytes of scratch behind it, in one memset.
 cudaError_t zero_control(int* ctrl, int rounds, cudaStream_t stream) {
   return cudaMemsetAsync(ctrl, 0, 8 * ((size_t)rounds + 3), stream);
+}
+
+// Queues a push-sum chunk's launches after the control words' memset:
+// init, the prologue, one round launch of instance G a round, finish (with
+// the global verdict's latch under G).
+template <bool G>
+cudaError_t queue_pushsum(const float* s0, const float* w0, const int* t0,
+                          const int* c0, PushSumPlanes a, PushSumPlanes b,
+                          int8_t* mark, const long long* keys,
+                          const long long* ckeys, const uint32_t* words,
+                          const int* offs, int* ctrl, Classes lattice, int n,
+                          int n_pad, int rounds, int pool_size, float delta,
+                          int term_rounds, int target, int device,
+                          cudaStream_t stream) {
+  int* totals = ctrl + 2;
+  unsigned* tickets = (unsigned*)(totals + rounds + 1);
+  // Every launch of the chunk on the round kernel's grid, whose capacity
+  // is asked once a device.
+  const int grid = round_grid(pushsum_round<G>, n_pad, device,
+                             pushsum_grid_cache[G ? 1 : 0]);
+  gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
+      s0, w0, t0, c0, a, n_pad, totals + rounds, tickets + rounds, ctrl,
+      target);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  imp_prologue<<<grid, kBlock, 0, stream>>>(mark, nullptr, words, keys, ckeys,
+                                            n, n_pad, pool_size, lattice.count,
+                                            rounds, ctrl);
+  err = cudaGetLastError();
+  for (int r = 0; r < rounds && err == cudaSuccess; ++r) {
+    ImpPool pool;
+    round_pool(offs, r, pool_size, n, &pool);
+    PushSumPlanes cur, nxt;
+    int8_t *mk, *next;
+    round_buffers(a, b, mark, n_pad, r, rounds, &cur, &nxt, &mk, &next);
+    pushsum_round<G><<<grid, kBlock, 0, stream>>>(
+        cur, nxt, mk, next, keys + 2 * (r + 1), ckeys + 2 * (r + 1), words,
+        lattice, pool, n, n_pad, delta, term_rounds, target, totals + r,
+        tickets + r, ctrl);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  if constexpr (G)
+    gossip::pushsum_finish_latch<<<grid, kBlock, 0, stream>>>(a, b, n, n_pad,
+                                                              ctrl);
+  else
+    gossip::pushsum_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -267,7 +337,8 @@ cudaError_t zero_control(int* ctrl, int rounds, cudaStream_t stream) {
 // the per-round totals and then the tickets (int32[rounds + 1] each) are
 // used. `keys` and `ckeys` are device arrays of the per-round key pairs;
 // `offs` ([rounds, pool_size]) and `classes` (the n_classes sorted lattice
-// classes) are host arrays, read here.
+// classes) are host arrays, read here. The push-sum entry point's `global`
+// picks global termination's instances.
 
 extern "C" int gossip_pushsum_imp_chunk(
     const float* s0, const float* w0, const int* t0, const int* c0, float* s,
@@ -275,7 +346,7 @@ extern "C" int gossip_pushsum_imp_chunk(
     int* conv_b, int8_t* mark, const long long* keys, const long long* ckeys,
     const uint32_t* words, const int* offs, int* ctrl, const int* classes,
     int n_classes, int n, int n_pad, int rounds, int pool_size, float delta,
-    int term_rounds, int target, int device, void* stream_ptr) {
+    int term_rounds, int target, int global, int device, void* stream_ptr) {
   Classes lattice;
   if (!setup(n, n_pad, classes, n_classes, pool_size, rounds, &lattice) ||
       !valid_pools(offs, rounds, pool_size, n))
@@ -283,39 +354,19 @@ extern "C" int gossip_pushsum_imp_chunk(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int* totals = ctrl + 2;
-  unsigned* tickets = (unsigned*)(totals + rounds + 1);
   const PushSumPlanes a{s, w, term, conv};
   const PushSumPlanes b{s_b, w_b, term_b, conv_b};
-  // Every launch of the chunk on the round kernel's grid, whose capacity
-  // is asked once a device.
-  const int grid = round_grid(pushsum_round, n_pad, device, pushsum_grid_cache);
   err = zero_control(ctrl, rounds, stream);
   if (err != cudaSuccess) return (int)err;
-  gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
-      s0, w0, t0, c0, a, n_pad, totals + rounds, tickets + rounds, ctrl,
-      target);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  imp_prologue<<<grid, kBlock, 0, stream>>>(mark, nullptr, words, keys, ckeys,
-                                            n, n_pad, pool_size, n_classes,
-                                            rounds, ctrl);
-  err = cudaGetLastError();
-  for (int r = 0; r < rounds && err == cudaSuccess; ++r) {
-    ImpPool pool;
-    round_pool(offs, r, pool_size, n, &pool);
-    PushSumPlanes cur, nxt;
-    int8_t *mk, *next;
-    round_buffers(a, b, mark, n_pad, r, rounds, &cur, &nxt, &mk, &next);
-    pushsum_round<<<grid, kBlock, 0, stream>>>(
-        cur, nxt, mk, next, keys + 2 * (r + 1), ckeys + 2 * (r + 1), words,
-        lattice, pool, n, n_pad, delta, term_rounds, target, totals + r,
-        tickets + r, ctrl);
-    err = cudaGetLastError();
-  }
-  if (err != cudaSuccess) return (int)err;
-  gossip::pushsum_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
-  return (int)cudaGetLastError();
+  return (int)(global
+                   ? queue_pushsum<true>(s0, w0, t0, c0, a, b, mark, keys, ckeys,
+                                         words, offs, ctrl, lattice, n, n_pad,
+                                         rounds, pool_size, delta, term_rounds,
+                                         target, device, stream)
+                   : queue_pushsum<false>(s0, w0, t0, c0, a, b, mark, keys,
+                                          ckeys, words, offs, ctrl, lattice, n,
+                                          n_pad, rounds, pool_size, delta,
+                                          term_rounds, target, device, stream));
 }
 
 extern "C" int gossip_gossip_imp_chunk(

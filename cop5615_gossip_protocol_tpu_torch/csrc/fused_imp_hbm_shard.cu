@@ -45,6 +45,15 @@
 // into the run's done flag and round counter, and every launch returns at
 // once once that flag is set.
 //
+// Global termination (the JAX composition's global_term,
+// parallel/fused_imp_hbm_sharded.py:400, :580, its verdict by shifted
+// metric :1134-1142 and latch :1179-1189): a template flag G picks the
+// push-sum absorb's global instance, so the fault-free one keeps its code.
+// Under G term and conv stay and u is the shard's count of real nodes whose
+// ratio moved more than delta * max(|s/w|, 1) (csrc/faults.cuh
+// unstable_global); the verdict fires when the shards' counts sum to zero,
+// and the run latches conv on every real node of its result. The JAX plan
+// refuses the drop gate and crash-stop here.//
 // What bounds it on this card: memory traffic. A round over a shard reads
 // and writes its state once (push-sum 16 bytes a node each way, gossip 12),
 // reads its directions words (4 bytes a node) and writes its next marks (1
@@ -121,7 +130,9 @@ struct ShardAbsorb {
 
 // s_in/w_in and s_out/w_out are the device's global planes (flat index j),
 // t_*/c_* the shard's own (local index l = j - row_lo * 128); reads `mark`,
-// writes the next round's marks through `next`.
+// writes the next round's marks through `next`. G: global termination (see
+// the header); G = false is the fault-free kernel.
+template <bool G>
 __global__ void pushsum_imp_shard_absorb(
     const float* __restrict__ s_in, const float* __restrict__ w_in,
     float* __restrict__ s_out, float* __restrict__ w_out,
@@ -141,17 +152,30 @@ __global__ void pushsum_imp_shard_absorb(
       gossip::imp_pushsum_inbox(p.lattice, p.pool, mark, s_in, w_in, j, p.n,
                                 in_s, in_w);
     float s_new, w_new;
-    int t_new;
-    // mark[j] < 0 on pad lanes: those keep their mass.
-    const int cv = gossip::pushsum_absorb(
-        s_in[j], w_in[j], [&] { return t_in[l]; }, [&] { return c_in[l] != 0; },
-        pad, mark[j] >= 0, in_s, in_w, delta, term_rounds, s_new, w_new, t_new);
-    s_out[j] = s_new;
-    w_out[j] = w_new;
-    t_out[l] = t_new;
-    c_out[l] = cv;
+    if constexpr (!G) {
+      // mark[j] < 0 on pad lanes: those keep their mass.
+      int t_new;
+      const int cv = gossip::pushsum_absorb(
+          s_in[j], w_in[j], [&] { return t_in[l]; },
+          [&] { return c_in[l] != 0; }, pad, mark[j] >= 0, in_s, in_w, delta,
+          term_rounds, s_new, w_new, t_new);
+      s_out[j] = s_new;
+      w_out[j] = w_new;
+      t_out[l] = t_new;
+      c_out[l] = cv;
+      c += cv;
+    } else {
+      // Global termination: term and conv stay; the count is the real
+      // nodes whose ratio moved more than the global rule allows.
+      const bool unstable = gossip::absorb_global(
+          s_in[j], w_in[j], pad, mark[j] >= 0, in_s, in_w, delta, s_new, w_new);
+      s_out[j] = s_new;
+      w_out[j] = w_new;
+      t_out[l] = t_in[l];
+      c_out[l] = c_in[l];
+      c += unstable ? 1 : 0;
+    }
     write_mark(next, j, !pad, p.lattice.count);
-    c += cv;
   }
   finish_shard_count(block_sum(c), p.acc, p.u);
 }
@@ -246,7 +270,8 @@ bool make_absorb(const int* classes, int n_classes, const int* offs,
 // round, an absorb's next round. `classes` (the n_classes sorted lattice
 // classes) and `offs` (the round's pool_size displacements) are host
 // arrays, read here. u is int32[1], acc int32[2] zeroed once, ctrl the
-// run's int32[2] (done, rounds) on this device.
+// run's int32[2] (done, rounds) on this device. The push-sum absorb's
+// `global` picks global termination's instance.
 
 extern "C" int gossip_imp_hbm_shard_mark(
     int8_t* mark, const int* active, const uint32_t* words, unsigned k1,
@@ -273,9 +298,9 @@ extern "C" int gossip_pushsum_imp_hbm_shard_absorb(
     const int8_t* mark, int8_t* next, const uint32_t* words, unsigned k1,
     unsigned k2, unsigned c1, unsigned c2, const int* classes, int n_classes,
     const int* offs, int pool_size, int n, int row_lo, int rows_loc,
-    float delta, int term_rounds, int* u, int* acc, const int* ctrl,
-    int device, void* stream_ptr) {
-  static int grid_cache[64];
+    float delta, int term_rounds, int global, int* u, int* acc,
+    const int* ctrl, int device, void* stream_ptr) {
+  static int grid_cache[2][64];
   ShardAbsorb p;
   MarkOut out;
   if (!make_absorb(classes, n_classes, offs, pool_size, n, row_lo, rows_loc, u,
@@ -284,11 +309,20 @@ extern "C" int gossip_pushsum_imp_hbm_shard_absorb(
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int grid =
-      round_grid(pushsum_imp_shard_absorb, p.count, device, grid_cache);
-  pushsum_imp_shard_absorb<<<grid, kBlock, 0, (cudaStream_t)stream_ptr>>>(
-      s_in, w_in, s_out, w_out, t_in, c_in, t_out, c_out, mark, out, p, delta,
-      term_rounds);
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (global) {
+    const int grid = round_grid(pushsum_imp_shard_absorb<true>, p.count,
+                                device, grid_cache[1]);
+    pushsum_imp_shard_absorb<true><<<grid, kBlock, 0, stream>>>(
+        s_in, w_in, s_out, w_out, t_in, c_in, t_out, c_out, mark, out, p,
+        delta, term_rounds);
+  } else {
+    const int grid = round_grid(pushsum_imp_shard_absorb<false>, p.count,
+                                device, grid_cache[0]);
+    pushsum_imp_shard_absorb<false><<<grid, kBlock, 0, stream>>>(
+        s_in, w_in, s_out, w_out, t_in, c_in, t_out, c_out, mark, out, p,
+        delta, term_rounds);
+  }
   return (int)cudaGetLastError();
 }
 

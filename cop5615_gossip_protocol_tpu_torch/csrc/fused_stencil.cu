@@ -64,6 +64,15 @@
 // the class cap, so the class list stays in registers and a receiver's
 // mark loads are all in flight at once.
 //
+// Global termination (the JAX push-sum kernel's global_term,
+// ops/fused_stencil_hbm.py:575, :772-784, :837-853): a template flag G picks
+// the round kernel's global instance, so the fault-free one keeps its code.
+// Under G term and conv stay, the round counts the real nodes whose ratio
+// moved more than delta * max(|s/w|, 1) (csrc/faults.cuh unstable_global),
+// the round with none sets the done flag, and the finish launch latches
+// conv on every real node of the result (csrc/chunk.cuh
+// pushsum_finish_latch). The drop gate and crash-stop demote the JAX tier
+// to the chunked engine, and the port's ladder does the same.//
 // Numerics: built without fast math, with -fmad=false and denormals kept;
 // the halve happens before the class sums, and the sums run from 0.0 in
 // ascending class order, as the chunked engine's halve_and_send and
@@ -83,6 +92,7 @@ using gossip::GossipPlanes;
 using gossip::PushSumPlanes;
 using gossip::block_sum;
 using gossip::finish_count;
+using gossip::finish_verdict;
 using gossip::round_grid;
 using gossip::kBlock;
 using gossip::word_mark;
@@ -106,7 +116,9 @@ __global__ void stencil_prologue(int8_t* mark, const int* active,
 // ---------------------------------------------------------------- push-sum
 
 // Round j: reads `cur` and `mark`, writes `nxt` and, unless it is null,
-// `next` (round j + 1's marks under `key`, that round's key).
+// `next` (round j + 1's marks under `key`, that round's key). G: global
+// termination (see the header); G = false is the fault-free kernel.
+template <bool G>
 __global__ void pushsum_round(PushSumPlanes cur, PushSumPlanes nxt,
                               const int8_t* __restrict__ mark,
                               int8_t* __restrict__ next, const long long* key,
@@ -124,11 +136,18 @@ __global__ void pushsum_round(PushSumPlanes cur, PushSumPlanes nxt,
     float in_s = 0.0f, in_w = 0.0f;
     if (!pad) gossip::pushsum_inbox(cls, mark, cur.s, cur.w, j, n, in_s, in_w);
     // mark[j] < 0 on pad lanes and degree 0: those keep their mass.
-    c += gossip::pushsum_absorb_node(cur, nxt, j, pad, mark[j] >= 0, in_s,
-                                     in_w, delta, term_rounds);
+    if constexpr (!G)
+      c += gossip::pushsum_absorb_node(cur, nxt, j, pad, mark[j] >= 0, in_s,
+                                       in_w, delta, term_rounds);
+    else
+      c += gossip::pushsum_absorb_global_node(cur, nxt, j, pad, mark[j] >= 0,
+                                              in_s, in_w, delta);
     if (next) next[j] = word_mark(dirs[j], k0, k1, j);
   }
-  finish_count(block_sum(c), total, ticket, ctrl, target, true);
+  if constexpr (!G)
+    finish_count(block_sum(c), total, ticket, ctrl, target, true);
+  else
+    finish_verdict(block_sum(c), total, ticket, ctrl, target, nullptr, true);
 }
 
 // ------------------------------------------------------------------ gossip
@@ -175,13 +194,55 @@ void round_buffers(const Planes& a, const Planes& b, int8_t* mark, int n_pad,
   *next = r + 1 < rounds ? mark + ((r + 1) & 1) * n_pad : nullptr;
 }
 
-int pushsum_grid_cache[64];
+int pushsum_grid_cache[2][64];
 int gossip_grid_cache[64];
 
 // Zeroes a chunk's control words: ctrl (int32[2]) and the 8 * (rounds + 2)
 // bytes of scratch behind it, in one memset.
 cudaError_t zero_control(int* ctrl, int rounds, cudaStream_t stream) {
   return cudaMemsetAsync(ctrl, 0, 8 * ((size_t)rounds + 3), stream);
+}
+
+// Queues a push-sum chunk's launches after the control words' memset:
+// init, the prologue, one round launch of instance G a round, finish (with
+// the global verdict's latch under G).
+template <bool G>
+cudaError_t queue_pushsum(const float* s0, const float* w0, const int* t0,
+                          const int* c0, PushSumPlanes a, PushSumPlanes b,
+                          int8_t* mark, const long long* keys, const int* dirs,
+                          int* ctrl, Classes cls, int n, int n_pad, int rounds,
+                          float delta, int term_rounds, int target, int device,
+                          cudaStream_t stream) {
+  int* totals = ctrl + 2;
+  unsigned* tickets = (unsigned*)(totals + rounds + 1);
+  // Every launch of the chunk on the round kernel's grid, whose capacity
+  // (the lowest of the four) is asked once a device.
+  const int grid = round_grid(pushsum_round<G>, n_pad, device,
+                             pushsum_grid_cache[G ? 1 : 0]);
+  gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
+      s0, w0, t0, c0, a, n_pad, totals + rounds, tickets + rounds, ctrl,
+      target);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  stencil_prologue<<<grid, kBlock, 0, stream>>>(
+      mark, nullptr, dirs, keys, n_pad, rounds, ctrl);
+  err = cudaGetLastError();
+  for (int r = 0; r < rounds && err == cudaSuccess; ++r) {
+    PushSumPlanes cur, nxt;
+    int8_t *mk, *next;
+    round_buffers(a, b, mark, n_pad, r, rounds, &cur, &nxt, &mk, &next);
+    pushsum_round<G><<<grid, kBlock, 0, stream>>>(
+        cur, nxt, mk, next, keys + 2 * (r + 1), dirs, cls, n, n_pad, delta,
+        term_rounds, target, totals + r, tickets + r, ctrl);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  if constexpr (G)
+    gossip::pushsum_finish_latch<<<grid, kBlock, 0, stream>>>(a, b, n, n_pad,
+                                                              ctrl);
+  else
+    gossip::pushsum_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -198,7 +259,8 @@ cudaError_t zero_control(int* ctrl, int rounds, cudaStream_t stream) {
 // (done, rounds executed), then 8 * (rounds + 2) bytes of scratch, of which
 // the per-round totals and then the tickets (int32[rounds + 1] each) are
 // used. `classes` is a host array of the n_classes sorted displacement
-// classes.
+// classes. The push-sum entry point's `global` picks global termination's
+// instances.
 
 extern "C" int gossip_pushsum_stencil_chunk(
     const float* s0, const float* w0, const int* t0, const int* c0, float* s,
@@ -206,7 +268,7 @@ extern "C" int gossip_pushsum_stencil_chunk(
     int* conv_b, int8_t* mark, const long long* keys, const int* dirs,
     int* ctrl, const int* classes, int n_classes, int kind, int n,
     int extra_node, int n_pad, int rounds, float delta, int term_rounds,
-    int target, int device, void* stream_ptr) {
+    int target, int global, int device, void* stream_ptr) {
   gossip::Lattice L;
   Classes cls;
   if (rounds < 0 ||
@@ -215,37 +277,19 @@ extern "C" int gossip_pushsum_stencil_chunk(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int* totals = ctrl + 2;
-  unsigned* tickets = (unsigned*)(totals + rounds + 1);
   const PushSumPlanes a{s, w, term, conv};
   const PushSumPlanes b{s_b, w_b, term_b, conv_b};
-  // Every launch of the chunk on the round kernel's grid, whose capacity
-  // (the lowest of the four) is asked once a device.
-  const int grid =
-      round_grid(pushsum_round, n_pad, device, pushsum_grid_cache);
   // The control words, zeroed on the stream ahead of the chunk.
   err = zero_control(ctrl, rounds, stream);
   if (err != cudaSuccess) return (int)err;
-  gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
-      s0, w0, t0, c0, a, n_pad, totals + rounds, tickets + rounds, ctrl,
-      target);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stencil_prologue<<<grid, kBlock, 0, stream>>>(
-      mark, nullptr, dirs, keys, n_pad, rounds, ctrl);
-  err = cudaGetLastError();
-  for (int r = 0; r < rounds && err == cudaSuccess; ++r) {
-    PushSumPlanes cur, nxt;
-    int8_t *mk, *next;
-    round_buffers(a, b, mark, n_pad, r, rounds, &cur, &nxt, &mk, &next);
-    pushsum_round<<<grid, kBlock, 0, stream>>>(
-        cur, nxt, mk, next, keys + 2 * (r + 1), dirs, cls, n, n_pad, delta,
-        term_rounds, target, totals + r, tickets + r, ctrl);
-    err = cudaGetLastError();
-  }
-  if (err != cudaSuccess) return (int)err;
-  gossip::pushsum_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
-  return (int)cudaGetLastError();
+  return (int)(global ? queue_pushsum<true>(s0, w0, t0, c0, a, b, mark, keys,
+                                            dirs, ctrl, cls, n, n_pad, rounds,
+                                            delta, term_rounds, target, device,
+                                            stream)
+                      : queue_pushsum<false>(s0, w0, t0, c0, a, b, mark, keys,
+                                             dirs, ctrl, cls, n, n_pad, rounds,
+                                             delta, term_rounds, target, device,
+                                             stream));
 }
 
 extern "C" int gossip_gossip_stencil_chunk(

@@ -39,12 +39,16 @@ is no degradation ladder: a kernel that fails to build or launch raises.
 The drop gate, crash-stop with quorum termination and push-sum's global
 termination (``fault_rate``, ``crash_rate``/``crash_schedule`` with
 ``quorum``, ``termination``) run on the chunked engine under every delivery,
-on the pool and streaming pool tiers and on the whole-array lattice tier;
-the tiled lattice tier takes global termination, the only one its JAX tier
-takes. Where the JAX ladder takes such a config to a fused tier whose
-kernels do not carry the knob yet (``_FAULT_KNOBS``), the run refuses naming
+on the pool and streaming pool tiers, on the whole-array lattice tier and,
+with n_devices > 1, on the replicated-pool2 composition; the tiled and
+streaming lattice tiers, both imp tiers and the sharded imp composition take
+global termination, the only one their JAX tiers take. Where the JAX ladder
+takes such a config to a fused tier or composition whose kernels do not
+carry the knob yet (``_FAULT_KNOBS``, ``_SHARDED_FAULT_KNOBS``: global
+termination on the sharded lattice compositions), the run refuses naming
 ROADMAP A6a, on the card and under ``engine="fused"``; where it demotes, the
-port runs its chunked engine, on the card too.
+port runs its chunked engine, on the card too; where a sharded plan refuses
+it, the run raises the JAX ladder's ValueError.
 """
 
 from __future__ import annotations
@@ -558,25 +562,42 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
 # ("gate": fault_rate, "crash": crash_rate/crash_schedule, "global":
 # termination="global"): the pool tier (rows 1-2), the streaming pool tier
 # (rows 3-4) and the whole-array lattice tier (rows 5-6) all three; the
-# tiled lattice tier (row 7) global termination, the only one its JAX tier
-# takes. The streaming lattice and imp tiers carry none yet (their JAX
-# tiers take global termination only).
+# tiled and streaming lattice tiers (rows 7, 9) and both imp tiers (rows
+# 11, 13) global termination, the only one their JAX tiers take (the gate
+# and crash-stop demote them to the chunked engine, as in JAX).
 _FAULT_KNOBS = {"pool": ("gate", "crash", "global"),
                 "pool2": ("gate", "crash", "global"),
                 "stencil": ("gate", "crash", "global"),
-                "stencil2": ("global",)}
+                "stencil2": ("global",),
+                "stencil_hbm": ("global",),
+                "imp": ("global",),
+                "imp_hbm": ("global",)}
+
+# The same per sharded composition, once its JAX plan has taken the config:
+# the replicated-pool2 one (rows 20-21) all three; the imp one (row 18)
+# global termination, the only one its JAX plan takes; the lattice ones
+# carry none yet (their exact-stop global verdict is ROADMAP A6a-4; their
+# JAX plans refuse the gate and crash-stop).
+_SHARDED_FAULT_KNOBS = {"pool2_sharded": ("gate", "crash", "global"),
+                        "imp_hbm_sharded": ("global",),
+                        "fused_sharded": (),
+                        "stencil_hbm_sharded": ()}
+
+
+def _unported_knobs(carried, cfg: SimConfig) -> list:
+    """The failure-model knobs ``cfg`` sets that are not in ``carried``."""
+    return [text for knob, text, on in (
+        ("gate", "fault_rate", cfg.fault_rate > 0),
+        ("crash", "crash_rate/crash_schedule", cfg.crash_model),
+        ("global", "termination='global'", cfg.termination == "global"))
+        if on and knob not in carried]
 
 
 def _refuse_unported_faults(variant: str, cfg: SimConfig) -> None:
     """Raise where the JAX ladder runs a fused tier whose failure-model or
     global-termination branches the port's kernels do not carry yet
     (ROADMAP A6a): never a quiet demotion to another engine."""
-    carried = _FAULT_KNOBS.get(variant, ())
-    knobs = [text for knob, text, on in (
-        ("gate", "fault_rate", cfg.fault_rate > 0),
-        ("crash", "crash_rate/crash_schedule", cfg.crash_model),
-        ("global", "termination='global'", cfg.termination == "global"))
-        if on and knob not in carried]
+    knobs = _unported_knobs(_FAULT_KNOBS.get(variant, ()), cfg)
     if knobs:
         raise unported(f"{' and '.join(knobs)} on the fused {variant!r} tier",
                        "A6a")
@@ -584,6 +605,11 @@ def _refuse_unported_faults(variant: str, cfg: SimConfig) -> None:
 
 def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
                  t_enter) -> RunResult:
+    """The JAX ladder's n_devices > 1 step: the composition and its plan's
+    reason (``sharded_tier``), JAX's ValueError where a plan refuses the
+    config, and only then the port's own refusals by ROADMAP item: a
+    composition not ported (``_SHARDED_NAMES``), or a failure-model knob
+    its kernels do not carry (``_SHARDED_FAULT_KNOBS``, A6a)."""
     from ..parallel import mesh as mesh_mod
     from ..parallel.fused_hbm_sharded import run_stencil_hbm_sharded
     from ..parallel.fused_imp_hbm_sharded import run_imp_hbm_sharded
@@ -591,9 +617,6 @@ def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
     from ..parallel.pool2_sharded import run_pool2_sharded
 
     tier, reason, item = sharded_tier(topo, cfg)
-    if cfg.faulted or cfg.termination == "global":
-        raise unported(f"the failure model or termination='global' with "
-                       f"n_devices={cfg.n_devices} ({tier})", "A6a")
     if reason is not None:
         raise ValueError(reason)
     runs = {"pool2_sharded": run_pool2_sharded,
@@ -603,6 +626,10 @@ def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
     if tier not in runs:
         raise unported(f"n_devices={cfg.n_devices} with engine={cfg.engine!r} "
                        f"on {topo.kind}: {_SHARDED_NAMES[tier]}", item)
+    knobs = _unported_knobs(_SHARDED_FAULT_KNOBS[tier], cfg)
+    if knobs:
+        raise unported(f"{' and '.join(knobs)} with n_devices={cfg.n_devices} "
+                       f"({tier})", "A6a")
     mesh = mesh_mod.make_mesh(
         cfg.n_devices, devices,
         platform=resolve_device(device).type if devices is None else "cuda")
@@ -740,6 +767,8 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
             if variant == "imp" else
             (fused_imp_hbm.pushsum_imp_hbm_chunk, fused_imp_hbm.gossip_imp_hbm_chunk))
         common = {"spec": fused_imp.imp_spec(topo), "target": target}
+        if cfg.algorithm == "push-sum":
+            common["faults"] = fused.run_faults(cfg, n)
     else:
         build, pushsum_chunk, gossip_chunk = {
             "stencil": (fused.build_layout, fused.pushsum_chunk,
@@ -753,7 +782,7 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
         }[variant]
         layout = build(n)
         common = {"spec": fused_stencil_hbm.stencil_spec(topo), "target": target}
-        if variant in ("stencil", "stencil2"):
+        if variant != "stencil_hbm" or cfg.algorithm == "push-sum":
             common["faults"] = fused.run_faults(cfg, n)
 
     def streams(start, count):

@@ -34,6 +34,9 @@ tensors and run the plain torch versions (``*_plain``) on CPU tensors; the
 plain versions run on any device and are what the kernels are held against.
 The kernels take honest (batched-semantics) builds, whose lattice is the
 whole grid: reference semantics cannot run pooled delivery at all (Q9).
+The push-sum wrappers take the run's global termination (``faults``), the
+one failure-model knob both JAX imp tiers take, and run the kernels'
+global instance; the drop gate and crash-stop run on the chunked engine.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from ..utils import kernels
 from . import rng
 from .fused import (
     LANES,
+    Faults,
     clamp_cap_and_pad,
     class_sources,
     gossip_class_rounds,
@@ -59,8 +63,8 @@ from .fused import (
     threefry2x32_hash,
     threefry_bits_2d,
 )
-from .fused_pool import POOL_SIZES, _upload, build_pool_layout
-from .fused_stencil_hbm import _sample_disp_dirs
+from .fused_pool import POOL_SIZES, _chunk_faults, _upload, build_pool_layout
+from .fused_stencil_hbm import _sample_disp_dirs, global_flag, global_only
 from .sampling import (
     IMP_CHOICE_TAG,
     POOL_CHOICE_BITS,
@@ -226,15 +230,18 @@ def _imp_classes(spec: ImpSpec, keys, offs, ckeys, rows: int):
 
 def pushsum_imp_chunk_plain(state4, keys, offs, ckeys, start: int, cap: int, *,
                             spec: ImpSpec, target: int, delta: float,
-                            term_rounds: int):
+                            term_rounds: int, faults: Optional[Faults] = None):
     """Up to K = keys.shape[0] push-sum imp rounds on the padded planes
-    (s, w, term, conv_i32). Returns (state4', rounds_executed)."""
+    (s, w, term, conv_i32), with the run's global termination (``faults``,
+    the run's fused.Faults or None; fused.pushsum_class_rounds). Returns
+    (state4', rounds_executed)."""
     dev, rows = state4[0].device, state4[0].shape[0]
     cap, keys, offs, ckeys = clamp_cap_and_pad(start, cap, keys, ((offs, 1), (ckeys, 0)))
     return pushsum_class_rounds(
         state4, start, cap, keys.shape[0],
         _imp_classes(spec, keys.to(dev), offs.to(dev), ckeys.to(dev), rows),
-        n=spec.n, target=target, delta=delta, term_rounds=term_rounds)
+        n=spec.n, target=target, delta=delta, term_rounds=term_rounds,
+        faults=_chunk_faults(faults, keys, start, rows, dev))
 
 
 def gossip_imp_chunk_plain(state3, keys, offs, ckeys, start: int, cap: int, *,
@@ -304,7 +311,7 @@ def _check(planes, dtypes, keys, offs, ckeys, spec: ImpSpec) -> torch.device:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "gossip_pushsum_imp_chunk": [_P] * 19 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
+    "gossip_pushsum_imp_chunk": [_P] * 19 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "gossip_gossip_imp_chunk": [_P] * 16 + [_I] * 9 + [_P],
 }
 
@@ -352,18 +359,23 @@ def _kernel_chunk(name: str, state, keys, offs, ckeys, start: int, cap: int,
 
 
 def pushsum_chunk(counter, state4, keys, offs, ckeys, start: int, cap: int, *,
-                  spec: ImpSpec, target: int, delta: float, term_rounds: int):
+                  spec: ImpSpec, target: int, delta: float, term_rounds: int,
+                  faults: Optional[Faults] = None):
     """The push-sum chunk behind both tiers' wrappers; a launch adds the
-    kernels it queued to ``counter.launches``."""
+    kernels it queued to ``counter.launches``. ``faults`` (the run's
+    fused.Faults, or None) may carry global termination only, which runs
+    the kernels' global instance: a gate or a death plane raises ValueError
+    (both JAX imp tiers run those on the chunked engine)."""
     dev = _check(state4, (torch.float32, torch.float32, torch.int32, torch.int32),
                  keys, offs, ckeys, spec)
+    faults = global_only(faults, "the imp tiers (imp, imp_hbm)")
     if dev.type == "cpu":
         return pushsum_imp_chunk_plain(
             state4, keys, offs, ckeys, start, cap, spec=spec, target=target,
-            delta=delta, term_rounds=term_rounds)
+            delta=delta, term_rounds=term_rounds, faults=faults)
     out, executed, launches = _kernel_chunk(
         "gossip_pushsum_imp_chunk", state4, keys, offs, ckeys, start, cap, spec,
-        (ctypes.c_float(delta), term_rounds, target))
+        (ctypes.c_float(delta), term_rounds, target, global_flag(faults)))
     counter.launches += launches
     return out, executed
 
@@ -384,7 +396,8 @@ def gossip_chunk(counter, state3, keys, offs, ckeys, start: int, cap: int, *,
 
 
 def pushsum_imp_chunk(state4, keys, offs, ckeys, start: int, cap: int, *,
-                      spec: ImpSpec, target: int, delta: float, term_rounds: int):
+                      spec: ImpSpec, target: int, delta: float, term_rounds: int,
+                      faults: Optional[Faults] = None):
     """Up to K = keys.shape[0] push-sum imp rounds from absolute round
     ``start``, stopping at ``cap`` or once ``target`` nodes converged.
 
@@ -394,10 +407,11 @@ def pushsum_imp_chunk(state4, keys, offs, ckeys, start: int, cap: int, *,
     (fused_pool.round_offsets) are CPU tensors. Returns (state4',
     rounds_executed) with rounds_executed a 0-dim int32 tensor on the
     state's device; the inputs are left unchanged. CUDA state runs the
-    kernel and CPU state the plain version."""
+    kernel and CPU state the plain version. ``faults`` as in
+    ``pushsum_chunk``: global termination only."""
     return pushsum_chunk(pushsum_imp_chunk, state4, keys, offs, ckeys, start, cap,
                          spec=spec, target=target, delta=delta,
-                         term_rounds=term_rounds)
+                         term_rounds=term_rounds, faults=faults)
 
 
 def gossip_imp_chunk(state3, keys, offs, ckeys, start: int, cap: int, *,

@@ -16,6 +16,7 @@ from typing import Optional
 
 from ..config import SimConfig
 from . import fused_imp
+from .fused import Faults
 from .fused_stencil_hbm import MAX_STENCIL_HBM_NODES
 from .topology import Topology
 
@@ -42,12 +43,13 @@ def imp_hbm_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
 
 def pushsum_imp_hbm_chunk(state4, keys, offs, ckeys, start: int, cap: int, *,
                           spec: fused_imp.ImpSpec, target: int, delta: float,
-                          term_rounds: int):
+                          term_rounds: int, faults: Optional[Faults] = None):
     """``fused_imp.pushsum_imp_chunk`` on this tier: the same function,
-    layout and kernels, counted here."""
+    layout and kernels (global termination only, as ``faults``), counted
+    here."""
     return fused_imp.pushsum_chunk(
         pushsum_imp_hbm_chunk, state4, keys, offs, ckeys, start, cap, spec=spec,
-        target=target, delta=delta, term_rounds=term_rounds)
+        target=target, delta=delta, term_rounds=term_rounds, faults=faults)
 
 
 def gossip_imp_hbm_chunk(state3, keys, offs, ckeys, start: int, cap: int, *,

@@ -35,6 +35,7 @@ from .fused_pool import build_pool_layout
 from .fused_stencil_hbm import (
     StencilSpec,
     _check,
+    global_only,
     gossip_stencil_hbm_chunk_plain,
     kernel_chunk,
     pushsum_stencil_hbm_chunk_plain,
@@ -113,13 +114,9 @@ def gossip_resident_chunk(counter, rows: int, state3, keys, start: int,
     return out, executed
 
 
-def _global_only(faults: Optional[Faults]) -> Optional[Faults]:
-    """The tiled tier's failure model: global termination alone (the JAX
-    tier refuses the drop gate and crash-stop, fused_stencil.py:96)."""
-    if faults is not None and (faults.thresh is not None or faults.death is not None):
-        raise ValueError("the tiled stencil tier (stencil2) takes global termination "
-                         "only; the drop gate and crash-stop run on the chunked engine")
-    return faults
+# The tiled tier's failure model is global termination alone (the JAX tier
+# refuses the drop gate and crash-stop, fused_stencil.py:96).
+_TIER = "the tiled stencil tier (stencil2)"
 
 
 def pushsum_stencil2_chunk(state4, keys, start: int, cap: int, *,
@@ -139,7 +136,7 @@ def pushsum_stencil2_chunk(state4, keys, start: int, cap: int, *,
     return pushsum_resident_chunk(
         pushsum_stencil2_chunk, build_pool_layout(spec.n).rows, state4, keys,
         start, cap, spec=spec, target=target, delta=delta,
-        term_rounds=term_rounds, faults=_global_only(faults))
+        term_rounds=term_rounds, faults=global_only(faults, _TIER))
 
 
 def gossip_stencil2_chunk(state3, keys, start: int, cap: int, *,
@@ -152,7 +149,7 @@ def gossip_stencil2_chunk(state3, keys, start: int, cap: int, *,
     return gossip_resident_chunk(
         gossip_stencil2_chunk, build_pool_layout(spec.n).rows, state3, keys,
         start, cap, spec=spec, target=target, rumor_target=rumor_target,
-        suppress=suppress, faults=_global_only(faults))
+        suppress=suppress, faults=global_only(faults, _TIER))
 
 
 # Kernel launches queued by each wrapper (3 a chunk), counted where the

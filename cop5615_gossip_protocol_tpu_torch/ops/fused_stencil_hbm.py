@@ -18,7 +18,10 @@ tiers (ops/fused.py, ops/fused_stencil.py) compute the same function and
 share the plain versions, the wrapper checks, ``kernel_chunk`` and the
 per-slot directions word the kernels mark from (``dir_words``, built on
 the host once per layout and device; the sharded lattice kernels read it
-too).
+too). The push-sum wrapper takes the run's global termination
+(``faults``), the one failure-model knob the JAX tier takes, and runs the
+kernels' global instance; the plain versions carry the whole failure
+model for every lattice tier.
 """
 
 from __future__ import annotations
@@ -335,10 +338,27 @@ def _check(planes, dtypes, keys, spec: StencilSpec, rows: int) -> torch.device:
     return dev
 
 
+def global_only(faults: Optional[Faults], tier: str) -> Optional[Faults]:
+    """The failure model of a tier whose JAX kernels take global
+    termination alone (the tiled and streaming lattice tiers, both imp
+    tiers): ``faults`` as it is, or ValueError on a drop gate or a death
+    plane, which the JAX ladder runs on the chunked engine."""
+    if faults is not None and (faults.thresh is not None or faults.death is not None):
+        raise ValueError(f"{tier} takes global termination only; the drop gate and "
+                         "crash-stop run on the chunked engine")
+    return faults
+
+
+def global_flag(faults: Optional[Faults]) -> int:
+    """The push-sum entry points' ``global`` argument."""
+    return int(faults is not None and faults.global_term)
+
+
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # The lattice entry points of csrc/fused_stencil.cu and csrc/fused_resident.cu
-# take the same arguments; the resident ones then the failure model's
-# (faulted, thresh, death, needs, need_init, start, and push-sum's global).
+# take the same arguments; then the streaming push-sum one takes global
+# termination's flag, and the resident ones the failure model's (faulted,
+# thresh, death, needs, need_init, start, and push-sum's global).
 _PUSHSUM_ARGS = [_P] * 17 + [_I] * 6 + [_F] + [_I] * 2
 _GOSSIP_ARGS = [_P] * 14 + [_I] * 9
 _FAULT_ARGS = [_I, _U, _P, _P, _I, _I]
@@ -349,6 +369,8 @@ def _argtypes(source: str, pushsum: bool):
     args = list(_PUSHSUM_ARGS if pushsum else _GOSSIP_ARGS)
     if source == "fused_resident":
         args += _FAULT_ARGS + ([_I] if pushsum else [])
+    elif pushsum:
+        args.append(_I)
     return args + [_I, _P]
 
 
@@ -409,7 +431,7 @@ def kernel_chunk(source: str, name: str, state, keys, start: int, cap: int,
 
 def pushsum_stencil_hbm_chunk(state4, keys, start: int, cap: int, *,
                               spec: StencilSpec, target: int, delta: float,
-                              term_rounds: int):
+                              term_rounds: int, faults: Optional[Faults] = None):
     """Up to K = keys.shape[0] push-sum lattice rounds from absolute round
     ``start``, stopping at ``cap`` or once ``target`` nodes converged.
 
@@ -418,17 +440,21 @@ def pushsum_stencil_hbm_chunk(state4, keys, start: int, cap: int, *,
     keys (uint32 words, fused.round_keys) are a CPU tensor. Returns
     (state4', rounds_executed) with rounds_executed a 0-dim int32 tensor on
     the state's device; the inputs are left unchanged. CUDA state runs the
-    kernel and CPU state the plain version."""
+    kernel and CPU state the plain version. ``faults`` (the run's
+    fused.Faults, or None) may carry global termination only, which runs
+    the kernels' global instance: a gate or a death plane raises
+    ValueError."""
     dev = _check(state4, (torch.float32, torch.float32, torch.int32, torch.int32),
                  keys, spec, _streaming_layout(spec.n).rows)
+    faults = global_only(faults, "the streaming stencil tier (stencil_hbm)")
     if dev.type == "cpu":
         return pushsum_stencil_hbm_chunk_plain(
             state4, keys, start, cap, spec=spec, target=target, delta=delta,
-            term_rounds=term_rounds,
+            term_rounds=term_rounds, faults=faults,
         )
     out, executed, rounds = kernel_chunk(
         "fused_stencil", "gossip_pushsum_stencil_chunk", state4, keys, start, cap,
-        spec, (ctypes.c_float(delta), term_rounds, target))
+        spec, (ctypes.c_float(delta), term_rounds, target, global_flag(faults)))
     pushsum_stencil_hbm_chunk.launches += 3 + rounds
     return out, executed
 

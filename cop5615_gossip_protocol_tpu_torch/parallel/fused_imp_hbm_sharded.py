@@ -45,7 +45,10 @@ where the JAX one does; H and PT decide nothing else here.
 Each output row is computed from the same marks and sends by the same
 operations, in the same order, as the single-device imp run
 (ops/fused_imp.py), so a sharded run is bitwise it: same rounds, same
-state. Termination is checked every round, so ``rounds`` is exact. On the
+state. Termination is checked every round, so ``rounds`` is exact; under
+push-sum's global termination a shard's count is its unstable real nodes,
+the verdict fires when they sum to 0, and the run latches conv on every
+real node (the JAX plan refuses the drop gate and crash-stop). On the
 CPU the wrappers run their plain torch versions; on CUDA they launch the
 kernels; nothing falls back from one to the other.
 """
@@ -307,11 +310,13 @@ def gossip_inbox_plain(mark, offs, row_lo: int, rows_loc: int, *, spec):
 
 
 def pushsum_absorb_plain(mark, glob, own, offs, row_lo: int, *, spec,
-                         delta: float, term_rounds: int):
+                         delta: float, term_rounds: int, global_term: bool = False):
     """The push-sum absorb over one shard: ``mark`` the global int8 marks,
     ``glob`` the global (s, w), ``own`` the shard's (term, conv). Returns
     ((s', w', term', conv') of the shard's rows, u) with u its converged
-    count (int32, 0-dim)."""
+    count (int32, 0-dim). Under global termination (``global_term``) term
+    and conv stay and u counts the shard's real nodes whose ratio moved more
+    than delta * max(|s/w|, 1)."""
     term, conv = (p.reshape(-1) for p in own)
     rows_loc, dev = own[0].shape[0], term.device
     pad, in_s, in_w = pushsum_inbox_plain(mark, glob, offs, row_lo, rows_loc, spec=spec)
@@ -321,11 +326,17 @@ def pushsum_absorb_plain(mark, glob, own, offs, row_lo: int, *, spec,
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     s_new = (s - torch.where(sends, s * 0.5, zero)) + in_s
     w_new = (w - torch.where(sends, w * 0.5, zero)) + in_w
-    stable = torch.abs(s_new / w_new - s / w) <= torch.tensor(delta, dtype=torch.float32,
-                                                             device=dev)
+    delta_t = torch.tensor(delta, dtype=torch.float32, device=dev)
+    shape = own[0].shape
+    if global_term:
+        ratio_old = s / w
+        tol = delta_t * torch.maximum(torch.abs(ratio_old), torch.ones((), device=dev))
+        unstable = (torch.abs(s_new / w_new - ratio_old) > tol) & ~pad
+        return (tuple(x.reshape(shape) for x in (s_new, w_new, term, conv)),
+                unstable.sum().to(torch.int32))
+    stable = torch.abs(s_new / w_new - s / w) <= delta_t
     t = torch.where(in_w > 0, torch.where(stable, term + 1, 0), term).to(torch.int32)
     c = torch.where(pad, 0, (conv != 0) | (t >= term_rounds)).to(torch.int32)
-    shape = own[0].shape
     return (tuple(x.reshape(shape) for x in (s_new, w_new, t, c)),
             c.sum().to(torch.int32))
 
@@ -373,14 +384,15 @@ def imp_hbm_shards_round_plain(state, stream, rows_loc: int, row_los, *,
 
 def pushsum_imp_hbm_shard_round_plain(state, keys, offs, ckeys, row_lo: int,
                                       rows_loc: int, *, spec, delta: float,
-                                      term_rounds: int):
+                                      term_rounds: int, global_term: bool = False):
     """One push-sum round over the shard at global rows [row_lo, row_lo +
     rows_loc) from the global state (s, w, term, conv) [R, 128]: every
-    shard's marks, then this shard's absorb. Returns (its (s, w, term,
-    conv) rows, u)."""
+    shard's marks, then this shard's absorb (``pushsum_absorb_plain``).
+    Returns (its (s, w, term, conv) rows, u)."""
     return imp_hbm_shards_round_plain(state, (keys, offs, ckeys), rows_loc, [row_lo],
                                       pushsum=True, spec=spec, delta=delta,
-                                      term_rounds=term_rounds)[0]
+                                      term_rounds=term_rounds,
+                                      global_term=global_term)[0]
 
 
 def gossip_imp_hbm_shard_round_plain(state, keys, offs, ckeys, row_lo: int,
@@ -404,7 +416,8 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     "gossip_imp_hbm_shard_mark": [_P] * 3 + [_U] * 4 + [_I] * 5 + [_P, _I, _P],
     "gossip_pushsum_imp_hbm_shard_absorb":
-        [_P] * 11 + [_U] * 4 + [_P, _I, _P] + [_I] * 4 + [_F, _I] + [_P] * 3 + [_I, _P],
+        [_P] * 11 + [_U] * 4 + [_P, _I, _P] + [_I] * 4 + [_F, _I, _I] + [_P] * 3
+        + [_I, _P],
     "gossip_gossip_imp_hbm_shard_absorb":
         [_P] * 9 + [_U] * 4 + [_P, _I, _P] + [_I] * 6 + [_P] * 3 + [_I, _P],
 }
@@ -512,7 +525,8 @@ def _absorb_args(spec, offs, row_lo: int, rows_loc: int):
 
 def pushsum_imp_hbm_shard_absorb(mark, next_mark, nxt, glob_in, glob_out, own_in,
                                  own_out, offs, row_lo: int, *, spec, delta: float,
-                                 term_rounds: int, u, acc, ctrl) -> None:
+                                 term_rounds: int, u, acc, ctrl,
+                                 global_term: bool = False) -> None:
     """The push-sum absorb over the shard at global rows [row_lo, row_lo +
     rows_loc) (``pushsum_absorb_plain``): reads ``mark`` and the global
     (s, w) ``glob_in``, writes the shard's rows of ``glob_out``, its
@@ -529,7 +543,8 @@ def pushsum_imp_hbm_shard_absorb(mark, next_mark, nxt, glob_in, glob_out, own_in
         if not int(ctrl[0]):
             planes, count = pushsum_absorb_plain(mark, glob_in, own_in, offs, row_lo,
                                                  spec=spec, delta=delta,
-                                                 term_rounds=term_rounds)
+                                                 term_rounds=term_rounds,
+                                                 global_term=global_term)
             glob_out[0][row_lo:row_lo + rows_loc] = planes[0]
             glob_out[1][row_lo:row_lo + rows_loc] = planes[1]
             own_out[0].copy_(planes[2])
@@ -544,8 +559,8 @@ def pushsum_imp_hbm_shard_absorb(mark, next_mark, nxt, glob_in, glob_out, own_in
     ptrs = [x.data_ptr() for x in (*glob_in, *glob_out, *own_in, *own_out, mark)]
     err = fn(*ptrs, *_mark_args(next_mark, spec, *nxt),
              *_absorb_args(spec, offs, row_lo, rows_loc), ctypes.c_float(delta),
-             term_rounds, u.data_ptr(), acc.data_ptr(), ctrl.data_ptr(), dev.index,
-             _stream(dev))
+             term_rounds, int(global_term), u.data_ptr(), acc.data_ptr(),
+             ctrl.data_ptr(), dev.index, _stream(dev))
     if err:
         raise RuntimeError(f"pushsum_imp_hbm_shard_absorb: CUDA launch failed with "
                            f"cudaError_t {err}")
@@ -647,7 +662,8 @@ def absorb_kw(topo: Topology, cfg: SimConfig) -> dict:
     """The absorb wrappers' keywords of a config."""
     spec = fused_imp.imp_spec(topo)
     if cfg.algorithm == "push-sum":
-        return {"spec": spec, "delta": cfg.resolved_delta, "term_rounds": cfg.term_rounds}
+        return {"spec": spec, "delta": cfg.resolved_delta, "term_rounds": cfg.term_rounds,
+                "global_term": cfg.termination == "global"}
     return {"spec": spec, "rumor_target": cfg.resolved_rumor_target,
             "suppress": cfg.resolved_suppress}
 
@@ -736,7 +752,10 @@ def run_imp_hbm_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key
     shard 0's device, and pool2_sharded.run_round_supersteps runs the
     rounds, as it does for the replicated-pool2 composition, drawing each
     chunk's streams one round ahead for the next marks and queueing the
-    mark prologue of ``start_round`` before the first."""
+    mark prologue of ``start_round`` before the first. Under global
+    termination (push-sum) each shard's u is its unstable count, the
+    verdict fires when they sum to 0, and the run's result then has conv
+    latched on every real node."""
     from ..models import gossip as gossip_mod
     from ..models import pushsum as pushsum_mod
     from ..models.runner import _host_done
@@ -751,6 +770,7 @@ def run_imp_hbm_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key
     _H, rows_loc, _PT, layout = plan
     n, R, P = topo.n, layout.rows, cfg.pool_size
     pushsum = cfg.algorithm == "push-sum"
+    global_term = pushsum and cfg.termination == "global"
     target = cfg.resolved_target_count(n, topo.target_count)
     devices, home = mesh.devices, mesh.devices[0]
     row_lo = [s * rows_loc for s in range(S)]
@@ -809,16 +829,19 @@ def run_imp_hbm_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key
         launch_shard_rounds(shards_of[r % 2], stream, (nxt[0], nxt[2]), pushsum=pushsum,
                             kw=kw, wire=wires[r % 2])
 
-    def final_state(par):
+    def final_state(par, done):
         def joined(planes_of):
             return torch.cat([planes_of(s).to(home) for s in range(S)]).reshape(-1)[:n]
 
         if pushsum:
+            conv = joined(lambda s: own[s][par][1]) != 0
+            if global_term and done:
+                # The global verdict latches conv on every real node.
+                conv = torch.ones_like(conv)
             return pushsum_mod.PushSumState(
                 s=joined(lambda s: glob[devices[s]][par][0][row_lo[s]:row_lo[s] + rows_loc]),
                 w=joined(lambda s: glob[devices[s]][par][1][row_lo[s]:row_lo[s] + rows_loc]),
-                term=joined(lambda s: own[s][par][0]),
-                conv=joined(lambda s: own[s][par][1]) != 0)
+                term=joined(lambda s: own[s][par][0]), conv=conv)
         return gossip_mod.GossipState(
             count=joined(lambda s: own[s][par][0]),
             active=joined(lambda s: own[s][par][1]) != 0,
@@ -827,4 +850,4 @@ def run_imp_hbm_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key
     return run_round_supersteps(topo, cfg, ctl, start_round=start_round, target=target,
                                 t_enter=t_enter, library="fused_imp_hbm_shard", draw=draw,
                                 launch_round=launch_round, final_state=final_state,
-                                ahead=1, prologue=prologue)
+                                ahead=1, prologue=prologue, global_term=global_term)

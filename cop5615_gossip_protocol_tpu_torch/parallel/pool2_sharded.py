@@ -246,12 +246,77 @@ def _rows_of(glob, row0: int, rows: int):
     return tuple(p[row0:row0 + rows] for p in glob)
 
 
+class ShardFaults(NamedTuple):
+    """One device's failure-model operands in one round, which run the
+    kernels' faulted instance: the gate threshold (0 without a gate), the
+    device's rows of the death plane (int32 [rows, 128], None without a
+    crash model), the round's quorum need (int32 [1] on the device, None
+    without a crash model or when the launch takes no verdict), the round's
+    absolute index, push-sum's global termination, this round's send bits
+    (the device's global uint8 [R // 8, 128] plane, ``pack_sends``' layout)
+    and the next round's (written for the device's rows; None: not
+    written), whose gate key comes from the next row of the streams."""
+    thresh: int
+    death: Optional[torch.Tensor]
+    need: Optional[torch.Tensor]
+    rnd: int
+    global_term: bool
+    sends: torch.Tensor
+    next_sends: Optional[torch.Tensor]
+
+
+def pack_sends(mask: torch.Tensor) -> torch.Tensor:
+    """uint8 [rows // 8, 128] send bits of a bool [rows, 128] mask of 8-row
+    groups: node (8q + sub, lane)'s bit is bit sub of byte (q, lane), the
+    packed choice words' layout (csrc/pool2.cuh send_bit)."""
+    groups = mask.reshape(-1, 8, LANES).to(torch.int32)
+    shifts = torch.arange(8, dtype=torch.int32, device=mask.device).reshape(1, 8, 1)
+    return (groups << shifts).sum(dim=1).to(torch.uint8)
+
+
+def unpack_sends(plane: torch.Tensor) -> torch.Tensor:
+    """The bool [R, 128] mask of a uint8 [R // 8, 128] send-bit plane."""
+    shifts = torch.arange(8, dtype=torch.int32, device=plane.device).reshape(1, 8, 1)
+    bits = (plane.to(torch.int32).unsqueeze(1) >> shifts) & 1
+    return bits.reshape(-1, LANES) != 0
+
+
+def send_rows_plain(active, death, thresh: int, gate_key, rnd: int, row0: int,
+                    rows: int, n: int, device) -> torch.Tensor:
+    """bool [rows, 128]: whether each node of global rows [row0, row0 +
+    rows) sends in round ``rnd`` (csrc/faults.cuh send_flag): real, active
+    (``active`` its gossip flags, None for push-sum), alive (``death`` its
+    death rounds, or None) and its word of the gate stream at its global
+    flat index at least ``thresh`` (the round's ``gate_key``; 0: no gate)."""
+    j = mesh_mod.flat_ids(row0, row0 + rows, LANES, device)
+    ok = j < n
+    if active is not None:
+        ok = ok & (active != 0)
+    if death is not None:
+        ok = ok & (death > rnd)
+    if thresh:
+        words = fused.threefry_bits_2d(int(gate_key[0]), int(gate_key[1]), rows, LANES,
+                                       row0=row0, device=device)
+        ok = ok & (words >= thresh)
+    return ok
+
+
+def _sending(faults: Optional[ShardFaults]):
+    """The flat bool mask of the round's senders, or None (fault-free)."""
+    return None if faults is None else unpack_sends(faults.sends).reshape(-1)
+
+
 def pushsum_pool2_shard_round_plain(glob, own, keys, offs, row0: int, *, n: int,
-                                    delta: float, term_rounds: int):
+                                    delta: float, term_rounds: int,
+                                    faults: Optional[ShardFaults] = None):
     """One push-sum round over a device's rows: ``glob`` the (s, w)
     summary, ``own`` the rows' (tc,), ``keys`` the round key (k1, k2),
     ``offs`` the P displacements. Returns ((s', w', tc') of the rows, u)
-    with u their converged count (int32, 0-dim)."""
+    with u their converged count (int32, 0-dim). ``faults`` (a
+    ShardFaults) runs the failure model: a source delivers and a node
+    sends iff its send bit is set; a dead node's tc stays and u counts conv
+    among the live nodes, or under global termination tc stays and u counts
+    the real nodes whose ratio moved more than delta * max(|s/w|, 1)."""
     rows, R = own[0].shape[0], glob[0].shape[0]
     s_g, w_g = (p.reshape(-1) for p in glob)
     s, w = (p.reshape(-1) for p in _rows_of(glob, row0, rows))
@@ -259,45 +324,71 @@ def pushsum_pool2_shard_round_plain(glob, own, keys, offs, row0: int, *, n: int,
     dev = s.device
     pad = row0 * LANES + torch.arange(s.numel(), device=dev) >= n
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    sending = _sending(faults)
     in_s = torch.zeros_like(s)
     in_w = torch.zeros_like(w)
     for hit, src in _slot_reads(keys, offs, row0, rows, R, n, dev):
+        if sending is not None:
+            hit = hit & sending[src]
         in_s = in_s + torch.where(hit, s_g[src] * 0.5, zero)
         in_w = in_w + torch.where(hit, w_g[src] * 0.5, zero)
-    s_send = torch.where(pad, zero, s * 0.5)
-    w_send = torch.where(pad, zero, w * 0.5)
+    sends = ~pad if sending is None else sending[row0 * LANES:(row0 + rows) * LANES]
+    s_send = torch.where(sends, s * 0.5, zero)
+    w_send = torch.where(sends, w * 0.5, zero)
     s_new = (s - s_send) + in_s
     w_new = (w - w_send) + in_w
-    stable = torch.abs(s_new / w_new - s / w) <= torch.tensor(delta, dtype=torch.float32)
+    delta_t = torch.tensor(delta, dtype=torch.float32)
+    shape = own[0].shape
+    if faults is not None and faults.global_term:
+        ratio_old = s / w
+        tol = delta_t * torch.maximum(torch.abs(ratio_old), torch.ones((), device=dev))
+        unstable = (torch.abs(s_new / w_new - ratio_old) > tol) & ~pad
+        return ((s_new.reshape(shape), w_new.reshape(shape), tc.reshape(shape)),
+                unstable.sum().to(torch.int32))
+    stable = torch.abs(s_new / w_new - s / w) <= delta_t
     term = tc & TC_TERM_MASK
     t_new = torch.where(in_w > 0, torch.where(stable, term + 1, 0), term)
     conv = (((tc & TC_CONV_BIT) != 0) | (t_new >= term_rounds)) & ~pad
     tc_new = torch.where(conv, t_new | TC_CONV_BIT, t_new).to(torch.int32)
-    shape = own[0].shape
+    if faults is not None and faults.death is not None:
+        alive = faults.death.reshape(-1) > faults.rnd
+        tc_new = torch.where(alive, tc_new, tc)
+        conv = conv & alive
     return ((s_new.reshape(shape), w_new.reshape(shape), tc_new.reshape(shape)),
             conv.sum().to(torch.int32))
 
 
 def gossip_pool2_shard_round_plain(glob, own, keys, offs, row0: int, *, n: int,
-                                   rumor_target: int, suppress: bool):
+                                   rumor_target: int, suppress: bool,
+                                   faults: Optional[ShardFaults] = None):
     """Gossip analog of ``pushsum_pool2_shard_round_plain``: ``glob`` is
     (active,), ``own`` (count,); returns ((count', active') of the rows,
     u). conv is count >= rumor_target on real lanes, suppression
-    receiver-side."""
+    receiver-side. Under ``faults`` a source delivers iff its send bit is
+    set (its active flag is not read), a dead node's inbox counts nothing
+    and u counts conv among the live nodes."""
     rows, R = own[0].shape[0], glob[0].shape[0]
     a_g = glob[0].reshape(-1)
     act = _rows_of(glob, row0, rows)[0].reshape(-1)
     cnt = own[0].reshape(-1)
     dev = cnt.device
     pad = row0 * LANES + torch.arange(cnt.numel(), device=dev) >= n
+    sending = _sending(faults)
     inbox = torch.zeros_like(cnt)
     for hit, src in _slot_reads(keys, offs, row0, rows, R, n, dev):
-        inbox = inbox + (hit & (a_g[src] != 0)).to(torch.int32)
+        delivers = hit & (a_g[src] != 0) if sending is None else hit & sending[src]
+        inbox = inbox + delivers.to(torch.int32)
+    alive = None
+    if faults is not None and faults.death is not None:
+        alive = faults.death.reshape(-1) > faults.rnd
+        inbox = torch.where(alive, inbox, 0)
     if suppress:
         inbox = torch.where((cnt >= rumor_target) & ~pad, 0, inbox)
     cnt_new = (cnt + inbox).to(torch.int32)
     act_new = ((act != 0) | (inbox > 0)).to(torch.int32)
     conv = (cnt_new >= rumor_target) & ~pad
+    if alive is not None:
+        conv = conv & alive
     shape = own[0].shape
     return ((cnt_new.reshape(shape), act_new.reshape(shape)),
             conv.sum().to(torch.int32))
@@ -312,21 +403,30 @@ def gossip_pool2_shard_round_plain(glob, own, keys, offs, row0: int, *, n: int,
 # streams on the planes' device, of which the launch reads round ``at``.
 # The rows' converged count goes to ``u`` (int32 [1]); with ``u`` None the
 # launch takes the verdict: it counts the round in ctrl[1] and sets ctrl[0]
-# once the count reaches ``target``. ``acc`` is the device's zeroed int32
-# [2] scratch.
+# once the count reaches ``target`` (under ``faults``, ShardFaults: the
+# round's quorum need, or 0 unstable nodes). ``acc`` is the device's zeroed
+# int32 [2] scratch. ``faults`` runs the faulted instance, which also
+# writes the rows' send bits of the next round (round ``at + 1``'s key).
 # ---------------------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+# The failure model's arguments (faulted, thresh, death, need, round), then
+# push-sum's global, then the send bits of this round and the next and the
+# next round's key.
+_FAULT_ARGS = [_I, _U, _P, _P, _I]
 _SIGNATURES = {
     "gossip_pushsum_pool2_shard_round":
-        [_P] * 8 + [_I] * 4 + [_F, _I] + [_P] * 3 + [_I, _I, _P],
-    "gossip_gossip_pool2_shard_round": [_P] * 6 + [_I] * 6 + [_P] * 3 + [_I, _I, _P],
-    "gossip_pool2_shard_verdict": [_P, _I, _I, _P, _I, _P],
+        [_P] * 8 + [_I] * 4 + [_F, _I] + [_P] * 3 + [_I] + _FAULT_ARGS + [_I]
+        + [_P] * 3 + [_I, _P],
+    "gossip_gossip_pool2_shard_round":
+        [_P] * 6 + [_I] * 6 + [_P] * 3 + [_I] + _FAULT_ARGS + [_P] * 3 + [_I, _P],
+    "gossip_pool2_shard_sends": [_P, _P] + [_U] * 3 + [_I] * 4 + [_P, _I, _P],
+    "gossip_pool2_shard_verdict": [_P, _I, _I, _P, _I, _P, _I, _P],
 }
 
 
 def _check(glob_in, glob_out, own_in, own_out, dtypes, keys, offs, at: int, row0: int,
-           n: int, u, acc, ctrl) -> torch.device:
+           n: int, u, acc, ctrl, faults=None) -> torch.device:
     dev = glob_in[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"shard rounds run on cpu or cuda tensors, got {dev}")
@@ -365,81 +465,141 @@ def _check(glob_in, glob_out, own_in, own_out, dtypes, keys, offs, at: int, row0
     for x, size in ((acc, 2), (ctrl, 2)) + (() if u is None else ((u, 1),)):
         if x.device != dev or x.dtype != torch.int32 or x.numel() != size:
             raise ValueError(f"u, acc and ctrl must be int32 [1], [2], [2] on {dev}")
+    if faults is not None:
+        _check_faults(faults, dev, R, rows)
+        if faults.next_sends is not None and at + 1 >= keys.shape[0]:
+            raise ValueError("the next round's send bits need its key: round "
+                             f"{at + 1} of the streams")
     return dev
 
 
+def _check_faults(faults: ShardFaults, dev, R: int, rows: int) -> None:
+    for x in (faults.sends, faults.next_sends):
+        if x is not None and (x.device != dev or x.dtype != torch.uint8
+                              or tuple(x.shape) != (R // 8, LANES)
+                              or not x.is_contiguous()):
+            raise ValueError(f"send bits must be uint8 ({R // 8}, {LANES}) on {dev}")
+    d = faults.death
+    if d is not None and (d.device != dev or d.dtype != torch.int32
+                          or tuple(d.shape) != (rows, LANES) or not d.is_contiguous()):
+        raise ValueError(f"the death rows must be int32 ({rows}, {LANES}) on {dev}")
+    if faults.need is not None and (faults.need.device != dev
+                                    or faults.need.dtype != torch.int32
+                                    or faults.need.numel() != 1):
+        raise ValueError(f"the quorum need must be int32 [1] on {dev}")
+    if not 0 <= faults.thresh <= 0xFFFFFFFF:
+        raise ValueError("the gate threshold must be a uint32")
+
+
 def _round_plain(algorithm: str, glob_in, glob_out, own_in, own_out, keys, offs, at: int,
-                 row0: int, kw: dict, u, target: int, ctrl) -> None:
+                 row0: int, kw: dict, u, target: int, ctrl, faults) -> None:
     if int(ctrl[0]):
         return
     plain = (pushsum_pool2_shard_round_plain if algorithm == "push-sum"
              else gossip_pool2_shard_round_plain)
     planes, count = plain(glob_in, own_in, keys[at].tolist(), offs[at].tolist(), row0,
-                          **kw)
+                          **kw, faults=faults)
     summary, mine = split_state(planes, algorithm)
-    for o, x in zip(_rows_of(glob_out, row0, own_in[0].shape[0]) + tuple(own_out),
-                    summary + mine):
+    rows = own_in[0].shape[0]
+    for o, x in zip(_rows_of(glob_out, row0, rows) + tuple(own_out), summary + mine):
         o.copy_(x)
+    if faults is not None and faults.next_sends is not None:
+        gate = fused.gate_round_keys(keys[at + 1:at + 2].cpu())[0].tolist()
+        mask = send_rows_plain(None if algorithm == "push-sum" else summary[0],
+                               faults.death, faults.thresh, gate, faults.rnd + 1, row0,
+                               rows, kw["n"], glob_in[0].device)
+        faults.next_sends[row0 // 8:(row0 + rows) // 8] = pack_sends(mask)
     if u is None:
         ctrl[1] += 1
-        ctrl[0] = int(int(count) >= target)
+        ctrl[0] = int(_fires(int(count), target, None if faults is None else faults.need,
+                             faults is not None and faults.global_term))
     else:
         u[0] = count
 
 
+def _fires(total: int, target: int, need=None, global_term: bool = False) -> bool:
+    """A round's verdict on its count: 0 unstable nodes under global
+    termination, else the count against the quorum need (``need``, int32
+    [1]) or the target."""
+    if global_term:
+        return total == 0
+    return total >= (target if need is None else int(need[0]))
+
+
+def _fault_args(faults: Optional[ShardFaults], keys, at: int, pushsum: bool) -> list:
+    """The entry points' failure-model arguments (``_FAULT_ARGS``, push-sum's
+    global, the send bits and the next round's key)."""
+    if faults is None:
+        args = [0, 0, None, None, 0] + ([0] if pushsum else []) + [None, None, None]
+        return args
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    args = [1, faults.thresh, ptr(faults.death), ptr(faults.need), faults.rnd]
+    if pushsum:
+        args.append(int(faults.global_term))
+    nxt = (None if faults.next_sends is None
+           else keys.data_ptr() + (at + 1) * keys.stride(0) * 8)
+    return args + [faults.sends.data_ptr(), ptr(faults.next_sends), nxt]
+
+
 def _launch(name: str, dev, planes, keys, offs, at: int, ints, u, acc, ctrl,
-            target: int) -> None:
+            target: int, fargs) -> None:
     """Queue one launch of entry point ``name`` on the current stream of
     ``dev``: the planes, round ``at`` of the streams, the scalars, then u
-    (null for the verdict in the launch), acc, ctrl and the target."""
+    (null for the verdict in the launch), acc, ctrl, the target and the
+    failure model's arguments."""
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     fn = kernels.entry("fused_pool2_shard", name, _SIGNATURES[name])
     err = fn(*[x.data_ptr() for x in planes], keys.data_ptr() + at * keys.stride(0) * 8,
              offs.data_ptr() + at * offs.stride(0) * 4, *ints,
              None if u is None else u.data_ptr(), acc.data_ptr(), ctrl.data_ptr(),
-             target, dev.index, stream)
+             target, *fargs, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
 def pushsum_pool2_shard_round(glob_in, glob_out, own_in, own_out, keys, offs, row0: int,
                               *, n: int, delta: float, term_rounds: int, u, acc, ctrl,
-                              target: int = 0, at: int = 0) -> None:
+                              target: int = 0, at: int = 0,
+                              faults: Optional[ShardFaults] = None) -> None:
     """One push-sum round over a device's rows [row0, row0 + rows): the
     global (s, w) ``glob_in`` [R, 128] and the rows' (tc,) ``own_in`` [rows,
     128] into ``glob_out``'s rows and ``own_out``: the kernel on CUDA
     tensors, the plain version on CPU ones."""
     f32, i32 = torch.float32, torch.int32
     dev = _check(glob_in, glob_out, own_in, own_out, ((f32, f32), (i32,)), keys, offs,
-                 at, row0, n, u, acc, ctrl)
+                 at, row0, n, u, acc, ctrl, faults)
     if dev.type == "cpu":
         _round_plain("push-sum", glob_in, glob_out, own_in, own_out, keys, offs, at, row0,
-                     {"n": n, "delta": delta, "term_rounds": term_rounds}, u, target, ctrl)
+                     {"n": n, "delta": delta, "term_rounds": term_rounds}, u, target, ctrl,
+                     faults)
         return
     _launch("gossip_pushsum_pool2_shard_round", dev,
             (*glob_in, *own_in, *glob_out, *own_out), keys, offs, at,
             (n, row0, own_in[0].shape[0], offs.shape[1], ctypes.c_float(delta),
-             term_rounds), u, acc, ctrl, target)
+             term_rounds), u, acc, ctrl, target, _fault_args(faults, keys, at, True))
     pushsum_pool2_shard_round.launches += 1
 
 
 def gossip_pool2_shard_round(glob_in, glob_out, own_in, own_out, keys, offs, row0: int,
                              *, n: int, rumor_target: int, suppress: bool, u, acc, ctrl,
-                             target: int = 0, at: int = 0) -> None:
+                             target: int = 0, at: int = 0,
+                             faults: Optional[ShardFaults] = None) -> None:
     """Gossip analog of ``pushsum_pool2_shard_round``: the global (active,)
     and the rows' (count,)."""
     i32 = torch.int32
     dev = _check(glob_in, glob_out, own_in, own_out, ((i32,), (i32,)), keys, offs, at,
-                 row0, n, u, acc, ctrl)
+                 row0, n, u, acc, ctrl, faults)
+    if faults is not None and faults.global_term:
+        raise ValueError("gossip has no global termination")
     if dev.type == "cpu":
         _round_plain("gossip", glob_in, glob_out, own_in, own_out, keys, offs, at, row0,
                      {"n": n, "rumor_target": rumor_target, "suppress": suppress}, u,
-                     target, ctrl)
+                     target, ctrl, faults)
         return
     _launch("gossip_gossip_pool2_shard_round", dev,
             (*own_in, *glob_in, *own_out, *glob_out), keys, offs, at,
             (n, row0, own_in[0].shape[0], offs.shape[1], rumor_target, int(suppress)),
-            u, acc, ctrl, target)
+            u, acc, ctrl, target, _fault_args(faults, keys, at, False))
     gossip_pool2_shard_round.launches += 1
 
 
@@ -449,19 +609,55 @@ pushsum_pool2_shard_round.launches = 0
 gossip_pool2_shard_round.launches = 0
 
 
-def shard_verdict(u, target: int, ctrl) -> None:
+def pool2_shard_sends(sends, active, death, keys, rnd: int, row0: int, rows: int, *,
+                      n: int, thresh: int) -> None:
+    """The send bits of round ``rnd`` (``keys`` its key, two uint32 words)
+    for a device's rows [row0, row0 + rows) into its global send-bit plane
+    ``sends`` (uint8 [R // 8, 128]; ``send_rows_plain``): ``active`` the
+    device's global gossip active plane (None for push-sum), ``death`` its
+    rows of the death plane (None without a crash model), ``thresh`` the
+    gate threshold (0: none). A run's first round's bits; every later
+    round's are written by the round before it."""
+    dev = sends.device
+    if death is not None and tuple(death.shape) != (rows, LANES):
+        raise ValueError(f"the death rows must be ({rows}, {LANES})")
+    if dev.type == "cpu":
+        gate = fused.gate_round_keys(torch.tensor([[int(k) for k in keys]]))[0].tolist()
+        act = None if active is None else active[row0:row0 + rows]
+        sends[row0 // 8:(row0 + rows) // 8] = pack_sends(
+            send_rows_plain(act, death, thresh, gate, rnd, row0, rows, n, dev))
+        return
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    fn = kernels.entry("fused_pool2_shard", "gossip_pool2_shard_sends",
+                       _SIGNATURES["gossip_pool2_shard_sends"])
+    err = fn(None if active is None else active.data_ptr(),
+             None if death is None else death.data_ptr(), int(keys[0]), int(keys[1]),
+             thresh, rnd, n, row0, rows, sends.data_ptr(), dev.index, stream)
+    if err:
+        raise RuntimeError(f"pool2_shard_sends: CUDA launch failed with cudaError_t {err}")
+    pool2_shard_sends.launches += 1
+
+
+# The sends launches (one a device where a run starts or resumes).
+pool2_shard_sends.launches = 0
+
+
+def shard_verdict(u, target: int, ctrl, need=None, global_term: bool = False) -> None:
     """The round's verdict on ``u`` (int32 [S], one count a slot, on
     ctrl's device): unless ctrl[0] (done) is set, count the round in
-    ctrl[1] and set done once sum(u) >= target."""
+    ctrl[1] and set done once sum(u) reaches the target, the round's quorum
+    need (``need``, int32 [1] on ctrl's device) or, under global
+    termination (u the unstable counts), 0."""
     if ctrl.device.type == "cpu":
         if not int(ctrl[0]):
             ctrl[1] += 1
-            ctrl[0] = int(int(u.sum()) >= target)
+            ctrl[0] = int(_fires(int(u.sum()), target, need, global_term))
         return
     stream = ctypes.c_void_p(torch.cuda.current_stream(ctrl.device).cuda_stream)
     fn = kernels.entry("fused_pool2_shard", "gossip_pool2_shard_verdict",
                        _SIGNATURES["gossip_pool2_shard_verdict"])
     err = fn(ctypes.c_void_p(u.data_ptr()), u.numel(), target,
+             None if need is None else ctypes.c_void_p(need.data_ptr()), int(global_term),
              ctypes.c_void_p(ctrl.data_ptr()), ctrl.device.index, stream)
     if err:
         raise RuntimeError(f"pool2_shard_verdict: CUDA launch failed with "
@@ -508,11 +704,15 @@ def _round_fn(algorithm: str):
 # ---------------------------------------------------------------------------
 
 
-def _shard_chunk(algorithm: str, state, keys, offs, row0: int, rows_loc: int, kw: dict):
+def _shard_chunk(algorithm: str, state, keys, offs, row0: int, rows_loc: int, kw: dict,
+                 faults=None, rnd: int = 0):
     """One round of the shard at ``row0`` from the global [R, 128] ``state``
     on one device, as the device's launch over that shard's rows alone.
-    Returns (its planes in the state's order, u)."""
-    dev = state[0].device
+    Under ``faults`` (the run's fused.Faults) the round ``rnd``'s send bits
+    of every row are written first, one sends launch a shard-sized block,
+    as a run's first round has them. Returns (its planes in the state's
+    order, u)."""
+    dev, R = state[0].device, state[0].shape[0]
     glob, own = split_state(state, algorithm)
     glob_out = tuple(torch.empty_like(x) for x in glob)
     own_in = tuple(x[row0:row0 + rows_loc].contiguous() for x in own)
@@ -520,24 +720,40 @@ def _shard_chunk(algorithm: str, state, keys, offs, row0: int, rows_loc: int, kw
     u, acc, ctrl = (torch.zeros(k, dtype=torch.int32, device=dev) for k in (1, 2, 2))
     k = torch.tensor([[int(keys[0]), int(keys[1])]], dtype=torch.int64, device=dev)
     o = torch.tensor([[int(d) for d in offs]], dtype=torch.int32, device=dev)
+    shard_faults = None
+    if faults is not None:
+        death = faults.death_flat(R * LANES, dev)
+        death = None if death is None else death.reshape(R, LANES)
+        sends = torch.zeros(R // 8, LANES, dtype=torch.uint8, device=dev)
+        for lo in range(0, R, rows_loc):
+            pool2_shard_sends(sends, None if algorithm == "push-sum" else glob[0],
+                              None if death is None else death[lo:lo + rows_loc].contiguous(),
+                              keys, rnd, lo, rows_loc, n=kw["n"], thresh=faults.thresh or 0)
+        shard_faults = ShardFaults(
+            faults.thresh or 0,
+            None if death is None else death[row0:row0 + rows_loc].contiguous(), None,
+            rnd, faults.global_term, sends, None)
     _round_fn(algorithm)(glob, glob_out, own_in, own_out, k, o, row0, **kw, u=u, acc=acc,
-                         ctrl=ctrl)
+                         ctrl=ctrl, faults=shard_faults)
     return join_state(_rows_of(glob_out, row0, rows_loc), own_out, algorithm), u[0]
 
 
 def make_pushsum_pool2_shard_chunk(topo: Topology, cfg: SimConfig, rows_loc: int,
                                    layout):
-    """``chunk_fn(state3, keys, offs, row0) -> (state3', u)``: one push-sum
-    round over the shard at ``row0`` from the global (s, w, tc) [R, 128]
-    planes (the JAX factory's contract, fault-free, so without its gate,
-    death and ``rnd`` operands; its delivered summary is here the global
-    planes, and the kernel does not tile, so without its PT), through
+    """``chunk_fn(state3, keys, offs, row0, rnd=0) -> (state3', u)``: one
+    push-sum round (absolute round ``rnd``) over the shard at ``row0`` from
+    the global (s, w, tc) [R, 128] planes (the JAX factory's contract, its
+    gate keys and death windows drawn here from the config: the round's
+    send bits; its delivered summary is here the global planes, and the
+    kernel does not tile, so without its PT), through
     ``pushsum_pool2_shard_round``; returns the shard's planes."""
     del layout
     kw = round_kw(topo, cfg)
+    faults = fused.run_faults(cfg, topo.n)
 
-    def chunk_fn(state3, keys, offs, row0):
-        return _shard_chunk("push-sum", state3, keys, offs, row0, rows_loc, kw)
+    def chunk_fn(state3, keys, offs, row0, rnd=0):
+        return _shard_chunk("push-sum", state3, keys, offs, row0, rows_loc, kw, faults,
+                            rnd)
 
     return chunk_fn
 
@@ -548,9 +764,10 @@ def make_gossip_pool2_shard_chunk(topo: Topology, cfg: SimConfig, rows_loc: int,
     active)."""
     del layout
     kw = round_kw(topo, cfg)
+    faults = fused.run_faults(cfg, topo.n)
 
-    def chunk_fn(state2, keys, offs, row0):
-        return _shard_chunk("gossip", state2, keys, offs, row0, rows_loc, kw)
+    def chunk_fn(state2, keys, offs, row0, rnd=0):
+        return _shard_chunk("gossip", state2, keys, offs, row0, rows_loc, kw, faults, rnd)
 
     return chunk_fn
 
@@ -624,7 +841,8 @@ class ShardControl:
 def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
                          start_round: int, target: int, t_enter: float, library: str,
                          draw, launch_round, final_state, ahead: int = 0,
-                         prologue=None, verdict_in_launch: bool = False):
+                         prologue=None, verdict_in_launch: bool = False,
+                         need_of=None, global_term: bool = False):
     """Run one-round super-steps to convergence or cfg.max_rounds and return
     the RunResult: chunks of STRIDE rounds queued through
     models/pipeline.py, one host sync each, each round's verdict ordered by
@@ -632,10 +850,13 @@ def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
     of rounds begin.. (one item a round), drawn ``ahead`` rounds past each
     chunk; ``launch_round(r, stream, *later)`` queues round r's wire and
     launches, each slot's count into its ``ctl.args`` slot, with the
-    streams of rounds r + 1..r + ahead as ``later``; ``final_state(par)``
-    joins the planes of parity ``par`` into the canonical state. With
-    ``verdict_in_launch`` the launches take the verdict themselves (one
-    slot, on the home device), so none is queued. ``library`` names the
+    streams of rounds r + 1..r + ahead as ``later``; ``final_state(par,
+    done)`` joins the planes of parity ``par`` into the canonical state
+    (``done`` the run's verdict). With ``verdict_in_launch`` the launches
+    take the verdict themselves (one slot, on the home device), so none is
+    queued. A queued verdict compares the slots' counts with the target,
+    with round r's quorum need ``need_of(r)`` (an int32 [1] tensor on the
+    home device) where it is given, or under ``global_term`` with 0. ``library`` names the
     kernels' source, loaded (with the verdict's) before the run's clock
     starts; ``prologue()``, if given, is queued then too, ahead of the
     first round."""
@@ -654,7 +875,8 @@ def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
     def verdict(r):
         if verdict_in_launch:
             return
-        shard_verdict(ctl.u_all[r % 2], target, ctl.ctrl)
+        shard_verdict(ctl.u_all[r % 2], target, ctl.ctrl,
+                      need=None if need_of is None else need_of(r), global_term=global_term)
         for dev, c in ctl.ctrl_on.items():
             if dev != home:
                 c.copy_(ctl.ctrl)
@@ -694,8 +916,8 @@ def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
     )
     run_s = time.perf_counter() - t1
     t_fin = time.perf_counter()
-    result = _finalize_result(topo, cfg, final_state(loop.rounds % 2), loop.rounds,
-                              target, compile_s, run_s, loop.done, loop, home)
+    result = _finalize_result(topo, cfg, final_state(loop.rounds % 2, loop.done),
+                              loop.rounds, target, compile_s, run_s, loop.done, loop, home)
     result.setup_s = setup_s
     result.finalize_s = time.perf_counter() - t_fin
     return result
@@ -720,7 +942,14 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
     (``ShardControl``, a count slot a device) lives on the home device, and
     ``run_round_supersteps`` drives the rounds; the keys and displacements
     of DRAW_ROUNDS rounds at a time are drawn and uploaded to every device
-    once, and each round's launches read their row of them."""
+    once, and each round's launches read their row of them.
+
+    Under the failure model (the run's fused.Faults) each device also holds
+    a global send-bit plane per round parity, which the wire carries with
+    the summary rows, and its own rows of the death plane; the rounds'
+    quorum needs ride the streams, a round's launches write the next
+    round's bits (so the streams are drawn one round ahead), and a sends
+    launch a device writes the first round's."""
     from ..models import gossip as gossip_mod
     from ..models import pushsum as pushsum_mod
     from ..models.runner import _host_done
@@ -737,13 +966,17 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
     placed = place_shards(mesh.devices, rows_loc)
     G = len(placed)
     in_launch = G == 1
+    faults = fused.run_faults(cfg, n)
+    thresh = 0 if faults is None or faults.thresh is None else faults.thresh
+    global_term = faults is not None and faults.global_term
 
     start = _start_rows(topo, cfg, key, placed, layout, start_state)
-    done0 = start_state is not None and _host_done(start_state, target)
+    done0 = start_state is not None and _host_done(start_state, target, cfg, start_round)
     par0 = start_round % 2
     # Per device g: glob[g][par] its global summary planes of parity par,
-    # own[g][par] its rows of the others.
-    glob, own = [], []
+    # own[g][par] its rows of the others; under the failure model bits[g][par]
+    # its global send-bit plane and death[g] its rows of the death plane.
+    glob, own, bits, death = [], [], [], []
     for g, rows in zip(placed, start):
         summary, mine = split_state(rows, algorithm)
         sets = [tuple(torch.zeros(R, LANES, dtype=x.dtype, device=g.device)
@@ -755,6 +988,12 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
         pair[par0] = mine
         pair[1 - par0] = tuple(torch.empty_like(x) for x in mine)
         own.append(pair)
+        if faults is not None:
+            bits.append([torch.zeros(R // 8, LANES, dtype=torch.uint8, device=g.device)
+                         for _ in range(2)])
+            flat = faults.death_flat(layout.n_pad, "cpu")
+            death.append(None if flat is None else flat[
+                g.row0 * LANES:(g.row0 + g.rows) * LANES].reshape(g.rows, LANES).to(g.device))
     del start
     ctl = ShardControl([g.device for g in placed], done0, start_round)
     round_fn = _round_fn(algorithm)
@@ -763,6 +1002,8 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
     owners = [g for g, dev_rows in enumerate(placed) for _ in range(dev_rows.rows // rows_loc)]
     if wire_kind == "all_gather":
         wires = [halo.replica_rows({g: glob[g][par] for g in range(G)}, rows_loc, owners)
+                 + (halo.replica_rows({g: (bits[g][par],) for g in range(G)}, rows_loc // 8,
+                                      owners) if bits else [])
                  for par in (0, 1)]
     margin = rows_loc + band_margin(layout)
 
@@ -771,8 +1012,15 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
             return []
         if wire_kind == "all_gather":
             return wires[par]
-        return halo.band_replica_rows({g: glob[g][par] for g in range(G)}, rows_loc,
-                                      owners, band_starts(offs, layout), margin)
+        starts = band_starts(offs, layout)
+        groups = halo.band_replica_rows({g: glob[g][par] for g in range(G)}, rows_loc,
+                                        owners, starts, margin)
+        if bits:
+            # The bit planes' rows are 8-row groups; bands start and end on one.
+            groups += halo.band_replica_rows({g: (bits[g][par],) for g in range(G)},
+                                             rows_loc // 8, owners,
+                                             [b // 8 for b in starts], margin // 8)
+        return groups
 
     # The streams of rounds block["begin"].. on every device and on the host.
     block = {"begin": 0, "count": 0}
@@ -784,31 +1032,57 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
             size = max(count, DRAW_ROUNDS)
             keys = fused.round_keys(key, begin, size)
             offs = fused_pool.round_offsets(key, begin, size, P, n)
+            needs = None if faults is None else faults.needs(begin, size)[0]
             block.update(begin=begin, count=size, offs=offs.tolist(), on=[
-                (_on_device(keys, g.device), _on_device(offs, g.device)) for g in placed])
+                (_on_device(keys, g.device), _on_device(offs, g.device)) for g in placed],
+                needs=None if needs is None else [_on_device(needs, g.device)
+                                                  for g in placed])
         at = begin - block["begin"]
         return [(at + i, block["on"], block["offs"][at + i]) for i in range(count)]
 
-    def launch_round(r, stream):
+    def need_of(g, at):
+        return None if block["needs"] is None else block["needs"][g][at:at + 1]
+
+    def prologue():
+        if faults is None:
+            return
+        keys = fused.round_keys(key, start_round, 1)[0].tolist()
+        for g, d in enumerate(placed):
+            pool2_shard_sends(bits[g][par0],
+                              None if algorithm == "push-sum" else glob[g][par0][0],
+                              death[g], keys, start_round, d.row0, d.rows, n=n,
+                              thresh=thresh)
+
+    def launch_round(r, stream, *_later):
         at, on, offs = stream
         par = r % 2
         halo.exchange_rows_batched(wire(par, offs))
         for g, dev_rows in enumerate(placed):
             args = ctl.args(g, par)
+            shard_faults = None if faults is None else ShardFaults(
+                thresh, death[g], need_of(g, at) if in_launch else None, r, global_term,
+                bits[g][par], bits[g][1 - par])
             round_fn(glob[g][par], glob[g][1 - par], own[g][par], own[g][1 - par], *on[g],
                      dev_rows.row0, **kw, u=None if in_launch else args["u"],
-                     acc=args["acc"], ctrl=args["ctrl"], target=target, at=at)
+                     acc=args["acc"], ctrl=args["ctrl"], target=target, at=at,
+                     faults=shard_faults)
 
-    def final_state(par):
+    def verdict_need(r):
+        return need_of(0, r - block["begin"])
+
+    def final_state(par, done):
         home = placed[0].device
         planes = [join_state(_rows_of(glob[g][par], d.row0, d.rows), own[g][par], algorithm)
                   for g, d in enumerate(placed)]
         joined = [torch.cat([p[i].to(home) for p in planes]).reshape(-1)[:n]
                   for i in range(len(planes[0]))]
         if algorithm == "push-sum":
+            conv = (joined[2] & TC_CONV_BIT) != 0
+            if global_term and done:
+                # The global verdict latches conv on every real node.
+                conv = torch.ones_like(conv)
             return pushsum_mod.PushSumState(
-                s=joined[0], w=joined[1], term=joined[2] & TC_TERM_MASK,
-                conv=(joined[2] & TC_CONV_BIT) != 0)
+                s=joined[0], w=joined[1], term=joined[2] & TC_TERM_MASK, conv=conv)
         return gossip_mod.GossipState(
             count=joined[0], active=joined[1] != 0,
             conv=joined[0] >= cfg.resolved_rumor_target)
@@ -816,4 +1090,7 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
     return run_round_supersteps(topo, cfg, ctl, start_round=start_round, target=target,
                                 t_enter=t_enter, library="fused_pool2_shard", draw=draw,
                                 launch_round=launch_round, final_state=final_state,
-                                verdict_in_launch=in_launch)
+                                ahead=0 if faults is None else 1, prologue=prologue,
+                                verdict_in_launch=in_launch,
+                                need_of=None if faults is None else verdict_need,
+                                global_term=global_term)

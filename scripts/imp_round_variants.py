@@ -108,7 +108,10 @@ WORD_LOOP = """  for (int wi = blockIdx.x * kBlock + threadIdx.x; wi < n_pad / 8
     for (int sub = 0; sub < 8; ++sub) {
     const int j = (wi / 128 * 8 + sub) * 128 + wi % 128;
     const bool pad = j >= n;"""
-LOOP_END = "  }\n  finish_count(block_sum(count)"
+# The node loop's end in the gossip round and in the push-sum round (which
+# picks its verdict by its global-termination flag G).
+LOOP_ENDS = ("  }\n  finish_count(block_sum(count)",
+             "  }\n  if constexpr (!G)\n    finish_count(block_sum(count)")
 WORD_MARK = """__device__ __forceinline__ int8_t word_mark(uint32_t word, KeyWords k,
                                             uint32_t cword, int j, int pool_size,
                                             int lattice_count) {
@@ -142,10 +145,11 @@ def variants(imp_src: str, cuh_src: str) -> dict:
     ``base``, and each variant of it."""
     late = _sub(cuh_src, EARLY_LATTICE, LATE, 1)
     word = _sub(imp_src, NODE_LOOP, WORD_LOOP, 2)
-    word = _sub(word, LOOP_END, "  }\n" + LOOP_END, 2)
+    for end in LOOP_ENDS:
+        word = _sub(word, end, "  }\n" + end, 1)
     word = _sub(word, SEPARATOR, WORD_MARK + SEPARATOR, 1)
     word = _round_marks(word, r"word_mark(words[j], k, cword, j,\1pool.count")
-    for kernel in ("pushsum_round", "gossip_round"):
+    for kernel in ("pushsum_round<G>", "gossip_round"):
         word = _sub(word, f"round_grid({kernel}, n_pad,", f"round_grid({kernel}, n_pad / 8,", 1)
     derive = _sub(imp_src, SEPARATOR, DERIVE + SEPARATOR, 1)
     derive = _round_marks(

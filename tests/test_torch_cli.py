@@ -63,10 +63,12 @@ def test_fault_flags_record_matches_jax_cli(capsys, argv):
 
 
 def test_fault_flags_refuse_a_tier_without_them(capsys):
-    # The resident imp tier does not carry global termination yet: asked
-    # for, it refuses; the CLI never runs another tier quietly.
-    rc = main(["900", "imp2D", "push-sum", "--delivery", "pool", "--termination",
-               "global", "--engine", "fused", "--platform", "cpu"])
+    # The sharded lattice compositions do not carry global termination yet
+    # (their exact-stop verdict, ROADMAP A6a-4): asked for, the run refuses
+    # before it asks for the devices; the CLI never runs another tier
+    # quietly.
+    rc = main(["1000", "torus3d", "push-sum", "--termination", "global", "--devices",
+               "2", "--engine", "fused", "--platform", "cpu"])
     assert rc == 2 and "ROADMAP A6a" in capsys.readouterr().err
     rc = main(["1000", "full", "push-sum", "--quorum", "0.9", "--delivery", "pool",
                "--platform", "cpu", "--quiet"])

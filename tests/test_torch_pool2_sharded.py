@@ -443,14 +443,8 @@ def test_faults_and_matmul_stay_refused():
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             SimConfig(**{"n": 100_000, "algorithm": "push-sum", "delivery": "pool",
                          "n_devices": 4, "engine": "fused", **kw})
-    # The drop gate, crash-stop and global termination are configs now; no
-    # sharded composition carries them yet.
-    for kw in ({"fault_rate": 0.1}, {"termination": "global"},
-               {"crash_rate": 0.01, "quorum": 0.9}):
-        cfg = SimConfig(**{"n": 100_000, "algorithm": "push-sum", "delivery": "pool",
-                           "n_devices": 4, "engine": "fused", **kw})
-        with pytest.raises(NotImplementedError, match="ROADMAP A6a"):
-            run(build_topology("full", 100_000), cfg, devices=["cpu"] * 4)
+    # The drop gate, crash-stop and global termination run on the
+    # composition now (tests/test_torch_pool2_sharded_faults.py).
     with pytest.raises(ValueError, match="unknown pool2_wire"):
         SimConfig(n=100, delivery="pool", pool2_wire="psum")
 

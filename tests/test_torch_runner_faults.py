@@ -5,9 +5,11 @@ package's chunked engine: rounds, converged count, outcome, estimate_mae
 and every final plane bitwise, on full (pool and scatter delivery) and
 grid2d (stencil); imp2d runs in tests/test_torch_runner_faults_imp.py.
 Then the ladder: the port's tier and reason are the JAX runner's for each
-faulted config, a tier whose kernels carry the knob runs it fused, a tier
-that does not carry it yet refuses naming ROADMAP A6a, and a config the
-JAX ladder demotes runs the chunked engine on the card."""
+faulted config, a tier whose kernels carry the knob runs it fused, and a
+config the JAX ladder demotes runs the chunked engine on the card; with
+n_devices > 1 a config a JAX plan refuses raises the JAX ladder's
+ValueError, and global termination on the sharded lattice compositions
+refuses naming ROADMAP A6a."""
 
 import numpy as np
 import pytest
@@ -207,11 +209,11 @@ def stub_card(monkeypatch):
     return reached
 
 
-# (kind, n, delivery, knobs, what the port does on the card): "refuse" a
-# fused tier without the knob yet (A6a-3: global termination on the
-# streaming lattice tier and the imp tiers), "chunked" where the JAX ladder
-# demotes, "fused" where the tier's kernels carry it (the pool tiers, the
-# whole-array lattice tier; the tiled one global termination).
+# (kind, n, delivery, knobs, what the port does on the card): "chunked"
+# where the JAX ladder demotes, "fused" where the tier's kernels carry the
+# knob (the pool tiers and the whole-array lattice tier all three; the
+# tiled and streaming lattice tiers and both imp tiers global
+# termination); no single-device tier refuses one any more.
 LADDER = [
     ("grid2d", 900, "auto", {"fault_rate": 0.1}, "fused"),
     ("line", 1000, "stencil", {"crash_rate": 0.01, "quorum": 0.9}, "fused"),
@@ -220,12 +222,12 @@ LADDER = [
     ("ring", 5000, "auto", {"termination": "global"}, "fused"),
     ("imp2d", 900, "pool", {"fault_rate": 0.1}, "chunked"),
     ("imp3d", 1000, "pool", {"crash_schedule": "2:10", "quorum": 0.9}, "chunked"),
-    ("imp2d", 900, "pool", {"termination": "global"}, "refuse"),
+    ("imp2d", 900, "pool", {"termination": "global"}, "fused"),
     ("full", 1000, "pool", {"fault_rate": 0.1, "crash_rate": 0.01}, "fused"),
     ("full", 1000, "pool", {"termination": "global"}, "fused"),
     ("full", 2000, "pool", {"fault_rate": 0.1}, "fused"),
     ("full", 2000, "pool", {"termination": "global"}, "fused"),
-    ("ring", 200_000, "auto", {"termination": "global"}, "refuse"),
+    ("ring", 200_000, "auto", {"termination": "global"}, "fused"),
 ]
 
 
@@ -241,12 +243,7 @@ def test_ladder_is_the_jax_ladder(kind, n, delivery, knobs, action, small_pool_c
     assert tier == _jax_ladder(jtopo, JaxConfig(**fields))
     if (kind, n) == ("ring", 200_000):
         assert tier == ("stencil_hbm", None)
-    if action == "refuse":
-        with pytest.raises(NotImplementedError, match="ROADMAP A6a"):
-            run(topo, SimConfig(**fields))
-        with pytest.raises(NotImplementedError, match="ROADMAP A6a"):
-            run(topo, SimConfig(**fields, engine="fused"), device="cpu")
-    elif action == "chunked":
+    if action == "chunked":
         assert run(topo, SimConfig(**fields)) == "chunked"
         assert stub_card == [torch.device("cuda", 0)]
         with pytest.raises(ValueError, match="engine='fused' unavailable: failure models"):
@@ -263,10 +260,11 @@ def test_ladder_is_the_jax_ladder(kind, n, delivery, knobs, action, small_pool_c
 
 
 def test_streaming_imp_tier_refuses_global_termination(monkeypatch, stub_card):
-    # The imp tiers carry no failure model yet (A6a-3): global termination,
-    # which their JAX tiers take, refuses on the streaming one too (reached
-    # at a small n by shrinking the resident imp tier's budget in both
-    # packages, as tests/test_torch_fused_imp.py does).
+    # The imp tiers carry global termination now (A6a-3): the streaming
+    # one, which its JAX tier runs it on, is reached (at a small n by
+    # shrinking the resident imp tier's budget in both packages, as
+    # tests/test_torch_fused_imp.py does), on the card and under
+    # engine="fused", where the CPU runs its plain version.
     monkeypatch.setattr(fused_imp, "_VMEM_BUDGET", 1000)
     monkeypatch.setattr(jax_fused_imp, "_VMEM_BUDGET", 1000)
     fields = dict(n=1000, topology="imp3d", algorithm="push-sum", delivery="pool",
@@ -274,7 +272,58 @@ def test_streaming_imp_tier_refuses_global_termination(monkeypatch, stub_card):
     topo = build_topology("imp3d", 1000)
     assert runner.fused_tier(topo, SimConfig(**fields)) == _jax_ladder(
         jax_topology("imp3d", 1000), JaxConfig(**fields)) == ("imp_hbm", None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6a"):
+    with pytest.raises(AssertionError, match="the fused engine was reached"):
         run(topo, SimConfig(**fields))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6a"):
+    with pytest.raises(AssertionError, match="the fused engine was reached"):
         run(topo, SimConfig(**fields, engine="fused"), device="cpu")
+
+
+# --------------------------------------------------------- the sharded ladder
+
+def _jax_sharded_error(kind, n, fields):
+    """The JAX runner's ValueError for an n_devices > 1 config its plans
+    refuse: raised by its ladder on the lattices; on the imp kinds its run
+    first asks for the devices, so the text is built from its plan's
+    reason as its run words it."""
+    from cop5615_gossip_protocol_tpu.parallel import fused_imp_hbm_sharded as jax_ih
+
+    jtopo, jcfg = jax_topology(kind, n), JaxConfig(**fields)
+    if kind.startswith("imp"):
+        reason = jax_ih.plan_imp_hbm_sharded(jtopo, jcfg, jcfg.n_devices)
+        assert isinstance(reason, str)
+        return f"engine='fused' with n_devices={jcfg.n_devices} unavailable: {reason}"
+    with pytest.raises(ValueError) as err:
+        jax_runner.run(jtopo, jcfg)
+    return str(err.value)
+
+
+# Each of the JAX sharded plans' fault gates: the resident and streaming
+# lattice compositions (both refuse the drop gate and crash-stop), the imp
+# composition (the same).
+@pytest.mark.parametrize("kind,n,knobs", [
+    ("torus3d", 8000, {"fault_rate": 0.1}),
+    ("grid2d", 4096, {"crash_rate": 0.01, "quorum": 0.9}),
+    ("imp3d", 4096, {"delivery": "pool", "fault_rate": 0.1}),
+    ("imp2d", 4096, {"delivery": "pool", "crash_schedule": "3:10", "quorum": 0.9}),
+], ids=lambda x: str(x).replace(" ", ""))
+def test_sharded_ladder_raises_the_jax_plans_reasons(kind, n, knobs):
+    fields = dict(n=n, topology=kind, algorithm="push-sum", engine="fused", n_devices=2,
+                  **knobs)
+    want = _jax_sharded_error(kind, n, fields)
+    assert "failure models not supported in this fused kernel" in want
+    with pytest.raises(ValueError) as err:
+        run(build_topology(kind, n), SimConfig(**fields), devices=["cpu"] * 2)
+    assert str(err.value) == want
+
+
+# Global termination on the sharded lattice compositions, whose JAX plans
+# take it and whose exact-stop verdict is ROADMAP A6a-4: still refused.
+@pytest.mark.parametrize("n,tier", [(2**21, "fused_sharded"), (1000, "stencil_hbm_sharded")])
+def test_sharded_lattice_global_termination_stays_refused(n, tier):
+    fields = dict(n=n, topology="torus3d", algorithm="push-sum", engine="fused",
+                  n_devices=2, termination="global")
+    topo = build_topology("torus3d", n)
+    assert runner.sharded_tier(topo, SimConfig(**fields))[:2] == (tier, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6a") as err:
+        run(topo, SimConfig(**fields), devices=["cpu"] * 2)
+    assert tier in str(err.value)
