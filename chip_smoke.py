@@ -273,7 +273,10 @@ non-zero before the last line:
    rows 1-7 and kernel A in their faulted (row 7: global) instances, rows
    9, 11, 13 and 18 in their global ones and rows 20-21 in their faulted
    ones (with the sends launch) beside their fault-free times of this run,
-   each round kernel's device time a round in both instances; kernel B over each whole walk in one launch, beside the plain walk on
+   each round kernel's device time a round in both instances; rows 15-16's
+   global super-steps beside their local instance on the same state, and
+   kernel A's, rows 1-2's and rows 5-6's revive instances beside their
+   fault-free ones on the same state; kernel B over each whole walk in one launch, beside the plain walk on
    the host and the hop chain's bound (hops times what a hop waits on from
    the hop before: on full the message's and the pick's arithmetic, timed
    by csrc/walk.cu's arith kernel; on imp3d two dependent accesses at the
@@ -281,15 +284,37 @@ non-zero before the last line:
    timed by its chase kernel), the bytes/operations bound beside it; then
    the imp rows' µs a round beside row 9's, and rows 13 and 18 over row 9.
 
-Each of phases 5-14l prints its wall time.
+14m. (run after 14l) global termination in the sharded lattice
+   compositions (ROADMAP A6a-4): rows 15-16's global instances
+   (csrc/fused_stencil_shard.cu, csrc/fused_stencil_hbm_shard.cu) at
+   torus3d 100**3 in 2 shards and 256**3 in 4, every shard on the card,
+   from phase 14l's crafted state: one super-step of every shard against
+   the plain version (every row of out and y, and u, the middle's unstable
+   counts), then run(devices=[card] * S) from the crafted state, stopping at
+   the exact round, bitwise the single-device global run (stencil2,
+   stencil_hbm), and runs resumed so the verdict lands on a super-step's
+   first, middle and last round, bitwise the same;
+14n. (run after 14m) crash-recovery (ROADMAP A6b) in kernel A and rows 1-2
+   at full 1,000,000 and rows 5-6 at grid2d 10,000: each faulted instance
+   with a revival plane against its plain version on the card under a
+   crash and revive schedule (push-sum rejoining fresh) and a crash and
+   revive rate (push-sum restoring): a 32-round chunk from the initial
+   state, chunks that end just before and just after the first revival
+   round and a chunk resumed at it, every plane bitwise; then REVIVE_RUNS
+   through run() and the CLI against the worker's CPU runs (rounds,
+   converged count, estimate, run()'s every plane);
+
+Each of phases 5-14n prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 ``--cards N`` runs none of these phases: it runs the sharded imp path and
 the replicated-pool2 path with shard i on cuda:i against the same runs on
-one card, times each wire across cards, and ends with ``{"ok": true,
-"mode": "cards N", "device": {...}}``.
+one card, times each wire across cards, runs rows 15-16's global runs
+from the crafted state across the cards against one card (phase 14m's
+runs), and ends with ``{"ok": true, "mode": "cards N", "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -2559,6 +2584,45 @@ def imp_shard_rows(dev, cases, launches, max_err):
         })
         del bufs
     return rows
+
+
+def lattice_global_cards(cards):
+    """``--cards N``: rows 15-16's global runs with shard i on cuda:i,
+    torus3d 100**3 (resident) and 256**3 (streaming) in N shards from phase
+    14l's crafted state, each bitwise the same run with every shard on
+    cuda:0 and the single-device run (the exact stop round, every plane):
+    the verdict's capped rerun and the conv latch reach every card."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.models.runner import sharded_tier
+    from cop5615_gossip_protocol_tpu_torch.ops.fused_pool import build_pool_layout
+
+    devices = [torch.device("cuda", i) for i in range(cards)]
+    for n, tier in ((1_000_000, "fused_sharded"), (LATTICE_N, "stencil_hbm_sharded")):
+        topo = build_topology("torus3d", n)
+        cfg = SimConfig(n=n, topology="torus3d", algorithm="push-sum", engine="fused",
+                        termination="global", n_devices=cards)
+        if sharded_tier(topo, cfg)[:2] != (tier, None):
+            raise AssertionError(f"torus3d n={n} x{cards}: the ladder picks "
+                                 f"{sharded_tier(topo, cfg)}")
+        _, canon = crafted_state(n, build_pool_layout(n).n_pad, devices[0])
+        start = {"start_state": canon, "start_round": GLOBAL_START}
+        single = run(topo, dataclasses.replace(cfg, n_devices=None), **start)
+        one = run(topo, cfg, devices=[devices[0]] * cards, **start)
+        spread = run(topo, cfg, **start)
+        same = all(torch.equal(x.cpu().view(torch.int32), y.cpu().view(torch.int32))
+                   if x.dtype == torch.float32 else torch.equal(x.cpu(), y.cpu())
+                   for a in (one, single) for x, y in zip(spread.state, a.state))
+        print(json.dumps({
+            "metric": f"pushsum_global_{tier}_torus3d_n{n}_x{cards}_cards",
+            "rounds": spread.rounds, "one_card_rounds": one.rounds,
+            "single_device_rounds": single.rounds, "run_s": spread.run_s,
+            "one_card_run_s": one.run_s, "converged_count": spread.converged_count,
+            "bitwise_one_card_and_single": same, "device": spread.device}), flush=True)
+        if not (spread.rounds == one.rounds == single.rounds and same
+                and spread.converged_count == n):
+            raise AssertionError(f"{tier} global on {cards} cards differs from one card")
 
 
 def imp_shard_cards(cards):
@@ -5090,6 +5154,518 @@ def fault3_rows(dev, key, cases, launches, max_err, fault_free_ms):
     return rows
 
 
+# Phase 14m: global termination in the sharded lattice compositions
+# (ROADMAP A6a-4), rows 15-16's global instances: torus3d 100**3 in 2
+# shards (the resident tier) and 256**3 in 4 (the streaming tier), every
+# shard on the one card, from the crafted state of phase 14l at
+# GLOBAL_START.
+SHARD_GLOBAL_CASES = (("pushsum_fused_sharded_superstep", "fused_sharded", "torus3d",
+                       1_000_000, 2),
+                      ("pushsum_stencil_hbm_sharded_superstep", "stencil_hbm_sharded",
+                       "torus3d", LATTICE_N, 4))
+
+
+def shard_global_setup(dev, kind, n, shards, tier):
+    """(topology, config, Tier, wrapper keywords) of a row 15-16 global
+    case; the ladder must pick ``tier``."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models.runner import sharded_tier
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_hbm_sharded as fh
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_sharded as fs
+
+    topo = build_topology(kind, n)
+    cfg = SimConfig(n=n, topology=kind, algorithm="push-sum", termination="global",
+                    engine="fused", n_devices=shards)
+    if sharded_tier(topo, cfg)[:2] != (tier, None):
+        raise AssertionError(f"{kind} n={n} x{shards} global: the ladder picks "
+                             f"{sharded_tier(topo, cfg)}")
+    plan = (fs.vmem_tier if tier == "fused_sharded" else fh.hbm_tier)(topo, cfg, shards)
+    kw = fs.protocol_kw(topo, cfg, plan.geom, plan.rolls)
+    if not kw["global_term"]:
+        raise AssertionError("the wrappers' keywords lack global termination")
+    return topo, cfg, plan, kw
+
+
+def shard_global_path(dev, key):
+    """Phase 14m: for each of SHARD_GLOBAL_CASES, one super-step of every
+    shard's global instance from the crafted state against the plain
+    version on the card (every row of out and y from SENTINEL, and u: the
+    middle's unstable counts), then run(devices=[card] * S) from the
+    crafted state, counters zeroed before it and read after it, bitwise the
+    single-device global run (the stencil2 tier at 100**3, stencil_hbm at
+    256**3: rounds, converged count, every plane), and runs resumed so the
+    verdict lands on a super-step's first, middle and last round, each
+    bitwise the same. Returns ({row: case} for the timing, {row:
+    max_abs_err}, {row: launches})."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, run
+    from cop5615_gossip_protocol_tpu_torch.ops import fused
+    from cop5615_gossip_protocol_tpu_torch.ops.fused_pool import build_pool_layout
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_sharded as fs
+
+    cases, max_err, launches = {}, {}, {}
+    for row, tier, kind, n, shards in SHARD_GLOBAL_CASES:
+        t0 = time.perf_counter()
+        topo, cfg, plan, kw = shard_global_setup(dev, kind, n, shards, tier)
+        geom = plan.geom
+        layout = build_pool_layout(n)
+        flat, canon = crafted_state(n, layout.n_pad, dev)
+        planes = tuple(x.reshape(layout.rows, 128) for x in flat)
+        rounds = min(geom.cr, STENCIL_SHARD_ROUNDS)
+        keys = fused.round_keys(key, GLOBAL_START, rounds).to(dev)
+        bufs = shard_buffers(planes, geom, shards)
+        lattice_shard_step(plan.pushsum, kw, plan, bufs, keys, rounds)
+        err, unstable = 0.0, []
+        for s, b in enumerate(bufs):
+            want = tuple(sentinel_like(x) for x in b["ext"])
+            want_y = tuple(sentinel_like(x) for x in b["ext"])
+            want_u = fs.shard_superstep_plain(b["ext"], want, want_y, keys, rounds,
+                                              geom.row0(s), **kw)
+            if not torch.equal(b["u"].cpu(), want_u):
+                raise AssertionError(f"{row} global shard {s}: u {b['u'].tolist()} != "
+                                     f"plain {want_u.tolist()}")
+            for got, exp in zip(b["out"] + b["y"], want + want_y):
+                if not torch.equal(got.view(torch.int32), exp.view(torch.int32)):
+                    raise AssertionError(f"{row} global shard {s}: a plane differs "
+                                         "from plain")
+                if got.dtype == torch.float32:
+                    err = max(err, (got - exp).abs().max().item())
+            unstable.append(b["u"][:rounds].tolist())
+            del want, want_y
+        print(f"  {row} global ({kind} n={n:,} x{shards}, {tier}, CR {geom.cr}, "
+              f"{rounds} rounds from round {GLOBAL_START}): every shard bitwise its plain "
+              f"version on every row of out and y and in u (unstable a round "
+              f"{[sum(c) for c in zip(*unstable)]})", flush=True)
+        max_err[row] = err
+        cases[row] = (plan, kw, bufs, keys, rounds, len(topo.offsets), tier)
+        start = {"start_state": canon, "start_round": GLOBAL_START}
+        single = run(topo, SimConfig(n=n, topology=kind, algorithm="push-sum",
+                                     termination="global"), device=dev, **start)
+        fn = plan.pushsum
+        fn.launches = 0
+        res = run(topo, cfg, devices=[str(dev)] * shards, **start)
+        launches[row] = fn.launches
+        if dev.type == "cuda" and fn.launches == 0:
+            raise AssertionError(f"{row} global run: no launch of its kernel")
+        if not (res.converged and res.converged_count == n):
+            raise AssertionError(f"{row} global run: {res.outcome}, "
+                                 f"{res.converged_count} converged")
+        same_planes(f"{row} global run", res.state, single.state)
+        if (res.rounds, res.estimate_mae) != (single.rounds, single.estimate_mae):
+            raise AssertionError(f"{row} global run: rounds {res.rounds} != single "
+                                 f"{single.rounds}")
+        m = single.rounds - GLOBAL_START
+        c = min(geom.cr, m)
+        positions = {"first": 0, "last": c - 1}
+        if c >= 3:
+            positions["middle"] = c // 2
+        for where, p in positions.items():
+            k = (m - 1 - p) % c
+            at = dict(start)
+            if k:
+                part = run(topo, dataclasses.replace(cfg, chunk_rounds=c,
+                                                     max_rounds=GLOBAL_START + k),
+                           devices=[str(dev)] * shards, **start)
+                at = {"start_state": part.state, "start_round": part.rounds}
+            again = run(topo, dataclasses.replace(cfg, chunk_rounds=c),
+                        devices=[str(dev)] * shards, **at)
+            if again.rounds != single.rounds:
+                raise AssertionError(f"{row} verdict on a super-step's {where} round: "
+                                     f"rounds {again.rounds} != {single.rounds}")
+            same_planes(f"{row} verdict on a super-step's {where} round", again.state,
+                        single.state)
+        print(f"  {row} global runs from round {GLOBAL_START}: stop at round "
+              f"{single.rounds} (exact, not a super-step boundary), bitwise the "
+              f"single-device run; {launches[row]} launches; the verdict on a "
+              f"{c}-round super-step's {', '.join(positions)} round bitwise too "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        del single, res, planes, flat
+        fs._shard_slots.cache_clear()
+        torch.cuda.empty_cache()
+    return cases, max_err, launches
+
+
+def shard_global_rows(cases, launches, max_err):
+    """Phase 14m's rows of the kernels line: each global super-step of every
+    shard from the crafted state by CUDA events, beside the local instance
+    (the fault-free one) on the same state in the same call, the plain
+    version's time and the bound on the windows' slot-rounds
+    (stencil_shard_bound, plus GLOBAL_OPS an absorb)."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch.parallel import fused_sharded as fs
+
+    rows = []
+    sites = {"pushsum_fused_sharded_superstep": (
+        "parallel/fused_sharded.py:448", "fused_stencil_shard.cu"),
+        "pushsum_stencil_hbm_sharded_superstep": (
+        "parallel/fused_hbm_sharded.py:773", "fused_stencil_hbm_shard.cu")}
+    for row, (plan, kw, bufs, keys, rounds, classes, tier) in cases.items():
+        local = {**kw, "global_term": False}
+        ms, _ = time_ms(lambda: lattice_shard_step(plan.pushsum, kw, plan, bufs, keys,
+                                                   rounds), TIME_REPS)
+        local_ms, _ = time_ms(lambda: lattice_shard_step(plan.pushsum, local, plan, bufs,
+                                                         keys, rounds), TIME_REPS)
+        t0 = time.perf_counter()
+        for s, b in enumerate(bufs):
+            fs.shard_superstep_plain(b["ext"], b["out"], b["y"], keys, rounds,
+                                     plan.geom.row0(s), **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        moved, ops = stencil_shard_bound(kw, plan, len(bufs), rounds, "push-sum",
+                                         classes, tier == "fused_sharded")
+        absorbs = sum(128 * sum(window_rows(kw, plan.geom, s, rounds)[1:])
+                      for s in range(len(bufs)))
+        ops += absorbs * GLOBAL_OPS
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        site, source = sites[row]
+        print(f"  {row} global: {ms:.4f} ms a {rounds}-round super-step against the "
+              f"local instance's {local_ms:.4f} on the same state ({ms / local_ms:.3f}x), "
+              f"plain {plain_ms:.1f} ms", flush=True)
+        rows.append({"name": f"{row} global", "route": "cuda",
+                     "source": f"cop5615_gossip_protocol_tpu_torch/csrc/{source}",
+                     "replaces": f"cop5615_gossip_protocol_tpu/{site}",
+                     "launches": launches[row], "max_abs_err": max_err[row],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "library_ms": None, "fault_free_ms": local_ms,
+                     "rounds_per_call": rounds,
+                     "us_per_round": ms * 1e3 / rounds, "status": "ported"})
+    return rows
+
+
+# Phase 14n: crash-recovery (ROADMAP A6b) in kernel A, rows 1-2 and rows
+# 5-6: each faulted instance with a revival plane against its plain version
+# on the card at full 1,000,000 (kernel A, rows 1-2) and grid2d 10,000
+# (rows 5-6), under a crash schedule (1% of the nodes at round 5, 5% at
+# round 20) with a revive schedule (half of 1% at round 12, 2% at round 30)
+# and a crash rate (0.01) with a revive rate (0.2); push-sum rejoins fresh
+# under the schedule and restores under the rate.
+REVIVE_KERNELS = (("pool", "full", N), ("scatter", "full", N), ("stencil", "grid2d", 10_000))
+REVIVE_LABELS = ("pushsum fresh schedule", "pushsum restore rate", "gossip schedule",
+                 "gossip rate")
+
+
+def revive_knobs(label, n):
+    """(algorithm, knobs) of a phase 14n config at population n."""
+    algorithm = "gossip" if label.startswith("gossip") else "push-sum"
+    if label.endswith("schedule"):
+        kw = {"crash_schedule": f"5:{n // 100},20:{n // 20}",
+              "revive_schedule": f"12:{n // 200},30:{n // 50}", "quorum": 0.95}
+    else:
+        kw = {"crash_rate": 0.01, "revive_rate": 0.2, "quorum": 0.9}
+    if "fresh" in label:
+        kw["rejoin"] = "fresh"
+    return algorithm, kw
+
+
+def revive_fns(dev, key, kernel, kind, n, label):
+    """One phase 14n kernel and config: (kernel, plain, chunk(fn, state,
+    start, count) -> (state, rounds run), initial state on the card, the
+    run's Faults)."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine, fused_tier
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, scatter
+
+    algorithm, kw = revive_knobs(label, n)
+    name = "pushsum" if algorithm == "push-sum" else "gossip"
+    if kernel == "scatter":
+        from cop5615_gossip_protocol_tpu_torch.models import gossip as gossip_mod
+        from cop5615_gossip_protocol_tpu_torch.models import pushsum as pushsum_mod
+        from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
+
+        topo = build_topology(kind, n)
+        graph = scatter.scatter_graph(topo, dev)
+        cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, **kw)
+        faults = fused.run_faults(cfg, n)
+        if name == "pushsum":
+            init = pushsum_mod.init_state(n, cfg.initial_term_round, dev)
+            kern, plain = scatter.pushsum_scatter_chunk, scatter.pushsum_scatter_chunk_plain
+            extra = {"delta": cfg.resolved_delta, "term_rounds": cfg.term_rounds}
+        else:
+            init = gossip_mod.init_state(n, draw_leader(key, topo, cfg), False, dev)
+            kern, plain = scatter.gossip_scatter_chunk, scatter.gossip_scatter_chunk_plain
+            extra = {"rumor_target": cfg.resolved_rumor_target,
+                     "suppress": cfg.resolved_suppress}
+        keys = functools.lru_cache(maxsize=None)(
+            lambda start, count: fused.round_keys(key, start, count))
+
+        def chunk(fn, state, start, count, faulted=True):
+            status = torch.tensor([start, 0], dtype=torch.int32, device=dev)
+            fx = faults if faulted else None
+            if fn is plain:
+                st, status = fn(state, keys(start, count), status, graph=graph,
+                                target=n, start=start, faults=fx, **extra)
+            else:
+                st, status = fn(state, key, start, count, status, graph=graph,
+                                target=n, faults=fx, **extra)
+            return st, status[0] - start
+
+        return kern, plain, chunk, init, faults
+    topo = build_topology(kind, n)
+    extra = {"delivery": "pool", "pool_size": POOL} if kernel == "pool" else {}
+    cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, **extra, **kw)
+    if fused_tier(topo, cfg) != (kernel, None):
+        raise AssertionError(f"{kind} n={n} {label}: the ladder picks "
+                             f"{fused_tier(topo, cfg)}, not {kernel}")
+    eng = fused_engine(topo, cfg, key, kernel)
+    faults = fused.run_faults(cfg, n)
+    if kernel == "pool":
+        from cop5615_gossip_protocol_tpu_torch.ops import fused_pool
+
+        kern, plain = {"pushsum": (fused_pool.pushsum_pool_chunk,
+                                   fused_pool.pushsum_pool_chunk_plain),
+                       "gossip": (fused_pool.gossip_pool_chunk,
+                                  fused_pool.gossip_pool_chunk_plain)}[name]
+        common = {"n": n}
+    else:
+        from cop5615_gossip_protocol_tpu_torch.ops import fused_stencil_hbm as hbm
+
+        kern = resident_wrappers()[name, "stencil"]
+        plain = {"pushsum": hbm.pushsum_stencil_hbm_chunk_plain,
+                 "gossip": hbm.gossip_stencil_hbm_chunk_plain}[name]
+        common = {"spec": hbm.stencil_spec(topo)}
+    common.update(target=n, faults=faults)
+    if name == "pushsum":
+        common.update(delta=cfg.resolved_delta, term_rounds=cfg.term_rounds)
+    else:
+        common.update(rumor_target=cfg.resolved_rumor_target,
+                      suppress=cfg.resolved_suppress)
+    streams = functools.lru_cache(maxsize=None)(eng.streams)
+
+    def chunk(fn, state, start, count, faulted=True):
+        return fn(state, *streams(start, count), start, start + count,
+                  **(common if faulted else {**common, "faults": None}))
+
+    return kern, plain, chunk, tuple(p.contiguous().to(dev) for p in eng.planes), faults
+
+
+def revive_checks(dev, key):
+    """Phase 14n, the kernels: each of REVIVE_KERNELS under each of
+    REVIVE_LABELS against its plain version on the card, every plane and the
+    rounds bitwise: a 32-round chunk from the initial state (across the
+    deaths and revivals), chunks that end just before and just after the
+    first revival round R, and a chunk resumed at R from the kernel's state
+    there. Returns ({(kernel, label): case} for the timing, {kernel name:
+    max_abs_err})."""
+    import numpy as np
+    import torch
+
+    cases, max_err = {}, {}
+    for kernel, kind, n in REVIVE_KERNELS:
+        t0 = time.perf_counter()
+        for label in REVIVE_LABELS:
+            kern, plain, chunk, init, faults = revive_fns(dev, key, kernel, kind, n, label)
+            tag = f"{kernel} {label}"
+            rv = faults.revive[faults.revive != np.iinfo(np.int32).max]
+            R = int(rv.min())
+            if not 0 < R < CHUNK:
+                raise AssertionError(f"{tag}: the first revival round {R} is not in the "
+                                     f"first chunk")
+            pair = chunk
+            errs = [same_planes(f"{tag} init {CHUNK} rounds", pair(kern, init, 0, CHUNK)[0],
+                                pair(plain, init, 0, CHUNK)[0])]
+            for cap in (R, R + 1):
+                got, want = pair(kern, init, 0, cap), pair(plain, init, 0, cap)
+                if int(got[1]) != int(want[1]):
+                    raise AssertionError(f"{tag} capped at {cap}: rounds {int(got[1])} "
+                                         f"!= plain {int(want[1])}")
+                errs.append(same_planes(f"{tag} capped at round {cap}", got[0], want[0]))
+                if cap == R:
+                    at_r = got[0]
+            errs.append(same_planes(f"{tag} resumed at round {R}",
+                                    pair(kern, at_r, R, 8)[0], pair(plain, at_r, R, 8)[0]))
+            name = "pushsum" if label.startswith("pushsum") else "gossip"
+            max_err[f"{name} {kernel}"] = max(max_err.get(f"{name} {kernel}", 0.0), *errs)
+            cases[kernel, label] = (kern, plain, chunk, init, n)
+        print(f"  {kernel} ({kind} n={n:,}): {', '.join(REVIVE_LABELS)}: a {CHUNK}-round "
+              "chunk from the initial state, chunks capped at the first revival round R "
+              "and R + 1, and one resumed at R, each bitwise its plain version "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        torch.cuda.empty_cache()
+    return cases, max_err
+
+
+# Phase 14n's runs: (label, kernel, kind, n, algorithm, the CLI's flags
+# beyond the triple). Each runs on the card through run(), the first of each
+# kernel also through the CLI, and on the CPU in the worker (the same tier's
+# plain version); they must agree.
+REVIVE_RUNS = (
+    ("pool push-sum fresh", "pool", "full", 20_000, "push-sum",
+     ["--delivery", "pool", "--pool-size", "2", "--crash-schedule", "5:200,20:1000",
+      "--revive-schedule", "12:100,30:400", "--rejoin", "fresh", "--quorum", "0.95"]),
+    ("pool gossip rate", "pool", "full", 20_000, "gossip",
+     ["--delivery", "pool", "--pool-size", "2", "--crash-rate", "0.01",
+      "--revive-rate", "0.2", "--quorum", "0.9"]),
+    ("scatter push-sum restore", "scatter", "full", 20_000, "push-sum",
+     ["--crash-rate", "0.01", "--revive-rate", "0.2", "--quorum", "0.9"]),
+    ("scatter gossip fresh", "scatter", "full", 20_000, "gossip",
+     ["--crash-schedule", "5:200,20:1000", "--revive-schedule", "12:100,30:400",
+      "--quorum", "0.95"]),
+    ("stencil push-sum fresh", "stencil", "grid2d", 10_000, "push-sum",
+     ["--crash-rate", "0.001", "--revive-rate", "0.2", "--rejoin", "fresh",
+      "--quorum", "0.9", "--max-rounds", "3000"]),
+    ("stencil gossip schedule", "stencil", "grid2d", 10_000, "gossip",
+     ["--crash-schedule", "5:100,20:500", "--revive-schedule", "12:50,30:200",
+      "--quorum", "0.95"]),
+)
+
+
+def revive_cfg(kind, n, algorithm, flags):
+    """The SimConfig the CLI builds from ``flags``."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig
+    from cop5615_gossip_protocol_tpu_torch.cli import build_parser
+
+    args = build_parser().parse_args([str(n), kind, algorithm, *flags])
+    fields = {"delivery": args.delivery, "pool_size": args.pool_size,
+              "crash_rate": args.crash_rate, "crash_schedule": args.crash_schedule,
+              "revive_rate": args.revive_rate, "revive_schedule": args.revive_schedule,
+              "rejoin": args.rejoin, "quorum": args.quorum,
+              "max_rounds": args.max_rounds}
+    return SimConfig(n=n, topology=kind, algorithm=algorithm, **fields)
+
+
+def cpu_revive_runs():
+    """The port's CPU runs of REVIVE_RUNS on each kernel's tier (the plain
+    versions; the chunked engine for scatter): {label: (rounds, converged
+    count, estimate_mae, [planes as numpy])}. Runs in the worker process."""
+    import os
+
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import build_topology, run
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    out = {}
+    for label, kernel, kind, n, algorithm, flags in REVIVE_RUNS:
+        cfg = revive_cfg(kind, n, algorithm, flags)
+        if kernel != "scatter":
+            cfg = dataclasses.replace(cfg, engine="fused")
+        res = run(build_topology(kind, n), cfg, device="cpu")
+        out[label] = (res.rounds, res.converged_count, res.estimate_mae,
+                      [x.numpy() for x in res.state])
+    return out
+
+
+def revive_path(dev, cpu_runs):
+    """Phase 14n, the runs: each of REVIVE_RUNS on the card through run(),
+    its kernel's counter zeroed before and read after, and the first of
+    each kernel through the CLI, against the worker's CPU run: rounds,
+    converged count and estimate, and run()'s every plane. Returns {kernel
+    name: launches}."""
+    from cop5615_gossip_protocol_tpu_torch import build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool, scatter
+
+    counters = {("pool", "push-sum"): fused_pool.pushsum_pool_chunk,
+                ("pool", "gossip"): fused_pool.gossip_pool_chunk,
+                ("scatter", "push-sum"): scatter.pushsum_scatter_chunk,
+                ("scatter", "gossip"): scatter.gossip_scatter_chunk,
+                ("stencil", "push-sum"): fused.pushsum_chunk,
+                ("stencil", "gossip"): fused.gossip_chunk}
+    launches, seen = {}, set()
+    for label, kernel, kind, n, algorithm, flags in REVIVE_RUNS:
+        t0 = time.perf_counter()
+        cli_too = kernel not in seen
+        rounds, count, mae, planes = cpu_runs[label]
+        cfg = revive_cfg(kind, n, algorithm, flags)
+        fn = counters[kernel, algorithm]
+        fn.launches = 0
+        res = run(build_topology(kind, n), cfg)
+        name = f"{'pushsum' if algorithm == 'push-sum' else 'gossip'} {kernel}"
+        launches[name] = launches.get(name, 0) + fn.launches
+        if fn.launches == 0:
+            raise AssertionError(f"{label}: the run launched no {kernel} kernel")
+        if (res.rounds, res.converged_count, res.estimate_mae) != (rounds, count, mae):
+            raise AssertionError(f"{label}: card {res.rounds}/{res.converged_count}/"
+                                 f"{res.estimate_mae} != CPU {rounds}/{count}/{mae}")
+        same_planes(f"{label} run", res.state, planes)
+        seen.add(kernel)
+        if not cli_too:
+            print(f"  {label} ({kind} n={n:,}): {res.outcome} at round {res.rounds}, "
+                  f"{res.converged_count} converged, run() bitwise the CPU run; "
+                  f"{fn.launches} launches ({time.perf_counter() - t0:.1f} s)", flush=True)
+            continue
+        cli = subprocess.run(
+            [sys.executable, "-m", "cop5615_gossip_protocol_tpu_torch", str(n), kind,
+             algorithm, *flags], capture_output=True, text=True, timeout=300)
+        if cli.returncode not in (0, 1):
+            raise AssertionError(f"{label} CLI exited {cli.returncode}: {cli.stderr[-500:]}")
+        rec = json.loads(cli.stdout.strip().splitlines()[-1])
+        if (rec["rounds"], rec["converged_count"], rec["estimate_mae"]) != (
+                rounds, count, mae):
+            raise AssertionError(f"{label} CLI: {rec['rounds']}/{rec['converged_count']}/"
+                                 f"{rec['estimate_mae']} != CPU {rounds}/{count}/{mae}")
+        print(f"  {label} ({kind} n={n:,}): {res.outcome} at round {res.rounds}, "
+              f"{res.converged_count} converged, run() bitwise the CPU run, the CLI's "
+              f"record equal; {fn.launches} launches "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return launches
+
+
+def revive_phase(dev, key, cpu_runs):
+    """Phase 14n: revive_checks, then revive_path. Returns (cases, max_err,
+    launches)."""
+    cases, max_err = revive_checks(dev, key)
+    return cases, max_err, revive_path(dev, cpu_runs)
+
+
+def revive_rows(cases, launches, max_err):
+    """Phase 14n's rows of the kernels line: each kernel's revive instance
+    (the schedule configs: push-sum rejoining fresh) over a 32-round chunk
+    from the initial state by CUDA events, beside the fault-free instance
+    on the same state in the same call and the plain version; the bound is
+    the fault-free bound's bytes and operations (as phase 15 counts them
+    for each kernel) plus the death and revival planes read."""
+    sites = {"pool": ("ops/fused_pool.py:860", "ops/fused_pool.py:1157", "fused_pool.cu"),
+             "scatter": ("ops/delivery.py:22", "ops/delivery.py:22", "scatter.cu"),
+             "stencil": ("ops/fused.py:741", "ops/fused.py:993", "fused_resident.cu")}
+    timed = {"pushsum": "pushsum fresh schedule", "gossip": "gossip schedule"}
+    rows = []
+    for kernel, kind, _ in REVIVE_KERNELS:
+        for name, label in timed.items():
+            kern, plain, chunk, init, n = cases[kernel, label]
+            ms, (_, ex) = time_ms(lambda: chunk(kern, init, 0, CHUNK), TIME_REPS)
+            free_ms, _ = time_ms(lambda: chunk(kern, init, 0, CHUNK, faulted=False),
+                                 TIME_REPS)
+            plain_ms, _ = time_ms(lambda: chunk(plain, init, 0, CHUNK), 1)
+            rounds = int(ex)
+            algo = "push-sum" if name == "pushsum" else "gossip"
+            n_pad = init[0].numel()
+            if kernel == "pool":
+                state_bytes = 16 if name == "pushsum" else 12
+                moved = 2 * state_bytes * n_pad + 8 * n_pad + CHUNK * (16 + 4 * POOL + 4)
+                ops = rounds * (n_pad // 8 * OPS_PER_WORD
+                                + n_pad * ops_per_node(algo, POOL))
+            elif kernel == "scatter":
+                moved = rounds * n * (2 * SCATTER_STATE_BYTES[name] + 8)
+                ops = rounds * n * SCATTER_OPS[name]
+            else:
+                # The resident tier's state stays in the L2 through a chunk.
+                moved = STATE_BYTES[name] * n_pad + 8 * n_pad + CHUNK * 16
+                ops = rounds * n_pad * stencil_ops_per_node(algo, 4)
+            bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+            site = sites[kernel][0 if name == "pushsum" else 1]
+            print(f"  {name} {kernel} revive ({label}, {kind} n={n:,}): {ms:.4f} ms a "
+                  f"{rounds}-round chunk against the fault-free instance's {free_ms:.4f} "
+                  f"on the same state ({ms / free_ms:.3f}x), plain {plain_ms:.1f} ms",
+                  flush=True)
+            rows.append({"name": f"{name}_{kernel}_chunk revive", "route": "cuda",
+                         "source": "cop5615_gossip_protocol_tpu_torch/csrc/"
+                                   f"{sites[kernel][2]}",
+                         "replaces": f"cop5615_gossip_protocol_tpu/{site}",
+                         "launches": launches.get(f"{name} {kernel}", 0),
+                         "max_abs_err": max_err[f"{name} {kernel}"],
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                         "library_ms": None, "fault_free_ms": free_ms,
+                         "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+                         "config": label, "status": "ported"})
+    return rows
+
+
 def fail(msg: str) -> int:
     print(f"FAILED: {msg}", file=sys.stderr)
     return 1
@@ -5124,6 +5700,7 @@ def main() -> int:
         try:
             imp_shard_cards(cards)
             pool2_shard_cards(cards)
+            lattice_global_cards(cards)
         except (AssertionError, RuntimeError) as e:
             return fail(str(e))
         print(smi)
@@ -5140,7 +5717,8 @@ def main() -> int:
     try:
         cpu_runs = (worker.apply_async(cpu_scatter_runs),
                     worker.apply_async(cpu_fault_runs),
-                    worker.apply_async(cpu_fault2_runs))
+                    worker.apply_async(cpu_fault2_runs),
+                    worker.apply_async(cpu_revive_runs))
         return run_phases(torch, dev, smi, kernels, cpu_runs, t_main)
     finally:
         worker.terminate()
@@ -5149,7 +5727,7 @@ def main() -> int:
 
 def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
     """Phases 2-15 of the one-card run; ``cpu_runs`` are the worker's
-    pending results for phases 14g, 14j and 14k."""
+    pending results for phases 14g, 14j, 14k and 14n."""
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
     from cop5615_gossip_protocol_tpu_torch.ops import fused_pool, rng
 
@@ -5573,6 +6151,24 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
     try:
         rows += fault3_rows(dev, key, fault3_cases, fault3_launches, fault3_err,
                             {row: by_name[row] for row in FAULT3_ROWS})
+    except (AssertionError, RuntimeError) as e:
+        return fail(str(e))
+    t14m = time.perf_counter()
+    try:
+        shard_global_cases, shard_global_err, shard_global_launches = phase(
+            "14m", shard_global_path, dev, key)
+        cpu_revive = cpu_runs[3].get(timeout=900)
+        revive_cases, revive_err, revive_launches = phase("14n", revive_phase, dev, key,
+                                                          cpu_revive)
+    except Exception as e:
+        return fail(str(e))
+    t15 += time.perf_counter() - t14m  # and 14m-14n's
+    # Rows 15-16 in their global instances, and kernel A, rows 1-2 and rows
+    # 5-6 in their revive instances, beside their other instances.
+    try:
+        rows += shard_global_rows(shard_global_cases, shard_global_launches,
+                                  shard_global_err)
+        rows += revive_rows(revive_cases, revive_launches, revive_err)
     except (AssertionError, RuntimeError) as e:
         return fail(str(e))
     for row in rows:

@@ -10,6 +10,8 @@
     python -m cop5615_gossip_protocol_tpu_torch 16777216 imp3d gossip --delivery pool
     python -m cop5615_gossip_protocol_tpu_torch 1000000 full gossip \\
         --fault-rate 0.2 --crash-schedule 3:10000 --quorum 0.9
+    python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum \\
+        --crash-rate 0.01 --revive-rate 0.2 --rejoin fresh --quorum 0.9
 
 runs on the GPU (``--platform cuda``, the default) or, when asked, on the
 CPU (``--platform cpu``). Flags keep the JAX CLI's names; a JAX CLI flag
@@ -33,8 +35,7 @@ UNPORTED_FLAGS = {
     "--deadline-ms": "A12",
     "--halo-dma": "A10", "--distributed": "A10",
     "--coordinator": "A10", "--num-processes": "A10", "--process-id": "A10",
-    "--replicas": "A9", "--revive-rate": "A6b",
-    "--revive-schedule": "A6b", "--rejoin": "A6b", "--byzantine-rate": "A6c",
+    "--replicas": "A9", "--byzantine-rate": "A6c",
     "--byzantine-schedule": "A6c", "--byzantine-mode": "A6c",
     "--robust-agg": "A6c", "--mass-tolerance": "A6c",
     "--telemetry": "A6d", "--trace-convergence": "A6d",
@@ -91,6 +92,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="deterministic crash-stop schedule: kill COUNT "
                    "uniformly random nodes at each listed round "
                    "(mutually exclusive with --crash-rate)")
+    p.add_argument("--revive-rate", type=float, default=0.0,
+                   help="crash-recovery churn: per-round probability each "
+                   "DEAD node rejoins (geometric dead-time; requires a "
+                   "crash model). Gossip revivals rejoin susceptible; "
+                   "push-sum rejoin semantics per --rejoin")
+    p.add_argument("--revive-schedule", type=str, default=None,
+                   metavar="ROUND:COUNT,...",
+                   help="deterministic recovery schedule: rejoin COUNT "
+                   "uniformly random dead nodes at each listed round "
+                   "(mutually exclusive with --revive-rate; requires a "
+                   "crash model)")
+    p.add_argument("--rejoin", choices=["restore", "fresh"], default="restore",
+                   help="push-sum revival semantics: restore = reclaim the "
+                   "parked (s, w) mass (conserving); fresh = reset to "
+                   "(s=x_i, w=0), discarding parked mass (the modeled "
+                   "fault)")
     p.add_argument("--quorum", type=float, default=1.0,
                    help="crash-model termination: fraction of LIVE nodes "
                    "that must be converged to end the run (default 1.0)")
@@ -194,6 +211,9 @@ def main(argv: Optional[list[str]] = None) -> int:
             fault_rate=args.fault_rate,
             crash_rate=args.crash_rate,
             crash_schedule=args.crash_schedule,
+            revive_rate=args.revive_rate,
+            revive_schedule=args.revive_schedule,
+            rejoin=args.rejoin,
             quorum=args.quorum,
             termination=args.termination,
         )

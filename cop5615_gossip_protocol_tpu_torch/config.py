@@ -9,9 +9,10 @@ grid2d, ref2d, grid3d, torus3d) with stencil (the default) or scatter
 delivery, and reference-semantics push-sum as the single walk.
 ``n_devices``, ``pool2_wire`` and ``overlap_collectives`` configure the
 sharded compositions (models/runner.run says which run); ``fault_rate``,
-``crash_rate``/``crash_schedule`` with ``quorum``, and ``termination``
-set the drop gate, crash-stop with quorum termination and push-sum's
-global termination (ops/faults.py). Every other field keeps its default
+``crash_rate``/``crash_schedule`` with ``quorum``,
+``revive_rate``/``revive_schedule`` with ``rejoin``, and ``termination``
+set the drop gate, crash-stop with quorum termination, crash-recovery and
+push-sum's global termination (ops/faults.py). Every other field keeps its default
 here, and setting it
 to anything else raises NotImplementedError naming the ROADMAP item that
 will port it.
@@ -53,9 +54,6 @@ _CLI_ALGORITHM_ALIASES = {
 # (field, default, ROADMAP item) for every field this slice does not port.
 _UNPORTED = (
     ("dtype", "float32", "A12"),
-    ("revive_rate", 0.0, "A6b"),
-    ("revive_schedule", None, "A6b"),
-    ("rejoin", "restore", "A6b"),
     ("byzantine_rate", 0.0, "A6c"),
     ("byzantine_schedule", None, "A6c"),
     ("byzantine_mode", "mass_inflate", "A6c"),
@@ -190,6 +188,27 @@ class SimConfig:
             from .ops.faults import parse_crash_schedule
 
             parse_crash_schedule(self.crash_schedule)  # fail at config time
+        if not (0.0 <= self.revive_rate < 1.0):
+            raise ValueError("revive_rate must be in [0, 1)")
+        if self.revive_schedule is not None:
+            if self.revive_rate > 0:
+                raise ValueError(
+                    "revive_rate and revive_schedule are mutually exclusive "
+                    "(the schedule IS the recovery process)"
+                )
+            from .ops.faults import parse_schedule
+
+            parse_schedule(self.revive_schedule, "revive")  # same grammar
+        if self.revive_model and not self.crash_model:
+            raise ValueError(
+                "revive_rate/revive_schedule describe how CRASHED nodes "
+                "rejoin; without crash_rate/crash_schedule there is nothing "
+                "to revive — the flags would silently mean nothing"
+            )
+        if self.rejoin not in ("restore", "fresh"):
+            raise ValueError(
+                f"unknown rejoin {self.rejoin!r}; expected restore|fresh"
+            )
         if not (0.0 < self.quorum <= 1.0):
             raise ValueError(f"quorum must be in (0, 1], got {self.quorum}")
         for lint in self.lint_warnings:
@@ -322,6 +341,12 @@ class SimConfig:
     def crash_model(self) -> bool:
         """True when nodes can die (ops/faults.death_plane is not None)."""
         return self.crash_rate > 0.0 or self.crash_schedule is not None
+
+    @property
+    def revive_model(self) -> bool:
+        """True when crashed nodes can rejoin (ops/faults.revival_plane is
+        not None)."""
+        return self.revive_rate > 0.0 or self.revive_schedule is not None
 
     @property
     def lint_warnings(self) -> tuple[str, ...]:

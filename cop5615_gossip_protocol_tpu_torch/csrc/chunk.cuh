@@ -274,12 +274,14 @@ __global__ void gossip_finish(GossipPlanes a, GossipPlanes b, int n_pad,
 // csrc/fused_resident.cu): the input into A, and the done flag seeded from
 // the input's converged live count at `seed_round` (the round before the
 // chunk) against `target` (that round's quorum need); `death` is the death
-// plane over the padded layout (pad lanes 0).
+// plane over the padded layout (pad lanes 0), `revive` the revival plane
+// (pad lanes never; null: crash-stop).
 __global__ void pushsum_init_live(const float* __restrict__ s0,
                                   const float* __restrict__ w0,
                                   const int* __restrict__ t0,
                                   const int* __restrict__ c0, PushSumPlanes a,
-                                  int n_pad, const int* death, int seed_round,
+                                  int n_pad, const int* death,
+                                  const int* revive, int seed_round,
                                   int* total, unsigned* ticket, int* ctrl,
                                   int target) {
   int converged = 0;
@@ -289,7 +291,7 @@ __global__ void pushsum_init_live(const float* __restrict__ s0,
     a.w[j] = w0[j];
     a.term[j] = t0[j];
     a.conv[j] = c0[j];
-    if (alive_in(death[j], seed_round)) converged += c0[j];
+    if (node_alive(death, revive, j, seed_round)) converged += c0[j];
   }
   finish_count(block_sum(converged), total, ticket, ctrl, target, false);
 }
@@ -297,7 +299,8 @@ __global__ void pushsum_init_live(const float* __restrict__ s0,
 __global__ void gossip_init_live(const int* __restrict__ n0,
                                  const int* __restrict__ a0,
                                  const int* __restrict__ c0, GossipPlanes a,
-                                 int n_pad, const int* death, int seed_round,
+                                 int n_pad, const int* death,
+                                 const int* revive, int seed_round,
                                  int* total, unsigned* ticket, int* ctrl,
                                  int target) {
   int converged = 0;
@@ -306,7 +309,7 @@ __global__ void gossip_init_live(const int* __restrict__ n0,
     a.count[j] = n0[j];
     a.active[j] = a0[j];
     a.conv[j] = c0[j];
-    if (alive_in(death[j], seed_round)) converged += c0[j];
+    if (node_alive(death, revive, j, seed_round)) converged += c0[j];
   }
   finish_count(block_sum(converged), total, ticket, ctrl, target, false);
 }

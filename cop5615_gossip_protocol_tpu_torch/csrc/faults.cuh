@@ -2,9 +2,10 @@
 // scatter.cu), the pool kernels (csrc/fused_pool.cu, csrc/fused_pool2.cu),
 // the lattice and imp kernels (csrc/fused_resident.cu, csrc/fused_stencil.cu,
 // csrc/fused_imp.cu) and the shard kernels (csrc/fused_imp_hbm_shard.cu,
-// csrc/fused_pool2_shard.cu) share: the drop gate, the alive test of the
-// crash model, the frozen state of a dead node, the global-termination
-// residual, absorb and latch (ops/faults.py, ops/sampling.send_gate,
+// csrc/fused_pool2_shard.cu, csrc/fused_stencil_shard.cu,
+// csrc/fused_stencil_hbm_shard.cu) share: the drop gate, the alive test of
+// the crash and recovery models, the rejoin reset's trigger, the frozen
+// state of a dead node, the global-termination residual, absorb and latch (ops/faults.py, ops/sampling.send_gate,
 // models/pushsum.absorb_global), and the chunk kernels' fault inputs with
 // the mark that folds the gate and the dead in.
 //
@@ -40,6 +41,49 @@ GOSSIP_HD bool gate_open(uint32_t g1, uint32_t g2, uint32_t thresh, int j) {
 
 // Whether a node with death round `death` is alive during round `round`.
 GOSSIP_HD bool alive_in(int death, int round) { return death > round; }
+
+// The same under a recovery model, with revival round `revive`: dead
+// exactly during death <= round < revive.
+GOSSIP_HD bool alive_in(int death, int revive, int round) {
+  return death > round || revive <= round;
+}
+
+// Node j's alive test of round `round` from nullable death and revival
+// planes (no death plane: alive; no revival plane: crash-stop).
+GOSSIP_HD bool node_alive(const int* death, const int* revive, int j,
+                          int round) {
+  if (death == nullptr) return true;
+  return revive == nullptr ? alive_in(death[j], round)
+                           : alive_in(death[j], revive[j], round);
+}
+
+// Whether node j rejoins in round `round` with a reset of its state: it
+// revives then (a revival plane, not null) and the run's rejoin resets a
+// revived node (`reset`: gossip always, push-sum under rejoin="fresh").
+// Every reader of node j's round-start state in round `round` takes the
+// reset value then (models/runner.make_revive_fn: push-sum (s = j, w = 0,
+// term = initial, conv = 0), gossip (count 0, inactive, conv 0)), so the
+// stored planes keep the un-reset state until that round runs.
+GOSSIP_HD bool rejoins(const int* revive, int reset, int j, int round) {
+  return reset && revive != nullptr && revive[j] == round;
+}
+
+// Node j's round-start push-sum state (s, w, term, conv) where it rejoins
+// with a reset (`rn`): (j, 0, the initial term, 0); as it is otherwise.
+GOSSIP_HD void rejoin_pushsum(bool rn, int j, int init_term, float& s, float& w,
+                              int& term, int& conv) {
+  if (rn) {
+    s = (float)j;
+    w = 0.0f;
+    term = init_term;
+    conv = 0;
+  }
+}
+
+// The same for gossip's (count, active, conv): (0, 0, 0).
+GOSSIP_HD void rejoin_gossip(bool rn, int& count, int& active, int& conv) {
+  if (rn) count = active = conv = 0;
+}
 
 // A node's protocol value after a round: the new one if it was alive, the
 // old one (frozen) if it was dead.
@@ -85,14 +129,31 @@ GOSSIP_HD int latched_conv(bool latch, int j, int n, int conv) {
 // gate; each round's gate key is its round key folded with the gate tag,
 // gate_key, once a thread a round), each node's death round over the
 // padded layout (pad lanes 0; null: no crash model) with each chunk
-// round's quorum need, the chunk's first absolute round, and global
-// termination (push-sum).
+// round's quorum need, the chunk's first absolute round, global
+// termination (push-sum), and under a recovery model each node's revival
+// round over the layout (pad lanes never; null: crash-stop), whether a
+// revived node resets and push-sum's initial term (csrc/fused_pool.cu and
+// csrc/fused_resident.cu carry it; the other kernels' plans refuse it).
 struct Faults {
   uint32_t thresh;
   const int* death;
   const int* needs;
   int start, global;
+  const int* revive = nullptr;
+  int reset = 0, init_term = 0;
 };
+
+// A sender's mark bit under a recovery model with push-sum's fresh rejoin
+// (csrc/fused_pool.cu, csrc/fused_resident.cu, their faulted instances):
+// set on the mark of a node that rejoins in the round the mark is for, so
+// its receivers take its reset state, (s = its index, w = 0), in place of
+// the stored one. Marks are class or slot indices below 16.
+constexpr int8_t kRejoinBit = 16;
+
+// Whether a sender's mark `m` (kRejoinBit maybe set) is class or slot k.
+GOSSIP_HD bool mark_hit(int8_t m, int k) {
+  return (int8_t)(m & ~kRejoinBit) == k;
+}
 
 // Node j's mark for chunk round k (absolute round f.start + k) under F:
 // its mark, or -1 when the round's gate (key (g1, g2)) blocks it or it is
@@ -101,9 +162,24 @@ template <bool F>
 GOSSIP_HD int8_t faulted_mark(int8_t mark, const Faults& f, int k, uint32_t g1,
                               uint32_t g2, int j) {
   if (!F || mark < 0) return mark;
-  if (f.death != nullptr && !alive_in(f.death[j], f.start + k)) return (int8_t)-1;
+  if (!node_alive(f.death, f.revive, j, f.start + k)) return (int8_t)-1;
   if (!gate_open(g1, g2, f.thresh, j)) return (int8_t)-1;
   return mark;
+}
+
+// Node j's mark for chunk round k in a faulted instance that carries
+// crash-recovery: -1 if it is not active (gossip's flag; push-sum passes
+// true), else its mark less the gate and the dead (faulted_mark). A node
+// that rejoins in round k with a reset starts it inactive, so a gossip
+// node's (`gossip_node`) mark is -1, and a push-sum node's carries
+// kRejoinBit.
+GOSSIP_HD int8_t rejoin_mark(int8_t mark, bool active, bool gossip_node,
+                             const Faults& f, int k, uint32_t g1, uint32_t g2,
+                             int j) {
+  const bool rn = rejoins(f.revive, f.reset, j, f.start + k);
+  if (!active || (gossip_node && rn)) return (int8_t)-1;
+  const int8_t m = faulted_mark<true>(mark, f, k, g1, g2, j);
+  return m >= 0 && rn ? (int8_t)(m | kRejoinBit) : m;
 }
 
 // The gate key of the round whose fold_in key is (k0, k1), under F with a
@@ -121,7 +197,7 @@ GOSSIP_HD void round_gate_key(const Faults& f, uint32_t k0, uint32_t k1,
 // over its tests, so a thread's nodes issue their gate hashes together.
 GOSSIP_HD bool send_flag(const Faults& f, bool active, int j, int n, int k,
                          uint32_t g1, uint32_t g2) {
-  const bool alive = f.death == nullptr || alive_in(f.death[j], f.start + k);
+  const bool alive = node_alive(f.death, f.revive, j, f.start + k);
   return active & (j < n) & alive & gate_open(g1, g2, f.thresh, j);
 }
 

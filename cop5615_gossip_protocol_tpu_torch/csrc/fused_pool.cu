@@ -86,7 +86,19 @@
 // verdict from the need of round start - 1. Under global termination term
 // and conv stay, the barrier word counts the real nodes whose ratio moved
 // more than delta * max(|s/w|, 1), and the round where none did latches
-// conv on every real node.
+// conv on every real node. Under a recovery model (the JAX kernels'
+// revived and fresh_rejoin, ops/fused_pool.py:626-646, :975-980) a node is
+// alive again from its revival round on; where it rejoins with a reset
+// (gossip always, push-sum under rejoin="fresh") every reader of its
+// round-start state in that round takes the reset value: its own absorb
+// (term and conv too, which it alone reads and writes in place, so the
+// quorum count never sees a half-reset node), and its receivers through the
+// mark its owner writes a round ahead: -1 for gossip (a rejoined node is
+// inactive), with csrc/faults.cuh's kRejoinBit for push-sum (the receivers
+// take half of (j, 0)). The stored planes stay un-reset until the round
+// runs, so a chunk that ends just before it hands back the state a resume
+// expects. The init launch seeds the verdict from the live nodes of round
+// start - 1, revivals counted.
 //
 // Numerics: built without fast math, with -fmad=false and denormals kept
 // (utils/kernels.py), and the slot sums run from 0.0 in ascending slot
@@ -106,7 +118,6 @@ using gossip::GossipPlanes;
 using gossip::PushSumPlanes;
 using gossip::block_sum;
 using gossip::cooperative_grid;
-using gossip::faulted_mark;
 using gossip::kBlock;
 using gossip::kChoicePack;
 using gossip::pool_mark;
@@ -173,10 +184,13 @@ __device__ __forceinline__ void prologue_marks(int8_t* mark,
     const uint32_t word = pool_word(k0, k1, word_node(wi, 0));
     for (int sub = 0; sub < kChoicePack; ++sub) {
       const int j = word_node(wi, sub);
-      mark[j] = faulted_mark<F>(flags == nullptr || (flags[j] & kActive)
-                                    ? pool_mark(word, j, n, P)
-                                    : (int8_t)-1,
-                                f, 0, g1, g2, j);
+      if constexpr (F)
+        mark[j] = gossip::rejoin_mark(pool_mark(word, j, n, P),
+                                      flags == nullptr || (flags[j] & kActive),
+                                      flags != nullptr, f, 0, g1, g2, j);
+      else
+        mark[j] = flags == nullptr || (flags[j] & kActive) ? pool_mark(word, j, n, P)
+                                                           : (int8_t)-1;
     }
   }
 }
@@ -237,9 +251,14 @@ __global__ void pushsum_rounds(PushSumChunk c) {
           c_old[h] = a.conv[j];
           in_s[h] = 0.0f;
           in_w[h] = 0.0f;
-          if (j < c.n)
-            gossip::pool_pushsum_inbox<P>(od, mk, cur_s, cur_w, j, c.n, in_s[h],
-                                          in_w[h]);
+          if (j < c.n) {
+            if constexpr (F)
+              gossip::pool_pushsum_inbox_rejoin<P>(od, mk, cur_s, cur_w, j,
+                                                   c.n, in_s[h], in_w[h]);
+            else
+              gossip::pool_pushsum_inbox<P>(od, mk, cur_s, cur_w, j, c.n,
+                                            in_s[h], in_w[h]);
+          }
         }
 #pragma unroll
         for (int h = 0; h < kPushSumStep; ++h) {
@@ -261,9 +280,13 @@ __global__ void pushsum_rounds(PushSumChunk c) {
             count += cv;
           } else {
             // A node sends iff its mark is set; a dead node's term and conv
-            // stay, and only live nodes count.
-            const bool alive = c.f.death == nullptr ||
-                               gossip::alive_in(c.f.death[j], c.f.start + r);
+            // stay, and only live nodes count. A fresh rejoin starts the
+            // round at (j, 0, initial term, 0).
+            const bool alive =
+                gossip::node_alive(c.f.death, c.f.revive, j, c.f.start + r);
+            gossip::rejoin_pushsum(
+                gossip::rejoins(c.f.revive, c.f.reset, j, c.f.start + r), j,
+                c.f.init_term, s_t[h], w_t[h], t_old[h], c_old[h]);
             int cv = gossip::pushsum_absorb(
                 s_t[h], w_t[h], [&] { return t_old[h]; },
                 [&] { return c_old[h] != 0; }, pad, mk[j] >= 0, in_s[h],
@@ -280,8 +303,8 @@ __global__ void pushsum_rounds(PushSumChunk c) {
               a.conv[j] = cv;
             }
             if (next)
-              next[j] = faulted_mark<F>(pool_mark(word, j, c.n, P), c.f, r + 1,
-                                        g1, g2, j);
+              next[j] = gossip::rejoin_mark(pool_mark(word, j, c.n, P), true, false, c.f,
+                                  r + 1, g1, g2, j);
             count += alive ? cv : 0;
           }
         }
@@ -330,8 +353,8 @@ __global__ void pushsum_finish(PushSumChunk c) {
 __global__ void gossip_init(GossipChunk c, const int* __restrict__ n0,
                             const int* __restrict__ a0,
                             const int* __restrict__ c0, const int* death,
-                            int seed_round, int target, int* total,
-                            unsigned* ticket) {
+                            const int* revive, int seed_round, int target,
+                            int* total, unsigned* ticket) {
   int converged = 0;
   for (int j = blockIdx.x * kBlock + threadIdx.x; j < c.n_pad;
        j += gridDim.x * kBlock) {
@@ -340,8 +363,7 @@ __global__ void gossip_init(GossipChunk c, const int* __restrict__ n0,
     c.a.conv[j] = c0[j];
     c.flags[j] =
         (int8_t)((a0[j] != 0 ? kActive : 0) | (c0[j] != 0 ? kConv : 0));
-    if (death == nullptr || gossip::alive_in(death[j], seed_round))
-      converged += c0[j];
+    if (gossip::node_alive(death, revive, j, seed_round)) converged += c0[j];
   }
   gossip::finish_count(block_sum(converged), total, ticket, c.ctrl, target,
                        false);
@@ -402,9 +424,15 @@ __global__ void gossip_rounds(GossipChunk c) {
               next[j] = act ? pool_mark(word, j, c.n, P) : (int8_t)-1;
             count += cv;
           } else {
-            // A dead node's receipts are dropped; only live nodes count.
-            const bool alive = c.f.death == nullptr ||
-                               gossip::alive_in(c.f.death[j], c.f.start + r);
+            // A dead node's receipts are dropped; only live nodes count. A
+            // node that rejoins this round starts it at (0, inactive, 0).
+            const bool alive =
+                gossip::node_alive(c.f.death, c.f.revive, j, c.f.start + r);
+            if (gossip::rejoins(c.f.revive, c.f.reset, j, c.f.start + r)) {
+              int act0, cv0;
+              gossip::rejoin_gossip(true, count0[h], act0, cv0);
+              flags0[h] = (act0 ? kActive : 0) | (cv0 ? kConv : 0);
+            }
             const int cv = gossip::gossip_absorb(
                 [&] { return (flags0[h] & kConv) != 0; },
                 [&] { return count0[h]; }, [&] { return flags0[h] & kActive; },
@@ -413,9 +441,8 @@ __global__ void gossip_rounds(GossipChunk c) {
             c.a.count[j] = cnt;
             c.flags[j] = (int8_t)((act ? kActive : 0) | (cv ? kConv : 0));
             if (next)
-              next[j] = act ? faulted_mark<F>(pool_mark(word, j, c.n, P), c.f,
-                                              r + 1, g1, g2, j)
-                            : (int8_t)-1;
+              next[j] = gossip::rejoin_mark(pool_mark(word, j, c.n, P), act, true, c.f,
+                                  r + 1, g1, g2, j);
             count += alive ? cv : 0;
           }
         }
@@ -469,7 +496,8 @@ cudaError_t queue_pushsum(PushSumChunk c, const float* s0, const float* w0,
   int* init_words = (int*)(c.words + c.rounds + 1);
   if (F && c.f.death != nullptr)
     gossip::pushsum_init_live<<<grid, kBlock, 0, stream>>>(
-        s0, w0, t0, c0, c.a, c.n_pad, c.f.death, c.f.start - 1, init_words,
+        s0, w0, t0, c0, c.a, c.n_pad, c.f.death, c.f.revive, c.f.start - 1,
+        init_words,
         (unsigned*)(init_words + 1), c.ctrl, need_init);
   else
     gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
@@ -497,7 +525,7 @@ cudaError_t queue_gossip(GossipChunk c, const int* n0, const int* a0,
   int* init_words = (int*)(c.words + c.rounds + 1);
   const bool crash = F && c.f.death != nullptr;
   gossip_init<<<grid, kBlock, 0, stream>>>(
-      c, n0, a0, c0, crash ? c.f.death : nullptr, c.f.start - 1,
+      c, n0, a0, c0, crash ? c.f.death : nullptr, c.f.revive, c.f.start - 1,
       crash ? need_init : c.target, init_words, (unsigned*)(init_words + 1));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -554,7 +582,8 @@ extern "C" int gossip_pushsum_pool_chunk(
     const long long* keys, const int* offs, int* ctrl, int n, int n_pad,
     int pool_size, int rounds, float delta, int term_rounds, int target,
     int faulted, unsigned thresh, const int* death, const int* needs,
-    int need_init, int start, int global, int device, void* stream_ptr) {
+    int need_init, int start, const int* revive, int reset, int init_term,
+    int global, int device, void* stream_ptr) {
   if (!valid_chunk(n, n_pad, pool_size, rounds))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -567,7 +596,8 @@ extern "C" int gossip_pushsum_pool_chunk(
                        s_b, w_b, mark, keys, offs, n, n_pad, rounds, delta,
                        term_rounds, target,
                        (unsigned long long*)(ctrl + 2), ctrl,
-                       Faults{thresh, death, needs, start, global}};
+                       Faults{thresh, death, needs, start, global, revive,
+                              reset, init_term}};
   GOSSIP_POOL_DISPATCH(queue_pushsum, faulted, c, s0, w0, t0, c0, need_init,
                        device, stream)
 }
@@ -578,7 +608,8 @@ extern "C" int gossip_gossip_pool_chunk(
     const int* offs, int* ctrl, int n, int n_pad,
     int pool_size, int rounds, int rumor_target, int suppress, int target,
     int faulted, unsigned thresh, const int* death, const int* needs,
-    int need_init, int start, int device, void* stream_ptr) {
+    int need_init, int start, const int* revive, int reset, int device,
+    void* stream_ptr) {
   if (!valid_chunk(n, n_pad, pool_size, rounds))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -590,7 +621,7 @@ extern "C" int gossip_gossip_pool_chunk(
   const GossipChunk c{GossipPlanes{count, active, conv}, flags, mark, keys,
                       offs, n, n_pad, rounds, rumor_target, suppress, target,
                       (unsigned long long*)(ctrl + 2), ctrl,
-                      Faults{thresh, death, needs, start, 0}};
+                      Faults{thresh, death, needs, start, 0, revive, reset, 0}};
   GOSSIP_POOL_DISPATCH(queue_gossip, faulted, c, n0, a0, c0, need_init, device,
                        stream)
 }

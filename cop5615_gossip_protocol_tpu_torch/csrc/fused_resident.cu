@@ -87,7 +87,16 @@
 // termination term and conv stay, the barrier word counts the real nodes
 // whose ratio moved more than delta * max(|s/w|, 1), and the round where
 // none did latches conv on every real node (j < n: the pad lanes of both
-// tiers' layouts stay out of the count and the latch). The fault planes are
+// tiers' layouts stay out of the count and the latch). Under a recovery
+// model (the JAX fused.py:499-509, :821-832) a node is alive again from its
+// revival round on; where it rejoins with a reset (gossip always, push-sum
+// under rejoin="fresh") every reader of its round-start state in that
+// round takes the reset value: its own absorb, and its receivers through
+// its mark, which the pass before (or the prologue) writes -1 for gossip
+// (a rejoined node is inactive) and with csrc/faults.cuh's kRejoinBit for
+// push-sum (the receivers take half of (j, 0)). The stored planes stay
+// un-reset until the round runs, so a chunk that ends just before it hands
+// back the state a resume expects. The fault planes are
 // read-only in the round loop, and a node's term and conv are written only
 // by the thread that owns it, so no pass is split and no block leaves the
 // loop alone.
@@ -113,7 +122,6 @@ using gossip::GossipPlanes;
 using gossip::PushSumPlanes;
 using gossip::block_sum;
 using gossip::cooperative_grid;
-using gossip::faulted_mark;
 using gossip::kBlock;
 using gossip::round_barrier;
 using gossip::round_gate_key;
@@ -132,10 +140,12 @@ __device__ __forceinline__ void prologue_marks(int8_t* mark, const int* active,
   uint32_t g1, g2;
   round_gate_key<F>(f, k0, k1, g1, g2);
   for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
-       j += gridDim.x * kBlock)
-    mark[j] = active == nullptr || active[j] != 0
-                  ? faulted_mark<F>(word_mark(dirs[j], k0, k1, j), f, 0, g1, g2, j)
-                  : (int8_t)-1;
+       j += gridDim.x * kBlock) {
+    const bool on = active == nullptr || active[j] != 0;
+    mark[j] = F ? gossip::rejoin_mark(word_mark(dirs[j], k0, k1, j), on,
+                                      active != nullptr, f, 0, g1, g2, j)
+                : (on ? word_mark(dirs[j], k0, k1, j) : (int8_t)-1);
+  }
 }
 
 // ---------------------------------------------------------------- push-sum
@@ -171,7 +181,12 @@ __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
          j += gridDim.x * kBlock) {
       const bool pad = j >= n;
       float in_s = 0.0f, in_w = 0.0f;
-      if (!pad) gossip::pushsum_inbox(cls, mk, cur.s, cur.w, j, n, in_s, in_w);
+      if (!pad) {
+        if constexpr (F)
+          gossip::pushsum_inbox_rejoin(cls, mk, cur.s, cur.w, j, n, in_s, in_w);
+        else
+          gossip::pushsum_inbox(cls, mk, cur.s, cur.w, j, n, in_s, in_w);
+      }
       if constexpr (!F) {
         // mk[j] < 0 on pad lanes and degree 0: those keep their mass.
         c += gossip::pushsum_absorb_node(cur, nxt, j, pad, mk[j] >= 0, in_s,
@@ -180,11 +195,13 @@ __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
       } else {
         // A node sends iff its mark is set (blocked and dead nodes keep
         // their mass); a dead node's term and conv stay, and only live
-        // nodes count.
-        const bool alive =
-            f.death == nullptr || gossip::alive_in(f.death[j], f.start + r);
-        const float s_t = cur.s[j], w_t = cur.w[j];
-        const int t_old = cur.term[j], c_old = cur.conv[j];
+        // nodes count. A fresh rejoin starts the round at (j, 0, initial
+        // term, 0).
+        const bool alive = gossip::node_alive(f.death, f.revive, j, f.start + r);
+        float s_t = cur.s[j], w_t = cur.w[j];
+        int t_old = cur.term[j], c_old = cur.conv[j];
+        gossip::rejoin_pushsum(gossip::rejoins(f.revive, f.reset, j, f.start + r),
+                               j, f.init_term, s_t, w_t, t_old, c_old);
         float s_new, w_new;
         int t_new;
         int cv = gossip::pushsum_absorb(
@@ -202,8 +219,8 @@ __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
           nxt.conv[j] = cv;
         }
         if (next)
-          next[j] = faulted_mark<F>(word_mark(dirs[j], k0, k1, j), f, r + 1, g1,
-                                    g2, j);
+          next[j] = gossip::rejoin_mark(word_mark(dirs[j], k0, k1, j), true,
+                                        false, f, r + 1, g1, g2, j);
         c += alive ? cv : 0;
       }
     }
@@ -261,21 +278,27 @@ __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
     for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
          j += gridDim.x * kBlock) {
       const bool pad = j >= n;
-      const bool alive = !F || f.death == nullptr ||
-                         gossip::alive_in(f.death[j], f.start + r);
+      const bool alive =
+          !F || gossip::node_alive(f.death, f.revive, j, f.start + r);
+      // A node that rejoins this round starts it at (0, inactive, 0).
+      const bool rn = F && gossip::rejoins(f.revive, f.reset, j, f.start + r);
       const int inbox = pad || !alive ? 0 : gossip::gossip_inbox(cls, mk, j, n);
       int cnt, act;
       const int cv = gossip::gossip_absorb(
-          [&] { return cur.conv[j] != 0; }, [&] { return cur.count[j]; },
-          [&] { return cur.active[j]; }, pad, inbox, rumor_target, suppress,
-          cnt, act);
+          [&] { return !rn && cur.conv[j] != 0; },
+          [&] { return rn ? 0 : cur.count[j]; },
+          [&] { return rn ? 0 : cur.active[j]; }, pad, inbox, rumor_target,
+          suppress, cnt, act);
       nxt.count[j] = cnt;
       nxt.active[j] = act;
       nxt.conv[j] = cv;
-      if (next)
-        next[j] = act ? faulted_mark<F>(word_mark(dirs[j], k0, k1, j), f, r + 1,
-                                        g1, g2, j)
-                      : (int8_t)-1;
+      if (next) {
+        if constexpr (F)
+          next[j] = gossip::rejoin_mark(word_mark(dirs[j], k0, k1, j), act,
+                                        true, f, r + 1, g1, g2, j);
+        else
+          next[j] = act ? word_mark(dirs[j], k0, k1, j) : (int8_t)-1;
+      }
       c += alive ? cv : 0;
     }
     if constexpr (!F) {
@@ -313,7 +336,7 @@ cudaError_t queue_pushsum(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
   int* init_words = (int*)(words + rounds + 1);
   if (F && f.death != nullptr)
     gossip::pushsum_init_live<<<grid, kBlock, 0, stream>>>(
-        s0, w0, t0, c0, a, n_pad, f.death, f.start - 1, init_words,
+        s0, w0, t0, c0, a, n_pad, f.death, f.revive, f.start - 1, init_words,
         (unsigned*)(init_words + 1), ctrl, need_init);
   else
     gossip::pushsum_init<<<grid, kBlock, 0, stream>>>(
@@ -346,7 +369,7 @@ cudaError_t queue_gossip(GossipPlanes a, GossipPlanes b, int8_t* mark,
   int* init_words = (int*)(words + rounds + 1);
   if (F && f.death != nullptr)
     gossip::gossip_init_live<<<grid, kBlock, 0, stream>>>(
-        n0, a0, c0, a, n_pad, f.death, f.start - 1, init_words,
+        n0, a0, c0, a, n_pad, f.death, f.revive, f.start - 1, init_words,
         (unsigned*)(init_words + 1), ctrl, need_init);
   else
     gossip::gossip_init<<<grid, kBlock, 0, stream>>>(
@@ -386,7 +409,9 @@ cudaError_t queue_gossip(GossipPlanes a, GossipPlanes b, int8_t* mark,
 // kernels' faulted instance, with the gate threshold (0: none), the death
 // plane int32[n_pad] and the rounds' quorum needs int32[rounds] on the
 // device (null: no crash model), the seed need of round start - 1, the
-// chunk's first absolute round and (push-sum) global termination.
+// chunk's first absolute round, the revival plane int32[n_pad] (null: no
+// recovery model), whether a revived node resets, (push-sum) the initial
+// term and global termination.
 
 extern "C" int gossip_pushsum_resident_chunk(
     const float* s0, const float* w0, const int* t0, const int* c0, float* s,
@@ -395,8 +420,8 @@ extern "C" int gossip_pushsum_resident_chunk(
     int* ctrl, const int* classes, int n_classes, int kind, int n,
     int extra_node, int n_pad, int rounds, float delta, int term_rounds,
     int target, int faulted, unsigned thresh, const int* death,
-    const int* needs, int need_init, int start, int global, int device,
-    void* stream_ptr) {
+    const int* needs, int need_init, int start, const int* revive, int reset,
+    int init_term, int global, int device, void* stream_ptr) {
   gossip::Lattice L;
   Classes cls;
   if (rounds < 0 ||
@@ -411,7 +436,7 @@ extern "C" int gossip_pushsum_resident_chunk(
   const PushSumPlanes a{s, w, term, conv};
   const PushSumPlanes b{s_b, w_b, term_b, conv_b};
   unsigned long long* words = (unsigned long long*)(ctrl + 2);
-  const Faults f{thresh, death, needs, start, global};
+  const Faults f{thresh, death, needs, start, global, revive, reset, init_term};
   return (int)(faulted
                    ? queue_pushsum<true>(a, b, mark, keys, dirs, cls, n, n_pad,
                                          rounds, delta, term_rounds, target,
@@ -429,8 +454,8 @@ extern "C" int gossip_gossip_resident_chunk(
     const long long* keys, const int* dirs, int* ctrl, const int* classes,
     int n_classes, int kind, int n, int extra_node, int n_pad, int rounds,
     int rumor_target, int suppress, int target, int faulted, unsigned thresh,
-    const int* death, const int* needs, int need_init, int start, int device,
-    void* stream_ptr) {
+    const int* death, const int* needs, int need_init, int start,
+    const int* revive, int reset, int device, void* stream_ptr) {
   gossip::Lattice L;
   Classes cls;
   if (rounds < 0 ||
@@ -445,7 +470,7 @@ extern "C" int gossip_gossip_resident_chunk(
   const GossipPlanes a{count, active, conv};
   const GossipPlanes b{count_b, active_b, conv_b};
   unsigned long long* words = (unsigned long long*)(ctrl + 2);
-  const Faults f{thresh, death, needs, start, 0};
+  const Faults f{thresh, death, needs, start, 0, revive, reset, 0};
   return (int)(faulted
                    ? queue_gossip<true>(a, b, mark, keys, dirs, cls, n, n_pad,
                                         rounds, rumor_target, suppress, target,

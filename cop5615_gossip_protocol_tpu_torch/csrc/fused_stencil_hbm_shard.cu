@@ -83,7 +83,11 @@ __global__ void shard_prologue(int8_t* mark, const int* active,
 }
 
 // Round j over rows [lo, hi) = W_j: reads `mark`, writes `next` (round
-// j + 1's marks under `key`) unless it is null.
+// j + 1's marks under `key`) unless it is null. Global: global termination,
+// as in csrc/fused_stencil_shard.cu: term and conv stream through and u_j
+// counts the middle's real nodes whose ratio moved more than the global
+// rule allows.
+template <bool Global>
 __global__ void pushsum_shard_round(PushSumPlanes src, PushSumPlanes dst,
                                     const int8_t* __restrict__ mark,
                                     int8_t* __restrict__ next,
@@ -106,8 +110,13 @@ __global__ void pushsum_shard_round(PushSumPlanes src, PushSumPlanes dst,
       gossip::shard_pushsum_inbox(sc, mark, src.s, src.w, x, g, n_ext, in_s,
                                   in_w);
     // mark[x] < 0 on pad lanes and degree 0: those keep their mass.
-    const int cv = gossip::pushsum_absorb_node(src, dst, x, pad, mark[x] >= 0,
-                                               in_s, in_w, delta, term_rounds);
+    int cv;
+    if constexpr (Global)
+      cv = gossip::pushsum_absorb_global_node(src, dst, x, pad, mark[x] >= 0,
+                                              in_s, in_w, delta);
+    else
+      cv = gossip::pushsum_absorb_node(src, dst, x, pad, mark[x] >= 0, in_s,
+                                       in_w, delta, term_rounds);
     if (next) next[x] = word_mark(dirs[g], k0, k1, g);
     c += gossip::shard_middle(G, x) ? cv : 0;
   }
@@ -169,8 +178,8 @@ void round_marks(int8_t* mark, int n_ext, int j, int rounds, int8_t** cur,
 
 // ------------------------------------------------------------- C interface
 //
-// The arguments of csrc/fused_stencil_shard.cu's entry points, without the
-// barrier words; mark is int8[2 * rows_ext * 128]. Each queues rounds + 1
+// The arguments of csrc/fused_stencil_shard.cu's entry points (push-sum's
+// global flag included), without the barrier words; mark is int8[2 * rows_ext * 128]. Each queues rounds + 1
 // launches (the prologue, then one a round) on `stream` of CUDA device
 // `device` and returns the first error (a cudaError_t), 0 if none.
 
@@ -180,8 +189,8 @@ extern "C" int gossip_pushsum_stencil_hbm_shard_superstep(
     int* conv_y, int8_t* mark, const long long* keys, const int* dirs,
     const int* classes, const int* e1, const int* e2, const int* win,
     int n_classes, int n, int R, int row0, int rows_ext, int H, int rows_loc,
-    int rounds, int cr, float delta, int term_rounds, int* u, const int* ctrl,
-    int device, void* stream_ptr) {
+    int rounds, int cr, float delta, int term_rounds, int global, int* u,
+    const int* ctrl, int device, void* stream_ptr) {
   ShardClasses sc;
   ShardGeom G;
   ShardWindows W;
@@ -194,7 +203,8 @@ extern "C" int gossip_pushsum_stencil_hbm_shard_superstep(
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int n_ext = rows_ext * 128;
   const int mark_grid = grid_for(shard_prologue, n_ext, device);
-  const int round_grid = grid_for(pushsum_shard_round, n_ext, device);
+  const int round_grid = global ? grid_for(pushsum_shard_round<true>, n_ext, device)
+                                : grid_for(pushsum_shard_round<false>, n_ext, device);
   const PushSumPlanes in{(float*)s0, (float*)w0, (int*)t0, (int*)c0};
   const PushSumPlanes out{s, w, term, conv};
   const PushSumPlanes y{s_y, w_y, term_y, conv_y};
@@ -207,9 +217,14 @@ extern "C" int gossip_pushsum_stencil_hbm_shard_superstep(
     int8_t *cur, *next;
     round_sets(in, out, y, j, rounds, &src, &dst);
     round_marks(mark, n_ext, j, rounds, &cur, &next);
-    pushsum_shard_round<<<round_grid, kBlock, 0, stream>>>(
-        src, dst, cur, next, keys + 2 * (j + 1), dirs, n, sc, G, W.lo[j + 1],
-        W.hi[j + 1], delta, term_rounds, u + j, ctrl);
+    if (global)
+      pushsum_shard_round<true><<<round_grid, kBlock, 0, stream>>>(
+          src, dst, cur, next, keys + 2 * (j + 1), dirs, n, sc, G, W.lo[j + 1],
+          W.hi[j + 1], delta, term_rounds, u + j, ctrl);
+    else
+      pushsum_shard_round<false><<<round_grid, kBlock, 0, stream>>>(
+          src, dst, cur, next, keys + 2 * (j + 1), dirs, n, sc, G, W.lo[j + 1],
+          W.hi[j + 1], delta, term_rounds, u + j, ctrl);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

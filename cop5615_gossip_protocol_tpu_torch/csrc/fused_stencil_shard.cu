@@ -19,8 +19,11 @@
 // then the absorb of csrc/chunk.cuh. Every round runs: convergence is the
 // host schedule's verdict at super-step boundaries (parallel/overlap.py),
 // from u[r], the converged count over the shard's middle rows after round
-// r. Round j computes only its window W_j (csrc/shard.cuh's contract), the
-// rows the middle still depends on, which the host passes in.
+// r; under push-sum's global termination (the Global instance) u[r] is the
+// middle's unstable count and the host takes the exact stop round from it
+// (parallel/fused_sharded.py global_verdict). Round j computes only its
+// window W_j (csrc/shard.cuh's contract), the rows the middle still depends
+// on, which the host passes in.
 //
 // What bounds it on this card: launches, grid barriers and the host's
 // queueing of them (two shard calls a super-step), then the per-slot
@@ -126,6 +129,13 @@ __device__ __forceinline__ void prologue_marks(int8_t* mark, const int* active,
   }
 }
 
+// Global: global termination. Term and conv stream through unchanged, and
+// u[j] counts the middle's real nodes whose ratio moved more than the
+// global rule allows in round j (csrc/faults.cuh absorb_global); the host
+// sums the shards' u, and the first round where the sum is 0 ends the run
+// (a rerun capped there, then conv latched on every real node). Global =
+// false is the local-termination kernel, with none of this.
+template <bool Global>
 __global__ void pushsum_shard_rounds(PushSumPlanes in, PushSumPlanes out,
                                      PushSumPlanes y, int8_t* mark,
                                      const long long* keys,
@@ -158,9 +168,13 @@ __global__ void pushsum_shard_rounds(PushSumPlanes in, PushSumPlanes out,
         gossip::shard_pushsum_inbox(sc, mk, src.s, src.w, x, g, n_ext, in_s,
                                     in_w);
       // mk[x] < 0 on pad lanes and degree 0: those keep their mass.
-      const int cv = gossip::pushsum_absorb_node(src, dst, x, pad, mk[x] >= 0,
-                                                 in_s, in_w, delta,
-                                                 term_rounds);
+      int cv;
+      if constexpr (Global)
+        cv = gossip::pushsum_absorb_global_node(src, dst, x, pad, mk[x] >= 0,
+                                                in_s, in_w, delta);
+      else
+        cv = gossip::pushsum_absorb_node(src, dst, x, pad, mk[x] >= 0, in_s,
+                                         in_w, delta, term_rounds);
       if (next) next[x] = word_mark(dirs[g], k0, k1, g);
       c += gossip::shard_middle(G, x) ? cv : 0;
     }
@@ -253,8 +267,9 @@ cudaError_t cooperative_grid(Kernel kernel, int n_ext, int rounds, int device,
 // the static directions word of every global slot; classes, e1 and e2 are
 // host arrays of the n_classes sorted displacement classes and their
 // rolls; win a host array of the rounds + 1 windows (lo, hi) in extended
-// rows, W_{-1} first; u is int32[cr + 1]; ctrl int32[2] (done, rounds),
-// read only here; bar is two zeroed uint32 words that the launch leaves
+// rows, W_{-1} first; global (push-sum) picks the global-termination
+// instance; u is int32[cr + 1]; ctrl int32[2] (done, rounds), read only
+// here; bar is two zeroed uint32 words that the launch leaves
 // zeroed.
 
 extern "C" int gossip_pushsum_stencil_shard_superstep(
@@ -263,8 +278,8 @@ extern "C" int gossip_pushsum_stencil_shard_superstep(
     int* conv_y, int8_t* mark, const long long* keys, const int* dirs,
     const int* classes, const int* e1, const int* e2, const int* win,
     int n_classes, int n, int R, int row0, int rows_ext, int H, int rows_loc,
-    int rounds, int cr, float delta, int term_rounds, int* u, const int* ctrl,
-    unsigned* bar, int device, void* stream_ptr) {
+    int rounds, int cr, float delta, int term_rounds, int global, int* u,
+    const int* ctrl, unsigned* bar, int device, void* stream_ptr) {
   ShardClasses sc;
   ShardGeom G;
   ShardWindows W;
@@ -275,8 +290,12 @@ extern "C" int gossip_pushsum_stencil_shard_superstep(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int grid = 0;
-  err = cooperative_grid(pushsum_shard_rounds, rows_ext * 128, rounds, device,
-                         &grid);
+  const void* kernel = global ? (const void*)pushsum_shard_rounds<true>
+                              : (const void*)pushsum_shard_rounds<false>;
+  err = global ? cooperative_grid(pushsum_shard_rounds<true>, rows_ext * 128,
+                                  rounds, device, &grid)
+               : cooperative_grid(pushsum_shard_rounds<false>, rows_ext * 128,
+                                  rounds, device, &grid);
   if (err != cudaSuccess) return (int)err;
   PushSumPlanes in{(float*)s0, (float*)w0, (int*)t0, (int*)c0};
   PushSumPlanes out{s, w, term, conv};
@@ -284,8 +303,7 @@ extern "C" int gossip_pushsum_stencil_shard_superstep(
   void* args[] = {&in, &out,    &y,  &mark,  &keys,  &dirs,        &n,
                   &sc, &G,      &W,  &rounds, &cr,   &delta,       &term_rounds,
                   &u,  &ctrl,   &bar};
-  return (int)cudaLaunchCooperativeKernel((const void*)pushsum_shard_rounds,
-                                          grid, kBlock, args, 0,
+  return (int)cudaLaunchCooperativeKernel(kernel, grid, kBlock, args, 0,
                                           (cudaStream_t)stream_ptr);
 }
 

@@ -91,7 +91,15 @@
 // Under global termination no w inbox is kept apart (both halves' sums go
 // onto the kept halves, as XLA folds them there), the barrier word counts
 // the unstable nodes, term is left alone and conv is written after the last
-// verdict. The faulted push-sum instance runs two blocks an SM.
+// verdict. Under a recovery model a node is alive again from its revival
+// round on, and where it rejoins with a reset (gossip always, push-sum under
+// rejoin="fresh") every reader of its round-start state in its revival
+// round takes the reset value (faults.cuh rejoins): its own absorb, and in
+// push-sum the place pass that stages its send; gossip stages no send for a
+// node that rejoins in the next round. The stored state stays un-reset
+// until that round runs, so a chunk that ends just before it hands back
+// the state JAX's resume expects. The faulted push-sum instance runs two
+// blocks an SM.
 //
 // Numerics: csrc/chunk.cuh's gossip absorb; built without fast math, with
 // -fmad=false and denormals kept (utils/kernels.py).
@@ -150,20 +158,28 @@ __device__ __forceinline__ bool sends(const Graph& g, int j) {
 
 // A chunk's failure model (the kernels' F = true instance): the drop
 // gate's threshold (0: no gate), each node's death round (null: no crash
-// model) with each round's quorum need, and global termination (push-sum).
+// model) with each round's quorum need, global termination (push-sum), and
+// under a recovery model each node's revival round (null: crash-stop),
+// whether a revived node resets and push-sum's initial term.
 struct Faults {
   uint32_t thresh;
   const int* death;  // int32 [n]
   const int* needs;  // int32 [rounds]
   int global;
+  const int* revive;  // int32 [n]
+  int reset, init_term;
 };
+
+// Whether node i is alive in absolute round `round`.
+__device__ __forceinline__ bool alive(const Faults& f, int i, int round) {
+  return gossip::node_alive(f.death, f.revive, i, round);
+}
 
 // Whether node i may send in absolute round `round` (gate key (g1, g2)):
 // its gate word passes and it is alive.
 __device__ __forceinline__ bool may_send(const Faults& f, uint32_t g1,
                                          uint32_t g2, int i, int round) {
-  return gossip::gate_open(g1, g2, f.thresh, i) &&
-         (f.death == nullptr || gossip::alive_in(f.death[i], round));
+  return gossip::gate_open(g1, g2, f.thresh, i) && alive(f, i, round);
 }
 
 // The gate key of absolute round `round` under the run's key.
@@ -267,7 +283,9 @@ __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
     gossip::scatter::round_key(c.key1, c.key2, c.start, k1, k2);
     if (F) gossip::gate_key(k1, k2, g1, g2);
     for (int i = first; i < n; i += stride)
-      if (c.active[i] && (!F || may_send(c.f, g1, g2, i, (int)c.start)))
+      if (c.active[i] &&
+          (!F || (may_send(c.f, g1, g2, i, (int)c.start) &&
+                  !gossip::rejoins(c.f.revive, c.f.reset, i, (int)c.start))))
         gossip_send(c.g, k1, k2, i, c.inbox);
   }
   round_barrier(c.words + c.rounds, 0);
@@ -285,14 +303,16 @@ __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
     for (int j = first; j < n; j += stride) {
       const int got = in[j];
       if (got) in[j] = 0;
-      const bool alive = !F || c.f.death == nullptr ||
-                         gossip::alive_in(c.f.death[j], round);
+      const bool live = !F || alive(c.f, j, round);
+      // A node that rejoins this round starts it at (0, inactive, 0).
+      const bool rn = F && gossip::rejoins(c.f.revive, c.f.reset, j, round);
       int cnt, act, cv;
-      if (alive) {
+      if (live) {
         cv = gossip::gossip_absorb(
-            [&] { return (int)c.conv[j]; }, [&] { return c.count[j]; },
-            [&] { return (int)c.active[j]; }, false, got, c.rumor_target,
-            c.suppress, cnt, act);
+            [&] { return rn ? 0 : (int)c.conv[j]; },
+            [&] { return rn ? 0 : c.count[j]; },
+            [&] { return rn ? 0 : (int)c.active[j]; }, false, got,
+            c.rumor_target, c.suppress, cnt, act);
         c.count[j] = cnt;
         c.active[j] = (uint8_t)act;
         c.conv[j] = (uint8_t)cv;
@@ -300,9 +320,12 @@ __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
         act = c.active[j];
         cv = c.conv[j];
       }
-      if (out && act && (!F || may_send(c.f, g1, g2, j, round + 1)))
+      // A node that rejoins next round is inactive then.
+      if (out && act &&
+          (!F || (may_send(c.f, g1, g2, j, round + 1) &&
+                  !gossip::rejoins(c.f.revive, c.f.reset, j, round + 1))))
         gossip_send(c.g, k1, k2, j, out);
-      converged += alive ? cv : 0;
+      converged += live ? cv : 0;
     }
     const int total = round_barrier(c.words + r, block_sum(converged));
     done = total >= (F && c.f.death ? c.f.needs[r] : c.target);
@@ -404,8 +427,11 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
       if (tk.target < 0) continue;
       const int pos = base[gossip::scatter::slice_of(sl, tk.target)] +
                       c.loc[tk.target] + tk.rank;
-      gossip::scatter::store_send(c.rec + pos,
-                                  gossip::scatter::make_send(i, c.s[i], c.w[i]));
+      // A fresh rejoin sends from its reset state (s = i, w = 0).
+      const bool rn = F && gossip::rejoins(c.f.revive, c.f.reset, i, round);
+      gossip::scatter::store_send(
+          c.rec + pos, gossip::scatter::make_send(i, rn ? (float)i : c.s[i],
+                                                  rn ? 0.0f : c.w[i]));
     }
     round_barrier(c.words + 3 * r + 1, 0);
 
@@ -421,12 +447,15 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
       // atomic, then the bucket and its sums; the stores last.
       const int k = cnt[j];
       const int at = mine + c.loc[j];
-      const float s_t = c.s[j], w_t = c.w[j];
-      const int t_old = c.term[j];
-      const bool c_old = c.conv[j] != 0;
+      // A fresh rejoin starts the round at (j, 0, initial term, 0).
+      float s_t = c.s[j], w_t = c.w[j];
+      int t_old = c.term[j], c_in = c.conv[j];
+      if (F)
+        gossip::rejoin_pushsum(gossip::rejoins(c.f.revive, c.f.reset, j, round), j,
+                               c.f.init_term, s_t, w_t, t_old, c_in);
+      const bool c_old = c_in != 0;
       const bool sent = F ? c.tick[j].target >= 0 : sends(c.g, j);
-      const bool alive = !F || c.f.death == nullptr ||
-                         gossip::alive_in(c.f.death[j], round);
+      const bool live = !F || alive(c.f, j, round);
       const Ticket tk =
           next && (!F || may_send(c.f, g1, g2, j, round + 1))
               ? count_send(c.g, k1, k2, j, cnt_next)
@@ -449,8 +478,8 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
             },
             c.delta, c.term_rounds, s_new, w_new, t_new);
         if (F) {
-          t_new = gossip::frozen(alive, t_new, t_old);
-          cv = gossip::frozen(alive, cv, c_old ? 1 : 0);
+          t_new = gossip::frozen(live, t_new, t_old);
+          cv = gossip::frozen(live, cv, c_old ? 1 : 0);
         }
         c.term[j] = t_new;
         c.conv[j] = (uint8_t)cv;
@@ -459,7 +488,7 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
       c.s[j] = s_new;
       c.w[j] = w_new;
       if (next) c.tick[j] = tk;
-      converged += alive ? cv : 0;
+      converged += live ? cv : 0;
     }
     const int sum = round_barrier(c.words + 3 * r + 2, block_sum(converged));
     if (global)
@@ -516,7 +545,9 @@ cudaError_t launch(Kernel kernel, Chunk c, int n, int words, int* cache,
 // updated in place; status is int32 [2] (rounds executed, done) on the
 // device; the scratch planes (push-sum cnt, gossip inbox: int32 [2 * n])
 // must be zero and are left zero; words holds 3 * rounds + 1 (push-sum) or
-// rounds + 1 (gossip) uint64 barrier words. Returns the first error (a
+// rounds + 1 (gossip) uint64 barrier words. Under a recovery model revive is
+// the int32 [n] revival plane (else null), reset whether a revived node
+// resets and init_term push-sum's initial term. Returns the first error (a
 // cudaError_t), 0 if none. A chunk of no round queues nothing.
 
 extern "C" int gossip_pushsum_scatter_chunk(
@@ -525,7 +556,8 @@ extern "C" int gossip_pushsum_scatter_chunk(
     unsigned long long* words, int* status, unsigned key1, unsigned key2,
     unsigned start, int rounds, float delta, int term_rounds, int target,
     int faulted, unsigned thresh, const int* death, const int* needs,
-    int global, int device, void* stream_ptr) {
+    const int* revive, int reset, int init_term, int global, int device,
+    void* stream_ptr) {
   if (n < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
   if (rounds == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
@@ -533,7 +565,8 @@ extern "C" int gossip_pushsum_scatter_chunk(
   const PushSumChunk c{s, w, term, conv, Graph{nbr, deg, max_deg, n},
                        cnt, (Ticket*)tick, loc, tot, (Send*)rec, key1, key2,
                        start, rounds, delta, term_rounds, target, words,
-                       status, Faults{thresh, death, needs, global}};
+                       status, Faults{thresh, death, needs, global, revive,
+                                      reset, init_term}};
   if (faulted)
     return (int)launch(pushsum_rounds<true>, c, n, 3 * rounds + 1,
                        pushsum_grid_cache[1], device, (cudaStream_t)stream_ptr);
@@ -546,14 +579,16 @@ extern "C" int gossip_gossip_scatter_chunk(
     int max_deg, int n, int* inbox, unsigned long long* words, int* status,
     unsigned key1, unsigned key2, unsigned start, int rounds, int rumor_target,
     int suppress, int target, int faulted, unsigned thresh, const int* death,
-    const int* needs, int device, void* stream_ptr) {
+    const int* needs, const int* revive, int reset, int device,
+    void* stream_ptr) {
   if (n < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
   if (rounds == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const GossipChunk c{count, active, conv, Graph{nbr, deg, max_deg, n},
                       inbox, key1, key2, start, rounds, rumor_target, suppress,
-                      target, words, status, Faults{thresh, death, needs, 0}};
+                      target, words, status,
+                      Faults{thresh, death, needs, 0, revive, reset, 0}};
   if (faulted)
     return (int)launch(gossip_rounds<true>, c, n, rounds + 1,
                        gossip_grid_cache[1], device, (cudaStream_t)stream_ptr);

@@ -17,6 +17,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "faults.cuh"
 #include "threefry.cuh"
 
 namespace gossip {
@@ -193,6 +194,28 @@ GOSSIP_HD void pushsum_inbox(const Classes& cls, const int8_t* mark,
       const int i = class_source(j, cls.d[k], n);
       const float si = s[i], wi = w[i];
       const bool hit = mark[i] == k;
+      in_s = in_s + (hit ? si * 0.5f : 0.0f);
+      in_w = in_w + (hit ? wi * 0.5f : 0.0f);
+    }
+  }
+}
+
+// pushsum_inbox where the marks may carry kRejoinBit (csrc/faults.cuh): a
+// source whose mark is the class with the bit set sends half of (its index,
+// 0), the state it rejoins with.
+GOSSIP_HD void pushsum_inbox_rejoin(const Classes& cls, const int8_t* mark,
+                                    const float* s, const float* w, int j,
+                                    int n, float& in_s, float& in_w) {
+  in_s = 0.0f;
+  in_w = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxClasses; ++k) {
+    if (k < cls.count) {
+      const int i = class_source(j, cls.d[k], n);
+      const int8_t m = mark[i];
+      const bool rn = m >= 0 && (m & kRejoinBit);
+      const float si = rn ? (float)i : s[i], wi = rn ? 0.0f : w[i];
+      const bool hit = mark_hit(m, k);
       in_s = in_s + (hit ? si * 0.5f : 0.0f);
       in_w = in_w + (hit ? wi * 0.5f : 0.0f);
     }

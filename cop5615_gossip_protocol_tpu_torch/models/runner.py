@@ -41,14 +41,14 @@ termination (``fault_rate``, ``crash_rate``/``crash_schedule`` with
 ``quorum``, ``termination``) run on the chunked engine under every delivery,
 on the pool and streaming pool tiers, on the whole-array lattice tier and,
 with n_devices > 1, on the replicated-pool2 composition; the tiled and
-streaming lattice tiers, both imp tiers and the sharded imp composition take
-global termination, the only one their JAX tiers take. Where the JAX ladder
-takes such a config to a fused tier or composition whose kernels do not
-carry the knob yet (``_FAULT_KNOBS``, ``_SHARDED_FAULT_KNOBS``: global
-termination on the sharded lattice compositions), the run refuses naming
-ROADMAP A6a, on the card and under ``engine="fused"``; where it demotes, the
-port runs its chunked engine, on the card too; where a sharded plan refuses
-it, the run raises the JAX ladder's ValueError.
+streaming lattice tiers, both imp tiers and the sharded imp and lattice
+compositions take global termination, the only one their JAX tiers take.
+Crash-recovery (``revive_rate``/``revive_schedule`` with ``rejoin``) runs
+on the chunked engine under every delivery, on the pool tier and on the
+whole-array lattice tier, as in JAX. Every fused tier and composition
+carries each failure-model knob its JAX counterpart takes; where the JAX
+ladder demotes, the port runs its chunked engine, on the card too; where a
+sharded plan refuses, the run raises the JAX ladder's ValueError.
 """
 
 from __future__ import annotations
@@ -182,7 +182,9 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     their protocol state, push-sum may terminate globally, and under a
     crash model a round is judged by the quorum of its live nodes (the JAX
     runner's ``targets_and_gate``, ``_freeze_dead`` and
-    ``_done_predicate``).
+    ``_done_predicate``); under a recovery model revived nodes send again
+    and, where their rejoin resets them, start their revival round from the
+    reset state (``make_revive_fn``).
 
     Under scatter delivery a chunk is one call of the scatter wrapper
     (ops/scatter.py: csrc/scatter.cu on CUDA, its plain version on the
@@ -267,10 +269,15 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
 
     faults = fused.run_faults(cfg, n)
     death = faults.death_flat(n, device) if faults and faults.death is not None else None
+    revive = faults.revive_flat(n, device) if faults is not None else None
+
+    def alive(round_idx: int):
+        return faults_mod.alive_at(death, round_idx, revive)
 
     def gated(send_ok, round_idx: int):
         """The round's senders: the drop gate's and the living among
-        ``send_ok`` (the JAX runner's ``targets_and_gate``)."""
+        ``send_ok`` (the JAX runner's ``targets_and_gate``; revived nodes
+        send again)."""
         if faults is None:
             return send_ok
         gate = sampling.send_gate(sampling.round_key(base_key, round_idx), n,
@@ -278,19 +285,28 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
         if gate is not True:
             send_ok = send_ok & gate
         if death is not None:
-            send_ok = send_ok & (death > round_idx)
+            send_ok = send_ok & alive(round_idx)
         return send_ok
+
+    def rejoin(state, round_idx: int):
+        """The reset at the start of a revival round's body (the JAX
+        runner's ``make_revive_fn``)."""
+        if revive is None:
+            return state
+        return faults_mod.rejoin(state, faults_mod.revived_at(revive, round_idx),
+                                 faults.reset, faults.init_term)
 
     def freeze_dead(old, new, round_idx: int):
         if death is None:
             return new
-        return faults_mod.freeze_dead(old, new, death <= round_idx)
+        return faults_mod.freeze_dead(old, new, ~alive(round_idx))
 
     if pushsum:
         delta, term_rounds = cfg.resolved_delta, cfg.term_rounds
         global_term = cfg.termination == "global"
 
         def round_fn(state, round_idx):
+            state = rejoin(state, round_idx)
             deliver = deliver_parts(round_idx)
             s_send, w_send, s_keep, w_keep = pushsum_mod.halve_and_send(
                 state.s, state.w, gated(send_ok, round_idx)
@@ -306,6 +322,7 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
         rumor_target, suppress = cfg.resolved_rumor_target, cfg.resolved_suppress
 
         def round_fn(state, round_idx):
+            state = rejoin(state, round_idx)
             deliver = deliver_parts(round_idx)
             vals = gossip_mod.send_values(state, gated(send_ok, round_idx))
             inbox = deliver(vals[None])[0]
@@ -316,7 +333,7 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
         status = status.clone()
         needs = faults.needs(start, max(end - start, 0))[0] if death is not None else None
         for k, rnd in enumerate(range(start, end)):
-            verdict = {} if needs is None else {"alive": death > rnd,
+            verdict = {} if needs is None else {"alive": alive(rnd),
                                                 "need": int(needs[k])}
             state = pipeline_mod.advance(state, round_fn(state, rnd), status,
                                          target, **verdict)
@@ -347,12 +364,13 @@ def _host_done(state, target: int, cfg: Optional[SimConfig] = None,
                rounds: int = 0) -> bool:
     """The termination predicate on a canonical state after ``rounds``
     rounds: converged count >= target, or under ``cfg``'s crash model the
-    quorum of the nodes alive in the last round (rounds - 1)."""
+    quorum of the nodes alive in the last round (rounds - 1), revivals
+    counted."""
     conv = state.conv.cpu().numpy() != 0
-    death = None if cfg is None else faults_mod.death_plane(cfg, conv.shape[0])
-    if death is None:
+    planes = None if cfg is None else faults_mod.life_planes(cfg, conv.shape[0])
+    if planes is None:
         return bool(conv.sum() >= target)
-    alive = faults_mod.alive_at(death, rounds - 1)
+    alive = faults_mod.alive_at(planes.death, rounds - 1, planes.revive)
     need = faults_mod.quorum_need(int(alive.sum()), cfg.quorum)
     return bool((conv & alive).sum() >= need)
 
@@ -547,69 +565,21 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
                 )
             if reason is not None:
                 raise ValueError(f"engine='fused' unavailable: {reason}")
-            _refuse_unported_faults(variant, cfg)
             return _run_fused(topo, cfg, key, device, start_state,
                               start_round, target, t_enter, variant)
         if reason is None and device.type == "cuda":
-            _refuse_unported_faults(variant, cfg)
             return _run_fused(topo, cfg, key, device, start_state,
                               start_round, target, t_enter, variant)
     return _run_chunked(topo, cfg, key, device, start_state, start_round,
                         target, t_enter)
 
 
-# The failure-model knobs each fused tier's kernels carry in the port
-# ("gate": fault_rate, "crash": crash_rate/crash_schedule, "global":
-# termination="global"): the pool tier (rows 1-2), the streaming pool tier
-# (rows 3-4) and the whole-array lattice tier (rows 5-6) all three; the
-# tiled and streaming lattice tiers (rows 7, 9) and both imp tiers (rows
-# 11, 13) global termination, the only one their JAX tiers take (the gate
-# and crash-stop demote them to the chunked engine, as in JAX).
-_FAULT_KNOBS = {"pool": ("gate", "crash", "global"),
-                "pool2": ("gate", "crash", "global"),
-                "stencil": ("gate", "crash", "global"),
-                "stencil2": ("global",),
-                "stencil_hbm": ("global",),
-                "imp": ("global",),
-                "imp_hbm": ("global",)}
-
-# The same per sharded composition, once its JAX plan has taken the config:
-# the replicated-pool2 one (rows 20-21) all three; the imp one (row 18)
-# global termination, the only one its JAX plan takes; the lattice ones
-# carry none yet (their exact-stop global verdict is ROADMAP A6a-4; their
-# JAX plans refuse the gate and crash-stop).
-_SHARDED_FAULT_KNOBS = {"pool2_sharded": ("gate", "crash", "global"),
-                        "imp_hbm_sharded": ("global",),
-                        "fused_sharded": (),
-                        "stencil_hbm_sharded": ()}
-
-
-def _unported_knobs(carried, cfg: SimConfig) -> list:
-    """The failure-model knobs ``cfg`` sets that are not in ``carried``."""
-    return [text for knob, text, on in (
-        ("gate", "fault_rate", cfg.fault_rate > 0),
-        ("crash", "crash_rate/crash_schedule", cfg.crash_model),
-        ("global", "termination='global'", cfg.termination == "global"))
-        if on and knob not in carried]
-
-
-def _refuse_unported_faults(variant: str, cfg: SimConfig) -> None:
-    """Raise where the JAX ladder runs a fused tier whose failure-model or
-    global-termination branches the port's kernels do not carry yet
-    (ROADMAP A6a): never a quiet demotion to another engine."""
-    knobs = _unported_knobs(_FAULT_KNOBS.get(variant, ()), cfg)
-    if knobs:
-        raise unported(f"{' and '.join(knobs)} on the fused {variant!r} tier",
-                       "A6a")
-
-
 def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
                  t_enter) -> RunResult:
     """The JAX ladder's n_devices > 1 step: the composition and its plan's
     reason (``sharded_tier``), JAX's ValueError where a plan refuses the
-    config, and only then the port's own refusals by ROADMAP item: a
-    composition not ported (``_SHARDED_NAMES``), or a failure-model knob
-    its kernels do not carry (``_SHARDED_FAULT_KNOBS``, A6a)."""
+    config, and only then the port's own refusal by ROADMAP item: a
+    composition not ported (``_SHARDED_NAMES``)."""
     from ..parallel import mesh as mesh_mod
     from ..parallel.fused_hbm_sharded import run_stencil_hbm_sharded
     from ..parallel.fused_imp_hbm_sharded import run_imp_hbm_sharded
@@ -626,10 +596,6 @@ def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
     if tier not in runs:
         raise unported(f"n_devices={cfg.n_devices} with engine={cfg.engine!r} "
                        f"on {topo.kind}: {_SHARDED_NAMES[tier]}", item)
-    knobs = _unported_knobs(_SHARDED_FAULT_KNOBS[tier], cfg)
-    if knobs:
-        raise unported(f"{' and '.join(knobs)} with n_devices={cfg.n_devices} "
-                       f"({tier})", "A6a")
     mesh = mesh_mod.make_mesh(
         cfg.n_devices, devices,
         platform=resolve_device(device).type if devices is None else "cuda")

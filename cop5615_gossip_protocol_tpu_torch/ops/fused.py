@@ -215,7 +215,10 @@ class ChunkFaults(NamedTuple):
     and the gate keys of its rounds (None without a gate), the death plane
     over the padded layout, flat int32 [n_pad] on the state's device, the
     quorum needs of its rounds and the seed need (None without a crash
-    model), and whether push-sum terminates globally."""
+    model), whether push-sum terminates globally, and under a recovery
+    model the revival plane over the layout (pad lanes NEVER; else None),
+    whether a revived node's state resets (``reset``: gossip always,
+    push-sum under rejoin="fresh") and push-sum's initial term."""
 
     thresh: Optional[int]
     gate_keys: Optional[torch.Tensor]
@@ -223,6 +226,17 @@ class ChunkFaults(NamedTuple):
     needs: Optional[torch.Tensor]
     need_init: Optional[int]
     global_term: bool
+    revive: Optional[torch.Tensor] = None
+    reset: bool = False
+    init_term: int = 0
+
+    def alive_flat(self, r: int):
+        """Flat [n_pad] alive mask of absolute round r (dead exactly during
+        death <= r < revive), or None without a crash model."""
+        if self.death is None:
+            return None
+        alive = self.death > r
+        return alive if self.revive is None else alive | (self.revive <= r)
 
     def blocked(self, mark, start: int, k: int, rows: int):
         """Round k's marks with the gate and the dead folded in: -1 where
@@ -232,12 +246,13 @@ class ChunkFaults(NamedTuple):
                                  rows, LANES, device=mark.device).reshape(-1)
             mark = torch.where(g < self.thresh, -1, mark)
         if self.death is not None:
-            mark = torch.where(self.death <= start + k, -1, mark)
+            mark = torch.where(self.alive_flat(start + k), mark, -1)
         return mark
 
     def alive(self, r: int, rows: int):
         """[rows, 128] alive mask of absolute round r, or None."""
-        return None if self.death is None else (self.death > r).reshape(rows, LANES)
+        alive = self.alive_flat(r)
+        return None if alive is None else alive.reshape(rows, LANES)
 
     def live_total(self, c, r: int, rows: int) -> int:
         """The done flag's count after round r: conv among live nodes
@@ -245,20 +260,38 @@ class ChunkFaults(NamedTuple):
         alive = self.alive(r, rows)
         return int(c.sum()) if alive is None else int(((c != 0) & alive).sum())
 
+    def rejoin(self, planes, r: int):
+        """The padded planes at the start of absolute round r's body: the
+        nodes that revive in round r reset where ``reset`` holds
+        (faults.rejoin)."""
+        if self.revive is None:
+            return planes
+        from . import faults
+
+        rn = (self.revive == r).reshape(planes[0].shape)
+        return faults.rejoin(planes, rn, self.reset, self.init_term)
+
 
 @dataclasses.dataclass
 class Faults:
-    """The drop gate, crash-stop with quorum and global termination of one
-    run, as the chunk wrappers take them: ``thresh`` the gate threshold
-    (None without a gate), ``death`` the int32 [n] death plane and
-    ``death_sorted`` it sorted (None without a crash model), and whether
-    push-sum terminates globally."""
+    """The drop gate, crash-stop with quorum, crash-recovery and global
+    termination of one run, as the chunk wrappers take them: ``thresh`` the
+    gate threshold (None without a gate), ``death`` the int32 [n] death
+    plane and ``death_sorted`` it sorted (None without a crash model),
+    whether push-sum terminates globally, ``revive`` the int32 [n] revival
+    plane and ``revive_sorted`` it sorted (None without a recovery model),
+    whether a revived node resets (``reset``) and push-sum's initial
+    term."""
 
     thresh: Optional[int]
     death: Optional[np.ndarray]
     death_sorted: Optional[np.ndarray]
     quorum: float
     global_term: bool
+    revive: Optional[np.ndarray] = None
+    revive_sorted: Optional[np.ndarray] = None
+    reset: bool = False
+    init_term: int = 0
     planes: dict = dataclasses.field(default_factory=dict)
 
     def gate_keys(self, keys: torch.Tensor) -> Optional[torch.Tensor]:
@@ -272,7 +305,8 @@ class Faults:
         from . import faults
 
         needs, need_init = faults.quorum_needs(
-            self.death_sorted, self.death.shape[0], start, count, self.quorum)
+            self.death_sorted, self.death.shape[0], start, count, self.quorum,
+            self.revive_sorted)
         return torch.from_numpy(needs.astype(np.int32)), need_init
 
     def death_flat(self, n_pad: int, device) -> Optional[torch.Tensor]:
@@ -288,13 +322,37 @@ class Faults:
                 faults.pad_death_plane(self.death, n_pad).copy()).to(device)
         return self.planes[key]
 
+    def revive_flat(self, n_pad: int, device) -> Optional[torch.Tensor]:
+        """The revival plane padded to n_pad (pad lanes NEVER), int32
+        [n_pad] on ``device``, made once a size and device; None without a
+        recovery model."""
+        if self.revive is None:
+            return None
+        from . import faults
+
+        key = ("revive", n_pad, str(device))
+        if key not in self.planes:
+            self.planes[key] = torch.from_numpy(
+                faults.pad_revival_plane(self.revive, n_pad).copy()).to(device)
+        return self.planes[key]
+
+    def revive_args(self, n_pad: int, device) -> list:
+        """The recovery arguments of the entry points that carry it (kernel
+        A, the pool kernels, the whole-array lattice kernels): the revival
+        plane over n_pad on ``device`` (None without a recovery model),
+        whether a revived node resets, push-sum's initial term."""
+        revive = self.revive_flat(n_pad, device)
+        return [None if revive is None else revive.data_ptr(), int(self.reset),
+                self.init_term]
+
     def for_chunk(self, keys, start: int, n_pad: int, device) -> ChunkFaults:
         """The ``ChunkFaults`` of a chunk of keys.shape[0] rounds from
         ``start`` on an n_pad layout."""
         needs, need_init = self.needs(start, keys.shape[0])
         return ChunkFaults(self.thresh, self.gate_keys(keys),
                            self.death_flat(n_pad, device), needs, need_init,
-                           self.global_term)
+                           self.global_term, self.revive_flat(n_pad, device),
+                           self.reset, self.init_term)
 
 
 def run_faults(cfg: SimConfig, n: int) -> Optional[Faults]:
@@ -311,6 +369,10 @@ def run_faults(cfg: SimConfig, n: int) -> Optional[Faults]:
         death_sorted=faults.sorted_death(cfg, n),
         quorum=cfg.quorum,
         global_term=cfg.termination == "global",
+        revive=faults.revival_plane(cfg, n),
+        revive_sorted=faults.sorted_revival(cfg, n),
+        reset=cfg.algorithm == "gossip" or cfg.rejoin == "fresh",
+        init_term=cfg.initial_term_round,
     )
 
 
@@ -339,7 +401,9 @@ def pushsum_class_rounds(state4, start: int, cap: int, count: int,
     ``faults`` (the pool tier's) folds the drop gate and the dead into the
     marks, so a blocked node keeps its whole mass; a dead node's term and
     conv stay frozen while its s and w absorb, and the verdict is the
-    quorum of live nodes. Under global termination term and conv are left
+    quorum of live nodes. A revived node sends again, and under
+    rejoin="fresh" its state resets at the start of its revival round
+    (``ChunkFaults.rejoin``). Under global termination term and conv are left
     alone, a round counts its unstable real nodes (|ratio change| above
     delta * max(|ratio|, 1)), and the round where none is unstable latches
     conv on every real node and ends the run."""
@@ -355,6 +419,8 @@ def pushsum_class_rounds(state4, start: int, cap: int, count: int,
     for k in range(count):
         if finished or start + k >= cap:
             break
+        if fx is not None:
+            s, w, t, c = fx.rejoin((s, w, t, c), start + k)
         mark, classes = round_classes(k)
         if fx is not None:
             mark = fx.blocked(mark, start, k, rows)
@@ -404,7 +470,8 @@ def gossip_class_rounds(state3, start: int, cap: int, count: int,
     only active nodes send (their mark is kept, every other node's is -1),
     a receiver counts the class sources that sent along the class, and
     suppression is receiver-side. ``faults`` as there: blocked and dead
-    nodes mark -1, and a dead node's inbox counts nothing. Returns
+    nodes mark -1, a dead node's inbox counts nothing, and a revived node
+    resets to (0, inactive, unconverged) at its revival round's start. Returns
     (state3', rounds_executed)."""
     cnt, act, c = (x.clone() for x in state3)
     dev, rows = cnt.device, cnt.shape[0]
@@ -416,6 +483,8 @@ def gossip_class_rounds(state3, start: int, cap: int, count: int,
     for k in range(count):
         if finished or start + k >= cap:
             break
+        if fx is not None:
+            cnt, act, c = fx.rejoin((cnt, act, c), start + k)
         mark, classes = round_classes(k)
         mark = torch.where(act.reshape(-1) != 0, mark, -1)
         if fx is not None:

@@ -162,13 +162,16 @@ def _chunk_faults(faults: Optional[Faults], keys, start: int, rows: int, dev):
 
 
 def fault_args(faults: Optional[Faults], needs_ptr, need_init, start: int,
-               n_pad: int, dev, pushsum: bool) -> list:
+               n_pad: int, dev, pushsum: bool, revive: bool = False) -> list:
     """The failure-model arguments that the chunk entry points of
     csrc/fused_pool.cu, csrc/fused_pool2.cu and csrc/fused_resident.cu take
     after their protocol's: whether to run the faulted instance, the gate
     threshold, the death plane over n_pad on ``dev``, the rounds' quorum
     needs on the device (``needs_ptr``, None without a crash model), the
-    seed need, the chunk's first absolute round and, for push-sum, global
+    seed need, the chunk's first absolute round, where the entry point
+    carries crash-recovery (``revive``: csrc/fused_pool.cu and
+    csrc/fused_resident.cu) the revival plane, whether a revived node
+    resets and (push-sum) the initial term, and, for push-sum, global
     termination."""
     if faults is None:
         args = [0, 0, None, None, 0, start]
@@ -176,6 +179,9 @@ def fault_args(faults: Optional[Faults], needs_ptr, need_init, start: int,
         death = faults.death_flat(n_pad, dev)
         args = [1, faults.thresh or 0, None if death is None else death.data_ptr(),
                 needs_ptr, need_init or 0, start]
+    if revive:
+        rv = [None, 0, 0] if faults is None else faults.revive_args(n_pad, dev)
+        args += rv if pushsum else rv[:2]
     if pushsum:
         args.append(int(faults is not None and faults.global_term))
     return args
@@ -236,8 +242,9 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _FAULT_ARGS = [_I, _U, _P, _P, _I, _I]
 _SIGNATURES = {
     "gossip_pushsum_pool_chunk": [_P] * 14 + [_I] * 4 + [_F, _I, _I]
-                                 + _FAULT_ARGS + [_I] + [_I, _P],
-    "gossip_gossip_pool_chunk": [_P] * 11 + [_I] * 7 + _FAULT_ARGS + [_I, _P],
+                                 + _FAULT_ARGS + [_P, _I, _I] + [_I] + [_I, _P],
+    "gossip_gossip_pool_chunk": [_P] * 11 + [_I] * 7 + _FAULT_ARGS + [_P, _I]
+                                + [_I, _P],
 }
 
 
@@ -288,7 +295,7 @@ def _kernel_chunk(name: str, state, keys, offs, start: int, cap: int, n: int,
     fargs = fault_args(
         faults, None if needs is None else
         streams.data_ptr() + 8 * keys.numel() + 4 * offs.numel(), need_init, start,
-        n_pad, dev, len(state) == 4)
+        n_pad, dev, len(state) == 4, revive=True)
     rounds = max(0, cap - start)
     planes = len(state) * n_pad
     # Two allocations a chunk beside the streams' copy: the result planes

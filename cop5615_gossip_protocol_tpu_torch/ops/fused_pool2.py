@@ -46,6 +46,13 @@ def pool2_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
     apply to the port's configs."""
     if not topo.implicit:
         return "the streaming pool engine serves the implicit full topology only"
+    if cfg.revive_model:
+        # The JAX tier's needs and windowed freeze come from the sorted
+        # death plane alone: a revive config runs on the chunked engine.
+        return (
+            "crash-recovery (revive) runs on the chunked, sharded, and "
+            "VMEM fused stencil/pool engines only"
+        )
     if cfg.pool_size > 1 << POOL_CHOICE_BITS:
         return (
             f"pool_size {cfg.pool_size} exceeds the packed-choice limit "
@@ -119,6 +126,14 @@ def _device_streams(start: int, cap: int, keys, offs, dev):
             ctrl, scratch, keys)
 
 
+def _no_revive(faults: Optional[Faults]) -> None:
+    """The JAX tier refuses crash-recovery (``pool2_support``), and so do
+    these kernels, whatever their device: a revival plane raises."""
+    if faults is not None and faults.revive is not None:
+        raise ValueError("crash-recovery (revive) runs on the chunked, sharded, "
+                         "and VMEM fused stencil/pool engines only")
+
+
 def _fault_args(faults: Optional[Faults], keys, start: int, n_pad: int, dev,
                 pushsum: bool):
     """The entry points' failure-model arguments of one chunk (``keys`` the
@@ -153,6 +168,7 @@ def pushsum_pool2_chunk(state4, keys, offs, start: int, cap: int, *, n: int,
     global termination."""
     dev = _check(state4, (torch.float32, torch.float32, torch.int32, torch.int32),
                  keys, offs, n)
+    _no_revive(faults)
     if dev.type == "cpu":
         return pushsum_pool2_chunk_plain(
             state4, keys, offs, start, cap, n=n, target=target, delta=delta,
@@ -182,6 +198,7 @@ def gossip_pool2_chunk(state3, keys, offs, start: int, cap: int, *, n: int,
     rumor_target on real lanes; converged-target suppression is
     receiver-side; ``faults`` adds the drop gate and crash-stop."""
     dev = _check(state3, (torch.int32,) * 3, keys, offs, n)
+    _no_revive(faults)
     if dev.type == "cpu":
         return gossip_pool2_chunk_plain(
             state3, keys, offs, start, cap, n=n, target=target,

@@ -368,7 +368,7 @@ def _argtypes(source: str, pushsum: bool):
     """The argtypes of a lattice entry point of csrc/<source>.cu."""
     args = list(_PUSHSUM_ARGS if pushsum else _GOSSIP_ARGS)
     if source == "fused_resident":
-        args += _FAULT_ARGS + ([_I] if pushsum else [])
+        args += _FAULT_ARGS + ([_P, _I, _I, _I] if pushsum else [_P, _I])
     elif pushsum:
         args.append(_I)
     return args + [_I, _P]
@@ -418,7 +418,7 @@ def kernel_chunk(source: str, name: str, state, keys, start: int, cap: int,
                spec.n - spec.n_lat)
     fargs = [] if not resident else fault_args(
         faults, None if needs is None else streams.data_ptr() + 8 * keys.numel(),
-        need_init, start, n_pad, dev, len(state) == 4)
+        need_init, start, n_pad, dev, len(state) == 4, revive=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*[x.data_ptr() for x in (*state, *out)], *other,
              work.data_ptr() + 4 * planes, streams.data_ptr(), dirs.data_ptr(),

@@ -20,9 +20,11 @@ persistent cooperative launch that runs all its rounds and stops at done
 (``chunk_launches``). Under the run's failure model (``fused.Faults``)
 the drop gate and the dead leave a round's senders, a dead node's protocol
 state is frozen, a round is judged by the quorum of its live nodes, and
-push-sum may terminate globally: the kernels' faulted instances. CUDA state
-launches the kernels; CPU state runs the plain versions; there is no
-fallback between the two.
+push-sum may terminate globally; under a recovery model a revived node
+sends again and, where its rejoin resets it, starts its revival round from
+the reset state: the kernels' faulted instances. CUDA state launches the
+kernels; CPU state runs the plain versions; there is no fallback between
+the two.
 """
 
 from __future__ import annotations
@@ -132,8 +134,10 @@ def _chunk_plain(round_fn, state, keys, status, target: int, start: int,
                  faults: Optional[fused.Faults]):
     """K = keys.shape[0] rounds under the overshoot contract. ``faults``
     adds the drop gate and the living to each round's senders, freezes a
-    dead node's protocol state (push-sum's s and w still absorb) and judges
-    a round by the quorum of its live nodes."""
+    dead node's protocol state (push-sum's s and w still absorb), judges a
+    round by the quorum of its live nodes, and under a recovery model
+    resets a revived node at its revival round's start (``faults.rejoin``;
+    a round after done keeps the state it was given, not the reset one)."""
     status = status.clone()
     fx = None
     if faults is not None:
@@ -146,13 +150,17 @@ def _chunk_plain(round_fn, state, keys, status, target: int, start: int,
         if fx.thresh is not None:
             ok = sampling.uniform_bits(fx.gate_keys[k], state[0].shape[0],
                                        device=state[0].device) >= fx.thresh
-        alive = None if fx.death is None else fx.death > start + k
+        alive = fx.alive_flat(start + k)
         if alive is not None:
             ok = alive if ok is True else ok & alive
-        new = round_fn(state, keys[k], ok)
+        entry = state
+        if fx.revive is not None:
+            entry = faults_mod.rejoin(state, fx.revive == start + k, fx.reset,
+                                      fx.init_term)
+        new = round_fn(entry, keys[k], ok)
         verdict = {}
         if alive is not None:
-            new = faults_mod.freeze_dead(state, new, ~alive)
+            new = faults_mod.freeze_dead(entry, new, ~alive)
             verdict = {"alive": alive, "need": int(fx.needs[k])}
         state = advance(state, new, status, target, **verdict)
     return state, status
@@ -194,10 +202,11 @@ def gossip_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     "gossip_pushsum_scatter_chunk": [_P] * 6 + [_I, _I] + [_P] * 7 + [_U] * 3
-                                    + [_I, _F, _I, _I] + [_I, _U, _P, _P, _I]
-                                    + [_I, _P],
+                                    + [_I, _F, _I, _I] + [_I, _U, _P, _P]
+                                    + [_P, _I, _I] + [_I] + [_I, _P],
     "gossip_gossip_scatter_chunk": [_P] * 5 + [_I, _I] + [_P] * 3 + [_U] * 3
-                                   + [_I] * 4 + [_I, _U, _P, _P] + [_I, _P],
+                                   + [_I] * 4 + [_I, _U, _P, _P] + [_P, _I]
+                                   + [_I, _P],
 }
 
 
@@ -295,7 +304,8 @@ def pushsum_scatter_chunk(state, key, start: int, rounds: int, status, *,
                                     "records")),
         words.data_ptr(), status.data_ptr(), *_key_args(key, start), rounds,
         ctypes.c_float(delta), term_rounds, target, *fargs,
-        int(faults is not None and faults.global_term)], dev)
+        *_revive_args(faults, dev), int(faults is not None and faults.global_term)],
+        dev)
     pushsum_scatter_chunk.launches += 1
     return out, status
 
@@ -324,7 +334,7 @@ def gossip_scatter_chunk(state, key, start: int, rounds: int, status, *,
         *(x.data_ptr() for x in out), *_graph_args(graph),
         w["inbox"].data_ptr(), words.data_ptr(), status.data_ptr(),
         *_key_args(key, start), rounds, rumor_target, int(suppress), target,
-        *fargs], dev)
+        *fargs, *_revive_args(faults, dev)[:2]], dev)
     gossip_scatter_chunk.launches += 1
     return out, status
 
@@ -333,7 +343,8 @@ def _fault_args(faults: Optional[fused.Faults], start: int, rounds: int,
                 dev: torch.device):
     """(faulted, threshold, death plane, quorum needs) as the entry points
     take them, and the needs tensor the caller keeps until the launch is
-    queued (a copy to the card without a host sync)."""
+    queued (a copy to the card without a host sync). The quorum needs count
+    the revivals too (fused.Faults.needs)."""
     if faults is None:
         return [0, 0, None, None], None
     if faults.death is None:
@@ -341,6 +352,13 @@ def _fault_args(faults: Optional[fused.Faults], start: int, rounds: int,
     needs = faults.needs(start, rounds)[0].pin_memory().to(dev, non_blocking=True)
     death = faults.death_flat(faults.death.shape[0], dev)
     return [1, faults.thresh or 0, death.data_ptr(), needs.data_ptr()], needs
+
+
+def _revive_args(faults: Optional[fused.Faults], dev: torch.device) -> list:
+    """(revival plane, reset, initial term) as the entry points take them."""
+    if faults is None or faults.revive is None:
+        return [None, 0, 0]
+    return faults.revive_args(faults.revive.shape[0], dev)
 
 
 def _key_args(key, start: int):

@@ -215,22 +215,24 @@ def plan_stencil_hbm_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
 def pushsum_stencil_hbm_shard_superstep(planes, out, y, mark, keys, rounds: int,
                                         row0: int, *, spec, rolls,
                                         geom: ShardGeometry, delta: float,
-                                        term_rounds: int, u, ctrl) -> None:
+                                        term_rounds: int, u, ctrl,
+                                        global_term: bool = False) -> None:
     """Up to CR push-sum rounds on one shard's extended (s, w, term, conv)
     planes into ``out``: rounds + 1 launches of
     csrc/fused_stencil_hbm_shard.cu (the mark prologue, then one a round)
-    on CUDA tensors, the plain version on CPU ones."""
+    on CUDA tensors, the plain version on CPU ones. ``global_term`` runs
+    the global-termination instance (u the middle's unstable counts)."""
     dev = check_superstep(planes, out, y, mark, keys, rounds, row0, spec, rolls,
                           geom, u, ctrl)
     if dev.type == "cpu":
         run_plain(planes, out, y, keys, rounds, row0, u, ctrl,
                   {"spec": spec, "rolls": rolls, "geom": geom, "delta": delta,
-                   "term_rounds": term_rounds})
+                   "term_rounds": term_rounds, "global_term": global_term})
         return
     launch_superstep("fused_stencil_hbm_shard",
                      "gossip_pushsum_stencil_hbm_shard_superstep", dev, planes, out,
                      y, mark, keys, rounds, row0, spec, rolls, geom,
-                     (ctypes.c_float(delta), term_rounds), u, ctrl)
+                     (ctypes.c_float(delta), term_rounds, int(global_term)), u, ctrl)
     pushsum_stencil_hbm_shard_superstep.launches += rounds + 1
 
 

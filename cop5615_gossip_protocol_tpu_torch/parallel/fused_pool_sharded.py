@@ -19,8 +19,8 @@ from ..ops.topology import Topology
 
 def plan_fused_pool_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
     """(rows_loc, layout) or a string reason why the composition can't run
-    (the JAX plan's reasons; the fault, dtype and dup/delay gates are the
-    port config's own refusals)."""
+    (the JAX plan's reasons; the dtype and dup/delay gates are the port
+    config's own refusals)."""
     if cfg.delivery != "pool":
         return (
             "the fused pool composition requires delivery='pool' (the same "
@@ -40,6 +40,12 @@ def plan_fused_pool_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
         return (
             f"population {topo.n} exceeds the VMEM-resident doubled-plane "
             f"budget ({fused_pool.MAX_POOL_NODES} nodes)"
+        )
+    if cfg.revive_model:
+        # The JAX composition's kernels predate the revival plane.
+        return (
+            "crash-recovery (revive) runs on the chunked, sharded, and "
+            "single-device VMEM fused stencil/pool engines only"
         )
     layout = fused_pool.build_pool_layout(topo.n)
     R = layout.rows

@@ -298,7 +298,8 @@ def _shard_slots(spec, rolls, R: int, H: int, rows_loc: int, row0: int, device):
 def shard_superstep_plain(state, out, y, keys, rounds: int, row0: int, *, spec, rolls,
                           geom: ShardGeometry, delta: float = 0.0,
                           term_rounds: int = 0, rumor_target: int = 0,
-                          suppress: bool = False, windows=None):
+                          suppress: bool = False, windows=None,
+                          global_term: bool = False):
     """``rounds`` lattice rounds on one shard's extended planes ``state``
     (push-sum s, w, term, conv; gossip count, active, conv; [rows_ext, 128]
     each, read only), keys[j] the fold_in key of round j, ``rolls`` the
@@ -308,7 +309,10 @@ def shard_superstep_plain(state, out, y, keys, rounds: int, row0: int, *, spec, 
     and writes them into its destination set, ``out`` for the last round
     and alternately ``y`` before it, leaving the other rows as they were.
     Returns u, int32 [cr + 1]: u[j] the converged count over the middle
-    rows after round j (-1 for rounds not run), u[cr] the rounds run."""
+    rows after round j (-1 for rounds not run), u[cr] the rounds run. Under
+    push-sum's ``global_term`` term and conv pass through unchanged and
+    u[j] counts the middle's real nodes whose ratio moved more than delta *
+    max(|s / w|, 1) in round j."""
     dev = state[0].device
     pushsum = len(state) == 4
     g, pad, mid, pairs, srcs = _shard_slots(spec, tuple(rolls), geom.R, geom.H,
@@ -353,6 +357,17 @@ def shard_superstep_plain(state, out, y, keys, rounds: int, row0: int, *, spec, 
             in_w = torch.where(pad_r, zero, in_w)
             s_new = (s[rx] - ss[rx]) + in_s
             w_new = (w[rx] - ws[rx]) + in_w
+            if global_term:
+                ratio_old = s[rx] / w[rx]
+                tol = torch.tensor(delta, dtype=torch.float32, device=dev) * \
+                    torch.maximum(torch.abs(ratio_old), torch.ones((), device=dev))
+                unstable = (torch.abs(s_new / w_new - ratio_old) > tol) & ~pad_r
+                for p, v in zip(dst, (s_new, w_new, t[rx], c[rx])):
+                    p[rx] = v.to(p.dtype)
+                x = torch.arange(a, b, device=dev)
+                u[j] = int((unstable & (x >= mid_lo) & (x < mid_hi)).sum())
+                src = dst
+                continue
             stable = torch.abs(s_new / w_new - s[rx] / w[rx]) <= torch.tensor(
                 delta, dtype=torch.float32, device=dev)
             t_new = torch.where(in_w > 0, torch.where(stable, t[rx] + 1, 0), t[rx])
@@ -388,8 +403,9 @@ def shard_superstep_plain(state, out, y, keys, rounds: int, row0: int, *, spec, 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Planes, mark, keys and directions words; the host class, roll and window
-# arrays; the shard and round counts; the protocol's scalars; u and ctrl.
-_PUSHSUM_ARGS = [_P] * 19 + [_I] * 9 + [_F, _I, _P, _P]
+# arrays; the shard and round counts; the protocol's scalars (push-sum's
+# global flag last); u and ctrl.
+_PUSHSUM_ARGS = [_P] * 19 + [_I] * 9 + [_F, _I, _I, _P, _P]
 _GOSSIP_ARGS = [_P] * 16 + [_I] * 11 + [_P, _P]
 _SIGNATURES = {
     "gossip_pushsum_stencil_shard_superstep": _PUSHSUM_ARGS + [_P, _I, _P],
@@ -488,22 +504,26 @@ def launch_superstep(source: str, name: str, dev, planes, out, y, mark, keys,
 def pushsum_stencil_shard_superstep(planes, out, y, mark, keys, rounds: int,
                                     row0: int, *, spec, rolls,
                                     geom: ShardGeometry, delta: float,
-                                    term_rounds: int, u, ctrl, bar) -> None:
+                                    term_rounds: int, u, ctrl, bar,
+                                    global_term: bool = False) -> None:
     """Up to CR push-sum rounds on one shard's extended (s, w, term, conv)
     planes into ``out`` (see the section comment): one persistent
     cooperative launch of csrc/fused_stencil_shard.cu on CUDA tensors, the
     plain version on CPU ones. ``mark`` is int8 [2 * rows_ext * 128],
-    ``bar`` two zeroed int32 words the launch leaves zeroed."""
+    ``bar`` two zeroed int32 words the launch leaves zeroed.
+    ``global_term`` runs the global-termination instance: term and conv
+    pass through and u[j] is the middle's unstable count of round j."""
     dev = check_superstep(planes, out, y, mark, keys, rounds, row0, spec, rolls,
                           geom, u, ctrl, bar)
     if dev.type == "cpu":
         run_plain(planes, out, y, keys, rounds, row0, u, ctrl,
                   {"spec": spec, "rolls": rolls, "geom": geom, "delta": delta,
-                   "term_rounds": term_rounds})
+                   "term_rounds": term_rounds, "global_term": global_term})
         return
     launch_superstep("fused_stencil_shard", "gossip_pushsum_stencil_shard_superstep",
                      dev, planes, out, y, mark, keys, rounds, row0, spec, rolls,
-                     geom, (ctypes.c_float(delta), term_rounds), u, ctrl, bar)
+                     geom, (ctypes.c_float(delta), term_rounds, int(global_term)),
+                     u, ctrl, bar)
     pushsum_stencil_shard_superstep.launches += 1
 
 
@@ -590,7 +610,8 @@ def protocol_kw(topo: Topology, cfg: SimConfig, geom: ShardGeometry, rolls) -> d
     """The wrappers' keywords for this config."""
     kw = {"spec": hbm.stencil_spec(topo), "rolls": rolls, "geom": geom}
     if cfg.algorithm == "push-sum":
-        kw.update(delta=cfg.resolved_delta, term_rounds=cfg.term_rounds)
+        kw.update(delta=cfg.resolved_delta, term_rounds=cfg.term_rounds,
+                  global_term=cfg.termination == "global")
     else:
         kw.update(rumor_target=cfg.resolved_rumor_target,
                   suppress=cfg.resolved_suppress)
@@ -700,7 +721,9 @@ def run_lattice_shards(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
     0's device; a shard on another device gets its copy of the flag after
     each verdict and returns its counts after each super-step. Batches of
     STEPS_PER_BATCH super-steps are queued through models/pipeline.py, one
-    host sync each."""
+    host sync each. Push-sum's global termination runs the super-steps
+    serially with one host read each (``global_verdict``), as JAX does: the
+    run stops at the exact round, not at a super-step boundary."""
     from ..models import gossip as gossip_mod
     from ..models import pipeline as pipeline_mod
     from ..models import pushsum as pushsum_mod
@@ -764,6 +787,44 @@ def run_lattice_shards(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
             if dev != home:
                 c.copy_(ctrl)
 
+    global_term = pushsum and cfg.termination == "global"
+    # Global termination's latch: conv 1 on every real node of a shard's
+    # middle rows, 0 on its pad lanes, on the shard's own device.
+    latch = [mesh_mod.flat_ids(s * rows_loc, (s + 1) * rows_loc, LANES, dev)
+             .lt(n).to(torch.int32) for s, dev in enumerate(devices)] \
+        if global_term else None
+    verdict_at = {"done": bool(done0)}
+
+    def global_verdict(step):
+        # The exact stop of global termination (the JAX package's
+        # global_verdict_step), one host read a super-step: the first round
+        # whose unstable count, summed over the shards, is 0; a super-step
+        # that ran past it is run again from the same input set (which no
+        # super-step writes) with the same keys, capped there, which is
+        # bitwise the prefix; then conv latches on every real node.
+        i, b, e, keys_on = step
+        if verdict_at["done"]:
+            return
+        par, executed = i % 2, e - b
+        zeros = (u_all[par, :, :executed].sum(0) == 0).nonzero()
+        if len(zeros) == 0:
+            ctrl[1] += executed
+            return
+        stop = int(zeros[0]) + 1
+        if stop < executed:
+            for s, dev in enumerate(devices):
+                superstep(sets[s][par], sets[s][1 - par], ys[s], marks[s],
+                          keys_on[dev], stop, row0[s], **kw, u=u_of[s][par],
+                          ctrl=ctrl_on[dev], **extra[s])
+        for s in range(S):
+            sets[s][1 - par][3][H:H + rows_loc].copy_(latch[s])
+        set_of_round[b + stop] = 1 - par
+        verdict_at["done"] = True
+        ctrl[0], ctrl[1] = 1, b + stop
+        for dev, c in ctrl_on.items():
+            if dev != home:
+                c.copy_(ctrl)
+
     def boundary(b):
         return overlap_mod.next_boundary(b, start_round, tier.stride, CR,
                                          cfg.max_rounds)
@@ -792,8 +853,15 @@ def run_lattice_shards(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
                           {dev: k[b - begin:] for dev, k in keys_on.items()}))
             counter["step"] += 1
             b = e
-        overlap_mod.overlapped_superstep_loop(steps, launch=launch, verdict=verdict,
-                                              overlap=cfg.overlap_collectives)
+        if global_term:
+            # JAX keeps the serial loop for global termination.
+            overlap_mod.overlapped_superstep_loop(steps, launch=launch,
+                                                  verdict=global_verdict,
+                                                  overlap=False)
+        else:
+            overlap_mod.overlapped_superstep_loop(
+                steps, launch=launch, verdict=verdict,
+                overlap=cfg.overlap_collectives)
         return state, ctrl[[1, 0]].to(torch.int64)
 
     t0 = time.perf_counter()

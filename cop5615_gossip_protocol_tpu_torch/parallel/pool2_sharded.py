@@ -98,8 +98,8 @@ def plan_pool2_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
     can't run: the JAX plan. ``wire`` is "reduce_scatter" (per-slot bands)
     or "all_gather" (the whole copy), cfg.resolved_pool2_wire with auto
     demoting to the gather wire when the band margin exceeds a shard. The
-    JAX plan's fault, dtype, telemetry and step-timing gates are the port
-    config's own refusals (ROADMAP A6, A8, A12)."""
+    JAX plan's dtype, telemetry and step-timing gates are the port config's
+    own refusals (ROADMAP A6, A8, A12); its crash-recovery gate is here."""
     if not topo.implicit:
         return (
             "the replicated-pool2 composition serves the implicit full "
@@ -111,6 +111,11 @@ def plan_pool2_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
             "delivery='matmul' (the same gate as the single-device pool "
             "engine dispatch; matmul runs the per-shard one-hot MXU blend "
             "after the one all_gather — the wire is unchanged)"
+        )
+    if cfg.revive_model:
+        return (
+            "crash-recovery (revive) runs on the chunked, sharded, and "
+            "VMEM fused stencil/pool engines only"
         )
     if cfg.pool_size > 1 << POOL_CHOICE_BITS:
         return (

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Fault-free rows 1-14, 18-21 (csrc/fused_pool.cu, csrc/fused_pool2.cu,
+"""Fault-free rows 1-21 (csrc/fused_pool.cu, csrc/fused_pool2.cu,
 csrc/fused_resident.cu, csrc/fused_stencil.cu, csrc/fused_imp.cu,
+csrc/fused_stencil_shard.cu, csrc/fused_stencil_hbm_shard.cu,
 csrc/fused_imp_hbm_shard.cu, csrc/fused_pool2_shard.cu) and kernel A
 (csrc/scatter.cu) of several checkouts, timed on one card in one call.
 
-    python3 scripts/fault_free_ab.py [--late-rows] PARENT CHANGE CHANGE PARENT
+    python3 scripts/fault_free_ab.py [--late-rows | --rows GROUPS] PARENT CHANGE CHANGE PARENT
 
 Each ROOT (a checkout's root, e.g. one unpacked with ``git archive``) runs
 in a process of its own, in the order given, with that checkout's port and
@@ -23,9 +24,14 @@ own device time by torch.profiler (µs a call, a round for kernel A and
 rows 9-14 and 18-21; the host left out). The kernels are built from each
 checkout's own sources into its own build/, and each root also prints the
 registers and spills ptxas gave the round kernels of rows 1-14, 18-21 and
-A. ``--late-rows`` times rows 9-14 and 18-21 alone. Prints one JSON line a
-root, then the card's name and power limit, then each row's times in
-every later root over the first root's.
+A. ``--late-rows`` times rows 9-14 and 18-21 alone. ``--rows GROUPS``
+times the comma-separated groups named: ``early`` (rows 1-7 and kernel A),
+``late`` (rows 9-14, 18-21) and ``shard`` (rows 15-16: one super-step of
+every shard, torus3d 100**3 in 2 shards on the resident tier and 256**3 in
+4 on the streaming tier, every shard on the card, from chip_smoke's
+mid-run state, as its phases 14a-14b queue them); the default is early and
+late. Prints one JSON line a root, then the card's name and power limit,
+then each row's times in every later root over the first root's.
 """
 
 from __future__ import annotations
@@ -36,9 +42,10 @@ import subprocess
 import sys
 
 
-def one(root: str, early: bool = True) -> dict:
-    """The fault-free rows' times of the checkout at ``root``: rows 1-7 and
-    kernel A unless ``early`` is False, then rows 9-14 and 18-21."""
+def one(root: str, groups=("early", "late")) -> dict:
+    """The fault-free rows' times of the checkout at ``root``, by group:
+    rows 1-7 and kernel A (early), rows 9-14 and 18-21 (late), rows 15-16
+    (shard)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -62,7 +69,26 @@ def one(root: str, early: bool = True) -> dict:
             torch.cuda.synchronize()
         return sum(us for short, (_, us) in cs.device_kernels(prof).items()
                    if stem in short) / reps
-    if early:
+    if "shard" in groups:
+        # Rows 15-16: one super-step of every shard from the mid-run state.
+        for tier, stem in (("fused_sharded", "pushsum_shard_rounds"),
+                           ("stencil_hbm_sharded", "pushsum_shard_round")):
+            kind, n, shards = cs.STENCIL_SHARD_TIMED[tier]
+            fn, kw, plan, _, mid, _ = cs.stencil_shard_case(
+                dev, key, build_topology(kind, n), kind, n, shards, "push-sum", tier)
+            rounds = min(plan.geom.cr, cs.STENCIL_SHARD_ROUNDS)
+            bufs = cs.shard_buffers(mid, plan.geom, shards)
+            keys = fused.round_keys(key, cs.STENCIL_SHARD_MID["pushsum"], rounds).to(dev)
+
+            def step(fn=fn, kw=kw, plan=plan, bufs=bufs, keys=keys, rounds=rounds):
+                cs.lattice_shard_step(fn, kw, plan, bufs, keys, rounds)
+
+            ms, _ = cs.time_ms(step, cs.TIME_REPS)
+            out[f"pushsum_{tier}_superstep"] = {"ms": ms, "rounds": rounds,
+                                                "kernel_us": device_us(step, stem)}
+            del bufs, mid
+            torch.cuda.empty_cache()
+    if "early" in groups:
         fns, _ = cs.pool_fns(dev, key, cs.N)
         for name, (kern, _, chunk, init, _, mid_round) in fns.items():
             mid, _ = chunk(kern, init, 0, mid_round)
@@ -122,13 +148,14 @@ def one(root: str, early: bool = True) -> dict:
     # Rows 9-14 through the run's fused engine, fault-free, at chip_smoke's
     # timed shapes (torus3d 256**3, imp3d 1M and 2**24, pool_size 4), over
     # 32 rounds from the initial state.
-    for row, kind, n, tier, stem in (
+    late = () if "late" not in groups else (
             ("pushsum_stencil_hbm_chunk", "torus3d", 2**24, "stencil_hbm", "pushsum_round"),
             ("gossip_stencil_hbm_chunk", "torus3d", 2**24, "stencil_hbm", "gossip_round"),
             ("pushsum_imp_chunk", "imp3d", 1_000_000, "imp", "pushsum_round"),
             ("gossip_imp_chunk", "imp3d", 1_000_000, "imp", "gossip_round"),
             ("pushsum_imp_hbm_chunk", "imp3d", 2**24, "imp_hbm", "pushsum_round"),
-            ("gossip_imp_hbm_chunk", "imp3d", 2**24, "imp_hbm", "gossip_round")):
+            ("gossip_imp_hbm_chunk", "imp3d", 2**24, "imp_hbm", "gossip_round"))
+    for row, kind, n, tier, stem in late:
         algorithm = "push-sum" if row.startswith("pushsum") else "gossip"
         extra = {"delivery": "pool", "pool_size": cs.IMP_POOL} if tier.startswith("imp") else {}
         cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, **extra)
@@ -150,7 +177,7 @@ def one(root: str, early: bool = True) -> dict:
     from cop5615_gossip_protocol_tpu_torch.parallel import fused_imp_hbm_sharded as ih
 
     kind, n, shards = cs.IMP_SHARD_TIMED
-    for algorithm in ("push-sum", "gossip"):
+    for algorithm in ("push-sum", "gossip") if "late" in groups else ():
         name = "pushsum" if algorithm == "push-sum" else "gossip"
         pushsum = algorithm == "push-sum"
         cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, delivery="pool",
@@ -177,7 +204,7 @@ def one(root: str, early: bool = True) -> dict:
         del bufs, init
         torch.cuda.empty_cache()
     n, shards = cs.SHARD_TIMED
-    for algorithm in ("push-sum", "gossip"):
+    for algorithm in ("push-sum", "gossip") if "late" in groups else ():
         name = "pushsum" if algorithm == "push-sum" else "gossip"
         kern, _, kw, _, layout, _, _ = cs.shard_case(dev, key, n, shards, algorithm)
         cfg = SimConfig(n=n, algorithm=algorithm, delivery="pool", pool_size=cs.POOL)
@@ -205,7 +232,8 @@ def one(root: str, early: bool = True) -> dict:
     # The round kernels' registers and spills, from each library's build log.
     ptxas = {}
     for source in ("fused_pool", "fused_pool2", "fused_resident", "scatter", "fused_stencil",
-                   "fused_imp", "fused_imp_hbm_shard", "fused_pool2_shard"):
+                   "fused_imp", "fused_stencil_shard", "fused_stencil_hbm_shard",
+                   "fused_imp_hbm_shard", "fused_pool2_shard"):
         log = kernels.library_path(source).with_suffix(".log")
         entry = None
         for line in (log.read_text().splitlines() if log.exists() else ()):
@@ -220,10 +248,13 @@ def one(root: str, early: bool = True) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    late = args[:1] == ["--late-rows"]
-    args = args[1:] if late else args
+    groups = ["early", "late"]
+    if args[:1] == ["--late-rows"]:
+        groups, args = ["late"], args[1:]
+    elif args[:1] == ["--rows"]:
+        groups, args = args[1].split(","), args[2:]
     if len(args) == 2 and args[0] == "--one":
-        print(json.dumps(one(args[1], early=not late)), flush=True)
+        print(json.dumps(one(args[1], groups)), flush=True)
         return 0
     roots = [os.path.abspath(r) for r in args]
     if not roots:
@@ -232,7 +263,7 @@ def main() -> int:
     results = []
     for root in roots:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               *(["--late-rows"] if late else []), "--one", root],
+                               "--rows", ",".join(groups), "--one", root],
                               capture_output=True, text=True, cwd=root)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)

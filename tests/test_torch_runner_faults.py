@@ -9,7 +9,7 @@ faulted config, a tier whose kernels carry the knob runs it fused, and a
 config the JAX ladder demotes runs the chunked engine on the card; with
 n_devices > 1 a config a JAX plan refuses raises the JAX ladder's
 ValueError, and global termination on the sharded lattice compositions
-refuses naming ROADMAP A6a."""
+runs (ROADMAP A6a-4)."""
 
 import numpy as np
 import pytest
@@ -317,13 +317,19 @@ def test_sharded_ladder_raises_the_jax_plans_reasons(kind, n, knobs):
 
 
 # Global termination on the sharded lattice compositions, whose JAX plans
-# take it and whose exact-stop verdict is ROADMAP A6a-4: still refused.
+# take it: refused until their exact-stop verdict (ROADMAP A6a-4), which now
+# runs them; a few rounds are the single-device run's
+# (tests/test_torch_stencil_sharded_global.py holds whole runs).
 @pytest.mark.parametrize("n,tier", [(2**21, "fused_sharded"), (1000, "stencil_hbm_sharded")])
 def test_sharded_lattice_global_termination_stays_refused(n, tier):
-    fields = dict(n=n, topology="torus3d", algorithm="push-sum", engine="fused",
-                  n_devices=2, termination="global")
+    fields = dict(n=n, topology="torus3d", algorithm="push-sum", termination="global",
+                  max_rounds=3)
     topo = build_topology("torus3d", n)
-    assert runner.sharded_tier(topo, SimConfig(**fields))[:2] == (tier, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6a") as err:
-        run(topo, SimConfig(**fields), devices=["cpu"] * 2)
-    assert tier in str(err.value)
+    cfg = SimConfig(engine="fused", n_devices=2, **fields)
+    assert runner.sharded_tier(topo, cfg)[:2] == (tier, None)
+    res = run(topo, cfg, devices=["cpu"] * 2)
+    single = run(topo, SimConfig(engine="fused", **fields), device="cpu")
+    assert res.rounds == single.rounds == 3 and not res.converged
+    for a, b in zip(res.state, single.state):
+        a, b = (x.view(torch.int32) if x.dtype == torch.float32 else x for x in (a, b))
+        assert torch.equal(a, b)
