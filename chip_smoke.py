@@ -304,7 +304,21 @@ non-zero before the last line:
    through run() and the CLI against the worker's CPU runs (rounds,
    converged count, estimate, run()'s every plane);
 
-Each of phases 5-14n prints its wall time.
+14o. (run after 14n) Byzantine adversaries (ROADMAP A6c) and XLA's flush
+   (ROADMAP C1): each faulted instance of rows 1-2 and kernel A at full
+   1,000,000, kernel A at imp2d 100,000 and rows 5-6 at grid2d 10,000 in
+   every mode (and push-sum mass_deflate with a crash and revive schedule)
+   against its plain version on the card, a 32-round chunk from round 16
+   across the onset at round 20; a drained crafted state (s and w near
+   FLT_MIN) through rows 1, 3, 5, 20 and kernel A under a crash model
+   against each plain version; then BYZ_RUNS through run() against the JAX
+   chunked engine's values baked on the CPU (each Byzantine row's own
+   main-path run at its kernel, shape and mode, whose launches the kernels
+   line reports; the acceptance pair of unhealthy and clip, trim, each
+   kernel under the modes, ROADMAP C1's drained configs), and scatter
+   delivery with clip refused on the card naming A6c-2;
+
+Each of phases 5-14o prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -5343,6 +5357,10 @@ def shard_global_rows(cases, launches, max_err):
 # and a crash rate (0.01) with a revive rate (0.2); push-sum rejoins fresh
 # under the schedule and restores under the rate.
 REVIVE_KERNELS = (("pool", "full", N), ("scatter", "full", N), ("stencil", "grid2d", 10_000))
+# ROADMAP C1's failure model (phase 14o's drained runs): push-sum with a
+# crash and revive schedule, fresh rejoins and a 0.9 quorum, seed 0.
+C1_KNOBS = dict(crash_schedule="2:50,5:20", revive_schedule="6:40", rejoin="fresh",
+                quorum=0.9)
 REVIVE_LABELS = ("pushsum fresh schedule", "pushsum restore rate", "gossip schedule",
                  "gossip rate")
 
@@ -5364,13 +5382,20 @@ def revive_fns(dev, key, kernel, kind, n, label):
     """One phase 14n kernel and config: (kernel, plain, chunk(fn, state,
     start, count) -> (state, rounds run), initial state on the card, the
     run's Faults)."""
+    return kernel_fns(dev, key, kernel, kind, n, *revive_knobs(label, n))
+
+
+def kernel_fns(dev, key, kernel, kind, n, algorithm, kw):
+    """One kernel of phases 14n-14o under a config's failure-model knobs
+    ``kw``: (kernel, plain, chunk(fn, state, start, count, faulted=True) ->
+    (state, rounds run), initial state on the card, the run's Faults)."""
     import torch
 
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
     from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine, fused_tier
     from cop5615_gossip_protocol_tpu_torch.ops import fused, scatter
 
-    algorithm, kw = revive_knobs(label, n)
+    label = f"{algorithm} {kw}"
     name = "pushsum" if algorithm == "push-sum" else "gossip"
     if kernel == "scatter":
         from cop5615_gossip_protocol_tpu_torch.models import gossip as gossip_mod
@@ -5378,6 +5403,7 @@ def revive_fns(dev, key, kernel, kind, n, label):
         from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
 
         topo = build_topology(kind, n)
+        n = topo.n  # imp2d rounds the population to a square
         graph = scatter.scatter_graph(topo, dev)
         cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, **kw)
         faults = fused.run_faults(cfg, n)
@@ -5663,6 +5689,361 @@ def revive_rows(cases, launches, max_err):
                          "library_ms": None, "fault_free_ms": free_ms,
                          "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
                          "config": label, "status": "ported"})
+    return rows
+
+
+# ----------------------------------------------------------------- 14o
+# Byzantine adversaries (ROADMAP A6c) in rows 1-2 and kernel A at full
+# 1,000,000, kernel A at imp2d 100,000 (push-sum) and rows 5-6 at grid2d
+# 10,000: 1% of the nodes turn at round 20, inside the chunk compared from
+# round BYZ_MID; one config a kernel adds a crash and revive schedule.
+BYZ_KERNELS = (("pool", "full", N), ("scatter", "full", N),
+               ("scatter", "imp2d", 100_000), ("stencil", "grid2d", 10_000))
+BYZ_MODES = (("push-sum", "mass_inflate"), ("push-sum", "mass_deflate"),
+             ("push-sum", "garble"), ("gossip", "stale_rumor"), ("gossip", "garble"))
+BYZ_MID = 16
+FLT_MIN = 1.1754943508222875e-38
+
+
+def byz_knobs(n, algorithm, mode, churn):
+    """The knobs of a phase 14o kernel config at population n."""
+    kw = {"byzantine_schedule": f"20:{n // 100}", "byzantine_mode": mode}
+    if churn:
+        kw.update(crash_schedule=f"5:{n // 100},20:{n // 20}",
+                  revive_schedule=f"12:{n // 200},30:{n // 50}", quorum=0.95)
+        if algorithm == "push-sum":
+            kw["rejoin"] = "fresh"
+    return kw
+
+
+def byz_checks(dev, key):
+    """Phase 14o, the kernels: each of BYZ_KERNELS in each mode (push-sum
+    only on imp2d) and one push-sum mass_deflate config with crash and
+    revive, against its plain version on the card: from the kernel's own
+    state at round BYZ_MID, a CHUNK-round chunk across the onset, every
+    plane and the rounds bitwise. Returns ({(kernel, kind, name): timing
+    case}, {row key: max_abs_err})."""
+    import torch
+
+    cases, max_err = {}, {}
+    for kernel, kind, n in BYZ_KERNELS:
+        t0 = time.perf_counter()
+        configs = [(a, m, False) for a, m in BYZ_MODES if kind != "imp2d" or a == "push-sum"]
+        configs.append(("push-sum", "mass_deflate", True))
+        for algorithm, mode, churn in configs:
+            kern, plain, chunk, init, _ = kernel_fns(
+                dev, key, kernel, kind, n, algorithm, byz_knobs(n, algorithm, mode, churn))
+            tag = f"{kernel} {kind} {algorithm} {mode}{' with churn' if churn else ''}"
+            mid, ran = chunk(kern, init, 0, BYZ_MID)
+            if int(ran) != BYZ_MID:
+                raise AssertionError(f"{tag}: done before round {BYZ_MID}")
+            got, g_ran = chunk(kern, mid, BYZ_MID, CHUNK)
+            want, w_ran = chunk(plain, mid, BYZ_MID, CHUNK)
+            if int(g_ran) != int(w_ran):
+                raise AssertionError(f"{tag}: rounds {int(g_ran)} != plain {int(w_ran)}")
+            name = "pushsum" if algorithm == "push-sum" else "gossip"
+            row = f"{name} {kernel} {kind}"
+            max_err[row] = max(max_err.get(row, 0.0),
+                               same_planes(f"{tag} from round {BYZ_MID}", got, want))
+            if not churn and mode in ("mass_inflate", "stale_rumor"):
+                cases[kernel, kind, name] = (kern, plain, chunk, mid, n)
+        print(f"  {kernel} ({kind} n={n:,}): {len(configs)} configs, a {CHUNK}-round "
+              f"chunk from round {BYZ_MID} across the onset at round 20 bitwise its plain "
+              f"version ({time.perf_counter() - t0:.1f} s)", flush=True)
+        torch.cuda.empty_cache()
+    return cases, max_err
+
+
+def drained_planes(n, n_pad, dev, flat=False):
+    """A push-sum state drained into the subnormals' edge: s and w drawn
+    from values near FLT_MIN (whose halves are subnormal) and a few normal
+    ones, pad lanes (0, 1); term 0, conv 0. Flat [n_pad] planes, or the
+    [n_pad / 128, 128] layout."""
+    import torch
+
+    gen = torch.Generator().manual_seed(3)
+    vals = torch.tensor([1.91e-38, 1.5e-38, 2.35e-38, FLT_MIN, 3.0e-38, 2.4e-38, 1.0, 5.0],
+                        dtype=torch.float32)
+    s = vals[torch.randint(0, vals.numel(), (n_pad,), generator=gen)]
+    w = vals[torch.randint(0, vals.numel(), (n_pad,), generator=gen)]
+    s[n:], w[n:] = 0.0, 1.0
+    zero = torch.zeros(n_pad, dtype=torch.int32)
+    planes = (s, w, zero, zero.clone())
+    if not flat:
+        planes = tuple(p.reshape(n_pad // 128, 128) for p in planes)
+    return tuple(p.to(dev) for p in planes)
+
+
+def drained_checks(dev, key):
+    """Phase 14o, C1: a drained crafted state through each push-sum
+    instance that carries crash-stop (rows 1, 3, 5 and 20, kernel A) under
+    a crash model, against its plain version on the card: 8 rounds (row
+    20: one round of every shard), every plane bitwise. Each flushes where
+    the plain round does; the state's halves are subnormal, so a kernel
+    that kept them would differ."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig
+    from cop5615_gossip_protocol_tpu_torch.models.pushsum import PushSumState
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool, fused_pool2
+    from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded as p2s
+
+    t0 = time.perf_counter()
+    for kernel, kind, n in (("pool", "full", N), ("scatter", "full", N),
+                            ("stencil", "grid2d", 10_000)):
+        kw = {"crash_schedule": f"2:{n // 100}", "quorum": 0.9}
+        kern, plain, chunk, init, _ = kernel_fns(dev, key, kernel, kind, n, "push-sum", kw)
+        if kernel == "scatter":
+            p = drained_planes(n, n, dev, flat=True)
+            state = PushSumState(p[0], p[1], p[2], p[3] != 0)
+        else:
+            state = drained_planes(n, init[0].numel(), dev)
+        same_planes(f"drained {kernel} {kind}", chunk(kern, state, 40, 8)[0],
+                    chunk(plain, state, 40, 8)[0])
+    # Row 3: the streaming pool kernel's faulted instance on the pool layout.
+    cfg = SimConfig(n=N, algorithm="push-sum", delivery="pool", pool_size=POOL,
+                    crash_rate=0.01, quorum=0.9)
+    faults = fused.run_faults(cfg, N)
+    state = drained_planes(N, fused_pool.build_pool_layout(N).n_pad, dev)
+    common = dict(n=N, target=N, delta=cfg.resolved_delta, term_rounds=cfg.term_rounds,
+                  faults=faults)
+    keys, offs = fused.round_keys(key, 40, 8), fused_pool.round_offsets(key, 40, 8, POOL, N)
+    same_planes("drained pool2 full",
+                fused_pool2.pushsum_pool2_chunk(state, keys, offs, 40, 48, **common)[0],
+                fused_pool2.pushsum_pool2_chunk_plain(state, keys, offs, 40, 48, **common)[0])
+    # Row 20: one round of every shard at SHARD_FAULT_N in SHARD_TIMED's shards.
+    n, shards = SHARD_FAULT_N, SHARD_TIMED[1]
+    kern, plain, kw, rows_loc, layout, _, _ = shard_case(dev, key, n, shards, "push-sum")
+    cfg = SimConfig(n=n, algorithm="push-sum", delivery="pool", pool_size=POOL,
+                    crash_rate=0.01, quorum=0.9)
+    faults = fused.run_faults(cfg, n)
+    R = layout.rows
+    death = faults.death_flat(layout.n_pad, dev).reshape(R, 128)
+    planes = shard_planes(drained_planes(n, layout.n_pad, dev), "push-sum")
+    streams = shard_streams(key, 0, 2, n, dev)
+    sends = torch.zeros(R // 8, 128, dtype=torch.uint8, device=dev)
+    for lo in range(0, R, rows_loc):
+        p2s.pool2_shard_sends(sends, None, death[lo:lo + rows_loc].contiguous(),
+                              streams[2][0], 0, lo, rows_loc, n=n, thresh=0)
+    glob, own = p2s.split_state(planes, "push-sum")
+    for s in range(shards):
+        lo = s * rows_loc
+        rows_death = death[lo:lo + rows_loc].contiguous()
+        sf = p2s.ShardFaults(0, rows_death, None, 0, False, sends, torch.zeros_like(sends))
+        out = tuple(torch.empty_like(x) for x in planes)
+        ctl = {"u": torch.zeros(1, dtype=torch.int32, device=dev),
+               "acc": torch.zeros(2, dtype=torch.int32, device=dev),
+               "ctrl": torch.zeros(2, dtype=torch.int32, device=dev)}
+        shard_launch(kern, "push-sum", kw, planes, out, streams, 0, lo, rows_loc, **ctl,
+                     faults=sf)
+        got_glob, got_own = p2s.split_state(out, "push-sum")
+        got = p2s.join_state(p2s._rows_of(got_glob, lo, rows_loc),
+                             tuple(p[lo:lo + rows_loc] for p in got_own), "push-sum")
+        want, _ = plain(glob, tuple(p[lo:lo + rows_loc] for p in own), streams[2][0],
+                        streams[3][0], lo, **kw, faults=sf._replace(next_sends=None))
+        shard_bitwise(f"drained pool2 shard {s}", got, want)
+    print(f"  a drained state (s, w near FLT_MIN) through rows 1, 3, 5, 20 and kernel A "
+          f"under a crash model, bitwise each plain version "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+
+
+# Phase 14o's runs: (label, kernel or None for the chunked engine's torch
+# rounds, kind, n, algorithm, knobs, and the JAX package's chunked engine on
+# the CPU: rounds, converged count, outcome, unhealthy round, estimate_mae).
+# The first seven are the kernels line's Byzantine rows' main-path runs, one
+# a row at its kernel, shape and mode (byz_knobs, capped rounds); the rest
+# check the other modes, churn, trim, clip, the sentinel and ROADMAP C1.
+BYZ_ROW_RUNS = 7
+BYZ_RUNS = (
+    ("pool push-sum row", "pool", "full", N, "push-sum",
+     dict(delivery="pool", pool_size=POOL, byzantine_schedule=f"20:{N // 100}",
+          byzantine_mode="mass_inflate", max_rounds=100),
+     (100, 785948, "max_rounds", None, 0.04891205438035852)),
+    ("pool gossip row", "pool", "full", N, "gossip",
+     dict(delivery="pool", pool_size=POOL, byzantine_schedule=f"20:{N // 100}",
+          byzantine_mode="stale_rumor", max_rounds=100),
+     (100, 990000, "max_rounds", None, None)),
+    ("scatter push-sum row", "scatter", "full", N, "push-sum",
+     dict(byzantine_schedule=f"20:{N // 100}", byzantine_mode="mass_inflate", max_rounds=100),
+     (100, 680199, "max_rounds", None, 0.05546462182948156)),
+    ("scatter gossip row", "scatter", "full", N, "gossip",
+     dict(byzantine_schedule=f"20:{N // 100}", byzantine_mode="stale_rumor", max_rounds=100),
+     (100, 990000, "max_rounds", None, None)),
+    ("scatter imp2d push-sum row", "scatter", "imp2d", 100_000, "push-sum",
+     dict(byzantine_schedule="20:1000", byzantine_mode="mass_inflate", max_rounds=300),
+     (300, 99290, "max_rounds", None, 2.1681926319107676)),
+    ("stencil push-sum row", "stencil", "grid2d", 10_000, "push-sum",
+     dict(byzantine_schedule="20:100", byzantine_mode="mass_inflate", max_rounds=300),
+     (300, 40, "max_rounds", None, 2747.8530031817327)),
+    ("stencil gossip row", "stencil", "grid2d", 10_000, "gossip",
+     dict(byzantine_schedule="20:100", byzantine_mode="stale_rumor", max_rounds=200),
+     (200, 9900, "max_rounds", None, None)),
+    ("mass_inflate unmitigated", None, "full", 256, "push-sum",
+     dict(delivery="pool", chunk_rounds=32, max_rounds=2000, byzantine_schedule="12:8",
+          byzantine_mode="mass_inflate", mass_tolerance=1e-3),
+     (13, 0, "unhealthy", 12, 0.0)),
+    ("mass_inflate under clip", None, "full", 256, "push-sum",
+     dict(delivery="pool", chunk_rounds=32, max_rounds=2000, byzantine_schedule="12:8",
+          byzantine_mode="mass_inflate", robust_agg="clip"),
+     (293, 256, "converged", None, 0.024079235020734446)),
+    ("mass_inflate under trim", None, "full", 256, "push-sum",
+     dict(delivery="pool", chunk_rounds=32, max_rounds=2000, seed=1, byzantine_rate=0.05,
+          byzantine_mode="mass_inflate", robust_agg="trim"),
+     (135, 256, "converged", None, 1.6477119714302677)),
+    ("pool mass_inflate", "pool", "full", 20_000, "push-sum",
+     dict(delivery="pool", pool_size=2, byzantine_schedule="20:200",
+          byzantine_mode="mass_inflate", max_rounds=400),
+     (216, 20_000, "converged", None, 0.0007820173152954339)),
+    ("pool mass_deflate with churn", "pool", "full", 20_000, "push-sum",
+     dict(delivery="pool", pool_size=2, byzantine_rate=0.01, byzantine_mode="mass_deflate",
+          crash_schedule="5:200,20:1000", revive_schedule="12:100,30:400", rejoin="fresh",
+          quorum=0.95, max_rounds=400),
+     (126, 18_336, "converged", None, 467.60648901117594)),
+    ("pool gossip garble", "pool", "full", 20_000, "gossip",
+     dict(delivery="pool", pool_size=2, byzantine_rate=0.01, byzantine_mode="garble"),
+     (38, 20_000, "converged", None, None)),
+    ("scatter garble", "scatter", "full", 20_000, "push-sum",
+     dict(byzantine_rate=0.01, byzantine_mode="garble", max_rounds=400),
+     (400, 0, "max_rounds", None, 0.0)),
+    ("scatter gossip stale_rumor", "scatter", "full", 20_000, "gossip",
+     dict(byzantine_schedule="5:100", byzantine_mode="stale_rumor", max_rounds=200),
+     (200, 19_900, "max_rounds", None, None)),
+    ("stencil mass_deflate with churn", "stencil", "grid2d", 10_000, "push-sum",
+     dict(byzantine_rate=0.01, byzantine_mode="mass_deflate", crash_rate=0.001,
+          revive_rate=0.2, quorum=0.9, max_rounds=600),
+     (600, 87, "max_rounds", None, 2649.064890829168)),
+    ("stencil gossip garble", "stencil", "grid2d", 10_000, "gossip",
+     dict(byzantine_rate=0.01, byzantine_mode="garble", crash_schedule="5:100,20:500",
+          revive_schedule="12:50,30:200", quorum=0.95),
+     (287, 9193, "converged", None, None)),
+    # ROADMAP C1's configs: drained runs of row 5's faulted instance (line,
+    # ref2d) and of the chunked engine's torch rounds on the card (ring 257,
+    # whose tiled tier refuses crashes, as in JAX).
+    ("C1 line", "stencil", "line", 200, "push-sum", C1_KNOBS,
+     (536, 153, "converged", None, 164.86640460104104)),
+    ("C1 ring", None, "ring", 257, "push-sum", C1_KNOBS,
+     (819, 205, "converged", None, 144.54766571023697)),
+    ("C1 ref2d", "stencil", "ref2d", 400, "push-sum", C1_KNOBS,
+     (1265, 334, "converged", None, 163.27190031009195)),
+)
+
+
+def byz_path(dev):
+    """Phase 14o, the runs: each of BYZ_RUNS on the card through run(), the
+    counters zeroed just before it and read just after, against the JAX
+    chunked engine's values baked above; then scatter delivery with clip,
+    which kernel A refuses on the card (ROADMAP A6c-2). Returns {(kernel,
+    kind, name): launches} of the first BYZ_ROW_RUNS runs, the rows' own."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool, scatter
+
+    counters = {("pool", "push-sum"): fused_pool.pushsum_pool_chunk,
+                ("pool", "gossip"): fused_pool.gossip_pool_chunk,
+                ("scatter", "push-sum"): scatter.pushsum_scatter_chunk,
+                ("scatter", "gossip"): scatter.gossip_scatter_chunk,
+                ("stencil", "push-sum"): fused.pushsum_chunk,
+                ("stencil", "gossip"): fused.gossip_chunk}
+    launches = {}
+    t0 = time.perf_counter()
+    for i, (label, kernel, kind, n, algorithm, kw, want) in enumerate(BYZ_RUNS):
+        for fn in counters.values():
+            fn.launches = 0
+        res = run(build_topology(kind, n), SimConfig(n=n, topology=kind, algorithm=algorithm,
+                                                     **kw))
+        counts = {k: fn.launches for k, fn in counters.items()}
+        got = (res.rounds, res.converged_count, res.outcome, res.unhealthy_round,
+               res.estimate_mae)
+        # The estimate is a float64 numpy sum on the host, whose order
+        # numpy picks by the host's vector width: its last place can differ
+        # from the baking machine's on equal planes.
+        mae, want_mae = got[4], want[4]
+        if got[:4] != want[:4] or (mae is None) != (want_mae is None) or (
+                mae is not None and abs(mae - want_mae) > 1e-12 * max(1.0, abs(want_mae))):
+            raise AssertionError(f"{label} ({kind} n={n:,}): {got} != JAX {want}")
+        if kernel is None:
+            if any(counts.values()):
+                raise AssertionError(f"{label}: the chunked engine's run launched a kernel")
+            continue
+        if counts[kernel, algorithm] == 0:
+            raise AssertionError(f"{label}: the run launched no {kernel} kernel")
+        if i < BYZ_ROW_RUNS:
+            name = "pushsum" if algorithm == "push-sum" else "gossip"
+            launches[kernel, kind, name] = counts[kernel, algorithm]
+            MAIN_ROUNDS[f"{name}_{kernel}_chunk byzantine {kind}"] = res.rounds
+            print(f"  {label} ({kind} n={n:,}): {res.outcome} at round {res.rounds}, "
+                  f"{counts[kernel, algorithm]} launches", flush=True)
+    try:
+        run(build_topology("full", 256), SimConfig(n=256, algorithm="push-sum",
+                                                   byzantine_schedule="12:8",
+                                                   robust_agg="clip"))
+    except NotImplementedError as e:
+        if "A6c-2" not in str(e):
+            raise
+    else:
+        raise AssertionError("scatter delivery with clip ran on the card")
+    print(f"  {len(BYZ_RUNS)} runs through run() equal to the JAX chunked engine's "
+          f"rounds, counts, outcome, unhealthy round and estimate (each Byzantine row's "
+          f"main-path run, the acceptance pair, trim, rows 1-2, 5-6 and kernel A under "
+          f"each mode, ROADMAP C1's drained configs); scatter with clip refused naming "
+          f"A6c-2 ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return launches
+
+
+def byz_phase(dev, key):
+    """Phase 14o: byz_checks, drained_checks, then byz_path. Returns
+    (cases, max_err, launches)."""
+    cases, max_err = byz_checks(dev, key)
+    drained_checks(dev, key)
+    return cases, max_err, byz_path(dev)
+
+
+def byz_rows(cases, launches, max_err):
+    """Phase 14o's rows of the kernels line: each kernel's faulted instance
+    under a Byzantine model (push-sum mass_inflate, gossip stale_rumor) over
+    a CHUNK-round chunk from the round-BYZ_MID state by CUDA events, beside
+    the fault-free instance on the same state in the same call and the
+    plain version; the bound is revive_rows' with the onset plane in place
+    of the death and revival planes."""
+    sites = {"pool": ("ops/fused_pool.py:860", "ops/fused_pool.py:1157", "fused_pool.cu"),
+             "scatter": ("ops/delivery.py:22", "ops/delivery.py:22", "scatter.cu"),
+             "stencil": ("ops/fused.py:741", "ops/fused.py:993", "fused_resident.cu")}
+    rows = []
+    for (kernel, kind, name), (kern, plain, chunk, mid, n) in cases.items():
+        ms, (_, ex) = time_ms(lambda: chunk(kern, mid, BYZ_MID, CHUNK), TIME_REPS)
+        free_ms, _ = time_ms(lambda: chunk(kern, mid, BYZ_MID, CHUNK, faulted=False),
+                             TIME_REPS)
+        plain_ms, _ = time_ms(lambda: chunk(plain, mid, BYZ_MID, CHUNK), 1)
+        rounds = max(int(ex), 1)
+        algo = "push-sum" if name == "pushsum" else "gossip"
+        n_pad = mid[0].numel()
+        if kernel == "pool":
+            state_bytes = 16 if name == "pushsum" else 12
+            moved = 2 * state_bytes * n_pad + 4 * n_pad + CHUNK * (16 + 4 * POOL + 4)
+            ops = rounds * (n_pad // 8 * OPS_PER_WORD + n_pad * ops_per_node(algo, POOL))
+        elif kernel == "scatter":
+            moved = rounds * n * (2 * SCATTER_STATE_BYTES[name] + 4)
+            ops = rounds * n * SCATTER_OPS[name]
+        else:
+            moved = STATE_BYTES[name] * n_pad + 4 * n_pad + CHUNK * 16
+            ops = rounds * n_pad * stencil_ops_per_node(algo, 4)
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        print(f"  {name} {kernel} byzantine ({kind} n={n:,}): {ms:.4f} ms a {rounds}-round "
+              f"chunk against the fault-free instance's {free_ms:.4f} on the same state "
+              f"({ms / free_ms:.3f}x), plain {plain_ms:.1f} ms", flush=True)
+        rows.append({"name": f"{name}_{kernel}_chunk byzantine {kind}", "route": "cuda",
+                     "source": f"cop5615_gossip_protocol_tpu_torch/csrc/{sites[kernel][2]}",
+                     "replaces": "cop5615_gossip_protocol_tpu/"
+                                 f"{sites[kernel][0 if name == 'pushsum' else 1]}",
+                     "launches": launches[kernel, kind, name],
+                     "max_abs_err": max_err[f"{name} {kernel} {kind}"],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "library_ms": None, "fault_free_ms": free_ms,
+                     "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+                     "config": "byzantine mass_inflate" if name == "pushsum"
+                               else "byzantine stale_rumor",
+                     "status": "ported"})
     return rows
 
 
@@ -6160,15 +6541,17 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
         cpu_revive = cpu_runs[3].get(timeout=900)
         revive_cases, revive_err, revive_launches = phase("14n", revive_phase, dev, key,
                                                           cpu_revive)
+        byz_cases, byz_err, byz_launches = phase("14o", byz_phase, dev, key)
     except Exception as e:
         return fail(str(e))
-    t15 += time.perf_counter() - t14m  # and 14m-14n's
+    t15 += time.perf_counter() - t14m  # and 14m-14o's
     # Rows 15-16 in their global instances, and kernel A, rows 1-2 and rows
     # 5-6 in their revive instances, beside their other instances.
     try:
         rows += shard_global_rows(shard_global_cases, shard_global_launches,
                                   shard_global_err)
         rows += revive_rows(revive_cases, revive_launches, revive_err)
+        rows += byz_rows(byz_cases, byz_launches, byz_err)
     except (AssertionError, RuntimeError) as e:
         return fail(str(e))
     for row in rows:

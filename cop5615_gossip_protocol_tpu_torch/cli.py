@@ -12,6 +12,8 @@
         --fault-rate 0.2 --crash-schedule 3:10000 --quorum 0.9
     python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum \\
         --crash-rate 0.01 --revive-rate 0.2 --rejoin fresh --quorum 0.9
+    python -m cop5615_gossip_protocol_tpu_torch 256 full push-sum \\
+        --delivery pool --byzantine-schedule 12:8 --robust-agg clip
 
 runs on the GPU (``--platform cuda``, the default) or, when asked, on the
 CPU (``--platform cpu``). Flags keep the JAX CLI's names; a JAX CLI flag
@@ -35,9 +37,7 @@ UNPORTED_FLAGS = {
     "--deadline-ms": "A12",
     "--halo-dma": "A10", "--distributed": "A10",
     "--coordinator": "A10", "--num-processes": "A10", "--process-id": "A10",
-    "--replicas": "A9", "--byzantine-rate": "A6c",
-    "--byzantine-schedule": "A6c", "--byzantine-mode": "A6c",
-    "--robust-agg": "A6c", "--mass-tolerance": "A6c",
+    "--replicas": "A9",
     "--telemetry": "A6d", "--trace-convergence": "A6d",
     "--dup-rate": "A7b", "--delay-rounds": "A7b",
     "--stall-chunks": "A8", "--profile": "A8", "--metrics-dump": "A8",
@@ -108,6 +108,37 @@ def build_parser() -> argparse.ArgumentParser:
                    "parked (s, w) mass (conserving); fresh = reset to "
                    "(s=x_i, w=0), discarding parked mass (the modeled "
                    "fault)")
+    p.add_argument("--byzantine-rate", type=float, default=0.0,
+                   help="adversarial plane: probability each node is "
+                   "Byzantine from round 0 (adversaries stay ALIVE and "
+                   "count toward quorum; behavior per --byzantine-mode)")
+    p.add_argument("--byzantine-schedule", type=str, default=None,
+                   metavar="ROUND:COUNT,...",
+                   help="deterministic adversary onsets: turn COUNT "
+                   "uniformly random nodes Byzantine at each listed round "
+                   "(mutually exclusive with --byzantine-rate)")
+    p.add_argument("--byzantine-mode",
+                   choices=["mass_inflate", "mass_deflate", "stale_rumor",
+                            "garble"],
+                   default="mass_inflate",
+                   help="what adversaries do: push-sum wire corruption "
+                   "(mass_inflate = send the unhalved state, mass_deflate "
+                   "= send negated mass, garble = swap s/w channels); "
+                   "gossip state corruption (stale_rumor = perpetual rumor "
+                   "re-injection, garble = fake convergence)")
+    p.add_argument("--robust-agg", choices=["none", "clip", "trim"],
+                   default="none",
+                   help="push-sum countermeasure (chunked engine): bound "
+                   "per-round accepted contributions — clip scales each "
+                   "received (s, w) pair to a dynamic envelope; trim drops "
+                   "the largest-|w| pool contribution channel "
+                   "(delivery='pool')")
+    p.add_argument("--mass-tolerance", type=float, default=None,
+                   help="health sentinel (push-sum, chunked engine): every "
+                   "round also checks state finiteness and |sum(w) - n| "
+                   "against this tolerance; a trip ends the run with "
+                   "outcome=unhealthy + the offending round instead of "
+                   "converging wrong")
     p.add_argument("--quorum", type=float, default=1.0,
                    help="crash-model termination: fraction of LIVE nodes "
                    "that must be converged to end the run (default 1.0)")
@@ -214,6 +245,11 @@ def main(argv: Optional[list[str]] = None) -> int:
             revive_rate=args.revive_rate,
             revive_schedule=args.revive_schedule,
             rejoin=args.rejoin,
+            byzantine_rate=args.byzantine_rate,
+            byzantine_schedule=args.byzantine_schedule,
+            byzantine_mode=args.byzantine_mode,
+            robust_agg=args.robust_agg,
+            mass_tolerance=args.mass_tolerance,
             quorum=args.quorum,
             termination=args.termination,
         )

@@ -12,7 +12,10 @@ sharded compositions (models/runner.run says which run); ``fault_rate``,
 ``crash_rate``/``crash_schedule`` with ``quorum``,
 ``revive_rate``/``revive_schedule`` with ``rejoin``, and ``termination``
 set the drop gate, crash-stop with quorum termination, crash-recovery and
-push-sum's global termination (ops/faults.py). Every other field keeps its default
+push-sum's global termination (ops/faults.py);
+``byzantine_rate``/``byzantine_schedule`` with ``byzantine_mode``,
+``robust_agg`` and ``mass_tolerance`` the Byzantine adversaries, robust
+aggregation and the health sentinel. Every other field keeps its default
 here, and setting it
 to anything else raises NotImplementedError naming the ROADMAP item that
 will port it.
@@ -54,11 +57,6 @@ _CLI_ALGORITHM_ALIASES = {
 # (field, default, ROADMAP item) for every field this slice does not port.
 _UNPORTED = (
     ("dtype", "float32", "A12"),
-    ("byzantine_rate", 0.0, "A6c"),
-    ("byzantine_schedule", None, "A6c"),
-    ("byzantine_mode", "mass_inflate", "A6c"),
-    ("robust_agg", "none", "A6c"),
-    ("mass_tolerance", None, "A6c"),
     ("telemetry", False, "A6d"),
     ("dup_rate", 0.0, "A7b"),
     ("delay_rounds", 0, "A7b"),
@@ -209,13 +207,111 @@ class SimConfig:
             raise ValueError(
                 f"unknown rejoin {self.rejoin!r}; expected restore|fresh"
             )
+        if not (0.0 <= self.byzantine_rate < 1.0):
+            raise ValueError("byzantine_rate must be in [0, 1)")
+        if self.byzantine_schedule is not None:
+            if self.byzantine_rate > 0:
+                raise ValueError(
+                    "byzantine_rate and byzantine_schedule are mutually "
+                    "exclusive (the schedule IS the adversary onset process)"
+                )
+            from .ops.faults import parse_schedule
+
+            parse_schedule(self.byzantine_schedule, "byzantine")  # same grammar
+        if self.byzantine_mode not in (
+            "mass_inflate", "mass_deflate", "stale_rumor", "garble"
+        ):
+            raise ValueError(
+                f"unknown byzantine_mode {self.byzantine_mode!r}; expected "
+                "mass_inflate|mass_deflate|stale_rumor|garble"
+            )
+        if self.byzantine_model:
+            valid_modes = (
+                ("mass_inflate", "mass_deflate", "garble")
+                if self.algorithm == "push-sum"
+                else ("stale_rumor", "garble")
+            )
+            if self.byzantine_mode not in valid_modes:
+                raise ValueError(
+                    f"byzantine_mode {self.byzantine_mode!r} does not apply "
+                    f"to algorithm {self.algorithm!r}: push-sum adversaries "
+                    "corrupt the sent (s, w) wire pair "
+                    "(mass_inflate|mass_deflate|garble); gossip adversaries "
+                    "corrupt protocol state (stale_rumor|garble)"
+                )
+        if self.robust_agg not in ("none", "clip", "trim"):
+            raise ValueError(
+                f"unknown robust_agg {self.robust_agg!r}; expected "
+                "none|clip|trim"
+            )
+        if self.robust_agg != "none":
+            if self.algorithm != "push-sum":
+                raise ValueError(
+                    "robust_agg bounds the push-sum (s, w) contributions a "
+                    "receiver accepts; gossip receipts carry no mass to "
+                    "clip or trim"
+                )
+            if self.mass_tolerance is not None:
+                raise ValueError(
+                    "robust_agg contradicts mass_tolerance: clip/trim "
+                    "DISCARD suspect mass by design, so the conservation "
+                    "sentinel would trip on the countermeasure, not "
+                    "corruption"
+                )
+            if self.robust_agg == "trim" and self.delivery != "pool":
+                raise ValueError(
+                    "robust_agg='trim' drops the largest-|w| channel among "
+                    "the pool tier's per-slot sampled contributions; other "
+                    "deliveries accumulate a single inbox with no channels "
+                    "to trim — use delivery='pool' or robust_agg='clip'"
+                )
+            if self.robust_agg == "trim" and self.topology != "full":
+                raise ValueError(
+                    "robust_agg='trim' applies to the implicit full "
+                    "topology's uniform pool-slot channels; the imp "
+                    "lattice+pool delivery mixes channel classes with no "
+                    "single slot order to trim over — use robust_agg='clip'"
+                )
         if not (0.0 < self.quorum <= 1.0):
             raise ValueError(f"quorum must be in (0, 1], got {self.quorum}")
         for lint in self.lint_warnings:
             import warnings
 
             warnings.warn(lint, RuntimeWarning, stacklevel=2)
-        if self.semantics == "reference" and self.crash_model:
+        if self.mass_tolerance is not None:
+            if self.mass_tolerance <= 0:
+                raise ValueError(
+                    f"mass_tolerance must be > 0, got {self.mass_tolerance}"
+                )
+            if self.algorithm != "push-sum":
+                raise ValueError(
+                    "mass_tolerance watches the push-sum conservation "
+                    "invariant Σw == population; gossip state has no mass "
+                    "to diverge"
+                )
+            if self.dup_rate > 0:
+                raise ValueError(
+                    "mass_tolerance contradicts dup_rate: at-least-once "
+                    "delivery CREATES mass by design, so the sentinel "
+                    "would trip on the modeled fault, not corruption"
+                )
+            if self.revive_model and self.rejoin == "fresh":
+                raise ValueError(
+                    "mass_tolerance contradicts rejoin='fresh': fresh "
+                    "revivals discard parked mass and re-create their "
+                    "value by design — use rejoin='restore' (conserving) "
+                    "with the sentinel"
+                )
+            if self.semantics == "reference":
+                raise ValueError(
+                    "mass_tolerance runs inside the synchronous chunk "
+                    "program; reference-semantics push-sum is a single "
+                    "random walk with no round body — use batched semantics"
+                )
+        if self.semantics == "reference" and (
+            self.crash_model or self.byzantine_model
+            or self.robust_agg != "none"
+        ):
             raise ValueError(
                 "crash/dup/delay/byzantine fault models (and robust_agg) "
                 "contradict reference semantics — the reference models zero "
@@ -349,6 +445,12 @@ class SimConfig:
         return self.revive_rate > 0.0 or self.revive_schedule is not None
 
     @property
+    def byzantine_model(self) -> bool:
+        """True when nodes can lie (ops/faults.byzantine_plane is not
+        None). Adversaries stay alive and count toward the quorum."""
+        return self.byzantine_rate > 0.0 or self.byzantine_schedule is not None
+
+    @property
     def lint_warnings(self) -> tuple[str, ...]:
         """Valid-but-suspect combinations, as the JAX package words them:
         the CLI prints each to stderr, and __post_init__ raises each as a
@@ -361,12 +463,19 @@ class SimConfig:
                 "crash_rate/crash_schedule, or use target_frac to relax a "
                 "fault-free target"
             )
+        if self.robust_agg != "none" and not self.byzantine_model:
+            out.append(
+                "robust_agg without a byzantine model bounds contributions "
+                "that are all honest — pure overhead that can only discard "
+                "legitimate mass; set byzantine_rate/byzantine_schedule, or "
+                "drop --robust-agg"
+            )
         return tuple(out)
 
     @property
     def faulted(self) -> bool:
         """Any failure-model knob set (the JAX property the fused plans
-        gate on; dup, delay and Byzantine knobs are refused above)."""
+        gate on; dup and delay knobs are refused above)."""
         return (self.fault_rate > 0.0 or self.crash_rate > 0.0
                 or self.crash_schedule is not None or self.dup_rate > 0.0
                 or self.delay_rounds > 0 or self.byzantine_rate > 0.0

@@ -20,7 +20,15 @@
 //
 // Numerics: the kernels are built without fast math, with -fmad=false and
 // denormals kept (utils/kernels.py), so (s - s * 0.5) + inbox and s / w
-// round exactly as the chunked engines do.
+// round exactly as the chunked engines do. The push-sum instances that
+// carry crash-stop (their faulted instances here and in csrc/scatter.cu and
+// csrc/fused_pool2_shard.cu) flush where the JAX package's compiled round
+// flushes: each half sent, each kept half, each inbox add and each absorbed
+// sum, through csrc/faults.cuh's flush and keep_flushed (pushsum_absorb's
+// Flush). Only a crash drains mass below FLT_MIN, and global termination
+// refuses crashes, so the fault-free instances and the global-only ones
+// (rows 7, 9, 11, 13, 15, 16, 18) never meet a value the flush would change
+// and keep their code.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -108,16 +116,26 @@ struct GossipPlanes {
 // conv flag through `term_of()` and `conv_of()` where the arithmetic needs
 // them (so each caller keeps its own plane layout and load order); sets
 // s_new, w_new, t_new and returns the new conv flag (0 on pad lanes).
-template <typename TermOf, typename ConvOf>
+// Flush (the faulted instances): the kept halves and the sums flushed as
+// the plain round flushes them (csrc/faults.cuh keep_flushed, with FoldS).
+template <bool Flush = false, bool FoldS = true, typename TermOf,
+          typename ConvOf>
 __device__ __forceinline__ int pushsum_absorb(float s_t, float w_t, TermOf term_of,
                                               ConvOf conv_of, bool pad, bool sends,
                                               float in_s, float in_w, float delta,
                                               int term_rounds, float& s_new,
                                               float& w_new, int& t_new) {
-  const float s_send = sends ? s_t * 0.5f : 0.0f;
-  const float w_send = sends ? w_t * 0.5f : 0.0f;
-  s_new = (s_t - s_send) + in_s;
-  w_new = (w_t - w_send) + in_w;
+  if constexpr (Flush) {
+    float s_keep, w_keep;
+    keep_flushed<FoldS>(s_t, w_t, sends, s_keep, w_keep);
+    s_new = flush(s_keep + in_s);
+    w_new = flush(w_keep + in_w);
+  } else {
+    const float s_send = sends ? s_t * 0.5f : 0.0f;
+    const float w_send = sends ? w_t * 0.5f : 0.0f;
+    s_new = (s_t - s_send) + in_s;
+    w_new = (w_t - w_send) + in_w;
+  }
   const bool received = in_w > 0.0f;
   const bool stable = fabsf(s_new / w_new - s_t / w_t) <= delta;
   const int t_old = term_of();

@@ -124,6 +124,78 @@ GOSSIP_HD int latched_conv(bool latch, int j, int n, int conv) {
   return latch ? (j < n ? 1 : 0) : conv;
 }
 
+// XLA's flush, as the plain rounds write it out (models/pushsum.flush): a
+// float32 result under FLT_MIN in magnitude becomes a zero of its sign.
+// Only a crash drains push-sum mass into that range (the gate keeps the
+// mass of a node it blocks, and global termination refuses crashes), and
+// only mass_deflate's negated halves can cancel into it, so only the
+// push-sum kernels' faulted instances flush; on any other state a flush
+// changes nothing.
+GOSSIP_HD float flush(float x) {
+  return fabsf(x) < 1.17549435e-38f ? copysignf(0.0f, x) : x;
+}
+
+// A push-sum node's kept halves under the flush, in the form of the JAX
+// package's compiled round (models/pushsum.halve_and_send): the kept w half
+// is flush(sends ? w * 0.5 : w), and so is the kept s half with FoldS (pool,
+// imp pool and scatter delivery), else (stencil delivery) flush(s - its
+// flushed send). Equal to s - s * 0.5 wherever no half is flushed.
+template <bool FoldS>
+GOSSIP_HD void keep_flushed(float s, float w, bool sends, float& s_keep,
+                            float& w_keep) {
+  s_keep = FoldS ? flush(sends ? s * 0.5f : s)
+                 : flush(s - flush(sends ? s * 0.5f : 0.0f));
+  w_keep = flush(sends ? w * 0.5f : w);
+}
+
+// Byzantine modes, as the kernels take them (ops/fused.BYZ_MODES): what a
+// lying push-sum sender puts on the wire, what a lying gossip node does to
+// its own state.
+constexpr int kMassInflate = 1;
+constexpr int kMassDeflate = 2;
+constexpr int kGarble = 3;
+constexpr int kStaleRumor = 4;
+
+// Whether node j is an adversary in round `round`: from its onset round on
+// (ops/faults.byzantine_at); no plane (null): never.
+GOSSIP_HD bool byzantine_in(const int* byz, int j, int round) {
+  return byz != nullptr && byz[j] <= round;
+}
+
+// A lying push-sum sender's wire pair (models/runner.make_byz_send_fn):
+// from its honest flushed halves (s_send, w_send) and its round-start (s, w),
+// mass_inflate sends the whole (s, w), mass_deflate the negated halves,
+// garble the halves with the channels swapped. Its kept halves stay honest.
+GOSSIP_HD void lie_send(int mode, float s, float w, float& s_send,
+                        float& w_send) {
+  if (mode == kMassInflate) {
+    s_send = s;
+    w_send = w;
+  } else if (mode == kMassDeflate) {
+    s_send = -s_send;
+    w_send = -w_send;
+  } else if (mode == kGarble) {
+    const float x = s_send;
+    s_send = w_send;
+    w_send = x;
+  }
+}
+
+// A live gossip adversary's state at the end of its round, after the dead
+// freeze (models/runner.make_byz_override_fn): stale_rumor pins (count 0,
+// active, unconverged), garble latches conv.
+GOSSIP_HD void gossip_override(int mode, bool lying, int& count, int& active,
+                               int& conv) {
+  if (!lying) return;
+  if (mode == kStaleRumor) {
+    count = 0;
+    active = 1;
+    conv = 0;
+  } else {
+    conv = 1;
+  }
+}
+
 // A chunk's failure model, as the chunk kernels' faulted instances (their
 // F = true template argument) take it: the drop gate's threshold (0: no
 // gate; each round's gate key is its round key folded with the gate tag,
@@ -133,7 +205,11 @@ GOSSIP_HD int latched_conv(bool latch, int j, int n, int conv) {
 // termination (push-sum), and under a recovery model each node's revival
 // round over the layout (pad lanes never; null: crash-stop), whether a
 // revived node resets and push-sum's initial term (csrc/fused_pool.cu and
-// csrc/fused_resident.cu carry it; the other kernels' plans refuse it).
+// csrc/fused_resident.cu carry it; the other kernels' plans refuse it),
+// and each node's Byzantine onset round over the layout (pad lanes never;
+// null: no adversary) with the mode (csrc/fused_pool.cu and
+// csrc/fused_resident.cu carry them; the JAX ladder runs no other fused
+// tier with them).
 struct Faults {
   uint32_t thresh;
   const int* death;
@@ -141,6 +217,8 @@ struct Faults {
   int start, global;
   const int* revive = nullptr;
   int reset = 0, init_term = 0;
+  const int* byz = nullptr;
+  int byz_mode = 0;
 };
 
 // A sender's mark bit under a recovery model with push-sum's fresh rejoin
@@ -150,9 +228,35 @@ struct Faults {
 // the stored one. Marks are class or slot indices below 16.
 constexpr int8_t kRejoinBit = 16;
 
-// Whether a sender's mark `m` (kRejoinBit maybe set) is class or slot k.
+// A push-sum sender's mark bit under a Byzantine model (the same faulted
+// instances): set, by its owner a round ahead as kRejoinBit is, on the mark
+// of a node that sends as an adversary in the round the mark is for, so its
+// receivers apply the mode to what they read of it (read_send).
+constexpr int8_t kLieBit = 32;
+
+// Whether a sender's mark `m` (kRejoinBit and kLieBit maybe set) is class
+// or slot k.
 GOSSIP_HD bool mark_hit(int8_t m, int k) {
-  return (int8_t)(m & ~kRejoinBit) == k;
+  return (int8_t)(m & ~(kRejoinBit | kLieBit)) == k;
+}
+
+// A push-sum sender's mark `m` for absolute round `round` with kLieBit set
+// where it sends (m >= 0) as an adversary then.
+GOSSIP_HD int8_t lie_mark(int8_t m, const int* byz, int j, int round) {
+  return m >= 0 && byzantine_in(byz, j, round) ? (int8_t)(m | kLieBit) : m;
+}
+
+// What a receiver reads of a sender whose mark is `m` and whose stored
+// round-start state is (s, w): half of the reset state (its index, 0)
+// where kRejoinBit is set, else half of (s, w), each half flushed, and the
+// pair lied (lie_send under `mode`) where kLieBit is set.
+GOSSIP_HD void read_send(int8_t m, int i, float s, float w, int mode,
+                         float& s_send, float& w_send) {
+  const bool rn = m >= 0 && (m & kRejoinBit);
+  const float si = rn ? (float)i : s, wi = rn ? 0.0f : w;
+  s_send = flush(si * 0.5f);
+  w_send = flush(wi * 0.5f);
+  if (m >= 0 && (m & kLieBit)) lie_send(mode, si, wi, s_send, w_send);
 }
 
 // Node j's mark for chunk round k (absolute round f.start + k) under F:

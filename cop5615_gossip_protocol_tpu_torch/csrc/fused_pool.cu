@@ -98,7 +98,16 @@
 // take half of (j, 0)). The stored planes stay un-reset until the round
 // runs, so a chunk that ends just before it hands back the state a resume
 // expects. The init launch seeds the verdict from the live nodes of round
-// start - 1, revivals counted.
+// start - 1, revivals counted. Under a Byzantine model (the JAX kernels'
+// byzantine plane, ops/fused_pool.py) a push-sum adversary's owner sets
+// kLieBit on its mark a round ahead where it sends, and each receiver
+// applies the mode to what it reads of that source (csrc/faults.cuh
+// read_send: the whole (s, w), the negated halves, or the halves swapped);
+// the owner keeps its honest halve. A live gossip adversary's state takes
+// the mode's override at the end of its absorb (stale_rumor: count 0,
+// active, unconverged; garble: conv), before its conv enters the barrier
+// word and its next mark is written; a dead node's conv stays. The faulted
+// push-sum instance flushes as the plain round does (csrc/chunk.cuh).
 //
 // Numerics: built without fast math, with -fmad=false and denormals kept
 // (utils/kernels.py), and the slot sums run from 0.0 in ascending slot
@@ -185,9 +194,11 @@ __device__ __forceinline__ void prologue_marks(int8_t* mark,
     for (int sub = 0; sub < kChoicePack; ++sub) {
       const int j = word_node(wi, sub);
       if constexpr (F)
-        mark[j] = gossip::rejoin_mark(pool_mark(word, j, n, P),
-                                      flags == nullptr || (flags[j] & kActive),
-                                      flags != nullptr, f, 0, g1, g2, j);
+        mark[j] = gossip::lie_mark(
+            gossip::rejoin_mark(pool_mark(word, j, n, P),
+                                flags == nullptr || (flags[j] & kActive),
+                                flags != nullptr, f, 0, g1, g2, j),
+            flags == nullptr ? f.byz : nullptr, j, f.start);
       else
         mark[j] = flags == nullptr || (flags[j] & kActive) ? pool_mark(word, j, n, P)
                                                            : (int8_t)-1;
@@ -254,7 +265,8 @@ __global__ void pushsum_rounds(PushSumChunk c) {
           if (j < c.n) {
             if constexpr (F)
               gossip::pool_pushsum_inbox_rejoin<P>(od, mk, cur_s, cur_w, j,
-                                                   c.n, in_s[h], in_w[h]);
+                                                   c.n, in_s[h], in_w[h],
+                                                   c.f.byz_mode);
             else
               gossip::pool_pushsum_inbox<P>(od, mk, cur_s, cur_w, j, c.n,
                                             in_s[h], in_w[h]);
@@ -287,7 +299,7 @@ __global__ void pushsum_rounds(PushSumChunk c) {
             gossip::rejoin_pushsum(
                 gossip::rejoins(c.f.revive, c.f.reset, j, c.f.start + r), j,
                 c.f.init_term, s_t[h], w_t[h], t_old[h], c_old[h]);
-            int cv = gossip::pushsum_absorb(
+            int cv = gossip::pushsum_absorb<true, true>(
                 s_t[h], w_t[h], [&] { return t_old[h]; },
                 [&] { return c_old[h] != 0; }, pad, mk[j] >= 0, in_s[h],
                 in_w[h], c.delta, c.term_rounds, s_new, w_new, t_new);
@@ -303,8 +315,10 @@ __global__ void pushsum_rounds(PushSumChunk c) {
               a.conv[j] = cv;
             }
             if (next)
-              next[j] = gossip::rejoin_mark(pool_mark(word, j, c.n, P), true, false, c.f,
-                                  r + 1, g1, g2, j);
+              next[j] = gossip::lie_mark(
+                  gossip::rejoin_mark(pool_mark(word, j, c.n, P), true, false,
+                                      c.f, r + 1, g1, g2, j),
+                  c.f.byz, j, c.f.start + r + 1);
             count += alive ? cv : 0;
           }
         }
@@ -433,11 +447,18 @@ __global__ void gossip_rounds(GossipChunk c) {
               gossip::rejoin_gossip(true, count0[h], act0, cv0);
               flags0[h] = (act0 ? kActive : 0) | (cv0 ? kConv : 0);
             }
-            const int cv = gossip::gossip_absorb(
+            int cv = gossip::gossip_absorb(
                 [&] { return (flags0[h] & kConv) != 0; },
                 [&] { return count0[h]; }, [&] { return flags0[h] & kActive; },
                 j >= c.n, alive ? inbox[h] : 0,
                 c.rumor_target, c.suppress, cnt, act);
+            // A dead node's conv stays; a live adversary's state takes the
+            // Byzantine mode's override.
+            cv = gossip::frozen(alive, cv, (flags0[h] & kConv) ? 1 : 0);
+            gossip::gossip_override(
+                c.f.byz_mode,
+                alive && gossip::byzantine_in(c.f.byz, j, c.f.start + r), cnt,
+                act, cv);
             c.a.count[j] = cnt;
             c.flags[j] = (int8_t)((act ? kActive : 0) | (cv ? kConv : 0));
             if (next)
@@ -574,7 +595,9 @@ bool valid_chunk(int n, int n_pad, int pool_size, int rounds) {
 // int32[2] (done, rounds executed), then 8 * (rounds + 2) bytes of scratch,
 // the per-round barrier words (uint64, rounds of them, then the
 // prologue's) and the init launch's total and ticket (int32 each); ctrl
-// must be 8-byte aligned.
+// must be 8-byte aligned. byz is the int32 [n_pad] Byzantine onset plane
+// (pad lanes never; null: no adversary) and byz_mode its mode
+// (csrc/faults.cuh), both read by the faulted instance only.
 
 extern "C" int gossip_pushsum_pool_chunk(
     const float* s0, const float* w0, const int* t0, const int* c0, float* s,
@@ -583,7 +606,7 @@ extern "C" int gossip_pushsum_pool_chunk(
     int pool_size, int rounds, float delta, int term_rounds, int target,
     int faulted, unsigned thresh, const int* death, const int* needs,
     int need_init, int start, const int* revive, int reset, int init_term,
-    int global, int device, void* stream_ptr) {
+    int global, const int* byz, int byz_mode, int device, void* stream_ptr) {
   if (!valid_chunk(n, n_pad, pool_size, rounds))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -597,7 +620,7 @@ extern "C" int gossip_pushsum_pool_chunk(
                        term_rounds, target,
                        (unsigned long long*)(ctrl + 2), ctrl,
                        Faults{thresh, death, needs, start, global, revive,
-                              reset, init_term}};
+                              reset, init_term, byz, byz_mode}};
   GOSSIP_POOL_DISPATCH(queue_pushsum, faulted, c, s0, w0, t0, c0, need_init,
                        device, stream)
 }
@@ -608,8 +631,8 @@ extern "C" int gossip_gossip_pool_chunk(
     const int* offs, int* ctrl, int n, int n_pad,
     int pool_size, int rounds, int rumor_target, int suppress, int target,
     int faulted, unsigned thresh, const int* death, const int* needs,
-    int need_init, int start, const int* revive, int reset, int device,
-    void* stream_ptr) {
+    int need_init, int start, const int* revive, int reset, const int* byz,
+    int byz_mode, int device, void* stream_ptr) {
   if (!valid_chunk(n, n_pad, pool_size, rounds))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -621,7 +644,8 @@ extern "C" int gossip_gossip_pool_chunk(
   const GossipChunk c{GossipPlanes{count, active, conv}, flags, mark, keys,
                       offs, n, n_pad, rounds, rumor_target, suppress, target,
                       (unsigned long long*)(ctrl + 2), ctrl,
-                      Faults{thresh, death, needs, start, 0, revive, reset, 0}};
+                      Faults{thresh, death, needs, start, 0, revive, reset, 0,
+                             byz, byz_mode}};
   GOSSIP_POOL_DISPATCH(queue_gossip, faulted, c, n0, a0, c0, need_init, device,
                        stream)
 }

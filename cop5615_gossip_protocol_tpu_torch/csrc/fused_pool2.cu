@@ -176,8 +176,16 @@ __global__ void pushsum_pool2_round(PushSumPool2 cur, PushSumPool2 nxt,
 #pragma unroll
       for (int sub = 0; sub < kPack; ++sub) {
         const bool hit = ch[sub] == slot && j0 + sub * kLanes < n;
-        in_s[sub] = in_s[sub] + (hit ? cur.s[src[sub]] * 0.5f : 0.0f);
-        in_w[sub] = in_w[sub] + (hit ? cur.w[src[sub]] * 0.5f : 0.0f);
+        if constexpr (F) {
+          // Each half and each add flushed, as the plain round does.
+          in_s[sub] = gossip::flush(
+              in_s[sub] + (hit ? gossip::flush(cur.s[src[sub]] * 0.5f) : 0.0f));
+          in_w[sub] = gossip::flush(
+              in_w[sub] + (hit ? gossip::flush(cur.w[src[sub]] * 0.5f) : 0.0f));
+        } else {
+          in_s[sub] = in_s[sub] + (hit ? cur.s[src[sub]] * 0.5f : 0.0f);
+          in_w[sub] = in_w[sub] + (hit ? cur.w[src[sub]] * 0.5f : 0.0f);
+        }
       }
     }
     if constexpr (!F) {
@@ -213,7 +221,7 @@ __global__ void pushsum_pool2_round(PushSumPool2 cur, PushSumPool2 nxt,
         const int tc = cur.tc[j];
         float s_new, w_new;
         int t_new;
-        int cv = gossip::pushsum_absorb(
+        int cv = gossip::pushsum_absorb<true, true>(
             s_t, w_t, [&] { return gossip::pool2::tc_term(tc); },
             [&] { return gossip::pool2::tc_conv(tc); }, pad, ((own >> sub) & 1u) != 0,
             in_s[sub], in_w[sub], delta, term_rounds, s_new, w_new, t_new);

@@ -211,8 +211,16 @@ __global__ void pushsum_pool2_shard_round(const float* __restrict__ s_in,
       }
 #pragma unroll
       for (int sub = 0; sub < kPack; ++sub) {
-        in_s[sub] = in_s[sub] + (hit[sub] ? s_in[at[sub]] * 0.5f : 0.0f);
-        in_w[sub] = in_w[sub] + (hit[sub] ? w_in[at[sub]] * 0.5f : 0.0f);
+        if constexpr (F) {
+          // Each half and each add flushed, as the plain round does.
+          in_s[sub] = gossip::flush(
+              in_s[sub] + (hit[sub] ? gossip::flush(s_in[at[sub]] * 0.5f) : 0.0f));
+          in_w[sub] = gossip::flush(
+              in_w[sub] + (hit[sub] ? gossip::flush(w_in[at[sub]] * 0.5f) : 0.0f));
+        } else {
+          in_s[sub] = in_s[sub] + (hit[sub] ? s_in[at[sub]] * 0.5f : 0.0f);
+          in_w[sub] = in_w[sub] + (hit[sub] ? w_in[at[sub]] * 0.5f : 0.0f);
+        }
       }
     }
     if constexpr (!F) {
@@ -250,7 +258,7 @@ __global__ void pushsum_pool2_shard_round(const float* __restrict__ s_in,
         const int tc = tc_in[l];
         float s_new, w_new;
         int t_new;
-        int cv = gossip::pushsum_absorb(
+        int cv = gossip::pushsum_absorb<true, true>(
             s_t, w_t, [&] { return gossip::pool2::tc_term(tc); },
             [&] { return gossip::pool2::tc_conv(tc); }, pad,
             ((own >> sub) & 1u) != 0, in_s[sub], in_w[sub], delta,

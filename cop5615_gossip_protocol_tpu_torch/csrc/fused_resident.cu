@@ -96,7 +96,16 @@
 // (a rejoined node is inactive) and with csrc/faults.cuh's kRejoinBit for
 // push-sum (the receivers take half of (j, 0)). The stored planes stay
 // un-reset until the round runs, so a chunk that ends just before it hands
-// back the state a resume expects. The fault planes are
+// back the state a resume expects. Under a Byzantine model (the JAX
+// kernels' byzantine plane, ops/fused.py) a push-sum adversary's owner sets
+// kLieBit on its mark a round ahead where it sends, beside kRejoinBit, and
+// each receiver applies the mode to what it reads of that source
+// (csrc/faults.cuh read_send, from the reset state where both bits are
+// set); the owner keeps its honest halve. A live gossip adversary's state
+// takes the mode's override after its absorb, before its conv is counted
+// and its next mark written; a dead node's conv stays. The faulted push-sum
+// instance flushes as the plain round does, with the stencil delivery's
+// kept s half (csrc/chunk.cuh). The fault planes are
 // read-only in the round loop, and a node's term and conv are written only
 // by the thread that owns it, so no pass is split and no block leaves the
 // loop alone.
@@ -142,8 +151,10 @@ __device__ __forceinline__ void prologue_marks(int8_t* mark, const int* active,
   for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
        j += gridDim.x * kBlock) {
     const bool on = active == nullptr || active[j] != 0;
-    mark[j] = F ? gossip::rejoin_mark(word_mark(dirs[j], k0, k1, j), on,
-                                      active != nullptr, f, 0, g1, g2, j)
+    mark[j] = F ? gossip::lie_mark(
+                      gossip::rejoin_mark(word_mark(dirs[j], k0, k1, j), on,
+                                          active != nullptr, f, 0, g1, g2, j),
+                      active == nullptr ? f.byz : nullptr, j, f.start)
                 : (on ? word_mark(dirs[j], k0, k1, j) : (int8_t)-1);
   }
 }
@@ -183,7 +194,8 @@ __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
       float in_s = 0.0f, in_w = 0.0f;
       if (!pad) {
         if constexpr (F)
-          gossip::pushsum_inbox_rejoin(cls, mk, cur.s, cur.w, j, n, in_s, in_w);
+          gossip::pushsum_inbox_rejoin(cls, mk, cur.s, cur.w, j, n, in_s, in_w,
+                                       f.byz_mode);
         else
           gossip::pushsum_inbox(cls, mk, cur.s, cur.w, j, n, in_s, in_w);
       }
@@ -204,7 +216,7 @@ __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
                                j, f.init_term, s_t, w_t, t_old, c_old);
         float s_new, w_new;
         int t_new;
-        int cv = gossip::pushsum_absorb(
+        int cv = gossip::pushsum_absorb<true, false>(
             s_t, w_t, [&] { return t_old; }, [&] { return c_old != 0; }, pad,
             mk[j] >= 0, in_s, in_w, delta, term_rounds, s_new, w_new, t_new);
         nxt.s[j] = s_new;
@@ -219,8 +231,10 @@ __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
           nxt.conv[j] = cv;
         }
         if (next)
-          next[j] = gossip::rejoin_mark(word_mark(dirs[j], k0, k1, j), true,
-                                        false, f, r + 1, g1, g2, j);
+          next[j] = gossip::lie_mark(
+              gossip::rejoin_mark(word_mark(dirs[j], k0, k1, j), true, false,
+                                  f, r + 1, g1, g2, j),
+              f.byz, j, f.start + r + 1);
         c += alive ? cv : 0;
       }
     }
@@ -284,11 +298,19 @@ __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
       const bool rn = F && gossip::rejoins(f.revive, f.reset, j, f.start + r);
       const int inbox = pad || !alive ? 0 : gossip::gossip_inbox(cls, mk, j, n);
       int cnt, act;
-      const int cv = gossip::gossip_absorb(
+      int cv = gossip::gossip_absorb(
           [&] { return !rn && cur.conv[j] != 0; },
           [&] { return rn ? 0 : cur.count[j]; },
           [&] { return rn ? 0 : cur.active[j]; }, pad, inbox, rumor_target,
           suppress, cnt, act);
+      if constexpr (F) {
+        // A dead node's conv stays; a live adversary's state takes the
+        // Byzantine mode's override.
+        cv = gossip::frozen(alive, cv, cur.conv[j]);
+        gossip::gossip_override(
+            f.byz_mode, alive && gossip::byzantine_in(f.byz, j, f.start + r),
+            cnt, act, cv);
+      }
       nxt.count[j] = cnt;
       nxt.active[j] = act;
       nxt.conv[j] = cv;
@@ -411,7 +433,8 @@ cudaError_t queue_gossip(GossipPlanes a, GossipPlanes b, int8_t* mark,
 // device (null: no crash model), the seed need of round start - 1, the
 // chunk's first absolute round, the revival plane int32[n_pad] (null: no
 // recovery model), whether a revived node resets, (push-sum) the initial
-// term and global termination.
+// term and global termination, and the Byzantine onset plane int32[n_pad]
+// (pad lanes never; null: no adversary) with its mode (csrc/faults.cuh).
 
 extern "C" int gossip_pushsum_resident_chunk(
     const float* s0, const float* w0, const int* t0, const int* c0, float* s,
@@ -421,7 +444,8 @@ extern "C" int gossip_pushsum_resident_chunk(
     int extra_node, int n_pad, int rounds, float delta, int term_rounds,
     int target, int faulted, unsigned thresh, const int* death,
     const int* needs, int need_init, int start, const int* revive, int reset,
-    int init_term, int global, int device, void* stream_ptr) {
+    int init_term, int global, const int* byz, int byz_mode, int device,
+    void* stream_ptr) {
   gossip::Lattice L;
   Classes cls;
   if (rounds < 0 ||
@@ -436,7 +460,8 @@ extern "C" int gossip_pushsum_resident_chunk(
   const PushSumPlanes a{s, w, term, conv};
   const PushSumPlanes b{s_b, w_b, term_b, conv_b};
   unsigned long long* words = (unsigned long long*)(ctrl + 2);
-  const Faults f{thresh, death, needs, start, global, revive, reset, init_term};
+  const Faults f{thresh, death, needs, start, global, revive,
+                 reset,  init_term, byz, byz_mode};
   return (int)(faulted
                    ? queue_pushsum<true>(a, b, mark, keys, dirs, cls, n, n_pad,
                                          rounds, delta, term_rounds, target,
@@ -455,7 +480,8 @@ extern "C" int gossip_gossip_resident_chunk(
     int n_classes, int kind, int n, int extra_node, int n_pad, int rounds,
     int rumor_target, int suppress, int target, int faulted, unsigned thresh,
     const int* death, const int* needs, int need_init, int start,
-    const int* revive, int reset, int device, void* stream_ptr) {
+    const int* revive, int reset, const int* byz, int byz_mode, int device,
+    void* stream_ptr) {
   gossip::Lattice L;
   Classes cls;
   if (rounds < 0 ||
@@ -470,7 +496,7 @@ extern "C" int gossip_gossip_resident_chunk(
   const GossipPlanes a{count, active, conv};
   const GossipPlanes b{count_b, active_b, conv_b};
   unsigned long long* words = (unsigned long long*)(ctrl + 2);
-  const Faults f{thresh, death, needs, start, 0, revive, reset, 0};
+  const Faults f{thresh, death, needs, start, 0, revive, reset, 0, byz, byz_mode};
   return (int)(faulted
                    ? queue_gossip<true>(a, b, mark, keys, dirs, cls, n, n_pad,
                                         rounds, rumor_target, suppress, target,

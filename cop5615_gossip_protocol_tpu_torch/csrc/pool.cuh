@@ -83,23 +83,27 @@ GOSSIP_HD void pool_pushsum_inbox(const int* offs, const int8_t* mark,
   }
 }
 
-// pool_pushsum_inbox where the marks may carry kRejoinBit: a source whose
-// mark is the slot with the bit set sends half of (its index, 0).
+// pool_pushsum_inbox in the faulted instances, where the marks may carry
+// kRejoinBit and kLieBit: a source whose mark is the slot sends what
+// read_send gives (half of (its index, 0) where it rejoins, the Byzantine
+// `mode`'s pair where it lies), and every half and every add is flushed,
+// as the plain round flushes them.
 template <int P>
 GOSSIP_HD void pool_pushsum_inbox_rejoin(const int* offs, const int8_t* mark,
                                          const float* s, const float* w, int j,
-                                         int n, float& in_s, float& in_w) {
+                                         int n, float& in_s, float& in_w,
+                                         int mode = 0) {
   in_s = 0.0f;
   in_w = 0.0f;
 #pragma unroll
   for (int k = 0; k < P; ++k) {
     const int i = class_source(j, offs[k], n);
     const int8_t m = mark[i];
-    const bool rn = m >= 0 && (m & kRejoinBit);
-    const float si = rn ? (float)i : s[i], wi = rn ? 0.0f : w[i];
+    float hs, hw;
+    read_send(m, i, s[i], w[i], mode, hs, hw);
     const bool hit = mark_hit(m, k);
-    in_s = in_s + (hit ? si * 0.5f : 0.0f);
-    in_w = in_w + (hit ? wi * 0.5f : 0.0f);
+    in_s = flush(in_s + (hit ? hs : 0.0f));
+    in_w = flush(in_w + (hit ? hw : 0.0f));
   }
 }
 

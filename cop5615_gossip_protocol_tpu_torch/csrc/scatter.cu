@@ -98,8 +98,14 @@
 // push-sum the place pass that stages its send; gossip stages no send for a
 // node that rejoins in the next round. The stored state stays un-reset
 // until that round runs, so a chunk that ends just before it hands back
-// the state JAX's resume expects. The faulted push-sum instance runs two
-// blocks an SM.
+// the state JAX's resume expects. Under a Byzantine model (the JAX chunked
+// engine's make_byz_send_fn and make_byz_override_fn) a push-sum adversary
+// stages its mode's pair in the place pass (scatter.cuh make_send: the
+// whole (s, w), the negated halves or the halves swapped) and keeps its
+// honest halve; a live gossip adversary's state takes the mode's override
+// at the end of its absorb, before its conv is counted and its next send
+// drawn. The faulted push-sum instance flushes as the plain round does
+// (csrc/chunk.cuh) and runs two blocks an SM.
 //
 // Numerics: csrc/chunk.cuh's gossip absorb; built without fast math, with
 // -fmad=false and denormals kept (utils/kernels.py).
@@ -168,6 +174,8 @@ struct Faults {
   int global;
   const int* revive;  // int32 [n]
   int reset, init_term;
+  const int* byz;  // int32 [n]: Byzantine onset rounds
+  int byz_mode;    // csrc/faults.cuh
 };
 
 // Whether node i is alive in absolute round `round`.
@@ -313,6 +321,10 @@ __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
             [&] { return rn ? 0 : c.count[j]; },
             [&] { return rn ? 0 : (int)c.active[j]; }, false, got,
             c.rumor_target, c.suppress, cnt, act);
+        if (F)
+          gossip::gossip_override(c.f.byz_mode,
+                                  gossip::byzantine_in(c.f.byz, j, round), cnt,
+                                  act, cv);
         c.count[j] = cnt;
         c.active[j] = (uint8_t)act;
         c.conv[j] = (uint8_t)cv;
@@ -427,11 +439,14 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
       if (tk.target < 0) continue;
       const int pos = base[gossip::scatter::slice_of(sl, tk.target)] +
                       c.loc[tk.target] + tk.rank;
-      // A fresh rejoin sends from its reset state (s = i, w = 0).
+      // A fresh rejoin sends from its reset state (s = i, w = 0); an
+      // adversary sends its mode's pair.
       const bool rn = F && gossip::rejoins(c.f.revive, c.f.reset, i, round);
       gossip::scatter::store_send(
-          c.rec + pos, gossip::scatter::make_send(i, rn ? (float)i : c.s[i],
-                                                  rn ? 0.0f : c.w[i]));
+          c.rec + pos,
+          gossip::scatter::make_send<F>(
+              i, rn ? (float)i : c.s[i], rn ? 0.0f : c.w[i],
+              F && gossip::byzantine_in(c.f.byz, i, round) ? c.f.byz_mode : 0));
     }
     round_barrier(c.words + 3 * r + 1, 0);
 
@@ -464,17 +479,17 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
       int t_new, cv;
       if (global) {
         // Both halves' sums onto the kept halves (nothing reads a w inbox).
-        float acc_s = sent ? s_t - s_t * 0.5f : s_t;
-        float acc_w = sent ? w_t - w_t * 0.5f : w_t;
-        gossip::scatter::record_sum(c.rec + at, k, acc_s, acc_w);
+        float acc_s, acc_w;
+        gossip::keep_flushed<true>(s_t, w_t, sent, acc_s, acc_w);
+        gossip::scatter::record_sum<true>(c.rec + at, k, acc_s, acc_w);
         s_new = acc_s;
         w_new = acc_w;
         cv = gossip::unstable_global(s_t, w_t, s_new, w_new, c.delta) ? 1 : 0;
       } else {
-        cv = gossip::scatter::pushsum_round(
+        cv = gossip::scatter::pushsum_round<F>(
             s_t, w_t, t_old, c_old, sent,
             [&](float& a, float& b) {
-              gossip::scatter::record_sum(c.rec + at, k, a, b);
+              gossip::scatter::record_sum<F>(c.rec + at, k, a, b);
             },
             c.delta, c.term_rounds, s_new, w_new, t_new);
         if (F) {
@@ -547,8 +562,10 @@ cudaError_t launch(Kernel kernel, Chunk c, int n, int words, int* cache,
 // must be zero and are left zero; words holds 3 * rounds + 1 (push-sum) or
 // rounds + 1 (gossip) uint64 barrier words. Under a recovery model revive is
 // the int32 [n] revival plane (else null), reset whether a revived node
-// resets and init_term push-sum's initial term. Returns the first error (a
-// cudaError_t), 0 if none. A chunk of no round queues nothing.
+// resets and init_term push-sum's initial term. Under a Byzantine model byz
+// is the int32 [n] onset plane (else null) and byz_mode its mode
+// (csrc/faults.cuh). Returns the first error (a cudaError_t), 0 if none. A
+// chunk of no round queues nothing.
 
 extern "C" int gossip_pushsum_scatter_chunk(
     float* s, float* w, int* term, uint8_t* conv, const int* nbr, const int* deg,
@@ -556,8 +573,8 @@ extern "C" int gossip_pushsum_scatter_chunk(
     unsigned long long* words, int* status, unsigned key1, unsigned key2,
     unsigned start, int rounds, float delta, int term_rounds, int target,
     int faulted, unsigned thresh, const int* death, const int* needs,
-    const int* revive, int reset, int init_term, int global, int device,
-    void* stream_ptr) {
+    const int* revive, int reset, int init_term, int global, const int* byz,
+    int byz_mode, int device, void* stream_ptr) {
   if (n < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
   if (rounds == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
@@ -566,7 +583,7 @@ extern "C" int gossip_pushsum_scatter_chunk(
                        cnt, (Ticket*)tick, loc, tot, (Send*)rec, key1, key2,
                        start, rounds, delta, term_rounds, target, words,
                        status, Faults{thresh, death, needs, global, revive,
-                                      reset, init_term}};
+                                      reset, init_term, byz, byz_mode}};
   if (faulted)
     return (int)launch(pushsum_rounds<true>, c, n, 3 * rounds + 1,
                        pushsum_grid_cache[1], device, (cudaStream_t)stream_ptr);
@@ -579,8 +596,8 @@ extern "C" int gossip_gossip_scatter_chunk(
     int max_deg, int n, int* inbox, unsigned long long* words, int* status,
     unsigned key1, unsigned key2, unsigned start, int rounds, int rumor_target,
     int suppress, int target, int faulted, unsigned thresh, const int* death,
-    const int* needs, const int* revive, int reset, int device,
-    void* stream_ptr) {
+    const int* needs, const int* revive, int reset, const int* byz,
+    int byz_mode, int device, void* stream_ptr) {
   if (n < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
   if (rounds == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
@@ -588,7 +605,8 @@ extern "C" int gossip_gossip_scatter_chunk(
   const GossipChunk c{count, active, conv, Graph{nbr, deg, max_deg, n},
                       inbox, key1, key2, start, rounds, rumor_target, suppress,
                       target, words, status,
-                      Faults{thresh, death, needs, 0, revive, reset, 0}};
+                      Faults{thresh, death, needs, 0, revive, reset, 0, byz,
+                             byz_mode}};
   if (faulted)
     return (int)launch(gossip_rounds<true>, c, n, rounds + 1,
                        gossip_grid_cache[1], device, (cudaStream_t)stream_ptr);

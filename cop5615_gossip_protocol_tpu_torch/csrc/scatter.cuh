@@ -55,9 +55,15 @@ struct alignas(16) Send {
   int pad;
 };
 
-// Sender i's record from its round-start s and w.
-GOSSIP_HD Send make_send(int i, float s_t, float w_t) {
-  return Send{i, s_t * 0.5f, w_t * 0.5f, 0};
+// Sender i's record from its round-start s and w; with Flush (the faulted
+// instance) its halves flushed (csrc/faults.cuh flush), and where it lies
+// (a Byzantine `mode`, 0 for none) the mode's pair (lie_send).
+template <bool Flush = false>
+GOSSIP_HD Send make_send(int i, float s_t, float w_t, int mode = 0) {
+  if (!Flush) return Send{i, s_t * 0.5f, w_t * 0.5f, 0};
+  Send v{i, flush(s_t * 0.5f), flush(w_t * 0.5f), 0};
+  lie_send(mode, s_t, w_t, v.s, v.w);
+  return v;
 }
 
 GOSSIP_HD void store_send(Send* at, Send v) {
@@ -86,7 +92,8 @@ constexpr int kSortMax = 8;
 // Adds one target's bucket of k sends onto (acc_s, acc_w) in ascending
 // sender index, the order of a serial scatter-add loop, whatever order the
 // sends were placed in; send a is get(a). No float atomic and no write.
-template <typename Get>
+// With Flush (the faulted instance) every add is flushed.
+template <bool Flush = false, typename Get>
 GOSSIP_HD void ordered_sum(Get get, int k, float& acc_s, float& acc_w) {
   float s = acc_s, w = acc_w;
   if (k <= kSortMax) {
@@ -112,8 +119,8 @@ GOSSIP_HD void ordered_sum(Get get, int k, float& acc_s, float& acc_w) {
 #pragma unroll
     for (int a = 0; a < kSortMax; ++a) {
       if (a < k) {
-        s += v[a].s;
-        w += v[a].w;
+        s = Flush ? flush(s + v[a].s) : s + v[a].s;
+        w = Flush ? flush(w + v[a].w) : w + v[a].w;
       }
     }
   } else {
@@ -125,8 +132,8 @@ GOSSIP_HD void ordered_sum(Get get, int k, float& acc_s, float& acc_w) {
         const Send x = get(a);
         if (x.idx > last && x.idx < best.idx) best = x;
       }
-      s += best.s;
-      w += best.w;
+      s = Flush ? flush(s + best.s) : s + best.s;
+      w = Flush ? flush(w + best.w) : w + best.w;
       last = best.idx;
     }
   }
@@ -135,8 +142,10 @@ GOSSIP_HD void ordered_sum(Get get, int k, float& acc_s, float& acc_w) {
 }
 
 // ordered_sum over a bucket of 16-byte records.
+template <bool Flush = false>
 GOSSIP_HD void record_sum(const Send* rec, int k, float& acc_s, float& acc_w) {
-  ordered_sum([&](int a) { return load_send(rec + a); }, k, acc_s, acc_w);
+  ordered_sum<Flush>([&](int a) { return load_send(rec + a); }, k, acc_s,
+                     acc_w);
 }
 
 // One node's push-sum round, in the op order of the JAX package's jitted
@@ -145,17 +154,24 @@ GOSSIP_HD void record_sum(const Send* rec, int k, float& acc_s, float& acc_w) {
 // its w halves into an inbox from 0 that is then added to its kept half; it
 // received if that inbox is > 0, and the term/conv latch moves as in
 // pushsum.absorb. Sets s_new, w_new, t_new and returns the new conv flag.
-template <typename AddBucket>
+// With Flush (the faulted instance) the kept halves are keep_flushed's
+// (the scatter round's folded form) and the last sum is flushed; the
+// bucket's adds are add_bucket's to flush.
+template <bool Flush = false, typename AddBucket>
 GOSSIP_HD int pushsum_round(float s_t, float w_t, int t_old, bool conv_old,
                             bool sends, AddBucket add_bucket, float delta,
                             int term_rounds, float& s_new, float& w_new,
                             int& t_new) {
-  const float s_send = sends ? s_t * 0.5f : 0.0f;
-  const float w_send = sends ? w_t * 0.5f : 0.0f;
-  float acc_s = s_t - s_send, in_w = 0.0f;
+  float acc_s, w_keep, in_w = 0.0f;
+  if (Flush) {
+    keep_flushed<true>(s_t, w_t, sends, acc_s, w_keep);
+  } else {
+    acc_s = s_t - (sends ? s_t * 0.5f : 0.0f);
+    w_keep = w_t - (sends ? w_t * 0.5f : 0.0f);
+  }
   add_bucket(acc_s, in_w);
   s_new = acc_s;
-  w_new = (w_t - w_send) + in_w;
+  w_new = Flush ? flush(w_keep + in_w) : w_keep + in_w;
   const bool received = in_w > 0.0f;
   const bool stable = fabsf(s_new / w_new - s_t / w_t) <= delta;
   t_new = received ? (stable ? t_old + 1 : 0) : t_old;

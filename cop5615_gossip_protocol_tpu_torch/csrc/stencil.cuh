@@ -200,12 +200,15 @@ GOSSIP_HD void pushsum_inbox(const Classes& cls, const int8_t* mark,
   }
 }
 
-// pushsum_inbox where the marks may carry kRejoinBit (csrc/faults.cuh): a
-// source whose mark is the class with the bit set sends half of (its index,
-// 0), the state it rejoins with.
+// pushsum_inbox in the faulted instances, where the marks may carry
+// kRejoinBit and kLieBit (csrc/faults.cuh): a source whose mark is the
+// class sends what read_send gives (half of (its index, 0) where it
+// rejoins, the Byzantine `mode`'s pair where it lies), and every half and
+// every add is flushed, as the plain round flushes them.
 GOSSIP_HD void pushsum_inbox_rejoin(const Classes& cls, const int8_t* mark,
                                     const float* s, const float* w, int j,
-                                    int n, float& in_s, float& in_w) {
+                                    int n, float& in_s, float& in_w,
+                                    int mode = 0) {
   in_s = 0.0f;
   in_w = 0.0f;
 #pragma unroll
@@ -213,11 +216,11 @@ GOSSIP_HD void pushsum_inbox_rejoin(const Classes& cls, const int8_t* mark,
     if (k < cls.count) {
       const int i = class_source(j, cls.d[k], n);
       const int8_t m = mark[i];
-      const bool rn = m >= 0 && (m & kRejoinBit);
-      const float si = rn ? (float)i : s[i], wi = rn ? 0.0f : w[i];
+      float hs, hw;
+      read_send(m, i, s[i], w[i], mode, hs, hw);
       const bool hit = mark_hit(m, k);
-      in_s = in_s + (hit ? si * 0.5f : 0.0f);
-      in_w = in_w + (hit ? wi * 0.5f : 0.0f);
+      in_s = flush(in_s + (hit ? hs : 0.0f));
+      in_w = flush(in_w + (hit ? hw : 0.0f));
     }
   }
 }

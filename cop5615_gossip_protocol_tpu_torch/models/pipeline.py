@@ -8,6 +8,10 @@ Correctness rests on the overshoot contract every chunk function keeps: a
 chunk queued at an already-terminal carry is a no-op (state unchanged,
 round counter unchanged), so ``rounds`` is the retired carry's own exact
 count, never rounded up to the pipeline depth.
+
+Under the health sentinel (``mass_tolerance``) the status carries a third
+word, the first round whose state was unhealthy (NEVER while none was), and
+a tripped round ends the run as done does (the JAX runner's ``health``).
 """
 
 from __future__ import annotations
@@ -17,7 +21,13 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
+
+from .pushsum import sum_f32
+
+# The sentinel's word while no round has tripped (ops/faults.NEVER).
+NEVER = int(np.iinfo(np.int32).max)
 
 
 @dataclasses.dataclass
@@ -33,6 +43,8 @@ class ChunkLoopResult:
     first_dispatch_s: float = 0.0  # the first chunk's queueing time alone
     # Per retired chunk, in order: {"rounds", "dispatch_s", "fetch_s"}.
     chunk_log: list = dataclasses.field(default_factory=list)
+    # The health sentinel's first unhealthy round, or None.
+    unhealthy_round: Optional[int] = None
 
 
 def _prefetch(status):
@@ -47,15 +59,33 @@ def _prefetch(status):
     return status, None
 
 
-def _read(handle) -> tuple[int, bool]:
+def _read(handle) -> tuple[int, bool, Optional[int]]:
+    """(rounds, done, the sentinel's unhealthy round or None)."""
     status, event = handle
     if event is not None:
         event.synchronize()  # blocks until the chunk (and its copy) is done
-    rounds, done = (int(v) for v in status)
-    return rounds, bool(done)
+    rounds, done, *health = (int(v) for v in status)
+    unhealthy = health[0] if health and health[0] != NEVER else None
+    return rounds, bool(done), unhealthy
 
 
-def advance(state, new, status, target: int, alive=None, need: int = 0):
+def health_check(n: int, tol: float) -> Callable:
+    """The health sentinel's test of a push-sum state (the JAX runner's
+    ``sentinel_bad``): a non-finite s or w, or |Σw − n| above ``tol``, in
+    float32 with Σw in ``sum_f32``'s order. Returns a 0-dim bool tensor."""
+    n32 = torch.tensor(n, dtype=torch.float32)
+    tol32 = torch.tensor(tol, dtype=torch.float32)
+
+    def bad(state) -> torch.Tensor:
+        finite = torch.isfinite(state.s).all() & torch.isfinite(state.w).all()
+        resid = torch.abs(sum_f32(state.w) - n32.to(state.w.device))
+        return ~finite | (resid > tol32.to(state.w.device))
+
+    return bad
+
+
+def advance(state, new, status, target: int, alive=None, need: int = 0,
+            bad=None):
     """One round of a chunk that stays on the device, under the overshoot
     contract: ``new`` (the round's output) replaces ``state`` unless
     ``status`` (int32 [2]: rounds, done) is already done. The round is
@@ -63,7 +93,10 @@ def advance(state, new, status, target: int, alive=None, need: int = 0):
     ``status`` is updated in place: done once ``target`` nodes converged,
     or, under a crash model (``alive`` the round's alive mask, ``need`` its
     quorum need, faults.quorum_needs), once the converged live nodes reach
-    the need of the round just executed."""
+    the need of the round just executed. Under the health sentinel
+    (``bad``, ``health_check``'s test; status int32 [3]) the round just
+    executed is latched into status[2] where it is the first whose state is
+    unhealthy, and that ends the run."""
     done = status[1] != 0
     out = type(state)(*(torch.where(done, a, b) for a, b in zip(state, new)))
     status[0] += (~done).to(status.dtype)
@@ -71,6 +104,10 @@ def advance(state, new, status, target: int, alive=None, need: int = 0):
         verdict = out.conv.sum() >= target
     else:
         verdict = (out.conv & alive).sum() >= need
+    if bad is not None:
+        trip = ~done & (status[2] == NEVER) & bad(out)
+        status[2] = torch.where(trip, status[0] - 1, status[2])
+        verdict = verdict | (status[2] != NEVER)
     status[1] = (done | verdict).to(status.dtype)
     return out
 
@@ -118,12 +155,12 @@ def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
             inflight.append((head, _prefetch(head[1]), disp_s))
 
     fill()
-    rounds, done = start_round, False
+    rounds, done, unhealthy = start_round, False, None
     final = head
     while inflight:
         cur, handle, disp_s = inflight.popleft()
         t0 = time.perf_counter()
-        rounds, done = _read(handle)
+        rounds, done, unhealthy = _read(handle)
         fetch_s = time.perf_counter() - t0
         fetch_total += fetch_s
         retired += 1
@@ -140,4 +177,5 @@ def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
         state=final[0], rounds=rounds, done=done, chunks_retired=retired,
         dispatch_s=dispatch_total, fetch_s=fetch_total,
         first_dispatch_s=first_dispatch, chunk_log=chunk_log,
+        unhealthy_round=unhealthy,
     )

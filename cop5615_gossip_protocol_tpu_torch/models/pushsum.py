@@ -4,6 +4,17 @@ Every node holds (s, w) with s_i = i and w_i = 1; each round it halves its
 mass, sends one half to a sampled partner, absorbs what arrived, and counts
 consecutive sub-delta ratio changes on rounds it received something; after
 ``term_rounds`` such rounds it latches converged (program.fs:110-143).
+
+Float32 results follow the JAX package's jitted round on the CPU, where XLA
+flushes subnormal results to zero (``flush``): each half sent, each kept
+half, each delivery add and each absorbed sum. A push-sum run with crashes
+on a sparse graph drains cut-off live nodes into that range, so the flush
+decides which of them keep any weight, and with it the estimate. XLA also
+writes the kept w half as ``where(send_ok, w * 0.5, w)``, which equals
+``w - w_send`` except where the half is flushed; the kept s half takes the
+same form under pool, imp pool and scatter delivery and stays ``s -
+s_send`` under stencil delivery (``halve_and_send``'s ``fold_s``), as the
+JAX round's compiled form shows (tests/test_torch_c1_flush.py pins both).
 """
 
 from __future__ import annotations
@@ -11,6 +22,36 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+# The least normal float32: XLA's flush sends every result below it in
+# magnitude to a zero of its sign.
+FLT_MIN = float(torch.finfo(torch.float32).tiny)
+
+
+def flush(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every value under FLT_MIN in magnitude sent to a zero of
+    its sign, as XLA flushes a subnormal result on the CPU (csrc/faults.cuh
+    ``flush`` on the card)."""
+    return x * (x.abs() >= FLT_MIN)
+
+
+def sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum in the order the JAX package's ``jnp.sum`` takes on the
+    CPU: XLA rewrites a reduction of more than 32 elements into sums of
+    32-element windows (the padding split between both ends, the smaller
+    half in front), each from 0 in index order, and reduces the window
+    sums the same way, every add flushed."""
+    x = x.reshape(-1).to(torch.float32)
+    while x.numel() > 32:
+        pad = -x.numel() % 32
+        rows = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).reshape(-1, 32)
+        x = torch.zeros(rows.shape[0], dtype=torch.float32, device=x.device)
+        for col in range(32):
+            x = flush(x + rows[:, col])
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for v in x:
+        total = flush(total + v)
+    return total
 
 
 class PushSumState(NamedTuple):
@@ -30,13 +71,17 @@ def init_state(pop: int, initial_term: int, device=None) -> PushSumState:
     )
 
 
-def halve_and_send(s, w, send_ok):
-    """Returns (s_send, w_send, s_keep, w_keep); nodes with send_ok False
-    keep their whole mass."""
+def halve_and_send(s, w, send_ok, fold_s: bool = True):
+    """Returns (s_send, w_send, s_keep, w_keep), each flushed; nodes with
+    send_ok False keep their whole mass. The kept w half is ``where(send_ok,
+    w * 0.5, w)`` and, with ``fold_s`` (pool, imp pool and scatter
+    delivery), the kept s half too; without it (stencil delivery) the kept
+    s half is ``s - s_send`` (the module docstring)."""
     zero = torch.zeros((), dtype=s.dtype, device=s.device)
-    s_send = torch.where(send_ok, s * 0.5, zero)
-    w_send = torch.where(send_ok, w * 0.5, zero)
-    return s_send, w_send, s - s_send, w - w_send
+    s_send = flush(torch.where(send_ok, s * 0.5, zero))
+    w_send = flush(torch.where(send_ok, w * 0.5, zero))
+    s_keep = flush(torch.where(send_ok, s * 0.5, s) if fold_s else s - s_send)
+    return s_send, w_send, s_keep, flush(torch.where(send_ok, w * 0.5, w))
 
 
 def absorb(state: PushSumState, s_keep, w_keep, inbox_s, inbox_w, delta,
@@ -51,7 +96,7 @@ def absorb(state: PushSumState, s_keep, w_keep, inbox_s, inbox_w, delta,
     node's |Δ(s/w)| <= delta * max(|s/w|, 1) this round, and term is left
     alone. ``valid`` (bool [n], optional) keeps pad slots out of that
     broadcast."""
-    s_new, w_new = s_keep + inbox_s, w_keep + inbox_w
+    s_new, w_new = flush(s_keep + inbox_s), flush(w_keep + inbox_w)
     if global_termination:
         return absorb_global(state, s_new, w_new, delta, valid)
     return absorb_sums(state, s_new, w_new, inbox_w > 0, delta, term_rounds)
@@ -84,3 +129,43 @@ def absorb_sums(state: PushSumState, s_new, w_new, received, delta,
     ).to(torch.int32)
     conv_new = state.conv | (term_new >= term_rounds)
     return PushSumState(s=s_new, w=w_new, term=term_new, conv=conv_new)
+
+
+def clip_scale(inbox_w, w_keep):
+    """``robust_agg="clip"`` (the JAX runner's ``make_robust_clip_fn``): the
+    factor of a receiver's inbox. It accepts at most cap = 2 * max(w_keep,
+    1) of weight a round: an inbox over the cap scales both channels by cap
+    / inbox_w, and one with inbox_w <= 0 is dropped (factor 0)."""
+    one = torch.ones((), dtype=inbox_w.dtype, device=inbox_w.device)
+    cap = flush(2.0 * torch.maximum(w_keep, one))
+    over = inbox_w > cap
+    scale = torch.where(over, flush(cap / torch.where(over, inbox_w, one)), one)
+    return torch.where(inbox_w > 0, scale, torch.zeros_like(scale))
+
+
+def fma32(a, b, c):
+    """a * b + c in float32 with one rounding, as a fused multiply-add
+    gives it: the product is exact in float64, the sum is rounded to odd
+    there (its TwoSum error decides the last bit), and the one rounding to
+    float32 is then the correct one."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    bp = s - c64
+    err = (p - bp) + (c64 - (s - bp))
+    even = (s.view(torch.int64) & 1) == 0
+    odd = torch.nextafter(s, torch.where(err > 0, torch.full_like(s, float("inf")),
+                                         torch.full_like(s, float("-inf"))))
+    s = torch.where((err != 0) & even & torch.isfinite(s), odd, s)
+    return s.to(torch.float32)
+
+
+def absorb_clipped(state: PushSumState, s_keep, w_keep, inbox_s, inbox_w,
+                   scale, delta, term_rounds: int) -> PushSumState:
+    """``absorb`` of the inboxes times the clip's ``scale`` (clip_scale):
+    XLA contracts each kept half plus its scaled inbox into one fused
+    multiply-add (fma32), flushed; the receipt test reads the scaled w
+    inbox."""
+    return absorb_sums(state, flush(fma32(inbox_s, scale, s_keep)),
+                       flush(fma32(inbox_w, scale, w_keep)),
+                       flush(inbox_w * scale) > 0, delta, term_rounds)

@@ -42,6 +42,7 @@ from ..ops import rng
 from ..ops.scatter import ScatterGraph, scatter_graph
 from ..ops.topology import Topology
 from ..utils import kernels
+from .pushsum import sum_f32
 
 # Hops one launch of the walk kernel runs at most (the walks at the
 # reference's sizes take 10**4-10**6 hops).
@@ -280,33 +281,14 @@ def arith_chain(steps: int, n: int, device, index: bool = True) -> torch.Tensor:
     return out
 
 
-def _sum_f32(x: np.ndarray) -> np.float32:
-    """float32 sum in the order the JAX package's ``jnp.sum`` takes on the
-    CPU: XLA rewrites a reduction of more than 32 elements into sums of
-    32-element windows (the padding split between both ends, the smaller
-    half in front), each from 0 in index order, and reduces the window
-    sums the same way."""
-    x = np.asarray(x, np.float32)
-    while x.shape[0] > 32:
-        pad = -x.shape[0] % 32
-        rows = np.concatenate([np.zeros(pad // 2, np.float32), x,
-                               np.zeros(pad - pad // 2, np.float32)]).reshape(-1, 32)
-        x = np.zeros(rows.shape[0], np.float32)
-        for col in range(32):
-            x = x + rows[:, col]
-    total = np.float32(0)
-    for v in x:
-        total = total + v
-    return total
-
-
 def estimate_mae(carry: WalkCarry, true_mean: float) -> float:
     """Mean |s/w - true_mean| over the converged nodes, in float32 as the
-    JAX package's walk runner computes it (its sum's order, ``_sum_f32``)."""
+    JAX package's walk runner computes it (its sum's order, ``sum_f32``)."""
     s, w = carry.s.cpu().numpy(), carry.w.cpu().numpy()
     conv = carry.conv.cpu().numpy()
     err = np.where(conv, np.abs(s / w - np.float32(true_mean)), np.float32(0))
-    return float(_sum_f32(err) / np.float32(max(int(conv.sum()), 1)))
+    total = np.float32(sum_f32(torch.from_numpy(err)).item())
+    return float(total / np.float32(max(int(conv.sum()), 1)))
 
 
 def run_walk(topo: Topology, cfg: SimConfig, base_key, leader: int, target: int,

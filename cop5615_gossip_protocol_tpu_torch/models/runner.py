@@ -45,10 +45,16 @@ streaming lattice tiers, both imp tiers and the sharded imp and lattice
 compositions take global termination, the only one their JAX tiers take.
 Crash-recovery (``revive_rate``/``revive_schedule`` with ``rejoin``) runs
 on the chunked engine under every delivery, on the pool tier and on the
-whole-array lattice tier, as in JAX. Every fused tier and composition
-carries each failure-model knob its JAX counterpart takes; where the JAX
-ladder demotes, the port runs its chunked engine, on the card too; where a
-sharded plan refuses, the run raises the JAX ladder's ValueError.
+whole-array lattice tier, as in JAX. Byzantine adversaries
+(``byzantine_rate``/``byzantine_schedule`` with ``byzantine_mode``) run on
+the chunked engine under every delivery, on the pool tier and on the
+whole-array lattice tier; robust aggregation (``robust_agg``) and the health
+sentinel (``mass_tolerance``) on the chunked engine alone, and on the card
+not under scatter delivery, which refuses them naming ROADMAP A6c-2. Every
+fused tier and composition carries each failure-model knob its JAX
+counterpart takes; where the JAX ladder demotes, the port runs its chunked
+engine, on the card too; where a sharded plan refuses, the run raises the
+JAX ladder's ValueError.
 """
 
 from __future__ import annotations
@@ -200,6 +206,12 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     (``imp_pool_parts``, ``deliver_imp_pool``)."""
     n = topo.n
     pushsum = cfg.algorithm == "push-sum"
+    scattered = resolve_delivery(topo, cfg) == "scatter"
+    if scattered and device.type == "cuda" and (
+            cfg.robust_agg == "clip" or cfg.mass_tolerance is not None):
+        # Kernel A carries the lie and the gossip override, not these.
+        raise unported("robust_agg='clip' and mass_tolerance under scatter "
+                       "delivery on the card (csrc/scatter.cu)", "A6c-2")
     if pushsum:
         state0 = pushsum_mod.init_state(n, cfg.initial_term_round, device)
     else:
@@ -207,7 +219,7 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
             n, draw_leader(base_key, topo, cfg),
             cfg.reference and topo.kind == "full", device)
 
-    if resolve_delivery(topo, cfg) == "scatter":
+    if scattered:
         graph = scatter.scatter_graph(topo, device)
         faults = fused.run_faults(cfg, n)
         if pushsum:
@@ -248,11 +260,14 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     elif topo.implicit:
         send_ok = torch.ones(n, dtype=torch.bool, device=device)
 
+        pool_fn = (delivery_mod.deliver_pool_trimmed if cfg.robust_agg == "trim"
+                   else delivery_mod.deliver_pool)
+
         def deliver_parts(round_idx: int):
             kr = sampling.round_key(base_key, round_idx)
             offs = sampling.pool_offsets(kr, cfg.pool_size, n).tolist()
             choice = sampling.pool_choice_packed(kr, n, cfg.pool_size, device=device)
-            return lambda values: delivery_mod.deliver_pool(values, choice, offs)
+            return lambda values: pool_fn(values, choice, offs)
 
     else:
         neighbors = torch.from_numpy(topo.neighbors).to(device)
@@ -270,6 +285,8 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     faults = fused.run_faults(cfg, n)
     death = faults.death_flat(n, device) if faults and faults.death is not None else None
     revive = faults.revive_flat(n, device) if faults is not None else None
+    byz = faults.byz_flat(n, device) if faults is not None else None
+    mode = cfg.byzantine_mode
 
     def alive(round_idx: int):
         return faults_mod.alive_at(death, round_idx, revive)
@@ -304,18 +321,34 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     if pushsum:
         delta, term_rounds = cfg.resolved_delta, cfg.term_rounds
         global_term = cfg.termination == "global"
+        # The kept s half's form: stencil delivery keeps s - s_send
+        # (pushsum.halve_and_send).
+        fold_s = topo.implicit or topo.kind in IMP_LATTICE
+
+        clip = cfg.robust_agg == "clip"
 
         def round_fn(state, round_idx):
             state = rejoin(state, round_idx)
             deliver = deliver_parts(round_idx)
+            ok = gated(send_ok, round_idx)
             s_send, w_send, s_keep, w_keep = pushsum_mod.halve_and_send(
-                state.s, state.w, gated(send_ok, round_idx)
+                state.s, state.w, ok, fold_s
             )
+            if byz is not None:
+                # The lie is what a sender puts on the wire; its kept
+                # halves stay honest (make_byz_send_fn).
+                s_send, w_send = faults_mod.lie(
+                    mode, s_send, w_send, state.s, state.w,
+                    faults_mod.byzantine_at(byz, round_idx) & ok)
             inbox = deliver(torch.stack([s_send, w_send]))
-            new = pushsum_mod.absorb(
-                state, s_keep, w_keep, inbox[0], inbox[1], delta, term_rounds,
-                global_term
-            )
+            if clip:
+                new = pushsum_mod.absorb_clipped(
+                    state, s_keep, w_keep, inbox[0], inbox[1],
+                    pushsum_mod.clip_scale(inbox[1], w_keep), delta, term_rounds)
+            else:
+                new = pushsum_mod.absorb(
+                    state, s_keep, w_keep, inbox[0], inbox[1], delta,
+                    term_rounds, global_term)
             return freeze_dead(state, new, round_idx)
 
     else:
@@ -327,7 +360,19 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
             vals = gossip_mod.send_values(state, gated(send_ok, round_idx))
             inbox = deliver(vals[None])[0]
             new = gossip_mod.absorb(state, inbox, rumor_target, suppress)
-            return freeze_dead(state, new, round_idx)
+            new = freeze_dead(state, new, round_idx)
+            if byz is not None:
+                # The live adversaries' override, after the freeze
+                # (make_byz_override_fn).
+                lying = faults_mod.byzantine_at(byz, round_idx)
+                if death is not None:
+                    lying = lying & alive(round_idx)
+                new = gossip_mod.GossipState(
+                    *faults_mod.override(mode, lying, *new))
+            return new
+
+    bad = (None if cfg.mass_tolerance is None
+           else pipeline_mod.health_check(n, cfg.mass_tolerance))
 
     def round_chunk(state, status, start, end):
         status = status.clone()
@@ -336,7 +381,7 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
             verdict = {} if needs is None else {"alive": alive(rnd),
                                                 "need": int(needs[k])}
             state = pipeline_mod.advance(state, round_fn(state, rnd), status,
-                                         target, **verdict)
+                                         target, bad=bad, **verdict)
         return state, status
 
     return round_chunk, state0
@@ -379,9 +424,13 @@ def _finalize_result(topo: Topology, cfg: SimConfig, state, rounds: int,
                      target: int, compile_s: float, run_s: float, done: bool,
                      loop, device) -> RunResult:
     """The result record from the final canonical state, on the host in
-    float64 (diagnostics, never trajectory state)."""
+    float64 (diagnostics, never trajectory state). A tripped health
+    sentinel (``loop.unhealthy_round``) makes the outcome "unhealthy", and
+    the run is not converged whatever its count."""
     conv_np = state.conv.cpu().numpy()
     converged_count = int(conv_np.sum())
+    unhealthy = getattr(loop, "unhealthy_round", None)
+    done = done and unhealthy is None
     result = RunResult(
         algorithm=cfg.algorithm,
         topology=topo.kind,
@@ -394,7 +443,9 @@ def _finalize_result(topo: Topology, cfg: SimConfig, state, rounds: int,
         converged=done,
         compile_s=compile_s,
         run_s=run_s,
-        outcome="converged" if done else "max_rounds",
+        outcome=("unhealthy" if unhealthy is not None
+                 else "converged" if done else "max_rounds"),
+        unhealthy_round=unhealthy,
         device=describe_device(device),
     )
     if cfg.algorithm == "push-sum":
@@ -431,7 +482,31 @@ def fused_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
     any other delivery the lattice tiers, the whole-array stencil tier,
     else the tiled one, else the streaming one, which serve neither
     ``full`` nor the imp kinds; delivery="scatter" pins the chunked
-    engine, so it never fuses)."""
+    engine, so it never fuses). The health sentinel and robust aggregation
+    run on the chunked engine only, and the Byzantine plane on it and the
+    pool and whole-array stencil tiers (rows 1-2 and 5-6), with the JAX
+    ladder's reasons."""
+    variant, reason = _fused_variant(topo, cfg)
+    if reason is None and cfg.mass_tolerance is not None:
+        reason = ("the health sentinel (--mass-tolerance) runs in the "
+                  "chunked/sharded XLA round bodies only")
+    if reason is None and cfg.byzantine_model and variant not in ("stencil", "pool"):
+        reason = ("the byzantine adversary plane rides the fused "
+                  f"stencil/pool kernels only (selected tier: {variant!r}); "
+                  "other tiers run it on the chunked engine")
+    if reason is None and cfg.robust_agg != "none":
+        reason = ("robust aggregation (--robust-agg) bounds inboxes in the "
+                  "chunked XLA round bodies only")
+    if (reason is None and cfg.delivery == "scatter"
+            and variant not in ("pool", "pool2", "imp", "imp_hbm")):
+        reason = ("delivery='scatter' runs the chunked engine (the fused "
+                  "lattice tiers deliver by the stencil formulation)")
+    return variant, reason
+
+
+def _fused_variant(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
+    """``fused_tier``'s tier and its plan's reason, before the knobs that
+    only the chunked engine carries."""
     if cfg.delivery == "pool" and topo.kind in IMP_LATTICE:
         reason = fused_imp.imp_fused_support(topo, cfg)
         if reason is not None and fused_imp_hbm.imp_hbm_support(topo, cfg) is None:
@@ -448,9 +523,6 @@ def fused_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
         variant, reason = "stencil2", fused_stencil.stencil2_support(topo, cfg)
         if reason is not None and fused_stencil_hbm.stencil_hbm_support(topo, cfg) is None:
             variant, reason = "stencil_hbm", None
-    if reason is None and cfg.delivery == "scatter":
-        reason = ("delivery='scatter' runs the chunked engine (the fused "
-                  "lattice tiers deliver by the stencil formulation)")
     return variant, reason
 
 
@@ -586,6 +658,36 @@ def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
     from ..parallel.fused_sharded import run_fused_sharded
     from ..parallel.pool2_sharded import run_pool2_sharded
 
+    if cfg.engine == "fused":
+        if cfg.mass_tolerance is not None:
+            raise ValueError(
+                "the health sentinel (--mass-tolerance) runs in the "
+                "chunked and sharded XLA round bodies; the sharded "
+                "fused compositions do not carry it — drop the engine "
+                "override"
+            )
+        if cfg.byzantine_model:
+            raise ValueError(
+                "the byzantine adversary plane is threaded through "
+                "the chunked engine and the single-device fused "
+                "stencil/pool kernels; the sharded fused compositions "
+                "do not carry the plane — drop the engine override"
+            )
+        if cfg.robust_agg != "none":
+            raise ValueError(
+                "robust aggregation (--robust-agg) bounds inboxes in "
+                "the chunked XLA round bodies only; the sharded fused "
+                "compositions do not carry it — drop the engine "
+                "override"
+            )
+    elif cfg.byzantine_model or cfg.robust_agg != "none":
+        raise ValueError(
+            "the byzantine adversary plane and robust aggregation run "
+            "on the single-device chunked engine (and, for the plane, "
+            "the fused stencil/pool kernels); the sharded XLA "
+            "composition does not thread them through its shard-mapped "
+            "round body — drop n_devices"
+        )
     tier, reason, item = sharded_tier(topo, cfg)
     if reason is not None:
         raise ValueError(reason)
@@ -662,13 +764,18 @@ def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
     # Warmup: builds the kernels on first use and runs one real round,
     # discarded (round keys are absolute, so the timed loop recomputes it
     # identically).
-    warm = torch.tensor([start_round, 0], dtype=torch.int32, device=device)
+    warm = torch.tensor([start_round, 0] + [pipeline_mod.NEVER] * (
+        cfg.mass_tolerance is not None), dtype=torch.int32, device=device)
     chunk_fn(state0, warm, start_round, min(start_round + 1, cfg.max_rounds))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     compile_s = time.perf_counter() - t0
 
-    status0 = torch.tensor([start_round, int(done0)], dtype=torch.int32, device=device)
+    # Under the health sentinel a third word holds its first unhealthy
+    # round (pipeline.advance).
+    health = [] if cfg.mass_tolerance is None else [pipeline_mod.NEVER]
+    status0 = torch.tensor([start_round, int(done0), *health], dtype=torch.int32,
+                           device=device)
     K = cfg.chunk_rounds
 
     def next_end(end):

@@ -7,6 +7,15 @@ from __future__ import annotations
 
 import torch
 
+from ..models.pushsum import flush
+
+
+def _add(inbox: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One delivery add, flushed where the sum is float (XLA flushes a
+    subnormal sum on the CPU; models/pushsum.flush)."""
+    out = inbox + x
+    return flush(out) if out.is_floating_point() else out
+
 
 def deliver(values: torch.Tensor, targets: torch.Tensor, n: int,
             base: torch.Tensor | None = None) -> torch.Tensor:
@@ -39,7 +48,7 @@ def deliver(values: torch.Tensor, targets: torch.Tensor, n: int,
     for r in range(int(counts.max())):
         level = rank == r
         t, src = sorted_t[level], order[level]
-        inbox[..., t] = inbox[..., t] + values[..., src]
+        inbox[..., t] = _add(inbox[..., t], values[..., src])
     return inbox
 
 
@@ -55,7 +64,7 @@ def deliver_pool(channels: torch.Tensor, choice: torch.Tensor, offsets) -> torch
     zero = torch.zeros((), dtype=channels.dtype, device=channels.device)
     for k, off in enumerate(offsets):
         masked = torch.where((choice == k)[None, :], channels, zero)
-        inbox = inbox + torch.roll(masked, int(off), dims=1)
+        inbox = _add(inbox, torch.roll(masked, int(off), dims=1))
     return inbox
 
 
@@ -77,7 +86,7 @@ def deliver_stencil(values: torch.Tensor, targets: torch.Tensor, offsets,
     inbox = torch.zeros_like(values)
     for d in offsets:
         masked = torch.where(disp == int(d), values, zero)
-        inbox = inbox + torch.roll(masked, int(d), dims=-1)
+        inbox = _add(inbox, torch.roll(masked, int(d), dims=-1))
     return inbox
 
 
@@ -101,8 +110,36 @@ def deliver_imp_pool(channels: torch.Tensor, d_sampled: torch.Tensor,
     zero = torch.zeros((), dtype=channels.dtype, device=channels.device)
     for q in lattice_offsets:
         masked = torch.where((d_sampled == int(q))[None, :], channels, zero)
-        inbox = inbox + torch.roll(masked, int(q), dims=1)
+        inbox = _add(inbox, torch.roll(masked, int(q), dims=1))
     for k, off in enumerate(pool_offs):
         masked = torch.where((is_extra & (choice == k))[None, :], channels, zero)
-        inbox = inbox + torch.roll(masked, int(off), dims=1)
+        inbox = _add(inbox, torch.roll(masked, int(off), dims=1))
     return inbox
+
+
+def deliver_pool_trimmed(channels: torch.Tensor, choice: torch.Tensor,
+                         offsets) -> torch.Tensor:
+    """``deliver_pool`` less, at each receiver with two or more
+    contributing slots, the slot whose |w| (row 1 of the [2, n] (s, w)
+    stack) is largest: ``robust_agg="trim"`` (the JAX package's
+    ``deliver_pool_trimmed``). The dropped slot's (s, w) pair leaves
+    together; a receiver's sole contribution stays. Ties keep the first
+    slot; slot 0 is the first "largest" even when it carries nothing."""
+    inbox = torch.zeros_like(channels)
+    zero = torch.zeros((), dtype=channels.dtype, device=channels.device)
+    best = torch.zeros_like(channels)
+    best_absw = torch.full(channels.shape[1:], -1.0, dtype=channels.dtype,
+                           device=channels.device)
+    contribs = torch.zeros(channels.shape[1:], dtype=torch.int32,
+                           device=channels.device)
+    for k, off in enumerate(offsets):
+        masked = torch.where((choice == k)[None, :], channels, zero)
+        contrib = torch.roll(masked, int(off), dims=1)
+        inbox = _add(inbox, contrib)
+        absw = torch.abs(contrib[1])
+        contribs = contribs + (absw > 0).to(torch.int32)
+        better = absw > best_absw
+        best = torch.where(better[None, :], contrib, best)
+        best_absw = torch.maximum(best_absw, absw)
+    drop = contribs >= 2
+    return flush(inbox - torch.where(drop[None, :], best, zero))

@@ -34,8 +34,19 @@ after round r. The need is ``alive - floor((1 - quorum) * alive)`` in
 float32, integer-exact at quorum 1.0 for every population (a float32
 ``ceil(quorum * alive)`` is off by one above 2**24 nodes).
 
+Byzantine adversaries (``byzantine_rate``/``byzantine_schedule`` with
+``byzantine_mode``): each node gets an onset round, a third int32 plane drawn
+from ``PRNGKey(cfg.seed)`` under ``BYZ_TAG`` alone; node i lies from round
+``byz[i]`` on (NEVER: honest). ``byzantine_rate`` F: each node lies from
+round 0 with probability F (``uniform < F``); ``byzantine_schedule``
+"round:count,...": ``count`` nodes of one permutation turn at each listed
+round. Adversaries stay alive and count toward the quorum. A lying push-sum
+sender puts its mode's pair on the wire (``lie``) and keeps its honest
+halves; a live gossip adversary's state takes its mode's override at the
+end of its round (``override``).
+
 The JAX package's ops/faults.py defines these; this is the port's own copy
-of what it runs (Byzantine nodes and their tag are not ported).
+of what it runs.
 """
 
 from __future__ import annotations
@@ -52,6 +63,9 @@ CRASH_TAG = 2**30 + 0xDEAD
 
 # Revival-plane fold_in tag, beside CRASH_TAG.
 REVIVE_TAG = 2**30 + 0xA11FE
+
+# Byzantine-plane fold_in tag, beside both.
+BYZ_TAG = 2**30 + 0xBAD0
 
 # Death round of a node that never crashes: above any reachable round.
 NEVER = np.int32(np.iinfo(np.int32).max)
@@ -180,6 +194,40 @@ def _revival_plane_cached(seed: int, crash_rate: float, crash_schedule,
     return revive
 
 
+def byzantine_plane(cfg, n: int) -> Optional[np.ndarray]:
+    """int32 [n] adversary onset rounds, NEVER where a node stays honest,
+    or None without a Byzantine model. Memoized like the death plane;
+    treat the array as read-only."""
+    if not cfg.byzantine_model:
+        return None
+    return _byzantine_plane_cached(cfg.seed, cfg.byzantine_rate,
+                                   cfg.byzantine_schedule, n)
+
+
+@functools.lru_cache(maxsize=4)
+def _byzantine_plane_cached(seed: int, byzantine_rate: float,
+                            byzantine_schedule, n: int) -> np.ndarray:
+    key = rng.fold_in(rng.PRNGKey(seed), BYZ_TAG)
+    if byzantine_schedule is not None:
+        events = parse_schedule(byzantine_schedule, "byzantine")
+        total = sum(c for _, c in events)
+        if total > n:
+            raise ValueError(
+                f"byzantine schedule turns {total} nodes but the "
+                f"population is {n}"
+            )
+        perm = rng.permutation(key, n).numpy()
+        byz = np.full((n,), NEVER, np.int32)
+        off = 0
+        for rnd, count in events:
+            byz[perm[off: off + count]] = rnd
+            off += count
+        return byz
+    # Rate form: a fixed adversarial fraction, each node from round 0.
+    u = rng.uniform(key, (n,)).numpy()
+    return np.where(u < np.float32(byzantine_rate), 0, int(NEVER)).astype(np.int32)
+
+
 def life_planes(cfg, n: int) -> Optional[LifePlanes]:
     """The run's churn history as host planes, or None without a crash
     model."""
@@ -203,6 +251,47 @@ def pad_revival_plane(revive: np.ndarray, n_pad: int) -> np.ndarray:
         return revive
     return np.concatenate(
         [revive, np.full((n_pad - revive.shape[0],), NEVER, np.int32)])
+
+
+def pad_byzantine_plane(byz: np.ndarray, n_pad: int) -> np.ndarray:
+    """Pad to n_pad with NEVER: pad slots stay honest."""
+    if byz.shape[0] == n_pad:
+        return byz
+    return np.concatenate([byz, np.full((n_pad - byz.shape[0],), NEVER, np.int32)])
+
+
+def byzantine_at(byz, round_idx):
+    """Adversary mask of round ``round_idx`` (numpy or torch): from the
+    onset round on; a turned node never reverts."""
+    return byz <= round_idx
+
+
+def lie(mode: str, s_send, w_send, s, w, lying):
+    """The wire pair where ``lying`` (push-sum, the JAX runner's
+    ``make_byz_send_fn``): mass_inflate sends the round-start (s, w) whole,
+    mass_deflate the negated halves, garble the halves with the channels
+    swapped; the honest halves elsewhere."""
+    import torch
+
+    if mode == "mass_inflate":
+        return torch.where(lying, s, s_send), torch.where(lying, w, w_send)
+    if mode == "mass_deflate":
+        return torch.where(lying, -s_send, s_send), torch.where(lying, -w_send, w_send)
+    return torch.where(lying, w_send, s_send), torch.where(lying, s_send, w_send)
+
+
+def override(mode: str, lying, count, active, conv):
+    """Gossip's (count, active, conv) with the live adversaries' override
+    (``lying``; the JAX runner's ``make_byz_override_fn``): stale_rumor pins
+    (0, active, unconverged), garble latches conv. Takes bool or int
+    planes and returns the same kinds."""
+    import torch
+
+    if mode == "stale_rumor":
+        return (torch.where(lying, torch.zeros_like(count), count),
+                torch.where(lying, torch.ones_like(active), active),
+                torch.where(lying, torch.zeros_like(conv), conv))
+    return count, active, torch.where(lying, torch.ones_like(conv), conv)
 
 
 def alive_at(death, round_idx, revive=None):

@@ -22,7 +22,9 @@ import numpy as np
 import torch
 
 from ..config import SimConfig
+from ..models.pushsum import flush, halve_and_send
 from . import rng
+from .faults import lie, override
 from .topology import Topology
 
 LANES = 128
@@ -210,15 +212,22 @@ def build_death2d(cfg: SimConfig, n: int, n_pad: int) -> Optional[torch.Tensor]:
         faults.pad_death_plane(death, n_pad).reshape(n_pad // LANES, LANES).copy())
 
 
+# The Byzantine modes as the kernels take them (csrc/faults.cuh).
+BYZ_MODES = {"mass_inflate": 1, "mass_deflate": 2, "garble": 3,
+             "stale_rumor": 4}
+
+
 class ChunkFaults(NamedTuple):
     """One chunk's fault inputs (``Faults.for_chunk``): the gate threshold
     and the gate keys of its rounds (None without a gate), the death plane
     over the padded layout, flat int32 [n_pad] on the state's device, the
     quorum needs of its rounds and the seed need (None without a crash
-    model), whether push-sum terminates globally, and under a recovery
+    model), whether push-sum terminates globally, under a recovery
     model the revival plane over the layout (pad lanes NEVER; else None),
     whether a revived node's state resets (``reset``: gossip always,
-    push-sum under rejoin="fresh") and push-sum's initial term."""
+    push-sum under rejoin="fresh") and push-sum's initial term, and under a
+    Byzantine model the onset plane over the layout (pad lanes NEVER; else
+    None) and the mode."""
 
     thresh: Optional[int]
     gate_keys: Optional[torch.Tensor]
@@ -229,6 +238,13 @@ class ChunkFaults(NamedTuple):
     revive: Optional[torch.Tensor] = None
     reset: bool = False
     init_term: int = 0
+    byz: Optional[torch.Tensor] = None
+    byz_mode: str = ""
+
+    def lying_flat(self, r: int):
+        """Flat [n_pad] mask of the adversaries of absolute round r, or None
+        without a Byzantine model."""
+        return None if self.byz is None else self.byz <= r
 
     def alive_flat(self, r: int):
         """Flat [n_pad] alive mask of absolute round r (dead exactly during
@@ -281,7 +297,10 @@ class Faults:
     whether push-sum terminates globally, ``revive`` the int32 [n] revival
     plane and ``revive_sorted`` it sorted (None without a recovery model),
     whether a revived node resets (``reset``) and push-sum's initial
-    term."""
+    term; under a Byzantine model ``byz`` the int32 [n] onset plane and
+    ``byz_mode`` its mode; whether push-sum clips its inboxes
+    (``robust_agg="clip"``) and the health sentinel's ``mass_tolerance``
+    (None: off), which only the scatter round's plain version carries."""
 
     thresh: Optional[int]
     death: Optional[np.ndarray]
@@ -292,6 +311,10 @@ class Faults:
     revive_sorted: Optional[np.ndarray] = None
     reset: bool = False
     init_term: int = 0
+    byz: Optional[np.ndarray] = None
+    byz_mode: str = ""
+    clip: bool = False
+    mass_tolerance: Optional[float] = None
     planes: dict = dataclasses.field(default_factory=dict)
 
     def gate_keys(self, keys: torch.Tensor) -> Optional[torch.Tensor]:
@@ -336,6 +359,31 @@ class Faults:
                 faults.pad_revival_plane(self.revive, n_pad).copy()).to(device)
         return self.planes[key]
 
+    def byz_flat(self, n_pad: int, device) -> Optional[torch.Tensor]:
+        """The Byzantine onset plane padded to n_pad (pad lanes NEVER),
+        int32 [n_pad] on ``device``, made once a size and device; None
+        without a Byzantine model."""
+        if self.byz is None:
+            return None
+        from . import faults
+
+        key = ("byz", n_pad, str(device))
+        if key not in self.planes:
+            self.planes[key] = torch.from_numpy(
+                faults.pad_byzantine_plane(self.byz, n_pad).copy()).to(device)
+        return self.planes[key]
+
+    def byz_args(self, n_pad: Optional[int], device) -> list:
+        """The Byzantine arguments of the entry points that carry them
+        (kernel A, the pool kernels, the whole-array lattice kernels): the
+        onset plane over n_pad (the population where None) on ``device``
+        (None without a Byzantine model) and the mode (BYZ_MODES, 0 for
+        none)."""
+        if self.byz is None:
+            return [None, 0]
+        plane = self.byz_flat(self.byz.shape[0] if n_pad is None else n_pad, device)
+        return [plane.data_ptr(), BYZ_MODES[self.byz_mode]]
+
     def revive_args(self, n_pad: int, device) -> list:
         """The recovery arguments of the entry points that carry it (kernel
         A, the pool kernels, the whole-array lattice kernels): the revival
@@ -352,16 +400,20 @@ class Faults:
         return ChunkFaults(self.thresh, self.gate_keys(keys),
                            self.death_flat(n_pad, device), needs, need_init,
                            self.global_term, self.revive_flat(n_pad, device),
-                           self.reset, self.init_term)
+                           self.reset, self.init_term,
+                           self.byz_flat(n_pad, device), self.byz_mode)
 
 
 def run_faults(cfg: SimConfig, n: int) -> Optional[Faults]:
     """The run's ``Faults``, or None for a fault-free run with local
-    termination (the chunks' fault-free form)."""
+    termination and no Byzantine model, robust aggregation or health
+    sentinel (the chunks' fault-free form)."""
     from . import faults, sampling
 
     gate = cfg.fault_rate > 0
-    if not (gate or cfg.crash_model or cfg.termination == "global"):
+    if not (gate or cfg.crash_model or cfg.termination == "global"
+            or cfg.byzantine_model or cfg.robust_agg != "none"
+            or cfg.mass_tolerance is not None):
         return None
     return Faults(
         thresh=sampling.gate_threshold(cfg.fault_rate) if gate else None,
@@ -373,6 +425,10 @@ def run_faults(cfg: SimConfig, n: int) -> Optional[Faults]:
         revive_sorted=faults.sorted_revival(cfg, n),
         reset=cfg.algorithm == "gossip" or cfg.rejoin == "fresh",
         init_term=cfg.initial_term_round,
+        byz=faults.byzantine_plane(cfg, n),
+        byz_mode=cfg.byzantine_mode if cfg.byzantine_model else "",
+        clip=cfg.robust_agg == "clip",
+        mass_tolerance=cfg.mass_tolerance,
     )
 
 
@@ -385,7 +441,8 @@ def class_sources(n_pad: int, d, n: int, device=None) -> torch.Tensor:
 
 def pushsum_class_rounds(state4, start: int, cap: int, count: int,
                          round_classes, *, n: int, target: int, delta: float,
-                         term_rounds: int, faults: Optional[ChunkFaults] = None):
+                         term_rounds: int, faults: Optional[ChunkFaults] = None,
+                         fold_s: bool = True):
     """The plain version of every push-sum chunk kernel: up to ``count``
     rounds from absolute round ``start`` on the padded planes (s, w, term,
     conv_i32), stopping at ``cap`` or once ``target`` nodes converged.
@@ -425,18 +482,24 @@ def pushsum_class_rounds(state4, start: int, cap: int, count: int,
         if fx is not None:
             mark = fx.blocked(mark, start, k, rows)
         sends = mark >= 0
-        ss = torch.where(sends, s.reshape(-1) * 0.5, zero)
-        ws = torch.where(sends, w.reshape(-1) * 0.5, zero)
+        ss, ws, s_keep, w_keep = (x.reshape(rows, LANES) for x in halve_and_send(
+            s.reshape(-1), w.reshape(-1), sends, fold_s))
+        ss, ws = ss.reshape(-1), ws.reshape(-1)
+        lying = None if fx is None else fx.lying_flat(start + k)
+        if lying is not None:
+            # A lying sender's wire pair; its kept halves stay honest.
+            ss, ws = lie(fx.byz_mode, ss, ws, s.reshape(-1), w.reshape(-1),
+                         lying & sends)
         in_s = torch.zeros_like(ss)
         in_w = torch.zeros_like(ws)
         for cid, src in classes:
             hit = mark[src] == cid
-            in_s = in_s + torch.where(hit, ss[src], zero)
-            in_w = in_w + torch.where(hit, ws[src], zero)
+            in_s = flush(in_s + torch.where(hit, ss[src], zero))
+            in_w = flush(in_w + torch.where(hit, ws[src], zero))
         in_s = torch.where(padm, zero, in_s.reshape(rows, LANES))
         in_w = torch.where(padm, zero, in_w.reshape(rows, LANES))
-        s_new = (s - ss.reshape(rows, LANES)) + in_s
-        w_new = (w - ws.reshape(rows, LANES)) + in_w
+        s_new = flush(s_keep + in_s)
+        w_new = flush(w_keep + in_w)
         executed += 1
         if fx is not None and fx.global_term:
             ratio_old = s / w
@@ -498,9 +561,18 @@ def gossip_class_rounds(state3, start: int, cap: int, count: int,
         alive = None if fx is None else fx.alive(start + k, rows)
         if alive is not None:
             inbox = torch.where(alive, inbox, 0)
+        c_old = c
         cnt = (cnt + inbox).to(torch.int32)
         act = ((act != 0) | (inbox > 0)).to(torch.int32)
         c = ((cnt >= rumor_target) & ~padm).to(torch.int32)
+        if alive is not None:
+            c = torch.where(alive, c, c_old)
+        lying = None if fx is None else fx.lying_flat(start + k)
+        if lying is not None:
+            # A live adversary's state takes the mode's override.
+            lying = lying.reshape(rows, LANES)
+            cnt, act, c = override(fx.byz_mode, lying if alive is None else
+                                   lying & alive, cnt, act, c)
         executed += 1
         finished = done(c.sum() if fx is None else fx.live_total(c, start + k, rows), k)
     return (cnt, act, c), torch.tensor(executed, dtype=torch.int32, device=dev)

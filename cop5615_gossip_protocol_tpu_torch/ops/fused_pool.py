@@ -169,10 +169,11 @@ def fault_args(faults: Optional[Faults], needs_ptr, need_init, start: int,
     threshold, the death plane over n_pad on ``dev``, the rounds' quorum
     needs on the device (``needs_ptr``, None without a crash model), the
     seed need, the chunk's first absolute round, where the entry point
-    carries crash-recovery (``revive``: csrc/fused_pool.cu and
-    csrc/fused_resident.cu) the revival plane, whether a revived node
-    resets and (push-sum) the initial term, and, for push-sum, global
-    termination."""
+    carries crash-recovery and the Byzantine plane (``revive``:
+    csrc/fused_pool.cu and csrc/fused_resident.cu) the revival plane,
+    whether a revived node resets and (push-sum) the initial term, and, for
+    push-sum, global termination; then, where ``revive``, the Byzantine
+    onset plane over n_pad and the mode (``Faults.byz_args``)."""
     if faults is None:
         args = [0, 0, None, None, 0, start]
     else:
@@ -184,6 +185,8 @@ def fault_args(faults: Optional[Faults], needs_ptr, need_init, start: int,
         args += rv if pushsum else rv[:2]
     if pushsum:
         args.append(int(faults is not None and faults.global_term))
+    if revive:
+        args += [None, 0] if faults is None else faults.byz_args(n_pad, dev)
     return args
 
 
@@ -242,9 +245,10 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _FAULT_ARGS = [_I, _U, _P, _P, _I, _I]
 _SIGNATURES = {
     "gossip_pushsum_pool_chunk": [_P] * 14 + [_I] * 4 + [_F, _I, _I]
-                                 + _FAULT_ARGS + [_P, _I, _I] + [_I] + [_I, _P],
+                                 + _FAULT_ARGS + [_P, _I, _I] + [_I] + [_P, _I]
+                                 + [_I, _P],
     "gossip_gossip_pool_chunk": [_P] * 11 + [_I] * 7 + _FAULT_ARGS + [_P, _I]
-                                + [_I, _P],
+                                + [_P, _I] + [_I, _P],
 }
 
 

@@ -279,7 +279,7 @@ def pushsum_stencil_hbm_chunk_plain(state4, keys, start: int, cap: int, *,
         state4, start, cap, keys.shape[0],
         _stencil_classes(spec, keys.to(dev), rows, dev), n=spec.n,
         target=target, delta=delta, term_rounds=term_rounds,
-        faults=_chunk_faults(faults, keys, start, rows, dev))
+        faults=_chunk_faults(faults, keys, start, rows, dev), fold_s=False)
 
 
 def gossip_stencil_hbm_chunk_plain(state3, keys, start: int, cap: int, *,
@@ -368,7 +368,7 @@ def _argtypes(source: str, pushsum: bool):
     """The argtypes of a lattice entry point of csrc/<source>.cu."""
     args = list(_PUSHSUM_ARGS if pushsum else _GOSSIP_ARGS)
     if source == "fused_resident":
-        args += _FAULT_ARGS + ([_P, _I, _I, _I] if pushsum else [_P, _I])
+        args += _FAULT_ARGS + ([_P, _I, _I, _I] if pushsum else [_P, _I]) + [_P, _I]
     elif pushsum:
         args.append(_I)
     return args + [_I, _P]

@@ -37,7 +37,8 @@ import torch
 
 from ..models import gossip as gossip_mod
 from ..models import pushsum as pushsum_mod
-from ..models.pipeline import advance
+from ..config import unported
+from ..models.pipeline import advance, health_check
 from ..utils import kernels
 from . import delivery, fused, rng, sampling
 from . import faults as faults_mod
@@ -99,7 +100,8 @@ def round_targets(graph: ScatterGraph, round_key):
 
 
 def pushsum_round_plain(state, targets, send_ok, *, delta: float,
-                        term_rounds: int, global_term: bool = False):
+                        term_rounds: int, global_term: bool = False,
+                        lying=None, mode: str = "", clip: bool = False):
     """One push-sum round from its targets (``round_from_targets``) in the
     op order of the JAX package's jitted round: s and w halve; the s halves
     add onto each target's kept half in ascending sender index (XLA folds
@@ -107,10 +109,21 @@ def pushsum_round_plain(state, targets, send_ok, *, delta: float,
     w halves into an inbox from 0 that is then added to the kept half (the
     inbox also says whether the node received, so XLA keeps it). Under
     global termination nothing reads that flag, and the w halves too add
-    onto the kept half."""
+    onto the kept half. Every half, add and sum is flushed
+    (pushsum.flush). ``lying`` (bool [n]) senders put ``mode``'s pair on
+    the wire (faults.lie); with ``clip`` both inboxes sum from 0 and the
+    absorb adds them clipped (pushsum.absorb_clipped)."""
     s_send, w_send, s_keep, w_keep = pushsum_mod.halve_and_send(
         state.s, state.w, send_ok)
+    if lying is not None:
+        s_send, w_send = faults_mod.lie(mode, s_send, w_send, state.s, state.w,
+                                        lying & send_ok)
     n = state.s.shape[0]
+    if clip:
+        in_w = delivery.deliver(w_send, targets, n)
+        return pushsum_mod.absorb_clipped(
+            state, s_keep, w_keep, delivery.deliver(s_send, targets, n), in_w,
+            pushsum_mod.clip_scale(in_w, w_keep), delta, term_rounds)
     s_new = delivery.deliver(s_send, targets, n, base=s_keep)
     if global_term:
         # No received flag keeps the w inbox apart: XLA folds both sums.
@@ -118,8 +131,9 @@ def pushsum_round_plain(state, targets, send_ok, *, delta: float,
             state, s_new, delivery.deliver(w_send, targets, n, base=w_keep),
             delta)
     inbox_w = delivery.deliver(w_send, targets, n)
-    return pushsum_mod.absorb_sums(state, s_new, w_keep + inbox_w, inbox_w > 0,
-                                   delta, term_rounds)
+    return pushsum_mod.absorb_sums(state, s_new,
+                                   pushsum_mod.flush(w_keep + inbox_w),
+                                   inbox_w > 0, delta, term_rounds)
 
 
 def gossip_round_plain(state, targets, send_ok, *, rumor_target: int,
@@ -137,14 +151,23 @@ def _chunk_plain(round_fn, state, keys, status, target: int, start: int,
     dead node's protocol state (push-sum's s and w still absorb), judges a
     round by the quorum of its live nodes, and under a recovery model
     resets a revived node at its revival round's start (``faults.rejoin``;
-    a round after done keeps the state it was given, not the reset one)."""
+    a round after done keeps the state it was given, not the reset one).
+    Under a Byzantine model ``round_fn`` gets the round's adversaries (a
+    push-sum sender among them lies) and a live gossip adversary's state
+    takes the mode's override after the freeze; under the health sentinel
+    (status int32 [3]) a round whose state is unhealthy ends the run
+    (pipeline.advance)."""
     status = status.clone()
     fx = None
+    bad = None
     if faults is not None:
         fx = faults.for_chunk(keys, start, state[0].shape[0], state[0].device)
+        if faults.mass_tolerance is not None:
+            bad = health_check(state[0].shape[0], faults.mass_tolerance)
     for k in range(keys.shape[0]):
         if fx is None:
-            state = advance(state, round_fn(state, keys[k], True), status, target)
+            state = advance(state, round_fn(state, keys[k], True, None), status,
+                            target)
             continue
         ok = True
         if fx.thresh is not None:
@@ -157,12 +180,16 @@ def _chunk_plain(round_fn, state, keys, status, target: int, start: int,
         if fx.revive is not None:
             entry = faults_mod.rejoin(state, fx.revive == start + k, fx.reset,
                                       fx.init_term)
-        new = round_fn(entry, keys[k], ok)
+        lying = fx.lying_flat(start + k)
+        new = round_fn(entry, keys[k], ok, lying)
         verdict = {}
         if alive is not None:
             new = faults_mod.freeze_dead(entry, new, ~alive)
             verdict = {"alive": alive, "need": int(fx.needs[k])}
-        state = advance(state, new, status, target, **verdict)
+        if lying is not None and isinstance(new, gossip_mod.GossipState):
+            new = gossip_mod.GossipState(*faults_mod.override(
+                fx.byz_mode, lying if alive is None else lying & alive, *new))
+        state = advance(state, new, status, target, bad=bad, **verdict)
     return state, status
 
 
@@ -173,12 +200,15 @@ def pushsum_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
     """K = keys.shape[0] push-sum scatter rounds from absolute round
     ``start`` (plain version of ``pushsum_scatter_chunk``)."""
     global_term = faults is not None and faults.global_term
+    mode = "" if faults is None else faults.byz_mode
+    clip = faults is not None and faults.clip
 
-    def round_fn(st, key, ok):
+    def round_fn(st, key, ok, lying):
         targets, send_ok = round_targets(graph, key)
         return pushsum_round_plain(st, targets, send_ok & ok, delta=delta,
                                    term_rounds=term_rounds,
-                                   global_term=global_term)
+                                   global_term=global_term, lying=lying,
+                                   mode=mode, clip=clip)
     return _chunk_plain(round_fn, state, keys, status, target, start, faults)
 
 
@@ -187,7 +217,7 @@ def gossip_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
                                start: int = 0,
                                faults: Optional[fused.Faults] = None):
     """K gossip scatter rounds (plain version of ``gossip_scatter_chunk``)."""
-    def round_fn(st, key, ok):
+    def round_fn(st, key, ok, lying):
         targets, send_ok = round_targets(graph, key)
         return gossip_round_plain(st, targets, send_ok & ok,
                                   rumor_target=rumor_target, suppress=suppress)
@@ -203,10 +233,10 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     "gossip_pushsum_scatter_chunk": [_P] * 6 + [_I, _I] + [_P] * 7 + [_U] * 3
                                     + [_I, _F, _I, _I] + [_I, _U, _P, _P]
-                                    + [_P, _I, _I] + [_I] + [_I, _P],
+                                    + [_P, _I, _I] + [_I] + [_P, _I] + [_I, _P],
     "gossip_gossip_scatter_chunk": [_P] * 5 + [_I, _I] + [_P] * 3 + [_U] * 3
                                    + [_I] * 4 + [_I, _U, _P, _P] + [_P, _I]
-                                   + [_I, _P],
+                                   + [_P, _I] + [_I, _P],
 }
 
 
@@ -221,8 +251,10 @@ def _check(state, dtypes, key, start: int, rounds: int, status,
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
     if graph.device != dev:
         raise ValueError(f"the graph lies on {graph.device}, the state on {dev}")
-    if status.device != dev or status.dtype != torch.int32 or tuple(status.shape) != (2,):
-        raise ValueError("status must be int32 [2] (rounds, done) on the state's device")
+    if (status.device != dev or status.dtype != torch.int32
+            or tuple(status.shape) not in ((2,), (3,))):
+        raise ValueError("status must be int32 [2] (rounds, done), or [3] with "
+                         "the health sentinel's word, on the state's device")
     if len(key) != 2 or not all(0 <= int(x) <= rng.MASK for x in key):
         raise ValueError(f"key must be the run's two uint32 words, got {key}")
     if start < 0 or rounds < 0:
@@ -286,6 +318,10 @@ def pushsum_scatter_chunk(state, key, start: int, rounds: int, status, *,
     termination (the kernel's faulted instance)."""
     dev = _check(state, (torch.float32, torch.float32, torch.int32, torch.bool),
                  key, start, rounds, status, graph)
+    if faults is not None and dev.type == "cuda" and (
+            faults.clip or faults.mass_tolerance is not None):
+        raise unported("robust_agg='clip' and mass_tolerance in the scatter "
+                       "round's kernel (csrc/scatter.cu)", "A6c-2")
     if dev.type == "cpu":
         return pushsum_scatter_chunk_plain(state, fused.round_keys(key, start, rounds),
                                            status, graph=graph, target=target,
@@ -304,8 +340,8 @@ def pushsum_scatter_chunk(state, key, start: int, rounds: int, status, *,
                                     "records")),
         words.data_ptr(), status.data_ptr(), *_key_args(key, start), rounds,
         ctypes.c_float(delta), term_rounds, target, *fargs,
-        *_revive_args(faults, dev), int(faults is not None and faults.global_term)],
-        dev)
+        *_revive_args(faults, dev), int(faults is not None and faults.global_term),
+        *_byz_args(faults, dev)], dev)
     pushsum_scatter_chunk.launches += 1
     return out, status
 
@@ -334,7 +370,7 @@ def gossip_scatter_chunk(state, key, start: int, rounds: int, status, *,
         *(x.data_ptr() for x in out), *_graph_args(graph),
         w["inbox"].data_ptr(), words.data_ptr(), status.data_ptr(),
         *_key_args(key, start), rounds, rumor_target, int(suppress), target,
-        *fargs, *_revive_args(faults, dev)[:2]], dev)
+        *fargs, *_revive_args(faults, dev)[:2], *_byz_args(faults, dev)], dev)
     gossip_scatter_chunk.launches += 1
     return out, status
 
@@ -359,6 +395,13 @@ def _revive_args(faults: Optional[fused.Faults], dev: torch.device) -> list:
     if faults is None or faults.revive is None:
         return [None, 0, 0]
     return faults.revive_args(faults.revive.shape[0], dev)
+
+
+def _byz_args(faults: Optional[fused.Faults], dev: torch.device) -> list:
+    """(Byzantine onset plane, mode) as the entry points take them."""
+    if faults is None:
+        return [None, 0]
+    return faults.byz_args(None, dev)
 
 
 def _key_args(key, start: int):

@@ -63,6 +63,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import SimConfig
+from ..models.pushsum import flush, halve_and_send
 from ..ops import fused, fused_pool
 from ..ops.fused import LANES
 from ..ops.sampling import POOL_CHOICE_BITS
@@ -335,13 +336,12 @@ def pushsum_pool2_shard_round_plain(glob, own, keys, offs, row0: int, *, n: int,
     for hit, src in _slot_reads(keys, offs, row0, rows, R, n, dev):
         if sending is not None:
             hit = hit & sending[src]
-        in_s = in_s + torch.where(hit, s_g[src] * 0.5, zero)
-        in_w = in_w + torch.where(hit, w_g[src] * 0.5, zero)
+        in_s = flush(in_s + torch.where(hit, flush(s_g[src] * 0.5), zero))
+        in_w = flush(in_w + torch.where(hit, flush(w_g[src] * 0.5), zero))
     sends = ~pad if sending is None else sending[row0 * LANES:(row0 + rows) * LANES]
-    s_send = torch.where(sends, s * 0.5, zero)
-    w_send = torch.where(sends, w * 0.5, zero)
-    s_new = (s - s_send) + in_s
-    w_new = (w - w_send) + in_w
+    _, _, s_keep, w_keep = halve_and_send(s, w, sends)
+    s_new = flush(s_keep + in_s)
+    w_new = flush(w_keep + in_w)
     delta_t = torch.tensor(delta, dtype=torch.float32)
     shape = own[0].shape
     if faults is not None and faults.global_term:

@@ -29,8 +29,12 @@ times the comma-separated groups named: ``early`` (rows 1-7 and kernel A),
 ``late`` (rows 9-14, 18-21) and ``shard`` (rows 15-16: one super-step of
 every shard, torus3d 100**3 in 2 shards on the resident tier and 256**3 in
 4 on the streaming tier, every shard on the card, from chip_smoke's
-mid-run state, as its phases 14a-14b queue them); the default is early and
-late. Prints one JSON line a root, then the card's name and power limit,
+mid-run state, as its phases 14a-14b queue them) and ``chunked`` (phase
+14g's chunked-engine runs through run(), engine="chunked": line 1000
+gossip and full 1000 push-sum on pool delivery, torch ops a round and no
+kernel of csrc/; ms is run_s, the median of 5 runs after a warm-up run,
+and kernel_us the device time of every kernel of one run); the default is
+early and late. Prints one JSON line a root, then the card's name and power limit,
 then each row's times in every later root over the first root's.
 """
 
@@ -88,6 +92,24 @@ def one(root: str, groups=("early", "late")) -> dict:
                                                 "kernel_us": device_us(step, stem)}
             del bufs, mid
             torch.cuda.empty_cache()
+    if "chunked" in groups:
+        from cop5615_gossip_protocol_tpu_torch import run
+
+        for kind, algorithm, kw in (("line", "gossip", {}),
+                                    ("full", "push-sum", {"delivery": "pool",
+                                                          "pool_size": cs.POOL})):
+            topo = build_topology(kind, 1000)
+            cfg = SimConfig(n=1000, topology=kind, algorithm=algorithm, engine="chunked", **kw)
+            run(topo, cfg)
+            run_s = sorted(run(topo, cfg).run_s for _ in range(5))
+            stack, prof = cs.cuda_profile()
+            with stack:
+                res = run(topo, cfg)
+                torch.cuda.synchronize()
+            name = "pushsum" if algorithm == "push-sum" else "gossip"
+            out[f"chunked_{kind}_{name}"] = {
+                "ms": run_s[2] * 1e3, "rounds": res.rounds,
+                "kernel_us": sum(us for _, (_, us) in cs.device_kernels(prof).items())}
     if "early" in groups:
         fns, _ = cs.pool_fns(dev, key, cs.N)
         for name, (kern, _, chunk, init, _, mid_round) in fns.items():

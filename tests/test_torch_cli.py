@@ -121,7 +121,7 @@ def test_quiet_and_reference_format(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--byzantine-rate", "0.1"], "A6c"),
+    (["--dup-rate", "0.1"], "A7b"),
     (["--devices", "4"], "A10"),
     (["--telemetry"], "A6d"),
     (["--checkpoint", "x.npz"], "A8"),

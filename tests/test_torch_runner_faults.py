@@ -94,13 +94,12 @@ def drains(kind, algorithm, faults) -> bool:
 
 
 def early_planes(jres, tres, kind, n, delivery, algorithm, faults):
-    """A draining run's checks. The port keeps subnormal floats on the CPU
-    as the kernels do on the card; the JAX round, jitted on XLA's CPU,
-    flushes some subnormal halves to zero and keeps others, by how XLA fuses
-    the round (its eager round keeps them all). So once a cut-off node
-    drains (past round 150 or so) it and its partners may differ. The whole
-    run's rounds, counts and outcome must be the JAX run's; the runs to
-    round 100 are returned for the bitwise checks."""
+    """A draining run's checks: the whole run's rounds, counts and outcome
+    must be the JAX run's; the runs to round 100 are returned for the
+    bitwise checks. The port flushes subnormal results as the JAX round
+    jitted on XLA's CPU does (models/pushsum.flush), so these runs are held
+    bitwise to their end in tests/test_torch_c1_flush.py, with the one
+    exception XLA's scalar remainder loop makes."""
     assert (tres.rounds, tres.converged_count, tres.outcome) == (
         jres.rounds, jres.converged_count, jres.outcome)
     return both_runs(kind, n, delivery, algorithm, 100, **FAULTS[faults])

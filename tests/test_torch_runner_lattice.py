@@ -184,7 +184,7 @@ def test_lattice_configs_outside_the_slice_name_roadmap_items():
                      ({"topology": "imp3d", "delivery": "matmul"}, "A7b"),
                      ({"topology": "ring", "dup_rate": 0.1}, "A7b"),
                      ({"topology": "line", "delay_rounds": 2}, "A7b"),
-                     ({"topology": "torus3d", "byzantine_rate": 0.1}, "A6c")):
+                     ({"topology": "torus3d", "stall_chunks": 2}, "A8")):
         fields = {"n": 1000, "algorithm": "push-sum", **kw}
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             SimConfig(**fields)
