@@ -315,10 +315,25 @@ non-zero before the last line:
    chunked engine's values baked on the CPU (each Byzantine row's own
    main-path run at its kernel, shape and mode, whose launches the kernels
    line reports; the acceptance pair of unhealthy and clip, trim, each
-   kernel under the modes, ROADMAP C1's drained configs), and scatter
-   delivery with clip refused on the card naming A6c-2;
+   kernel under the modes, ROADMAP C1's drained configs);
+14p. (run after 14o) the telemetry plane (ROADMAP A6d) and kernel A's clip
+   and sentinel (A6c-2): each telemetry instance of kernel A and rows 1-2 at
+   full 1,000,000, rows 5-6 at grid2d 10,000 and kernel A at imp2d 100,000,
+   fault-free and with a gate and a crash and revive schedule, against its
+   plain version (every plane, the status and every row bitwise; the plain
+   rows' float sums in the kernel's order on its grid) and against the
+   instance without telemetry (bitwise: rows change nothing), a 32-round
+   chunk from round 16; kernel A's clip and sentinel instances, with and
+   without telemetry, at full 1,000,000 the same way, the sentinel tripping
+   at round 20 inside the chunk; then TELE_RUNS through run() against the
+   JAX chunked engine's values baked on the CPU (each new row's main-path
+   run, whose launches the kernels line reports; the acceptance pair on
+   scatter delivery; telemetry under clip, the sentinel, a gate with churn
+   and global termination: every count column of the rows exact, the
+   estimate and mass to stated tolerances), and TELE_CLIS through the CLI
+   with --trace-convergence against the JAX CLI's trace;
 
-Each of phases 5-14o prints its wall time.
+Each of phases 5-14p prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -5932,9 +5947,9 @@ BYZ_RUNS = (
 def byz_path(dev):
     """Phase 14o, the runs: each of BYZ_RUNS on the card through run(), the
     counters zeroed just before it and read just after, against the JAX
-    chunked engine's values baked above; then scatter delivery with clip,
-    which kernel A refuses on the card (ROADMAP A6c-2). Returns {(kernel,
-    kind, name): launches} of the first BYZ_ROW_RUNS runs, the rows' own."""
+    chunked engine's values baked above (scatter delivery with clip and the
+    sentinel runs in phase 14p). Returns {(kernel, kind, name): launches}
+    of the first BYZ_ROW_RUNS runs, the rows' own."""
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
     from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool, scatter
 
@@ -5973,20 +5988,11 @@ def byz_path(dev):
             MAIN_ROUNDS[f"{name}_{kernel}_chunk byzantine {kind}"] = res.rounds
             print(f"  {label} ({kind} n={n:,}): {res.outcome} at round {res.rounds}, "
                   f"{counts[kernel, algorithm]} launches", flush=True)
-    try:
-        run(build_topology("full", 256), SimConfig(n=256, algorithm="push-sum",
-                                                   byzantine_schedule="12:8",
-                                                   robust_agg="clip"))
-    except NotImplementedError as e:
-        if "A6c-2" not in str(e):
-            raise
-    else:
-        raise AssertionError("scatter delivery with clip ran on the card")
     print(f"  {len(BYZ_RUNS)} runs through run() equal to the JAX chunked engine's "
           f"rounds, counts, outcome, unhealthy round and estimate (each Byzantine row's "
           f"main-path run, the acceptance pair, trim, rows 1-2, 5-6 and kernel A under "
-          f"each mode, ROADMAP C1's drained configs); scatter with clip refused naming "
-          f"A6c-2 ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"each mode, ROADMAP C1's drained configs) ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     return launches
 
 
@@ -6044,6 +6050,651 @@ def byz_rows(cases, launches, max_err):
                      "config": "byzantine mass_inflate" if name == "pushsum"
                                else "byzantine stale_rumor",
                      "status": "ported"})
+    return rows
+
+
+# ----------------------------------------------------------------- 14p
+# The telemetry plane (ROADMAP A6d) in kernel A, rows 1-2 and rows 5-6, and
+# kernel A's clip and sentinel instances (A6c-2). TELE_KERNELS are the
+# telemetry instances at their main-path shapes, each fault-free and with a
+# drop gate and a crash and revive schedule (tele_knobs); a chunk from the
+# kernel's own state at round TELE_MID is held against the plain version,
+# whose float sums follow the kernel's order on the kernel's grid.
+TELE_KERNELS = (("scatter", "full", N), ("pool", "full", N),
+                ("stencil", "grid2d", 10_000), ("scatter", "imp2d", 100_000))
+TELE_MID = 16
+NEVER = 2**31 - 1
+# The columns of a row that are counts, exact in any order (ops/telemetry.py).
+TELE_INTS = (0, 1, 2, 3, 6, 7, 8, 9)
+# A failure model of nothing: it runs a kernel's faulted instance with no
+# fault (the instance a telemetry instance extends).
+def empty_faults():
+    from cop5615_gossip_protocol_tpu_torch.ops import fused
+
+    return fused.Faults(thresh=None, death=None, death_sorted=None, quorum=1.0,
+                        global_term=False)
+
+
+# Kernel A's clip and sentinel at full 1,000,000: 1% of the nodes inflate
+# from round 20; the sentinel's tolerance is far above the float32 rounding
+# of a million-node Σw (its ulp is 0.0625) and far below the ~5,000 the
+# attack adds, so the trip round does not depend on the sum's order.
+CLIP_KW = {"byzantine_schedule": f"20:{N // 100}", "byzantine_mode": "mass_inflate",
+           "robust_agg": "clip"}
+SENTINEL_KW = {"byzantine_schedule": f"20:{N // 100}", "byzantine_mode": "mass_inflate",
+               "mass_tolerance": 100.0}
+
+
+def tele_knobs(n, algorithm, churn):
+    """A 14p kernel config's knobs: none, or a drop gate with a crash and
+    revive schedule (push-sum rejoining fresh)."""
+    if not churn:
+        return {}
+    kw = {"fault_rate": 0.1, "crash_schedule": f"5:{n // 100},20:{n // 20}",
+          "revive_schedule": f"12:{n // 200},30:{n // 50}", "quorum": 0.95}
+    if algorithm == "push-sum":
+        kw["rejoin"] = "fresh"
+    return kw
+
+
+def tele_fns(dev, key, kernel, kind, n, algorithm, kw):
+    """One kernel of phase 14p under a config with telemetry on (knobs kw):
+    a namespace of the kernel wrapper, the plain version, chunk(fn, state,
+    start, count, tele=True, fx=the config's Faults) -> (state, status
+    (kernel A) or rounds run, rows or None), the initial state on the card,
+    the scatter graph (kernel A) and grid(tele), the grid of the instance a
+    chunk runs. The plain version sums the rows' floats (and the sentinel's
+    Σw) in the kernel's order on that grid."""
+    import types
+
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_engine, fused_tier
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool, scatter, telemetry
+
+    name = "pushsum" if algorithm == "push-sum" else "gossip"
+    pushsum = name == "pushsum"
+    topo = build_topology(kind, n)
+    n = topo.n  # imp2d rounds the population to a square
+    if kernel == "scatter":
+        from cop5615_gossip_protocol_tpu_torch.models import gossip as gossip_mod
+        from cop5615_gossip_protocol_tpu_torch.models import pushsum as pushsum_mod
+        from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
+
+        cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, telemetry=True, **kw)
+        graph = scatter.scatter_graph(topo, dev)
+        faults = fused.run_faults(cfg, n)
+
+        @functools.lru_cache(maxsize=None)
+        def grid(tele):
+            flags = (scatter.instance_flags(faults, tele) if pushsum
+                     else scatter.TELE if tele else 0)
+            return scatter.telemetry_grid(pushsum, faults is not None or tele, flags, n,
+                                          dev.index)
+
+        @functools.lru_cache(maxsize=None)
+        def order(tele):
+            o = telemetry.slice_order if pushsum else telemetry.strided_order
+            return o(grid(tele), n).to(dev)
+
+        rows_kern = telemetry.make_row_fn(topo, cfg, key, dev)
+        if pushsum:
+            init = pushsum_mod.init_state(n, cfg.initial_term_round, dev)
+            kern, plain = scatter.pushsum_scatter_chunk, scatter.pushsum_scatter_chunk_plain
+            extra = {"delta": cfg.resolved_delta, "term_rounds": cfg.term_rounds}
+        else:
+            init = gossip_mod.init_state(n, draw_leader(key, topo, cfg), False, dev)
+            kern, plain = scatter.gossip_scatter_chunk, scatter.gossip_scatter_chunk_plain
+            extra = {"rumor_target": cfg.resolved_rumor_target,
+                     "suppress": cfg.resolved_suppress}
+        keys = functools.lru_cache(maxsize=None)(
+            lambda start, count: fused.round_keys(key, start, count))
+        health = [NEVER] if cfg.mass_tolerance is not None else []
+
+        def chunk(fn, state, start, count, tele=True, fx=faults):
+            status = torch.tensor([start, 0, *health], dtype=torch.int32, device=dev)
+            if fn is plain:
+                o = order(tele)
+                rows_fn = telemetry.make_row_fn(
+                    topo, cfg, key, dev, fsum=functools.partial(telemetry.kernel_sum, order=o))
+                st, status, *rows = fn(state, keys(start, count), status, graph=graph,
+                                       target=n, start=start, faults=fx,
+                                       telemetry=rows_fn if tele else None,
+                                       **({"order": o} if pushsum else {}), **extra)
+            else:
+                st, status, *rows = fn(state, key, start, count, status, graph=graph,
+                                       target=n, faults=fx,
+                                       telemetry=rows_kern if tele else None, **extra)
+            return st, status, rows[0] if rows else None
+
+        return types.SimpleNamespace(kern=kern, plain=plain, chunk=chunk, init=init,
+                                     graph=graph, grid=grid, n=n, faults=faults)
+    extra = {"delivery": "pool", "pool_size": POOL} if kernel == "pool" else {}
+    cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, telemetry=True, **extra, **kw)
+    if fused_tier(topo, cfg) != (kernel, None):
+        raise AssertionError(f"{kind} n={n} {kw}: the ladder picks {fused_tier(topo, cfg)}, "
+                             f"not {kernel}")
+    eng = fused_engine(topo, cfg, key, kernel)
+    init = tuple(p.contiguous().to(dev) for p in eng.planes)
+    n_pad = init[0].numel()
+    faults = fused.run_faults(cfg, n)
+    if kernel == "pool":
+        kern, plain = {"pushsum": (fused_pool.pushsum_pool_chunk,
+                                   fused_pool.pushsum_pool_chunk_plain),
+                       "gossip": (fused_pool.gossip_pool_chunk,
+                                  fused_pool.gossip_pool_chunk_plain)}[name]
+        common = {"n": n}
+        g = fused_pool.telemetry_grid("fused_pool", pushsum, POOL, n_pad, dev.index)
+    else:
+        from cop5615_gossip_protocol_tpu_torch.ops import fused_stencil_hbm as hbm
+
+        kern = resident_wrappers()[name, "stencil"]
+        plain = {"pushsum": hbm.pushsum_stencil_hbm_chunk_plain,
+                 "gossip": hbm.gossip_stencil_hbm_chunk_plain}[name]
+        common = {"spec": hbm.stencil_spec(topo)}
+        g = fused_pool.telemetry_grid("fused_resident", pushsum, 0, n_pad, dev.index)
+    common.update(target=n, faults=faults)
+    if pushsum:
+        common.update(delta=cfg.resolved_delta, term_rounds=cfg.term_rounds)
+    else:
+        common.update(rumor_target=cfg.resolved_rumor_target, suppress=cfg.resolved_suppress)
+    streams = functools.lru_cache(maxsize=None)(eng.streams)
+
+    def chunk(fn, state, start, count, tele=True, fx=faults):
+        kw2 = dict(common, faults=fx)
+        if fn is not plain:
+            kw2["telemetry"] = tele
+        elif kernel == "pool":
+            kw2.update(telemetry=tele, grid=g)
+        else:
+            kw2["telemetry"] = fused.RowSpec.for_layout("stencil", n_pad, g) if tele else None
+        st, ex, *rows = fn(state, *streams(start, count), start, start + count, **kw2)
+        return st, ex, rows[0] if rows else None
+
+    return types.SimpleNamespace(kern=kern, plain=plain, chunk=chunk, init=init, graph=None,
+                                 grid=lambda tele: g, n=n, faults=faults)
+
+
+def tele_ran(st, start):
+    """Rounds a chunk ran: from kernel A's status, or the fused chunk's count."""
+    return int(st[0]) - start if st.numel() > 1 else int(st)
+
+
+def tele_compare(tag, got, want):
+    """A chunk's state, status or rounds, and rows against another's, every
+    plane and row bitwise; returns the largest absolute difference (0.0)."""
+    err = same_planes(tag, got[0], want[0])
+    same_planes(f"{tag}: status", [got[1]], [want[1]])
+    if (got[2] is None) != (want[2] is None):
+        raise AssertionError(f"{tag}: one side has rows")
+    if got[2] is not None:
+        same_planes(f"{tag}: rows", [got[2]], [want[2]])
+    return err
+
+
+def tele_checks(dev, key):
+    """Phase 14p, the kernels: each of TELE_KERNELS' telemetry instances
+    (push-sum only on imp2d), fault-free and with a gate and a crash and
+    revive schedule: from the instance's own state at round TELE_MID a
+    CHUNK-round chunk against its plain version (every plane, the status and
+    every row bitwise) and against the instance without telemetry (every
+    plane and the status bitwise: rows observe, they change nothing), kernel
+    A's scratch zero after it. Returns ({(kernel, kind, name): case}, {row:
+    max_abs_err})."""
+    import torch
+
+    cases, max_err = {}, {}
+    for kernel, kind, n in TELE_KERNELS:
+        t0 = time.perf_counter()
+        algorithms = ("push-sum",) if kind == "imp2d" else ("push-sum", "gossip")
+        for algorithm in algorithms:
+            for churn in (False, True):
+                f = tele_fns(dev, key, kernel, kind, n, algorithm,
+                             tele_knobs(n, algorithm, churn))
+                tag = f"{kernel} {kind} {algorithm}{' with churn' if churn else ''} telemetry"
+                mid, st, _ = f.chunk(f.kern, f.init, 0, TELE_MID)
+                if tele_ran(st, 0) != TELE_MID:
+                    raise AssertionError(f"{tag}: done before round {TELE_MID}")
+                got = f.chunk(f.kern, mid, TELE_MID, CHUNK)
+                err = tele_compare(f"{tag} from round {TELE_MID}", got,
+                                   f.chunk(f.plain, mid, TELE_MID, CHUNK))
+                off = f.chunk(f.kern, mid, TELE_MID, CHUNK, tele=False)
+                tele_compare(f"{tag} on/off", (got[0], got[1], None), off)
+                if f.graph is not None:
+                    scatter_scratch_zero(tag, f.graph)
+                if not float(got[2][:, 1].sum()) > 0:  # the live column
+                    raise AssertionError(f"{tag}: the rows are empty")
+                name = "pushsum" if algorithm == "push-sum" else "gossip"
+                row = f"{name} {kernel} {kind}"
+                max_err[row] = max(max_err.get(row, 0.0), err)
+                if not churn:
+                    cases[kernel, kind, name] = f
+        print(f"  {kernel} ({kind} n={n:,}): telemetry instances fault-free and with a gate "
+              f"and churn, a {CHUNK}-round chunk from round {TELE_MID} bitwise the plain "
+              f"version (planes, status, rows) and the instance without telemetry "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        torch.cuda.empty_cache()
+    return cases, max_err
+
+
+def clip_sentinel_checks(dev, key):
+    """Phase 14p, A6c-2: kernel A's clip and sentinel instances, each with
+    and without telemetry, at full 1,000,000 against the plain version from
+    the kernel's own state at round TELE_MID, a CHUNK-round chunk across the
+    onset at round 20 (every plane, the status and the rows bitwise); the
+    sentinel trips at round 20 inside the chunk and latches it in the
+    status's third word. Returns ({label: case}, {row: max_abs_err})."""
+    cases, max_err = {}, {}
+    t0 = time.perf_counter()
+    # For the timing: clip against the faulted instance under the same
+    # Byzantine model, the sentinel on an honest run (no trip in the chunk)
+    # against the fault-free instance.
+    base = tele_fns(dev, key, "scatter", "full", N, "push-sum",
+                    {k: v for k, v in CLIP_KW.items() if k.startswith("byzantine")})
+    honest = tele_fns(dev, key, "scatter", "full", N, "push-sum",
+                      {"mass_tolerance": SENTINEL_KW["mass_tolerance"]})
+    for label, kw in (("clip", CLIP_KW), ("sentinel", SENTINEL_KW),
+                      ("sentinel global", dict(SENTINEL_KW, termination="global"))):
+        f = tele_fns(dev, key, "scatter", "full", N, "push-sum", kw)
+        f.base, f.timed = (base, f) if label == "clip" else (None, honest)
+        for tele in (False, True):
+            tag = f"scatter {label}{' telemetry' if tele else ''}"
+            mid, st, _ = f.chunk(f.kern, f.init, 0, TELE_MID, tele)
+            if tele_ran(st, 0) != TELE_MID:
+                raise AssertionError(f"{tag}: done before round {TELE_MID}")
+            got = f.chunk(f.kern, mid, TELE_MID, CHUNK, tele)
+            err = tele_compare(f"{tag} from round {TELE_MID}", got,
+                               f.chunk(f.plain, mid, TELE_MID, CHUNK, tele))
+            scatter_scratch_zero(tag, f.graph)
+            status = [int(v) for v in got[1]]
+            if label.startswith("sentinel") and status != [21, 1, 20]:
+                raise AssertionError(f"{tag}: status {status}, want the trip at round 20")
+            # Global termination: the trip leaves conv as round 20's verdict
+            # wrote it (no round was stable), not latched on every node.
+            if label == "sentinel global" and int(got[0].conv.sum()) != 0:
+                raise AssertionError(f"{tag}: {int(got[0].conv.sum())} nodes converged")
+            if label == "clip" and status[:2] != [TELE_MID + CHUNK, 0]:
+                raise AssertionError(f"{tag}: status {status}")
+            max_err[f"{label}{' telemetry' if tele else ''}"] = err
+        cases[label] = f
+    print(f"  scatter clip and sentinel (full n={N:,}; the sentinel under local and global "
+          f"termination), with and without telemetry: a {CHUNK}-round chunk from round "
+          f"{TELE_MID} bitwise the plain version, the sentinel tripping at round 20 "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return cases, max_err
+
+
+# Phase 14p's runs: (label, kernel, kind, n, algorithm, knobs, and the JAX
+# package's chunked engine on the CPU: rounds, converged count, outcome,
+# unhealthy round, estimate_mae; then, under telemetry, a digest of its
+# rows' count columns, its middle and its last row). The first TELE_ROW_RUNS
+# are the kernels line's rows' main-path runs, one a row.
+TELE_ROW_RUNS = 9
+TELE_RUNS = (
+    ("scatter push-sum telemetry", "scatter", "full", N, "push-sum",
+     dict(telemetry=True, max_rounds=100),
+     (100, 682815, "max_rounds", None, 0.025377014493501347),
+     ("55bb00e8849b7fda", 50, [67584.0, 1000000.0, 932416.0, 0.0, 0.02212062105536461,
+                               -0.125, 0.0, 0.0, 0.0, 0.0],
+      [682815.0, 1000000.0, 317185.0, 0.0, 0.024290574714541435, 0.0625, 0.0, 0.0, 0.0,
+       0.0])),
+    ("scatter gossip telemetry", "scatter", "full", N, "gossip", dict(telemetry=True),
+     (56, 1000000, "converged", None, None),
+     ("90e28b2dcd82281c", 28, [407717.0, 1000000.0, 592283.0, 999872.0, 0.0, 0.0, 0.0, 0.0,
+                               0.0, 0.0],
+      [1000000.0, 1000000.0, 0.0, 1000000.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])),
+    ("pool push-sum telemetry", "pool", "full", N, "push-sum",
+     dict(delivery="pool", pool_size=POOL, telemetry=True, max_rounds=100),
+     (100, 788489, "max_rounds", None, 0.024118961397771744),
+     ("1140d02f0287a54b", 50, [99856.0, 1000000.0, 900144.0, 0.0, 0.021039672195911407,
+                               0.0625, 0.0, 0.0, 0.0, 0.0],
+      [788489.0, 1000000.0, 211511.0, 0.0, 0.022980663925409317, 0.0, 0.0, 0.0, 0.0,
+       0.0])),
+    ("pool gossip telemetry", "pool", "full", N, "gossip",
+     dict(delivery="pool", pool_size=POOL, telemetry=True),
+     (48, 1000000, "converged", None, None),
+     ("25c534621c68e255", 24, [8923.0, 1000000.0, 991077.0, 998702.0, 0.0, 0.0, 0.0, 0.0,
+                               0.0, 0.0],
+      [1000000.0, 1000000.0, 0.0, 1000000.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])),
+    ("stencil push-sum telemetry", "stencil", "grid2d", 10_000, "push-sum",
+     dict(telemetry=True, max_rounds=300),
+     (300, 45, "max_rounds", None, 2608.727033233688),
+     ("df18b906ebb2c308", 150, [23.0, 10000.0, 9977.0, 0.0, 2740.026611328125, 0.0, 0.0,
+                                0.0, 0.0, 0.0],
+      [45.0, 10000.0, 9955.0, 0.0, 2608.726806640625, 0.0, 0.0, 0.0, 0.0, 0.0])),
+    ("stencil gossip telemetry", "stencil", "grid2d", 10_000, "gossip", dict(telemetry=True),
+     (322, 10000, "converged", None, None),
+     ("126af7447fcbe1c1", 161, [3973.0, 10000.0, 6027.0, 4520.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+                                0.0],
+      [10000.0, 10000.0, 0.0, 10000.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])),
+    ("scatter imp2d push-sum telemetry", "scatter", "imp2d", 100_000, "push-sum",
+     dict(telemetry=True, max_rounds=300),
+     (300, 100067, "max_rounds", None, 0.0028661904611618923),
+     ("931139bfa0d67f7b", 150, [5306.0, 100489.0, 95183.0, 0.0, 0.011598014272749424, 0.0,
+                                0.0, 0.0, 0.0, 0.0],
+      [100067.0, 100489.0, 422.0, 0.0, 0.0027103715110570192, -0.0078125, 0.0, 0.0, 0.0,
+       0.0])),
+    ("scatter clip", "scatter", "full", N, "push-sum", dict(CLIP_KW, max_rounds=100),
+     (100, 684925, "max_rounds", None, 1.6034667931057975), None),
+    ("scatter sentinel", "scatter", "full", N, "push-sum", dict(SENTINEL_KW, max_rounds=100),
+     (21, 0, "unhealthy", 20, 0.0), None),
+    # The acceptance pair of the JAX package's tests on scatter delivery.
+    ("scatter sentinel 256", "scatter", "full", 256, "push-sum",
+     dict(chunk_rounds=32, max_rounds=2000, byzantine_schedule="12:8",
+          byzantine_mode="mass_inflate", mass_tolerance=1e-3),
+     (13, 0, "unhealthy", 12, 0.0), None),
+    ("scatter clip 256", "scatter", "full", 256, "push-sum",
+     dict(chunk_rounds=32, max_rounds=2000, byzantine_schedule="12:8",
+          byzantine_mode="mass_inflate", robust_agg="clip"),
+     (284, 256, "converged", None, 0.03563208905430265), None),
+    ("scatter telemetry clip", "scatter", "full", 20_000, "push-sum",
+     dict(telemetry=True, byzantine_schedule="20:200", byzantine_mode="mass_inflate",
+          robust_agg="clip", max_rounds=300),
+     (300, 19999, "max_rounds", None, 2.980727190955977),
+     ("a4f9c3a2a34131b5", 150, [19929.0, 20000.0, 71.0, 0.0, 2.9808390140533447,
+                                -4024.8828125, 0.0, 0.0, 0.0, 200.0],
+      [19999.0, 20000.0, 1.0, 0.0, 2.980727434158325, -4110.03125, 0.0, 0.0, 0.0, 200.0])),
+    ("scatter telemetry sentinel", "scatter", "full", 20_000, "push-sum",
+     dict(telemetry=True, byzantine_schedule="20:200", byzantine_mode="mass_inflate",
+          mass_tolerance=10.0, max_rounds=300),
+     (21, 0, "unhealthy", 20, 0.0),
+     ("61a6c6b5678255d4", 10, [0.0, 20000.0, 20000.0, 0.0, 0.0, 0.001953125, 0.0, 0.0, 0.0,
+                               0.0],
+      [0.0, 20000.0, 20000.0, 0.0, 0.0, 96.26953125, 0.0, 0.0, 0.0, 200.0])),
+    # The sentinel under global termination: the trip leaves conv 0 (no
+    # round was stable), with and without rows.
+    ("scatter sentinel global", "scatter", "full", 20_000, "push-sum",
+     dict(termination="global", byzantine_schedule="20:200", byzantine_mode="mass_inflate",
+          mass_tolerance=10.0, max_rounds=300),
+     (21, 0, "unhealthy", 20, 0.0), None),
+    ("scatter telemetry sentinel global", "scatter", "full", 20_000, "push-sum",
+     dict(telemetry=True, termination="global", byzantine_schedule="20:200",
+          byzantine_mode="mass_inflate", mass_tolerance=10.0, max_rounds=300),
+     (21, 0, "unhealthy", 20, 0.0),
+     ("61a6c6b5678255d4", 10, [0.0, 20000.0, 20000.0, 0.0, 0.0, 0.001953125, 0.0, 0.0, 0.0,
+                               0.0],
+      [0.0, 20000.0, 20000.0, 0.0, 0.0, 96.26953125, 0.0, 0.0, 0.0, 200.0])),
+    ("scatter telemetry churn", "scatter", "full", 20_000, "push-sum",
+     dict(telemetry=True, max_rounds=400, **tele_knobs(20_000, "push-sum", True)),
+     (143, 18335, "converged", None, 343.05554211702804),
+     ("432a3189a413445e", 71, [2.0, 19300.0, 18333.0, 0.0, 343.0576171875,
+                               -2238.421875, 1838.0, 0.0, 0.0, 0.0],
+      [18335.0, 19300.0, 0.0, 0.0, 343.0555419921875, -2238.421875, 1880.0, 0.0, 0.0,
+       0.0])),
+    ("scatter gossip telemetry churn", "scatter", "full", 20_000, "gossip",
+     dict(telemetry=True, **tele_knobs(20_000, "gossip", True)),
+     (35, 18411, "converged", None, None),
+     ("a039f9d2601e02b3", 17, [8.0, 19900.0, 18897.0, 18299.0, 0.0, 0.0, 1993.0, 0.0, 0.0,
+                               0.0],
+      [18411.0, 19300.0, -71.0, 19885.0, 0.0, 0.0, 1909.0, 0.0, 0.0, 0.0])),
+    ("pool telemetry churn", "pool", "full", 20_000, "push-sum",
+     dict(delivery="pool", pool_size=POOL, telemetry=True, max_rounds=400,
+          **tele_knobs(20_000, "push-sum", True)),
+     (130, 18386, "converged", None, 341.45208583201594),
+     ("ddaa3de467dc1b3f", 65, [0.0, 19300.0, 18335.0, 0.0, 0.0, -2256.05078125, 1963.0,
+                               0.0, 0.0, 0.0],
+      [18386.0, 19300.0, -51.0, 0.0, 341.45208740234375, -2256.05078125, 1931.0, 0.0,
+       0.0, 0.0])),
+    ("pool gossip telemetry churn", "pool", "full", 20_000, "gossip",
+     dict(delivery="pool", pool_size=POOL, telemetry=True, byzantine_rate=0.01,
+          byzantine_mode="stale_rumor", max_rounds=300,
+          crash_schedule="5:200,20:1000", revive_schedule="12:100,30:400", quorum=0.95),
+     (23, 19152, "converged", None, None),
+     ("7f38e23cbb0d9605", 11, [39.0, 19800.0, 18771.0, 19764.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+                               202.0],
+      [19152.0, 18900.0, -335.0, 19919.0, 0.0, 0.0, 0.0, 0.0, 0.0, 202.0])),
+    ("stencil telemetry churn", "stencil", "grid2d", 10_000, "push-sum",
+     dict(telemetry=True, max_rounds=400, **tele_knobs(10_000, "push-sum", True)),
+     (400, 83, "max_rounds", None, 2785.1668141789983),
+     ("3ee2610b9dde3b0a", 200, [38.0, 9650.0, 9130.0, 0.0, 2916.45849609375,
+                                -948.2939453125, 936.0, 0.0, 0.0, 0.0],
+      [83.0, 9650.0, 9085.0, 0.0, 2785.166748046875, -948.2939453125, 932.0, 0.0, 0.0,
+       0.0])),
+    ("stencil gossip telemetry churn", "stencil", "grid2d", 10_000, "gossip",
+     dict(telemetry=True, **tele_knobs(10_000, "gossip", True)),
+     (303, 9171, "converged", None, None),
+     ("fc67a9a7b82f56b6", 151, [2649.0, 9650.0, 6519.0, 3056.0, 0.0, 0.0, 1021.0, 0.0,
+                                0.0, 0.0],
+      [9171.0, 9650.0, -3.0, 9349.0, 0.0, 0.0, 968.0, 0.0, 0.0, 0.0])),
+    ("scatter telemetry global", "scatter", "full", 20_000, "push-sum",
+     dict(telemetry=True, termination="global", fault_rate=0.1),
+     (57, 20000, "converged", None, 0.0005834082072269666),
+     ("0aed7710b781d709", 28, [0.0, 20000.0, 20000.0, 0.0, 0.0, 0.0, 2081.0, 0.0, 0.0, 0.0],
+      [20000.0, 20000.0, 0.0, 0.0, 0.0005366210825741291, 0.0, 1992.0, 0.0, 0.0, 0.0])),
+    ("pool telemetry global", "pool", "full", 20_000, "push-sum",
+     dict(delivery="pool", pool_size=POOL, telemetry=True, termination="global"),
+     (47, 20000, "converged", None, 0.0006363675183401938),
+     ("bdf98aeb9d35c55e", 23, [0.0, 20000.0, 20000.0, 0.0, 0.0, 0.001953125, 0.0, 0.0, 0.0,
+                               0.0],
+      [20000.0, 20000.0, 0.0, 0.0, 0.0005956054665148258, 0.001953125, 0.0, 0.0, 0.0,
+       0.0])),
+)
+# The CLI with --trace-convergence on the card against the JAX CLI's trace
+# for the same arguments on the CPU: the file's digest (gossip: byte for
+# byte), the digest of its records without estimate_mae, their count and
+# the last record.
+TELE_CLIS = (
+    (["1000", "full", "gossip"], "cc5601f86bf6ae79", "15e78e0a1531f8d6", 36,
+     {"rounds": 36, "converged_count": 1000, "newly_converged": 1, "active_count": 1000}),
+    (["1000", "full", "push-sum", "--delivery", "pool", "--pool-size", "2"], None,
+     "a3c44c5d48d9f4d7", 285, {"rounds": 285, "converged_count": 1000, "newly_converged": 1,
+                               "estimate_mae": 2.3284912458620965e-05}),
+    (["900", "grid2d", "push-sum", "--crash-schedule", "3:100,6:50", "--revive-schedule",
+      "10:60,20:40", "--quorum", "0.95"], None, "b8dc432be79c6c6f", 2730,
+     {"rounds": 2730, "converged_count": 808, "newly_converged": 1,
+      "estimate_mae": 296.0455017089844}),
+)
+
+
+def tele_row_close(label, got, want, n):
+    """A card row against the JAX chunked engine's: counts equal, the
+    estimate within 1e-4 relative, and the mass within the JAX package's
+    fused-against-chunked atol of 1e-2 or 4 ulps of a float32 n, whichever
+    is larger (0.25 at 1,000,000). The card's kernels add Σw in their own
+    order and sum_f32 in another; on these runs' states the orders differ
+    by at most 3 ulps of n (scripts/telemetry_mass_orders.py)."""
+    import numpy as np
+
+    for c in TELE_INTS:
+        if got[c] != want[c]:
+            raise AssertionError(f"{label}: column {c} {got[c]} != JAX {want[c]}")
+    if abs(got[4] - want[4]) > 1e-4 * abs(want[4]) + 1e-7:
+        raise AssertionError(f"{label}: estimate_mae {got[4]} != JAX {want[4]}")
+    tol = max(1e-2, 4 * float(np.spacing(np.float32(n))))
+    if abs(got[5] - want[5]) > tol:
+        raise AssertionError(f"{label}: mass_residual {got[5]} != JAX {want[5]} (tol {tol})")
+
+
+def tele_path(dev):
+    """Phase 14p, the runs: each of TELE_RUNS on the card through run(), the
+    counters zeroed just before it and read just after, against the JAX
+    chunked engine's values baked above (rounds, converged count, outcome,
+    unhealthy round, estimate, and the rows: every count column by digest,
+    the middle and last rows' floats to tele_row_close's tolerances); then
+    TELE_CLIS through the CLI. Returns {label: launches} of the first
+    TELE_ROW_RUNS runs, the rows' own."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, cli, run
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, fused_pool, scatter
+
+    counters = {("pool", "push-sum"): fused_pool.pushsum_pool_chunk,
+                ("pool", "gossip"): fused_pool.gossip_pool_chunk,
+                ("scatter", "push-sum"): scatter.pushsum_scatter_chunk,
+                ("scatter", "gossip"): scatter.gossip_scatter_chunk,
+                ("stencil", "push-sum"): fused.pushsum_chunk,
+                ("stencil", "gossip"): fused.gossip_chunk}
+    launches = {}
+    t0 = time.perf_counter()
+    for i, (label, kernel, kind, n, algorithm, kw, want, tele) in enumerate(TELE_RUNS):
+        for fn in counters.values():
+            fn.launches = 0
+        topo = build_topology(kind, n)
+        res = run(topo, SimConfig(n=n, topology=kind, algorithm=algorithm, **kw))
+        counts = {k: fn.launches for k, fn in counters.items()}
+        got = (res.rounds, res.converged_count, res.outcome, res.unhealthy_round,
+               res.estimate_mae)
+        mae, want_mae = got[4], want[4]
+        if got[:4] != want[:4] or (mae is None) != (want_mae is None) or (
+                mae is not None and abs(mae - want_mae) > 1e-12 * max(1.0, abs(want_mae))):
+            raise AssertionError(f"{label} ({kind} n={n:,}): {got} != JAX {want}")
+        if counts[kernel, algorithm] == 0 or sum(counts.values()) != counts[kernel, algorithm]:
+            raise AssertionError(f"{label}: launches {counts}, want {kernel} alone")
+        if tele is not None:
+            digest, mid_i, mid_row, last_row = tele
+            data = res.telemetry.data
+            if data.shape != (res.rounds, 10):
+                raise AssertionError(f"{label}: rows {data.shape}, rounds {res.rounds}")
+            ints = hashlib.sha256(data[:, list(TELE_INTS)].astype(np.int64).tobytes())
+            if ints.hexdigest()[:16] != digest:
+                raise AssertionError(f"{label}: the rows' count columns differ from JAX's")
+            tele_row_close(f"{label} row {mid_i}", data[mid_i].tolist(), mid_row, topo.n)
+            tele_row_close(f"{label} last row", data[-1].tolist(), last_row, topo.n)
+        if i < TELE_ROW_RUNS:
+            launches[label] = counts[kernel, algorithm]
+            MAIN_ROUNDS[{r[1]: r[2] for r in TELE_ROWS}[label]] = res.rounds
+            print(f"  {label} ({kind} n={n:,}): {res.outcome} at round {res.rounds}, "
+                  f"{counts[kernel, algorithm]} launches", flush=True)
+    print(f"  {len(TELE_RUNS)} runs through run() equal to the JAX chunked engine's rounds, "
+          f"counts, outcome, unhealthy round, estimate and rows (each new row's main-path "
+          f"run, clip and the sentinel on scatter delivery, the acceptance pair, telemetry "
+          f"with clip, the sentinel, a gate with churn and global termination) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (argv, sha, ints, count, last) in enumerate(TELE_CLIS):
+            path = f"{tmp}/trace{i}.jsonl"
+            with contextlib.redirect_stdout(None):
+                rc = cli.main(argv + ["--quiet", "--trace-convergence", path])
+            if rc != 0:
+                raise AssertionError(f"CLI {argv}: exit {rc}")
+            raw = open(path, "rb").read()
+            recs = [json.loads(line) for line in raw.decode().splitlines()]
+            no_mae = [{k: v for k, v in r.items() if k != "estimate_mae"} for r in recs]
+            if (len(recs), hashlib.sha256(json.dumps(no_mae).encode()).hexdigest()[:16]) != (
+                    count, ints):
+                raise AssertionError(f"CLI {argv}: the trace's records differ from JAX's")
+            if sha is not None and hashlib.sha256(raw).hexdigest()[:16] != sha:
+                raise AssertionError(f"CLI {argv}: the trace file is not the JAX CLI's")
+            got_last = recs[-1]
+            if "estimate_mae" in last and abs(got_last["estimate_mae"] - last["estimate_mae"]) > (
+                    1e-4 * abs(last["estimate_mae"]) + 1e-7):
+                raise AssertionError(f"CLI {argv}: last record {got_last} != JAX {last}")
+    print(f"  {len(TELE_CLIS)} CLI runs with --trace-convergence: the records' counts equal "
+          f"the JAX CLI's trace, the gossip file byte for byte ({time.perf_counter() - t0:.1f} "
+          f"s)", flush=True)
+    return launches
+
+
+def tele_phase(dev, key):
+    """Phase 14p: tele_checks, clip_sentinel_checks, then tele_path.
+    Returns (cases, max_err, launches)."""
+    cases, max_err = tele_checks(dev, key)
+    cs_cases, cs_err = clip_sentinel_checks(dev, key)
+    cases.update(cs_cases)
+    max_err.update(cs_err)
+    return cases, max_err, tele_path(dev)
+
+
+# The kernels line's rows of phase 14p: (case, the main-path run whose
+# launches the row reports, the row's name, the JAX site it replaces).
+TELE_ROWS = (
+    (("scatter", "full", "pushsum"), "scatter push-sum telemetry",
+     "pushsum_scatter_chunk telemetry full", "ops/telemetry.py:117"),
+    (("scatter", "full", "gossip"), "scatter gossip telemetry",
+     "gossip_scatter_chunk telemetry full", "ops/telemetry.py:117"),
+    (("pool", "full", "pushsum"), "pool push-sum telemetry",
+     "pushsum_pool_chunk telemetry full", "ops/fused_pool.py:860"),
+    (("pool", "full", "gossip"), "pool gossip telemetry",
+     "gossip_pool_chunk telemetry full", "ops/fused_pool.py:1157"),
+    (("stencil", "grid2d", "pushsum"), "stencil push-sum telemetry",
+     "pushsum_chunk telemetry grid2d", "ops/fused.py:741"),
+    (("stencil", "grid2d", "gossip"), "stencil gossip telemetry",
+     "gossip_chunk telemetry grid2d", "ops/fused.py:993"),
+    (("scatter", "imp2d", "pushsum"), "scatter imp2d push-sum telemetry",
+     "pushsum_scatter_chunk telemetry imp2d", "ops/telemetry.py:117"),
+    ("clip", "scatter clip", "pushsum_scatter_chunk clip full", "models/pushsum.py:134"),
+    ("sentinel", "scatter sentinel", "pushsum_scatter_chunk sentinel full",
+     "models/pipeline.py:72"),
+)
+
+
+def tele_rows(cases, launches, max_err):
+    """Phase 14p's rows of the kernels line: each new instance over a
+    CHUNK-round chunk from its round-TELE_MID state by CUDA events, beside
+    the instance the run takes without it (telemetry off; clip: the faulted
+    instance under the same Byzantine model; the sentinel, timed on an
+    honest run's state so that it runs the whole chunk: the fault-free
+    instance) and, for telemetry, the faulted instance with no fault (the
+    instance the telemetry one extends), on the same state in the same
+    call, and the plain version. The bound counts what revive_rows counts
+    for the kernel, plus a telemetry chunk's partials written and read
+    (rounds x blocks x 40 bytes) and its rows; the sentinel's partials are a
+    few KB a round."""
+    rows = []
+    srcs = {"pool": "fused_pool.cu", "scatter": "scatter.cu", "stencil": "fused_resident.cu"}
+    for case_key, run_label, row_name, site in TELE_ROWS:
+        f = cases[case_key]
+        instance = case_key if isinstance(case_key, str) else "telemetry"
+        kernel = "scatter" if isinstance(case_key, str) else case_key[0]
+        name = "pushsum" if isinstance(case_key, str) else case_key[2]
+        tele = instance == "telemetry"
+        if instance == "sentinel":
+            f = f.timed
+        mid, st, _ = f.chunk(f.kern, f.init, 0, TELE_MID, tele)
+        ms, (_, st, _) = time_ms(lambda: f.chunk(f.kern, mid, TELE_MID, CHUNK, tele),
+                                 TIME_REPS)
+        if instance == "clip":
+            off = lambda: f.base.chunk(f.base.kern, mid, TELE_MID, CHUNK, False)  # noqa: E731
+        elif instance == "sentinel":
+            off = lambda: f.chunk(f.kern, mid, TELE_MID, CHUNK, False, None)  # noqa: E731
+        else:
+            off = lambda: f.chunk(f.kern, mid, TELE_MID, CHUNK, False)  # noqa: E731
+        off_ms, _ = time_ms(off, TIME_REPS)
+        faulted_ms = None
+        if tele:
+            faulted_ms, _ = time_ms(lambda: f.chunk(f.kern, mid, TELE_MID, CHUNK, False,
+                                                    f.faults or empty_faults()), TIME_REPS)
+        plain_ms, _ = time_ms(lambda: f.chunk(f.plain, mid, TELE_MID, CHUNK, tele), 1)
+        rounds = max(tele_ran(st, TELE_MID), 1)
+        algo = "push-sum" if name == "pushsum" else "gossip"
+        n, n_pad = f.n, mid[0].numel()
+        grid = f.grid(tele)
+        extra = (rounds * grid * 40 * 2 + CHUNK * 40) if tele else 0
+        if kernel == "pool":
+            state_bytes = 16 if name == "pushsum" else 12
+            moved = 2 * state_bytes * n_pad + 4 * n_pad + CHUNK * (16 + 4 * POOL + 4)
+            ops = rounds * (n_pad // 8 * OPS_PER_WORD + n_pad * ops_per_node(algo, POOL))
+        elif kernel == "scatter":
+            moved = rounds * n * (2 * SCATTER_STATE_BYTES[name] + 4)
+            ops = rounds * n * SCATTER_OPS[name]
+        else:
+            moved = STATE_BYTES[name] * n_pad + 4 * n_pad + CHUNK * 16
+            ops = rounds * n_pad * stencil_ops_per_node(algo, 4)
+        moved += extra
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        versus = "" if faulted_ms is None else (
+            f", {faulted_ms:.4f} in the faulted instance without telemetry "
+            f"({ms / faulted_ms:.3f}x)")
+        print(f"  {row_name} (n={n:,}): {ms:.4f} ms a {rounds}-round chunk against "
+              f"{off_ms:.4f} without it on the same state ({ms / off_ms:.3f}x){versus}, "
+              f"plain {plain_ms:.1f} ms, grid {grid}", flush=True)
+        err_key = (f"{name} {kernel} {case_key[1]}" if tele else instance)
+        rows.append({"name": row_name, "route": "cuda",
+                     "source": f"cop5615_gossip_protocol_tpu_torch/csrc/{srcs[kernel]}",
+                     "replaces": f"cop5615_gossip_protocol_tpu/{site}",
+                     "launches": launches[run_label],
+                     "max_abs_err": max_err[err_key],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "library_ms": None, "off_ms": off_ms, "on_over_off": ms / off_ms,
+                     "faulted_off_ms": faulted_ms,
+                     "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+                     "grid": grid, "config": instance, "status": "ported"})
     return rows
 
 
@@ -6542,9 +7193,10 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
         revive_cases, revive_err, revive_launches = phase("14n", revive_phase, dev, key,
                                                           cpu_revive)
         byz_cases, byz_err, byz_launches = phase("14o", byz_phase, dev, key)
+        tele_cases, tele_err, tele_launches = phase("14p", tele_phase, dev, key)
     except Exception as e:
         return fail(str(e))
-    t15 += time.perf_counter() - t14m  # and 14m-14o's
+    t15 += time.perf_counter() - t14m  # and 14m-14p's
     # Rows 15-16 in their global instances, and kernel A, rows 1-2 and rows
     # 5-6 in their revive instances, beside their other instances.
     try:
@@ -6552,6 +7204,7 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
                                   shard_global_err)
         rows += revive_rows(revive_cases, revive_launches, revive_err)
         rows += byz_rows(byz_cases, byz_launches, byz_err)
+        rows += tele_rows(tele_cases, tele_launches, tele_err)
     except (AssertionError, RuntimeError) as e:
         return fail(str(e))
     for row in rows:

@@ -14,6 +14,8 @@
         --crash-rate 0.01 --revive-rate 0.2 --rejoin fresh --quorum 0.9
     python -m cop5615_gossip_protocol_tpu_torch 256 full push-sum \\
         --delivery pool --byzantine-schedule 12:8 --robust-agg clip
+    python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum \\
+        --delivery pool --pool-size 2 --trace-convergence trace.jsonl
 
 runs on the GPU (``--platform cuda``, the default) or, when asked, on the
 CPU (``--platform cpu``). Flags keep the JAX CLI's names; a JAX CLI flag
@@ -38,7 +40,6 @@ UNPORTED_FLAGS = {
     "--halo-dma": "A10", "--distributed": "A10",
     "--coordinator": "A10", "--num-processes": "A10", "--process-id": "A10",
     "--replicas": "A9",
-    "--telemetry": "A6d", "--trace-convergence": "A6d",
     "--dup-rate": "A7b", "--delay-rounds": "A7b",
     "--stall-chunks": "A8", "--profile": "A8", "--metrics-dump": "A8",
     "--step-timing": "A8", "--events": "A8", "--checkpoint": "A8",
@@ -177,6 +178,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="on: the sharded composition's termination verdict is "
                    "read one super-step late, with exact rollback; off: after "
                    "every super-step. Rounds and state are identical either way")
+    p.add_argument("--telemetry", action="store_true",
+                   help="the telemetry plane (ops/telemetry.py): one counter "
+                   "row a round, written on the device by the chunked engine "
+                   "and the pool and whole-array lattice kernels and read "
+                   "with each chunk's status; the other fused tiers run the "
+                   "chunked engine (engine auto) or refuse (engine fused)")
+    p.add_argument("--trace-convergence", type=str, default=None,
+                   metavar="FILE",
+                   help="append the per-round convergence trajectory (rounds, "
+                   "converged/newly-converged counts, active count or "
+                   "estimate error) as JSONL, one fsynced batch a retired "
+                   "chunk; implies --telemetry")
     p.add_argument("--jsonl", type=str, default=None,
                    help="append the structured run record to this JSONL file")
     p.add_argument("--quiet", action="store_true",
@@ -252,6 +265,7 @@ def main(argv: Optional[list[str]] = None) -> int:
             mass_tolerance=args.mass_tolerance,
             quorum=args.quorum,
             termination=args.termination,
+            telemetry=args.telemetry or bool(args.trace_convergence),
         )
         for w in cfg.lint_warnings:
             print(f"Warning: {w}", file=sys.stderr)
@@ -260,7 +274,9 @@ def main(argv: Optional[list[str]] = None) -> int:
         topo = build_topology(kind, args.numNodes, seed=args.seed,
                               semantics=args.semantics)
         build_s = time.perf_counter() - t0
-        result = run(topo, cfg, device=device)
+        result = run(topo, cfg, device=device,
+                     on_telemetry=_trace_writer(args.trace_convergence,
+                                                cfg.algorithm))
     except (ValueError, NotImplementedError) as e:
         print(f"Invalid: {e}", file=sys.stderr)
         return 2
@@ -272,6 +288,35 @@ def main(argv: Optional[list[str]] = None) -> int:
     if args.jsonl:
         metrics.append_jsonl(args.jsonl, record)
     return 0 if result.converged else 1
+
+
+def _trace_writer(path: Optional[str], algorithm: str):
+    """The streaming ``--trace-convergence`` writer (None without a path):
+    each retired chunk's rows are appended as trace records in one fsynced
+    batch (metrics.append_jsonl_many), rounds already written skipped by a
+    high-water mark, so the file holds one record a round."""
+    if not path:
+        return None
+    from .ops import telemetry as telemetry_mod
+    from .utils import metrics
+
+    prev = {"conv": 0, "hi": 0}
+
+    def write(chunk_start, rows):
+        skip = prev["hi"] - chunk_start
+        if skip > 0:
+            if skip >= rows.shape[0]:
+                return  # the whole chunk was already written
+            rows = rows[skip:]
+            chunk_start += skip
+        recs = telemetry_mod.rows_to_trace_records(
+            rows, chunk_start, algorithm, prev_conv=prev["conv"])
+        if recs:
+            prev["conv"] = recs[-1]["converged_count"]
+        prev["hi"] = chunk_start + rows.shape[0]
+        metrics.append_jsonl_many(path, recs)
+
+    return write
 
 
 if __name__ == "__main__":

@@ -15,7 +15,8 @@ set the drop gate, crash-stop with quorum termination, crash-recovery and
 push-sum's global termination (ops/faults.py);
 ``byzantine_rate``/``byzantine_schedule`` with ``byzantine_mode``,
 ``robust_agg`` and ``mass_tolerance`` the Byzantine adversaries, robust
-aggregation and the health sentinel. Every other field keeps its default
+aggregation and the health sentinel; ``telemetry`` the per-round counter
+rows (ops/telemetry.py). Every other field keeps its default
 here, and setting it
 to anything else raises NotImplementedError naming the ROADMAP item that
 will port it.
@@ -57,7 +58,6 @@ _CLI_ALGORITHM_ALIASES = {
 # (field, default, ROADMAP item) for every field this slice does not port.
 _UNPORTED = (
     ("dtype", "float32", "A12"),
-    ("telemetry", False, "A6d"),
     ("dup_rate", 0.0, "A7b"),
     ("delay_rounds", 0, "A7b"),
     ("stall_chunks", 0, "A8"),
@@ -308,6 +308,17 @@ class SimConfig:
                     "program; reference-semantics push-sum is a single "
                     "random walk with no round body — use batched semantics"
                 )
+        if (
+            self.telemetry
+            and self.semantics == "reference"
+            and self.algorithm == "push-sum"
+        ):
+            raise ValueError(
+                "telemetry accumulates per-ROUND counters inside the "
+                "synchronous chunk program; reference-semantics push-sum is "
+                "a single random walk (one message in flight) with no round "
+                "structure to trace — use batched semantics"
+            )
         if self.semantics == "reference" and (
             self.crash_model or self.byzantine_model
             or self.robust_agg != "none"

@@ -109,6 +109,17 @@
 // word and its next mark is written; a dead node's conv stays. The faulted
 // push-sum instance flushes as the plain round does (csrc/chunk.cuh).
 //
+// Telemetry (the JAX kernels' counter block, ops/fused_pool.py:544-567,
+// :738-790): a template flag T, with F, picks each round kernel's telemetry
+// instance. Its threads add up the row's counts and sums over their nodes
+// from the state each node's absorb has just written (after the global
+// latch's verdict: the reduce counts every real node converged in the round
+// that ended the chunk), each block writes its partials of the round before
+// the round's barrier, and a fourth launch after finish sums them into the
+// rows (csrc/telemetry.cuh; the estimate error reads w = 0 as 1 and the
+// mass is the padded plane's Σw less n_pad, as the JAX row does). The
+// drop count regenerates the round's gate words, as the JAX row does.
+//
 // Numerics: built without fast math, with -fmad=false and denormals kept
 // (utils/kernels.py), and the slot sums run from 0.0 in ascending slot
 // order, so push-sum is bitwise the plain version.
@@ -119,6 +130,7 @@
 #include "chunk.cuh"
 #include "persistent.cuh"
 #include "pool.cuh"
+#include "telemetry.cuh"
 
 namespace {
 
@@ -150,6 +162,8 @@ struct PushSumChunk {
   unsigned long long* words;  // the barrier words: rounds, then the prologue's
   int* ctrl;
   Faults f;
+  int* tele;    // [rounds, grid, kPartials]: the telemetry partials (T)
+  float tmean;  // push-sum's true mean (T)
 };
 
 struct GossipChunk {
@@ -162,6 +176,7 @@ struct GossipChunk {
   unsigned long long* words;
   int* ctrl;
   Faults f;
+  int* tele;  // (T)
 };
 
 // Nodes of a thread's walk whose loads (own state and slot gathers) are
@@ -216,9 +231,11 @@ __device__ __forceinline__ void prologue_marks(int8_t* mark,
 // term and conv are left alone, the barrier word counts the real nodes
 // whose ratio moved more than the global rule allows, and the round where
 // none did latches conv on every real node. F = false is the fault-free
-// kernel, with none of these loads or tests.
-template <int P, bool F>
+// kernel, with none of these loads or tests. T (with F): the telemetry
+// rows' partials of each round (see the header).
+template <int P, bool F, bool T = false>
 __global__ void pushsum_rounds(PushSumChunk c) {
+  static_assert(F || !T, "the telemetry instance is a faulted instance");
   // The init launch's verdict: every block reads the same value.
   if (c.ctrl[0] || c.rounds == 0) return;
   prologue_marks<P, F>(c.mark, nullptr, c.keys, c.f, c.n, c.n_pad);
@@ -241,6 +258,11 @@ __global__ void pushsum_rounds(PushSumChunk c) {
     const uint32_t k1 = next ? (uint32_t)c.keys[2 * r + 3] : 0u;
     uint32_t g1, g2;
     round_gate_key<F>(c.f, k0, k1, g1, g2);
+    uint32_t rg1 = 0u, rg2 = 0u;  // this round's gate key (T)
+    if constexpr (T)
+      round_gate_key<F>(c.f, (uint32_t)c.keys[2 * r], (uint32_t)c.keys[2 * r + 1],
+                        rg1, rg2);
+    gossip::tele::Acc acc;  // the round's sums over the thread's nodes (T)
     int count = 0;
     for (int wi = blockIdx.x * kBlock + threadIdx.x; wi < c.n_pad / kChoicePack;
          wi += gridDim.x * kBlock) {
@@ -320,10 +342,32 @@ __global__ void pushsum_rounds(PushSumChunk c) {
                                       c.f, r + 1, g1, g2, j),
                   c.f.byz, j, c.f.start + r + 1);
             count += alive ? cv : 0;
+            if constexpr (T) {
+              // The row of the node's new state: under global termination
+              // its conv stays until the latch.
+              namespace tl = gossip::tele;  // this file has a kConv and kActive of its own
+              const int round = c.f.start + r;
+              const int conv_now = global ? c_old[h] : cv;
+              acc.i[tl::kConv] += conv_now;
+              acc.i[tl::kLive] += alive;
+              acc.i[tl::kConvAlive] += alive ? conv_now : 0;
+              acc.i[tl::kDrops] += c.f.thresh != 0u && !pad && alive &&
+                               !gossip::gate_open(rg1, rg2, c.f.thresh, j);
+              acc.i[tl::kRevived] += c.f.revive != nullptr && c.f.revive[j] == round;
+              acc.i[tl::kByz] += gossip::byzantine_in(c.f.byz, j, round);
+              if (conv_now) acc.add(tl::kErr, tl::pool_err(s_new, w_new, c.tmean));
+              acc.add(tl::kW, w_new);
+              if (global)
+                acc.add(tl::kErrAll, pad ? 0.0f : tl::pool_err(s_new, w_new, c.tmean));
+            }
           }
         }
       }
     }
+    if constexpr (T)
+      gossip::tele::block_partials<kBlock>(
+          acc, c.tele + ((size_t)r * gridDim.x + blockIdx.x) *
+                            gossip::tele::kPartials);
     if constexpr (!F) {
       done = round_barrier(c.words + r, block_sum(count)) >= c.target;
     } else {
@@ -389,9 +433,11 @@ __global__ void gossip_init(GossipChunk c, const int* __restrict__ n0,
 // planes moved 12.
 // F: the failure model, as in pushsum_rounds: blocked and dead nodes mark
 // -1, a dead node's inbox counts nothing (its count and active flag stay),
-// and the verdict is the quorum need among the live nodes.
-template <int P, bool F>
+// and the verdict is the quorum need among the live nodes. T (with F): the
+// telemetry rows' partials of each round.
+template <int P, bool F, bool T = false>
 __global__ void gossip_rounds(GossipChunk c) {
+  static_assert(F || !T, "the telemetry instance is a faulted instance");
   if (c.ctrl[0] || c.rounds == 0) return;
   prologue_marks<P, F>(c.mark, c.flags, c.keys, c.f, c.n, c.n_pad);
   round_barrier(c.words + c.rounds, 0);
@@ -407,6 +453,11 @@ __global__ void gossip_rounds(GossipChunk c) {
     const uint32_t k1 = next ? (uint32_t)c.keys[2 * r + 3] : 0u;
     uint32_t g1, g2;
     round_gate_key<F>(c.f, k0, k1, g1, g2);
+    uint32_t rg1 = 0u, rg2 = 0u;  // this round's gate key (T)
+    if constexpr (T)
+      round_gate_key<F>(c.f, (uint32_t)c.keys[2 * r], (uint32_t)c.keys[2 * r + 1],
+                        rg1, rg2);
+    gossip::tele::Acc acc;  // (T)
     int count = 0;
     for (int wi = blockIdx.x * kBlock + threadIdx.x; wi < c.n_pad / kChoicePack;
          wi += gridDim.x * kBlock) {
@@ -465,10 +516,26 @@ __global__ void gossip_rounds(GossipChunk c) {
               next[j] = gossip::rejoin_mark(pool_mark(word, j, c.n, P), act, true, c.f,
                                   r + 1, g1, g2, j);
             count += alive ? cv : 0;
+            if constexpr (T) {
+              namespace tl = gossip::tele;  // this file has a kConv and kActive of its own
+              const int round = c.f.start + r;
+              acc.i[tl::kConv] += cv;
+              acc.i[tl::kLive] += alive;
+              acc.i[tl::kConvAlive] += alive ? cv : 0;
+              acc.i[tl::kActive] += act;
+              acc.i[tl::kDrops] += c.f.thresh != 0u && j < c.n && alive &&
+                               !gossip::gate_open(rg1, rg2, c.f.thresh, j);
+              acc.i[tl::kRevived] += c.f.revive != nullptr && c.f.revive[j] == round;
+              acc.i[tl::kByz] += gossip::byzantine_in(c.f.byz, j, round);
+            }
           }
         }
       }
     }
+    if constexpr (T)
+      gossip::tele::block_partials<kBlock>(
+          acc, c.tele + ((size_t)r * gridDim.x + blockIdx.x) *
+                            gossip::tele::kPartials);
     if constexpr (!F) {
       done = round_barrier(c.words + r, block_sum(count)) >= c.target;
     } else {
@@ -494,26 +561,41 @@ __global__ void gossip_finish(GossipChunk c) {
   }
 }
 
-// The persistent grid of each kernel instance, asked once a device: one
-// cache a pool width (2, 4, 8, 16).
-int pushsum_grid_cache[2][4][64];
-int gossip_grid_cache[2][4][64];
+// The persistent grid of each kernel instance (fault-free, faulted,
+// telemetry), asked once a device: one cache a pool width (2, 4, 8, 16).
+int pushsum_grid_cache[3][4][64];
+int gossip_grid_cache[3][4][64];
 
 constexpr int width_index(int pool_size) {
   return pool_size == 2 ? 0 : pool_size == 4 ? 1 : pool_size == 8 ? 2 : 3;
 }
 
+// The telemetry instance's reduce of a chunk's rows (`rows`, float32
+// [rounds, 10]) from its partials, after finish.
+cudaError_t queue_rows(const int* tele, const int* ctrl, float* rows, int grid,
+                       int rounds, int n, int target, const Faults& f,
+                       int n_pad, bool pushsum, cudaStream_t stream) {
+  const gossip::tele::RowArgs a{tele, ctrl, rows, grid, rounds, n, target,
+                                f.death ? f.needs : nullptr, n_pad,
+                                pushsum ? 1 : 0, pushsum ? f.global : 0};
+  return gossip::tele::queue_rows(a, stream);
+}
+
 // Queues a push-sum chunk at pool width P: init, the persistent launch,
-// finish, all three on the persistent grid.
-template <int P, bool F>
+// finish, all three on the persistent grid, and under T the reduce of the
+// rows. A telemetry instance's grid must be the one its scratch was sized
+// for (`want`, from gossip_pool_grid).
+template <int P, bool F, bool T = false>
 cudaError_t queue_pushsum(PushSumChunk c, const float* s0, const float* w0,
                           const int* t0, const int* c0, int need_init,
-                          int device, cudaStream_t stream) {
+                          int device, cudaStream_t stream, float* rows = nullptr,
+                          int want = 0) {
   int grid = 0;
   cudaError_t err = cooperative_grid(
-      pushsum_rounds<P, F>, c.n_pad / kChoicePack, device,
-      pushsum_grid_cache[F ? 1 : 0][width_index(P)], &grid);
+      pushsum_rounds<P, F, T>, c.n_pad / kChoicePack, device,
+      pushsum_grid_cache[T ? 2 : F ? 1 : 0][width_index(P)], &grid);
   if (err != cudaSuccess) return err;
+  if (T && grid != want) return cudaErrorInvalidValue;
   int* init_words = (int*)(c.words + c.rounds + 1);
   if (F && c.f.death != nullptr)
     gossip::pushsum_init_live<<<grid, kBlock, 0, stream>>>(
@@ -527,22 +609,27 @@ cudaError_t queue_pushsum(PushSumChunk c, const float* s0, const float* w0,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   void* args[] = {&c};
-  err = cudaLaunchCooperativeKernel((const void*)pushsum_rounds<P, F>, grid,
+  err = cudaLaunchCooperativeKernel((const void*)pushsum_rounds<P, F, T>, grid,
                                     kBlock, args, 0, stream);
   if (err != cudaSuccess) return err;
   pushsum_finish<<<grid, kBlock, 0, stream>>>(c);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (!T || err != cudaSuccess) return err;
+  return queue_rows(c.tele, c.ctrl, rows, grid, c.rounds, c.n, c.target, c.f,
+                    c.n_pad, true, stream);
 }
 
-template <int P, bool F>
+template <int P, bool F, bool T = false>
 cudaError_t queue_gossip(GossipChunk c, const int* n0, const int* a0,
                          const int* c0, int need_init, int device,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, float* rows = nullptr,
+                         int want = 0) {
   int grid = 0;
   cudaError_t err = cooperative_grid(
-      gossip_rounds<P, F>, c.n_pad / kChoicePack, device,
-      gossip_grid_cache[F ? 1 : 0][width_index(P)], &grid);
+      gossip_rounds<P, F, T>, c.n_pad / kChoicePack, device,
+      gossip_grid_cache[T ? 2 : F ? 1 : 0][width_index(P)], &grid);
   if (err != cudaSuccess) return err;
+  if (T && grid != want) return cudaErrorInvalidValue;
   int* init_words = (int*)(c.words + c.rounds + 1);
   const bool crash = F && c.f.death != nullptr;
   gossip_init<<<grid, kBlock, 0, stream>>>(
@@ -551,24 +638,29 @@ cudaError_t queue_gossip(GossipChunk c, const int* n0, const int* a0,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   void* args[] = {&c};
-  err = cudaLaunchCooperativeKernel((const void*)gossip_rounds<P, F>, grid,
+  err = cudaLaunchCooperativeKernel((const void*)gossip_rounds<P, F, T>, grid,
                                     kBlock, args, 0, stream);
   if (err != cudaSuccess) return err;
   gossip_finish<<<grid, kBlock, 0, stream>>>(c);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (!T || err != cudaSuccess) return err;
+  return queue_rows(c.tele, c.ctrl, rows, grid, c.rounds, c.n, c.target, c.f,
+                    c.n_pad, false, stream);
 }
 
-// The instance of a queue function for pool width P and the failure model.
-#define GOSSIP_POOL_DISPATCH(fn, faulted, ...)                            \
+// The instance of a queue function for pool width P, the failure model and
+// telemetry (which runs with the faulted instance).
+#define GOSSIP_POOL_CASE(W, fn, faulted, tele, ...)                       \
+  case W:                                                                 \
+    return (int)(tele      ? fn<W, true, true>(__VA_ARGS__)               \
+                 : faulted ? fn<W, true, false>(__VA_ARGS__)              \
+                           : fn<W, false, false>(__VA_ARGS__));
+#define GOSSIP_POOL_DISPATCH(fn, faulted, tele, ...)                      \
   switch (pool_size) {                                                    \
-    case 2: return (int)(faulted ? fn<2, true>(__VA_ARGS__)               \
-                                 : fn<2, false>(__VA_ARGS__));            \
-    case 4: return (int)(faulted ? fn<4, true>(__VA_ARGS__)               \
-                                 : fn<4, false>(__VA_ARGS__));            \
-    case 8: return (int)(faulted ? fn<8, true>(__VA_ARGS__)               \
-                                 : fn<8, false>(__VA_ARGS__));            \
-    default: return (int)(faulted ? fn<16, true>(__VA_ARGS__)             \
-                                  : fn<16, false>(__VA_ARGS__));          \
+    GOSSIP_POOL_CASE(2, fn, faulted, tele, __VA_ARGS__)                   \
+    GOSSIP_POOL_CASE(4, fn, faulted, tele, __VA_ARGS__)                   \
+    GOSSIP_POOL_CASE(8, fn, faulted, tele, __VA_ARGS__)                   \
+    default: GOSSIP_POOL_CASE(16, fn, faulted, tele, __VA_ARGS__)         \
   }
 
 bool valid_chunk(int n, int n_pad, int pool_size, int rounds) {
@@ -597,7 +689,11 @@ bool valid_chunk(int n, int n_pad, int pool_size, int rounds) {
 // prologue's) and the init launch's total and ticket (int32 each); ctrl
 // must be 8-byte aligned. byz is the int32 [n_pad] Byzantine onset plane
 // (pad lanes never; null: no adversary) and byz_mode its mode
-// (csrc/faults.cuh), both read by the faulted instance only.
+// (csrc/faults.cuh), both read by the faulted instance only. tele (int32
+// [rounds, tele_grid, 10] of scratch; null: no telemetry) picks the
+// telemetry instance, with faulted set and tele_grid the grid
+// gossip_pool_grid gives it; its reduce writes the rows' [rounds, 10]
+// float32 into rows, as a fourth launch; tmean is push-sum's true mean.
 
 extern "C" int gossip_pushsum_pool_chunk(
     const float* s0, const float* w0, const int* t0, const int* c0, float* s,
@@ -606,8 +702,9 @@ extern "C" int gossip_pushsum_pool_chunk(
     int pool_size, int rounds, float delta, int term_rounds, int target,
     int faulted, unsigned thresh, const int* death, const int* needs,
     int need_init, int start, const int* revive, int reset, int init_term,
-    int global, const int* byz, int byz_mode, int device, void* stream_ptr) {
-  if (!valid_chunk(n, n_pad, pool_size, rounds))
+    int global, const int* byz, int byz_mode, int* tele, float* rows,
+    int tele_grid, float tmean, int device, void* stream_ptr) {
+  if (!valid_chunk(n, n_pad, pool_size, rounds) || (tele && !faulted))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -620,9 +717,10 @@ extern "C" int gossip_pushsum_pool_chunk(
                        term_rounds, target,
                        (unsigned long long*)(ctrl + 2), ctrl,
                        Faults{thresh, death, needs, start, global, revive,
-                              reset, init_term, byz, byz_mode}};
-  GOSSIP_POOL_DISPATCH(queue_pushsum, faulted, c, s0, w0, t0, c0, need_init,
-                       device, stream)
+                              reset, init_term, byz, byz_mode},
+                       tele, tmean};
+  GOSSIP_POOL_DISPATCH(queue_pushsum, faulted, tele != nullptr, c, s0, w0, t0,
+                       c0, need_init, device, stream, rows, tele_grid)
 }
 
 extern "C" int gossip_gossip_pool_chunk(
@@ -632,8 +730,10 @@ extern "C" int gossip_gossip_pool_chunk(
     int pool_size, int rounds, int rumor_target, int suppress, int target,
     int faulted, unsigned thresh, const int* death, const int* needs,
     int need_init, int start, const int* revive, int reset, const int* byz,
-    int byz_mode, int device, void* stream_ptr) {
-  if (!valid_chunk(n, n_pad, pool_size, rounds))
+    int byz_mode, int* tele, float* rows, int tele_grid, float tmean,
+    int device, void* stream_ptr) {
+  (void)tmean;  // gossip rows carry no estimate
+  if (!valid_chunk(n, n_pad, pool_size, rounds) || (tele && !faulted))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -645,7 +745,36 @@ extern "C" int gossip_gossip_pool_chunk(
                       offs, n, n_pad, rounds, rumor_target, suppress, target,
                       (unsigned long long*)(ctrl + 2), ctrl,
                       Faults{thresh, death, needs, start, 0, revive, reset, 0,
-                             byz, byz_mode}};
-  GOSSIP_POOL_DISPATCH(queue_gossip, faulted, c, n0, a0, c0, need_init, device,
-                       stream)
+                             byz, byz_mode},
+                      tele};
+  GOSSIP_POOL_DISPATCH(queue_gossip, faulted, tele != nullptr, c, n0, a0, c0,
+                       need_init, device, stream, rows, tele_grid)
+}
+
+// The grid of the telemetry instance's persistent launch (push-sum or
+// gossip) at pool width pool_size on an n_pad layout: the blocks whose
+// partials a chunk's scratch holds. Returns the grid, or minus a
+// cudaError_t.
+extern "C" int gossip_pool_grid(int pushsum, int pool_size, int n_pad,
+                                int device) {
+  if (!valid_chunk(2, n_pad, pool_size, 0)) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  int grid = 0;
+  const int work = n_pad / kChoicePack, w = width_index(pool_size);
+#define GOSSIP_POOL_GRID(W)                                                  \
+  case W:                                                                    \
+    err = pushsum ? cooperative_grid(pushsum_rounds<W, true, true>, work,     \
+                                     device, pushsum_grid_cache[2][w], &grid) \
+                  : cooperative_grid(gossip_rounds<W, true, true>, work,      \
+                                     device, gossip_grid_cache[2][w], &grid); \
+    break;
+  switch (pool_size) {
+    GOSSIP_POOL_GRID(2)
+    GOSSIP_POOL_GRID(4)
+    GOSSIP_POOL_GRID(8)
+    default: GOSSIP_POOL_GRID(16)
+  }
+#undef GOSSIP_POOL_GRID
+  return err == cudaSuccess ? grid : -(int)err;
 }

@@ -110,6 +110,16 @@
 // by the thread that owns it, so no pass is split and no block leaves the
 // loop alone.
 //
+// Telemetry (the JAX whole-array kernels' counter block, ops/fused.py:
+// 447-490, :612-664): a template flag T, with F, picks each round kernel's
+// telemetry instance, as in csrc/fused_pool.cu: each block writes its
+// partial counts and sums of the round's new state before the round's
+// barrier, and a fourth launch sums them into the rows (csrc/telemetry.cuh;
+// the estimate error is s / w as the JAX stencil row takes it, and the mass
+// the padded plane's Σw less n_pad). Only the whole-array tier (rows 5-6)
+// runs it; the tiled tier (rows 7-8) demotes, as the JAX ladder demotes
+// stencil2.
+//
 // Numerics: built without fast math, with -fmad=false and denormals kept;
 // the halve happens before the class sums, and the sums run from 0.0 in
 // ascending class order, as the chunked engine's halve_and_send and
@@ -122,6 +132,7 @@
 #include "persistent.cuh"
 #include "shard.cuh"
 #include "stencil.cuh"
+#include "telemetry.cuh"
 
 namespace {
 
@@ -162,14 +173,17 @@ __device__ __forceinline__ void prologue_marks(int8_t* mark, const int* active,
 // ---------------------------------------------------------------- push-sum
 
 // F: the failure model (see the header). F = false is the fault-free
-// kernel, with none of its loads or tests.
-template <bool F>
+// kernel, with none of its loads or tests. T (with F): the telemetry rows'
+// partials of each round, into tele ([rounds, grid, kPartials]).
+template <bool F, bool T = false>
 __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
                                const long long* keys,
                                const int* __restrict__ dirs, Classes cls,
                                int n, int n_pad, int rounds, float delta,
                                int term_rounds, int target,
-                               unsigned long long* words, int* ctrl, Faults f) {
+                               unsigned long long* words, int* ctrl, Faults f,
+                               int* tele, float tmean) {
+  static_assert(F || !T, "the telemetry instance is a faulted instance");
   // The init launch's verdict: every block reads the same value.
   if (ctrl[0] || rounds == 0) return;
   prologue_marks<F>(mark, nullptr, dirs, keys, f, n_pad);
@@ -187,6 +201,11 @@ __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
     const uint32_t k1 = next ? (uint32_t)keys[2 * r + 3] : 0u;
     uint32_t g1, g2;
     round_gate_key<F>(f, k0, k1, g1, g2);
+    uint32_t rg1 = 0u, rg2 = 0u;  // this round's gate key (T)
+    if constexpr (T)
+      round_gate_key<F>(f, (uint32_t)keys[2 * r], (uint32_t)keys[2 * r + 1],
+                        rg1, rg2);
+    gossip::tele::Acc acc;  // the round's sums over the thread's nodes (T)
     int c = 0;
     for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
          j += gridDim.x * kBlock) {
@@ -236,8 +255,29 @@ __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
                                   f, r + 1, g1, g2, j),
               f.byz, j, f.start + r + 1);
         c += alive ? cv : 0;
+        if constexpr (T) {
+          // The row of the node's new state: under global termination its
+          // conv stays until the latch.
+          using namespace gossip::tele;
+          const int round = f.start + r;
+          const int conv_now = global ? c_old : cv;
+          acc.i[kConv] += conv_now;
+          acc.i[kLive] += alive;
+          acc.i[kConvAlive] += alive ? conv_now : 0;
+          acc.i[kDrops] += f.thresh != 0u && !pad && alive &&
+                           !gossip::gate_open(rg1, rg2, f.thresh, j);
+          acc.i[kRevived] += f.revive != nullptr && f.revive[j] == round;
+          acc.i[kByz] += gossip::byzantine_in(f.byz, j, round);
+          if (conv_now) acc.add(kErr, stencil_err(s_new, w_new, tmean));
+          acc.add(kW, w_new);
+          if (global) acc.add(kErrAll, pad ? 0.0f : stencil_err(s_new, w_new, tmean));
+        }
       }
     }
+    if constexpr (T)
+      gossip::tele::block_partials<kBlock>(
+          acc, tele + ((size_t)r * gridDim.x + blockIdx.x) *
+                          gossip::tele::kPartials);
     if constexpr (!F) {
       done = round_barrier(words + r, block_sum(c)) >= target;
     } else {
@@ -265,14 +305,17 @@ __global__ void pushsum_rounds(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
 
 // F: the failure model, as in pushsum_rounds: blocked and dead nodes mark
 // -1, a dead node's inbox counts nothing (its count, active and conv
-// stay), and the verdict is the quorum need among the live nodes.
-template <bool F>
+// stay), and the verdict is the quorum need among the live nodes. T (with
+// F): the telemetry rows' partials, as in pushsum_rounds.
+template <bool F, bool T = false>
 __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
                               const long long* keys,
                               const int* __restrict__ dirs, Classes cls, int n,
                               int n_pad, int rounds, int rumor_target,
                               int suppress, int target,
-                              unsigned long long* words, int* ctrl, Faults f) {
+                              unsigned long long* words, int* ctrl, Faults f,
+                              int* tele) {
+  static_assert(F || !T, "the telemetry instance is a faulted instance");
   if (ctrl[0] || rounds == 0) return;
   prologue_marks<F>(mark, a.active, dirs, keys, f, n_pad);
   round_barrier(words + rounds, 0);
@@ -288,6 +331,11 @@ __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
     const uint32_t k1 = next ? (uint32_t)keys[2 * r + 3] : 0u;
     uint32_t g1, g2;
     round_gate_key<F>(f, k0, k1, g1, g2);
+    uint32_t rg1 = 0u, rg2 = 0u;  // this round's gate key (T)
+    if constexpr (T)
+      round_gate_key<F>(f, (uint32_t)keys[2 * r], (uint32_t)keys[2 * r + 1],
+                        rg1, rg2);
+    gossip::tele::Acc acc;  // (T)
     int c = 0;
     for (int j = blockIdx.x * kBlock + threadIdx.x; j < n_pad;
          j += gridDim.x * kBlock) {
@@ -322,7 +370,23 @@ __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
           next[j] = act ? word_mark(dirs[j], k0, k1, j) : (int8_t)-1;
       }
       c += alive ? cv : 0;
+      if constexpr (T) {
+        using namespace gossip::tele;
+        const int round = f.start + r;
+        acc.i[kConv] += cv;
+        acc.i[kLive] += alive;
+        acc.i[kConvAlive] += alive ? cv : 0;
+        acc.i[kActive] += act;
+        acc.i[kDrops] += f.thresh != 0u && !pad && alive &&
+                         !gossip::gate_open(rg1, rg2, f.thresh, j);
+        acc.i[kRevived] += f.revive != nullptr && f.revive[j] == round;
+        acc.i[kByz] += gossip::byzantine_in(f.byz, j, round);
+      }
     }
+    if constexpr (T)
+      gossip::tele::block_partials<kBlock>(
+          acc, tele + ((size_t)r * gridDim.x + blockIdx.x) *
+                          gossip::tele::kPartials);
     if constexpr (!F) {
       done = round_barrier(words + r, block_sum(c)) >= target;
     } else {
@@ -337,24 +401,45 @@ __global__ void gossip_rounds(GossipPlanes a, GossipPlanes b, int8_t* mark,
   }
 }
 
-// The persistent grid of each kernel instance, asked once a device.
-int pushsum_grid_cache[2][64];
-int gossip_grid_cache[2][64];
+// The persistent grid of each kernel instance (fault-free, faulted,
+// telemetry), asked once a device.
+int pushsum_grid_cache[3][64];
+int gossip_grid_cache[3][64];
+
+// What a telemetry chunk's reduce needs beyond the chunk's own arguments.
+struct Tele {
+  int* part;    // [rounds, grid, kPartials]; null: no telemetry
+  float* rows;  // [rounds, 10]
+  int grid;     // the grid the scratch was sized for (gossip_resident_grid)
+  float tmean;
+};
+
+// The reduce of a telemetry chunk's rows, after finish.
+cudaError_t queue_rows(const Tele& t, const int* ctrl, int rounds, int n,
+                       int target, const Faults& f, int n_pad, bool pushsum,
+                       cudaStream_t stream) {
+  const gossip::tele::RowArgs a{t.part, ctrl, t.rows, t.grid, rounds, n, target,
+                                f.death ? f.needs : nullptr, n_pad,
+                                pushsum ? 1 : 0, pushsum ? f.global : 0};
+  return gossip::tele::queue_rows(a, stream);
+}
 
 // Queues a push-sum chunk: init (the crash model's live seed verdict under
-// F with a death plane), the persistent launch, finish, all on its grid.
-template <bool F>
+// F with a death plane), the persistent launch, finish, all on its grid,
+// and under T the reduce of the rows.
+template <bool F, bool T = false>
 cudaError_t queue_pushsum(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
                           const long long* keys, const int* dirs, Classes cls,
                           int n, int n_pad, int rounds, float delta,
                           int term_rounds, int target, unsigned long long* words,
                           int* ctrl, Faults f, const float* s0, const float* w0,
                           const int* t0, const int* c0, int need_init,
-                          int device, cudaStream_t stream) {
+                          int device, cudaStream_t stream, Tele t) {
   int grid = 0;
-  cudaError_t err = cooperative_grid(pushsum_rounds<F>, n_pad, device,
-                                     pushsum_grid_cache[F ? 1 : 0], &grid);
+  cudaError_t err = cooperative_grid(pushsum_rounds<F, T>, n_pad, device,
+                                     pushsum_grid_cache[T ? 2 : F ? 1 : 0], &grid);
   if (err != cudaSuccess) return err;
+  if (T && grid != t.grid) return cudaErrorInvalidValue;
   int* init_words = (int*)(words + rounds + 1);
   if (F && f.death != nullptr)
     gossip::pushsum_init_live<<<grid, kBlock, 0, stream>>>(
@@ -368,26 +453,30 @@ cudaError_t queue_pushsum(PushSumPlanes a, PushSumPlanes b, int8_t* mark,
   if (err != cudaSuccess) return err;
   void* args[] = {&a,      &b,     &mark,        &keys,   &dirs,
                   &cls,    &n,     &n_pad,       &rounds, &delta,
-                  &term_rounds,    &target,      &words,  &ctrl, &f};
-  err = cudaLaunchCooperativeKernel((const void*)pushsum_rounds<F>, grid,
+                  &term_rounds,    &target,      &words,  &ctrl, &f,
+                  &t.part, &t.tmean};
+  err = cudaLaunchCooperativeKernel((const void*)pushsum_rounds<F, T>, grid,
                                     kBlock, args, 0, stream);
   if (err != cudaSuccess) return err;
   gossip::pushsum_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (!T || err != cudaSuccess) return err;
+  return queue_rows(t, ctrl, rounds, n, target, f, n_pad, true, stream);
 }
 
-template <bool F>
+template <bool F, bool T = false>
 cudaError_t queue_gossip(GossipPlanes a, GossipPlanes b, int8_t* mark,
                          const long long* keys, const int* dirs, Classes cls,
                          int n, int n_pad, int rounds, int rumor_target,
                          int suppress, int target, unsigned long long* words,
                          int* ctrl, Faults f, const int* n0, const int* a0,
                          const int* c0, int need_init, int device,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, Tele t) {
   int grid = 0;
-  cudaError_t err = cooperative_grid(gossip_rounds<F>, n_pad, device,
-                                     gossip_grid_cache[F ? 1 : 0], &grid);
+  cudaError_t err = cooperative_grid(gossip_rounds<F, T>, n_pad, device,
+                                     gossip_grid_cache[T ? 2 : F ? 1 : 0], &grid);
   if (err != cudaSuccess) return err;
+  if (T && grid != t.grid) return cudaErrorInvalidValue;
   int* init_words = (int*)(words + rounds + 1);
   if (F && f.death != nullptr)
     gossip::gossip_init_live<<<grid, kBlock, 0, stream>>>(
@@ -401,12 +490,15 @@ cudaError_t queue_gossip(GossipPlanes a, GossipPlanes b, int8_t* mark,
   if (err != cudaSuccess) return err;
   void* args[] = {&a,      &b,       &mark,         &keys,    &dirs,
                   &cls,    &n,       &n_pad,        &rounds,  &rumor_target,
-                  &suppress,         &target,       &words,   &ctrl, &f};
-  err = cudaLaunchCooperativeKernel((const void*)gossip_rounds<F>, grid,
+                  &suppress,         &target,       &words,   &ctrl, &f,
+                  &t.part};
+  err = cudaLaunchCooperativeKernel((const void*)gossip_rounds<F, T>, grid,
                                     kBlock, args, 0, stream);
   if (err != cudaSuccess) return err;
   gossip::gossip_finish<<<grid, kBlock, 0, stream>>>(a, b, n_pad, ctrl);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (!T || err != cudaSuccess) return err;
+  return queue_rows(t, ctrl, rounds, n, target, f, n_pad, false, stream);
 }
 
 }  // namespace
@@ -435,6 +527,10 @@ cudaError_t queue_gossip(GossipPlanes a, GossipPlanes b, int8_t* mark,
 // recovery model), whether a revived node resets, (push-sum) the initial
 // term and global termination, and the Byzantine onset plane int32[n_pad]
 // (pad lanes never; null: no adversary) with its mode (csrc/faults.cuh).
+// tele (int32 [rounds, tele_grid, 10] of scratch; null: no telemetry) picks
+// the telemetry instance, with faulted set and tele_grid the grid
+// gossip_resident_grid gives it; its reduce writes the rows' [rounds, 10]
+// float32 into rows, as a fourth launch; tmean is push-sum's true mean.
 
 extern "C" int gossip_pushsum_resident_chunk(
     const float* s0, const float* w0, const int* t0, const int* c0, float* s,
@@ -444,11 +540,11 @@ extern "C" int gossip_pushsum_resident_chunk(
     int extra_node, int n_pad, int rounds, float delta, int term_rounds,
     int target, int faulted, unsigned thresh, const int* death,
     const int* needs, int need_init, int start, const int* revive, int reset,
-    int init_term, int global, const int* byz, int byz_mode, int device,
-    void* stream_ptr) {
+    int init_term, int global, const int* byz, int byz_mode, int* tele,
+    float* rows, int tele_grid, float tmean, int device, void* stream_ptr) {
   gossip::Lattice L;
   Classes cls;
-  if (rounds < 0 ||
+  if (rounds < 0 || (tele && !faulted) ||
       !gossip::setup_lattice(kind, n, extra_node, classes, n_classes, &L, &cls))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -462,15 +558,20 @@ extern "C" int gossip_pushsum_resident_chunk(
   unsigned long long* words = (unsigned long long*)(ctrl + 2);
   const Faults f{thresh, death, needs, start, global, revive,
                  reset,  init_term, byz, byz_mode};
-  return (int)(faulted
+  const Tele t{tele, rows, tele_grid, tmean};
+  return (int)(tele ? queue_pushsum<true, true>(
+                          a, b, mark, keys, dirs, cls, n, n_pad, rounds, delta,
+                          term_rounds, target, words, ctrl, f, s0, w0, t0, c0,
+                          need_init, device, stream, t)
+               : faulted
                    ? queue_pushsum<true>(a, b, mark, keys, dirs, cls, n, n_pad,
                                          rounds, delta, term_rounds, target,
                                          words, ctrl, f, s0, w0, t0, c0,
-                                         need_init, device, stream)
+                                         need_init, device, stream, t)
                    : queue_pushsum<false>(a, b, mark, keys, dirs, cls, n, n_pad,
                                           rounds, delta, term_rounds, target,
                                           words, ctrl, f, s0, w0, t0, c0,
-                                          need_init, device, stream));
+                                          need_init, device, stream, t));
 }
 
 extern "C" int gossip_gossip_resident_chunk(
@@ -480,11 +581,11 @@ extern "C" int gossip_gossip_resident_chunk(
     int n_classes, int kind, int n, int extra_node, int n_pad, int rounds,
     int rumor_target, int suppress, int target, int faulted, unsigned thresh,
     const int* death, const int* needs, int need_init, int start,
-    const int* revive, int reset, const int* byz, int byz_mode, int device,
-    void* stream_ptr) {
+    const int* revive, int reset, const int* byz, int byz_mode, int* tele,
+    float* rows, int tele_grid, float tmean, int device, void* stream_ptr) {
   gossip::Lattice L;
   Classes cls;
-  if (rounds < 0 ||
+  if (rounds < 0 || (tele && !faulted) ||
       !gossip::setup_lattice(kind, n, extra_node, classes, n_classes, &L, &cls))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -497,13 +598,36 @@ extern "C" int gossip_gossip_resident_chunk(
   const GossipPlanes b{count_b, active_b, conv_b};
   unsigned long long* words = (unsigned long long*)(ctrl + 2);
   const Faults f{thresh, death, needs, start, 0, revive, reset, 0, byz, byz_mode};
-  return (int)(faulted
+  const Tele t{tele, rows, tele_grid, tmean};
+  return (int)(tele ? queue_gossip<true, true>(
+                          a, b, mark, keys, dirs, cls, n, n_pad, rounds,
+                          rumor_target, suppress, target, words, ctrl, f, n0,
+                          a0, c0, need_init, device, stream, t)
+               : faulted
                    ? queue_gossip<true>(a, b, mark, keys, dirs, cls, n, n_pad,
                                         rounds, rumor_target, suppress, target,
                                         words, ctrl, f, n0, a0, c0, need_init,
-                                        device, stream)
+                                        device, stream, t)
                    : queue_gossip<false>(a, b, mark, keys, dirs, cls, n, n_pad,
                                          rounds, rumor_target, suppress, target,
                                          words, ctrl, f, n0, a0, c0, need_init,
-                                         device, stream));
+                                         device, stream, t));
+}
+
+// The grid of the telemetry instance's persistent launch (push-sum or
+// gossip; `unused` keeps csrc/fused_pool.cu's gossip_pool_grid arguments)
+// on an n_pad layout: the blocks whose partials a chunk's scratch holds.
+// Returns the grid, or minus a cudaError_t.
+extern "C" int gossip_resident_grid(int pushsum, int unused, int n_pad,
+                                    int device) {
+  (void)unused;
+  if (n_pad < 1) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  int grid = 0;
+  err = pushsum ? cooperative_grid(pushsum_rounds<true, true>, n_pad, device,
+                                   pushsum_grid_cache[2], &grid)
+                : cooperative_grid(gossip_rounds<true, true>, n_pad, device,
+                                   gossip_grid_cache[2], &grid);
+  return err == cudaSuccess ? grid : -(int)err;
 }

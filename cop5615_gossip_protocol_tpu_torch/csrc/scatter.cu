@@ -107,6 +107,25 @@
 // drawn. The faulted push-sum instance flushes as the plain round does
 // (csrc/chunk.cuh) and runs two blocks an SM.
 //
+// Robust aggregation, the health sentinel and the telemetry plane (the JAX
+// chunked engine's make_robust_clip_fn, sentinel_bad and make_row_fn) are
+// instances of their own, flags of the push-sum kernel's template beside F
+// (kClip, kSentinel, kTele; gossip takes kTele alone), each with F: the
+// instances without them keep their code. Under clip the absorb pass sums
+// both of a node's inboxes from 0 (not onto its kept s half) and adds each
+// to its kept half times the clip's scale with one fused multiply-add
+// (scatter.cuh pushsum_round_clipped). Under the sentinel each block adds
+// the w its nodes have just written and ORs a non-finite s or w, writes
+// both into a slot of the round's parity before the absorb pass's barrier,
+// and after it every block's first warp adds the blocks' partials in block
+// order (csrc/telemetry.cuh grid_sum), so every block reaches the same
+// verdict: |Σw - n| above the tolerance or a non-finite value ends the
+// chunk at that round, which block 0 latches into the status's third word
+// (NEVER while healthy). Under telemetry each block writes its partial
+// counts and sums of the round into the telemetry scratch before that
+// barrier (csrc/telemetry.cuh), sharing the sentinel's Σw partial where
+// both run, and a reduce launch after the chunk sums them into the rows.
+//
 // Numerics: csrc/chunk.cuh's gossip absorb; built without fast math, with
 // -fmad=false and denormals kept (utils/kernels.py).
 
@@ -116,6 +135,7 @@
 #include "chunk.cuh"
 #include "persistent.cuh"
 #include "scatter.cuh"
+#include "telemetry.cuh"
 #include "threefry.cuh"
 
 namespace {
@@ -199,6 +219,36 @@ __device__ __forceinline__ void round_gate_key(uint32_t key1, uint32_t key2,
   gossip::gate_key(r1, r2, g1, g2);
 }
 
+// The push-sum kernel's instance flags beside F: robust_agg="clip", the
+// health sentinel and the telemetry rows.
+constexpr int kClip = 1;
+constexpr int kSentinel = 2;
+constexpr int kTele = 4;
+
+// What the clip, sentinel and telemetry instances take beyond a chunk's
+// failure model.
+struct Extra {
+  float tol;       // the sentinel's tolerance on |Σw - n|
+  float* health;   // float [2 * kMaxGrid]: each block's Σw, a slot a parity,
+                   // then int [2 * kMaxGrid]: its non-finite flags
+  int* tele;       // int32 [2 + rounds * grid * kPartials]: the chunk's
+                   // (done, rounds executed), then the blocks' partials
+  float tmean;     // push-sum's true mean, (n - 1) / 2
+};
+
+// Block b's telemetry partials of chunk round r.
+__device__ __forceinline__ int* tele_part(const Extra& x, int r) {
+  return x.tele + 2 +
+         ((size_t)r * gridDim.x + blockIdx.x) * gossip::tele::kPartials;
+}
+
+// A node's drop-gate firing in absolute round `round` (gate key (g1, g2)),
+// for the telemetry rows: a gate and a closed word, among the live.
+__device__ __forceinline__ int gate_fired(const Faults& f, uint32_t g1,
+                                          uint32_t g2, int j, bool live) {
+  return f.thresh != 0u && live && !gossip::gate_open(g1, g2, f.thresh, j);
+}
+
 // Exclusive prefix of v over the block; total gets the block's sum.
 __device__ int block_exclusive_scan(int v, int& total) {
   __shared__ int warp_tot[kBlock / 32];
@@ -223,6 +273,21 @@ __device__ int block_exclusive_scan(int v, int& total) {
   total = warp_tot[kBlock / 32 - 1];
   __syncthreads();  // warp_tot is reused by the next call
   return before + x - v;
+}
+
+// The block's float sum of v in the telemetry order (csrc/telemetry.cuh:
+// each warp folds by halves, then the warps add in order from 0.0), valid
+// in thread 0.
+__device__ float block_fsum(float v) {
+  __shared__ float warp_sums[kBlock / 32];
+  v = gossip::tele::warp_fold(v);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.0f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kBlock / 32; ++w) t = gossip::flush(t + warp_sums[w]);
+  __syncthreads();  // warp_sums is reused by the next round's call
+  return t;
 }
 
 // The exclusive prefix of get(i) over [lo, hi) (block-uniform bounds),
@@ -266,6 +331,7 @@ struct GossipChunk {
   unsigned long long* words;  // the barrier words: rounds, then the prologue's
   int* status;
   Faults f;
+  Extra x;
 };
 
 __device__ __forceinline__ void gossip_send(const Graph& g, uint32_t k1,
@@ -278,8 +344,9 @@ __device__ __forceinline__ void gossip_send(const Graph& g, uint32_t k1,
 // passes and it is alive then; a dead node's count, active and conv stay
 // as they were (its receipts are dropped), and the verdict is the quorum
 // need of the round among the live nodes. F = false is the fault-free
-// kernel, with none of these loads or tests.
-template <bool F>
+// kernel, with none of these loads or tests. T (with F): the telemetry
+// rows' partials of each round.
+template <bool F, bool T = false>
 __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
   // Every block reads the same status before block 0 writes it, at the end.
   if (c.status[1] || c.rounds == 0) return;
@@ -307,6 +374,9 @@ __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
     uint32_t k1, k2, g1 = 0u, g2 = 0u;
     gossip::scatter::round_key(c.key1, c.key2, c.start + r + 1, k1, k2);
     if (F) gossip::gate_key(k1, k2, g1, g2);
+    uint32_t rg1 = 0u, rg2 = 0u;  // this round's gate key (T)
+    if (T && c.f.thresh) round_gate_key(c.key1, c.key2, round, rg1, rg2);
+    gossip::tele::Acc acc;
     int converged = 0;
     for (int j = first; j < n; j += stride) {
       const int got = in[j];
@@ -338,7 +408,18 @@ __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
                   !gossip::rejoins(c.f.revive, c.f.reset, j, round + 1))))
         gossip_send(c.g, k1, k2, j, out);
       converged += live ? cv : 0;
+      if constexpr (T) {
+        using namespace gossip::tele;
+        acc.i[kConv] += cv;
+        acc.i[kLive] += live;
+        acc.i[kConvAlive] += live ? cv : 0;
+        acc.i[kActive] += act;
+        acc.i[kDrops] += gate_fired(c.f, rg1, rg2, j, live);
+        acc.i[kRevived] += c.f.revive != nullptr && c.f.revive[j] == round;
+        acc.i[kByz] += gossip::byzantine_in(c.f.byz, j, round);
+      }
     }
+    if constexpr (T) gossip::tele::block_partials<kBlock>(acc, tele_part(c.x, r));
     const int total = round_barrier(c.words + r, block_sum(converged));
     done = total >= (F && c.f.death ? c.f.needs[r] : c.target);
     ++executed;
@@ -351,6 +432,10 @@ __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     c.status[0] += executed;
     c.status[1] = done ? 1 : 0;
+    if (T) {
+      c.x.tele[0] = done ? 1 : 0;
+      c.x.tele[1] = executed;
+    }
   }
 }
 
@@ -374,6 +459,7 @@ struct PushSumChunk {
   unsigned long long* words;  // the barrier words: 3 a round, then the prologue's
   int* status;
   Faults f;
+  Extra x;
 };
 
 // Sender i's target under (k1, k2) and its rank in that bucket of cnt.
@@ -393,17 +479,28 @@ __device__ __forceinline__ Ticket count_send(const Graph& g, uint32_t k1,
 // does not send keeps its whole mass. A dead node's term and conv stay as
 // they were while its s and w absorb. Under global termination the barrier
 // word counts the unstable nodes, term is left alone, and conv is written
-// after the last verdict: 1 everywhere if it ended the run, else 0.
-template <bool F>
+// after the last verdict: 1 everywhere if it ended the run, else 0 (also
+// where the sentinel's trip ended it).
+// X (with F): the clip, sentinel and telemetry instances (kClip, kSentinel,
+// kTele; see the header). Under clip global termination is not read, as
+// the plain round's clipped absorb does not read it.
+template <bool F, int X = 0>
 __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
     pushsum_rounds(PushSumChunk c) {
+  constexpr bool C = (X & kClip) != 0;
+  constexpr bool S = (X & kSentinel) != 0;
+  constexpr bool T = (X & kTele) != 0;
   if (c.status[1] || c.rounds == 0) return;
   __shared__ int base[kMaxGrid];  // every block's bucket base
   const int n = c.g.n;
   const Slices sl = gossip::scatter::make_slices(n, gridDim.x);
   const int lo = gossip::scatter::slice_lo(sl, blockIdx.x);
   const int hi = gossip::scatter::slice_hi(sl, blockIdx.x);
-  const bool global = F && c.f.global;
+  const bool global = F && !C && c.f.global;
+  int trip_round = -1;  // the sentinel's first unhealthy round (S)
+  // (S) the global verdict of the last round apart from a trip: conv and
+  // the rows' latch read it, as the plain round's conv does.
+  bool global_done = false;
   {
     uint32_t k1, k2, g1 = 0u, g2 = 0u;
     gossip::scatter::round_key(c.key1, c.key2, c.start, k1, k2);
@@ -455,7 +552,11 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
     uint32_t k1, k2, g1 = 0u, g2 = 0u;
     gossip::scatter::round_key(c.key1, c.key2, c.start + r + 1, k1, k2);
     if (F) gossip::gate_key(k1, k2, g1, g2);
+    uint32_t rg1 = 0u, rg2 = 0u;  // this round's gate key (T)
+    if (T && c.f.thresh) round_gate_key(c.key1, c.key2, round, rg1, rg2);
     const int mine = base[blockIdx.x];
+    gossip::tele::Acc acc;  // the round's sums over the thread's nodes (S, T)
+    int nonfinite = 0;      // (S)
     int converged = 0;
     for (int j = lo + threadIdx.x; j < hi; j += kBlock) {
       // The loads first (count, offset, own state), then the next round's
@@ -486,12 +587,18 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
         w_new = acc_w;
         cv = gossip::unstable_global(s_t, w_t, s_new, w_new, c.delta) ? 1 : 0;
       } else {
-        cv = gossip::scatter::pushsum_round<F>(
-            s_t, w_t, t_old, c_old, sent,
-            [&](float& a, float& b) {
-              gossip::scatter::record_sum<F>(c.rec + at, k, a, b);
-            },
-            c.delta, c.term_rounds, s_new, w_new, t_new);
+        const auto add_bucket = [&](float& a, float& b) {
+          gossip::scatter::record_sum<F>(c.rec + at, k, a, b);
+        };
+        if constexpr (C)
+          cv = gossip::scatter::pushsum_round_clipped(
+              s_t, w_t, t_old, c_old, sent, add_bucket, c.delta,
+              c.term_rounds, s_new, w_new, t_new);
+        else
+          cv = gossip::scatter::pushsum_round<F>(s_t, w_t, t_old, c_old, sent,
+                                                 add_bucket, c.delta,
+                                                 c.term_rounds, s_new, w_new,
+                                                 t_new);
         if (F) {
           t_new = gossip::frozen(live, t_new, t_old);
           cv = gossip::frozen(live, cv, c_old ? 1 : 0);
@@ -504,12 +611,69 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
       c.w[j] = w_new;
       if (next) c.tick[j] = tk;
       converged += live ? cv : 0;
+      if constexpr (S || T) acc.add(gossip::tele::kW, w_new);
+      if constexpr (S) nonfinite |= !(isfinite(s_new) && isfinite(w_new));
+      if constexpr (T) {
+        // The row of the round's output state: under global termination
+        // conv is 0 on every node until the verdict's latch.
+        using namespace gossip::tele;
+        const int conv_now = global ? 0 : cv;
+        acc.i[kConv] += conv_now;
+        acc.i[kLive] += live;
+        acc.i[kConvAlive] += live ? conv_now : 0;
+        acc.i[kDrops] += gate_fired(c.f, rg1, rg2, j, live);
+        acc.i[kRevived] += c.f.revive != nullptr && c.f.revive[j] == round;
+        acc.i[kByz] += gossip::byzantine_in(c.f.byz, j, round);
+        if (conv_now) acc.add(kErr, chunked_err(s_new, w_new, c.x.tmean));
+        if (global) acc.add(kErrAll, chunked_err(s_new, w_new, c.x.tmean));
+      }
+    }
+    if constexpr (T) {
+      int* part = tele_part(c.x, r);
+      gossip::tele::block_partials<kBlock>(acc, part);
+      // The sentinel's Σw partial is the row's (written before the sync
+      // that ends block_partials).
+      if (S && threadIdx.x == 0)
+        acc.f[gossip::tele::kW - gossip::tele::kInts] =
+            __int_as_float(part[gossip::tele::kW]);
+    } else if constexpr (S) {
+      acc.f[gossip::tele::kW - gossip::tele::kInts] = block_fsum(
+          acc.f[gossip::tele::kW - gossip::tele::kInts]);
+    }
+    if constexpr (S) {
+      nonfinite = __syncthreads_or(nonfinite);
+      if (threadIdx.x == 0) {
+        c.x.health[(r & 1) * kMaxGrid + blockIdx.x] =
+            acc.f[gossip::tele::kW - gossip::tele::kInts];
+        ((int*)c.x.health)[(2 + (r & 1)) * kMaxGrid + blockIdx.x] = nonfinite;
+      }
     }
     const int sum = round_barrier(c.words + 3 * r + 2, block_sum(converged));
-    if (global)
+    if (global) {
       done = sum == 0;  // the round's unstable count
-    else
+      if constexpr (S) global_done = done;
+    } else
       done = sum >= (F && c.f.death ? c.f.needs[r] : c.target);
+    if constexpr (S) {
+      // Every block adds the blocks' partials in block order: one verdict.
+      __shared__ int tripped;
+      if (threadIdx.x < 32) {
+        const float total_w =
+            gossip::tele::grid_sum(c.x.health + (r & 1) * kMaxGrid, gridDim.x);
+        const int* flags = (const int*)c.x.health + (2 + (r & 1)) * kMaxGrid;
+        int bad = 0;
+        for (int b = threadIdx.x; b < (int)gridDim.x; b += 32)
+          bad |= __ldcg(flags + b);
+        bad = __any_sync(0xffffffffu, bad);
+        if (threadIdx.x == 0)
+          tripped = bad || fabsf(total_w - (float)n) > c.x.tol;
+      }
+      __syncthreads();
+      if (tripped) {
+        done = true;
+        trip_round = round;
+      }
+    }
     ++executed;
   }
   // Stopped at done before the cap: round `executed`'s counts are staged.
@@ -518,34 +682,91 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
     for (int j = lo + threadIdx.x; j < hi; j += kBlock) staged[j] = 0;
   }
   // Global termination: every node converged iff the last round's verdict
-  // ended the run.
+  // ended the run (a sentinel's trip ends it with that verdict as it was).
+  const bool latched = S ? global_done : done;
   if (global)
-    for (int j = lo + threadIdx.x; j < hi; j += kBlock) c.conv[j] = done ? 1 : 0;
+    for (int j = lo + threadIdx.x; j < hi; j += kBlock) c.conv[j] = latched ? 1 : 0;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     c.status[0] += executed;
     c.status[1] = done ? 1 : 0;
+    if (S && trip_round >= 0) c.status[2] = trip_round;
+    if (T) {
+      c.x.tele[0] = latched ? 1 : 0;
+      c.x.tele[1] = executed;
+    }
   }
 }
 
-// The persistent grid of each kernel, asked once a device.
-int pushsum_grid_cache[2][64];
-int gossip_grid_cache[2][64];
+// The persistent grid of each kernel instance, asked once a device: push-sum
+// by its flags (F, then X; cache 0 the fault-free kernel), gossip by F and T.
+int pushsum_grid_cache[7][64];
+int gossip_grid_cache[3][64];
 
-template <typename Kernel, typename Chunk>
-cudaError_t launch(Kernel kernel, Chunk c, int n, int words, int* cache,
-                   int device, cudaStream_t stream) {
-  int grid = 0;
+// The persistent grid of `kernel` at n nodes: every block the SMs hold at
+// once, fewer at small n (kNodesPerThread), at most kMaxGrid.
+template <typename Kernel>
+cudaError_t grid_of(Kernel kernel, int n, int device, int* cache, int* grid) {
   cudaError_t err = cooperative_grid(
       kernel, (int)(((long long)n + kNodesPerThread - 1) / kNodesPerThread),
-      device, cache, &grid);
+      device, cache, grid);
+  if (*grid > kMaxGrid) *grid = kMaxGrid;
+  return err;
+}
+
+// Queues one chunk of `kernel`: the zeroing of its barrier words (and of
+// the telemetry header, whose rows are then zero if no round runs), then
+// the persistent launch. A telemetry instance's grid must be the one its
+// scratch was sized for (`want`, from gossip_scatter_grid).
+template <typename Kernel, typename Chunk>
+cudaError_t launch(Kernel kernel, Chunk c, int n, int words, int* cache,
+                   int device, cudaStream_t stream, int want = 0) {
+  int grid = 0;
+  cudaError_t err = grid_of(kernel, n, device, cache, &grid);
   if (err != cudaSuccess) return err;
-  if (grid > kMaxGrid) grid = kMaxGrid;
+  if (want && grid != want) return cudaErrorInvalidValue;
   // The chunk's barrier words, zeroed on the stream ahead of it.
   err = cudaMemsetAsync(c.words, 0, 8 * (size_t)words, stream);
   if (err != cudaSuccess) return err;
+  if (c.x.tele != nullptr) {
+    err = cudaMemsetAsync(c.x.tele, 0, 8, stream);
+    if (err != cudaSuccess) return err;
+  }
   void* args[] = {&c};
   return cudaLaunchCooperativeKernel((const void*)kernel, grid, kBlock, args, 0,
                                      stream);
+}
+
+// fn(kernel, its grid cache) for the push-sum instance of the failure model
+// (faulted) and the flags x: the ladder reaches the fault-free kernel, the
+// faulted one, and with it clip, the sentinel or telemetry, and telemetry
+// with clip or with the sentinel (clip and the sentinel exclude each other,
+// config.py).
+template <typename Fn>
+cudaError_t pushsum_instance(int faulted, int x, Fn fn) {
+  if (!faulted)
+    return x ? cudaErrorInvalidValue
+             : fn(pushsum_rounds<false, 0>, pushsum_grid_cache[0]);
+  switch (x) {
+    case 0: return fn(pushsum_rounds<true, 0>, pushsum_grid_cache[1]);
+    case kClip: return fn(pushsum_rounds<true, kClip>, pushsum_grid_cache[2]);
+    case kSentinel:
+      return fn(pushsum_rounds<true, kSentinel>, pushsum_grid_cache[3]);
+    case kTele: return fn(pushsum_rounds<true, kTele>, pushsum_grid_cache[4]);
+    case kTele | kClip:
+      return fn(pushsum_rounds<true, kTele | kClip>, pushsum_grid_cache[5]);
+    case kTele | kSentinel:
+      return fn(pushsum_rounds<true, kTele | kSentinel>, pushsum_grid_cache[6]);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Fn>
+cudaError_t gossip_instance(int faulted, int tele, Fn fn) {
+  if (!faulted)
+    return tele ? cudaErrorInvalidValue
+                : fn(gossip_rounds<false, false>, gossip_grid_cache[0]);
+  return tele ? fn(gossip_rounds<true, true>, gossip_grid_cache[2])
+              : fn(gossip_rounds<true, false>, gossip_grid_cache[1]);
 }
 
 }  // namespace
@@ -564,8 +785,14 @@ cudaError_t launch(Kernel kernel, Chunk c, int n, int words, int* cache,
 // the int32 [n] revival plane (else null), reset whether a revived node
 // resets and init_term push-sum's initial term. Under a Byzantine model byz
 // is the int32 [n] onset plane (else null) and byz_mode its mode
-// (csrc/faults.cuh). Returns the first error (a cudaError_t), 0 if none. A
-// chunk of no round queues nothing.
+// (csrc/faults.cuh). Push-sum's robust_clip and sentinel (with its
+// tolerance and health, float [2 * kMaxGrid] then int [2 * kMaxGrid] of
+// scratch) and either protocol's tele (int32 [2 + rounds * tele_grid *
+// kPartials] of scratch, tele_grid the grid gossip_scatter_grid gives the
+// instance) pick the instances of their own, with faulted set; under tele
+// the reduce of the rows into rows (float32 [rounds, 10]) is queued after
+// the chunk, and tmean is push-sum's true mean. Returns the first error (a
+// cudaError_t), 0 if none. A chunk of no round queues nothing.
 
 extern "C" int gossip_pushsum_scatter_chunk(
     float* s, float* w, int* term, uint8_t* conv, const int* nbr, const int* deg,
@@ -574,21 +801,31 @@ extern "C" int gossip_pushsum_scatter_chunk(
     unsigned start, int rounds, float delta, int term_rounds, int target,
     int faulted, unsigned thresh, const int* death, const int* needs,
     const int* revive, int reset, int init_term, int global, const int* byz,
-    int byz_mode, int device, void* stream_ptr) {
+    int byz_mode, int robust_clip, int sentinel, float tol, float* health,
+    int* tele, float* rows, int tele_grid, float tmean, int device,
+    void* stream_ptr) {
   if (n < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
   if (rounds == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
   const PushSumChunk c{s, w, term, conv, Graph{nbr, deg, max_deg, n},
                        cnt, (Ticket*)tick, loc, tot, (Send*)rec, key1, key2,
                        start, rounds, delta, term_rounds, target, words,
                        status, Faults{thresh, death, needs, global, revive,
-                                      reset, init_term, byz, byz_mode}};
-  if (faulted)
-    return (int)launch(pushsum_rounds<true>, c, n, 3 * rounds + 1,
-                       pushsum_grid_cache[1], device, (cudaStream_t)stream_ptr);
-  return (int)launch(pushsum_rounds<false>, c, n, 3 * rounds + 1,
-                     pushsum_grid_cache[0], device, (cudaStream_t)stream_ptr);
+                                      reset, init_term, byz, byz_mode},
+                       Extra{tol, health, tele, tmean}};
+  const int x = (robust_clip ? kClip : 0) | (sentinel ? kSentinel : 0) |
+                (tele != nullptr ? kTele : 0);
+  err = pushsum_instance(faulted, x, [&](auto kernel, int* cache) {
+    return launch(kernel, c, n, 3 * rounds + 1, cache, device, stream,
+                  tele_grid);
+  });
+  if (err != cudaSuccess || tele == nullptr) return (int)err;
+  const gossip::tele::RowArgs a{tele + 2, tele, rows, tele_grid, rounds, n,
+                                target, death ? needs : nullptr, n, 1,
+                                global && !robust_clip};
+  return (int)gossip::tele::queue_rows(a, stream);
 }
 
 extern "C" int gossip_gossip_scatter_chunk(
@@ -597,19 +834,42 @@ extern "C" int gossip_gossip_scatter_chunk(
     unsigned key1, unsigned key2, unsigned start, int rounds, int rumor_target,
     int suppress, int target, int faulted, unsigned thresh, const int* death,
     const int* needs, const int* revive, int reset, const int* byz,
-    int byz_mode, int device, void* stream_ptr) {
+    int byz_mode, int* tele, float* rows, int tele_grid, int device,
+    void* stream_ptr) {
   if (n < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
   if (rounds == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
   const GossipChunk c{count, active, conv, Graph{nbr, deg, max_deg, n},
                       inbox, key1, key2, start, rounds, rumor_target, suppress,
                       target, words, status,
                       Faults{thresh, death, needs, 0, revive, reset, 0, byz,
-                             byz_mode}};
-  if (faulted)
-    return (int)launch(gossip_rounds<true>, c, n, rounds + 1,
-                       gossip_grid_cache[1], device, (cudaStream_t)stream_ptr);
-  return (int)launch(gossip_rounds<false>, c, n, rounds + 1,
-                     gossip_grid_cache[0], device, (cudaStream_t)stream_ptr);
+                             byz_mode},
+                      Extra{0.0f, nullptr, tele, 0.0f}};
+  err = gossip_instance(faulted, tele != nullptr, [&](auto kernel, int* cache) {
+    return launch(kernel, c, n, rounds + 1, cache, device, stream, tele_grid);
+  });
+  if (err != cudaSuccess || tele == nullptr) return (int)err;
+  const gossip::tele::RowArgs a{tele + 2, tele, rows, tele_grid, rounds, n,
+                                target, death ? needs : nullptr, n, 0, 0};
+  return (int)gossip::tele::queue_rows(a, stream);
+}
+
+// The grid of a telemetry instance's persistent launch at n nodes (its
+// scratch holds a row of partials a block a round): push-sum's by
+// (faulted, flags: 1 clip, 2 sentinel, 4 telemetry), gossip's by (faulted,
+// flags & 4). Returns the grid, or minus a cudaError_t.
+extern "C" int gossip_scatter_grid(int pushsum, int faulted, int flags, int n,
+                                   int device) {
+  if (n < 1) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  int grid = 0;
+  const auto query = [&](auto kernel, int* cache) {
+    return grid_of(kernel, n, device, cache, &grid);
+  };
+  err = pushsum ? pushsum_instance(faulted, flags, query)
+                : gossip_instance(faulted, (flags & kTele) != 0, query);
+  return err == cudaSuccess ? grid : -(int)err;
 }

@@ -178,6 +178,43 @@ GOSSIP_HD int pushsum_round(float s_t, float w_t, int t_old, bool conv_old,
   return (conv_old || t_new >= term_rounds) ? 1 : 0;
 }
 
+// robust_agg="clip"'s factor of a receiver's inbox (models/pushsum.
+// clip_scale): it accepts at most cap = 2 * max(w_keep, 1) of weight a
+// round, so an inbox over the cap scales by cap / in_w, and one with in_w
+// <= 0 is dropped (0). A NaN kept half makes the cap NaN, as torch.maximum
+// does.
+GOSSIP_HD float clip_scale(float in_w, float w_keep) {
+  const float base = (w_keep != w_keep || w_keep > 1.0f) ? w_keep : 1.0f;
+  const float cap = flush(2.0f * base);
+  const float scale = in_w > cap ? flush(cap / in_w) : 1.0f;
+  return in_w > 0.0f ? scale : 0.0f;
+}
+
+// One node's push-sum round under clip (ops/scatter.pushsum_round_plain
+// with clip, models/pushsum.absorb_clipped): the kept halves as the faulted
+// round keeps them (keep_flushed), add_bucket(in_s, in_w) sums the bucket's
+// halves from 0 (flushed adds), and each kept half takes its inbox times
+// the clip's scale in one fused multiply-add, flushed, as XLA contracts it;
+// the node received if its scaled w inbox is > 0. Sets s_new, w_new, t_new
+// and returns the new conv flag.
+template <typename AddBucket>
+GOSSIP_HD int pushsum_round_clipped(float s_t, float w_t, int t_old,
+                                    bool conv_old, bool sends,
+                                    AddBucket add_bucket, float delta,
+                                    int term_rounds, float& s_new,
+                                    float& w_new, int& t_new) {
+  float s_keep, w_keep, in_s = 0.0f, in_w = 0.0f;
+  keep_flushed<true>(s_t, w_t, sends, s_keep, w_keep);
+  add_bucket(in_s, in_w);
+  const float scale = clip_scale(in_w, w_keep);
+  s_new = flush(fmaf(in_s, scale, s_keep));
+  w_new = flush(fmaf(in_w, scale, w_keep));
+  const bool received = flush(in_w * scale) > 0.0f;
+  const bool stable = fabsf(s_new / w_new - s_t / w_t) <= delta;
+  t_new = received ? (stable ? t_old + 1 : 0) : t_old;
+  return (conv_old || t_new >= term_rounds) ? 1 : 0;
+}
+
 // The contiguous slices of the n targets among the blocks of the persistent
 // launch: block b owns [b * size, min((b + 1) * size, n)), which is empty
 // for trailing blocks when size * blocks > n. Each block scans its slice's

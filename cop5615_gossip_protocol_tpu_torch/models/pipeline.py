@@ -12,6 +12,13 @@ count, never rounded up to the pipeline depth.
 Under the health sentinel (``mass_tolerance``) the status carries a third
 word, the first round whose state was unhealthy (NEVER while none was), and
 a tripped round ends the run as done does (the JAX runner's ``health``).
+
+Under the telemetry plane (ops/telemetry.py) a chunk also returns its rows,
+a ``[rounds, N_COLS]`` float32 buffer on the device: its copy to pinned
+memory is queued with the status copy, behind the same event, so retiring a
+chunk still waits on one event and reads nothing more from the device, and
+``on_aux`` gets the rows at each retired chunk, in order. A speculative
+chunk dropped at termination never reaches it.
 """
 
 from __future__ import annotations
@@ -45,40 +52,50 @@ class ChunkLoopResult:
     chunk_log: list = dataclasses.field(default_factory=list)
     # The health sentinel's first unhealthy round, or None.
     unhealthy_round: Optional[int] = None
+    aux_s: float = 0.0  # host time in on_aux (a part of fetch_s)
 
 
-def _prefetch(status):
-    """Start the device-to-host copy of a chunk's (rounds, done) status.
-    Returns a handle ``_read`` turns into two Python ints."""
+def _to_host(x):
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    return host
+
+
+def _prefetch(status, aux=None):
+    """Start the device-to-host copies of a chunk's (rounds, done) status
+    and its telemetry rows (``aux``, or None), behind one event. Returns a
+    handle ``_read`` turns into Python ints and the host rows."""
     if isinstance(status, torch.Tensor) and status.is_cuda:
-        host = torch.empty(status.shape, dtype=status.dtype, pin_memory=True)
-        host.copy_(status, non_blocking=True)
+        host = _to_host(status)
+        aux_host = None if aux is None else _to_host(aux)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(status.device))
-        return host, event
-    return status, None
+        return host, event, aux_host
+    return status, None, aux
 
 
 def _read(handle) -> tuple[int, bool, Optional[int]]:
     """(rounds, done, the sentinel's unhealthy round or None)."""
-    status, event = handle
+    status, event, _ = handle
     if event is not None:
-        event.synchronize()  # blocks until the chunk (and its copy) is done
+        event.synchronize()  # blocks until the chunk (and its copies) are done
     rounds, done, *health = (int(v) for v in status)
     unhealthy = health[0] if health and health[0] != NEVER else None
     return rounds, bool(done), unhealthy
 
 
-def health_check(n: int, tol: float) -> Callable:
+def health_check(n: int, tol: float, wsum: Callable = sum_f32) -> Callable:
     """The health sentinel's test of a push-sum state (the JAX runner's
     ``sentinel_bad``): a non-finite s or w, or |Σw − n| above ``tol``, in
-    float32 with Σw in ``sum_f32``'s order. Returns a 0-dim bool tensor."""
+    float32 with Σw in ``wsum``'s order (``sum_f32``'s, the JAX chunked
+    engine's, unless a kernel's order is asked for). Returns a 0-dim bool
+    tensor."""
     n32 = torch.tensor(n, dtype=torch.float32)
     tol32 = torch.tensor(tol, dtype=torch.float32)
 
     def bad(state) -> torch.Tensor:
         finite = torch.isfinite(state.s).all() & torch.isfinite(state.w).all()
-        resid = torch.abs(sum_f32(state.w) - n32.to(state.w.device))
+        resid = torch.abs(wsum(state.w) - n32.to(state.w.device))
         return ~finite | (resid > tol32.to(state.w.device))
 
     return bad
@@ -114,9 +131,11 @@ def advance(state, new, status, target: int, alive=None, need: int = 0,
 
 def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
                max_rounds: int, stride: int, depth: int,
-               next_end: Optional[Callable[[int], int]] = None) -> ChunkLoopResult:
-    """Drive ``dispatch(state, status, round_end) -> (state, status)`` to
-    termination with up to ``depth`` chunks in flight.
+               next_end: Optional[Callable[[int], int]] = None,
+               on_aux: Optional[Callable[[int, int, object], None]] = None
+               ) -> ChunkLoopResult:
+    """Drive ``dispatch(state, status, round_end) -> (state, status[,
+    aux])`` to termination with up to ``depth`` chunks in flight.
 
     ``status`` is the (rounds, done) pair of the carry: an int tensor [2] on
     the device, or a tuple of Python values for engines that decide on the
@@ -126,14 +145,17 @@ def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
     stride, max_rounds)``: the schedule of the serial loop, because a
     non-terminal chunk always runs to its round_end. ``next_end(end)``, if
     given, replaces that schedule: the chunk after the one ending at
-    ``end`` ends at ``next_end(end)`` (at most max_rounds)."""
+    ``end`` ends at ``next_end(end)`` (at most max_rounds). A third output,
+    ``aux`` (the chunk's telemetry rows), is copied to the host with the
+    status and handed to ``on_aux(rounds_before, rounds_after, aux)`` at
+    each retired chunk, in order."""
     depth = max(1, int(depth))
     inflight: collections.deque = collections.deque()
     head = (state0, status0)
     last_end = start_round
     retired = 0
     dispatched = 0
-    dispatch_total = fetch_total = first_dispatch = 0.0
+    dispatch_total = fetch_total = first_dispatch = aux_total = 0.0
     chunk_log: list = []
 
     def fill() -> None:
@@ -146,21 +168,28 @@ def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
             last_end = (min(last_end + stride, max_rounds) if next_end is None
                         else min(next_end(last_end), max_rounds))
             t0 = time.perf_counter()
-            head = dispatch(head[0], head[1], last_end)
+            out = dispatch(head[0], head[1], last_end)
+            head = out[:2]
             disp_s = time.perf_counter() - t0
             dispatch_total += disp_s
             if dispatched == 0:
                 first_dispatch = disp_s
             dispatched += 1
-            inflight.append((head, _prefetch(head[1]), disp_s))
+            aux = out[2] if len(out) > 2 else None
+            inflight.append((head, _prefetch(head[1], aux), disp_s))
 
     fill()
     rounds, done, unhealthy = start_round, False, None
     final = head
     while inflight:
         cur, handle, disp_s = inflight.popleft()
+        before = rounds
         t0 = time.perf_counter()
         rounds, done, unhealthy = _read(handle)
+        if on_aux is not None and handle[2] is not None:
+            t_aux = time.perf_counter()
+            on_aux(before, rounds, handle[2])
+            aux_total += time.perf_counter() - t_aux
         fetch_s = time.perf_counter() - t0
         fetch_total += fetch_s
         retired += 1
@@ -177,5 +206,5 @@ def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
         state=final[0], rounds=rounds, done=done, chunks_retired=retired,
         dispatch_s=dispatch_total, fetch_s=fetch_total,
         first_dispatch_s=first_dispatch, chunk_log=chunk_log,
-        unhealthy_round=unhealthy,
+        unhealthy_round=unhealthy, aux_s=aux_total,
     )

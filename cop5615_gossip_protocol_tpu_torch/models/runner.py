@@ -49,12 +49,20 @@ whole-array lattice tier, as in JAX. Byzantine adversaries
 (``byzantine_rate``/``byzantine_schedule`` with ``byzantine_mode``) run on
 the chunked engine under every delivery, on the pool tier and on the
 whole-array lattice tier; robust aggregation (``robust_agg``) and the health
-sentinel (``mass_tolerance``) on the chunked engine alone, and on the card
-not under scatter delivery, which refuses them naming ROADMAP A6c-2. Every
+sentinel (``mass_tolerance``) on the chunked engine alone (under scatter
+delivery on the card, kernel A's clip and sentinel instances). Every
 fused tier and composition carries each failure-model knob its JAX
 counterpart takes; where the JAX ladder demotes, the port runs its chunked
 engine, on the card too; where a sharded plan refuses, the run raises the
 JAX ladder's ValueError.
+
+The telemetry plane (``cfg.telemetry``, ops/telemetry.py) writes one row a
+round on the chunked engine (torch ops after each round, or kernel A's
+telemetry instance under scatter delivery on the card) and in the pool and
+whole-array lattice kernels (rows 1-2 and 5-6); every other fused tier
+demotes to the chunked engine under engine="auto" and raises under
+engine="fused", and the sharded fused compositions refuse it, with the JAX
+ladder's texts.
 """
 
 from __future__ import annotations
@@ -83,6 +91,7 @@ from ..ops import (
     sampling,
     scatter,
 )
+from ..ops import telemetry as telemetry_mod
 from ..ops.topology import IMP_LATTICE, Topology, imp_split
 from ..utils.device import resolve_device
 from ..utils.metrics import RUN_RECORD_SCHEMA_VERSION
@@ -131,9 +140,11 @@ class RunResult:
     finalize_s: float = 0.0
     device: str = ""
     # Data, not measurements: excluded from to_record. ``state`` is the
-    # final canonical PushSumState/GossipState.
+    # final canonical PushSumState/GossipState; ``telemetry`` the run's
+    # ops/telemetry.TelemetryTrajectory when cfg.telemetry is on.
     chunk_log: Optional[list] = None
     state: Optional[object] = None
+    telemetry: Optional[object] = None
 
     @property
     def wall_ms(self) -> float:
@@ -144,7 +155,7 @@ class RunResult:
         rec = {
             f.name: getattr(self, f.name)
             for f in dataclasses.fields(self)
-            if f.name not in ("chunk_log", "state")
+            if f.name not in ("chunk_log", "state", "telemetry")
         }
         rec["wall_ms"] = self.wall_ms
         rec["rounds_per_sec"] = self.rounds / self.run_s if self.run_s > 0 else None
@@ -207,11 +218,9 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     n = topo.n
     pushsum = cfg.algorithm == "push-sum"
     scattered = resolve_delivery(topo, cfg) == "scatter"
-    if scattered and device.type == "cuda" and (
-            cfg.robust_agg == "clip" or cfg.mass_tolerance is not None):
-        # Kernel A carries the lie and the gossip override, not these.
-        raise unported("robust_agg='clip' and mass_tolerance under scatter "
-                       "delivery on the card (csrc/scatter.cu)", "A6c-2")
+    # The telemetry plane's row after each round (ops/telemetry.py).
+    row_fn = (telemetry_mod.make_row_fn(topo, cfg, base_key, device)
+              if cfg.telemetry else None)
     if pushsum:
         state0 = pushsum_mod.init_state(n, cfg.initial_term_round, device)
     else:
@@ -225,13 +234,14 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
         if pushsum:
             fn = functools.partial(scatter.pushsum_scatter_chunk, graph=graph,
                                    target=target, delta=cfg.resolved_delta,
-                                   term_rounds=cfg.term_rounds, faults=faults)
+                                   term_rounds=cfg.term_rounds, faults=faults,
+                                   telemetry=row_fn)
         else:
             fn = functools.partial(scatter.gossip_scatter_chunk, graph=graph,
                                    target=target,
                                    rumor_target=cfg.resolved_rumor_target,
                                    suppress=cfg.resolved_suppress,
-                                   faults=faults)
+                                   faults=faults, telemetry=row_fn)
 
         def scatter_chunk(state, status, start, end):
             return fn(state, base_key, start, max(end - start, 0), status)
@@ -376,13 +386,20 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
 
     def round_chunk(state, status, start, end):
         status = status.clone()
-        needs = faults.needs(start, max(end - start, 0))[0] if death is not None else None
+        count = max(end - start, 0)
+        needs = faults.needs(start, count)[0] if death is not None else None
+        rows = (None if row_fn is None else
+                torch.zeros(count, telemetry_mod.N_COLS, dtype=torch.float32,
+                            device=device))
         for k, rnd in enumerate(range(start, end)):
             verdict = {} if needs is None else {"alive": alive(rnd),
                                                 "need": int(needs[k])}
             state = pipeline_mod.advance(state, round_fn(state, rnd), status,
                                          target, bad=bad, **verdict)
-        return state, status
+            if rows is not None:
+                # The row after the round, from its output state.
+                rows[k] = row_fn(state, rnd, verdict.get("need"))
+        return (state, status) if rows is None else (state, status, rows)
 
     return round_chunk, state0
 
@@ -422,7 +439,7 @@ def _host_done(state, target: int, cfg: Optional[SimConfig] = None,
 
 def _finalize_result(topo: Topology, cfg: SimConfig, state, rounds: int,
                      target: int, compile_s: float, run_s: float, done: bool,
-                     loop, device) -> RunResult:
+                     loop, device, collector=None) -> RunResult:
     """The result record from the final canonical state, on the host in
     float64 (diagnostics, never trajectory state). A tripped health
     sentinel (``loop.unhealthy_round``) makes the outcome "unhealthy", and
@@ -461,8 +478,11 @@ def _finalize_result(topo: Topology, cfg: SimConfig, state, rounds: int,
     result.dispatch_s = loop.dispatch_s
     result.fetch_s = loop.fetch_s
     result.first_dispatch_s = loop.first_dispatch_s
+    result.aux_s = loop.aux_s
     result.chunk_log = loop.chunk_log
     result.state = state
+    if collector is not None:
+        result.telemetry = collector.finalize()
     return result
 
 
@@ -483,10 +503,13 @@ def fused_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
     else the tiled one, else the streaming one, which serve neither
     ``full`` nor the imp kinds; delivery="scatter" pins the chunked
     engine, so it never fuses). The health sentinel and robust aggregation
-    run on the chunked engine only, and the Byzantine plane on it and the
-    pool and whole-array stencil tiers (rows 1-2 and 5-6), with the JAX
-    ladder's reasons."""
+    run on the chunked engine only, and the telemetry plane and the
+    Byzantine plane on it and the pool and whole-array stencil tiers (rows
+    1-2 and 5-6), with the JAX ladder's reasons."""
     variant, reason = _fused_variant(topo, cfg)
+    if reason is None and cfg.telemetry and variant not in ("stencil", "pool"):
+        reason = ("telemetry counters run in the fused stencil/pool kernels "
+                  f"only (selected tier: {variant!r})")
     if reason is None and cfg.mass_tolerance is not None:
         reason = ("the health sentinel (--mass-tolerance) runs in the "
                   "chunked/sharded XLA round bodies only")
@@ -589,7 +612,8 @@ _SHARDED_NAMES = {
 
 
 def run(topo: Topology, cfg: SimConfig, key=None, device=None,
-        start_state=None, start_round: int = 0, devices=None) -> RunResult:
+        start_state=None, start_round: int = 0, devices=None,
+        on_telemetry=None) -> RunResult:
     """Run one simulation to convergence or cfg.max_rounds.
 
     ``device`` is "cuda" (the default) or "cpu"; with no GPU and no
@@ -606,7 +630,11 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
     device i of ``device``'s kind, which must be visible
     (parallel/mesh.make_mesh). The composition is the JAX ladder's
     (``sharded_tier``); the replicated-pool2, the lattice and the imp ones
-    run, every other refuses naming its ROADMAP item."""
+    run, every other refuses naming its ROADMAP item.
+
+    Under ``cfg.telemetry`` the result carries the run's rows
+    (``RunResult.telemetry``), and ``on_telemetry(chunk_start_round,
+    rows)`` fires with each retired chunk's rows (ops/telemetry.Collector)."""
     t_enter = time.perf_counter()
     sharded = cfg.n_devices is not None and cfg.n_devices > 1
     if devices is not None and not sharded:
@@ -638,12 +666,14 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
             if reason is not None:
                 raise ValueError(f"engine='fused' unavailable: {reason}")
             return _run_fused(topo, cfg, key, device, start_state,
-                              start_round, target, t_enter, variant)
+                              start_round, target, t_enter, on_telemetry,
+                              variant)
         if reason is None and device.type == "cuda":
             return _run_fused(topo, cfg, key, device, start_state,
-                              start_round, target, t_enter, variant)
+                              start_round, target, t_enter, on_telemetry,
+                              variant)
     return _run_chunked(topo, cfg, key, device, start_state, start_round,
-                        target, t_enter)
+                        target, t_enter, on_telemetry)
 
 
 def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
@@ -659,6 +689,14 @@ def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
     from ..parallel.pool2_sharded import run_pool2_sharded
 
     if cfg.engine == "fused":
+        if cfg.telemetry:
+            raise ValueError(
+                "telemetry counters run in the single-device fused "
+                "stencil/pool kernels and the chunked/sharded XLA "
+                "engines; the sharded fused compositions do not carry "
+                "the counter block — drop the engine override (the "
+                "sharded XLA engine psums the block in-trace)"
+            )
         if cfg.mass_tolerance is not None:
             raise ValueError(
                 "the health sentinel (--mass-tolerance) runs in the "
@@ -742,10 +780,11 @@ def _to_device(state, device):
 
 
 def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
-                 t_enter) -> RunResult:
+                 t_enter, on_telemetry=None) -> RunResult:
     """Chunk loop over the chunked engine: each chunk queues its rounds
     with the (rounds, done) status on the device, and the pipeline reads
-    that status once a chunk."""
+    that status once a chunk (with the chunk's telemetry rows, copied
+    behind the same event)."""
     chunk_fn, state0 = _make_chunk_fn(topo, cfg, key, device, target)
     if start_state is not None:
         state0 = _to_device(start_state, device)
@@ -785,6 +824,8 @@ def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
         # fraction of the run, at one status read a chunk.
         return end + min(K, max(_FIRST_CHUNK, (end - start_round) // 4))
 
+    collector = (telemetry_mod.Collector(start_round, on_rows=on_telemetry)
+                 if cfg.telemetry else None)
     t1 = time.perf_counter()
     loop = pipeline_mod.run_chunks(
         dispatch=dispatch, state0=state0, status0=status0,
@@ -792,12 +833,13 @@ def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
         # The CPU runs a chunk as it is queued: a second chunk in flight
         # would only add no-op rounds.
         depth=cfg.pipeline_chunks if device.type == "cuda" else 1,
-        next_end=next_end,
+        next_end=next_end, on_aux=collector and collector.on_aux,
     )
     run_s = time.perf_counter() - t1
     t_fin = time.perf_counter()
     result = _finalize_result(topo, cfg, loop.state, loop.rounds, target,
-                              compile_s, run_s, loop.done, loop, device)
+                              compile_s, run_s, loop.done, loop, device,
+                              collector)
     result.setup_s = setup_s
     result.finalize_s = time.perf_counter() - t_fin
     return result
@@ -826,6 +868,11 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
     "stencil2", "stencil_hbm", "imp" or "imp_hbm")."""
     n = topo.n
     target = cfg.resolved_target_count(topo.n, topo.target_count)
+    if cfg.telemetry and variant not in ("stencil", "pool"):
+        raise ValueError(
+            "telemetry counters run in the fused stencil and pool kernels "
+            f"only; the {variant!r} tier does not carry the counter block — "
+            "use engine='chunked' or a telemetry-capable population")
     if variant in ("pool", "pool2"):
         layout = fused_pool.build_pool_layout(n)
         pushsum_chunk, gossip_chunk = (
@@ -857,6 +904,9 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
         common = {"spec": fused_stencil_hbm.stencil_spec(topo), "target": target}
         if variant != "stencil_hbm" or cfg.algorithm == "push-sum":
             common["faults"] = fused.run_faults(cfg, n)
+    if cfg.telemetry:
+        # The kernels' telemetry instance: the chunk returns its rows too.
+        common["telemetry"] = True
 
     def streams(start, count):
         keys = fused.round_keys(key, start, count)
@@ -908,10 +958,12 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
 
 
 def _run_fused(topo, cfg, key, device, start_state, start_round, target,
-               t_enter, variant) -> RunResult:
+               t_enter, on_telemetry, variant) -> RunResult:
     """Chunk loop over a fused engine: one chunk call per cfg.chunk_rounds
     rounds, with the per-round streams drawn on the host (the wrappers
-    copy them to the device without a sync)."""
+    copy them to the device without a sync); under cfg.telemetry a chunk
+    also returns its rows (rows 1-2 and 5-6, the only tiers that carry
+    them)."""
     eng = fused_engine(topo, cfg, key, variant, start_state)
     streams, chunk_fn = eng.streams, eng.chunk
     state_dev = tuple(p.contiguous().to(device) for p in eng.planes)
@@ -932,13 +984,14 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
         # to end: a chunk stops short only at termination, and every later
         # chunk is then a no-op that keeps the carry's counter.
         start, queued["end"] = queued["end"], round_end
-        new_state, executed = chunk_fn(state, streams(start, K), start, round_end)
+        new_state, executed, *rows = chunk_fn(state, streams(start, K), start,
+                                              round_end)
         expected = min(K, max(round_end - start, 0))
         ex = executed.to(torch.int64)
         new_status = torch.stack(
             [status[0] + ex, ((status[1] != 0) | (ex < expected)).to(torch.int64)]
         )
-        return new_state, new_status
+        return (new_state, new_status, *rows)
 
     t0 = time.perf_counter()
     setup_s = t0 - t_enter
@@ -951,11 +1004,13 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
     compile_s = time.perf_counter() - t0
 
     status0 = torch.tensor([start_round, 0], dtype=torch.int64, device=device)
+    collector = (telemetry_mod.Collector(start_round, on_rows=on_telemetry)
+                 if cfg.telemetry else None)
     t1 = time.perf_counter()
     loop = pipeline_mod.run_chunks(
         dispatch=dispatch, state0=state_dev, status0=status0,
         start_round=start_round, max_rounds=cfg.max_rounds, stride=K,
-        depth=cfg.pipeline_chunks,
+        depth=cfg.pipeline_chunks, on_aux=collector and collector.on_aux,
     )
     run_s = time.perf_counter() - t1
     t_fin = time.perf_counter()
@@ -963,7 +1018,7 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
     result = _finalize_result(topo, cfg, final, loop.rounds, target,
                               compile_s, run_s,
                               _host_done(final, target, cfg, loop.rounds),
-                              loop, device)
+                              loop, device, collector)
     result.setup_s = setup_s
     result.finalize_s = time.perf_counter() - t_fin
     return result

@@ -23,7 +23,7 @@ import torch
 
 from ..config import SimConfig
 from ..models.pushsum import flush, halve_and_send
-from . import rng
+from . import rng, telemetry
 from .faults import lie, override
 from .topology import Topology
 
@@ -82,26 +82,28 @@ def build_layout(n: int) -> FusedLayout:
 
 def pushsum_chunk(state4, keys, start: int, cap: int, *, spec, target: int,
                   delta: float, term_rounds: int,
-                  faults: Optional[Faults] = None):
+                  faults: Optional[Faults] = None, telemetry: bool = False):
     """Up to K = keys.shape[0] push-sum lattice rounds from absolute round
     ``start``, stopping at ``cap`` or once ``target`` nodes converged, on
     (s, w, term, conv_i32) in the ``build_layout`` layout; the contract of
     fused_stencil.pushsum_stencil2_chunk (``spec`` a
     fused_stencil_hbm.StencilSpec). ``faults`` (the run's ``Faults``, None
     for a fault-free run with local termination) adds the drop gate,
-    crash-stop with the quorum verdict and global termination."""
+    crash-stop with the quorum verdict and global termination;
+    ``telemetry`` runs the telemetry instance and returns the chunk's rows
+    too (fused_pool.pushsum_pool_chunk's contract)."""
     # Imported here: ops/fused_stencil imports this module.
     from .fused_stencil import pushsum_resident_chunk
 
     return pushsum_resident_chunk(
         pushsum_chunk, build_layout(spec.n).rows, state4, keys, start, cap,
         spec=spec, target=target, delta=delta, term_rounds=term_rounds,
-        faults=faults)
+        faults=faults, telemetry=telemetry)
 
 
 def gossip_chunk(state3, keys, start: int, cap: int, *, spec, target: int,
                  rumor_target: int, suppress: bool,
-                 faults: Optional[Faults] = None):
+                 faults: Optional[Faults] = None, telemetry: bool = False):
     """Gossip analog of ``pushsum_chunk``: ``state3`` is (count,
     active_i32, conv_i32); converged-target suppression is receiver-side;
     ``faults`` adds the drop gate and crash-stop."""
@@ -110,11 +112,11 @@ def gossip_chunk(state3, keys, start: int, cap: int, *, spec, target: int,
     return gossip_resident_chunk(
         gossip_chunk, build_layout(spec.n).rows, state3, keys, start, cap,
         spec=spec, target=target, rumor_target=rumor_target, suppress=suppress,
-        faults=faults)
+        faults=faults, telemetry=telemetry)
 
 
-# Kernel launches queued by each wrapper (3 a chunk), counted where the
-# kernel is launched and nowhere else.
+# Kernel launches queued by each wrapper (3 a chunk, 4 with telemetry),
+# counted where the kernel is launched and nowhere else.
 pushsum_chunk.launches = 0
 gossip_chunk.launches = 0
 
@@ -432,6 +434,77 @@ def run_faults(cfg: SimConfig, n: int) -> Optional[Faults]:
     )
 
 
+@dataclasses.dataclass
+class RowSpec:
+    """What a fused kernel's telemetry instance (rows 1-2: csrc/fused_pool.cu,
+    rows 5-6: csrc/fused_resident.cu) writes after each round, for its
+    plain version: the kernel's float order over the padded plane
+    (telemetry.pool_order or strided_order over its grid) and the form of
+    its estimate error, "pool" (w = 0 read as 1, the JAX pool kernel's
+    w_safe) or "stencil" (s / w, the JAX stencil kernel's)."""
+
+    order: object  # telemetry.KernelOrder
+    err: str
+
+    @classmethod
+    def for_layout(cls, kind: str, n_pad: int, grid: Optional[int] = None):
+        """The spec of a pool or stencil chunk on an n_pad layout; ``grid``
+        the kernel's blocks (telemetry_grid on the card), else the blocks
+        its nodes would need."""
+        work = n_pad // 8 if kind == "pool" else n_pad
+        grid = grid or max(1, -(-work // telemetry.BLOCK))
+        order = (telemetry.pool_order(grid, n_pad) if kind == "pool"
+                 else telemetry.strided_order(grid, n_pad))
+        return cls(order, kind)
+
+
+def plane_row(spec: RowSpec, planes, k: int, r: int, *, n: int, target: int,
+              fx: Optional[ChunkFaults]) -> torch.Tensor:
+    """The row a fused kernel's telemetry instance writes after chunk round
+    k (absolute round r) from the post-round padded planes (push-sum (s, w,
+    term, conv), gossip (count, active, conv), after the global latch): the
+    JAX fused kernels' counters (ops/fused.py telemetry_row), each float
+    sum in the kernel's order, mass over the padded plane less n_pad."""
+    from . import telemetry
+
+    pushsum = planes[0].is_floating_point()
+    c = planes[-1] != 0
+    dev, rows = c.device, c.shape[0]
+    n_pad = rows * LANES
+    conv = c.sum(dtype=torch.int32)
+    alive = None if fx is None else fx.alive(r, rows)
+    if alive is None:
+        live, gap = n, target - conv
+    else:
+        live = alive.sum(dtype=torch.int32)
+        gap = int(fx.needs[k]) - (c & alive).sum(dtype=torch.int32)
+    err_sum = w_sum = active = 0
+    if pushsum:
+        s, w = planes[0], planes[1]
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        tmean = torch.tensor(telemetry.true_mean(n), dtype=torch.float32, device=dev)
+        w_div = torch.where(w != 0, w, torch.ones_like(w)) if spec.err == "pool" else w
+        err = torch.where(c, torch.abs(flush(flush(s / w_div) - tmean)), zero)
+        order = spec.order.to(dev)
+        err_sum = telemetry.kernel_sum(err, order)
+        w_sum = telemetry.kernel_sum(w, order)
+    else:
+        active = (planes[1] != 0).sum(dtype=torch.int32)
+    drops = revived = byz = 0
+    if fx is not None and fx.thresh is not None:
+        g = threefry_bits_2d(fx.gate_keys[k, 0], fx.gate_keys[k, 1], rows, LANES,
+                             device=dev)
+        real = (torch.arange(n_pad, device=dev) < n).reshape(rows, LANES)
+        fired = (g < fx.thresh) & real
+        drops = (fired if alive is None else fired & alive).sum(dtype=torch.int32)
+    if fx is not None and fx.revive is not None:
+        revived = (fx.revive == r).sum(dtype=torch.int32)
+    if fx is not None and fx.byz is not None:
+        byz = (fx.byz <= r).sum(dtype=torch.int32)
+    return telemetry.assemble(conv, live, gap, active, err_sum, w_sum, n_pad,
+                              drops, revived, byz, pushsum)
+
+
 def class_sources(n_pad: int, d, n: int, device=None) -> torch.Tensor:
     """Flat [n_pad] index of the node whose message along the mod-n
     displacement ``d`` lands on each receiver j: j - d, wrapped by n."""
@@ -442,7 +515,7 @@ def class_sources(n_pad: int, d, n: int, device=None) -> torch.Tensor:
 def pushsum_class_rounds(state4, start: int, cap: int, count: int,
                          round_classes, *, n: int, target: int, delta: float,
                          term_rounds: int, faults: Optional[ChunkFaults] = None,
-                         fold_s: bool = True):
+                         fold_s: bool = True, telemetry: Optional[RowSpec] = None):
     """The plain version of every push-sum chunk kernel: up to ``count``
     rounds from absolute round ``start`` on the padded planes (s, w, term,
     conv_i32), stopping at ``cap`` or once ``target`` nodes converged.
@@ -463,9 +536,14 @@ def pushsum_class_rounds(state4, start: int, cap: int, count: int,
     (``ChunkFaults.rejoin``). Under global termination term and conv are left
     alone, a round counts its unstable real nodes (|ratio change| above
     delta * max(|ratio|, 1)), and the round where none is unstable latches
-    conv on every real node and ends the run."""
+    conv on every real node and ends the run.
+
+    With ``telemetry`` (a RowSpec) it returns each executed round's row
+    (``plane_row``) too: (state4', rounds_executed, float32 [count,
+    N_COLS] rows, zero past the executed ones)."""
     s, w, t, c = (x.clone() for x in state4)
     dev, rows = s.device, s.shape[0]
+    tele = _row_buffer(telemetry, count, dev)
     padm = (torch.arange(rows * LANES, device=dev) >= n).reshape(rows, LANES)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     delta_t = torch.tensor(delta, dtype=torch.float32, device=dev)
@@ -510,6 +588,9 @@ def pushsum_class_rounds(state4, start: int, cap: int, count: int,
             finished = not bool(unstable.any())
             if finished:
                 c = (~padm).to(torch.int32)
+            if tele is not None:
+                tele[k] = plane_row(telemetry, (s, w, t, c), k, start + k, n=n,
+                                    target=target, fx=fx)
             continue
         received = in_w > 0
         stable = torch.abs(s_new / w_new - s / w) <= delta_t
@@ -521,13 +602,24 @@ def pushsum_class_rounds(state4, start: int, cap: int, count: int,
             c_new = torch.where(alive, c_new, c)
         s, w, t, c = s_new, w_new, t_new, c_new
         finished = done(c.sum() if fx is None else fx.live_total(c, start + k, rows), k)
-    return (s, w, t, c), torch.tensor(executed, dtype=torch.int32, device=dev)
+        if tele is not None:
+            tele[k] = plane_row(telemetry, (s, w, t, c), k, start + k, n=n,
+                                target=target, fx=fx)
+    out = ((s, w, t, c), torch.tensor(executed, dtype=torch.int32, device=dev))
+    return out if tele is None else (*out, tele)
+
+
+def _row_buffer(spec: Optional[RowSpec], count: int, dev):
+    """A chunk's zeroed rows, or None without telemetry."""
+    return None if spec is None else torch.zeros(
+        count, telemetry.N_COLS, dtype=torch.float32, device=dev)
 
 
 def gossip_class_rounds(state3, start: int, cap: int, count: int,
                         round_classes, *, n: int, target: int,
                         rumor_target: int, suppress: bool,
-                        faults: Optional[ChunkFaults] = None):
+                        faults: Optional[ChunkFaults] = None,
+                        telemetry: Optional[RowSpec] = None):
     """The plain version of every gossip chunk kernel, on the padded planes
     (count, active_i32, conv_i32): ``pushsum_class_rounds``' contract, where
     only active nodes send (their mark is kept, every other node's is -1),
@@ -535,9 +627,10 @@ def gossip_class_rounds(state3, start: int, cap: int, count: int,
     suppression is receiver-side. ``faults`` as there: blocked and dead
     nodes mark -1, a dead node's inbox counts nothing, and a revived node
     resets to (0, inactive, unconverged) at its revival round's start. Returns
-    (state3', rounds_executed)."""
+    (state3', rounds_executed), and with ``telemetry`` the rows too."""
     cnt, act, c = (x.clone() for x in state3)
     dev, rows = cnt.device, cnt.shape[0]
+    tele = _row_buffer(telemetry, count, dev)
     padm = (torch.arange(rows * LANES, device=dev) >= n).reshape(rows, LANES)
     fx = faults
     done = make_done_flag(target, fx and fx.needs, fx and fx.need_init)
@@ -575,4 +668,8 @@ def gossip_class_rounds(state3, start: int, cap: int, count: int,
                                    lying & alive, cnt, act, c)
         executed += 1
         finished = done(c.sum() if fx is None else fx.live_total(c, start + k, rows), k)
-    return (cnt, act, c), torch.tensor(executed, dtype=torch.int32, device=dev)
+        if tele is not None:
+            tele[k] = plane_row(telemetry, (cnt, act, c), k, start + k, n=n,
+                                target=target, fx=fx)
+    out = ((cnt, act, c), torch.tensor(executed, dtype=torch.int32, device=dev))
+    return out if tele is None else (*out, tele)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -24,9 +25,11 @@ import torch
 from ..config import SimConfig
 from ..utils import kernels
 from . import rng
+from . import telemetry as telemetry_mod
 from .fused import (
     LANES,
     Faults,
+    RowSpec,
     clamp_cap_and_pad,
     class_sources,
     gossip_class_rounds,
@@ -128,33 +131,45 @@ def _pool_classes(keys, offs, rows: int, n: int):
 def pushsum_pool_chunk_plain(state4, keys, offs, start: int, cap: int, *,
                              n: int, target: int, delta: float,
                              term_rounds: int,
-                             faults: Optional[Faults] = None):
+                             faults: Optional[Faults] = None,
+                             telemetry: bool = False,
+                             grid: Optional[int] = None):
     """Up to K = keys.shape[0] push-sum pool rounds on the padded planes
     (s, w, term, conv_i32), with the run's drop gate, crash-stop and
     global termination (``faults``, fused.pushsum_class_rounds). Returns
-    (state4', rounds_executed)."""
+    (state4', rounds_executed), and with ``telemetry`` the chunk's rows
+    too, float32 [K, N_COLS], their float sums in the order of the
+    kernel's telemetry instance on ``grid`` blocks (``telemetry_grid``)."""
     dev, rows = state4[0].device, state4[0].shape[0]
     cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
     return pushsum_class_rounds(
         state4, start, cap, keys.shape[0],
         _pool_classes(keys.to(dev), offs.to(dev), rows, n), n=n,
         target=target, delta=delta, term_rounds=term_rounds,
-        faults=_chunk_faults(faults, keys, start, rows, dev))
+        faults=_chunk_faults(faults, keys, start, rows, dev),
+        telemetry=_row_spec(telemetry, rows, grid))
 
 
 def gossip_pool_chunk_plain(state3, keys, offs, start: int, cap: int, *,
                             n: int, target: int, rumor_target: int,
-                            suppress: bool, faults: Optional[Faults] = None):
+                            suppress: bool, faults: Optional[Faults] = None,
+                            telemetry: bool = False, grid: Optional[int] = None):
     """Up to K gossip pool rounds on the padded planes (count, active_i32,
     conv_i32), with receiver-side suppression and the run's drop gate and
-    crash-stop. Returns (state3', rounds_executed)."""
+    crash-stop. Returns (state3', rounds_executed), and with ``telemetry``
+    the rows too."""
     dev, rows = state3[0].device, state3[0].shape[0]
     cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
     return gossip_class_rounds(
         state3, start, cap, keys.shape[0],
         _pool_classes(keys.to(dev), offs.to(dev), rows, n), n=n,
         target=target, rumor_target=rumor_target, suppress=suppress,
-        faults=_chunk_faults(faults, keys, start, rows, dev))
+        faults=_chunk_faults(faults, keys, start, rows, dev),
+        telemetry=_row_spec(telemetry, rows, grid))
+
+
+def _row_spec(telemetry: bool, rows: int, grid: Optional[int]):
+    return RowSpec.for_layout("pool", rows * LANES, grid) if telemetry else None
 
 
 def _chunk_faults(faults: Optional[Faults], keys, start: int, rows: int, dev):
@@ -243,19 +258,55 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _FAULT_ARGS = [_I, _U, _P, _P, _I, _I]
+# The telemetry instance's arguments (csrc/fused_pool.cu,
+# csrc/fused_resident.cu): its scratch, its rows, its grid, the true mean.
+TELE_ARGS = [_P, _P, _I, _F]
 _SIGNATURES = {
     "gossip_pushsum_pool_chunk": [_P] * 14 + [_I] * 4 + [_F, _I, _I]
                                  + _FAULT_ARGS + [_P, _I, _I] + [_I] + [_P, _I]
-                                 + [_I, _P],
+                                 + TELE_ARGS + [_I, _P],
     "gossip_gossip_pool_chunk": [_P] * 11 + [_I] * 7 + _FAULT_ARGS + [_P, _I]
-                                + [_P, _I] + [_I, _P],
+                                + [_P, _I] + TELE_ARGS + [_I, _P],
+    "gossip_pool_grid": [_I] * 4,
+    "gossip_resident_grid": [_I] * 4,
 }
 
 
-def chunk_launches(rounds: int) -> int:
-    """Launches a chunk of csrc/fused_pool.cu queues, whatever its rounds:
-    init, the persistent launch that runs them all, finish."""
-    return 3
+def chunk_launches(rounds: int, telemetry: bool = False) -> int:
+    """Launches a chunk of csrc/fused_pool.cu (or csrc/fused_resident.cu)
+    queues, whatever its rounds: init, the persistent launch that runs them
+    all, finish, and with telemetry the reduce of its rows."""
+    return 4 if telemetry else 3
+
+
+@functools.lru_cache(maxsize=None)
+def telemetry_grid(source: str, pushsum: bool, pool_size: int, n_pad: int,
+                   device_index: int) -> int:
+    """The grid of the telemetry instance's persistent launch
+    (csrc/fused_pool.cu gossip_pool_grid at a pool width, or
+    csrc/fused_resident.cu gossip_resident_grid): the blocks whose partials
+    a chunk's scratch holds and whose order the plain rows follow."""
+    symbol = "gossip_pool_grid" if source == "fused_pool" else "gossip_resident_grid"
+    fn = kernels.entry(source, symbol, _SIGNATURES[symbol])
+    grid = fn(int(pushsum), pool_size, n_pad, device_index)
+    if grid <= 0:
+        raise RuntimeError(f"{symbol} failed with cudaError_t {-grid}")
+    return grid
+
+
+def tele_args(source: str, pushsum: bool, pool_size: int, n: int, n_pad: int,
+              rounds: int, count: int, dev):
+    """(the entry point's telemetry arguments, the rows, the buffers to
+    keep until the launch is queued) of a telemetry chunk of ``rounds``
+    rounds whose rows buffer has ``count`` >= rounds rows (zero past the
+    rounds the reduce writes)."""
+    grid = telemetry_grid(source, pushsum, pool_size, n_pad, dev.index)
+    scratch = torch.empty(rounds * grid * telemetry_mod.PARTIALS,
+                          dtype=torch.int32, device=dev)
+    rows = torch.zeros(count, telemetry_mod.N_COLS, dtype=torch.float32,
+                       device=dev)
+    return ([scratch.data_ptr(), rows.data_ptr(), grid,
+             ctypes.c_float(telemetry_mod.true_mean(n))], rows, scratch)
 
 
 def _upload(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -277,12 +328,13 @@ def _launch(source: str, name: str, argtypes, dev: torch.device, pointers,
 
 
 def _kernel_chunk(name: str, state, keys, offs, start: int, cap: int, n: int,
-                  tail, faults: Optional[Faults] = None):
+                  tail, faults: Optional[Faults] = None, telemetry: bool = False):
     """Queue one chunk through entry point ``name`` of csrc/fused_pool.cu
     on the current stream of the state's device and raise on a launch
     error. ``tail`` holds the protocol's trailing arguments; ``faults`` (the
     run's, or None) picks the kernels' faulted instance and gives its
-    inputs. Returns (state', rounds_executed)."""
+    inputs; ``telemetry`` the telemetry instance (with the faulted one,
+    under no fault too). Returns (state', rounds_executed[, rows])."""
     dev = state[0].device
     cap, keys, offs = clamp_cap_and_pad(start, cap, keys, ((offs, 1),))
     n_pad = state[0].numel()
@@ -301,6 +353,12 @@ def _kernel_chunk(name: str, state, keys, offs, start: int, cap: int, n: int,
         streams.data_ptr() + 8 * keys.numel() + 4 * offs.numel(), need_init, start,
         n_pad, dev, len(state) == 4, revive=True)
     rounds = max(0, cap - start)
+    targs, rows_out = [None, None, 0, ctypes.c_float(0.0)], None
+    if telemetry:
+        fargs[0] = 1
+        targs, rows_out, _scratch = tele_args(
+            "fused_pool", len(state) == 4, offs.shape[1], n, n_pad, rounds,
+            keys.shape[0], dev)
     planes = len(state) * n_pad
     # Two allocations a chunk beside the streams' copy: the result planes
     # with the control words behind them (done, rounds executed, then 8 *
@@ -323,15 +381,16 @@ def _kernel_chunk(name: str, state, keys, offs, start: int, cap: int, n: int,
              streams.data_ptr(),
              streams.data_ptr() + 8 * keys.numel(),
              head.data_ptr() + 4 * planes, n, n_pad, offs.shape[1], rounds, *tail,
-             *fargs, dev.index, stream)
+             *fargs, *targs, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-    return tuple(out), head[planes + 1]
+    out = (tuple(out), head[planes + 1])
+    return out if rows_out is None else (*out, rows_out)
 
 
 def pushsum_pool_chunk(state4, keys, offs, start: int, cap: int, *, n: int,
                        target: int, delta: float, term_rounds: int,
-                       faults: Optional[Faults] = None):
+                       faults: Optional[Faults] = None, telemetry: bool = False):
     """Up to K = keys.shape[0] push-sum pool rounds from absolute round
     ``start``, stopping at ``cap`` or once ``target`` nodes converged.
 
@@ -343,23 +402,26 @@ def pushsum_pool_chunk(state4, keys, offs, start: int, cap: int, *, n: int,
     are left unchanged. CUDA state runs the kernel and CPU state the plain
     version. ``faults`` (the run's fused.Faults, None for a fault-free run
     with local termination) adds the drop gate, crash-stop with the quorum
-    verdict and global termination."""
+    verdict and global termination. ``telemetry`` runs the telemetry
+    instance and returns the chunk's rows too (float32 [K padded to 8,
+    N_COLS], zero past the executed rounds)."""
     dev = _check(state4, (torch.float32, torch.float32, torch.int32, torch.int32),
                  keys, offs, n)
     if dev.type == "cpu":
         return pushsum_pool_chunk_plain(
             state4, keys, offs, start, cap, n=n, target=target, delta=delta,
-            term_rounds=term_rounds, faults=faults,
+            term_rounds=term_rounds, faults=faults, telemetry=telemetry,
         )
     out = _kernel_chunk("gossip_pushsum_pool_chunk", state4, keys, offs, start, cap, n,
-                        (ctypes.c_float(delta), term_rounds, target), faults)
-    pushsum_pool_chunk.launches += chunk_launches(keys.shape[0])
+                        (ctypes.c_float(delta), term_rounds, target), faults,
+                        telemetry)
+    pushsum_pool_chunk.launches += chunk_launches(keys.shape[0], telemetry)
     return out
 
 
 def gossip_pool_chunk(state3, keys, offs, start: int, cap: int, *, n: int,
                       target: int, rumor_target: int, suppress: bool,
-                      faults: Optional[Faults] = None):
+                      faults: Optional[Faults] = None, telemetry: bool = False):
     """Gossip analog of ``pushsum_pool_chunk``: ``state3`` is (count,
     active_i32, conv_i32); converged-target suppression is receiver-side."""
     dev = _check(state3, (torch.int32,) * 3, keys, offs, n)
@@ -367,14 +429,15 @@ def gossip_pool_chunk(state3, keys, offs, start: int, cap: int, *, n: int,
         return gossip_pool_chunk_plain(
             state3, keys, offs, start, cap, n=n, target=target,
             rumor_target=rumor_target, suppress=suppress, faults=faults,
+            telemetry=telemetry,
         )
     out = _kernel_chunk("gossip_gossip_pool_chunk", state3, keys, offs, start, cap, n,
-                        (rumor_target, int(suppress), target), faults)
-    gossip_pool_chunk.launches += chunk_launches(keys.shape[0])
+                        (rumor_target, int(suppress), target), faults, telemetry)
+    gossip_pool_chunk.launches += chunk_launches(keys.shape[0], telemetry)
     return out
 
 
-# Kernel launches queued by each wrapper (3 a chunk), counted
+# Kernel launches queued by each wrapper (3 a chunk, 4 with telemetry), counted
 # where the kernel is launched and nowhere else.
 pushsum_pool_chunk.launches = 0
 gossip_pool_chunk.launches = 0

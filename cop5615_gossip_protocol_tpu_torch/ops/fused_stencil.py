@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 
 from ..config import SimConfig
-from .fused import Faults
+from .fused import Faults, RowSpec
 from .fused_pool import build_pool_layout
 from .fused_stencil_hbm import (
     StencilSpec,
@@ -44,7 +44,8 @@ from .topology import Topology
 
 # The JAX tier's VMEM plane budget, in bytes.
 _VMEM_BUDGET = 100 * 1024 * 1024
-# Launches of one resident chunk: init, the persistent round loop, finish.
+# Launches of one resident chunk: init, the persistent round loop, finish
+# (and under telemetry the reduce of its rows).
 RESIDENT_LAUNCHES = 3
 
 
@@ -78,40 +79,53 @@ def stencil2_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
 def pushsum_resident_chunk(counter, rows: int, state4, keys, start: int,
                            cap: int, *, spec: StencilSpec, target: int,
                            delta: float, term_rounds: int,
-                           faults: Optional[Faults] = None):
+                           faults: Optional[Faults] = None,
+                           telemetry: bool = False, grid: Optional[int] = None):
     """The push-sum chunk behind both resident tiers' wrappers, on state in
     the tier's [rows, 128] layout, with the run's failure model
     (``faults``: None for a fault-free run with local termination, which
     runs the kernels' fault-free instance); a launch adds its launches to
-    ``counter.launches``."""
+    ``counter.launches``. ``telemetry`` (the whole-array tier's, rows 5-6)
+    runs the telemetry instance and returns the rows too; on the CPU their
+    float sums follow the kernel's order on ``grid`` blocks."""
     dev = _check(state4, (torch.float32, torch.float32, torch.int32, torch.int32),
                  keys, spec, rows)
     if dev.type == "cpu":
         return pushsum_stencil_hbm_chunk_plain(
             state4, keys, start, cap, spec=spec, target=target, delta=delta,
-            term_rounds=term_rounds, faults=faults)
-    out, executed, _ = kernel_chunk(
+            term_rounds=term_rounds, faults=faults,
+            telemetry=_row_spec(telemetry, rows, grid))
+    out, executed, _, *tele = kernel_chunk(
         "fused_resident", "gossip_pushsum_resident_chunk", state4, keys, start,
-        cap, spec, (ctypes.c_float(delta), term_rounds, target), faults)
-    counter.launches += RESIDENT_LAUNCHES
-    return out, executed
+        cap, spec, (ctypes.c_float(delta), term_rounds, target), faults,
+        telemetry)
+    counter.launches += RESIDENT_LAUNCHES + telemetry
+    return (out, executed, *tele)
+
+
+def _row_spec(telemetry: bool, rows: int, grid: Optional[int]):
+    from .fused import LANES
+
+    return RowSpec.for_layout("stencil", rows * LANES, grid) if telemetry else None
 
 
 def gossip_resident_chunk(counter, rows: int, state3, keys, start: int,
                           cap: int, *, spec: StencilSpec, target: int,
                           rumor_target: int, suppress: bool,
-                          faults: Optional[Faults] = None):
+                          faults: Optional[Faults] = None,
+                          telemetry: bool = False, grid: Optional[int] = None):
     """The gossip chunk behind both resident tiers' wrappers."""
     dev = _check(state3, (torch.int32,) * 3, keys, spec, rows)
     if dev.type == "cpu":
         return gossip_stencil_hbm_chunk_plain(
             state3, keys, start, cap, spec=spec, target=target,
-            rumor_target=rumor_target, suppress=suppress, faults=faults)
-    out, executed, _ = kernel_chunk(
+            rumor_target=rumor_target, suppress=suppress, faults=faults,
+            telemetry=_row_spec(telemetry, rows, grid))
+    out, executed, _, *tele = kernel_chunk(
         "fused_resident", "gossip_gossip_resident_chunk", state3, keys, start,
-        cap, spec, (rumor_target, int(suppress), target), faults)
-    counter.launches += RESIDENT_LAUNCHES
-    return out, executed
+        cap, spec, (rumor_target, int(suppress), target), faults, telemetry)
+    counter.launches += RESIDENT_LAUNCHES + telemetry
+    return (out, executed, *tele)
 
 
 # The tiled tier's failure model is global termination alone (the JAX tier

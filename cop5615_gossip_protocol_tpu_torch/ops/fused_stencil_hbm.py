@@ -48,7 +48,15 @@ from .fused import (
     pushsum_class_rounds,
     threefry2x32_hash,
 )
-from .fused_pool import PoolLayout, _chunk_faults, _upload, build_pool_layout, fault_args
+from .fused_pool import (
+    TELE_ARGS,
+    PoolLayout,
+    _chunk_faults,
+    _upload,
+    build_pool_layout,
+    fault_args,
+    tele_args,
+)
 from .topology import Topology, lattice_dirs
 
 MAX_STENCIL_HBM_NODES = 2**27
@@ -265,27 +273,31 @@ def _stencil_classes(spec: StencilSpec, keys, rows: int, dev):
 def pushsum_stencil_hbm_chunk_plain(state4, keys, start: int, cap: int, *,
                                     spec: StencilSpec, target: int,
                                     delta: float, term_rounds: int,
-                                    faults: Optional[Faults] = None):
+                                    faults: Optional[Faults] = None,
+                                    telemetry=None):
     """Up to K = keys.shape[0] push-sum lattice rounds on the padded planes
     (s, w, term, conv_i32) of any [rows, 128] layout that covers n: the
     plain version of every lattice tier's kernels (this streaming tier's
     and the resident tiers' of ops/fused.py and ops/fused_stencil.py), with
     the run's drop gate, crash-stop and global termination (``faults``, the
     run's fused.Faults or None; fused.pushsum_class_rounds). Returns
-    (state4', rounds_executed)."""
+    (state4', rounds_executed), and with ``telemetry`` (a fused.RowSpec:
+    the whole-array tier's telemetry instance) the chunk's rows too."""
     dev, rows = state4[0].device, state4[0].shape[0]
     cap, keys = clamp_cap_and_pad(start, cap, keys)
     return pushsum_class_rounds(
         state4, start, cap, keys.shape[0],
         _stencil_classes(spec, keys.to(dev), rows, dev), n=spec.n,
         target=target, delta=delta, term_rounds=term_rounds,
-        faults=_chunk_faults(faults, keys, start, rows, dev), fold_s=False)
+        faults=_chunk_faults(faults, keys, start, rows, dev), fold_s=False,
+        telemetry=telemetry)
 
 
 def gossip_stencil_hbm_chunk_plain(state3, keys, start: int, cap: int, *,
                                    spec: StencilSpec, target: int,
                                    rumor_target: int, suppress: bool,
-                                   faults: Optional[Faults] = None):
+                                   faults: Optional[Faults] = None,
+                                   telemetry=None):
     """Up to K gossip lattice rounds on the padded planes (count,
     active_i32, conv_i32), with receiver-side suppression and the run's
     drop gate and crash-stop (``faults``); like
@@ -297,7 +309,7 @@ def gossip_stencil_hbm_chunk_plain(state3, keys, start: int, cap: int, *,
         state3, start, cap, keys.shape[0],
         _stencil_classes(spec, keys.to(dev), rows, dev), n=spec.n,
         target=target, rumor_target=rumor_target, suppress=suppress,
-        faults=_chunk_faults(faults, keys, start, rows, dev))
+        faults=_chunk_faults(faults, keys, start, rows, dev), telemetry=telemetry)
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +370,8 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # The lattice entry points of csrc/fused_stencil.cu and csrc/fused_resident.cu
 # take the same arguments; then the streaming push-sum one takes global
 # termination's flag, and the resident ones the failure model's (faulted,
-# thresh, death, needs, need_init, start, and push-sum's global).
+# thresh, death, needs, need_init, start, and push-sum's global) and the
+# telemetry instance's (fused_pool.TELE_ARGS).
 _PUSHSUM_ARGS = [_P] * 17 + [_I] * 6 + [_F] + [_I] * 2
 _GOSSIP_ARGS = [_P] * 14 + [_I] * 9
 _FAULT_ARGS = [_I, _U, _P, _P, _I, _I]
@@ -368,21 +381,24 @@ def _argtypes(source: str, pushsum: bool):
     """The argtypes of a lattice entry point of csrc/<source>.cu."""
     args = list(_PUSHSUM_ARGS if pushsum else _GOSSIP_ARGS)
     if source == "fused_resident":
-        args += _FAULT_ARGS + ([_P, _I, _I, _I] if pushsum else [_P, _I]) + [_P, _I]
+        args += (_FAULT_ARGS + ([_P, _I, _I, _I] if pushsum else [_P, _I]) + [_P, _I]
+                 + TELE_ARGS)
     elif pushsum:
         args.append(_I)
     return args + [_I, _P]
 
 
 def kernel_chunk(source: str, name: str, state, keys, start: int, cap: int,
-                 spec: StencilSpec, tail, faults: Optional[Faults] = None):
+                 spec: StencilSpec, tail, faults: Optional[Faults] = None,
+                 telemetry: bool = False):
     """Queue one chunk through the lattice entry point ``name`` of
     csrc/<source>.cu on the current stream of the state's device and raise
     on a launch error. ``tail`` holds the protocol's trailing arguments;
     the resident entry points (csrc/fused_resident.cu) then take the
     failure model's, where ``faults`` (the run's, or None) picks the
-    kernels' faulted instance and gives its inputs. Returns (state',
-    rounds_executed, rounds the chunk may run)."""
+    kernels' faulted instance and gives its inputs, and ``telemetry`` their
+    telemetry instance (with the faulted one, under no fault too). Returns
+    (state', rounds_executed, rounds the chunk may run[, rows])."""
     dev = state[0].device
     cap, keys = clamp_cap_and_pad(start, cap, keys)
     resident = source == "fused_resident"
@@ -419,6 +435,15 @@ def kernel_chunk(source: str, name: str, state, keys, start: int, cap: int,
     fargs = [] if not resident else fault_args(
         faults, None if needs is None else streams.data_ptr() + 8 * keys.numel(),
         need_init, start, n_pad, dev, len(state) == 4, revive=True)
+    rows_out = None
+    if resident:
+        targs = [None, None, 0, ctypes.c_float(0.0)]
+        if telemetry:
+            fargs[0] = 1
+            targs, rows_out, _scratch = tele_args(
+                "fused_resident", len(state) == 4, 0, spec.n, n_pad, rounds,
+                keys.shape[0], dev)
+        fargs += targs
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*[x.data_ptr() for x in (*state, *out)], *other,
              work.data_ptr() + 4 * planes, streams.data_ptr(), dirs.data_ptr(),
@@ -426,7 +451,8 @@ def kernel_chunk(source: str, name: str, state, keys, start: int, cap: int,
              n_pad, rounds, *tail, *fargs, dev.index, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-    return tuple(out), head[planes + 1], rounds
+    out = (tuple(out), head[planes + 1], rounds)
+    return out if rows_out is None else (*out, rows_out)
 
 
 def pushsum_stencil_hbm_chunk(state4, keys, start: int, cap: int, *,

@@ -22,26 +22,35 @@ the drop gate and the dead leave a round's senders, a dead node's protocol
 state is frozen, a round is judged by the quorum of its live nodes, and
 push-sum may terminate globally; under a recovery model a revived node
 sends again and, where its rejoin resets it, starts its revival round from
-the reset state: the kernels' faulted instances. CUDA state launches the
-kernels; CPU state runs the plain versions; there is no fallback between
-the two.
+the reset state: the kernels' faulted instances. Robust aggregation's clip
+and the health sentinel (push-sum) and the telemetry plane's rows (both
+protocols) are instances of their own. CUDA state launches the kernels; CPU
+state runs the plain versions; there is no fallback between the two.
+
+The sentinel's Σw and the rows' float sums are whole-grid sums in the
+kernel's fixed order (ops/telemetry.KernelOrder, slice_order for push-sum,
+strided_order for gossip, over the kernel's grid, ``telemetry_grid``): the
+plain versions take that order where they are held against the kernel
+(``order``), and ``sum_f32``'s, the JAX chunked engine's, otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from ..models import gossip as gossip_mod
 from ..models import pushsum as pushsum_mod
-from ..config import unported
 from ..models.pipeline import advance, health_check
+from ..models.pushsum import sum_f32
 from ..utils import kernels
 from . import delivery, fused, rng, sampling
 from . import faults as faults_mod
+from . import telemetry as telemetry_mod
 from .topology import Topology
 
 # The most blocks of a persistent launch (csrc/scatter.cu kMaxGrid): one
@@ -49,10 +58,11 @@ from .topology import Topology
 MAX_GRID = 2048
 
 
-def chunk_launches(rounds: int) -> int:
+def chunk_launches(rounds: int, telemetry: bool = False) -> int:
     """Launches a chunk of csrc/scatter.cu queues: one persistent launch
-    that runs every round, whatever their number; none for no round."""
-    return 1 if rounds > 0 else 0
+    that runs every round, whatever their number, and with telemetry the
+    reduce of its rows; none for no round."""
+    return (2 if telemetry else 1) if rounds > 0 else 0
 
 
 @dataclasses.dataclass
@@ -145,7 +155,7 @@ def gossip_round_plain(state, targets, send_ok, *, rumor_target: int,
 
 
 def _chunk_plain(round_fn, state, keys, status, target: int, start: int,
-                 faults: Optional[fused.Faults]):
+                 faults: Optional[fused.Faults], row_fn=None, wsum=sum_f32):
     """K = keys.shape[0] rounds under the overshoot contract. ``faults``
     adds the drop gate and the living to each round's senders, freezes a
     dead node's protocol state (push-sum's s and w still absorb), judges a
@@ -156,18 +166,26 @@ def _chunk_plain(round_fn, state, keys, status, target: int, start: int,
     push-sum sender among them lies) and a live gossip adversary's state
     takes the mode's override after the freeze; under the health sentinel
     (status int32 [3]) a round whose state is unhealthy ends the run
-    (pipeline.advance)."""
+    (pipeline.advance), its Σw in ``wsum``'s order. With ``row_fn``
+    (telemetry.make_row_fn's) it returns the rows of the rounds it executed
+    too, float32 [K, N_COLS], zero past them."""
     status = status.clone()
+    executed0 = int(status[0])
     fx = None
     bad = None
+    rows = (None if row_fn is None else
+            torch.zeros(keys.shape[0], telemetry_mod.N_COLS, dtype=torch.float32,
+                        device=state[0].device))
     if faults is not None:
         fx = faults.for_chunk(keys, start, state[0].shape[0], state[0].device)
         if faults.mass_tolerance is not None:
-            bad = health_check(state[0].shape[0], faults.mass_tolerance)
+            bad = health_check(state[0].shape[0], faults.mass_tolerance, wsum)
     for k in range(keys.shape[0]):
         if fx is None:
             state = advance(state, round_fn(state, keys[k], True, None), status,
                             target)
+            if rows is not None:
+                rows[k] = row_fn(state, start + k)
             continue
         ok = True
         if fx.thresh is not None:
@@ -190,15 +208,24 @@ def _chunk_plain(round_fn, state, keys, status, target: int, start: int,
             new = gossip_mod.GossipState(*faults_mod.override(
                 fx.byz_mode, lying if alive is None else lying & alive, *new))
         state = advance(state, new, status, target, bad=bad, **verdict)
-    return state, status
+        if rows is not None:
+            rows[k] = row_fn(state, start + k, verdict.get("need"))
+    if rows is None:
+        return state, status
+    rows[int(status[0]) - executed0:] = 0
+    return state, status, rows
 
 
 def pushsum_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
                                 target: int, delta: float, term_rounds: int,
                                 start: int = 0,
-                                faults: Optional[fused.Faults] = None):
+                                faults: Optional[fused.Faults] = None,
+                                telemetry=None, order=None):
     """K = keys.shape[0] push-sum scatter rounds from absolute round
-    ``start`` (plain version of ``pushsum_scatter_chunk``)."""
+    ``start`` (plain version of ``pushsum_scatter_chunk``). ``telemetry``
+    (telemetry.make_row_fn's row function) returns the chunk's rows too;
+    ``order`` (a telemetry.KernelOrder) sums the sentinel's Σw in the
+    kernel's order, sum_f32's (the JAX chunked engine's) without it."""
     global_term = faults is not None and faults.global_term
     mode = "" if faults is None else faults.byz_mode
     clip = faults is not None and faults.clip
@@ -209,19 +236,25 @@ def pushsum_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
                                    term_rounds=term_rounds,
                                    global_term=global_term, lying=lying,
                                    mode=mode, clip=clip)
-    return _chunk_plain(round_fn, state, keys, status, target, start, faults)
+    wsum = sum_f32 if order is None else (
+        lambda v: telemetry_mod.kernel_sum(v, order))
+    return _chunk_plain(round_fn, state, keys, status, target, start, faults,
+                        telemetry, wsum)
 
 
 def gossip_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
                                target: int, rumor_target: int, suppress: bool,
                                start: int = 0,
-                               faults: Optional[fused.Faults] = None):
-    """K gossip scatter rounds (plain version of ``gossip_scatter_chunk``)."""
+                               faults: Optional[fused.Faults] = None,
+                               telemetry=None):
+    """K gossip scatter rounds (plain version of ``gossip_scatter_chunk``);
+    ``telemetry`` as there."""
     def round_fn(st, key, ok, lying):
         targets, send_ok = round_targets(graph, key)
         return gossip_round_plain(st, targets, send_ok & ok,
                                   rumor_target=rumor_target, suppress=suppress)
-    return _chunk_plain(round_fn, state, keys, status, target, start, faults)
+    return _chunk_plain(round_fn, state, keys, status, target, start, faults,
+                        telemetry)
 
 
 # ---------------------------------------------------------------------------
@@ -233,11 +266,40 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     "gossip_pushsum_scatter_chunk": [_P] * 6 + [_I, _I] + [_P] * 7 + [_U] * 3
                                     + [_I, _F, _I, _I] + [_I, _U, _P, _P]
-                                    + [_P, _I, _I] + [_I] + [_P, _I] + [_I, _P],
+                                    + [_P, _I, _I] + [_I] + [_P, _I]
+                                    + [_I, _I, _F, _P, _P, _P, _I, _F] + [_I, _P],
     "gossip_gossip_scatter_chunk": [_P] * 5 + [_I, _I] + [_P] * 3 + [_U] * 3
                                    + [_I] * 4 + [_I, _U, _P, _P] + [_P, _I]
-                                   + [_P, _I] + [_I, _P],
+                                   + [_P, _I] + [_P, _P, _I] + [_I, _P],
+    "gossip_scatter_grid": [_I] * 5,
 }
+# The push-sum kernel's instance flags (csrc/scatter.cu kClip, kSentinel,
+# kTele).
+CLIP, SENTINEL, TELE = 1, 2, 4
+
+
+def instance_flags(faults: Optional[fused.Faults], telemetry: bool) -> int:
+    """The push-sum instance flags of a chunk under ``faults`` (clip, the
+    sentinel) and with or without telemetry."""
+    return ((CLIP if faults is not None and faults.clip else 0)
+            | (SENTINEL if faults is not None and faults.mass_tolerance is not None
+               else 0)
+            | (TELE if telemetry else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def telemetry_grid(pushsum: bool, faulted: bool, flags: int, n: int,
+                   device_index: int) -> int:
+    """The grid of a kernel instance's persistent launch at n nodes on card
+    ``device_index`` (csrc/scatter.cu gossip_scatter_grid): the blocks whose
+    partials a telemetry chunk's scratch holds, and the blocks whose order
+    the plain versions follow (telemetry.slice_order, strided_order)."""
+    fn = kernels.entry("scatter", "gossip_scatter_grid",
+                       _SIGNATURES["gossip_scatter_grid"])
+    grid = fn(int(pushsum), int(faulted), flags, n, device_index)
+    if grid <= 0:
+        raise RuntimeError(f"gossip_scatter_grid failed with cudaError_t {-grid}")
+    return grid
 
 
 def _check(state, dtypes, key, start: int, rounds: int, status,
@@ -268,7 +330,7 @@ def _work(graph: ScatterGraph, pushsum: bool) -> dict:
     gossip's receipts, int32 [2, n], one row a round parity) and the ones
     each round rewrites (push-sum's tickets (target, rank), each bucket's
     offset in its block's slice, the slices' totals and the 16-byte
-    records)."""
+    records, and the sentinel's partials)."""
     n, dev, w = graph.n, graph.device, graph.work
     if pushsum and "counts" not in w:
         w["counts"] = torch.zeros(2, n, dtype=torch.int32, device=dev)
@@ -276,6 +338,9 @@ def _work(graph: ScatterGraph, pushsum: bool) -> dict:
         w["offsets"] = torch.empty(n, dtype=torch.int32, device=dev)
         w["totals"] = torch.empty(MAX_GRID, dtype=torch.int32, device=dev)
         w["records"] = torch.empty(n, 4, dtype=torch.int32, device=dev)
+        # The sentinel's per-block Σw and non-finite flags, a slot a round
+        # parity each (written before they are read in every round).
+        w["health"] = torch.empty(4 * MAX_GRID, dtype=torch.int32, device=dev)
     if not pushsum and "inbox" not in w:
         w["inbox"] = torch.zeros(2, n, dtype=torch.int32, device=dev)
     return w
@@ -300,10 +365,23 @@ def _launch(name: str, args, dev: torch.device) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
+def _tele_buffers(graph: ScatterGraph, pushsum: bool, faulted: bool,
+                  flags: int, rounds: int, dev: torch.device):
+    """A telemetry chunk's scratch (the header and every block's partials
+    of every round), its rows and the instance's grid."""
+    grid = telemetry_grid(pushsum, faulted, flags, graph.n, dev.index)
+    scratch = torch.empty(2 + rounds * grid * telemetry_mod.PARTIALS,
+                          dtype=torch.int32, device=dev)
+    rows = torch.empty(rounds, telemetry_mod.N_COLS, dtype=torch.float32,
+                       device=dev)
+    return scratch, rows, grid
+
+
 def pushsum_scatter_chunk(state, key, start: int, rounds: int, status, *,
                           graph: ScatterGraph, target: int, delta: float,
                           term_rounds: int,
-                          faults: Optional[fused.Faults] = None):
+                          faults: Optional[fused.Faults] = None,
+                          telemetry=None):
     """Push-sum scatter rounds start .. start + rounds - 1 (absolute round
     numbers), round r under the fold_in key ``fused.round_keys`` draws for
     it from the run's ``key`` (int64 [2] on the host).
@@ -315,25 +393,35 @@ def pushsum_scatter_chunk(state, key, start: int, rounds: int, status, *,
     On the card the kernel folds the round keys itself. ``faults`` (the
     run's fused.Faults, None for a fault-free run with local termination)
     adds the drop gate, crash-stop with the quorum verdict and global
-    termination (the kernel's faulted instance)."""
+    termination (the kernel's faulted instance), and with clip
+    (``faults.clip``) or the health sentinel (``faults.mass_tolerance``;
+    status int32 [3]) the kernel's clip or sentinel instance. ``telemetry``
+    (telemetry.make_row_fn's row function, which the plain version runs)
+    picks the telemetry instance, and the chunk returns its rows too,
+    float32 [rounds, N_COLS] on the device."""
     dev = _check(state, (torch.float32, torch.float32, torch.int32, torch.bool),
                  key, start, rounds, status, graph)
-    if faults is not None and dev.type == "cuda" and (
-            faults.clip or faults.mass_tolerance is not None):
-        raise unported("robust_agg='clip' and mass_tolerance in the scatter "
-                       "round's kernel (csrc/scatter.cu)", "A6c-2")
     if dev.type == "cpu":
         return pushsum_scatter_chunk_plain(state, fused.round_keys(key, start, rounds),
                                            status, graph=graph, target=target,
                                            delta=delta, term_rounds=term_rounds,
-                                           start=start, faults=faults)
+                                           start=start, faults=faults,
+                                           telemetry=telemetry)
     out = pushsum_mod.PushSumState(*(x.clone() for x in state))
     status = status.clone()
+    tele = telemetry is not None
     if rounds == 0:
-        return out, status
+        return (out, status) + ((_no_rows(dev),) if tele else ())
     w = _work(graph, pushsum=True)
     words = torch.empty(3 * rounds + 1, dtype=torch.int64, device=dev)
     fargs, _needs = _fault_args(faults, start, rounds, dev)
+    flags = instance_flags(faults, tele)
+    # Telemetry runs with the faulted instance, under no fault too.
+    fargs[0] = int(faults is not None or tele)
+    scratch = rows = None
+    grid = 0
+    if tele:
+        scratch, rows, grid = _tele_buffers(graph, True, True, flags, rounds, dev)
     _launch("gossip_pushsum_scatter_chunk", [
         *(x.data_ptr() for x in out), *_graph_args(graph),
         *(w[k].data_ptr() for k in ("counts", "tickets", "offsets", "totals",
@@ -341,38 +429,60 @@ def pushsum_scatter_chunk(state, key, start: int, rounds: int, status, *,
         words.data_ptr(), status.data_ptr(), *_key_args(key, start), rounds,
         ctypes.c_float(delta), term_rounds, target, *fargs,
         *_revive_args(faults, dev), int(faults is not None and faults.global_term),
-        *_byz_args(faults, dev)], dev)
-    pushsum_scatter_chunk.launches += 1
-    return out, status
+        *_byz_args(faults, dev), int(bool(flags & CLIP)),
+        int(bool(flags & SENTINEL)),
+        ctypes.c_float(0.0 if faults is None or faults.mass_tolerance is None
+                       else faults.mass_tolerance),
+        w["health"].data_ptr(), *_tele_ptrs(scratch, rows), grid,
+        ctypes.c_float(telemetry_mod.true_mean(graph.n))], dev)
+    pushsum_scatter_chunk.launches += chunk_launches(rounds, tele)
+    return (out, status) + ((rows,) if tele else ())
 
 
 def gossip_scatter_chunk(state, key, start: int, rounds: int, status, *,
                          graph: ScatterGraph, target: int, rumor_target: int,
-                         suppress: bool, faults: Optional[fused.Faults] = None):
+                         suppress: bool, faults: Optional[fused.Faults] = None,
+                         telemetry=None):
     """Gossip analog of ``pushsum_scatter_chunk``: ``state`` is a
     GossipState (int32 count, bool active, bool conv); converged-target
-    suppression is receiver-side."""
+    suppression is receiver-side; ``telemetry`` as there."""
     dev = _check(state, (torch.int32, torch.bool, torch.bool), key, start, rounds,
                  status, graph)
     if dev.type == "cpu":
         return gossip_scatter_chunk_plain(state, fused.round_keys(key, start, rounds),
                                           status, graph=graph, target=target,
                                           rumor_target=rumor_target, suppress=suppress,
-                                          start=start, faults=faults)
+                                          start=start, faults=faults,
+                                          telemetry=telemetry)
     out = gossip_mod.GossipState(*(x.clone() for x in state))
     status = status.clone()
+    tele = telemetry is not None
     if rounds == 0:
-        return out, status
+        return (out, status) + ((_no_rows(dev),) if tele else ())
     w = _work(graph, pushsum=False)
     words = torch.empty(rounds + 1, dtype=torch.int64, device=dev)
     fargs, _needs = _fault_args(faults, start, rounds, dev)
+    fargs[0] = int(faults is not None or tele)
+    scratch = rows = None
+    grid = 0
+    if tele:
+        scratch, rows, grid = _tele_buffers(graph, False, True, TELE, rounds, dev)
     _launch("gossip_gossip_scatter_chunk", [
         *(x.data_ptr() for x in out), *_graph_args(graph),
         w["inbox"].data_ptr(), words.data_ptr(), status.data_ptr(),
         *_key_args(key, start), rounds, rumor_target, int(suppress), target,
-        *fargs, *_revive_args(faults, dev)[:2], *_byz_args(faults, dev)], dev)
-    gossip_scatter_chunk.launches += 1
-    return out, status
+        *fargs, *_revive_args(faults, dev)[:2], *_byz_args(faults, dev),
+        *_tele_ptrs(scratch, rows), grid], dev)
+    gossip_scatter_chunk.launches += chunk_launches(rounds, tele)
+    return (out, status) + ((rows,) if tele else ())
+
+
+def _tele_ptrs(scratch, rows) -> list:
+    return [None, None] if scratch is None else [scratch.data_ptr(), rows.data_ptr()]
+
+
+def _no_rows(dev) -> torch.Tensor:
+    return torch.zeros(0, telemetry_mod.N_COLS, dtype=torch.float32, device=dev)
 
 
 def _fault_args(faults: Optional[fused.Faults], start: int, rounds: int,

@@ -47,6 +47,12 @@ def plan_fused_pool_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
             "crash-recovery (revive) runs on the chunked, sharded, and "
             "single-device VMEM fused stencil/pool engines only"
         )
+    if cfg.telemetry:
+        return (
+            "telemetry counters run in the single-device fused kernels and "
+            "the chunked/sharded XLA engines; this composition does not "
+            "carry the counter block"
+        )
     layout = fused_pool.build_pool_layout(topo.n)
     R = layout.rows
     if R % n_dev != 0 or (R // n_dev) % fused_pool.TILE != 0:

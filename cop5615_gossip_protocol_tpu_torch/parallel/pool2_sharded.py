@@ -99,8 +99,9 @@ def plan_pool2_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
     can't run: the JAX plan. ``wire`` is "reduce_scatter" (per-slot bands)
     or "all_gather" (the whole copy), cfg.resolved_pool2_wire with auto
     demoting to the gather wire when the band margin exceeds a shard. The
-    JAX plan's dtype, telemetry and step-timing gates are the port config's
-    own refusals (ROADMAP A6, A8, A12); its crash-recovery gate is here."""
+    JAX plan's dtype and step-timing gates are the port config's own
+    refusals (ROADMAP A8, A12); its crash-recovery and telemetry gates are
+    here."""
     if not topo.implicit:
         return (
             "the replicated-pool2 composition serves the implicit full "
@@ -117,6 +118,12 @@ def plan_pool2_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
         return (
             "crash-recovery (revive) runs on the chunked, sharded, and "
             "VMEM fused stencil/pool engines only"
+        )
+    if cfg.telemetry:
+        return (
+            "telemetry counters run in the single-device fused kernels and "
+            "the chunked/sharded XLA engines; this composition does not "
+            "carry the counter block"
         )
     if cfg.pool_size > 1 << POOL_CHOICE_BITS:
         return (

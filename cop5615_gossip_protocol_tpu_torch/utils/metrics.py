@@ -59,3 +59,15 @@ def append_jsonl(path: str | Path, record: dict) -> None:
         f.write(json.dumps(record) + "\n")
         f.flush()
         os.fsync(f.fileno())
+
+
+def append_jsonl_many(path: str | Path, records) -> None:
+    """Append a batch of records with one flush and fsync for the batch
+    (the per-round trace writes thousands of lines a run)."""
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    with p.open("a") as f:
+        for record in records:
+            f.write(json.dumps(record) + "\n")
+        f.flush()
+        os.fsync(f.fileno())

@@ -18,8 +18,9 @@ pool and whole-array lattice chunks) against the JAX package:
   lie to doubled planes and inverts it for the keep), while the port's
   fused runs are held bitwise against the JAX chunked engine;
 - the ladder: demotion to the chunked engine under engine="auto", JAX's
-  ValueError under engine="fused" and with n_devices > 1, and kernel A's
-  refusal of clip and the sentinel on the card (A6c-2);
+  ValueError under engine="fused" and with n_devices > 1, and on the card
+  kernel A's clip and sentinel instances picked for scatter delivery
+  (A6c-2);
 - the kernels' per-node rules (csrc/faults.cuh built with g++): the lie
   bit on a mark, what a receiver reads of a lying source, the gossip
   override.
@@ -42,7 +43,7 @@ from cop5615_gossip_protocol_tpu.ops import faults as jax_faults
 
 from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, cli, run
 from cop5615_gossip_protocol_tpu_torch.models import runner
-from cop5615_gossip_protocol_tpu_torch.ops import faults, fused
+from cop5615_gossip_protocol_tpu_torch.ops import faults, fused, scatter
 from cop5615_gossip_protocol_tpu_torch.utils.kernels import CSRC
 
 from test_torch_fused_pool import assert_bitwise, run_case
@@ -380,12 +381,50 @@ def test_sharded_runs_raise_the_jax_errors(knobs, engine):
 @pytest.mark.parametrize("knobs", [{"byzantine_rate": 0.1, "robust_agg": "clip"},
                                    {"mass_tolerance": 1e-3}])
 def test_kernel_a_refuses_clip_and_the_sentinel_on_the_card(knobs):
-    # On the card scatter delivery runs csrc/scatter.cu, which carries the
-    # lie and the gossip override but not clip or the sentinel yet.
+    # Kernel A has a clip instance and a sentinel instance but none of the
+    # two together (csrc/scatter.cu pushsum_instance): the config refuses
+    # the pair with the JAX package's text before a chunk is built, and
+    # each knob alone picks one instance.
+    other = ({"mass_tolerance": 1e-3} if "robust_agg" in knobs
+             else {"byzantine_rate": 0.1, "robust_agg": "clip"})
+    with pytest.raises(ValueError) as port_err:
+        SimConfig(n=256, topology="full", algorithm="push-sum", **knobs, **other)
+    with pytest.raises(ValueError) as jax_err:
+        JaxConfig(n=256, topology="full", algorithm="push-sum", **knobs, **other)
+    assert "robust_agg contradicts mass_tolerance" in str(port_err.value)
+    assert str(port_err.value) == str(jax_err.value)
     cfg = SimConfig(n=256, topology="full", algorithm="push-sum", **knobs)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6c-2"):
-        runner._make_chunk_fn(build_topology("full", 256), cfg, faults.rng.PRNGKey(0),
-                              torch.device("cuda", 0), 256)
+    flags = scatter.instance_flags(fused.run_faults(cfg, 256), False)
+    assert flags in (scatter.CLIP, scatter.SENTINEL)
+
+
+@pytest.mark.parametrize("knobs", [{"byzantine_rate": 0.1, "robust_agg": "clip"},
+                                   {"mass_tolerance": 1e-3}])
+def test_kernel_a_picks_clip_and_sentinel_instances_on_the_card(knobs, monkeypatch):
+    # On the card the chunked engine's scatter chunk hands the run's clip or
+    # tolerance to the wrapper, and the wrapper picks the kernel's clip or
+    # sentinel instance (with telemetry, that instance's telemetry form).
+    cfg = SimConfig(n=256, topology="full", algorithm="push-sum", **knobs)
+    seen = {}
+
+    def wrapper(state, key, start, rounds, status, **kw):
+        seen.update(kw)
+        return state, status
+
+    monkeypatch.setattr(runner.scatter, "pushsum_scatter_chunk", wrapper)
+    monkeypatch.setattr(runner.scatter, "scatter_graph", lambda topo, device: None)
+    init = runner.pushsum_mod.init_state
+    monkeypatch.setattr(runner.pushsum_mod, "init_state",
+                        lambda n, term, device=None: init(n, term))
+    chunk, state0 = runner._make_chunk_fn(build_topology("full", 256), cfg,
+                                          faults.rng.PRNGKey(0),
+                                          torch.device("cuda", 0), 256)
+    chunk(state0, torch.zeros(3, dtype=torch.int32), 0, 4)
+    got = seen["faults"]
+    assert (got.clip, got.mass_tolerance) == (cfg.robust_agg == "clip", cfg.mass_tolerance)
+    want = scatter.CLIP if got.clip else scatter.SENTINEL
+    assert scatter.instance_flags(got, False) == want
+    assert scatter.instance_flags(got, True) == want | scatter.TELE
 
 
 # ----------------------------------------------------- the kernels' rules

@@ -123,7 +123,7 @@ def test_quiet_and_reference_format(capsys):
 @pytest.mark.parametrize("flag,item", [
     (["--dup-rate", "0.1"], "A7b"),
     (["--devices", "4"], "A10"),
-    (["--telemetry"], "A6d"),
+    (["--replicas", "4"], "A9"),
     (["--checkpoint", "x.npz"], "A8"),
 ])
 def test_unported_flag_names_roadmap_item(capsys, flag, item):

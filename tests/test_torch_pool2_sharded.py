@@ -438,7 +438,7 @@ def test_other_compositions_refuse_with_their_item(kind, n, kw, exc, words):
 
 
 def test_faults_and_matmul_stay_refused():
-    for kw, item in (({"dup_rate": 0.1}, "A7b"), ({"telemetry": True}, "A6d"),
+    for kw, item in (({"dup_rate": 0.1}, "A7b"), ({"step_timing": True}, "A8"),
                      ({"delivery": "matmul"}, "A7"), ({"halo_dma": "on"}, "A10")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             SimConfig(**{"n": 100_000, "algorithm": "push-sum", "delivery": "pool",
