@@ -332,8 +332,26 @@ non-zero before the last line:
    and global termination: every count column of the rows exact, the
    estimate and mass to stated tolerances), and TELE_CLIS through the CLI
    with --trace-convergence against the JAX CLI's trace;
+14q. (run after 14p) delivery="matmul" and the dup and delay instances of
+   kernel A (ROADMAP A7b): full 1,000,000 push-sum and gossip with
+   --delivery matmul --pool-size 2 through run() on rows 1-2, bitwise the
+   --delivery pool run and at the JAX chunked engine's baked rounds; full
+   2,097,153 a few chunks on rows 3-4 and on the replicated-pool2
+   composition over 2 shards on the card, bitwise the pool runs; imp2d
+   100,489 push-sum --delivery matmul --pool-size 4 on the chunked engine
+   to convergence, bitwise the port's CPU run (baked); then each dup and
+   delay instance of kernel A at full 1,000,000 and imp2d 100,489, both
+   algorithms (dup, delay, both; with telemetry, a gate with churn, a
+   Byzantine model, clip, global termination), a 32-round chunk from round
+   16 against the plain version (every plane, the ring, the status and
+   every row bitwise); DD_RUNS through run() against the JAX chunked
+   engine's values baked on the CPU (rounds, counts, outcome, estimate, the
+   final planes by digest, and under telemetry the rows), DD_CLIS through
+   the CLI with --dup-rate and --delay-rounds, and grid2d 10,000 push-sum
+   with dup and delay on stencil delivery (the chunked engine's torch
+   rounds) bitwise the port's CPU run (baked);
 
-Each of phases 5-14p prints its wall time.
+Each of phases 5-14q prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -352,6 +370,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import statistics
 import subprocess
@@ -3103,9 +3122,19 @@ def scatter_largest(dev, key, round_keys):
     return errs
 
 
+# The wait between a trace's start and the work it traces (cuda_profile).
+TRACE_LEAD_S = 0.2
+
+
 def cuda_profile():
     """torch.profiler over the card's activity alone, its warning that it
-    keeps one cycle's events silenced (one cycle is all this takes)."""
+    keeps one cycle's events silenced (one cycle is all this takes). The
+    trace waits TRACE_LEAD_S after it starts before the stack is handed
+    back. With the host's cores busy, a trace entered just before a run
+    now and then lacked the run's first launches (1 to 7 of a scatter
+    run's 19 round kernels, in 1 to 3 of 300 traces; the first launch it
+    kept began within 0.5 ms of its start), and none of 300 traces with
+    the wait did (scripts/profiler_window.py)."""
     import contextlib
 
     import torch
@@ -3115,6 +3144,7 @@ def cuda_profile():
     warnings.simplefilter("ignore", UserWarning)
     prof = stack.enter_context(torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA]))
+    time.sleep(TRACE_LEAD_S)
     return stack, prof
 
 
@@ -6487,13 +6517,15 @@ TELE_CLIS = (
 )
 
 
-def tele_row_close(label, got, want, n):
+def tele_row_close(label, got, want, n, total=None):
     """A card row against the JAX chunked engine's: counts equal, the
     estimate within 1e-4 relative, and the mass within the JAX package's
     fused-against-chunked atol of 1e-2 or 4 ulps of a float32 n, whichever
     is larger (0.25 at 1,000,000). The card's kernels add Σw in their own
     order and sum_f32 in another; on these runs' states the orders differ
-    by at most 3 ulps of n (scripts/telemetry_mass_orders.py)."""
+    by at most 3 ulps of n (scripts/telemetry_mass_orders.py). Where Σw
+    strays far from n (``total``: duplicate delivery creates mass), the
+    ulps are Σw's."""
     import numpy as np
 
     for c in TELE_INTS:
@@ -6501,7 +6533,7 @@ def tele_row_close(label, got, want, n):
             raise AssertionError(f"{label}: column {c} {got[c]} != JAX {want[c]}")
     if abs(got[4] - want[4]) > 1e-4 * abs(want[4]) + 1e-7:
         raise AssertionError(f"{label}: estimate_mae {got[4]} != JAX {want[4]}")
-    tol = max(1e-2, 4 * float(np.spacing(np.float32(n))))
+    tol = max(1e-2, 4 * float(np.spacing(np.float32(n if total is None else total))))
     if abs(got[5] - want[5]) > tol:
         raise AssertionError(f"{label}: mass_residual {got[5]} != JAX {want[5]} (tol {tol})")
 
@@ -6695,6 +6727,529 @@ def tele_rows(cases, launches, max_err):
                      "faulted_off_ms": faulted_ms,
                      "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
                      "grid": grid, "config": instance, "status": "ported"})
+    return rows
+
+
+# ----------------------------------------------------------------- 14q
+# delivery="matmul" (A7b): on full it runs the pool tiers, whose kernels
+# compute its function (rows 1-4 and, with n_devices > 1, rows 20-21), so a
+# matmul run must be bitwise its pool run. Its rounds at 1,000,000 and
+# pool_size 2 are the JAX chunked engine's (its matmul tier is bitwise its
+# pool tier there: a receiver gets at most two sends), baked from the CPU:
+# (rounds, converged count, estimate_mae).
+MATMUL_JAX = {"push-sum": (545, 1000000, 0.024193345390492643),
+              "gossip": (48, 1000000, None)}
+MATMUL_BIG = 2**21 + 1  # past the pool tier's cap: rows 3-4, and rows 20-21 x2
+MATMUL_BIG_ROUNDS = 24
+# The chunked engine's matmul round on imp2d 100,489 push-sum, pool_size 4,
+# to convergence: the port's order is explicit, so the card's run is
+# bitwise the port's CPU run, baked here (rounds, converged count,
+# estimate_mae, a digest of the final planes). JAX's pool run of the same
+# config ends at JAX_IMP_POOL_ROUNDS; JAX's matmul run follows its host's
+# thread count (ROADMAP C) and is not pinned.
+MATMUL_IMP = (467, 100489, 0.00277182584593402, "66b7aedc3c4c5dda")
+JAX_IMP_POOL_ROUNDS = 532
+
+# Kernel A's dup and delay instances: dup_rate 0.05 and a ring of depth 3,
+# each chunk from the instance's own round-DD_MID state across a
+# CHUNK-round stretch (the ring wraps ten times), against the plain version.
+DD_KW = {"dup_rate": 0.05, "delay_rounds": 3}
+DD_MID = 16
+DD_KINDS = (("full", N), ("imp2d", 100_489))
+
+
+def dd_churn(n, algorithm):
+    """A drop gate with a crash and revive schedule (push-sum rejoining
+    fresh), as phase 14p's churn."""
+    return tele_knobs(n, algorithm, True)
+
+
+def dd_configs(n, algorithm):
+    """Phase 14q's chunk checks at population n: (label, knobs, telemetry)."""
+    byz = {"byzantine_schedule": f"4:{n // 100}",
+           "byzantine_mode": "mass_deflate" if algorithm == "push-sum" else "stale_rumor"}
+    out = [("dup", {"dup_rate": 0.05}, False), ("delay", {"delay_rounds": 3}, False),
+           ("dup delay", DD_KW, False), ("dup delay telemetry", DD_KW, True),
+           ("dup delay churn telemetry", dict(DD_KW, **dd_churn(n, algorithm)), True),
+           ("dup delay byzantine", dict(DD_KW, **byz), False)]
+    if algorithm == "push-sum":
+        clip = {"byzantine_schedule": f"4:{n // 100}", "byzantine_mode": "mass_inflate",
+                "robust_agg": "clip"}
+        # The sentinel (which excludes the dup gate) under the ring, tripping
+        # at round 20 inside the chunk, as phase 14p's does.
+        sentinel = {"byzantine_schedule": f"20:{n // 100}", "byzantine_mode": "mass_inflate",
+                    "mass_tolerance": 100.0, "delay_rounds": 3}
+        out += [("dup clip", dict(clip, dup_rate=0.05), False),
+                ("dup delay clip telemetry", dict(DD_KW, **clip), True),
+                ("dup global telemetry", {"dup_rate": 0.05, "termination": "global"}, True),
+                ("delay sentinel", sentinel, False),
+                ("delay sentinel telemetry", sentinel, True)]
+    return out
+
+
+def dd_fns(dev, key, kind, n, algorithm, kw, tele):
+    """One phase 14q config of kernel A: a namespace of the wrapper, the
+    plain version, chunk(fn, carry, start, count, fx=the config's Faults) ->
+    (carry, status, rows or None), the initial carry (with its ring of
+    zeros under delay), the grid and the instance's flags. The plain
+    version sums the rows' floats in the kernel's order on that grid."""
+    import types
+
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models import gossip as gossip_mod
+    from cop5615_gossip_protocol_tpu_torch.models import pipeline
+    from cop5615_gossip_protocol_tpu_torch.models import pushsum as pushsum_mod
+    from cop5615_gossip_protocol_tpu_torch.models.runner import draw_leader
+    from cop5615_gossip_protocol_tpu_torch.ops import fused, scatter, telemetry
+
+    pushsum = algorithm == "push-sum"
+    topo = build_topology(kind, n)
+    n = topo.n
+    cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, telemetry=tele, **kw)
+    graph = scatter.scatter_graph(topo, dev)
+    faults = fused.run_faults(cfg, n)
+    flags = scatter.instance_flags(faults, tele, pushsum)
+    grid = scatter.telemetry_grid(pushsum, True, flags, n, dev.index) if tele else None
+    order = ((telemetry.slice_order if pushsum else telemetry.strided_order)(grid, n).to(dev)
+             if tele else None)
+    if pushsum:
+        st0 = pushsum_mod.init_state(n, cfg.initial_term_round, dev)
+        kern, plain = scatter.pushsum_scatter_chunk, scatter.pushsum_scatter_chunk_plain
+        extra = {"delta": cfg.resolved_delta, "term_rounds": cfg.term_rounds}
+        ring0 = torch.zeros(cfg.delay_rounds, 2, n, device=dev)
+    else:
+        st0 = gossip_mod.init_state(n, draw_leader(key, topo, cfg), False, dev)
+        kern, plain = scatter.gossip_scatter_chunk, scatter.gossip_scatter_chunk_plain
+        extra = {"rumor_target": cfg.resolved_rumor_target, "suppress": cfg.resolved_suppress}
+        ring0 = torch.zeros(cfg.delay_rounds, n, dtype=torch.int32, device=dev)
+    init = pipeline.Ringed(st0, ring0) if cfg.delay_rounds else st0
+    rows_kern = telemetry.make_row_fn(topo, cfg, key, dev) if tele else None
+    rows_plain = (telemetry.make_row_fn(topo, cfg, key, dev, fsum=functools.partial(
+        telemetry.kernel_sum, order=order)) if tele else None)
+    keys = functools.lru_cache(maxsize=None)(
+        lambda start, count: fused.round_keys(key, start, count))
+
+    health = [NEVER] if cfg.mass_tolerance is not None else []
+
+    def chunk(fn, carry, start, count, fx=faults):
+        status = torch.tensor([start, 0, *health], dtype=torch.int32, device=dev)
+        if fn is plain:
+            out = fn(carry, keys(start, count), status, graph=graph, target=n, start=start,
+                     faults=fx, telemetry=rows_plain,
+                     **({"order": order} if pushsum and tele else {}), **extra)
+        else:
+            out = fn(carry, key, start, count, status, graph=graph, target=n, faults=fx,
+                     telemetry=rows_kern, **extra)
+        return out[0], out[1], out[2] if tele else None
+
+    return types.SimpleNamespace(kern=kern, plain=plain, chunk=chunk, init=init, n=n,
+                                 faults=faults, flags=flags, grid=grid, graph=graph)
+
+
+def dd_compare(tag, got, want):
+    """Two chunks' carries (planes and ring), status and rows, bitwise;
+    returns the largest absolute difference (0.0)."""
+    from cop5615_gossip_protocol_tpu_torch.models import pipeline
+
+    err = same_planes(tag, pipeline.proto_of(got[0]), pipeline.proto_of(want[0]))
+    rings = [c.ring for c in (got[0], want[0]) if isinstance(c, pipeline.Ringed)]
+    if len(rings) == 1:
+        raise AssertionError(f"{tag}: one side carries a ring")
+    if rings:
+        same_planes(f"{tag}: ring", [rings[0]], [rings[1]])
+    same_planes(f"{tag}: status", [got[1]], [want[1]])
+    if got[2] is not None:
+        same_planes(f"{tag}: rows", [got[2]], [want[2]])
+    return err
+
+
+def dd_checks(dev, key):
+    """Phase 14q, kernel A: every dd_configs config at each of DD_KINDS, both
+    algorithms: the wrapper's own round-DD_MID carry, then a CHUNK-round
+    chunk of the kernel against the plain version on it, every plane, the
+    ring, the status and the rows bitwise. Returns ({(algorithm, kind,
+    label): (fns, mid carry)}, {the same: max_err})."""
+    cases, max_err = {}, {}
+    t0 = time.perf_counter()
+    for kind, n in DD_KINDS:
+        for algorithm in ("push-sum", "gossip"):
+            for label, kw, tele in dd_configs(n, algorithm):
+                f = dd_fns(dev, key, kind, n, algorithm, kw, tele)
+                mid, st, _ = f.chunk(f.kern, f.init, 0, DD_MID)
+                if int(st[1]) or int(st[0]) != DD_MID:
+                    raise AssertionError(f"{algorithm} {kind} {label}: the run ended "
+                                         f"before round {DD_MID} ({st.tolist()})")
+                got = f.chunk(f.kern, mid, DD_MID, CHUNK)
+                want = f.chunk(f.plain, mid, DD_MID, CHUNK)
+                tag = f"{algorithm} {kind} {label}"
+                max_err[algorithm, kind, label] = dd_compare(tag, got, want)
+                cases[algorithm, kind, label] = (f, mid)
+    print(f"  kernel A's dup and delay instances, {len(cases)} configs (full 1M and imp2d "
+          f"100,489, both algorithms: dup, delay, both, with telemetry, a gate and churn, a "
+          f"Byzantine model, clip, global termination, and the sentinel under the ring "
+          f"tripping at round 20): a {CHUNK}-round chunk from round {DD_MID} bitwise the "
+          f"plain version (planes, ring, status, rows) ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return cases, max_err
+
+
+# Phase 14q's runs through run(): (label, kind, n, algorithm, knobs, and the
+# JAX chunked engine's values on the CPU as TELE_RUNS bakes them). The
+# first DD_ROW_RUNS are the kernels line's rows' main-path runs, one a row.
+DD_ROW_RUNS = 10
+DD_RUNS = (
+    ("scatter push-sum dup", "full", N, "push-sum",
+     dict(dup_rate=0.05, max_rounds=100),
+     (100, 662161, "max_rounds", None, 21.345198576772525, "a9817a13535a688d"),
+     None),
+    ("scatter push-sum delay", "full", N, "push-sum",
+     dict(delay_rounds=3, max_rounds=100),
+     (100, 2, "max_rounds", None, 1.6822862998815253, "67c3493c4add0247"),
+     None),
+    ("scatter push-sum dup delay", "full", N, "push-sum",
+     dict(DD_KW, max_rounds=100),
+     (100, 0, "max_rounds", None, 0.0, "27548cc3d333fca6"),
+     None),
+    ("scatter gossip dup", "full", N, "gossip",
+     dict(dup_rate=0.05),
+     (56, 1000000, "converged", None, None, "7ca8eb1f6a3852dd"),
+     None),
+    ("scatter gossip delay", "full", N, "gossip",
+     dict(delay_rounds=3),
+     (81, 1000000, "converged", None, None, "18e2a34e36ddd23b"),
+     None),
+    ("scatter gossip dup delay", "full", N, "gossip",
+     dict(DD_KW),
+     (81, 1000000, "converged", None, None, "17e9bf05b278a530"),
+     None),
+    ("scatter push-sum telemetry dup delay churn", "imp2d", 100_489, "push-sum",
+     dict(DD_KW, telemetry=True, max_rounds=300, **dd_churn(100_489, "push-sum")),
+     (300, 30, "max_rounds", None, 1182.1525394685405, "52d54cae066c343b"),
+     ("9bd45158e38ad0fb", 150,
+      [12.0, 96972.0, 92114.0, 0.0, 1303.3414306640625, 84223.65625, 9539.0, 4839.0, 0.0, 0.0],
+      [30.0, 96972.0, 92096.0, 0.0, 1182.1527099609375, 350865.625, 9808.0, 4814.0, 0.0, 0.0])),
+    ("scatter gossip telemetry dup delay churn", "imp2d", 100_489, "gossip",
+     dict(DD_KW, telemetry=True, **dd_churn(100_489, "gossip")),
+     (87, 93112, "converged", None, None, "489b2bd7e210a3f3"),
+     ("d171deb64f84a063", 43,
+      [194.0, 96972.0, 91930.0, 4049.0, 0.0, 0.0, 9904.0, 4950.0, 0.0, 0.0],
+      [93112.0, 96972.0, -988.0, 96975.0, 0.0, 0.0, 9763.0, 4831.0, 0.0, 0.0])),
+    ("scatter clip dup", "full", N, "push-sum",
+     dict(dup_rate=0.05, byzantine_schedule="20:10000", byzantine_mode="mass_inflate",
+          robust_agg="clip", max_rounds=100),
+     (100, 670067, "max_rounds", None, 26.010026373205132, "576ee5a446e53232"),
+     None),
+    ("scatter delay sentinel", "full", N, "push-sum",
+     dict(delay_rounds=3, byzantine_schedule="20:10000", byzantine_mode="mass_inflate",
+          mass_tolerance=100.0, max_rounds=100),
+     (21, 0, "unhealthy", 20, 0.0, "8c3a8bec6428897b"),
+     None),
+    ("scatter global dup", "full", 20_000, "push-sum",
+     dict(dup_rate=0.05, termination="global"),
+     (53, 20000, "converged", None, 1.4731923774287397, "88d907f5621ded1e"),
+     None),
+    ("scatter imp2d push-sum dup delay", "imp2d", 100_489, "push-sum",
+     dict(DD_KW, max_rounds=300),
+     (300, 79, "max_rounds", None, 17.30833528072078, "41ccf5158848d04f"),
+     None),
+    ("scatter imp2d gossip byzantine dup delay", "imp2d", 100_489, "gossip",
+     dict(DD_KW, max_rounds=300, byzantine_rate=0.01,
+          byzantine_mode="stale_rumor"),
+     (300, 99523, "max_rounds", None, None, "ac2e550c01a4cb3c"),
+     None),
+)
+# The CLI with --dup-rate and --delay-rounds on the card against the JAX
+# chunked engine's (rounds, converged count, estimate_mae) for the same
+# arguments.
+DD_CLIS = ((["1000", "full", "gossip", "--dup-rate", "0.1", "--delay-rounds", "3"],
+            (49, 1000, None, True)),
+           (["1000", "full", "push-sum", "--dup-rate", "0.05", "--delay-rounds", "2",
+             "--max-rounds", "400"], (400, 996, 1.176238475496141, False)))
+# Stencil delivery with dup and delay (the chunked engine's torch rounds) on
+# grid2d 10,000 push-sum, 300 rounds: bitwise the port's CPU run, baked
+# (rounds, converged count, outcome, estimate_mae, the planes' digest).
+DD_STENCIL = (300, 11, "max_rounds", 2435.434775220734, "7d8f6b757bdf9cea")
+
+
+def state_digest(state):
+    """The first 16 hex digits of the sha256 of a state's planes' bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for x in state:
+        x = x.cpu().contiguous()
+        h.update(x.numpy().tobytes() if x.dtype == torch.bool
+                 else x.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def matmul_path(dev):
+    """Phase 14q, delivery="matmul": full 1M push-sum and gossip at
+    pool_size 2 through run() (rows 1-2), bitwise the pool runs and at
+    JAX's rounds; full 2,097,153 (rows 3-4) and its replicated-pool2
+    composition over 2 shards on the card (rows 20-21), a few chunks
+    bitwise the pool runs; imp2d 100,489 push-sum at pool_size 4 on the
+    chunked engine to convergence, bitwise the port's CPU run. Counters
+    zeroed before each run and read after it."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.models.runner import fused_tier
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_pool, fused_pool2
+    from cop5615_gossip_protocol_tpu_torch.parallel import pool2_sharded
+
+    counters = (fused_pool.pushsum_pool_chunk, fused_pool.gossip_pool_chunk,
+                fused_pool2.pushsum_pool2_chunk, fused_pool2.gossip_pool2_chunk,
+                pool2_sharded.pushsum_pool2_shard_round,
+                pool2_sharded.gossip_pool2_shard_round)
+
+    def both(kind, n, algorithm, devices=None, **kw):
+        out = {}
+        for delivery in ("pool", "matmul"):
+            for fn in counters:
+                fn.launches = 0
+            cfg = SimConfig(n=n, topology=kind, algorithm=algorithm, delivery=delivery, **kw)
+            res = run(build_topology(kind, n), cfg, devices=devices)
+            out[delivery] = (res, {fn.__name__: fn.launches for fn in counters if fn.launches})
+        (p, pl), (m, ml) = out["pool"], out["matmul"]
+        tag = f"{algorithm} {kind} n={n:,} {kw}"
+        if (m.rounds, m.converged_count, m.estimate_mae) != (
+                p.rounds, p.converged_count, p.estimate_mae) or ml != pl or not ml:
+            raise AssertionError(f"{tag}: matmul {m.rounds}/{m.estimate_mae} {ml} != pool "
+                                 f"{p.rounds}/{p.estimate_mae} {pl}")
+        same_planes(f"{tag}: matmul vs pool", m.state, p.state)
+        return m, ml
+
+    t0 = time.perf_counter()
+    for algorithm in ("push-sum", "gossip"):
+        topo = build_topology("full", N)
+        cfg = SimConfig(n=N, algorithm=algorithm, delivery="matmul", pool_size=POOL)
+        if fused_tier(topo, cfg) != ("pool", None):
+            raise AssertionError(f"matmul 1M {algorithm}: tier {fused_tier(topo, cfg)}")
+        res, launches = both("full", N, algorithm, pool_size=POOL)
+        want = MATMUL_JAX[algorithm]
+        got = (res.rounds, res.converged_count, res.estimate_mae)
+        if got[:2] != want[:2] or (want[2] is not None and abs(got[2] - want[2]) > 1e-12):
+            raise AssertionError(f"matmul 1M {algorithm}: {got} != JAX {want}")
+        print(f"  full 1M {algorithm} --delivery matmul --pool-size 2: rows 1-2 ({launches}), "
+              f"bitwise the pool run, {res.rounds} rounds as JAX's", flush=True)
+    for algorithm in ("push-sum", "gossip"):
+        cfg = SimConfig(n=MATMUL_BIG, algorithm=algorithm, delivery="matmul", pool_size=POOL)
+        if fused_tier(build_topology("full", MATMUL_BIG), cfg) != ("pool2", None):
+            raise AssertionError(f"matmul {MATMUL_BIG} {algorithm}: not rows 3-4")
+        _, launches = both("full", MATMUL_BIG, algorithm, pool_size=POOL, chunk_rounds=8,
+                           max_rounds=MATMUL_BIG_ROUNDS)
+        _, shard = both("full", MATMUL_BIG, algorithm, devices=[str(dev)] * 2, pool_size=POOL,
+                        chunk_rounds=8, max_rounds=MATMUL_BIG_ROUNDS, n_devices=2,
+                        engine="fused")
+        print(f"  full {MATMUL_BIG:,} {algorithm} matmul, {MATMUL_BIG_ROUNDS} rounds: rows "
+              f"3-4 ({launches}) and the replicated-pool2 composition x2 on the card "
+              f"({shard}), each bitwise its pool run", flush=True)
+    cfg = SimConfig(n=100_489, topology="imp2d", algorithm="push-sum", delivery="matmul",
+                    pool_size=4)
+    res = run(build_topology("imp2d", 100_489), cfg)
+    got = (res.rounds, res.converged_count, res.estimate_mae, state_digest(res.state))
+    if got != MATMUL_IMP:
+        raise AssertionError(f"imp2d 100,489 matmul on the card {got} != CPU {MATMUL_IMP}")
+    print(f"  imp2d 100,489 push-sum --delivery matmul --pool-size 4 (the chunked engine): "
+          f"{res.rounds} rounds, bitwise the port's CPU run (JAX's pool run: "
+          f"{JAX_IMP_POOL_ROUNDS}; JAX's matmul run follows its host's threads); run_s "
+          f"{res.run_s:.3f}, {res.run_s * 1e3 / res.rounds:.3f} ms a round "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(json.dumps({"metric": "pushsum_matmul_round_ms_imp2d_n100489",
+                      "rounds": res.rounds, "run_s": res.run_s,
+                      "ms_per_round": res.run_s * 1e3 / res.rounds,
+                      "dispatch_s": res.dispatch_s, "fetch_s": res.fetch_s}), flush=True)
+
+
+def dd_path(dev):
+    """Phase 14q, the runs: each of DD_RUNS on the card through run(), the
+    counters zeroed just before it and read just after, against the JAX
+    chunked engine's values baked above (rounds, converged count, outcome,
+    unhealthy round, estimate, and the rows' count columns by digest, the
+    middle and last rows to tele_row_close's tolerances); DD_CLIS through
+    the CLI; the stencil run against the port's CPU run. Returns {label:
+    launches} of the first DD_ROW_RUNS runs."""
+    import hashlib
+
+    import numpy as np
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, cli, run
+    from cop5615_gossip_protocol_tpu_torch.ops import scatter
+
+    counters = {"push-sum": scatter.pushsum_scatter_chunk,
+                "gossip": scatter.gossip_scatter_chunk}
+    launches = {}
+    t0 = time.perf_counter()
+    for i, (label, kind, n, algorithm, kw, want, tele) in enumerate(DD_RUNS):
+        for fn in counters.values():
+            fn.launches = 0
+        topo = build_topology(kind, n)
+        res = run(topo, SimConfig(n=n, topology=kind, algorithm=algorithm, **kw))
+        got = (res.rounds, res.converged_count, res.outcome, res.unhealthy_round,
+               res.estimate_mae, state_digest(res.state))
+        mae, want_mae = got[4], want[4]
+        if got[:4] != tuple(want[:4]) or got[5] != want[5] or (mae is None) != (
+                want_mae is None) or (mae is not None and abs(mae - want_mae) > 1e-12 * max(
+                    1.0, abs(want_mae))):
+            raise AssertionError(f"{label} ({kind} n={n:,}): {got} != JAX {want}")
+        own = counters[algorithm].launches
+        if own == 0 or sum(fn.launches for fn in counters.values()) != own:
+            raise AssertionError(f"{label}: kernel A's launches {own}")
+        if tele is not None:
+            digest, mid_i, mid_row, last_row = tele
+            data = res.telemetry.data
+            ints = hashlib.sha256(data[:, list(TELE_INTS)].astype(np.int64).tobytes())
+            if ints.hexdigest()[:16] != digest:
+                raise AssertionError(f"{label}: the rows' count columns differ from JAX's")
+            for tag, row, want_row in ((f"row {mid_i}", data[mid_i], mid_row),
+                                       ("last row", data[-1], last_row)):
+                tele_row_close(f"{label} {tag}", row.tolist(), want_row, topo.n,
+                               total=topo.n + abs(want_row[5]))
+        if i < DD_ROW_RUNS:
+            launches[label] = own
+            MAIN_ROUNDS[{r[1]: r[2] for r in DD_ROWS}[label]] = res.rounds
+        print(f"  {label} ({kind} n={n:,}): {res.outcome} at round {res.rounds}, {own} "
+              f"launches", flush=True)
+    for argv, want in DD_CLIS:
+        rec = io.StringIO()
+        with contextlib.redirect_stdout(rec):
+            rc = cli.main(argv)
+        out = json.loads(rec.getvalue().strip().splitlines()[-1])
+        got = (out["rounds"], out["converged_count"], out["estimate_mae"])
+        if rc != (0 if want[3] else 1) or got != tuple(want[:3]):
+            raise AssertionError(f"CLI {argv}: exit {rc}, {got} != JAX {want}")
+    res = run(build_topology("grid2d", 10_000),
+              SimConfig(n=10_000, topology="grid2d", algorithm="push-sum", delivery="stencil",
+                        max_rounds=300, **DD_KW))
+    got = (res.rounds, res.converged_count, res.outcome, res.estimate_mae,
+           state_digest(res.state))
+    if got != DD_STENCIL:
+        raise AssertionError(f"grid2d 10,000 stencil dup delay on the card {got} != CPU "
+                             f"{DD_STENCIL}")
+    print(f"  {len(DD_RUNS)} runs through run() equal to the JAX chunked engine's, "
+          f"{len(DD_CLIS)} CLI runs with --dup-rate/--delay-rounds, and grid2d 10,000 "
+          f"stencil push-sum with dup and delay bitwise the CPU run "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return launches
+
+
+def dd_phase(dev, key):
+    """Phase 14q: matmul_path, dd_checks, then dd_path. Returns (cases,
+    max_err, launches)."""
+    matmul_path(dev)
+    cases, max_err = dd_checks(dev, key)
+    return cases, max_err, dd_path(dev)
+
+
+# The kernels line's rows of phase 14q: (case, the main-path run whose
+# launches the row reports, the row's name).
+DD_ROWS = (
+    (("push-sum", "full", "dup"), "scatter push-sum dup", "pushsum_scatter_chunk dup full"),
+    (("push-sum", "full", "delay"), "scatter push-sum delay",
+     "pushsum_scatter_chunk delay full"),
+    (("push-sum", "full", "dup delay"), "scatter push-sum dup delay",
+     "pushsum_scatter_chunk dup delay full"),
+    (("gossip", "full", "dup"), "scatter gossip dup", "gossip_scatter_chunk dup full"),
+    (("gossip", "full", "delay"), "scatter gossip delay", "gossip_scatter_chunk delay full"),
+    (("gossip", "full", "dup delay"), "scatter gossip dup delay",
+     "gossip_scatter_chunk dup delay full"),
+    (("push-sum", "imp2d", "dup delay churn telemetry"),
+     "scatter push-sum telemetry dup delay churn",
+     "pushsum_scatter_chunk dup delay telemetry imp2d"),
+    (("gossip", "imp2d", "dup delay churn telemetry"),
+     "scatter gossip telemetry dup delay churn",
+     "gossip_scatter_chunk dup delay telemetry imp2d"),
+    (("push-sum", "full", "dup clip"), "scatter clip dup", "pushsum_scatter_chunk dup clip full"),
+    (("push-sum", "full", "delay sentinel"), "scatter delay sentinel",
+     "pushsum_scatter_chunk delay sentinel full"),
+)
+
+
+def scatter_registers():
+    """{(pushsum, faulted, flags): (registers, spill bytes)} of csrc/scatter.cu's
+    round kernels, from its ptxas log."""
+    import re
+
+    from cop5615_gossip_protocol_tpu_torch.utils import kernels
+
+    out, entry = {}, None
+    for line in kernels.library_path("scatter").with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(pushsum|gossip)_roundsILb(\d)ELi(\d+)E", line)
+        if "Compiling entry function" in line:
+            entry = (m.group(1) == "pushsum", int(m.group(2)), int(m.group(3))) if m else None
+        elif entry and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            out[entry] = [None, spill]
+        elif entry and "registers" in line:
+            out[entry][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def dd_rows(cases, launches, max_err):
+    """Phase 14q's rows of the kernels line: each new instance over a
+    CHUNK-round chunk from its round-DD_MID carry by CUDA events (median of
+    TIME_REPS), beside the faulted instance it extends (the same config
+    without the dup gate and the ring, on the same state in the same call)
+    and the plain version, with the registers and spills of both
+    instances. The faulted instance starts from the protocol state with
+    push-sum's mass in flight (the ring's s and w) added to each node, so
+    its Σw is the run's and the sentinel trips where the new instance's
+    does; each side's µs a round are over the rounds it ran, and their
+    ratio is ``on_over_base``. The bound is byz_rows' for kernel A plus the
+    ring's words read and written each round (push-sum 16 bytes a node,
+    gossip 8) and, under the dup gate, a hash a node."""
+    from cop5615_gossip_protocol_tpu_torch.models import pipeline
+
+    regs = scatter_registers()
+    rows = []
+    for case, run_label, row_name in DD_ROWS:
+        algorithm, kind, label = case
+        f, mid = cases[case]
+        pushsum = algorithm == "push-sum"
+        name = "pushsum" if pushsum else "gossip"
+        ms, (_, st, _) = time_ms(lambda: f.chunk(f.kern, mid, DD_MID, CHUNK), TIME_REPS)
+        base_fx = dataclasses.replace(f.faults, dup_thresh=None, delay=0, planes={})
+        proto = pipeline.proto_of(mid)
+        if pushsum and isinstance(mid, pipeline.Ringed):
+            proto = proto._replace(s=proto.s + mid.ring[:, 0].sum(0),
+                                   w=proto.w + mid.ring[:, 1].sum(0))
+        base_ms, (_, base_st, _) = time_ms(
+            lambda: f.chunk(f.kern, proto, DD_MID, CHUNK, base_fx), TIME_REPS)
+        plain_ms, _ = time_ms(lambda: f.chunk(f.plain, mid, DD_MID, CHUNK), 1)
+        rounds = max(int(st[0]) - DD_MID, 1)
+        base_rounds = max(int(base_st[0]) - DD_MID, 1)
+        per_round = (ms / rounds) / (base_ms / base_rounds)
+        n = f.n
+        ring = 0 if not f.flags & 16 else (16 if pushsum else 8)
+        moved = rounds * n * (2 * SCATTER_STATE_BYTES[name] + 4 + ring)
+        ops = rounds * n * (SCATTER_OPS[name] + (OPS_PER_HASH if f.flags & 8 else 0))
+        bytes_ms, ops_ms = moved / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        mine = regs.get((pushsum, 1, f.flags), [None, None])
+        base = regs.get((pushsum, 1, f.flags & ~24), [None, None])
+        if mine[1]:
+            raise AssertionError(f"{row_name}: the instance spills {mine[1]} bytes")
+        print(f"  {row_name} (n={n:,}): {ms:.4f} ms a {rounds}-round chunk "
+              f"({ms * 1e3 / rounds:.1f} us a round, {mine[0]} registers, spill {mine[1]}) "
+              f"against the faulted instance it extends {base_ms:.4f} ms a "
+              f"{base_rounds}-round chunk ({base_ms * 1e3 / base_rounds:.1f} us a round, "
+              f"{base[0]} registers) on the same state ({per_round:.3f}x a round), "
+              f"plain {plain_ms:.1f} ms", flush=True)
+        rows.append({"name": row_name, "route": "cuda",
+                     "source": "cop5615_gossip_protocol_tpu_torch/csrc/scatter.cu",
+                     "replaces": "cop5615_gossip_protocol_tpu/ops/delivery.py:22",
+                     "launches": launches[run_label],
+                     "max_abs_err": max_err[case],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "library_ms": None, "faulted_base_ms": base_ms,
+                     "faulted_base_rounds": base_rounds,
+                     "on_over_base": per_round, "registers": mine[0],
+                     "spill_bytes": mine[1], "base_registers": base[0],
+                     "rounds_per_call": rounds, "us_per_round": ms * 1e3 / rounds,
+                     "config": label, "status": "ported"})
     return rows
 
 
@@ -7194,9 +7749,10 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
                                                           cpu_revive)
         byz_cases, byz_err, byz_launches = phase("14o", byz_phase, dev, key)
         tele_cases, tele_err, tele_launches = phase("14p", tele_phase, dev, key)
+        dd_cases, dd_err, dd_launches = phase("14q", dd_phase, dev, key)
     except Exception as e:
         return fail(str(e))
-    t15 += time.perf_counter() - t14m  # and 14m-14p's
+    t15 += time.perf_counter() - t14m  # and 14m-14q's
     # Rows 15-16 in their global instances, and kernel A, rows 1-2 and rows
     # 5-6 in their revive instances, beside their other instances.
     try:
@@ -7205,6 +7761,7 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
         rows += revive_rows(revive_cases, revive_launches, revive_err)
         rows += byz_rows(byz_cases, byz_launches, byz_err)
         rows += tele_rows(tele_cases, tele_launches, tele_err)
+        rows += dd_rows(dd_cases, dd_launches, dd_err)
     except (AssertionError, RuntimeError) as e:
         return fail(str(e))
     for row in rows:

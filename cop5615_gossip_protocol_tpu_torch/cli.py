@@ -16,6 +16,10 @@
         --delivery pool --byzantine-schedule 12:8 --robust-agg clip
     python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum \\
         --delivery pool --pool-size 2 --trace-convergence trace.jsonl
+    python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum \\
+        --delivery matmul --pool-size 2
+    python -m cop5615_gossip_protocol_tpu_torch 1000000 full gossip \\
+        --dup-rate 0.05 --delay-rounds 3
 
 runs on the GPU (``--platform cuda``, the default) or, when asked, on the
 CPU (``--platform cpu``). Flags keep the JAX CLI's names; a JAX CLI flag
@@ -40,7 +44,6 @@ UNPORTED_FLAGS = {
     "--halo-dma": "A10", "--distributed": "A10",
     "--coordinator": "A10", "--num-processes": "A10", "--process-id": "A10",
     "--replicas": "A9",
-    "--dup-rate": "A7b", "--delay-rounds": "A7b",
     "--stall-chunks": "A8", "--profile": "A8", "--metrics-dump": "A8",
     "--step-timing": "A8", "--events": "A8", "--checkpoint": "A8",
     "--checkpoint-every": "A8", "--checkpoint-keep": "A8",
@@ -140,6 +143,14 @@ def build_parser() -> argparse.ArgumentParser:
                    "against this tolerance; a trip ends the run with "
                    "outcome=unhealthy + the offending round instead of "
                    "converging wrong")
+    p.add_argument("--dup-rate", type=float, default=0.0,
+                   help="per-round probability a sent message is delivered "
+                   "twice (at-least-once delivery; chunked engine, "
+                   "scatter/stencil delivery; kernel A on CUDA under scatter)")
+    p.add_argument("--delay-rounds", type=int, default=0,
+                   help="defer every round's deliveries through a ring of "
+                   "this depth (bounded message delay; chunked engine, "
+                   "scatter/stencil delivery; kernel A on CUDA under scatter)")
     p.add_argument("--quorum", type=float, default=1.0,
                    help="crash-model termination: fraction of LIVE nodes "
                    "that must be converged to end the run (default 1.0)")
@@ -150,9 +161,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "imp2d/imp3d (along the static extra edge) and stencil on "
                    "the lattices; 'scatter' anywhere; 'pool' on full and on "
                    "imp2d/imp3d (the long-range edge re-drawn each round from "
-                   "the pool); 'matmul' is not ported yet (ROADMAP A7b)")
+                   "the pool); 'matmul' where 'pool' applies: the same pooled "
+                   "sampling delivered to the targets it implies (the fused "
+                   "pool tiers on full, the chunked engine on imp2d/imp3d)")
     p.add_argument("--pool-size", type=int, default=4,
-                   help="displacement-pool width for --delivery pool")
+                   help="displacement-pool width for --delivery pool/matmul")
     p.add_argument("--engine", choices=["auto", "chunked", "fused"],
                    default="auto",
                    help="fused: the pool, stencil or imp kernels (their plain "
@@ -255,6 +268,8 @@ def main(argv: Optional[list[str]] = None) -> int:
             fault_rate=args.fault_rate,
             crash_rate=args.crash_rate,
             crash_schedule=args.crash_schedule,
+            dup_rate=args.dup_rate,
+            delay_rounds=args.delay_rounds,
             revive_rate=args.revive_rate,
             revive_schedule=args.revive_schedule,
             rejoin=args.rejoin,

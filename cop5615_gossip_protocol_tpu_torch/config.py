@@ -3,15 +3,17 @@
 The field names, defaults and ``resolved_*`` rules are those of the JAX
 package's ``SimConfig``, so a run record from either package carries the
 same config keys. The port runs push-sum and gossip on the implicit
-``full`` topology and on imp2d/imp3d with scatter delivery (the default)
-or ``delivery="pool"``, on the six arithmetic lattices (line, ring,
-grid2d, ref2d, grid3d, torus3d) with stencil (the default) or scatter
-delivery, and reference-semantics push-sum as the single walk.
+``full`` topology and on imp2d/imp3d with scatter delivery (the default),
+``delivery="pool"`` or ``delivery="matmul"`` (the same pooled sampling
+delivered to the targets it implies), on the six arithmetic lattices
+(line, ring, grid2d, ref2d, grid3d, torus3d) with stencil (the default) or
+scatter delivery, and reference-semantics push-sum as the single walk.
 ``n_devices``, ``pool2_wire`` and ``overlap_collectives`` configure the
 sharded compositions (models/runner.run says which run); ``fault_rate``,
 ``crash_rate``/``crash_schedule`` with ``quorum``,
-``revive_rate``/``revive_schedule`` with ``rejoin``, and ``termination``
-set the drop gate, crash-stop with quorum termination, crash-recovery and
+``revive_rate``/``revive_schedule`` with ``rejoin``, ``dup_rate``,
+``delay_rounds`` and ``termination`` set the drop gate, crash-stop with
+quorum termination, crash-recovery, duplicate delivery, the delay ring and
 push-sum's global termination (ops/faults.py);
 ``byzantine_rate``/``byzantine_schedule`` with ``byzantine_mode``,
 ``robust_agg`` and ``mass_tolerance`` the Byzantine adversaries, robust
@@ -58,8 +60,6 @@ _CLI_ALGORITHM_ALIASES = {
 # (field, default, ROADMAP item) for every field this slice does not port.
 _UNPORTED = (
     ("dtype", "float32", "A12"),
-    ("dup_rate", 0.0, "A7b"),
-    ("delay_rounds", 0, "A7b"),
     ("stall_chunks", 0, "A8"),
     ("step_timing", False, "A8"),
     ("strict_checkpoint", False, "A8"),
@@ -177,6 +177,8 @@ class SimConfig:
             raise ValueError("fault_rate must be in [0, 1)")
         if not (0.0 <= self.crash_rate < 1.0):
             raise ValueError("crash_rate must be in [0, 1)")
+        if not (0.0 <= self.dup_rate < 1.0):
+            raise ValueError("dup_rate must be in [0, 1)")
         if self.crash_schedule is not None:
             if self.crash_rate > 0:
                 raise ValueError(
@@ -272,6 +274,11 @@ class SimConfig:
                     "lattice+pool delivery mixes channel classes with no "
                     "single slot order to trim over — use robust_agg='clip'"
                 )
+        if not (0 <= self.delay_rounds <= 64):
+            raise ValueError(
+                f"delay_rounds must be in [0, 64], got {self.delay_rounds} "
+                "(the ring buffer holds delay_rounds full delivery planes)"
+            )
         if not (0.0 < self.quorum <= 1.0):
             raise ValueError(f"quorum must be in (0, 1], got {self.quorum}")
         for lint in self.lint_warnings:
@@ -320,8 +327,8 @@ class SimConfig:
                 "structure to trace — use batched semantics"
             )
         if self.semantics == "reference" and (
-            self.crash_model or self.byzantine_model
-            or self.robust_agg != "none"
+            self.crash_model or self.dup_rate > 0 or self.delay_rounds > 0
+            or self.byzantine_model or self.robust_agg != "none"
         ):
             raise ValueError(
                 "crash/dup/delay/byzantine fault models (and robust_agg) "
@@ -365,8 +372,12 @@ class SimConfig:
             "full", "imp2d", "imp3d"
         ):
             raise ValueError(
-                "delivery='matmul' applies where pooled sampling applies "
-                f"(full, imp2d/imp3d); got topology={self.topology!r}"
+                "delivery='matmul' recasts the pooled delivery as a "
+                "blocked one-hot dot_general (the MXU tier) and applies "
+                "where pooled sampling applies: the implicit full topology "
+                "and imp2d/imp3d; offset-structured kinds keep their "
+                "stencil/scatter plans — "
+                f"got topology={self.topology!r}"
             )
         if not (2 <= self.pool_size <= 1024) or self.pool_size & (
             self.pool_size - 1
@@ -387,20 +398,21 @@ class SimConfig:
                 f"unknown pool2_wire {self.pool2_wire!r}; expected "
                 "auto|reduce_scatter|all_gather"
             )
-        if self.delivery == "matmul":
-            raise unported(
-                "delivery='matmul' (the one-hot matmul form of pooled "
-                "delivery)", "A7b")
         if self.topology in ("imp2d", "imp3d"):
             if self.delivery == "stencil":
                 raise ValueError(
                     "delivery='stencil' requires an offset-structured "
                     "topology; imp2d/imp3d have random long-range edges"
                 )
-            if self.delivery == "pool" and self.reference:
+            if self.reference and (
+                self.delivery == "pool"
+                or (self.delivery == "matmul" and self.algorithm == "gossip")
+            ):
+                # Reference push-sum under matmul is the single walk, which
+                # reads no delivery (the JAX runner's order).
                 raise ValueError(
-                    "delivery='pool' on imp topologies re-draws the random "
-                    "long-range edge per round and cannot reproduce the "
+                    f"delivery={self.delivery!r} on imp topologies re-draws "
+                    "the random long-range edge per round and cannot reproduce the "
                     "reference's static extra edge (Q9, program.fs:308-310); "
                     "use batched semantics or delivery='scatter'"
                 )
@@ -486,7 +498,7 @@ class SimConfig:
     @property
     def faulted(self) -> bool:
         """Any failure-model knob set (the JAX property the fused plans
-        gate on; dup and delay knobs are refused above)."""
+        gate on)."""
         return (self.fault_rate > 0.0 or self.crash_rate > 0.0
                 or self.crash_schedule is not None or self.dup_rate > 0.0
                 or self.delay_rounds > 0 or self.byzantine_rate > 0.0

@@ -196,6 +196,10 @@ struct Faults {
   int reset, init_term;
   const int* byz;  // int32 [n]: Byzantine onset rounds
   int byz_mode;    // csrc/faults.cuh
+  uint32_t dup;    // the dup gate's threshold (the dup instances)
+  void* ring;      // the delay ring (the delay instances): float [D, 2, n]
+                   // for push-sum, int32 [D, n] for gossip
+  int delay;       // its depth D
 };
 
 // Whether node i is alive in absolute round `round`.
@@ -219,18 +223,30 @@ __device__ __forceinline__ void round_gate_key(uint32_t key1, uint32_t key2,
   gossip::gate_key(r1, r2, g1, g2);
 }
 
-// The push-sum kernel's instance flags beside F: robust_agg="clip", the
-// health sentinel and the telemetry rows.
+// The kernels' instance flags beside F: robust_agg="clip", the health
+// sentinel (push-sum), the telemetry rows, the dup gate and the delay ring.
 constexpr int kClip = 1;
 constexpr int kSentinel = 2;
 constexpr int kTele = 4;
+constexpr int kDup = 8;
+constexpr int kDelay = 16;
+
+// The dup key of absolute round `round` under the run's key.
+__device__ __forceinline__ void round_dup_key(uint32_t key1, uint32_t key2,
+                                              uint32_t round, uint32_t& d1,
+                                              uint32_t& d2) {
+  uint32_t r1, r2;
+  gossip::scatter::round_key(key1, key2, round, r1, r2);
+  gossip::scatter::dup_key(r1, r2, d1, d2);
+}
 
 // What the clip, sentinel and telemetry instances take beyond a chunk's
 // failure model.
 struct Extra {
   float tol;       // the sentinel's tolerance on |Σw - n|
   float* health;   // float [2 * kMaxGrid]: each block's Σw, a slot a parity,
-                   // then int [2 * kMaxGrid]: its non-finite flags
+                   // then int [2 * kMaxGrid]: its non-finite flags, then
+                   // under the ring float [2 * kMaxGrid]: its w in flight
   int* tele;       // int32 [2 + rounds * grid * kPartials]: the chunk's
                    // (done, rounds executed), then the blocks' partials
   float tmean;     // push-sum's true mean, (n - 1) / 2
@@ -335,33 +351,43 @@ struct GossipChunk {
 };
 
 __device__ __forceinline__ void gossip_send(const Graph& g, uint32_t k1,
-                                            uint32_t k2, int i, int* inbox) {
+                                            uint32_t k2, int i, int* inbox,
+                                            int copies = 1) {
   const int t = target_of(g, k1, k2, i);
-  if (t >= 0) atomicAdd(&inbox[t], 1);
+  if (t >= 0) atomicAdd(&inbox[t], copies);
 }
 
 // F: the failure model. A node sends round r + 1 only if its gate word
 // passes and it is alive then; a dead node's count, active and conv stay
 // as they were (its receipts are dropped), and the verdict is the quorum
 // need of the round among the live nodes. F = false is the fault-free
-// kernel, with none of these loads or tests. T (with F): the telemetry
-// rows' partials of each round.
-template <bool F, bool T = false>
+// kernel, with none of these loads or tests. X (with F): kTele, the
+// telemetry rows' partials of each round; kDup, a dup-gated sender's send
+// adds 2 (csrc/scatter.cuh dup_fires); kDelay, each node's receipts go
+// through the ring: round r reads its word of slot r % D, writes the
+// round's receipts there and absorbs what it read (a dead node's reads are
+// dropped, its receipts kept in the ring).
+template <bool F, int X = 0>
 __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
+  constexpr bool T = (X & kTele) != 0;
+  constexpr bool Dup = (X & kDup) != 0;
+  constexpr bool L = (X & kDelay) != 0;
   // Every block reads the same status before block 0 writes it, at the end.
   if (c.status[1] || c.rounds == 0) return;
   const int n = c.g.n;
   const int first = blockIdx.x * kBlock + threadIdx.x;
   const int stride = gridDim.x * kBlock;
   {
-    uint32_t k1, k2, g1 = 0u, g2 = 0u;
+    uint32_t k1, k2, g1 = 0u, g2 = 0u, d1 = 0u, d2 = 0u;
     gossip::scatter::round_key(c.key1, c.key2, c.start, k1, k2);
     if (F) gossip::gate_key(k1, k2, g1, g2);
+    if (Dup) gossip::scatter::dup_key(k1, k2, d1, d2);
     for (int i = first; i < n; i += stride)
       if (c.active[i] &&
           (!F || (may_send(c.f, g1, g2, i, (int)c.start) &&
                   !gossip::rejoins(c.f.revive, c.f.reset, i, (int)c.start))))
-        gossip_send(c.g, k1, k2, i, c.inbox);
+        gossip_send(c.g, k1, k2, i, c.inbox,
+                    Dup && gossip::scatter::dup_fires(d1, d2, c.f.dup, i) ? 2 : 1);
   }
   round_barrier(c.words + c.rounds, 0);
   int executed = 0;
@@ -374,13 +400,26 @@ __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
     uint32_t k1, k2, g1 = 0u, g2 = 0u;
     gossip::scatter::round_key(c.key1, c.key2, c.start + r + 1, k1, k2);
     if (F) gossip::gate_key(k1, k2, g1, g2);
+    uint32_t nd1 = 0u, nd2 = 0u;  // the next round's dup key (Dup)
+    if (Dup) gossip::scatter::dup_key(k1, k2, nd1, nd2);
     uint32_t rg1 = 0u, rg2 = 0u;  // this round's gate key (T)
     if (T && c.f.thresh) round_gate_key(c.key1, c.key2, round, rg1, rg2);
+    uint32_t rd1 = 0u, rd2 = 0u;  // this round's dup key (T with Dup)
+    if (T && Dup) round_dup_key(c.key1, c.key2, round, rd1, rd2);
+    int* ring = L ? (int*)c.f.ring +
+                        (size_t)gossip::scatter::ring_slot(round, c.f.delay) * n
+                  : nullptr;
     gossip::tele::Acc acc;
     int converged = 0;
     for (int j = first; j < n; j += stride) {
-      const int got = in[j];
+      int got = in[j];
       if (got) in[j] = 0;
+      if constexpr (L) {
+        // The round's receipts go into the ring; what it held arrives.
+        const int arrive = ring[j];
+        ring[j] = got;
+        got = arrive;
+      }
       const bool live = !F || alive(c.f, j, round);
       // A node that rejoins this round starts it at (0, inactive, 0).
       const bool rn = F && gossip::rejoins(c.f.revive, c.f.reset, j, round);
@@ -406,7 +445,8 @@ __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
       if (out && act &&
           (!F || (may_send(c.f, g1, g2, j, round + 1) &&
                   !gossip::rejoins(c.f.revive, c.f.reset, j, round + 1))))
-        gossip_send(c.g, k1, k2, j, out);
+        gossip_send(c.g, k1, k2, j, out,
+                    Dup && gossip::scatter::dup_fires(nd1, nd2, c.f.dup, j) ? 2 : 1);
       converged += live ? cv : 0;
       if constexpr (T) {
         using namespace gossip::tele;
@@ -417,9 +457,12 @@ __global__ void __launch_bounds__(kBlock) gossip_rounds(GossipChunk c) {
         acc.i[kDrops] += gate_fired(c.f, rg1, rg2, j, live);
         acc.i[kRevived] += c.f.revive != nullptr && c.f.revive[j] == round;
         acc.i[kByz] += gossip::byzantine_in(c.f.byz, j, round);
+        if (Dup)
+          acc.dups += live && gossip::scatter::dup_fires(rd1, rd2, c.f.dup, j);
       }
     }
-    if constexpr (T) gossip::tele::block_partials<kBlock>(acc, tele_part(c.x, r));
+    if constexpr (T)
+      gossip::tele::block_partials<kBlock, Dup>(acc, tele_part(c.x, r));
     const int total = round_barrier(c.words + r, block_sum(converged));
     done = total >= (F && c.f.death ? c.f.needs[r] : c.target);
     ++executed;
@@ -483,13 +526,23 @@ __device__ __forceinline__ Ticket count_send(const Graph& g, uint32_t k1,
 // where the sentinel's trip ended it).
 // X (with F): the clip, sentinel and telemetry instances (kClip, kSentinel,
 // kTele; see the header). Under clip global termination is not read, as
-// the plain round's clipped absorb does not read it.
+// the plain round's clipped absorb does not read it. kDup and kDelay: the
+// dup and delay instances, where a node's inboxes sum from 0 (a dup-gated
+// sender's record carries its dup bit in its index word and adds into a
+// second inbox, the two then added) and the kept halves add them unfolded
+// (scatter.cuh record_inbox, pushsum_round_inbox); under kDelay each node
+// reads its words of ring slot round % D, writes its fresh inboxes there
+// and absorbs what it read; with the sentinel (kDelay | kSentinel) the w
+// in flight counts in Σw, each node's D words added in slot order, and a
+// non-finite word in the ring trips it.
 template <bool F, int X = 0>
 __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
     pushsum_rounds(PushSumChunk c) {
   constexpr bool C = (X & kClip) != 0;
   constexpr bool S = (X & kSentinel) != 0;
   constexpr bool T = (X & kTele) != 0;
+  constexpr bool Dup = (X & kDup) != 0;
+  constexpr bool L = (X & kDelay) != 0;
   if (c.status[1] || c.rounds == 0) return;
   __shared__ int base[kMaxGrid];  // every block's bucket base
   const int n = c.g.n;
@@ -531,6 +584,8 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
         0, gridDim.x, [&](int b) { return c.tot[b]; },
         [&](int b, int at) { base[b] = at; });
     __syncthreads();
+    uint32_t d1 = 0u, d2 = 0u;  // the round's dup key (Dup)
+    if (Dup) round_dup_key(c.key1, c.key2, (uint32_t)round, d1, d2);
     for (int i = lo + threadIdx.x; i < hi; i += kBlock) {
       const Ticket tk = c.tick[i];
       if (tk.target < 0) continue;
@@ -539,11 +594,13 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
       // A fresh rejoin sends from its reset state (s = i, w = 0); an
       // adversary sends its mode's pair.
       const bool rn = F && gossip::rejoins(c.f.revive, c.f.reset, i, round);
-      gossip::scatter::store_send(
-          c.rec + pos,
-          gossip::scatter::make_send<F>(
-              i, rn ? (float)i : c.s[i], rn ? 0.0f : c.w[i],
-              F && gossip::byzantine_in(c.f.byz, i, round) ? c.f.byz_mode : 0));
+      Send v = gossip::scatter::make_send<F>(
+          i, rn ? (float)i : c.s[i], rn ? 0.0f : c.w[i],
+          F && gossip::byzantine_in(c.f.byz, i, round) ? c.f.byz_mode : 0);
+      if (Dup)
+        v.idx = gossip::scatter::dup_index(
+            i, gossip::scatter::dup_fires(d1, d2, c.f.dup, i));
+      gossip::scatter::store_send(c.rec + pos, v);
     }
     round_barrier(c.words + 3 * r + 1, 0);
 
@@ -555,12 +612,25 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
     uint32_t rg1 = 0u, rg2 = 0u;  // this round's gate key (T)
     if (T && c.f.thresh) round_gate_key(c.key1, c.key2, round, rg1, rg2);
     const int mine = base[blockIdx.x];
+    // The round's ring slot, s plane then w plane (L).
+    float* ring = L ? (float*)c.f.ring +
+                          (size_t)gossip::scatter::ring_slot(round, c.f.delay) * 2 * n
+                    : nullptr;
     gossip::tele::Acc acc;  // the round's sums over the thread's nodes (S, T)
     int nonfinite = 0;      // (S)
+    float in_flight = 0.0f;  // the ring's w over the thread's nodes (S with L)
     int converged = 0;
     for (int j = lo + threadIdx.x; j < hi; j += kBlock) {
       // The loads first (count, offset, own state), then the next round's
-      // atomic, then the bucket and its sums; the stores last.
+      // atomic, then the bucket and its sums; the stores last. Under the
+      // ring, its slot's words come first of all: read after the bucket's
+      // sums, they wait out the bucket's chain (2.7x the round at 1M full,
+      // scripts/scatter_ring_variants.py).
+      float arrive_s = 0.0f, arrive_w = 0.0f;  // (L)
+      if constexpr (L) {
+        arrive_s = ring[j];
+        arrive_w = ring[n + j];
+      }
       const int k = cnt[j];
       const int at = mine + c.loc[j];
       // A fresh rejoin starts the round at (j, 0, initial term, 0).
@@ -578,7 +648,55 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
               : Ticket{-1, 0};
       float s_new, w_new;
       int t_new, cv;
-      if (global) {
+      if constexpr (Dup || L) {
+        // The inboxes from 0; under the ring the fresh ones go in and what
+        // the slot held is absorbed.
+        float in_s, in_w;
+        gossip::scatter::record_inbox<Dup>(c.rec + at, k, in_s, in_w);
+        if constexpr (L) {
+          ring[j] = in_s;
+          ring[n + j] = in_w;
+          in_s = arrive_s;
+          in_w = arrive_w;
+        }
+        if constexpr (S && L) {
+          // The sentinel's view of node j's words in the ring after the
+          // round: their w in slot order from 0, and whether any is not
+          // finite (ops/scatter.ring_node_sums).
+          float node_w = 0.0f;
+          for (int d = 0; d < c.f.delay; ++d) {
+            const float* slot = (const float*)c.f.ring + (size_t)d * 2 * n;
+            const float s_d = slot[j], w_d = slot[n + j];
+            node_w = gossip::flush(node_w + w_d);
+            nonfinite |= !(isfinite(s_d) && isfinite(w_d));
+          }
+          in_flight = gossip::flush(in_flight + node_w);
+        }
+        if (global) {
+          float s_keep, w_keep;
+          gossip::keep_flushed<true>(s_t, w_t, sent, s_keep, w_keep);
+          s_new = gossip::flush(s_keep + in_s);
+          w_new = gossip::flush(w_keep + in_w);
+          cv = gossip::unstable_global(s_t, w_t, s_new, w_new, c.delta) ? 1 : 0;
+        } else {
+          if constexpr (C)
+            cv = gossip::scatter::pushsum_round_clipped(
+                s_t, w_t, t_old, c_old, sent,
+                [&](float& a, float& b) {
+                  a = in_s;
+                  b = in_w;
+                },
+                c.delta, c.term_rounds, s_new, w_new, t_new);
+          else
+            cv = gossip::scatter::pushsum_round_inbox(
+                s_t, w_t, t_old, c_old, sent, in_s, in_w, c.delta,
+                c.term_rounds, s_new, w_new, t_new);
+          t_new = gossip::frozen(live, t_new, t_old);
+          cv = gossip::frozen(live, cv, c_old ? 1 : 0);
+          c.term[j] = t_new;
+          c.conv[j] = (uint8_t)cv;
+        }
+      } else if (global) {
         // Both halves' sums onto the kept halves (nothing reads a w inbox).
         float acc_s, acc_w;
         gossip::keep_flushed<true>(s_t, w_t, sent, acc_s, acc_w);
@@ -624,13 +742,14 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
         acc.i[kDrops] += gate_fired(c.f, rg1, rg2, j, live);
         acc.i[kRevived] += c.f.revive != nullptr && c.f.revive[j] == round;
         acc.i[kByz] += gossip::byzantine_in(c.f.byz, j, round);
+        if (Dup) acc.dups += live && gossip::scatter::dup_fires(d1, d2, c.f.dup, j);
         if (conv_now) acc.add(kErr, chunked_err(s_new, w_new, c.x.tmean));
         if (global) acc.add(kErrAll, chunked_err(s_new, w_new, c.x.tmean));
       }
     }
     if constexpr (T) {
       int* part = tele_part(c.x, r);
-      gossip::tele::block_partials<kBlock>(acc, part);
+      gossip::tele::block_partials<kBlock, Dup>(acc, part);
       // The sentinel's Σw partial is the row's (written before the sync
       // that ends block_partials).
       if (S && threadIdx.x == 0)
@@ -640,12 +759,14 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
       acc.f[gossip::tele::kW - gossip::tele::kInts] = block_fsum(
           acc.f[gossip::tele::kW - gossip::tele::kInts]);
     }
+    if constexpr (S && L) in_flight = block_fsum(in_flight);
     if constexpr (S) {
       nonfinite = __syncthreads_or(nonfinite);
       if (threadIdx.x == 0) {
         c.x.health[(r & 1) * kMaxGrid + blockIdx.x] =
             acc.f[gossip::tele::kW - gossip::tele::kInts];
         ((int*)c.x.health)[(2 + (r & 1)) * kMaxGrid + blockIdx.x] = nonfinite;
+        if (L) c.x.health[(4 + (r & 1)) * kMaxGrid + blockIdx.x] = in_flight;
       }
     }
     const int sum = round_barrier(c.words + 3 * r + 2, block_sum(converged));
@@ -658,8 +779,12 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
       // Every block adds the blocks' partials in block order: one verdict.
       __shared__ int tripped;
       if (threadIdx.x < 32) {
-        const float total_w =
+        float total_w =
             gossip::tele::grid_sum(c.x.health + (r & 1) * kMaxGrid, gridDim.x);
+        if constexpr (L)
+          total_w = gossip::flush(
+              total_w + gossip::tele::grid_sum(
+                            c.x.health + (4 + (r & 1)) * kMaxGrid, gridDim.x));
         const int* flags = (const int*)c.x.health + (2 + (r & 1)) * kMaxGrid;
         int bad = 0;
         for (int b = threadIdx.x; b < (int)gridDim.x; b += 32)
@@ -697,10 +822,21 @@ __global__ void __launch_bounds__(kBlock, F ? 2 : 3)
   }
 }
 
-// The persistent grid of each kernel instance, asked once a device: push-sum
-// by its flags (F, then X; cache 0 the fault-free kernel), gossip by F and T.
-int pushsum_grid_cache[7][64];
-int gossip_grid_cache[3][64];
+// The persistent grid of each kernel instance, asked once a device, by its
+// template arguments: the faulted flag F and the flags X (kClip .. kDelay).
+int pushsum_grid_cache[2][32][64];
+int gossip_grid_cache[2][32][64];
+
+// fn(the instance <F, X>, its grid cache).
+template <bool F, int X, typename Fn>
+cudaError_t pushsum_with(Fn fn) {
+  return fn(pushsum_rounds<F, X>, pushsum_grid_cache[F][X]);
+}
+
+template <bool F, int X, typename Fn>
+cudaError_t gossip_with(Fn fn) {
+  return fn(gossip_rounds<F, X>, gossip_grid_cache[F][X]);
+}
 
 // The persistent grid of `kernel` at n nodes: every block the SMs hold at
 // once, fewer at small n (kNodesPerThread), at most kMaxGrid.
@@ -740,33 +876,66 @@ cudaError_t launch(Kernel kernel, Chunk c, int n, int words, int* cache,
 // (faulted) and the flags x: the ladder reaches the fault-free kernel, the
 // faulted one, and with it clip, the sentinel or telemetry, and telemetry
 // with clip or with the sentinel (clip and the sentinel exclude each other,
-// config.py).
+// config.py); and the dup, delay and dup-and-delay instances, each alone,
+// with clip, telemetry, or both, and the delay instance with the sentinel,
+// alone or with telemetry (the sentinel excludes the dup gate, config.py).
+template <int D, typename Fn>
+cudaError_t pushsum_dd_instance(int x, Fn fn) {
+  switch (x & ~(kDup | kDelay)) {
+    case 0: return pushsum_with<true, D>(fn);
+    case kClip: return pushsum_with<true, D | kClip>(fn);
+    case kTele: return pushsum_with<true, D | kTele>(fn);
+    case kTele | kClip: return pushsum_with<true, D | kTele | kClip>(fn);
+    default: break;
+  }
+  if constexpr (D == kDelay) {
+    switch (x & ~kDelay) {
+      case kSentinel: return pushsum_with<true, kDelay | kSentinel>(fn);
+      case kTele | kSentinel:
+        return pushsum_with<true, kDelay | kTele | kSentinel>(fn);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename Fn>
 cudaError_t pushsum_instance(int faulted, int x, Fn fn) {
-  if (!faulted)
-    return x ? cudaErrorInvalidValue
-             : fn(pushsum_rounds<false, 0>, pushsum_grid_cache[0]);
+  if (!faulted) return x ? cudaErrorInvalidValue : pushsum_with<false, 0>(fn);
+  switch (x & (kDup | kDelay)) {
+    case kDup: return pushsum_dd_instance<kDup>(x, fn);
+    case kDelay: return pushsum_dd_instance<kDelay>(x, fn);
+    case kDup | kDelay: return pushsum_dd_instance<kDup | kDelay>(x, fn);
+    default: break;
+  }
   switch (x) {
-    case 0: return fn(pushsum_rounds<true, 0>, pushsum_grid_cache[1]);
-    case kClip: return fn(pushsum_rounds<true, kClip>, pushsum_grid_cache[2]);
-    case kSentinel:
-      return fn(pushsum_rounds<true, kSentinel>, pushsum_grid_cache[3]);
-    case kTele: return fn(pushsum_rounds<true, kTele>, pushsum_grid_cache[4]);
-    case kTele | kClip:
-      return fn(pushsum_rounds<true, kTele | kClip>, pushsum_grid_cache[5]);
-    case kTele | kSentinel:
-      return fn(pushsum_rounds<true, kTele | kSentinel>, pushsum_grid_cache[6]);
+    case 0: return pushsum_with<true, 0>(fn);
+    case kClip: return pushsum_with<true, kClip>(fn);
+    case kSentinel: return pushsum_with<true, kSentinel>(fn);
+    case kTele: return pushsum_with<true, kTele>(fn);
+    case kTele | kClip: return pushsum_with<true, kTele | kClip>(fn);
+    case kTele | kSentinel: return pushsum_with<true, kTele | kSentinel>(fn);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// The gossip instance of the failure model and the flags x (kTele, kDup,
+// kDelay; every combination with faulted set).
 template <typename Fn>
-cudaError_t gossip_instance(int faulted, int tele, Fn fn) {
-  if (!faulted)
-    return tele ? cudaErrorInvalidValue
-                : fn(gossip_rounds<false, false>, gossip_grid_cache[0]);
-  return tele ? fn(gossip_rounds<true, true>, gossip_grid_cache[2])
-              : fn(gossip_rounds<true, false>, gossip_grid_cache[1]);
+cudaError_t gossip_instance(int faulted, int x, Fn fn) {
+  if (!faulted) return x ? cudaErrorInvalidValue : gossip_with<false, 0>(fn);
+  switch (x) {
+    case 0: return gossip_with<true, 0>(fn);
+    case kTele: return gossip_with<true, kTele>(fn);
+    case kDup: return gossip_with<true, kDup>(fn);
+    case kDelay: return gossip_with<true, kDelay>(fn);
+    case kDup | kDelay: return gossip_with<true, kDup | kDelay>(fn);
+    case kTele | kDup: return gossip_with<true, kTele | kDup>(fn);
+    case kTele | kDelay: return gossip_with<true, kTele | kDelay>(fn);
+    case kTele | kDup | kDelay:
+      return gossip_with<true, kTele | kDup | kDelay>(fn);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -786,13 +955,17 @@ cudaError_t gossip_instance(int faulted, int tele, Fn fn) {
 // resets and init_term push-sum's initial term. Under a Byzantine model byz
 // is the int32 [n] onset plane (else null) and byz_mode its mode
 // (csrc/faults.cuh). Push-sum's robust_clip and sentinel (with its
-// tolerance and health, float [2 * kMaxGrid] then int [2 * kMaxGrid] of
-// scratch) and either protocol's tele (int32 [2 + rounds * tele_grid *
+// tolerance and health, float [2 * kMaxGrid], int [2 * kMaxGrid] and float
+// [2 * kMaxGrid] of scratch) and either protocol's tele (int32 [2 + rounds * tele_grid *
 // kPartials] of scratch, tele_grid the grid gossip_scatter_grid gives the
 // instance) pick the instances of their own, with faulted set; under tele
 // the reduce of the rows into rows (float32 [rounds, 10]) is queued after
-// the chunk, and tmean is push-sum's true mean. Returns the first error (a
-// cudaError_t), 0 if none. A chunk of no round queues nothing.
+// the chunk, and tmean is push-sum's true mean. dup (the dup gate's
+// threshold, 0 for none) and ring (the delay ring of depth delay, null for
+// none: float [delay, 2, n] for push-sum, int32 [delay, n] for gossip, read
+// and written in place) pick the dup and delay instances, with faulted set.
+// Returns the first error (a cudaError_t), 0 if none. A chunk of no round
+// queues nothing.
 
 extern "C" int gossip_pushsum_scatter_chunk(
     float* s, float* w, int* term, uint8_t* conv, const int* nbr, const int* deg,
@@ -801,9 +974,9 @@ extern "C" int gossip_pushsum_scatter_chunk(
     unsigned start, int rounds, float delta, int term_rounds, int target,
     int faulted, unsigned thresh, const int* death, const int* needs,
     const int* revive, int reset, int init_term, int global, const int* byz,
-    int byz_mode, int robust_clip, int sentinel, float tol, float* health,
-    int* tele, float* rows, int tele_grid, float tmean, int device,
-    void* stream_ptr) {
+    int byz_mode, unsigned dup, void* ring, int delay, int robust_clip,
+    int sentinel, float tol, float* health, int* tele, float* rows,
+    int tele_grid, float tmean, int device, void* stream_ptr) {
   if (n < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
   if (rounds == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
@@ -813,10 +986,12 @@ extern "C" int gossip_pushsum_scatter_chunk(
                        cnt, (Ticket*)tick, loc, tot, (Send*)rec, key1, key2,
                        start, rounds, delta, term_rounds, target, words,
                        status, Faults{thresh, death, needs, global, revive,
-                                      reset, init_term, byz, byz_mode},
+                                      reset, init_term, byz, byz_mode, dup,
+                                      ring, delay},
                        Extra{tol, health, tele, tmean}};
   const int x = (robust_clip ? kClip : 0) | (sentinel ? kSentinel : 0) |
-                (tele != nullptr ? kTele : 0);
+                (tele != nullptr ? kTele : 0) | (dup ? kDup : 0) |
+                (ring != nullptr ? kDelay : 0);
   err = pushsum_instance(faulted, x, [&](auto kernel, int* cache) {
     return launch(kernel, c, n, 3 * rounds + 1, cache, device, stream,
                   tele_grid);
@@ -824,7 +999,7 @@ extern "C" int gossip_pushsum_scatter_chunk(
   if (err != cudaSuccess || tele == nullptr) return (int)err;
   const gossip::tele::RowArgs a{tele + 2, tele, rows, tele_grid, rounds, n,
                                 target, death ? needs : nullptr, n, 1,
-                                global && !robust_clip};
+                                global && !robust_clip, dup != 0};
   return (int)gossip::tele::queue_rows(a, stream);
 }
 
@@ -834,8 +1009,8 @@ extern "C" int gossip_gossip_scatter_chunk(
     unsigned key1, unsigned key2, unsigned start, int rounds, int rumor_target,
     int suppress, int target, int faulted, unsigned thresh, const int* death,
     const int* needs, const int* revive, int reset, const int* byz,
-    int byz_mode, int* tele, float* rows, int tele_grid, int device,
-    void* stream_ptr) {
+    int byz_mode, unsigned dup, void* ring, int delay, int* tele, float* rows,
+    int tele_grid, int device, void* stream_ptr) {
   if (n < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
   if (rounds == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
@@ -845,21 +1020,25 @@ extern "C" int gossip_gossip_scatter_chunk(
                       inbox, key1, key2, start, rounds, rumor_target, suppress,
                       target, words, status,
                       Faults{thresh, death, needs, 0, revive, reset, 0, byz,
-                             byz_mode},
+                             byz_mode, dup, ring, delay},
                       Extra{0.0f, nullptr, tele, 0.0f}};
-  err = gossip_instance(faulted, tele != nullptr, [&](auto kernel, int* cache) {
+  const int x = (tele != nullptr ? kTele : 0) | (dup ? kDup : 0) |
+                (ring != nullptr ? kDelay : 0);
+  err = gossip_instance(faulted, x, [&](auto kernel, int* cache) {
     return launch(kernel, c, n, rounds + 1, cache, device, stream, tele_grid);
   });
   if (err != cudaSuccess || tele == nullptr) return (int)err;
   const gossip::tele::RowArgs a{tele + 2, tele, rows, tele_grid, rounds, n,
-                                target, death ? needs : nullptr, n, 0, 0};
+                                target, death ? needs : nullptr, n, 0, 0,
+                                dup != 0};
   return (int)gossip::tele::queue_rows(a, stream);
 }
 
 // The grid of a telemetry instance's persistent launch at n nodes (its
 // scratch holds a row of partials a block a round): push-sum's by
-// (faulted, flags: 1 clip, 2 sentinel, 4 telemetry), gossip's by (faulted,
-// flags & 4). Returns the grid, or minus a cudaError_t.
+// (faulted, flags: 1 clip, 2 sentinel, 4 telemetry, 8 dup, 16 delay),
+// gossip's by (faulted, flags & (4 | 8 | 16)). Returns the grid, or minus a
+// cudaError_t.
 extern "C" int gossip_scatter_grid(int pushsum, int faulted, int flags, int n,
                                    int device) {
   if (n < 1) return -(int)cudaErrorInvalidValue;
@@ -870,6 +1049,6 @@ extern "C" int gossip_scatter_grid(int pushsum, int faulted, int flags, int n,
     return grid_of(kernel, n, device, cache, &grid);
   };
   err = pushsum ? pushsum_instance(faulted, flags, query)
-                : gossip_instance(faulted, (flags & kTele) != 0, query);
+                : gossip_instance(faulted, flags & (kTele | kDup | kDelay), query);
   return err == cudaSuccess ? grid : -(int)err;
 }

@@ -1,8 +1,9 @@
 // Per-node logic of the scatter round kernels (csrc/scatter.cu): a round's
 // key, a sender's target on the implicit full topology and on an explicit
-// neighbour table, a send's 16-byte record, the ordered sum of one target's
-// bucket, a push-sum node's round, and the contiguous slices of targets the
-// blocks of the persistent launch own.
+// neighbour table, the dup gate, a send's 16-byte record, the ordered sum of
+// one target's bucket (with the dup gate's second copies apart), a push-sum
+// node's round, the delay ring's slot, and the contiguous slices of targets
+// the blocks of the persistent launch own.
 //
 // Like threefry.cuh, everything here is plain inline code usable from the
 // host, so the CPU tests build it with g++ and hold it against the plain
@@ -46,8 +47,34 @@ GOSSIP_HD void round_key(uint32_t k1, uint32_t k2, uint32_t round, uint32_t& r1,
   threefry2x32(k1, k2, r1, r2);
 }
 
+// fold_in tag of the dup gate (ops/sampling.DUP_TAG), folded into the
+// round key: the dup key of a round is the Threefry pair at (0, tag).
+constexpr uint32_t kDupTag = 0xD00Bu;
+
+// The dup key of the round whose fold_in key is (r1, r2).
+GOSSIP_HD void dup_key(uint32_t r1, uint32_t r2, uint32_t& d1, uint32_t& d2) {
+  d1 = 0u;
+  d2 = kDupTag;
+  threefry2x32(r1, r2, d1, d2);
+}
+
+// Whether node j's message is delivered twice this round
+// (ops/sampling.dup_gate): its word at flat position j of the dup stream
+// is below the threshold (a threshold of 0 never fires).
+GOSSIP_HD bool dup_fires(uint32_t d1, uint32_t d2, uint32_t thresh, int j) {
+  return threefry_word(d1, d2, (uint32_t)j) < thresh;
+}
+
+// The delay ring's slot of absolute round `round` under depth D: read, then
+// overwritten with the round's fresh inbox (the JAX runner's
+// lax.rem(round_idx, D)).
+GOSSIP_HD int ring_slot(int round, int D) { return round % D; }
+
 // One staged push-sum send: the sender's index and its halves, padded to
 // 16 bytes so a send is one vector store and a bucket entry one vector load.
+// In the dup instances the index word is 2 i + the sender's dup bit
+// (dup_index), which sorts as i does and keeps the pad word dead, so a
+// bucket sorted in registers takes no more of them.
 struct alignas(16) Send {
   int idx;
   float s;
@@ -65,6 +92,9 @@ GOSSIP_HD Send make_send(int i, float s_t, float w_t, int mode = 0) {
   lie_send(mode, s_t, w_t, v.s, v.w);
   return v;
 }
+
+// A dup instance's index word of sender i: 2 i + its dup bit (n < 2**30).
+GOSSIP_HD int dup_index(int i, bool dup) { return 2 * i + (dup ? 1 : 0); }
 
 GOSSIP_HD void store_send(Send* at, Send v) {
 #ifdef __CUDA_ARCH__
@@ -148,6 +178,83 @@ GOSSIP_HD void record_sum(const Send* rec, int k, float& acc_s, float& acc_w) {
                      acc_w);
 }
 
+// The dup instances' bucket sum: in ascending sender index, every send adds
+// onto (b_s, b_w) and a dup-gated one (an odd index word, dup_index) onto
+// (c_s, c_w) as well,
+// every add flushed: the two inboxes from 0 of the JAX runner's make_df,
+// deliver(v) and deliver(where(dup, v, 0)), in a serial scatter-add's order
+// (adding a non-gated sender's +0.0 to the second changes nothing).
+template <typename Get>
+GOSSIP_HD void ordered_sum_dup(Get get, int k, float& b_s, float& b_w,
+                               float& c_s, float& c_w) {
+  float bs = b_s, bw = b_w, cs = c_s, cw = c_w;
+  const auto add = [&](const Send& x) {
+    bs = flush(bs + x.s);
+    bw = flush(bw + x.w);
+    if (x.idx & 1) {
+      cs = flush(cs + x.s);
+      cw = flush(cw + x.w);
+    }
+  };
+  if (k <= kSortMax) {
+    Send v[kSortMax];
+#pragma unroll
+    for (int a = 0; a < kSortMax; ++a)
+      if (a < k) v[a] = get(a);
+#pragma unroll
+    for (int a = 1; a < kSortMax; ++a) {
+      if (a < k) {
+#pragma unroll
+        for (int c = a; c > 0; --c) {
+          if (v[c - 1].idx > v[c].idx) {
+            const Send x = v[c - 1];
+            v[c - 1] = v[c];
+            v[c] = x;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kSortMax; ++a)
+      if (a < k) add(v[a]);
+  } else {
+    int last = -1;
+    for (int step = 0; step < k; ++step) {
+      Send best{0x7fffffff, 0.0f, 0.0f, 0};
+      for (int a = 0; a < k; ++a) {
+        const Send x = get(a);
+        if (x.idx > last && x.idx < best.idx) best = x;
+      }
+      add(best);
+      last = best.idx;
+    }
+  }
+  b_s = bs;
+  b_w = bw;
+  c_s = cs;
+  c_w = cw;
+}
+
+// One bucket's inbox pair in the dup and delay instances, summed from 0:
+// with Dup the sum of both inboxes of ordered_sum_dup, flushed (XLA adds
+// the two scatters; it folds neither onto the other nor onto a kept half),
+// else the plain ordered sum.
+template <bool Dup>
+GOSSIP_HD void record_inbox(const Send* rec, int k, float& in_s, float& in_w) {
+  float bs = 0.0f, bw = 0.0f;
+  if (Dup) {
+    float cs = 0.0f, cw = 0.0f;
+    ordered_sum_dup([&](int a) { return load_send(rec + a); }, k, bs, bw, cs,
+                    cw);
+    in_s = flush(bs + cs);
+    in_w = flush(bw + cw);
+  } else {
+    ordered_sum<true>([&](int a) { return load_send(rec + a); }, k, bs, bw);
+    in_s = bs;
+    in_w = bw;
+  }
+}
+
 // One node's push-sum round, in the op order of the JAX package's jitted
 // round (ops/scatter.pushsum_round_plain): the node halves if it sends;
 // add_bucket(acc_s, in_w) adds its bucket's s halves onto its kept half and
@@ -172,6 +279,25 @@ GOSSIP_HD int pushsum_round(float s_t, float w_t, int t_old, bool conv_old,
   add_bucket(acc_s, in_w);
   s_new = acc_s;
   w_new = Flush ? flush(w_keep + in_w) : w_keep + in_w;
+  const bool received = in_w > 0.0f;
+  const bool stable = fabsf(s_new / w_new - s_t / w_t) <= delta;
+  t_new = received ? (stable ? t_old + 1 : 0) : t_old;
+  return (conv_old || t_new >= term_rounds) ? 1 : 0;
+}
+
+// One node's push-sum round from its whole inboxes (in_s, in_w), the form of
+// the dup and delay instances (ops/scatter.pushsum_round_plain with dup or a
+// ring): the kept halves as keep_flushed's, each plus its inbox, flushed; it
+// received if in_w > 0. Sets s_new, w_new, t_new and returns the new conv
+// flag, as pushsum_round does.
+GOSSIP_HD int pushsum_round_inbox(float s_t, float w_t, int t_old,
+                                  bool conv_old, bool sends, float in_s,
+                                  float in_w, float delta, int term_rounds,
+                                  float& s_new, float& w_new, int& t_new) {
+  float s_keep, w_keep;
+  keep_flushed<true>(s_t, w_t, sends, s_keep, w_keep);
+  s_new = flush(s_keep + in_s);
+  w_new = flush(w_keep + in_w);
   const bool received = in_w > 0.0f;
   const bool stable = fabsf(s_new / w_new - s_t / w_t) <= delta;
   t_new = received ? (stable ? t_old + 1 : 0) : t_old;

@@ -12,7 +12,8 @@
 // Design: rows are observations, so no round waits for them. In each round
 // every thread of a telemetry instance adds up, over the nodes it owns,
 // the row's counts (converged, live, converged among the live, active,
-// drop-gate firings, revivals, adversaries) and float sums (the estimate
+// drop-gate firings, revivals, adversaries, and in kernel A's dup
+// instances dup-gate firings) and float sums (the estimate
 // error over converged nodes, w, and under global termination the error
 // over every real node), from the state the round has just written; before
 // the round's last grid barrier each block reduces them and writes its
@@ -44,8 +45,9 @@ namespace tele {
 
 // The row's columns (ops/telemetry.py COLUMNS) and a block's partials.
 constexpr int kCols = 10;
-constexpr int kPartials = 10;
-constexpr int kInts = 7;  // partials 0..6 are int32 counts, 7..9 float32 sums
+constexpr int kPartials = 11;
+constexpr int kInts = 7;  // partials 0..6 are int32 counts, 7..9 float32 sums,
+                          // 10 the dup count (kernel A's dup instances alone)
 constexpr int kConv = 0;
 constexpr int kLive = 1;
 constexpr int kConvAlive = 2;
@@ -56,6 +58,7 @@ constexpr int kByz = 6;
 constexpr int kErr = 7;
 constexpr int kW = 8;
 constexpr int kErrAll = 9;
+constexpr int kDups = 10;
 
 // A node's estimate error |s / w - tmean|, each op flushed, in the form of
 // the JAX row it follows: the chunked engine's (w = 0 reads as a ratio of
@@ -77,7 +80,8 @@ GOSSIP_HD float stencil_err(float s, float w, float tmean) {
 // One thread's counts and sums over the nodes it owns in a round.
 struct Acc {
   int i[kInts] = {0, 0, 0, 0, 0, 0, 0};
-  float f[kPartials - kInts] = {0.0f, 0.0f, 0.0f};
+  float f[kDups - kInts] = {0.0f, 0.0f, 0.0f};
+  int dups = 0;  // dup-gate firings among the live (kernel A's dup instances)
 
   GOSSIP_HD void add(int col, float v) {
     f[col - kInts] = flush(f[col - kInts] + v);
@@ -87,10 +91,10 @@ struct Acc {
 // The row of round r from its column totals: conv, live (the population
 // without a crash model), gap (need - conv among the live under one, else
 // target - conv), active (gossip), mae = err / max(conv, 1) and mass = w -
-// n_mass (push-sum), drops, dups 0, revived, byz.
+// n_mass (push-sum), drops, dups, revived, byz.
 GOSSIP_HD void assemble(const int* tot, const float* sum, int n_live,
                         int target, const int* needs, int r, int n_mass,
-                        bool pushsum, float* row) {
+                        bool pushsum, float* row, int dups = 0) {
   const int conv = tot[kConv];
   const int live = needs != nullptr ? tot[kLive] : n_live;
   const int gap =
@@ -102,7 +106,7 @@ GOSSIP_HD void assemble(const int* tot, const float* sum, int n_live,
   row[4] = pushsum ? flush(sum[0] / (float)(conv > 1 ? conv : 1)) : 0.0f;
   row[5] = pushsum ? flush(sum[1] - (float)n_mass) : 0.0f;
   row[6] = (float)tot[kDrops];
-  row[7] = 0.0f;
+  row[7] = (float)dups;
   row[8] = (float)tot[kRevived];
   row[9] = (float)tot[kByz];
 }
@@ -126,15 +130,15 @@ __device__ __forceinline__ float grid_sum(const float* p, int g) {
 }
 
 // The block's partials from every thread's Acc, written by the block's
-// first kPartials threads to out[0 .. kPartials): int counts in any order,
-// float sums folded a warp at a time and added in warp order from 0.0.
-// Ends with the block synchronized, so `out` is written before the round's
-// barrier that follows.
-template <int kBlockThreads>
+// first threads to out[0 .. kDups), and with Dups out[kDups] too: int
+// counts in any order, float sums folded a warp at a time and added in
+// warp order from 0.0. Ends with the block synchronized, so `out` is
+// written before the round's barrier that follows.
+template <int kBlockThreads, bool Dups = false>
 __device__ inline void block_partials(const Acc& a, int* out) {
   constexpr int kWarps = kBlockThreads / 32;
-  __shared__ int si[kWarps][kInts];
-  __shared__ float sf[kWarps][kPartials - kInts];
+  __shared__ int si[kWarps][kInts + (Dups ? 1 : 0)];
+  __shared__ float sf[kWarps][kDups - kInts];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int c = 0; c < kInts; ++c) {
@@ -142,8 +146,13 @@ __device__ inline void block_partials(const Acc& a, int* out) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     if (lane == 0) si[warp][c] = v;
   }
+  if constexpr (Dups) {
+    int v = a.dups;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) si[warp][kInts] = v;
+  }
 #pragma unroll
-  for (int c = 0; c < kPartials - kInts; ++c) {
+  for (int c = 0; c < kDups - kInts; ++c) {
     const float v = warp_fold(a.f[c]);
     if (lane == 0) sf[warp][c] = v;
   }
@@ -153,7 +162,11 @@ __device__ inline void block_partials(const Acc& a, int* out) {
     int t = 0;
     for (int w = 0; w < kWarps; ++w) t += si[w][c];
     out[c] = t;
-  } else if (c < kPartials) {
+  } else if (Dups && c == kDups) {
+    int t = 0;
+    for (int w = 0; w < kWarps; ++w) t += si[w][kInts];
+    out[kDups] = t;
+  } else if (c < kDups) {
     float t = 0.0f;
     for (int w = 0; w < kWarps; ++w) t = flush(t + sf[w][c - kInts]);
     out[c] = __float_as_int(t);
@@ -174,6 +187,7 @@ struct RowArgs {
   const int* needs;  // the rounds' quorum needs; null without a crash model
   int n_mass;        // Σw's invariant: the population, or the padded plane
   int pushsum, global;
+  int dups;  // whether the partials carry the dup count (kDups)
 };
 
 // One warp a round: the round's partials summed in block order into its
@@ -200,9 +214,14 @@ __global__ void __launch_bounds__(32) rows_kernel(RowArgs a) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     tot[c] = v;
   }
-  float sum[kPartials - kInts];
+  int dups = 0;
+  if (a.dups) {
+    for (int b = lane; b < a.grid; b += 32) dups += p[(size_t)b * kPartials + kDups];
+    for (int o = 16; o > 0; o >>= 1) dups += __shfl_down_sync(0xffffffffu, dups, o);
+  }
+  float sum[kDups - kInts];
 #pragma unroll
-  for (int c = 0; c < kPartials - kInts; ++c) {
+  for (int c = 0; c < kDups - kInts; ++c) {
     float v = 0.0f;
     for (int b = lane; b < a.grid; b += 32)
       v = flush(v + __int_as_float(p[(size_t)b * kPartials + kInts + c]));
@@ -216,7 +235,7 @@ __global__ void __launch_bounds__(32) rows_kernel(RowArgs a) {
     }
     float out[kCols];
     assemble(tot, err_w, a.n_live, a.target, a.needs, r, a.n_mass,
-             a.pushsum != 0, out);
+             a.pushsum != 0, out, dups);
     for (int c = 0; c < kCols; ++c) row[c] = out[c];
   }
 }

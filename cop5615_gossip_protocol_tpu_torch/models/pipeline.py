@@ -13,6 +13,11 @@ Under the health sentinel (``mass_tolerance``) the status carries a third
 word, the first round whose state was unhealthy (NEVER while none was), and
 a tripped round ends the run as done does (the JAX runner's ``health``).
 
+Under the delay ring (``delay_rounds``) the chunked engine's carry is a
+``Ringed`` pair, the protocol state and the ring of deliveries in flight;
+``advance`` guards both under the overshoot contract, and the protocol
+state alone (``proto_of``) is judged, traced and returned.
+
 Under the telemetry plane (ops/telemetry.py) a chunk also returns its rows,
 a ``[rounds, N_COLS]`` float32 buffer on the device: its copy to pinned
 memory is queued with the status copy, behind the same event, so retiring a
@@ -26,12 +31,12 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .pushsum import sum_f32
+from .pushsum import flush, sum_f32
 
 # The sentinel's word while no round has tripped (ops/faults.NEVER).
 NEVER = int(np.iinfo(np.int32).max)
@@ -53,6 +58,52 @@ class ChunkLoopResult:
     # The health sentinel's first unhealthy round, or None.
     unhealthy_round: Optional[int] = None
     aux_s: float = 0.0  # host time in on_aux (a part of fetch_s)
+
+
+class Ringed(NamedTuple):
+    """The chunked engine's carry under the delay ring: the protocol state
+    and the ring, float32 [D, 2, n] (push-sum's s and w) or int32 [D, n]
+    (gossip's receipts), slot ``round % D`` read and then overwritten by
+    round ``round`` (the JAX runner's ``(state, ring)`` carry)."""
+
+    state: object
+    ring: torch.Tensor
+
+
+class RingRound(NamedTuple):
+    """A round's output under the delay ring: its protocol state, the ring
+    with the round's fresh inbox written at ``slot`` in place
+    (``ring_step``), and what the slot held, which ``advance`` writes back
+    where the round ran past done."""
+
+    state: object
+    ring: torch.Tensor
+    slot: int
+    old: torch.Tensor
+
+
+def proto_of(carry):
+    """The protocol state of a carry (the JAX runner's ``proto_of``)."""
+    return carry.state if isinstance(carry, Ringed) else carry
+
+
+def ring_step(ring: torch.Tensor, fresh: torch.Tensor, slot: int) -> torch.Tensor:
+    """The arrival: a copy of what ``ring[slot]`` held, read before the
+    round's fresh inbox is written there in place (the JAX runner's
+    ``dynamic_index_in_dim`` then ``dynamic_update_index_in_dim``). One
+    slot moves a round: the round returns a ``RingRound``, and a chunk
+    works on its own copy of the ring (``own_ring``)."""
+    old = ring[slot].clone()
+    ring[slot] = fresh
+    return old
+
+
+def own_ring(carry):
+    """``carry`` with a copy of its ring (a chunk's first step, so the
+    rounds' in-place writes leave the caller's carry as it was)."""
+    if isinstance(carry, Ringed):
+        return Ringed(carry.state, carry.ring.clone())
+    return carry
 
 
 def _to_host(x):
@@ -84,18 +135,30 @@ def _read(handle) -> tuple[int, bool, Optional[int]]:
     return rounds, bool(done), unhealthy
 
 
-def health_check(n: int, tol: float, wsum: Callable = sum_f32) -> Callable:
+def health_check(n: int, tol: float, wsum: Callable = sum_f32,
+                 ring_sum: Optional[Callable] = None) -> Callable:
     """The health sentinel's test of a push-sum state (the JAX runner's
     ``sentinel_bad``): a non-finite s or w, or |Σw − n| above ``tol``, in
     float32 with Σw in ``wsum``'s order (``sum_f32``'s, the JAX chunked
-    engine's, unless a kernel's order is asked for). Returns a 0-dim bool
-    tensor."""
+    engine's, unless a kernel's order is asked for). Under the delay ring
+    (a ``Ringed`` carry) the ring's values count as well: a non-finite
+    word in it is unhealthy, and the w in flight adds to Σw, summed by
+    ``ring_sum(ring)`` (by default ``wsum`` over the flattened [D, n] w
+    planes, JAX's ``sum(ring[:, 1, :])``). Returns a 0-dim bool tensor."""
     n32 = torch.tensor(n, dtype=torch.float32)
     tol32 = torch.tensor(tol, dtype=torch.float32)
+    if ring_sum is None:
+        def ring_sum(ring):
+            return wsum(ring[:, 1, :].reshape(-1))
 
-    def bad(state) -> torch.Tensor:
+    def bad(carry) -> torch.Tensor:
+        state = proto_of(carry)
         finite = torch.isfinite(state.s).all() & torch.isfinite(state.w).all()
-        resid = torch.abs(wsum(state.w) - n32.to(state.w.device))
+        total = wsum(state.w)
+        if isinstance(carry, Ringed):
+            finite = finite & torch.isfinite(carry.ring).all()
+            total = flush(total + ring_sum(carry.ring))
+        resid = torch.abs(total - n32.to(state.w.device))
         return ~finite | (resid > tol32.to(state.w.device))
 
     return bad
@@ -113,14 +176,24 @@ def advance(state, new, status, target: int, alive=None, need: int = 0,
     the need of the round just executed. Under the health sentinel
     (``bad``, ``health_check``'s test; status int32 [3]) the round just
     executed is latched into status[2] where it is the first whose state is
-    unhealthy, and that ends the run."""
+    unhealthy, and that ends the run. A ``Ringed`` carry keeps its ring
+    too where done is set: ``new`` is then the round's ``RingRound``, and
+    its slot gets back what it held, so a round past done never rotates
+    the ring."""
     done = status[1] != 0
+    ring = None
+    if isinstance(state, Ringed):
+        ring = new.ring
+        ring[new.slot] = torch.where(done, new.old, ring[new.slot])
+        state, new = state.state, new.state
     out = type(state)(*(torch.where(done, a, b) for a, b in zip(state, new)))
     status[0] += (~done).to(status.dtype)
     if alive is None:
         verdict = out.conv.sum() >= target
     else:
         verdict = (out.conv & alive).sum() >= need
+    if ring is not None:
+        out = Ringed(out, ring)
     if bad is not None:
         trip = ~done & (status[2] == NEVER) & bad(out)
         status[2] = torch.where(trip, status[0] - 1, status[2])

@@ -15,6 +15,9 @@ writes the kept w half as ``where(send_ok, w * 0.5, w)``, which equals
 same form under pool, imp pool and scatter delivery and stays ``s -
 s_send`` under stencil delivery (``halve_and_send``'s ``fold_s``), as the
 JAX round's compiled form shows (tests/test_torch_c1_flush.py pins both).
+Stencil delivery keeps ``w - w_send`` too under global termination, and
+under the delay ring every delivery keeps both halves in the where form
+(``fold_w``; tests/test_torch_dup_delay.py pins them).
 """
 
 from __future__ import annotations
@@ -71,17 +74,20 @@ def init_state(pop: int, initial_term: int, device=None) -> PushSumState:
     )
 
 
-def halve_and_send(s, w, send_ok, fold_s: bool = True):
+def halve_and_send(s, w, send_ok, fold_s: bool = True, fold_w: bool = True):
     """Returns (s_send, w_send, s_keep, w_keep), each flushed; nodes with
-    send_ok False keep their whole mass. The kept w half is ``where(send_ok,
-    w * 0.5, w)`` and, with ``fold_s`` (pool, imp pool and scatter
-    delivery), the kept s half too; without it (stencil delivery) the kept
-    s half is ``s - s_send`` (the module docstring)."""
+    send_ok False keep their whole mass. With ``fold_s`` (pool, imp pool
+    and scatter delivery, and every delivery under the delay ring) the kept
+    s half is ``where(send_ok, s * 0.5, s)``, and with ``fold_w`` (all but
+    stencil delivery under global termination with no delay ring) the kept
+    w half is; otherwise the kept half is ``x - x_send`` (the
+    module docstring)."""
     zero = torch.zeros((), dtype=s.dtype, device=s.device)
     s_send = flush(torch.where(send_ok, s * 0.5, zero))
     w_send = flush(torch.where(send_ok, w * 0.5, zero))
     s_keep = flush(torch.where(send_ok, s * 0.5, s) if fold_s else s - s_send)
-    return s_send, w_send, s_keep, flush(torch.where(send_ok, w * 0.5, w))
+    w_keep = flush(torch.where(send_ok, w * 0.5, w) if fold_w else w - w_send)
+    return s_send, w_send, s_keep, w_keep
 
 
 def absorb(state: PushSumState, s_keep, w_keep, inbox_s, inbox_w, delta,

@@ -15,10 +15,10 @@ JAX runner's:
 - the chunked engine on [n] tensors, the JAX chunked engine's
   counterpart: scatter delivery (the default on ``full`` and imp2d/imp3d,
   ``delivery="scatter"`` anywhere) runs ops/scatter.py, its CUDA kernel on
-  a CUDA device and its plain torch version on the CPU; pool, stencil and
-  imp pool delivery run one torch round per step. Its chunks keep their
-  (rounds, done) status on the device, so a chunk is queued with no host
-  read and the pipeline reads the status once a chunk;
+  a CUDA device and its plain torch version on the CPU; pool, stencil,
+  imp pool and matmul delivery run one torch round per step. Its chunks
+  keep their (rounds, done) status on the device, so a chunk is queued
+  with no host read and the pipeline reads the status once a chunk;
 - reference-semantics push-sum: the single walk (models/reference.py,
   csrc/walk.cu on a CUDA device), before any ladder;
 - with ``n_devices > 1``, the sharded composition the JAX ladder picks
@@ -55,6 +55,17 @@ fused tier and composition carries each failure-model knob its JAX
 counterpart takes; where the JAX ladder demotes, the port runs its chunked
 engine, on the card too; where a sharded plan refuses, the run raises the
 JAX ladder's ValueError.
+
+``delivery="matmul"`` samples as pool delivery does and delivers to the
+targets that sampling implies: on ``full`` it runs the pool tiers (rows
+1-4; with n_devices > 1 and engine="fused" the replicated-pool2
+composition, rows 20-21), whose kernels compute its function, and on the
+imp kinds the chunked engine (ops/delivery.deliver_matmul, each receiver's
+senders in ascending index). Duplicate delivery and the delay ring
+(``dup_rate``, ``delay_rounds``) run on the chunked engine under scatter
+and stencil delivery (kernel A's dup and delay instances under scatter
+delivery on the card), as in JAX; every fused tier demotes them, and pool
+and matmul delivery refuse them with the JAX runner's text.
 
 The telemetry plane (``cfg.telemetry``, ops/telemetry.py) writes one row a
 round on the chunked engine (torch ops after each round, or kernel A's
@@ -174,11 +185,11 @@ def draw_leader(base_key, topo: Topology, cfg: SimConfig) -> int:
 
 def resolve_delivery(topo: Topology, cfg: SimConfig) -> str:
     """The chunked round's delivery (the JAX runner's
-    ``resolve_deliver_fn``): "pool" when asked for, stencil (masked
-    circular shifts) where the topology has a small displacement set and
-    the delivery is not "scatter", scatter-add otherwise."""
-    if cfg.delivery == "pool":
-        return "pool"
+    ``resolve_deliver_fn``): "pool" or "matmul" when asked for, stencil
+    (masked circular shifts) where the topology has a small displacement
+    set and the delivery is not "scatter", scatter-add otherwise."""
+    if cfg.delivery in ("pool", "matmul"):
+        return cfg.delivery
     if cfg.delivery == "stencil" and topo.offsets is None:
         raise ValueError(
             "delivery='stencil' requires an offset-structured topology "
@@ -201,7 +212,11 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     runner's ``targets_and_gate``, ``_freeze_dead`` and
     ``_done_predicate``); under a recovery model revived nodes send again
     and, where their rejoin resets them, start their revival round from the
-    reset state (``make_revive_fn``).
+    reset state (``make_revive_fn``). Under the dup gate a dup-gated
+    sender's message lands twice (``make_df``), and under the delay ring
+    (``delay_rounds`` = D) the carry is a ``pipeline.Ringed`` pair: round r
+    reads slot r % D of the ring, writes its fresh inbox (summed from 0)
+    there and absorbs what it read (the JAX runner's ``make_round_fn``).
 
     Under scatter delivery a chunk is one call of the scatter wrapper
     (ops/scatter.py: csrc/scatter.cu on CUDA, its plain version on the
@@ -214,10 +229,21 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     masked roll per displacement class (``deliver_stencil``); on imp2d/imp3d
     with pool delivery a node that selects its long-range column sends
     along one of the round's pool displacements instead
-    (``imp_pool_parts``, ``deliver_imp_pool``)."""
+    (``imp_pool_parts``, ``deliver_imp_pool``). Under delivery="matmul"
+    the round samples as pool delivery does and delivers to the targets
+    that sampling implies (``delivery.deliver_matmul``)."""
     n = topo.n
     pushsum = cfg.algorithm == "push-sum"
-    scattered = resolve_delivery(topo, cfg) == "scatter"
+    delivery = resolve_delivery(topo, cfg)
+    if delivery in ("pool", "matmul") and (cfg.dup_rate > 0
+                                           or cfg.delay_rounds > 0):
+        raise ValueError(
+            "dup/delay fault models run on the scatter/stencil chunked "
+            f"paths only; {cfg.delivery} delivery supports the drop gate "
+            "(--fault-rate) and crash models"
+        )
+    scattered = delivery == "scatter"
+    D = cfg.delay_rounds
     # The telemetry plane's row after each round (ops/telemetry.py).
     row_fn = (telemetry_mod.make_row_fn(topo, cfg, base_key, device)
               if cfg.telemetry else None)
@@ -227,6 +253,12 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
         state0 = gossip_mod.init_state(
             n, draw_leader(base_key, topo, cfg),
             cfg.reference and topo.kind == "full", device)
+    if D:
+        # The ring of deliveries in flight, zero at the start of a run.
+        ring0 = (torch.zeros(D, 2, n, dtype=torch.float32, device=device)
+                 if pushsum else torch.zeros(D, n, dtype=torch.int32,
+                                             device=device))
+        state0 = pipeline_mod.Ringed(state0, ring0)
 
     if scattered:
         graph = scatter.scatter_graph(topo, device)
@@ -260,10 +292,20 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
         send_ok = degree > 0
         lattice = [int(q) for q in split.lattice_offsets]
 
+        ids = torch.arange(n, dtype=torch.int64, device=device)
+
         def deliver_parts(round_idx: int):
             kr = sampling.round_key(base_key, round_idx)
             d, is_extra, choice, offs, _ = imp_pool_parts(
                 topo, cfg, kr, disp_cols, degree, device)
+            if delivery == "matmul":
+                # Each node's target: its sampled lattice displacement, or
+                # on its long-range slot its pool displacement.
+                offs = offs.to(device, torch.int64)
+                disp = torch.where(is_extra, offs[choice.to(torch.int64)], d)
+                targets = torch.remainder(ids + disp, n)
+                return lambda values: delivery_mod.deliver_matmul(
+                    values, targets, n)
             return lambda values: delivery_mod.deliver_imp_pool(
                 values, d, is_extra, choice, lattice, offs.tolist())
 
@@ -273,11 +315,17 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
         pool_fn = (delivery_mod.deliver_pool_trimmed if cfg.robust_agg == "trim"
                    else delivery_mod.deliver_pool)
 
+        ids = torch.arange(n, dtype=torch.int64, device=device)
+
         def deliver_parts(round_idx: int):
             kr = sampling.round_key(base_key, round_idx)
-            offs = sampling.pool_offsets(kr, cfg.pool_size, n).tolist()
+            offs = sampling.pool_offsets(kr, cfg.pool_size, n)
             choice = sampling.pool_choice_packed(kr, n, cfg.pool_size, device=device)
-            return lambda values: pool_fn(values, choice, offs)
+            if delivery == "matmul":
+                targets = sampling.targets_pool(choice, offs, ids, n)
+                return lambda values: delivery_mod.deliver_matmul(
+                    values, targets, n)
+            return lambda values: pool_fn(values, choice, offs.tolist())
 
     else:
         neighbors = torch.from_numpy(topo.neighbors).to(device)
@@ -289,8 +337,14 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
             kr = sampling.round_key(base_key, round_idx)
             bits = sampling.uniform_bits(kr, n, device=device)
             targets = sampling.targets_explicit(bits, neighbors, degree)
-            return lambda values: delivery_mod.deliver_stencil(
-                values, targets, offsets, n)
+            return make_df(lambda values: delivery_mod.deliver_stencil(
+                values, targets, offsets, n), kr)
+
+    def make_df(deliver, kr):
+        """The round's delivery with its dup gate folded in (the JAX
+        runner's ``make_df``)."""
+        dup = sampling.dup_gate(kr, n, cfg.dup_rate, device=device)
+        return lambda v: delivery_mod.deliver_dup(deliver, v, dup)
 
     faults = fused.run_faults(cfg, n)
     death = faults.death_flat(n, device) if faults and faults.death is not None else None
@@ -331,26 +385,31 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     if pushsum:
         delta, term_rounds = cfg.resolved_delta, cfg.term_rounds
         global_term = cfg.termination == "global"
-        # The kept s half's form: stencil delivery keeps s - s_send
+        # The kept halves' forms: stencil delivery keeps s - s_send, and
+        # w - w_send under global termination, except under the delay ring
         # (pushsum.halve_and_send).
-        fold_s = topo.implicit or topo.kind in IMP_LATTICE
+        fold_s = topo.implicit or topo.kind in IMP_LATTICE or D > 0
+        fold_w = fold_s or not global_term
 
         clip = cfg.robust_agg == "clip"
 
-        def round_fn(state, round_idx):
+        def round_fn(carry, round_idx):
+            state = pipeline_mod.proto_of(carry)
             state = rejoin(state, round_idx)
             deliver = deliver_parts(round_idx)
             ok = gated(send_ok, round_idx)
             s_send, w_send, s_keep, w_keep = pushsum_mod.halve_and_send(
-                state.s, state.w, ok, fold_s
+                state.s, state.w, ok, fold_s, fold_w
             )
             if byz is not None:
-                # The lie is what a sender puts on the wire; its kept
-                # halves stay honest (make_byz_send_fn).
+                # The lie is what a sender puts on the wire (and what enters
+                # the ring); its kept halves stay honest (make_byz_send_fn).
                 s_send, w_send = faults_mod.lie(
                     mode, s_send, w_send, state.s, state.w,
                     faults_mod.byzantine_at(byz, round_idx) & ok)
             inbox = deliver(torch.stack([s_send, w_send]))
+            if D:
+                inbox = pipeline_mod.ring_step(carry.ring, inbox, round_idx % D)
             if clip:
                 new = pushsum_mod.absorb_clipped(
                     state, s_keep, w_keep, inbox[0], inbox[1],
@@ -359,16 +418,21 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
                 new = pushsum_mod.absorb(
                     state, s_keep, w_keep, inbox[0], inbox[1], delta,
                     term_rounds, global_term)
-            return freeze_dead(state, new, round_idx)
+            new = freeze_dead(state, new, round_idx)
+            return (pipeline_mod.RingRound(new, carry.ring, round_idx % D, inbox)
+                    if D else new)
 
     else:
         rumor_target, suppress = cfg.resolved_rumor_target, cfg.resolved_suppress
 
-        def round_fn(state, round_idx):
+        def round_fn(carry, round_idx):
+            state = pipeline_mod.proto_of(carry)
             state = rejoin(state, round_idx)
             deliver = deliver_parts(round_idx)
             vals = gossip_mod.send_values(state, gated(send_ok, round_idx))
             inbox = deliver(vals[None])[0]
+            if D:
+                inbox = pipeline_mod.ring_step(carry.ring, inbox, round_idx % D)
             new = gossip_mod.absorb(state, inbox, rumor_target, suppress)
             new = freeze_dead(state, new, round_idx)
             if byz is not None:
@@ -379,13 +443,15 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
                     lying = lying & alive(round_idx)
                 new = gossip_mod.GossipState(
                     *faults_mod.override(mode, lying, *new))
-            return new
+            return (pipeline_mod.RingRound(new, carry.ring, round_idx % D, inbox)
+                    if D else new)
 
     bad = (None if cfg.mass_tolerance is None
            else pipeline_mod.health_check(n, cfg.mass_tolerance))
 
     def round_chunk(state, status, start, end):
         status = status.clone()
+        state = pipeline_mod.own_ring(state)
         count = max(end - start, 0)
         needs = faults.needs(start, count)[0] if death is not None else None
         rows = (None if row_fn is None else
@@ -398,7 +464,8 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
                                          target, bad=bad, **verdict)
             if rows is not None:
                 # The row after the round, from its output state.
-                rows[k] = row_fn(state, rnd, verdict.get("need"))
+                rows[k] = row_fn(pipeline_mod.proto_of(state), rnd,
+                                 verdict.get("need"))
         return (state, status) if rows is None else (state, status, rows)
 
     return round_chunk, state0
@@ -529,13 +596,21 @@ def fused_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
 
 def _fused_variant(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str]]:
     """``fused_tier``'s tier and its plan's reason, before the knobs that
-    only the chunked engine carries."""
+    only the chunked engine carries. delivery="matmul" on ``full`` takes
+    the pool tiers, whose kernels compute its function (the JAX tiers' MXU
+    blend is bitwise their roll blend), and on the imp kinds the chunked
+    engine."""
+    if cfg.delivery == "matmul" and topo.kind in IMP_LATTICE:
+        return "imp", (
+            "the fused imp tiers deliver by lattice/pool class rolls; "
+            "delivery='matmul' runs the chunked engine on imp kinds (the "
+            "MXU tier's fused home is the implicit-full pool kernels)")
     if cfg.delivery == "pool" and topo.kind in IMP_LATTICE:
         reason = fused_imp.imp_fused_support(topo, cfg)
         if reason is not None and fused_imp_hbm.imp_hbm_support(topo, cfg) is None:
             return "imp_hbm", None
         return "imp", reason
-    if cfg.delivery == "pool" and topo.implicit:
+    if cfg.delivery in ("pool", "matmul") and topo.implicit:
         if topo.n <= fused_pool.MAX_POOL_NODES:
             return "pool", fused_pool.pool_fused_support(topo, cfg)
         return "pool2", fused_pool2.pool2_support(topo, cfg)
@@ -556,7 +631,8 @@ def sharded_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str], st
     ports it. ``engine="fused"`` on implicit ``full`` with pool delivery
     tries the VMEM replicated composition (``fused_pool_sharded``, up to
     the pool engine's 2**21 nodes) and then the replicated-pool2 one
-    (``pool2_sharded``), else both plans' reasons; the imp kinds with pool
+    (``pool2_sharded``), else both plans' reasons; with matmul delivery
+    the replicated-pool2 one alone (the matmul tier's sharded home); the imp kinds with pool
     delivery go to ``imp_hbm_sharded``, else its plan's reason; every other
     kind (the imp kinds under another delivery too) tries the resident
     lattice composition (``fused_sharded``) and then the streaming one
@@ -572,7 +648,11 @@ def sharded_tier(topo: Topology, cfg: SimConfig) -> tuple[str, Optional[str], st
     if cfg.engine != "fused":
         return "sharded", None, "A10"
     if topo.implicit:
-        plan_vmem = plan_fused_pool_sharded(topo, cfg, S)
+        plan_vmem = (
+            "the VMEM replicated pool composition serves "
+            "delivery='pool'; the matmul tier's sharded home "
+            "is the replicated-pool2 composition"
+        ) if cfg.delivery == "matmul" else plan_fused_pool_sharded(topo, cfg, S)
         if not isinstance(plan_vmem, str):
             return "fused_pool_sharded", None, "A10"
         plan_p2 = plan_pool2_sharded(topo, cfg, S)
@@ -718,6 +798,24 @@ def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
                 "compositions do not carry it — drop the engine "
                 "override"
             )
+        if topo.kind in IMP_LATTICE and cfg.delivery == "matmul":
+            raise ValueError(
+                "engine='fused' with delivery='matmul' on imp kinds "
+                "is not served: the imp x HBM x sharded composition "
+                "delivers by lattice/pool class rolls — use "
+                "delivery='pool' for that composition, or the "
+                "single-device chunked engine for the matmul tier"
+            )
+    elif cfg.delivery == "matmul":
+        raise ValueError(
+            "delivery='matmul' has no sharded XLA path (the chunked "
+            "sharded engine delivers pool rounds by global rolls / "
+            "scatter, which would break the matmul tier's zero-scatter "
+            "contract); the MXU tier runs on the single-device chunked "
+            "engine, the fused pool kernels, and the replicated-pool2 "
+            "composition (engine='fused') — drop n_devices or use "
+            "delivery='pool'"
+        )
     elif cfg.byzantine_model or cfg.robust_agg != "none":
         raise ValueError(
             "the byzantine adversary plane and robust aggregation run "
@@ -787,6 +885,12 @@ def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
     behind the same event)."""
     chunk_fn, state0 = _make_chunk_fn(topo, cfg, key, device, target)
     if start_state is not None:
+        if cfg.delay_rounds > 0:
+            raise ValueError(
+                "resume with delay_rounds > 0 is unsupported: the in-flight "
+                "delivery ring is not checkpointed, so the resumed "
+                "trajectory could not be bitwise-faithful"
+            )
         state0 = _to_device(start_state, device)
     done0 = start_state is not None and _host_done(state0, target, cfg,
                                                    start_round)
@@ -837,9 +941,10 @@ def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
     )
     run_s = time.perf_counter() - t1
     t_fin = time.perf_counter()
-    result = _finalize_result(topo, cfg, loop.state, loop.rounds, target,
-                              compile_s, run_s, loop.done, loop, device,
-                              collector)
+    # The result's state is the protocol state alone (the JAX proto_of).
+    result = _finalize_result(topo, cfg, pipeline_mod.proto_of(loop.state),
+                              loop.rounds, target, compile_s, run_s,
+                              loop.done, loop, device, collector)
     result.setup_s = setup_s
     result.finalize_s = time.perf_counter() - t_fin
     return result

@@ -1,10 +1,14 @@
-"""Message delivery: the scatter-add of values into their targets, and the
+"""Message delivery: the scatter-add of values into their targets, the
 scatter-free masked circular shifts (offset pools on the implicit full
 topology, static displacement classes on the lattices, and both on
-imp2d/imp3d)."""
+imp2d/imp3d), and delivery="matmul"'s delivery to explicit targets with
+the matrix primitives beside it (``aggregate_full``, ``deliver_spmv``)."""
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from ..models.pushsum import flush
@@ -50,6 +54,18 @@ def deliver(values: torch.Tensor, targets: torch.Tensor, n: int,
         t, src = sorted_t[level], order[level]
         inbox[..., t] = _add(inbox[..., t], values[..., src])
     return inbox
+
+
+def deliver_dup(deliver_fn, values: torch.Tensor, dup) -> torch.Tensor:
+    """``deliver_fn(values)`` under the dup gate (``dup``, bool [n]: the
+    dup-gated senders, or False/None for none): a gated sender's value
+    lands twice, ``deliver_fn(v) + deliver_fn(where(dup, v, 0))``, the two
+    inboxes summed apart and then added (the JAX runner's ``make_df``; XLA
+    folds neither onto the other)."""
+    inbox = deliver_fn(values)
+    if dup is None or dup is False:
+        return inbox
+    return _add(inbox, deliver_fn(torch.where(dup, values, torch.zeros_like(values))))
 
 
 def deliver_pool(channels: torch.Tensor, choice: torch.Tensor, offsets) -> torch.Tensor:
@@ -143,3 +159,126 @@ def deliver_pool_trimmed(channels: torch.Tensor, choice: torch.Tensor,
         best_absw = torch.maximum(best_absw, absw)
     drop = contribs >= 2
     return flush(inbox - torch.where(drop[None, :], best, zero))
+
+
+# ---------------------------------------------------------------------------
+# delivery="matmul" and the matrix delivery primitives (the JAX package's
+# MXU tier, ops/delivery.py there).
+# ---------------------------------------------------------------------------
+
+MM_BLOCK = 128  # the JAX tier's tile edge: SpmvPlan's block
+
+
+def deliver_matmul(values: torch.Tensor, targets: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """``inbox[..., j] = sum over i of values[..., i] * [targets[i] == j]``:
+    the function of the JAX package's ``deliver_matmul`` (a blocked one-hot
+    dot_general there). ``values`` is [n] or [C, n]; a target of -1 (a pad
+    slot) matches no receiver: it lands in a slot n past the inbox, which
+    is dropped.
+
+    The float order is explicit and the same on every host and device:
+    each receiver's senders add in ascending sender index onto 0, flushed,
+    as ``deliver`` sums. The JAX tier's order is XLA's dot on the CPU: each
+    receiver's sends ascend inside panels of senders (512 with the process
+    on 8 CPUs, 256 on one) and the panels' sums are then added, so its
+    float32 sums follow the host's thread count. The two agree bitwise
+    where a receiver gets at most two sends (pool_size 2: two float adds
+    commute) and on integer channels (exact in any order); elsewhere they
+    are the same sum to float32 rounding. Integer channels stay integers
+    here (the JAX tier round-trips them through float32, exact below
+    2**24)."""
+    targets = targets.to(torch.int64)
+    return deliver(values, torch.where(targets < 0, n, targets), n + 1)[..., :n]
+
+
+def aggregate_full(values: torch.Tensor) -> torch.Tensor:
+    """The complete graph's adjacency-vector product in closed form: the
+    adjacency is J - I, so ``inbox[j] = sum over i != j of values[i]`` is
+    ``sum(values) - values`` along the last axis (the JAX package's
+    ``aggregate_full``)."""
+    return values.sum(dim=-1, keepdim=values.ndim > 1) - values
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmvPlan:
+    """A static graph's in-edges as dense MM_BLOCK x MM_BLOCK adjacency
+    tiles (block-sparse rows), built once on the host (``build_spmv_plan``):
+    tile (s, r) holds A[i, j] for senders i of block s and receivers j of
+    block r, stored packed ([T, 128, 128], tile 0 all zero), with each
+    receiver block's padded tile list."""
+
+    n: int
+    nb: int
+    tiles: np.ndarray  # [T, 128, 128] float32, tiles[0] == 0
+    tile_ids: np.ndarray  # [nb, max_t] int32 indices into tiles (0 = pad)
+    src_blocks: np.ndarray  # [nb, max_t] int32 sender block of each tile
+
+
+def build_spmv_plan(indptr, indices, n: int) -> SpmvPlan:
+    """The plan of a CSR of in-edges: ``indices[indptr[j]:indptr[j+1]]``
+    lists the senders delivering into receiver j; parallel edges add up in
+    their tile entry."""
+    B = MM_BLOCK
+    nb = -(-n // B)
+    indptr = np.asarray(indptr, np.int64)
+    indices = np.asarray(indices, np.int64)
+    tile_map: dict = {}
+    for j in range(n):
+        for i in indices[indptr[j]:indptr[j + 1]]:
+            key = (int(i) // B, j // B)
+            t = tile_map.get(key)
+            if t is None:
+                t = tile_map[key] = np.zeros((B, B), np.float32)
+            t[int(i) % B, j % B] += 1.0
+    tiles = [np.zeros((B, B), np.float32)]
+    per_row: list = [[] for _ in range(nb)]
+    for (sb, rb), tile in sorted(tile_map.items(), key=lambda kv: kv[0][::-1]):
+        per_row[rb].append((len(tiles), sb))
+        tiles.append(tile)
+    max_t = max(1, max(len(row) for row in per_row))
+    tile_ids = np.zeros((nb, max_t), np.int32)
+    src_blocks = np.zeros((nb, max_t), np.int32)
+    for rb, row in enumerate(per_row):
+        for k, (tid, sb) in enumerate(row):
+            tile_ids[rb, k] = tid
+            src_blocks[rb, k] = sb
+    return SpmvPlan(n=n, nb=nb, tiles=np.stack(tiles), tile_ids=tile_ids,
+                    src_blocks=src_blocks)
+
+
+def deliver_spmv(values: torch.Tensor, plan: SpmvPlan) -> torch.Tensor:
+    """All-in-edge aggregation over the plan's static graph: ``inbox[...,
+    j] = sum over in-neighbours i of j of values[..., i]``, ``values`` [n]
+    or [C, n]. For each receiver block its stored tiles and their senders'
+    value blocks contract in one ``torch.matmul`` (pad entries hit the zero
+    tile 0), accumulating in float32 (float64 for float64 values) and cast
+    back, as the JAX primitive does; a float sum's order is the matmul
+    library's."""
+    squeeze = values.ndim == 1
+    ch = values[None, :] if squeeze else values
+    B, n, nb = MM_BLOCK, plan.n, plan.nb
+    acc_t = torch.float64 if ch.dtype == torch.float64 else torch.float32
+    dev = ch.device
+    ch_p = torch.zeros(ch.shape[0], nb * B, dtype=acc_t, device=dev)
+    ch_p[:, :n] = ch.to(acc_t)
+    vb = ch_p.reshape(ch.shape[0], nb, B)
+    tiles = torch.as_tensor(plan.tiles, device=dev).to(acc_t)
+    tile_ids = torch.as_tensor(plan.tile_ids, device=dev).to(torch.int64)
+    src = torch.as_tensor(plan.src_blocks, device=dev).to(torch.int64)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32 if dev.type == "cuda"
+            else None)
+    try:
+        if tf32 is not None:
+            # The float32 contract: no TF32 inputs for this call.
+            torch.backends.cuda.matmul.allow_tf32 = False
+        # [nb, C, max_t * B] @ [nb, max_t * B, B] -> [nb, C, B]
+        vt = vb[:, src, :].permute(1, 0, 2, 3).reshape(nb, ch.shape[0], -1)
+        tt = tiles[tile_ids].reshape(nb, -1, B)
+        blocks = torch.matmul(vt, tt)
+    finally:
+        if tf32 is not None:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    inbox = blocks.permute(1, 0, 2).reshape(ch.shape[0], nb * B)[:, :n]
+    inbox = inbox.to(values.dtype)
+    return inbox[0] if squeeze else inbox

@@ -47,13 +47,16 @@ def _has_wrap_edges(topo: Topology) -> bool:
 def fused_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
     """None if the JAX package's whole-array stencil tier would run this
     config, else the reason not (its predicate, ops/fused.py; the port's
-    configs are float32 and have no dup or delay by construction, and
-    its drop and crash models run in the JAX tier)."""
-    del cfg
+    configs are float32 by construction, and its drop and crash models run
+    in the JAX tier)."""
     if topo.implicit:
         return "implicit (full) topology has no displacement structure"
     if topo.offsets is None:
         return f"topology {topo.kind!r} has no small displacement set"
+    if cfg.dup_rate > 0 or cfg.delay_rounds > 0:
+        # Duplicate delivery and the delay ring restructure delivery
+        # itself: the config runs on the chunked engine.
+        return "dup/delay fault models run on the chunked engine only"
     if topo.n > MAX_FUSED_NODES:
         return f"population {topo.n} exceeds VMEM-resident limit {MAX_FUSED_NODES}"
     if topo.n % LANES != 0 and _has_wrap_edges(topo):
@@ -302,7 +305,10 @@ class Faults:
     term; under a Byzantine model ``byz`` the int32 [n] onset plane and
     ``byz_mode`` its mode; whether push-sum clips its inboxes
     (``robust_agg="clip"``) and the health sentinel's ``mass_tolerance``
-    (None: off), which only the scatter round's plain version carries."""
+    (None: off), which only the scatter round's plain version carries;
+    the dup gate's threshold (``dup_thresh``, None without one) and the
+    delay ring's depth (``delay``, 0 without one), which only the scatter
+    round carries among the chunks (the fused plans refuse both)."""
 
     thresh: Optional[int]
     death: Optional[np.ndarray]
@@ -317,6 +323,8 @@ class Faults:
     byz_mode: str = ""
     clip: bool = False
     mass_tolerance: Optional[float] = None
+    dup_thresh: Optional[int] = None
+    delay: int = 0
     planes: dict = dataclasses.field(default_factory=dict)
 
     def gate_keys(self, keys: torch.Tensor) -> Optional[torch.Tensor]:
@@ -408,14 +416,15 @@ class Faults:
 
 def run_faults(cfg: SimConfig, n: int) -> Optional[Faults]:
     """The run's ``Faults``, or None for a fault-free run with local
-    termination and no Byzantine model, robust aggregation or health
-    sentinel (the chunks' fault-free form)."""
+    termination and no Byzantine model, robust aggregation, health
+    sentinel, dup gate or delay ring (the chunks' fault-free form)."""
     from . import faults, sampling
 
     gate = cfg.fault_rate > 0
     if not (gate or cfg.crash_model or cfg.termination == "global"
             or cfg.byzantine_model or cfg.robust_agg != "none"
-            or cfg.mass_tolerance is not None):
+            or cfg.mass_tolerance is not None or cfg.dup_rate > 0
+            or cfg.delay_rounds > 0):
         return None
     return Faults(
         thresh=sampling.gate_threshold(cfg.fault_rate) if gate else None,
@@ -431,6 +440,9 @@ def run_faults(cfg: SimConfig, n: int) -> Optional[Faults]:
         byz_mode=cfg.byzantine_mode if cfg.byzantine_model else "",
         clip=cfg.robust_agg == "clip",
         mass_tolerance=cfg.mass_tolerance,
+        dup_thresh=(sampling.gate_threshold(cfg.dup_rate) if cfg.dup_rate > 0
+                    else None),
+        delay=cfg.delay_rounds,
     )
 
 

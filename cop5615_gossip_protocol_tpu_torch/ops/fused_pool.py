@@ -67,13 +67,17 @@ def build_pool_layout(n: int) -> PoolLayout:
 
 
 def pool_fused_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
-    """None if the fused pool engine can run this (fault-free) config, else
-    the reason."""
+    """None if the fused pool engine can run this config, else the reason
+    (the JAX tier's, which serves delivery="pool" and "matmul" alike)."""
     if not topo.implicit:
         return (
             "the fused pool engine serves the implicit full topology only; "
             f"pooled delivery on {topo.kind!r} runs the chunked engine"
         )
+    if cfg.dup_rate > 0 or cfg.delay_rounds > 0:
+        # Duplicate delivery and the delay ring restructure delivery
+        # itself: the config runs on the chunked engine.
+        return "dup/delay fault models run on the chunked engine only"
     if cfg.pool_size > 1 << POOL_CHOICE_BITS:
         return (
             f"pool_size {cfg.pool_size} exceeds the packed-choice limit "

@@ -46,6 +46,10 @@ def pool2_support(topo: Topology, cfg: SimConfig) -> Optional[str]:
     apply to the port's configs."""
     if not topo.implicit:
         return "the streaming pool engine serves the implicit full topology only"
+    if cfg.dup_rate > 0 or cfg.delay_rounds > 0:
+        # Duplicate delivery and the delay ring restructure delivery
+        # itself: the config runs on the chunked engine.
+        return "dup/delay fault models run on the chunked engine only"
     if cfg.revive_model:
         # The JAX tier's needs and windowed freeze come from the sorted
         # death plane alone: a revive config runs on the chunked engine.

@@ -78,6 +78,15 @@ def pool_offsets(round_k, pool_size: int, n: int) -> torch.Tensor:
     return (1 + b % (n - 1)).to(torch.int32)
 
 
+def targets_pool(choice: torch.Tensor, offsets: torch.Tensor,
+                 node_ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Partner indices implied by (choice, offsets): node i sends to
+    ``(i + offsets[choice[i]]) mod n``, the targets the pool round's masked
+    rolls deliver to (delivery="matmul" delivers to them directly)."""
+    shift = offsets.to(node_ids.device)[choice.to(torch.int64)]
+    return (node_ids.to(torch.int64) + shift.to(torch.int64)) % n
+
+
 def pool_rows(n: int) -> int:
     """Padded row count of the pool layout: the [rows, 128] grid covering n
     nodes, rounded to whole TPU-kernel tiles (the packed-choice geometry
@@ -119,8 +128,10 @@ def pool_choice_packed(round_k, n: int, pool_size: int,
     return torch.cat([flat, flat.new_zeros(out_len - flat.shape[0])])
 
 
-# fold_in tag of the per-round drop gate, folded into the round key.
+# fold_in tags of the per-round drop gate and duplicate-delivery gate,
+# folded into the round key.
 GATE_TAG = 0x5EED
+DUP_TAG = 0xD00B
 
 
 def gate_threshold(rate: float) -> int:
@@ -137,3 +148,14 @@ def send_gate(round_k, n: int, fault_rate: float, device=None):
         return True
     words = rng.bits(rng.fold_in(round_k, GATE_TAG), (n,), device=device)
     return words >= gate_threshold(fault_rate)
+
+
+def dup_gate(round_k, n: int, dup_rate: float, device=None):
+    """bool [n], True where the node's message is delivered twice this
+    round (at-least-once delivery), or the constant False when dup_rate is
+    0: one word a node off fold_in(round key, DUP_TAG), below
+    ``gate_threshold``."""
+    if dup_rate <= 0.0:
+        return False
+    words = rng.bits(rng.fold_in(round_k, DUP_TAG), (n,), device=device)
+    return words < gate_threshold(dup_rate)

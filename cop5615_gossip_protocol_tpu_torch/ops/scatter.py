@@ -24,8 +24,11 @@ push-sum may terminate globally; under a recovery model a revived node
 sends again and, where its rejoin resets it, starts its revival round from
 the reset state: the kernels' faulted instances. Robust aggregation's clip
 and the health sentinel (push-sum) and the telemetry plane's rows (both
-protocols) are instances of their own. CUDA state launches the kernels; CPU
-state runs the plain versions; there is no fallback between the two.
+protocols) are instances of their own, and so are the dup gate (a
+dup-gated sender's message lands twice) and the delay ring (the carry is a
+pipeline.Ringed pair: round r absorbs slot r % D of the ring and leaves
+its fresh inbox there). CUDA state launches the kernels; CPU state runs
+the plain versions; there is no fallback between the two.
 
 The sentinel's Σw and the rows' float sums are whole-grid sums in the
 kernel's fixed order (ops/telemetry.KernelOrder, slice_order for push-sum,
@@ -45,7 +48,8 @@ import torch
 
 from ..models import gossip as gossip_mod
 from ..models import pushsum as pushsum_mod
-from ..models.pipeline import advance, health_check
+from ..models.pipeline import (Ringed, RingRound, advance, health_check, own_ring,
+                               proto_of, ring_step)
 from ..models.pushsum import sum_f32
 from ..utils import kernels
 from . import delivery, fused, rng, sampling
@@ -111,7 +115,8 @@ def round_targets(graph: ScatterGraph, round_key):
 
 def pushsum_round_plain(state, targets, send_ok, *, delta: float,
                         term_rounds: int, global_term: bool = False,
-                        lying=None, mode: str = "", clip: bool = False):
+                        lying=None, mode: str = "", clip: bool = False,
+                        dup=None, ring=None, slot: int = 0):
     """One push-sum round from its targets (``round_from_targets``) in the
     op order of the JAX package's jitted round: s and w halve; the s halves
     add onto each target's kept half in ascending sender index (XLA folds
@@ -122,13 +127,35 @@ def pushsum_round_plain(state, targets, send_ok, *, delta: float,
     onto the kept half. Every half, add and sum is flushed
     (pushsum.flush). ``lying`` (bool [n]) senders put ``mode``'s pair on
     the wire (faults.lie); with ``clip`` both inboxes sum from 0 and the
-    absorb adds them clipped (pushsum.absorb_clipped)."""
+    absorb adds them clipped (pushsum.absorb_clipped).
+
+    With the dup gate (``dup``, bool [n]) or the delay ring (``ring``,
+    float32 [D, 2, n], read and written at ``slot``) XLA folds nothing:
+    each inbox sums from 0 (a dup-gated sender's half a second time into
+    an inbox of its own, the two added), and the kept half adds the inbox,
+    or under the ring what the ring held (pipeline.ring_step). Returns the
+    new state, and with a ring (written in place) what its slot held too."""
     s_send, w_send, s_keep, w_keep = pushsum_mod.halve_and_send(
         state.s, state.w, send_ok)
     if lying is not None:
         s_send, w_send = faults_mod.lie(mode, s_send, w_send, state.s, state.w,
                                         lying & send_ok)
     n = state.s.shape[0]
+    if dup is not None or ring is not None:
+        in_s, in_w = delivery.deliver_dup(
+            lambda v: delivery.deliver(v, targets, n),
+            torch.stack([s_send, w_send]), dup)
+        if ring is not None:
+            arrival = ring_step(ring, torch.stack([in_s, in_w]), slot)
+            in_s, in_w = arrival
+        if clip:
+            new = pushsum_mod.absorb_clipped(
+                state, s_keep, w_keep, in_s, in_w,
+                pushsum_mod.clip_scale(in_w, w_keep), delta, term_rounds)
+        else:
+            new = pushsum_mod.absorb(state, s_keep, w_keep, in_s, in_w, delta,
+                                     term_rounds, global_term)
+        return new if ring is None else (new, arrival)
     if clip:
         in_w = delivery.deliver(w_send, targets, n)
         return pushsum_mod.absorb_clipped(
@@ -147,15 +174,24 @@ def pushsum_round_plain(state, targets, send_ok, *, delta: float,
 
 
 def gossip_round_plain(state, targets, send_ok, *, rumor_target: int,
-                       suppress: bool):
-    """One gossip round from its targets: every informed sender adds 1."""
+                       suppress: bool, dup=None, ring=None, slot: int = 0):
+    """One gossip round from its targets: every informed sender adds 1,
+    a dup-gated one twice (``dup``); under the delay ring (``ring``, int32
+    [D, n]) the round absorbs what slot ``slot`` held and leaves its fresh
+    receipts there. Returns the new state, and with a ring (written in
+    place) what its slot held too."""
     vals = gossip_mod.send_values(state, send_ok)
-    inbox = delivery.deliver(vals, targets, state.count.shape[0])
-    return gossip_mod.absorb(state, inbox, rumor_target, suppress)
+    inbox = delivery.deliver_dup(
+        lambda v: delivery.deliver(v, targets, state.count.shape[0]), vals, dup)
+    if ring is not None:
+        inbox = ring_step(ring, inbox, slot)
+    new = gossip_mod.absorb(state, inbox, rumor_target, suppress)
+    return new if ring is None else (new, inbox)
 
 
 def _chunk_plain(round_fn, state, keys, status, target: int, start: int,
-                 faults: Optional[fused.Faults], row_fn=None, wsum=sum_f32):
+                 faults: Optional[fused.Faults], row_fn=None, wsum=sum_f32,
+                 ring_sum=None):
     """K = keys.shape[0] rounds under the overshoot contract. ``faults``
     adds the drop gate and the living to each round's senders, freezes a
     dead node's protocol state (push-sum's s and w still absorb), judges a
@@ -166,20 +202,27 @@ def _chunk_plain(round_fn, state, keys, status, target: int, start: int,
     push-sum sender among them lies) and a live gossip adversary's state
     takes the mode's override after the freeze; under the health sentinel
     (status int32 [3]) a round whose state is unhealthy ends the run
-    (pipeline.advance), its Σw in ``wsum``'s order. With ``row_fn``
+    (pipeline.advance), its Σw in ``wsum``'s order (and the ring's in
+    ``ring_sum``'s, pipeline.health_check). Under the dup gate
+    ``round_fn`` gets the round's dup-gated nodes, and under the delay
+    ring (``state`` a pipeline.Ringed carry) the chunk's copy of the ring
+    and the round's slot, and returns what the slot held beside the state. With ``row_fn``
     (telemetry.make_row_fn's) it returns the rows of the rounds it executed
     too, float32 [K, N_COLS], zero past them."""
     status = status.clone()
+    state = own_ring(state)
     executed0 = int(status[0])
+    proto = proto_of(state)
+    n_pad, dev = proto[0].shape[0], proto[0].device
     fx = None
     bad = None
     rows = (None if row_fn is None else
             torch.zeros(keys.shape[0], telemetry_mod.N_COLS, dtype=torch.float32,
-                        device=state[0].device))
+                        device=dev))
     if faults is not None:
-        fx = faults.for_chunk(keys, start, state[0].shape[0], state[0].device)
+        fx = faults.for_chunk(keys, start, n_pad, dev)
         if faults.mass_tolerance is not None:
-            bad = health_check(state[0].shape[0], faults.mass_tolerance, wsum)
+            bad = health_check(n_pad, faults.mass_tolerance, wsum, ring_sum)
     for k in range(keys.shape[0]):
         if fx is None:
             state = advance(state, round_fn(state, keys[k], True, None), status,
@@ -189,17 +232,23 @@ def _chunk_plain(round_fn, state, keys, status, target: int, start: int,
             continue
         ok = True
         if fx.thresh is not None:
-            ok = sampling.uniform_bits(fx.gate_keys[k], state[0].shape[0],
-                                       device=state[0].device) >= fx.thresh
+            ok = sampling.uniform_bits(fx.gate_keys[k], n_pad, device=dev) >= fx.thresh
         alive = fx.alive_flat(start + k)
         if alive is not None:
             ok = alive if ok is True else ok & alive
-        entry = state
+        extra = {}
+        if faults.dup_thresh is not None:
+            extra["dup"] = rng.bits(rng.fold_in(keys[k], sampling.DUP_TAG),
+                                    (n_pad,), device=dev) < faults.dup_thresh
+        if isinstance(state, Ringed):
+            extra.update(ring=state.ring, slot=(start + k) % faults.delay)
+        entry = proto_of(state)
         if fx.revive is not None:
-            entry = faults_mod.rejoin(state, fx.revive == start + k, fx.reset,
+            entry = faults_mod.rejoin(entry, fx.revive == start + k, fx.reset,
                                       fx.init_term)
         lying = fx.lying_flat(start + k)
-        new = round_fn(entry, keys[k], ok, lying)
+        new = round_fn(entry, keys[k], ok, lying, **extra)
+        new, arrival = new if "ring" in extra else (new, None)
         verdict = {}
         if alive is not None:
             new = faults_mod.freeze_dead(entry, new, ~alive)
@@ -207,9 +256,11 @@ def _chunk_plain(round_fn, state, keys, status, target: int, start: int,
         if lying is not None and isinstance(new, gossip_mod.GossipState):
             new = gossip_mod.GossipState(*faults_mod.override(
                 fx.byz_mode, lying if alive is None else lying & alive, *new))
+        if arrival is not None:
+            new = RingRound(new, state.ring, extra["slot"], arrival)
         state = advance(state, new, status, target, bad=bad, **verdict)
         if rows is not None:
-            rows[k] = row_fn(state, start + k, verdict.get("need"))
+            rows[k] = row_fn(proto_of(state), start + k, verdict.get("need"))
     if rows is None:
         return state, status
     rows[int(status[0]) - executed0:] = 0
@@ -225,21 +276,37 @@ def pushsum_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
     ``start`` (plain version of ``pushsum_scatter_chunk``). ``telemetry``
     (telemetry.make_row_fn's row function) returns the chunk's rows too;
     ``order`` (a telemetry.KernelOrder) sums the sentinel's Σw in the
-    kernel's order, sum_f32's (the JAX chunked engine's) without it."""
+    kernel's order, sum_f32's (the JAX chunked engine's) without it; under
+    the ring the w in flight adds ``ring_node_sums`` in that order."""
     global_term = faults is not None and faults.global_term
     mode = "" if faults is None else faults.byz_mode
     clip = faults is not None and faults.clip
 
-    def round_fn(st, key, ok, lying):
+    def round_fn(st, key, ok, lying, **extra):
         targets, send_ok = round_targets(graph, key)
         return pushsum_round_plain(st, targets, send_ok & ok, delta=delta,
                                    term_rounds=term_rounds,
                                    global_term=global_term, lying=lying,
-                                   mode=mode, clip=clip)
-    wsum = sum_f32 if order is None else (
-        lambda v: telemetry_mod.kernel_sum(v, order))
+                                   mode=mode, clip=clip, **extra)
+    wsum = ring_sum = None
+    if order is not None:
+        def wsum(v):
+            return telemetry_mod.kernel_sum(v, order)
+
+        def ring_sum(ring):
+            return wsum(ring_node_sums(ring))
     return _chunk_plain(round_fn, state, keys, status, target, start, faults,
-                        telemetry, wsum)
+                        telemetry, wsum or sum_f32, ring_sum)
+
+
+def ring_node_sums(ring: torch.Tensor) -> torch.Tensor:
+    """Each node's w in flight, float32 [n]: its words of the [D, 2, n]
+    ring's w planes added in slot order from 0, flushed (kernel A's
+    sentinel under the ring sums these in its order)."""
+    acc = torch.zeros_like(ring[0, 1])
+    for d in range(ring.shape[0]):
+        acc = pushsum_mod.flush(acc + ring[d, 1])
+    return acc
 
 
 def gossip_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
@@ -249,10 +316,11 @@ def gossip_scatter_chunk_plain(state, keys, status, *, graph: ScatterGraph,
                                telemetry=None):
     """K gossip scatter rounds (plain version of ``gossip_scatter_chunk``);
     ``telemetry`` as there."""
-    def round_fn(st, key, ok, lying):
+    def round_fn(st, key, ok, lying, **extra):
         targets, send_ok = round_targets(graph, key)
         return gossip_round_plain(st, targets, send_ok & ok,
-                                  rumor_target=rumor_target, suppress=suppress)
+                                  rumor_target=rumor_target, suppress=suppress,
+                                  **extra)
     return _chunk_plain(round_fn, state, keys, status, target, start, faults,
                         telemetry)
 
@@ -267,24 +335,34 @@ _SIGNATURES = {
     "gossip_pushsum_scatter_chunk": [_P] * 6 + [_I, _I] + [_P] * 7 + [_U] * 3
                                     + [_I, _F, _I, _I] + [_I, _U, _P, _P]
                                     + [_P, _I, _I] + [_I] + [_P, _I]
+                                    + [_U, _P, _I]
                                     + [_I, _I, _F, _P, _P, _P, _I, _F] + [_I, _P],
     "gossip_gossip_scatter_chunk": [_P] * 5 + [_I, _I] + [_P] * 3 + [_U] * 3
                                    + [_I] * 4 + [_I, _U, _P, _P] + [_P, _I]
-                                   + [_P, _I] + [_P, _P, _I] + [_I, _P],
+                                   + [_P, _I] + [_U, _P, _I] + [_P, _P, _I]
+                                   + [_I, _P],
     "gossip_scatter_grid": [_I] * 5,
 }
-# The push-sum kernel's instance flags (csrc/scatter.cu kClip, kSentinel,
-# kTele).
-CLIP, SENTINEL, TELE = 1, 2, 4
+# The kernels' instance flags (csrc/scatter.cu kClip, kSentinel, kTele,
+# kDup, kDelay).
+CLIP, SENTINEL, TELE, DUP, DELAY = 1, 2, 4, 8, 16
+# A push-sum dup instance's record carries 2 i + sender i's dup bit in its
+# int32 index word (csrc/scatter.cuh dup_index): it takes n below this.
+DUP_MAX_N = 2 ** 30
 
 
-def instance_flags(faults: Optional[fused.Faults], telemetry: bool) -> int:
-    """The push-sum instance flags of a chunk under ``faults`` (clip, the
-    sentinel) and with or without telemetry."""
-    return ((CLIP if faults is not None and faults.clip else 0)
-            | (SENTINEL if faults is not None and faults.mass_tolerance is not None
+def instance_flags(faults: Optional[fused.Faults], telemetry: bool,
+                   pushsum: bool = True) -> int:
+    """The instance flags of a chunk under ``faults`` (clip and the
+    sentinel, push-sum's alone; the dup gate, the delay ring) and with or
+    without telemetry."""
+    f = faults
+    return ((CLIP if pushsum and f is not None and f.clip else 0)
+            | (SENTINEL if pushsum and f is not None and f.mass_tolerance is not None
                else 0)
-            | (TELE if telemetry else 0))
+            | (TELE if telemetry else 0)
+            | (DUP if f is not None and f.dup_thresh is not None else 0)
+            | (DELAY if f is not None and f.delay > 0 else 0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -302,9 +380,28 @@ def telemetry_grid(pushsum: bool, faulted: bool, flags: int, n: int,
     return grid
 
 
-def _check(state, dtypes, key, start: int, rounds: int, status,
-           graph: ScatterGraph) -> torch.device:
+def _check(carry, dtypes, key, start: int, rounds: int, status,
+           graph: ScatterGraph, faults: Optional[fused.Faults]) -> torch.device:
+    state = proto_of(carry)
     dev = state[0].device
+    delay = 0 if faults is None else faults.delay
+    if isinstance(carry, Ringed) != (delay > 0):
+        raise ValueError("the state must be a Ringed carry exactly under the "
+                         f"delay ring (delay_rounds {delay})")
+    if delay:
+        shape = ((delay, 2, graph.n) if dtypes[0] == torch.float32
+                 else (delay, graph.n))
+        ring = carry.ring
+        if (ring.device != dev or ring.dtype != dtypes[0]
+                or tuple(ring.shape) != shape or not ring.is_contiguous()):
+            raise ValueError(f"the ring must be contiguous {dtypes[0]} {shape} "
+                             f"on {dev}, got {ring.dtype} {tuple(ring.shape)} "
+                             f"on {ring.device}")
+    if (dev.type != "cpu" and dtypes[0] == torch.float32 and faults is not None
+            and faults.dup_thresh is not None and graph.n >= DUP_MAX_N):
+        raise ValueError(
+            f"dup_rate > 0 with push-sum scatter delivery on the card takes n < "
+            f"2**30 (a record's index word carries 2 i + the dup bit), got n={graph.n}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"scatter chunks run on cpu or cuda tensors, got {dev}")
     for x, dt in zip(state, dtypes):
@@ -338,9 +435,10 @@ def _work(graph: ScatterGraph, pushsum: bool) -> dict:
         w["offsets"] = torch.empty(n, dtype=torch.int32, device=dev)
         w["totals"] = torch.empty(MAX_GRID, dtype=torch.int32, device=dev)
         w["records"] = torch.empty(n, 4, dtype=torch.int32, device=dev)
-        # The sentinel's per-block Σw and non-finite flags, a slot a round
-        # parity each (written before they are read in every round).
-        w["health"] = torch.empty(4 * MAX_GRID, dtype=torch.int32, device=dev)
+        # The sentinel's per-block Σw and non-finite flags, and under the
+        # ring its w in flight, a slot a round parity each (written before
+        # they are read in every round).
+        w["health"] = torch.empty(6 * MAX_GRID, dtype=torch.int32, device=dev)
     if not pushsum and "inbox" not in w:
         w["inbox"] = torch.zeros(2, n, dtype=torch.int32, device=dev)
     return w
@@ -400,14 +498,15 @@ def pushsum_scatter_chunk(state, key, start: int, rounds: int, status, *,
     picks the telemetry instance, and the chunk returns its rows too,
     float32 [rounds, N_COLS] on the device."""
     dev = _check(state, (torch.float32, torch.float32, torch.int32, torch.bool),
-                 key, start, rounds, status, graph)
+                 key, start, rounds, status, graph, faults)
     if dev.type == "cpu":
         return pushsum_scatter_chunk_plain(state, fused.round_keys(key, start, rounds),
                                            status, graph=graph, target=target,
                                            delta=delta, term_rounds=term_rounds,
                                            start=start, faults=faults,
                                            telemetry=telemetry)
-    out = pushsum_mod.PushSumState(*(x.clone() for x in state))
+    flags = instance_flags(faults, telemetry is not None)
+    out, ring = _clone_carry(state)
     status = status.clone()
     tele = telemetry is not None
     if rounds == 0:
@@ -415,7 +514,6 @@ def pushsum_scatter_chunk(state, key, start: int, rounds: int, status, *,
     w = _work(graph, pushsum=True)
     words = torch.empty(3 * rounds + 1, dtype=torch.int64, device=dev)
     fargs, _needs = _fault_args(faults, start, rounds, dev)
-    flags = instance_flags(faults, tele)
     # Telemetry runs with the faulted instance, under no fault too.
     fargs[0] = int(faults is not None or tele)
     scratch = rows = None
@@ -423,13 +521,13 @@ def pushsum_scatter_chunk(state, key, start: int, rounds: int, status, *,
     if tele:
         scratch, rows, grid = _tele_buffers(graph, True, True, flags, rounds, dev)
     _launch("gossip_pushsum_scatter_chunk", [
-        *(x.data_ptr() for x in out), *_graph_args(graph),
+        *(x.data_ptr() for x in proto_of(out)), *_graph_args(graph),
         *(w[k].data_ptr() for k in ("counts", "tickets", "offsets", "totals",
                                     "records")),
         words.data_ptr(), status.data_ptr(), *_key_args(key, start), rounds,
         ctypes.c_float(delta), term_rounds, target, *fargs,
         *_revive_args(faults, dev), int(faults is not None and faults.global_term),
-        *_byz_args(faults, dev), int(bool(flags & CLIP)),
+        *_byz_args(faults, dev), *_dd_args(faults, ring), int(bool(flags & CLIP)),
         int(bool(flags & SENTINEL)),
         ctypes.c_float(0.0 if faults is None or faults.mass_tolerance is None
                        else faults.mass_tolerance),
@@ -447,14 +545,14 @@ def gossip_scatter_chunk(state, key, start: int, rounds: int, status, *,
     GossipState (int32 count, bool active, bool conv); converged-target
     suppression is receiver-side; ``telemetry`` as there."""
     dev = _check(state, (torch.int32, torch.bool, torch.bool), key, start, rounds,
-                 status, graph)
+                 status, graph, faults)
     if dev.type == "cpu":
         return gossip_scatter_chunk_plain(state, fused.round_keys(key, start, rounds),
                                           status, graph=graph, target=target,
                                           rumor_target=rumor_target, suppress=suppress,
                                           start=start, faults=faults,
                                           telemetry=telemetry)
-    out = gossip_mod.GossipState(*(x.clone() for x in state))
+    out, ring = _clone_carry(state)
     status = status.clone()
     tele = telemetry is not None
     if rounds == 0:
@@ -466,15 +564,37 @@ def gossip_scatter_chunk(state, key, start: int, rounds: int, status, *,
     scratch = rows = None
     grid = 0
     if tele:
-        scratch, rows, grid = _tele_buffers(graph, False, True, TELE, rounds, dev)
+        scratch, rows, grid = _tele_buffers(
+            graph, False, True, instance_flags(faults, True, pushsum=False),
+            rounds, dev)
     _launch("gossip_gossip_scatter_chunk", [
-        *(x.data_ptr() for x in out), *_graph_args(graph),
+        *(x.data_ptr() for x in proto_of(out)), *_graph_args(graph),
         w["inbox"].data_ptr(), words.data_ptr(), status.data_ptr(),
         *_key_args(key, start), rounds, rumor_target, int(suppress), target,
         *fargs, *_revive_args(faults, dev)[:2], *_byz_args(faults, dev),
-        *_tele_ptrs(scratch, rows), grid], dev)
+        *_dd_args(faults, ring), *_tele_ptrs(scratch, rows), grid], dev)
     gossip_scatter_chunk.launches += chunk_launches(rounds, tele)
     return (out, status) + ((rows,) if tele else ())
+
+
+def _clone_carry(carry):
+    """(a copy of the chunk's carry, which the kernel updates in place, and
+    the copy's ring, None without one)."""
+    proto = proto_of(carry)
+    out = type(proto)(*(x.clone() for x in proto))
+    if isinstance(carry, Ringed):
+        ring = carry.ring.clone()
+        return Ringed(out, ring), ring
+    return out, None
+
+
+def _dd_args(faults: Optional[fused.Faults], ring) -> list:
+    """(dup threshold, ring, its depth) as the entry points take them: 0,
+    None and 0 where the run has neither."""
+    dup = 0 if faults is None or faults.dup_thresh is None else faults.dup_thresh
+    if ring is None:
+        return [dup, None, 0]
+    return [dup, ring.data_ptr(), ring.shape[0]]
 
 
 def _tele_ptrs(scratch, rows) -> list:

@@ -20,7 +20,9 @@ Column schema (``SCHEMA_VERSION`` 3, all float32; counts are exact below
     4 estimate_mae     push-sum: mean |s/w - (n-1)/2| over converged nodes
     5 mass_residual    push-sum: sum(w) - population
     6 drop_count       drop-gate firings among live nodes in the round
-    7 dup_count        0: the dup gate is not ported (ROADMAP A7b)
+    7 dup_count        dup-gate firings among live nodes in the round (the
+                       chunked engine under scatter and stencil delivery,
+                       the only ones that take the dup gate; 0 elsewhere)
     8 revived_count    nodes whose revival round is the round
     9 byzantine_count  nodes adversarial in the round
 
@@ -84,7 +86,7 @@ COL_BYZ = 9
 # Words a block writes for each round into a kernel's telemetry scratch
 # (csrc/telemetry.cuh kPartials): seven int32 counts, then three float32
 # sums.
-PARTIALS = 10
+PARTIALS = 11
 # The kernels' block width (csrc/chunk.cuh kBlock) and warp.
 BLOCK = 256
 WARP = 32
@@ -96,7 +98,7 @@ def true_mean(n: int) -> float:
 
 
 def assemble(conv, live, gap, active, err_sum, w_sum, n_mass: int, drops,
-             revived, byz, pushsum: bool) -> torch.Tensor:
+             revived, byz, pushsum: bool, dups=0) -> torch.Tensor:
     """One row from its counts and float sums (0-dim tensors or ints):
     estimate_mae = err_sum / max(conv, 1) and mass_residual = w_sum - n_mass
     in float32, each flushed as XLA flushes them on the CPU."""
@@ -112,7 +114,7 @@ def assemble(conv, live, gap, active, err_sum, w_sum, n_mass: int, drops,
     else:
         mae = mass = zero
     cols = [conv_t, live, gap, active if not pushsum else zero, mae, mass,
-            drops, zero, revived, byz]
+            drops, dups, revived, byz]
     return torch.stack([torch.as_tensor(c, device=dev).to(f32) for c in cols])
 
 
@@ -134,7 +136,8 @@ def make_row_fn(topo: Topology, cfg: SimConfig, base_key, device=None,
     is the round's quorum need under a crash model (faults.quorum_needs;
     taken from the live count on the host when None). The drop count
     redraws the round's gate from the round key, as the round drew it;
-    float sums run in ``fsum``'s order (sum_f32: the JAX chunked engine's)."""
+    float sums run in ``fsum``'s order (sum_f32: the JAX chunked engine's).
+    The dup count redraws the round's dup gate the same way."""
     n = topo.n
     target = cfg.resolved_target_count(topo.n, topo.target_count)
     pushsum = cfg.algorithm == "push-sum"
@@ -166,18 +169,22 @@ def make_row_fn(topo: Topology, cfg: SimConfig, base_key, device=None,
             w_sum = fsum(state.w)
         else:
             act = state.active.sum(dtype=torch.int32)
-        drops = 0
+        drops = dups = 0
         if cfg.fault_rate > 0:
             gate = sampling.send_gate(sampling.round_key(base_key, round_idx), n,
                                       cfg.fault_rate, device=dev)
             fired = ~gate if alive is None else ~gate & alive
             drops = fired.sum(dtype=torch.int32)
+        if cfg.dup_rate > 0:
+            dup = sampling.dup_gate(sampling.round_key(base_key, round_idx), n,
+                                    cfg.dup_rate, device=dev)
+            dups = (dup if alive is None else dup & alive).sum(dtype=torch.int32)
         revived = 0 if revive is None else faults_mod.revived_at(
             revive, round_idx).sum(dtype=torch.int32)
         byz_ct = 0 if byz is None else faults_mod.byzantine_at(
             byz, round_idx).sum(dtype=torch.int32)
         return assemble(conv_ct, live, gap, act, err_sum, w_sum, n, drops,
-                        revived, byz_ct, pushsum)
+                        revived, byz_ct, pushsum, dups)
 
     return row_fn
 

@@ -19,8 +19,8 @@ from ..ops.topology import Topology
 
 def plan_fused_pool_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
     """(rows_loc, layout) or a string reason why the composition can't run
-    (the JAX plan's reasons; the dtype and dup/delay gates are the port
-    config's own refusals)."""
+    (the JAX plan's reasons; its dtype gate is the port config's own
+    refusal)."""
     if cfg.delivery != "pool":
         return (
             "the fused pool composition requires delivery='pool' (the same "
@@ -31,6 +31,8 @@ def plan_fused_pool_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
             "the fused pool engine serves the implicit full topology only; "
             f"pooled delivery on {topo.kind!r} runs the chunked engine"
         )
+    if cfg.dup_rate > 0 or cfg.delay_rounds > 0:
+        return "dup/delay fault models run on the chunked engine only"
     if cfg.pool_size > 1 << POOL_CHOICE_BITS:
         return (
             f"pool_size {cfg.pool_size} exceeds the packed-choice limit "

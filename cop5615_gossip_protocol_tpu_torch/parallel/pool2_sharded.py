@@ -114,6 +114,8 @@ def plan_pool2_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
             "engine dispatch; matmul runs the per-shard one-hot MXU blend "
             "after the one all_gather — the wire is unchanged)"
         )
+    if cfg.dup_rate > 0 or cfg.delay_rounds > 0:
+        return "dup/delay fault models run on the chunked engine only"
     if cfg.revive_model:
         return (
             "crash-recovery (revive) runs on the chunked, sharded, and "

@@ -110,8 +110,8 @@ SPLIT_BARRIER = (("lo, hi, [&](int j) { return cnt[j]; },",
                   "i < lo; i += kBlock) {\n      const Ticket tk = c.tick[i];", 1),
                  ("j < hi; j += kBlock) {\n      // The loads first",
                   "j < lo; j += kBlock) {\n      // The loads first", 1),
-                 ("j < n; j += stride) {\n      const int got = in[j];",
-                  "j < 0; j += stride) {\n      const int got = in[j];", 1))
+                 ("j < n; j += stride) {\n      int got = in[j];",
+                  "j < 0; j += stride) {\n      int got = in[j];", 1))
 
 # The place pass and the absorb in steps of @STEP@ nodes a thread: each
 # step's loads issued together, then its atomics and sums, its stores last.
@@ -207,10 +207,9 @@ STAMPED = (("namespace {\n", STAMP + "namespace {\n", 1),
             "round_barrier(c.words + 3 * r, 0);\n    STAMP(3 * r + 1);", 1),
            ("round_barrier(c.words + 3 * r + 1, 0);",
             "round_barrier(c.words + 3 * r + 1, 0);\n    STAMP(3 * r + 2);", 1),
-           ("c.f.needs[r] : c.target);\n    ++executed;\n  }\n  // Stopped at done "
-            "before the cap: round `executed`'s counts",
-            "c.f.needs[r] : c.target);\n    STAMP(3 * r + 3);\n    ++executed;\n  }\n"
-            "  // Stopped at done before the cap: round `executed`'s counts", 1))
+           ("const int sum = round_barrier(c.words + 3 * r + 2, block_sum(converged));",
+            "const int sum = round_barrier(c.words + 3 * r + 2, block_sum(converged));\n"
+            "    STAMP(3 * r + 3);", 1))
 
 SCAN_ITEMS = "constexpr int kScanItems = 4;"
 NODES = "constexpr int kNodesPerThread = 2;"

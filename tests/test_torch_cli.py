@@ -121,7 +121,7 @@ def test_quiet_and_reference_format(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--dup-rate", "0.1"], "A7b"),
+    (["--stall-chunks", "2"], "A8"),
     (["--devices", "4"], "A10"),
     (["--replicas", "4"], "A9"),
     (["--checkpoint", "x.npz"], "A8"),
@@ -135,15 +135,35 @@ def test_unported_flag_names_roadmap_item(capsys, flag, item):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["1000", "full", "gossip", "--delivery", "matmul"], "A7b"),
-    (["1000", "full", "push-sum", "--delivery", "matmul"], "A7b"),
-    (["1000", "imp2d", "gossip", "--delivery", "matmul"], "A7b"),
-    (["1000", "imp3d", "push-sum", "--delivery", "matmul"], "A7b"),
+    (["1000", "full", "gossip", "--dtype", "float64"], "A12"),
+    (["1000", "full", "push-sum", "--replicas", "4"], "A9"),
+    (["1000", "imp2d", "gossip", "--plan", "auto"], "A11"),
+    (["1000", "imp3d", "push-sum", "--strict-engine"], "A12"),
 ])
 def test_unported_config_names_roadmap_item(capsys, argv, item):
     rc = main(argv + ["--platform", "cpu"])
     assert rc == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["1000", "full", "gossip", "--delivery", "matmul"],
+    ["1000", "full", "push-sum", "--delivery", "matmul", "--pool-size", "2"],
+    ["900", "imp2d", "gossip", "--delivery", "matmul"],
+    ["1000", "full", "gossip", "--dup-rate", "0.1", "--delay-rounds", "3"],
+    ["400", "2D", "push-sum", "--dup-rate", "0.05", "--delay-rounds", "2",
+     "--max-rounds", "200"],
+])
+def test_matmul_dup_and_delay_run_as_the_jax_cli(capsys, argv):
+    # --delivery matmul, --dup-rate and --delay-rounds run, with the JAX
+    # CLI's record.
+    jrc, jrec = _record(capsys, jax_main, argv)
+    rc, rec = _record(capsys, main, argv + ["--platform", "cpu"])
+    assert rc == jrc
+    for field in ("topology_kind", "rounds", "outcome", "converged_count",
+                  "estimate_mae", "population", "target_count"):
+        assert rec[field] == jrec[field], field
+    assert rec["config"] == jrec["config"]
 
 
 def test_invalid_input_fails_loudly(capsys):

@@ -438,11 +438,26 @@ def test_other_compositions_refuse_with_their_item(kind, n, kw, exc, words):
 
 
 def test_faults_and_matmul_stay_refused():
-    for kw, item in (({"dup_rate": 0.1}, "A7b"), ({"step_timing": True}, "A8"),
-                     ({"delivery": "matmul"}, "A7"), ({"halo_dma": "on"}, "A10")):
+    for kw, item in (({"replicas": 2}, "A9"), ({"step_timing": True}, "A8"),
+                     ({"plan": "auto"}, "A11"), ({"halo_dma": "on"}, "A10")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             SimConfig(**{"n": 100_000, "algorithm": "push-sum", "delivery": "pool",
                          "n_devices": 4, "engine": "fused", **kw})
+    # The dup gate and the delay ring stay refused by the plan, with the
+    # JAX plan's text; matmul runs here (tests/test_torch_matmul.py), and
+    # the VMEM replicated composition refuses it with JAX's text.
+    topo = build_topology("full", 100_000)
+    for kw in ({"dup_rate": 0.1}, {"delay_rounds": 2}):
+        cfg = SimConfig(n=100_000, algorithm="push-sum", delivery="pool",
+                        n_devices=4, engine="fused", **kw)
+        jcfg = JaxConfig(n=100_000, algorithm="push-sum", delivery="pool",
+                         n_devices=4, engine="fused", **kw)
+        assert pool2_sharded.plan_pool2_sharded(topo, cfg, 4) == \
+            jax_p2.plan_pool2_sharded(jax_topology("full", 100_000), jcfg, 4)
+    cfg = SimConfig(n=100_000, algorithm="push-sum", delivery="matmul",
+                    n_devices=4, engine="fused")
+    assert not isinstance(pool2_sharded.plan_pool2_sharded(topo, cfg, 4), str)
+    assert runner.sharded_tier(topo, cfg)[:2] == ("pool2_sharded", None)
     # The drop gate, crash-stop and global termination run on the
     # composition now (tests/test_torch_pool2_sharded_faults.py).
     with pytest.raises(ValueError, match="unknown pool2_wire"):

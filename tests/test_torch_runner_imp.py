@@ -132,7 +132,8 @@ def test_cli_imp_record_matches_jax_cli(capsys, argv):
 
 
 @pytest.mark.parametrize("argv,needles", [
-    (["1000", "imp3d", "push-sum", "--delivery", "matmul"], ("ROADMAP A7b",)),
+    (["1000", "imp3d", "push-sum", "--delivery", "matmul", "--engine", "fused"],
+     ("the fused imp tiers deliver by lattice/pool class rolls",)),
     (["1000", "imp2d", "gossip", "--delivery", "stencil"], ("offset-structured",)),
     (["1000", "imp3d", "gossip", "--delivery", "pool", "--semantics", "reference"],
      ("Q9",)),

@@ -180,10 +180,10 @@ def test_resident_tiers_dispatch_on_cuda_and_run_under_fused(kind, n, algorithm,
 
 
 def test_lattice_configs_outside_the_slice_name_roadmap_items():
-    for kw, item in (({"topology": "imp2d", "delivery": "matmul"}, "A7b"),
-                     ({"topology": "imp3d", "delivery": "matmul"}, "A7b"),
-                     ({"topology": "ring", "dup_rate": 0.1}, "A7b"),
-                     ({"topology": "line", "delay_rounds": 2}, "A7b"),
+    for kw, item in (({"topology": "imp2d", "replicas": 2}, "A9"),
+                     ({"topology": "imp3d", "halo_dma": "on"}, "A10"),
+                     ({"topology": "ring", "plan": "auto"}, "A11"),
+                     ({"topology": "line", "strict_engine": True}, "A12"),
                      ({"topology": "torus3d", "stall_chunks": 2}, "A8")):
         fields = {"n": 1000, "algorithm": "push-sum", **kw}
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -13,7 +13,8 @@ chunked engine of models/runner.py) against the JAX package on the CPU:
   delivery="scatter", both algorithms): rounds, converged count,
   estimate_mae and every state plane bitwise;
 - the ladder: scatter never fuses, engine="fused" with scatter raises as
-  the JAX runner does, and the refusals that stay (matmul, A7b);
+  the JAX runner does, and the refusals around it (matmul off the pooled
+  kinds, reference semantics);
 - the chunked engine's host reads: one status read a chunk, none a round.
 """
 
@@ -323,10 +324,10 @@ def test_scatter_never_fuses(kind, n, kw):
 
 
 def test_refusals_around_scatter_and_the_walk():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        SimConfig(n=100, delivery="matmul")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        SimConfig(n=100, topology="imp3d", delivery="matmul")
+    with pytest.raises(ValueError, match="recasts the pooled delivery"):
+        SimConfig(n=100, topology="ring", delivery="matmul")
+    with pytest.raises(ValueError, match="Q9"):
+        SimConfig(n=1000, topology="imp3d", delivery="matmul", semantics="reference")
     for kw in ({"delivery": "pool"}, {"topology": "ring", "delivery": "stencil"},
                {"engine": "fused"}):
         with pytest.raises(ValueError, match="single-walk"):

@@ -9,6 +9,11 @@ and host emulations of its passes against the plain rounds:
   ``kSortMax`` sends, by repeated selection past it) against
   ``delivery.deliver``'s serial order and the JAX package's scatter-add;
 - the slices of targets the blocks own;
+- the dup and delay instances' pieces: the dup bit against
+  ``jax.random.bits`` on fold_in(round key, 0xD00B), the ring slot, a
+  bucket's inbox pair summed from 0 with the dup-gated sends a second time
+  apart (``record_inbox``) and a node's unfolded round from it
+  (``pushsum_round_inbox``) against the plain round;
 - push-sum: the prologue's counts, then per round the slice scan, the
   place pass at base + offset + rank and the absorb that zeroes its count
   and counts round r + 1 into the other parity, every atomic in a shuffled
@@ -34,7 +39,7 @@ import jax.numpy as jnp
 from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
 from cop5615_gossip_protocol_tpu_torch.models import gossip as gossip_mod
 from cop5615_gossip_protocol_tpu_torch.models import pushsum as pushsum_mod
-from cop5615_gossip_protocol_tpu_torch.ops import delivery, fused, rng, scatter
+from cop5615_gossip_protocol_tpu_torch.ops import delivery, fused, rng, sampling, scatter
 
 torch.set_num_threads(1)
 
@@ -72,6 +77,43 @@ extern "C" void record_sums(const Send* rec, const int* start, const int* count,
                             int n, float* acc_s, float* acc_w) {
   for (int j = 0; j < n; ++j)
     record_sum(rec + start[j], count[j], acc_s[j], acc_w[j]);
+}
+
+extern "C" void dup_bits(uint32_t r1, uint32_t r2, uint32_t thresh, int n, int* out) {
+  uint32_t d1, d2;
+  dup_key(r1, r2, d1, d2);
+  for (int j = 0; j < n; ++j) out[j] = dup_fires(d1, d2, thresh, j);
+}
+
+extern "C" void ring_slots(const int* rounds, int m, int D, int* out) {
+  for (int a = 0; a < m; ++a) out[a] = ring_slot(rounds[a], D);
+}
+
+// The dup instances' inbox pair of each bucket (record_inbox<Dup>), then a
+// node's round from it (pushsum_round_inbox).
+extern "C" void record_inboxes(const Send* rec, const int* start, const int* count,
+                               int n, int dup, float* in_s, float* in_w) {
+  for (int j = 0; j < n; ++j) {
+    if (dup)
+      record_inbox<true>(rec + start[j], count[j], in_s[j], in_w[j]);
+    else
+      record_inbox<false>(rec + start[j], count[j], in_s[j], in_w[j]);
+  }
+}
+
+extern "C" void inbox_rounds(float* s, float* w, int* term, unsigned char* conv,
+                             const unsigned char* sends, const float* in_s,
+                             const float* in_w, int n, float delta, int term_rounds) {
+  for (int j = 0; j < n; ++j) {
+    float s_new, w_new;
+    int t_new;
+    conv[j] = (unsigned char)pushsum_round_inbox(
+        s[j], w[j], term[j], conv[j] != 0, sends[j] != 0, in_s[j], in_w[j], delta,
+        term_rounds, s_new, w_new, t_new);
+    s[j] = s_new;
+    w[j] = w_new;
+    term[j] = t_new;
+  }
 }
 
 extern "C" void slices(int n, int blocks, int* lo, int* hi, const int* t, int m,
@@ -325,6 +367,73 @@ def test_record_sum_is_the_serial_order(shim, n, m):
     shim.record_sums(_ptr(rec), _ptr(start), _ptr(count), n, _ptr(acc_s), _ptr(acc_w))
     assert (_bits(acc_s) == _bits(want_s)).all()
     assert (_bits(acc_w) == _bits(want_w)).all()
+
+
+@pytest.mark.parametrize("rate", [0.05, 0.5, 0.999])
+def test_dup_bit_is_the_jax_dup_gate(shim, rate):
+    # The kernels' dup bit: a Threefry word on fold_in(round key, 0xD00B)
+    # below the threshold, against jax.random.bits and the port's
+    # sampling.dup_gate.
+    import jax
+
+    thresh = sampling.gate_threshold(rate)
+    for rnd in (0, 13, 2**20 + 1):
+        jkey = jax.random.fold_in(jax.random.PRNGKey(7), rnd)
+        words = np.asarray(jax.random.bits(jax.random.fold_in(jkey, 0xD00B), (5000,),
+                                           jnp.uint32))
+        rkey = sampling.round_key(rng.PRNGKey(7), rnd)
+        got = np.zeros(5000, np.int32)
+        shim.dup_bits(ctypes.c_uint32(int(rkey[0])), ctypes.c_uint32(int(rkey[1])),
+                      ctypes.c_uint32(thresh), 5000, _ptr(got))
+        assert (got == (words < thresh)).all()
+        assert (got == sampling.dup_gate(rkey, 5000, rate).numpy()).all()
+
+
+def test_ring_slot_is_the_round_mod_depth(shim):
+    rounds = np.array([0, 1, 2, 3, 63, 64, 1000, 2**30], np.int32)
+    for D in (1, 3, 64):
+        got = np.zeros(rounds.shape[0], np.int32)
+        shim.ring_slots(_ptr(rounds), rounds.shape[0], D, _ptr(got))
+        assert (got == rounds % D).all()
+
+
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("n,m", [(300, 300), (300, 3000)])
+def test_record_inbox_and_round_are_the_plain_round(shim, dup, n, m):
+    # A bucket's inbox pair from 0, the dup-gated sends a second time into
+    # an inbox of their own and the two added (ops/delivery.deliver_dup),
+    # then a node's unfolded round (pushsum_round_plain with a dup gate).
+    r = np.random.default_rng(n + m + dup)
+    t = r.integers(0, n, m)
+    v, u = _adversarial(r, m), np.abs(_adversarial(r, m))
+    rec, start, count = _shuffled_buckets(r, t, (v, u), n)
+    gate = r.random(m) < 0.3 if dup else np.zeros(m, bool)
+    # A dup instance's index word: 2 i + the dup bit (dup_index).
+    rec[:, 0] = 2 * rec[:, 0] + gate[rec[:, 0]]
+    in_s, in_w = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    shim.record_inboxes(_ptr(rec), _ptr(start), _ptr(count), n, int(dup),
+                        _ptr(in_s), _ptr(in_w))
+    tt = torch.from_numpy(t)
+    dg = torch.from_numpy(gate) if dup else None
+    for got, vals in ((in_s, v), (in_w, u)):
+        want = delivery.deliver_dup(lambda v: delivery.deliver(v, tt, n),
+                                    torch.from_numpy(vals), dg).numpy()
+        assert (_bits(got) == _bits(want)).all()
+    s, w = np.abs(_adversarial(r, n)), np.abs(_adversarial(r, n)) + 1
+    term = r.integers(0, 3, n).astype(np.int32)
+    conv = np.zeros(n, np.uint8)
+    sends = (r.random(n) < 0.9).astype(np.uint8)
+    st = pushsum_mod.PushSumState(torch.from_numpy(s.copy()), torch.from_numpy(w.copy()),
+                                  torch.from_numpy(term.copy()), torch.zeros(n, dtype=torch.bool))
+    s_send, w_send, s_keep, w_keep = pushsum_mod.halve_and_send(
+        st.s, st.w, torch.from_numpy(sends != 0))
+    want = pushsum_mod.absorb(st, s_keep, w_keep, torch.from_numpy(in_s),
+                              torch.from_numpy(in_w), 1e-6, 3)
+    shim.inbox_rounds(_ptr(s), _ptr(w), _ptr(term), _ptr(conv), _ptr(sends), _ptr(in_s),
+                      _ptr(in_w), n, ctypes.c_float(1e-6), 3)
+    assert (_bits(s) == _bits(want.s.numpy())).all()
+    assert (_bits(w) == _bits(want.w.numpy())).all()
+    assert (term == want.term.numpy()).all() and (conv == want.conv.numpy()).all()
 
 
 @pytest.mark.parametrize("n,blocks", [(1, 1), (1001, 4), (1_000_000, 977), (2**27, 1056),

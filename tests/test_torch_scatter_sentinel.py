@@ -7,7 +7,8 @@ CPU, and the float order of the telemetry instances (csrc/telemetry.cuh):
   |Σw - n| at every round stays far from the tolerance (an attack that
   adds whole units of w against a tolerance of 1e-3 or 10, where the
   float32 rounding of a 256- or 20,000-node Σw is below 0.002), and a
-  healthy run never trips;
+  healthy run never trips, also under the delay ring (the w in flight
+  counted, each node's ring words in slot order);
 - clip's per-node round (csrc/scatter.cuh pushsum_round_clipped,
   clip_scale) built with g++ against ``pushsum_round_plain`` with clip, on
   states with adversaries, drained values and a NaN, and the clipped run
@@ -33,7 +34,7 @@ from cop5615_gossip_protocol_tpu.models import runner as jax_runner
 
 from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
 from cop5615_gossip_protocol_tpu_torch.models import pushsum as pushsum_mod
-from cop5615_gossip_protocol_tpu_torch.models.pipeline import NEVER
+from cop5615_gossip_protocol_tpu_torch.models.pipeline import NEVER, Ringed, proto_of
 from cop5615_gossip_protocol_tpu_torch.ops import fused, rng, scatter, telemetry
 from cop5615_gossip_protocol_tpu_torch.utils.kernels import CSRC
 
@@ -49,14 +50,19 @@ def kernel_chunk_run(kind, n, knobs, order, max_rounds):
     key = rng.PRNGKey(cfg.seed)
     status = torch.tensor([0, 0] + [NEVER] * (cfg.mass_tolerance is not None),
                           dtype=torch.int32)
+    state = pushsum_mod.init_state(n, cfg.initial_term_round)
+    if cfg.delay_rounds:
+        # Under the ring the sentinel counts the w in flight too, each
+        # node's words in slot order (ops/scatter.ring_node_sums).
+        state = Ringed(state, torch.zeros(cfg.delay_rounds, 2, n))
     state, status = scatter.pushsum_scatter_chunk_plain(
-        pushsum_mod.init_state(n, cfg.initial_term_round),
+        state,
         fused.round_keys(key, 0, max_rounds), status,
         graph=scatter.scatter_graph(topo, "cpu"),
         target=cfg.resolved_target_count(n, topo.target_count),
         delta=cfg.resolved_delta, term_rounds=cfg.term_rounds, faults=faults,
         order=order)
-    return status, state
+    return status, proto_of(state)
 
 
 def jax_run(kind, n, knobs, max_rounds):
@@ -74,12 +80,19 @@ SENTINEL_CASES = [
                       "mass_tolerance": 10.0}, 40),
     ("full", 20_000, {"byzantine_rate": 0.01, "byzantine_mode": "garble",
                       "mass_tolerance": 10.0}, 40),
+    # The same under the delay ring (the sentinel's Σw counts the w in
+    # flight).
+    ("full", 20_000, {"byzantine_schedule": "20:200", "byzantine_mode": "mass_inflate",
+                      "mass_tolerance": 10.0, "delay_rounds": 3}, 40),
+    ("imp2d", 10_000, {"byzantine_rate": 0.01, "byzantine_mode": "garble",
+                       "mass_tolerance": 10.0, "delay_rounds": 2}, 40),
 ]
 
 
 @pytest.mark.parametrize("grid", [1, 3, 40])
 @pytest.mark.parametrize("kind,n,knobs,rounds", SENTINEL_CASES,
-                         ids=["accept-256", "inflate-20000", "garble-20000"])
+                         ids=["accept-256", "inflate-20000", "garble-20000",
+                              "inflate-ring-20000", "garble-ring-imp2d"])
 def test_sentinel_in_the_kernel_order_trips_at_the_jax_round(kind, n, knobs, rounds, grid):
     jres = jax_run(kind, n, knobs, rounds)
     status, _ = kernel_chunk_run(kind, n, knobs, telemetry.slice_order(grid, n), rounds)
@@ -102,10 +115,12 @@ def test_global_sentinel_in_the_kernel_order_leaves_conv_to_the_verdict(grid):
     assert int(state.conv.sum()) == jres.converged_count == 0
 
 
-def test_sentinel_in_the_kernel_order_keeps_a_healthy_run():
+@pytest.mark.parametrize("delay", [0, 3])
+def test_sentinel_in_the_kernel_order_keeps_a_healthy_run(delay):
     # An honest 20,000-node run: Σw stays within its float32 rounding of n,
-    # far under the tolerance of 10 in any order.
-    knobs = {"mass_tolerance": 10.0}
+    # far under the tolerance of 10 in any order (under the ring, with the
+    # w in flight counted).
+    knobs = {"mass_tolerance": 10.0, "delay_rounds": delay}
     jres = jax_run("full", 20_000, knobs, 60)
     status, _ = kernel_chunk_run("full", 20_000, knobs, telemetry.slice_order(7, 20_000), 60)
     assert jres.unhealthy_round is None

@@ -102,13 +102,14 @@ def test_reference_builds_scan_their_own_classes():
 
 def test_imp_kinds_are_not_ported():
     # The imp kinds build (tests/test_torch_topology_imp.py) and run scatter
-    # (their default, along the static extra edge) and pooled delivery;
-    # what is not ported on them is the matmul delivery (ROADMAP A7b).
+    # (their default, along the static extra edge), pooled and matmul
+    # delivery; the matmul delivery runs on the chunked engine alone
+    # (tests/test_torch_matmul.py), as in JAX.
     for kind in ("imp2d", "imp3d"):
         assert topology.build_topology(kind, 1000).kind == kind
         assert SimConfig(n=1000, topology=kind, algorithm="push-sum").delivery == "auto"
-        with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-            SimConfig(n=1000, topology=kind, algorithm="push-sum", delivery="matmul")
+        assert SimConfig(n=1000, topology=kind, algorithm="push-sum",
+                         delivery="matmul").delivery == "matmul"
     with pytest.raises(ValueError, match="torus3d needs at least 8"):
         topology.build_topology("torus3d", 7)
 
