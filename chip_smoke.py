@@ -350,8 +350,24 @@ non-zero before the last line:
    the CLI with --dup-rate and --delay-rounds, and grid2d 10,000 push-sum
    with dup and delay on stencil delivery (the chunked engine's torch
    rounds) bitwise the port's CPU run (baked);
+14r. (run after 14q) checkpoint and resume, the event log, the metrics
+   registry, step timing and the stall watchdog (ROADMAP A8): full
+   1,000,000 push-sum and gossip with --delivery pool --pool-size 2 through
+   the CLI with --checkpoint, --checkpoint-keep 3, --events, --metrics-dump
+   and --step-timing (rows 1-2), at JAX's baked rounds, count and estimate
+   with the launches of the run without hooks, the last generation's array
+   digests the run's; then the newest generation bit-flipped and --resume
+   auto: quarantined, resumed from the generation before it, bitwise; kernel
+   A at 1,000,000 full push-sum under a crash and a revival schedule resumed
+   from a checkpoint at the revival round, and row 3 at 4,194,305 resumed
+   mid-run, each bitwise the run without hooks; --stall-chunks 2 on row 2
+   stalled at the JAX chunked engine's baked rounds, without and with a
+   crash; row 1's checkpoint at full 20,000 resumed on the CPU (the plain
+   version) and the CPU's resumed on the card, both bitwise the card's run.
+   Prints each checkpoint's write_s and the CLI runs' run_s beside the runs
+   without hooks;
 
-Each of phases 5-14q prints its wall time.
+Each of phases 5-14r prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -377,6 +393,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 N = 1_000_000
 POOL = 2
@@ -7253,6 +7270,243 @@ def dd_rows(cases, launches, max_err):
     return rows
 
 
+# ----------------------------------------------------------------- 14r
+# Checkpoint and resume, the event log, the metrics registry, step timing
+# and the stall watchdog (A8) on the card. The CLI runs of rows 1-2 at
+# 1,000,000 full with pool_size 2 end at JAX's rounds (MATMUL_JAX: the
+# matmul runs there are bitwise the pool runs). Gossip ends at round 48, so
+# its runs take 16-round chunks: with 64 there would be one generation and
+# nothing older to fall back to.
+PERSIST_CLI = (("push-sum", 64), ("gossip", 16))
+# Kernel A at 1,000,000 full push-sum with a crash and a revival schedule;
+# the revival round is a chunk boundary, where the run is resumed.
+PERSIST_A = {"crash_schedule": "10:50000", "revive_schedule": "128:20000",
+             "quorum": 0.9, "chunk_rounds": 64}
+PERSIST_A_AT = 128
+PERSIST_ROW3_N = 2**22 + 1  # rows 3-4: past the pool tier's cap
+PERSIST_ROW3_AT = 64
+# The JAX chunked engine's stalled runs on the CPU at 1,000,000 full gossip,
+# pool_size 2, fault_rate 0.9999, stall_chunks 2, chunk_rounds 64: (rounds,
+# converged count), without and with a crash of 200,000 nodes at round 100
+# (the fall of the quorum need at the boundary after it is progress):
+#   run(build_topology("full", 10**6), SimConfig(n=10**6, algorithm="gossip",
+#       engine="chunked", delivery="pool", pool_size=2, fault_rate=0.9999,
+#       stall_chunks=2, chunk_rounds=64[, crash_schedule="100:200000", quorum=0.9]))
+STALL_JAX = {"": (192, 0), "100:200000": (256, 0)}
+CROSS_N = 20_000  # the card-to-CPU and CPU-to-card resumes
+CROSS_AT = 64
+
+
+def array_digests(state):
+    """The SHA-256 of each plane's bytes by field name, as a checkpoint's
+    sidecar records them (array_sha256)."""
+    import hashlib
+
+    return {f: hashlib.sha256(getattr(state, f).cpu().numpy().tobytes()).hexdigest()
+            for f in state._fields}
+
+
+def cli_record(argv):
+    """The port's CLI on ``argv`` in this process: (exit code, its JSON
+    record)."""
+    from cop5615_gossip_protocol_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def persist_cli(work, algorithm, chunk):
+    """Phase 14r, rows 1-2: the run through run() with no hook, then the
+    CLI with --checkpoint, --checkpoint-keep 3, --events, --metrics-dump and
+    --step-timing at JAX's rounds, count and estimate with the same launches,
+    its last generation's array digests those of the run; then the newest
+    generation bit-flipped and --resume auto: quarantined, the run resumed
+    from the generation before it, its last generation's digests the same.
+    Returns (write_s of each checkpoint, run_s without and with hooks)."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_pool
+    from cop5615_gossip_protocol_tpu_torch.utils import checkpoint as ckpt
+    from cop5615_gossip_protocol_tpu_torch.utils import obs
+    from cop5615_gossip_protocol_tpu_torch.utils.events import read_events
+
+    counter = {"push-sum": fused_pool.pushsum_pool_chunk,
+               "gossip": fused_pool.gossip_pool_chunk}[algorithm]
+    counter.launches = 0
+    free = run(build_topology("full", N),
+               SimConfig(n=N, algorithm=algorithm, delivery="pool", pool_size=POOL,
+                         chunk_rounds=chunk))
+    free_launches, counter.launches = counter.launches, 0
+    want = MATMUL_JAX[algorithm]
+    digests = array_digests(free.state)
+    d = work / algorithm
+    ck = d / "ck.npz"
+    argv = [str(N), "full", algorithm, "--delivery", "pool", "--pool-size", str(POOL),
+            "--chunk-rounds", str(chunk), "--checkpoint", str(ck), "--checkpoint-keep", "3",
+            "--step-timing", "--metrics-dump", str(d / "metrics.prom")]
+    # The registry is the process's: the dump holds earlier runs' bytes too.
+    written_before = obs.metric_value(obs.parse_prometheus(obs.default_registry().render()),
+                                      "gossip_tpu_checkpoint_bytes_written_total") or 0.0
+    rc, rec = cli_record(argv + ["--events", str(d / "events.jsonl")])
+    got = (rec["rounds"], rec["converged_count"], rec["estimate_mae"])
+    if rc != 0 or got[:2] != want[:2] or (want[2] is not None
+                                           and abs(got[2] - want[2]) > 1e-12):
+        raise AssertionError(f"CLI {algorithm} with hooks: exit {rc}, {got} != JAX {want}")
+    if counter.launches != free_launches or free_launches == 0:
+        raise AssertionError(f"CLI {algorithm}: {counter.launches} launches, {free_launches} "
+                             "without hooks")
+    events = read_events(d / "events.jsonl")
+    written = [e for e in events if e["event"] == "checkpoint-written"]
+    retired = [e["rounds"] for e in events if e["event"] == "chunk-retired"]
+    if [e["rounds"] for e in written] != retired or retired[-1] != want[0]:
+        raise AssertionError(f"{algorithm}: checkpoints at {[e['rounds'] for e in written]}, "
+                             f"chunks retired at {retired}")
+    newest = ckpt.candidate_paths(ck)[0]
+    side = json.loads(newest.with_name(newest.name + ".json").read_text())
+    if side["array_sha256"] != digests or side["rounds"] != want[0]:
+        raise AssertionError(f"{algorithm}: the last checkpoint is not the run's state")
+    prom = obs.parse_prometheus((d / "metrics.prom").read_text())
+    if obs.metric_value(prom, "gossip_tpu_checkpoint_bytes_written_total") - written_before != sum(
+            e["bytes"] for e in written) or rec["step_timing"]["dispatches"] != len(retired):
+        raise AssertionError(f"{algorithm}: the metrics dump or step timing disagree")
+    data = bytearray(newest.read_bytes())
+    data[len(data) // 2] ^= 0x40
+    newest.write_bytes(bytes(data))
+    counter.launches = 0
+    rc, again = cli_record(argv + ["--resume", "auto", "--events", str(d / "resume.jsonl")])
+    events = read_events(d / "resume.jsonl")
+    names = [e["event"] for e in events]
+    if rc != 0 or names[:3] != ["run-start", "checkpoint-corrupt-quarantined", "resume"] or (
+            events[2]["rounds"] != retired[-2]) or counter.launches == 0:
+        raise AssertionError(f"{algorithm} --resume auto: exit {rc}, {names[:3]}")
+    newest = ckpt.candidate_paths(ck)[0]
+    side = json.loads(newest.with_name(newest.name + ".json").read_text())
+    if (again["rounds"], again["converged_count"]) != want[:2] or side[
+            "array_sha256"] != digests:
+        raise AssertionError(f"{algorithm}: the resumed run is not the run")
+    print(f"  full 1M {algorithm} (rows 1-2, {chunk}-round chunks): the CLI with --checkpoint "
+          f"--checkpoint-keep 3 --events --metrics-dump --step-timing at JAX's {want[0]} "
+          f"rounds, {free_launches} launches as without hooks, the last generation's digests "
+          f"the run's; the newest bit-flipped, --resume auto quarantined it, resumed at round "
+          f"{retired[-2]} and ended bitwise; write_s "
+          f"{[round(e['write_s'], 4) for e in written]}, run_s {free.run_s:.4f} without "
+          f"hooks, {rec['run_s']:.4f} with them", flush=True)
+    return [e["write_s"] for e in written], free.run_s, rec["run_s"]
+
+
+def resumed_bitwise(label, topo, cfg, at, work, counters, device=None):
+    """A run through run() without hooks, the same run with a checkpoint
+    hook saving its boundary ``at`` to disk, and a run resumed from that
+    file: every plane of the two ends bitwise, the same rounds, the same
+    kernels launched in each (the chunked engine takes JAX's fixed chunks
+    under a hook, so its launch count differs from its growing chunks').
+    Returns the run and the checkpoint's path."""
+    from cop5615_gossip_protocol_tpu_torch import run
+    from cop5615_gossip_protocol_tpu_torch.utils import checkpoint as ckpt
+
+    def launched():
+        out = {fn.__name__: fn.launches for fn in counters if fn.launches}
+        for fn in counters:
+            fn.launches = 0
+        return out
+
+    launched()
+    free = run(topo, cfg, device=device)
+    path = work / f"{label.replace(' ', '_')}.npz"
+
+    def hook(rounds, state):
+        if rounds == at:
+            ckpt.save(path, state, rounds, cfg)
+
+    free_launches = launched()
+    hooked = run(topo, cfg, device=device, on_chunk=hook)
+    hooked_launches = launched()
+    state, start, _ = ckpt.load(path)
+    again = run(topo, cfg, device=device, start_state=state, start_round=start)
+    again_launches = launched()
+    if not free_launches or not set(free_launches) == set(hooked_launches) == set(
+            again_launches):
+        raise AssertionError(f"{label}: launches {free_launches}, {hooked_launches}, "
+                             f"{again_launches}")
+    for res in (hooked, again):
+        if res.rounds != free.rounds or res.outcome != free.outcome:
+            raise AssertionError(f"{label}: {res.rounds} {res.outcome} != {free.rounds} "
+                                 f"{free.outcome}")
+        same_planes(label, res.state, free.state)
+    print(f"  {label}: resumed at round {at}, bitwise the run to its {free.outcome} at round "
+          f"{free.rounds} (launches {free_launches} without hooks, {hooked_launches} with, "
+          f"{again_launches} resumed)", flush=True)
+    return free, path
+
+
+def persist_phase(dev):
+    """Phase 14r: persist_cli for rows 1-2; kernel A under a crash and a
+    revival schedule resumed at the revival round; row 3 resumed mid-run;
+    the stall watchdog through the CLI at JAX's rounds; a checkpoint of the
+    card resumed on the CPU and one of the CPU resumed on the card."""
+    import shutil
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.ops import fused_pool, fused_pool2, scatter
+    from cop5615_gossip_protocol_tpu_torch.utils import checkpoint as ckpt
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_14r"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        costs = {}
+        for algorithm, chunk in PERSIST_CLI:
+            costs[algorithm] = persist_cli(work, algorithm, chunk)
+        resumed_bitwise(
+            "kernel A full 1M push-sum, crash 10:50000 revive 128:20000",
+            build_topology("full", N), SimConfig(n=N, algorithm="push-sum", **PERSIST_A),
+            PERSIST_A_AT, work, (scatter.pushsum_scatter_chunk,))
+        topo = build_topology("full", PERSIST_ROW3_N)
+        resumed_bitwise(
+            f"row 3 full {PERSIST_ROW3_N:,} push-sum", topo,
+            SimConfig(n=PERSIST_ROW3_N, algorithm="push-sum", delivery="pool",
+                      pool_size=POOL, chunk_rounds=32),
+            PERSIST_ROW3_AT, work, (fused_pool2.pushsum_pool2_chunk,))
+        for crash, want in STALL_JAX.items():
+            extra = ["--crash-schedule", crash, "--quorum", "0.9"] if crash else []
+            fused_pool.gossip_pool_chunk.launches = 0
+            rc, rec = cli_record([str(N), "full", "gossip", "--delivery", "pool",
+                                  "--pool-size", str(POOL), "--fault-rate", "0.9999",
+                                  "--stall-chunks", "2", "--chunk-rounds", "64"] + extra)
+            got = (rec["outcome"], rec["rounds"], rec["converged_count"])
+            if rc != 1 or got != ("stalled", *want) or not fused_pool.gossip_pool_chunk.launches:
+                raise AssertionError(f"--stall-chunks 2 {extra}: exit {rc}, {got} != JAX {want}")
+        print(f"  --stall-chunks 2 (row 2, fault_rate 0.9999): stalled at JAX's rounds "
+              f"{[w[0] for w in STALL_JAX.values()]}, without and with a crash", flush=True)
+        # Across devices: rows 1 on the card and its plain version on the CPU.
+        topo = build_topology("full", CROSS_N)
+        cfg = SimConfig(n=CROSS_N, algorithm="push-sum", delivery="pool", pool_size=POOL,
+                        chunk_rounds=64, engine="fused")
+        card, path = resumed_bitwise(f"row 1 full {CROSS_N:,} push-sum on the card", topo,
+                                     cfg, CROSS_AT, work, (fused_pool.pushsum_pool_chunk,))
+        state, start, _ = ckpt.load(path)
+        on_cpu = run(topo, cfg, device="cpu", start_state=state, start_round=start)
+        snaps = {}
+        run(topo, dataclasses.replace(cfg, max_rounds=2 * CROSS_AT), device="cpu",
+            on_chunk=lambda r, s: snaps.setdefault(r, s))
+        ckpt.save(work / "cpu.npz", snaps[2 * CROSS_AT], 2 * CROSS_AT, cfg)
+        state, start, _ = ckpt.load(work / "cpu.npz")
+        on_card = run(topo, cfg, start_state=state, start_round=start)
+        for label, res in (("card to CPU", on_cpu), ("CPU to card", on_card)):
+            if res.rounds != card.rounds:
+                raise AssertionError(f"{label}: {res.rounds} rounds != {card.rounds}")
+            same_planes(f"full {CROSS_N:,} resumed {label}", res.state, card.state)
+        print(f"  full {CROSS_N:,} push-sum: the card's round-{CROSS_AT} checkpoint resumed "
+              f"on the CPU and the CPU's round-{2 * CROSS_AT} one on the card, both bitwise the "
+              f"card's run", flush=True)
+        print(json.dumps({"metric": "checkpoint_cost_full_n1000000", **{
+            algorithm: {"write_s": w, "run_s_without_hooks": a, "run_s_with_hooks": b}
+            for algorithm, (w, a, b) in costs.items()}}), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def fail(msg: str) -> int:
     print(f"FAILED: {msg}", file=sys.stderr)
     return 1
@@ -7750,9 +8004,10 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
         byz_cases, byz_err, byz_launches = phase("14o", byz_phase, dev, key)
         tele_cases, tele_err, tele_launches = phase("14p", tele_phase, dev, key)
         dd_cases, dd_err, dd_launches = phase("14q", dd_phase, dev, key)
+        phase("14r", persist_phase, dev)
     except Exception as e:
         return fail(str(e))
-    t15 += time.perf_counter() - t14m  # and 14m-14q's
+    t15 += time.perf_counter() - t14m  # and 14m-14r's
     # Rows 15-16 in their global instances, and kernel A, rows 1-2 and rows
     # 5-6 in their revive instances, beside their other instances.
     try:

@@ -20,6 +20,9 @@
         --delivery matmul --pool-size 2
     python -m cop5615_gossip_protocol_tpu_torch 1000000 full gossip \\
         --dup-rate 0.05 --delay-rounds 3
+    python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum \\
+        --delivery pool --pool-size 2 --checkpoint run.npz --checkpoint-keep 3 \\
+        --resume auto --events events.jsonl --metrics-dump metrics.prom
 
 runs on the GPU (``--platform cuda``, the default) or, when asked, on the
 CPU (``--platform cpu``). Flags keep the JAX CLI's names; a JAX CLI flag
@@ -30,9 +33,13 @@ port it.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import sys
 import time
+import zipfile
+from pathlib import Path
 from typing import Optional
 
 from .config import SimConfig, normalize_algorithm, normalize_topology
@@ -44,10 +51,6 @@ UNPORTED_FLAGS = {
     "--halo-dma": "A10", "--distributed": "A10",
     "--coordinator": "A10", "--num-processes": "A10", "--process-id": "A10",
     "--replicas": "A9",
-    "--stall-chunks": "A8", "--profile": "A8", "--metrics-dump": "A8",
-    "--step-timing": "A8", "--events": "A8", "--checkpoint": "A8",
-    "--checkpoint-every": "A8", "--checkpoint-keep": "A8",
-    "--strict-checkpoint": "A8", "--resume": "A8",
     "--strict-engine": "A12", "--compile-cache": "A12", "--plan": "A11",
 }
 
@@ -154,6 +157,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quorum", type=float, default=1.0,
                    help="crash-model termination: fraction of LIVE nodes "
                    "that must be converged to end the run (default 1.0)")
+    p.add_argument("--stall-chunks", type=int, default=0,
+                   help="watchdog: stop with outcome=stalled after this "
+                   "many consecutive chunks without progress toward the "
+                   "termination predicate (0 disables)")
     p.add_argument("--delivery",
                    choices=["auto", "scatter", "stencil", "pool", "matmul"],
                    default="auto",
@@ -203,6 +210,48 @@ def build_parser() -> argparse.ArgumentParser:
                    "converged/newly-converged counts, active count or "
                    "estimate error) as JSONL, one fsynced batch a retired "
                    "chunk; implies --telemetry")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run into DIR "
+                   "(trace.json, Chrome trace format; each chunk's queueing "
+                   "is marked chunkloop.dispatch)")
+    p.add_argument("--metrics-dump", type=str, default=None, metavar="FILE",
+                   help="after the run, write the process metrics registry "
+                   "(utils/obs.py) as Prometheus text exposition to FILE "
+                   "('-' = stdout): run outcome/rounds counters, the wall "
+                   "budget (build/compile/dispatch/fetch/hook/residual), "
+                   "per-chunk dispatch/fetch histograms and the checkpoint "
+                   "series")
+    p.add_argument("--step-timing", action="store_true",
+                   help="clock each retired chunk on the host: t_retire and "
+                   "wall_s in the chunk log, the step_timing report on the "
+                   "run record and the metrics dump (refused by the sharded "
+                   "compositions under --overlap-collectives on)")
+    p.add_argument("--events", type=str, default=None, metavar="FILE",
+                   help="append schema-versioned lifecycle events (run-start, "
+                   "resume, chunk-retired with dispatch/fetch timing splits, "
+                   "checkpoint-written, watchdog-fired, run-end) as JSONL "
+                   "(utils/events.py)")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="write round-state checkpoints to this .npz path")
+    p.add_argument("--checkpoint-every", type=int, default=1,
+                   help="checkpoint every K chunks (with --checkpoint)")
+    p.add_argument("--checkpoint-keep", type=int, default=1,
+                   help="retain this many checkpoint generations "
+                   "(utils/checkpoint.py): K >= 2 writes numbered "
+                   "<stem>.gNNNNNN.npz generations with a manifest and "
+                   "keeps the plain path linked to the newest, so a torn "
+                   "or bit-flipped latest write costs one interval, not "
+                   "the run; 1 (default) is the single-file layout")
+    p.add_argument("--strict-checkpoint", action="store_true",
+                   help="fail fast when a checkpoint write fails (OSError "
+                   "at the chunk-boundary hook) instead of emitting "
+                   "checkpoint-failed and going on with that interval's "
+                   "checkpoint lost")
+    p.add_argument("--resume", type=str, default=None,
+                   help="resume from a checkpoint .npz (either package's), or "
+                   "'auto' to restart from the --checkpoint path's newest "
+                   "intact generation when there is one (a fresh run "
+                   "otherwise)")
     p.add_argument("--jsonl", type=str, default=None,
                    help="append the structured run record to this JSONL file")
     p.add_argument("--quiet", action="store_true",
@@ -280,7 +329,10 @@ def main(argv: Optional[list[str]] = None) -> int:
             mass_tolerance=args.mass_tolerance,
             quorum=args.quorum,
             termination=args.termination,
+            stall_chunks=args.stall_chunks,
+            strict_checkpoint=args.strict_checkpoint,
             telemetry=args.telemetry or bool(args.trace_convergence),
+            step_timing=args.step_timing,
         )
         for w in cfg.lint_warnings:
             print(f"Warning: {w}", file=sys.stderr)
@@ -289,15 +341,51 @@ def main(argv: Optional[list[str]] = None) -> int:
         topo = build_topology(kind, args.numNodes, seed=args.seed,
                               semantics=args.semantics)
         build_s = time.perf_counter() - t0
-        result = run(topo, cfg, device=device,
-                     on_telemetry=_trace_writer(args.trace_convergence,
-                                                cfg.algorithm))
+    except (ValueError, NotImplementedError) as e:
+        print(f"Invalid: {e}", file=sys.stderr)
+        return 2
+
+    events = _open_events(args.events, cfg, topo)
+    try:
+        on_chunk = _checkpoint_hook(args, cfg, events)
+    except ValueError as e:
+        print(f"Invalid: {e}", file=sys.stderr)
+        return 2
+    resumed = _resume(args, cfg, events)
+    if isinstance(resumed, int):
+        return resumed
+    start_state, start_round = resumed
+    start_conv = 0 if start_state is None else int(start_state.conv.sum())
+    try:
+        with _profile(args.profile, device):
+            result = run(topo, cfg, device=device,
+                         start_state=start_state, start_round=start_round,
+                         on_telemetry=_trace_writer(args.trace_convergence,
+                                                    cfg.algorithm, start_round,
+                                                    start_conv),
+                         on_chunk=on_chunk, fixed_chunks=events is not None)
     except (ValueError, NotImplementedError) as e:
         print(f"Invalid: {e}", file=sys.stderr)
         return 2
     result.build_s = build_s
+    if events is not None:
+        _close_events(events, cfg, result)
     print(metrics.convergence_line(result.wall_ms))
     record = metrics.run_record(cfg, topo, result)
+    if cfg.step_timing:
+        from .models import pipeline as pipeline_mod
+
+        report = pipeline_mod.step_timing_report(result.chunk_log)
+        if report is not None:
+            record["step_timing"] = report
+    if args.metrics_dump:
+        from .utils import obs
+
+        obs.observe_run_record(record, chunk_log=result.chunk_log,
+                               telemetry=result.telemetry)
+        if record.get("step_timing") is not None:
+            obs.observe_step_timing(record["step_timing"])
+        obs.dump(args.metrics_dump)
     if not args.quiet:
         print(json.dumps(record))
     if args.jsonl:
@@ -305,17 +393,185 @@ def main(argv: Optional[list[str]] = None) -> int:
     return 0 if result.converged else 1
 
 
-def _trace_writer(path: Optional[str], algorithm: str):
+def _open_events(path: Optional[str], cfg: SimConfig, topo):
+    """The run's event log with its opening events (the JAX CLI's), or
+    None without ``--events``."""
+    if not path:
+        return None
+    from .utils.events import RunEventLog
+
+    events = RunEventLog(path)
+    events.emit(
+        "run-start",
+        config={"n": cfg.n, "topology": cfg.topology,
+                "algorithm": cfg.algorithm, "seed": cfg.seed,
+                "semantics": cfg.semantics},
+        population=topo.n,
+        warnings=list(cfg.lint_warnings),
+    )
+    if cfg.crash_model:
+        events.emit(
+            "crash-schedule-applied",
+            crash_rate=cfg.crash_rate,
+            crash_schedule=cfg.crash_schedule,
+            revive_rate=cfg.revive_rate,
+            revive_schedule=cfg.revive_schedule,
+            rejoin=cfg.rejoin if cfg.revive_model else None,
+            quorum=cfg.quorum,
+        )
+    if cfg.byzantine_model:
+        events.emit(
+            "byzantine-model-applied",
+            byzantine_rate=cfg.byzantine_rate,
+            byzantine_schedule=cfg.byzantine_schedule,
+            byzantine_mode=cfg.byzantine_mode,
+            robust_agg=cfg.robust_agg,
+        )
+    return events
+
+
+def _close_events(events, cfg: SimConfig, result) -> None:
+    """The events written after the run, in the JAX CLI's order."""
+    events.emit_chunks(result.chunk_log)
+    for fail in result.hook_failures or ():
+        events.emit("checkpoint-failed", **fail)
+    if result.outcome == "stalled":
+        events.emit("watchdog-fired", rounds=result.rounds)
+    if result.outcome == "unhealthy":
+        events.emit("sentinel-tripped", rounds=result.rounds,
+                    unhealthy_round=result.unhealthy_round,
+                    mass_tolerance=cfg.mass_tolerance)
+    events.emit("run-end", outcome=result.outcome, rounds=result.rounds,
+                converged_count=result.converged_count,
+                compile_s=result.compile_s, run_s=result.run_s,
+                dispatch_s=result.dispatch_s, fetch_s=result.fetch_s)
+
+
+def _checkpoint_hook(args, cfg: SimConfig, events):
+    """The ``on_chunk`` hook that writes a checkpoint every
+    ``--checkpoint-every`` retired chunks, or None without
+    ``--checkpoint``. The run hands it the canonical [n] state on the
+    host."""
+    if not args.checkpoint:
+        return None
+    from .utils import checkpoint as ckpt
+
+    if args.checkpoint_every < 1:
+        raise ValueError(f"--checkpoint-every must be >= 1, got {args.checkpoint_every}")
+
+    counter = {"chunks": 0}
+
+    def hook(rounds, state):
+        counter["chunks"] += 1
+        if counter["chunks"] % args.checkpoint_every:
+            return
+        info = ckpt.save(args.checkpoint, state, rounds, cfg,
+                         keep=args.checkpoint_keep)
+        if events is not None:
+            events.emit("checkpoint-written", rounds=rounds, path=info["path"],
+                        generation=info["generation"], bytes=info["bytes"],
+                        write_s=info["write_s"])
+
+    return hook
+
+
+# Knobs a resumed run may change: they steer the loop or observe it, and no
+# round computes anything else under them (the JAX CLI's set).
+_LOOP_KNOBS = ("max_rounds", "chunk_rounds", "n_devices", "pipeline_chunks",
+               "overlap_collectives", "halo_dma", "pool2_wire", "telemetry",
+               "mass_tolerance", "strict_engine", "strict_checkpoint")
+
+
+def _resume(args, cfg: SimConfig, events):
+    """(start_state, start_round) for the run, (None, 0) for a fresh one,
+    or the CLI's exit code 2 after a refusal (the JAX CLI's rules):
+    ``--resume auto`` walks ``--checkpoint``'s generations newest first,
+    quarantining corrupt ones, and starts fresh when none is intact; an
+    explicit path fails loudly; the saved config must equal this one but
+    for ``_LOOP_KNOBS``."""
+    from .utils import checkpoint as ckpt
+
+    resume_path = args.resume
+    if resume_path == "auto":
+        if not args.checkpoint:
+            print("Invalid: --resume auto needs --checkpoint PATH (the "
+                  "sidecar it restarts from)", file=sys.stderr)
+            return 2
+        resume_path = (args.checkpoint if ckpt.candidate_paths(args.checkpoint)
+                       else None)
+    if not resume_path:
+        return None, 0
+
+    def quarantined(**fields):
+        if events is not None:
+            events.emit("checkpoint-corrupt-quarantined", **fields)
+        print(f"checkpoint generation {fields.get('path')} quarantined: "
+              f"{fields.get('reason')}", file=sys.stderr)
+
+    try:
+        if args.resume == "auto":
+            hit = ckpt.load_latest_intact(resume_path, on_event=quarantined)
+            if hit is None:
+                print(f"checkpoint {resume_path} has no intact generation; "
+                      "starting fresh", file=sys.stderr)
+                return None, 0
+            start_state, start_round, saved_cfg, info = hit
+            resume_path = info["path"]
+        else:
+            start_state, start_round, saved_cfg = ckpt.load(resume_path)
+    except (ValueError, NotImplementedError, OSError, KeyError,
+            zipfile.BadZipFile) as e:
+        if args.resume == "auto":
+            print(f"checkpoint {resume_path} unusable ({e}); starting fresh",
+                  file=sys.stderr)
+            return None, 0
+        print(f"Invalid: {e}", file=sys.stderr)
+        return 2
+    knobs = {k: getattr(cfg, k) for k in _LOOP_KNOBS}
+    if dataclasses.replace(saved_cfg, **knobs) != cfg:
+        print("Invalid: checkpoint config mismatch — resume requires the "
+              f"original flags (saved: {dataclasses.asdict(saved_cfg)})",
+              file=sys.stderr)
+        return 2
+    if events is not None:
+        events.emit("resume", rounds=start_round, path=str(resume_path))
+    return start_state, start_round
+
+
+@contextlib.contextmanager
+def _profile(directory: Optional[str], device):
+    """A torch.profiler trace of the block into ``directory``/trace.json,
+    the card's kernels included on CUDA; nothing without a directory."""
+    if not directory:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    out = Path(directory)
+    out.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(str(out / "trace.json"))
+
+
+def _trace_writer(path: Optional[str], algorithm: str, start_round: int = 0,
+                  start_conv: int = 0):
     """The streaming ``--trace-convergence`` writer (None without a path):
     each retired chunk's rows are appended as trace records in one fsynced
     batch (metrics.append_jsonl_many), rounds already written skipped by a
-    high-water mark, so the file holds one record a round."""
+    high-water mark, so the file holds one record a round. A resumed run
+    starts the mark at its start round and the converged count at its
+    state's, so nodes converged before the checkpoint are not newly
+    converged in its first record."""
     if not path:
         return None
     from .ops import telemetry as telemetry_mod
     from .utils import metrics
 
-    prev = {"conv": 0, "hi": 0}
+    prev = {"conv": start_conv, "hi": start_round}
 
     def write(chunk_start, rows):
         skip = prev["hi"] - chunk_start

@@ -18,7 +18,10 @@ push-sum's global termination (ops/faults.py);
 ``byzantine_rate``/``byzantine_schedule`` with ``byzantine_mode``,
 ``robust_agg`` and ``mass_tolerance`` the Byzantine adversaries, robust
 aggregation and the health sentinel; ``telemetry`` the per-round counter
-rows (ops/telemetry.py). Every other field keeps its default
+rows (ops/telemetry.py); ``stall_chunks``, ``step_timing`` and
+``strict_checkpoint`` the stall watchdog, the retire clocks of the chunk
+loop and its checkpoint-failure policy (models/pipeline.py). Every other
+field keeps its default
 here, and setting it
 to anything else raises NotImplementedError naming the ROADMAP item that
 will port it.
@@ -60,9 +63,6 @@ _CLI_ALGORITHM_ALIASES = {
 # (field, default, ROADMAP item) for every field this slice does not port.
 _UNPORTED = (
     ("dtype", "float32", "A12"),
-    ("stall_chunks", 0, "A8"),
-    ("step_timing", False, "A8"),
-    ("strict_checkpoint", False, "A8"),
     ("replicas", 1, "A9"),
     ("halo_dma", "auto", "A10"),
     ("plan", "hand", "A11"),
@@ -393,6 +393,8 @@ class SimConfig:
             value = getattr(self, field)
             if value != default:
                 raise unported(f"{field}={value!r}", item)
+        if self.stall_chunks < 0:
+            raise ValueError("stall_chunks must be >= 0")
         if self.pool2_wire not in ("auto", "reduce_scatter", "all_gather"):
             raise ValueError(
                 f"unknown pool2_wire {self.pool2_wire!r}; expected "

@@ -24,12 +24,40 @@ memory is queued with the status copy, behind the same event, so retiring a
 chunk still waits on one event and reads nothing more from the device, and
 ``on_aux`` gets the rows at each retired chunk, in order. A speculative
 chunk dropped at termination never reaches it.
+
+Chunk-boundary hooks keep the serial loop's semantics (the JAX driver's):
+
+- ``on_retire`` (the checkpoint hook) fires at RETIRED chunks, in order,
+  with that chunk's state, never for a speculative one, so a checkpoint at
+  boundary k is the serial loop's boundary-k checkpoint;
+- ``should_stop`` (the stall watchdog) is asked at retired boundaries in
+  order; when it fires at chunk k, the chunks in flight are dropped and
+  the run's result is carry k (``chunks_speculative`` counts them).
+
+Both read the retired state while later chunks may be in flight on the same
+stream. A plain ``.cpu()`` would wait for every chunk queued after it and
+turn depth 2 into depth 1, so the loop copies the retired state to pinned
+host memory on a side stream that waits on the retired chunk's own event
+(``_retired_to_host``), and the hooks get host tensors. Each engine's chunk
+returns fresh state planes, so a retired state stays valid while later
+chunks run; engines whose planes are reused (the sharded compositions) run
+at depth 1 under hooks.
+
+The loop times the hooks (``hook_s``), and with ``step_timing`` stamps each
+chunk_log entry with ``t_retire`` and ``wall_s`` (retire to retire; the
+first from loop entry), clock reads at boundaries the loop already
+observes. Under ``hook_error="continue"`` an OSError in ``on_retire`` (a
+full disk) is recorded in ``hook_failures`` and counted in the registry's
+``gossip_tpu_checkpoint_failed_total``, and the run goes on; any other
+exception propagates. ``chunkloop.dispatch`` marks each queueing in a
+``torch.profiler`` trace (``--profile``).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import sys
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -50,6 +78,7 @@ class ChunkLoopResult:
     rounds: int  # exact executed-round count (the retired carry's counter)
     done: bool  # the engine's own termination flag at the final boundary
     chunks_retired: int
+    chunks_speculative: int = 0  # queued chunks dropped by a stall exit
     dispatch_s: float = 0.0  # host time queueing chunks
     fetch_s: float = 0.0  # host time blocked on the status readback
     first_dispatch_s: float = 0.0  # the first chunk's queueing time alone
@@ -58,6 +87,10 @@ class ChunkLoopResult:
     # The health sentinel's first unhealthy round, or None.
     unhealthy_round: Optional[int] = None
     aux_s: float = 0.0  # host time in on_aux (a part of fetch_s)
+    hook_s: float = 0.0  # host time in on_retire and should_stop
+    # on_retire OSErrors survived under hook_error="continue": {"rounds",
+    # "error"} per failed boundary, in order.
+    hook_failures: list = dataclasses.field(default_factory=list)
 
 
 class Ringed(NamedTuple):
@@ -202,10 +235,67 @@ def advance(state, new, status, target: int, alive=None, need: int = 0,
     return out
 
 
+def _map_tensors(fn, x):
+    """``x`` (a tensor, or tuples and NamedTuples of them, or None) with
+    ``fn`` applied to every tensor."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple):
+        vals = [_map_tensors(fn, v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def _retired_to_host(state, event, streams: dict):
+    """A retired chunk's state on the host, copied on a side stream that
+    waits on the chunk's own event, so the copy does not wait for the
+    chunks queued after it on the current stream. Each plane is marked as
+    used on the side stream (``record_stream``), so the caching allocator
+    does not hand it on before the copy is done. ``streams`` holds the
+    loop's side stream a device. Without an event (the CPU) the state is
+    returned as it is."""
+    if event is None:
+        return state
+    copies = []
+
+    def copy(x):
+        if not x.is_cuda:
+            return x
+        side = streams.get(x.device)
+        if side is None:
+            side = streams[x.device] = torch.cuda.Stream(x.device)
+        side.wait_event(event)
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        with torch.cuda.stream(side):
+            host.copy_(x, non_blocking=True)
+        x.record_stream(side)
+        copies.append(side)
+        return host
+
+    out = _map_tensors(copy, state)
+    for side in dict.fromkeys(copies):
+        side.synchronize()
+    return out
+
+
+def _count_hook_failure() -> None:
+    """One more chunk-boundary checkpoint failure in the registry."""
+    from ..utils import obs
+
+    obs.default_registry().counter(
+        "gossip_tpu_checkpoint_failed_total",
+        "chunk-boundary checkpoint-hook I/O failures survived under "
+        "hook_error='continue'",
+    ).inc()
+
+
 def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
                max_rounds: int, stride: int, depth: int,
                next_end: Optional[Callable[[int], int]] = None,
-               on_aux: Optional[Callable[[int, int, object], None]] = None
+               on_aux: Optional[Callable[[int, int, object], None]] = None,
+               on_retire: Optional[Callable[[int, object], None]] = None,
+               should_stop: Optional[Callable[[int, object], bool]] = None,
+               step_timing: bool = False, hook_error: str = "raise"
                ) -> ChunkLoopResult:
     """Drive ``dispatch(state, status, round_end) -> (state, status[,
     aux])`` to termination with up to ``depth`` chunks in flight.
@@ -221,15 +311,30 @@ def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
     ``end`` ends at ``next_end(end)`` (at most max_rounds). A third output,
     ``aux`` (the chunk's telemetry rows), is copied to the host with the
     status and handed to ``on_aux(rounds_before, rounds_after, aux)`` at
-    each retired chunk, in order."""
+    each retired chunk, in order.
+
+    ``on_retire(rounds, state)`` fires at each retired chunk, in order, and
+    ``should_stop(rounds, state)`` is asked at each retired chunk that did
+    not end the run; a True ends it there, the chunks in flight dropped.
+    Both get the retired state on the host (``_retired_to_host``).
+    ``step_timing`` adds ``t_retire`` and ``wall_s`` to each chunk_log
+    entry. ``hook_error`` is "raise" (an OSError in ``on_retire`` ends the
+    run) or "continue" (it is recorded in ``hook_failures`` and the run
+    goes on); see the module docstring."""
+    if hook_error not in ("raise", "continue"):
+        raise ValueError(
+            f"hook_error must be 'raise' or 'continue', got {hook_error!r}")
     depth = max(1, int(depth))
+    hooked = on_retire is not None or should_stop is not None
+    side_streams: dict = {}
     inflight: collections.deque = collections.deque()
     head = (state0, status0)
     last_end = start_round
     retired = 0
     dispatched = 0
-    dispatch_total = fetch_total = first_dispatch = aux_total = 0.0
+    dispatch_total = fetch_total = first_dispatch = aux_total = hook_total = 0.0
     chunk_log: list = []
+    hook_failures: list = []
 
     def fill() -> None:
         """Top the pipeline up. Chunks that could not advance past
@@ -241,7 +346,8 @@ def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
             last_end = (min(last_end + stride, max_rounds) if next_end is None
                         else min(next_end(last_end), max_rounds))
             t0 = time.perf_counter()
-            out = dispatch(head[0], head[1], last_end)
+            with torch.profiler.record_function("chunkloop.dispatch"):
+                out = dispatch(head[0], head[1], last_end)
             head = out[:2]
             disp_s = time.perf_counter() - t0
             dispatch_total += disp_s
@@ -251,7 +357,17 @@ def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
             aux = out[2] if len(out) > 2 else None
             inflight.append((head, _prefetch(head[1], aux), disp_s))
 
+    def result(carry, speculative: int = 0) -> ChunkLoopResult:
+        return ChunkLoopResult(
+            state=carry[0], rounds=rounds, done=done, chunks_retired=retired,
+            chunks_speculative=speculative, dispatch_s=dispatch_total,
+            fetch_s=fetch_total, first_dispatch_s=first_dispatch,
+            chunk_log=chunk_log, unhealthy_round=unhealthy, aux_s=aux_total,
+            hook_s=hook_total, hook_failures=hook_failures,
+        )
+
     fill()
+    t_prev = time.perf_counter()
     rounds, done, unhealthy = start_round, False, None
     final = head
     while inflight:
@@ -266,18 +382,104 @@ def run_chunks(*, dispatch: Callable, state0, status0, start_round: int,
         fetch_s = time.perf_counter() - t0
         fetch_total += fetch_s
         retired += 1
-        chunk_log.append(
-            {"rounds": rounds, "dispatch_s": disp_s, "fetch_s": fetch_s}
-        )
+        entry = {"rounds": rounds, "dispatch_s": disp_s, "fetch_s": fetch_s}
+        if step_timing:
+            t_retire = time.perf_counter()
+            entry["t_retire"] = t_retire
+            entry["wall_s"] = t_retire - t_prev
+            t_prev = t_retire
+        chunk_log.append(entry)
         final = cur
-        if done or rounds >= max_rounds:
+        ending = done or rounds >= max_rounds
+        if hooked and (on_retire is not None or not ending):
+            t_hook = time.perf_counter()
+            try:
+                host = _retired_to_host(cur[0], handle[1], side_streams)
+                if on_retire is not None:
+                    try:
+                        on_retire(rounds, host)
+                    except OSError as e:
+                        if hook_error != "continue":
+                            raise
+                        hook_failures.append(
+                            {"rounds": rounds, "error": f"{type(e).__name__}: {e}"})
+                        print(f"[pipeline] chunk-boundary hook failed at rounds="
+                              f"{rounds}: {e} — continuing (this interval's "
+                              "checkpoint is lost; --strict-checkpoint fails fast)",
+                              file=sys.stderr)
+                        _count_hook_failure()
+                stop = (not ending and should_stop is not None
+                        and should_stop(rounds, host))
+            finally:
+                hook_total += time.perf_counter() - t_hook
+            if stop:
+                # The run ends at this boundary; the chunks in flight ran
+                # rounds past it and are dropped unread.
+                return result(cur, len(inflight))
+        if ending:
             # Chunks still in flight are no-ops by the overshoot contract.
             inflight.clear()
             break
         fill()
-    return ChunkLoopResult(
-        state=final[0], rounds=rounds, done=done, chunks_retired=retired,
-        dispatch_s=dispatch_total, fetch_s=fetch_total,
-        first_dispatch_s=first_dispatch, chunk_log=chunk_log,
-        unhealthy_round=unhealthy, aux_s=aux_total,
+    return result(final)
+
+
+def step_timing_report(chunk_log, start_round: int = 0,
+                       per_process_t=None) -> Optional[dict]:
+    """The per-dispatch attribution record of a ``step_timing`` chunk_log
+    (the JAX package's): the wall of each retired chunk, the median and
+    max us a round, and the straggler section. Host arithmetic over a log
+    already collected; None when the log has no timing rows.
+    ``per_process_t`` is ``{process: [t_retire, ...]}`` from several
+    processes (``straggler_report``); one process reports zero skew."""
+    rows = [e for e in (chunk_log or ()) if "wall_s" in e]
+    if not rows:
+        return None
+    walls = [float(e["wall_s"]) for e in rows]
+    prev = start_round
+    per_round_us = []
+    rounds_list = []
+    for e, w in zip(rows, walls):
+        r = int(e["rounds"])
+        delta = r - prev
+        prev = r
+        rounds_list.append(r)
+        if delta > 0:
+            per_round_us.append(w / delta * 1e6)
+    srt = sorted(per_round_us)
+    straggler = (
+        straggler_report(per_process_t) if per_process_t else
+        {"processes": 1, "boundaries": len(rows),
+         "max_skew_s": 0.0, "median_skew_s": 0.0}
     )
+    return {
+        "dispatches": len(rows),
+        "wall_s": walls,
+        "rounds": rounds_list,
+        "median_us_per_round": srt[len(srt) // 2] if srt else None,
+        "max_us_per_round": srt[-1] if srt else None,
+        "straggler": straggler,
+    }
+
+
+def straggler_report(per_process_t) -> dict:
+    """Per-process skew from retire timestamps: boundary k's skew is
+    ``max_p t[p][k] - min_p t[p][k]``, over the shortest process log."""
+    cols = [list(map(float, ts)) for ts in (
+        per_process_t.values() if isinstance(per_process_t, dict)
+        else per_process_t
+    )]
+    cols = [c for c in cols if c]
+    if len(cols) < 2:
+        return {"processes": len(cols),
+                "boundaries": len(cols[0]) if cols else 0,
+                "max_skew_s": 0.0, "median_skew_s": 0.0}
+    n = min(len(c) for c in cols)
+    skews = [max(c[k] for c in cols) - min(c[k] for c in cols) for k in range(n)]
+    srt = sorted(skews)
+    return {
+        "processes": len(cols),
+        "boundaries": n,
+        "max_skew_s": srt[-1],
+        "median_skew_s": srt[len(srt) // 2],
+    }

@@ -74,6 +74,16 @@ whole-array lattice kernels (rows 1-2 and 5-6); every other fused tier
 demotes to the chunked engine under engine="auto" and raises under
 engine="fused", and the sharded fused compositions refuse it, with the JAX
 ladder's texts.
+
+Chunk-boundary hooks (the JAX runner's): ``run(on_chunk=...)`` calls
+``on_chunk(rounds, state)`` with the canonical state at every retired chunk
+(the CLI's checkpoint writer), and ``cfg.stall_chunks`` ends a run whose
+termination gap has not moved for that many chunks with outcome "stalled"
+(``StallWatchdog``), on every engine. Under a hook, the watchdog,
+``cfg.step_timing`` or ``fixed_chunks`` (the CLI's ``--events``) the chunked
+engine queues chunks of ``cfg.chunk_rounds`` rounds from the start round,
+the JAX chunked engine's boundaries; without them it keeps its growing
+chunks (``_FIRST_CHUNK`` up to chunk_rounds).
 """
 
 from __future__ import annotations
@@ -152,10 +162,13 @@ class RunResult:
     device: str = ""
     # Data, not measurements: excluded from to_record. ``state`` is the
     # final canonical PushSumState/GossipState; ``telemetry`` the run's
-    # ops/telemetry.TelemetryTrajectory when cfg.telemetry is on.
+    # ops/telemetry.TelemetryTrajectory when cfg.telemetry is on;
+    # ``hook_failures`` the checkpoint writes the run survived under
+    # hook_error="continue" ({"rounds", "error"}, in order), or None.
     chunk_log: Optional[list] = None
     state: Optional[object] = None
     telemetry: Optional[object] = None
+    hook_failures: Optional[list] = None
 
     @property
     def wall_ms(self) -> float:
@@ -166,7 +179,7 @@ class RunResult:
         rec = {
             f.name: getattr(self, f.name)
             for f in dataclasses.fields(self)
-            if f.name not in ("chunk_log", "state", "telemetry")
+            if f.name not in ("chunk_log", "state", "telemetry", "hook_failures")
         }
         rec["wall_ms"] = self.wall_ms
         rec["rounds_per_sec"] = self.rounds / self.run_s if self.run_s > 0 else None
@@ -174,6 +187,76 @@ class RunResult:
             self.run_s - self.dispatch_s - self.fetch_s - self.hook_s
         )
         return rec
+
+
+class StallWatchdog:
+    """The progress watchdog over chunk boundaries (cfg.stall_chunks, the
+    JAX runner's): a run whose termination gap (``_progress_gap``) has not
+    moved for ``stall_chunks`` retired chunks in a row ends with outcome
+    "stalled". One instance a run; the engines ask it only when
+    cfg.stall_chunks is set."""
+
+    def __init__(self, stall_chunks: int):
+        self.limit = int(stall_chunks)
+        self.stalled = False
+        self._last = None
+        self._misses = 0
+
+    def no_progress(self, metric: int) -> bool:
+        """Record this chunk's gap; True once it has been flat for
+        ``limit`` chunks in a row."""
+        if not self.limit:
+            return False
+        if metric == self._last:
+            self._misses += 1
+            if self._misses >= self.limit:
+                self.stalled = True
+        else:
+            self._last, self._misses = metric, 0
+        return self.stalled
+
+
+def _progress_gap(life, quorum: float, target: int, conv, rounds: int) -> int:
+    """The watchdog's metric at a boundary: the distance left to the
+    predicate done evaluates. Without a crash model, target minus the
+    converged count; under one (``life``, faults.life_planes), the quorum
+    need of the nodes alive in the last round run minus the converged
+    among them, so a need that falls as nodes die counts as progress while
+    the converged count stays flat. ``conv`` is a [n] bool array or tensor
+    on the host."""
+    conv_i = np.asarray(conv).astype(np.int32)
+    if life is None:
+        return int(target) - int(conv_i.sum())
+    alive = faults_mod.alive_at(life.death, rounds - 1, life.revive)
+    need = faults_mod.quorum_need(int(alive.sum()), quorum)
+    return int(need) - int(conv_i[alive].sum())
+
+
+def boundary_hooks(topo: Topology, cfg: SimConfig, target: int, on_chunk,
+                   canonical) -> tuple:
+    """The chunk loop's ``on_retire`` and ``should_stop`` for a run (each
+    None when not asked for) and its watchdog: ``canonical(rounds, state)``
+    turns the carry retired at ``rounds``, on the host, into the canonical
+    [n] state."""
+    watchdog = StallWatchdog(cfg.stall_chunks)
+    on_retire = should_stop = None
+    if on_chunk is not None:
+        def on_retire(rounds, state):
+            on_chunk(rounds, canonical(rounds, state))
+    if cfg.stall_chunks:
+        life = faults_mod.life_planes(cfg, topo.n)
+
+        def should_stop(rounds, state):
+            return watchdog.no_progress(_progress_gap(
+                life, cfg.quorum, target, canonical(rounds, state).conv, rounds))
+    return on_retire, should_stop, watchdog
+
+
+def hook_kw(cfg: SimConfig, on_retire, should_stop) -> dict:
+    """run_chunks's hook arguments for a run."""
+    return {"on_retire": on_retire, "should_stop": should_stop,
+            "step_timing": cfg.step_timing,
+            "hook_error": "raise" if cfg.strict_checkpoint else "continue"}
 
 
 def draw_leader(base_key, topo: Topology, cfg: SimConfig) -> int:
@@ -506,11 +589,13 @@ def _host_done(state, target: int, cfg: Optional[SimConfig] = None,
 
 def _finalize_result(topo: Topology, cfg: SimConfig, state, rounds: int,
                      target: int, compile_s: float, run_s: float, done: bool,
-                     loop, device, collector=None) -> RunResult:
+                     loop, device, collector=None,
+                     stalled: bool = False) -> RunResult:
     """The result record from the final canonical state, on the host in
     float64 (diagnostics, never trajectory state). A tripped health
     sentinel (``loop.unhealthy_round``) makes the outcome "unhealthy", and
-    the run is not converged whatever its count."""
+    the run is not converged whatever its count; a run the watchdog ended
+    (``stalled``) and not converged is "stalled"."""
     conv_np = state.conv.cpu().numpy()
     converged_count = int(conv_np.sum())
     unhealthy = getattr(loop, "unhealthy_round", None)
@@ -528,7 +613,8 @@ def _finalize_result(topo: Topology, cfg: SimConfig, state, rounds: int,
         compile_s=compile_s,
         run_s=run_s,
         outcome=("unhealthy" if unhealthy is not None
-                 else "converged" if done else "max_rounds"),
+                 else "converged" if done
+                 else "stalled" if stalled else "max_rounds"),
         unhealthy_round=unhealthy,
         device=describe_device(device),
     )
@@ -546,7 +632,10 @@ def _finalize_result(topo: Topology, cfg: SimConfig, state, rounds: int,
     result.fetch_s = loop.fetch_s
     result.first_dispatch_s = loop.first_dispatch_s
     result.aux_s = loop.aux_s
+    result.hook_s = loop.hook_s
     result.chunk_log = loop.chunk_log
+    if loop.hook_failures:
+        result.hook_failures = list(loop.hook_failures)
     result.state = state
     if collector is not None:
         result.telemetry = collector.finalize()
@@ -693,7 +782,7 @@ _SHARDED_NAMES = {
 
 def run(topo: Topology, cfg: SimConfig, key=None, device=None,
         start_state=None, start_round: int = 0, devices=None,
-        on_telemetry=None) -> RunResult:
+        on_telemetry=None, on_chunk=None, fixed_chunks: bool = False) -> RunResult:
     """Run one simulation to convergence or cfg.max_rounds.
 
     ``device`` is "cuda" (the default) or "cpu"; with no GPU and no
@@ -714,7 +803,13 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
 
     Under ``cfg.telemetry`` the result carries the run's rows
     (``RunResult.telemetry``), and ``on_telemetry(chunk_start_round,
-    rows)`` fires with each retired chunk's rows (ops/telemetry.Collector)."""
+    rows)`` fires with each retired chunk's rows (ops/telemetry.Collector).
+
+    ``on_chunk(rounds, state)`` fires at every retired chunk with the
+    canonical state on the host (CPU tensors, [n] entries: a sharded run's
+    padding stripped), the CLI's checkpoint hook. ``fixed_chunks`` gives
+    the chunked engine the JAX chunked engine's boundaries without a hook
+    (the CLI's ``--events``: its chunk-retired rounds are JAX's)."""
     t_enter = time.perf_counter()
     sharded = cfg.n_devices is not None and cfg.n_devices > 1
     if devices is not None and not sharded:
@@ -722,7 +817,7 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
                          f"n_devices is {cfg.n_devices}")
     if sharded:
         return _run_sharded(topo, cfg, key, device, devices, start_state,
-                            start_round, t_enter)
+                            start_round, t_enter, on_chunk)
     device = resolve_device(device)
     key = rng.PRNGKey(cfg.seed) if key is None else key
     target = cfg.resolved_target_count(topo.n, topo.target_count)
@@ -747,17 +842,17 @@ def run(topo: Topology, cfg: SimConfig, key=None, device=None,
                 raise ValueError(f"engine='fused' unavailable: {reason}")
             return _run_fused(topo, cfg, key, device, start_state,
                               start_round, target, t_enter, on_telemetry,
-                              variant)
+                              on_chunk, variant)
         if reason is None and device.type == "cuda":
             return _run_fused(topo, cfg, key, device, start_state,
                               start_round, target, t_enter, on_telemetry,
-                              variant)
+                              on_chunk, variant)
     return _run_chunked(topo, cfg, key, device, start_state, start_round,
-                        target, t_enter, on_telemetry)
+                        target, t_enter, on_telemetry, on_chunk, fixed_chunks)
 
 
 def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
-                 t_enter) -> RunResult:
+                 t_enter, on_chunk=None) -> RunResult:
     """The JAX ladder's n_devices > 1 step: the composition and its plan's
     reason (``sharded_tier``), JAX's ValueError where a plan refuses the
     config, and only then the port's own refusal by ROADMAP item: a
@@ -838,7 +933,8 @@ def _run_sharded(topo, cfg, key, device, devices, start_state, start_round,
         cfg.n_devices, devices,
         platform=resolve_device(device).type if devices is None else "cuda")
     key = rng.PRNGKey(cfg.seed) if key is None else key
-    return runs[tier](topo, cfg, mesh, key, start_state, start_round, t_enter)
+    return runs[tier](topo, cfg, mesh, key, start_state, start_round, t_enter,
+                      on_chunk=on_chunk)
 
 
 def _run_reference_walk(topo, cfg, key, device, target, t_enter) -> RunResult:
@@ -878,11 +974,14 @@ def _to_device(state, device):
 
 
 def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
-                 t_enter, on_telemetry=None) -> RunResult:
+                 t_enter, on_telemetry=None, on_chunk=None,
+                 fixed_chunks: bool = False) -> RunResult:
     """Chunk loop over the chunked engine: each chunk queues its rounds
     with the (rounds, done) status on the device, and the pipeline reads
     that status once a chunk (with the chunk's telemetry rows, copied
-    behind the same event)."""
+    behind the same event). Under a boundary observer (``on_chunk``, the
+    watchdog, step timing, ``fixed_chunks``) chunks are cfg.chunk_rounds
+    long from the start round, the JAX chunked engine's boundaries."""
     chunk_fn, state0 = _make_chunk_fn(topo, cfg, key, device, target)
     if start_state is not None:
         if cfg.delay_rounds > 0:
@@ -928,6 +1027,10 @@ def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
         # fraction of the run, at one status read a chunk.
         return end + min(K, max(_FIRST_CHUNK, (end - start_round) // 4))
 
+    on_retire, should_stop, watchdog = boundary_hooks(
+        topo, cfg, target, on_chunk, lambda _, st: pipeline_mod.proto_of(st))
+    fixed = (fixed_chunks or on_chunk is not None or cfg.stall_chunks > 0
+             or cfg.step_timing)
     collector = (telemetry_mod.Collector(start_round, on_rows=on_telemetry)
                  if cfg.telemetry else None)
     t1 = time.perf_counter()
@@ -937,14 +1040,17 @@ def _run_chunked(topo, cfg, key, device, start_state, start_round, target,
         # The CPU runs a chunk as it is queued: a second chunk in flight
         # would only add no-op rounds.
         depth=cfg.pipeline_chunks if device.type == "cuda" else 1,
-        next_end=next_end, on_aux=collector and collector.on_aux,
+        next_end=None if fixed else next_end,
+        on_aux=collector and collector.on_aux,
+        **hook_kw(cfg, on_retire, should_stop),
     )
     run_s = time.perf_counter() - t1
     t_fin = time.perf_counter()
     # The result's state is the protocol state alone (the JAX proto_of).
     result = _finalize_result(topo, cfg, pipeline_mod.proto_of(loop.state),
                               loop.rounds, target, compile_s, run_s,
-                              loop.done, loop, device, collector)
+                              loop.done, loop, device, collector,
+                              stalled=watchdog.stalled)
     result.setup_s = setup_s
     result.finalize_s = time.perf_counter() - t_fin
     return result
@@ -1023,6 +1129,14 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
         return keys, offs, fused_imp.choice_round_keys(key, start, count)
 
     if cfg.algorithm == "push-sum":
+        if start_state is not None and start_state.s.dtype != torch.float32:
+            # The JAX runner's refusal: a float64 checkpoint silently
+            # downcast to the float32-only fused tiers would lose precision.
+            raise ValueError(
+                "fused engine resume requires a float32 checkpoint, got "
+                f"{str(start_state.s.dtype).removeprefix('torch.')}; resume with "
+                "engine='chunked' (matching the checkpoint dtype) instead"
+            )
         st = start_state or pushsum_mod.init_state(n, cfg.initial_term_round)
         planes = (
             fused._pad2d(st.s.cpu().to(torch.float32), layout, 0.0),
@@ -1063,7 +1177,7 @@ def fused_engine(topo: Topology, cfg: SimConfig, key, variant: str,
 
 
 def _run_fused(topo, cfg, key, device, start_state, start_round, target,
-               t_enter, on_telemetry, variant) -> RunResult:
+               t_enter, on_telemetry, on_chunk, variant) -> RunResult:
     """Chunk loop over a fused engine: one chunk call per cfg.chunk_rounds
     rounds, with the per-round streams drawn on the host (the wrappers
     copy them to the device without a sync); under cfg.telemetry a chunk
@@ -1111,11 +1225,15 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
     status0 = torch.tensor([start_round, 0], dtype=torch.int64, device=device)
     collector = (telemetry_mod.Collector(start_round, on_rows=on_telemetry)
                  if cfg.telemetry else None)
+    # The hooks read the tier's planes on the host, in canonical form.
+    on_retire, should_stop, watchdog = boundary_hooks(
+        topo, cfg, target, on_chunk, lambda _, st: eng.to_canonical(st))
     t1 = time.perf_counter()
     loop = pipeline_mod.run_chunks(
         dispatch=dispatch, state0=state_dev, status0=status0,
         start_round=start_round, max_rounds=cfg.max_rounds, stride=K,
         depth=cfg.pipeline_chunks, on_aux=collector and collector.on_aux,
+        **hook_kw(cfg, on_retire, should_stop),
     )
     run_s = time.perf_counter() - t1
     t_fin = time.perf_counter()
@@ -1123,7 +1241,7 @@ def _run_fused(topo, cfg, key, device, start_state, start_round, target,
     result = _finalize_result(topo, cfg, final, loop.rounds, target,
                               compile_s, run_s,
                               _host_done(final, target, cfg, loop.rounds),
-                              loop, device, collector)
+                              loop, device, collector, stalled=watchdog.stalled)
     result.setup_s = setup_s
     result.finalize_s = time.perf_counter() - t_fin
     return result

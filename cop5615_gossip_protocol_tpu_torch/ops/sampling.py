@@ -17,8 +17,8 @@ import torch
 
 from . import rng
 
-# Version of the random-stream derivation scheme (the JAX package's
-# checkpoints record it; a port checkpoint will too, ROADMAP A8).
+# Version of the random-stream derivation scheme, the JAX package's: every
+# checkpoint records it (utils/checkpoint.py).
 STREAM_VERSION = 5
 
 _POOL_TAG = 0x0FF5

@@ -313,9 +313,9 @@ def hbm_tier(topo: Topology, cfg: SimConfig, n_dev: int) -> Tier:
 
 def run_stencil_hbm_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh,
                             key, start_state=None, start_round: int = 0,
-                            t_enter: Optional[float] = None):
+                            t_enter: Optional[float] = None, on_chunk=None):
     """Sharded streaming lattice run (engine='fused', n_devices > 1, past
     the resident tier's budget): parallel/fused_sharded.run_lattice_shards
     on this tier, chunks of CR * 8 rounds as in the JAX run."""
     return run_lattice_shards(topo, cfg, mesh, key, hbm_tier(topo, cfg, mesh.size),
-                              start_state, start_round, t_enter)
+                              start_state, start_round, t_enter, on_chunk)

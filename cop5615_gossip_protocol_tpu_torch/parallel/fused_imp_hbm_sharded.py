@@ -737,7 +737,7 @@ def make_gossip_imp_hbm_shard_chunk(topo: Topology, cfg: SimConfig, H: int,
 
 def run_imp_hbm_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
                         start_state=None, start_round: int = 0,
-                        t_enter: Optional[float] = None):
+                        t_enter: Optional[float] = None, on_chunk=None):
     """Sharded imp run (engine='fused', n_devices > 1, imp2d/imp3d with
     delivery='pool'), to convergence or cfg.max_rounds; returns the
     RunResult, its state the canonical [n] planes joined from the shards.
@@ -850,4 +850,5 @@ def run_imp_hbm_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key
     return run_round_supersteps(topo, cfg, ctl, start_round=start_round, target=target,
                                 t_enter=t_enter, library="fused_imp_hbm_shard", draw=draw,
                                 launch_round=launch_round, final_state=final_state,
-                                ahead=1, prologue=prologue, global_term=global_term)
+                                ahead=1, prologue=prologue, global_term=global_term,
+                                on_chunk=on_chunk)

@@ -708,7 +708,7 @@ def _start_mid(topo, cfg, key, mesh, rows_loc, layout, start_state):
 
 def run_lattice_shards(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
                        tier: Tier, start_state=None, start_round: int = 0,
-                       t_enter: Optional[float] = None):
+                       t_enter: Optional[float] = None, on_chunk=None):
     """A sharded lattice run on ``tier``, to convergence or cfg.max_rounds;
     returns the RunResult, its state the canonical [n] planes joined from
     the shards' middle rows.
@@ -723,11 +723,22 @@ def run_lattice_shards(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
     STEPS_PER_BATCH super-steps are queued through models/pipeline.py, one
     host sync each. Push-sum's global termination runs the super-steps
     serially with one host read each (``global_verdict``), as JAX does: the
-    run stops at the exact round, not at a super-step boundary."""
+    run stops at the exact round, not at a super-step boundary.
+
+    Under a boundary observer (``on_chunk``, the stall watchdog, step
+    timing) a dispatch is one JAX chunk of ``tier.stride`` rounds and the
+    loop runs at depth 1, since the next batch would overwrite the sets a
+    retired boundary's state lies in; the hooks read the joined [n] state,
+    padding stripped, on the host."""
     from ..models import gossip as gossip_mod
     from ..models import pipeline as pipeline_mod
     from ..models import pushsum as pushsum_mod
-    from ..models.runner import _finalize_result, _host_done
+    from ..models.runner import (
+        _finalize_result,
+        _host_done,
+        boundary_hooks,
+        hook_kw,
+    )
 
     t_enter = time.perf_counter() if t_enter is None else t_enter
     S, geom = mesh.size, tier.geom
@@ -872,25 +883,33 @@ def run_lattice_shards(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
         torch.cuda.synchronize(home)
     compile_s = time.perf_counter() - t0
 
+    def state_at(rounds, dev):
+        # The canonical state after ``rounds`` rounds, joined on ``dev``.
+        final = [sets[s][set_of_round[rounds]] for s in range(S)]
+        joined = [torch.cat([final[s][p][H:H + rows_loc].to(dev) for s in range(S)])
+                  .reshape(-1)[:n] for p in range(len(final[0]))]
+        if pushsum:
+            return pushsum_mod.PushSumState(s=joined[0], w=joined[1], term=joined[2],
+                                            conv=joined[3] != 0)
+        return gossip_mod.GossipState(count=joined[0], active=joined[1] != 0,
+                                      conv=joined[2] != 0)
+
+    on_retire, should_stop, watchdog = boundary_hooks(
+        topo, cfg, target, on_chunk, lambda rounds, _: state_at(rounds, "cpu"))
+    hooked = on_retire is not None or should_stop is not None or cfg.step_timing
     t1 = time.perf_counter()
     loop = pipeline_mod.run_chunks(
         dispatch=dispatch, state0=None, status0=ctrl[[1, 0]].to(torch.int64),
         start_round=start_round, max_rounds=cfg.max_rounds, stride=tier.stride,
-        depth=cfg.pipeline_chunks, next_end=next_end,
+        depth=1 if hooked else cfg.pipeline_chunks,
+        next_end=None if hooked else next_end,
+        **hook_kw(cfg, on_retire, should_stop),
     )
     run_s = time.perf_counter() - t1
     t_fin = time.perf_counter()
-    final = [sets[s][set_of_round[loop.rounds]] for s in range(S)]
-    joined = [torch.cat([final[s][p][H:H + rows_loc].to(home) for s in range(S)])
-              .reshape(-1)[:n] for p in range(len(final[0]))]
-    if pushsum:
-        state = pushsum_mod.PushSumState(s=joined[0], w=joined[1], term=joined[2],
-                                         conv=joined[3] != 0)
-    else:
-        state = gossip_mod.GossipState(count=joined[0], active=joined[1] != 0,
-                                       conv=joined[2] != 0)
+    state = state_at(loop.rounds, home)
     result = _finalize_result(topo, cfg, state, loop.rounds, target, compile_s,
-                              run_s, loop.done, loop, home)
+                              run_s, loop.done, loop, home, stalled=watchdog.stalled)
     result.setup_s = setup_s
     result.finalize_s = time.perf_counter() - t_fin
     return result
@@ -915,9 +934,9 @@ def vmem_tier(topo: Topology, cfg: SimConfig, n_dev: int) -> Tier:
 
 def run_fused_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
                       start_state=None, start_round: int = 0,
-                      t_enter: Optional[float] = None):
+                      t_enter: Optional[float] = None, on_chunk=None):
     """Sharded resident lattice run (engine='fused', n_devices > 1, while
     a shard fits the JAX plan's 100 MB budget): run_lattice_shards on this
     tier, chunks of chunk_rounds * 8 rounds as in the JAX run."""
     return run_lattice_shards(topo, cfg, mesh, key, vmem_tier(topo, cfg, mesh.size),
-                              start_state, start_round, t_enter)
+                              start_state, start_round, t_enter, on_chunk)

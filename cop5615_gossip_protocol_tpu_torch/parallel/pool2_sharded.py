@@ -99,9 +99,8 @@ def plan_pool2_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
     can't run: the JAX plan. ``wire`` is "reduce_scatter" (per-slot bands)
     or "all_gather" (the whole copy), cfg.resolved_pool2_wire with auto
     demoting to the gather wire when the band margin exceeds a shard. The
-    JAX plan's dtype and step-timing gates are the port config's own
-    refusals (ROADMAP A8, A12); its crash-recovery and telemetry gates are
-    here."""
+    JAX plan's dtype gate is the port config's own refusal (ROADMAP A12);
+    its crash-recovery, telemetry and step-timing gates are here."""
     if not topo.implicit:
         return (
             "the replicated-pool2 composition serves the implicit full "
@@ -126,6 +125,13 @@ def plan_pool2_sharded(topo: Topology, cfg: SimConfig, n_dev: int):
             "telemetry counters run in the single-device fused kernels and "
             "the chunked/sharded XLA engines; this composition does not "
             "carry the counter block"
+        )
+    if cfg.step_timing and cfg.overlap_collectives:
+        return (
+            "step_timing under the overlapped super-step schedule would "
+            "force the deferred termination psum to drain at every timed "
+            "boundary (a host sync inside the overlap window); use "
+            "overlap_collectives=False or step_timing=False"
         )
     if cfg.pool_size > 1 << POOL_CHOICE_BITS:
         return (
@@ -856,7 +862,7 @@ def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
                          start_round: int, target: int, t_enter: float, library: str,
                          draw, launch_round, final_state, ahead: int = 0,
                          prologue=None, verdict_in_launch: bool = False,
-                         need_of=None, global_term: bool = False):
+                         need_of=None, global_term: bool = False, on_chunk=None):
     """Run one-round super-steps to convergence or cfg.max_rounds and return
     the RunResult: chunks of STRIDE rounds queued through
     models/pipeline.py, one host sync each, each round's verdict ordered by
@@ -873,9 +879,12 @@ def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
     home device) where it is given, or under ``global_term`` with 0. ``library`` names the
     kernels' source, loaded (with the verdict's) before the run's clock
     starts; ``prologue()``, if given, is queued then too, ahead of the
-    first round."""
+    first round. Under a boundary observer (``on_chunk``, the stall
+    watchdog, step timing) the loop runs at depth 1, since the next chunk
+    would overwrite the planes a retired boundary's state lies in; the
+    hooks read ``final_state`` on the host."""
     from ..models import pipeline as pipeline_mod
-    from ..models.runner import _finalize_result
+    from ..models.runner import _finalize_result, boundary_hooks, hook_kw
 
     home = ctl.home
     streams = {}
@@ -922,16 +931,25 @@ def run_round_supersteps(topo: Topology, cfg: SimConfig, ctl: ShardControl, *,
         torch.cuda.synchronize(home)
     compile_s = time.perf_counter() - t0
 
+    def retired(rounds, _):
+        state = final_state(rounds % 2, bool(ctl.ctrl[0]))
+        return type(state)(*(x.cpu() for x in state))
+
+    on_retire, should_stop, watchdog = boundary_hooks(topo, cfg, target, on_chunk,
+                                                      retired)
+    hooked = on_retire is not None or should_stop is not None or cfg.step_timing
     t1 = time.perf_counter()
     loop = pipeline_mod.run_chunks(
         dispatch=dispatch, state0=None, status0=ctl.ctrl[[1, 0]].to(torch.int64),
         start_round=start_round, max_rounds=cfg.max_rounds, stride=STRIDE,
-        depth=cfg.pipeline_chunks,
+        depth=1 if hooked else cfg.pipeline_chunks,
+        **hook_kw(cfg, on_retire, should_stop),
     )
     run_s = time.perf_counter() - t1
     t_fin = time.perf_counter()
     result = _finalize_result(topo, cfg, final_state(loop.rounds % 2, loop.done),
-                              loop.rounds, target, compile_s, run_s, loop.done, loop, home)
+                              loop.rounds, target, compile_s, run_s, loop.done, loop, home,
+                              stalled=watchdog.stalled)
     result.setup_s = setup_s
     result.finalize_s = time.perf_counter() - t_fin
     return result
@@ -943,7 +961,7 @@ def _on_device(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
 
 def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
                       start_state=None, start_round: int = 0,
-                      t_enter: Optional[float] = None):
+                      t_enter: Optional[float] = None, on_chunk=None):
     """Sharded replicated-pool2 run (engine='fused', n_devices > 1, full
     with delivery='pool'), to convergence or cfg.max_rounds; returns the
     RunResult, its state the canonical [n] planes joined from the devices.
@@ -1107,4 +1125,4 @@ def run_pool2_sharded(topo: Topology, cfg: SimConfig, mesh: mesh_mod.Mesh, key,
                                 ahead=0 if faults is None else 1, prologue=prologue,
                                 verdict_in_launch=in_launch,
                                 need_of=None if faults is None else verdict_need,
-                                global_term=global_term)
+                                global_term=global_term, on_chunk=on_chunk)

@@ -121,10 +121,10 @@ def test_quiet_and_reference_format(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--stall-chunks", "2"], "A8"),
+    (["--deadline-ms", "100"], "A12"),
     (["--devices", "4"], "A10"),
     (["--replicas", "4"], "A9"),
-    (["--checkpoint", "x.npz"], "A8"),
+    (["--backend", "refsim"], "A11"),
 ])
 def test_unported_flag_names_roadmap_item(capsys, flag, item):
     rc = main(["1000", "full", "push-sum", "--delivery", "pool", "--platform",

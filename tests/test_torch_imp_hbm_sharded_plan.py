@@ -45,7 +45,7 @@ def _geom(plan):
 
 def _fields(jcfg):
     """The JAX config's fields as the port's plan reads them, for configs
-    the port's SimConfig refuses to build (ROADMAP A6, A7, A8, A12)."""
+    the port's SimConfig refuses to build (ROADMAP A6, A7, A12)."""
     fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
     return types.SimpleNamespace(**fields, reference=jcfg.reference,
                                  faulted=jcfg.faulted)

@@ -127,11 +127,11 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
 
 
 def test_unported_config_fields_name_roadmap_items():
-    for kw, item in (({"stall_chunks": 2}, "A8"), ({"replicas": 2}, "A9"),
-                     ({"step_timing": True}, "A8"),
+    for kw, item in (({"strict_engine": True}, "A12"), ({"replicas": 2}, "A9"),
+                     ({"halo_dma": "off"}, "A10"),
                      ({"dtype": "float64"}, "A12"), ({"halo_dma": "on"}, "A10"),
                      ({"topology": "full", "plan": "auto"}, "A11"),
-                     ({"topology": "imp3d", "strict_checkpoint": True}, "A8")):
+                     ({"topology": "imp3d", "dtype": "bfloat16"}, "A12")):
         fields = {"n": 100, "algorithm": "push-sum", "delivery": "pool", **kw}
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             SimConfig(**fields)

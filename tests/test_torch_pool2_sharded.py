@@ -438,7 +438,7 @@ def test_other_compositions_refuse_with_their_item(kind, n, kw, exc, words):
 
 
 def test_faults_and_matmul_stay_refused():
-    for kw, item in (({"replicas": 2}, "A9"), ({"step_timing": True}, "A8"),
+    for kw, item in (({"replicas": 2}, "A9"), ({"strict_engine": True}, "A12"),
                      ({"plan": "auto"}, "A11"), ({"halo_dma": "on"}, "A10")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             SimConfig(**{"n": 100_000, "algorithm": "push-sum", "delivery": "pool",

@@ -184,7 +184,7 @@ def test_lattice_configs_outside_the_slice_name_roadmap_items():
                      ({"topology": "imp3d", "halo_dma": "on"}, "A10"),
                      ({"topology": "ring", "plan": "auto"}, "A11"),
                      ({"topology": "line", "strict_engine": True}, "A12"),
-                     ({"topology": "torus3d", "stall_chunks": 2}, "A8")):
+                     ({"topology": "torus3d", "dtype": "float64"}, "A12")):
         fields = {"n": 1000, "algorithm": "push-sum", **kw}
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             SimConfig(**fields)
