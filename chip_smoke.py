@@ -366,11 +366,27 @@ non-zero before the last line:
    version) and the CPU's resumed on the card, both bitwise the card's run.
    Prints each checkpoint's write_s and the CLI runs' run_s beside the runs
    without hooks;
+14s. (run after 14r) the replica sweep and the lane server (ROADMAP A9a):
+   full 1,000,000 push-sum and gossip --replicas 8 through the CLI, kernel
+   A one launch a live lane a chunk on one stream (counted from zero around
+   each run), at the JAX package's baked rounds, replica 0 bitwise the
+   one-shot run(); grid2d 1,000,000 push-sum, 4 replicas to round 256
+   through run_replicas on stencil delivery (the chunked engine's torch
+   rounds) at JAX's baked rounds and converged counts, replica 0 bitwise the
+   one-shot run; serve_lanes at full 65,536 push-sum on 4 lanes with 8
+   tickets, one killed by its deadline at the first boundary, each ticket
+   bitwise its one-shot run and at JAX's baked rounds; and the same sweeps
+   and lane server at CPU sizes, every lane bitwise the port's CPU run.
+   Prints each sweep's wall a replica beside the one-shot run's and kernel
+   A's launches a chunk;
 
-Each of phases 5-14r prints its wall time.
+Each of phases 5-14s prints its wall time.
 
 Prints the ``kernels`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+
+``--phase 14s`` runs phase 14s alone (its kernels built on first use) and
+ends with ``{"ok": true, "mode": "phase 14s", "device": {...}}``.
 
 ``--cards N`` runs none of these phases: it runs the sharded imp path and
 the replicated-pool2 path with shard i on cuda:i against the same runs on
@@ -7507,6 +7523,250 @@ def persist_phase(dev):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ----------------------------------------------------------------- 14s
+# The replica sweep and the lane server (ROADMAP A9a) on the card. The
+# sweeps at 1,000,000 full run kernel A one lane at a time; the JAX
+# package's run_replicas on the CPU, seed 0, gives each replica's rounds
+# (every replica converged, so its converged count is n):
+#   run_replicas(build_topology("full", 10**6), SimConfig(n=10**6,
+#       algorithm=algorithm), 8)
+SWEEP_N = 1_000_000
+SWEEP_REPLICAS = 8
+SWEEP_JAX = {"push-sum": [674, 651, 677, 745, 627, 731, 650, 754],
+             "gossip": [56, 55, 53, 53, 52, 54, 54, 52]}
+# grid2d 1,000,000 push-sum, 4 replicas to max_rounds 256 on stencil
+# delivery (the chunked engine's torch rounds): (rounds, converged count) a
+# replica, from the same JAX call with topology="grid2d", max_rounds=256.
+SWEEP_GRID_REPLICAS = 4
+SWEEP_GRID_MAX = 256
+SWEEP_GRID_JAX = [(256, 2399), (256, 2462), (256, 2405), (256, 2500)]
+# The lane server at full 65,536 push-sum, chunk_rounds 64, on 4 lanes: the
+# ticket of seed 10 expires before the first boundary and is killed there;
+# seeds 11-17 follow, each converging at the rounds the JAX package's
+#   run_batched_keys(build_topology("full", 65536), SimConfig(n=65536,
+#       algorithm="push-sum", chunk_rounds=64), [11, ..., 17])
+# gives.
+SERVE_N = 65_536
+SERVE_LANES = 4
+SERVE_CHUNK = 64
+SERVE_DEAD = 10
+SERVE_JAX = {11: 630, 12: 602, 13: 619, 14: 700, 15: 642, 16: 565, 17: 606}
+# The same sweeps and lane server at populations the CPU runs in well under
+# a minute: every lane on the card bitwise the port's CPU run.
+SWEEP_SMALL = (("full", 10_000, "push-sum", SWEEP_REPLICAS, {}),
+               ("full", 10_000, "gossip", SWEEP_REPLICAS, {}),
+               ("grid2d", 10_000, "push-sum", SWEEP_GRID_REPLICAS,
+                {"max_rounds": SWEEP_GRID_MAX}))
+SERVE_SMALL_N = 2048
+
+
+class _Tickets:
+    """A lane source over a list of tickets: each poll hands out what the
+    free lanes take, and the results are kept by tag."""
+
+    def __init__(self, tickets):
+        self.todo = list(tickets)
+        self.results = {}
+
+    def poll(self, k):
+        out, self.todo = self.todo[:k], self.todo[k:]
+        return out
+
+    def on_result(self, ticket, res):
+        self.results[ticket.tag] = res
+
+    def on_boundary(self, active, lanes):
+        return True
+
+
+def serve_run(n, device=None):
+    """serve_lanes at full ``n`` push-sum on SERVE_LANES lanes: the killed
+    ticket, then SERVE_JAX's seeds. Returns (summary, {seed: LaneResult})."""
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models import sweep
+
+    tickets = [sweep.LaneTicket(key=SERVE_DEAD, tag=SERVE_DEAD,
+                                deadline=time.monotonic() - 1.0)]
+    tickets += [sweep.LaneTicket(key=s, tag=s) for s in SERVE_JAX]
+    src = _Tickets(tickets)
+    cfg = SimConfig(n=n, algorithm="push-sum", chunk_rounds=SERVE_CHUNK)
+    summary = sweep.serve_lanes(build_topology("full", n), cfg, src, SERVE_LANES,
+                                device=device)
+    return summary, src.results
+
+
+def cpu_sweep_runs():
+    """The port's CPU sweeps of SWEEP_SMALL and lane server at
+    SERVE_SMALL_N: {(kind, n, algorithm): (rounds, [[planes] a lane])} and
+    {"serve": {seed: (rounds, outcome, [planes])}}. Runs in the worker."""
+    import os
+
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology
+    from cop5615_gossip_protocol_tpu_torch.models import sweep
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    out = {}
+    for kind, n, algorithm, replicas, kw in SWEEP_SMALL:
+        res = sweep.run_replicas(build_topology(kind, n),
+                                 SimConfig(n=n, topology=kind, algorithm=algorithm, **kw),
+                                 replicas, device="cpu")
+        out[kind, n, algorithm] = (res.rounds, [[x.numpy() for x in st]
+                                                for st in res.final_states])
+    _, results = serve_run(SERVE_SMALL_N, "cpu")
+    out["serve"] = {s: (r.rounds, r.outcome, [x.numpy() for x in r.state])
+                    for s, r in results.items()}
+    return out
+
+
+def sweep_phase(dev, cpu_small):
+    """Phase 14s: the 1M full push-sum and gossip sweeps through the CLI
+    (--replicas 8, kernel A a lane at a time) at JAX's rounds, replica 0
+    bitwise the one-shot run; the grid2d 1M push-sum sweep on the chunked
+    engine's torch rounds at JAX's rounds and counts; the lane server at
+    full 65,536 with churn and a killed ticket, each ticket bitwise its
+    one-shot run; the same sweeps and lane server at CPU sizes bitwise the
+    port's CPU runs. Returns {algorithm: kernel A's sweep numbers}."""
+    import torch
+
+    from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
+    from cop5615_gossip_protocol_tpu_torch.models import sweep
+    from cop5615_gossip_protocol_tpu_torch.ops import scatter
+
+    counts = {"chunks": 0, "lanes": 0, "warm": 0}
+    real = {name: getattr(sweep.BatchEngine, name) for name in ("chunk", "_run_lane", "warm")}
+
+    def counted(name, key):
+        def fn(self, *args, **kw):
+            counts[key] += 1
+            return real[name](self, *args, **kw)
+        return fn
+
+    for name, key in (("chunk", "chunks"), ("_run_lane", "lanes"), ("warm", "warm")):
+        setattr(sweep.BatchEngine, name, counted(name, key))
+    kernels = {"push-sum": scatter.pushsum_scatter_chunk,
+               "gossip": scatter.gossip_scatter_chunk}
+    report = {}
+    try:
+        for algorithm, kern in kernels.items():
+            topo = build_topology("full", SWEEP_N)
+            cfg = SimConfig(n=SWEEP_N, algorithm=algorithm)
+            # The main path: the CLI as a user types it.
+            kern.launches = 0
+            counts.update(chunks=0, lanes=0, warm=0)
+            t0 = time.perf_counter()
+            rc, rec = cli_record([str(SWEEP_N), "full", algorithm, "--replicas",
+                                  str(SWEEP_REPLICAS)])
+            cli_s = time.perf_counter() - t0
+            launches, seen = kern.launches, dict(counts)
+            if rc != 0 or rec["rounds"] != SWEEP_JAX[algorithm] or not rec["all_converged"]:
+                raise AssertionError(f"full {SWEEP_N:,} {algorithm} --replicas "
+                                     f"{SWEEP_REPLICAS}: exit {rc}, rounds {rec['rounds']} "
+                                     f"!= JAX {SWEEP_JAX[algorithm]}")
+            # One launch of kernel A a live lane a chunk (and the warm-up's).
+            if not launches or launches != seen["lanes"] + seen["warm"]:
+                raise AssertionError(f"{algorithm} sweep: {launches} launches of kernel A "
+                                     f"for {seen['lanes']} lane chunks and "
+                                     f"{seen['warm']} warm-ups")
+            res = sweep.run_replicas(topo, cfg, SWEEP_REPLICAS)
+            one = run(topo, cfg)
+            if res.rounds != SWEEP_JAX[algorithm] or [
+                    int(st.conv.sum()) for st in res.final_states] != [SWEEP_N] * SWEEP_REPLICAS:
+                raise AssertionError(f"{algorithm} run_replicas: rounds {res.rounds}")
+            if one.rounds != res.rounds[0]:
+                raise AssertionError(f"{algorithm}: replica 0 ran {res.rounds[0]} rounds, "
+                                     f"the one-shot run {one.rounds}")
+            same_planes(f"{algorithm} replica 0 vs the one-shot run", res.final_states[0],
+                        one.state)
+            report[algorithm] = {
+                "launches": launches, "chunks": seen["chunks"],
+                "lane_chunks": seen["lanes"], "warm_launches": seen["warm"],
+                "launches_per_chunk": seen["lanes"] / max(seen["chunks"], 1),
+                "rounds": res.rounds, "sweep_run_s": res.run_s,
+                "sweep_ms_per_replica": res.wall_ms / SWEEP_REPLICAS,
+                "one_shot_run_s": one.run_s, "one_shot_rounds": one.rounds,
+                "cli_s": cli_s,
+                "estimate_mae_mean": res.estimate_mae_mean,
+            }
+            print(f"  full {SWEEP_N:,} {algorithm} --replicas {SWEEP_REPLICAS}: rounds "
+                  f"{res.rounds} (JAX's), {res.wall_ms / SWEEP_REPLICAS:.2f} ms a replica "
+                  f"against {one.run_s * 1e3:.2f} ms for the one-shot run; kernel A "
+                  f"{launches} launches, {seen['lanes']} lane chunks in {seen['chunks']} "
+                  f"chunk(s) (+{seen['warm']} warm-up)", flush=True)
+            del res, one
+            torch.cuda.empty_cache()
+        # A lattice on the chunked engine's torch rounds.
+        topo = build_topology("grid2d", SWEEP_N)
+        cfg = SimConfig(n=SWEEP_N, topology="grid2d", algorithm="push-sum",
+                        max_rounds=SWEEP_GRID_MAX)
+        res = sweep.run_replicas(topo, cfg, SWEEP_GRID_REPLICAS)
+        got = [(r, int(st.conv.sum())) for r, st in zip(res.rounds, res.final_states)]
+        if got != SWEEP_GRID_JAX:
+            raise AssertionError(f"grid2d {SWEEP_N:,} push-sum sweep: {got} != JAX "
+                                 f"{SWEEP_GRID_JAX}")
+        one = run(topo, cfg)
+        same_planes("grid2d replica 0 vs the one-shot run", res.final_states[0], one.state)
+        report["grid2d"] = {"rounds": res.rounds, "sweep_run_s": res.run_s,
+                            "one_shot_run_s": one.run_s}
+        print(f"  grid2d {SWEEP_N:,} push-sum, {SWEEP_GRID_REPLICAS} replicas to round "
+              f"{SWEEP_GRID_MAX}: converged counts {[c for _, c in got]} (JAX's), "
+              f"{res.wall_ms / SWEEP_GRID_REPLICAS:.1f} ms a replica against "
+              f"{one.run_s * 1e3:.1f} ms for the one-shot run (fused)", flush=True)
+        del res, one
+        # The lane server under churn and a killed ticket.
+        summary, results = serve_run(SERVE_N)
+        topo = build_topology("full", SERVE_N)
+        if (summary.served, summary.refills) != (len(SERVE_JAX) + 1,
+                                                  len(SERVE_JAX) + 1 - SERVE_LANES):
+            raise AssertionError(f"serve_lanes: {summary}")
+        dead = results[SERVE_DEAD]
+        if (dead.outcome, dead.rounds) != ("deadline_exceeded", SERVE_CHUNK):
+            raise AssertionError(f"the killed ticket: {dead.outcome} at {dead.rounds}")
+        want = run(topo, SimConfig(n=SERVE_N, algorithm="push-sum", seed=SERVE_DEAD,
+                                   max_rounds=SERVE_CHUNK))
+        same_planes("the killed ticket vs its one-shot run", dead.state, want.state)
+        for s, rounds in SERVE_JAX.items():
+            r = results[s]
+            if (r.outcome, r.rounds) != ("converged", rounds):
+                raise AssertionError(f"ticket {s}: {r.outcome} at {r.rounds} != JAX {rounds}")
+            one = run(topo, SimConfig(n=SERVE_N, algorithm="push-sum", seed=s,
+                                      chunk_rounds=SERVE_CHUNK))
+            same_planes(f"ticket {s} vs its one-shot run", r.state, one.state)
+        print(f"  serve_lanes full {SERVE_N:,} push-sum on {SERVE_LANES} lanes: "
+              f"{summary.served} tickets, {summary.refills} refills, {summary.chunks} "
+              f"chunks, the killed one at round {SERVE_CHUNK}; every ticket bitwise its "
+              f"one-shot run, at JAX's rounds", flush=True)
+        report["serve"] = {"served": summary.served, "refills": summary.refills,
+                           "chunks": summary.chunks, "run_s": summary.run_s}
+        # The small sweeps and lane server against the port's CPU runs.
+        for kind, n, algorithm, replicas, kw in SWEEP_SMALL:
+            res = sweep.run_replicas(build_topology(kind, n),
+                                     SimConfig(n=n, topology=kind, algorithm=algorithm, **kw),
+                                     replicas)
+            rounds, planes = cpu_small[kind, n, algorithm]
+            if res.rounds != rounds:
+                raise AssertionError(f"{kind} {n:,} {algorithm} sweep: {res.rounds} "
+                                     f"!= CPU {rounds}")
+            for lane, (st, want) in enumerate(zip(res.final_states, planes)):
+                same_planes(f"{kind} {n:,} {algorithm} lane {lane} vs the CPU", st, want)
+        _, results = serve_run(SERVE_SMALL_N)
+        for s, (rounds, outcome, planes) in cpu_small["serve"].items():
+            r = results[s]
+            if (r.rounds, r.outcome) != (rounds, outcome):
+                raise AssertionError(f"serve {SERVE_SMALL_N:,} ticket {s}: "
+                                     f"{(r.rounds, r.outcome)} != CPU {(rounds, outcome)}")
+            same_planes(f"serve {SERVE_SMALL_N:,} ticket {s} vs the CPU", r.state, planes)
+        print(f"  every lane of {[f'{k} {n:,} {a}' for k, n, a, _, _ in SWEEP_SMALL]} and "
+              f"of serve_lanes at {SERVE_SMALL_N:,} bitwise the port's CPU runs",
+              flush=True)
+    finally:
+        for name, fn in real.items():
+            setattr(sweep.BatchEngine, name, fn)
+    print(json.dumps({"metric": "replica_sweep_full_n1000000", **report}), flush=True)
+    return report
+
+
 def fail(msg: str) -> int:
     print(f"FAILED: {msg}", file=sys.stderr)
     return 1
@@ -7554,12 +7814,34 @@ def main() -> int:
     # against, in a spawned worker while the card runs the phases before.
     import multiprocessing
 
+    if "--phase" in sys.argv:
+        which = sys.argv[sys.argv.index("--phase") + 1]
+        if which != "14s":
+            return fail(f"--phase {which}: only phase 14s runs alone")
+        worker = multiprocessing.get_context("spawn").Pool(1)
+        try:
+            cpu_sweep = worker.apply_async(cpu_sweep_runs)
+            t0 = time.perf_counter()
+            sweep_phase(dev, cpu_sweep.get(timeout=900))
+            print(f"phase 14s (sweep_phase): {time.perf_counter() - t0:.1f} s", flush=True)
+        except Exception as e:
+            return fail(str(e))
+        finally:
+            worker.terminate()
+            worker.join()
+        print(smi)
+        print(json.dumps({"ok": True, "mode": "phase 14s", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     worker = multiprocessing.get_context("spawn").Pool(1)
     try:
         cpu_runs = (worker.apply_async(cpu_scatter_runs),
                     worker.apply_async(cpu_fault_runs),
                     worker.apply_async(cpu_fault2_runs),
-                    worker.apply_async(cpu_revive_runs))
+                    worker.apply_async(cpu_revive_runs),
+                    worker.apply_async(cpu_sweep_runs))
         return run_phases(torch, dev, smi, kernels, cpu_runs, t_main)
     finally:
         worker.terminate()
@@ -7568,7 +7850,7 @@ def main() -> int:
 
 def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
     """Phases 2-15 of the one-card run; ``cpu_runs`` are the worker's
-    pending results for phases 14g, 14j, 14k and 14n."""
+    pending results for phases 14g, 14j, 14k, 14n and 14s."""
     from cop5615_gossip_protocol_tpu_torch import SimConfig, build_topology, run
     from cop5615_gossip_protocol_tpu_torch.ops import fused_pool, rng
 
@@ -8005,9 +8287,11 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
         tele_cases, tele_err, tele_launches = phase("14p", tele_phase, dev, key)
         dd_cases, dd_err, dd_launches = phase("14q", dd_phase, dev, key)
         phase("14r", persist_phase, dev)
+        cpu_sweep = cpu_runs[4].get(timeout=900)
+        sweep_report = phase("14s", sweep_phase, dev, cpu_sweep)
     except Exception as e:
         return fail(str(e))
-    t15 += time.perf_counter() - t14m  # and 14m-14r's
+    t15 += time.perf_counter() - t14m  # and 14m-14s's
     # Rows 15-16 in their global instances, and kernel A, rows 1-2 and rows
     # 5-6 in their revive instances, beside their other instances.
     try:
@@ -8021,6 +8305,14 @@ def run_phases(torch, dev, smi, kernels, cpu_runs, t_main) -> int:
         return fail(str(e))
     for row in rows:
         row["main_path_rounds"] = MAIN_ROUNDS.get(row["name"])
+        # Kernel A on phase 14s's path: the 1M sweeps, a launch a live lane
+        # a chunk, counted from zero around each CLI run.
+        algo = {"pushsum_scatter_round": "push-sum",
+                "gossip_scatter_round": "gossip"}.get(row["name"])
+        if algo is not None:
+            row["sweep"] = {k: sweep_report[algo][k] for k in (
+                "launches", "chunks", "lane_chunks", "launches_per_chunk",
+                "sweep_ms_per_replica", "one_shot_run_s")}
     # The imp rows beside row 9 (the streaming lattice push-sum, the same
     # bytes bound as row 13), all from this run.
     us = {row["name"]: row["us_per_round"] for row in rows if "us_per_round" in row}

@@ -23,6 +23,7 @@
     python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum \\
         --delivery pool --pool-size 2 --checkpoint run.npz --checkpoint-keep 3 \\
         --resume auto --events events.jsonl --metrics-dump metrics.prom
+    python -m cop5615_gossip_protocol_tpu_torch 1000000 full push-sum --replicas 8
 
 runs on the GPU (``--platform cuda``, the default) or, when asked, on the
 CPU (``--platform cpu``). Flags keep the JAX CLI's names; a JAX CLI flag
@@ -50,7 +51,6 @@ UNPORTED_FLAGS = {
     "--deadline-ms": "A12",
     "--halo-dma": "A10", "--distributed": "A10",
     "--coordinator": "A10", "--num-processes": "A10", "--process-id": "A10",
-    "--replicas": "A9",
     "--strict-engine": "A12", "--compile-cache": "A12", "--plan": "A11",
 }
 
@@ -84,6 +84,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk-rounds", type=int, default=4096)
     p.add_argument("--pipeline-chunks", type=int, default=2,
                    help="chunks kept in flight (models/pipeline.py)")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="run this many replicas (distinct per-replica key "
+                   "streams, replica 0 = the unbatched run) of the "
+                   "configuration as the lanes of one batch engine and report "
+                   "per-replica + mean/CI95 statistics (models/sweep.py); "
+                   "chunked engines only")
     p.add_argument("--target-frac", type=float, default=None)
     p.add_argument("--suppress", choices=["auto", "on", "off"], default="auto",
                    help="suppress gossip sends to converged targets "
@@ -268,6 +274,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     given = [
         f for f in UNPORTED_FLAGS
         if getattr(args, f[2:].replace("-", "_")) is not None
+        # A sweep refuses --deadline-ms with the JAX CLI's text (below).
+        and not (f == "--deadline-ms" and args.replicas > 1)
     ]
     if given:
         print(
@@ -333,6 +341,8 @@ def main(argv: Optional[list[str]] = None) -> int:
             strict_checkpoint=args.strict_checkpoint,
             telemetry=args.telemetry or bool(args.trace_convergence),
             step_timing=args.step_timing,
+            # Config-level, so the sweep's contracts fail at config time.
+            replicas=args.replicas,
         )
         for w in cfg.lint_warnings:
             print(f"Warning: {w}", file=sys.stderr)
@@ -344,6 +354,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     except (ValueError, NotImplementedError) as e:
         print(f"Invalid: {e}", file=sys.stderr)
         return 2
+
+    if args.replicas > 1:
+        return _sweep(args, cfg, topo, build_s, device, metrics)
 
     events = _open_events(args.events, cfg, topo)
     try:
@@ -379,8 +392,12 @@ def main(argv: Optional[list[str]] = None) -> int:
         if report is not None:
             record["step_timing"] = report
     if args.metrics_dump:
+        from .serving import pool
         from .utils import obs
 
+        # The warm-engine pool's family is in the registry, as in the JAX
+        # CLI's dump; a one-shot run keeps no engine in it.
+        pool.default_pool()
         obs.observe_run_record(record, chunk_log=result.chunk_log,
                                telemetry=result.telemetry)
         if record.get("step_timing") is not None:
@@ -391,6 +408,63 @@ def main(argv: Optional[list[str]] = None) -> int:
     if args.jsonl:
         metrics.append_jsonl(args.jsonl, record)
     return 0 if result.converged else 1
+
+
+def _sweep(args, cfg: SimConfig, topo, build_s: float, device, metrics) -> int:
+    """``--replicas R`` (the JAX CLI's): R seeds of the configuration as
+    the lanes of one batch engine (models/sweep.run_replicas), the summary
+    line and the sweep record; exit 0 only when every replica converged.
+    The per-run observability flags are refused."""
+    for flag, set_ in (
+        ("--checkpoint", args.checkpoint),
+        ("--resume", args.resume),
+        ("--trace-convergence", args.trace_convergence),
+        ("--events", args.events),
+        # run_replicas collects per-replica trajectories (the API), but
+        # the CLI has no sweep serializer.
+        ("--telemetry", args.telemetry),
+        # The run-budget series of a metrics dump are per-run fields.
+        ("--metrics-dump", args.metrics_dump),
+        ("--step-timing", args.step_timing),
+        # run_batched_keys(deadline=) takes one; the sweep record has no
+        # per-replica outcome channel for partial results.
+        ("--deadline-ms", args.deadline_ms),
+    ):
+        if set_:
+            print(
+                f"Invalid: {flag} does not apply to --replicas sweeps "
+                "(per-run observability surfaces; run replicas "
+                "unbatched, or use models/sweep.run_replicas for "
+                "per-replica trajectories)",
+                file=sys.stderr,
+            )
+            return 2
+    from .models.sweep import run_replicas
+
+    try:
+        sres = run_replicas(topo, cfg, args.replicas, keep_states=False,
+                            device=device)
+    except (ValueError, NotImplementedError) as e:
+        print(f"Invalid: {e}", file=sys.stderr)
+        return 2
+    record = sres.to_record()
+    record["config"] = {
+        "n": cfg.n, "topology": cfg.topology,
+        "algorithm": cfg.algorithm, "seed": cfg.seed,
+    }
+    record["build_s"] = build_s
+    ci = f" ±{sres.rounds_ci95:.1f}" if sres.rounds_ci95 is not None else ""
+    print(
+        f"{args.replicas} replicas: rounds mean "
+        f"{sres.rounds_mean:.1f}{ci} (95% CI), wall "
+        f"{sres.wall_ms:.2f} ms total "
+        f"({sres.wall_ms / args.replicas:.2f} ms/replica)"
+    )
+    if not args.quiet:
+        print(json.dumps(record))
+    if args.jsonl:
+        metrics.append_jsonl(args.jsonl, record)
+    return 0 if sres.all_converged else 1
 
 
 def _open_events(path: Optional[str], cfg: SimConfig, topo):

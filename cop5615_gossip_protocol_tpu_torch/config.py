@@ -20,7 +20,8 @@ push-sum's global termination (ops/faults.py);
 aggregation and the health sentinel; ``telemetry`` the per-round counter
 rows (ops/telemetry.py); ``stall_chunks``, ``step_timing`` and
 ``strict_checkpoint`` the stall watchdog, the retire clocks of the chunk
-loop and its checkpoint-failure policy (models/pipeline.py). Every other
+loop and its checkpoint-failure policy (models/pipeline.py); ``replicas``
+the lane count of the replica sweep (models/sweep.py). Every other
 field keeps its default
 here, and setting it
 to anything else raises NotImplementedError naming the ROADMAP item that
@@ -37,6 +38,12 @@ TOPOLOGIES = (
 )
 ALGORITHMS = ("gossip", "push-sum")
 SEMANTICS = ("batched", "reference")
+
+# Replica-sweep / serving-batch lane cap (models/sweep.py re-exports it):
+# bounds the REPLICA_TAG0 fold_in region. Lives here so
+# SimConfig.__post_init__ can validate ``replicas`` without importing the
+# sweep engine.
+MAX_REPLICAS = 4096
 DELIVERIES = ("auto", "scatter", "stencil", "pool", "matmul")
 
 _CLI_TOPOLOGY_ALIASES = {
@@ -63,7 +70,6 @@ _CLI_ALGORITHM_ALIASES = {
 # (field, default, ROADMAP item) for every field this slice does not port.
 _UNPORTED = (
     ("dtype", "float32", "A12"),
-    ("replicas", 1, "A9"),
     ("halo_dma", "auto", "A10"),
     ("plan", "hand", "A11"),
     ("strict_engine", False, "A12"),
@@ -393,6 +399,49 @@ class SimConfig:
             value = getattr(self, field)
             if value != default:
                 raise unported(f"{field}={value!r}", item)
+        if not (1 <= self.replicas <= MAX_REPLICAS):
+            raise ValueError(
+                f"replicas must be in [1, {MAX_REPLICAS}], got "
+                f"{self.replicas} (the REPLICA_TAG0 fold_in region caps the "
+                "lane count — TAG MAP in ops/faults.py)"
+            )
+        if self.replicas > 1:
+            # The replica sweep runs the chunked engine lane by lane
+            # (models/sweep.py); its contracts fail at config time, as in
+            # the JAX package.
+            if self.engine == "fused":
+                raise ValueError(
+                    "engine='fused' does not apply to replica sweeps: the "
+                    "Pallas tiers opt out of the batch dimension "
+                    "(plan/tiering gate); the sweep always runs the chunked "
+                    "XLA engines — drop the engine override"
+                )
+            if self.semantics == "reference":
+                raise ValueError(
+                    "replica sweeps vmap the batched synchronous-round "
+                    "engines; reference semantics (single-walk push-sum, Q1 "
+                    "population) has no batched replica axis — use batched "
+                    "semantics"
+                )
+            if self.n_devices is not None and self.n_devices > 1:
+                raise ValueError(
+                    "replica sweeps are single-device (the replica axis IS "
+                    "the parallelism); drop n_devices or run replicas "
+                    "unbatched"
+                )
+            if self.stall_chunks:
+                raise ValueError(
+                    "stall_chunks watchdog semantics are per-run; a batched "
+                    "sweep has no single progress gap to watch — run stall "
+                    "diagnostics unbatched"
+                )
+            if self.mass_tolerance is not None:
+                raise ValueError(
+                    "the health sentinel (mass_tolerance) carries one "
+                    "per-run health scalar through the chunk loop; a "
+                    "batched sweep has no per-replica outcome channel for "
+                    "it — run health-sentinel diagnostics unbatched"
+                )
         if self.stall_chunks < 0:
             raise ValueError("stall_chunks must be >= 0")
         if self.pool2_wire not in ("auto", "reduce_scatter", "all_gather"):

@@ -286,9 +286,12 @@ def resolve_delivery(topo: Topology, cfg: SimConfig) -> str:
 def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
                    target: int):
     """The chunked engine's chunk on [n] tensors. Returns (chunk_fn(state,
-    status, start, end) -> (state, status), state0): rounds start..end
-    under the overshoot contract, ``status`` an int32 [2] (rounds, done)
-    tensor on the device, so a chunk queues its rounds with no host read.
+    status, start, end, key=None) -> (state, status), state0): rounds
+    start..end under the overshoot contract, ``status`` an int32 [2]
+    (rounds, done) tensor on the device, so a chunk queues its rounds with
+    no host read. ``key`` replaces ``base_key`` for one call: every stream
+    of the chunk is drawn from it (the replica sweep's lanes, models/sweep.py,
+    run one chunk function under their own keys).
     The drop gate and the dead leave a round's senders, dead nodes keep
     their protocol state, push-sum may terminate globally, and under a
     crash model a round is judged by the quorum of its live nodes (the JAX
@@ -349,17 +352,19 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
         if pushsum:
             fn = functools.partial(scatter.pushsum_scatter_chunk, graph=graph,
                                    target=target, delta=cfg.resolved_delta,
-                                   term_rounds=cfg.term_rounds, faults=faults,
-                                   telemetry=row_fn)
+                                   term_rounds=cfg.term_rounds, faults=faults)
         else:
             fn = functools.partial(scatter.gossip_scatter_chunk, graph=graph,
                                    target=target,
                                    rumor_target=cfg.resolved_rumor_target,
                                    suppress=cfg.resolved_suppress,
-                                   faults=faults, telemetry=row_fn)
+                                   faults=faults)
 
-        def scatter_chunk(state, status, start, end):
-            return fn(state, base_key, start, max(end - start, 0), status)
+        def scatter_chunk(state, status, start, end, key=None):
+            key = base_key if key is None else key
+            rows = row_fn and functools.partial(row_fn, key=key)
+            return fn(state, key, start, max(end - start, 0), status,
+                      telemetry=rows)
 
         return scatter_chunk, state0
 
@@ -377,8 +382,8 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
 
         ids = torch.arange(n, dtype=torch.int64, device=device)
 
-        def deliver_parts(round_idx: int):
-            kr = sampling.round_key(base_key, round_idx)
+        def deliver_parts(round_idx: int, key):
+            kr = sampling.round_key(key, round_idx)
             d, is_extra, choice, offs, _ = imp_pool_parts(
                 topo, cfg, kr, disp_cols, degree, device)
             if delivery == "matmul":
@@ -400,8 +405,8 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
 
         ids = torch.arange(n, dtype=torch.int64, device=device)
 
-        def deliver_parts(round_idx: int):
-            kr = sampling.round_key(base_key, round_idx)
+        def deliver_parts(round_idx: int, key):
+            kr = sampling.round_key(key, round_idx)
             offs = sampling.pool_offsets(kr, cfg.pool_size, n)
             choice = sampling.pool_choice_packed(kr, n, cfg.pool_size, device=device)
             if delivery == "matmul":
@@ -416,8 +421,8 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
         send_ok = degree > 0
         offsets = [int(d) for d in topo.offsets]
 
-        def deliver_parts(round_idx: int):
-            kr = sampling.round_key(base_key, round_idx)
+        def deliver_parts(round_idx: int, key):
+            kr = sampling.round_key(key, round_idx)
             bits = sampling.uniform_bits(kr, n, device=device)
             targets = sampling.targets_explicit(bits, neighbors, degree)
             return make_df(lambda values: delivery_mod.deliver_stencil(
@@ -438,13 +443,13 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     def alive(round_idx: int):
         return faults_mod.alive_at(death, round_idx, revive)
 
-    def gated(send_ok, round_idx: int):
+    def gated(send_ok, round_idx: int, key):
         """The round's senders: the drop gate's and the living among
         ``send_ok`` (the JAX runner's ``targets_and_gate``; revived nodes
         send again)."""
         if faults is None:
             return send_ok
-        gate = sampling.send_gate(sampling.round_key(base_key, round_idx), n,
+        gate = sampling.send_gate(sampling.round_key(key, round_idx), n,
                                   cfg.fault_rate, device=device)
         if gate is not True:
             send_ok = send_ok & gate
@@ -476,11 +481,11 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
 
         clip = cfg.robust_agg == "clip"
 
-        def round_fn(carry, round_idx):
+        def round_fn(carry, round_idx, key):
             state = pipeline_mod.proto_of(carry)
             state = rejoin(state, round_idx)
-            deliver = deliver_parts(round_idx)
-            ok = gated(send_ok, round_idx)
+            deliver = deliver_parts(round_idx, key)
+            ok = gated(send_ok, round_idx, key)
             s_send, w_send, s_keep, w_keep = pushsum_mod.halve_and_send(
                 state.s, state.w, ok, fold_s, fold_w
             )
@@ -508,11 +513,11 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     else:
         rumor_target, suppress = cfg.resolved_rumor_target, cfg.resolved_suppress
 
-        def round_fn(carry, round_idx):
+        def round_fn(carry, round_idx, key):
             state = pipeline_mod.proto_of(carry)
             state = rejoin(state, round_idx)
-            deliver = deliver_parts(round_idx)
-            vals = gossip_mod.send_values(state, gated(send_ok, round_idx))
+            deliver = deliver_parts(round_idx, key)
+            vals = gossip_mod.send_values(state, gated(send_ok, round_idx, key))
             inbox = deliver(vals[None])[0]
             if D:
                 inbox = pipeline_mod.ring_step(carry.ring, inbox, round_idx % D)
@@ -532,7 +537,8 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
     bad = (None if cfg.mass_tolerance is None
            else pipeline_mod.health_check(n, cfg.mass_tolerance))
 
-    def round_chunk(state, status, start, end):
+    def round_chunk(state, status, start, end, key=None):
+        key = base_key if key is None else key
         status = status.clone()
         state = pipeline_mod.own_ring(state)
         count = max(end - start, 0)
@@ -543,12 +549,12 @@ def _make_chunk_fn(topo: Topology, cfg: SimConfig, base_key, device,
         for k, rnd in enumerate(range(start, end)):
             verdict = {} if needs is None else {"alive": alive(rnd),
                                                 "need": int(needs[k])}
-            state = pipeline_mod.advance(state, round_fn(state, rnd), status,
+            state = pipeline_mod.advance(state, round_fn(state, rnd, key), status,
                                          target, bad=bad, **verdict)
             if rows is not None:
                 # The row after the round, from its output state.
                 rows[k] = row_fn(pipeline_mod.proto_of(state), rnd,
-                                 verdict.get("need"))
+                                 verdict.get("need"), key=key)
         return (state, status) if rows is None else (state, status, rows)
 
     return round_chunk, state0

@@ -130,12 +130,13 @@ def chunked_err(s, w, conv, tmean):
 
 def make_row_fn(topo: Topology, cfg: SimConfig, base_key, device=None,
                 fsum: Callable = sum_f32):
-    """``row_fn(state, round_idx, need=None) -> float32 [N_COLS]`` of the
-    chunked engine, on the state's device: the row after round
+    """``row_fn(state, round_idx, need=None, key=None) -> float32 [N_COLS]``
+    of the chunked engine, on the state's device: the row after round
     ``round_idx`` from its output state (the JAX ``make_row_fn``). ``need``
     is the round's quorum need under a crash model (faults.quorum_needs;
     taken from the live count on the host when None). The drop count
-    redraws the round's gate from the round key, as the round drew it;
+    redraws the round's gate from the round key of ``key`` (``base_key``
+    when None; a sweep lane passes its own), as the round drew it;
     float sums run in ``fsum``'s order (sum_f32: the JAX chunked engine's).
     The dup count redraws the round's dup gate the same way."""
     n = topo.n
@@ -149,7 +150,8 @@ def make_row_fn(topo: Topology, cfg: SimConfig, base_key, device=None,
     byz_np = faults_mod.byzantine_plane(cfg, n)
     byz = None if byz_np is None else torch.from_numpy(byz_np).to(device)
 
-    def row_fn(state, round_idx: int, need=None):
+    def row_fn(state, round_idx: int, need=None, key=None):
+        key = base_key if key is None else key
         dev = state.conv.device
         conv = state.conv
         conv_ct = conv.sum(dtype=torch.int32)
@@ -171,12 +173,12 @@ def make_row_fn(topo: Topology, cfg: SimConfig, base_key, device=None,
             act = state.active.sum(dtype=torch.int32)
         drops = dups = 0
         if cfg.fault_rate > 0:
-            gate = sampling.send_gate(sampling.round_key(base_key, round_idx), n,
+            gate = sampling.send_gate(sampling.round_key(key, round_idx), n,
                                       cfg.fault_rate, device=dev)
             fired = ~gate if alive is None else ~gate & alive
             drops = fired.sum(dtype=torch.int32)
         if cfg.dup_rate > 0:
-            dup = sampling.dup_gate(sampling.round_key(base_key, round_idx), n,
+            dup = sampling.dup_gate(sampling.round_key(key, round_idx), n,
                                     cfg.dup_rate, device=dev)
             dups = (dup if alive is None else dup & alive).sum(dtype=torch.int32)
         revived = 0 if revive is None else faults_mod.revived_at(

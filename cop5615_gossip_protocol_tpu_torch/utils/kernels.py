@@ -59,6 +59,19 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
+@functools.lru_cache(maxsize=None)
+def build_id() -> str:
+    """The identity of this checkout's kernel build: a hash of every
+    source under csrc/ and the nvcc flags (what ``library_path`` names each
+    library by). An engine that holds built kernels is keyed by it
+    (serving/keys.py)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build(name: str) -> tuple[Path, float]:
     """Compile ``csrc/<name>.cu`` unless its library exists. Returns the
     library path and the seconds spent compiling (0.0 when cached)."""

@@ -13,11 +13,12 @@ nodes into that range, so the estimate depends on it.
   module asserts, and the port's chunked engine gives them bitwise. If XLA
   stops flushing (or rewrites another keep), this fails first.
 - The one place the port does not follow: XLA's scalar remainder loop. A
-  fused loop over n nodes runs 8 lanes at a time, and in some compiled
-  rounds the last n mod 8 nodes take a scalar loop that keeps x -
-  flush(x / 2) (x itself where the half is flushed) instead of the
-  vector body's flush(x / 2). Which rounds do so depends on how XLA fuses
-  them; the port keeps the vector body's form for every node.
+  fused loop over n nodes runs 8 lanes at a time (sometimes with a
+  narrower vector epilogue), and its last few nodes take scalar code that
+  keeps x - flush(x / 2) (x itself where the half is flushed) instead of
+  the vector body's flush(x / 2). How many depends on the loop and on n
+  (test_c4_delay_ring_remainder_is_the_jax_round says more); the port
+  keeps the vector body's form for every node.
 - The three drained configs that had differed (line 200, ring 257, ref2d
   400 with crash and revive schedules and fresh rejoins): rounds, converged
   count and estimate_mae are the JAX package's baked values, and every s
@@ -190,6 +191,54 @@ def test_drained_run_differs_only_in_the_scalar_remainder():
     assert not any(differ[k].any() for k in ("s", "term", "conv"))
     assert np.nonzero(differ["w"])[0].tolist() == [896, 898]
     assert (tres.state.w[[896, 898]] == 0).all()
+
+
+
+# ROADMAP C4: grid3d 343 (stencil delivery) push-sum under the dup gate, the
+# delay ring and a crash rate, seed 5. Node 341 drains: at round 619 it
+# holds w = 2.2599908e-38, whose half is subnormal; at round 620 JAX keeps
+# 2.2599908e-38 and the port 0.0, and the estimates part from there. Round
+# 621 is the first boundary past it.
+C4_FIELDS = dict(n=343, topology="grid3d", algorithm="push-sum", engine="chunked",
+                 dup_rate=0.1, delay_rounds=2, crash_rate=0.003, quorum=0.9, seed=5,
+                 max_rounds=621)
+
+
+def test_c4_delay_ring_remainder_is_the_jax_round():
+    """The C4 pin: every s and w word, and the estimate, of the JAX chunked
+    engine at round 621.
+
+    It fails: the port keeps flush(w / 2) at node 341 where XLA's compiled
+    round keeps w - flush(w / 2). XLA emits each fused loop over the n
+    nodes as an LLVM loop, which the loop vectorizer splits into a vector
+    body, sometimes a narrower vector epilogue, and a scalar remainder;
+    the vector lanes keep flush(x / 2) and the scalar ones x - flush(x / 2).
+    At n = 343 the delay ring's keep-and-absorb loops run 8 lanes
+    interleaved by 4 over nodes 0-319, 4 lanes over 320-339 and scalar code
+    over 340-342 (the dump of this config). Which nodes fall to the scalar
+    code is LLVM's choice per loop and per trip count: from a state of all
+    1.91e-38 (scripts/xla_remainder_tails.py), line n = 257..288 under
+    stencil delivery keeps the remainder's w over the last r mod 2 nodes for
+    r = n mod 32 up to 4, r mod 4 for r in 5..27 and r mod 8 for r >= 28;
+    grid2d 900's stencil loop interleaves by 2 with no vector epilogue (4
+    scalar nodes); full 257..288 under scatter and pool delivery has no
+    scalar node at all. No rule of n and one vector width reproduces that,
+    so the port keeps the vector body's form for every node
+    (models/pushsum.halve_and_send) and this case stands failing.
+
+    Host of the measurement: Intel Xeon, 8 CPUs, flags with avx2, fma,
+    avx512f/dq/bw/vl, avx512_bf16, avx512_fp16, amx; XLA's loops carry
+    "prefer-vector-width"="256", so the vector body is 8 float32 lanes.
+    """
+    seen = {}
+    jres = jax_runner.run(jax_topology("grid3d", 343, seed=5), JaxConfig(**C4_FIELDS),
+                              on_chunk=lambda r, st: seen.update(state=st))
+    tres = run(build_topology("grid3d", 343, seed=5), SimConfig(**C4_FIELDS), device="cpu")
+    assert (tres.rounds, tres.converged_count, tres.outcome) == (
+        jres.rounds, jres.converged_count, jres.outcome) == (621, 68, "max_rounds")
+    differ = rf.planes_differ(seen["state"], tres.state)
+    assert {k: np.nonzero(v)[0].tolist() for k, v in differ.items() if v.any()} == {}
+    assert tres.estimate_mae == jres.estimate_mae
 
 
 # ------------------------------------------------------- the kernels' helpers

@@ -123,7 +123,7 @@ def test_quiet_and_reference_format(capsys):
 @pytest.mark.parametrize("flag,item", [
     (["--deadline-ms", "100"], "A12"),
     (["--devices", "4"], "A10"),
-    (["--replicas", "4"], "A9"),
+    (["--compile-cache", "cache"], "A12"),
     (["--backend", "refsim"], "A11"),
 ])
 def test_unported_flag_names_roadmap_item(capsys, flag, item):
@@ -136,7 +136,7 @@ def test_unported_flag_names_roadmap_item(capsys, flag, item):
 
 @pytest.mark.parametrize("argv,item", [
     (["1000", "full", "gossip", "--dtype", "float64"], "A12"),
-    (["1000", "full", "push-sum", "--replicas", "4"], "A9"),
+    (["1000", "ring", "push-sum", "--dtype", "bfloat16"], "A12"),
     (["1000", "imp2d", "gossip", "--plan", "auto"], "A11"),
     (["1000", "imp3d", "push-sum", "--strict-engine"], "A12"),
 ])

@@ -58,7 +58,10 @@ def test_importing_the_port_loads_no_jax():
         "cop5615_gossip_protocol_tpu_torch.parallel.fused_hbm_sharded, "
         "cop5615_gossip_protocol_tpu_torch.parallel.fused_imp_hbm_sharded, "
         "cop5615_gossip_protocol_tpu_torch.ops.scatter, "
-        "cop5615_gossip_protocol_tpu_torch.models.reference; "
+        "cop5615_gossip_protocol_tpu_torch.models.reference, "
+        "cop5615_gossip_protocol_tpu_torch.models.sweep, "
+        "cop5615_gossip_protocol_tpu_torch.serving.keys, "
+        "cop5615_gossip_protocol_tpu_torch.serving.pool; "
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cop5615_gossip_protocol_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -84,6 +87,15 @@ def test_entry_points_refuse_without_a_gpu(no_gpu, capsys):
         bench.main(["--n", "100"])
     assert main(["100", "full", "gossip", "--delivery", "pool"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+    assert main(["100", "full", "gossip", "--replicas", "2"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    from cop5615_gossip_protocol_tpu_torch.models import sweep
+
+    for call in (lambda: sweep.run_replicas(build_topology("full", 100), cfg, 2),
+                 lambda: sweep.run_batched_keys(build_topology("full", 100), cfg, [1]),
+                 lambda: sweep.serve_lanes(build_topology("full", 100), cfg, None, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_chip_smoke_fails_without_a_gpu(no_gpu):
@@ -127,7 +139,7 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
 
 
 def test_unported_config_fields_name_roadmap_items():
-    for kw, item in (({"strict_engine": True}, "A12"), ({"replicas": 2}, "A9"),
+    for kw, item in (({"strict_engine": True}, "A12"),
                      ({"halo_dma": "off"}, "A10"),
                      ({"dtype": "float64"}, "A12"), ({"halo_dma": "on"}, "A10"),
                      ({"topology": "full", "plan": "auto"}, "A11"),
@@ -135,3 +147,5 @@ def test_unported_config_fields_name_roadmap_items():
         fields = {"n": 100, "algorithm": "push-sum", "delivery": "pool", **kw}
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             SimConfig(**fields)
+    # replicas is ported (models/sweep.py).
+    assert SimConfig(n=100, algorithm="push-sum", delivery="pool", replicas=2).replicas == 2

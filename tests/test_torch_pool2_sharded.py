@@ -438,11 +438,16 @@ def test_other_compositions_refuse_with_their_item(kind, n, kw, exc, words):
 
 
 def test_faults_and_matmul_stay_refused():
-    for kw, item in (({"replicas": 2}, "A9"), ({"strict_engine": True}, "A12"),
+    for kw, item in (({"strict_engine": True}, "A12"),
                      ({"plan": "auto"}, "A11"), ({"halo_dma": "on"}, "A10")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             SimConfig(**{"n": 100_000, "algorithm": "push-sum", "delivery": "pool",
                          "n_devices": 4, "engine": "fused", **kw})
+    # Replicas are ported, and a sweep refuses the fused engine (the JAX
+    # config's text).
+    with pytest.raises(ValueError, match="does not apply to replica sweeps"):
+        SimConfig(n=100_000, algorithm="push-sum", delivery="pool", n_devices=4,
+                  engine="fused", replicas=2)
     # The dup gate and the delay ring stay refused by the plan, with the
     # JAX plan's text; matmul runs here (tests/test_torch_matmul.py), and
     # the VMEM replicated composition refuses it with JAX's text.

@@ -180,14 +180,15 @@ def test_resident_tiers_dispatch_on_cuda_and_run_under_fused(kind, n, algorithm,
 
 
 def test_lattice_configs_outside_the_slice_name_roadmap_items():
-    for kw, item in (({"topology": "imp2d", "replicas": 2}, "A9"),
-                     ({"topology": "imp3d", "halo_dma": "on"}, "A10"),
+    for kw, item in (({"topology": "imp3d", "halo_dma": "on"}, "A10"),
                      ({"topology": "ring", "plan": "auto"}, "A11"),
                      ({"topology": "line", "strict_engine": True}, "A12"),
                      ({"topology": "torus3d", "dtype": "float64"}, "A12")):
         fields = {"n": 1000, "algorithm": "push-sum", **kw}
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             SimConfig(**fields)
+    # Replicas are ported (models/sweep.py).
+    assert SimConfig(n=1000, algorithm="push-sum", topology="imp2d", replicas=2).replicas == 2
     with pytest.raises(ValueError, match="delivery='pool' applies"):
         SimConfig(n=1000, topology="grid2d", delivery="pool")
     with pytest.raises(ValueError, match="offset-structured"):
